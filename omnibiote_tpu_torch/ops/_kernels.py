@@ -1,0 +1,108 @@
+"""Build and bind the port's CUDA kernels.
+
+Each `csrc/<name>.cu` has a plain C interface and compiles with `nvcc` for
+`sm_90a` into `build/lib<name>.so` beside this file at first use (or all at
+once, in parallel, through `build_all`), and is loaded with ctypes. Nothing
+is built or loaded at import: a CPU-only host imports this module freely.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+from typing import Dict, List
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+SRC_DIR = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(_HERE, "build")
+
+# Launches per kernel wrapper: each wrapper adds one where it launches.
+LAUNCHES: Dict[str, int] = {"mh_flash_fwd": 0}
+
+_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+
+_c = ctypes
+_SIGNATURES = {
+    "mh_flash_fwd": {
+        "obt_mh_flash_fwd": (_c.c_int, [
+            _c.c_void_p, _c.c_void_p, _c.c_void_p,     # q, k, v
+            _c.c_void_p, _c.c_void_p, _c.c_void_p,     # seg, cos, sin
+            _c.c_void_p, _c.c_void_p, _c.c_void_p,     # k_rot, o, lse2
+            _c.c_int, _c.c_int, _c.c_int, _c.c_int,    # B, T, H, D
+            _c.c_float, _c.c_int, _c.c_void_p]),       # scale_log2, dtype, stream
+        "obt_cuda_error_string": (_c.c_char_p, [_c.c_int]),
+    },
+}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (CUDA_HOME); the kernels "
+                           "build with nvcc on a host with the toolkit")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def _so_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"lib{name}.so")
+
+
+def _stale(name: str) -> bool:
+    so = _so_path(name)
+    src = os.path.join(SRC_DIR, f"{name}.cu")
+    deps = [src] + [os.path.join(SRC_DIR, f) for f in os.listdir(SRC_DIR)
+                    if f.endswith(".cuh")]
+    return (not os.path.exists(so)
+            or os.path.getmtime(so) < max(os.path.getmtime(d) for d in deps))
+
+
+def build_all(names: List[str] = None, verbose: bool = False) -> Dict[str, str]:
+    """Compile the named kernels (default: all), one nvcc process per
+    source, all started together. Returns {name: compiler output}; raises
+    with the compiler's output if any build fails."""
+    names = list(_SIGNATURES) if names is None else names
+    todo = [n for n in names if _stale(n)]
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for n in todo:
+        tmp = f"{_so_path(n)}.{os.getpid()}.tmp"
+        cmd = [nvcc, *_NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-o", tmp, os.path.join(SRC_DIR, f"{n}.cu")]
+        procs[n] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs, failed = {}, []
+    for n, (tmp, p) in procs.items():
+        logs[n] = p.communicate()[0]
+        if p.returncode != 0:
+            failed.append(n)
+        else:
+            os.replace(tmp, _so_path(n))
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                           + "\n".join(logs[n] for n in failed))
+    return logs
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library `name`, built first if it is missing or
+    older than its sources."""
+    lib = _libs.get(name)
+    if lib is None:
+        if _stale(name):
+            build_all([name])
+        lib = ctypes.CDLL(_so_path(name))
+        for fn, (restype, argtypes) in _SIGNATURES[name].items():
+            getattr(lib, fn).restype = restype
+            getattr(lib, fn).argtypes = argtypes
+        _libs[name] = lib
+    return lib
