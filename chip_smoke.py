@@ -7,19 +7,30 @@ Run from the root of a checkout on a host with one H100 (sm_90a), the CUDA
 toolkit and g++. It
 
   1. builds the port's CUDA kernels (nvcc, one process per source, all at
-     once) and its tokenizer (g++) from the checkout's sources;
+     once) and its tokenizer (g++) from the checkout's sources, printing
+     each kernel's registers and spills;
   2. kernel phase: holds each kernel against its plain PyTorch version on
-     the card, at the main path's shapes, in bf16 and fp32, over packed,
-     padded and dense segment layouts, and times the kernel, the plain
-     version and one PyTorch library call that computes the same function;
-  3. slice phase: builds the `Encoder` at omnibiote-small full width (8
+     the card, at the main paths' shapes, in bf16 and fp32, over packed,
+     padded and dense segment layouts: the forward without dropout (the
+     serving path) and with dropout 0.1, the backward at dropout 0 and
+     0.1 (and once at T=2048); and times each kernel, its plain version
+     and one PyTorch library call that computes the same function;
+  3. serving slice: builds the `Encoder` at omnibiote-small full width (8
      layers, d 1024, 8 heads of 128, vocab 65536, bf16 compute, random
      weights from a seed, a BPE vocabulary trained on synthetic sequences),
      encodes 64 sequences of mixed lengths with every pooling, masked and
      leaky, checks that every layer's attention went through the kernel,
      holds the embeddings against the same model with the plain attention,
      and times `encode(..., "mean")` at B=32, T=1024;
-  4. prints the card's name and power limit, one JSON line of kernel
+  4. training slice, omnibiote-small at full width with dropout 0.1:
+     one micro-batch of `mlm_loss` and its backward, and one train step
+     with two accumulation slots, each run on the kernels and again on the
+     plain versions with the same weights, batch and seeds (loss, every
+     gradient's cosine, grad_norm); then the training CLI for 4 steps over
+     synthetic token shards (launch counts, finite loss, the final
+     checkpoint reloaded) and one more step resumed from that checkpoint;
+     then train-step throughput at bench.py's shape;
+  5. prints the card's name and power limit, one JSON line of kernel
      numbers, and last the line {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script then exits non-zero without the
@@ -141,6 +152,8 @@ def _attn_bound(B, T, H, D):
 
 
 def kernel_phase():
+    """The forward kernel without dropout (the serving path) against its
+    plain version, and timed at the serving shape."""
     import torch
     import torch.nn.functional as F
     from omnibiote_tpu_torch.models.rope import apply_rope_half
@@ -149,7 +162,6 @@ def kernel_phase():
 
     H, D = 8, 128
     scale = 1.0 / math.sqrt(D)
-    worst = {}
     cases = [(4, 1024, dt, lay) for dt in ("bfloat16", "float32")
              for lay in ("packed", "padded", "dense")]
     cases += [(32, 384, "bfloat16", "padded"), (32, 1024, "bfloat16", "dense")]
@@ -173,7 +185,6 @@ def kernel_phase():
               f"max|dlse2| {err_l:.3e} (rtol {rl}, atol {al})")
         check(ok_o and ok_l, f"kernel disagrees with its plain version at "
               f"{(B, T, dtype, layout)}")
-        worst[dtype] = max(worst.get(dtype, 0.0), err_o)
         del q, k, v, o, lse, po, plse
 
     # timing at the main path's shape: encode at B=32, T=1024, bf16, no mask
@@ -199,12 +210,156 @@ def kernel_phase():
           f"({tflops:.1f} TFLOP/s), plain {plain_ms:.4f} ms, SDPA "
           f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); padded: "
           f"kernel {ms_pad:.4f} ms, SDPA with mask {library_pad:.4f} ms")
-    return {"name": "mh_flash_fwd", "route": "cuda",
-            "source": "omnibiote_tpu_torch/ops/csrc/mh_flash_fwd.cu",
-            "replaces": "omnibiote_tpu/ops/flash_attention.py:545",
-            "launches": None, "max_abs_err": worst["bfloat16"],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+
+
+# Backward kernel vs its plain version, relative to max|g| of the plain
+# gradient: fp32 differs in the order of fp32 sums (dq's atomics add in an
+# order that changes from run to run) and in exp2f's last bits; in bf16 the
+# outputs are rounded to bf16 (2^-9 of the largest value) and an fp32
+# difference can flip the bf16 rounding of a p_drop or ds operand.
+BWD_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+# The training shape of bench.py (mini-batch 16, ctx 1024, omnibiote-small
+# heads) and its dropout.
+TRAIN_SHAPE = dict(B=16, T=1024, H=8, D=128)
+TRAIN_DROPOUT = 0.1
+
+
+def _bwd_bound(B, T, H, D):
+    """(bound_ms, bound_by) of one bf16 backward call: five products
+    (10·B·T²·H·D) over the bf16 peak, against the bytes of q, k, v, do, dq,
+    dk, dv (bf16), lse2 and di (fp32) and the fp32 dq scratch, written and
+    read once, over HBM bandwidth."""
+    flops = 10.0 * B * T * T * H * D
+    nbytes = 7 * B * T * H * D * 2 + 2 * B * T * H * 4 + 2 * B * T * H * D * 4
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _rel_err(got, want):
+    return ((got.float() - want.float()).abs().max() /
+            want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def train_kernel_phase():
+    """Both kernels of the training path against their plain versions
+    (forward with dropout, backward with and without), then timed at the
+    training shape. Returns the two rows of the kernels line."""
+    import torch
+    import torch.nn.functional as F
+    from omnibiote_tpu_torch.models.rope import apply_rope_half
+    from omnibiote_tpu_torch.ops.flash_attention import (
+        KERNEL_KV_TILE, mh_flash_backward_kernel, mh_flash_backward_plain,
+        mh_flash_forward, mh_flash_forward_plain)
+
+    H, D = 8, 128
+    scale = 1.0 / math.sqrt(D)
+    worst_f = worst_b = 0.0
+    cases = [(4, 1024, dt, lay) for dt in ("bfloat16", "float32")
+             for lay in ("packed", "padded", "dense")] + [(2, 2048, "bfloat16", "packed")]
+    for i, (B, T, dtype, layout) in enumerate(cases):
+        tdt = getattr(torch, dtype)
+        q, k, v, seg, rope = _attn_inputs(B, T, H, D, tdt, layout, seed=100 + i)
+        gen = torch.Generator(device="cuda").manual_seed(200 + i)
+        do = torch.randn(B, T, H, D, generator=gen, device="cuda").to(tdt)
+        seed = 0x9E3779B97F4A7C15 + i
+        rt, at = TOL[dtype]["o"]
+        rl, al = TOL[dtype]["lse"]
+        if T == 1024:
+            o, lse = mh_flash_forward(q, k, v, seg, rope, scale=scale,
+                                      dropout_rate=TRAIN_DROPOUT, seed=seed)
+            torch.cuda.synchronize()
+            po, plse = mh_flash_forward_plain(
+                q, k, v, seg, rope, scale=scale, block_kv=KERNEL_KV_TILE[tdt],
+                dropout_rate=TRAIN_DROPOUT, seed=seed)
+            check(torch.isfinite(o.float()).all() and torch.isfinite(lse).all(),
+                  f"non-finite forward output at {(B, T, dtype, layout)}")
+            err_o = (o.float() - po.float()).abs().max().item()
+            print(f"fwd dropout {TRAIN_DROPOUT} vs plain B={B} T={T} {dtype:8s} "
+                  f"{layout:6s}: max|do| {err_o:.3e} (rtol {rt}, atol {at}) "
+                  f"max|dlse2| {(lse - plse).abs().max().item():.3e}")
+            check(torch.allclose(o.float(), po.float(), rtol=rt, atol=at)
+                  and torch.allclose(lse, plse, rtol=rl, atol=al),
+                  f"forward with dropout disagrees at {(B, T, dtype, layout)}")
+            if dtype == "bfloat16":
+                worst_f = max(worst_f, err_o)
+        for rate in ((0.0, TRAIN_DROPOUT) if T == 1024 else (TRAIN_DROPOUT,)):
+            po, plse = mh_flash_forward_plain(q, k, v, seg, rope, scale=scale,
+                                              dropout_rate=rate, seed=seed)
+            di = (po.float() * do.float()).sum(-1)
+            got = mh_flash_backward_kernel(q, k, v, do, plse, di, seg, rope,
+                                           scale=scale, dropout_rate=rate, seed=seed)
+            torch.cuda.synchronize()
+            want = mh_flash_backward_plain(q, k, v, do, plse, di, seg, rope,
+                                           scale=scale, dropout_rate=rate, seed=seed)
+            errs = [_rel_err(g, w) for g, w in zip(got, want)]
+            print(f"bwd dropout {rate} vs plain B={B} T={T} {dtype:8s} {layout:6s}: "
+                  f"max|d|/max|g| dq {errs[0]:.2e} dk {errs[1]:.2e} dv {errs[2]:.2e} "
+                  f"(tolerance {BWD_TOL[dtype]})")
+            check(all(torch.isfinite(g.float()).all() for g in got),
+                  f"non-finite backward output at {(B, T, dtype, layout, rate)}")
+            check(max(errs) <= BWD_TOL[dtype],
+                  f"backward kernel disagrees at {(B, T, dtype, layout, rate)}")
+            if dtype == "bfloat16":
+                worst_b = max(worst_b, max(
+                    (g.float() - w.float()).abs().max().item() for g, w in zip(got, want)))
+            del got, want
+        del q, k, v, do
+
+    # timing at the training shape: bf16, RoPE, packed rows, dropout 0.1
+    B, T = TRAIN_SHAPE["B"], TRAIN_SHAPE["T"]
+    q, k, v, seg, rope = _attn_inputs(B, T, H, D, torch.bfloat16, "packed", 77)
+    gen = torch.Generator(device="cuda").manual_seed(78)
+    do = torch.randn(B, T, H, D, generator=gen, device="cuda").to(torch.bfloat16)
+    seed, rate = 12345, TRAIN_DROPOUT
+    fwd = lambda: mh_flash_forward(q, k, v, seg, rope, scale=scale,
+                                   dropout_rate=rate, seed=seed)
+    fwd_ms = cuda_ms(fwd, 20)
+    fwd_plain_ms = cuda_ms(lambda: mh_flash_forward_plain(
+        q, k, v, seg, rope, scale=scale, dropout_rate=rate, seed=seed), 3, warmup=1)
+    o, lse = fwd()
+    di = (o.float() * do.float()).sum(-1)
+    bwd_ms = cuda_ms(lambda: mh_flash_backward_kernel(
+        q, k, v, do, lse, di, seg, rope, scale=scale, dropout_rate=rate,
+        seed=seed), 20)
+    bwd_plain_ms = cuda_ms(lambda: mh_flash_backward_plain(
+        q, k, v, do, lse, di, seg, rope, scale=scale, dropout_rate=rate,
+        seed=seed), 3, warmup=1)
+    # the same calls without dropout: what the Philox draw costs
+    fwd_nodrop_ms = cuda_ms(lambda: mh_flash_forward(q, k, v, seg, rope, scale=scale), 20)
+    bwd_nodrop_ms = cuda_ms(lambda: mh_flash_backward_kernel(
+        q, k, v, do, lse, di, seg, rope, scale=scale), 20)
+    # library yardsticks: SDPA with dropout (dense; it has no segment ids),
+    # and its backward as (forward + backward) - forward through autograd
+    qr, kr = apply_rope_half(q, k, *rope)
+    qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_() for x in (qr, kr, v))
+    doh = do.transpose(1, 2).contiguous()
+    sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, dropout_p=rate, scale=scale)
+    with torch.no_grad():
+        lib_fwd_ms = cuda_ms(sdpa, 20)
+    lib_fb_ms = cuda_ms(lambda: torch.autograd.grad(sdpa(), (qh, kh, vh), doh), 20)
+    lib_bwd_ms = lib_fb_ms - lib_fwd_ms
+    fwd_bound, fwd_by = _attn_bound(B, T, H, D)
+    bwd_bound, bwd_by = _bwd_bound(B, T, H, D)
+    print(f"training shape B={B} T={T} H={H} D={D} bf16 packed dropout {rate}: "
+          f"mh_flash_fwd {fwd_ms:.4f} ms (plain {fwd_plain_ms:.4f}, SDPA "
+          f"{lib_fwd_ms:.4f}, bound {fwd_bound:.4f} {fwd_by}); mh_flash_bwd "
+          f"{bwd_ms:.4f} ms ({10.0 * B * T * T * H * D / (bwd_ms * 1e-3) / 1e12:.1f} "
+          f"TFLOP/s; plain {bwd_plain_ms:.4f}, SDPA backward {lib_bwd_ms:.4f}, "
+          f"bound {bwd_bound:.4f} {bwd_by}); without dropout: mh_flash_fwd "
+          f"{fwd_nodrop_ms:.4f} ms, mh_flash_bwd {bwd_nodrop_ms:.4f} ms")
+    fwd_row = {"name": "mh_flash_fwd", "route": "cuda",
+               "source": "omnibiote_tpu_torch/ops/csrc/mh_flash_fwd.cu",
+               "replaces": "omnibiote_tpu/ops/flash_attention.py:545",
+               "launches": None, "max_abs_err": worst_f, "ms": fwd_ms,
+               "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound,
+               "bound_by": fwd_by, "library_ms": lib_fwd_ms}
+    bwd_row = {"name": "mh_flash_bwd", "route": "cuda",
+               "source": "omnibiote_tpu_torch/ops/csrc/mh_flash_bwd.cu",
+               "replaces": "omnibiote_tpu/ops/flash_attention.py:965",
+               "launches": None, "max_abs_err": worst_b, "ms": bwd_ms,
+               "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound,
+               "bound_by": bwd_by, "library_ms": lib_bwd_ms}
+    return fwd_row, bwd_row
 
 
 # ---------------------------------------------------------------------------
@@ -230,7 +385,7 @@ def slice_phase(workdir):
     from omnibiote_tpu_torch import init_params, encode, preset
     from omnibiote_tpu_torch.api import Encoder
     from omnibiote_tpu_torch.ops import _kernels
-    from omnibiote_tpu_torch.ops import attention as port_attention
+    from omnibiote_tpu_torch.ops import flash_attention as port_flash
     from omnibiote_tpu_torch.ops.flash_attention import mh_flash_forward_plain
     from omnibiote_tpu_torch.tokenizer import SentencePieceProcessor, train_bpe
 
@@ -287,8 +442,8 @@ def slice_phase(workdir):
           f"launches {launches}")
 
     # the same model with the plain attention on the card
-    kernel_fn = port_attention.mh_flash_forward
-    port_attention.mh_flash_forward = mh_flash_forward_plain
+    kernel_fn = port_flash.mh_flash_forward
+    port_flash.mh_flash_forward = mh_flash_forward_plain
     try:
         worst = 1.0
         for method, masked in runs:
@@ -301,7 +456,7 @@ def slice_phase(workdir):
                   f"{method}/{masked}: min row cosine {cos.min().item():.6f} "
                   f"vs the plain attention < {MIN_COSINE}")
     finally:
-        port_attention.mh_flash_forward = kernel_fn
+        port_flash.mh_flash_forward = kernel_fn
     check(_kernels.LAUNCHES == launches, "the plain run launched the kernel")
     print(f"slice: kernel path vs plain attention, min row cosine {worst:.7f} "
           f"(threshold {MIN_COSINE})")
@@ -325,6 +480,225 @@ def slice_phase(workdir):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 4. training slice
+# ---------------------------------------------------------------------------
+
+# Kernel run vs plain run of the training path (bf16 compute, the same
+# dropout masks): the forward's bf16 roundings differ by an ulp here and
+# there and the backward's dq sums in another order, so the loss is held to
+# 1e-2, every parameter gradient to a cosine of 0.99 with the plain run's,
+# and the step's grad_norm to a relative 1e-2.
+TRAIN_LOSS_ATOL = 1e-2
+TRAIN_GRAD_COS = 0.99
+TRAIN_GNORM_RTOL = 1e-2
+
+
+def bench_batches(batch, ctx, seed):
+    """bench.py's training batches: random tokens, three EOS a row."""
+    import numpy as np
+    from omnibiote_tpu_torch.config import EOS_TOKEN
+    from omnibiote_tpu_torch.ops.segments import segment_ids_np
+
+    rng = np.random.default_rng(seed)
+    while True:
+        toks = rng.integers(20, 65000, size=(batch, ctx)).astype(np.int32)
+        for r in range(batch):
+            toks[r, rng.integers(32, ctx, size=3)] = EOS_TOKEN
+        yield {"tokens": toks, "segments": segment_ids_np(toks)}
+
+
+def _plain_attention():
+    """Context: both attention directions on their plain versions."""
+    import contextlib
+    from omnibiote_tpu_torch.ops import flash_attention as fa
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = fa.mh_flash_forward, fa.mh_flash_backward
+        fa.mh_flash_forward = fa.mh_flash_forward_plain
+        fa.mh_flash_backward = fa.mh_flash_backward_plain
+        try:
+            yield
+        finally:
+            fa.mh_flash_forward, fa.mh_flash_backward = saved
+    return ctx()
+
+
+def _write_shards(root, n_tokens, seed):
+    """Synthetic token shards of the 'mixed' mixture's train and val dirs:
+    sequences of 50-3000 random ids, each ended by EOS."""
+    import numpy as np
+    from omnibiote_tpu_torch.config import EOS_TOKEN
+
+    rng = np.random.default_rng(seed)
+    for corpus in ("genbank/train", "uniref100/train", "genbank/val", "uniref100/val"):
+        d = os.path.join(root, corpus)
+        os.makedirs(d)
+        toks = rng.integers(20, 65000, size=n_tokens).astype(np.int32)
+        ends = np.cumsum(rng.integers(50, 3000, size=n_tokens // 50))
+        toks[ends[ends < n_tokens]] = EOS_TOKEN
+        np.save(os.path.join(d, "shard0.npy"), toks)
+
+
+def train_slice_phase(workdir):
+    """The training path at omnibiote-small width; returns the launches of
+    its main-path run (the CLI)."""
+    import copy
+    import json as _json
+    import torch
+    from omnibiote_tpu_torch import num_params, preset
+    from omnibiote_tpu_torch.config import TrainConfig
+    from omnibiote_tpu_torch.models.omnibiota import init_params
+    from omnibiote_tpu_torch.ops import _kernels
+    from omnibiote_tpu_torch.training import cli
+    from omnibiote_tpu_torch.training.checkpoint import load_model_checkpoint
+    from omnibiote_tpu_torch.training.metrics import flops_per_token, mfu
+    from omnibiote_tpu_torch.training.mlm import mlm_loss
+    from omnibiote_tpu_torch.training.optim import make_optimizer
+    from omnibiote_tpu_torch.training.train import (
+        Trainer, _compute_copy, make_train_step)
+
+    mini, accum, ctx = 16, 2, 1024
+    cfg = preset("omnibiote-small", vocab_size=65536, dropout=TRAIN_DROPOUT)
+    check((cfg.n_layer, cfg.n_embd, cfg.n_head, cfg.block_size, cfg.compute_dtype)
+          == (8, 1024, 8, ctx, "bfloat16"), f"unexpected omnibiote-small config {cfg}")
+    L = cfg.n_layer
+    tc = TrainConfig(batch_size=mini * accum, mini_batch_size=mini, ctx_len=ctx,
+                     token_budget=float(mini * accum * ctx * 10000), seed=0)
+    batch = next(bench_batches(mini * accum, ctx, seed=1))
+    tokens = torch.from_numpy(batch["tokens"]).cuda().view(accum, mini, ctx)
+    segments = torch.from_numpy(batch["segments"]).cuda().view(accum, mini, ctx)
+
+    # -- one micro-batch: mlm_loss and its backward, kernels vs plain ------
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = init_params(gen, cfg, device="cuda")
+
+    def loss_and_grads():
+        params_c = _compute_copy(dict(model.named_parameters()), cfg)
+        loss, _ = mlm_loss(model, tokens[0], segments[0], 1234, params=params_c)
+        grads = torch.autograd.grad(loss, list(params_c.values()))
+        return loss.item(), dict(zip(params_c, grads))
+
+    _kernels.reset_launches()
+    loss_k, grads_k = loss_and_grads()
+    launches = dict(_kernels.LAUNCHES)
+    check(launches == {"mh_flash_fwd": L, "mh_flash_bwd": L},
+          f"one micro-batch launched {launches}, want {L} of each")
+    with _plain_attention():
+        loss_p, grads_p = loss_and_grads()
+    check(_kernels.LAUNCHES == launches, "the plain run launched a kernel")
+    worst_cos = min(torch.nn.functional.cosine_similarity(
+        grads_k[n].double().flatten(), grads_p[n].double().flatten(), dim=0).item()
+        for n in grads_k)
+    print(f"train micro-batch (mini {mini}, T {ctx}, dropout {TRAIN_DROPOUT}): loss "
+          f"kernels {loss_k:.6f} plain {loss_p:.6f} (|d| {abs(loss_k - loss_p):.2e}, "
+          f"limit {TRAIN_LOSS_ATOL}); worst gradient cosine {worst_cos:.6f} over "
+          f"{len(grads_k)} tensors (limit {TRAIN_GRAD_COS})")
+    check(abs(loss_k - loss_p) <= TRAIN_LOSS_ATOL, "micro-batch loss: kernels vs plain")
+    check(worst_cos >= TRAIN_GRAD_COS, "micro-batch gradients: kernels vs plain")
+    del grads_k, grads_p
+
+    # -- one train step with A = 2, kernels vs plain ----------------------
+    twin = copy.deepcopy(model)
+
+    def one_step(m):
+        params = dict(m.named_parameters())
+        opt = make_optimizer(list(params), cfg, tc, 10000)
+        state = opt.init(params)
+        step = make_train_step(m, cfg, tc, opt)
+        return step(params, state, tokens, segments, [1.0] * accum, 99, 0)
+
+    _kernels.reset_launches()
+    met_k = one_step(model)
+    gn_k = float(met_k["grad_norm"])
+    launches = dict(_kernels.LAUNCHES)
+    check(launches == {"mh_flash_fwd": L * accum, "mh_flash_bwd": L * accum},
+          f"one train step launched {launches}, want {L * accum} of each")
+    with _plain_attention():
+        met_p = one_step(twin)
+    gn_p = float(met_p["grad_norm"])
+    check(_kernels.LAUNCHES == launches, "the plain step launched a kernel")
+    print(f"train step A={accum}: grad_norm kernels {gn_k:.6f} plain {gn_p:.6f} "
+          f"(relative {abs(gn_k - gn_p) / gn_p:.2e}, limit {TRAIN_GNORM_RTOL}); loss "
+          f"{float(met_k['loss']):.6f} vs {float(met_p['loss']):.6f}; launches {launches}")
+    check(abs(gn_k - gn_p) <= TRAIN_GNORM_RTOL * gn_p, "train step grad_norm: kernels vs plain")
+    del model, twin, met_k, met_p
+    torch.cuda.empty_cache()
+
+    # -- the CLI: the training main path -----------------------------------
+    data = os.path.join(workdir, "data")
+    _write_shards(data, 600_000, seed=2)
+    log = os.path.join(workdir, "metrics.jsonl")
+    steps = 4
+    argv = ["--base_dir", data, "--train_type", "mixed", "--n_layer", str(L),
+            "--n_embd", "1024", "--n_head", "8", "--ctx_len", str(ctx),
+            "--dropout", str(TRAIN_DROPOUT), "--mini_batch_size", str(mini),
+            "--batch_size", str(mini * accum), "--max_steps", str(steps),
+            "--save_dir", os.path.join(workdir, "ckpt"), "--metrics_jsonl", log,
+            "--log_every", "1", "--test_freq", "50000"]
+    print("train CLI: python -m omnibiote_tpu_torch.training.cli " + " ".join(argv))
+    # main path: every count at 0 just before, read just after
+    _kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    trainer = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    reloaded, _ = load_model_checkpoint(os.path.join(workdir, "ckpt", "omnibiota"))
+    for n, p in reloaded.named_parameters():
+        check(torch.equal(p, trainer.params[n]), f"checkpoint reload differs at {n}")
+    del trainer, reloaded
+    torch.cuda.empty_cache()
+    # and one more step, resumed from that checkpoint
+    resumed = cli.main(argv[:argv.index("--max_steps")] + ["--max_steps", "1"]
+                       + argv[argv.index("--max_steps") + 2:] + ["--resume_from", "-1"])
+    torch.cuda.synchronize()
+    main_launches = dict(_kernels.LAUNCHES)
+    with open(log) as f:
+        recs = [_json.loads(line) for line in f]
+    losses = [r["loss"] for r in recs if "loss" in r]
+    probes = [k for r in recs for k in r if k.startswith("test_loss/")]
+    want = {"mh_flash_fwd": (steps + 1) * L * accum + len(probes) * L,
+            "mh_flash_bwd": (steps + 1) * L * accum}
+    print(f"train CLI: {steps} steps in {wall:.2f} s, the final checkpoint "
+          f"reloads equal to the trainer's parameters, 1 step resumed from it "
+          f"(step {resumed.step}); losses {[round(x, 4) for x in losses]}, "
+          f"{len(probes)} validation probes ({L} forward launches each), "
+          f"launches {main_launches} (want {want})")
+    check(resumed.step == steps + 1, f"resumed run ended at step {resumed.step}")
+    check(len(losses) == steps + 1 and all(math.isfinite(x) for x in losses),
+          f"CLI losses {losses}")
+    check(main_launches == want, f"CLI launches {main_launches}, want {want}")
+    del resumed
+    torch.cuda.empty_cache()
+
+    # -- throughput at bench.py's shape ------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    with Trainer(cfg, tc, batch_iter=bench_batches(mini * accum, ctx, seed=3),
+                 prefetch=2) as tr:
+        for _ in range(3):
+            tr.train_step_once()
+        torch.cuda.synchronize()
+        n = 10
+        t0 = time.time()
+        for _ in range(n):
+            m = tr.train_step_once()
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        loss = float(m["loss"])
+        fpt = flops_per_token(num_params(tr.model, non_embedding=True), L,
+                              cfg.n_embd, ctx)
+    tps = n * mini * accum * ctx / dt
+    peak = torch.cuda.max_memory_allocated()
+    check(math.isfinite(loss), f"non-finite throughput-run loss {loss}")
+    print(f"train throughput B={mini * accum} (mini {mini} x accum {accum}) T={ctx} "
+          f"dropout {TRAIN_DROPOUT} bf16: {tps:.1f} tokens/s, {1e3 * dt / n:.3f} ms a "
+          f"step, peak allocated {peak / 2**30:.2f} GiB, MFU {mfu(tps, fpt):.4f} vs the "
+          f"H100 bf16 dense peak ({fpt / 1e9:.4f} GFLOP a token), loss {loss:.4f}")
+    return main_launches
+
+
 def main():
     import torch
 
@@ -340,13 +714,19 @@ def main():
           f"CUDA {torch.version.cuda}")
     print(gpu_name_and_power())
     build()
-    row = kernel_phase()
+    kernel_phase()
+    rows = train_kernel_phase()
     with tempfile.TemporaryDirectory() as workdir:
-        launches = slice_phase(workdir)
-    row["launches"] = launches[row["name"]]
+        serving = slice_phase(workdir)
+        print(f"serving main path launches: {serving}")
+        launches = train_slice_phase(workdir)
+    for row in rows:
+        row["launches"] = launches[row["name"]]
     check(all(n > 0 for n in launches.values()),
-          f"a kernel of the main path was never launched: {launches}")
-    print(json.dumps({"kernels": [row]}))
+          f"a kernel of the training main path was never launched: {launches}")
+    check(serving["mh_flash_fwd"] > 0, "the serving path never launched mh_flash_fwd")
+    print(gpu_name_and_power())
+    print(json.dumps({"kernels": list(rows)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,10 +4,13 @@ NVIDIA H100.
 Public surface (what the port has so far; see ROADMAP.md):
   * config.OmniBioTAConfig — typed model configuration
   * models.omnibiota — OmniBioTA / init_params / forward / encode
-  * ops — multi-head flash attention (hand-written CUDA kernel), segment
-    ids, the dense reference attention
+  * ops — multi-head flash attention (hand-written CUDA kernels, forward
+    and backward), segment ids, the dense reference attention
   * tokenizer — SentencePiece-compatible BPE (C++ core, ctypes binding)
   * api.Encoder — strings in, pooled embeddings out
+  * training — MLM loss, µP AdamW, the train step, Trainer, checkpoints
+    and the pretraining CLI (`python -m omnibiote_tpu_torch.training.cli`)
+  * data — the token-shard pipeline and the device prefetcher
 """
 from .config import (
     OmniBioTAConfig,

@@ -3,13 +3,17 @@
 Field for field the model configuration of `omnibiote_tpu/config.py`, so a
 `meta.json` written by either package loads in the other. Fields that only
 steer the JAX package's compiler (`scan_layers`, `remat_policy`,
-`checkpoint_freq`, `fused_ce`) are carried for that compatibility and have
-no effect on the port's inference path.
+`checkpoint_freq`, `fused_ce`) are carried for that compatibility; the
+training modes they select that the port has not ported yet raise.
+`TrainConfig` is the JAX package's pretraining configuration field for
+field, including its TPU-mesh fields, so a checkpoint's meta.json carries
+over both ways.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 
@@ -127,3 +131,78 @@ def preset(name: str, **overrides) -> OmniBioTAConfig:
     kw = dict(PRESETS[name])
     kw.update(overrides)
     return OmniBioTAConfig(**kw)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Pretraining configuration (the reference CLI's flags,
+    train_encoder.py:438-466, plus the JAX package's additions).
+
+    The mesh fields (`dp_axis`, `mesh_shape`, `sharding`), `rng_impl` and
+    `async_checkpoint` are carried for meta.json compatibility; the port
+    trains on one device, so `sharding` other than 'replicated' and a
+    `mesh_shape` raise in the Trainer (ROADMAP Queue 1, item 9)."""
+
+    batch_size: int = 1024          # global batch
+    mini_batch_size: int = 8        # micro-batch (gradient accumulation)
+    ctx_len: int = 2048
+    lr: float = 1e-2                # µP LR; scaled by sqrt(batch_size)/32
+    beta1: float = 0.9
+    beta2: float = 0.999
+    epsilon: float = 1e-8
+    weight_decay: float = 1e-2
+    token_budget: float = 20e9
+    test_freq: float = 1e7          # tokens between val-loss probes
+    save_freq: float = 1e9          # tokens between checkpoints
+    save_name: str = "omnibiota"
+    save_dir: str = "checkpoints"
+    force_lr: bool = False          # disable µP per-group LR scaling
+    # mup MuAdamW decoupled_wd: False (mup + reference default) scales
+    # matrix-like weight decay by width_mult so effective decay lr*wd is
+    # uniform; True leaves decay unscaled.
+    mup_decoupled_wd: bool = False
+    banned_token: Optional[int] = None
+    warmup_period: float = 0.05     # fraction of iters for the batch ramp
+    batch_ramp: bool = False
+    train_type: str = "mixed"       # protein | nucleotide | mixed | halfnhalf
+    use_padding: bool = False
+    resume_from: int = 0            # token count to resume from
+    base_dir: str = ""
+    mask_prob: float = 0.15
+    grad_clip: float = 1.0
+    seed: int = 0
+
+    dp_axis: str = "data"
+    mesh_shape: Optional[Tuple[int, ...]] = None
+    sharding: str = "replicated"
+    rng_impl: str = "rbg"
+    log_every: int = 1
+    async_checkpoint: bool = False
+    # Adam moment storage dtype ('float32' | 'bfloat16'); the update math
+    # runs in fp32 either way.
+    moment_dtype: str = "float32"
+    # Gradient dtype handed to the optimizer on the A=1 path ('float32' |
+    # 'bfloat16'); accumulating paths always carry fp32.
+    grad_dtype: str = "float32"
+
+    def replace(self, **kw) -> "TrainConfig":
+        return dataclasses.replace(self, **kw)
+
+    @property
+    def mixture(self):
+        """(train_dirs, val_dirs, names, proportions) per train_type
+        (reference train_encoder.py:72-93)."""
+        if self.train_type == "protein":
+            return (["uniref100/train"], ["uniref100/val"], ["uniref100"], [1.0])
+        if self.train_type == "nucleotide":
+            return (["genbank/train"], ["genbank/val"], ["genbank"], [1.0])
+        if self.train_type == "mixed":
+            return (["genbank/train", "uniref100/train"],
+                    ["genbank/val", "uniref100/val"],
+                    ["genbank", "uniref100"], [0.80, 0.20])
+        if self.train_type == "halfnhalf":
+            return (["genbank/train", "uniref100/train"],
+                    ["genbank/val", "uniref100/val"],
+                    ["genbank", "uniref100"], [0.50, 0.50])
+        raise ValueError(
+            "train_type must be one of 'protein', 'nucleotide', 'mixed', 'halfnhalf'")

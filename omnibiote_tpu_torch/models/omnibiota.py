@@ -19,14 +19,22 @@ on q and k, µP attention scale 8/n_embd, erf-GELU with the reference's
 1.41421 constant, LayerNorm eps 1e-5 with fp32 statistics, and the µP
 readout logits = (x * output_mult / width_mult) @ lm_headᵀ. Dtypes follow
 the JAX package: embeddings are gathered, then cast to compute_dtype, and
-each linear casts its weight to the activation dtype. Inference only: the
-training forward (dropout) comes with the training slice.
+each linear casts its weight to the activation dtype.
+
+Training forward (deterministic=False, dropout > 0): inverted dropout on the
+embeddings and on both residual branches of every block, and dropout on the
+attention probabilities, as the JAX package places them. Its randomness
+comes from one integer seed (`rng`, the counterpart of the JAX key): a
+generator on the model's device seeded from it draws the elementwise
+masks, and each layer's attention gets its own 64-bit seed, both derived
+on the host (`_forward_rngs`), so a forward never waits for the device.
 """
 from __future__ import annotations
 
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -90,6 +98,30 @@ def _gelu(x, cfg: OmniBioTAConfig):
     if mode not in ("erf", "fast"):
         raise ValueError(f"gelu must be 'auto', 'erf' or 'fast', got {cfg.gelu!r}")
     return _gelu_fast(x) if mode == "fast" else _gelu_erf(x)
+
+
+def _dropout(x, rate: float, gen: Optional[torch.Generator]):
+    """Inverted dropout from raw random bits: keep iff the 32 bits >=
+    ⌊rate·2³²⌋ (the JAX package's `_dropout` rule, the same as the flash
+    kernel's), then x / (1 - rate) in x's dtype. The bits are drawn as
+    int32 and compared offset by 2³¹, which is the unsigned comparison."""
+    if gen is None or rate == 0.0:
+        return x
+    thresh = min(int(rate * (2.0 ** 32)), 2 ** 32 - 1)
+    bits = torch.randint(-2 ** 31, 2 ** 31, x.shape, generator=gen,
+                         device=x.device, dtype=torch.int32)
+    return torch.where(bits >= thresh - 2 ** 31, x / (1.0 - rate),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _forward_rngs(rng: int, n_layer: int, device):
+    """(device generator for the elementwise masks, per-layer attention
+    seeds) from the forward's integer seed; host-side only."""
+    words = np.random.SeedSequence(int(rng)).generate_state(1 + n_layer,
+                                                            np.uint64)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(words[0]) & 0x7FFFFFFFFFFFFFFF)
+    return gen, [int(w) for w in words[1:]]
 
 
 def _linear(x, w, b=None):
@@ -156,8 +188,13 @@ class Block(nn.Module):
         self.ln_2 = LayerNorm(cfg.n_embd, cfg.bias, device=device, dtype=dtype)
         self.mlp = MLP(cfg, device=device, dtype=dtype)
 
-    def forward(self, x, cfg: OmniBioTAConfig, qkv_perm, rope, segment_ids):
+    def forward(self, x, cfg: OmniBioTAConfig, qkv_perm, rope, segment_ids,
+                gen: Optional[torch.Generator] = None,
+                attn_seed: Optional[int] = None):
+        """gen (the forward's device generator) and attn_seed are given
+        when training with dropout, None otherwise."""
         B, T, D = x.shape
+        rate = cfg.dropout if gen is not None else 0.0
         H, Dh = cfg.n_head, cfg.head_dim
         # attention: RoPE's pair de-interleave is folded into the q and k
         # output rows of c_attn (a shared head_dim permutation of q and k
@@ -172,16 +209,17 @@ class Block(nn.Module):
             q.reshape(B, T, H, Dh), k.reshape(B, T, H, Dh),
             v.reshape(B, T, H, Dh), scale=cfg.attn_scale,
             segment_ids=segment_ids, causal=cfg.autoregressive,
-            impl=cfg.attn_impl, rope=rope, int8=cfg.attn_int8)
+            dropout_rate=rate, dropout_seed=attn_seed, impl=cfg.attn_impl,
+            rope=rope, int8=cfg.attn_int8 and gen is None)
         y = _linear(y.reshape(B, T, D), self.attn.c_proj.weight,
                     self.attn.c_proj.bias)
-        x = x + y
+        x = x + _dropout(y, rate, gen)
         # MLP
         h = self.ln_2(x)
         h = _linear(h, self.mlp.c_fc.weight, self.mlp.c_fc.bias)
         h = _gelu(h, cfg)
         h = _linear(h, self.mlp.c_proj.weight, self.mlp.c_proj.bias)
-        return x + h
+        return x + _dropout(h, rate, gen)
 
 
 class OmniBioTA(nn.Module):
@@ -209,14 +247,12 @@ class OmniBioTA(nn.Module):
         self.register_buffer("qkv_perm", perm, persistent=False)
 
     def forward(self, idx, segment_ids=None, *, deterministic: bool = True,
-                return_embeddings: bool = False):
+                rng: Optional[int] = None, return_embeddings: bool = False):
         """Logits (B, T, V) or, with return_embeddings, the final-LN hidden
-        states (B, T, D). segment_ids (B, T) int32 or None (dense)."""
+        states (B, T, D). segment_ids (B, T) int32 or None (dense).
+        deterministic=False is the training forward and needs the integer
+        seed `rng`; it draws dropout only when cfg.dropout > 0."""
         cfg = self.cfg
-        if not deterministic and cfg.dropout > 0.0:
-            raise NotImplementedError(
-                "the training forward (dropout) comes with the training "
-                "slice (ROADMAP Queue 1)")
         T = idx.shape[1]
         if T > cfg.block_size:
             raise ValueError(f"Cannot forward sequence of length {T}, block "
@@ -224,9 +260,16 @@ class OmniBioTA(nn.Module):
         if segment_ids is not None:
             segment_ids = segment_ids.to(torch.int32)
         x = self.transformer.wte.weight[idx.long()].to(cfg.cdtype())
+        gen, seeds = None, [None] * cfg.n_layer
+        if not deterministic:
+            if rng is None:
+                raise ValueError("training forward requires rng")
+            if cfg.dropout > 0.0:
+                gen, seeds = _forward_rngs(rng, cfg.n_layer, x.device)
+                x = _dropout(x, cfg.dropout, gen)
         rope = (self.rope_cos, self.rope_sin)
-        for blk in self.transformer.h:
-            x = blk(x, cfg, self.qkv_perm, rope, segment_ids)
+        for blk, seed in zip(self.transformer.h, seeds):
+            x = blk(x, cfg, self.qkv_perm, rope, segment_ids, gen, seed)
         emb = self.transformer.ln_f(x)
         if return_embeddings:
             return emb
@@ -285,9 +328,10 @@ def num_params(model: OmniBioTA, non_embedding: bool = True) -> int:
 
 
 def forward(model: OmniBioTA, idx, segment_ids=None, *,
-            deterministic: bool = True, return_embeddings: bool = False):
+            deterministic: bool = True, rng: Optional[int] = None,
+            return_embeddings: bool = False):
     """Functional form of OmniBioTA.forward, mirroring the JAX package."""
-    return model(idx, segment_ids, deterministic=deterministic,
+    return model(idx, segment_ids, deterministic=deterministic, rng=rng,
                  return_embeddings=return_embeddings)
 
 

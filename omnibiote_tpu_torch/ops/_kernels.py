@@ -17,7 +17,7 @@ SRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
 
 # Launches per kernel wrapper: each wrapper adds one where it launches.
-LAUNCHES: Dict[str, int] = {"mh_flash_fwd": 0}
+LAUNCHES: Dict[str, int] = {"mh_flash_fwd": 0, "mh_flash_bwd": 0}
 
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
@@ -30,8 +30,23 @@ _SIGNATURES = {
             _c.c_void_p, _c.c_void_p, _c.c_void_p,     # seg, cos, sin
             _c.c_void_p, _c.c_void_p, _c.c_void_p,     # k_rot, o, lse2
             _c.c_int, _c.c_int, _c.c_int, _c.c_int,    # B, T, H, D
-            _c.c_float, _c.c_int, _c.c_void_p]),       # scale_log2, dtype, stream
+            _c.c_float, _c.c_int,                      # scale_log2, dtype
+            _c.c_int, _c.c_uint32, _c.c_float,         # drop, thresh, keep_scale
+            _c.c_uint64, _c.c_void_p]),                # seed, stream
         "obt_cuda_error_string": (_c.c_char_p, [_c.c_int]),
+    },
+    "mh_flash_bwd": {
+        "obt_mh_flash_bwd": (_c.c_int, [
+            _c.c_void_p, _c.c_void_p, _c.c_void_p,     # q, k, v
+            _c.c_void_p, _c.c_void_p, _c.c_void_p,     # do, lse2, di
+            _c.c_void_p, _c.c_void_p, _c.c_void_p,     # seg, cos, sin
+            _c.c_void_p, _c.c_void_p, _c.c_void_p,     # q_rot, k_rot, dq_acc
+            _c.c_void_p, _c.c_void_p, _c.c_void_p,     # dq, dk, dv
+            _c.c_int, _c.c_int, _c.c_int, _c.c_int,    # B, T, H, D
+            _c.c_float, _c.c_float, _c.c_int,          # scale_log2, scale, dtype
+            _c.c_int, _c.c_uint32, _c.c_float,         # drop, thresh, keep_scale
+            _c.c_uint64, _c.c_void_p]),                # seed, stream
+        "obt_cuda_error_string_bwd": (_c.c_char_p, [_c.c_int]),
     },
 }
 

@@ -2,10 +2,16 @@
 
 Routes exactly as `omnibiote_tpu/ops/attention.py` does on one device:
 bidirectional attention at T % 128 == 0 with head_dim % 128 == 0 (or one
-head) goes to `mh_flash_forward` (the CUDA kernel on a CUDA tensor, its
-plain version on a CPU tensor); everything else (causal, ragged T, narrow
-heads) goes to `xla_attention`, the dense twin of the JAX package's
-reference path.
+head) goes to `flash_attention` (the CUDA kernels, forward and backward, on
+a CUDA tensor; their plain versions on a CPU tensor); everything else
+(causal, ragged T, narrow heads) goes to `xla_attention`, the dense twin of
+the JAX package's reference path.
+
+Dropout: `dropout_seed` is the call's 64-bit seed (the counterpart of the
+JAX package's `dropout_rng` key). The flash path hands it to the kernels'
+Philox stream; the dense path seeds a generator on the tensors' device
+with it and keeps each probability with chance 1 - rate, as the JAX dense
+path's bernoulli does.
 """
 from __future__ import annotations
 
@@ -13,18 +19,17 @@ from typing import Optional
 
 import torch
 
-from .flash_attention import mh_flash_forward
+from .flash_attention import flash_attention
 from .segments import NEG_INF
 
 
 def xla_attention(q, k, v, *, scale: float, segment_ids=None,
-                  causal: bool = False, dropout_rate: float = 0.0):
+                  causal: bool = False, dropout_rate: float = 0.0,
+                  dropout_seed: Optional[int] = None):
     """Dense (B, T, H, Dh) attention with the reference's additive segment
     mask: fp32 scores, µP scale, NEG_INF across segments, fp32 softmax,
-    probabilities cast to v's dtype for the value product."""
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "attention dropout comes with the training slice (ROADMAP Queue 1)")
+    dropout on the probabilities when training, probabilities cast to v's
+    dtype for the value product."""
     T = q.shape[1]
     scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * scale
     if segment_ids is not None:
@@ -34,8 +39,16 @@ def xla_attention(q, k, v, *, scale: float, segment_ids=None,
         idx = torch.arange(T, device=q.device)
         cmask = idx[:, None] >= idx[None, :]
         scores = scores.masked_fill(~cmask, -float("inf"))
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    return torch.einsum("bhts,bshd->bthd", probs, v)
+    probs = torch.softmax(scores, dim=-1)
+    if dropout_rate > 0.0:
+        if dropout_seed is None:
+            raise ValueError("dropout_rate > 0 requires dropout_seed")
+        gen = torch.Generator(device=q.device)
+        gen.manual_seed(int(dropout_seed) & 0x7FFFFFFFFFFFFFFF)
+        keep = torch.rand(probs.shape, generator=gen,
+                          device=q.device) < 1.0 - dropout_rate
+        probs = torch.where(keep, probs / (1.0 - dropout_rate), 0.0)
+    return torch.einsum("bhts,bshd->bthd", probs.to(v.dtype), v)
 
 
 def _fit_block(T: int, want: int) -> int:
@@ -48,7 +61,7 @@ def _fit_block(T: int, want: int) -> int:
 
 def attention(q, k, v, *, scale: float, segment_ids=None,
               causal: bool = False, dropout_rate: float = 0.0,
-              impl: str = "flash", block_kv: Optional[int] = None,
+              dropout_seed: Optional[int] = None, impl: str = "flash", block_kv: Optional[int] = None,
               rope=None, ring_mesh=None, tp_mesh=None, int8: bool = False):
     """(B, T, H, Dh) attention. rope=(cos, sin) tables (>=T, Dh/2): q and k
     arrive pre-rotation and the dispatch owns RoPE (fused into the kernel,
@@ -69,21 +82,20 @@ def attention(q, k, v, *, scale: float, segment_ids=None,
         block_kv = T if T <= 1024 else 512
     flash_ok = (T % 128 == 0) and (D % 128 == 0 or H == 1)
     if impl == "flash" and not causal and flash_ok:
-        if dropout_rate > 0.0:
-            raise NotImplementedError(
-                "flash attention dropout comes with the training slice "
-                "(ROADMAP Queue 2, #1)")
+        if dropout_rate > 0.0 and dropout_seed is None:
+            raise ValueError("dropout_rate > 0 requires dropout_seed")
         if segment_ids is not None and T >= 4096:
             block_kv = min(block_kv, 512)
         # the forward's kv block: sequence-wide at 1024 < T <= 2048, as in
         # the JAX dispatch (it sets only the plain version's rounding order)
         fwd_kv = T if 1024 < T <= 2048 else _fit_block(T, block_kv)
-        o, _ = mh_flash_forward(
+        return flash_attention(
             q.contiguous(), k.contiguous(), v.contiguous(), segment_ids,
-            rope, scale=scale, block_kv=fwd_kv)
-        return o
+            rope, scale=scale, block_kv=fwd_kv, dropout_rate=dropout_rate,
+            seed=0 if dropout_seed is None else dropout_seed)
     if rope is not None:
         from ..models.rope import apply_rope_half
         q, k = apply_rope_half(q, k, rope[0], rope[1])
     return xla_attention(q, k, v, scale=scale, segment_ids=segment_ids,
-                         causal=causal, dropout_rate=dropout_rate)
+                         causal=causal, dropout_rate=dropout_rate,
+                         dropout_seed=dropout_seed)

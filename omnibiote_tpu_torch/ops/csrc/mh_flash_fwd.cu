@@ -1,4 +1,4 @@
-// Multi-head flash attention forward for Hopper (sm_90a), no dropout.
+// Multi-head flash attention forward for Hopper (sm_90a), with dropout on P.
 //
 // Replaces the Pallas TPU kernel omnibiote_tpu/ops/flash_attention.py::
 // _mh_fwd_kernel (launched by _mh_fwd). Same function, same rounding points:
@@ -9,7 +9,13 @@
 //     attends uniformly, as the JAX package documents);
 //   * online softmax in exp2 over kv tiles, P rounded to the input dtype
 //     before P.V, fp32 accumulator, o = acc * (1 / l) in the input dtype;
-//   * lse2 = m + log2(l), (B, T, H) fp32.
+//   * lse2 = m + log2(l), (B, T, H) fp32;
+//   * dropout (training): after the running sum l has taken the undropped
+//     p, p_drop = keep ? p * (1 / (1 - rate)) : 0 before the rounding for
+//     P.V, with the keep-mask of philox.cuh, a pure function of (seed, b,
+//     h, i, j) that the backward redraws. rate == 0 compiles the kernel
+//     without any of it (a template flag), so serving runs the same code
+//     as before dropout existed.
 // Layout (B, T, H*D) row-major for q, k, v, o; segment ids (B, T) int32 or
 // null (dense); cos/sin (T, D/2) fp32 or null (no RoPE).
 //
@@ -33,140 +39,12 @@
 // operands from rows padded against bank conflicts. wgmma, TMA, warp
 // specialisation and segment-range tile skipping are left for later work.
 // The fp32 kernel is the parity type and runs on the CUDA cores.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <float.h>
-#include <stdint.h>
+#include "flash_common.cuh"
+#include "philox.cuh"
 
 namespace {
 
-constexpr float kMaskValue = -0.7f * FLT_MAX;
-
-// rotate-half, unfused (no FMA contraction) to round exactly as the plain
-// version's separate multiply and add: [x1 c - x2 s | x2 c + x1 s]
-__device__ __forceinline__ float rope_lo(float x1, float x2, float c, float s) {
-  return __fadd_rn(__fmul_rn(x1, c), -__fmul_rn(x2, s));
-}
-__device__ __forceinline__ float rope_hi(float x1, float x2, float c, float s) {
-  return __fadd_rn(__fmul_rn(x2, c), __fmul_rn(x1, s));
-}
-
-__device__ __forceinline__ float score(float s, float scale_log2, int qs, int ks) {
-  return __fadd_rn(__fmul_rn(s, scale_log2), qs == ks ? 0.0f : kMaskValue);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float2 load_bf16x2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-// D (16x8, fp32) += A (16x16, bf16, row) * B (16x8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               ::"r"(smem_addr(dst)), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most one committed group is still in flight
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// four 8x8 b16 matrices; lanes 8m..8m+7 give the row addresses of matrix m
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)) : "memory");
-}
-
-// ---------------------------------------------------------------------------
-// k_rot = rotate-half(k) in fp32, rounded to the input dtype. One thread per
-// 8 (bf16) or 4 (fp32) pairs (d, d + D/2) of one (b, t, h) row.
-// ---------------------------------------------------------------------------
-template <int D>
-__global__ void rope_k_bf16(const __nv_bfloat16* __restrict__ k,
-                            const float* __restrict__ cos_t,
-                            const float* __restrict__ sin_t,
-                            __nv_bfloat16* __restrict__ out, int T, int H,
-                            long long n_items) {
-  constexpr int HALF = D / 2, PER_ROW = HALF / 8;
-  const long long it = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (it >= n_items) return;
-  const long long row = it / PER_ROW;
-  const int c8 = (int)(it % PER_ROW) * 8;
-  const int t = (int)((row / H) % T);
-  const __nv_bfloat16* src = k + row * D + c8;
-  const uint4 a = *reinterpret_cast<const uint4*>(src);
-  const uint4 bb = *reinterpret_cast<const uint4*>(src + HALF);
-  const float* cp = cos_t + (size_t)t * HALF + c8;
-  const float* sp = sin_t + (size_t)t * HALF + c8;
-  const __nv_bfloat162* x1 = reinterpret_cast<const __nv_bfloat162*>(&a);
-  const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&bb);
-  uint32_t lo[4], hi[4];
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const float2 u = __bfloat1622float2(x1[e]), w = __bfloat1622float2(x2[e]);
-    const float2 c = *reinterpret_cast<const float2*>(cp + 2 * e);
-    const float2 s = *reinterpret_cast<const float2*>(sp + 2 * e);
-    lo[e] = pack_bf16(rope_lo(u.x, w.x, c.x, s.x), rope_lo(u.y, w.y, c.y, s.y));
-    hi[e] = pack_bf16(rope_hi(u.x, w.x, c.x, s.x), rope_hi(u.y, w.y, c.y, s.y));
-  }
-  __nv_bfloat16* dst = out + row * D + c8;
-  *reinterpret_cast<uint4*>(dst) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-  *reinterpret_cast<uint4*>(dst + HALF) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-}
-
-template <int D>
-__global__ void rope_k_f32(const float* __restrict__ k,
-                           const float* __restrict__ cos_t,
-                           const float* __restrict__ sin_t,
-                           float* __restrict__ out, int T, int H,
-                           long long n_items) {
-  constexpr int HALF = D / 2, PER_ROW = HALF / 4;
-  const long long it = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (it >= n_items) return;
-  const long long row = it / PER_ROW;
-  const int c4 = (int)(it % PER_ROW) * 4;
-  const int t = (int)((row / H) % T);
-  const float* src = k + row * D + c4;
-  const float4 a = *reinterpret_cast<const float4*>(src);
-  const float4 bb = *reinterpret_cast<const float4*>(src + HALF);
-  const float4 c = *reinterpret_cast<const float4*>(cos_t + (size_t)t * HALF + c4);
-  const float4 s = *reinterpret_cast<const float4*>(sin_t + (size_t)t * HALF + c4);
-  float* dst = out + row * D + c4;
-  *reinterpret_cast<float4*>(dst) =
-      make_float4(rope_lo(a.x, bb.x, c.x, s.x), rope_lo(a.y, bb.y, c.y, s.y),
-                  rope_lo(a.z, bb.z, c.z, s.z), rope_lo(a.w, bb.w, c.w, s.w));
-  *reinterpret_cast<float4*>(dst + HALF) =
-      make_float4(rope_hi(a.x, bb.x, c.x, s.x), rope_hi(a.y, bb.y, c.y, s.y),
-                  rope_hi(a.z, bb.z, c.z, s.z), rope_hi(a.w, bb.w, c.w, s.w));
-}
+using namespace obt;
 
 // ---------------------------------------------------------------------------
 // bf16: 4 warps, 64 query rows (16 per warp) x 64-wide kv tiles, k already
@@ -177,19 +55,27 @@ __global__ void rope_k_f32(const float* __restrict__ k,
 // ---------------------------------------------------------------------------
 constexpr int kBf16Tile = 64;
 
+// Dropout of one call: keep iff the element's Philox word >= thresh; kept
+// values are multiplied by keep_scale = 1 / (1 - rate) in fp32.
+struct DropParams {
+  uint64_t seed;
+  uint32_t thresh;
+  float keep_scale;
+};
+
 template <int D>
 constexpr size_t bf16_smem_bytes() {
   // two stages of K and V tiles (rows padded by 8 elements) and kv segment ids
   return 2 * 2 * kBf16Tile * (D + 8) * sizeof(__nv_bfloat16) + 2 * kBf16Tile * sizeof(int);
 }
 
-template <int D>
+template <int D, bool DROP>
 __global__ void __launch_bounds__(128) mh_fwd_bf16(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
     const float* __restrict__ cos_t, const float* __restrict__ sin_t,
     __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int T, int H,
-    float scale_log2) {
+    float scale_log2, DropParams dp) {
   constexpr int BQ = kBf16Tile, BKV = kBf16Tile, HALF = D / 2;
   constexpr int RS = D + 8;    // K and V tile row stride (elements), padded
   constexpr int CH = D / 8;    // 16-byte chunks in a row
@@ -315,6 +201,22 @@ __global__ void __launch_bounds__(128) mh_fwd_bf16(
     }
     l0 = alpha0 * l0 + rs0;  // per-thread partial sums, reduced at the end
     l1 = alpha1 * l1 + rs1;
+    if constexpr (DROP) {
+      // rows r0 and r0 + 8 share a parity, so both read words 2 * (r0 & 1)
+      // and 2 * (r0 & 1) + 1 of their calls (columns col and col + 1)
+      const int bh = b * H + h;
+      const bool odd = r0 & 1;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const int col = jt * BKV + j * 8 + 2 * t4;
+        const Philox4 u = dropout_bits(dp.seed, bh, r0, col);
+        const Philox4 w = dropout_bits(dp.seed, bh, r0 + 8, col);
+        s[j][0] = (odd ? u.w[2] : u.w[0]) >= dp.thresh ? s[j][0] * dp.keep_scale : 0.f;
+        s[j][1] = (odd ? u.w[3] : u.w[1]) >= dp.thresh ? s[j][1] * dp.keep_scale : 0.f;
+        s[j][2] = (odd ? w.w[2] : w.w[0]) >= dp.thresh ? s[j][2] * dp.keep_scale : 0.f;
+        s[j][3] = (odd ? w.w[3] : w.w[1]) >= dp.thresh ? s[j][3] * dp.keep_scale : 0.f;
+      }
+    }
 #pragma unroll
     for (int n = 0; n < NN; ++n) {
       acc[n][0] *= alpha0;
@@ -369,13 +271,13 @@ __global__ void __launch_bounds__(128) mh_fwd_bf16(
 // ---------------------------------------------------------------------------
 constexpr int kF32Tile = 32;
 
-template <int D>
+template <int D, bool DROP>
 __global__ void __launch_bounds__(128) mh_fwd_f32(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const int* __restrict__ seg,
     const float* __restrict__ cos_t, const float* __restrict__ sin_t,
     float* __restrict__ o, float* __restrict__ lse, int T, int H,
-    float scale_log2) {
+    float scale_log2, DropParams dp) {
   constexpr int BQ = kF32Tile, BKV = kF32Tile, HALF = D / 2, PER = D / 4;
   __shared__ __align__(16) float ks[BKV * D];
   __shared__ __align__(16) float vs[BKV * D];
@@ -441,6 +343,16 @@ __global__ void __launch_bounds__(128) mh_fwd_f32(
       rsum += s[j];
     }
     l = alpha * l + rsum;
+    if constexpr (DROP) {
+      const int bh = b * H + h;
+      const bool odd = row & 1;
+#pragma unroll
+      for (int j = 0; j < BKV; j += 2) {
+        const Philox4 u = dropout_bits(dp.seed, bh, row, j0 + j);
+        s[j] = (odd ? u.w[2] : u.w[0]) >= dp.thresh ? s[j] * dp.keep_scale : 0.f;
+        s[j + 1] = (odd ? u.w[3] : u.w[1]) >= dp.thresh ? s[j + 1] * dp.keep_scale : 0.f;
+      }
+    }
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
       float a = acc[i] * alpha;
@@ -457,55 +369,60 @@ __global__ void __launch_bounds__(128) mh_fwd_f32(
   if (sub == 0) lse[((size_t)b * T + row) * H + h] = m + log2f(l);
 }
 
-template <int D>
+template <int D, bool DROP>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* seg,
                    const float* cos_t, const float* sin_t, void* k_rot, void* o,
                    float* lse, int B, int T, int H, float scale_log2, bool bf16,
-                   cudaStream_t st) {
-  const long long n_pairs = (long long)B * T * H * (D / 2);
+                   DropParams dp, cudaStream_t st) {
+  if (cos_t != nullptr) {
+    launch_rope_rows<D>(k, cos_t, sin_t, k_rot, B, T, H, bf16, st);
+    k = k_rot;
+  }
   if (bf16) {
-    const __nv_bfloat16* kk = static_cast<const __nv_bfloat16*>(k);
-    if (cos_t != nullptr) {
-      const long long n = n_pairs / 8;
-      rope_k_bf16<D><<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
-          kk, cos_t, sin_t, static_cast<__nv_bfloat16*>(k_rot), T, H, n);
-      kk = static_cast<const __nv_bfloat16*>(k_rot);
-    }
     const size_t smem = bf16_smem_bytes<D>();
     const cudaError_t e = cudaFuncSetAttribute(
-        mh_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        mh_fwd_bf16<D, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
-    mh_fwd_bf16<D><<<dim3(T / kBf16Tile, H, B), 128, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(q), kk,
+    mh_fwd_bf16<D, DROP><<<dim3(T / kBf16Tile, H, B), 128, smem, st>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), seg, cos_t, sin_t,
-        static_cast<__nv_bfloat16*>(o), lse, T, H, scale_log2);
+        static_cast<__nv_bfloat16*>(o), lse, T, H, scale_log2, dp);
   } else {
-    const float* kk = static_cast<const float*>(k);
-    if (cos_t != nullptr) {
-      const long long n = n_pairs / 4;
-      rope_k_f32<D><<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
-          kk, cos_t, sin_t, static_cast<float*>(k_rot), T, H, n);
-      kk = static_cast<const float*>(k_rot);
-    }
-    mh_fwd_f32<D><<<dim3(T / kF32Tile, H, B), 128, 0, st>>>(
-        static_cast<const float*>(q), kk, static_cast<const float*>(v), seg,
-        cos_t, sin_t, static_cast<float*>(o), lse, T, H, scale_log2);
+    mh_fwd_f32<D, DROP><<<dim3(T / kF32Tile, H, B), 128, 0, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), seg, cos_t, sin_t, static_cast<float*>(o),
+        lse, T, H, scale_log2, dp);
   }
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_d(const void* q, const void* k, const void* v, const int* seg,
+                     const float* cos_t, const float* sin_t, void* k_rot, void* o,
+                     float* lse, int B, int T, int H, float scale_log2, bool bf16,
+                     bool drop, DropParams dp, cudaStream_t st) {
+  return drop ? launch<D, true>(q, k, v, seg, cos_t, sin_t, k_rot, o, lse, B, T,
+                                H, scale_log2, bf16, dp, st)
+              : launch<D, false>(q, k, v, seg, cos_t, sin_t, k_rot, o, lse, B, T,
+                                 H, scale_log2, bf16, dp, st);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. With RoPE (cos_t and sin_t non-null),
 // k_rot is a scratch tensor of k's shape and type that receives the rotated
-// k. Returns cudaGetLastError() after the launches (cudaErrorInvalidValue
-// for a shape or type this file has no kernel for). Launches on `stream`,
-// allocates nothing, does not synchronise.
+// k. drop != 0 applies dropout with keep threshold `thresh` (bits >= thresh
+// keep), scale `keep_scale` and the 64-bit `seed` (philox.cuh). Returns
+// cudaGetLastError() after the launches (cudaErrorInvalidValue for a shape
+// or type this file has no kernel for). Launches on `stream`, allocates
+// nothing, does not synchronise.
 extern "C" int obt_mh_flash_fwd(const void* q, const void* k, const void* v,
                                 const void* seg, const void* cos_t,
                                 const void* sin_t, void* k_rot, void* o,
                                 void* lse, int B, int T, int H, int D,
-                                float scale_log2, int dtype, void* stream) {
+                                float scale_log2, int dtype, int drop,
+                                uint32_t thresh, float keep_scale,
+                                uint64_t seed, void* stream) {
   if ((dtype != 0 && dtype != 1) || T < kBf16Tile || T % kBf16Tile != 0 ||
       B < 1 || B > 65535 || H < 1 || H > 65535 ||
       (cos_t != nullptr && (sin_t == nullptr || k_rot == nullptr)))
@@ -515,9 +432,10 @@ extern "C" int obt_mh_flash_fwd(const void* q, const void* k, const void* v,
   const float* s = static_cast<const float*>(sin_t);
   float* l = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const DropParams dp{seed, thresh, keep_scale};
   switch (D) {
-    case 64: return (int)launch<64>(q, k, v, sg, c, s, k_rot, o, l, B, T, H, scale_log2, dtype == 1, st);
-    case 128: return (int)launch<128>(q, k, v, sg, c, s, k_rot, o, l, B, T, H, scale_log2, dtype == 1, st);
+    case 64: return (int)launch_d<64>(q, k, v, sg, c, s, k_rot, o, l, B, T, H, scale_log2, dtype == 1, drop != 0, dp, st);
+    case 128: return (int)launch_d<128>(q, k, v, sg, c, s, k_rot, o, l, B, T, H, scale_log2, dtype == 1, drop != 0, dp, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

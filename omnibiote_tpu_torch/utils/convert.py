@@ -1,5 +1,5 @@
-"""Weights between the JAX package's parameter tree and the reference
-state_dict layout that the port's OmniBioTA uses.
+"""Weights and optimizer state between the JAX package's trees and the
+reference state_dict layout that the port's OmniBioTA uses.
 
 The JAX tree stores linear weights (fan_in, fan_out) and stacks the blocks
 on a leading layer axis:
@@ -15,7 +15,7 @@ dtype.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -82,3 +82,90 @@ def jax_params_from_state(state: Mapping, cfg: OmniBioTAConfig) -> Dict:
         params["blocks"].setdefault(sub, {})[leaf] = _stack(
             [x.T if is_weight else x for x in xs])
     return params
+
+
+def jax_tree_keys(cfg: OmniBioTAConfig) -> List[str]:
+    """The flat keys of the JAX parameter tree, in `jax.tree.leaves`
+    order."""
+    skeleton: Dict = {"wte": 0, "lm_head": 0, "ln_f": {"scale": 0}, "blocks": {}}
+    if cfg.bias:
+        skeleton["ln_f"]["bias"] = 0
+    for (sub, leaf), _, _ in _block_leaves(cfg):
+        skeleton["blocks"].setdefault(sub, {})[leaf] = 0
+    return list(flatten_tree(skeleton))
+
+
+def nest(flat: Mapping[str, object]) -> Dict:
+    """{"a/b/c": leaf} -> nested dicts."""
+    tree: Dict = {}
+    for key, leaf in flat.items():
+        node = tree
+        *parts, last = key.split("/")
+        for p in parts:
+            node = node.setdefault(p, {})
+        node[last] = leaf
+    return tree
+
+
+def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, object]:
+    """{"a/b/c": leaf} with dict keys in sorted order at every level: the
+    keys of the JAX package's checkpoint npz files, in the order of
+    `jax.tree.leaves` for a tree of dicts."""
+    out: Dict[str, object] = {}
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, Mapping):
+            out.update(flatten_tree(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def as_tensor(x) -> torch.Tensor:
+    """A tensor of a numpy array (ml_dtypes bfloat16 included) or tensor."""
+    if isinstance(x, torch.Tensor):
+        return x
+    arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(arr.copy())
+
+
+def jax_opt_state_from_port(state, cfg: OmniBioTAConfig) -> List[object]:
+    """The port's OptState -> the leaves of the JAX package's optax chain
+    state, in `jax.tree.leaves` order:
+
+      [clip grad_norm, adam count, *adam mu, *adam nu, schedule count]
+
+    with mu and nu in the JAX parameter tree's layout and flat order. Moment
+    leaves keep their kind (tensor) and dtype; the counts are int32 numpy
+    scalars, the norm an fp32 numpy scalar."""
+    mu = flatten_tree(jax_params_from_state(state.mu, cfg))
+    nu = flatten_tree(jax_params_from_state(state.nu, cfg))
+    return ([np.asarray(float(state.grad_norm), np.float32),
+             np.asarray(state.count, np.int32)]
+            + list(mu.values()) + list(nu.values())
+            + [np.asarray(state.sched_count, np.int32)])
+
+
+def opt_state_from_jax(leaves: Sequence[object], cfg: OmniBioTAConfig):
+    """Leaves of the JAX package's optax chain state (`jax.tree.leaves`
+    order, as numpy arrays or tensors) -> the port's OptState, moments as
+    CPU tensors in the port's layout."""
+    from ..training.optim import OptState
+
+    keys = jax_tree_keys(cfg)
+    n = len(keys)
+    if len(leaves) != 2 * n + 3:
+        raise ValueError(f"{len(leaves)} optimizer leaves, want {2 * n + 3} "
+                         "(clip norm, count, mu, nu, schedule count)")
+
+    def moments(flat_leaves):
+        tree = nest({k: as_tensor(x) for k, x in zip(keys, flat_leaves)})
+        return {k: v.contiguous() for k, v in state_from_jax_params(tree, cfg).items()}
+
+    return OptState(
+        grad_norm=torch.as_tensor(np.asarray(leaves[0], np.float32)),
+        count=int(np.asarray(leaves[1])),
+        mu=moments(leaves[2:2 + n]), nu=moments(leaves[2 + n:2 + 2 * n]),
+        sched_count=int(np.asarray(leaves[-1])))

@@ -161,12 +161,13 @@ def _port_sources():
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "tools", "gpu_profile_encode.py")
+    yield os.path.join(REPO, "tools", "gpu_profile_train.py")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     bad = []
     sources = list(_port_sources())
-    assert len(sources) > 15
+    assert len(sources) > 25
     for path in sources:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -202,9 +203,11 @@ def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(served):
 
 
 def test_cpu_tensor_never_touches_the_kernel(monkeypatch):
-    """On a CPU tensor the wrapper runs the plain version and never builds,
-    loads or counts the kernel; the kernel's own entry refuses a CPU
-    tensor instead of falling back."""
+    """On a CPU tensor the wrappers (forward, backward, and the autograd
+    Function through a training step's forward and backward, with
+    dropout) run the plain versions and never build, load or count a
+    kernel; the kernels' own entries refuse a CPU tensor instead of
+    falling back."""
     def refuse(*a, **k):
         raise AssertionError("the kernel library was touched")
 
@@ -219,4 +222,27 @@ def test_cpu_tensor_never_touches_the_kernel(monkeypatch):
     assert _kernels.LAUNCHES == before
     with pytest.raises(ValueError, match="not a CUDA tensor"):
         port_flash.mh_flash_forward_kernel(q, k, v, None, None, scale=0.1)
+    di = (o * q).sum(-1)
+    dq, dk, dv = port_flash.mh_flash_backward(q, k, v, q, lse, di, scale=0.1,
+                                              dropout_rate=0.1, seed=3)
+    assert dq.shape == q.shape
+    with pytest.raises(ValueError, match="not a CUDA tensor"):
+        port_flash.mh_flash_backward_kernel(q, k, v, q, lse, di, scale=0.1)
+    qg = q.clone().requires_grad_()
+    port_flash.flash_attention(qg, k, v, scale=0.1, dropout_rate=0.1,
+                               seed=4).sum().backward()
+    assert qg.grad is not None
+    from omnibiote_tpu_torch.config import TrainConfig
+    from omnibiote_tpu_torch.training.train import Trainer
+
+    def rows():
+        while True:
+            toks = np.full((4, 128), 9, np.int32)
+            yield {"tokens": toks, "segments": np.zeros_like(toks)}
+
+    cfg = port.OmniBioTAConfig(n_layer=1, n_head=1, n_embd=128, vocab_size=64,
+                               block_size=128, dropout=0.1)
+    tr = Trainer(cfg, TrainConfig(batch_size=4, mini_batch_size=2, ctx_len=128),
+                 batch_iter=rows(), device="cpu")
+    assert np.isfinite(float(tr.train_step_once()["loss"]))
     assert _kernels.LAUNCHES == before

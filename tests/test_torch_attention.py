@@ -163,15 +163,16 @@ def _jax_route(monkeypatch, q, k, v, **kw):
 def _port_route(monkeypatch, q, k, v, **kw):
     seen = []
 
-    def fake_flash(q, k, v, segment_ids, rope, *, scale, block_kv=None):
+    def fake_flash(q, k, v, segment_ids, rope, *, scale, block_kv=None,
+                   dropout_rate=0.0, seed=0):
         seen.append(("flash", block_kv))
-        return q, None
+        return q
 
     def fake_xla(q, k, v, **_):
         seen.append(("xla", None))
         return q
 
-    monkeypatch.setattr(port_attention, "mh_flash_forward", fake_flash)
+    monkeypatch.setattr(port_attention, "flash_attention", fake_flash)
     monkeypatch.setattr(port_attention, "xla_attention", fake_xla)
     port_attention.attention(torch.from_numpy(q), torch.from_numpy(k),
                              torch.from_numpy(v), **kw)

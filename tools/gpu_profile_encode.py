@@ -23,7 +23,7 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 GROUPS = (
-    ("attention (mh_flash_fwd: rope_k, mh_fwd)", ("mh_fwd", "rope_k")),
+    ("attention (mh_flash_fwd: rope_rows, mh_fwd)", ("mh_fwd", "rope_rows")),
     ("matrix products (cuBLAS)", ("gemm", "xmma", "nvjet", "cutlass", "cublas",
                                   "sm90_", "sm80_")),
     ("elementwise, reductions, gathers", ("elementwise", "vectorized", "reduce",
