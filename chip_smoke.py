@@ -14,7 +14,8 @@ toolkit and g++. It
      padded and dense segment layouts: the forward without dropout (the
      serving path) and with dropout 0.1, the backward at dropout 0 and
      0.1 (and once at T=2048); and times each kernel, its plain version
-     and one PyTorch library call that computes the same function;
+     and one PyTorch library call that computes the same function, and
+     holds kernel against plain once more at the very shape it timed;
   3. serving slice: builds the `Encoder` at omnibiote-small full width (8
      layers, d 1024, 8 heads of 128, vocab 65536, bf16 compute, random
      weights from a seed, a BPE vocabulary trained on synthetic sequences),
@@ -30,7 +31,25 @@ toolkit and g++. It
      synthetic token shards (launch counts, finite loss, the final
      checkpoint reloaded) and one more step resumed from that checkpoint;
      then train-step throughput at bench.py's shape;
-  5. prints the card's name and power limit, one JSON line of kernel
+  5. long-context kernels, at T=2048 (and once at 4096), bf16 and fp32,
+     packed / padded / dense rows, dropout 0 and 0.1: the forward with
+     segment-skip bounds, the fused multi-kv backward with bounds, and the
+     split pair (dkv and dq kernels), each against its plain version;
+     skipping on against off (forward, dkv and dq bit for bit, the fused
+     backward's dq within its atomic sums' tolerance); the dq kernel twice
+     (the same bits); fused against split; the tiles each kernel walked
+     against the count its bounds give; the lse-exposing variant with a
+     random lse cotangent; and the timings at bench_longctx.py's shapes
+     (mini 8 x 2048 and mini 4 x 4096, five EOS a row);
+  6. long-context training slice, omnibiote-small at full width with
+     block_size = ctx_len = 2048: one micro-batch and one train step
+     (A = 2) on the kernels with the fused backward, again with the split
+     pair, and on the plain versions; the training CLI at --ctx_len 2048
+     with a checkpoint and a resumed step; launch counts a step for every
+     kernel; throughput with skipping and the fused backward, with every
+     tile walked, with the split pair, and at ctx 4096; peak allocated
+     memory;
+  7. prints the card's name and power limit, one JSON line of kernel
      numbers, and last the line {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script then exits non-zero without the
@@ -40,6 +59,7 @@ fails at once.
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -108,10 +128,22 @@ def build():
         spm.result()
     print(f"build: {time.time() - t0:.1f} s (nvcc sm_90a: "
           f"{', '.join(logs) or 'up to date'}; g++ tokenizer)")
+    # one line a kernel instance: template arguments, registers, spills
     for name, log in logs.items():
+        entry = spill = None
         for line in log.splitlines():
-            if "Compiling entry" in line or "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+            m = re.search(r"Compiling entry function '_ZN[\w]*?\d+(mh_\w+?|rope_rows_\w+?|"
+                          r"dq_epilogue)ILi(\d+)E((?:Lb[01]E)*)", line)
+            if m:
+                flags = re.findall(r"Lb([01])E", m.group(3))
+                entry = f"{m.group(1)}<{', '.join([m.group(2), *flags])}>"
+            elif "spill stores" in line:
+                spill = re.search(r"(\d+) bytes spill stores", line).group(1)
+            elif "registers" in line and entry is not None:
+                regs = re.search(r"Used (\d+) registers", line).group(1)
+                if entry.startswith("mh_"):
+                    print(f"  {name}: {entry}: {regs} registers, {spill} bytes of spill stores")
+                entry = None
 
 
 # ---------------------------------------------------------------------------
@@ -141,24 +173,41 @@ def _attn_inputs(B, T, H, D, dtype, layout, seed):
     return q, k, v, _segments(layout, B, T, gen), rope_tables(D, T, device="cuda")
 
 
-def _attn_bound(B, T, H, D):
-    """(bound_ms, bound_by) of one bf16 call with RoPE and no mask: the
-    larger of its operations over the bf16 peak and its bytes (q, k, v and
-    the rope tables read once, o and lse2 written once) over HBM bandwidth."""
-    flops = 4.0 * B * T * T * H * D
-    nbytes = 4 * B * T * H * D * 2 + B * T * H * 4 + 2 * T * (D // 2) * 4
+def _visible_pairs(seg, B, T):
+    """The (q, k) pairs of one call that attend: all B*T*T without segment
+    ids, else the pairs with equal ids (what this run's data needs; a
+    kernel that skips masked tiles does no more than a tile's rounding
+    above it)."""
+    if seg is None:
+        return float(B) * T * T
+    return float(sum((seg[b, :, None] == seg[b, None, :]).sum().item()
+                     for b in range(B)))
+
+
+def _bound(flops, nbytes):
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def _attn_bound(B, T, H, D, pairs=None):
+    """(bound_ms, bound_by) of one bf16 forward call with RoPE: the larger
+    of its operations (two products over `pairs` (q, k) pairs, default all
+    B*T*T) over the bf16 peak and its bytes (q, k, v and the rope tables
+    read once, o and lse2 written once) over HBM bandwidth."""
+    pairs = float(B) * T * T if pairs is None else pairs
+    nbytes = 4 * B * T * H * D * 2 + B * T * H * 4 + 2 * T * (D // 2) * 4
+    return _bound(4.0 * pairs * H * D, nbytes)
+
+
 def kernel_phase():
     """The forward kernel without dropout (the serving path) against its
-    plain version, and timed at the serving shape."""
+    plain version, and timed and held against it at the serving shape.
+    Returns max |do| at that shape."""
     import torch
     import torch.nn.functional as F
     from omnibiote_tpu_torch.models.rope import apply_rope_half
     from omnibiote_tpu_torch.ops.flash_attention import (
-        KERNEL_KV_TILE, mh_flash_forward, mh_flash_forward_plain)
+        KERNEL_KV_TILE, SegmentBounds, mh_flash_forward, mh_flash_forward_plain)
 
     H, D = 8, 128
     scale = 1.0 / math.sqrt(D)
@@ -193,6 +242,11 @@ def kernel_phase():
     ms = cuda_ms(lambda: mh_flash_forward(q, k, v, None, rope, scale=scale), 20)
     plain_ms = cuda_ms(lambda: mh_flash_forward_plain(
         q, k, v, None, rope, scale=scale), 5, warmup=1)
+    serving_err = _hold_fwd(
+        mh_flash_forward(q, k, v, None, rope, scale=scale),
+        mh_flash_forward_plain(q, k, v, None, rope, scale=scale,
+                               block_kv=KERNEL_KV_TILE[torch.bfloat16]),
+        "bfloat16", f"the serving shape B={B} T={T}")
     qr, kr = apply_rope_half(q, k, *rope)
     qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (qr, kr, v))
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -202,14 +256,21 @@ def kernel_phase():
     # boolean mask
     _, _, _, pseg, _ = _attn_inputs(B, T, H, D, torch.bfloat16, "padded", 98)
     ms_pad = cuda_ms(lambda: mh_flash_forward(q, k, v, pseg, rope, scale=scale), 20)
+    pb = SegmentBounds(pseg)
+    ms_pad_skip = cuda_ms(lambda: mh_flash_forward(
+        q, k, v, pseg, rope, scale=scale, segment_skip=True, bounds=pb), 20)
     mask = (pseg[:, :, None] == pseg[:, None, :])[:, None]
     library_pad = cuda_ms(lambda: F.scaled_dot_product_attention(
         qh, kh, vh, attn_mask=mask, scale=scale), 20)
     tflops = 4.0 * B * T * T * H * D / (ms * 1e-3) / 1e12
     print(f"mh_flash_fwd B={B} T={T} H={H} D={D} bf16 dense: kernel {ms:.4f} ms "
           f"({tflops:.1f} TFLOP/s), plain {plain_ms:.4f} ms, SDPA "
-          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); padded: "
-          f"kernel {ms_pad:.4f} ms, SDPA with mask {library_pad:.4f} ms")
+          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); padded "
+          f"(row lengths uniform in [T/8, T)): kernel {ms_pad_skip:.4f} ms with "
+          f"skipping as the Encoder runs it, {ms_pad:.4f} ms without, SDPA with "
+          f"mask {library_pad:.4f} ms; kernel vs plain at this shape max|do| "
+          f"{serving_err:.3e}")
+    return serving_err
 
 
 # Backward kernel vs its plain version, relative to max|g| of the plain
@@ -224,20 +285,50 @@ TRAIN_SHAPE = dict(B=16, T=1024, H=8, D=128)
 TRAIN_DROPOUT = 0.1
 
 
-def _bwd_bound(B, T, H, D):
-    """(bound_ms, bound_by) of one bf16 backward call: five products
-    (10·B·T²·H·D) over the bf16 peak, against the bytes of q, k, v, do, dq,
-    dk, dv (bf16), lse2 and di (fp32) and the fp32 dq scratch, written and
-    read once, over HBM bandwidth."""
-    flops = 10.0 * B * T * T * H * D
-    nbytes = 7 * B * T * H * D * 2 + 2 * B * T * H * 4 + 2 * B * T * H * D * 4
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+def _bwd_bound(B, T, H, D, pairs=None, kind="fused"):
+    """(bound_ms, bound_by) of one bf16 backward call over `pairs` (q, k)
+    pairs (default all B*T*T). fused: five products (10 flops a pair and
+    head dim) and the bytes of q, k, v, do, dq, dk, dv (bf16), lse2 and di
+    (fp32), each once; dkv: four products, no dq; dq: three products, no dk
+    or dv. The fused kernel's fp32 dq scratch is its own design's traffic,
+    not the function's, and is not counted. Operations over the bf16 peak
+    against bytes over HBM bandwidth."""
+    pairs = float(B) * T * T if pairs is None else pairs
+    n_prod, n_tensors = {"fused": (5, 7), "dkv": (4, 6), "dq": (3, 5)}[kind]
+    nbytes = n_tensors * B * T * H * D * 2 + 2 * B * T * H * 4
+    return _bound(2.0 * n_prod * pairs * H * D, nbytes)
 
 
 def _rel_err(got, want):
     return ((got.float() - want.float()).abs().max() /
             want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def _abs_err(got, want):
+    return (got.float() - want.float()).abs().max().item()
+
+
+def _hold_fwd(got, want, dtype, what):
+    """Forward (o, lse2) of a kernel against its plain version at TOL;
+    returns max |do|."""
+    import torch
+    (rt, at), (rl, al) = TOL[dtype]["o"], TOL[dtype]["lse"]
+    check(torch.allclose(got[0].float(), want[0].float(), rtol=rt, atol=at)
+          and torch.allclose(got[1], want[1], rtol=rl, atol=al),
+          f"forward kernel disagrees with its plain version at {what}")
+    return _abs_err(got[0], want[0])
+
+
+def _hold_bwd(got, want, dtype, what):
+    """Gradients of a backward kernel against the plain ones at BWD_TOL;
+    returns (max |d| / max |g|, max |d|) over the tensors."""
+    import torch
+    check(all(torch.isfinite(g.float()).all() for g in got),
+          f"non-finite backward output at {what}")
+    rel = max(_rel_err(g, w) for g, w in zip(got, want))
+    check(rel <= BWD_TOL[dtype], f"backward kernel disagrees with its plain "
+          f"version at {what}: {rel:.2e} > {BWD_TOL[dtype]}")
+    return rel, max(_abs_err(g, w) for g, w in zip(got, want))
 
 
 def train_kernel_phase():
@@ -248,12 +339,12 @@ def train_kernel_phase():
     import torch.nn.functional as F
     from omnibiote_tpu_torch.models.rope import apply_rope_half
     from omnibiote_tpu_torch.ops.flash_attention import (
-        KERNEL_KV_TILE, mh_flash_backward_kernel, mh_flash_backward_plain,
-        mh_flash_forward, mh_flash_forward_plain)
+        KERNEL_KV_TILE, SegmentBounds, mh_flash_backward,
+        mh_flash_backward_kernel, mh_flash_backward_plain, mh_flash_forward,
+        mh_flash_forward_plain)
 
     H, D = 8, 128
     scale = 1.0 / math.sqrt(D)
-    worst_f = worst_b = 0.0
     cases = [(4, 1024, dt, lay) for dt in ("bfloat16", "float32")
              for lay in ("packed", "padded", "dense")] + [(2, 2048, "bfloat16", "packed")]
     for i, (B, T, dtype, layout) in enumerate(cases):
@@ -280,8 +371,6 @@ def train_kernel_phase():
             check(torch.allclose(o.float(), po.float(), rtol=rt, atol=at)
                   and torch.allclose(lse, plse, rtol=rl, atol=al),
                   f"forward with dropout disagrees at {(B, T, dtype, layout)}")
-            if dtype == "bfloat16":
-                worst_f = max(worst_f, err_o)
         for rate in ((0.0, TRAIN_DROPOUT) if T == 1024 else (TRAIN_DROPOUT,)):
             po, plse = mh_flash_forward_plain(q, k, v, seg, rope, scale=scale,
                                               dropout_rate=rate, seed=seed)
@@ -299,26 +388,46 @@ def train_kernel_phase():
                   f"non-finite backward output at {(B, T, dtype, layout, rate)}")
             check(max(errs) <= BWD_TOL[dtype],
                   f"backward kernel disagrees at {(B, T, dtype, layout, rate)}")
-            if dtype == "bfloat16":
-                worst_b = max(worst_b, max(
-                    (g.float() - w.float()).abs().max().item() for g, w in zip(got, want)))
             del got, want
         del q, k, v, do
 
-    # timing at the training shape: bf16, RoPE, packed rows, dropout 0.1
+    # timing at the training shape: bf16, RoPE, bench.py's rows (three EOS
+    # each), dropout 0.1, segment skipping on as the main path has it (and
+    # off beside it: every tile walked)
     B, T = TRAIN_SHAPE["B"], TRAIN_SHAPE["T"]
-    q, k, v, seg, rope = _attn_inputs(B, T, H, D, torch.bfloat16, "packed", 77)
+    q, k, v, _, rope = _attn_inputs(B, T, H, D, torch.bfloat16, "dense", 77)
+    seg = torch.from_numpy(next(bench_batches(B, T, seed=77))["segments"]).cuda()
+    bounds = SegmentBounds(seg)
     gen = torch.Generator(device="cuda").manual_seed(78)
     do = torch.randn(B, T, H, D, generator=gen, device="cuda").to(torch.bfloat16)
     seed, rate = 12345, TRAIN_DROPOUT
     fwd = lambda: mh_flash_forward(q, k, v, seg, rope, scale=scale,
-                                   dropout_rate=rate, seed=seed)
+                                   dropout_rate=rate, seed=seed,
+                                   segment_skip=True, bounds=bounds)
     fwd_ms = cuda_ms(fwd, 20)
+    fwd_noskip_ms = cuda_ms(lambda: mh_flash_forward(
+        q, k, v, seg, rope, scale=scale, dropout_rate=rate, seed=seed), 20)
     fwd_plain_ms = cuda_ms(lambda: mh_flash_forward_plain(
         q, k, v, seg, rope, scale=scale, dropout_rate=rate, seed=seed), 3, warmup=1)
     o, lse = fwd()
     di = (o.float() * do.float()).sum(-1)
-    bwd_ms = cuda_ms(lambda: mh_flash_backward_kernel(
+    bwd = lambda: mh_flash_backward(
+        q, k, v, do, lse, di, seg, rope, scale=scale, dropout_rate=rate,
+        seed=seed, segment_skip=True, bounds=bounds)
+    bwd_ms = cuda_ms(bwd, 20)
+    # both kernels against their plain versions at this shape, as the main
+    # path calls them
+    shape = f"the training shape B={B} T={T}"
+    worst_f = _hold_fwd((o, lse), mh_flash_forward_plain(
+        q, k, v, seg, rope, scale=scale, dropout_rate=rate, seed=seed,
+        block_kv=KERNEL_KV_TILE[torch.bfloat16]), "bfloat16", shape)
+    rel_b, worst_b = _hold_bwd(bwd(), mh_flash_backward_plain(
+        q, k, v, do, lse, di, seg, rope, scale=scale, dropout_rate=rate,
+        seed=seed), "bfloat16", shape)
+    print(f"kernels vs plain at {shape} bf16 dropout {rate}: fwd max|do| "
+          f"{worst_f:.3e} (rtol, atol {TOL['bfloat16']['o']}), bwd max|d|/max|g| "
+          f"{rel_b:.2e} (tolerance {BWD_TOL['bfloat16']}), max|d| {worst_b:.3e}")
+    bwd_noskip_ms = cuda_ms(lambda: mh_flash_backward_kernel(
         q, k, v, do, lse, di, seg, rope, scale=scale, dropout_rate=rate,
         seed=seed), 20)
     bwd_plain_ms = cuda_ms(lambda: mh_flash_backward_plain(
@@ -338,15 +447,22 @@ def train_kernel_phase():
         lib_fwd_ms = cuda_ms(sdpa, 20)
     lib_fb_ms = cuda_ms(lambda: torch.autograd.grad(sdpa(), (qh, kh, vh), doh), 20)
     lib_bwd_ms = lib_fb_ms - lib_fwd_ms
-    fwd_bound, fwd_by = _attn_bound(B, T, H, D)
-    bwd_bound, bwd_by = _bwd_bound(B, T, H, D)
-    print(f"training shape B={B} T={T} H={H} D={D} bf16 packed dropout {rate}: "
-          f"mh_flash_fwd {fwd_ms:.4f} ms (plain {fwd_plain_ms:.4f}, SDPA "
-          f"{lib_fwd_ms:.4f}, bound {fwd_bound:.4f} {fwd_by}); mh_flash_bwd "
-          f"{bwd_ms:.4f} ms ({10.0 * B * T * T * H * D / (bwd_ms * 1e-3) / 1e12:.1f} "
-          f"TFLOP/s; plain {bwd_plain_ms:.4f}, SDPA backward {lib_bwd_ms:.4f}, "
-          f"bound {bwd_bound:.4f} {bwd_by}); without dropout: mh_flash_fwd "
-          f"{fwd_nodrop_ms:.4f} ms, mh_flash_bwd {bwd_nodrop_ms:.4f} ms")
+    pairs = _visible_pairs(seg, B, T)
+    fwd_bound, fwd_by = _attn_bound(B, T, H, D, pairs)
+    bwd_bound, bwd_by = _bwd_bound(B, T, H, D, pairs)
+    print(f"training shape B={B} T={T} H={H} D={D} bf16, 3 EOS a row (visible "
+          f"share of (q, k) pairs {pairs / (B * T * T):.4f}), dropout {rate}: "
+          f"mh_flash_fwd {fwd_ms:.4f} ms with skipping, {fwd_noskip_ms:.4f} "
+          f"without (plain {fwd_plain_ms:.4f}, SDPA dense {lib_fwd_ms:.4f}, bound "
+          f"{fwd_bound:.4f} {fwd_by} over visible pairs, "
+          f"{_attn_bound(B, T, H, D)[0]:.4f} over all); mh_flash_bwd {bwd_ms:.4f} "
+          f"ms with skipping, {bwd_noskip_ms:.4f} without "
+          f"({10.0 * B * T * T * H * D / (bwd_noskip_ms * 1e-3) / 1e12:.1f} "
+          f"TFLOP/s over all pairs; plain {bwd_plain_ms:.4f}, SDPA dense backward "
+          f"{lib_bwd_ms:.4f}, bound {bwd_bound:.4f} {bwd_by} over visible pairs, "
+          f"{_bwd_bound(B, T, H, D)[0]:.4f} over all); without dropout or "
+          f"skipping: mh_flash_fwd {fwd_nodrop_ms:.4f} ms, mh_flash_bwd "
+          f"{bwd_nodrop_ms:.4f} ms")
     fwd_row = {"name": "mh_flash_fwd", "route": "cuda",
                "source": "omnibiote_tpu_torch/ops/csrc/mh_flash_fwd.cu",
                "replaces": "omnibiote_tpu/ops/flash_attention.py:545",
@@ -494,8 +610,9 @@ TRAIN_GRAD_COS = 0.99
 TRAIN_GNORM_RTOL = 1e-2
 
 
-def bench_batches(batch, ctx, seed):
-    """bench.py's training batches: random tokens, three EOS a row."""
+def bench_batches(batch, ctx, seed, n_eos=3):
+    """bench.py's training batches: random tokens, three EOS a row at
+    positions in [32, ctx) (bench_longctx.py's rows with n_eos=5)."""
     import numpy as np
     from omnibiote_tpu_torch.config import EOS_TOKEN
     from omnibiote_tpu_torch.ops.segments import segment_ids_np
@@ -504,7 +621,7 @@ def bench_batches(batch, ctx, seed):
     while True:
         toks = rng.integers(20, 65000, size=(batch, ctx)).astype(np.int32)
         for r in range(batch):
-            toks[r, rng.integers(32, ctx, size=3)] = EOS_TOKEN
+            toks[r, rng.integers(32, ctx, size=n_eos)] = EOS_TOKEN
         yield {"tokens": toks, "segments": segment_ids_np(toks)}
 
 
@@ -515,13 +632,45 @@ def _plain_attention():
 
     @contextlib.contextmanager
     def ctx():
-        saved = fa.mh_flash_forward, fa.mh_flash_backward
-        fa.mh_flash_forward = fa.mh_flash_forward_plain
-        fa.mh_flash_backward = fa.mh_flash_backward_plain
+        names = ("mh_flash_forward", "mh_flash_backward", "mh_flash_bwd_dkv",
+                 "mh_flash_bwd_dq")
+        saved = [getattr(fa, n) for n in names]
+        for n in names:
+            # the dispatchers' launch-counter name means nothing to a plain version
+            setattr(fa, n, lambda *a, counter=None, _f=getattr(fa, n + "_plain"), **kw:
+                    _f(*a, **kw))
         try:
             yield
         finally:
-            fa.mh_flash_forward, fa.mh_flash_backward = saved
+            for n, f in zip(names, saved):
+                setattr(fa, n, f)
+    return ctx()
+
+
+def _attention_switch(**flags):
+    """Context: module switches of the port's flash attention set for a
+    measurement: FUSED_MULTIKV_BWD=False takes the split pair; skip=False
+    makes every call walk every tile (no switch of the package does that:
+    the dispatch always skips)."""
+    import contextlib
+    from omnibiote_tpu_torch.ops import flash_attention as fa
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = {}
+        for name, value in flags.items():
+            if name == "skip":
+                if not value:
+                    saved["_skip_and_bounds"] = fa._skip_and_bounds
+                    fa._skip_and_bounds = lambda *a: (False, None)
+            else:
+                saved[name] = getattr(fa, name)
+                setattr(fa, name, value)
+        try:
+            yield
+        finally:
+            for name, value in saved.items():
+                setattr(fa, name, value)
     return ctx()
 
 
@@ -583,7 +732,7 @@ def train_slice_phase(workdir):
     _kernels.reset_launches()
     loss_k, grads_k = loss_and_grads()
     launches = dict(_kernels.LAUNCHES)
-    check(launches == {"mh_flash_fwd": L, "mh_flash_bwd": L},
+    check(launches == _counts(mh_flash_fwd=L, mh_flash_bwd=L),
           f"one micro-batch launched {launches}, want {L} of each")
     with _plain_attention():
         loss_p, grads_p = loss_and_grads()
@@ -613,7 +762,7 @@ def train_slice_phase(workdir):
     met_k = one_step(model)
     gn_k = float(met_k["grad_norm"])
     launches = dict(_kernels.LAUNCHES)
-    check(launches == {"mh_flash_fwd": L * accum, "mh_flash_bwd": L * accum},
+    check(launches == _counts(mh_flash_fwd=L * accum, mh_flash_bwd=L * accum),
           f"one train step launched {launches}, want {L * accum} of each")
     with _plain_attention():
         met_p = one_step(twin)
@@ -659,8 +808,8 @@ def train_slice_phase(workdir):
         recs = [_json.loads(line) for line in f]
     losses = [r["loss"] for r in recs if "loss" in r]
     probes = [k for r in recs for k in r if k.startswith("test_loss/")]
-    want = {"mh_flash_fwd": (steps + 1) * L * accum + len(probes) * L,
-            "mh_flash_bwd": (steps + 1) * L * accum}
+    want = _counts(mh_flash_fwd=(steps + 1) * L * accum + len(probes) * L,
+                   mh_flash_bwd=(steps + 1) * L * accum)
     print(f"train CLI: {steps} steps in {wall:.2f} s, the final checkpoint "
           f"reloads equal to the trainer's parameters, 1 step resumed from it "
           f"(step {resumed.step}); losses {[round(x, 4) for x in losses]}, "
@@ -699,6 +848,486 @@ def train_slice_phase(workdir):
     return main_launches
 
 
+# ---------------------------------------------------------------------------
+# 5. long-context kernels
+# ---------------------------------------------------------------------------
+
+# bench_longctx.py's shapes: (mini-batch, context), five EOS a row.
+LONG_SHAPES = ((8, 2048), (4, 4096))
+LONG_EOS = 5
+
+
+def _long_segments(layout, B, T, seed):
+    """Segment ids (B, T) int32 on the card: 'packed' as bench_longctx.py's
+    rows, else as _segments."""
+    import torch
+    if layout == "packed":
+        return torch.from_numpy(
+            next(bench_batches(B, T, seed, LONG_EOS))["segments"]).cuda().contiguous()
+    return _segments(layout, B, T, torch.Generator(device="cuda").manual_seed(seed))
+
+
+def _walked(fn, n_tiles_want, what):
+    """Run fn(tile_count) and hold the tiles the kernel walked against the
+    count its bounds give."""
+    import torch
+    count = torch.zeros(1, dtype=torch.int32, device="cuda")
+    out = fn(count)
+    torch.cuda.synchronize()
+    check(int(count.item()) == n_tiles_want,
+          f"{what}: walked {int(count.item())} tiles, the bounds give {n_tiles_want}")
+    return out
+
+
+def longctx_kernel_phase():
+    """The forward with bounds, the fused multi-kv backward with bounds and
+    the split pair against their plain versions at T >= 2048, the identities
+    that skipping must keep, and the timings at bench_longctx.py's shapes.
+    Returns the rows of mh_flash_bwd_mk, mh_flash_bwd_dkv and
+    mh_flash_bwd_dq for the kernels line, the forward's time at T = 2048
+    and its max |do| against plain at those shapes."""
+    import torch
+    import torch.nn.functional as F
+    from omnibiote_tpu_torch.models.rope import apply_rope_half
+    from omnibiote_tpu_torch.ops import flash_attention as fa
+
+    H, D = 8, 128
+    scale = 1.0 / math.sqrt(D)
+    cases = [(2, 2048, dt, lay, TRAIN_DROPOUT) for dt in ("bfloat16", "float32")
+             for lay in ("packed", "padded", "dense")]
+    cases += [(2, 2048, "bfloat16", "packed", 0.0), (2, 2048, "float32", "packed", 0.0),
+              (1, 4096, "bfloat16", "packed", TRAIN_DROPOUT)]
+    for i, (B, T, dtype, layout, rate) in enumerate(cases):
+        tdt = getattr(torch, dtype)
+        tag = f"B={B} T={T} {dtype:8s} {layout:6s} dropout {rate}"
+        q, k, v, _, rope = _attn_inputs(B, T, H, D, tdt, "dense", seed=300 + i)
+        seg = _long_segments(layout, B, T, 300 + i)
+        gen = torch.Generator(device="cuda").manual_seed(400 + i)
+        do = torch.randn(B, T, H, D, generator=gen, device="cuda").to(tdt)
+        kw = dict(scale=scale, dropout_rate=rate, seed=0xD1B54A32D192ED03 + i)
+        tq, tkv = fa.KERNEL_TILES["fwd"][tdt]
+        bq, bkv = fa.KERNEL_TILES["bwd"][tdt]
+        sb = None if seg is None else fa.SegmentBounds(seg)
+        kv_b = None if sb is None else sb.get(tq, tkv)          # per q tile
+        q_b = None if sb is None else sb.get(bkv, bq)           # per kv tile
+        n_kv = H * (B * (T // tq) * (T // tkv) if sb is None
+                    else int((kv_b[1] - kv_b[0] + 1).sum()))
+        n_q = H * (B * (T // bkv) * (T // bq) if sb is None
+                   else int((q_b[1] - q_b[0] + 1).sum()))
+
+        # forward: bounds against the full walk (bit for bit), against plain
+        o, lse = _walked(lambda c: fa.mh_flash_forward_kernel(
+            q, k, v, seg, rope, kv_bounds=kv_b, tile_count=c, **kw), n_kv,
+            f"forward {tag}")
+        o_all, lse_all = fa.mh_flash_forward_kernel(q, k, v, seg, rope, **kw)
+        check(torch.equal(o, o_all) and torch.equal(lse, lse_all),
+              f"forward with bounds differs from the full walk at {tag}")
+        po, plse = fa.mh_flash_forward_plain(
+            q, k, v, seg, rope, block_kv=tkv, block_q=tq, segment_skip=True,
+            bounds=sb, **kw)
+        rt, at = TOL[dtype]["o"]
+        rl, al = TOL[dtype]["lse"]
+        err_o = (o.float() - po.float()).abs().max().item()
+        check(torch.allclose(o.float(), po.float(), rtol=rt, atol=at)
+              and torch.allclose(lse, plse, rtol=rl, atol=al),
+              f"forward with bounds disagrees with its plain version at {tag}")
+
+        di = (po.float() * do.float()).sum(-1)
+        args = (q, k, v, do, plse, di, seg, rope)
+        want = fa.mh_flash_backward_plain(*args, block_q=bq, block_kv=bkv,
+                                          segment_skip=True, bounds=sb, **kw)
+        # fused multi-kv: bounds against the full walk (dk, dv bit for bit,
+        # dq within the atomics' tolerance), against plain
+        mk = _walked(lambda c: fa.mh_flash_backward_kernel(
+            *args, tile_bounds=q_b, tile_count=c, **kw), n_q,
+            f"fused backward {tag}")
+        mk_all = fa.mh_flash_backward_kernel(*args, **kw)
+        check(torch.equal(mk[1], mk_all[1]) and torch.equal(mk[2], mk_all[2]),
+              f"fused backward with bounds: dk or dv differs from the full walk at {tag}")
+        check(_rel_err(mk[0], mk_all[0]) <= BWD_TOL[dtype],
+              f"fused backward with bounds: dq differs from the full walk at {tag}")
+        # split pair: each against the full walk and a second launch, bit for bit
+        dkv = _walked(lambda c: fa.mh_flash_bwd_dkv_kernel(
+            *args, tile_bounds=q_b, tile_count=c, **kw), n_q, f"dkv {tag}")
+        dkv_all = fa.mh_flash_bwd_dkv_kernel(*args, **kw)
+        check(torch.equal(dkv[0], dkv_all[0]) and torch.equal(dkv[1], dkv_all[1]),
+              f"dkv kernel with bounds differs from the full walk at {tag}")
+        dq = _walked(lambda c: fa.mh_flash_bwd_dq_kernel(
+            *args, tile_bounds=kv_b, tile_count=c, **kw), n_kv, f"dq {tag}")
+        check(torch.equal(dq, fa.mh_flash_bwd_dq_kernel(*args, **kw)),
+              f"dq kernel with bounds differs from the full walk at {tag}")
+        check(torch.equal(dq, fa.mh_flash_bwd_dq_kernel(*args, tile_bounds=kv_b, **kw)),
+              f"dq kernel: two launches give different bits at {tag}")
+        torch.cuda.synchronize()
+        check(all(torch.isfinite(g.float()).all() for g in (*mk, *dkv, dq)),
+              f"non-finite backward output at {tag}")
+        e_mk = [_rel_err(g, w) for g, w in zip(mk, want)]
+        e_sp = [_rel_err(g, w) for g, w in zip((dq, *dkv), want)]
+        e_fs = [_rel_err(g, w) for g, w in zip(mk, (dq, *dkv))]
+        print(f"long kernels {tag}: tiles walked fwd/dq {n_kv} of "
+              f"{H * B * (T // tq) * (T // tkv)}, bwd/dkv {n_q} of "
+              f"{H * B * (T // bkv) * (T // bq)}; fwd max|do| {err_o:.3e} (rtol {rt}, "
+              f"atol {at}); max|d|/max|g| vs plain (dq, dk, dv): fused "
+              f"{e_mk[0]:.2e} {e_mk[1]:.2e} {e_mk[2]:.2e}, split {e_sp[0]:.2e} "
+              f"{e_sp[1]:.2e} {e_sp[2]:.2e}; fused vs split {max(e_fs):.2e} "
+              f"(tolerance {BWD_TOL[dtype]}); bounds on == off")
+        check(max(e_mk) <= BWD_TOL[dtype], f"fused multi-kv backward disagrees at {tag}")
+        check(max(e_sp) <= BWD_TOL[dtype], f"split backward disagrees at {tag}")
+        check(max(e_fs) <= BWD_TOL[dtype], f"fused and split backward disagree at {tag}")
+        del q, k, v, do, o, lse, po, plse, want, mk, mk_all, dkv, dkv_all, dq
+
+    # the lse-exposing variant with a non-zero lse cotangent, through
+    # autograd: kernels (fused, then split) against the plain versions
+    B, T = 2, 2048
+    qkv = _attn_inputs(B, T, H, D, torch.bfloat16, "dense", seed=500)
+    rope = qkv[4]
+    seg = _long_segments("packed", B, T, 500)
+    gen = torch.Generator(device="cuda").manual_seed(501)
+    do = torch.randn(B, T, H, D, generator=gen, device="cuda").bfloat16()
+    dlse = torch.randn(B, T, H, generator=gen, device="cuda")
+
+    def lse_grads():
+        q, k, v = (x.clone().requires_grad_() for x in qkv[:3])
+        o, lse = fa.flash_attention_lse(q, k, v, seg, rope, scale=scale,
+                                        dropout_rate=TRAIN_DROPOUT, seed=77,
+                                        block_q=512, block_kv=512)
+        return (lse, *torch.autograd.grad((o, lse), (q, k, v), (do, dlse)))
+
+    with _plain_attention():
+        want = lse_grads()
+    for fused in (True, False):
+        with _attention_switch(FUSED_MULTIKV_BWD=fused):
+            got = lse_grads()
+        errs = [_rel_err(g, w) for g, w in zip(got[1:], want[1:])]
+        print(f"flash_attention_lse with a random dlse, {'fused' if fused else 'split'} "
+              f"backward vs plain: max|dlse| {(got[0] - want[0]).abs().max().item():.2e}, "
+              f"max|d|/max|g| {max(errs):.2e} (tolerance {BWD_TOL['bfloat16']})")
+        check(torch.allclose(got[0], want[0], rtol=1e-5, atol=1e-4)
+              and max(errs) <= BWD_TOL["bfloat16"],
+              "flash_attention_lse: kernels disagree with the plain versions")
+    del qkv, do, dlse, want, got
+
+    # timings at bench_longctx.py's shapes: bf16, RoPE, dropout 0.1, five EOS
+    # a row; each kernel with skipping (the main path) and without
+    rows, fwd_ms_2048 = [], None
+    worst = {"fwd": 0.0, "mk": 0.0, "dkv": 0.0, "dq": 0.0}
+    for B, T in LONG_SHAPES:
+        q, k, v, _, rope = _attn_inputs(B, T, H, D, torch.bfloat16, "dense", 600 + T)
+        seg = _long_segments("packed", B, T, 600 + T)
+        gen = torch.Generator(device="cuda").manual_seed(700 + T)
+        do = torch.randn(B, T, H, D, generator=gen, device="cuda").bfloat16()
+        sb = fa.SegmentBounds(seg)
+        kw = dict(scale=scale, dropout_rate=TRAIN_DROPOUT, seed=4242)
+        o, lse = fa.mh_flash_forward(q, k, v, seg, rope, segment_skip=True, bounds=sb, **kw)
+        di = (o.float() * do.float()).sum(-1)
+        args = (q, k, v, do, lse, di, seg, rope)
+        kernels = {
+            "mh_flash_fwd": lambda **s: fa.mh_flash_forward(q, k, v, seg, rope, **kw, **s),
+            "mh_flash_bwd_mk": lambda **s: fa.mh_flash_backward(*args, **kw, **s),
+            "mh_flash_bwd_dkv": lambda **s: fa.mh_flash_bwd_dkv(*args, **kw, **s),
+            "mh_flash_bwd_dq": lambda **s: fa.mh_flash_bwd_dq(*args, **kw, **s),
+        }
+        ms = {n: (cuda_ms(lambda: f(segment_skip=True, bounds=sb), 10),
+                  cuda_ms(lambda: f(), 10)) for n, f in kernels.items()}
+        # every kernel against its plain version at this shape, called as
+        # the main path calls it (skipping on)
+        shape = f"the long shape B={B} T={T}"
+        got = {n: f(segment_skip=True, bounds=sb) for n, f in kernels.items()}
+        err_f = _hold_fwd(got["mh_flash_fwd"], fa.mh_flash_forward_plain(
+            q, k, v, seg, rope, block_q=64, block_kv=64, segment_skip=True,
+            bounds=sb, **kw), "bfloat16", shape)
+        want = fa.mh_flash_backward_plain(*args, block_q=32, block_kv=64,
+                                          segment_skip=True, bounds=sb, **kw)
+        held = {"mk": _hold_bwd(got["mh_flash_bwd_mk"], want, "bfloat16", f"{shape} (fused)"),
+                "dkv": _hold_bwd(got["mh_flash_bwd_dkv"], want[1:], "bfloat16", f"{shape} (dkv)"),
+                "dq": _hold_bwd((got["mh_flash_bwd_dq"],), want[:1], "bfloat16", f"{shape} (dq)")}
+        print(f"kernels vs plain at {shape} bf16 dropout {TRAIN_DROPOUT}: fwd max|do| "
+              f"{err_f:.3e} (rtol, atol {TOL['bfloat16']['o']}); max|d|/max|g| fused "
+              f"{held['mk'][0]:.2e}, dkv {held['dkv'][0]:.2e}, dq {held['dq'][0]:.2e} "
+              f"(tolerance {BWD_TOL['bfloat16']})")
+        for key, err in (("fwd", err_f), *((n, e[1]) for n, e in held.items())):
+            worst[key] = max(worst[key], err)
+        del got, want
+        torch.cuda.empty_cache()
+        pairs = _visible_pairs(seg, B, T)
+        bounds = {"mh_flash_fwd": (_attn_bound(B, T, H, D, pairs), _attn_bound(B, T, H, D)),
+                  **{f"mh_flash_bwd_{n}": (_bwd_bound(B, T, H, D, pairs, kind),
+                                           _bwd_bound(B, T, H, D, None, kind))
+                     for n, kind in (("mk", "fused"), ("dkv", "dkv"), ("dq", "dq"))}}
+        kvb, qb = sb.get(64, 64), sb.get(64, 32)
+        print(f"long shape B={B} T={T} H={H} D={D} bf16, {LONG_EOS} EOS a row, dropout "
+              f"{TRAIN_DROPOUT}: visible share of (q, k) pairs {pairs / (B * T * T):.4f}, "
+              f"of 64x64 tiles {int((kvb[1] - kvb[0] + 1).sum()) / (B * (T // 64) ** 2):.4f}, "
+              f"of 64x32 tiles {int((qb[1] - qb[0] + 1).sum()) / (B * (T // 64) * (T // 32)):.4f}")
+        for n in kernels:
+            (b_vis, by), (b_all, _) = bounds[n]
+            print(f"  {n}: {ms[n][0]:.4f} ms with skipping, {ms[n][1]:.4f} ms without; "
+                  f"bound {b_vis:.4f} ms over visible pairs, {b_all:.4f} over all ({by})")
+        print(f"  split pair {ms['mh_flash_bwd_dkv'][0] + ms['mh_flash_bwd_dq'][0]:.4f} ms "
+              f"against fused {ms['mh_flash_bwd_mk'][0]:.4f} ms with skipping; "
+              f"{ms['mh_flash_bwd_dkv'][1] + ms['mh_flash_bwd_dq'][1]:.4f} against "
+              f"{ms['mh_flash_bwd_mk'][1]:.4f} without")
+        if T != 2048:
+            continue
+        fwd_ms_2048 = ms["mh_flash_fwd"][0]
+        # plain versions (with the same skipping) and the library yardstick:
+        # SDPA with dropout, dense (it takes no segment ids); its backward
+        # as (forward + backward) - forward through autograd
+        plain_ms = {
+            "mh_flash_bwd_mk": cuda_ms(lambda: fa.mh_flash_backward_plain(
+                *args, block_q=32, block_kv=64, segment_skip=True, bounds=sb, **kw), 2, warmup=1),
+            "mh_flash_bwd_dkv": cuda_ms(lambda: fa.mh_flash_bwd_dkv_plain(
+                *args, block_q=32, block_kv=64, segment_skip=True, bounds=sb, **kw), 2, warmup=1),
+            "mh_flash_bwd_dq": cuda_ms(lambda: fa.mh_flash_bwd_dq_plain(
+                *args, block_q=64, block_kv=64, segment_skip=True, bounds=sb, **kw), 2, warmup=1),
+        }
+        qr, kr = apply_rope_half(q, k, *rope)
+        qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_() for x in (qr, kr, v))
+        doh = do.transpose(1, 2).contiguous()
+        sdpa = lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, dropout_p=TRAIN_DROPOUT, scale=scale)
+        with torch.no_grad():
+            lib_fwd = cuda_ms(sdpa, 10)
+        lib_bwd = cuda_ms(lambda: torch.autograd.grad(sdpa(), (qh, kh, vh), doh), 10) - lib_fwd
+        print(f"  plain: fused {plain_ms['mh_flash_bwd_mk']:.3f} ms, dkv "
+              f"{plain_ms['mh_flash_bwd_dkv']:.3f} ms, dq {plain_ms['mh_flash_bwd_dq']:.3f} ms; "
+              f"SDPA dense with dropout: forward {lib_fwd:.4f} ms, backward {lib_bwd:.4f} ms")
+        for name, src, line, key, lib in (
+                ("mh_flash_bwd_mk", "mh_flash_bwd.cu", 1128, "mk", lib_bwd),
+                ("mh_flash_bwd_dkv", "mh_flash_bwd_dkv.cu", 773, "dkv", None),
+                ("mh_flash_bwd_dq", "mh_flash_bwd_dq.cu", 866, "dq", None)):
+            rows.append({"name": name, "route": "cuda",
+                         "source": f"omnibiote_tpu_torch/ops/csrc/{src}",
+                         "replaces": f"omnibiote_tpu/ops/flash_attention.py:{line}",
+                         "launches": None, "max_abs_err": key,
+                         "ms": ms[name][0], "plain_ms": plain_ms[name],
+                         "bound_ms": bounds[name][0][0], "bound_by": bounds[name][0][1],
+                         "library_ms": lib})
+        del qh, kh, vh, qr, kr, doh
+    for row in rows:   # the worst over both long shapes
+        row["max_abs_err"] = worst[row["max_abs_err"]]
+    return rows, fwd_ms_2048, worst["fwd"]
+
+
+# ---------------------------------------------------------------------------
+# 6. long-context training slice
+# ---------------------------------------------------------------------------
+
+def _counts(**nonzero):
+    from omnibiote_tpu_torch.ops import _kernels
+    return {**dict.fromkeys(_kernels.LAUNCHES, 0), **nonzero}
+
+
+def _throughput(cfg, tc, n_eos, steps, label):
+    """Tokens/s of Trainer.train_step_once over `steps` steps after three
+    warm-up steps, with peak allocated memory and MFU."""
+    import torch
+    from omnibiote_tpu_torch import num_params
+    from omnibiote_tpu_torch.training.metrics import flops_per_token, mfu
+    from omnibiote_tpu_torch.training.train import Trainer
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with Trainer(cfg, tc, batch_iter=bench_batches(tc.batch_size, tc.ctx_len, 3, n_eos),
+                 prefetch=2) as tr:
+        for _ in range(3):
+            tr.train_step_once()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(steps):
+            m = tr.train_step_once()
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        loss = float(m["loss"])
+        fpt = flops_per_token(num_params(tr.model, non_embedding=True), cfg.n_layer,
+                              cfg.n_embd, tc.ctx_len)
+    tps = steps * tc.batch_size * tc.ctx_len / dt
+    check(math.isfinite(loss), f"non-finite throughput-run loss {loss} ({label})")
+    print(f"train throughput {label}: B={tc.batch_size} (mini {tc.mini_batch_size}) "
+          f"T={tc.ctx_len} {n_eos} EOS a row, dropout {cfg.dropout} bf16: {tps:.1f} "
+          f"tokens/s, {1e3 * dt / steps:.3f} ms a step, peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, MFU {mfu(tps, fpt):.4f} "
+          f"vs the H100 bf16 dense peak ({fpt / 1e9:.4f} GFLOP a token), loss {loss:.4f}")
+    return tps
+
+
+def longctx_slice_phase(workdir):
+    """Packed MLM pretraining at block_size = ctx_len = 2048 (and 4096 for
+    throughput); returns (launches of the CLI run, launches of the split
+    run)."""
+    import copy
+    import json as _json
+    import torch
+    from omnibiote_tpu_torch import preset
+    from omnibiote_tpu_torch.config import TrainConfig
+    from omnibiote_tpu_torch.models.omnibiota import init_params
+    from omnibiote_tpu_torch.ops import _kernels
+    from omnibiote_tpu_torch.training import cli
+    from omnibiote_tpu_torch.training.checkpoint import load_model_checkpoint
+    from omnibiote_tpu_torch.training.mlm import mlm_loss
+    from omnibiote_tpu_torch.training.optim import make_optimizer
+    from omnibiote_tpu_torch.training.train import (
+        Trainer, _compute_copy, make_train_step)
+
+    mini, accum, ctx = 8, 2, 2048
+    cfg = preset("omnibiote-small", vocab_size=65536, dropout=TRAIN_DROPOUT,
+                 block_size=ctx)
+    check((cfg.n_layer, cfg.n_embd, cfg.n_head, cfg.block_size, cfg.compute_dtype)
+          == (8, 1024, 8, ctx, "bfloat16"), f"unexpected long-context config {cfg}")
+    L = cfg.n_layer
+    tc = TrainConfig(batch_size=mini * accum, mini_batch_size=mini, ctx_len=ctx,
+                     token_budget=float(mini * accum * ctx * 10000), seed=0)
+    batch = next(bench_batches(mini * accum, ctx, 1, LONG_EOS))
+    tokens = torch.from_numpy(batch["tokens"]).cuda().view(accum, mini, ctx)
+    segments = torch.from_numpy(batch["segments"]).cuda().view(accum, mini, ctx)
+    fused_counts = lambda n: _counts(mh_flash_fwd=n, mh_flash_bwd_mk=n)
+    split_counts = lambda n: _counts(mh_flash_fwd=n, mh_flash_bwd_dkv=n, mh_flash_bwd_dq=n)
+
+    # -- one micro-batch: fused, split, plain -----------------------------
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = init_params(gen, cfg, device="cuda")
+
+    def loss_and_grads():
+        params_c = _compute_copy(dict(model.named_parameters()), cfg)
+        loss, _ = mlm_loss(model, tokens[0], segments[0], 1234, params=params_c)
+        grads = torch.autograd.grad(loss, list(params_c.values()))
+        return loss.item(), dict(zip(params_c, grads))
+
+    with _plain_attention():
+        _kernels.reset_launches()
+        loss_p, grads_p = loss_and_grads()
+        check(_kernels.LAUNCHES == _counts(), "the plain run launched a kernel")
+    for fused in (True, False):
+        name = "fused backward" if fused else "split pair"
+        with _attention_switch(FUSED_MULTIKV_BWD=fused):
+            _kernels.reset_launches()
+            loss_k, grads_k = loss_and_grads()
+        want = fused_counts(L) if fused else split_counts(L)
+        check(_kernels.LAUNCHES == want,
+              f"one micro-batch ({name}) launched {_kernels.LAUNCHES}, want {want}")
+        worst_cos = min(torch.nn.functional.cosine_similarity(
+            grads_k[n].double().flatten(), grads_p[n].double().flatten(), dim=0).item()
+            for n in grads_k)
+        print(f"long micro-batch (mini {mini}, T {ctx}, dropout {TRAIN_DROPOUT}, {name}): "
+              f"loss kernels {loss_k:.6f} plain {loss_p:.6f} (|d| {abs(loss_k - loss_p):.2e}, "
+              f"limit {TRAIN_LOSS_ATOL}); worst gradient cosine {worst_cos:.6f} over "
+              f"{len(grads_k)} tensors (limit {TRAIN_GRAD_COS})")
+        check(abs(loss_k - loss_p) <= TRAIN_LOSS_ATOL, f"long micro-batch loss ({name})")
+        check(worst_cos >= TRAIN_GRAD_COS, f"long micro-batch gradients ({name})")
+        del grads_k
+    del grads_p
+
+    # -- one train step with A = 2: fused, split, plain -------------------
+    def one_step(m):
+        params = dict(m.named_parameters())
+        opt = make_optimizer(list(params), cfg, tc, 10000)
+        state = opt.init(params)
+        step = make_train_step(m, cfg, tc, opt)
+        return step(params, state, tokens, segments, [1.0] * accum, 99, 0)
+
+    with _plain_attention():
+        met_p = one_step(copy.deepcopy(model))
+    gn_p = float(met_p["grad_norm"])
+    for fused in (True, False):
+        name = "fused backward" if fused else "split pair"
+        with _attention_switch(FUSED_MULTIKV_BWD=fused):
+            _kernels.reset_launches()
+            met_k = one_step(copy.deepcopy(model))
+        gn_k = float(met_k["grad_norm"])
+        want = fused_counts(L * accum) if fused else split_counts(L * accum)
+        check(_kernels.LAUNCHES == want,
+              f"one long train step ({name}) launched {_kernels.LAUNCHES}, want {want}")
+        print(f"long train step A={accum} ({name}): grad_norm kernels {gn_k:.6f} plain "
+              f"{gn_p:.6f} (relative {abs(gn_k - gn_p) / gn_p:.2e}, limit "
+              f"{TRAIN_GNORM_RTOL}); loss {float(met_k['loss']):.6f} vs "
+              f"{float(met_p['loss']):.6f}; launches a step {dict(_kernels.LAUNCHES)}")
+        check(abs(gn_k - gn_p) <= TRAIN_GNORM_RTOL * gn_p,
+              f"long train step grad_norm ({name})")
+    del model, met_k, met_p
+    torch.cuda.empty_cache()
+
+    # -- the CLI at --ctx_len 2048: this slice's main path -----------------
+    data = os.path.join(workdir, "data_long")
+    _write_shards(data, 600_000, seed=4)
+    log = os.path.join(workdir, "metrics_long.jsonl")
+    steps = 3
+    argv = ["--base_dir", data, "--train_type", "mixed", "--n_layer", str(L),
+            "--n_embd", "1024", "--n_head", "8", "--ctx_len", str(ctx),
+            "--dropout", str(TRAIN_DROPOUT), "--mini_batch_size", str(mini),
+            "--batch_size", str(mini * accum), "--max_steps", str(steps),
+            "--save_dir", os.path.join(workdir, "ckpt_long"), "--metrics_jsonl", log,
+            "--log_every", "1", "--test_freq", "50000"]
+    print("train CLI: python -m omnibiote_tpu_torch.training.cli " + " ".join(argv))
+    # main path: every count at 0 just before, read just after
+    _kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    trainer = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    check(trainer.model.cfg.block_size == ctx and trainer.model.rope_cos.shape[0] == ctx,
+          "the CLI's model was not built at the long context")
+    reloaded, _ = load_model_checkpoint(os.path.join(workdir, "ckpt_long", "omnibiota"))
+    for n, p in reloaded.named_parameters():
+        check(torch.equal(p, trainer.params[n]), f"checkpoint reload differs at {n}")
+    del trainer, reloaded
+    torch.cuda.empty_cache()
+    resumed = cli.main(argv[:argv.index("--max_steps")] + ["--max_steps", "1"]
+                       + argv[argv.index("--max_steps") + 2:] + ["--resume_from", "-1"])
+    torch.cuda.synchronize()
+    cli_launches = dict(_kernels.LAUNCHES)
+    with open(log) as f:
+        recs = [_json.loads(line) for line in f]
+    losses = [r["loss"] for r in recs if "loss" in r]
+    probes = [k for r in recs for k in r if k.startswith("test_loss/")]
+    want = _counts(mh_flash_fwd=(steps + 1) * L * accum + len(probes) * L,
+                   mh_flash_bwd_mk=(steps + 1) * L * accum)
+    print(f"train CLI at ctx {ctx}: {steps} steps in {wall:.2f} s, the final checkpoint "
+          f"reloads equal, 1 step resumed from it (step {resumed.step}); losses "
+          f"{[round(x, 4) for x in losses]}, {len(probes)} validation probes, launches "
+          f"{cli_launches} (want {want})")
+    check(resumed.step == steps + 1, f"resumed long run ended at step {resumed.step}")
+    check(len(losses) == steps + 1 and all(math.isfinite(x) for x in losses),
+          f"long CLI losses {losses}")
+    check(cli_launches == want, f"long CLI launches {cli_launches}, want {want}")
+    del resumed
+    torch.cuda.empty_cache()
+
+    # -- the split pair's main path: Trainer.run with the switch off --------
+    n_split = 2
+    with _attention_switch(FUSED_MULTIKV_BWD=False):
+        with Trainer(cfg, tc, batch_iter=bench_batches(mini * accum, ctx, 5, LONG_EOS)) as tr:
+            _kernels.reset_launches()
+            tr.run(max_steps=n_split)
+            torch.cuda.synchronize()
+            split_launches = dict(_kernels.LAUNCHES)
+    del tr
+    want = split_counts(n_split * L * accum)
+    print(f"Trainer.run with FUSED_MULTIKV_BWD = False: {n_split} steps, launches "
+          f"{split_launches} (want {want})")
+    check(split_launches == want, f"split run launches {split_launches}, want {want}")
+
+    # -- throughput ---------------------------------------------------------
+    # (tools/gpu_profile_train.py takes --no_skip and --split for the other
+    # combinations at either context)
+    tag = f"ctx {ctx}"
+    _throughput(cfg, tc, LONG_EOS, 8, f"{tag}, skipping, fused backward")
+    with _attention_switch(skip=False):
+        _throughput(cfg, tc, LONG_EOS, 8, f"{tag}, every tile, fused backward")
+    with _attention_switch(FUSED_MULTIKV_BWD=False):
+        _throughput(cfg, tc, LONG_EOS, 8, f"{tag}, skipping, split pair")
+    mini4, ctx4 = LONG_SHAPES[1]
+    cfg4 = preset("omnibiote-small", vocab_size=65536, dropout=TRAIN_DROPOUT,
+                  block_size=ctx4)
+    tc4 = TrainConfig(batch_size=mini4 * accum, mini_batch_size=mini4, ctx_len=ctx4,
+                      token_budget=float(mini4 * accum * ctx4 * 10000), seed=0)
+    _kernels.reset_launches()
+    _throughput(cfg4, tc4, LONG_EOS, 6, f"ctx {ctx4}, skipping, fused backward")
+    check(_kernels.LAUNCHES == _counts(mh_flash_fwd=9 * L * accum, mh_flash_bwd_mk=9 * L * accum),
+          f"ctx {ctx4} run launched {_kernels.LAUNCHES}")
+    return cli_launches, split_launches
+
+
 def main():
     import torch
 
@@ -714,19 +1343,34 @@ def main():
           f"CUDA {torch.version.cuda}")
     print(gpu_name_and_power())
     build()
-    kernel_phase()
-    rows = train_kernel_phase()
+    serving_err = kernel_phase()
+    fwd_row, bwd_row = train_kernel_phase()
+    long_rows, fwd_ms_2048, long_err = longctx_kernel_phase()
+    # the forward's error: the worst over its three main-path shapes
+    fwd_row["max_abs_err"] = max(fwd_row["max_abs_err"], serving_err, long_err)
     with tempfile.TemporaryDirectory() as workdir:
         serving = slice_phase(workdir)
         print(f"serving main path launches: {serving}")
-        launches = train_slice_phase(workdir)
-    for row in rows:
-        row["launches"] = launches[row["name"]]
-    check(all(n > 0 for n in launches.values()),
-          f"a kernel of the training main path was never launched: {launches}")
-    check(serving["mh_flash_fwd"] > 0, "the serving path never launched mh_flash_fwd")
+        train = train_slice_phase(workdir)
+        print(f"ctx-1024 training main path launches: {train}")
+        long_cli, long_split = longctx_slice_phase(workdir)
+    # each row's launches: the count its own main path left (serving and
+    # both training contexts for the forward)
+    fwd_row["launches"] = (serving["mh_flash_fwd"] + train["mh_flash_fwd"]
+                           + long_cli["mh_flash_fwd"])
+    bwd_row["launches"] = train["mh_flash_bwd"]
+    for row in long_rows:
+        source = long_cli if row["name"] == "mh_flash_bwd_mk" else long_split
+        row["launches"] = source[row["name"]]
+    rows = [fwd_row, bwd_row, *long_rows]
+    check(min(serving["mh_flash_fwd"], train["mh_flash_fwd"], long_cli["mh_flash_fwd"]) > 0,
+          "a main path never launched mh_flash_fwd")
+    check(len(rows) == 5 and all(row["launches"] > 0 for row in rows),
+          f"a kernel was never launched on its main path: "
+          f"{[(row['name'], row['launches']) for row in rows]}")
+    print(f"mh_flash_fwd at the long shape (mini 8, T 2048, skipping): {fwd_ms_2048:.4f} ms")
     print(gpu_name_and_power())
-    print(json.dumps({"kernels": list(rows)}))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -41,6 +41,7 @@ from torch import nn
 
 from ..config import OmniBioTAConfig
 from ..ops.attention import attention
+from ..ops.flash_attention import SegmentBounds
 from ..utils.device import resolve_device
 from .rope import qkv_col_perm, rope_tables
 
@@ -190,9 +191,10 @@ class Block(nn.Module):
 
     def forward(self, x, cfg: OmniBioTAConfig, qkv_perm, rope, segment_ids,
                 gen: Optional[torch.Generator] = None,
-                attn_seed: Optional[int] = None):
+                attn_seed: Optional[int] = None, seg_bounds=None):
         """gen (the forward's device generator) and attn_seed are given
-        when training with dropout, None otherwise."""
+        when training with dropout, None otherwise. seg_bounds: the
+        SegmentBounds of segment_ids that all layers share."""
         B, T, D = x.shape
         rate = cfg.dropout if gen is not None else 0.0
         H, Dh = cfg.n_head, cfg.head_dim
@@ -210,7 +212,8 @@ class Block(nn.Module):
             v.reshape(B, T, H, Dh), scale=cfg.attn_scale,
             segment_ids=segment_ids, causal=cfg.autoregressive,
             dropout_rate=rate, dropout_seed=attn_seed, impl=cfg.attn_impl,
-            rope=rope, int8=cfg.attn_int8 and gen is None)
+            rope=rope, int8=cfg.attn_int8 and gen is None,
+            seg_bounds=seg_bounds)
         y = _linear(y.reshape(B, T, D), self.attn.c_proj.weight,
                     self.attn.c_proj.bias)
         x = x + _dropout(y, rate, gen)
@@ -257,8 +260,12 @@ class OmniBioTA(nn.Module):
         if T > cfg.block_size:
             raise ValueError(f"Cannot forward sequence of length {T}, block "
                              f"size is only {cfg.block_size}")
+        seg_bounds = None
         if segment_ids is not None:
             segment_ids = segment_ids.to(torch.int32)
+            # the attention's skip bounds: one holder per forward, filled
+            # once per tile size and read by every layer, both directions
+            seg_bounds = SegmentBounds(segment_ids)
         x = self.transformer.wte.weight[idx.long()].to(cfg.cdtype())
         gen, seeds = None, [None] * cfg.n_layer
         if not deterministic:
@@ -269,7 +276,8 @@ class OmniBioTA(nn.Module):
                 x = _dropout(x, cfg.dropout, gen)
         rope = (self.rope_cos, self.rope_sin)
         for blk, seed in zip(self.transformer.h, seeds):
-            x = blk(x, cfg, self.qkv_perm, rope, segment_ids, gen, seed)
+            x = blk(x, cfg, self.qkv_perm, rope, segment_ids, gen, seed,
+                    seg_bounds)
         emb = self.transformer.ln_f(x)
         if return_embeddings:
             return emb

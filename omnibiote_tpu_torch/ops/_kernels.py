@@ -17,7 +17,12 @@ SRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
 
 # Launches per kernel wrapper: each wrapper adds one where it launches.
-LAUNCHES: Dict[str, int] = {"mh_flash_fwd": 0, "mh_flash_bwd": 0}
+# The fused backward source serves two counts: "mh_flash_bwd" where one kv
+# block spans the sequence (T <= 1024 under the dispatch) and
+# "mh_flash_bwd_mk" for the multi-kv case above it.
+LAUNCHES: Dict[str, int] = {"mh_flash_fwd": 0, "mh_flash_bwd": 0,
+                            "mh_flash_bwd_mk": 0, "mh_flash_bwd_dkv": 0,
+                            "mh_flash_bwd_dq": 0}
 
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
@@ -28,7 +33,9 @@ _SIGNATURES = {
         "obt_mh_flash_fwd": (_c.c_int, [
             _c.c_void_p, _c.c_void_p, _c.c_void_p,     # q, k, v
             _c.c_void_p, _c.c_void_p, _c.c_void_p,     # seg, cos, sin
-            _c.c_void_p, _c.c_void_p, _c.c_void_p,     # k_rot, o, lse2
+            _c.c_void_p,                               # k_rot
+            _c.c_void_p, _c.c_void_p, _c.c_void_p,     # kv_lo, kv_hi, tile_count
+            _c.c_void_p, _c.c_void_p,                  # o, lse2
             _c.c_int, _c.c_int, _c.c_int, _c.c_int,    # B, T, H, D
             _c.c_float, _c.c_int,                      # scale_log2, dtype
             _c.c_int, _c.c_uint32, _c.c_float,         # drop, thresh, keep_scale
@@ -40,13 +47,43 @@ _SIGNATURES = {
             _c.c_void_p, _c.c_void_p, _c.c_void_p,     # q, k, v
             _c.c_void_p, _c.c_void_p, _c.c_void_p,     # do, lse2, di
             _c.c_void_p, _c.c_void_p, _c.c_void_p,     # seg, cos, sin
-            _c.c_void_p, _c.c_void_p, _c.c_void_p,     # q_rot, k_rot, dq_acc
+            _c.c_void_p, _c.c_void_p,                  # q_rot, k_rot
+            _c.c_void_p, _c.c_void_p, _c.c_void_p,     # q_lo, q_hi, tile_count
+            _c.c_void_p,                               # dq_acc
             _c.c_void_p, _c.c_void_p, _c.c_void_p,     # dq, dk, dv
             _c.c_int, _c.c_int, _c.c_int, _c.c_int,    # B, T, H, D
             _c.c_float, _c.c_float, _c.c_int,          # scale_log2, scale, dtype
             _c.c_int, _c.c_uint32, _c.c_float,         # drop, thresh, keep_scale
             _c.c_uint64, _c.c_void_p]),                # seed, stream
         "obt_cuda_error_string_bwd": (_c.c_char_p, [_c.c_int]),
+    },
+    "mh_flash_bwd_dkv": {
+        "obt_mh_flash_bwd_dkv": (_c.c_int, [
+            _c.c_void_p, _c.c_void_p, _c.c_void_p,     # q, k, v
+            _c.c_void_p, _c.c_void_p, _c.c_void_p,     # do, lse2, di
+            _c.c_void_p, _c.c_void_p, _c.c_void_p,     # seg, cos, sin
+            _c.c_void_p, _c.c_void_p,                  # q_rot, k_rot
+            _c.c_void_p, _c.c_void_p, _c.c_void_p,     # q_lo, q_hi, tile_count
+            _c.c_void_p, _c.c_void_p,                  # dk, dv
+            _c.c_int, _c.c_int, _c.c_int, _c.c_int,    # B, T, H, D
+            _c.c_float, _c.c_float, _c.c_int,          # scale_log2, scale, dtype
+            _c.c_int, _c.c_uint32, _c.c_float,         # drop, thresh, keep_scale
+            _c.c_uint64, _c.c_void_p]),                # seed, stream
+        "obt_cuda_error_string_bwd_dkv": (_c.c_char_p, [_c.c_int]),
+    },
+    "mh_flash_bwd_dq": {
+        "obt_mh_flash_bwd_dq": (_c.c_int, [
+            _c.c_void_p, _c.c_void_p, _c.c_void_p,     # q, k, v
+            _c.c_void_p, _c.c_void_p, _c.c_void_p,     # do, lse2, di
+            _c.c_void_p, _c.c_void_p, _c.c_void_p,     # seg, cos, sin
+            _c.c_void_p,                               # k_rot
+            _c.c_void_p, _c.c_void_p, _c.c_void_p,     # kv_lo, kv_hi, tile_count
+            _c.c_void_p,                               # dq
+            _c.c_int, _c.c_int, _c.c_int, _c.c_int,    # B, T, H, D
+            _c.c_float, _c.c_float, _c.c_int,          # scale_log2, scale, dtype
+            _c.c_int, _c.c_uint32, _c.c_float,         # drop, thresh, keep_scale
+            _c.c_uint64, _c.c_void_p]),                # seed, stream
+        "obt_cuda_error_string_bwd_dq": (_c.c_char_p, [_c.c_int]),
     },
 }
 

@@ -61,11 +61,15 @@ def _fit_block(T: int, want: int) -> int:
 
 def attention(q, k, v, *, scale: float, segment_ids=None,
               causal: bool = False, dropout_rate: float = 0.0,
-              dropout_seed: Optional[int] = None, impl: str = "flash", block_kv: Optional[int] = None,
-              rope=None, ring_mesh=None, tp_mesh=None, int8: bool = False):
+              dropout_seed: Optional[int] = None, impl: str = "flash",
+              block_q: int = 512, block_kv: Optional[int] = None,
+              rope=None, ring_mesh=None, tp_mesh=None, int8: bool = False,
+              seg_bounds=None):
     """(B, T, H, Dh) attention. rope=(cos, sin) tables (>=T, Dh/2): q and k
     arrive pre-rotation and the dispatch owns RoPE (fused into the kernel,
-    or applied here for the dense path)."""
+    or applied here for the dense path). seg_bounds: a SegmentBounds of
+    `segment_ids` that the caller shares between its layers, so the flash
+    path's skip bounds are computed once per batch and tile size."""
     if impl == "ring" or ring_mesh is not None:
         raise NotImplementedError(
             "ring (sequence-parallel) attention is not ported yet "
@@ -86,13 +90,19 @@ def attention(q, k, v, *, scale: float, segment_ids=None,
             raise ValueError("dropout_rate > 0 requires dropout_seed")
         if segment_ids is not None and T >= 4096:
             block_kv = min(block_kv, 512)
-        # the forward's kv block: sequence-wide at 1024 < T <= 2048, as in
-        # the JAX dispatch (it sets only the plain version's rounding order)
-        fwd_kv = T if 1024 < T <= 2048 else _fit_block(T, block_kv)
+        # T <= 1024: one kv block, the single-kv fused backward; above it
+        # 512-wide kv blocks, the multi-kv backward with segment skipping.
+        # The forward's kv block is sequence-wide at 1024 < T <= 2048, as in
+        # the JAX dispatch. On a CUDA tensor the kernels walk their own
+        # tiles and prune by them; the blocks here still pick the backward's
+        # case and set the plain versions' tiles.
         return flash_attention(
             q.contiguous(), k.contiguous(), v.contiguous(), segment_ids,
-            rope, scale=scale, block_kv=fwd_kv, dropout_rate=dropout_rate,
-            seed=0 if dropout_seed is None else dropout_seed)
+            rope, scale=scale, dropout_rate=dropout_rate,
+            seed=0 if dropout_seed is None else dropout_seed,
+            block_q=_fit_block(T, block_q), block_kv=_fit_block(T, block_kv),
+            block_kv_fwd=T if 1024 < T <= 2048 else None,
+            segment_skip=True, bounds=seg_bounds)
     if rope is not None:
         from ..models.rope import apply_rope_half
         q, k = apply_rope_half(q, k, rope[0], rope[1])

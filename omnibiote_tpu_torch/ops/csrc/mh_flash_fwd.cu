@@ -36,9 +36,19 @@
 // reused directly as the A operand of P.V. K and V tiles stream through a
 // two-stage cp.async ring in shared memory, so the next tile's copy
 // overlaps this tile's products; ldmatrix (transposing for V) feeds the B
-// operands from rows padded against bank conflicts. wgmma, TMA, warp
-// specialisation and segment-range tile skipping are left for later work.
-// The fp32 kernel is the parity type and runs on the CUDA cores.
+// operands from rows padded against bank conflicts. wgmma, TMA and warp
+// specialisation are left for later work. The fp32 kernel is the parity
+// type and runs on the CUDA cores.
+//
+// Segment skipping (the TPU kernel's use_bounds). With kv_lo / kv_hi
+// non-null, int32 (B, T / q tile) in units of kv tiles, a block walks only
+// the kv tiles kv_lo..kv_hi of its (batch, q tile): every tile outside has
+// disjoint segment-id ranges and is fully masked. A skipped tile would have
+// contributed exact zeros (its p underflows to 0 against any visible
+// score, and alpha wipes a leading masked tile), so the result is bit for
+// bit that of the full walk. The ring's prologue starts at kv_lo and its
+// last refill is kv_hi. tile_count, when non-null, receives the number of
+// tiles walked, summed over blocks (checks only).
 #include "flash_common.cuh"
 #include "philox.cuh"
 
@@ -69,13 +79,18 @@ constexpr size_t bf16_smem_bytes() {
   return 2 * 2 * kBf16Tile * (D + 8) * sizeof(__nv_bfloat16) + 2 * kBf16Tile * sizeof(int);
 }
 
-template <int D, bool DROP>
+// BOUNDS: the kernel reads kv_lo / kv_hi; without it the walk starts at a
+// constant 0, which the compiler schedules as it did before bounds existed
+// (on an H100 the dense serving shape ran 11 % slower through the bounded
+// code).
+template <int D, bool DROP, bool BOUNDS>
 __global__ void __launch_bounds__(128) mh_fwd_bf16(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
     const float* __restrict__ cos_t, const float* __restrict__ sin_t,
-    __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int T, int H,
-    float scale_log2, DropParams dp) {
+    const int* __restrict__ kv_lo, const int* __restrict__ kv_hi,
+    int* __restrict__ tile_count, __nv_bfloat16* __restrict__ o,
+    float* __restrict__ lse, int T, int H, float scale_log2, DropParams dp) {
   constexpr int BQ = kBf16Tile, BKV = kBf16Tile, HALF = D / 2;
   constexpr int RS = D + 8;    // K and V tile row stride (elements), padded
   constexpr int CH = D / 8;    // 16-byte chunks in a row
@@ -108,8 +123,14 @@ __global__ void __launch_bounds__(128) mh_fwd_bf16(
       cp_async16(kseg + st * BKV + tid * 4, seg + (size_t)b * T + j0 + tid * 4);
   };
 
-  const int n_tiles = T / BKV;
-  load_tile(0, 0);
+  // the kv tiles this block walks: all, or its (batch, q tile)'s range
+  int jt0 = 0, jt1 = T / BKV - 1;
+  if constexpr (BOUNDS) {
+    jt0 = kv_lo[b * (T / BQ) + blockIdx.x];
+    jt1 = kv_hi[b * (T / BQ) + blockIdx.x];
+  }
+  if (tile_count != nullptr && tid == 0) atomicAdd(tile_count, jt1 - jt0 + 1);
+  load_tile(0, jt0 * BKV);
   cp_async_commit();
 
   // q fragments, rotated in fp32 and rounded to bf16, resident for the loop
@@ -142,11 +163,11 @@ __global__ void __launch_bounds__(128) mh_fwd_bf16(
 #pragma unroll
   for (int n = 0; n < NN; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
-  for (int jt = 0; jt < n_tiles; ++jt) {
-    const int st = jt & 1;
+  for (int jt = jt0; jt <= jt1; ++jt) {
+    const int st = (jt - jt0) & 1;
     // the other stage was last read in the previous iteration, which ended
     // in a barrier: refill it with the next tile while this one is used
-    if (jt + 1 < n_tiles) load_tile(st ^ 1, (jt + 1) * BKV);
+    if (jt + 1 <= jt1) load_tile(st ^ 1, (jt + 1) * BKV);
     cp_async_commit();
     cp_async_wait_one();  // this tile's group has landed
     __syncthreads();
@@ -276,8 +297,9 @@ __global__ void __launch_bounds__(128) mh_fwd_f32(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const int* __restrict__ seg,
     const float* __restrict__ cos_t, const float* __restrict__ sin_t,
-    float* __restrict__ o, float* __restrict__ lse, int T, int H,
-    float scale_log2, DropParams dp) {
+    const int* __restrict__ kv_lo, const int* __restrict__ kv_hi,
+    int* __restrict__ tile_count, float* __restrict__ o,
+    float* __restrict__ lse, int T, int H, float scale_log2, DropParams dp) {
   constexpr int BQ = kF32Tile, BKV = kF32Tile, HALF = D / 2, PER = D / 4;
   __shared__ __align__(16) float ks[BKV * D];
   __shared__ __align__(16) float vs[BKV * D];
@@ -311,7 +333,13 @@ __global__ void __launch_bounds__(128) mh_fwd_f32(
 #pragma unroll
   for (int i = 0; i < PER; ++i) acc[i] = 0.f;
 
-  for (int j0 = 0; j0 < T; j0 += BKV) {
+  int jt0 = 0, jt1 = T / BKV - 1;
+  if (kv_lo != nullptr) {
+    jt0 = kv_lo[b * (T / BQ) + blockIdx.x];
+    jt1 = kv_hi[b * (T / BQ) + blockIdx.x];
+  }
+  if (tile_count != nullptr && tid == 0) atomicAdd(tile_count, jt1 - jt0 + 1);
+  for (int j0 = jt0 * BKV; j0 <= jt1 * BKV; j0 += BKV) {
     __syncthreads();
     for (int it = tid; it < BKV * (D / 4); it += 128) {
       const int r = it / (D / 4), c4 = (it % (D / 4)) * 4;
@@ -369,9 +397,25 @@ __global__ void __launch_bounds__(128) mh_fwd_f32(
   if (sub == 0) lse[((size_t)b * T + row) * H + h] = m + log2f(l);
 }
 
+template <int D, bool DROP, bool BOUNDS>
+cudaError_t launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                        const __nv_bfloat16* v, const int* seg, const float* cos_t,
+                        const float* sin_t, const int* kv_lo, const int* kv_hi,
+                        int* tile_count, __nv_bfloat16* o, float* lse, int B, int T,
+                        int H, float scale_log2, DropParams dp, cudaStream_t st) {
+  const size_t smem = bf16_smem_bytes<D>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      mh_fwd_bf16<D, DROP, BOUNDS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  mh_fwd_bf16<D, DROP, BOUNDS><<<dim3(T / kBf16Tile, H, B), 128, smem, st>>>(
+      q, k, v, seg, cos_t, sin_t, kv_lo, kv_hi, tile_count, o, lse, T, H, scale_log2, dp);
+  return cudaSuccess;
+}
+
 template <int D, bool DROP>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* seg,
-                   const float* cos_t, const float* sin_t, void* k_rot, void* o,
+                   const float* cos_t, const float* sin_t, void* k_rot,
+                   const int* kv_lo, const int* kv_hi, int* tile_count, void* o,
                    float* lse, int B, int T, int H, float scale_log2, bool bf16,
                    DropParams dp, cudaStream_t st) {
   if (cos_t != nullptr) {
@@ -379,63 +423,77 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* seg,
     k = k_rot;
   }
   if (bf16) {
-    const size_t smem = bf16_smem_bytes<D>();
-    const cudaError_t e = cudaFuncSetAttribute(
-        mh_fwd_bf16<D, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(q);
+    const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(k);
+    const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(v);
+    __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(o);
+    const cudaError_t e =
+        kv_lo != nullptr
+            ? launch_bf16<D, DROP, true>(qb, kb, vb, seg, cos_t, sin_t, kv_lo, kv_hi,
+                                         tile_count, ob, lse, B, T, H, scale_log2, dp, st)
+            : launch_bf16<D, DROP, false>(qb, kb, vb, seg, cos_t, sin_t, kv_lo, kv_hi,
+                                          tile_count, ob, lse, B, T, H, scale_log2, dp, st);
     if (e != cudaSuccess) return e;
-    mh_fwd_bf16<D, DROP><<<dim3(T / kBf16Tile, H, B), 128, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), seg, cos_t, sin_t,
-        static_cast<__nv_bfloat16*>(o), lse, T, H, scale_log2, dp);
   } else {
     mh_fwd_f32<D, DROP><<<dim3(T / kF32Tile, H, B), 128, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), seg, cos_t, sin_t, static_cast<float*>(o),
-        lse, T, H, scale_log2, dp);
+        static_cast<const float*>(v), seg, cos_t, sin_t, kv_lo, kv_hi,
+        tile_count, static_cast<float*>(o), lse, T, H, scale_log2, dp);
   }
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_d(const void* q, const void* k, const void* v, const int* seg,
-                     const float* cos_t, const float* sin_t, void* k_rot, void* o,
+                     const float* cos_t, const float* sin_t, void* k_rot,
+                     const int* kv_lo, const int* kv_hi, int* tile_count, void* o,
                      float* lse, int B, int T, int H, float scale_log2, bool bf16,
                      bool drop, DropParams dp, cudaStream_t st) {
-  return drop ? launch<D, true>(q, k, v, seg, cos_t, sin_t, k_rot, o, lse, B, T,
-                                H, scale_log2, bf16, dp, st)
-              : launch<D, false>(q, k, v, seg, cos_t, sin_t, k_rot, o, lse, B, T,
-                                 H, scale_log2, bf16, dp, st);
+  return drop ? launch<D, true>(q, k, v, seg, cos_t, sin_t, k_rot, kv_lo, kv_hi,
+                                tile_count, o, lse, B, T, H, scale_log2, bf16, dp, st)
+              : launch<D, false>(q, k, v, seg, cos_t, sin_t, k_rot, kv_lo, kv_hi,
+                                 tile_count, o, lse, B, T, H, scale_log2, bf16, dp, st);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. With RoPE (cos_t and sin_t non-null),
 // k_rot is a scratch tensor of k's shape and type that receives the rotated
-// k. drop != 0 applies dropout with keep threshold `thresh` (bits >= thresh
-// keep), scale `keep_scale` and the 64-bit `seed` (philox.cuh). Returns
+// k. kv_lo and kv_hi, both null or both int32 (B, T / q tile) with the q
+// and kv tiles of the dtype's kernel (64 for bf16, 32 for fp32), bound the
+// kv tiles each q tile walks; tile_count is null or one int32 that the
+// walked tiles are added to. drop != 0 applies dropout with keep threshold
+// `thresh` (bits >= thresh keep), scale `keep_scale` and the 64-bit `seed`
+// (philox.cuh). Returns
 // cudaGetLastError() after the launches (cudaErrorInvalidValue for a shape
 // or type this file has no kernel for). Launches on `stream`, allocates
 // nothing, does not synchronise.
 extern "C" int obt_mh_flash_fwd(const void* q, const void* k, const void* v,
                                 const void* seg, const void* cos_t,
-                                const void* sin_t, void* k_rot, void* o,
+                                const void* sin_t, void* k_rot,
+                                const void* kv_lo, const void* kv_hi,
+                                void* tile_count, void* o,
                                 void* lse, int B, int T, int H, int D,
                                 float scale_log2, int dtype, int drop,
                                 uint32_t thresh, float keep_scale,
                                 uint64_t seed, void* stream) {
   if ((dtype != 0 && dtype != 1) || T < kBf16Tile || T % kBf16Tile != 0 ||
       B < 1 || B > 65535 || H < 1 || H > 65535 ||
-      (cos_t != nullptr && (sin_t == nullptr || k_rot == nullptr)))
+      (cos_t != nullptr && (sin_t == nullptr || k_rot == nullptr)) ||
+      ((kv_lo == nullptr) != (kv_hi == nullptr)))
     return (int)cudaErrorInvalidValue;
   const int* sg = static_cast<const int*>(seg);
+  const int* lo = static_cast<const int*>(kv_lo);
+  const int* hi = static_cast<const int*>(kv_hi);
+  int* tc = static_cast<int*>(tile_count);
   const float* c = static_cast<const float*>(cos_t);
   const float* s = static_cast<const float*>(sin_t);
   float* l = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const DropParams dp{seed, thresh, keep_scale};
   switch (D) {
-    case 64: return (int)launch_d<64>(q, k, v, sg, c, s, k_rot, o, l, B, T, H, scale_log2, dtype == 1, drop != 0, dp, st);
-    case 128: return (int)launch_d<128>(q, k, v, sg, c, s, k_rot, o, l, B, T, H, scale_log2, dtype == 1, drop != 0, dp, st);
+    case 64: return (int)launch_d<64>(q, k, v, sg, c, s, k_rot, lo, hi, tc, o, l, B, T, H, scale_log2, dtype == 1, drop != 0, dp, st);
+    case 128: return (int)launch_d<128>(q, k, v, sg, c, s, k_rot, lo, hi, tc, o, l, B, T, H, scale_log2, dtype == 1, drop != 0, dp, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

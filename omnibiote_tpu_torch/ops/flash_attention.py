@@ -3,12 +3,15 @@ PyTorch versions, the dropout stream they share, and the autograd Function
 that joins forward and backward.
 
 Port of `omnibiote_tpu/ops/flash_attention.py`: the forward `_mh_fwd`
-(Pallas kernel `_mh_fwd_kernel`) and the single-kv fused backward
-`_mh_bwd_fused` (Pallas kernel `_mh_bwd_fused_kernel`) that `_mh_bwd` takes
-at T <= 1024. Bidirectional attention over (B, T, H, D) q/k/v with
-rotate-half RoPE fused in, segment-id masking, dropout on P and a
-log2-space logsumexp residual. The kernels are `ops/csrc/mh_flash_fwd.cu`
-and `ops/csrc/mh_flash_bwd.cu`.
+(Pallas kernel `_mh_fwd_kernel`), the backward `_mh_bwd` with its fused
+kernels (`_mh_bwd_fused_kernel` where one kv block spans the sequence,
+`_mh_bwd_fusedmk_kernel` above that) and its split pair
+(`_mh_bwd_dkv_kernel`, `_mh_bwd_dq_kernel`), the segment-skip bounds
+`_seg_block_bounds`, and the lse-exposing variant `_flash_mh_lse`.
+Bidirectional attention over (B, T, H, D) q/k/v with rotate-half RoPE
+fused in, segment-id masking, dropout on P and a log2-space logsumexp
+residual. The kernels are `ops/csrc/mh_flash_fwd.cu`, `mh_flash_bwd.cu`
+(both fused cases), `mh_flash_bwd_dkv.cu` and `mh_flash_bwd_dq.cu`.
 
 Numerics (identical in the kernels and the plain versions):
   * RoPE rotates q and k in fp32 from the cos/sin tables, and the result is
@@ -30,11 +33,20 @@ Numerics (identical in the kernels and the plain versions):
   * backward: p = exp2(s2 - lse2), dp = do·vᵀ in fp32, p_drop and dp masked
     and scaled, ds = p·(dp - di)·scale from the undropped p with
     di = rowsum(o·do) in fp32; p_drop and ds rounded to the input dtype as
-    product operands; inverse RoPE on the fp32 dq and dk before the cast.
+    product operands; inverse RoPE on the fp32 dq and dk before the cast;
+  * segment skipping: a (q tile, kv tile) pair whose segment-id ranges are
+    disjoint is fully masked and is not visited (`seg_block_bounds`). Such
+    a tile contributes exact zeros (its p underflows to 0 against a visible
+    score, and the online softmax's alpha wipes a leading masked tile), so
+    with one ids array for q and kv (every row sees itself) skipping
+    changes no bit of o, lse2, dq, dk or dv in the plain versions, the
+    forward kernel and the split pair; the fused kernel's dq differs only
+    as its atomic sums do from run to run.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +61,23 @@ KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 # tile), and the multiple of T both kernels take.
 KERNEL_KV_TILE = {torch.bfloat16: 64, torch.float32: 32}
 KERNEL_T_MULTIPLE = 64
+# (q tile, kv tile) of each kernel per dtype: the forward and the dq kernel
+# own a q tile and walk kv tiles; the fused backward and the dkv kernel own
+# a kv tile and walk q tiles.
+KERNEL_TILES = {
+    "fwd": {torch.bfloat16: (64, 64), torch.float32: (32, 32)},
+    "dq": {torch.bfloat16: (64, 64), torch.float32: (32, 32)},
+    "bwd": {torch.bfloat16: (32, 64), torch.float32: (16, 32)},
+}
+
+# Backward routing, as the JAX package's switches of the same names: the
+# fused kernel (dq, dk, dv in one pass, 5 products a tile) where one kv
+# block spans the sequence / above that; False takes the split pair (dkv +
+# dq kernels, 7 products a tile, no atomics, dq deterministic).
+FUSED_SINGLE_KV_BWD = True
+FUSED_MULTIKV_BWD = True
+
+LN2 = 0.6931471805599453
 
 _M32 = 0xFFFFFFFF
 
@@ -155,9 +184,94 @@ def _mask_bias(segment_ids, s0: int, width: int):
     return torch.where(vis, 0.0, DEFAULT_MASK_VALUE)[:, None]
 
 
+# ---------------------------------------------------------------------------
+# Segment-skip bounds
+# ---------------------------------------------------------------------------
+
+def seg_block_bounds(a_seg: torch.Tensor, b_seg: torch.Tensor, block_a: int,
+                     block_b: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(batch, a-block) index range of b-blocks that may be visible:
+    (lo, hi) int32 (B, Ta / block_a), inclusive, on the ids' device with no
+    host sync (the JAX package's `_seg_block_bounds`).
+
+    An (a-block, b-block) tile is fully masked whenever the blocks'
+    segment-id ranges are disjoint. Packed rows carry non-decreasing ids, so
+    the range test is exact there; for any id layout disjoint ranges are a
+    safe sufficient condition to skip. An a-block that meets no b-block gets
+    (0, 0): one masked tile, which every kernel handles."""
+    B, Ta = a_seg.shape
+    Tb = b_seg.shape[1]
+    if Ta % block_a or Tb % block_b:
+        raise ValueError(f"blocks ({block_a}, {block_b}) do not divide "
+                         f"({Ta}, {Tb})")
+    na, nb = Ta // block_a, Tb // block_b
+    ar = a_seg.reshape(B, na, block_a).to(torch.int32)
+    br = b_seg.reshape(B, nb, block_b).to(torch.int32)
+    amin, amax = ar.amin(-1), ar.amax(-1)            # (B, na)
+    bmin, bmax = br.amin(-1), br.amax(-1)            # (B, nb)
+    inter = ((bmin[:, None, :] <= amax[:, :, None]) &
+             (bmax[:, None, :] >= amin[:, :, None]))  # (B, na, nb)
+    idx = torch.arange(nb, device=a_seg.device)
+    lo = torch.where(inter, idx, nb).amin(-1)
+    hi = torch.where(inter, idx, -1).amax(-1)
+    any_ = inter.any(-1)
+    lo = torch.where(any_, lo, 0).to(torch.int32).contiguous()
+    hi = torch.where(any_, hi, 0).to(torch.int32).contiguous()
+    return lo, hi
+
+
+class SegmentBounds:
+    """The skip bounds of one (B, T) ids array that q and kv share, computed
+    at most once per (block_a, block_b). All layers of a forward and its
+    backward see the same ids, so the model makes one of these per
+    micro-batch and every attention call reads from it."""
+
+    def __init__(self, segment_ids: torch.Tensor):
+        self.segment_ids = segment_ids
+        self._memo: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def get(self, block_a: int, block_b: int):
+        key = (int(block_a), int(block_b))
+        if key not in self._memo:
+            self._memo[key] = seg_block_bounds(
+                self.segment_ids, self.segment_ids, *key)
+        return self._memo[key]
+
+
+def _in_range(lo, hi, nb: int):
+    """(B, nA, nb) bool: b-block index within [lo, hi]."""
+    idx = torch.arange(nb, device=lo.device)
+    return (idx >= lo[..., None]) & (idx <= hi[..., None])
+
+
+def _visit_mask(segment_ids, bounds, T: int, block_q, block_kv, owner: str):
+    """(B, T, T) bool (q row, kv column): the elements of the tiles a
+    backward with these blocks visits, or None when it visits all. owner
+    'q': kv range per q block (the fused multi-kv and dq kernels of the JAX
+    package, the dq kernel here); 'kv': q range per kv block (the dkv
+    kernels, and the fused kernel here, whose blocks own kv tiles)."""
+    if segment_ids is None or block_q is None or block_kv is None:
+        return None
+    bq, bkv = min(int(block_q), T), min(int(block_kv), T)
+    if bq == T and bkv == T:
+        return None
+    sb = bounds if bounds is not None else SegmentBounds(segment_ids)
+    if owner == "q":
+        tiles = _in_range(*sb.get(bq, bkv), T // bkv)
+    else:
+        tiles = _in_range(*sb.get(bkv, bq), T // bq).transpose(1, 2)
+    return tiles.repeat_interleave(bq, 1).repeat_interleave(bkv, 2)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
 def mh_flash_forward_plain(q, k, v, segment_ids=None, rope=None, *,
                            scale: float, block_kv: Optional[int] = None,
-                           dropout_rate: float = 0.0, seed: int = 0):
+                           dropout_rate: float = 0.0, seed: int = 0,
+                           block_q: Optional[int] = None,
+                           segment_skip: bool = False, bounds=None):
     """Plain PyTorch version of the forward kernel: (o (B,T,H,D), lse2
     (B,T,H)).
 
@@ -166,7 +280,10 @@ def mh_flash_forward_plain(q, k, v, segment_ids=None, rope=None, *,
     integer walks kv blocks of that width with the online softmax (the
     multi-kv branch, and the CUDA kernel's order of rounding when it is the
     kernel's tile, KERNEL_KV_TILE). The dropout mask does not depend on
-    block_kv."""
+    block_kv. With segment_skip (and segment ids, and more than one kv
+    block) a q block of block_q rows (None: T) takes only the kv blocks
+    inside its bounds; `bounds` is a SegmentBounds of the ids to read them
+    from."""
     B, T, H, D = q.shape
     dtype = q.dtype
     if rope is not None:
@@ -179,6 +296,13 @@ def mh_flash_forward_plain(q, k, v, segment_ids=None, rope=None, *,
     if T % bkv:
         raise ValueError(f"block_kv={bkv} does not divide T={T}")
     keep_scale = dropout_keep_scale(dropout_rate) if dropout_rate > 0 else 1.0
+    skip = bool(segment_skip) and segment_ids is not None and bkv < T
+    if skip:
+        bq = T if block_q is None else int(block_q)
+        sb = bounds if bounds is not None else SegmentBounds(segment_ids)
+        lo, hi = sb.get(bq, bkv)
+        lo = lo.repeat_interleave(bq, 1)[:, None, :, None]   # (B, 1, T, 1)
+        hi = hi.repeat_interleave(bq, 1)[:, None, :, None]
 
     m = torch.full((B, H, T, 1), -float("inf"), device=q.device)
     l = torch.zeros((B, H, T, 1), device=q.device)
@@ -190,38 +314,48 @@ def mh_flash_forward_plain(q, k, v, segment_ids=None, rope=None, *,
         m_next = torch.maximum(m, s2.amax(dim=-1, keepdim=True))
         alpha = torch.exp2(m - m_next)
         p = torch.exp2(s2 - m_next)
-        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        l_next = alpha * l + p.sum(dim=-1, keepdim=True)
         if dropout_rate > 0.0:
             keep = dropout_keep(seed, dropout_rate, B, H, T, s0, bkv, q.device)
             p = torch.where(keep, p * keep_scale, 0.0)
         pv = torch.einsum("bhts,bshd->bhtd", p.to(dtype).float(),
                           vf[:, s0:s0 + bkv])
-        acc = pv if s0 == 0 else acc * alpha + pv
-        m = m_next
+        if skip:
+            # rows whose q block does not take this kv block keep their state
+            j = s0 // bkv
+            take = (lo <= j) & (j <= hi)
+            m = torch.where(take, m_next, m)
+            l = torch.where(take, l_next, l)
+            acc = torch.where(take, acc * alpha + pv, acc)
+        else:
+            acc = pv if s0 == 0 else acc * alpha + pv
+            m, l = m_next, l_next
     o = (acc * (1.0 / l)).to(dtype).permute(0, 2, 1, 3).contiguous()
     lse2 = (m + torch.log2(l))[..., 0].permute(0, 2, 1).contiguous()
     return o, lse2
 
 
-def mh_flash_backward_plain(q, k, v, do, lse2, di, segment_ids=None,
-                            rope=None, *, scale: float,
-                            dropout_rate: float = 0.0, seed: int = 0):
-    """Plain PyTorch version of the backward kernel: (dq, dk, dv), each
-    (B, T, H, D) in q's dtype. q, k pre-RoPE as the forward took them; do
-    (B, T, H, D); lse2 (B, T, H) fp32 from the forward; di = rowsum(o·do)
-    (B, T, H) fp32."""
+def _backward_terms(q, k, v, do, lse2, di, segment_ids, rope, scale,
+                    dropout_rate, seed, visit):
+    """What the three plain backwards share: the rotated q and k (fp32
+    views of the rounded values), do, p_drop and ds rounded to the input
+    dtype (B, H, T, T fp32), and the RoPE tables. `visit` (B, T, T) bool
+    zeroes p on the tiles a skipping backward does not visit."""
     B, T, H, D = q.shape
     dtype = q.dtype
+    tables = None
     if rope is not None:
-        cos2, sin2 = _full_tables(rope, T, q.device)
-        q = _rope_rot(q, cos2, sin2, D // 2).to(dtype)
-        k = _rope_rot(k, cos2, sin2, D // 2).to(dtype)
+        tables = _full_tables(rope, T, q.device)
+        q = _rope_rot(q, *tables, D // 2).to(dtype)
+        k = _rope_rot(k, *tables, D // 2).to(dtype)
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     c = float(np.float32(scale * LOG2E))
     s2 = torch.einsum("bthd,bshd->bhts", qf, kf) * c
     if segment_ids is not None:
         s2 = s2 + _mask_bias(segment_ids, 0, T)
     p = torch.exp2(s2 - lse2.permute(0, 2, 1)[..., None])
+    if visit is not None:
+        p = torch.where(visit[:, None], p, 0.0)
     dp = torch.einsum("bthd,bshd->bhts", dof, vf)
     if dropout_rate > 0.0:
         keep_scale = dropout_keep_scale(dropout_rate)
@@ -230,15 +364,76 @@ def mh_flash_backward_plain(q, k, v, do, lse2, di, segment_ids=None,
         dp = torch.where(keep, dp * keep_scale, 0.0)
     else:
         p_drop = p
-    dv = torch.einsum("bhts,bthd->bshd", p_drop.to(dtype).float(), dof)
     ds = p * (dp - di.permute(0, 2, 1)[..., None]) * scale
-    dsb = ds.to(dtype).float()
+    return qf, kf, dof, p_drop.to(dtype).float(), ds.to(dtype).float(), tables
+
+
+def _dkv_from_terms(qf, dof, p_drop, dsb, tables, dtype):
+    dv = torch.einsum("bhts,bthd->bshd", p_drop, dof)
     dk = torch.einsum("bhts,bthd->bshd", dsb, qf)
+    if tables is not None:
+        dk = _rope_rot_inv(dk, *tables, qf.shape[-1] // 2)
+    return dk.to(dtype), dv.to(dtype)
+
+
+def _dq_from_terms(kf, dsb, tables, dtype):
     dq = torch.einsum("bhts,bshd->bthd", dsb, kf)
-    if rope is not None:
-        dq = _rope_rot_inv(dq, cos2, sin2, D // 2)
-        dk = _rope_rot_inv(dk, cos2, sin2, D // 2)
-    return dq.to(dtype), dk.to(dtype), dv.to(dtype)
+    if tables is not None:
+        dq = _rope_rot_inv(dq, *tables, kf.shape[-1] // 2)
+    return dq.to(dtype)
+
+
+def mh_flash_backward_plain(q, k, v, do, lse2, di, segment_ids=None,
+                            rope=None, *, scale: float,
+                            dropout_rate: float = 0.0, seed: int = 0,
+                            block_q: Optional[int] = None,
+                            block_kv: Optional[int] = None,
+                            segment_skip: bool = False, bounds=None):
+    """Plain PyTorch version of the fused backward kernel (single-kv and
+    multi-kv): (dq, dk, dv), each (B, T, H, D) in q's dtype. q, k pre-RoPE
+    as the forward took them; do (B, T, H, D); lse2 (B, T, H) fp32 from the
+    forward; di = rowsum(o·do) (B, T, H) fp32 (less any lse cotangent).
+    With segment_skip and both blocks given, a kv block of block_kv rows
+    takes only the q blocks inside its bounds, as the CUDA kernel does."""
+    visit = _visit_mask(segment_ids, bounds, q.shape[1], block_q, block_kv,
+                        "kv") if segment_skip else None
+    qf, kf, dof, p_drop, dsb, tables = _backward_terms(
+        q, k, v, do, lse2, di, segment_ids, rope, scale, dropout_rate, seed,
+        visit)
+    dk, dv = _dkv_from_terms(qf, dof, p_drop, dsb, tables, q.dtype)
+    return _dq_from_terms(kf, dsb, tables, q.dtype), dk, dv
+
+
+def mh_flash_bwd_dkv_plain(q, k, v, do, lse2, di, segment_ids=None, rope=None,
+                           *, scale: float, dropout_rate: float = 0.0,
+                           seed: int = 0, block_q: Optional[int] = None,
+                           block_kv: Optional[int] = None,
+                           segment_skip: bool = False, bounds=None):
+    """Plain PyTorch version of the dkv kernel of the split pair: (dk, dv).
+    Arguments as mh_flash_backward_plain; a kv block takes the q blocks
+    inside its bounds."""
+    visit = _visit_mask(segment_ids, bounds, q.shape[1], block_q, block_kv,
+                        "kv") if segment_skip else None
+    qf, _, dof, p_drop, dsb, tables = _backward_terms(
+        q, k, v, do, lse2, di, segment_ids, rope, scale, dropout_rate, seed,
+        visit)
+    return _dkv_from_terms(qf, dof, p_drop, dsb, tables, q.dtype)
+
+
+def mh_flash_bwd_dq_plain(q, k, v, do, lse2, di, segment_ids=None, rope=None,
+                          *, scale: float, dropout_rate: float = 0.0,
+                          seed: int = 0, block_q: Optional[int] = None,
+                          block_kv: Optional[int] = None,
+                          segment_skip: bool = False, bounds=None):
+    """Plain PyTorch version of the dq kernel of the split pair: dq.
+    Arguments as mh_flash_backward_plain; a q block takes the kv blocks
+    inside its bounds."""
+    visit = _visit_mask(segment_ids, bounds, q.shape[1], block_q, block_kv,
+                        "q") if segment_skip else None
+    _, kf, _, _, dsb, tables = _backward_terms(
+        q, k, v, do, lse2, di, segment_ids, rope, scale, dropout_rate, seed,
+        visit)
+    return _dq_from_terms(kf, dsb, tables, q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -263,6 +458,15 @@ def _check_qkv(names_tensors, q):
     if T % KERNEL_T_MULTIPLE or T < KERNEL_T_MULTIPLE:
         raise ValueError(f"T={T} must be a positive multiple of "
                          f"{KERNEL_T_MULTIPLE}")
+
+
+def _check_rows(names_tensors, q):
+    B, T, H, _ = q.shape
+    for name, t in names_tensors:
+        if (t.shape != (B, T, H) or t.dtype != torch.float32
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous (B, T, H) float32 on "
+                             f"q's device, got {tuple(t.shape)} {t.dtype}")
 
 
 def _seg_ptr(segment_ids, q):
@@ -294,6 +498,27 @@ def _rope_ptrs(rope, q):
     return cos.data_ptr(), sin.data_ptr()
 
 
+def _bounds_ptrs(pair, q, owner_tile: int, tile_count):
+    """(lo, hi, tile_count) pointers: `pair` is None (walk every tile) or
+    (lo, hi) int32 (B, T / owner_tile) on q's device; tile_count is None
+    or one int32 on q's device that the kernel adds its walked tiles to."""
+    B, T = q.shape[:2]
+    if tile_count is not None and (
+            tile_count.shape != (1,) or tile_count.dtype != torch.int32
+            or tile_count.device != q.device):
+        raise ValueError("tile_count must be one int32 on q's device")
+    tc = None if tile_count is None else tile_count.data_ptr()
+    if pair is None:
+        return None, None, tc
+    for t in pair:
+        if (t.shape != (B, T // owner_tile) or t.dtype != torch.int32
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"bounds must be contiguous (B, {T // owner_tile}) "
+                             f"int32 on q's device, got {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}")
+    return pair[0].data_ptr(), pair[1].data_ptr(), tc
+
+
 def _drop_args(dropout_rate: float, seed: int):
     """(drop, thresh, keep_scale, seed) of the kernels' C entries."""
     if not 0.0 <= dropout_rate < 1.0:
@@ -312,10 +537,12 @@ def _raise_on(err: int, name: str, err_string) -> None:
 
 def mh_flash_forward_kernel(q, k, v, segment_ids=None, rope=None, *,
                             scale: float, dropout_rate: float = 0.0,
-                            seed: int = 0):
+                            seed: int = 0, kv_bounds=None, tile_count=None):
     """Launch the forward kernel on CUDA tensors; raises on anything it was
-    not built for. Adds one to LAUNCHES['mh_flash_fwd'] per launch. Under
-    autograd, call it through MhFlashAttention."""
+    not built for. kv_bounds: None or the (lo, hi) of
+    seg_block_bounds(ids, ids, *KERNEL_TILES['fwd'][dtype]). Adds one to
+    LAUNCHES['mh_flash_fwd'] per launch. Under autograd, call it through
+    MhFlashAttention."""
     from . import _kernels
 
     B, T, H, D = q.shape
@@ -326,6 +553,8 @@ def mh_flash_forward_kernel(q, k, v, segment_ids=None, rope=None, *,
     _check_qkv((("q", q), ("k", k), ("v", v)), q)
     seg_ptr = _seg_ptr(segment_ids, q)
     cos_ptr, sin_ptr = _rope_ptrs(rope, q)
+    lo_ptr, hi_ptr, tc_ptr = _bounds_ptrs(
+        kv_bounds, q, KERNEL_TILES["fwd"][q.dtype][0], tile_count)
     # scratch for k rotated once per call (every q tile reads all of it)
     k_rot = torch.empty_like(k) if rope is not None else None
     drop, thresh, keep_scale, seed = _drop_args(dropout_rate, seed)
@@ -338,7 +567,7 @@ def mh_flash_forward_kernel(q, k, v, segment_ids=None, rope=None, *,
         err = lib.obt_mh_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_ptr, cos_ptr,
             sin_ptr, None if k_rot is None else k_rot.data_ptr(),
-            o.data_ptr(), lse2.data_ptr(), B, T, H, D,
+            lo_ptr, hi_ptr, tc_ptr, o.data_ptr(), lse2.data_ptr(), B, T, H, D,
             float(np.float32(scale * LOG2E)),
             1 if q.dtype == torch.bfloat16 else 0, drop, thresh, keep_scale,
             seed, stream)
@@ -347,113 +576,276 @@ def mh_flash_forward_kernel(q, k, v, segment_ids=None, rope=None, *,
     return o, lse2
 
 
-def mh_flash_backward_kernel(q, k, v, do, lse2, di, segment_ids=None,
-                             rope=None, *, scale: float,
-                             dropout_rate: float = 0.0, seed: int = 0):
-    """Launch the backward kernel on CUDA tensors: (dq, dk, dv). Raises on
-    anything it was not built for. Adds one to LAUNCHES['mh_flash_bwd'] per
-    launch."""
+# The three backward kernels, by kind: the library (its C entry is
+# obt_<library>), its error-string entry, its KERNEL_TILES row with which of
+# (q tile, kv tile) a block owns, whether it takes a rotated-q scratch and
+# the fp32 dq scratch of the atomics, and how many outputs it writes.
+_BWD_KERNELS = {
+    "fused": ("mh_flash_bwd", "obt_cuda_error_string_bwd", "bwd", 1, True, True, 3),
+    "dkv": ("mh_flash_bwd_dkv", "obt_cuda_error_string_bwd_dkv", "bwd", 1, True, False, 2),
+    "dq": ("mh_flash_bwd_dq", "obt_cuda_error_string_bwd_dq", "dq", 0, False, False, 1),
+}
+
+
+def mh_flash_bwd_kernel(kind: str, q, k, v, do, lse2, di, segment_ids=None,
+                        rope=None, *, scale: float, dropout_rate: float = 0.0,
+                        seed: int = 0, tile_bounds=None, tile_count=None,
+                        counter: Optional[str] = None):
+    """Launch one backward kernel on CUDA tensors; raises on anything it was
+    not built for. kind 'fused': (dq, dk, dv) in one pass; 'dkv': the split
+    pair's (dk, dv); 'dq': the split pair's dq. tile_bounds: None or the
+    (lo, hi) of seg_block_bounds(ids, ids, owner's tile, walked tile) with
+    KERNEL_TILES (the fused and dkv kernels own kv tiles, the dq kernel q
+    tiles). Adds one per launch to LAUNCHES[counter], by default the
+    library's name."""
     from . import _kernels
 
+    name, err_entry, tiles, owner, rot_q, dq_scratch, n_out = _BWD_KERNELS[kind]
     B, T, H, D = q.shape
     _check_qkv((("q", q), ("k", k), ("v", v), ("do", do)), q)
-    for name, t in (("lse2", lse2), ("di", di)):
-        if (t.shape != (B, T, H) or t.dtype != torch.float32
-                or t.device != q.device or not t.is_contiguous()):
-            raise ValueError(f"{name} must be contiguous (B, T, H) float32 on "
-                             f"q's device, got {tuple(t.shape)} {t.dtype}")
+    _check_rows((("lse2", lse2), ("di", di)), q)
     seg_ptr = _seg_ptr(segment_ids, q)
     cos_ptr, sin_ptr = _rope_ptrs(rope, q)
-    q_rot = torch.empty_like(q) if rope is not None else None
-    k_rot = torch.empty_like(k) if rope is not None else None
-    dq_acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    lo_ptr, hi_ptr, tc_ptr = _bounds_ptrs(
+        tile_bounds, q, KERNEL_TILES[tiles][q.dtype][owner], tile_count)
+    # scratch: q (where the kernel re-reads it) and k rotated once per call,
+    # and the fused kernel's fp32 dq sums
+    scratch = [torch.empty_like(q) if rope is not None else None
+               for _ in range(2 if rot_q else 1)]
+    if dq_scratch:
+        scratch_dq = [torch.empty(q.shape, dtype=torch.float32, device=q.device)]
+    else:
+        scratch_dq = []
     drop, thresh, keep_scale, seed = _drop_args(dropout_rate, seed)
 
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    lib = _kernels.load_library("mh_flash_bwd")
+    outs = tuple(torch.empty_like(q) for _ in range(n_out))
+    ptr = lambda t: None if t is None else t.data_ptr()
+    lib = _kernels.load_library(name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.obt_mh_flash_bwd(
+        err = getattr(lib, f"obt_{name}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse2.data_ptr(), di.data_ptr(), seg_ptr, cos_ptr, sin_ptr,
-            None if q_rot is None else q_rot.data_ptr(),
-            None if k_rot is None else k_rot.data_ptr(), dq_acc.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T, H, D,
+            *map(ptr, scratch), lo_ptr, hi_ptr, tc_ptr,
+            *map(ptr, scratch_dq), *map(ptr, outs), B, T, H, D,
             float(np.float32(scale * LOG2E)), float(np.float32(scale)),
             1 if q.dtype == torch.bfloat16 else 0, drop, thresh, keep_scale,
             seed, stream)
-    _raise_on(err, "mh_flash_bwd", lib.obt_cuda_error_string_bwd)
-    _kernels.LAUNCHES["mh_flash_bwd"] += 1
-    return dq, dk, dv
+    _raise_on(err, name, getattr(lib, err_entry))
+    _kernels.LAUNCHES[counter or name] += 1
+    return outs if n_out > 1 else outs[0]
+
+
+def _kernel_bounds(kind: str, q, segment_ids, segment_skip: bool, bounds):
+    """The (lo, hi) a kernel of `kind` takes at q's dtype, or None (walk
+    every tile): the owner's tile first, the walked tile second."""
+    if not segment_skip or segment_ids is None:
+        return None
+    bq, bkv = KERNEL_TILES[kind][q.dtype]
+    sb = bounds if bounds is not None else SegmentBounds(segment_ids)
+    return sb.get(bkv, bq) if kind == "bwd" else sb.get(bq, bkv)
 
 
 def mh_flash_forward(q, k, v, segment_ids=None, rope=None, *, scale: float,
                      block_kv: Optional[int] = None,
-                     dropout_rate: float = 0.0, seed: int = 0
+                     dropout_rate: float = 0.0, seed: int = 0,
+                     block_q: Optional[int] = None,
+                     segment_skip: bool = False, bounds=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Multi-head flash attention forward: (o (B,T,H,D), lse2 (B,T,H)).
 
     q, k, v: (B, T, H, D), pre-RoPE q/k; segment_ids: (B, T) int32 or None
     (dense); rope: (cos, sin) (>=T, D/2) fp32 tables or None; dropout on P
-    at `dropout_rate` from the 64-bit `seed`. A CUDA tensor runs the CUDA
-    kernel (which walks KERNEL_KV_TILE-wide kv tiles); a CPU tensor runs the
-    plain version with `block_kv` (None: one block)."""
+    at `dropout_rate` from the 64-bit `seed`; segment_skip prunes the tiles
+    outside the segment bounds (`bounds`: a SegmentBounds of the ids to
+    share them between calls). A CUDA tensor runs the CUDA kernel, which
+    walks its own tiles (KERNEL_TILES); a CPU tensor runs the plain version
+    with `block_q` and `block_kv` (None: one block)."""
     if q.is_cuda:
-        return mh_flash_forward_kernel(q, k, v, segment_ids, rope, scale=scale,
-                                       dropout_rate=dropout_rate, seed=seed)
+        return mh_flash_forward_kernel(
+            q, k, v, segment_ids, rope, scale=scale,
+            dropout_rate=dropout_rate, seed=seed,
+            kv_bounds=_kernel_bounds("fwd", q, segment_ids, segment_skip, bounds))
     return mh_flash_forward_plain(q, k, v, segment_ids, rope, scale=scale,
                                   block_kv=block_kv,
-                                  dropout_rate=dropout_rate, seed=seed)
+                                  dropout_rate=dropout_rate, seed=seed,
+                                  block_q=block_q, segment_skip=segment_skip,
+                                  bounds=bounds)
 
 
-def mh_flash_backward(q, k, v, do, lse2, di, segment_ids=None, rope=None, *,
-                      scale: float, dropout_rate: float = 0.0, seed: int = 0):
-    """Multi-head flash attention backward: (dq, dk, dv). A CUDA tensor runs
-    the CUDA kernel, a CPU tensor the plain version."""
-    fn = mh_flash_backward_kernel if q.is_cuda else mh_flash_backward_plain
-    return fn(q, k, v, do, lse2, di, segment_ids, rope, scale=scale,
-              dropout_rate=dropout_rate, seed=seed)
+_BWD_PLAIN = {"fused": mh_flash_backward_plain, "dkv": mh_flash_bwd_dkv_plain,
+              "dq": mh_flash_bwd_dq_plain}
+
+
+def mh_flash_bwd(kind: str, q, k, v, do, lse2, di, segment_ids=None,
+                 rope=None, *, scale: float, dropout_rate: float = 0.0,
+                 seed: int = 0, block_q: Optional[int] = None,
+                 block_kv: Optional[int] = None, segment_skip: bool = False,
+                 bounds=None, counter: Optional[str] = None):
+    """One backward of `kind` ('fused': (dq, dk, dv); 'dkv': (dk, dv); 'dq':
+    dq). A CUDA tensor runs the CUDA kernel on its own tiles (and counts the
+    launch under `counter`), a CPU tensor the plain version with block_q and
+    block_kv."""
+    if q.is_cuda:
+        return mh_flash_bwd_kernel(
+            kind, q, k, v, do, lse2, di, segment_ids, rope, scale=scale,
+            dropout_rate=dropout_rate, seed=seed, counter=counter,
+            tile_bounds=_kernel_bounds(_BWD_KERNELS[kind][2], q, segment_ids,
+                                       segment_skip, bounds))
+    return _BWD_PLAIN[kind](
+        q, k, v, do, lse2, di, segment_ids, rope, scale=scale,
+        dropout_rate=dropout_rate, seed=seed, block_q=block_q,
+        block_kv=block_kv, segment_skip=segment_skip, bounds=bounds)
+
+
+# The kinds under their own names, for the kernels and the dispatchers.
+mh_flash_backward_kernel = functools.partial(mh_flash_bwd_kernel, "fused")
+mh_flash_bwd_dkv_kernel = functools.partial(mh_flash_bwd_kernel, "dkv")
+mh_flash_bwd_dq_kernel = functools.partial(mh_flash_bwd_kernel, "dq")
+mh_flash_backward = functools.partial(mh_flash_bwd, "fused")
+mh_flash_bwd_dkv = functools.partial(mh_flash_bwd, "dkv")
+mh_flash_bwd_dq = functools.partial(mh_flash_bwd, "dq")
+
+
+# ---------------------------------------------------------------------------
+# Autograd
+# ---------------------------------------------------------------------------
+
+def _save_for_backward(ctx, q, k, v, o, lse2, segment_ids, rope_cos, rope_sin,
+                       scale, dropout_rate, seed, block_q, block_kv,
+                       segment_skip, bounds):
+    ctx.save_for_backward(q, k, v, o, lse2, segment_ids, rope_cos, rope_sin)
+    ctx.scale, ctx.dropout_rate, ctx.seed = scale, dropout_rate, seed
+    ctx.block_q, ctx.block_kv = block_q, block_kv
+    ctx.segment_skip, ctx.bounds = segment_skip, bounds
+
+
+def _backward(ctx, do, dlse=None):
+    """The JAX package's `_mh_bwd`: di = rowsum(o·do) in fp32, less the lse
+    cotangent (natural-log space) where there is one, since d(lse)/ds = p
+    and the kernels compute ds = p·(dp - di); then the fused kernel, or
+    the split pair when the switch for the case at hand is off."""
+    q, k, v, o, lse2, segment_ids, rope_cos, rope_sin = ctx.saved_tensors
+    rope = None if rope_cos is None else (rope_cos, rope_sin)
+    T = q.shape[1]
+    do = torch.zeros_like(o) if do is None else do.contiguous()
+    di = (o.float() * do.float()).sum(dim=-1)
+    if dlse is not None:
+        di = di - dlse.float()
+    single_kv = ctx.block_kv is None or ctx.block_kv >= T
+    args = (q, k, v, do, lse2, di, segment_ids, rope)
+    kwargs = dict(scale=ctx.scale, dropout_rate=ctx.dropout_rate,
+                  seed=ctx.seed, block_q=ctx.block_q, block_kv=ctx.block_kv,
+                  segment_skip=ctx.segment_skip, bounds=ctx.bounds)
+    if FUSED_SINGLE_KV_BWD if single_kv else FUSED_MULTIKV_BWD:
+        # one kernel serves both fused cases; each keeps its own count
+        return mh_flash_backward(
+            *args, **kwargs,
+            counter="mh_flash_bwd" if single_kv else "mh_flash_bwd_mk")
+    dk, dv = mh_flash_bwd_dkv(*args, **kwargs)
+    return mh_flash_bwd_dq(*args, **kwargs), dk, dv
 
 
 class MhFlashAttention(torch.autograd.Function):
-    """o = attention(q, k, v) with the flash forward, and the fused backward
-    as its gradient (the JAX package's `_flash_mh` custom VJP). Saves the
-    pre-RoPE q, k, v, o, lse2, the segment ids, the seed and the rate; the
-    backward computes di = rowsum(o·do) in fp32 and runs the backward
-    kernel (or its plain version on a CPU tensor)."""
+    """o = attention(q, k, v) with the flash forward, and `_backward` as
+    its gradient (the JAX package's `_flash_mh` custom VJP). Saves the
+    pre-RoPE q, k, v, o, lse2, the segment ids and their bounds, the seed
+    and the rate. block_kv_fwd is the forward's kv block, block_q and
+    block_kv the backward's (and the forward's q block)."""
 
     @staticmethod
     def forward(ctx, q, k, v, segment_ids, rope_cos, rope_sin, scale,
-                dropout_rate, seed, block_kv):
+                dropout_rate, seed, block_q, block_kv, block_kv_fwd,
+                segment_skip, bounds):
         rope = None if rope_cos is None else (rope_cos, rope_sin)
         o, lse2 = mh_flash_forward(q, k, v, segment_ids, rope, scale=scale,
-                                   block_kv=block_kv,
-                                   dropout_rate=dropout_rate, seed=seed)
-        ctx.save_for_backward(q, k, v, o, lse2, segment_ids, rope_cos, rope_sin)
-        ctx.scale, ctx.dropout_rate, ctx.seed = scale, dropout_rate, seed
+                                   block_kv=block_kv_fwd,
+                                   dropout_rate=dropout_rate, seed=seed,
+                                   block_q=block_q, segment_skip=segment_skip,
+                                   bounds=bounds)
+        _save_for_backward(ctx, q, k, v, o, lse2, segment_ids, rope_cos,
+                           rope_sin, scale, dropout_rate, seed, block_q,
+                           block_kv, segment_skip, bounds)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse2, segment_ids, rope_cos, rope_sin = ctx.saved_tensors
+        return (*_backward(ctx, do), *([None] * 11))
+
+
+class MhFlashAttentionLse(torch.autograd.Function):
+    """(o, lse) with the natural-log logsumexp (B, T, H) as a second,
+    differentiable output (the JAX package's `_flash_mh_lse`): per-block
+    (o_i, lse_i) pairs recombine as o = Σ o_i·e^{lse_i} / Σ e^{lse_i}, and
+    the combine's lse cotangent reaches the kernels through di."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, segment_ids, rope_cos, rope_sin, scale,
+                dropout_rate, seed, block_q, block_kv, segment_skip, bounds):
         rope = None if rope_cos is None else (rope_cos, rope_sin)
-        di = (o.float() * do.float()).sum(dim=-1)
-        dq, dk, dv = mh_flash_backward(
-            q, k, v, do.contiguous(), lse2, di, segment_ids, rope,
-            scale=ctx.scale, dropout_rate=ctx.dropout_rate, seed=ctx.seed)
-        return dq, dk, dv, None, None, None, None, None, None, None
+        o, lse2 = mh_flash_forward(q, k, v, segment_ids, rope, scale=scale,
+                                   block_kv=block_kv,
+                                   dropout_rate=dropout_rate, seed=seed,
+                                   block_q=block_q, segment_skip=segment_skip,
+                                   bounds=bounds)
+        _save_for_backward(ctx, q, k, v, o, lse2, segment_ids, rope_cos,
+                           rope_sin, scale, dropout_rate, seed, block_q,
+                           block_kv, segment_skip, bounds)
+        return o, lse2 * LN2
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        return (*_backward(ctx, do, dlse), *([None] * 10))
+
+
+def _skip_and_bounds(segment_ids, segment_skip, bounds):
+    skip = bool(segment_skip) and segment_ids is not None
+    if skip and bounds is None:
+        bounds = SegmentBounds(segment_ids)
+    return skip, bounds if skip else None
 
 
 def flash_attention(q, k, v, segment_ids=None, rope=None, *, scale: float,
                     dropout_rate: float = 0.0, seed: int = 0,
-                    block_kv: Optional[int] = None) -> torch.Tensor:
+                    block_kv: Optional[int] = None,
+                    block_q: Optional[int] = None,
+                    block_kv_fwd: Optional[int] = None,
+                    segment_skip: bool = True, bounds=None) -> torch.Tensor:
     """Differentiable multi-head flash attention: o (B, T, H, D). Without
-    gradients to take it runs the forward alone."""
+    gradients to take it runs the forward alone.
+
+    block_q and block_kv are the JAX package's blocks (None: the whole
+    sequence) and block_kv_fwd the forward's own kv block (None: block_kv).
+    They set the plain versions' tiles and whether the backward is the
+    single-kv or the multi-kv case (block_kv < T); the CUDA kernels walk
+    their own tiles. segment_skip (with segment ids) prunes fully masked
+    tiles; `bounds`, a SegmentBounds of the ids, shares the bounds between
+    calls."""
+    skip, bounds = _skip_and_bounds(segment_ids, segment_skip, bounds)
+    if block_kv_fwd is None:
+        block_kv_fwd = block_kv
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         cos, sin = (None, None) if rope is None else rope
         return MhFlashAttention.apply(q, k, v, segment_ids, cos, sin, scale,
-                                      dropout_rate, seed, block_kv)
+                                      dropout_rate, seed, block_q, block_kv,
+                                      block_kv_fwd, skip, bounds)
     o, _ = mh_flash_forward(q, k, v, segment_ids, rope, scale=scale,
-                            block_kv=block_kv, dropout_rate=dropout_rate,
-                            seed=seed)
+                            block_kv=block_kv_fwd, dropout_rate=dropout_rate,
+                            seed=seed, block_q=block_q, segment_skip=skip,
+                            bounds=bounds)
     return o
+
+
+def flash_attention_lse(q, k, v, segment_ids=None, rope=None, *, scale: float,
+                        dropout_rate: float = 0.0, seed: int = 0,
+                        block_kv: Optional[int] = None,
+                        block_q: Optional[int] = None,
+                        segment_skip: bool = True, bounds=None):
+    """(o (B, T, H, D), lse (B, T, H) fp32, natural log), both
+    differentiable; arguments as flash_attention. q and kv share one ids
+    array."""
+    skip, bounds = _skip_and_bounds(segment_ids, segment_skip, bounds)
+    cos, sin = (None, None) if rope is None else rope
+    return MhFlashAttentionLse.apply(q, k, v, segment_ids, cos, sin, scale,
+                                     dropout_rate, seed, block_q, block_kv,
+                                     skip, bounds)

@@ -160,8 +160,11 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
-    yield os.path.join(REPO, "tools", "gpu_profile_encode.py")
-    yield os.path.join(REPO, "tools", "gpu_profile_train.py")
+    tools = sorted(f for f in os.listdir(os.path.join(REPO, "tools"))
+                   if f.startswith("gpu_") and f.endswith(".py"))
+    assert len(tools) >= 2
+    for f in tools:
+        yield os.path.join(REPO, "tools", f)
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

@@ -145,8 +145,8 @@ def test_fully_masked_tile_leaves_no_trace():
 def _jax_route(monkeypatch, q, k, v, **kw):
     seen = []
 
-    def fake_flash(q, k, v, *, block_kv, block_kv_fwd=None, **_):
-        seen.append(("flash", block_kv_fwd or block_kv))
+    def fake_flash(q, k, v, *, block_q, block_kv, block_kv_fwd=None, **_):
+        seen.append(("flash", block_q, block_kv, block_kv_fwd or block_kv))
         return q
 
     def fake_xla(q, k, v, **_):
@@ -163,9 +163,11 @@ def _jax_route(monkeypatch, q, k, v, **kw):
 def _port_route(monkeypatch, q, k, v, **kw):
     seen = []
 
-    def fake_flash(q, k, v, segment_ids, rope, *, scale, block_kv=None,
-                   dropout_rate=0.0, seed=0):
-        seen.append(("flash", block_kv))
+    def fake_flash(q, k, v, segment_ids, rope, *, scale, block_q, block_kv,
+                   block_kv_fwd=None, dropout_rate=0.0, seed=0,
+                   segment_skip=True, bounds=None):
+        assert segment_skip
+        seen.append(("flash", block_q, block_kv, block_kv_fwd or block_kv))
         return q
 
     def fake_xla(q, k, v, **_):

@@ -204,11 +204,11 @@ def test_schedules_and_mup_multipliers_match_jax():
 # The train step against the JAX step
 # ---------------------------------------------------------------------------
 
-def _run_steps(A, weights, tc_kw, n_steps=3):
+def _run_steps(A, weights, tc_kw, n_steps=3, attn_impl="xla"):
     """Run n_steps of both packages' train steps from the same parameters;
     returns per-step (jax metrics, port metrics, jax params, port params,
     jax opt leaves, port opt state)."""
-    jcfg, pcfg = _cfgs(attn_impl="xla")
+    jcfg, pcfg = _cfgs(attn_impl=attn_impl)
     params = _jax_params(jcfg, seed=1)
     jtc = obt.TrainConfig(batch_size=A * B, mini_batch_size=B, ctx_len=T,
                           lr=3e-3, **tc_kw)
@@ -281,6 +281,45 @@ def test_train_step_bf16_moments_and_grads_matches_jax():
     for jm, pm, jp, pp, jl, ps in out:
         assert ps.mu[next(iter(ps.mu))].dtype == torch.bfloat16
         _compare_step(pcfg, jm, pm, jp, pp, jl, ps, tol_p=1e-4, tol_m=1e-2)
+
+
+def test_train_step_above_the_single_kv_limit_matches_jax(monkeypatch):
+    """The flash path with more than one kv block a row, as the dispatch
+    gives it above T = 1024: both models' attention calls get 128-wide
+    blocks at T = 256, so the JAX package runs its multi-kv forward with
+    skip bounds and `_mh_bwd_fusedmk` (Pallas, interpret mode) and the port
+    its multi-kv route on the plain versions. Packed rows, A = 2, one step,
+    at the tolerances of test_train_step_with_accumulation_matches_jax."""
+    import functools
+
+    from omnibiote_tpu.models import omnibiota as jax_model
+    from omnibiote_tpu.ops import flash_attention as jax_flash
+    from omnibiote_tpu_torch.models import omnibiota as port_model
+    from omnibiote_tpu_torch.ops import flash_attention as port_flash
+
+    blocks = dict(block_q=128, block_kv=128)
+    monkeypatch.setattr(jax_model, "attention",
+                        functools.partial(jax_model.attention, **blocks))
+    monkeypatch.setattr(port_model, "attention",
+                        functools.partial(port_model.attention, **blocks))
+    seen = {"jax": 0, "port": []}
+    jax_mk, port_bwd = jax_flash._mh_bwd_fusedmk, port_flash.mh_flash_backward
+
+    def spy_jax(*a, **kw):
+        seen["jax"] += 1
+        return jax_mk(*a, **kw)
+
+    def spy_port(*a, **kw):
+        seen["port"].append((kw["block_q"], kw["block_kv"], kw["segment_skip"],
+                             kw["bounds"] is not None))
+        return port_bwd(*a, **kw)
+
+    monkeypatch.setattr(jax_flash, "_mh_bwd_fusedmk", spy_jax)
+    monkeypatch.setattr(port_flash, "mh_flash_backward", spy_port)
+    pcfg, out = _run_steps(2, [[1.0, 1.0]], {}, n_steps=1, attn_impl="flash")
+    assert seen["jax"] >= pcfg.n_layer
+    assert seen["port"] == [(128, 128, True, True)] * (2 * pcfg.n_layer)
+    _compare_step(pcfg, *out[0], tol_p=1e-4, tol_m=2e-3)
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,18 @@
 #!/usr/bin/env python3
 """Where the time of an omnibiote-small MLM train step goes on the GPU.
 
-    python3 tools/gpu_profile_train.py [--mini 16] [--accum 2] [--ctx 1024] [--steps 3]
+    python3 tools/gpu_profile_train.py [--mini 16] [--accum 2] [--ctx 1024] [--eos 3]
+                                       [--split] [--no_skip] [--steps 3]
 
 Builds the PyTorch port's kernels, makes the port's `Trainer` for
 omnibiote-small at full width (8 layers, d 1024, 8 heads of 128, vocab
 65536, dropout 0.1, bf16 compute, fp32 parameters and moments) with random
 weights from a seed, and feeds it `bench.py`'s batches (random tokens with
-three EOS a row, segment ids from them) through its prefetch thread. After
+`--eos` EOS a row, segment ids from them) through its prefetch thread
+(`--mini 8 --ctx 2048 --eos 5` and `--mini 4 --ctx 4096 --eos 5` are
+`bench_longctx.py`'s shapes; `--split` takes the split dkv / dq backward
+pair instead of the fused kernel; `--no_skip` makes every attention call
+walk every tile, masked ones included). After
 three warm-up steps it times steps on the host clock around a
 synchronised window, then records a torch.profiler window over `--steps`
 steps: the device time of every kernel, grouped as elementwise and
@@ -52,6 +57,11 @@ def main(argv=None):
     ap.add_argument("--mini", type=int, default=16)
     ap.add_argument("--accum", type=int, default=2)
     ap.add_argument("--ctx", type=int, default=1024)
+    ap.add_argument("--eos", type=int, default=3, help="EOS tokens a row")
+    ap.add_argument("--split", action="store_true",
+                    help="the split dkv / dq backward instead of the fused one")
+    ap.add_argument("--no_skip", action="store_true",
+                    help="walk every attention tile (no segment skipping)")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--top", type=int, default=15)
     args = ap.parse_args(argv)
@@ -64,6 +74,7 @@ def main(argv=None):
     from omnibiote_tpu_torch import preset
     from omnibiote_tpu_torch.config import TrainConfig
     from omnibiote_tpu_torch.ops import _kernels
+    from omnibiote_tpu_torch.ops import flash_attention as port_flash
     from omnibiote_tpu_torch.training.train import Trainer
     from chip_smoke import bench_batches
 
@@ -71,13 +82,17 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     _kernels.build_all()
+    if args.split:
+        port_flash.FUSED_SINGLE_KV_BWD = port_flash.FUSED_MULTIKV_BWD = False
+    if args.no_skip:
+        port_flash._skip_and_bounds = lambda *a: (False, None)
     cfg = preset("omnibiote-small", vocab_size=65536, dropout=0.1,
                  block_size=args.ctx)
     batch = args.mini * args.accum
     tc = TrainConfig(batch_size=batch, mini_batch_size=args.mini,
                      ctx_len=args.ctx, token_budget=float(batch * args.ctx * 10000),
                      seed=0)
-    with Trainer(cfg, tc, batch_iter=bench_batches(batch, args.ctx, seed=0),
+    with Trainer(cfg, tc, batch_iter=bench_batches(batch, args.ctx, 0, args.eos),
                  prefetch=2) as tr:
         for _ in range(3):
             tr.train_step_once()
@@ -88,7 +103,10 @@ def main(argv=None):
         torch.cuda.synchronize()
         step_ms = 1e3 * (time.perf_counter() - t0) / args.steps
         print(f"train step B={batch} (mini {args.mini} x accum {args.accum}) "
-              f"T={args.ctx}: {step_ms:.3f} ms, {batch * args.ctx / step_ms * 1e3:.1f} "
+              f"T={args.ctx}, {args.eos} EOS a row, "
+              f"{'split' if args.split else 'fused'} backward, "
+              f"{'every tile' if args.no_skip else 'skipping'}: {step_ms:.3f} ms, "
+              f"{batch * args.ctx / step_ms * 1e3:.1f} "
               f"tokens/s (host clock, synchronised), loss {float(m['loss']):.4f}")
 
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
