@@ -49,7 +49,30 @@ toolkit and g++. It
      kernel; throughput with skipping and the fused backward, with every
      tile walked, with the split pair, and at ctx 4096; peak allocated
      memory;
-  7. prints the card's name and power limit, one JSON line of kernel
+  7. int8 kernel: the int8 attention kernel's prologue (q8, k8, v8 and
+     their scales) against the plain version's integers, and the kernel
+     against `int8_flash_attention_plain` at B=2, T in {128, 640, 1024,
+     2048}, packed / padded / dense rows, bf16 and fp32, RoPE and none;
+     once more at the serving shape B=32, T=1024, dense and padded, where
+     it is also held against the bf16 forward kernel (row cosine) and
+     timed beside its plain version, its bound and SDPA in bf16;
+  8. int8 products: `quant_linear` on the card at M = 32,768 rows and the
+     model's four (K, N): the int32 result bit for bit against a float64
+     product of the same integers, and its time split into product and
+     quantise / rescale passes beside the bf16 `F.linear`;
+  9. int8 serving slice at full width and depth: `Encoder(quantize=True,
+     quantize_attention=True)` on the serving slice's 64 sequences, every
+     pooling, masked and leaky (8 int8 launches a batch, none of the bf16
+     kernel), against the same quantized model with the plain int8
+     attention and against the bf16 Encoder; `Encoder(quantize=True)` (the
+     bf16 kernel, 8 a batch); the FASTA CLI with --quantize from a
+     checkpoint; `encode(mean)` seq/s and peak memory of the three;
+ 10. per-head entry: `flash_attention(multi_head=False)` forward and
+     backward against the plain versions at B=2, T=1024, dropout 0 and
+     0.1, packed and dense, bf16 and fp32; at B=16, T=1024 each of its
+     three kernels timed beside its plain version, its bound and (the
+     forward) SDPA, and its launch counts;
+ 11. prints the card's name and power limit, one JSON line of kernel
      numbers, and last the line {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script then exits non-zero without the
@@ -68,9 +91,10 @@ from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
-# bandwidth.
+# H100 SXM peaks (NVIDIA data sheet, dense, no sparsity): bf16 and int8
+# tensor cores, HBM3 bandwidth.
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 
 # Kernel vs its plain version (same tile order, same rounding points):
@@ -134,14 +158,18 @@ def build():
         for line in log.splitlines():
             m = re.search(r"Compiling entry function '_ZN[\w]*?\d+(mh_\w+?|rope_rows_\w+?|"
                           r"dq_epilogue)ILi(\d+)E((?:Lb[01]E)*)", line)
+            m8 = re.search(r"Compiling entry function '_ZN[\w]*?\d+(int8_fwd|quant_rows|"
+                           r"v_absmax|quant_v)I(f|13__nv_bfloat16)E", line)
             if m:
                 flags = re.findall(r"Lb([01])E", m.group(3))
                 entry = f"{m.group(1)}<{', '.join([m.group(2), *flags])}>"
+            elif m8:
+                entry = f"{m8.group(1)}<{'float' if m8.group(2) == 'f' else 'bf16'}>"
             elif "spill stores" in line:
                 spill = re.search(r"(\d+) bytes spill stores", line).group(1)
             elif "registers" in line and entry is not None:
                 regs = re.search(r"Used (\d+) registers", line).group(1)
-                if entry.startswith("mh_"):
+                if entry.startswith(("mh_", "int8_fwd")):
                     print(f"  {name}: {entry}: {regs} registers, {spill} bytes of spill stores")
                 entry = None
 
@@ -184,8 +212,8 @@ def _visible_pairs(seg, B, T):
                      for b in range(B)))
 
 
-def _bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def _bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -495,14 +523,43 @@ def _sequences(rng, n, min_len, max_len):
     return out
 
 
+SERVING_BATCH = 32
+SERVING_RUNS = [(m, masked) for m in ("mean", "first", "last", "max")
+                for masked in (True, False)]
+
+
+def _encode_rate(model, x, label, steps=16):
+    """encode(model, x, "mean") seq/s over `steps` batches after two of
+    warm-up, with the peak allocated memory of the window."""
+    import torch
+    from omnibiote_tpu_torch import encode
+
+    for _ in range(2):
+        encode(model, x, "mean")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    for _ in range(steps):
+        e = encode(model, x, "mean")
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    check(bool(torch.isfinite(e.float()).all()), f"non-finite encode output ({label})")
+    sps = steps * x.shape[0] / dt
+    print(f"encode(mean) B={x.shape[0]} T={x.shape[1]} {label}: {sps:.1f} seq/s "
+          f"({1e3 * dt / steps:.3f} ms per batch), peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return sps
+
+
 def slice_phase(workdir):
+    """The bf16 serving slice. Returns (launches of its main path, what the
+    int8 serving slice reuses: tokenizer, model, sequences, embeddings,
+    the throughput batch)."""
     import random
     import torch
-    from omnibiote_tpu_torch import init_params, encode, preset
+    from omnibiote_tpu_torch import init_params, preset
     from omnibiote_tpu_torch.api import Encoder
     from omnibiote_tpu_torch.ops import _kernels
-    from omnibiote_tpu_torch.ops import flash_attention as port_flash
-    from omnibiote_tpu_torch.ops.flash_attention import mh_flash_forward_plain
     from omnibiote_tpu_torch.tokenizer import SentencePieceProcessor, train_bpe
 
     rng = random.Random(0)
@@ -526,10 +583,9 @@ def slice_phase(workdir):
           f"vocab {cfg.vocab_size}, {len(seqs)} sequences of "
           f"{min(n_tok)}..{max(n_tok)} tokens (+EOS, cut at {cfg.block_size})")
 
-    batch_size = 32
+    batch_size = SERVING_BATCH
     n_batches = -(-len(seqs) // batch_size)
-    runs = [(m, masked) for m in ("mean", "first", "last", "max")
-            for masked in (True, False)]
+    runs = SERVING_RUNS
     outs = {}
     # main path: every count at 0 just before, read just after
     _kernels.reset_launches()
@@ -558,10 +614,8 @@ def slice_phase(workdir):
           f"launches {launches}")
 
     # the same model with the plain attention on the card
-    kernel_fn = port_flash.mh_flash_forward
-    port_flash.mh_flash_forward = mh_flash_forward_plain
-    try:
-        worst = 1.0
+    worst = 1.0
+    with _plain_attention():
         for method, masked in runs:
             ref = enc.encode_sequences(seqs, method=method,
                                        batch_size=batch_size, mask_padding=masked)
@@ -571,8 +625,6 @@ def slice_phase(workdir):
             check(cos.min().item() >= MIN_COSINE,
                   f"{method}/{masked}: min row cosine {cos.min().item():.6f} "
                   f"vs the plain attention < {MIN_COSINE}")
-    finally:
-        port_flash.mh_flash_forward = kernel_fn
     check(_kernels.LAUNCHES == launches, "the plain run launched the kernel")
     print(f"slice: kernel path vs plain attention, min row cosine {worst:.7f} "
           f"(threshold {MIN_COSINE})")
@@ -580,20 +632,9 @@ def slice_phase(workdir):
     # encode throughput at ctx 1024, as bench.py times it
     x = torch.randint(20, 65000, (batch_size, cfg.block_size),
                       generator=gen, device="cuda")
-    for _ in range(2):
-        encode(model, x, "mean")
-    torch.cuda.synchronize()
-    steps = 16
-    t0 = time.time()
-    for _ in range(steps):
-        e = encode(model, x, "mean")
-    torch.cuda.synchronize()
-    dt = time.time() - t0
-    check(bool(torch.isfinite(e.float()).all()), "non-finite encode output")
-    sps = steps * batch_size / dt
-    print(f"encode(mean) B={batch_size} T={cfg.block_size} bf16: {sps:.1f} seq/s "
-          f"({1e3 * dt / steps:.3f} ms per batch)")
-    return launches
+    _encode_rate(model, x, "bf16")
+    return launches, dict(sp=sp, tok_path=tok_path, model=model, seqs=seqs,
+                          outs=outs, x=x)
 
 
 # ---------------------------------------------------------------------------
@@ -1328,7 +1369,453 @@ def longctx_slice_phase(workdir):
     return cli_launches, split_launches
 
 
-def main():
+# ---------------------------------------------------------------------------
+# 7. int8 attention kernel
+# ---------------------------------------------------------------------------
+
+# The int8 kernel vs its plain version. Both take the same integers (the
+# prologue's are compared bit for bit), the same fp32 scores and the same
+# row maxima, so they differ in the order of l's fp32 sum and, wherever
+# exp2f and torch.exp2 differ in the last bit at a rounding boundary, in one
+# step of a p8 (1/127 of one key's weight, against a row's l of tens). fp32
+# outputs are held to 1e-4 absolute and relative; bf16 outputs, where such a
+# difference can flip the rounding of o by one bf16 ulp (2^-8 relative), to
+# the bf16 forward kernel's 8e-3.
+INT8_TOL = {"bfloat16": (8e-3, 8e-3), "float32": (1e-4, 1e-4)}
+
+
+def _int8_bound(B, T, H, D, itemsize, pairs=None, rope=True):
+    """(bound_ms, bound_by) of one int8 attention call: two products over
+    `pairs` (q, k) pairs (default all) at the int8 dense peak, against q, k,
+    v read and o written once in the input dtype, plus the rope tables."""
+    pairs = float(B) * T * T if pairs is None else pairs
+    nbytes = 4 * B * T * H * D * itemsize + (2 * T * (D // 2) * 4 if rope else 0)
+    return _bound(4.0 * pairs * H * D, nbytes, PEAK_INT8_OPS)
+
+
+def _hold_int8(q, k, v, seg, rope, scale, tag):
+    """Prologue and output of the int8 kernel against the plain version on
+    the same inputs; returns (max |do|, the kernel's o)."""
+    import torch
+    from omnibiote_tpu_torch.ops import int8_attention as i8
+
+    dtype = str(q.dtype).split(".")[1]
+    got = i8.int8_quantize_kernel(q, k, v, rope)
+    torch.cuda.synchronize()
+    want = i8.int8_quantize_plain(q, k, v, rope)
+    for name, g, w in zip(("q8", "sq", "k8", "sk", "v8t", "sv"), got, want):
+        check(g.shape == w.shape and g.dtype == w.dtype,
+              f"int8 prologue {name}: {tuple(g.shape)} {g.dtype} at {tag}")
+        check(torch.equal(g, w), f"int8 prologue {name} differs from the plain "
+              f"version's at {tag}: {(g != w).float().mean().item():.2e} of its elements")
+    # block_q as the dispatch's _fit_block would give it for any T here
+    o = i8.int8_flash_attention(q, k, v, scale=scale, segment_ids=seg, block_q=128,
+                                rope=rope)
+    torch.cuda.synchronize()
+    po = i8.int8_flash_attention_plain(q, k, v, scale=scale, segment_ids=seg,
+                                       block_q=128, rope=rope)
+    check(o.shape == q.shape and o.dtype == q.dtype and
+          bool(torch.isfinite(o.float()).all()), f"int8 kernel output at {tag}")
+    rt, at = INT8_TOL[dtype]
+    err = _abs_err(o, po)
+    check(torch.allclose(o.float(), po.float(), rtol=rt, atol=at),
+          f"int8 kernel disagrees with its plain version at {tag}: max|do| {err:.3e}")
+    return err, o
+
+
+def int8_kernel_phase():
+    """The int8 attention kernel against its plain version; returns its row
+    of the kernels line (launches filled in by the serving slice)."""
+    import torch
+    import torch.nn.functional as F
+    from omnibiote_tpu_torch.models.rope import apply_rope_half
+    from omnibiote_tpu_torch.ops import int8_attention as i8
+    from omnibiote_tpu_torch.ops.flash_attention import mh_flash_forward
+
+    H, D = 8, 128
+    scale = 1.0 / math.sqrt(D)
+    worst = {"bfloat16": 0.0, "float32": 0.0}
+    n = 0
+    for T in (128, 640, 1024, 2048):
+        for dtype in ("bfloat16", "float32"):
+            for layout in ("packed", "padded", "dense"):
+                for use_rope in (True, False):
+                    q, k, v, seg, rope = _attn_inputs(
+                        2, T, H, D, getattr(torch, dtype), layout, seed=800 + n)
+                    err, _ = _hold_int8(q, k, v, seg, rope if use_rope else None, scale,
+                                        (2, T, dtype, layout, use_rope))
+                    worst[dtype] = max(worst[dtype], err)
+                    n += 1
+    print(f"int8 kernel vs plain: {n} cases (B=2, T 128/640/1024/2048, bf16 and fp32, "
+          f"packed/padded/dense, RoPE and none): q8, k8, v8t and their scales equal "
+          f"bit for bit; max|do| bf16 {worst['bfloat16']:.3e} (rtol, atol "
+          f"{INT8_TOL['bfloat16']}), fp32 {worst['float32']:.3e} ({INT8_TOL['float32']})")
+
+    # the serving shape: dense (encode) and padded (the masked Encoder)
+    B, T = 32, 1024
+    q, k, v, _, rope = _attn_inputs(B, T, H, D, torch.bfloat16, "dense", 99)
+    _, _, _, pseg, _ = _attn_inputs(B, T, H, D, torch.bfloat16, "padded", 98)
+    err_d, o8 = _hold_int8(q, k, v, None, rope, scale, "the serving shape, dense")
+    err_p, o8p = _hold_int8(q, k, v, pseg, rope, scale, "the serving shape, padded")
+    # against the bf16 kernel: the cosine of each batch row's output (real
+    # tokens) is held to MIN_COSINE; the least cosine of one (token, head)
+    # vector, printed beside it, is the int8 function's own precision on
+    # near-uniform attention over random values (the plain version has it too)
+    cos, cos_tok = [], []
+    for o_int8, seg in ((o8, None), (o8p, pseg)):
+        o16, _ = mh_flash_forward(q, k, v, seg, rope, scale=scale)
+        a8, a16 = o_int8.float(), o16.float()
+        if seg is not None:          # pad tokens attend to pad alone: left out
+            real = (seg == 0)[:, :, None, None]
+            a8, a16 = a8 * real, a16 * real
+        cos.append(F.cosine_similarity(a8.flatten(1), a16.flatten(1), dim=1).min().item())
+        c = F.cosine_similarity(a8, a16, dim=3)
+        cos_tok.append((c if seg is None else c[seg == 0]).min().item())
+    check(min(cos) >= MIN_COSINE, f"int8 kernel vs the bf16 kernel: min row cosine "
+          f"{min(cos):.6f} < {MIN_COSINE}")
+    del o8, o8p, o16, a8, a16, c
+    ms = cuda_ms(lambda: i8.int8_flash_attention(q, k, v, scale=scale, rope=rope), 20)
+    ms_pad = cuda_ms(lambda: i8.int8_flash_attention(
+        q, k, v, scale=scale, segment_ids=pseg, rope=rope), 20)
+    pro_ms = cuda_ms(lambda: i8.int8_quantize_kernel(q, k, v, rope), 20)
+    plain_ms = cuda_ms(lambda: i8.int8_flash_attention_plain(
+        q, k, v, scale=scale, rope=rope), 3, warmup=1)
+    bf16_ms = cuda_ms(lambda: mh_flash_forward(q, k, v, None, rope, scale=scale), 20)
+    qr, kr = apply_rope_half(q, k, *rope)
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (qr, kr, v))
+    sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), 20)
+    bound_ms, bound_by = _int8_bound(B, T, H, D, 2)
+    tops = 4.0 * B * T * T * H * D / (ms * 1e-3) / 1e12
+    print(f"int8_flash_fwd B={B} T={T} H={H} D={D} bf16 dense: kernel {ms:.4f} ms "
+          f"({tops:.1f} TOP/s; its prologue alone {pro_ms:.4f} ms), padded "
+          f"{ms_pad:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}; by the int8 dense rate "
+          f"{1e3 * 4.0 * B * T * T * H * D / PEAK_INT8_OPS:.4f} ms); for context, no "
+          f"library call computes this function: the bf16 kernel mh_flash_fwd "
+          f"{bf16_ms:.4f} ms, SDPA bf16 {sdpa_ms:.4f} ms; kernel vs plain at this "
+          f"shape max|do| dense {err_d:.3e}, padded {err_p:.3e}; vs the bf16 kernel "
+          f"min batch-row cosine dense {cos[0]:.6f}, padded (real tokens) {cos[1]:.6f} "
+          f"(threshold {MIN_COSINE}); least (token, head) cosine {cos_tok[0]:.6f}, "
+          f"{cos_tok[1]:.6f}")
+    return {"name": "int8_flash_fwd", "route": "cuda",
+            "source": "omnibiote_tpu_torch/ops/csrc/int8_flash_fwd.cu",
+            "replaces": "omnibiote_tpu/ops/int8_attention.py:48",
+            "launches": None, "max_abs_err": max(err_d, err_p), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+# ---------------------------------------------------------------------------
+# 8. int8 products
+# ---------------------------------------------------------------------------
+
+def int8_gemm_phase():
+    """quant_linear on the card at the serving batch's row count and the
+    model's four weight shapes: exact int32 sums, and where its time goes."""
+    import torch
+    import torch.nn.functional as F
+    from omnibiote_tpu_torch.ops import quant
+
+    M = 32 * 1024
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for K, N in ((1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024)):
+        x = torch.randn(M, K, generator=gen, device="cuda").bfloat16()
+        w = torch.randn(N, K, generator=gen, device="cuda") / math.sqrt(K)
+        qw = quant.quantize_weight(w)
+        wb = w.bfloat16()
+
+        x_q, s_x = quant.quantize_rows(x)
+        acc = quant._int8_matmul(x_q, qw.values)
+        torch.cuda.synchronize()
+        check(acc.dtype == torch.int32 and acc.shape == (M, N), "int8 product's result")
+        # the same integers through float64, exact below 2^53
+        want = (x_q.double() @ qw.values.double().t()).to(torch.int32)
+        check(torch.equal(acc, want), f"int8 product at M={M} K={K} N={N} is not exact")
+        del want
+        # 16 rows or fewer go through the padded call
+        small = quant._int8_matmul(x_q[:7], qw.values)
+        check(torch.equal(small, acc[:7]), "int8 product of 7 rows (padded) differs")
+        y = quant.quant_linear(x, qw)
+        ref = F.linear(x, wb)
+        cos = F.cosine_similarity(y.float(), ref.float(), dim=1).min().item()
+        check(y.dtype == x.dtype and cos >= 0.999,
+              f"quant_linear vs bf16 F.linear at K={K} N={N}: min row cosine {cos:.6f}")
+        total = cuda_ms(lambda: quant.quant_linear(x, qw), 10)
+        prod = cuda_ms(lambda: quant._int8_matmul(x_q, qw.values), 10)
+        q_ms = cuda_ms(lambda: quant.quantize_rows(x), 10)
+        resc = cuda_ms(lambda: quant.rescale(acc, s_x, qw.scale, None, x.dtype), 10)
+        lin = cuda_ms(lambda: F.linear(x, wb), 10)
+        print(f"quant_linear M={M} K={K} N={N}: int32 sums exact; {total:.4f} ms = int8 "
+              f"product {prod:.4f} ({2.0 * M * K * N / (prod * 1e-3) / 1e12:.0f} TOP/s) + "
+              f"quantise pass {q_ms:.4f} + rescale pass {resc:.4f}; bf16 F.linear "
+              f"{lin:.4f} ms ({2.0 * M * K * N / (lin * 1e-3) / 1e12:.0f} TFLOP/s); min row "
+              f"cosine vs it {cos:.6f}")
+        del x, w, wb, x_q, s_x, acc, y, ref
+
+
+# ---------------------------------------------------------------------------
+# 9. int8 serving slice
+# ---------------------------------------------------------------------------
+
+# Quantized Encoder vs the bf16 Encoder, per row: the JAX tests' bar.
+MIN_COSINE_INT8 = 0.99
+
+
+def _min_row_cosine(a, b):
+    import torch
+    return torch.nn.functional.cosine_similarity(
+        torch.from_numpy(a).double(), torch.from_numpy(b).double(), dim=1).min().item()
+
+
+def int8_slice_phase(workdir, served):
+    """Int8 serving at omnibiote-small full width and depth, on the model,
+    tokenizer and sequences of the bf16 serving slice. Returns the launches
+    of its main path (the int8-attention Encoder's runs)."""
+    import torch
+    from omnibiote_tpu_torch import api
+    from omnibiote_tpu_torch.ops import _kernels
+    from omnibiote_tpu_torch.ops import attention as port_attention
+    from omnibiote_tpu_torch.ops.int8_attention import int8_flash_attention_plain
+    from omnibiote_tpu_torch.training.checkpoint import save_pytree_flat
+    from omnibiote_tpu_torch.utils.convert import flatten_tree, jax_params_from_state
+
+    sp, model, seqs, outs16 = served["sp"], served["model"], served["seqs"], served["outs"]
+    cfg = model.cfg
+    L, bs = cfg.n_layer, SERVING_BATCH
+    n_batches = -(-len(seqs) // bs)
+
+    def run(enc, runs, counter, other):
+        """encode_sequences for `runs`; every layer of every batch must go
+        through `counter`'s kernel and none through `other`'s."""
+        outs = {}
+        for method, masked in runs:
+            before = dict(_kernels.LAUNCHES)
+            out = enc.encode_sequences(seqs, method=method, batch_size=bs,
+                                       mask_padding=masked)
+            check(out.shape == (len(seqs), cfg.n_embd) and out.dtype.name == "float32"
+                  and bool(torch.isfinite(torch.from_numpy(out)).all()),
+                  f"int8 {method}/{masked}: shape {out.shape} dtype {out.dtype} or non-finite")
+            check(_kernels.LAUNCHES[counter] - before[counter] == L * n_batches
+                  and _kernels.LAUNCHES[other] == before[other],
+                  f"int8 {method}/{masked}: launches {_kernels.LAUNCHES} after {before}, want "
+                  f"{L} layers x {n_batches} batches of {counter} and none of {other}")
+            outs[(method, masked)] = out
+        return outs
+
+    # -- int8 weights and int8 attention: this slice's main path ----------
+    enc = api.Encoder(model, sp, quantize=True, quantize_attention=True, device="cuda")
+    check(enc.cfg.attn_int8 and enc.cfg.qkv_prepermuted and not model.cfg.qkv_prepermuted,
+          "Encoder(quantize=True, quantize_attention=True) configuration")
+    _kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    outs = run(enc, SERVING_RUNS, "int8_flash_fwd", "mh_flash_fwd")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(_kernels.LAUNCHES)
+    want = _counts(int8_flash_fwd=L * n_batches * len(SERVING_RUNS))
+    check(launches == want, f"int8 main path launched {launches}, want {want}")
+    print(f"int8 slice: Encoder(quantize=True, quantize_attention=True), "
+          f"{len(SERVING_RUNS)} encode_sequences calls in {wall:.2f} s, launches {launches}")
+
+    # the same quantized model with the plain int8 attention on the card
+    kernel_fn = port_attention.int8_flash_attention
+    port_attention.int8_flash_attention = int8_flash_attention_plain
+    try:
+        plain = {key: enc.encode_sequences(seqs, method=key[0], batch_size=bs,
+                                           mask_padding=key[1]) for key in SERVING_RUNS}
+    finally:
+        port_attention.int8_flash_attention = kernel_fn
+    check(_kernels.LAUNCHES == launches, "the plain int8 run launched a kernel")
+    worst_plain = min(_min_row_cosine(outs[key], plain[key]) for key in SERVING_RUNS)
+    worst_bf16 = min(_min_row_cosine(outs[key], outs16[key]) for key in SERVING_RUNS)
+    print(f"int8 slice: kernel path vs plain int8 attention, min row cosine "
+          f"{worst_plain:.7f} (threshold {MIN_COSINE}); vs the bf16 Encoder "
+          f"{worst_bf16:.6f} (threshold {MIN_COSINE_INT8})")
+    check(worst_plain >= MIN_COSINE, "int8 Encoder: kernel vs plain int8 attention")
+    check(worst_bf16 >= MIN_COSINE_INT8, "int8 Encoder vs the bf16 Encoder")
+    rate_q8a = _encode_rate(enc.model, served["x"], "int8 weights + int8 attention")
+    del enc, plain
+
+    # -- int8 weights alone: what from_checkpoint and the CLI give --------
+    enc_w = api.Encoder(model, sp, quantize=True, device="cuda")
+    check(not enc_w.cfg.attn_int8, "Encoder(quantize=True) turned int8 attention on")
+    runs_w = [("mean", True), ("mean", False)]
+    outs_w = run(enc_w, runs_w, "mh_flash_fwd", "int8_flash_fwd")
+    worst_w = min(_min_row_cosine(outs_w[key], outs16[key]) for key in runs_w)
+    print(f"int8 slice: Encoder(quantize=True): {L} mh_flash_fwd launches a batch, no "
+          f"int8_flash_fwd; vs the bf16 Encoder min row cosine {worst_w:.6f} "
+          f"(threshold {MIN_COSINE_INT8})")
+    check(worst_w >= MIN_COSINE_INT8, "Encoder(quantize=True) vs the bf16 Encoder")
+    rate_q8 = _encode_rate(enc_w.model, served["x"], "int8 weights, bf16 attention")
+    del enc_w
+
+    # -- the FASTA CLI with --quantize, from a checkpoint of this model ---
+    ckpt = os.path.join(workdir, "serve_ckpt")
+    os.makedirs(ckpt)
+    state = {n: p.detach().cpu() for n, p in model.state_dict().items()}
+    save_pytree_flat(os.path.join(ckpt, "params.npz"),
+                     flatten_tree(jax_params_from_state(state, cfg)))
+    with open(os.path.join(ckpt, "meta.json"), "w") as f:
+        json.dump({"model_cfg": dict(vars(cfg))}, f)
+    fasta = os.path.join(workdir, "seqs.fa")
+    with open(fasta, "w") as f:
+        f.writelines(f">s{i}\n{s}\n" for i, s in enumerate(seqs))
+    out_npz = os.path.join(workdir, "emb.npz")
+    argv = ["--checkpoint", ckpt, "--fasta", fasta, "--out", out_npz,
+            "--tokenizer-path", served["tok_path"], "--quantize"]
+    print("FASTA CLI: python -m omnibiote_tpu_torch.api " + " ".join(argv))
+    before = dict(_kernels.LAUNCHES)
+    check(api.main(argv) == 0, "the FASTA CLI failed")
+    import numpy as np
+    with np.load(out_npz) as z:
+        ids, emb = list(z["ids"]), z["embeddings"]
+    cos_cli = _min_row_cosine(emb, outs_w[("mean", True)])
+    check(ids == [f"s{i}" for i in range(len(seqs))] and emb.shape == (len(seqs), cfg.n_embd),
+          "the FASTA CLI's ids or shape")
+    check(_kernels.LAUNCHES["mh_flash_fwd"] - before["mh_flash_fwd"] == L * n_batches
+          and _kernels.LAUNCHES["int8_flash_fwd"] == before["int8_flash_fwd"],
+          f"the FASTA CLI with --quantize launched {_kernels.LAUNCHES} after {before}")
+    check(cos_cli >= 0.9999, f"the FASTA CLI vs Encoder(quantize=True): {cos_cli:.7f}")
+    print(f"FASTA CLI --quantize: {emb.shape[0]} embeddings, min row cosine vs "
+          f"Encoder(quantize=True) on the same weights {cos_cli:.7f}")
+    print(f"encode(mean) at B={SERVING_BATCH}, T={cfg.block_size}: int8 weights "
+          f"{rate_q8:.1f} seq/s, int8 weights + int8 attention {rate_q8a:.1f} seq/s "
+          f"(bf16: the serving slice's line above)")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 10. per-head entry: flash_attention(multi_head=False)
+# ---------------------------------------------------------------------------
+
+def per_head_phase():
+    """flash_attention(multi_head=False): forward and backward against the
+    plain versions, its launch counts, and each of its three kernels timed
+    at bench.py's micro-batch. Returns (rows of flash_fwd, flash_bwd_dkv,
+    flash_bwd_dq, launches of its main path)."""
+    import torch
+    import torch.nn.functional as F
+    from omnibiote_tpu_torch.ops import _kernels
+    from omnibiote_tpu_torch.ops import flash_attention as fa
+
+    H, D = 8, 128
+    scale = 1.0 / math.sqrt(D)
+
+    def fwd_bwd(q, k, v, seg, do, **kw):
+        q, k, v = (x.clone().requires_grad_() for x in (q, k, v))
+        o = fa.flash_attention(q, k, v, seg, None, scale=scale, block_q=512,
+                               block_kv=512, multi_head=False, **kw)
+        return (o.detach(), *torch.autograd.grad(o, (q, k, v), do))
+
+    n = 0
+    for dtype in ("bfloat16", "float32"):
+        for layout in ("packed", "dense"):
+            for rate in (0.0, TRAIN_DROPOUT):
+                B, T = 2, 1024
+                q, k, v, seg, _ = _attn_inputs(B, T, H, D, getattr(torch, dtype),
+                                               layout, seed=900 + n)
+                gen = torch.Generator(device="cuda").manual_seed(950 + n)
+                do = torch.randn(B, T, H, D, generator=gen, device="cuda").to(q.dtype)
+                kw = dict(dropout_rate=rate, seed=0xA5A5A5A5 + n)
+                _kernels.reset_launches()
+                got = fwd_bwd(q, k, v, seg, do, **kw)
+                torch.cuda.synchronize()
+                want_counts = _counts(flash_fwd=1, flash_bwd_dkv=1, flash_bwd_dq=1)
+                check(_kernels.LAUNCHES == want_counts,
+                      f"per-head entry launched {_kernels.LAUNCHES}, want {want_counts}")
+                with _plain_attention():
+                    # the kernels' tiles and order of rounding
+                    tq, tkv = fa.KERNEL_TILES["fwd"][q.dtype]
+                    want = fwd_bwd(q, k, v, seg, do, **kw)
+                    po, _ = fa.mh_flash_forward_plain(q, k, v, seg, None, scale=scale,
+                                                      block_kv=tkv, **kw)
+                check(_kernels.LAUNCHES == want_counts, "the plain run launched a kernel")
+                tag = f"B={B} T={T} {dtype:8s} {layout:6s} dropout {rate}"
+                rt, at = TOL[dtype]["o"]
+                check(torch.allclose(got[0].float(), po.float(), rtol=rt, atol=at),
+                      f"per-head forward disagrees with its plain version at {tag}")
+                rel, _ = _hold_bwd(got[1:], want[1:], dtype, f"per-head {tag}")
+                print(f"per-head vs plain {tag}: max|do| {_abs_err(got[0], po):.3e} (rtol "
+                      f"{rt}, atol {at}), backward max|d|/max|g| {rel:.2e} (tolerance "
+                      f"{BWD_TOL[dtype]})")
+                n += 1
+
+    # bench.py's micro-batch: B=16, T=1024, bf16, 3 EOS a row, dropout 0.1;
+    # this entry never skips, so every tile is walked
+    B, T = TRAIN_SHAPE["B"], TRAIN_SHAPE["T"]
+    q, k, v, _, _ = _attn_inputs(B, T, H, D, torch.bfloat16, "dense", 977)
+    seg = torch.from_numpy(next(bench_batches(B, T, seed=977))["segments"]).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(978)
+    do = torch.randn(B, T, H, D, generator=gen, device="cuda").bfloat16()
+    kw = dict(scale=scale, dropout_rate=TRAIN_DROPOUT, seed=31337)
+    # main path: every count at 0 just before, read just after
+    n_calls = 8
+    _kernels.reset_launches()
+    for _ in range(n_calls):
+        got = fwd_bwd(q, k, v, seg, do, dropout_rate=TRAIN_DROPOUT, seed=31337)
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+    want_counts = _counts(flash_fwd=n_calls, flash_bwd_dkv=n_calls, flash_bwd_dq=n_calls)
+    check(launches == want_counts, f"per-head main path launched {launches}, want {want_counts}")
+    print(f"per-head main path: {n_calls} forward + backward calls of "
+          f"flash_attention(multi_head=False) at B={B} T={T}, launches {launches}")
+
+    o, lse = fa.mh_flash_forward(q, k, v, seg, None, **kw)
+    di = (o.float() * do.float()).sum(-1)
+    args = (q, k, v, do, lse, di, seg, None)
+    shape = f"the per-head shape B={B} T={T}"
+    err_f = _hold_fwd((o, lse), fa.mh_flash_forward_plain(
+        q, k, v, seg, None, block_kv=fa.KERNEL_KV_TILE[torch.bfloat16], **kw),
+        "bfloat16", shape)
+    check(torch.equal(o, got[0]), "the per-head entry's o differs from its forward kernel's")
+    want = fa.mh_flash_backward_plain(*args, **kw)
+    rel_kv, err_kv = _hold_bwd(got[2:], want[1:], "bfloat16", f"{shape} (dkv)")
+    rel_q, err_q = _hold_bwd(got[1:2], want[:1], "bfloat16", f"{shape} (dq)")
+    del want
+    ms = {"flash_fwd": cuda_ms(lambda: fa.mh_flash_forward(q, k, v, seg, None, **kw), 20),
+          "flash_bwd_dkv": cuda_ms(lambda: fa.mh_flash_bwd_dkv(*args, **kw), 20),
+          "flash_bwd_dq": cuda_ms(lambda: fa.mh_flash_bwd_dq(*args, **kw), 20)}
+    plain = {"flash_fwd": cuda_ms(lambda: fa.mh_flash_forward_plain(
+                 q, k, v, seg, None, **kw), 3, warmup=1),
+             "flash_bwd_dkv": cuda_ms(lambda: fa.mh_flash_bwd_dkv_plain(*args, **kw), 3, warmup=1),
+             "flash_bwd_dq": cuda_ms(lambda: fa.mh_flash_bwd_dq_plain(*args, **kw), 3, warmup=1)}
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, dropout_p=TRAIN_DROPOUT, scale=scale), 20)
+    pairs = _visible_pairs(seg, B, T)
+    nb_fwd = 4 * B * T * H * D * 2 + B * T * H * 4      # no rope tables here
+    bounds = {"flash_fwd": (_bound(4.0 * pairs * H * D, nb_fwd),
+                            _bound(4.0 * B * T * T * H * D, nb_fwd)),
+              "flash_bwd_dkv": (_bwd_bound(B, T, H, D, pairs, "dkv"),
+                                _bwd_bound(B, T, H, D, None, "dkv")),
+              "flash_bwd_dq": (_bwd_bound(B, T, H, D, pairs, "dq"),
+                               _bwd_bound(B, T, H, D, None, "dq"))}
+    print(f"per-head shape B={B} T={T} H={H} D={D} bf16, 3 EOS a row (visible share of "
+          f"(q, k) pairs {pairs / (B * T * T):.4f}), dropout {TRAIN_DROPOUT}, no RoPE, every "
+          f"tile walked; kernels vs plain: fwd max|do| {err_f:.3e}, max|d|/max|g| dkv "
+          f"{rel_kv:.2e}, dq {rel_q:.2e}")
+    for name in ms:
+        (b_vis, by), (b_all, by_all) = bounds[name]
+        print(f"  {name}: {ms[name]:.4f} ms, plain {plain[name]:.4f} ms, bound {b_vis:.4f} "
+              f"ms over visible pairs ({by}), {b_all:.4f} over all ({by_all})"
+              + (f", SDPA dense with dropout {sdpa_ms:.4f} ms" if name == "flash_fwd" else ""))
+    rows = [{"name": name, "route": "cuda",
+             "source": f"omnibiote_tpu_torch/ops/csrc/{src}",
+             "replaces": f"omnibiote_tpu/ops/flash_attention.py:{line}",
+             "launches": launches[name], "max_abs_err": err, "ms": ms[name],
+             "plain_ms": plain[name], "bound_ms": bounds[name][0][0],
+             "bound_by": bounds[name][0][1], "library_ms": lib}
+            for name, src, line, err, lib in (
+                ("flash_fwd", "mh_flash_fwd.cu", 110, err_f, sdpa_ms),
+                ("flash_bwd_dkv", "mh_flash_bwd_dkv.cu", 240, err_kv, None),
+                ("flash_bwd_dq", "mh_flash_bwd_dq.cu", 301, err_q, None))]
+    return rows, launches
+
+
+def setup():
+    """Refuse to run without a card or without the package, and fix the
+    fp32 matmul precision the references assume."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1339,6 +1826,11 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+
+def main():
+    import torch
+
+    setup()
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
     print(gpu_name_and_power())
@@ -1346,11 +1838,19 @@ def main():
     serving_err = kernel_phase()
     fwd_row, bwd_row = train_kernel_phase()
     long_rows, fwd_ms_2048, long_err = longctx_kernel_phase()
+    int8_row = int8_kernel_phase()
+    int8_gemm_phase()
+    head_rows, head_launches = per_head_phase()
+    print(f"per-head main path launches: {head_launches}")
     # the forward's error: the worst over its three main-path shapes
     fwd_row["max_abs_err"] = max(fwd_row["max_abs_err"], serving_err, long_err)
     with tempfile.TemporaryDirectory() as workdir:
-        serving = slice_phase(workdir)
+        serving, served = slice_phase(workdir)
         print(f"serving main path launches: {serving}")
+        int8_serving = int8_slice_phase(workdir, served)
+        print(f"int8 serving main path launches: {int8_serving}")
+        del served
+        torch.cuda.empty_cache()
         train = train_slice_phase(workdir)
         print(f"ctx-1024 training main path launches: {train}")
         long_cli, long_split = longctx_slice_phase(workdir)
@@ -1362,10 +1862,11 @@ def main():
     for row in long_rows:
         source = long_cli if row["name"] == "mh_flash_bwd_mk" else long_split
         row["launches"] = source[row["name"]]
-    rows = [fwd_row, bwd_row, *long_rows]
+    int8_row["launches"] = int8_serving["int8_flash_fwd"]
+    rows = [fwd_row, bwd_row, *long_rows, int8_row, *head_rows]
     check(min(serving["mh_flash_fwd"], train["mh_flash_fwd"], long_cli["mh_flash_fwd"]) > 0,
           "a main path never launched mh_flash_fwd")
-    check(len(rows) == 5 and all(row["launches"] > 0 for row in rows),
+    check(len(rows) == 9 and all(row["launches"] > 0 for row in rows),
           f"a kernel was never launched on its main path: "
           f"{[(row['name'], row['launches']) for row in rows]}")
     print(f"mh_flash_fwd at the long shape (mini 8, T 2048, skipping): {fwd_ms_2048:.4f} ms")

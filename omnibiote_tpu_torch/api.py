@@ -8,7 +8,8 @@
 
 Reads the checkpoints the JAX package writes (params.npz + meta.json) and
 computes the same embeddings; attention runs through the hand-written CUDA
-kernel (ops/csrc/mh_flash_fwd.cu).
+kernel (ops/csrc/mh_flash_fwd.cu), or with quantize_attention=True through
+the int8 one (ops/csrc/int8_flash_fwd.cu).
 """
 from __future__ import annotations
 
@@ -32,18 +33,31 @@ class Encoder:
                  quantize: bool = False, quantize_attention: bool = False,
                  mesh=None, device=None):
         """model: an OmniBioTA (moved to `device`; None: the GPU).
-        quantize (int8 weights), quantize_attention (int8 attention) and
-        mesh (multi-device serving) are not ported yet and raise."""
-        if quantize or quantize_attention:
-            raise NotImplementedError(
-                "int8 serving (quantize=True, quantize_attention=True) is not "
-                "ported yet (ROADMAP Queue 1, item 7, and Queue 2, #9)")
+
+        quantize=True serves from a copy of the model in the int8 format
+        (ops/quant.py): int8 weights, activations quantized per row on the
+        fly, int32 accumulation.
+
+        quantize_attention=True additionally runs attention itself in int8
+        (ops/int8_attention.py); it needs quantize=True. Off by default, as
+        in the JAX package, and `from_checkpoint` and the CLI leave it off.
+
+        mesh (multi-device serving) is not ported yet and raises."""
+        if quantize_attention and not quantize:
+            raise ValueError(
+                "quantize_attention=True requires quantize=True (int8 "
+                "attention goes with the quantized weight format)")
         if mesh is not None:
             raise NotImplementedError(
                 "multi-device serving (mesh=) is not ported yet "
                 "(ROADMAP Queue 1, item 9)")
         self.device = resolve_device(device)
-        self.model = model.to(self.device).eval()
+        model = model.to(self.device).eval()
+        if quantize:
+            from .ops.quant import quantize_for_inference
+            model = quantize_for_inference(model)
+            model.cfg = model.cfg.replace(attn_int8=quantize_attention)
+        self.model = model
         self.cfg = model.cfg.replace(dropout=0.0)
         self.sp = sp
         self.banned = list(banned_tokens)
@@ -172,7 +186,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--chunk", type=int, default=4096,
                     help="sequences held in memory per encode call")
     ap.add_argument("--quantize", action="store_true",
-                    help="int8 serving weights (not ported yet)")
+                    help="int8 serving weights (ops/quant.py)")
     ap.add_argument("--data-parallel", action="store_true",
                     help="shard rows over all devices (not ported yet)")
     ap.add_argument("--leaky-padding", action="store_true",

@@ -84,7 +84,8 @@ class OmniBioTAConfig:
     # 1.41421 constant, or its degree-7 polynomial fit.
     gelu: str = "auto"
 
-    # int8 attention at inference; not yet ported (ROADMAP Queue 2, #9).
+    # int8 attention at inference (ops/int8_attention.py), set by
+    # api.Encoder(quantize=True, quantize_attention=True).
     attn_int8: bool = False
 
     # µP base width: width_mult = n_embd / mup_base_n_embd.

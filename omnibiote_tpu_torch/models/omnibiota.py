@@ -42,6 +42,7 @@ from torch import nn
 from ..config import OmniBioTAConfig
 from ..ops.attention import attention
 from ..ops.flash_attention import SegmentBounds
+from ..ops.quant import QuantizedWeight, quant_linear
 from ..utils.device import resolve_device
 from .rope import qkv_col_perm, rope_tables
 
@@ -127,7 +128,10 @@ def _forward_rngs(rng: int, n_layer: int, device):
 
 def _linear(x, w, b=None):
     """x @ wᵀ with w (out, in) cast to x's dtype, then the bias (cast to
-    the product's dtype) added separately, as the JAX package does."""
+    the product's dtype) added separately, as the JAX package does. A
+    QuantizedWeight takes the int8 serving path (ops/quant.py)."""
+    if isinstance(w, QuantizedWeight):
+        return quant_linear(x, w, b)
     y = F.linear(x, w.to(x.dtype))
     if b is not None:
         y = y + b.to(y.dtype)

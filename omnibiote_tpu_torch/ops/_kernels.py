@@ -19,10 +19,15 @@ BUILD_DIR = os.path.join(_HERE, "build")
 # Launches per kernel wrapper: each wrapper adds one where it launches.
 # The fused backward source serves two counts: "mh_flash_bwd" where one kv
 # block spans the sequence (T <= 1024 under the dispatch) and
-# "mh_flash_bwd_mk" for the multi-kv case above it.
+# "mh_flash_bwd_mk" for the multi-kv case above it. The forward and the
+# split pair's sources also serve flash_attention(multi_head=False), without
+# RoPE or skip bounds, counted as "flash_fwd", "flash_bwd_dkv" and
+# "flash_bwd_dq".
 LAUNCHES: Dict[str, int] = {"mh_flash_fwd": 0, "mh_flash_bwd": 0,
                             "mh_flash_bwd_mk": 0, "mh_flash_bwd_dkv": 0,
-                            "mh_flash_bwd_dq": 0}
+                            "mh_flash_bwd_dq": 0, "int8_flash_fwd": 0,
+                            "flash_fwd": 0, "flash_bwd_dkv": 0,
+                            "flash_bwd_dq": 0}
 
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
@@ -84,6 +89,18 @@ _SIGNATURES = {
             _c.c_int, _c.c_uint32, _c.c_float,         # drop, thresh, keep_scale
             _c.c_uint64, _c.c_void_p]),                # seed, stream
         "obt_cuda_error_string_bwd_dq": (_c.c_char_p, [_c.c_int]),
+    },
+    "int8_flash_fwd": {
+        "obt_int8_flash_fwd": (_c.c_int, [
+            _c.c_void_p, _c.c_void_p, _c.c_void_p,     # q, k, v
+            _c.c_void_p, _c.c_void_p, _c.c_void_p,     # seg, cos, sin
+            _c.c_void_p, _c.c_void_p,                  # q8, sq
+            _c.c_void_p, _c.c_void_p,                  # k8, sk
+            _c.c_void_p, _c.c_void_p,                  # v8t, sv
+            _c.c_void_p,                               # o
+            _c.c_int, _c.c_int, _c.c_int, _c.c_int,    # B, T, H, D
+            _c.c_float, _c.c_int, _c.c_void_p]),       # scale_log2, dtype, stream
+        "obt_cuda_error_string_int8": (_c.c_char_p, [_c.c_int]),
     },
 }
 

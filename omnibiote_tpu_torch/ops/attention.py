@@ -1,11 +1,14 @@
-"""Attention dispatch: the multi-head flash kernel or the dense reference.
+"""Attention dispatch: the multi-head flash kernel, the int8 serving
+kernel or the dense reference.
 
 Routes exactly as `omnibiote_tpu/ops/attention.py` does on one device:
 bidirectional attention at T % 128 == 0 with head_dim % 128 == 0 (or one
 head) goes to `flash_attention` (the CUDA kernels, forward and backward, on
-a CUDA tensor; their plain versions on a CPU tensor); everything else
-(causal, ragged T, narrow heads) goes to `xla_attention`, the dense twin of
-the JAX package's reference path.
+a CUDA tensor; their plain versions on a CPU tensor); with int8=True, no
+dropout and head_dim % 128 == 0 it goes to `int8_flash_attention`
+(ops/int8_attention.py) instead; everything else (causal, ragged T, narrow
+heads) goes to `xla_attention`, the dense twin of the JAX package's
+reference path.
 
 Dropout: `dropout_seed` is the call's 64-bit seed (the counterpart of the
 JAX package's `dropout_rng` key). The flash path hands it to the kernels'
@@ -20,6 +23,7 @@ from typing import Optional
 import torch
 
 from .flash_attention import flash_attention
+from .int8_attention import int8_flash_attention
 from .segments import NEG_INF
 
 
@@ -78,10 +82,15 @@ def attention(q, k, v, *, scale: float, segment_ids=None,
         raise NotImplementedError(
             "tensor-parallel attention is not ported yet "
             "(ROADMAP Queue 1, item 9)")
-    if int8:
-        raise NotImplementedError(
-            "int8 attention is not ported yet (ROADMAP Queue 2, #9)")
     T, H, D = q.shape[1], q.shape[2], q.shape[3]
+    if (int8 and impl == "flash" and not causal and dropout_rate == 0.0
+            and T % 128 == 0 and D % 128 == 0):
+        # serving-only int8 kernel: RoPE and the quantization of q, k, v and
+        # P all happen inside it; any other int8 call routes on as bf16
+        return int8_flash_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(), scale=scale,
+            segment_ids=segment_ids, block_q=_fit_block(T, block_q),
+            rope=rope)
     if block_kv is None:
         block_kv = T if T <= 1024 else 512
     flash_ok = (T % 128 == 0) and (D % 128 == 0 or H == 1)

@@ -13,6 +13,16 @@ fused in, segment-id masking, dropout on P and a log2-space logsumexp
 residual. The kernels are `ops/csrc/mh_flash_fwd.cu`, `mh_flash_bwd.cu`
 (both fused cases), `mh_flash_bwd_dkv.cu` and `mh_flash_bwd_dq.cu`.
 
+`flash_attention(multi_head=False)` is the JAX package's per-head entry
+(`_flash`: `_fwd_kernel`, `_bwd_dkv_kernel`, `_bwd_dq_kernel`, a (B, H,
+T/bq, T/bkv) grid): no RoPE, no segment skipping, and a backward that is
+always the split pair. What those TPU kernels compute is what the forward
+kernel and the split pair here compute without RoPE tables and without
+bounds, so on a CUDA tensor the same sources serve it, counted under
+`flash_fwd`, `flash_bwd_dkv` and `flash_bwd_dq`. Their inner differences
+(a natural-log lse residual, a `where` mask in place of the additive one,
+the grid) are not visible outside and have no counterpart.
+
 Numerics (identical in the kernels and the plain versions):
   * RoPE rotates q and k in fp32 from the cos/sin tables, and the result is
     rounded to the input dtype before the products;
@@ -537,12 +547,13 @@ def _raise_on(err: int, name: str, err_string) -> None:
 
 def mh_flash_forward_kernel(q, k, v, segment_ids=None, rope=None, *,
                             scale: float, dropout_rate: float = 0.0,
-                            seed: int = 0, kv_bounds=None, tile_count=None):
+                            seed: int = 0, kv_bounds=None, tile_count=None,
+                            counter: Optional[str] = None):
     """Launch the forward kernel on CUDA tensors; raises on anything it was
     not built for. kv_bounds: None or the (lo, hi) of
-    seg_block_bounds(ids, ids, *KERNEL_TILES['fwd'][dtype]). Adds one to
-    LAUNCHES['mh_flash_fwd'] per launch. Under autograd, call it through
-    MhFlashAttention."""
+    seg_block_bounds(ids, ids, *KERNEL_TILES['fwd'][dtype]). Adds one per
+    launch to LAUNCHES[counter], by default 'mh_flash_fwd'. Under autograd,
+    call it through MhFlashAttention."""
     from . import _kernels
 
     B, T, H, D = q.shape
@@ -572,7 +583,7 @@ def mh_flash_forward_kernel(q, k, v, segment_ids=None, rope=None, *,
             1 if q.dtype == torch.bfloat16 else 0, drop, thresh, keep_scale,
             seed, stream)
     _raise_on(err, "mh_flash_fwd", lib.obt_cuda_error_string)
-    _kernels.LAUNCHES["mh_flash_fwd"] += 1
+    _kernels.LAUNCHES[counter or "mh_flash_fwd"] += 1
     return o, lse2
 
 
@@ -650,7 +661,8 @@ def mh_flash_forward(q, k, v, segment_ids=None, rope=None, *, scale: float,
                      block_kv: Optional[int] = None,
                      dropout_rate: float = 0.0, seed: int = 0,
                      block_q: Optional[int] = None,
-                     segment_skip: bool = False, bounds=None
+                     segment_skip: bool = False, bounds=None,
+                     counter: Optional[str] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Multi-head flash attention forward: (o (B,T,H,D), lse2 (B,T,H)).
 
@@ -659,12 +671,13 @@ def mh_flash_forward(q, k, v, segment_ids=None, rope=None, *, scale: float,
     at `dropout_rate` from the 64-bit `seed`; segment_skip prunes the tiles
     outside the segment bounds (`bounds`: a SegmentBounds of the ids to
     share them between calls). A CUDA tensor runs the CUDA kernel, which
-    walks its own tiles (KERNEL_TILES); a CPU tensor runs the plain version
-    with `block_q` and `block_kv` (None: one block)."""
+    walks its own tiles (KERNEL_TILES) and counts the launch under
+    `counter`; a CPU tensor runs the plain version with `block_q` and
+    `block_kv` (None: one block)."""
     if q.is_cuda:
         return mh_flash_forward_kernel(
             q, k, v, segment_ids, rope, scale=scale,
-            dropout_rate=dropout_rate, seed=seed,
+            dropout_rate=dropout_rate, seed=seed, counter=counter,
             kv_bounds=_kernel_bounds("fwd", q, segment_ids, segment_skip, bounds))
     return mh_flash_forward_plain(q, k, v, segment_ids, rope, scale=scale,
                                   block_kv=block_kv,
@@ -713,18 +726,21 @@ mh_flash_bwd_dq = functools.partial(mh_flash_bwd, "dq")
 
 def _save_for_backward(ctx, q, k, v, o, lse2, segment_ids, rope_cos, rope_sin,
                        scale, dropout_rate, seed, block_q, block_kv,
-                       segment_skip, bounds):
+                       segment_skip, bounds, multi_head=True):
     ctx.save_for_backward(q, k, v, o, lse2, segment_ids, rope_cos, rope_sin)
     ctx.scale, ctx.dropout_rate, ctx.seed = scale, dropout_rate, seed
     ctx.block_q, ctx.block_kv = block_q, block_kv
     ctx.segment_skip, ctx.bounds = segment_skip, bounds
+    ctx.multi_head = multi_head
 
 
 def _backward(ctx, do, dlse=None):
     """The JAX package's `_mh_bwd`: di = rowsum(o·do) in fp32, less the lse
     cotangent (natural-log space) where there is one, since d(lse)/ds = p
     and the kernels compute ds = p·(dp - di); then the fused kernel, or
-    the split pair when the switch for the case at hand is off."""
+    the split pair when the switch for the case at hand is off, and always
+    for the per-head entry (multi_head=False: the JAX package's `_bwd` makes
+    two calls, never a fused one), which counts them under its own names."""
     q, k, v, o, lse2, segment_ids, rope_cos, rope_sin = ctx.saved_tensors
     rope = None if rope_cos is None else (rope_cos, rope_sin)
     T = q.shape[1]
@@ -737,6 +753,9 @@ def _backward(ctx, do, dlse=None):
     kwargs = dict(scale=ctx.scale, dropout_rate=ctx.dropout_rate,
                   seed=ctx.seed, block_q=ctx.block_q, block_kv=ctx.block_kv,
                   segment_skip=ctx.segment_skip, bounds=ctx.bounds)
+    if not ctx.multi_head:
+        dk, dv = mh_flash_bwd_dkv(*args, **kwargs, counter="flash_bwd_dkv")
+        return mh_flash_bwd_dq(*args, **kwargs, counter="flash_bwd_dq"), dk, dv
     if FUSED_SINGLE_KV_BWD if single_kv else FUSED_MULTIKV_BWD:
         # one kernel serves both fused cases; each keeps its own count
         return mh_flash_backward(
@@ -751,26 +770,29 @@ class MhFlashAttention(torch.autograd.Function):
     its gradient (the JAX package's `_flash_mh` custom VJP). Saves the
     pre-RoPE q, k, v, o, lse2, the segment ids and their bounds, the seed
     and the rate. block_kv_fwd is the forward's kv block, block_q and
-    block_kv the backward's (and the forward's q block)."""
+    block_kv the backward's (and the forward's q block). multi_head=False
+    is the per-head entry (`_flash`): its own launch counts, the split pair
+    as its backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, segment_ids, rope_cos, rope_sin, scale,
                 dropout_rate, seed, block_q, block_kv, block_kv_fwd,
-                segment_skip, bounds):
+                segment_skip, bounds, multi_head):
         rope = None if rope_cos is None else (rope_cos, rope_sin)
         o, lse2 = mh_flash_forward(q, k, v, segment_ids, rope, scale=scale,
                                    block_kv=block_kv_fwd,
                                    dropout_rate=dropout_rate, seed=seed,
                                    block_q=block_q, segment_skip=segment_skip,
-                                   bounds=bounds)
+                                   bounds=bounds,
+                                   counter=None if multi_head else "flash_fwd")
         _save_for_backward(ctx, q, k, v, o, lse2, segment_ids, rope_cos,
                            rope_sin, scale, dropout_rate, seed, block_q,
-                           block_kv, segment_skip, bounds)
+                           block_kv, segment_skip, bounds, multi_head)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        return (*_backward(ctx, do), *([None] * 11))
+        return (*_backward(ctx, do), *([None] * 12))
 
 
 class MhFlashAttentionLse(torch.autograd.Function):
@@ -810,7 +832,8 @@ def flash_attention(q, k, v, segment_ids=None, rope=None, *, scale: float,
                     block_kv: Optional[int] = None,
                     block_q: Optional[int] = None,
                     block_kv_fwd: Optional[int] = None,
-                    segment_skip: bool = True, bounds=None) -> torch.Tensor:
+                    segment_skip: bool = True, bounds=None,
+                    multi_head: bool = True) -> torch.Tensor:
     """Differentiable multi-head flash attention: o (B, T, H, D). Without
     gradients to take it runs the forward alone.
 
@@ -820,7 +843,15 @@ def flash_attention(q, k, v, segment_ids=None, rope=None, *, scale: float,
     single-kv or the multi-kv case (block_kv < T); the CUDA kernels walk
     their own tiles. segment_skip (with segment ids) prunes fully masked
     tiles; `bounds`, a SegmentBounds of the ids, shares the bounds between
-    calls."""
+    calls.
+
+    multi_head=False is the JAX package's per-head entry: it takes no rope
+    (q and k arrive rotated), never skips, and its backward is always the
+    split pair; its launches count as flash_fwd, flash_bwd_dkv and
+    flash_bwd_dq."""
+    if not multi_head:
+        assert rope is None, "rope fusion requires the multi_head kernel"
+        segment_skip = False
     skip, bounds = _skip_and_bounds(segment_ids, segment_skip, bounds)
     if block_kv_fwd is None:
         block_kv_fwd = block_kv
@@ -828,11 +859,12 @@ def flash_attention(q, k, v, segment_ids=None, rope=None, *, scale: float,
         cos, sin = (None, None) if rope is None else rope
         return MhFlashAttention.apply(q, k, v, segment_ids, cos, sin, scale,
                                       dropout_rate, seed, block_q, block_kv,
-                                      block_kv_fwd, skip, bounds)
+                                      block_kv_fwd, skip, bounds, multi_head)
     o, _ = mh_flash_forward(q, k, v, segment_ids, rope, scale=scale,
                             block_kv=block_kv_fwd, dropout_rate=dropout_rate,
                             seed=seed, block_q=block_q, segment_skip=skip,
-                            bounds=bounds)
+                            bounds=bounds,
+                            counter=None if multi_head else "flash_fwd")
     return o
 
 

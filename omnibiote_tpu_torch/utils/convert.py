@@ -12,6 +12,13 @@ on a leading layer axis:
 Both directions carry the bias leaves when cfg.bias is set. Leaves may be
 numpy arrays or torch tensors; the result holds the same kind, in the same
 dtype.
+
+A tree quantized for int8 serving (the JAX package's
+`quantize_for_inference`) goes across with `quantized_state_from_jax_params`
+and back with `jax_qparams_from_quantized_state`: there each projection leaf
+is a pair `values` (fan_in, fan_out) int8, `scale` (fan_out,) fp32 (stacked
+on the layer axis inside `blocks`), and becomes `<linear>.values` (fan_out,
+fan_in) and `<linear>.scale`, the buffers of the port's QuantizedLinear.
 """
 from __future__ import annotations
 
@@ -61,6 +68,72 @@ def state_from_jax_params(params: Mapping, cfg: OmniBioTAConfig) -> Dict[str, ob
             x = blocks[sub][leaf][i]
             out[f"transformer.h.{i}.{name}"] = x.T if is_weight else x
     return out
+
+
+def _quantized_pair(leaf):
+    """(values, scale) of a quantized projection leaf: a (named) tuple with
+    those fields or a mapping with those keys."""
+    if isinstance(leaf, Mapping):
+        return leaf["values"], leaf["scale"]
+    return leaf.values, leaf.scale
+
+
+def quantized_state_from_jax_params(qparams: Mapping,
+                                    cfg: OmniBioTAConfig) -> Dict[str, object]:
+    """Quantized JAX tree -> the state_dict of a port model made by
+    ops.quant.quantize_for_inference, with the same integers: every
+    projection `<linear>.weight` is replaced by `<linear>.values` (fan_out,
+    fan_in) int8 and `<linear>.scale` (fan_out,) fp32. The q and k channels
+    of wqkv / bqkv arrive already permuted and stay so."""
+    values, scale = _quantized_pair(qparams["lm_head"])
+    out = {
+        "transformer.wte.weight": qparams["wte"],
+        "transformer.ln_f.weight": qparams["ln_f"]["scale"],
+        "lm_head.values": values.T,
+        "lm_head.scale": scale,
+    }
+    if cfg.bias:
+        out["transformer.ln_f.bias"] = qparams["ln_f"]["bias"]
+    blocks = qparams["blocks"]
+    for (sub, leaf), name, is_weight in _block_leaves(cfg):
+        if is_weight:
+            values, scale = _quantized_pair(blocks[sub][leaf])
+            stem = name[:-len(".weight")]
+            for i in range(cfg.n_layer):
+                out[f"transformer.h.{i}.{stem}.values"] = values[i].T
+                out[f"transformer.h.{i}.{stem}.scale"] = scale[i]
+        else:
+            for i in range(cfg.n_layer):
+                out[f"transformer.h.{i}.{name}"] = blocks[sub][leaf][i]
+    return out
+
+
+def jax_qparams_from_quantized_state(state: Mapping,
+                                     cfg: OmniBioTAConfig) -> Dict:
+    """The state_dict of a quantized port model -> the quantized JAX tree,
+    each projection leaf a dict {"values": (fan_in, fan_out) int8, "scale":
+    (fan_out,) fp32} (stacked on the layer axis inside `blocks`), the fields
+    of the JAX package's QuantizedWeight."""
+    params = {
+        "wte": state["transformer.wte.weight"],
+        "ln_f": {"scale": state["transformer.ln_f.weight"]},
+        "lm_head": {"values": state["lm_head.values"].T,
+                    "scale": state["lm_head.scale"]},
+        "blocks": {},
+    }
+    if cfg.bias:
+        params["ln_f"]["bias"] = state["transformer.ln_f.bias"]
+    for (sub, leaf), name, is_weight in _block_leaves(cfg):
+        layer = lambda key: [state[f"transformer.h.{i}.{key}"]
+                             for i in range(cfg.n_layer)]
+        if is_weight:
+            stem = name[:-len(".weight")]
+            value = {"values": _stack([x.T for x in layer(f"{stem}.values")]),
+                     "scale": _stack(layer(f"{stem}.scale"))}
+        else:
+            value = _stack(layer(name))
+        params["blocks"].setdefault(sub, {})[leaf] = value
+    return params
 
 
 def _stack(xs):

@@ -144,9 +144,96 @@ def test_unported_options_raise(served):
     model, _ = load_model_checkpoint(ckpt, device="cpu")
     sp = SentencePieceProcessor(tok)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_api.Encoder(model, sp, quantize=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_api.Encoder(model, sp, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port_api.Encoder(model, sp, quantize=True, mesh=object(), device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# int8 serving
+# ---------------------------------------------------------------------------
+
+def _row_cosine(a, b):
+    a, b = a.astype(np.float64), b.astype(np.float64)
+    return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+
+
+@pytest.mark.parametrize("mask_padding", [True, False], ids=["masked", "leaky"])
+@pytest.mark.parametrize("quantize_attention", [False, True],
+                         ids=["int8_weights", "int8_weights_and_attention"])
+def test_quantized_encoder_matches_jax(served, encoders, quantize_attention,
+                                       mask_padding):
+    """Encoder(quantize=True[, quantize_attention=True]) in both packages
+    from one checkpoint: each quantizes the same fp32 weights itself (the
+    same integers, tests/test_torch_quant.py). A last-bit difference in an
+    fp32 pass can flip the rounding of an activation or of a p8 by one step
+    of 1/127, so embeddings of |e| ~ 1 are held to 2e-2 absolute and a row
+    cosine of 0.9999; vs the unquantized encoder the JAX tests' bar,
+    cosine > 0.99."""
+    ckpt, tok = served
+    kw = dict(quantize=True, quantize_attention=quantize_attention)
+    params, cfg = obt.training.checkpoint.load_model_checkpoint(ckpt)
+    jenc = JaxEncoder(params, cfg, JaxSP(tok), **kw)
+    model, _ = load_model_checkpoint(ckpt, device="cpu")
+    penc = port_api.Encoder(model, SentencePieceProcessor(tok), device="cpu", **kw)
+    assert penc.cfg.qkv_prepermuted and penc.cfg.attn_int8 == quantize_attention
+    assert penc.model.cfg.attn_int8 == quantize_attention
+    assert not model.cfg.qkv_prepermuted            # the caller's model is kept
+    ekw = dict(method="mean", batch_size=2, mask_padding=mask_padding)
+    want = jenc.encode_sequences(SEQS, **ekw)
+    got = penc.encode_sequences(SEQS, **ekw)
+    assert got.shape == want.shape == (len(SEQS), 128) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-2)
+    assert _row_cosine(got, want).min() > 0.9999
+    ref = encoders[1].encode_sequences(SEQS, **ekw)
+    assert _row_cosine(got, ref).min() > 0.99
+    assert np.abs(got - ref).max() > 0
+
+
+def test_quantize_attention_needs_quantize(served):
+    ckpt, tok = served
+    model, _ = load_model_checkpoint(ckpt, device="cpu")
+    with pytest.raises(ValueError, match="requires quantize=True"):
+        port_api.Encoder(model, SentencePieceProcessor(tok),
+                         quantize_attention=True, device="cpu")
+
+
+def test_from_checkpoint_quantize_leaves_attention_in_bf16(served):
+    """from_checkpoint(quantize=True), what the CLI's --quantize gives: int8
+    weights, attn_int8 off, as in the JAX package."""
+    ckpt, tok = served
+    penc = port_api.Encoder.from_checkpoint(ckpt, tokenizer_path=tok,
+                                            quantize=True, device="cpu")
+    jenc = JaxEncoder.from_checkpoint(ckpt, tokenizer_path=tok, quantize=True)
+    assert penc.cfg.qkv_prepermuted and not penc.cfg.attn_int8
+    assert jenc.cfg.qkv_prepermuted and not jenc.cfg.attn_int8
+    from omnibiote_tpu_torch.ops.quant import QuantizedLinear
+    assert isinstance(penc.model.lm_head, QuantizedLinear)
+    assert isinstance(penc.model.transformer.h[0].mlp.c_fc, QuantizedLinear)
+    assert penc.model.transformer.h[1].attn.c_attn.values.dtype == torch.int8
+
+
+def test_fasta_cli_quantize_matches_jax(served, tmp_path):
+    ckpt, tok = served
+    fasta = tmp_path / "in.fa"
+    fasta.write_text("".join(f">r{i}\n{s}\n" for i, s in enumerate(SEQS)))
+    outs = {}
+    for name, main, extra in (("jax", jax_main, []),
+                              ("port", port_api.main, ["--device", "cpu"]),
+                              ("port_fp", port_api.main, ["--device", "cpu"])):
+        out = str(tmp_path / f"{name}.npz")
+        flags = [] if name == "port_fp" else ["--quantize"]
+        assert main(["--checkpoint", ckpt, "--fasta", str(fasta), "--out", out,
+                     "--tokenizer-path", tok, "--batch-size", "2", *flags,
+                     *extra]) == 0
+        outs[name] = np.load(out)
+    np.testing.assert_array_equal(outs["port"]["ids"], outs["jax"]["ids"])
+    # the same bar as test_quantized_encoder_matches_jax
+    np.testing.assert_allclose(outs["port"]["embeddings"],
+                               outs["jax"]["embeddings"], rtol=0, atol=2e-2)
+    assert _row_cosine(outs["port"]["embeddings"],
+                       outs["port_fp"]["embeddings"]).min() > 0.99
+    assert np.abs(outs["port"]["embeddings"] - outs["port_fp"]["embeddings"]).max() > 0
 
 
 # ---------------------------------------------------------------------------

@@ -234,8 +234,7 @@ def test_fit_block_matches_jax(T, want):
     assert port_attention._fit_block(T, 512) == want
 
 
-@pytest.mark.parametrize("kw", [dict(impl="ring"), dict(int8=True),
-                                dict(tp_mesh=object())])
+@pytest.mark.parametrize("kw", [dict(impl="ring"), dict(tp_mesh=object())])
 def test_unported_modes_raise(kw):
     q = torch.zeros(1, 128, 1, 128)
     with pytest.raises(NotImplementedError):

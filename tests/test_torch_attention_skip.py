@@ -358,7 +358,8 @@ def test_split_wrappers_route_cpu_tensors_to_the_plain_versions(monkeypatch):
     monkeypatch.setattr(_kernels, "build_all", refuse)
     before = dict(_kernels.LAUNCHES)
     assert set(before) == {"mh_flash_fwd", "mh_flash_bwd", "mh_flash_bwd_mk",
-                           "mh_flash_bwd_dkv", "mh_flash_bwd_dq"}
+                           "mh_flash_bwd_dkv", "mh_flash_bwd_dq", "int8_flash_fwd",
+                           "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"}
     q, k, v, do, seg = _inputs("packed", seed=13)
     t = [torch.from_numpy(x) for x in (q, k, v, do)]
     seg_t, rope = torch.from_numpy(seg), rope_tables(D, T)
