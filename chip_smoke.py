@@ -72,7 +72,14 @@ toolkit and g++. It
      0.1, packed and dense, bf16 and fp32; at B=16, T=1024 each of its
      three kernels timed beside its plain version, its bound and (the
      forward) SDPA, and its launch counts;
- 11. prints the card's name and power limit, one JSON line of kernel
+ 11. roofline probes (`omnibiote_tpu_torch.probes`): the four probe
+     kernels (#1's two products alone, the dkv product mix, k
+     pre-transposed or not, the score product summed over heads) against
+     their plain versions at H=2, T 256 and 512 and at the probes' shape
+     B=8, T=1024, H=8, with 64- and 128-row CTAs; each timed beside its
+     plain version, its bound and a PyTorch library call; then both probe
+     tables, whose launches are the rows' counts;
+ 12. prints the card's name and power limit, one JSON line of kernel
      numbers, and last the line {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script then exits non-zero without the
@@ -157,7 +164,8 @@ def build():
         entry = spill = None
         for line in log.splitlines():
             m = re.search(r"Compiling entry function '_ZN[\w]*?\d+(mh_\w+?|rope_rows_\w+?|"
-                          r"dq_epilogue)ILi(\d+)E((?:Lb[01]E)*)", line)
+                          r"dq_epilogue|dots_bf16|dots_n_bf16|scores_bf16)ILi(\d+)E"
+                          r"((?:Lb[01]E)*)", line)
             m8 = re.search(r"Compiling entry function '_ZN[\w]*?\d+(int8_fwd|quant_rows|"
                            r"v_absmax|quant_v)I(f|13__nv_bfloat16)E", line)
             if m:
@@ -169,7 +177,7 @@ def build():
                 spill = re.search(r"(\d+) bytes spill stores", line).group(1)
             elif "registers" in line and entry is not None:
                 regs = re.search(r"Used (\d+) registers", line).group(1)
-                if entry.startswith(("mh_", "int8_fwd")):
+                if entry.startswith(("mh_", "int8_fwd", "dots", "scores")):
                     print(f"  {name}: {entry}: {regs} registers, {spill} bytes of spill stores")
                 entry = None
 
@@ -1813,6 +1821,159 @@ def per_head_phase():
     return rows, launches
 
 
+# ---------------------------------------------------------------------------
+# 11. roofline probes
+# ---------------------------------------------------------------------------
+
+# Probe kernels vs their plain versions: the same bf16 rounding of S and o
+# after fp32 sums in another order, which can move an element by a bf16 ulp;
+# held as the forward, relative to max|o|.
+PROBE_TOL = TOL["bfloat16"]["o"][0]
+
+
+def _probe_calls(q, k, v, kx, bq, bkv, cta):
+    """(name, kernel call, plain call) of the four probes at one shape and
+    block pair, as their entry points run them; kx is k pre-transposed."""
+    from omnibiote_tpu_torch.probes import roofline as r1, roofline2 as r2
+    B, T, H, D = q.shape
+    calls = [("roofline_dots", lambda: r1.dots_only(q, k, v, bq, bkv, cta_q=cta),
+              lambda: r1.dots_only_plain(q, k, v, bq, bkv))]
+    for nd in (3, 4):
+        if bq <= bkv and (nd == 3 or bq == bkv) and bq % cta == 0:
+            calls.append(("roofline_dots_n",
+                          lambda nd=nd: r1.dots_n(q, k, v, bq, bkv, nd, cta_q=cta),
+                          lambda nd=nd: r1.dots_n_plain(q, k, v, bq, bkv, nd)))
+    for kt in (False, True):
+        kk = kx if kt else k
+        calls.append(("roofline2_dots",
+                      lambda kt=kt, kk=kk: r2.dots(q, kk, v, bq, bkv, kt, cta_q=cta),
+                      lambda kt=kt, kk=kk: r2.dots_plain(q, kk, v, bq, bkv, kt)))
+        if bkv >= H * D:
+            calls.append(("roofline2_scores",
+                          lambda kt=kt, kk=kk: r2.scores(q, kk, bq, bkv, kt, cta_q=cta),
+                          lambda kt=kt, kk=kk: r2.scores_plain(q, kk, bq, bkv, kt)))
+    return calls
+
+
+def probe_phase():
+    """The four probe kernels against their plain versions at the CPU
+    test's shapes and at the probes' own, both CTA heights, kt 0 and 1;
+    kernel, plain and library times and bounds at the probes' shape; both
+    probe tables (`probes.roofline.main`, `roofline2.main`), whose launches
+    are the rows' counts. Returns the four `kernels` rows."""
+    import numpy as np
+    import torch
+    from omnibiote_tpu_torch.ops import _kernels
+    from omnibiote_tpu_torch.ops.flash_attention import flash_attention
+    from omnibiote_tpu_torch.probes import roofline as r1, roofline2 as r2
+
+    def hold(name, got, want, tag):
+        err = _abs_err(got, want)
+        lim = PROBE_TOL * want.float().abs().max().item()
+        check(torch.isfinite(got.float()).all() and err <= lim,
+              f"{name} disagrees with its plain version at {tag}: max|do| "
+              f"{err:.3e} > {lim:.3e}")
+        return err
+
+    # the CPU test's shapes (H = 2, values x 0.1, separate q, k, v)
+    n = 0
+    for B, T, pairs in ((1, 512, ((128, 256), (256, 256), (256, 128))),
+                        (2, 256, ((128, 128), (128, 256)))):
+        rng = np.random.default_rng(T + B)
+        q, k, v = (r1.normal_bf16(rng, (B, T, 2, 128), "cuda") * 0.1 for _ in range(3))
+        kx = r2.transposed_k(k)
+        for bq, bkv in pairs:
+            for cta in r1.CTA_ROWS:
+                for name, kern, plain in _probe_calls(q, k, v, kx, bq, bkv, cta):
+                    hold(name, kern(), plain(), f"B={B} T={T} bq={bq} bkv={bkv} cta={cta}")
+                    n += 1
+    torch.cuda.synchronize()
+    print(f"probe kernels vs plain: {n} small cases (H=2, T 256 and 512) within "
+          f"{PROBE_TOL} of max|o|")
+
+    # the probes' shape and input (B=8, T=1024, H=8, unit normals, seed 0),
+    # q passed as q, k and v as both tables do
+    B, T, H, D = (r1.PROBE_SHAPE[c] for c in "BTHD")
+    HD = H * D
+    q = r1.normal_bf16(np.random.default_rng(0), (B, T, H, D), "cuda")
+    kx = r2.transposed_k(q)
+    err, omax = {}, {}
+    for bq, bkv in ((512, 1024), (512, 512)):
+        for cta in r1.CTA_ROWS:
+            for name, kern, plain in _probe_calls(q, q, q, kx, bq, bkv, cta):
+                want = plain()
+                e = hold(name, kern(), want, f"the probes' shape bq={bq} bkv={bkv} cta={cta}")
+                err[name] = max(err.get(name, 0.0), e)
+                omax[name] = max(omax.get(name, 0.0), want.float().abs().max().item())
+    torch.cuda.synchronize()
+
+    qb = q.permute(0, 2, 1, 3).reshape(B * H, T, D)
+    kb = kx.view(B * H, D, T)
+    x = q.view(B, T, HD)
+    nbytes = 4 * B * T * HD * 2                 # q, k, v read, o written
+    fwd = 4.0 * B * H * T * T * D
+    timed = {   # name: (the table's line, plain, library, flops, bytes)
+        "roofline_dots": (
+            "dots-only fwd bq=512 bkv=1024 cta=64",
+            lambda: r1.dots_only_plain(q, q, q, 512, 1024),
+            lambda: torch.matmul(torch.matmul(qb, qb.transpose(1, 2)), qb), fwd, nbytes),
+        "roofline_dots_n": (
+            "dots-only 4-dot bq=512 bkv=512 cta=64",
+            lambda: r1.dots_n_plain(q, q, q, 512, 512, 4), None, 2 * fwd, nbytes),
+        "roofline2_dots": (
+            "dots kt=1 bq=512 bkv=512 cta=64",
+            lambda: r2.dots_plain(q, kx, q, 512, 512, True),
+            lambda: torch.matmul(torch.matmul(qb, kb), qb), fwd, nbytes),
+        "roofline2_scores": (
+            "scores-only kt=0 bq=512 bkv=1024 cta=64",
+            lambda: r2.scores_plain(q, q, 512, 1024, False),
+            lambda: torch.matmul(x, x[:, T - 1024:T - 1024 + HD].transpose(1, 2)),
+            2.0 * B * T * HD * HD, (2 * B * T * HD + B * HD * HD) * 2),
+    }
+    plain_ms = {n_: cuda_ms(t[1], 3, warmup=1) for n_, t in timed.items()}
+    library_ms = {n_: (cuda_ms(t[2], 20) if t[2] else None) for n_, t in timed.items()}
+    qh = q.transpose(1, 2).contiguous()
+    sdpa_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qh, qh, qh, scale=8.0 / 1024), 20)
+    del qb, kb, x, qh
+
+    # the probes' entry points: both tables, every count at 0 just before
+    _kernels.reset_launches()
+    t0 = time.time()
+    table = {**r1.main(), **r2.main()}
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+    print(f"probe tables: {time.time() - t0:.1f} s, launches {launches}")
+    full = table["full      fwd dense (no segment ids)"]
+    dots = table["dots-only fwd bq=512 bkv=1024 cta=64"]
+    print(f"#1 dense at B={B} T={T} (no dropout, no RoPE, 64-row CTA) {full:.4f} ms = "
+          f"products #10 {dots:.4f} ms ({dots / full:.3f}) + the rest "
+          f"{full - dots:.4f} ms; SDPA {sdpa_ms:.4f} ms; kt=1/kt=0 "
+          f"{table['dots kt=1 bq=512 bkv=512 cta=64'] / table['dots kt=0 bq=512 bkv=512 cta=64']:.3f}; "
+          f"128-/64-row CTA: #10 {table['dots-only fwd bq=512 bkv=1024 cta=128'] / dots:.3f}, "
+          f"#11 {table['dots-only 4-dot bq=512 bkv=512 cta=128'] / table['dots-only 4-dot bq=512 bkv=512 cta=64']:.3f}, "
+          f"#13 {table['scores-only kt=0 bq=512 bkv=1024 cta=128'] / table['scores-only kt=0 bq=512 bkv=1024 cta=64']:.3f}")
+
+    rows = []
+    for name, line in (("roofline_dots", 54), ("roofline_dots_n", 163),
+                       ("roofline2_dots", 68), ("roofline2_scores", 138)):
+        label, _, _, flops, nb = timed[name]
+        bound_ms, bound_by = _bound(flops, nb)
+        script = "roofline2" if name.startswith("roofline2") else "roofline"
+        print(f"  {name}: {table[label]:.4f} ms ({label}), plain {plain_ms[name]:.4f} ms, "
+              f"library {library_ms[name] if library_ms[name] is None else f'{library_ms[name]:.4f}'} "
+              f"ms, bound {bound_ms:.4f} ms ({bound_by}), max|do| vs plain {err[name]:.3e} "
+              f"(max|o| {omax[name]:.3e})")
+        rows.append({"name": name, "route": "cuda",
+                     "source": "omnibiote_tpu_torch/ops/csrc/roofline_probes.cu",
+                     "replaces": f"tools/probes/{script}.py:{line}",
+                     "launches": launches[name], "max_abs_err": err[name],
+                     "ms": table[label], "plain_ms": plain_ms[name],
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": library_ms[name]})
+    return rows
+
+
 def setup():
     """Refuse to run without a card or without the package, and fix the
     fp32 matmul precision the references assume."""
@@ -1842,6 +2003,7 @@ def main():
     int8_gemm_phase()
     head_rows, head_launches = per_head_phase()
     print(f"per-head main path launches: {head_launches}")
+    probe_rows = probe_phase()
     # the forward's error: the worst over its three main-path shapes
     fwd_row["max_abs_err"] = max(fwd_row["max_abs_err"], serving_err, long_err)
     with tempfile.TemporaryDirectory() as workdir:
@@ -1863,10 +2025,10 @@ def main():
         source = long_cli if row["name"] == "mh_flash_bwd_mk" else long_split
         row["launches"] = source[row["name"]]
     int8_row["launches"] = int8_serving["int8_flash_fwd"]
-    rows = [fwd_row, bwd_row, *long_rows, int8_row, *head_rows]
+    rows = [fwd_row, bwd_row, *long_rows, int8_row, *head_rows, *probe_rows]
     check(min(serving["mh_flash_fwd"], train["mh_flash_fwd"], long_cli["mh_flash_fwd"]) > 0,
           "a main path never launched mh_flash_fwd")
-    check(len(rows) == 9 and all(row["launches"] > 0 for row in rows),
+    check(len(rows) == 13 and all(row["launches"] > 0 for row in rows),
           f"a kernel was never launched on its main path: "
           f"{[(row['name'], row['launches']) for row in rows]}")
     print(f"mh_flash_fwd at the long shape (mini 8, T 2048, skipping): {fwd_ms_2048:.4f} ms")

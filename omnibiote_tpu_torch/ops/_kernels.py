@@ -22,12 +22,16 @@ BUILD_DIR = os.path.join(_HERE, "build")
 # "mh_flash_bwd_mk" for the multi-kv case above it. The forward and the
 # split pair's sources also serve flash_attention(multi_head=False), without
 # RoPE or skip bounds, counted as "flash_fwd", "flash_bwd_dkv" and
-# "flash_bwd_dq".
+# "flash_bwd_dq". The roofline probes' source serves four: "roofline_dots"
+# and "roofline2_dots" (one kernel, the probes of roofline.py and
+# roofline2.py), "roofline_dots_n" and "roofline2_scores".
 LAUNCHES: Dict[str, int] = {"mh_flash_fwd": 0, "mh_flash_bwd": 0,
                             "mh_flash_bwd_mk": 0, "mh_flash_bwd_dkv": 0,
                             "mh_flash_bwd_dq": 0, "int8_flash_fwd": 0,
                             "flash_fwd": 0, "flash_bwd_dkv": 0,
-                            "flash_bwd_dq": 0}
+                            "flash_bwd_dq": 0, "roofline_dots": 0,
+                            "roofline_dots_n": 0, "roofline2_dots": 0,
+                            "roofline2_scores": 0}
 
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
@@ -101,6 +105,25 @@ _SIGNATURES = {
             _c.c_int, _c.c_int, _c.c_int, _c.c_int,    # B, T, H, D
             _c.c_float, _c.c_int, _c.c_void_p]),       # scale_log2, dtype, stream
         "obt_cuda_error_string_int8": (_c.c_char_p, [_c.c_int]),
+    },
+    "roofline_probes": {
+        "obt_roofline_dots": (_c.c_int, [
+            _c.c_void_p, _c.c_void_p, _c.c_void_p,     # q, k, v
+            _c.c_void_p,                               # o
+            _c.c_int, _c.c_int, _c.c_int, _c.c_int,    # B, T, H, D
+            _c.c_int, _c.c_int, _c.c_void_p]),         # kt, cta_q, stream
+        "obt_roofline_dots_n": (_c.c_int, [
+            _c.c_void_p, _c.c_void_p, _c.c_void_p,     # q, k, v
+            _c.c_void_p,                               # o
+            _c.c_int, _c.c_int, _c.c_int, _c.c_int,    # B, T, H, D
+            _c.c_int, _c.c_int, _c.c_int,              # block_q, block_kv, n_dots
+            _c.c_int, _c.c_void_p]),                   # cta_q, stream
+        "obt_roofline_scores": (_c.c_int, [
+            _c.c_void_p, _c.c_void_p, _c.c_void_p,     # q, k, o
+            _c.c_int, _c.c_int, _c.c_int, _c.c_int,    # B, T, H, D
+            _c.c_int, _c.c_int, _c.c_int,              # block_kv, kt, cta_q
+            _c.c_void_p]),                             # stream
+        "obt_cuda_error_string_roofline": (_c.c_char_p, [_c.c_int]),
     },
 }
 
