@@ -8,11 +8,13 @@ toolkit and g++. It
 
   1. builds the port's CUDA kernels (nvcc, one process per source, all at
      once) and its tokenizer (g++) from the checkout's sources, printing
-     each kernel's registers and spills;
+     each kernel's registers, spills and stack frame, and the dynamic
+     shared memory of the bf16 forward's CTA;
   2. kernel phase: holds each kernel against its plain PyTorch version on
      the card, at the main paths' shapes, in bf16 and fp32, over packed,
      padded and dense segment layouts: the forward without dropout (the
-     serving path) and with dropout 0.1, the backward at dropout 0 and
+     serving path) and with dropout 0.1 (and at head dim 64, packed, with
+     and without dropout), the backward at dropout 0 and
      0.1 (and once at T=2048); and times each kernel, its plain version
      and one PyTorch library call that computes the same function, and
      holds kernel against plain once more at the very shape it timed;
@@ -73,12 +75,14 @@ toolkit and g++. It
      three kernels timed beside its plain version, its bound and (the
      forward) SDPA, and its launch counts;
  11. roofline probes (`omnibiote_tpu_torch.probes`): the four probe
-     kernels (#1's two products alone, the dkv product mix, k
-     pre-transposed or not, the score product summed over heads) against
-     their plain versions at H=2, T 256 and 512 and at the probes' shape
-     B=8, T=1024, H=8, with 64- and 128-row CTAs; each timed beside its
-     plain version, its bound and a PyTorch library call; then both probe
-     tables, whose launches are the rows' counts;
+     kernels (#1's two products alone on the mma.sync pipeline, the dkv
+     product mix, k pre-transposed or not, the score product summed over
+     heads) and #1's own kernel with its products alone (`fwd_products`)
+     against their plain versions at H=2, T 256, 512 and 1024 and at the
+     probes' shape B=8, T=1024, H=8, with 64- and 128-row CTAs; each timed
+     beside its plain version, its bound and a PyTorch library call; then
+     both probe tables, whose launches are the rows' counts, and #1's
+     split into its products and the rest;
  12. prints the card's name and power limit, one JSON line of kernel
      numbers, and last the line {"ok": true, "device": {...}}.
 
@@ -161,7 +165,7 @@ def build():
           f"{', '.join(logs) or 'up to date'}; g++ tokenizer)")
     # one line a kernel instance: template arguments, registers, spills
     for name, log in logs.items():
-        entry = spill = None
+        entry = spill = stack = None
         for line in log.splitlines():
             m = re.search(r"Compiling entry function '_ZN[\w]*?\d+(mh_\w+?|rope_rows_\w+?|"
                           r"dq_epilogue|dots_bf16|dots_n_bf16|scores_bf16)ILi(\d+)E"
@@ -175,11 +179,20 @@ def build():
                 entry = f"{m8.group(1)}<{'float' if m8.group(2) == 'f' else 'bf16'}>"
             elif "spill stores" in line:
                 spill = re.search(r"(\d+) bytes spill stores", line).group(1)
+                stack = re.search(r"(\d+) bytes stack frame", line).group(1)
+            elif "warning" in line.lower():
+                print(f"  {name}: {line.strip()[:240]}")
             elif "registers" in line and entry is not None:
                 regs = re.search(r"Used (\d+) registers", line).group(1)
                 if entry.startswith(("mh_", "int8_fwd", "dots", "scores")):
-                    print(f"  {name}: {entry}: {regs} registers, {spill} bytes of spill stores")
+                    print(f"  {name}: {entry}: {regs} registers, {spill} bytes of spill "
+                          f"stores, {stack} bytes of stack frame")
                 entry = None
+    # the bf16 forward's CTA: 384 threads, setmaxnreg 24 (producer) / 240
+    # (consumers), dynamic shared memory as its launch asks
+    lib = _kernels.load_library("mh_flash_fwd")
+    print("  mh_flash_fwd: mh_fwd_bf16 dynamic shared memory a CTA: " + ", ".join(
+        f"D={d} {lib.obt_mh_flash_fwd_smem_bytes(d)} bytes" for d in (64, 128)))
 
 
 # ---------------------------------------------------------------------------
@@ -247,15 +260,18 @@ def kernel_phase():
 
     H, D = 8, 128
     scale = 1.0 / math.sqrt(D)
-    cases = [(4, 1024, dt, lay) for dt in ("bfloat16", "float32")
+    cases = [(4, 1024, dt, lay, D, 0.0) for dt in ("bfloat16", "float32")
              for lay in ("packed", "padded", "dense")]
-    cases += [(32, 384, "bfloat16", "padded"), (32, 1024, "bfloat16", "dense")]
-    for i, (B, T, dtype, layout) in enumerate(cases):
+    cases += [(32, 384, "bfloat16", "padded", D, 0.0), (32, 1024, "bfloat16", "dense", D, 0.0)]
+    # head dim 64: no main path has it, but the bf16 kernel is built for it
+    cases += [(4, 1024, "bfloat16", "packed", 64, rate) for rate in (0.0, TRAIN_DROPOUT)]
+    for i, (B, T, dtype, layout, hd, rate) in enumerate(cases):
         tdt = getattr(torch, dtype)
-        q, k, v, seg, rope = _attn_inputs(B, T, H, D, tdt, layout, seed=i)
-        o, lse = mh_flash_forward(q, k, v, seg, rope, scale=scale)
+        q, k, v, seg, rope = _attn_inputs(B, T, H, hd, tdt, layout, seed=i)
+        kw = dict(scale=1.0 / math.sqrt(hd), dropout_rate=rate, seed=0x51ED + i)
+        o, lse = mh_flash_forward(q, k, v, seg, rope, **kw)
         torch.cuda.synchronize()
-        po, plse = mh_flash_forward_plain(q, k, v, seg, rope, scale=scale,
+        po, plse = mh_flash_forward_plain(q, k, v, seg, rope, **kw,
                                           block_kv=KERNEL_KV_TILE[tdt])
         check(torch.isfinite(o.float()).all() and torch.isfinite(lse).all(),
               f"non-finite kernel output at {(B, T, dtype, layout)}")
@@ -265,11 +281,11 @@ def kernel_phase():
         ok_o = torch.allclose(o.float(), po.float(), rtol=rt, atol=at)
         rl, al = TOL[dtype]["lse"]
         ok_l = torch.allclose(lse, plse, rtol=rl, atol=al)
-        print(f"kernel vs plain B={B} T={T} {dtype:8s} {layout:6s}: "
+        print(f"kernel vs plain B={B} T={T} D={hd} {dtype:8s} {layout:6s} dropout {rate}: "
               f"max|do| {err_o:.3e} (rtol {rt}, atol {at}) "
               f"max|dlse2| {err_l:.3e} (rtol {rl}, atol {al})")
         check(ok_o and ok_l, f"kernel disagrees with its plain version at "
-              f"{(B, T, dtype, layout)}")
+              f"{(B, T, hd, dtype, layout, rate)}")
         del q, k, v, o, lse, po, plse
 
     # timing at the main path's shape: encode at B=32, T=1024, bf16, no mask
@@ -298,9 +314,17 @@ def kernel_phase():
     mask = (pseg[:, :, None] == pseg[:, None, :])[:, None]
     library_pad = cuda_ms(lambda: F.scaled_dot_product_attention(
         qh, kh, vh, attn_mask=mask, scale=scale), 20)
+    # host time of one call (wrapper, tensor maps, launch), the calls
+    # enqueued back to back well ahead of the card
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        mh_flash_forward(q, k, v, None, rope, scale=scale)
+    host_us = (time.perf_counter() - t0) / 20 * 1e6
+    torch.cuda.synchronize()
     tflops = 4.0 * B * T * T * H * D / (ms * 1e-3) / 1e12
     print(f"mh_flash_fwd B={B} T={T} H={H} D={D} bf16 dense: kernel {ms:.4f} ms "
-          f"({tflops:.1f} TFLOP/s), plain {plain_ms:.4f} ms, SDPA "
+          f"({tflops:.1f} TFLOP/s; host {host_us:.1f} us a call), plain {plain_ms:.4f} ms, SDPA "
           f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); padded "
           f"(row lengths uniform in [T/8, T)): kernel {ms_pad_skip:.4f} ms with "
           f"skipping as the Encoder runs it, {ms_pad:.4f} ms without, SDPA with "
@@ -955,12 +979,16 @@ def longctx_kernel_phase():
         do = torch.randn(B, T, H, D, generator=gen, device="cuda").to(tdt)
         kw = dict(scale=scale, dropout_rate=rate, seed=0xD1B54A32D192ED03 + i)
         tq, tkv = fa.KERNEL_TILES["fwd"][tdt]
+        dq_q, dq_kv = fa.KERNEL_TILES["dq"][tdt]
         bq, bkv = fa.KERNEL_TILES["bwd"][tdt]
         sb = None if seg is None else fa.SegmentBounds(seg)
-        kv_b = None if sb is None else sb.get(tq, tkv)          # per q tile
+        kv_b = None if sb is None else sb.get(tq, tkv)          # per forward q tile
+        dq_b = None if sb is None else sb.get(dq_q, dq_kv)      # per dq q tile
         q_b = None if sb is None else sb.get(bkv, bq)           # per kv tile
         n_kv = H * (B * (T // tq) * (T // tkv) if sb is None
                     else int((kv_b[1] - kv_b[0] + 1).sum()))
+        n_dq = H * (B * (T // dq_q) * (T // dq_kv) if sb is None
+                    else int((dq_b[1] - dq_b[0] + 1).sum()))
         n_q = H * (B * (T // bkv) * (T // bq) if sb is None
                    else int((q_b[1] - q_b[0] + 1).sum()))
 
@@ -1002,10 +1030,10 @@ def longctx_kernel_phase():
         check(torch.equal(dkv[0], dkv_all[0]) and torch.equal(dkv[1], dkv_all[1]),
               f"dkv kernel with bounds differs from the full walk at {tag}")
         dq = _walked(lambda c: fa.mh_flash_bwd_dq_kernel(
-            *args, tile_bounds=kv_b, tile_count=c, **kw), n_kv, f"dq {tag}")
+            *args, tile_bounds=dq_b, tile_count=c, **kw), n_dq, f"dq {tag}")
         check(torch.equal(dq, fa.mh_flash_bwd_dq_kernel(*args, **kw)),
               f"dq kernel with bounds differs from the full walk at {tag}")
-        check(torch.equal(dq, fa.mh_flash_bwd_dq_kernel(*args, tile_bounds=kv_b, **kw)),
+        check(torch.equal(dq, fa.mh_flash_bwd_dq_kernel(*args, tile_bounds=dq_b, **kw)),
               f"dq kernel: two launches give different bits at {tag}")
         torch.cuda.synchronize()
         check(all(torch.isfinite(g.float()).all() for g in (*mk, *dkv, dq)),
@@ -1013,8 +1041,9 @@ def longctx_kernel_phase():
         e_mk = [_rel_err(g, w) for g, w in zip(mk, want)]
         e_sp = [_rel_err(g, w) for g, w in zip((dq, *dkv), want)]
         e_fs = [_rel_err(g, w) for g, w in zip(mk, (dq, *dkv))]
-        print(f"long kernels {tag}: tiles walked fwd/dq {n_kv} of "
-              f"{H * B * (T // tq) * (T // tkv)}, bwd/dkv {n_q} of "
+        print(f"long kernels {tag}: tiles walked fwd {n_kv} of "
+              f"{H * B * (T // tq) * (T // tkv)}, dq {n_dq} of "
+              f"{H * B * (T // dq_q) * (T // dq_kv)}, bwd/dkv {n_q} of "
               f"{H * B * (T // bkv) * (T // bq)}; fwd max|do| {err_o:.3e} (rtol {rt}, "
               f"atol {at}); max|d|/max|g| vs plain (dq, dk, dv): fused "
               f"{e_mk[0]:.2e} {e_mk[1]:.2e} {e_mk[2]:.2e}, split {e_sp[0]:.2e} "
@@ -1082,8 +1111,9 @@ def longctx_kernel_phase():
         # the main path calls it (skipping on)
         shape = f"the long shape B={B} T={T}"
         got = {n: f(segment_skip=True, bounds=sb) for n, f in kernels.items()}
+        fq, fkv = fa.KERNEL_TILES["fwd"][torch.bfloat16]
         err_f = _hold_fwd(got["mh_flash_fwd"], fa.mh_flash_forward_plain(
-            q, k, v, seg, rope, block_q=64, block_kv=64, segment_skip=True,
+            q, k, v, seg, rope, block_q=fq, block_kv=fkv, segment_skip=True,
             bounds=sb, **kw), "bfloat16", shape)
         want = fa.mh_flash_backward_plain(*args, block_q=32, block_kv=64,
                                           segment_skip=True, bounds=sb, **kw)
@@ -1103,11 +1133,13 @@ def longctx_kernel_phase():
                   **{f"mh_flash_bwd_{n}": (_bwd_bound(B, T, H, D, pairs, kind),
                                            _bwd_bound(B, T, H, D, None, kind))
                      for n, kind in (("mk", "fused"), ("dkv", "dkv"), ("dq", "dq"))}}
-        kvb, qb = sb.get(64, 64), sb.get(64, 32)
+        kvb, qb = sb.get(fq, fkv), sb.get(64, 32)
         print(f"long shape B={B} T={T} H={H} D={D} bf16, {LONG_EOS} EOS a row, dropout "
               f"{TRAIN_DROPOUT}: visible share of (q, k) pairs {pairs / (B * T * T):.4f}, "
-              f"of 64x64 tiles {int((kvb[1] - kvb[0] + 1).sum()) / (B * (T // 64) ** 2):.4f}, "
-              f"of 64x32 tiles {int((qb[1] - qb[0] + 1).sum()) / (B * (T // 64) * (T // 32)):.4f}")
+              f"walked share of the forward's {fq}x{fkv} tiles "
+              f"{int((kvb[1] - kvb[0] + 1).sum()) / (B * (T // fq) * (T // fkv)):.4f}, "
+              f"of the backward's 64x32 tiles "
+              f"{int((qb[1] - qb[0] + 1).sum()) / (B * (T // 64) * (T // 32)):.4f}")
         for n in kernels:
             (b_vis, by), (b_all, _) = bounds[n]
             print(f"  {n}: {ms[n][0]:.4f} ms with skipping, {ms[n][1]:.4f} ms without; "
@@ -1887,8 +1919,16 @@ def probe_phase():
                 for name, kern, plain in _probe_calls(q, k, v, kx, bq, bkv, cta):
                     hold(name, kern(), plain(), f"B={B} T={T} bq={bq} bkv={bkv} cta={cta}")
                     n += 1
+    # #1's kernel with its products alone (the DOTS instance) on distinct
+    # q, k, v: a wrong wgmma descriptor or swizzle gives plausible numbers
+    for B, T in ((1, 512), (2, 256), (2, 1024)):
+        rng = np.random.default_rng(7 * T + B)
+        q, k, v = (r1.normal_bf16(rng, (B, T, 2, 128), "cuda") * 0.1 for _ in range(3))
+        hold("mh_flash_fwd_dots", r1.fwd_products(q, k, v), r1.dots_only_plain(q, k, v, 128, 128),
+             f"B={B} T={T}")
+        n += 1
     torch.cuda.synchronize()
-    print(f"probe kernels vs plain: {n} small cases (H=2, T 256 and 512) within "
+    print(f"probe kernels vs plain: {n} small cases (H=2, T 256, 512 and 1024) within "
           f"{PROBE_TOL} of max|o|")
 
     # the probes' shape and input (B=8, T=1024, H=8, unit normals, seed 0),
@@ -1905,6 +1945,8 @@ def probe_phase():
                 e = hold(name, kern(), want, f"the probes' shape bq={bq} bkv={bkv} cta={cta}")
                 err[name] = max(err.get(name, 0.0), e)
                 omax[name] = max(omax.get(name, 0.0), want.float().abs().max().item())
+    prod_err = hold("mh_flash_fwd_dots", r1.fwd_products(q, q, q),
+                    r1.dots_only_plain(q, q, q, 128, 128), "the probes' shape")
     torch.cuda.synchronize()
 
     qb = q.permute(0, 2, 1, 3).reshape(B * H, T, D)
@@ -1935,7 +1977,12 @@ def probe_phase():
     qh = q.transpose(1, 2).contiguous()
     sdpa_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qh, qh, qh, scale=8.0 / 1024), 20)
-    del qb, kb, x, qh
+    # the products at B=2, T=4096: as many CTAs, 32 kv tiles each instead
+    # of 8, so a CTA's fixed cost (q rows in, first tiles, o out) weighs a
+    # quarter
+    q4 = q.reshape(2, 4 * T, H, D)
+    prod_long_ms = cuda_ms(lambda: r1.fwd_products(q4, q4, q4), 20)
+    del qb, kb, x, qh, q4
 
     # the probes' entry points: both tables, every count at 0 just before
     _kernels.reset_launches()
@@ -1945,10 +1992,15 @@ def probe_phase():
     launches = dict(_kernels.LAUNCHES)
     print(f"probe tables: {time.time() - t0:.1f} s, launches {launches}")
     full = table["full      fwd dense (no segment ids)"]
+    prod = table["products  fwd #1's kernel (wgmma, 128-row tiles)"]
     dots = table["dots-only fwd bq=512 bkv=1024 cta=64"]
-    print(f"#1 dense at B={B} T={T} (no dropout, no RoPE, 64-row CTA) {full:.4f} ms = "
-          f"products #10 {dots:.4f} ms ({dots / full:.3f}) + the rest "
-          f"{full - dots:.4f} ms; SDPA {sdpa_ms:.4f} ms; kt=1/kt=0 "
+    print(f"#1 dense at B={B} T={T} (no dropout, no RoPE) {full:.4f} ms = its products "
+          f"alone (wgmma, TMA ring, its own CTA) {prod:.4f} ms ({prod / full:.3f}, "
+          f"{fwd / (prod * 1e-3) / 1e12:.1f} TFLOP/s) + softmax, scale and rescale "
+          f"{full - prod:.4f} ms; the mma.sync products #10 {dots:.4f} ms; products vs "
+          f"plain max|do| {prod_err:.3e}; the products at B=2 T={4 * T} {prod_long_ms:.4f} "
+          f"ms ({4 * fwd / (prod_long_ms * 1e-3) / 1e12:.1f} TFLOP/s, as many CTAs with 4 x "
+          f"the work each); SDPA {sdpa_ms:.4f} ms; kt=1/kt=0 "
           f"{table['dots kt=1 bq=512 bkv=512 cta=64'] / table['dots kt=0 bq=512 bkv=512 cta=64']:.3f}; "
           f"128-/64-row CTA: #10 {table['dots-only fwd bq=512 bkv=1024 cta=128'] / dots:.3f}, "
           f"#11 {table['dots-only 4-dot bq=512 bkv=512 cta=128'] / table['dots-only 4-dot bq=512 bkv=512 cta=64']:.3f}, "

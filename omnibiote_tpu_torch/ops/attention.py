@@ -1,14 +1,16 @@
 """Attention dispatch: the multi-head flash kernel, the int8 serving
 kernel or the dense reference.
 
-Routes exactly as `omnibiote_tpu/ops/attention.py` does on one device:
-bidirectional attention at T % 128 == 0 with head_dim % 128 == 0 (or one
-head) goes to `flash_attention` (the CUDA kernels, forward and backward, on
-a CUDA tensor; their plain versions on a CPU tensor); with int8=True, no
-dropout and head_dim % 128 == 0 it goes to `int8_flash_attention`
-(ops/int8_attention.py) instead; everything else (causal, ragged T, narrow
-heads) goes to `xla_attention`, the dense twin of the JAX package's
-reference path.
+Routes as `omnibiote_tpu/ops/attention.py` does on one device
+(`attention_path`): bidirectional attention at T % 128 == 0 with head_dim %
+128 == 0 (or one head) goes to `flash_attention` (the CUDA kernels, forward
+and backward, on a CUDA tensor; their plain versions on a CPU tensor); with
+int8=True, no dropout and head_dim % 128 == 0 it goes to
+`int8_flash_attention` (ops/int8_attention.py) instead; everything else
+(causal, ragged T, narrow heads) goes to `xla_attention`, the dense twin of
+the JAX package's reference path. On a CUDA tensor a call that this
+routing sends to a kernel not built for its head dim or dtype raises
+NotImplementedError: it does not run densely in the kernel's place.
 
 Dropout: `dropout_seed` is the call's 64-bit seed (the counterpart of the
 JAX package's `dropout_rng` key). The flash path hands it to the kernels'
@@ -22,7 +24,9 @@ from typing import Optional
 
 import torch
 
-from .flash_attention import flash_attention
+from .flash_attention import KERNEL_DTYPES, KERNEL_HEAD_DIMS, flash_attention
+from .int8_attention import KERNEL_DTYPES as INT8_DTYPES
+from .int8_attention import KERNEL_HEAD_DIM as INT8_HEAD_DIM
 from .int8_attention import int8_flash_attention
 from .segments import NEG_INF
 
@@ -63,6 +67,28 @@ def _fit_block(T: int, want: int) -> int:
     return b
 
 
+def attention_path(device_type: str, dtype: torch.dtype, T: int, H: int,
+                   D: int, int8: bool, *, impl: str = "flash",
+                   causal: bool = False, dropout_rate: float = 0.0) -> str:
+    """The path of one attention call: 'int8', 'flash' or 'xla', as the JAX
+    dispatch routes it. On 'cuda' a call routed to a kernel that is not
+    built for (D, dtype) raises NotImplementedError; on the CPU the plain
+    versions take any D and dtype."""
+    if impl != "flash" or causal or T % 128:
+        return "xla"
+    if int8 and dropout_rate == 0.0 and D % 128 == 0:
+        path, built = "int8", D == INT8_HEAD_DIM and dtype in INT8_DTYPES
+    elif D % 128 == 0 or H == 1:
+        path, built = "flash", D in KERNEL_HEAD_DIMS and dtype in KERNEL_DTYPES
+    else:
+        return "xla"
+    if device_type == "cuda" and not built:
+        raise NotImplementedError(
+            f"no {path} attention kernel is built for head_dim {D} and "
+            f"{dtype} (ROADMAP Queue 2: head dims the kernels still lack)")
+    return path
+
+
 def attention(q, k, v, *, scale: float, segment_ids=None,
               causal: bool = False, dropout_rate: float = 0.0,
               dropout_seed: Optional[int] = None, impl: str = "flash",
@@ -83,8 +109,9 @@ def attention(q, k, v, *, scale: float, segment_ids=None,
             "tensor-parallel attention is not ported yet "
             "(ROADMAP Queue 1, item 9)")
     T, H, D = q.shape[1], q.shape[2], q.shape[3]
-    if (int8 and impl == "flash" and not causal and dropout_rate == 0.0
-            and T % 128 == 0 and D % 128 == 0):
+    path = attention_path(q.device.type, q.dtype, T, H, D, int8, impl=impl,
+                          causal=causal, dropout_rate=dropout_rate)
+    if path == "int8":
         # serving-only int8 kernel: RoPE and the quantization of q, k, v and
         # P all happen inside it; any other int8 call routes on as bf16
         return int8_flash_attention(
@@ -93,8 +120,7 @@ def attention(q, k, v, *, scale: float, segment_ids=None,
             rope=rope)
     if block_kv is None:
         block_kv = T if T <= 1024 else 512
-    flash_ok = (T % 128 == 0) and (D % 128 == 0 or H == 1)
-    if impl == "flash" and not causal and flash_ok:
+    if path == "flash":
         if dropout_rate > 0.0 and dropout_seed is None:
             raise ValueError("dropout_rate > 0 requires dropout_seed")
         if segment_ids is not None and T >= 4096:

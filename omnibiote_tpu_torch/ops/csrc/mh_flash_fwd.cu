@@ -29,41 +29,34 @@
 //
 // Bound. At the serving shape (B=32, T=1024, H=8, D=128, bf16) a call does
 // 4*B*T^2*H*D = 137 GFLOP (139 us at the H100's 989 TFLOP/s bf16) and moves
-// 268 MB of q, k, v and o (80 us at 3.35 TB/s): it is bound by operations.
-// The bf16 kernel therefore runs both products on the tensor cores
-// (mma.sync m16n8k16, fp32 accumulate) and keeps S and P in registers: a
-// warp's 16 query rows stay resident, and P's accumulator fragments are
-// reused directly as the A operand of P.V. K and V tiles stream through a
-// two-stage cp.async ring in shared memory, so the next tile's copy
-// overlaps this tile's products; ldmatrix (transposing for V) feeds the B
-// operands from rows padded against bank conflicts. wgmma, TMA and warp
-// specialisation are left for later work. The fp32 kernel is the parity
-// type and runs on the CUDA cores.
+// 268 MB of q, k, v and o (80 us at 3.35 TB/s): it is bound by operations,
+// so the design is about feeding the tensor cores. The bf16 kernel runs
+// both products as warpgroup products (wgmma) from TMA-filled,
+// 128-byte-swizzled shared memory, with a producer warpgroup that keeps a
+// K/V ring full and two consumer warpgroups that take turns on the tensor
+// cores, so one's softmax and dropout draw overlap the other's products
+// (see the kernel's own note below). S and P stay in registers: P's
+// accumulator fragments are the register A operand of P.V. The fp32 kernel
+// is the parity type and runs on the CUDA cores.
 //
 // Segment skipping (the TPU kernel's use_bounds). With kv_lo / kv_hi
-// non-null, int32 (B, T / q tile) in units of kv tiles, a block walks only
+// non-null, int32 (B, T / q tile) in units of kv tiles, a CTA walks only
 // the kv tiles kv_lo..kv_hi of its (batch, q tile): every tile outside has
 // disjoint segment-id ranges and is fully masked. A skipped tile would have
 // contributed exact zeros (its p underflows to 0 against any visible
 // score, and alpha wipes a leading masked tile), so the result is bit for
-// bit that of the full walk. The ring's prologue starts at kv_lo and its
-// last refill is kv_hi. tile_count, when non-null, receives the number of
+// bit that of the full walk. The ring's first load is kv tile kv_lo and
+// its last kv_hi. tile_count, when non-null, receives the number of
 // tiles walked, summed over blocks (checks only).
+#include <atomic>
+
 #include "flash_common.cuh"
+#include "hopper.cuh"
 #include "philox.cuh"
 
 namespace {
 
 using namespace obt;
-
-// ---------------------------------------------------------------------------
-// bf16: 4 warps, 64 query rows (16 per warp) x 64-wide kv tiles, k already
-// rotated. Fragment layout of m16n8k16 (g = lane / 4, t = lane % 4):
-//   A regs: (g, 2t..2t+1), (g+8, 2t..), (g, 2t+8..), (g+8, 2t+8..)
-//   B regs: (k = 2t..2t+1, n = g), (k = 2t+8..2t+9, n = g)
-//   C:      (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)
-// ---------------------------------------------------------------------------
-constexpr int kBf16Tile = 64;
 
 // Dropout of one call: keep iff the element's Philox word >= thresh; kept
 // values are multiplied by keep_scale = 1 / (1 - rate) in fp32.
@@ -73,214 +66,329 @@ struct DropParams {
   float keep_scale;
 };
 
+// ---------------------------------------------------------------------------
+// bf16 (Hopper). A CTA owns 128 query rows of one (batch, head) and three
+// warpgroups: warpgroup 0 produces, 1 and 2 consume 64 rows each.
+//   * The producer's first thread keeps a two-stage ring of 128-row K and V
+//     tiles (TMA, 128-byte-swizzled 64-column panels) and the tiles' kv
+//     segment ids (a bulk copy) full, on full / empty mbarriers.
+//   * A consumer writes its q rows, rotated in fp32 and rounded, into
+//     swizzled panels once, then per kv tile: S = q . k^T by wgmma
+//     m64n128k16 from shared memory; the masked log2-space scores, online
+//     softmax and dropout on S's registers; P, rounded to bf16 in
+//     registers, as the A operand of O += P . V (wgmma m64nDk16, V read
+//     through the transpose bit). The accumulator layout is the mma.sync
+//     C layout: rows 16 w + g and + 8 of warp w, columns 8 n + 2 t, + 1.
+//   * The two consumers take turns on the tensor cores (named barriers):
+//     one issues P_(j-1) . V and S_j while the other runs its softmax.
+// setmaxnreg moves registers from the producer (24) to the consumers (240).
+// ---------------------------------------------------------------------------
+constexpr int kBq = 128, kBkv = 128, kStages = 2;
+constexpr int kThreads = 384, kConsumerWarps = 8;
+constexpr uint32_t kPanelBytes = 128 * 128;  // 128 rows of a 64-column panel
+// named barriers (0 is __syncthreads): 1 + w, consumer w's q rows are
+// written; 3 + w, consumer w's turn on the tensor cores
+constexpr int kBarQ = 1, kBarTurn = 3;
+
+template <int D>
+struct FwdSmem {
+  alignas(1024) __nv_bfloat16 q[kBq * D];
+  alignas(1024) __nv_bfloat16 k[kStages][kBkv * D];
+  alignas(1024) __nv_bfloat16 v[kStages][kBkv * D];
+  int kseg[kStages][kBkv];
+  uint64_t full[kStages], empty[kStages];
+};
+
 template <int D>
 constexpr size_t bf16_smem_bytes() {
-  // two stages of K and V tiles (rows padded by 8 elements) and kv segment ids
-  return 2 * 2 * kBf16Tile * (D + 8) * sizeof(__nv_bfloat16) + 2 * kBf16Tile * sizeof(int);
+  return sizeof(FwdSmem<D>) + kSwizzleAtom;  // + room to align the base
 }
 
 // BOUNDS: the kernel reads kv_lo / kv_hi; without it the walk starts at a
-// constant 0, which the compiler schedules as it did before bounds existed
-// (on an H100 the dense serving shape ran 11 % slower through the bounded
-// code).
-template <int D, bool DROP, bool BOUNDS>
-__global__ void __launch_bounds__(128) mh_fwd_bf16(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
+// constant 0 (the dense path keeps its compile-time walk). DOTS: the
+// products alone (o = round(sum_j round(q k_j^T) . v_j)), no RoPE, mask,
+// softmax, dropout or lse: the yardstick of the product pipeline.
+template <int D, bool DROP, bool BOUNDS, bool DOTS>
+__global__ void __launch_bounds__(kThreads, 1) mh_fwd_bf16(
+    const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+    const __nv_bfloat16* __restrict__ q, const int* __restrict__ seg,
     const float* __restrict__ cos_t, const float* __restrict__ sin_t,
     const int* __restrict__ kv_lo, const int* __restrict__ kv_hi,
     int* __restrict__ tile_count, __nv_bfloat16* __restrict__ o,
     float* __restrict__ lse, int T, int H, float scale_log2, DropParams dp) {
-  constexpr int BQ = kBf16Tile, BKV = kBf16Tile, HALF = D / 2;
-  constexpr int RS = D + 8;    // K and V tile row stride (elements), padded
-  constexpr int CH = D / 8;    // 16-byte chunks in a row
-  constexpr int NK = D / 16;   // k-steps of q.k^T
-  constexpr int NN = D / 8;    // n-tiles of the output
-  constexpr int NS = BKV / 8;  // n-tiles of a score tile
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);  // [2][BKV][RS]
-  __nv_bfloat16* vs = ks + 2 * BKV * RS;                        // [2][BKV][RS]
-  int* kseg = reinterpret_cast<int*>(vs + 2 * BKV * RS);        // [2][BKV]
+  constexpr int HALF = D / 2;
+  constexpr int NN = D / 8;      // 8-column blocks of the output
+  constexpr int NS = kBkv / 8;   // 8-column blocks of a score tile
+  constexpr int NK = D / 16;     // k-steps of q . k^T
+  constexpr int NP = kBkv / 16;  // k-steps of P . V
+  extern __shared__ unsigned char smem_raw[];
+  FwdSmem<D>& sm = *reinterpret_cast<FwdSmem<D>*>(
+      smem_raw + ((kSwizzleAtom - (shared_addr(smem_raw) & (kSwizzleAtom - 1))) &
+                  (kSwizzleAtom - 1)));
 
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const size_t rs = (size_t)H * D;  // elements between consecutive tokens
-  const size_t base = (size_t)b * T * rs + (size_t)h * D;
-  const int r0 = blockIdx.x * BQ + warp * 16 + g;  // rows r0 and r0 + 8
-
-  // copy kv tile j0 into ring stage `st`: 16 bytes a thread a step
-  auto load_tile = [&](int st, int j0) {
-    __nv_bfloat16* kd = ks + st * BKV * RS;
-    __nv_bfloat16* vd = vs + st * BKV * RS;
-    for (int it = tid; it < BKV * CH; it += 128) {
-      const int row = it / CH, c8 = (it % CH) * 8;
-      const size_t off = base + (size_t)(j0 + row) * rs + c8;
-      cp_async16(kd + row * RS + c8, k + off);
-      cp_async16(vd + row * RS + c8, v + off);
-    }
-    if (seg != nullptr && tid < BKV / 4)
-      cp_async16(kseg + st * BKV + tid * 4, seg + (size_t)b * T + j0 + tid * 4);
-  };
-
-  // the kv tiles this block walks: all, or its (batch, q tile)'s range
-  int jt0 = 0, jt1 = T / BKV - 1;
+  const int b = blockIdx.z, h = blockIdx.y, qt = blockIdx.x, tid = threadIdx.x;
+  // the kv tiles this CTA walks: all, or its (batch, q tile)'s range
+  int jt0 = 0, jt1 = T / kBkv - 1;
   if constexpr (BOUNDS) {
-    jt0 = kv_lo[b * (T / BQ) + blockIdx.x];
-    jt1 = kv_hi[b * (T / BQ) + blockIdx.x];
+    jt0 = kv_lo[b * (T / kBq) + qt];
+    jt1 = kv_hi[b * (T / kBq) + qt];
   }
-  if (tile_count != nullptr && tid == 0) atomicAdd(tile_count, jt1 - jt0 + 1);
-  load_tile(0, jt0 * BKV);
-  cp_async_commit();
-
-  // q fragments, rotated in fp32 and rounded to bf16, resident for the loop
-  uint32_t qa[NK][4];
+  const int n_tiles = jt1 - jt0 + 1;
+  if (tid == 0) {
+    if (tile_count != nullptr) atomicAdd(tile_count, n_tiles);
 #pragma unroll
-  for (int kk = 0; kk < NK; ++kk) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = r0 + ((r & 1) ? 8 : 0);
-      const int col = kk * 16 + 2 * t4 + ((r & 2) ? 8 : 0);
-      const __nv_bfloat16* qrow = q + base + (size_t)row * rs;
-      float2 x = load_bf16x2(qrow + col);
-      if (cos_t != nullptr) {
-        const bool lo = col < HALF;
-        const int tc = lo ? col : col - HALF;
-        const float2 y = load_bf16x2(qrow + (lo ? col + HALF : tc));
-        const float2 c = *reinterpret_cast<const float2*>(cos_t + (size_t)row * HALF + tc);
-        const float2 s = *reinterpret_cast<const float2*>(sin_t + (size_t)row * HALF + tc);
-        x = lo ? make_float2(rope_lo(x.x, y.x, c.x, s.x), rope_lo(x.y, y.y, c.y, s.y))
-               : make_float2(rope_hi(y.x, x.x, c.x, s.x), rope_hi(y.y, x.y, c.y, s.y));
-      }
-      qa[kk][r] = pack_bf16(x.x, x.y);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&sm.full[st], 1);
+      mbar_init(&sm.empty[st], kConsumerWarps);
     }
+    mbar_init_fence();
   }
-  const int qs0 = seg ? seg[(size_t)b * T + r0] : 0;
-  const int qs1 = seg ? seg[(size_t)b * T + r0 + 8] : 0;
+  __syncthreads();
 
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-  float acc[NN][4];
+  if (tid < 128) {
+    // ---- producer: one thread keeps the ring full ----
+    setmaxnreg_dec<24>();
+    if (tid == 0) {
+      const uint32_t bytes = 2u * kBkv * D * sizeof(__nv_bfloat16) +
+                             (seg != nullptr ? kBkv * sizeof(int) : 0u);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % kStages;
+        if (it >= kStages) mbar_wait(&sm.empty[st], ((it / kStages) - 1) & 1);
+        mbar_arrive_expect_tx(&sm.full[st], bytes);
+        const int row = b * T + (jt0 + it) * kBkv;
 #pragma unroll
-  for (int n = 0; n < NN; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  for (int jt = jt0; jt <= jt1; ++jt) {
-    const int st = (jt - jt0) & 1;
-    // the other stage was last read in the previous iteration, which ended
-    // in a barrier: refill it with the next tile while this one is used
-    if (jt + 1 <= jt1) load_tile(st ^ 1, (jt + 1) * BKV);
-    cp_async_commit();
-    cp_async_wait_one();  // this tile's group has landed
-    __syncthreads();
-    const __nv_bfloat16* kt = ks + st * BKV * RS;
-    const __nv_bfloat16* vt = vs + st * BKV * RS;
-    const int* sg = kseg + st * BKV;
-
-    // S = q . k^T for this warp's 16 rows x BKV columns; one ldmatrix.x4
-    // gives the B fragments of two k-steps of one n-tile
-    float s[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int p = 0; p < NK / 2; ++p) {
-        uint32_t bf[4];
-        ldmatrix_x4(bf, kt + (j * 8 + (lane & 7)) * RS + p * 32 + (lane >> 3) * 8);
-        mma_bf16(s[j], qa[2 * p], bf[0], bf[1]);
-        mma_bf16(s[j], qa[2 * p + 1], bf[2], bf[3]);
+        for (int pn = 0; pn < D / kPanelCols; ++pn) {
+          tma_load_2d(&sm.k[st][pn * kBkv * kPanelCols], &kmap, h * D + pn * kPanelCols,
+                      row, &sm.full[st]);
+          tma_load_2d(&sm.v[st][pn * kBkv * kPanelCols], &vmap, h * D + pn * kPanelCols,
+                      row, &sm.full[st]);
+        }
+        if (seg != nullptr) bulk_load(sm.kseg[st], seg + row, kBkv * sizeof(int), &sm.full[st]);
       }
     }
-    // log2-space scores with the segment bias; the tile's row maxima
-    float mx0 = -INFINITY, mx1 = -INFINITY;
+  } else {
+    // ---- consumers: 64 query rows each ----
+    setmaxnreg_inc<240>();
+    const int wg = (tid >> 7) - 1, wt = tid & 127, warp = wt >> 5, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const size_t rs = (size_t)H * D;  // elements between consecutive tokens
+    const size_t base = (size_t)b * T * rs + (size_t)h * D;
+    const int qrow0 = qt * kBq + wg * 64;  // this warpgroup's first q row
+    const int r0 = qrow0 + warp * 16 + g;  // this thread's rows r0 and r0 + 8
+
+    // q rows rotated in fp32, rounded, into the swizzled q panels: one
+    // thread a (row, 8 columns of each half) item
+    unsigned char* qs = reinterpret_cast<unsigned char*>(sm.q);
+    for (int it = wt; it < 64 * (HALF / 8); it += 128) {
+      const int r = it / (HALF / 8), c8 = (it % (HALF / 8)) * 8;
+      const __nv_bfloat16* src = q + base + (size_t)(qrow0 + r) * rs + c8;
+      uint4 lo = *reinterpret_cast<const uint4*>(src);
+      uint4 hi = *reinterpret_cast<const uint4*>(src + HALF);
+      if (!DOTS && cos_t != nullptr) {
+        const float* cp = cos_t + (size_t)(qrow0 + r) * HALF + c8;
+        const float* sp = sin_t + (size_t)(qrow0 + r) * HALF + c8;
+        const __nv_bfloat162* x1 = reinterpret_cast<const __nv_bfloat162*>(&lo);
+        const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&hi);
+        uint32_t yl[4], yh[4];
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      const int ks0 = seg ? sg[j * 8 + 2 * t4] : 0;
-      const int ks1 = seg ? sg[j * 8 + 2 * t4 + 1] : 0;
-      s[j][0] = score(s[j][0], scale_log2, qs0, ks0);
-      s[j][1] = score(s[j][1], scale_log2, qs0, ks1);
-      s[j][2] = score(s[j][2], scale_log2, qs1, ks0);
-      s[j][3] = score(s[j][3], scale_log2, qs1, ks1);
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+        for (int e = 0; e < 4; ++e) {
+          const float2 u = __bfloat1622float2(x1[e]), w = __bfloat1622float2(x2[e]);
+          const float2 c = *reinterpret_cast<const float2*>(cp + 2 * e);
+          const float2 s = *reinterpret_cast<const float2*>(sp + 2 * e);
+          yl[e] = pack_bf16(rope_lo(u.x, w.x, c.x, s.x), rope_lo(u.y, w.y, c.y, s.y));
+          yh[e] = pack_bf16(rope_hi(u.x, w.x, c.x, s.x), rope_hi(u.y, w.y, c.y, s.y));
+        }
+        lo = make_uint4(yl[0], yl[1], yl[2], yl[3]);
+        hi = make_uint4(yh[0], yh[1], yh[2], yh[3]);
+      }
+      *reinterpret_cast<uint4*>(qs + swizzled_offset(kBq, wg * 64 + r, c8)) = lo;
+      *reinterpret_cast<uint4*>(qs + swizzled_offset(kBq, wg * 64 + r, c8 + HALF)) = hi;
     }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float alpha0 = exp2f(m0 - mn0), alpha1 = exp2f(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float rs0 = 0.f, rs1 = 0.f;
+    fence_async_shared();
+    named_bar_sync(kBarQ + wg, 128);
+
+    const int qs0 = seg ? seg[(size_t)b * T + r0] : 0;
+    const int qs1 = seg ? seg[(size_t)b * T + r0 + 8] : 0;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+    float acc[D / 2], s[kBkv / 2];
+    uint32_t p[NP][4];
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      s[j][0] = exp2f(s[j][0] - mn0);
-      s[j][1] = exp2f(s[j][1] - mn0);
-      s[j][2] = exp2f(s[j][2] - mn1);
-      s[j][3] = exp2f(s[j][3] - mn1);
-      rs0 += s[j][0] + s[j][1];
-      rs1 += s[j][2] + s[j][3];
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+    const uint32_t q_addr = shared_addr(sm.q) + wg * 64 * 128;
+    // S = q . k^T of ring stage st (both operands K-major)
+    auto gemm_s = [&](int st) {
+      const uint32_t k_addr = shared_addr(sm.k[st]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk) {
+        const uint32_t off = (kk >> 2) * kPanelBytes + (kk & 3) * 32;
+        wgmma_ss_m64n128k16(s, smem_desc(q_addr + off, 16, kSwizzleAtom),
+                            smem_desc(k_addr + off, 16, kSwizzleAtom), kk > 0);
+      }
+      wgmma_commit();
+    };
+    // acc += P . V of ring stage st (V MN-major: 16 kv rows a k-step)
+    auto gemm_pv = [&](int st) {
+      const uint32_t v_addr = shared_addr(sm.v[st]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < NP; ++kk) {
+        const uint64_t db = smem_desc(v_addr + kk * 16 * 128, kPanelBytes, kSwizzleAtom);
+        if constexpr (D == 128) {
+          wgmma_rs_m64n128k16_tb(acc, p[kk], db, 1);
+        } else {
+          wgmma_rs_m64n64k16_tb(acc, p[kk], db, 1);
+        }
+      }
+      wgmma_commit();
+    };
+    // the masked log2-space scores of kv tile jt (ring stage st), online
+    // softmax, dropout, acc rescaled, P rounded into p
+    auto softmax = [&](int jt, int st) {
+      if constexpr (!DOTS) {
+        const int* sg = sm.kseg[st];
+        float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+          const int ks0 = seg ? sg[n * 8 + 2 * t4] : 0;
+          const int ks1 = seg ? sg[n * 8 + 2 * t4 + 1] : 0;
+          s[4 * n] = score(s[4 * n], scale_log2, qs0, ks0);
+          s[4 * n + 1] = score(s[4 * n + 1], scale_log2, qs0, ks1);
+          s[4 * n + 2] = score(s[4 * n + 2], scale_log2, qs1, ks0);
+          s[4 * n + 3] = score(s[4 * n + 3], scale_log2, qs1, ks1);
+          mx0 = fmaxf(mx0, fmaxf(s[4 * n], s[4 * n + 1]));
+          mx1 = fmaxf(mx1, fmaxf(s[4 * n + 2], s[4 * n + 3]));
+        }
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+        const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+        const float alpha0 = exp2f(m0 - mn0), alpha1 = exp2f(m1 - mn1);
+        m0 = mn0;
+        m1 = mn1;
+        float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+          s[4 * n] = exp2f(s[4 * n] - mn0);
+          s[4 * n + 1] = exp2f(s[4 * n + 1] - mn0);
+          s[4 * n + 2] = exp2f(s[4 * n + 2] - mn1);
+          s[4 * n + 3] = exp2f(s[4 * n + 3] - mn1);
+          rs0 += s[4 * n] + s[4 * n + 1];
+          rs1 += s[4 * n + 2] + s[4 * n + 3];
+        }
+        l0 = alpha0 * l0 + rs0;  // per-thread partial sums, reduced at the end
+        l1 = alpha1 * l1 + rs1;
+        if constexpr (DROP) {
+          // One Philox call covers rows 2i, 2i + 1 of a column pair. Lanes
+          // g and g ^ 1 hold rows r0 and r0 ^ 1 (and + 8): the even lane
+          // draws the pair block of its rows r0, r0 + 1, the odd lane that
+          // of r0 + 7, r0 + 8, and each hands the partner the words of the
+          // partner's row. The keep bits go into one mask (bit 4 n + e for
+          // element e of score block n), so that the draw's loop need not
+          // be unrolled whole and only a few calls are live at once.
+          const int bh = b * H + h;
+          const bool odd = g & 1;
+          const int row = odd ? r0 + 8 : r0;
+          uint64_t keep = 0;
+#pragma unroll 4
+          for (int n = 0; n < NS; ++n) {
+            const Philox4 u = dropout_bits(dp.seed, bh, row, jt * kBkv + n * 8 + 2 * t4);
+            const uint32_t y0 = __shfl_xor_sync(0xffffffffu, odd ? u.w[0] : u.w[2], 4);
+            const uint32_t y1 = __shfl_xor_sync(0xffffffffu, odd ? u.w[1] : u.w[3], 4);
+            const uint32_t a0 = odd ? y0 : u.w[0], a1 = odd ? y1 : u.w[1];  // row r0
+            const uint32_t c0 = odd ? u.w[2] : y0, c1 = odd ? u.w[3] : y1;  // row r0 + 8
+            const uint32_t k4 = (uint32_t)(a0 >= dp.thresh) | (uint32_t)(a1 >= dp.thresh) << 1 |
+                                (uint32_t)(c0 >= dp.thresh) << 2 | (uint32_t)(c1 >= dp.thresh) << 3;
+            keep |= (uint64_t)k4 << (4 * n);
+          }
+#pragma unroll
+          for (int i = 0; i < 4 * NS; ++i) s[i] = (keep >> i) & 1 ? s[i] * dp.keep_scale : 0.f;
+        }
+#pragma unroll
+        for (int n = 0; n < NN; ++n) {
+          acc[4 * n] *= alpha0;
+          acc[4 * n + 1] *= alpha0;
+          acc[4 * n + 2] *= alpha1;
+          acc[4 * n + 3] *= alpha1;
+        }
+      }
+      // the A fragments of P . V: k-step kk is score blocks 2 kk and 2 kk + 1
+#pragma unroll
+      for (int kk = 0; kk < NP; ++kk) {
+        p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+        p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+      }
+    };
+    // Turns: warpgroup w waits on barrier kBarTurn + w (its 128 threads and
+    // the other's 128 arrivals) before it issues, and passes the turn after.
+    // Each takes n_tiles + 1 turns; warpgroup 0 goes first and warpgroup 1
+    // passes no turn after its last.
+    auto turn_wait = [&]() { named_bar_sync(kBarTurn + wg, 256); };
+    auto turn_pass = [&]() { named_bar_arrive(kBarTurn + (wg ^ 1), 256); };
+    auto release = [&](int st) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&sm.empty[st]);
+    };
+    if (wg == 1) turn_pass();
+
+    mbar_wait(&sm.full[0], 0);
+    turn_wait();
+    gemm_s(0);
+    turn_pass();
+    wgmma_wait<0>();
+    fence_regs(s);
+    softmax(jt0, 0);
+    for (int it = 1; it < n_tiles; ++it) {
+      const int st = it % kStages, prev = (it - 1) % kStages;
+      mbar_wait(&sm.full[st], (it / kStages) & 1);
+      turn_wait();
+      gemm_pv(prev);
+      gemm_s(st);
+      turn_pass();
+      wgmma_wait<1>();  // P . V of the previous tile is done
+      fence_regs(acc);
+      fence_regs(p);
+      release(prev);
+      wgmma_wait<0>();
+      fence_regs(s);
+      softmax(jt0 + it, st);
     }
-    l0 = alpha0 * l0 + rs0;  // per-thread partial sums, reduced at the end
-    l1 = alpha1 * l1 + rs1;
-    if constexpr (DROP) {
-      // rows r0 and r0 + 8 share a parity, so both read words 2 * (r0 & 1)
-      // and 2 * (r0 & 1) + 1 of their calls (columns col and col + 1)
-      const int bh = b * H + h;
-      const bool odd = r0 & 1;
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        const int col = jt * BKV + j * 8 + 2 * t4;
-        const Philox4 u = dropout_bits(dp.seed, bh, r0, col);
-        const Philox4 w = dropout_bits(dp.seed, bh, r0 + 8, col);
-        s[j][0] = (odd ? u.w[2] : u.w[0]) >= dp.thresh ? s[j][0] * dp.keep_scale : 0.f;
-        s[j][1] = (odd ? u.w[3] : u.w[1]) >= dp.thresh ? s[j][1] * dp.keep_scale : 0.f;
-        s[j][2] = (odd ? w.w[2] : w.w[0]) >= dp.thresh ? s[j][2] * dp.keep_scale : 0.f;
-        s[j][3] = (odd ? w.w[3] : w.w[1]) >= dp.thresh ? s[j][3] * dp.keep_scale : 0.f;
+    turn_wait();
+    gemm_pv((n_tiles - 1) % kStages);
+    if (wg == 0) turn_pass();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(p);
+
+    __nv_bfloat16* o0 = o + base + (size_t)r0 * rs;
+    __nv_bfloat16* o1 = o0 + 8 * rs;
+    float inv0 = 1.f, inv1 = 1.f;
+    if constexpr (!DOTS) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+      inv0 = 1.0f / l0;
+      inv1 = 1.0f / l1;
+      if (t4 == 0) {
+        lse[((size_t)b * T + r0) * H + h] = m0 + log2f(l0);
+        lse[((size_t)b * T + r0 + 8) * H + h] = m1 + log2f(l1);
       }
     }
 #pragma unroll
     for (int n = 0; n < NN; ++n) {
-      acc[n][0] *= alpha0;
-      acc[n][1] *= alpha0;
-      acc[n][2] *= alpha1;
-      acc[n][3] *= alpha1;
+      const int col = n * 8 + 2 * t4;
+      *reinterpret_cast<uint32_t*>(o0 + col) =
+          DOTS ? pack_bf16(acc[4 * n], acc[4 * n + 1])
+               : pack_bf16(acc[4 * n] * inv0, acc[4 * n + 1] * inv0);
+      *reinterpret_cast<uint32_t*>(o1 + col) =
+          DOTS ? pack_bf16(acc[4 * n + 2], acc[4 * n + 3])
+               : pack_bf16(acc[4 * n + 2] * inv1, acc[4 * n + 3] * inv1);
     }
-    // acc += P (bf16, straight from the score fragments) . V; one
-    // ldmatrix.x4.trans gives the B fragments of two n-tiles
-#pragma unroll
-    for (int kk = 0; kk < BKV / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int np = 0; np < NN / 2; ++np) {
-        uint32_t bf[4];
-        ldmatrix_x4_trans(bf, vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * RS
-                                  + np * 16 + (lane >> 4) * 8);
-        mma_bf16(acc[2 * np], pa, bf[0], bf[1]);
-        mma_bf16(acc[2 * np + 1], pa, bf[2], bf[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this stage
-  }
-
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
-  __nv_bfloat16* o0 = o + base + (size_t)r0 * rs;
-  __nv_bfloat16* o1 = o0 + 8 * rs;
-#pragma unroll
-  for (int n = 0; n < NN; ++n) {
-    const int col = n * 8 + 2 * t4;
-    *reinterpret_cast<uint32_t*>(o0 + col) = pack_bf16(acc[n][0] * inv0, acc[n][1] * inv0);
-    *reinterpret_cast<uint32_t*>(o1 + col) = pack_bf16(acc[n][2] * inv1, acc[n][3] * inv1);
-  }
-  if (t4 == 0) {
-    lse[((size_t)b * T + r0) * H + h] = m0 + log2f(l0);
-    lse[((size_t)b * T + r0 + 8) * H + h] = m1 + log2f(l1);
   }
 }
 
@@ -397,19 +505,37 @@ __global__ void __launch_bounds__(128) mh_fwd_f32(
   if (sub == 0) lse[((size_t)b * T + row) * H + h] = m + log2f(l);
 }
 
-template <int D, bool DROP, bool BOUNDS>
+template <int D, bool DROP, bool BOUNDS, bool DOTS>
 cudaError_t launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                         const __nv_bfloat16* v, const int* seg, const float* cos_t,
                         const float* sin_t, const int* kv_lo, const int* kv_hi,
                         int* tile_count, __nv_bfloat16* o, float* lse, int B, int T,
                         int H, float scale_log2, DropParams dp, cudaStream_t st) {
-  const size_t smem = bf16_smem_bytes<D>();
-  const cudaError_t e = cudaFuncSetAttribute(
-      mh_fwd_bf16<D, DROP, BOUNDS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // K and V as (B * T, H * D) row-major matrices, loaded as 128-row boxes
+  // of one head's 64-column panels
+  CUtensorMap kmap, vmap;
+  const uint64_t rows = (uint64_t)B * T, cols = (uint64_t)H * D;
+  cudaError_t e = encode_bf16_panels(&kmap, k, rows, cols, cols, kBkv);
+  if (e == cudaSuccess) e = encode_bf16_panels(&vmap, v, rows, cols, cols, kBkv);
   if (e != cudaSuccess) return e;
-  mh_fwd_bf16<D, DROP, BOUNDS><<<dim3(T / kBf16Tile, H, B), 128, smem, st>>>(
-      q, k, v, seg, cos_t, sin_t, kv_lo, kv_hi, tile_count, o, lse, T, H, scale_log2, dp);
-  return cudaSuccess;
+  // the shared-memory limit belongs to the instance on a device, not to the
+  // call: set it at the first launch on each device
+  static std::atomic<uint64_t> smem_set{0};
+  const size_t smem = bf16_smem_bytes<D>();
+  int dev = 0;
+  e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const uint64_t dev_bit = 1ull << (dev & 63);
+  if (!(smem_set.load(std::memory_order_acquire) & dev_bit)) {
+    e = cudaFuncSetAttribute(mh_fwd_bf16<D, DROP, BOUNDS, DOTS>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    smem_set.fetch_or(dev_bit, std::memory_order_release);
+  }
+  mh_fwd_bf16<D, DROP, BOUNDS, DOTS><<<dim3(T / kBq, H, B), kThreads, smem, st>>>(
+      kmap, vmap, q, seg, cos_t, sin_t, kv_lo, kv_hi, tile_count, o, lse, T, H, scale_log2,
+      dp);
+  return cudaGetLastError();
 }
 
 template <int D, bool DROP>
@@ -427,19 +553,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* seg,
     const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(k);
     const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(v);
     __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(o);
-    const cudaError_t e =
-        kv_lo != nullptr
-            ? launch_bf16<D, DROP, true>(qb, kb, vb, seg, cos_t, sin_t, kv_lo, kv_hi,
-                                         tile_count, ob, lse, B, T, H, scale_log2, dp, st)
-            : launch_bf16<D, DROP, false>(qb, kb, vb, seg, cos_t, sin_t, kv_lo, kv_hi,
-                                          tile_count, ob, lse, B, T, H, scale_log2, dp, st);
-    if (e != cudaSuccess) return e;
-  } else {
-    mh_fwd_f32<D, DROP><<<dim3(T / kF32Tile, H, B), 128, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), seg, cos_t, sin_t, kv_lo, kv_hi,
-        tile_count, static_cast<float*>(o), lse, T, H, scale_log2, dp);
+    return kv_lo != nullptr
+               ? launch_bf16<D, DROP, true, false>(qb, kb, vb, seg, cos_t, sin_t, kv_lo,
+                                                   kv_hi, tile_count, ob, lse, B, T, H,
+                                                   scale_log2, dp, st)
+               : launch_bf16<D, DROP, false, false>(qb, kb, vb, seg, cos_t, sin_t, kv_lo,
+                                                    kv_hi, tile_count, ob, lse, B, T, H,
+                                                    scale_log2, dp, st);
   }
+  mh_fwd_f32<D, DROP><<<dim3(T / kF32Tile, H, B), 128, 0, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), seg, cos_t, sin_t, kv_lo, kv_hi,
+      tile_count, static_cast<float*>(o), lse, T, H, scale_log2, dp);
   return cudaGetLastError();
 }
 
@@ -455,16 +580,24 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, const int* seg
                                  tile_count, o, lse, B, T, H, scale_log2, bf16, dp, st);
 }
 
+// T multiple of each dtype's kernel: the bf16 CTA's 128 rows; the fp32
+// kernel's 32-row tile, held to the backward kernels' 64
+constexpr int kBf16TMultiple = kBq, kF32TMultiple = 64;
+
+bool shape_ok(int B, int T, int H) {
+  return B >= 1 && B <= 65535 && H >= 1 && H <= 65535 && T >= 1;
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. With RoPE (cos_t and sin_t non-null),
-// k_rot is a scratch tensor of k's shape and type that receives the rotated
-// k. kv_lo and kv_hi, both null or both int32 (B, T / q tile) with the q
-// and kv tiles of the dtype's kernel (64 for bf16, 32 for fp32), bound the
-// kv tiles each q tile walks; tile_count is null or one int32 that the
-// walked tiles are added to. drop != 0 applies dropout with keep threshold
-// `thresh` (bits >= thresh keep), scale `keep_scale` and the 64-bit `seed`
-// (philox.cuh). Returns
+// dtype: 0 = float32, 1 = bfloat16; T a multiple of 64 (fp32) or 128
+// (bf16). With RoPE (cos_t and sin_t non-null), k_rot is a scratch tensor
+// of k's shape and type that receives the rotated k. kv_lo and kv_hi, both
+// null or both int32 (B, T / q tile) with the q and kv tiles of the dtype's
+// kernel (128 for bf16, 32 for fp32), bound the kv tiles each q tile walks;
+// tile_count is null or one int32 that the walked tiles are added to. drop
+// != 0 applies dropout with keep threshold `thresh` (bits >= thresh keep),
+// scale `keep_scale` and the 64-bit `seed` (philox.cuh). Returns
 // cudaGetLastError() after the launches (cudaErrorInvalidValue for a shape
 // or type this file has no kernel for). Launches on `stream`, allocates
 // nothing, does not synchronise.
@@ -477,8 +610,8 @@ extern "C" int obt_mh_flash_fwd(const void* q, const void* k, const void* v,
                                 float scale_log2, int dtype, int drop,
                                 uint32_t thresh, float keep_scale,
                                 uint64_t seed, void* stream) {
-  if ((dtype != 0 && dtype != 1) || T < kBf16Tile || T % kBf16Tile != 0 ||
-      B < 1 || B > 65535 || H < 1 || H > 65535 ||
+  const int t_multiple = dtype == 1 ? kBf16TMultiple : kF32TMultiple;
+  if ((dtype != 0 && dtype != 1) || !shape_ok(B, T, H) || T % t_multiple != 0 ||
       (cos_t != nullptr && (sin_t == nullptr || k_rot == nullptr)) ||
       ((kv_lo == nullptr) != (kv_hi == nullptr)))
     return (int)cudaErrorInvalidValue;
@@ -496,6 +629,27 @@ extern "C" int obt_mh_flash_fwd(const void* q, const void* k, const void* v,
     case 128: return (int)launch_d<128>(q, k, v, sg, c, s, k_rot, lo, hi, tc, o, l, B, T, H, scale_log2, dtype == 1, drop != 0, dp, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The bf16 kernel's products alone (its DOTS instance), bf16 (B, T, H, 128)
+// q, k, v -> o, T a multiple of 128: o = round(sum over 128-row kv tiles of
+// fp32(round(q k^T) . v)), no scale, RoPE, mask, softmax or lse. Launches on
+// `stream`; returns cudaGetLastError().
+extern "C" int obt_mh_flash_fwd_dots(const void* q, const void* k, const void* v, void* o,
+                                     int B, int T, int H, int D, void* stream) {
+  if (!shape_ok(B, T, H) || T % kBf16TMultiple != 0 || D != 128)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_bf16<128, false, false, true>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), nullptr, nullptr, nullptr, nullptr, nullptr,
+      nullptr, static_cast<__nv_bfloat16*>(o), nullptr, B, T, H, 0.f, DropParams{0, 0, 1.f},
+      static_cast<cudaStream_t>(stream));
+}
+
+// Dynamic shared memory a CTA of the bf16 kernel takes at head dim D (-1
+// for a head dim it is not built for).
+extern "C" int obt_mh_flash_fwd_smem_bytes(int D) {
+  return D == 64 ? (int)bf16_smem_bytes<64>() : D == 128 ? (int)bf16_smem_bytes<128>() : -1;
 }
 
 extern "C" const char* obt_cuda_error_string(int code) {

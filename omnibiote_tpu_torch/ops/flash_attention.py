@@ -68,14 +68,16 @@ LOG2E = 1.4426950408889634
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 # The forward kernel's kv tile per dtype (its online softmax rounds P per
-# tile), and the multiple of T both kernels take.
-KERNEL_KV_TILE = {torch.bfloat16: 64, torch.float32: 32}
+# tile), the multiple of T the backward kernels take, and the forward's per
+# dtype (the bf16 kernel's CTA owns 128 query rows).
+KERNEL_KV_TILE = {torch.bfloat16: 128, torch.float32: 32}
 KERNEL_T_MULTIPLE = 64
+KERNEL_FWD_T_MULTIPLE = {torch.bfloat16: 128, torch.float32: 64}
 # (q tile, kv tile) of each kernel per dtype: the forward and the dq kernel
 # own a q tile and walk kv tiles; the fused backward and the dkv kernel own
 # a kv tile and walk q tiles.
 KERNEL_TILES = {
-    "fwd": {torch.bfloat16: (64, 64), torch.float32: (32, 32)},
+    "fwd": {torch.bfloat16: (128, 128), torch.float32: (32, 32)},
     "dq": {torch.bfloat16: (64, 64), torch.float32: (32, 32)},
     "bwd": {torch.bfloat16: (32, 64), torch.float32: (16, 32)},
 }
@@ -450,7 +452,7 @@ def mh_flash_bwd_dq_plain(q, k, v, do, lse2, di, segment_ids=None, rope=None,
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_qkv(names_tensors, q):
+def _check_qkv(names_tensors, q, t_multiple: int = KERNEL_T_MULTIPLE):
     B, T, H, D = q.shape
     for name, t in names_tensors:
         if not t.is_cuda:
@@ -465,9 +467,8 @@ def _check_qkv(names_tensors, q):
         raise ValueError(f"dtype {q.dtype} not built; one of {KERNEL_DTYPES}")
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"head_dim {D} not built; one of {KERNEL_HEAD_DIMS}")
-    if T % KERNEL_T_MULTIPLE or T < KERNEL_T_MULTIPLE:
-        raise ValueError(f"T={T} must be a positive multiple of "
-                         f"{KERNEL_T_MULTIPLE}")
+    if T % t_multiple or T < t_multiple:
+        raise ValueError(f"T={T} must be a positive multiple of {t_multiple}")
 
 
 def _check_rows(names_tensors, q):
@@ -561,7 +562,8 @@ def mh_flash_forward_kernel(q, k, v, segment_ids=None, rope=None, *,
         raise NotImplementedError(
             "the kernel's output carries no gradient; differentiate through "
             "flash_attention (MhFlashAttention) instead")
-    _check_qkv((("q", q), ("k", k), ("v", v)), q)
+    _check_qkv((("q", q), ("k", k), ("v", v)), q,
+               KERNEL_FWD_T_MULTIPLE.get(q.dtype, KERNEL_T_MULTIPLE))
     seg_ptr = _seg_ptr(segment_ids, q)
     cos_ptr, sin_ptr = _rope_ptrs(rope, q)
     lo_ptr, hi_ptr, tc_ptr = _bounds_ptrs(

@@ -3,7 +3,8 @@
 Port of `tools/probes/roofline.py`: how fast do the multi-head forward's
 products run with the same grid and data movement but without softmax,
 mask or dropout? Two probes, each a CUDA kernel (`ops/csrc/
-roofline_probes.cu`) with its plain PyTorch version beside it:
+roofline_probes.cu`) with its plain PyTorch version beside it, and #1's own
+kernel with its products alone (`fwd_products`):
 
   * `dots_only` (`_dots_kernel`, roofline.py:54): per head,
     o = round(Σ over kv tiles fp32(round(q_h k_hᵀ) · v_h)), where round is
@@ -207,6 +208,32 @@ def dots_n(q, k, v, block_q: int, block_kv: int, n_dots: int, *,
     return dots_n_plain(q, k, v, block_q, block_kv, n_dots)
 
 
+def fwd_products(q, k, v):
+    """#1's own kernel with its products alone (the DOTS instance of
+    ops/csrc/mh_flash_fwd.cu: TMA ring, wgmma, no scale, mask or softmax):
+    `dots_only`'s function on 128-row kv tiles, o (B, T, H, D) from q, k, v
+    (B, T, H, D). A CUDA tensor runs the kernel (counted as
+    'mh_flash_fwd_dots'), a CPU tensor `dots_only_plain` on those tiles."""
+    from ..ops import _kernels
+    from ..ops.flash_attention import KERNEL_KV_TILE
+
+    tile = KERNEL_KV_TILE[torch.bfloat16]
+    check_blocks(q.shape[1], tile, tile)
+    if not q.is_cuda:
+        return dots_only_plain(q, k, v, tile, tile)
+    check_kernel_inputs(q, (("k", k, q.shape), ("v", v, q.shape)))
+    B, T, H, D = q.shape
+    o = torch.empty_like(q)
+    lib = _kernels.load_library("mh_flash_fwd")
+    with torch.cuda.device(q.device):
+        err = lib.obt_mh_flash_fwd_dots(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, T, H, D,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "mh_flash_fwd_dots", lib.obt_cuda_error_string)
+    _kernels.LAUNCHES["mh_flash_fwd_dots"] += 1
+    return o
+
+
 # ---------------------------------------------------------------------------
 # The table
 # ---------------------------------------------------------------------------
@@ -274,6 +301,8 @@ def main() -> dict:
             report(table, f"dots-only fwd bq={bq} bkv={bkv} cta={cta}",
                    lambda bq=bq, bkv=bkv, cta=cta: dots_only(
                        q, q, q, bq, bkv, cta_q=cta), fwd_flops)
+    report(table, "products  fwd #1's kernel (wgmma, 128-row tiles)",
+           lambda: fwd_products(q, q, q), fwd_flops)
     with torch.no_grad():
         report(table, "full      fwd dense (no segment ids)",
                lambda: flash_attention(q, q, q, None, scale=scale), fwd_flops)

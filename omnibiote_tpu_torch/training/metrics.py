@@ -12,6 +12,7 @@ import json
 import os
 import sys
 import time
+import warnings
 from typing import IO, Optional
 
 # Dense bf16 tensor-core peak of one H100 SXM at its 700 W limit (NVIDIA
@@ -58,8 +59,9 @@ class JsonlSink:
 
 
 class WandbSink:
-    """Optional wandb mirror: a no-op unless enabled and wandb is
-    installed."""
+    """Optional wandb mirror: a no-op unless enabled, wandb is installed
+    and `wandb.init` succeeds (as the JAX sink, a run without network or
+    credentials logs on without wandb)."""
 
     def __init__(self, project: str = "omnibiota", enabled: bool = False):
         self._run = None
@@ -67,9 +69,10 @@ class WandbSink:
             return
         try:
             import wandb
-        except ImportError:
-            return
-        self._run = wandb.init(project=project)
+            self._run = wandb.init(project=project)
+        except Exception as e:   # no wandb, no network or no login: log on
+            warnings.warn(f"wandb disabled: {e!r}")
+            self._run = None
 
     def log(self, record: dict):
         if self._run is not None:

@@ -1,6 +1,8 @@
 """PyTorch port vs the JAX package: the plain version of the multi-head
-flash forward against `_mh_fwd` (Pallas, interpret mode on the CPU), and
-the port's attention dispatch against `ops/attention.py`'s routing."""
+flash forward against `_mh_fwd` (Pallas, interpret mode on the CPU), also
+on the CUDA kernel's own tiles, and the port's attention dispatch against
+`ops/attention.py`'s routing (on a CPU tensor exactly; on a CUDA tensor
+the same, refusing what the kernels are not built for)."""
 import numpy as np
 import pytest
 import torch
@@ -11,9 +13,11 @@ import omnibiote_tpu.ops.attention as jax_attention
 import omnibiote_tpu.ops.flash_attention as jax_flash
 from omnibiote_tpu.models.rope import rope_tables as jax_rope_tables
 
+import omnibiote_tpu.ops.int8_attention as jax_int8
 import omnibiote_tpu_torch.ops.attention as port_attention
 from omnibiote_tpu_torch.ops.flash_attention import (
-    DEFAULT_MASK_VALUE, LOG2E, mh_flash_forward, mh_flash_forward_plain)
+    DEFAULT_MASK_VALUE, KERNEL_FWD_T_MULTIPLE, KERNEL_HEAD_DIMS, KERNEL_KV_TILE,
+    KERNEL_TILES, LOG2E, mh_flash_forward, mh_flash_forward_plain)
 from omnibiote_tpu_torch.models.rope import rope_tables
 
 
@@ -96,6 +100,40 @@ def test_plain_matches_jax_mh_fwd_bf16(block_kv):
     po, pl = _port(q, k, v, seg, True, block_kv, scale, torch.bfloat16)
     np.testing.assert_allclose(po, jo, rtol=1e-2, atol=1e-2)
     np.testing.assert_allclose(pl, jl, rtol=1e-5, atol=1e-4)
+
+
+def test_forward_tiles_follow_the_kernel():
+    """The bf16 forward kernel's CTA owns a 128-row q tile and walks
+    128-row kv tiles: the plain version's kv tile and the skip bounds'
+    tiles are those, and its T multiple divides every T the dispatch sends
+    to flash (T % 128 == 0)."""
+    bf16 = torch.bfloat16
+    assert KERNEL_TILES["fwd"][bf16] == (128, 128)
+    assert KERNEL_TILES["fwd"][bf16][1] == KERNEL_KV_TILE[bf16]
+    assert KERNEL_TILES["fwd"][torch.float32][1] == KERNEL_KV_TILE[torch.float32]
+    for dtype, multiple in KERNEL_FWD_T_MULTIPLE.items():
+        assert 128 % multiple == 0, dtype
+        assert multiple % KERNEL_TILES["fwd"][dtype][0] == 0, dtype
+
+
+@pytest.mark.parametrize("layout", ["packed", "padded", "dense"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_plain_on_the_kernel_tile_matches_jax(dtype, layout):
+    """The plain version on the CUDA kernel's kv tile (the order of rounding
+    the kernel is held to on the card) against `_mh_fwd` with block_kv =
+    that tile: fp32 at 2e-5, bf16 o at 1e-2 and lse2 at 1e-4 (as above)."""
+    tile = KERNEL_KV_TILE[dtype]
+    T = 3 * KERNEL_KV_TILE[torch.bfloat16]
+    q, k, v, seg = _inputs(2, T, 2, 128, layout, seed=11)
+    scale = 1.0 / np.sqrt(128)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    jo, jl = _jax_mh_fwd(q, k, v, seg, True, tile, scale, jdt)
+    po, pl = _port(q, k, v, seg, True, tile, scale, dtype)
+    tol = 2e-5 if dtype == torch.float32 else 1e-2
+    np.testing.assert_allclose(po, jo, rtol=tol, atol=tol)
+    np.testing.assert_allclose(pl, jl, rtol=2e-5 if dtype == torch.float32 else 1e-5,
+                               atol=2e-5 if dtype == torch.float32 else 1e-4)
 
 
 def test_isolated_query_sees_only_itself():
@@ -208,6 +246,100 @@ def test_dispatch_matches_jax(monkeypatch, T, H, D, causal, segs, block_kv):
                       segment_ids=None if seg is None else torch.from_numpy(seg),
                       **common)
     assert got == want
+
+
+def _jax_path(monkeypatch, T, H, D, int8):
+    """The path the JAX dispatch takes for a call of this shape."""
+    seen = []
+    tag = lambda name: (lambda q, *a, **k: (seen.append(name), q)[1])
+    monkeypatch.setattr(jax_int8, "int8_flash_attention", tag("int8"))
+    monkeypatch.setattr(jax_flash, "flash_attention", tag("flash"))
+    monkeypatch.setattr(jax_attention, "xla_attention", tag("xla"))
+    x = jnp.zeros((1, T, H, D), jnp.float32)
+    jax_attention.attention(x, x, x, scale=0.1, int8=int8)
+    return seen[0]
+
+
+# The path of a bf16 call on a CUDA tensor at T = 256, by (D, H, int8):
+# the JAX dispatch's own route where the port builds that kernel, "raise"
+# where JAX runs a kernel the port does not build (flash at D 96 and 256,
+# int8 at D 256), "xla" where JAX itself runs no kernel.
+CUDA_PATHS = {
+    (64, 1, False): "flash", (64, 1, True): "flash",
+    (64, 8, False): "xla", (64, 8, True): "xla",
+    (96, 1, False): "raise", (96, 1, True): "raise",
+    (96, 8, False): "xla", (96, 8, True): "xla",
+    (128, 1, False): "flash", (128, 1, True): "int8",
+    (128, 8, False): "flash", (128, 8, True): "int8",
+    (256, 1, False): "raise", (256, 1, True): "raise",
+    (256, 8, False): "raise", (256, 8, True): "raise",
+}
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("H", [1, 8])
+@pytest.mark.parametrize("D", [64, 96, 128, 256])
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_attention_path(monkeypatch, device, D, H, int8):
+    """On the CPU the port routes exactly as the JAX dispatch; on a CUDA
+    tensor it takes the same route where its kernel is built (flash:
+    KERNEL_HEAD_DIMS, int8: 128) and raises NotImplementedError where the
+    JAX dispatch would run a kernel the port does not build."""
+    T = 256
+    jax_path = _jax_path(monkeypatch, T, H, D, int8)
+    if device == "cpu":
+        got = port_attention.attention_path(device, torch.bfloat16, T, H, D, int8)
+        assert got == jax_path
+        seen = []
+        tag = lambda name: (lambda q, *a, **k: (seen.append(name), q)[1])
+        for name in ("int8", "flash", "xla"):
+            attr = {"int8": "int8_flash_attention", "flash": "flash_attention",
+                    "xla": "xla_attention"}[name]
+            monkeypatch.setattr(port_attention, attr, tag(name))
+        x = torch.zeros(1, T, H, D)
+        port_attention.attention(x, x, x, scale=0.1, int8=int8)
+        assert seen == [got]
+        return
+    want = CUDA_PATHS[(D, H, int8)]
+    if want == "raise":
+        assert jax_path != "xla"
+        with pytest.raises(NotImplementedError, match=f"head_dim {D}"):
+            port_attention.attention_path(device, torch.bfloat16, T, H, D, int8)
+    else:
+        assert want == jax_path
+        assert port_attention.attention_path(
+            device, torch.bfloat16, T, H, D, int8) == want
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_attention_path_refuses_kernels_for_other_dtypes(int8):
+    """fp16 has no kernel on the card: a CUDA call the JAX dispatch would
+    send to a kernel raises; one it sends to the dense path still runs
+    there; on the CPU fp16 routes as JAX does."""
+    with pytest.raises(NotImplementedError, match="float16"):
+        port_attention.attention_path("cuda", torch.float16, 256, 8, 128, int8)
+    assert port_attention.attention_path("cuda", torch.float16, 256, 8, 64, int8) == "xla"
+    assert port_attention.attention_path("cpu", torch.float16, 256, 8, 128,
+                                         int8) == ("int8" if int8 else "flash")
+
+
+def test_cpu_route_at_head_dim_256_matches_jax():
+    """D = 256 has no CUDA kernel, but on the CPU it takes the flash route
+    as in JAX (the plain version there, the Pallas kernel in interpret mode
+    here): fp32 o at rtol 2e-5 / atol 2e-5."""
+    B, T, H, D = 1, 256, 2, 256
+    q, k, v, seg = _inputs(B, T, H, D, "packed", seed=9)
+    scale = 1.0 / np.sqrt(D)
+    jcos, jsin = jax_rope_tables(D, T)
+    with pltpu.force_tpu_interpret_mode():
+        want = jax_attention.attention(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale=scale,
+            segment_ids=jnp.asarray(seg), rope=(jcos, jsin))
+    assert port_attention.attention_path("cpu", torch.float32, T, H, D, False) == "flash"
+    got = port_attention.attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), scale=scale,
+        segment_ids=torch.from_numpy(seg), rope=rope_tables(D, T))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.parametrize("causal,segs", [(False, True), (True, False),

@@ -151,6 +151,26 @@ def test_plain_skip_on_equals_skip_off_bit_for_bit(layout, dtype, rate):
         assert torch.equal(g, w) and torch.equal(s, w)
 
 
+@pytest.mark.parametrize("layout", ["packed", "padded", "unsorted"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_plain_skip_on_equals_off_on_the_forward_kernel_tiles(layout, rate):
+    """The bf16 forward kernel's own tiles (KERNEL_TILES['fwd'], the bounds
+    it is given on the card): tiles are pruned, and the plain forward with
+    skipping equals the full walk bit for bit."""
+    bq, bkv = port_flash.KERNEL_TILES["fwd"][torch.bfloat16]
+    q, k, v, _, seg = _inputs(layout, seed=7)
+    q, k, v = (torch.from_numpy(x).bfloat16() for x in (q, k, v))
+    seg_t, rope = torch.from_numpy(seg), rope_tables(D, T)
+    sb = SegmentBounds(seg_t)
+    lo, hi = sb.get(bq, bkv)
+    assert int((hi - lo + 1).sum()) < B * (T // bq) * (T // bkv)
+    kw = dict(scale=SCALE, dropout_rate=rate, seed=5, block_kv=bkv)
+    off = mh_flash_forward_plain(q, k, v, seg_t, rope, **kw)
+    on = mh_flash_forward_plain(q, k, v, seg_t, rope, block_q=bq,
+                                segment_skip=True, bounds=sb, **kw)
+    assert torch.equal(on[0], off[0]) and torch.equal(on[1], off[1])
+
+
 def test_a_wrong_bound_changes_the_result():
     """The bit-identity above is a test of the bounds: cutting one visible
     tile off a q block's range moves o."""
@@ -357,7 +377,8 @@ def test_split_wrappers_route_cpu_tensors_to_the_plain_versions(monkeypatch):
     monkeypatch.setattr(_kernels, "load_library", refuse)
     monkeypatch.setattr(_kernels, "build_all", refuse)
     before = dict(_kernels.LAUNCHES)
-    assert set(before) == {"mh_flash_fwd", "mh_flash_bwd", "mh_flash_bwd_mk",
+    assert set(before) == {"mh_flash_fwd", "mh_flash_fwd_dots", "mh_flash_bwd",
+                           "mh_flash_bwd_mk",
                            "mh_flash_bwd_dkv", "mh_flash_bwd_dq", "int8_flash_fwd",
                            "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
                            "roofline_dots", "roofline_dots_n", "roofline2_dots",

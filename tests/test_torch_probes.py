@@ -86,6 +86,18 @@ def test_dots_only_matches_pallas(B, T, bq, bkv):
     _hold(roofline.dots_only(xt, xt, xt, bq, bkv), want)
 
 
+@pytest.mark.parametrize("B,T", [(1, 256), (2, 384)])
+def test_fwd_products_matches_pallas(B, T):
+    """#1's kernel with its products alone is `dots_only` on 128-row kv
+    tiles: on the CPU its plain version, held against the Pallas probe."""
+    (x,) = _x(B, T, seed=2)
+    want = _jax("roofline.py", "dots_only", x, 128, 128)
+    xt = _bf16(x)
+    before = dict(_kernels.LAUNCHES)
+    _hold(roofline.fwd_products(xt, xt, xt), want)
+    assert _kernels.LAUNCHES == before
+
+
 @pytest.mark.parametrize("T,bq,bkv,n_dots", [(512, 128, 256, 3), (256, 128, 128, 3),
                                              (512, 256, 256, 4)],
                          ids=["3dot-bq<bkv-2kv", "3dot-bq=bkv", "4dot-2kv"])
