@@ -15,9 +15,11 @@ toolkit and g++. It
      padded and dense segment layouts: the forward without dropout (the
      serving path) and with dropout 0.1 (and at head dim 64, packed, with
      and without dropout), the backward at dropout 0 and
-     0.1 (and once at T=2048); and times each kernel, its plain version
+     0.1 (and once at T=2048, and at head dim 64); refuses a bf16 fused
+     backward at T=192 at the wrapper; times each kernel, its plain version
      and one PyTorch library call that computes the same function, and
-     holds kernel against plain once more at the very shape it timed;
+     holds kernel against plain once more at the very shape it timed,
+     where the fused backward's walked tiles meet its bounds' count;
   3. serving slice: builds the `Encoder` at omnibiote-small full width (8
      layers, d 1024, 8 heads of 128, vocab 65536, bf16 compute, random
      weights from a seed, a BPE vocabulary trained on synthetic sequences),
@@ -80,9 +82,10 @@ toolkit and g++. It
      heads) and #1's own kernel with its products alone (`fwd_products`)
      against their plain versions at H=2, T 256, 512 and 1024 and at the
      probes' shape B=8, T=1024, H=8, with 64- and 128-row CTAs; each timed
-     beside its plain version, its bound and a PyTorch library call; then
-     both probe tables, whose launches are the rows' counts, and #1's
-     split into its products and the rest;
+     beside its plain version, its bound and a PyTorch library call; #2's
+     kernel with its products alone (`bwd_products`, dq, dk and dv) against
+     its plain version likewise; then both probe tables, whose launches are
+     the rows' counts, and #1's and #2's splits into products and the rest;
  12. prints the card's name and power limit, one JSON line of kernel
      numbers, and last the line {"ok": true, "device": {...}}.
 
@@ -188,11 +191,13 @@ def build():
                     print(f"  {name}: {entry}: {regs} registers, {spill} bytes of spill "
                           f"stores, {stack} bytes of stack frame")
                 entry = None
-    # the bf16 forward's CTA: 384 threads, setmaxnreg 24 (producer) / 240
-    # (consumers), dynamic shared memory as its launch asks
-    lib = _kernels.load_library("mh_flash_fwd")
-    print("  mh_flash_fwd: mh_fwd_bf16 dynamic shared memory a CTA: " + ", ".join(
-        f"D={d} {lib.obt_mh_flash_fwd_smem_bytes(d)} bytes" for d in (64, 128)))
+    # the bf16 forward's and fused backward's CTAs: 384 threads, setmaxnreg
+    # 24 (producer) / 240 (consumers), dynamic shared memory as their launches
+    # ask
+    for name, kernel in (("mh_flash_fwd", "mh_fwd_bf16"), ("mh_flash_bwd", "mh_bwd_fused_bf16")):
+        smem_bytes = getattr(_kernels.load_library(name), f"obt_{name}_smem_bytes")
+        print(f"  {name}: {kernel} dynamic shared memory a CTA: " + ", ".join(
+            f"D={d} {smem_bytes(d)} bytes" for d in (64, 128)))
 
 
 # ---------------------------------------------------------------------------
@@ -399,57 +404,73 @@ def train_kernel_phase():
     import torch.nn.functional as F
     from omnibiote_tpu_torch.models.rope import apply_rope_half
     from omnibiote_tpu_torch.ops.flash_attention import (
-        KERNEL_KV_TILE, SegmentBounds, mh_flash_backward,
+        KERNEL_KV_TILE, KERNEL_TILES, SegmentBounds, mh_flash_backward,
         mh_flash_backward_kernel, mh_flash_backward_plain, mh_flash_forward,
         mh_flash_forward_plain)
 
     H, D = 8, 128
     scale = 1.0 / math.sqrt(D)
-    cases = [(4, 1024, dt, lay) for dt in ("bfloat16", "float32")
-             for lay in ("packed", "padded", "dense")] + [(2, 2048, "bfloat16", "packed")]
-    for i, (B, T, dtype, layout) in enumerate(cases):
+    cases = [(4, 1024, dt, lay, D) for dt in ("bfloat16", "float32")
+             for lay in ("packed", "padded", "dense")] + [(2, 2048, "bfloat16", "packed", D)]
+    # head dim 64: no main path has it, but the bf16 kernels are built for it
+    cases += [(4, 1024, "bfloat16", "packed", 64)]
+    for i, (B, T, dtype, layout, hd) in enumerate(cases):
         tdt = getattr(torch, dtype)
-        q, k, v, seg, rope = _attn_inputs(B, T, H, D, tdt, layout, seed=100 + i)
+        sc = 1.0 / math.sqrt(hd)
+        q, k, v, seg, rope = _attn_inputs(B, T, H, hd, tdt, layout, seed=100 + i)
         gen = torch.Generator(device="cuda").manual_seed(200 + i)
-        do = torch.randn(B, T, H, D, generator=gen, device="cuda").to(tdt)
+        do = torch.randn(B, T, H, hd, generator=gen, device="cuda").to(tdt)
         seed = 0x9E3779B97F4A7C15 + i
         rt, at = TOL[dtype]["o"]
         rl, al = TOL[dtype]["lse"]
         if T == 1024:
-            o, lse = mh_flash_forward(q, k, v, seg, rope, scale=scale,
+            o, lse = mh_flash_forward(q, k, v, seg, rope, scale=sc,
                                       dropout_rate=TRAIN_DROPOUT, seed=seed)
             torch.cuda.synchronize()
             po, plse = mh_flash_forward_plain(
-                q, k, v, seg, rope, scale=scale, block_kv=KERNEL_KV_TILE[tdt],
+                q, k, v, seg, rope, scale=sc, block_kv=KERNEL_KV_TILE[tdt],
                 dropout_rate=TRAIN_DROPOUT, seed=seed)
             check(torch.isfinite(o.float()).all() and torch.isfinite(lse).all(),
                   f"non-finite forward output at {(B, T, dtype, layout)}")
             err_o = (o.float() - po.float()).abs().max().item()
-            print(f"fwd dropout {TRAIN_DROPOUT} vs plain B={B} T={T} {dtype:8s} "
+            print(f"fwd dropout {TRAIN_DROPOUT} vs plain B={B} T={T} D={hd} {dtype:8s} "
                   f"{layout:6s}: max|do| {err_o:.3e} (rtol {rt}, atol {at}) "
                   f"max|dlse2| {(lse - plse).abs().max().item():.3e}")
             check(torch.allclose(o.float(), po.float(), rtol=rt, atol=at)
                   and torch.allclose(lse, plse, rtol=rl, atol=al),
                   f"forward with dropout disagrees at {(B, T, dtype, layout)}")
         for rate in ((0.0, TRAIN_DROPOUT) if T == 1024 else (TRAIN_DROPOUT,)):
-            po, plse = mh_flash_forward_plain(q, k, v, seg, rope, scale=scale,
+            po, plse = mh_flash_forward_plain(q, k, v, seg, rope, scale=sc,
                                               dropout_rate=rate, seed=seed)
             di = (po.float() * do.float()).sum(-1)
             got = mh_flash_backward_kernel(q, k, v, do, plse, di, seg, rope,
-                                           scale=scale, dropout_rate=rate, seed=seed)
+                                           scale=sc, dropout_rate=rate, seed=seed)
             torch.cuda.synchronize()
             want = mh_flash_backward_plain(q, k, v, do, plse, di, seg, rope,
-                                           scale=scale, dropout_rate=rate, seed=seed)
+                                           scale=sc, dropout_rate=rate, seed=seed)
             errs = [_rel_err(g, w) for g, w in zip(got, want)]
-            print(f"bwd dropout {rate} vs plain B={B} T={T} {dtype:8s} {layout:6s}: "
+            print(f"bwd dropout {rate} vs plain B={B} T={T} D={hd} {dtype:8s} {layout:6s}: "
                   f"max|d|/max|g| dq {errs[0]:.2e} dk {errs[1]:.2e} dv {errs[2]:.2e} "
                   f"(tolerance {BWD_TOL[dtype]})")
             check(all(torch.isfinite(g.float()).all() for g in got),
                   f"non-finite backward output at {(B, T, dtype, layout, rate)}")
             check(max(errs) <= BWD_TOL[dtype],
-                  f"backward kernel disagrees at {(B, T, dtype, layout, rate)}")
+                  f"backward kernel disagrees at {(B, T, hd, dtype, layout, rate)}")
             del got, want
         del q, k, v, do
+
+    # a bf16 call at a T off the kernel's 128-row multiple is refused at the
+    # wrapper: no kernel, no plain version
+    x = torch.zeros(1, 192, H, D, dtype=torch.bfloat16, device="cuda")
+    rows = torch.zeros(1, 192, H, device="cuda")
+    refused = None
+    try:
+        mh_flash_backward_kernel(x, x, x, x, rows, rows, scale=scale)
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None and "multiple of 128" in refused,
+          f"the bf16 fused backward at T=192: {refused or 'ran'}")
+    print(f"bf16 fused backward at T=192 refused: {refused}")
 
     # timing at the training shape: bf16, RoPE, bench.py's rows (three EOS
     # each), dropout 0.1, segment skipping on as the main path has it (and
@@ -476,8 +497,14 @@ def train_kernel_phase():
         seed=seed, segment_skip=True, bounds=bounds)
     bwd_ms = cuda_ms(bwd, 20)
     # both kernels against their plain versions at this shape, as the main
-    # path calls them
+    # path calls them; the fused backward's walk against its bounds
     shape = f"the training shape B={B} T={T}"
+    bq, bkv = KERNEL_TILES["fused"][torch.bfloat16]
+    lo, hi = bounds.get(bkv, bq)
+    n_walk = H * int((hi - lo + 1).sum())
+    _walked(lambda c: mh_flash_backward_kernel(
+        q, k, v, do, lse, di, seg, rope, scale=scale, dropout_rate=rate, seed=seed,
+        tile_bounds=(lo, hi), tile_count=c), n_walk, f"fused backward at {shape}")
     worst_f = _hold_fwd((o, lse), mh_flash_forward_plain(
         q, k, v, seg, rope, scale=scale, dropout_rate=rate, seed=seed,
         block_kv=KERNEL_KV_TILE[torch.bfloat16]), "bfloat16", shape)
@@ -511,7 +538,8 @@ def train_kernel_phase():
     fwd_bound, fwd_by = _attn_bound(B, T, H, D, pairs)
     bwd_bound, bwd_by = _bwd_bound(B, T, H, D, pairs)
     print(f"training shape B={B} T={T} H={H} D={D} bf16, 3 EOS a row (visible "
-          f"share of (q, k) pairs {pairs / (B * T * T):.4f}), dropout {rate}: "
+          f"share of (q, k) pairs {pairs / (B * T * T):.4f}; the fused backward walks "
+          f"{n_walk} of {H * B * (T // bq) * (T // bkv)} {bkv}x{bq} tiles), dropout {rate}: "
           f"mh_flash_fwd {fwd_ms:.4f} ms with skipping, {fwd_noskip_ms:.4f} "
           f"without (plain {fwd_plain_ms:.4f}, SDPA dense {lib_fwd_ms:.4f}, bound "
           f"{fwd_bound:.4f} {fwd_by} over visible pairs, "
@@ -980,17 +1008,21 @@ def longctx_kernel_phase():
         kw = dict(scale=scale, dropout_rate=rate, seed=0xD1B54A32D192ED03 + i)
         tq, tkv = fa.KERNEL_TILES["fwd"][tdt]
         dq_q, dq_kv = fa.KERNEL_TILES["dq"][tdt]
-        bq, bkv = fa.KERNEL_TILES["bwd"][tdt]
+        bq, bkv = fa.KERNEL_TILES["fused"][tdt]
+        kq, kkv = fa.KERNEL_TILES["dkv"][tdt]
         sb = None if seg is None else fa.SegmentBounds(seg)
         kv_b = None if sb is None else sb.get(tq, tkv)          # per forward q tile
         dq_b = None if sb is None else sb.get(dq_q, dq_kv)      # per dq q tile
-        q_b = None if sb is None else sb.get(bkv, bq)           # per kv tile
+        q_b = None if sb is None else sb.get(bkv, bq)           # per fused kv tile
+        dkv_b = None if sb is None else sb.get(kkv, kq)         # per dkv kv tile
         n_kv = H * (B * (T // tq) * (T // tkv) if sb is None
                     else int((kv_b[1] - kv_b[0] + 1).sum()))
         n_dq = H * (B * (T // dq_q) * (T // dq_kv) if sb is None
                     else int((dq_b[1] - dq_b[0] + 1).sum()))
         n_q = H * (B * (T // bkv) * (T // bq) if sb is None
                    else int((q_b[1] - q_b[0] + 1).sum()))
+        n_dkv = H * (B * (T // kkv) * (T // kq) if sb is None
+                     else int((dkv_b[1] - dkv_b[0] + 1).sum()))
 
         # forward: bounds against the full walk (bit for bit), against plain
         o, lse = _walked(lambda c: fa.mh_flash_forward_kernel(
@@ -1025,7 +1057,7 @@ def longctx_kernel_phase():
               f"fused backward with bounds: dq differs from the full walk at {tag}")
         # split pair: each against the full walk and a second launch, bit for bit
         dkv = _walked(lambda c: fa.mh_flash_bwd_dkv_kernel(
-            *args, tile_bounds=q_b, tile_count=c, **kw), n_q, f"dkv {tag}")
+            *args, tile_bounds=dkv_b, tile_count=c, **kw), n_dkv, f"dkv {tag}")
         dkv_all = fa.mh_flash_bwd_dkv_kernel(*args, **kw)
         check(torch.equal(dkv[0], dkv_all[0]) and torch.equal(dkv[1], dkv_all[1]),
               f"dkv kernel with bounds differs from the full walk at {tag}")
@@ -1043,8 +1075,9 @@ def longctx_kernel_phase():
         e_fs = [_rel_err(g, w) for g, w in zip(mk, (dq, *dkv))]
         print(f"long kernels {tag}: tiles walked fwd {n_kv} of "
               f"{H * B * (T // tq) * (T // tkv)}, dq {n_dq} of "
-              f"{H * B * (T // dq_q) * (T // dq_kv)}, bwd/dkv {n_q} of "
-              f"{H * B * (T // bkv) * (T // bq)}; fwd max|do| {err_o:.3e} (rtol {rt}, "
+              f"{H * B * (T // dq_q) * (T // dq_kv)}, fused {n_q} of "
+              f"{H * B * (T // bkv) * (T // bq)}, dkv {n_dkv} of "
+              f"{H * B * (T // kkv) * (T // kq)}; fwd max|do| {err_o:.3e} (rtol {rt}, "
               f"atol {at}); max|d|/max|g| vs plain (dq, dk, dv): fused "
               f"{e_mk[0]:.2e} {e_mk[1]:.2e} {e_mk[2]:.2e}, split {e_sp[0]:.2e} "
               f"{e_sp[1]:.2e} {e_sp[2]:.2e}; fused vs split {max(e_fs):.2e} "
@@ -1115,7 +1148,9 @@ def longctx_kernel_phase():
         err_f = _hold_fwd(got["mh_flash_fwd"], fa.mh_flash_forward_plain(
             q, k, v, seg, rope, block_q=fq, block_kv=fkv, segment_skip=True,
             bounds=sb, **kw), "bfloat16", shape)
-        want = fa.mh_flash_backward_plain(*args, block_q=32, block_kv=64,
+        bq, bkv = fa.KERNEL_TILES["fused"][torch.bfloat16]
+        kq, kkv = fa.KERNEL_TILES["dkv"][torch.bfloat16]
+        want = fa.mh_flash_backward_plain(*args, block_q=bq, block_kv=bkv,
                                           segment_skip=True, bounds=sb, **kw)
         held = {"mk": _hold_bwd(got["mh_flash_bwd_mk"], want, "bfloat16", f"{shape} (fused)"),
                 "dkv": _hold_bwd(got["mh_flash_bwd_dkv"], want[1:], "bfloat16", f"{shape} (dkv)"),
@@ -1133,13 +1168,15 @@ def longctx_kernel_phase():
                   **{f"mh_flash_bwd_{n}": (_bwd_bound(B, T, H, D, pairs, kind),
                                            _bwd_bound(B, T, H, D, None, kind))
                      for n, kind in (("mk", "fused"), ("dkv", "dkv"), ("dq", "dq"))}}
-        kvb, qb = sb.get(fq, fkv), sb.get(64, 32)
+        kvb, qb, kb = sb.get(fq, fkv), sb.get(bkv, bq), sb.get(kkv, kq)
         print(f"long shape B={B} T={T} H={H} D={D} bf16, {LONG_EOS} EOS a row, dropout "
               f"{TRAIN_DROPOUT}: visible share of (q, k) pairs {pairs / (B * T * T):.4f}, "
               f"walked share of the forward's {fq}x{fkv} tiles "
               f"{int((kvb[1] - kvb[0] + 1).sum()) / (B * (T // fq) * (T // fkv)):.4f}, "
-              f"of the backward's 64x32 tiles "
-              f"{int((qb[1] - qb[0] + 1).sum()) / (B * (T // 64) * (T // 32)):.4f}")
+              f"of the fused backward's {bkv}x{bq} tiles "
+              f"{int((qb[1] - qb[0] + 1).sum()) / (B * (T // bkv) * (T // bq)):.4f}, "
+              f"of the dkv kernel's {kkv}x{kq} tiles "
+              f"{int((kb[1] - kb[0] + 1).sum()) / (B * (T // kkv) * (T // kq)):.4f}")
         for n in kernels:
             (b_vis, by), (b_all, _) = bounds[n]
             print(f"  {n}: {ms[n][0]:.4f} ms with skipping, {ms[n][1]:.4f} ms without; "
@@ -1156,9 +1193,9 @@ def longctx_kernel_phase():
         # as (forward + backward) - forward through autograd
         plain_ms = {
             "mh_flash_bwd_mk": cuda_ms(lambda: fa.mh_flash_backward_plain(
-                *args, block_q=32, block_kv=64, segment_skip=True, bounds=sb, **kw), 2, warmup=1),
+                *args, block_q=bq, block_kv=bkv, segment_skip=True, bounds=sb, **kw), 2, warmup=1),
             "mh_flash_bwd_dkv": cuda_ms(lambda: fa.mh_flash_bwd_dkv_plain(
-                *args, block_q=32, block_kv=64, segment_skip=True, bounds=sb, **kw), 2, warmup=1),
+                *args, block_q=kq, block_kv=kkv, segment_skip=True, bounds=sb, **kw), 2, warmup=1),
             "mh_flash_bwd_dq": cuda_ms(lambda: fa.mh_flash_bwd_dq_plain(
                 *args, block_q=64, block_kv=64, segment_skip=True, bounds=sb, **kw), 2, warmup=1),
         }
@@ -1895,8 +1932,9 @@ def probe_phase():
     are the rows' counts. Returns the four `kernels` rows."""
     import numpy as np
     import torch
+    from omnibiote_tpu_torch.models.rope import rope_tables
     from omnibiote_tpu_torch.ops import _kernels
-    from omnibiote_tpu_torch.ops.flash_attention import flash_attention
+    from omnibiote_tpu_torch.ops import flash_attention as fa
     from omnibiote_tpu_torch.probes import roofline as r1, roofline2 as r2
 
     def hold(name, got, want, tag):
@@ -1919,14 +1957,18 @@ def probe_phase():
                 for name, kern, plain in _probe_calls(q, k, v, kx, bq, bkv, cta):
                     hold(name, kern(), plain(), f"B={B} T={T} bq={bq} bkv={bkv} cta={cta}")
                     n += 1
-    # #1's kernel with its products alone (the DOTS instance) on distinct
-    # q, k, v: a wrong wgmma descriptor or swizzle gives plausible numbers
+    # #1's and #2's kernels with their products alone (the DOTS instances)
+    # on distinct q, k, v, do: a wrong wgmma descriptor or swizzle gives
+    # plausible numbers
     for B, T in ((1, 512), (2, 256), (2, 1024)):
         rng = np.random.default_rng(7 * T + B)
-        q, k, v = (r1.normal_bf16(rng, (B, T, 2, 128), "cuda") * 0.1 for _ in range(3))
+        q, k, v, do = (r1.normal_bf16(rng, (B, T, 2, 128), "cuda") * 0.1 for _ in range(4))
         hold("mh_flash_fwd_dots", r1.fwd_products(q, k, v), r1.dots_only_plain(q, k, v, 128, 128),
              f"B={B} T={T}")
-        n += 1
+        for g, w, what in zip(r1.bwd_products(q, k, v, do), r1.bwd_products_plain(q, k, v, do),
+                              ("dq", "dk", "dv")):
+            hold("mh_flash_bwd_dots", g, w, f"B={B} T={T} ({what})")
+        n += 4
     torch.cuda.synchronize()
     print(f"probe kernels vs plain: {n} small cases (H=2, T 256, 512 and 1024) within "
           f"{PROBE_TOL} of max|o|")
@@ -1947,6 +1989,9 @@ def probe_phase():
                 omax[name] = max(omax.get(name, 0.0), want.float().abs().max().item())
     prod_err = hold("mh_flash_fwd_dots", r1.fwd_products(q, q, q),
                     r1.dots_only_plain(q, q, q, 128, 128), "the probes' shape")
+    bprod_err = max(hold("mh_flash_bwd_dots", g, w, f"the probes' shape ({what})")
+                    for g, w, what in zip(r1.bwd_products(q, q, q, q),
+                                          r1.bwd_products_plain(q, q, q, q), ("dq", "dk", "dv")))
     torch.cuda.synchronize()
 
     qb = q.permute(0, 2, 1, 3).reshape(B * H, T, D)
@@ -1982,7 +2027,16 @@ def probe_phase():
     # quarter
     q4 = q.reshape(2, 4 * T, H, D)
     prod_long_ms = cuda_ms(lambda: r1.fwd_products(q4, q4, q4), 20)
-    del qb, kb, x, qh, q4
+    # #2 whole on the same input, dense, without and with RoPE and dropout
+    # (the training path's), to split it into its products and the rest
+    scale = 8.0 / 1024
+    bwd_full = {}
+    for rope, rate in ((None, 0.0), (rope_tables(D, T, device="cuda"), TRAIN_DROPOUT)):
+        o, lse = fa.mh_flash_forward(q, q, q, None, rope, scale=scale, dropout_rate=rate, seed=5)
+        di = (o.float() * q.float()).sum(-1)
+        bwd_full[rate] = cuda_ms(lambda: fa.mh_flash_backward_kernel(
+            q, q, q, q, lse, di, None, rope, scale=scale, dropout_rate=rate, seed=5), 20)
+    del qb, kb, x, qh, q4, o, lse, di
 
     # the probes' entry points: both tables, every count at 0 just before
     _kernels.reset_launches()
@@ -2005,6 +2059,15 @@ def probe_phase():
           f"128-/64-row CTA: #10 {table['dots-only fwd bq=512 bkv=1024 cta=128'] / dots:.3f}, "
           f"#11 {table['dots-only 4-dot bq=512 bkv=512 cta=128'] / table['dots-only 4-dot bq=512 bkv=512 cta=64']:.3f}, "
           f"#13 {table['scores-only kt=0 bq=512 bkv=1024 cta=128'] / table['scores-only kt=0 bq=512 bkv=1024 cta=64']:.3f}")
+
+    bprod = table["products  bwd #2's kernel (wgmma, 64x128 tiles)"]
+    print(f"#2 dense at B={B} T={T} (no dropout, no RoPE) {bwd_full[0.0]:.4f} ms = its "
+          f"products alone (wgmma, TMA ring, dq reduce-add, its own CTA) {bprod:.4f} ms "
+          f"({bprod / bwd_full[0.0]:.3f}, {2.5 * fwd / (bprod * 1e-3) / 1e12:.1f} TFLOP/s) "
+          f"+ scores, softmax and ds {bwd_full[0.0] - bprod:.4f} ms; with RoPE and dropout "
+          f"{TRAIN_DROPOUT} {bwd_full[TRAIN_DROPOUT]:.4f} ms; the mma.sync dkv mix #11 "
+          f"(4 products) {table['dots-only 4-dot bq=512 bkv=512 cta=64']:.4f} ms; products "
+          f"vs plain max|d| {bprod_err:.3e}")
 
     rows = []
     for name, line in (("roofline_dots", 54), ("roofline_dots_n", 163),

@@ -1,12 +1,14 @@
 // Pieces shared by the multi-head flash attention kernels (forward and
 // backward): the JAX package's rounding points for RoPE and the masked
-// log2-space scores, mma.sync / ldmatrix / cp.async wrappers, and the
-// RoPE pre-rotation kernels.
+// log2-space scores, mma.sync / ldmatrix / cp.async wrappers, the RoPE
+// pre-rotation kernels, and rows rotated into swizzled wgmma panels.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace obt {
 
@@ -87,6 +89,45 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)) : "memory");
+}
+
+// Rows src + r * ld (r < n_rows, D bf16 columns each) into rows dst_r0 + r
+// of a 128-byte-swizzled tile of tile_rows rows at dst (hopper.cuh),
+// rotated (rotate-half in fp32 from the cos/sin half tables at sequence
+// position t0 + r, rounded) when cos_t is non-null, else copied. Thread tid
+// of n_threads takes every n_threads-th (row, 8 columns of each half) item.
+template <int D>
+__device__ __forceinline__ void rows_to_panels(unsigned char* dst, int tile_rows, int dst_r0,
+                                               const __nv_bfloat16* src, size_t ld,
+                                               int n_rows, const float* cos_t,
+                                               const float* sin_t, int t0, int tid,
+                                               int n_threads) {
+  constexpr int HALF = D / 2;
+  for (int it = tid; it < n_rows * (HALF / 8); it += n_threads) {
+    const int r = it / (HALF / 8), c8 = (it % (HALF / 8)) * 8;
+    const __nv_bfloat16* p = src + (size_t)r * ld + c8;
+    uint4 lo = *reinterpret_cast<const uint4*>(p);
+    uint4 hi = *reinterpret_cast<const uint4*>(p + HALF);
+    if (cos_t != nullptr) {
+      const float* cp = cos_t + (size_t)(t0 + r) * HALF + c8;
+      const float* sp = sin_t + (size_t)(t0 + r) * HALF + c8;
+      const __nv_bfloat162* x1 = reinterpret_cast<const __nv_bfloat162*>(&lo);
+      const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&hi);
+      uint32_t yl[4], yh[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 u = __bfloat1622float2(x1[e]), w = __bfloat1622float2(x2[e]);
+        const float2 c = *reinterpret_cast<const float2*>(cp + 2 * e);
+        const float2 s = *reinterpret_cast<const float2*>(sp + 2 * e);
+        yl[e] = pack_bf16(rope_lo(u.x, w.x, c.x, s.x), rope_lo(u.y, w.y, c.y, s.y));
+        yh[e] = pack_bf16(rope_hi(u.x, w.x, c.x, s.x), rope_hi(u.y, w.y, c.y, s.y));
+      }
+      lo = make_uint4(yl[0], yl[1], yl[2], yl[3]);
+      hi = make_uint4(yh[0], yh[1], yh[2], yh[3]);
+    }
+    *reinterpret_cast<uint4*>(dst + swizzled_offset(tile_rows, dst_r0 + r, c8)) = lo;
+    *reinterpret_cast<uint4*>(dst + swizzled_offset(tile_rows, dst_r0 + r, c8 + HALF)) = hi;
+  }
 }
 
 // ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the port's kernels: mbarriers, TMA
-// tiled and bulk loads into shared memory, warpgroup matrix products
-// (wgmma) with their shared-memory descriptors, named barriers, register
-// rebalancing between warpgroups, and the host-side tensor map of a
-// row-major bf16 matrix in 128-byte-swizzled panels.
+// tiled and bulk loads into shared memory and bulk fp32 reductions out of
+// it, warpgroup matrix products (wgmma) with their shared-memory
+// descriptors, named barriers, register rebalancing between warpgroups,
+// and the host-side tensor map of a row-major bf16 matrix in
+// 128-byte-swizzled panels.
 //
 // Shared-memory tiles. A tile of R rows x C bf16 columns lives as C / 64
 // panels of R rows x 128 bytes, the layout a TMA load with
@@ -96,6 +97,32 @@ __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// global[0..bytes) += shared[0..bytes) in fp32, element by element, by the
+// TMA unit (bytes a multiple of 16, both addresses 16-byte aligned); one
+// bulk group of the issuing thread
+__device__ __forceinline__ void bulk_reduce_add_f32(float* dst, const float* src,
+                                                    uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n"
+      ::"l"(dst), "r"(shared_addr(src)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// until at most N of this thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// until at most N of this thread's bulk groups are still in flight
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // Warpgroups: named barriers, register rebalancing
 // ---------------------------------------------------------------------------
@@ -145,6 +172,14 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
+// x, as a value the compiler cannot see through: an address computed from it
+// where it is used stays there, instead of being hoisted out of a loop and
+// held in a register across it.
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
 // Keep the compiler from reading or moving accumulator registers across an
 // asynchronous product that is still writing them.
 template <int N>
@@ -182,6 +217,25 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t da,
       "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
       "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64, fp32) (+)= A (64 x 16, bf16, shared) . B (16 x 64, bf16,
+// shared); TA / TB set the transpose bit of A / B (MN-major operand: M or N
+// along the panel row); scale_d == 0 overwrites D.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t da,
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
 // D (64 x 128, fp32) (+)= A (64 x 16, bf16, registers) . B (16 x 128, bf16,

@@ -13,10 +13,9 @@
 // Design. The TPU kernel's grid is (batch, kv block, q block) with q as the
 // sequential axis and dk/dv accumulators in VMEM scratch. Here one block owns
 // (batch, head, 64-row kv tile), keeps dk and dv in fp32 registers and loops
-// over 32-row q tiles streamed through a two-stage cp.async ring: the fused
-// kernel (mh_flash_bwd_kernels.cuh, WITH_DQ = false) without the dS^T tile
-// in shared memory, the dS.K product, the atomics and the fp32 dq scratch.
-// Four products a tile (S^T, dP^T, dV, dK). With q_lo / q_hi it walks only
+// over 32-row q tiles streamed through a two-stage cp.async ring
+// (mh_flash_bwd_kernels.cuh::mh_bwd_bf16, mma.sync m16n8k16 fed by
+// ldmatrix). Four products a tile (S^T, dP^T, dV, dK). With q_lo / q_hi it walks only
 // the q tiles whose segment-id range meets its kv tile's (the TPU kernel's
 // use_bounds); a skipped tile would have added exact zeros, so dk and dv
 // are bit for bit those of the full walk.
@@ -47,14 +46,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
     k = k_rot;
   }
   if (bf16) {
-    const size_t smem = bwd_bf16_smem_bytes<D, false>();
+    const size_t smem = bwd_bf16_smem_bytes<D>();
     const cudaError_t e = cudaFuncSetAttribute(
-        mh_bwd_bf16<D, DROP, false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        mh_bwd_bf16<D, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
-    mh_bwd_bf16<D, DROP, false><<<dim3(T / kKvTile, H, B), 128, smem, st>>>(
+    mh_bwd_bf16<D, DROP><<<dim3(T / kDkvKvTile, H, B), 128, smem, st>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-        lse, di, seg, cos_t, sin_t, q_lo, q_hi, tile_count, nullptr,
+        lse, di, seg, cos_t, sin_t, q_lo, q_hi, tile_count,
         static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), T, H,
         scale_log2, scale, dp);
   } else {
@@ -108,7 +107,7 @@ extern "C" int obt_mh_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                     int dtype, int drop, uint32_t thresh,
                                     float keep_scale, uint64_t seed,
                                     void* stream) {
-  if ((dtype != 0 && dtype != 1) || T < kKvTile || T % kKvTile != 0 || B < 1 ||
+  if ((dtype != 0 && dtype != 1) || T < kDkvKvTile || T % kDkvKvTile != 0 || B < 1 ||
       B > 65535 || H < 1 || H > 65535 ||
       (cos_t != nullptr && (sin_t == nullptr || q_rot == nullptr || k_rot == nullptr)) ||
       ((q_lo == nullptr) != (q_hi == nullptr)))

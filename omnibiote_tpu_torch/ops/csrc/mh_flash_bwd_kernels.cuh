@@ -1,6 +1,8 @@
 // Kernels of the multi-head flash attention backward shared by the fused
-// entry (mh_flash_bwd.cu: dq, dk, dv) and the dk/dv half of the split pair
-// (mh_flash_bwd_dkv.cu); see those files for what each replaces.
+// entry (mh_flash_bwd.cu: the fp32 kernel with dq and its dq epilogue) and
+// the dk/dv half of the split pair (mh_flash_bwd_dkv.cu: both dtypes); see
+// those files for what each replaces. The bf16 fused kernel is Hopper's own
+// (mh_flash_bwd.cu).
 //
 // Segment skipping. With q_lo / q_hi non-null, int32 (B, T / kv tile) in
 // units of q tiles, a block walks only the q tiles q_lo..q_hi of its
@@ -26,27 +28,24 @@ __device__ __forceinline__ uint32_t pick(const Philox4& u, int w) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: 4 warps; a block owns 64 kv rows (16 a warp) and walks 32-row q
-// tiles. Fragment layout of m16n8k16 as in mh_flash_fwd.cu; the accumulator
-// rows are kv rows j, its columns q rows i.
+// bf16 dk/dv (the split pair's dkv kernel): 4 warps; a block owns 64 kv rows
+// (16 a warp) and walks 32-row q tiles. mma.sync m16n8k16 (g = lane / 4,
+// t4 = lane % 4: a thread holds accumulator rows g, g + 8 and columns
+// 2 t4, 2 t4 + 1 of each 16 x 8 n-tile); the accumulator rows are kv rows
+// j, its columns q rows i.
 // ---------------------------------------------------------------------------
-constexpr int kKvTile = 64;
-constexpr int kQTile = 32;
+constexpr int kDkvKvTile = 64;
+constexpr int kDkvQTile = 32;
 
-template <int D, bool WITH_DQ>
+template <int D>
 constexpr size_t bwd_bf16_smem_bytes() {
-  // K and V tiles; two stages of Q and dO tiles; dS^T (only with dq); two
-  // stages of lse2, di and q segment ids. Rows padded by 8 elements against
-  // bank conflicts.
-  return (2 * kKvTile * (D + 8) + 2 * 2 * kQTile * (D + 8) +
-          (WITH_DQ ? kKvTile * (kQTile + 8) : 0)) * sizeof(__nv_bfloat16) +
-         2 * 3 * kQTile * sizeof(float);
+  // K and V tiles; two stages of Q and dO tiles; two stages of lse2, di and
+  // q segment ids. Rows padded by 8 elements against bank conflicts.
+  return (2 * kDkvKvTile * (D + 8) + 2 * 2 * kDkvQTile * (D + 8)) * sizeof(__nv_bfloat16) +
+         2 * 3 * kDkvQTile * sizeof(float);
 }
 
-// WITH_DQ: the fused kernel (dq shares into dq_acc by atomicAdd). Without
-// it the kernel is the dk/dv half of the split pair: no dS^T tile in shared
-// memory, no dS.K product, no atomics, and dq_acc is not touched.
-template <int D, bool DROP, bool WITH_DQ>
+template <int D, bool DROP>
 __global__ void __launch_bounds__(128) mh_bwd_bf16(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
@@ -54,24 +53,20 @@ __global__ void __launch_bounds__(128) mh_bwd_bf16(
     const int* __restrict__ seg, const float* __restrict__ cos_t,
     const float* __restrict__ sin_t, const int* __restrict__ q_lo,
     const int* __restrict__ q_hi, int* __restrict__ tile_count,
-    float* __restrict__ dq_acc, __nv_bfloat16* __restrict__ dk,
-    __nv_bfloat16* __restrict__ dv, int T, int H, float scale_log2,
-    float scale, DropParams dp) {
-  constexpr int BKV = kKvTile, BQ = kQTile, HALF = D / 2;
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int T, int H,
+    float scale_log2, float scale, DropParams dp) {
+  constexpr int BKV = kDkvKvTile, BQ = kDkvQTile, HALF = D / 2;
   constexpr int RS = D + 8;     // K, V, Q and dO tile row stride (elements)
-  constexpr int DSS = BQ + 8;   // dS^T row stride
   constexpr int CH = D / 8;     // 16-byte chunks in a row
   constexpr int NK = D / 16;    // k-steps over the head dim
   constexpr int NN = D / 8;     // n-tiles of dk / dv
   constexpr int NS = BQ / 8;    // n-tiles of a score tile (q columns)
-  constexpr int NQ = D / 16;    // n-tiles of a warp's half of a dq row
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);  // [BKV][RS]
   __nv_bfloat16* Vs = Ks + BKV * RS;                            // [BKV][RS]
   __nv_bfloat16* Qs = Vs + BKV * RS;                            // [2][BQ][RS]
   __nv_bfloat16* Os = Qs + 2 * BQ * RS;                         // [2][BQ][RS]
-  __nv_bfloat16* dSs = Os + 2 * BQ * RS;                        // [BKV][DSS]
-  float* lse_s = reinterpret_cast<float*>(dSs + (WITH_DQ ? BKV * DSS : 0));  // [2][BQ]
+  float* lse_s = reinterpret_cast<float*>(Os + 2 * BQ * RS);   // [2][BQ]
   float* di_s = lse_s + 2 * BQ;                                 // [2][BQ]
   int* qseg_s = reinterpret_cast<int*>(di_s + 2 * BQ);          // [2][BQ]
 
@@ -231,49 +226,7 @@ __global__ void __launch_bounds__(128) mh_bwd_bf16(
       }
     }
 
-    if constexpr (WITH_DQ) {
-    // dS^T (bf16) to shared memory for the dq product
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      const int il = n * 8 + 2 * t4;
-      *reinterpret_cast<uint32_t*>(dSs + (kw + g) * DSS + il) = pack_bf16(s[n][0], s[n][1]);
-      *reinterpret_cast<uint32_t*>(dSs + (kw + g + 8) * DSS + il) = pack_bf16(s[n][2], s[n][3]);
-    }
-    __syncthreads();
-
-    // dQ share of this kv tile, (BQ x D) = dS (BQ x BKV) . K (BKV x D):
-    // warp w takes q rows 16 * (w & 1) and half the head dim, (w >> 1)
-    {
-      const int qr0 = (warp & 1) * 16, dc0 = (warp >> 1) * HALF;
-      float acc[NQ][4];
-#pragma unroll
-      for (int n = 0; n < NQ; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < BKV / 16; ++kk) {
-        uint32_t a[4];
-        // A = dS rows, stored transposed as dS^T: a transposing ldmatrix
-        ldmatrix_x4_trans(a, dSs + (kk * 16 + (lane & 7) + ((lane >> 4) & 1) * 8) * DSS +
-                                 qr0 + ((lane >> 3) & 1) * 8);
-#pragma unroll
-        for (int np = 0; np < NQ / 2; ++np) {
-          uint32_t bk[4];
-          ldmatrix_x4_trans(bk, Ks + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * RS +
-                                    dc0 + np * 16 + (lane >> 4) * 8);
-          mma_bf16(acc[2 * np], a, bk[0], bk[1]);
-          mma_bf16(acc[2 * np + 1], a, bk[2], bk[3]);
-        }
-      }
-      float* d0 = dq_acc + base + (size_t)(qt * BQ + qr0 + g) * rs + dc0;
-      float* d1 = d0 + 8 * rs;
-#pragma unroll
-      for (int n = 0; n < NQ; ++n) {
-        const int col = n * 8 + 2 * t4;
-        atomicAdd(reinterpret_cast<float2*>(d0 + col), make_float2(acc[n][0], acc[n][1]));
-        atomicAdd(reinterpret_cast<float2*>(d1 + col), make_float2(acc[n][2], acc[n][3]));
-      }
-    }
-    }  // WITH_DQ
-    __syncthreads();  // every warp is done with this stage and with dS^T
+    __syncthreads();  // every warp is done with this stage
   }
 
   // dv, and dk rotated back by -angle in fp32 (columns d and d + D/2 sit in

@@ -116,7 +116,6 @@ __global__ void __launch_bounds__(kThreads, 1) mh_fwd_bf16(
     const int* __restrict__ kv_lo, const int* __restrict__ kv_hi,
     int* __restrict__ tile_count, __nv_bfloat16* __restrict__ o,
     float* __restrict__ lse, int T, int H, float scale_log2, DropParams dp) {
-  constexpr int HALF = D / 2;
   constexpr int NN = D / 8;      // 8-column blocks of the output
   constexpr int NS = kBkv / 8;   // 8-column blocks of a score tile
   constexpr int NK = D / 16;     // k-steps of q . k^T
@@ -176,34 +175,10 @@ __global__ void __launch_bounds__(kThreads, 1) mh_fwd_bf16(
     const int qrow0 = qt * kBq + wg * 64;  // this warpgroup's first q row
     const int r0 = qrow0 + warp * 16 + g;  // this thread's rows r0 and r0 + 8
 
-    // q rows rotated in fp32, rounded, into the swizzled q panels: one
-    // thread a (row, 8 columns of each half) item
-    unsigned char* qs = reinterpret_cast<unsigned char*>(sm.q);
-    for (int it = wt; it < 64 * (HALF / 8); it += 128) {
-      const int r = it / (HALF / 8), c8 = (it % (HALF / 8)) * 8;
-      const __nv_bfloat16* src = q + base + (size_t)(qrow0 + r) * rs + c8;
-      uint4 lo = *reinterpret_cast<const uint4*>(src);
-      uint4 hi = *reinterpret_cast<const uint4*>(src + HALF);
-      if (!DOTS && cos_t != nullptr) {
-        const float* cp = cos_t + (size_t)(qrow0 + r) * HALF + c8;
-        const float* sp = sin_t + (size_t)(qrow0 + r) * HALF + c8;
-        const __nv_bfloat162* x1 = reinterpret_cast<const __nv_bfloat162*>(&lo);
-        const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&hi);
-        uint32_t yl[4], yh[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 u = __bfloat1622float2(x1[e]), w = __bfloat1622float2(x2[e]);
-          const float2 c = *reinterpret_cast<const float2*>(cp + 2 * e);
-          const float2 s = *reinterpret_cast<const float2*>(sp + 2 * e);
-          yl[e] = pack_bf16(rope_lo(u.x, w.x, c.x, s.x), rope_lo(u.y, w.y, c.y, s.y));
-          yh[e] = pack_bf16(rope_hi(u.x, w.x, c.x, s.x), rope_hi(u.y, w.y, c.y, s.y));
-        }
-        lo = make_uint4(yl[0], yl[1], yl[2], yl[3]);
-        hi = make_uint4(yh[0], yh[1], yh[2], yh[3]);
-      }
-      *reinterpret_cast<uint4*>(qs + swizzled_offset(kBq, wg * 64 + r, c8)) = lo;
-      *reinterpret_cast<uint4*>(qs + swizzled_offset(kBq, wg * 64 + r, c8 + HALF)) = hi;
-    }
+    // q rows rotated in fp32, rounded, into the swizzled q panels
+    rows_to_panels<D>(reinterpret_cast<unsigned char*>(sm.q), kBq, wg * 64,
+                      q + base + (size_t)qrow0 * rs, rs, 64, DOTS ? nullptr : cos_t,
+                      sin_t, qrow0, wt, 128);
     fence_async_shared();
     named_bar_sync(kBarQ + wg, 128);
 

@@ -68,18 +68,24 @@ LOG2E = 1.4426950408889634
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 # The forward kernel's kv tile per dtype (its online softmax rounds P per
-# tile), the multiple of T the backward kernels take, and the forward's per
-# dtype (the bf16 kernel's CTA owns 128 query rows).
+# tile).
 KERNEL_KV_TILE = {torch.bfloat16: 128, torch.float32: 32}
-KERNEL_T_MULTIPLE = 64
-KERNEL_FWD_T_MULTIPLE = {torch.bfloat16: 128, torch.float32: 64}
 # (q tile, kv tile) of each kernel per dtype: the forward and the dq kernel
 # own a q tile and walk kv tiles; the fused backward and the dkv kernel own
 # a kv tile and walk q tiles.
 KERNEL_TILES = {
     "fwd": {torch.bfloat16: (128, 128), torch.float32: (32, 32)},
+    "fused": {torch.bfloat16: (64, 128), torch.float32: (16, 32)},
+    "dkv": {torch.bfloat16: (32, 64), torch.float32: (16, 32)},
     "dq": {torch.bfloat16: (64, 64), torch.float32: (32, 32)},
-    "bwd": {torch.bfloat16: (32, 64), torch.float32: (16, 32)},
+}
+# The multiple of T each kernel takes per dtype: the bf16 forward's and
+# fused backward's CTA owns 128 rows; the others take 64.
+KERNEL_T_MULTIPLE = {
+    "fwd": {torch.bfloat16: 128, torch.float32: 64},
+    "fused": {torch.bfloat16: 128, torch.float32: 64},
+    "dkv": {torch.bfloat16: 64, torch.float32: 64},
+    "dq": {torch.bfloat16: 64, torch.float32: 64},
 }
 
 # Backward routing, as the JAX package's switches of the same names: the
@@ -452,8 +458,19 @@ def mh_flash_bwd_dq_plain(q, k, v, do, lse2, di, segment_ids=None, rope=None,
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_qkv(names_tensors, q, t_multiple: int = KERNEL_T_MULTIPLE):
+def _check_qkv(names_tensors, q, kind: str):
+    """q and the other (name, tensor) pairs as kernel `kind` takes them:
+    a dtype and head dim it is built for, T a multiple of its
+    KERNEL_T_MULTIPLE, then contiguous, aligned CUDA tensors of q's shape."""
     B, T, H, D = q.shape
+    if q.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"dtype {q.dtype} not built; one of {KERNEL_DTYPES}")
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head_dim {D} not built; one of {KERNEL_HEAD_DIMS}")
+    t_multiple = KERNEL_T_MULTIPLE[kind][q.dtype]
+    if T % t_multiple or T < t_multiple:
+        raise ValueError(f"T={T} must be a positive multiple of {t_multiple} "
+                         f"for the {kind} kernel in {q.dtype}")
     for name, t in names_tensors:
         if not t.is_cuda:
             raise ValueError(f"{name} is not a CUDA tensor (device {t.device})")
@@ -463,12 +480,6 @@ def _check_qkv(names_tensors, q, t_multiple: int = KERNEL_T_MULTIPLE):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned "
                              "(the kernels load 16 bytes at a time)")
-    if q.dtype not in KERNEL_DTYPES:
-        raise ValueError(f"dtype {q.dtype} not built; one of {KERNEL_DTYPES}")
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head_dim {D} not built; one of {KERNEL_HEAD_DIMS}")
-    if T % t_multiple or T < t_multiple:
-        raise ValueError(f"T={T} must be a positive multiple of {t_multiple}")
 
 
 def _check_rows(names_tensors, q):
@@ -562,8 +573,7 @@ def mh_flash_forward_kernel(q, k, v, segment_ids=None, rope=None, *,
         raise NotImplementedError(
             "the kernel's output carries no gradient; differentiate through "
             "flash_attention (MhFlashAttention) instead")
-    _check_qkv((("q", q), ("k", k), ("v", v)), q,
-               KERNEL_FWD_T_MULTIPLE.get(q.dtype, KERNEL_T_MULTIPLE))
+    _check_qkv((("q", q), ("k", k), ("v", v)), q, "fwd")
     seg_ptr = _seg_ptr(segment_ids, q)
     cos_ptr, sin_ptr = _rope_ptrs(rope, q)
     lo_ptr, hi_ptr, tc_ptr = _bounds_ptrs(
@@ -589,14 +599,15 @@ def mh_flash_forward_kernel(q, k, v, segment_ids=None, rope=None, *,
     return o, lse2
 
 
-# The three backward kernels, by kind: the library (its C entry is
-# obt_<library>), its error-string entry, its KERNEL_TILES row with which of
+# The three backward kernels, by kind (also their KERNEL_TILES row): the
+# library (its C entry is obt_<library>), its error-string entry, which of
 # (q tile, kv tile) a block owns, whether it takes a rotated-q scratch and
-# the fp32 dq scratch of the atomics, and how many outputs it writes.
+# the fp32 dq scratch of the fused kernel's sums, and how many outputs it
+# writes.
 _BWD_KERNELS = {
-    "fused": ("mh_flash_bwd", "obt_cuda_error_string_bwd", "bwd", 1, True, True, 3),
-    "dkv": ("mh_flash_bwd_dkv", "obt_cuda_error_string_bwd_dkv", "bwd", 1, True, False, 2),
-    "dq": ("mh_flash_bwd_dq", "obt_cuda_error_string_bwd_dq", "dq", 0, False, False, 1),
+    "fused": ("mh_flash_bwd", "obt_cuda_error_string_bwd", 1, True, True, 3),
+    "dkv": ("mh_flash_bwd_dkv", "obt_cuda_error_string_bwd_dkv", 1, True, False, 2),
+    "dq": ("mh_flash_bwd_dq", "obt_cuda_error_string_bwd_dq", 0, False, False, 1),
 }
 
 
@@ -613,22 +624,26 @@ def mh_flash_bwd_kernel(kind: str, q, k, v, do, lse2, di, segment_ids=None,
     library's name."""
     from . import _kernels
 
-    name, err_entry, tiles, owner, rot_q, dq_scratch, n_out = _BWD_KERNELS[kind]
+    name, err_entry, owner, rot_q, dq_scratch, n_out = _BWD_KERNELS[kind]
     B, T, H, D = q.shape
-    _check_qkv((("q", q), ("k", k), ("v", v), ("do", do)), q)
+    _check_qkv((("q", q), ("k", k), ("v", v), ("do", do)), q, kind)
     _check_rows((("lse2", lse2), ("di", di)), q)
     seg_ptr = _seg_ptr(segment_ids, q)
     cos_ptr, sin_ptr = _rope_ptrs(rope, q)
     lo_ptr, hi_ptr, tc_ptr = _bounds_ptrs(
-        tile_bounds, q, KERNEL_TILES[tiles][q.dtype][owner], tile_count)
+        tile_bounds, q, KERNEL_TILES[kind][q.dtype][owner], tile_count)
+    # The bf16 fused kernel rotates k itself and bulk-copies a q tile's lse2
+    # and di of one head, so it takes those two as (B, H, T).
+    hopper = kind == "fused" and q.dtype == torch.bfloat16
+    if hopper:
+        lse2, di = (t.transpose(1, 2).contiguous() for t in (lse2, di))
     # scratch: q (where the kernel re-reads it) and k rotated once per call,
     # and the fused kernel's fp32 dq sums
-    scratch = [torch.empty_like(q) if rope is not None else None
-               for _ in range(2 if rot_q else 1)]
-    if dq_scratch:
-        scratch_dq = [torch.empty(q.shape, dtype=torch.float32, device=q.device)]
-    else:
-        scratch_dq = []
+    rotated = rope is not None
+    rot = [torch.empty_like(q) if rotated else None] if rot_q else []
+    rot.append(torch.empty_like(k) if rotated and not hopper else None)
+    acc = ([torch.empty(q.shape, dtype=torch.float32, device=q.device)]
+           if dq_scratch else [])
     drop, thresh, keep_scale, seed = _drop_args(dropout_rate, seed)
 
     outs = tuple(torch.empty_like(q) for _ in range(n_out))
@@ -639,8 +654,8 @@ def mh_flash_bwd_kernel(kind: str, q, k, v, do, lse2, di, segment_ids=None,
         err = getattr(lib, f"obt_{name}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse2.data_ptr(), di.data_ptr(), seg_ptr, cos_ptr, sin_ptr,
-            *map(ptr, scratch), lo_ptr, hi_ptr, tc_ptr,
-            *map(ptr, scratch_dq), *map(ptr, outs), B, T, H, D,
+            *map(ptr, rot), lo_ptr, hi_ptr, tc_ptr, *map(ptr, acc),
+            *map(ptr, outs), B, T, H, D,
             float(np.float32(scale * LOG2E)), float(np.float32(scale)),
             1 if q.dtype == torch.bfloat16 else 0, drop, thresh, keep_scale,
             seed, stream)
@@ -650,13 +665,13 @@ def mh_flash_bwd_kernel(kind: str, q, k, v, do, lse2, di, segment_ids=None,
 
 
 def _kernel_bounds(kind: str, q, segment_ids, segment_skip: bool, bounds):
-    """The (lo, hi) a kernel of `kind` takes at q's dtype, or None (walk
+    """The (lo, hi) the kernel of `kind` takes at q's dtype, or None (walk
     every tile): the owner's tile first, the walked tile second."""
     if not segment_skip or segment_ids is None:
         return None
     bq, bkv = KERNEL_TILES[kind][q.dtype]
     sb = bounds if bounds is not None else SegmentBounds(segment_ids)
-    return sb.get(bkv, bq) if kind == "bwd" else sb.get(bq, bkv)
+    return sb.get(bkv, bq) if kind in ("fused", "dkv") else sb.get(bq, bkv)
 
 
 def mh_flash_forward(q, k, v, segment_ids=None, rope=None, *, scale: float,
@@ -705,8 +720,8 @@ def mh_flash_bwd(kind: str, q, k, v, do, lse2, di, segment_ids=None,
         return mh_flash_bwd_kernel(
             kind, q, k, v, do, lse2, di, segment_ids, rope, scale=scale,
             dropout_rate=dropout_rate, seed=seed, counter=counter,
-            tile_bounds=_kernel_bounds(_BWD_KERNELS[kind][2], q, segment_ids,
-                                       segment_skip, bounds))
+            tile_bounds=_kernel_bounds(kind, q, segment_ids, segment_skip,
+                                       bounds))
     return _BWD_PLAIN[kind](
         q, k, v, do, lse2, di, segment_ids, rope, scale=scale,
         dropout_rate=dropout_rate, seed=seed, block_q=block_q,

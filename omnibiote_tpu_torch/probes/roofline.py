@@ -22,7 +22,9 @@ kernel with its products alone (`fwd_products`):
 
 A CUDA tensor runs the kernel, a CPU tensor the plain version. `cta_q` is
 the kernel's CTA height in query rows (64, the tile of #1, or 128); it does
-not change the function.
+not change the function. `bwd_products` is #2/#3's fused backward kernel
+with its five products alone, the backward's counterpart of
+`fwd_products`.
 
     python -m omnibiote_tpu_torch.probes.roofline
 
@@ -119,6 +121,19 @@ def dots_n_plain(q, k, v, block_q: int, block_kv: int,
         acc += a
     return (acc.reshape(B, H, T, D).to(q.dtype).permute(0, 2, 1, 3)
             .contiguous())
+
+
+def bwd_products_plain(q, k, v, do):
+    """Plain version of `bwd_products`: per head, P = round(k·qᵀ) and
+    dS = round(v·doᵀ) (kv rows by q rows, fp32 products rounded to the
+    inputs' dtype), then (dq, dk, dv) = round(dSᵀ·k), round(dS·q),
+    round(P·do) from fp32 products, each (B, T, H, D)."""
+    qh, kh, vh, oh = (x.permute(0, 2, 1, 3).float() for x in (q, k, v, do))
+    p = torch.matmul(kh, qh.transpose(-1, -2)).to(q.dtype).float()
+    ds = torch.matmul(vh, oh.transpose(-1, -2)).to(q.dtype).float()
+    grads = (torch.matmul(ds.transpose(-1, -2), kh), torch.matmul(ds, qh),
+             torch.matmul(p, oh))
+    return tuple(g.to(q.dtype).permute(0, 2, 1, 3).contiguous() for g in grads)
 
 
 # ---------------------------------------------------------------------------
@@ -234,6 +249,35 @@ def fwd_products(q, k, v):
     return o
 
 
+def bwd_products(q, k, v, do):
+    """The fused backward kernel with its products alone (the DOTS instance
+    of ops/csrc/mh_flash_bwd.cu: TMA ring, the five wgmma products, the dq
+    reduction; no RoPE, scale, mask, softmax or dropout): (dq, dk, dv)
+    (B, T, H, D) from q, k, v, do (B, T, H, D) as `bwd_products_plain`,
+    T a multiple of 128. A CUDA tensor runs the kernel (counted as
+    'mh_flash_bwd_dots'), a CPU tensor the plain version."""
+    from ..ops import _kernels
+    from ..ops.flash_attention import KERNEL_TILES
+
+    check_blocks(q.shape[1], *KERNEL_TILES["fused"][torch.bfloat16])
+    if not q.is_cuda:
+        return bwd_products_plain(q, k, v, do)
+    check_kernel_inputs(q, (("k", k, q.shape), ("v", v, q.shape),
+                            ("do", do, q.shape)))
+    B, T, H, D = q.shape
+    acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    grads = tuple(torch.empty_like(q) for _ in range(3))
+    lib = _kernels.load_library("mh_flash_bwd")
+    with torch.cuda.device(q.device):
+        err = lib.obt_mh_flash_bwd_dots(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            acc.data_ptr(), *(g.data_ptr() for g in grads), B, T, H, D,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "mh_flash_bwd_dots", lib.obt_cuda_error_string_bwd)
+    _kernels.LAUNCHES["mh_flash_bwd_dots"] += 1
+    return grads
+
+
 # ---------------------------------------------------------------------------
 # The table
 # ---------------------------------------------------------------------------
@@ -329,6 +373,8 @@ def main() -> dict:
                    lambda nd=nd, cta=cta: dots_n(q, q, q, 512, 512, nd,
                                                  cta_q=cta),
                    fwd_flops * nd / 2)
+    report(table, "products  bwd #2's kernel (wgmma, 64x128 tiles)",
+           lambda: bwd_products(q, q, q, q), bwd_flops)
     return table
 
 

@@ -16,7 +16,7 @@ from omnibiote_tpu.models.rope import rope_tables as jax_rope_tables
 import omnibiote_tpu.ops.int8_attention as jax_int8
 import omnibiote_tpu_torch.ops.attention as port_attention
 from omnibiote_tpu_torch.ops.flash_attention import (
-    DEFAULT_MASK_VALUE, KERNEL_FWD_T_MULTIPLE, KERNEL_HEAD_DIMS, KERNEL_KV_TILE,
+    DEFAULT_MASK_VALUE, KERNEL_HEAD_DIMS, KERNEL_KV_TILE, KERNEL_T_MULTIPLE,
     KERNEL_TILES, LOG2E, mh_flash_forward, mh_flash_forward_plain)
 from omnibiote_tpu_torch.models.rope import rope_tables
 
@@ -111,7 +111,7 @@ def test_forward_tiles_follow_the_kernel():
     assert KERNEL_TILES["fwd"][bf16] == (128, 128)
     assert KERNEL_TILES["fwd"][bf16][1] == KERNEL_KV_TILE[bf16]
     assert KERNEL_TILES["fwd"][torch.float32][1] == KERNEL_KV_TILE[torch.float32]
-    for dtype, multiple in KERNEL_FWD_T_MULTIPLE.items():
+    for dtype, multiple in KERNEL_T_MULTIPLE["fwd"].items():
         assert 128 % multiple == 0, dtype
         assert multiple % KERNEL_TILES["fwd"][dtype][0] == 0, dtype
 

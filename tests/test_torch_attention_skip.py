@@ -60,7 +60,8 @@ def _inputs(layout, seed=0):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("layout", ["packed", "padded", "dense", "unsorted"])
-@pytest.mark.parametrize("blocks", [(128, 128), (64, 32), (32, 64), (512, 128)])
+@pytest.mark.parametrize("blocks", [(128, 128), (64, 32), (32, 64), (512, 128),
+                                    (64, 128), (128, 64)])
 def test_bounds_match_jax(layout, blocks):
     seg = _ids(layout, np.random.default_rng(3))
     want = jax_flash._seg_block_bounds(jnp.asarray(seg), jnp.asarray(seg), *blocks)
@@ -378,7 +379,7 @@ def test_split_wrappers_route_cpu_tensors_to_the_plain_versions(monkeypatch):
     monkeypatch.setattr(_kernels, "build_all", refuse)
     before = dict(_kernels.LAUNCHES)
     assert set(before) == {"mh_flash_fwd", "mh_flash_fwd_dots", "mh_flash_bwd",
-                           "mh_flash_bwd_mk",
+                           "mh_flash_bwd_dots", "mh_flash_bwd_mk",
                            "mh_flash_bwd_dkv", "mh_flash_bwd_dq", "int8_flash_fwd",
                            "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
                            "roofline_dots", "roofline_dots_n", "roofline2_dots",

@@ -1,0 +1,150 @@
+"""The backward kernels' tiles and T multiples, and the plain fused backward
+on the tiles of the bf16 fused kernel (a 128-row kv tile walking 64-row q
+tiles), on the CPU.
+
+The tile table and the T multiples are pinned literally; a kernel wrapper
+refuses a T off its kernel's multiple before it looks at the device; with
+segment skipping on those tiles the plain fused backward equals the full
+walk bit for bit and matches the JAX package's `_mh_bwd_fused` (one kv
+block spanning T) and `_mh_bwd_fusedmk` (128-wide blocks with skipping),
+Pallas in interpret mode, through `jax.vjp`."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from omnibiote_tpu.models.rope import rope_tables as jax_rope_tables
+from omnibiote_tpu.ops import flash_attention as jax_flash
+
+from omnibiote_tpu_torch.models.rope import rope_tables
+from omnibiote_tpu_torch.ops import _kernels
+from omnibiote_tpu_torch.ops import flash_attention as port_flash
+from omnibiote_tpu_torch.ops.flash_attention import (
+    KERNEL_T_MULTIPLE, KERNEL_TILES, SegmentBounds, mh_flash_backward_plain,
+    mh_flash_forward_plain)
+
+BF16, F32 = torch.bfloat16, torch.float32
+B, H, D = 2, 2, 128
+SCALE = 1.0 / np.sqrt(D)
+FUSED_TILES = KERNEL_TILES["fused"][BF16]
+
+
+def _packed_ids(rng, T, layout):
+    seg = np.zeros((B, T), np.int32)
+    for b in range(B):
+        cuts = np.sort(rng.choice(np.arange(16, T - 16), 4, replace=False))
+        seg[b] = np.searchsorted(cuts, np.arange(T), side="right")
+        if layout == "padded":
+            seg[b, int(rng.integers(T // 8, T - 8)):] = -1
+        elif layout == "unsorted":
+            seg[b] = rng.permutation(5)[seg[b]]
+    return seg
+
+
+def _inputs(T, layout, seed):
+    rng = np.random.default_rng(seed)
+    q, k, v, do = rng.standard_normal((4, B, T, H, D)).astype(np.float32)
+    return q, k, v, do, _packed_ids(rng, T, layout)
+
+
+def test_kernel_tiles_and_t_multiples():
+    """(q tile, kv tile) and the T multiple of every kernel kind per dtype:
+    the fused backward and the dkv kernel have rows of their own, each T
+    multiple is a multiple of the kind's tiles, and each divides 128, the
+    multiple every T the dispatch sends to flash has."""
+    assert KERNEL_TILES == {
+        "fwd": {BF16: (128, 128), F32: (32, 32)},
+        "fused": {BF16: (64, 128), F32: (16, 32)},
+        "dkv": {BF16: (32, 64), F32: (16, 32)},
+        "dq": {BF16: (64, 64), F32: (32, 32)},
+    }
+    assert KERNEL_T_MULTIPLE == {
+        "fwd": {BF16: 128, F32: 64},
+        "fused": {BF16: 128, F32: 64},
+        "dkv": {BF16: 64, F32: 64},
+        "dq": {BF16: 64, F32: 64},
+    }
+    for kind, rows in KERNEL_TILES.items():
+        for dtype, (bq, bkv) in rows.items():
+            multiple = KERNEL_T_MULTIPLE[kind][dtype]
+            assert multiple % bq == 0 and multiple % bkv == 0, (kind, dtype)
+            assert 128 % multiple == 0, (kind, dtype)
+
+
+@pytest.mark.parametrize("kind,dtype,T,refused", [
+    ("fused", BF16, 192, True), ("fused", BF16, 64, True),
+    ("fused", F32, 192, False), ("dkv", BF16, 192, False),
+    ("dq", BF16, 192, False)])
+def test_kernel_wrappers_check_t_against_their_multiple(monkeypatch, kind, dtype,
+                                                         T, refused):
+    """A bf16 fused call at a T off 128 is refused by its T multiple, before
+    the device is looked at and with no library touched; the kinds whose
+    multiple T meets get as far as the device check."""
+    def refuse(*a, **k):
+        raise AssertionError("the kernel library was touched")
+
+    monkeypatch.setattr(_kernels, "load_library", refuse)
+    x = torch.zeros(1, T, 1, D, dtype=dtype)
+    rows = torch.zeros(1, T, 1)
+    before = dict(_kernels.LAUNCHES)
+    match = (f"multiple of {KERNEL_T_MULTIPLE[kind][dtype]}" if refused
+             else "not a CUDA tensor")
+    with pytest.raises(ValueError, match=match):
+        port_flash.mh_flash_bwd_kernel(kind, x, x, x, x, rows, rows, scale=SCALE)
+    assert _kernels.LAUNCHES == before
+
+
+@pytest.mark.parametrize("layout", ["packed", "padded", "unsorted"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_plain_fused_skip_on_equals_off_on_the_kernel_tiles(layout, rate):
+    """bf16 on the fused kernel's tiles (the bounds it is given on the
+    card): tiles are pruned, and dq, dk, dv equal the full walk bit for
+    bit."""
+    T = 512
+    bq, bkv = FUSED_TILES
+    q, k, v, do, seg = _inputs(T, layout, seed=17)
+    q, k, v, do = (torch.from_numpy(x).bfloat16() for x in (q, k, v, do))
+    seg_t, rope = torch.from_numpy(seg), rope_tables(D, T)
+    sb = SegmentBounds(seg_t)
+    lo, hi = sb.get(bkv, bq)
+    assert int((hi - lo + 1).sum()) < B * (T // bkv) * (T // bq)
+    kw = dict(scale=SCALE, dropout_rate=rate, seed=23)
+    o, lse2 = mh_flash_forward_plain(q, k, v, seg_t, rope, **kw)
+    di = (o.float() * do.float()).sum(-1)
+    args = (q, k, v, do, lse2, di, seg_t, rope)
+    off = mh_flash_backward_plain(*args, **kw)
+    on = mh_flash_backward_plain(*args, **kw, block_q=bq, block_kv=bkv,
+                                 segment_skip=True, bounds=sb)
+    for g, w in zip(on, off):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("case,T", [("single_kv", 256), ("multi_kv", 512)])
+def test_plain_fused_on_the_kernel_tiles_matches_jax(case, T):
+    """fp32, packed rows: the plain fused backward with skipping on the
+    fused kernel's tiles against jax.vjp of flash_attention with one kv
+    block spanning T (`_mh_bwd_fused`) or 128-wide blocks with skipping
+    (`_mh_bwd_fusedmk`), at rtol 2e-4 / atol 2e-4 (the JAX package's own
+    flash-backward tolerance: fp32 sums in another order)."""
+    q, k, v, do, seg = _inputs(T, "packed", seed=29)
+    blocks = (128, T) if case == "single_kv" else (128, 128)
+    cos, sin = jax_rope_tables(D, T)
+
+    def f(q, k, v):
+        return jax_flash.flash_attention(
+            q, k, v, segment_ids=jnp.asarray(seg), scale=SCALE, block_q=blocks[0],
+            block_kv=blocks[1], rope=(cos, sin), segment_skip=True)
+
+    _, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v)))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(do))]
+
+    t = [torch.from_numpy(x) for x in (q, k, v, do)]
+    seg_t, rope = torch.from_numpy(seg), rope_tables(D, T)
+    o, lse2 = mh_flash_forward_plain(*t[:3], seg_t, rope, scale=SCALE)
+    di = (o * t[3]).sum(-1)
+    got = mh_flash_backward_plain(*t, lse2, di, seg_t, rope, scale=SCALE,
+                                  block_q=FUSED_TILES[0], block_kv=FUSED_TILES[1],
+                                  segment_skip=True)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), w, rtol=2e-4, atol=2e-4, err_msg=name)

@@ -199,6 +199,23 @@ def test_scores_plain_fp32_matches_formula(h, T, bkv, kt):
     _hold64(got, want)
 
 
+@pytest.mark.parametrize("B,T", [(1, 256), (2, 128)])
+def test_bwd_products_plain_fp32_matches_formula(B, T):
+    """The fused backward's products alone: in fp32 (no rounding between
+    the products) against float64 einsums of dq = (v doᵀ)ᵀ k, dk = (v doᵀ)
+    q and dv = (k qᵀ) do per head; a CPU tensor launches nothing."""
+    q, k, v, do = _x(B, T, seed=8, n=4)
+    s = np.einsum("bjhd,bihd->bhji", k.astype(np.float64), q.astype(np.float64))
+    ds = np.einsum("bjhd,bihd->bhji", v.astype(np.float64), do.astype(np.float64))
+    want = (np.einsum("bhji,bjhd->bihd", ds, k), np.einsum("bhji,bihd->bjhd", ds, q),
+            np.einsum("bhji,bihd->bjhd", s, do))
+    before = dict(_kernels.LAUNCHES)
+    got = roofline.bwd_products(*(torch.from_numpy(a) for a in (q, k, v, do)))
+    assert _kernels.LAUNCHES == before
+    for g, w in zip(got, want):
+        _hold64(g, w)
+
+
 # ---------------------------------------------------------------------------
 # the block combinations the JAX probes cannot take, CPU routing, main()
 # ---------------------------------------------------------------------------
