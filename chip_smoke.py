@@ -54,12 +54,16 @@ toolkit and g++. It
      tile walked, with the split pair, and at ctx 4096; peak allocated
      memory;
   7. int8 kernel: the int8 attention kernel's prologue (q8, k8, v8 and
-     their scales) against the plain version's integers, and the kernel
-     against `int8_flash_attention_plain` at B=2, T in {128, 640, 1024,
-     2048}, packed / padded / dense rows, bf16 and fp32, RoPE and none;
-     once more at the serving shape B=32, T=1024, dense and padded, where
-     it is also held against the bf16 forward kernel (row cosine) and
-     timed beside its plain version, its bound and SDPA in bf16;
+     their scales) against the plain version's integers in the kernel's
+     layout (`int8_kernel_layout`), the kernel against
+     `int8_flash_attention_plain` and the attention kernel alone against
+     the call at B=2, T in {128, 640, 1024, 2048}, packed / padded / dense
+     rows, bf16 and fp32, RoPE and none, and its products alone
+     (`probes.roofline.int8_products`) against their plain version bit for
+     bit; once more at the serving shape B=32, T=1024, dense and padded,
+     where it is also held against the bf16 forward kernel (row cosine)
+     and timed whole, as its prologue, its attention kernel and its
+     products alone, beside its plain version, its bound and SDPA in bf16;
   8. int8 products: `quant_linear` on the card at M = 32,768 rows and the
      model's four (K, N): the int32 result bit for bit against a float64
      product of the same integers, and its time split into product and
@@ -173,13 +177,15 @@ def build():
             m = re.search(r"Compiling entry function '_ZN[\w]*?\d+(mh_\w+?|rope_rows_\w+?|"
                           r"dq_epilogue|dots_bf16|dots_n_bf16|scores_bf16)ILi(\d+)E"
                           r"((?:Lb[01]E)*)", line)
-            m8 = re.search(r"Compiling entry function '_ZN[\w]*?\d+(int8_fwd|quant_rows|"
-                           r"v_absmax|quant_v)I(f|13__nv_bfloat16)E", line)
+            m8 = re.search(r"Compiling entry function '_ZN[\w]*?\d+(int8_fwd|quant_qk|"
+                           r"quant_v)I(f|i|13__nv_bfloat16)((?:Lb[01]E)*)E", line)
             if m:
                 flags = re.findall(r"Lb([01])E", m.group(3))
                 entry = f"{m.group(1)}<{', '.join([m.group(2), *flags])}>"
             elif m8:
-                entry = f"{m8.group(1)}<{'float' if m8.group(2) == 'f' else 'bf16'}>"
+                ty = {"f": "float", "i": "int"}.get(m8.group(2), "bf16")
+                flags = re.findall(r"Lb([01])E", m8.group(3))
+                entry = f"{m8.group(1)}<{', '.join([ty, *flags])}>"
             elif "spill stores" in line:
                 spill = re.search(r"(\d+) bytes spill stores", line).group(1)
                 stack = re.search(r"(\d+) bytes stack frame", line).group(1)
@@ -187,7 +193,7 @@ def build():
                 print(f"  {name}: {line.strip()[:240]}")
             elif "registers" in line and entry is not None:
                 regs = re.search(r"Used (\d+) registers", line).group(1)
-                if entry.startswith(("mh_", "int8_fwd", "dots", "scores")):
+                if entry.startswith(("mh_", "int8_fwd", "quant_", "dots", "scores")):
                     print(f"  {name}: {entry}: {regs} registers, {spill} bytes of spill "
                           f"stores, {stack} bytes of stack frame")
                 entry = None
@@ -198,6 +204,8 @@ def build():
         smem_bytes = getattr(_kernels.load_library(name), f"obt_{name}_smem_bytes")
         print(f"  {name}: {kernel} dynamic shared memory a CTA: " + ", ".join(
             f"D={d} {smem_bytes(d)} bytes" for d in (64, 128)))
+    print(f"  int8_flash_fwd: int8_fwd dynamic shared memory a CTA: D=128 "
+          f"{_kernels.load_library('int8_flash_fwd').obt_int8_flash_fwd_smem_bytes()} bytes")
 
 
 # ---------------------------------------------------------------------------
@@ -1479,7 +1487,7 @@ def _hold_int8(q, k, v, seg, rope, scale, tag):
     dtype = str(q.dtype).split(".")[1]
     got = i8.int8_quantize_kernel(q, k, v, rope)
     torch.cuda.synchronize()
-    want = i8.int8_quantize_plain(q, k, v, rope)
+    want = i8.int8_kernel_layout(*i8.int8_quantize_plain(q, k, v, rope))
     for name, g, w in zip(("q8", "sq", "k8", "sk", "v8t", "sv"), got, want):
         check(g.shape == w.shape and g.dtype == w.dtype,
               f"int8 prologue {name}: {tuple(g.shape)} {g.dtype} at {tag}")
@@ -1497,17 +1505,37 @@ def _hold_int8(q, k, v, seg, rope, scale, tag):
     err = _abs_err(o, po)
     check(torch.allclose(o.float(), po.float(), rtol=rt, atol=at),
           f"int8 kernel disagrees with its plain version at {tag}: max|do| {err:.3e}")
+    # the attention kernel alone on the prologue's tensors: the same bits
+    oa = i8.int8_attention_from_quantized(got, scale=scale, dtype=q.dtype, segment_ids=seg)
+    check(torch.equal(oa, o), f"the int8 attention kernel alone differs from the call at {tag}")
     return err, o
 
 
+def _hold_int8_products(quantized, tag):
+    """int8_products (the attention kernel's products alone) against its
+    plain version on a prologue's integers: int32 sums, equal bit for bit."""
+    import torch
+    from omnibiote_tpu_torch.probes import roofline as r1
+
+    q8, _, k8, _, v8t, _ = quantized
+    got = r1.int8_products(q8, k8, v8t)
+    torch.cuda.synchronize()
+    want = r1.int8_products_plain(q8, k8, v8t)
+    check(got.dtype == torch.int32 and torch.equal(got, want),
+          f"int8_products differs from its plain version at {tag}: "
+          f"{(got != want).float().mean().item():.2e} of its elements")
+
+
 def int8_kernel_phase():
-    """The int8 attention kernel against its plain version; returns its row
-    of the kernels line (launches filled in by the serving slice)."""
+    """The int8 attention kernel and its products alone against their plain
+    versions; returns its row of the kernels line (launches filled in by the
+    serving slice)."""
     import torch
     import torch.nn.functional as F
     from omnibiote_tpu_torch.models.rope import apply_rope_half
     from omnibiote_tpu_torch.ops import int8_attention as i8
     from omnibiote_tpu_torch.ops.flash_attention import mh_flash_forward
+    from omnibiote_tpu_torch.probes import roofline as r1
 
     H, D = 8, 128
     scale = 1.0 / math.sqrt(D)
@@ -1523,10 +1551,13 @@ def int8_kernel_phase():
                                         (2, T, dtype, layout, use_rope))
                     worst[dtype] = max(worst[dtype], err)
                     n += 1
+        _hold_int8_products(i8.int8_quantize_kernel(q, k, v, rope), (2, T))
     print(f"int8 kernel vs plain: {n} cases (B=2, T 128/640/1024/2048, bf16 and fp32, "
-          f"packed/padded/dense, RoPE and none): q8, k8, v8t and their scales equal "
-          f"bit for bit; max|do| bf16 {worst['bfloat16']:.3e} (rtol, atol "
-          f"{INT8_TOL['bfloat16']}), fp32 {worst['float32']:.3e} ({INT8_TOL['float32']})")
+          f"packed/padded/dense, RoPE and none): q8, k8, v8t (kernel layout) and their "
+          f"scales equal bit for bit; the attention kernel alone equals the call; max|do| "
+          f"bf16 {worst['bfloat16']:.3e} (rtol, atol {INT8_TOL['bfloat16']}), fp32 "
+          f"{worst['float32']:.3e} ({INT8_TOL['float32']}); int8_products equal to its "
+          f"plain version at T 128/640/1024/2048")
 
     # the serving shape: dense (encode) and padded (the masked Encoder)
     B, T = 32, 1024
@@ -1551,29 +1582,46 @@ def int8_kernel_phase():
     check(min(cos) >= MIN_COSINE, f"int8 kernel vs the bf16 kernel: min row cosine "
           f"{min(cos):.6f} < {MIN_COSINE}")
     del o8, o8p, o16, a8, a16, c
+    quantized = i8.int8_quantize_kernel(q, k, v, rope)
+    q8, _, k8, _, v8t, _ = quantized
+    _hold_int8_products(quantized, "the serving shape")
     ms = cuda_ms(lambda: i8.int8_flash_attention(q, k, v, scale=scale, rope=rope), 20)
     ms_pad = cuda_ms(lambda: i8.int8_flash_attention(
         q, k, v, scale=scale, segment_ids=pseg, rope=rope), 20)
     pro_ms = cuda_ms(lambda: i8.int8_quantize_kernel(q, k, v, rope), 20)
+    attn_ms = cuda_ms(lambda: i8.int8_attention_from_quantized(
+        quantized, scale=scale, dtype=q.dtype), 20)
+    attn_pad_ms = cuda_ms(lambda: i8.int8_attention_from_quantized(
+        quantized, scale=scale, dtype=q.dtype, segment_ids=pseg), 20)
+    prod_ms = cuda_ms(lambda: r1.int8_products(q8, k8, v8t), 20)
     plain_ms = cuda_ms(lambda: i8.int8_flash_attention_plain(
         q, k, v, scale=scale, rope=rope), 3, warmup=1)
+    prod_plain_ms = cuda_ms(lambda: r1.int8_products_plain(q8, k8, v8t), 3, warmup=1)
     bf16_ms = cuda_ms(lambda: mh_flash_forward(q, k, v, None, rope, scale=scale), 20)
     qr, kr = apply_rope_half(q, k, *rope)
     qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (qr, kr, v))
     sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), 20)
+    del qr, kr, qh, kh, vh
     bound_ms, bound_by = _int8_bound(B, T, H, D, 2)
+    walk_ops = 6.0 * B * T * T * H * D          # both walks' products
     tops = 4.0 * B * T * T * H * D / (ms * 1e-3) / 1e12
-    print(f"int8_flash_fwd B={B} T={T} H={H} D={D} bf16 dense: kernel {ms:.4f} ms "
-          f"({tops:.1f} TOP/s; its prologue alone {pro_ms:.4f} ms), padded "
-          f"{ms_pad:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+    print(f"int8_flash_fwd B={B} T={T} H={H} D={D} bf16 dense: call {ms:.4f} ms "
+          f"({tops:.1f} TOP/s of the function's 4 B T^2 H D) = prologue alone "
+          f"{pro_ms:.4f} ms (quant_qk + quant_v) + attention kernel alone {attn_ms:.4f} "
+          f"ms ({walk_ops / (attn_ms * 1e-3) / 1e12:.1f} TOP/s of both walks' 6 B T^2 H D); "
+          f"its products alone (int8_products) {prod_ms:.4f} ms "
+          f"({walk_ops / (prod_ms * 1e-3) / 1e12:.1f} TOP/s, "
+          f"{walk_ops / (prod_ms * 1e-3) / PEAK_INT8_OPS:.3f} of the int8 peak; plain "
+          f"{prod_plain_ms:.4f} ms); padded {ms_pad:.4f} ms (attention alone "
+          f"{attn_pad_ms:.4f}); plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
           f"({bound_by}; by the int8 dense rate "
-          f"{1e3 * 4.0 * B * T * T * H * D / PEAK_INT8_OPS:.4f} ms); for context, no "
-          f"library call computes this function: the bf16 kernel mh_flash_fwd "
-          f"{bf16_ms:.4f} ms, SDPA bf16 {sdpa_ms:.4f} ms; kernel vs plain at this "
-          f"shape max|do| dense {err_d:.3e}, padded {err_p:.3e}; vs the bf16 kernel "
-          f"min batch-row cosine dense {cos[0]:.6f}, padded (real tokens) {cos[1]:.6f} "
-          f"(threshold {MIN_COSINE}); least (token, head) cosine {cos_tok[0]:.6f}, "
-          f"{cos_tok[1]:.6f}")
+          f"{1e3 * 4.0 * B * T * T * H * D / PEAK_INT8_OPS:.4f} ms), share of the bound "
+          f"{bound_ms / ms:.3f}; for context, no library call computes this function: "
+          f"the bf16 kernel mh_flash_fwd {bf16_ms:.4f} ms, SDPA bf16 {sdpa_ms:.4f} ms; "
+          f"kernel vs plain at this shape max|do| dense {err_d:.3e}, padded {err_p:.3e}; "
+          f"vs the bf16 kernel min batch-row cosine dense {cos[0]:.6f}, padded (real "
+          f"tokens) {cos[1]:.6f} (threshold {MIN_COSINE}); least (token, head) cosine "
+          f"{cos_tok[0]:.6f}, {cos_tok[1]:.6f}")
     return {"name": "int8_flash_fwd", "route": "cuda",
             "source": "omnibiote_tpu_torch/ops/csrc/int8_flash_fwd.cu",
             "replaces": "omnibiote_tpu/ops/int8_attention.py:48",

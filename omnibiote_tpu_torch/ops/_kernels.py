@@ -24,7 +24,9 @@ BUILD_DIR = os.path.join(_HERE, "build")
 # RoPE or skip bounds, counted as "flash_fwd", "flash_bwd_dkv" and
 # "flash_bwd_dq"; the forward's and the fused backward's sources also hold
 # their products alone, counted as "mh_flash_fwd_dots" and
-# "mh_flash_bwd_dots" (probes/roofline.py::fwd_products, bwd_products). The
+# "mh_flash_bwd_dots" (probes/roofline.py::fwd_products, bwd_products), and
+# the int8 source its attention kernel's products alone as
+# "int8_flash_fwd_dots" (probes/roofline.py::int8_products). The
 # roofline probes' source serves four: "roofline_dots" and "roofline2_dots"
 # (one kernel, the probes of roofline.py and roofline2.py),
 # "roofline_dots_n" and "roofline2_scores".
@@ -32,8 +34,9 @@ LAUNCHES: Dict[str, int] = {"mh_flash_fwd": 0, "mh_flash_fwd_dots": 0,
                             "mh_flash_bwd": 0, "mh_flash_bwd_dots": 0,
                             "mh_flash_bwd_mk": 0, "mh_flash_bwd_dkv": 0,
                             "mh_flash_bwd_dq": 0, "int8_flash_fwd": 0,
-                            "flash_fwd": 0, "flash_bwd_dkv": 0,
-                            "flash_bwd_dq": 0, "roofline_dots": 0,
+                            "int8_flash_fwd_dots": 0, "flash_fwd": 0,
+                            "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
+                            "roofline_dots": 0,
                             "roofline_dots_n": 0, "roofline2_dots": 0,
                             "roofline2_scores": 0}
 
@@ -121,6 +124,19 @@ _SIGNATURES = {
             _c.c_void_p,                               # o
             _c.c_int, _c.c_int, _c.c_int, _c.c_int,    # B, T, H, D
             _c.c_float, _c.c_int, _c.c_void_p]),       # scale_log2, dtype, stream
+        "obt_int8_flash_attn": (_c.c_int, [
+            _c.c_void_p, _c.c_void_p,                  # q8, sq
+            _c.c_void_p, _c.c_void_p,                  # k8, sk
+            _c.c_void_p, _c.c_void_p,                  # v8t, sv
+            _c.c_void_p, _c.c_void_p,                  # seg, o
+            _c.c_int, _c.c_int, _c.c_int, _c.c_int,    # B, T, H, D
+            _c.c_float, _c.c_int, _c.c_void_p]),       # scale_log2, dtype, stream
+        "obt_int8_flash_fwd_dots": (_c.c_int, [
+            _c.c_void_p, _c.c_void_p, _c.c_void_p,     # q8, k8, v8t
+            _c.c_void_p,                               # o
+            _c.c_int, _c.c_int, _c.c_int, _c.c_int,    # B, T, H, D
+            _c.c_void_p]),                             # stream
+        "obt_int8_flash_fwd_smem_bytes": (_c.c_int, []),
         "obt_cuda_error_string_int8": (_c.c_char_p, [_c.c_int]),
     },
     "roofline_probes": {

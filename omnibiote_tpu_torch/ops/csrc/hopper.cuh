@@ -1,15 +1,17 @@
 // Hopper (sm_90a) building blocks of the port's kernels: mbarriers, TMA
 // tiled and bulk loads into shared memory and bulk fp32 reductions out of
 // it, warpgroup matrix products (wgmma) with their shared-memory
-// descriptors, named barriers, register rebalancing between warpgroups,
-// and the host-side tensor map of a row-major bf16 matrix in
-// 128-byte-swizzled panels.
+// descriptors (bf16 and s8), named barriers, register rebalancing between
+// warpgroups, and the host-side tensor map of a row-major bf16 or uint8
+// matrix in 128-byte-swizzled panels.
 //
 // Shared-memory tiles. A tile of R rows x C bf16 columns lives as C / 64
 // panels of R rows x 128 bytes, the layout a TMA load with
 // CU_TENSOR_MAP_SWIZZLE_128B writes: element (r, c) of panel c / 64 sits at
 // byte r * 128 + (((c % 64) / 8) ^ (r % 8)) * 16 + (c % 8) * 2. Every panel
-// starts on a 1024-byte boundary (the swizzle repeats every 8 rows).
+// starts on a 1024-byte boundary (the swizzle repeats every 8 rows). An
+// 8-bit tile is the same with 128 columns a panel: byte (r, c) at
+// r * 128 + (((c % 128) / 16) ^ (r % 8)) * 16 + c % 16.
 #pragma once
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -189,6 +191,12 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 }
 
 template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
 #pragma unroll
   for (int i = 0; i < N; ++i)
@@ -280,11 +288,38 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16_tb(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// D (64 x 128, s32) (+)= A (64 x 32, s8, registers: a[j] holds bytes
+// 4t..4t+3 (j = 0, 1) or 16+4t..16+4t+3 (j = 2, 3) of rows g (j even) or
+// g+8 (j odd) of the warp's 16, g = lane / 4, t = lane % 4) . B (32 x 128,
+// s8, shared, K-major; 8-bit operands have no transpose bit); scale_d == 0
+// overwrites D.
+__device__ __forceinline__ void wgmma_rs_m64n128k32_s8(int (&d)[64], const uint32_t (&a)[4],
+                                                       uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 // ---------------------------------------------------------------------------
-// Host: tensor map of a row-major (rows, cols) bf16 matrix with row stride
-// `ld` elements, loaded as boxes of (64 columns, box_rows rows) into
-// 128-byte-swizzled panels. cuTensorMapEncodeTiled is looked up through the
-// CUDA runtime, so no library beyond the runtime is linked.
+// Host: tensor map of a row-major (rows, cols) bf16 or uint8 matrix with row
+// stride `ld` elements, loaded as boxes of (one 128-byte panel row of
+// columns, box_rows rows) into 128-byte-swizzled panels.
+// cuTensorMapEncodeTiled is looked up through the CUDA runtime, so no
+// library beyond the runtime is linked.
 // ---------------------------------------------------------------------------
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                    const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -292,8 +327,9 @@ using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t
                                    CUtensorMapSwizzle, CUtensorMapL2promotion,
                                    CUtensorMapFloatOOBfill);
 
-inline cudaError_t encode_bf16_panels(CUtensorMap* map, const void* base, uint64_t rows,
-                                      uint64_t cols, uint64_t ld, uint32_t box_rows) {
+inline cudaError_t encode_panels(CUtensorMap* map, CUtensorMapDataType type,
+                                 uint32_t elem_bytes, const void* base, uint64_t rows,
+                                 uint64_t cols, uint64_t ld, uint32_t box_rows) {
   static EncodeTiledFn encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -310,14 +346,25 @@ inline cudaError_t encode_bf16_panels(CUtensorMap* map, const void* base, uint64
     encode = reinterpret_cast<EncodeTiledFn>(fn);
   }
   const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {ld * sizeof(__nv_bfloat16)};
-  const cuuint32_t box[2] = {(cuuint32_t)kPanelCols, box_rows};
+  const cuuint64_t strides[1] = {ld * elem_bytes};
+  const cuuint32_t box[2] = {128 / elem_bytes, box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
-                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  const CUresult r = encode(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+inline cudaError_t encode_bf16_panels(CUtensorMap* map, const void* base, uint64_t rows,
+                                      uint64_t cols, uint64_t ld, uint32_t box_rows) {
+  return encode_panels(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, sizeof(__nv_bfloat16), base,
+                       rows, cols, ld, box_rows);
+}
+
+inline cudaError_t encode_u8_panels(CUtensorMap* map, const void* base, uint64_t rows,
+                                    uint64_t cols, uint64_t ld, uint32_t box_rows) {
+  return encode_panels(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, base, rows, cols, ld, box_rows);
 }
 
 }  // namespace obt

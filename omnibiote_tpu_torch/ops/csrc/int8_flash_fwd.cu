@@ -14,195 +14,318 @@
 //   * sv = max|v| * (1/127) per channel over all T tokens of the row's head
 //     (masked or not), 0 -> 1; v8 = rint(v / sv);
 //   * o = (float(p8 . v8) * (sv * (1/127))) / l, cast to the input dtype.
+// exp2 is ex2.approx with subnormal results flushed to zero: a p below
+// 2^-126 rounds to p8 = 0 either way and adds nothing l can hold beside the
+// row's own p = 1.
 // Layout (B, T, H*D) row-major for q, k, v, o; segment ids (B, T) int32 or
 // null (dense); cos/sin (T, D/2) fp32 or null (no RoPE). D = 128.
 //
 // Design. The TPU kernel holds one kv block spanning T and rotates and
 // quantizes all of K and V in every grid step. Here that work is done once
-// a call by three small kernels ahead of the attention kernel, into
-// scratch tensors the caller provides:
-//   quant_rows  q, k -> q8, k8 (B, H, T, D) int8 and sq, sk (B, H, T) fp32,
-//               one warp a (token, head) row;
-//   v_absmax    v -> sv (B, H, D) fp32, the column reduction over T that
-//               must end before any v8 exists;
-//   quant_v     v, sv -> v8t (B, H, D, T) int8, TRANSPOSED: the B operand
-//               of the int8 tensor-core product holds four consecutive
-//               k-dimension bytes in a register, for p8 . v8 that is the kv
-//               axis, and ldmatrix.trans has no byte form.
-// The attention kernel gives one block a (batch, head, 64-row q tile) and
-// walks 64-wide kv tiles TWICE, since P is quantized against the row's
+// a call by two small kernels ahead of the attention kernel, into scratch
+// tensors the caller provides:
+//   quant_qk  q, k -> q8, k8 (B, H, T, D) int8 and sq, sk (B, H, T) fp32:
+//             one grid for both, a block a (q or k, b, 32 tokens) walking the
+//             heads, 16-byte loads;
+//   quant_v   v -> sv (B, H, D) fp32 and v8t (B, H, D, T) int8, TRANSPOSED
+//             and with the kv axis permuted inside every 32-block (below):
+//             one block a (b, h, 16 channels) reduces |v| over T, keeping
+//             the slab in shared memory as far as 32 KB go, then quantizes.
+// The attention kernel gives one CTA a (batch, head, 128-row q tile) and
+// walks 128-wide kv tiles TWICE, since P is quantized against the row's
 // final max and so cannot be rescaled as an online softmax would: the
 // first walk takes K tiles only and keeps the row maxima, the second
-// recomputes the scores (half again the int8 operations, no bytes beyond
-// the K tiles), takes p, l and p8, and adds p8 . v8 into int32
-// accumulators that need no rescaling. Both products run on the tensor
-// cores (mma.sync m16n8k32 s8 x s8 -> s32).
+// recomputes the scores, takes p, l and p8, and adds p8 . v8 into int32
+// accumulators that need no rescaling. Three warpgroups: a producer whose
+// first thread keeps a four-stage ring of K8 and (second walk) V8^T tiles
+// full by TMA (uint8 tensor maps, 128-byte swizzle: one int8 head row is one
+// swizzle row), with the tile's key scales and segment ids as bulk copies,
+// and two consumers of 64 q rows each, which take turns on the tensor cores
+// (named barriers). Both products are wgmma m64n128k32 s8 x s8 -> s32 with
+// A from registers: S = Q8 . K8^T with the consumer's Q8 rows held as A
+// fragments for the whole call, O += P8 . V8 with P8 packed from S's
+// accumulators. B comes from shared memory K-major: K8 tiles as they are,
+// V8 as V8^T tiles (8-bit wgmma has no transpose bit, which is why the
+// prologue writes V transposed).
 //
-// Fragments (g = lane / 4, t = lane % 4). A score accumulator of n-tile j
-// holds columns 2t, 2t+1 of the tile, but the A operand of the next
-// product wants four consecutive kv bytes a register (k = 4t..4t+3 and
-// 16+4t..16+4t+3 of a 32-deep step). So the K tile is laid out in shared
-// memory in "fragment order": kv row r of the tile goes to row frag_pos(r),
-// chosen so that n-tile j = 4*kk + w, column n holds the kv row
-// 32*kk + 16*(w/2) + 4*(n/2) + 2*(w%2) + n%2. Then a thread's eight
-// scores of a 32-wide k-step are exactly its A operand's bytes, in order,
-// and V stays in natural order. The permutation costs nothing: cp.async
-// writes each K row where it belongs.
+// Fragments (g = lane / 4, t = lane % 4, per warp of 16 rows). A thread's
+// score accumulators hold columns 8n + 2t and 8n + 2t + 1 of each 8-column
+// block n; its A register j of a 32-deep k-step holds the four consecutive
+// k bytes 4t..4t+3 (j = 0, 1) or 16+4t..16+4t+3 (j = 2, 3). So the k order
+// of P8 . V8 is not the kv order: within each 32-block, k = 16 hf + 4t + i
+// stands for kv 16 hf + 2t + (i & 1) + 8 (i >> 1) (kv_of_k below), and
+// quant_v writes V8^T's kv axis in that k order. A thread then packs its
+// own p8 bytes in register order, with no exchange between lanes.
 //
-// Bound. At the serving shape (B=32, T=1024, H=8, D=128, bf16) a call does
-// 4*B*T^2*H*D = 137 GOP (69 us at the H100's 1,979 TOP/s int8) and moves
-// 268 MB of q, k, v and o (80 us at 3.35 TB/s): bound by bytes.
+// Conversions on every (q, k) pair. float(s_i), |s_i| <= 128 * 127^2 < 2^24,
+// is exact as cvt.rn.f32.s32, which sm_90 runs as one I2FP: one instruction
+// where the integer-add form (bits(s + 0x4B400000) - 1.5 * 2^23) takes two.
+// rint(x), half to even, for |x| < 2^22 is the low bits of x + 1.5 * 2^23
+// (its low byte is the int8 byte): one float add in place of a float-to-int
+// conversion.
+//
+// Bound. At the serving shape (B=32, T=1024, H=8, D=128, bf16) a call moves
+// 268 MB of q, k, v and o (80 us at 3.35 TB/s) and does 4*B*T^2*H*D =
+// 137 GOP of products (69 us at 1,979 TOP/s int8): bound by bytes. The two
+// walks do 6*B*T^2*H*D = 206 GOP, and every (q, k) pair takes ~14 ALU
+// instructions over both walks (conversion, scales, max; again, exp2, sum,
+// p8, packing): ~0.13 ms of issue across the card, more than the products'
+// 0.10 ms at the int8 peak. On the card neither runs near its rate (short
+// wgmma chains wait on their latency, a lone warp's arithmetic on its
+// dependencies) and the two overlap only in part (PERF.md, row 9).
+#include <atomic>
+#include <climits>
+
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace obt;
 
-constexpr int kD = 128;      // head dim
+constexpr int kD = 128;      // head dim: one 128-byte swizzle row of int8
 constexpr int kHalf = kD / 2;
-constexpr int kTile = 64;    // q rows a block, kv rows a tile
-constexpr int kKRow = kD + 16;     // K tile row stride, bytes (conflict-free ldmatrix)
-constexpr int kVRow = kTile + 16;  // V^T tile row stride, bytes
+constexpr float kMagic = 12582912.0f;  // 1.5 * 2^23
 
 __device__ __forceinline__ float inv127() { return (float)(1.0 / 127.0); }
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+// bits of x + 1.5 * 2^23: for |x| < 2^22 they are 0x4B400000 + rint(x),
+// half to even, so the low byte is rint(x)'s two's-complement byte
+__device__ __forceinline__ uint32_t rint_bits(float x) {
+  return __float_as_uint(__fadd_rn(x, kMagic));
+}
+
+// rint(x / s) as an int8's bits
+__device__ __forceinline__ uint32_t quant_byte(float x, float s) {
+  return rint_bits(__fdiv_rn(x, s)) & 0xffu;
+}
+
+// kv index (within a 32-block) of k position k of the P8 . V8 product
+__device__ __forceinline__ int kv_of_k(int k) {
+  return (k & 16) | ((k >> 1) & 6) | (k & 1) | ((k & 2) << 2);
+}
+
+__device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&x)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(h[e]);
+    x[2 * e] = f.x;
+    x[2 * e + 1] = f.y;
+  }
+}
 
 __device__ __forceinline__ float2 load2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
 __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) { return load_bf16x2(p); }
 
-// x8 = rint(x / s) as an int8's bits
-__device__ __forceinline__ uint32_t quant_byte(float x, float s) {
-  return (uint32_t)__float2int_rn(__fdiv_rn(x, s)) & 0xffu;
-}
-
-// D (16x8, s32) += A (16x32, s8, row) * B (32x8, s8, col)
-__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // ---------------------------------------------------------------------------
-// Prologue 1: rotate and quantize the (b, t, h) rows of q or k. One warp a
-// row; lane l holds columns 2l, 2l+1 and their rotation partners 64+2l,
-// 64+2l+1.
+// Prologue 1: rotate and quantize q and k. A block takes 32 consecutive
+// tokens of one batch row of q (blockIdx.y == 0) or k and walks the heads,
+// each token's cos/sin loaded once; eight threads a (token, head) row,
+// thread c holding columns 8c..8c+7 and their rotation partners 64+8c...
 // ---------------------------------------------------------------------------
+constexpr int kQkRows = 32;
+
 template <typename InT>
-__global__ void __launch_bounds__(256) quant_rows(
-    const InT* __restrict__ x, const float* __restrict__ cos_t,
-    const float* __restrict__ sin_t, int8_t* __restrict__ x8,
-    float* __restrict__ sx, int T, int H, long long n_rows) {
-  const long long row = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (row >= n_rows) return;  // a whole warp leaves together
-  const int lane = threadIdx.x & 31;
-  const int h = (int)(row % H);
-  const long long bt = row / H;
-  const int t = (int)(bt % T);
-  const long long b = bt / T;
-  const InT* src = x + row * kD;
-  float2 lo = load2(src + 2 * lane), hi = load2(src + kHalf + 2 * lane);
+__global__ void __launch_bounds__(kQkRows * 8) quant_qk(
+    const InT* __restrict__ q, const InT* __restrict__ k, const float* __restrict__ cos_t,
+    const float* __restrict__ sin_t, int8_t* __restrict__ q8, float* __restrict__ sq,
+    int8_t* __restrict__ k8, float* __restrict__ sk, int T, int H) {
+  const bool is_k = blockIdx.y != 0;
+  const int b = blockIdx.z;
+  const int c = threadIdx.x & 7, t = blockIdx.x * kQkRows + (threadIdx.x >> 3);
+  const InT* src = (is_k ? k : q) + ((size_t)b * T + t) * H * kD + 8 * c;
+  int8_t* dst = (is_k ? k8 : q8) + ((size_t)b * H * T + t) * kD + 8 * c;
+  float* sx = (is_k ? sk : sq) + (size_t)b * H * T + t;
+  float cs[8], sn[8];
   if (cos_t != nullptr) {
-    const float2 c = *reinterpret_cast<const float2*>(cos_t + (size_t)t * kHalf + 2 * lane);
-    const float2 s = *reinterpret_cast<const float2*>(sin_t + (size_t)t * kHalf + 2 * lane);
-    const float2 rl = make_float2(rope_lo(lo.x, hi.x, c.x, s.x), rope_lo(lo.y, hi.y, c.y, s.y));
-    const float2 rh = make_float2(rope_hi(lo.x, hi.x, c.x, s.x), rope_hi(lo.y, hi.y, c.y, s.y));
-    lo = rl;
-    hi = rh;
+    load8(cos_t + (size_t)t * kHalf + 8 * c, cs);
+    load8(sin_t + (size_t)t * kHalf + 8 * c, sn);
   }
-  float mx = fmaxf(fmaxf(fabsf(lo.x), fabsf(lo.y)), fmaxf(fabsf(hi.x), fabsf(hi.y)));
+  for (int h = 0; h < H; ++h) {
+    float lo[8], hi[8];
+    load8(src + (size_t)h * kD, lo);
+    load8(src + (size_t)h * kD + kHalf, hi);
+    if (cos_t != nullptr) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-  float s = __fmul_rn(mx, inv127());
-  if (s == 0.0f) s = 1.0f;
-  const long long orow = (b * H + h) * T + t;
-  int8_t* dst = x8 + orow * kD;
-  *reinterpret_cast<uint16_t*>(dst + 2 * lane) =
-      (uint16_t)(quant_byte(lo.x, s) | (quant_byte(lo.y, s) << 8));
-  *reinterpret_cast<uint16_t*>(dst + kHalf + 2 * lane) =
-      (uint16_t)(quant_byte(hi.x, s) | (quant_byte(hi.y, s) << 8));
-  if (lane == 0) sx[orow] = s;
-}
-
-// ---------------------------------------------------------------------------
-// Prologue 2: sv[b, h, d] = max_t |v[b, t, h, d]| * (1/127), 0 -> 1. One
-// block a (b, h): 128 channels x 8 token groups.
-// ---------------------------------------------------------------------------
-constexpr int kVGroups = 8;
-
-template <typename InT>
-__global__ void __launch_bounds__(kD * kVGroups) v_absmax(
-    const InT* __restrict__ v, float* __restrict__ sv, int T, int H) {
-  __shared__ float red[kVGroups][kD];
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int d = threadIdx.x & (kD - 1), tg = threadIdx.x >> 7;
-  const InT* col = v + ((size_t)b * T * H + h) * kD + d;
-  const size_t step = (size_t)H * kD;
-  float mx = 0.0f;
-#pragma unroll 4
-  for (int t = tg; t < T; t += kVGroups) mx = fmaxf(mx, fabsf(to_f32(col[(size_t)t * step])));
-  red[tg][d] = mx;
-  __syncthreads();
-  if (tg == 0) {
+      for (int e = 0; e < 8; ++e) {
+        const float rl = rope_lo(lo[e], hi[e], cs[e], sn[e]);
+        hi[e] = rope_hi(lo[e], hi[e], cs[e], sn[e]);
+        lo[e] = rl;
+      }
+    }
+    float mx = 0.0f;
 #pragma unroll
-    for (int i = 1; i < kVGroups; ++i) mx = fmaxf(mx, red[i][d]);
+    for (int e = 0; e < 8; ++e) mx = fmaxf(mx, fmaxf(fabsf(lo[e]), fabsf(hi[e])));
+#pragma unroll
+    for (int off = 4; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
     float s = __fmul_rn(mx, inv127());
     if (s == 0.0f) s = 1.0f;
-    sv[(size_t)bh * kD + d] = s;
+    uint32_t wl[2] = {0, 0}, wh[2] = {0, 0};
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      wl[e >> 2] |= quant_byte(lo[e], s) << (8 * (e & 3));
+      wh[e >> 2] |= quant_byte(hi[e], s) << (8 * (e & 3));
+    }
+    int8_t* d = dst + (size_t)h * T * kD;
+    *reinterpret_cast<uint2*>(d) = make_uint2(wl[0], wl[1]);
+    *reinterpret_cast<uint2*>(d + kHalf) = make_uint2(wh[0], wh[1]);
+    if (c == 0) sx[(size_t)h * T] = s;
   }
 }
 
 // ---------------------------------------------------------------------------
-// Prologue 3: v8t[b, h, d, t] = rint(v[b, t, h, d] / sv[b, h, d]). One block
-// a (b, h, 64-token tile), transposed through shared memory.
+// Prologue 2: sv[b, h, d] = max_t |v[b, t, h, d]| * (1/127), 0 -> 1, then
+// v8t[b, h, d, 32 j + k] = rint(v[b, 32 j + kv_of_k(k), h, d] / sv). One
+// block a (b, h, 16 channels): 32 bytes of each bf16 token row, one memory
+// sector. The reduction reads the block's slab two threads a token row and
+// keeps its first 32 KB (all of it up to T = 1024 in bf16) in shared
+// memory; the quantisation walks it again in 128-token chunks, from there
+// or, past those rows, from global memory, and transposes each chunk
+// through shared memory: a thread quantizes two channels of four
+// consecutive k positions into two 32-bit words; a warp then writes one
+// channel's 128 bytes.
 // ---------------------------------------------------------------------------
+constexpr int kVThreads = 256;
+constexpr int kVChannels = 16;
+constexpr int kVChunk = 128;
+constexpr int kVSlabBytes = 32 * 1024;
+constexpr int kTileWords = kVChunk / 4 + 1;  // + 1: two-way bank conflicts at most
+
 template <typename InT>
-__global__ void __launch_bounds__(256) quant_v(
-    const InT* __restrict__ v, const float* __restrict__ sv,
-    int8_t* __restrict__ v8t, int T, int H) {
-  constexpr int RS = kTile + 4;  // bytes a channel row, 4-byte aligned
-  __shared__ __align__(4) int8_t tile[kD * RS];
-  const int j0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, d = tid & (kD - 1);
+__global__ void __launch_bounds__(kVThreads) quant_v(
+    const InT* __restrict__ v, float* __restrict__ sv, int8_t* __restrict__ v8t, int T,
+    int H) {
+  constexpr int kSlabRows = kVSlabBytes / (kVChannels * sizeof(InT));
+  __shared__ __align__(16) InT slab[kSlabRows * kVChannels];
+  __shared__ float red[kVThreads / 32][kVChannels];
+  __shared__ uint32_t tile[kVChannels * kTileWords];
+  __shared__ float svs[kVChannels];
+  const int c0 = blockIdx.x * kVChannels, h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const size_t rs = (size_t)H * kD;  // elements between consecutive tokens
   const size_t bh = (size_t)b * H + h;
-  const float s = sv[bh * kD + d];
-  for (int t = tid >> 7; t < kTile; t += 2) {
-    const float x = to_f32(v[(((size_t)b * T + j0 + t) * H + h) * kD + d]);
-    tile[d * RS + t] = (int8_t)__float2int_rn(__fdiv_rn(x, s));
+  const InT* vb = v + (size_t)b * T * rs + (size_t)h * kD + c0;
+
+  {
+    const int half = tid & 1;  // channels 8 half .. 8 half + 7
+    float mx[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
+    for (int t = tid >> 1; t < T; t += kVThreads / 2) {
+      const uint4* src = reinterpret_cast<const uint4*>(vb + (size_t)t * rs + 8 * half);
+      uint4 raw[sizeof(InT) / 2];
+#pragma unroll
+      for (int i = 0; i < (int)(sizeof(InT) / 2); ++i) raw[i] = src[i];
+      if (t < kSlabRows) {
+        uint4* dst = reinterpret_cast<uint4*>(slab + t * kVChannels + 8 * half);
+#pragma unroll
+        for (int i = 0; i < (int)(sizeof(InT) / 2); ++i) dst[i] = raw[i];
+      }
+      float x[8];
+      load8(reinterpret_cast<const InT*>(raw), x);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) mx[e] = fmaxf(mx[e], fabsf(x[e]));
+    }
+#pragma unroll
+    for (int off = 2; off < 32; off <<= 1)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], off));
+    if ((tid & 31) < 2) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) red[tid >> 5][8 * half + e] = mx[e];
+    }
   }
   __syncthreads();
-  for (int it = tid; it < kD * (kTile / 4); it += 256) {
-    const int dd = it / (kTile / 4), w = it % (kTile / 4);
-    *reinterpret_cast<uint32_t*>(v8t + (bh * kD + dd) * T + j0 + 4 * w) =
-        *reinterpret_cast<const uint32_t*>(tile + dd * RS + 4 * w);
+  if (tid < kVChannels) {
+    float m = red[0][tid];
+#pragma unroll
+    for (int i = 1; i < kVThreads / 32; ++i) m = fmaxf(m, red[i][tid]);
+    float s = __fmul_rn(m, inv127());
+    if (s == 0.0f) s = 1.0f;
+    svs[tid] = s;
+    sv[bh * kD + c0 + tid] = s;
+  }
+  __syncthreads();
+
+  const int cp = tid & 7;   // channels 2 cp, 2 cp + 1
+  const int kq = tid >> 3;  // k positions 4 kq .. 4 kq + 3 of a chunk
+  const float s0 = svs[2 * cp], s1 = svs[2 * cp + 1];
+  int8_t* ob = v8t + (bh * kD + c0) * T;
+  for (int j0 = 0; j0 < T; j0 += kVChunk) {
+    uint32_t w0 = 0, w1 = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = 4 * kq + i, t = j0 + (k & ~31) + kv_of_k(k & 31);
+      const float2 x = t < kSlabRows ? load2(slab + t * kVChannels + 2 * cp)
+                                     : load2(vb + (size_t)t * rs + 2 * cp);
+      w0 |= quant_byte(x.x, s0) << (8 * i);
+      w1 |= quant_byte(x.y, s1) << (8 * i);
+    }
+    tile[(2 * cp) * kTileWords + kq] = w0;
+    tile[(2 * cp + 1) * kTileWords + kq] = w1;
+    __syncthreads();
+#pragma unroll
+    for (int it = tid; it < kVChannels * (kVChunk / 4); it += kVThreads) {
+      const int d = it / (kVChunk / 4), w = it % (kVChunk / 4);
+      *reinterpret_cast<uint32_t*>(ob + (size_t)d * T + j0 + 4 * w) = tile[d * kTileWords + w];
+    }
+    __syncthreads();
   }
 }
 
 // ---------------------------------------------------------------------------
-// The attention kernel: 4 warps, 64 query rows (16 a warp), 64-wide kv
-// tiles, two walks. Fragment layout of m16n8k32 (g = lane / 4, t = lane % 4):
-//   A regs: (g, 4t..4t+3), (g+8, 4t..), (g, 16+4t..), (g+8, 16+4t..)
-//   B regs: (k = 4t..4t+3, n = g), (k = 16+4t..16+4t+3, n = g)
-//   C:      (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)
+// The attention kernel. A CTA owns 128 query rows of one (batch, head) and
+// three warpgroups: warpgroup 0 produces, 1 and 2 consume 64 rows each.
+// A thread's accumulators (g = lane / 4, t = lane % 4) are rows 16 w + g
+// and + 8 of warp w, columns 8 n + 2 t, + 1. setmaxnreg moves registers from the
+// producer (24) to the consumers (240).
+//
+// DOTS: the products alone, the yardstick of the pipeline (same ring,
+// walks, turns and fragment packing): no scales, mask, exp2 or division;
+// walk 1 keeps the int32 row max m of S, walk 2 takes p8 = the low byte of
+// S (two's complement), and o (B, T, H, D) int32 = m + p8 . v8.
 // ---------------------------------------------------------------------------
+constexpr int kBq = 128, kBkv = 128, kStages = 4;
+constexpr int kThreads = 384, kConsumerWarps = 8;
+constexpr uint32_t kTileBytes = kBkv * kD;  // a K8 or V8^T tile, one byte an element
+// named barriers (0 is __syncthreads): 1 + w, consumer w's turn on the
+// tensor cores
+constexpr int kBarTurn = 1;
 
-// shared-memory row of kv row r of a tile (fragment order, see the header)
-__device__ __forceinline__ int frag_pos(int r) {
-  return (r & 48) | ((r & 2) << 2) | ((r >> 1) & 6) | (r & 1);
+struct AttnSmem {
+  alignas(1024) int8_t k[kStages][kBkv * kD];
+  alignas(1024) int8_t v[kStages][kD * kBkv];  // V8^T: channel rows of kBkv k bytes
+  float sk[kStages][kBkv];
+  int kseg[kStages][kBkv];
+  uint64_t full[kStages], empty[kStages];
+};
+
+constexpr size_t attn_smem_bytes() {
+  return sizeof(AttnSmem) + kSwizzleAtom;  // + room to align the base
 }
 
-// kv row (within the tile) behind column 2t of n-tile j; column 2t+1 is the next
-__device__ __forceinline__ int frag_col(int j, int t4) {
-  return 32 * (j >> 2) + 16 * ((j >> 1) & 1) + 2 * (j & 1) + 4 * t4;
-}
-
+// The log2-space score of one pair. float(si) is exact (|si| < 2^24) and one
+// I2FP on sm_90. A masked pair's x + mask (-0.7 FLT_MAX) is -inf here: it
+// never is a row's max (a row sees its own key) and its p is 0 either way.
+template <bool SEG>
 __device__ __forceinline__ float score8(int si, float sqc, float sk, int qs, int ks) {
-  return __fadd_rn(__fmul_rn(__fmul_rn((float)si, sqc), sk), qs == ks ? 0.0f : kMaskValue);
+  const float x = __fmul_rn(__fmul_rn((float)si, sqc), sk);
+  if constexpr (SEG) return qs == ks ? x : -INFINITY;
+  return x;
+}
+
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ void store2(float* p, float a, float b) {
@@ -212,215 +335,353 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
 }
 
-template <typename OutT>
-__global__ void __launch_bounds__(128) int8_fwd(
+// Of a 32-deep k-step of P8 . V8, accumulator blocks 4kk and 4kk + 1 are
+// the k bytes 4t..4t+3 of a thread's A registers and blocks 4kk + 2 and
+// 4kk + 3 the bytes 16+4t..16+4t+3 (kv_of_k). pair_bytes puts the low bytes
+// of a block's two columns (8n + 2t, + 1) of one row into the low half of
+// a word; join_pairs makes one A register of two such words.
+__device__ __forceinline__ uint32_t pair_bytes(uint32_t c0, uint32_t c1) {
+  return __byte_perm(c0, c1, 0x0040);
+}
+__device__ __forceinline__ uint32_t join_pairs(uint32_t a, uint32_t b) {
+  return __byte_perm(a, b, 0x5410);
+}
+
+template <typename OutT, bool SEG, bool DOTS>
+__global__ void __launch_bounds__(kThreads, 1) int8_fwd(
+    const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
     const int8_t* __restrict__ q8, const float* __restrict__ sq,
-    const int8_t* __restrict__ k8, const float* __restrict__ sk,
-    const int8_t* __restrict__ v8t, const float* __restrict__ sv,
-    const int* __restrict__ seg, OutT* __restrict__ o, int T, int H,
-    float scale_log2) {
-  constexpr int NJ = kTile / 8;  // n-tiles of a score tile
-  constexpr int NN = kD / 8;     // n-tiles of the output
-  __shared__ __align__(16) int8_t ks[2][kTile * kKRow];
-  __shared__ __align__(16) int8_t vs[2][kD * kVRow];
-  __shared__ __align__(16) float sks[2][kTile];
-  __shared__ __align__(16) int ksg[2][kTile];
+    const float* __restrict__ sk, const float* __restrict__ sv,
+    const int* __restrict__ seg, OutT* __restrict__ o, int T, int H, float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  AttnSmem& sm = *reinterpret_cast<AttnSmem*>(
+      smem_raw + ((kSwizzleAtom - (shared_addr(smem_raw) & (kSwizzleAtom - 1))) &
+                  (kSwizzleAtom - 1)));
 
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const size_t bh = (size_t)b * H + h;
-  const int8_t* kb = k8 + bh * T * kD;
-  const int8_t* vb = v8t + bh * kD * T;
-  const float* skb = sk + bh * T;
-  const int* segb = seg != nullptr ? seg + (size_t)b * T : nullptr;
-  const int r0 = blockIdx.x * kTile + warp * 16 + g;  // rows r0 and r0 + 8
-
-  // copy kv tile j0 into ring stage `st`: K rows in fragment order, the
-  // keys' scales and ids, and (second walk) the V^T tile
-  auto load_tile = [&](int st, int j0, bool with_v) {
-    for (int it = tid; it < kTile * (kD / 16); it += 128) {
-      const int row = it >> 3, c = (it & 7) * 16;
-      cp_async16(&ks[st][frag_pos(row) * kKRow + c], kb + (size_t)(j0 + row) * kD + c);
-    }
-    if (with_v) {
-      for (int it = tid; it < kD * (kTile / 16); it += 128) {
-        const int d = it >> 2, c = (it & 3) * 16;
-        cp_async16(&vs[st][d * kVRow + c], vb + (size_t)d * T + j0 + c);
-      }
-    }
-    if (tid < kTile / 4) {
-      cp_async16(&sks[st][tid * 4], skb + j0 + tid * 4);
-    } else if (segb != nullptr && tid < kTile / 2) {
-      const int i = tid - kTile / 4;
-      cp_async16(&ksg[st][i * 4], segb + j0 + i * 4);
-    }
-  };
-
-  const int NT = T / kTile;
-  load_tile(0, 0, false);
-  cp_async_commit();
-
-  // this warp's q8 rows as A fragments of the four 32-deep k-steps
-  uint32_t qa[kD / 32][4];
-  {
-    const int8_t* q0 = q8 + (bh * T + r0) * kD;
-    const int8_t* q1 = q0 + 8 * kD;
+  const int b = blockIdx.z, h = blockIdx.y, qt = blockIdx.x, tid = threadIdx.x;
+  const int bh = b * H + h, NT = T / kBkv;
+  if (tid == 0) {
 #pragma unroll
-    for (int kk = 0; kk < kD / 32; ++kk) {
-      qa[kk][0] = *reinterpret_cast<const uint32_t*>(q0 + kk * 32 + 4 * t4);
-      qa[kk][1] = *reinterpret_cast<const uint32_t*>(q1 + kk * 32 + 4 * t4);
-      qa[kk][2] = *reinterpret_cast<const uint32_t*>(q0 + kk * 32 + 16 + 4 * t4);
-      qa[kk][3] = *reinterpret_cast<const uint32_t*>(q1 + kk * 32 + 16 + 4 * t4);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&sm.full[st], 1);
+      mbar_init(&sm.empty[st], kConsumerWarps);
     }
+    mbar_init_fence();
   }
-  const float sqc0 = __fmul_rn(sq[bh * T + r0], scale_log2);
-  const float sqc1 = __fmul_rn(sq[bh * T + r0 + 8], scale_log2);
-  const int qs0 = segb != nullptr ? segb[r0] : 0;
-  const int qs1 = segb != nullptr ? segb[r0 + 8] : 0;
+  __syncthreads();
 
-  // s2 of this warp's 16 rows against the 64 keys of stage `st`
-  auto scores = [&](int st, float (&s)[NJ][4]) {
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      int si[4] = {0, 0, 0, 0};
-#pragma unroll
-      for (int p = 0; p < kD / 64; ++p) {
-        uint32_t bf[4];
-        ldmatrix_x4(bf, &ks[st][(j * 8 + (lane & 7)) * kKRow + p * 64 + (lane >> 3) * 16]);
-        mma_s8(si, qa[2 * p], bf[0], bf[1]);
-        mma_s8(si, qa[2 * p + 1], bf[2], bf[3]);
+  if (tid < 128) {
+    // ---- producer: one thread keeps the ring full, walk 1 then walk 2 ----
+    setmaxnreg_dec<24>();
+    if (tid == 0) {
+      for (int it = 0; it < 2 * NT; ++it) {
+        const int st = it % kStages;
+        const bool second = it >= NT;
+        const int j0 = (second ? it - NT : it) * kBkv;
+        if (it >= kStages) mbar_wait(&sm.empty[st], ((it / kStages) - 1) & 1);
+        const uint32_t bytes = kTileBytes + (second ? kTileBytes : 0u) +
+                               (DOTS ? 0u : kBkv * sizeof(float)) +
+                               (SEG ? kBkv * sizeof(int) : 0u);
+        mbar_arrive_expect_tx(&sm.full[st], bytes);
+        tma_load_2d(sm.k[st], &kmap, 0, bh * T + j0, &sm.full[st]);
+        if (second) tma_load_2d(sm.v[st], &vmap, j0, bh * kD, &sm.full[st]);
+        if (!DOTS) bulk_load(sm.sk[st], sk + (size_t)bh * T + j0, kBkv * sizeof(float), &sm.full[st]);
+        if (SEG) bulk_load(sm.kseg[st], seg + (size_t)b * T + j0, kBkv * sizeof(int), &sm.full[st]);
       }
-      const int col = frag_col(j, t4);
-      const float2 k2 = *reinterpret_cast<const float2*>(&sks[st][col]);
-      const int ks0 = segb != nullptr ? ksg[st][col] : 0;
-      const int ks1 = segb != nullptr ? ksg[st][col + 1] : 0;
-      s[j][0] = score8(si[0], sqc0, k2.x, qs0, ks0);
-      s[j][1] = score8(si[1], sqc0, k2.y, qs0, ks1);
-      s[j][2] = score8(si[2], sqc1, k2.x, qs1, ks0);
-      s[j][3] = score8(si[3], sqc1, k2.y, qs1, ks1);
     }
-  };
+  } else {
+    // ---- consumers: 64 query rows each ----
+    setmaxnreg_inc<240>();
+    const int wg = (tid >> 7) - 1, wt = tid & 127, warp = wt >> 5, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int r0 = qt * kBq + wg * 64 + warp * 16 + g;  // this thread's rows r0 and r0 + 8
 
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-  int acc[NN][4];
+    // this thread's Q8 bytes as the A fragments of the four 32-deep k-steps
+    uint32_t qa[kD / 32][4];
+    {
+      const int8_t* q0 = q8 + ((size_t)bh * T + r0) * kD + 4 * t4;
+      const int8_t* q1 = q0 + 8 * kD;
 #pragma unroll
-  for (int n = 0; n < NN; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0;
-
-  // steps 0..NT-1: the first walk (maxima), NT..2NT-1: the second (P . V)
-  for (int step = 0; step < 2 * NT; ++step) {
-    const int st = step & 1;
-    // the other stage was last read in the previous step, which ended in a
-    // barrier: refill it with the next tile while this one is used
-    if (step + 1 < 2 * NT) {
-      const bool second = step + 1 >= NT;
-      load_tile(st ^ 1, (second ? step + 1 - NT : step + 1) * kTile, second);
+      for (int kk = 0; kk < kD / 32; ++kk) {
+        qa[kk][0] = *reinterpret_cast<const uint32_t*>(q0 + kk * 32);
+        qa[kk][1] = *reinterpret_cast<const uint32_t*>(q1 + kk * 32);
+        qa[kk][2] = *reinterpret_cast<const uint32_t*>(q0 + kk * 32 + 16);
+        qa[kk][3] = *reinterpret_cast<const uint32_t*>(q1 + kk * 32 + 16);
+      }
     }
-    cp_async_commit();
-    cp_async_wait_one();  // this step's group has landed
-    __syncthreads();
+    float sqc0 = 0.f, sqc1 = 0.f;
+    int qs0 = 0, qs1 = 0;
+    if constexpr (!DOTS) {
+      sqc0 = __fmul_rn(sq[(size_t)bh * T + r0], scale_log2);
+      sqc1 = __fmul_rn(sq[(size_t)bh * T + r0 + 8], scale_log2);
+    }
+    if constexpr (SEG) {
+      qs0 = seg[(size_t)b * T + r0];
+      qs1 = seg[(size_t)b * T + r0 + 8];
+    }
+    int s[64], acc[64];
+    uint32_t p[kBkv / 32][4];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0;
 
-    float s[NJ][4];
-    scores(st, s);
-    if (step < NT) {
+    // S = Q8 . K8^T of ring stage st: four 32-byte k-steps inside K's rows
+    auto gemm_s = [&](int st) {
+      const uint32_t k_addr = shared_addr(sm.k[st]);
+      wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        m0 = fmaxf(m0, fmaxf(s[j][0], s[j][1]));
-        m1 = fmaxf(m1, fmaxf(s[j][2], s[j][3]));
-      }
-      if (step == NT - 1) {  // the rows' final maxima, over the quad
-        m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
-        m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
-        m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
-        m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
-      }
-    } else {
-      uint32_t pb[NJ][2];  // p8 of (rows g | g+8) x (columns 2t, 2t+1), two bytes each
+      for (int kk = 0; kk < kD / 32; ++kk)
+        wgmma_rs_m64n128k32_s8(s, qa[kk], smem_desc(k_addr + kk * 32, 16, kSwizzleAtom),
+                               kk > 0);
+      wgmma_commit();
+    };
+    // acc += P8 . V8 of ring stage st (V8^T K-major along kv)
+    auto gemm_pv = [&](int st) {
+      const uint32_t v_addr = shared_addr(sm.v[st]);
+      wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float p0 = exp2f(s[j][0] - m0), p1 = exp2f(s[j][1] - m0);
-        const float p2 = exp2f(s[j][2] - m1), p3 = exp2f(s[j][3] - m1);
-        l0 += p0 + p1;  // per-thread partial sums, reduced at the end
-        l1 += p2 + p3;
-        pb[j][0] = (uint32_t)__float2int_rn(__fmul_rn(p0, 127.0f)) |
-                   ((uint32_t)__float2int_rn(__fmul_rn(p1, 127.0f)) << 8);
-        pb[j][1] = (uint32_t)__float2int_rn(__fmul_rn(p2, 127.0f)) |
-                   ((uint32_t)__float2int_rn(__fmul_rn(p3, 127.0f)) << 8);
-      }
+      for (int kk = 0; kk < kBkv / 32; ++kk)
+        wgmma_rs_m64n128k32_s8(acc, p[kk], smem_desc(v_addr + kk * 32, 16, kSwizzleAtom), 1);
+      wgmma_commit();
+    };
+    // Turns as in the bf16 forward: warpgroup w waits on barrier kBarTurn + w
+    // (its 128 threads and the other's 128 arrivals) before it issues and
+    // passes the turn after. Each takes 2 NT + 1 turns; warpgroup 0 goes
+    // first and warpgroup 1 passes no turn after its last.
+    auto turn_wait = [&]() { named_bar_sync(kBarTurn + wg, 256); };
+    auto turn_pass = [&]() { named_bar_arrive(kBarTurn + (wg ^ 1), 256); };
+    auto wait_full = [&](int it) { mbar_wait(&sm.full[it % kStages], (it / kStages) & 1); };
+    auto release = [&](int it) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&sm.empty[it % kStages]);
+    };
+    if (wg == 1) turn_pass();
+
+    // ---- walk 1: the row maxima over all T keys ----
+    float m0 = -INFINITY, m1 = -INFINITY;
+    int im0 = INT_MIN, im1 = INT_MIN;
+    for (int it = 0; it < NT; ++it) {
+      const int st = it % kStages;
+      wait_full(it);
+      turn_wait();
+      gemm_s(st);
+      turn_pass();
+      wgmma_wait<0>();
+      fence_regs(s);
 #pragma unroll
-      for (int kk = 0; kk < kTile / 32; ++kk) {
-        // fragment order: the scores of n-tiles 4kk..4kk+3 are this
-        // k-step's kv bytes 4t..4t+3 and 16+4t..16+4t+3
-        const uint32_t pa[4] = {pb[4 * kk][0] | (pb[4 * kk + 1][0] << 16),
-                                pb[4 * kk][1] | (pb[4 * kk + 1][1] << 16),
-                                pb[4 * kk + 2][0] | (pb[4 * kk + 3][0] << 16),
-                                pb[4 * kk + 2][1] | (pb[4 * kk + 3][1] << 16)};
-#pragma unroll
-        for (int n = 0; n < NN; ++n) {
-          const int8_t* vrow = &vs[st][(n * 8 + g) * kVRow + kk * 32 + 4 * t4];
-          mma_s8(acc[n], pa, *reinterpret_cast<const uint32_t*>(vrow),
-                 *reinterpret_cast<const uint32_t*>(vrow + 16));
+      for (int n = 0; n < 16; ++n) {
+        if constexpr (DOTS) {
+          im0 = max(im0, max(s[4 * n], s[4 * n + 1]));
+          im1 = max(im1, max(s[4 * n + 2], s[4 * n + 3]));
+        } else {
+          const int col = 8 * n + 2 * t4;
+          const float2 k2 = *reinterpret_cast<const float2*>(&sm.sk[st][col]);
+          int2 ks = make_int2(0, 0);
+          if constexpr (SEG) ks = *reinterpret_cast<const int2*>(&sm.kseg[st][col]);
+          m0 = fmaxf(m0, fmaxf(score8<SEG>(s[4 * n], sqc0, k2.x, qs0, ks.x),
+                               score8<SEG>(s[4 * n + 1], sqc0, k2.y, qs0, ks.y)));
+          m1 = fmaxf(m1, fmaxf(score8<SEG>(s[4 * n + 2], sqc1, k2.x, qs1, ks.x),
+                               score8<SEG>(s[4 * n + 3], sqc1, k2.y, qs1, ks.y)));
         }
       }
+      release(it);
     }
-    __syncthreads();  // every warp is done with this stage
-  }
-
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const size_t rs = (size_t)H * kD;  // elements between consecutive tokens
-  OutT* o0 = o + ((size_t)b * T + r0) * rs + (size_t)h * kD;
-  OutT* o1 = o0 + 8 * rs;
 #pragma unroll
-  for (int n = 0; n < NN; ++n) {
-    const int col = n * 8 + 2 * t4;
-    const float2 s2 = *reinterpret_cast<const float2*>(sv + bh * kD + col);
-    const float c0 = __fmul_rn(s2.x, inv127()), c1 = __fmul_rn(s2.y, inv127());
-    store2(o0 + col, __fdiv_rn(__fmul_rn((float)acc[n][0], c0), l0),
-           __fdiv_rn(__fmul_rn((float)acc[n][1], c1), l0));
-    store2(o1 + col, __fdiv_rn(__fmul_rn((float)acc[n][2], c0), l1),
-           __fdiv_rn(__fmul_rn((float)acc[n][3], c1), l1));
+    for (int off = 1; off <= 2; off <<= 1) {  // the rows' final maxima, over the quad
+      if constexpr (DOTS) {
+        im0 = max(im0, __shfl_xor_sync(0xffffffffu, im0, off));
+        im1 = max(im1, __shfl_xor_sync(0xffffffffu, im1, off));
+      } else {
+        m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+        m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+      }
+    }
+
+    // ---- walk 2: p, l, p8 and P8 . V8 ----
+    float l0 = 0.f, l1 = 0.f;
+    // p, l and p8 of ring stage st's scores into the A fragments p, one
+    // k-step at a time: words lo and hi hold the row-g and row-(g + 8) byte
+    // pairs of a block
+    auto probs = [&](int st) {
+#pragma unroll
+      for (int kk = 0; kk < kBkv / 32; ++kk) {
+        uint32_t lo[4], hi[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int n = 4 * kk + i;
+          uint32_t b0, b1, b2, b3;
+          if constexpr (DOTS) {
+            b0 = s[4 * n], b1 = s[4 * n + 1], b2 = s[4 * n + 2], b3 = s[4 * n + 3];
+          } else {
+            const int col = 8 * n + 2 * t4;
+            const float2 k2 = *reinterpret_cast<const float2*>(&sm.sk[st][col]);
+            int2 ks = make_int2(0, 0);
+            if constexpr (SEG) ks = *reinterpret_cast<const int2*>(&sm.kseg[st][col]);
+            const float p0 = ex2_ftz(__fadd_rn(score8<SEG>(s[4 * n], sqc0, k2.x, qs0, ks.x), -m0));
+            const float p1 = ex2_ftz(__fadd_rn(score8<SEG>(s[4 * n + 1], sqc0, k2.y, qs0, ks.y), -m0));
+            const float p2 = ex2_ftz(__fadd_rn(score8<SEG>(s[4 * n + 2], sqc1, k2.x, qs1, ks.x), -m1));
+            const float p3 = ex2_ftz(__fadd_rn(score8<SEG>(s[4 * n + 3], sqc1, k2.y, qs1, ks.y), -m1));
+            l0 += p0 + p1;  // per-thread partial sums, reduced at the end
+            l1 += p2 + p3;
+            b0 = rint_bits(__fmul_rn(p0, 127.0f));
+            b1 = rint_bits(__fmul_rn(p1, 127.0f));
+            b2 = rint_bits(__fmul_rn(p2, 127.0f));
+            b3 = rint_bits(__fmul_rn(p3, 127.0f));
+          }
+          lo[i] = pair_bytes(b0, b1);
+          hi[i] = pair_bytes(b2, b3);
+        }
+        p[kk][0] = join_pairs(lo[0], lo[1]);
+        p[kk][1] = join_pairs(hi[0], hi[1]);
+        p[kk][2] = join_pairs(lo[2], lo[3]);
+        p[kk][3] = join_pairs(hi[2], hi[3]);
+      }
+    };
+    // a turn issues P8 . V8 of tile it - 1 (it > NT) and S of tile it (it <
+    // 2 NT); the p8 of tile it follow
+    for (int it = NT; it <= 2 * NT; ++it) {
+      if (it < 2 * NT) wait_full(it);
+      turn_wait();
+      if (it > NT) gemm_pv((it - 1) % kStages);
+      if (it < 2 * NT) gemm_s(it % kStages);
+      if (it < 2 * NT || wg == 0) turn_pass();
+      if (it > NT && it < 2 * NT) {
+        wgmma_wait<1>();  // P8 . V8 of tile it - 1: its stage and p are free
+        fence_regs(acc);
+        fence_regs(p);
+        release(it - 1);
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(p);
+      fence_regs(s);
+      if (it < 2 * NT) probs(it % kStages);
+    }
+
+    const size_t rs = (size_t)H * kD;  // elements between consecutive tokens
+    OutT* o0 = o + ((size_t)b * T + r0) * rs + (size_t)h * kD;
+    OutT* o1 = o0 + 8 * rs;
+    if constexpr (DOTS) {
+#pragma unroll
+      for (int n = 0; n < 16; ++n) {
+        const int col = 8 * n + 2 * t4;
+        *reinterpret_cast<int2*>(o0 + col) = make_int2(acc[4 * n] + im0, acc[4 * n + 1] + im0);
+        *reinterpret_cast<int2*>(o1 + col) =
+            make_int2(acc[4 * n + 2] + im1, acc[4 * n + 3] + im1);
+      }
+    } else {
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+      }
+#pragma unroll
+      for (int n = 0; n < 16; ++n) {
+        const int col = 8 * n + 2 * t4;
+        const float2 s2 = *reinterpret_cast<const float2*>(sv + (size_t)bh * kD + col);
+        const float c0 = __fmul_rn(s2.x, inv127()), c1 = __fmul_rn(s2.y, inv127());
+        store2(o0 + col, __fdiv_rn(__fmul_rn((float)acc[4 * n], c0), l0),
+               __fdiv_rn(__fmul_rn((float)acc[4 * n + 1], c1), l0));
+        store2(o1 + col, __fdiv_rn(__fmul_rn((float)acc[4 * n + 2], c0), l1),
+               __fdiv_rn(__fmul_rn((float)acc[4 * n + 3], c1), l1));
+      }
+    }
   }
 }
 
-template <typename T_>
-cudaError_t launch(const T_* q, const T_* k, const T_* v, const int* seg,
-                   const float* cos_t, const float* sin_t, int8_t* q8, float* sq,
-                   int8_t* k8, float* sk, int8_t* v8t, float* sv, T_* o, int B,
-                   int T, int H, float scale_log2, cudaStream_t st) {
-  const long long n_rows = (long long)B * T * H;
-  const unsigned row_blocks = (unsigned)((n_rows + 7) / 8);
-  quant_rows<T_><<<row_blocks, 256, 0, st>>>(q, cos_t, sin_t, q8, sq, T, H, n_rows);
-  quant_rows<T_><<<row_blocks, 256, 0, st>>>(k, cos_t, sin_t, k8, sk, T, H, n_rows);
-  v_absmax<T_><<<B * H, kD * kVGroups, 0, st>>>(v, sv, T, H);
-  quant_v<T_><<<dim3(T / kTile, H, B), 256, 0, st>>>(v, sv, v8t, T, H);
-  if (o != nullptr)
-    int8_fwd<T_><<<dim3(T / kTile, H, B), 128, 0, st>>>(q8, sq, k8, sk, v8t, sv, seg, o,
-                                                       T, H, scale_log2);
+template <typename InT>
+cudaError_t launch_prologue(const InT* q, const InT* k, const InT* v, const float* cos_t,
+                            const float* sin_t, int8_t* q8, float* sq, int8_t* k8,
+                            float* sk, int8_t* v8t, float* sv, int B, int T, int H,
+                            cudaStream_t st) {
+  quant_qk<InT><<<dim3(T / kQkRows, 2, B), kQkRows * 8, 0, st>>>(q, k, cos_t, sin_t, q8, sq,
+                                                                   k8, sk, T, H);
+  quant_v<InT><<<dim3(kD / kVChannels, H, B), kVThreads, 0, st>>>(v, sv, v8t, T, H);
   return cudaGetLastError();
+}
+
+template <typename OutT, bool SEG, bool DOTS>
+cudaError_t launch_attn(const int8_t* q8, const float* sq, const int8_t* k8, const float* sk,
+                        const int8_t* v8t, const float* sv, const int* seg, OutT* o, int B,
+                        int T, int H, float scale_log2, cudaStream_t st) {
+  // k8 as a (B * H * T, D) and v8t as a (B * H * D, T) uint8 matrix, loaded
+  // as 128-row boxes of one 128-byte panel
+  CUtensorMap kmap, vmap;
+  cudaError_t e = encode_u8_panels(&kmap, k8, (uint64_t)B * H * T, kD, kD, kBkv);
+  if (e == cudaSuccess) e = encode_u8_panels(&vmap, v8t, (uint64_t)B * H * kD, T, T, kD);
+  if (e != cudaSuccess) return e;
+  // the shared-memory limit belongs to the instance on a device, not to the
+  // call: set it at the first launch on each device
+  static std::atomic<uint64_t> smem_set{0};
+  const size_t smem = attn_smem_bytes();
+  int dev = 0;
+  e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const uint64_t dev_bit = 1ull << (dev & 63);
+  if (!(smem_set.load(std::memory_order_acquire) & dev_bit)) {
+    e = cudaFuncSetAttribute(int8_fwd<OutT, SEG, DOTS>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    smem_set.fetch_or(dev_bit, std::memory_order_release);
+  }
+  int8_fwd<OutT, SEG, DOTS><<<dim3(T / kBq, H, B), kThreads, smem, st>>>(
+      kmap, vmap, q8, sq, sk, sv, seg, o, T, H, scale_log2);
+  return cudaGetLastError();
+}
+
+template <typename OutT>
+cudaError_t launch_attn_seg(const int8_t* q8, const float* sq, const int8_t* k8,
+                            const float* sk, const int8_t* v8t, const float* sv,
+                            const int* seg, OutT* o, int B, int T, int H, float scale_log2,
+                            cudaStream_t st) {
+  return seg != nullptr
+             ? launch_attn<OutT, true, false>(q8, sq, k8, sk, v8t, sv, seg, o, B, T, H,
+                                              scale_log2, st)
+             : launch_attn<OutT, false, false>(q8, sq, k8, sk, v8t, sv, seg, o, B, T, H,
+                                               scale_log2, st);
+}
+
+cudaError_t attention(const void* q8, const void* sq, const void* k8, const void* sk,
+                      const void* v8t, const void* sv, const void* seg, void* o, int B,
+                      int T, int H, float scale_log2, int dtype, cudaStream_t st) {
+  const int8_t* q8p = static_cast<const int8_t*>(q8);
+  const int8_t* k8p = static_cast<const int8_t*>(k8);
+  const int8_t* v8p = static_cast<const int8_t*>(v8t);
+  const float* sqp = static_cast<const float*>(sq);
+  const float* skp = static_cast<const float*>(sk);
+  const float* svp = static_cast<const float*>(sv);
+  const int* sg = static_cast<const int*>(seg);
+  if (dtype == 1)
+    return launch_attn_seg<__nv_bfloat16>(q8p, sqp, k8p, skp, v8p, svp, sg,
+                                          static_cast<__nv_bfloat16*>(o), B, T, H,
+                                          scale_log2, st);
+  return launch_attn_seg<float>(q8p, sqp, k8p, skp, v8p, svp, sg, static_cast<float*>(o), B,
+                                T, H, scale_log2, st);
+}
+
+// B and H bound the grids; T % 128 == 0
+bool shape_ok(int B, int T, int H, int D) {
+  return D == kD && T >= kBq && T % kBq == 0 && B >= 1 && B <= 65535 && H >= 1 &&
+         H <= 65535;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; D must be 128 and T a multiple of 64.
-// q8, k8 (B, H, T, D) int8, sq, sk (B, H, T) fp32, v8t (B, H, D, T) int8 and
-// sv (B, H, D) fp32 are scratch tensors that receive the prologue's results.
-// o null runs the prologue alone. Returns cudaGetLastError() after the
-// launches (cudaErrorInvalidValue for a shape or type this file has no
-// kernel for). Launches on `stream`, allocates nothing, does not synchronise.
+// dtype: 0 = float32, 1 = bfloat16; D must be 128 and T a multiple of 128.
+// q8, k8 (B, H, T, D) int8, sq, sk (B, H, T) fp32, v8t (B, H, D, T) int8 (the
+// kv axis in the products' k order, kv_of_k) and sv (B, H, D) fp32 are
+// scratch tensors that receive the prologue's results. o null runs the
+// prologue alone. Returns cudaGetLastError() after the launches
+// (cudaErrorInvalidValue for a shape or type this file has no kernel for).
+// Launches on `stream`, allocates nothing, does not synchronise.
 extern "C" int obt_int8_flash_fwd(const void* q, const void* k, const void* v,
                                   const void* seg, const void* cos_t,
                                   const void* sin_t, void* q8, void* sq, void* k8,
                                   void* sk, void* v8t, void* sv, void* o, int B,
                                   int T, int H, int D, float scale_log2, int dtype,
                                   void* stream) {
-  if ((dtype != 0 && dtype != 1) || D != kD || T < kTile || T % kTile != 0 ||
-      B < 1 || B > 65535 || H < 1 || H > 65535 ||
+  if ((dtype != 0 && dtype != 1) || !shape_ok(B, T, H, D) ||
       ((cos_t == nullptr) != (sin_t == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const int* sg = static_cast<const int*>(seg);
   const float* c = static_cast<const float*>(cos_t);
   const float* s = static_cast<const float*>(sin_t);
   int8_t* q8p = static_cast<int8_t*>(q8);
@@ -430,15 +691,47 @@ extern "C" int obt_int8_flash_fwd(const void* q, const void* k, const void* v,
   float* skp = static_cast<float*>(sk);
   float* svp = static_cast<float*>(sv);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), sg, c, s, q8p, sqp, k8p, skp, v8p, svp,
-        static_cast<__nv_bfloat16*>(o), B, T, H, scale_log2, st);
-  return (int)launch<float>(static_cast<const float*>(q), static_cast<const float*>(k),
-                            static_cast<const float*>(v), sg, c, s, q8p, sqp, k8p, skp,
-                            v8p, svp, static_cast<float*>(o), B, T, H, scale_log2, st);
+  const cudaError_t e =
+      dtype == 1
+          ? launch_prologue<__nv_bfloat16>(
+                static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+                static_cast<const __nv_bfloat16*>(v), c, s, q8p, sqp, k8p, skp, v8p, svp, B,
+                T, H, st)
+          : launch_prologue<float>(static_cast<const float*>(q), static_cast<const float*>(k),
+                                   static_cast<const float*>(v), c, s, q8p, sqp, k8p, skp,
+                                   v8p, svp, B, T, H, st);
+  if (e != cudaSuccess || o == nullptr) return (int)e;
+  return (int)attention(q8, sq, k8, sk, v8t, sv, seg, o, B, T, H, scale_log2, dtype, st);
 }
+
+// The attention kernel alone on a prologue's outputs (the same scratch
+// tensors obt_int8_flash_fwd fills), o in dtype: for timing it apart from
+// the prologue.
+extern "C" int obt_int8_flash_attn(const void* q8, const void* sq, const void* k8,
+                                   const void* sk, const void* v8t, const void* sv,
+                                   const void* seg, void* o, int B, int T, int H, int D,
+                                   float scale_log2, int dtype, void* stream) {
+  if ((dtype != 0 && dtype != 1) || !shape_ok(B, T, H, D)) return (int)cudaErrorInvalidValue;
+  return (int)attention(q8, sq, k8, sk, v8t, sv, seg, o, B, T, H, scale_log2, dtype,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// The attention kernel's products alone (its DOTS instance): q8, k8
+// (B, H, T, 128) and v8t (B, H, 128, T, the kernel's kv order) int8 ->
+// o (B, T, H, 128) int32 = max_j S[., j] + sum_j lowbyte(S[., j]) v8[j, .]
+// with S = q8 k8^T per head. Launches on `stream`; returns
+// cudaGetLastError().
+extern "C" int obt_int8_flash_fwd_dots(const void* q8, const void* k8, const void* v8t,
+                                       void* o, int B, int T, int H, int D, void* stream) {
+  if (!shape_ok(B, T, H, D)) return (int)cudaErrorInvalidValue;
+  return (int)launch_attn<int, false, true>(
+      static_cast<const int8_t*>(q8), nullptr, static_cast<const int8_t*>(k8), nullptr,
+      static_cast<const int8_t*>(v8t), nullptr, nullptr, static_cast<int*>(o), B, T, H, 0.f,
+      static_cast<cudaStream_t>(stream));
+}
+
+// Dynamic shared memory a CTA of the attention kernel takes.
+extern "C" int obt_int8_flash_fwd_smem_bytes() { return (int)attn_smem_bytes(); }
 
 extern "C" const char* obt_cuda_error_string_int8(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

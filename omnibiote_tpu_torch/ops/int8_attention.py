@@ -23,19 +23,23 @@ plain version):
 Why the H100 design has a prologue and two walks where the TPU's has
 neither. The TPU kernel holds one kv block spanning T in VMEM and rotates
 and quantizes all of K and V inside every grid step, because there a
-preamble through HBM cost more than it saved. On the H100 a block owns a
-64-row q tile of one head and has 227 KB at most, so sixteen q tiles of a
-T = 1024 row would each redo T x D of that work: here small kernels ahead
-of the attention kernel rotate and quantize q and k once a call (q8, k8
-(B, H, T, D) int8 with sq, sk (B, H, T) fp32), reduce |v| over T per
-channel (sv (B, H, D); no v8 exists before that reduction ends) and write
-v8 transposed, (B, H, D, T), since the int8 tensor-core product wants four
-consecutive kv bytes of V in a register. And P is quantized against the
-row's final max, not a running one, so the attention kernel cannot
-rescale as an online softmax does: it walks the kv tiles twice, first for
-m2 alone (the int8 score product is cheap to redo: half again the
-operations, no more bytes from device memory than the K tiles), then for
-p, l, p8 and p8 · v8, whose int32 sums need no rescaling at all.
+preamble through HBM cost more than it saved. On the H100 a CTA owns a
+128-row q tile of one head and has 227 KB at most, so eight q tiles of a
+T = 1024 row would each redo T x D of that work: here two kernels ahead of
+the attention kernel rotate and quantize q and k once a call (`quant_qk`:
+q8, k8 (B, H, T, D) int8 with sq, sk (B, H, T) fp32) and, one block a
+(b, h, 16 channels), reduce |v| over T per channel and then quantize v
+(`quant_v`: sv (B, H, D); v8t (B, H, D, T), transposed, since 8-bit wgmma
+has no transpose bit and P8 . V8 wants V8 K-major along kv). And P is quantized
+against the row's final max, not a running one, so the attention kernel
+cannot rescale as an online softmax does: it walks the kv tiles twice,
+first for m2 alone, then for p, l, p8 and p8 · v8, whose int32 sums need no
+rescaling at all. Both products are s8 wgmma from a TMA-filled ring (a
+producer warpgroup and two consumers of 64 q rows in turns). A thread's
+score accumulators are not the byte order its P8 register operand wants,
+so v8t's kv axis is permuted inside every 32-block (`kernel_kv_order`)
+and each thread packs its own p8 bytes: `int8_kernel_layout` is the
+prologue's output in that order, `int8_natural_layout` undoes it.
 """
 from __future__ import annotations
 
@@ -78,6 +82,35 @@ def int8_quantize_plain(q, k, v, rope=None):
     v8t, sv = _quant_last(v.float().permute(0, 2, 3, 1), 3)   # scale over T
     return (q8.contiguous(), sq[..., 0].contiguous(), k8.contiguous(),
             sk[..., 0].contiguous(), v8t.contiguous(), sv[..., 0].contiguous())
+
+
+def kernel_kv_order(T: int, device=None) -> torch.Tensor:
+    """The kernel's kv order: position j of v8t's last axis in the kernel's
+    layout holds kv index order[j]. Inside each 32-block, k = 16·hf + 4·t + i
+    (the byte i of a thread's A register for k-step half hf, t = lane % 4)
+    holds kv 16·hf + 2·t + (i & 1) + 8·(i >> 1): the columns 8n + 2t, + 1
+    of the score blocks n that thread holds."""
+    if T % 32:
+        raise ValueError(f"T={T} must be a multiple of 32")
+    k = torch.arange(32, device=device)
+    kv = (k & 16) | ((k >> 1) & 6) | (k & 1) | ((k & 2) << 2)
+    return (torch.arange(0, T, 32, device=device)[:, None] + kv).reshape(T)
+
+
+def int8_kernel_layout(q8, sq, k8, sk, v8t, sv):
+    """The prologue's six tensors (as int8_quantize_plain gives them) in the
+    kernel's layout: v8t's kv axis in `kernel_kv_order`, the rest as given.
+    int8_quantize_kernel returns this."""
+    order = kernel_kv_order(v8t.shape[-1], v8t.device)
+    return q8, sq, k8, sk, v8t[..., order].contiguous(), sv
+
+
+def int8_natural_layout(q8, sq, k8, sk, v8t, sv):
+    """The inverse of int8_kernel_layout."""
+    order = kernel_kv_order(v8t.shape[-1], v8t.device)
+    natural = torch.empty_like(v8t)
+    natural[..., order] = v8t
+    return q8, sq, k8, sk, natural, sv
 
 
 def _int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -145,7 +178,8 @@ def _check_inputs(q, k, v):
 
 def _launch(q, k, v, segment_ids, rope, scale: float, with_attention: bool):
     """The prologue kernels and, with_attention, the attention kernel on
-    CUDA tensors: (o or None, (q8, sq, k8, sk, v8t, sv))."""
+    CUDA tensors: (o or None, (q8, sq, k8, sk, v8t, sv)), v8t in the
+    kernel's layout (int8_kernel_layout)."""
     from . import _kernels
 
     _check_inputs(q, k, v)
@@ -176,8 +210,45 @@ def _launch(q, k, v, segment_ids, rope, scale: float, with_attention: bool):
 
 def int8_quantize_kernel(q, k, v, rope=None):
     """The kernel's prologue alone on CUDA tensors, for checks against
-    int8_quantize_plain: the same six tensors. Counts no launch."""
+    int8_kernel_layout(*int8_quantize_plain(...)): the same six tensors, v8t
+    in the kernel's layout. Counts no launch."""
     return _launch(q, k, v, None, rope, 1.0, False)[1]
+
+
+def int8_attention_from_quantized(quantized, *, scale: float, dtype,
+                                  segment_ids=None) -> torch.Tensor:
+    """The attention kernel alone on the six CUDA tensors that
+    int8_quantize_kernel returned: o (B, T, H, D) in `dtype`, as
+    int8_flash_attention gives it on the inputs they came from. It times
+    the kernel apart from its prologue. Adds one to
+    LAUNCHES['int8_flash_fwd']."""
+    from . import _kernels
+
+    q8, sq, k8, sk, v8t, sv = quantized
+    B, H, T, D = q8.shape
+    shapes = ((q8, (B, H, T, D), torch.int8), (k8, (B, H, T, D), torch.int8),
+              (v8t, (B, H, D, T), torch.int8), (sq, (B, H, T), torch.float32),
+              (sk, (B, H, T), torch.float32), (sv, (B, H, D), torch.float32))
+    for t, shape, dt in shapes:
+        if (not t.is_cuda or t.device != q8.device or tuple(t.shape) != shape
+                or t.dtype != dt or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"want contiguous, 16-byte aligned CUDA {shape} {dt}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    if dtype not in KERNEL_DTYPES:
+        raise ValueError(f"dtype {dtype} not built; one of {KERNEL_DTYPES}")
+    o = torch.empty((B, T, H, D), dtype=dtype, device=q8.device)
+    seg_ptr = _seg_ptr(segment_ids, o)
+    lib = _kernels.load_library("int8_flash_fwd")
+    with torch.cuda.device(q8.device):
+        err = lib.obt_int8_flash_attn(
+            q8.data_ptr(), sq.data_ptr(), k8.data_ptr(), sk.data_ptr(),
+            v8t.data_ptr(), sv.data_ptr(), seg_ptr, o.data_ptr(), B, T, H, D,
+            float(np.float32(scale * LOG2E)),
+            1 if dtype == torch.bfloat16 else 0,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "int8_flash_fwd", lib.obt_cuda_error_string_int8)
+    _kernels.LAUNCHES["int8_flash_fwd"] += 1
+    return o
 
 
 def int8_flash_attention_kernel(q, k, v, *, scale: float, segment_ids=None,

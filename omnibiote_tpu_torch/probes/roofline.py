@@ -24,7 +24,8 @@ A CUDA tensor runs the kernel, a CPU tensor the plain version. `cta_q` is
 the kernel's CTA height in query rows (64, the tile of #1, or 128); it does
 not change the function. `bwd_products` is #2/#3's fused backward kernel
 with its five products alone, the backward's counterpart of
-`fwd_products`.
+`fwd_products`, and `int8_products` #9's int8 attention kernel with its
+two walks' s8 products alone.
 
     python -m omnibiote_tpu_torch.probes.roofline
 
@@ -134,6 +135,20 @@ def bwd_products_plain(q, k, v, do):
     grads = (torch.matmul(ds.transpose(-1, -2), kh), torch.matmul(ds, qh),
              torch.matmul(p, oh))
     return tuple(g.to(q.dtype).permute(0, 2, 1, 3).contiguous() for g in grads)
+
+
+def int8_products_plain(q8, k8, v8t):
+    """Plain version of `int8_products`: per head, S = q8·k8ᵀ in int32,
+    m its row max and p8 = the low byte of S as a two's-complement int8;
+    o (B, T, H, D) int32 = m + p8·v8, with v8 the natural kv order of v8t
+    (given in the kernel's layout, `int8_natural_layout`)."""
+    from ..ops.int8_attention import _int_matmul, int8_natural_layout
+
+    v8 = int8_natural_layout(None, None, None, None, v8t, None)[4].transpose(-1, -2)
+    s = _int_matmul(q8, k8.transpose(-1, -2))
+    p8 = ((s + 128) & 0xff) - 128
+    o = _int_matmul(p8, v8) + s.amax(dim=-1, keepdim=True)
+    return o.permute(0, 2, 1, 3).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -276,6 +291,47 @@ def bwd_products(q, k, v, do):
     _raise_on(err, "mh_flash_bwd_dots", lib.obt_cuda_error_string_bwd)
     _kernels.LAUNCHES["mh_flash_bwd_dots"] += 1
     return grads
+
+
+def int8_products(q8, k8, v8t):
+    """#9's attention kernel with its products alone (the DOTS instance of
+    ops/csrc/int8_flash_fwd.cu: TMA ring, both walks' s8 wgmma products,
+    the turns and the P8 fragment packing; no scales, mask, exp2 or
+    division). The cheapest map from S to P8 that keeps both products: walk
+    1 keeps the int32 row max m of S, walk 2 takes p8 = the low byte of S.
+    q8, k8 (B, H, T, 128) and v8t (B, H, 128, T) int8, v8t in the kernel's
+    layout (as int8_quantize_kernel returns it), T a multiple of 128 ->
+    o (B, T, H, 128) int32 = m + p8·v8. A CUDA tensor runs the kernel
+    (counted as 'int8_flash_fwd_dots'), a CPU tensor the plain version."""
+    from ..ops import _kernels
+    from ..ops.int8_attention import KERNEL_HEAD_DIM, KERNEL_T_MULTIPLE
+
+    B, H, T, D = q8.shape
+    if D != KERNEL_HEAD_DIM or T < KERNEL_T_MULTIPLE or T % KERNEL_T_MULTIPLE:
+        raise ValueError(f"q8 {tuple(q8.shape)}: want (B, H, T, "
+                         f"{KERNEL_HEAD_DIM}) with T a positive multiple of "
+                         f"{KERNEL_T_MULTIPLE}")
+    for name, t, shape in (("q8", q8, (B, H, T, D)), ("k8", k8, (B, H, T, D)),
+                           ("v8t", v8t, (B, H, D, T))):
+        if t.dtype != torch.int8 or tuple(t.shape) != shape:
+            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype}: want "
+                             f"{shape} int8")
+    if not q8.is_cuda:
+        return int8_products_plain(q8, k8, v8t)
+    for name, t in (("q8", q8), ("k8", k8), ("v8t", v8t)):
+        if (not t.is_cuda or t.device != q8.device or not t.is_contiguous()
+                or t.data_ptr() % 16):
+            raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
+                             "CUDA tensor on q8's device")
+    o = torch.empty((B, T, H, D), dtype=torch.int32, device=q8.device)
+    lib = _kernels.load_library("int8_flash_fwd")
+    with torch.cuda.device(q8.device):
+        err = lib.obt_int8_flash_fwd_dots(
+            q8.data_ptr(), k8.data_ptr(), v8t.data_ptr(), o.data_ptr(), B, T, H,
+            D, torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "int8_flash_fwd_dots", lib.obt_cuda_error_string_int8)
+    _kernels.LAUNCHES["int8_flash_fwd_dots"] += 1
+    return o
 
 
 # ---------------------------------------------------------------------------

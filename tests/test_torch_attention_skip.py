@@ -381,7 +381,7 @@ def test_split_wrappers_route_cpu_tensors_to_the_plain_versions(monkeypatch):
     assert set(before) == {"mh_flash_fwd", "mh_flash_fwd_dots", "mh_flash_bwd",
                            "mh_flash_bwd_dots", "mh_flash_bwd_mk",
                            "mh_flash_bwd_dkv", "mh_flash_bwd_dq", "int8_flash_fwd",
-                           "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
+                           "int8_flash_fwd_dots", "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
                            "roofline_dots", "roofline_dots_n", "roofline2_dots",
                            "roofline2_scores"}
     q, k, v, do, seg = _inputs("packed", seed=13)

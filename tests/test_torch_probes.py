@@ -216,6 +216,34 @@ def test_bwd_products_plain_fp32_matches_formula(B, T):
         _hold64(g, w)
 
 
+@pytest.mark.parametrize("B,H_,T", [(1, 2, 128), (2, 1, 384)])
+def test_int8_products_plain_matches_an_int64_product(B, H_, T):
+    """#9's products alone: o = m + p8·v8 per head, with S = q8·k8ᵀ, m its
+    row max and p8 its low byte as an int8, against int64 numpy on random
+    int8 operands; v8t comes in the kernel's layout and its natural order is
+    what counts. A CPU tensor launches nothing."""
+    from omnibiote_tpu_torch.ops.int8_attention import int8_kernel_layout
+
+    rng = np.random.default_rng(T + B)
+    q8, k8, v8 = (rng.integers(-127, 128, size=(B, H_, T, D)).astype(np.int8)
+                  for _ in range(3))
+    v8t = int8_kernel_layout(None, None, None, None,
+                             torch.from_numpy(np.ascontiguousarray(
+                                 v8.transpose(0, 1, 3, 2))), None)[4]
+    s = np.einsum("bhid,bhjd->bhij", q8.astype(np.int64), k8.astype(np.int64))
+    p8 = (s + 128) % 256 - 128
+    want = (np.einsum("bhij,bhjd->bhid", p8, v8.astype(np.int64))
+            + s.max(-1, keepdims=True)).transpose(0, 2, 1, 3)
+    before = dict(_kernels.LAUNCHES)
+    got = roofline.int8_products(torch.from_numpy(q8), torch.from_numpy(k8), v8t)
+    assert _kernels.LAUNCHES == before
+    assert got.dtype == torch.int32 and got.shape == (B, T, H_, D)
+    np.testing.assert_array_equal(got.numpy(), want)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        roofline.int8_products(*(torch.from_numpy(x[:, :, :64]) for x in (q8, k8)),
+                               v8t[..., :64])
+
+
 # ---------------------------------------------------------------------------
 # the block combinations the JAX probes cannot take, CPU routing, main()
 # ---------------------------------------------------------------------------

@@ -10,7 +10,8 @@ weights from a seed, and runs `encode(model, tokens, "mean")` on random
 tokens: the batch time by CUDA events, then a torch.profiler window over
 `--steps` batches with the device time of every kernel, grouped as the
 attention kernels (bf16 and int8 apart), matrix products, elementwise and
-reductions, and the rest, and the device's idle share of the window.
+reductions, and the rest, each attention kernel's own time, and the
+device's idle share of the window.
 
 With --quantize the same is done once more on the model quantized for int8
 serving (`quantize_for_inference`; --quantize_attention also turns the int8
@@ -37,8 +38,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ELEMENTWISE = "elementwise, reductions, gathers"
 GROUPS = (
     ("attention (mh_flash_fwd: rope_rows, mh_fwd)", ("mh_fwd", "rope_rows")),
-    ("int8 attention (int8_flash_fwd: quant_rows, v_absmax, quant_v, int8_fwd)",
-     ("int8_fwd", "quant_rows", "v_absmax", "quant_v")),
+    ("int8 attention (int8_flash_fwd: quant_qk, quant_v, int8_fwd)",
+     ("int8_fwd", "quant_qk", "quant_v")),
     ("matrix products (cuBLAS)", ("gemm", "xmma", "nvjet", "cutlass", "cublas",
                                   "sm90_", "sm80_")),
     (ELEMENTWISE, ("elementwise", "vectorized", "reduce",
@@ -108,6 +109,10 @@ def profile_window(model, x, steps, top, label):
     print(f"[{label}] top {top} kernels by device time:")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         print(f"  {us / 1e3 / steps:8.3f} ms  {100 * us / total_us:5.1f} %  {name[:110]}")
+    print(f"[{label}] the attention groups' kernels:")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1]):
+        if "attention" in group_of(name):
+            print(f"  {us / 1e3 / steps:8.3f} ms per batch  {name[:100]}")
     return groups, batch_ms
 
 
