@@ -81,12 +81,17 @@ toolkit and g++. It
      three kernels timed beside its plain version, its bound and (the
      forward) SDPA, and its launch counts;
  11. roofline probes (`omnibiote_tpu_torch.probes`): the four probe
-     kernels (#1's two products alone on the mma.sync pipeline, the dkv
-     product mix, k pre-transposed or not, the score product summed over
-     heads) and #1's own kernel with its products alone (`fwd_products`)
-     against their plain versions at H=2, T 256, 512 and 1024 and at the
-     probes' shape B=8, T=1024, H=8, with 64- and 128-row CTAs; each timed
-     beside its plain version, its bound and a PyTorch library call; #2's
+     kernels (#1's two products alone and k pre-transposed or not, on wgmma
+     and TMA; the dkv product mix on mma.sync; the score product summed over
+     heads as a wgmma GEMM) and #1's own kernel with its products alone
+     (`fwd_products`) against their plain versions at H=2, T 256, 512 and
+     1024, at ragged T (B=2, T 192 and 320, cta_q 64, the last 128-row kv
+     tile or 256-column score tile past its bounds) and at the probes' shape
+     B=8, T=1024, H=8, with 64- and 128-row CTAs, #10/#12 persistent and
+     one CTA a work item; each timed (CUDA graphs, and CUDA events over
+     back-to-back calls, as the probe tables time them) beside its plain version, its
+     bound and a PyTorch library call, #13 against both layouts of k, #10
+     persistent against one CTA an item and against `fwd_products`; #2's
      kernel with its products alone (`bwd_products`, dq, dk and dv) against
      its plain version likewise; then both probe tables, whose launches are
      the rows' counts, and #1's and #2's splits into products and the rest;
@@ -154,6 +159,36 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters=20, reps=5):
+    """Mean device time of fn() in ms without the host's cost of a call: CUDA
+    events around `reps` replays of a CUDA graph of `iters` calls (for
+    kernels of tens of microseconds, which a slow host cannot launch as fast
+    as the card runs them)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (reps * iters)
+    del graph
+    return ms
+
+
 # ---------------------------------------------------------------------------
 # 1. build
 # ---------------------------------------------------------------------------
@@ -175,7 +210,7 @@ def build():
         entry = spill = stack = None
         for line in log.splitlines():
             m = re.search(r"Compiling entry function '_ZN[\w]*?\d+(mh_\w+?|rope_rows_\w+?|"
-                          r"dq_epilogue|dots_bf16|dots_n_bf16|scores_bf16)ILi(\d+)E"
+                          r"dq_epilogue|dots_wgmma|dots_n_bf16|scores_wgmma)ILi(\d+)E"
                           r"((?:Lb[01]E)*)", line)
             m8 = re.search(r"Compiling entry function '_ZN[\w]*?\d+(int8_fwd|quant_qk|"
                            r"quant_v)I(f|i|13__nv_bfloat16)((?:Lb[01]E)*)E", line)
@@ -1972,12 +2007,18 @@ def _probe_calls(q, k, v, kx, bq, bkv, cta):
     return calls
 
 
+# the CTA height of the wgmma probes' rows in the `kernels` line
+PROBE_ROW_CTA = 128
+
+
 def probe_phase():
     """The four probe kernels against their plain versions at the CPU
-    test's shapes and at the probes' own, both CTA heights, kt 0 and 1;
-    kernel, plain and library times and bounds at the probes' shape; both
-    probe tables (`probes.roofline.main`, `roofline2.main`), whose launches
-    are the rows' counts. Returns the four `kernels` rows."""
+    test's shapes, at ragged T and at the probes' own, both CTA heights, kt
+    0 and 1, the dots probe persistent and one CTA an item; the library's
+    tile sizes against the Python copies the CPU mirror tests use; kernel,
+    plain and library times and bounds at the probes' shape; both probe tables
+    (`probes.roofline.main`, `roofline2.main`), whose launches are the rows'
+    counts. Returns the four `kernels` rows."""
     import numpy as np
     import torch
     from omnibiote_tpu_torch.models.rope import rope_tables
@@ -2017,9 +2058,45 @@ def probe_phase():
                               ("dq", "dk", "dv")):
             hold("mh_flash_bwd_dots", g, w, f"B={B} T={T} ({what})")
         n += 4
+    # the tiles tests/test_torch_probe_tiles.py mirrors are the built ones
+    plib = _kernels.load_library("roofline_probes")
+    tiles = {"roofline.KERNEL_KV_TILE": (r1.KERNEL_KV_TILE, plib.obt_roofline_tile(0)),
+             "roofline2.SCORES_N_TILE": (r2.SCORES_N_TILE, plib.obt_roofline_tile(1)),
+             "roofline2.SCORES_K_STEP": (r2.SCORES_K_STEP, plib.obt_roofline_tile(2))}
+    for name_, (py, built) in tiles.items():
+        check(py == built, f"{name_} = {py}, the library's tile is {built}")
+    print(f"probe tiles (Python copy, library): {tiles}")
+    # ragged T: a multiple of 64 and of cta_q = 64 but not of the 128-row kv
+    # tile (the last tile reads zeros past T), and score tiles past H*D or
+    # past T (j0 = T - block_kv > 0), both kt; dots persistent and one CTA
+    # an item
+    for T in (192, 320):
+        rng = np.random.default_rng(3 * T)
+        q, k, v = (r1.normal_bf16(rng, (2, T, 2, 128), "cuda") * 0.1 for _ in range(3))
+        kx = r2.transposed_k(k)
+        for pe in (True, False):
+            tag = f"B=2 T={T} H=2 cta=64 persistent={pe}"
+            hold("roofline_dots", r1.dots_kernel(q, k, v, kt=False, cta_q=64,
+                                                 counter="roofline_dots", persistent=pe),
+                 r1.dots_only_plain(q, k, v, 64, 64), tag)
+            for kt, kk in ((False, k), (True, kx)):
+                hold("roofline2_dots", r1.dots_kernel(q, kk, v, kt=kt, cta_q=64,
+                                                      counter="roofline2_dots", persistent=pe),
+                     r2.dots_plain(q, kk, v, 64, 64, kt), f"{tag} kt={int(kt)}")
+            n += 3
+        for H in (1, 2):
+            qs, ks = (r1.normal_bf16(rng, (2, T, H, 128), "cuda") * 0.1 for _ in range(2))
+            for bkv in (T, T // 2):
+                if bkv < H * 128 or bkv % 8:
+                    continue
+                for kt, kk in ((False, ks), (True, r2.transposed_k(ks))):
+                    hold("roofline2_scores", r2.scores_kernel(qs, kk, bkv, kt, cta_q=64),
+                         r2.scores_plain(qs, kk, 64, bkv, kt),
+                         f"B=2 T={T} H={H} block_kv={bkv} kt={int(kt)}")
+                    n += 1
     torch.cuda.synchronize()
-    print(f"probe kernels vs plain: {n} small cases (H=2, T 256, 512 and 1024) within "
-          f"{PROBE_TOL} of max|o|")
+    print(f"probe kernels vs plain: {n} small cases (H=2, T 256, 512 and 1024; ragged T 192 "
+          f"and 320) within {PROBE_TOL} of max|o|")
 
     # the probes' shape and input (B=8, T=1024, H=8, unit normals, seed 0),
     # q passed as q, k and v as both tables do
@@ -2035,6 +2112,16 @@ def probe_phase():
                 e = hold(name, kern(), want, f"the probes' shape bq={bq} bkv={bkv} cta={cta}")
                 err[name] = max(err.get(name, 0.0), e)
                 omax[name] = max(omax.get(name, 0.0), want.float().abs().max().item())
+    # the dots probe one CTA a work item (the tables run it persistent)
+    want_dots = r1.dots_only_plain(q, q, q, 512, 1024)
+    for cta in r1.CTA_ROWS:
+        for kt, kk in ((False, q), (True, kx)):
+            tag = f"the probes' shape cta={cta} kt={int(kt)} one CTA an item"
+            e = hold("roofline2_dots", r1.dots_kernel(q, kk, q, kt=kt, cta_q=cta,
+                                                      counter="roofline2_dots",
+                                                      persistent=False), want_dots, tag)
+            err["roofline2_dots"] = max(err["roofline2_dots"], e)
+    del want_dots
     prod_err = hold("mh_flash_fwd_dots", r1.fwd_products(q, q, q),
                     r1.dots_only_plain(q, q, q, 128, 128), "the probes' shape")
     bprod_err = max(hold("mh_flash_bwd_dots", g, w, f"the probes' shape ({what})")
@@ -2047,26 +2134,63 @@ def probe_phase():
     x = q.view(B, T, HD)
     nbytes = 4 * B * T * HD * 2                 # q, k, v read, o written
     fwd = 4.0 * B * H * T * T * D
-    timed = {   # name: (the table's line, plain, library, flops, bytes)
+    j0 = T - 1024
+    kern = dict(roofline_dots="dots_wgmma", roofline_dots_n="dots_n_bf16",
+                roofline2_dots="dots_wgmma", roofline2_scores="scores_wgmma")
+    timed = {   # name: (what the row times, kernel, plain, library, flops, bytes)
         "roofline_dots": (
-            "dots-only fwd bq=512 bkv=1024 cta=64",
+            f"dots_only cta={PROBE_ROW_CTA} persistent",
+            lambda: r1.dots_only(q, q, q, 512, 1024, cta_q=PROBE_ROW_CTA),
             lambda: r1.dots_only_plain(q, q, q, 512, 1024),
             lambda: torch.matmul(torch.matmul(qb, qb.transpose(1, 2)), qb), fwd, nbytes),
         "roofline_dots_n": (
-            "dots-only 4-dot bq=512 bkv=512 cta=64",
+            "dots_n 4 products bq=bkv=512 cta=64",
+            lambda: r1.dots_n(q, q, q, 512, 512, 4, cta_q=64),
             lambda: r1.dots_n_plain(q, q, q, 512, 512, 4), None, 2 * fwd, nbytes),
         "roofline2_dots": (
-            "dots kt=1 bq=512 bkv=512 cta=64",
+            f"dots kt=1 cta={PROBE_ROW_CTA} persistent",
+            lambda: r2.dots(q, kx, q, 512, 512, True, cta_q=PROBE_ROW_CTA),
             lambda: r2.dots_plain(q, kx, q, 512, 512, True),
             lambda: torch.matmul(torch.matmul(qb, kb), qb), fwd, nbytes),
         "roofline2_scores": (
-            "scores-only kt=0 bq=512 bkv=1024 cta=64",
+            f"scores kt=0 cta={PROBE_ROW_CTA} persistent",
+            lambda: r2.scores(q, q, 512, 1024, False, cta_q=PROBE_ROW_CTA),
             lambda: r2.scores_plain(q, q, 512, 1024, False),
-            lambda: torch.matmul(x, x[:, T - 1024:T - 1024 + HD].transpose(1, 2)),
+            lambda: torch.matmul(x, x[:, j0:j0 + HD].transpose(1, 2)),
             2.0 * B * T * HD * HD, (2 * B * T * HD + B * HD * HD) * 2),
     }
-    plain_ms = {n_: cuda_ms(t[1], 3, warmup=1) for n_, t in timed.items()}
-    library_ms = {n_: (cuda_ms(t[2], 20) if t[2] else None) for n_, t in timed.items()}
+    kernel_ms = {n_: graph_ms(t[1]) for n_, t in timed.items()}
+    plain_ms = {n_: cuda_ms(t[2], 3, warmup=1) for n_, t in timed.items()}
+    library_ms = {n_: (graph_ms(t[3]) if t[3] else None) for n_, t in timed.items()}
+    # the same calls by CUDA events over back-to-back calls, as the probe
+    # tables time them: host time and all, like for like with earlier readings
+    events_ms = {n_: cuda_ms(t[1], 20) for n_, t in timed.items()}
+    library_events_ms = {n_: (cuda_ms(t[3], 20) if t[3] else None) for n_, t in timed.items()}
+    # every variant of the wgmma probes, and the library calls of both
+    # layouts of k (graph-timed: device time without the host's share)
+    variants = {}
+    for cta in r1.CTA_ROWS:
+        for kt, kk in ((False, q), (True, kx)):
+            for pe in (True, False):
+                key = f"cta={cta} {'persistent' if pe else 'a CTA an item'} kt={int(kt)}"
+                variants[f"dots {key}"] = graph_ms(lambda: r1.dots_kernel(
+                    q, kk, q, kt=kt, cta_q=cta, counter="roofline2_dots", persistent=pe))
+            variants[f"scores cta={cta} persistent kt={int(kt)}"] = graph_ms(
+                lambda: r2.scores_kernel(q, kk, 1024, kt, cta_q=cta))
+    fwd_products_ms = graph_ms(lambda: r1.fwd_products(q, q, q))
+    scores_lib_kt1_ms = graph_ms(lambda: torch.matmul(x, kx[:, :, j0:j0 + HD]))
+    for name_, ms in variants.items():
+        print(f"  {name_}: {ms:.4f} ms")
+    print(f"#10 at the probes' shape (graphs): persistent {variants['dots cta=128 persistent kt=0']:.4f}"
+          f" / {variants['dots cta=64 persistent kt=0']:.4f} ms (cta 128 / 64), one CTA an item "
+          f"{variants['dots cta=128 a CTA an item kt=0']:.4f} / "
+          f"{variants['dots cta=64 a CTA an item kt=0']:.4f}; #1's own kernel with its products "
+          f"alone (fwd_products) {fwd_products_ms:.4f}; two torch.matmul "
+          f"{library_ms['roofline_dots']:.4f}; #12/#10 (kt=1/kt=0, cta 128 persistent) "
+          f"{variants['dots cta=128 persistent kt=1'] / variants['dots cta=128 persistent kt=0']:.3f}")
+    print(f"#13 at the probes' shape (graphs): kt=0 {variants['scores cta=128 persistent kt=0']:.4f}"
+          f" ms, kt=1 {variants['scores cta=128 persistent kt=1']:.4f} (cta 128 persistent); "
+          f"torch.matmul kt=0 {library_ms['roofline2_scores']:.4f}, kt=1 {scores_lib_kt1_ms:.4f}")
     qh = q.transpose(1, 2).contiguous()
     sdpa_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qh, qh, qh, scale=8.0 / 1024), 20)
@@ -2095,11 +2219,11 @@ def probe_phase():
     print(f"probe tables: {time.time() - t0:.1f} s, launches {launches}")
     full = table["full      fwd dense (no segment ids)"]
     prod = table["products  fwd #1's kernel (wgmma, 128-row tiles)"]
-    dots = table["dots-only fwd bq=512 bkv=1024 cta=64"]
+    dots = table["dots-only fwd bq=512 bkv=1024 cta=64"]  # events, through the wrapper
     print(f"#1 dense at B={B} T={T} (no dropout, no RoPE) {full:.4f} ms = its products "
           f"alone (wgmma, TMA ring, its own CTA) {prod:.4f} ms ({prod / full:.3f}, "
           f"{fwd / (prod * 1e-3) / 1e12:.1f} TFLOP/s) + softmax, scale and rescale "
-          f"{full - prod:.4f} ms; the mma.sync products #10 {dots:.4f} ms; products vs "
+          f"{full - prod:.4f} ms; the wgmma probe #10 {dots:.4f} ms; products vs "
           f"plain max|do| {prod_err:.3e}; the products at B=2 T={4 * T} {prod_long_ms:.4f} "
           f"ms ({4 * fwd / (prod_long_ms * 1e-3) / 1e12:.1f} TFLOP/s, as many CTAs with 4 x "
           f"the work each); SDPA {sdpa_ms:.4f} ms; kt=1/kt=0 "
@@ -2117,23 +2241,31 @@ def probe_phase():
           f"(4 products) {table['dots-only 4-dot bq=512 bkv=512 cta=64']:.4f} ms; products "
           f"vs plain max|d| {bprod_err:.3e}")
 
+    # the probe tables' lines the rows were read from before the wgmma
+    # rebuild (64-row CTAs, events)
+    table_line = dict(roofline_dots="dots-only fwd bq=512 bkv=1024 cta=64",
+                    roofline_dots_n="dots-only 4-dot bq=512 bkv=512 cta=64",
+                    roofline2_dots="dots kt=1 bq=512 bkv=512 cta=64",
+                    roofline2_scores="scores-only kt=0 bq=512 bkv=1024 cta=64")
     rows = []
     for name, line in (("roofline_dots", 54), ("roofline_dots_n", 163),
                        ("roofline2_dots", 68), ("roofline2_scores", 138)):
-        label, _, _, flops, nb = timed[name]
+        what, _, _, _, flops, nb = timed[name]
         bound_ms, bound_by = _bound(flops, nb)
         script = "roofline2" if name.startswith("roofline2") else "roofline"
-        print(f"  {name}: {table[label]:.4f} ms ({label}), plain {plain_ms[name]:.4f} ms, "
-              f"library {library_ms[name] if library_ms[name] is None else f'{library_ms[name]:.4f}'} "
-              f"ms, bound {bound_ms:.4f} ms ({bound_by}), max|do| vs plain {err[name]:.3e} "
+        lib, lib_ev = library_ms[name], library_events_ms[name]
+        print(f"  {name} ({kern[name]}): {kernel_ms[name]:.4f} ms ({what}, graphs; events "
+              f"{events_ms[name]:.4f}; events at the table's line '{table_line[name]}' "
+              f"{table[table_line[name]]:.4f}), plain {plain_ms[name]:.4f} ms, library "
+              f"{'none' if lib is None else f'{lib:.4f} ms (graphs; events {lib_ev:.4f})'}, "
+              f"bound {bound_ms:.4f} ms ({bound_by}), max|do| vs plain {err[name]:.3e} "
               f"(max|o| {omax[name]:.3e})")
-        rows.append({"name": name, "route": "cuda",
+        rows.append({"name": f"{name}: {kern[name]}", "route": "cuda",
                      "source": "omnibiote_tpu_torch/ops/csrc/roofline_probes.cu",
                      "replaces": f"tools/probes/{script}.py:{line}",
                      "launches": launches[name], "max_abs_err": err[name],
-                     "ms": table[label], "plain_ms": plain_ms[name],
-                     "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": library_ms[name]})
+                     "ms": kernel_ms[name], "plain_ms": plain_ms[name],
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib})
     return rows
 
 

@@ -144,7 +144,8 @@ _SIGNATURES = {
             _c.c_void_p, _c.c_void_p, _c.c_void_p,     # q, k, v
             _c.c_void_p,                               # o
             _c.c_int, _c.c_int, _c.c_int, _c.c_int,    # B, T, H, D
-            _c.c_int, _c.c_int, _c.c_void_p]),         # kt, cta_q, stream
+            _c.c_int, _c.c_int, _c.c_int,              # kt, cta_q, persistent
+            _c.c_void_p]),                             # stream
         "obt_roofline_dots_n": (_c.c_int, [
             _c.c_void_p, _c.c_void_p, _c.c_void_p,     # q, k, v
             _c.c_void_p,                               # o
@@ -156,6 +157,7 @@ _SIGNATURES = {
             _c.c_int, _c.c_int, _c.c_int, _c.c_int,    # B, T, H, D
             _c.c_int, _c.c_int, _c.c_int,              # block_kv, kt, cta_q
             _c.c_void_p]),                             # stream
+        "obt_roofline_tile": (_c.c_int, [_c.c_int]),
         "obt_cuda_error_string_roofline": (_c.c_char_p, [_c.c_int]),
     },
 }

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks of the port's kernels: mbarriers, TMA
-// tiled and bulk loads into shared memory and bulk fp32 reductions out of
-// it, warpgroup matrix products (wgmma) with their shared-memory
-// descriptors (bf16 and s8), named barriers, register rebalancing between
-// warpgroups, and the host-side tensor map of a row-major bf16 or uint8
-// matrix in 128-byte-swizzled panels.
+// tiled and bulk loads into shared memory, tiled stores and bulk fp32
+// reductions out of it, warpgroup matrix products (wgmma) with their
+// shared-memory descriptors (bf16 and s8), named barriers, register
+// rebalancing between warpgroups, and the host-side tensor map of a
+// row-major bf16 or uint8 matrix (or a batch of bf16 ones) in
+// 128-byte-swizzled panels.
 //
 // Shared-memory tiles. A tile of R rows x C bf16 columns lives as C / 64
 // panels of R rows x 128 bytes, the layout a TMA load with
@@ -82,6 +83,28 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "[%0], [%1, {%3, %4}], [%2];\n"
       ::"r"(shared_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
         "r"(shared_addr(bar)), "r"(c0), "r"(c1) : "memory");
+}
+
+// box of a 3-D tensor map at (column c0, row c1, batch c2); elements past
+// the map's bounds arrive as zeros and still count as transaction bytes
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n"
+      ::"r"(shared_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+        "r"(shared_addr(bar)), "r"(c0), "r"(c1), "r"(c2) : "memory");
+}
+
+// shared memory into the box of a 3-D tensor map at (column c0, row c1,
+// batch c2), by the TMA unit; elements past the map's bounds are not
+// written. One bulk group of the issuing thread (bulk_commit, bulk_wait*).
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(shared_addr(src)), "r"(c0), "r"(c1),
+        "r"(c2) : "memory");
 }
 
 // `bytes` (a multiple of 16, both addresses 16-byte aligned) from global to
@@ -227,6 +250,29 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D (64 x 128, fp32) (+)= A (64 x 16, bf16, shared, K-major) . B (16 x 128,
+// bf16, shared, MN-major: the transpose bit set); scale_d == 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_m64n128k16_tb(float (&d)[64], uint64_t da,
+                                                       uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D (64 x 64, fp32) (+)= A (64 x 16, bf16, shared) . B (16 x 64, bf16,
 // shared); TA / TB set the transpose bit of A / B (MN-major operand: M or N
 // along the panel row); scale_d == 0 overwrites D.
@@ -244,6 +290,44 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t da,
       "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
       "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// D (64 x 256, fp32) (+)= A (64 x 16, bf16, shared, K-major) . B (16 x 256,
+// bf16, shared; TB sets its transpose bit: MN-major); scale_d == 0
+// overwrites D.
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_m64n256k16(float (&d)[128], uint64_t da,
+                                                    uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+      "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+      "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+      "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+      "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+      "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+      "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+      "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+      "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
 }
 
 // D (64 x 128, fp32) (+)= A (64 x 16, bf16, registers) . B (16 x 128, bf16,
@@ -327,11 +411,11 @@ using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t
                                    CUtensorMapSwizzle, CUtensorMapL2promotion,
                                    CUtensorMapFloatOOBfill);
 
-inline cudaError_t encode_panels(CUtensorMap* map, CUtensorMapDataType type,
-                                 uint32_t elem_bytes, const void* base, uint64_t rows,
-                                 uint64_t cols, uint64_t ld, uint32_t box_rows) {
-  static EncodeTiledFn encode = nullptr;
-  if (encode == nullptr) {
+// cuTensorMapEncodeTiled into *encode, looked up once; the lookup's error,
+// or cudaErrorNotSupported if the driver lacks the entry
+inline cudaError_t tiled_encoder(EncodeTiledFn* encode) {
+  static EncodeTiledFn found_fn = nullptr;
+  if (found_fn == nullptr) {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
 #if CUDART_VERSION >= 12050
@@ -343,8 +427,18 @@ inline cudaError_t encode_panels(CUtensorMap* map, CUtensorMapDataType type,
 #endif
     if (e != cudaSuccess) return e;
     if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
-    encode = reinterpret_cast<EncodeTiledFn>(fn);
+    found_fn = reinterpret_cast<EncodeTiledFn>(fn);
   }
+  *encode = found_fn;
+  return cudaSuccess;
+}
+
+inline cudaError_t encode_panels(CUtensorMap* map, CUtensorMapDataType type,
+                                 uint32_t elem_bytes, const void* base, uint64_t rows,
+                                 uint64_t cols, uint64_t ld, uint32_t box_rows) {
+  EncodeTiledFn encode = nullptr;
+  const cudaError_t e = tiled_encoder(&encode);
+  if (e != cudaSuccess) return e;
   const cuuint64_t dims[2] = {cols, rows};
   const cuuint64_t strides[1] = {ld * elem_bytes};
   const cuuint32_t box[2] = {128 / elem_bytes, box_rows};
@@ -352,6 +446,27 @@ inline cudaError_t encode_panels(CUtensorMap* map, CUtensorMapDataType type,
   const CUresult r = encode(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
                             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The same for `batch` such matrices `batch_ld` elements apart, (batch,
+// rows, cols), loaded as boxes of one batch entry: rows past `rows` (or
+// columns past `cols`) arrive as zeros, never as the next entry's data.
+inline cudaError_t encode_bf16_panels_3d(CUtensorMap* map, const void* base, uint64_t batch,
+                                         uint64_t rows, uint64_t cols, uint64_t ld,
+                                         uint64_t batch_ld, uint32_t box_rows) {
+  EncodeTiledFn encode = nullptr;
+  const cudaError_t e = tiled_encoder(&encode);
+  if (e != cudaSuccess) return e;
+  constexpr uint64_t eb = sizeof(__nv_bfloat16);
+  const cuuint64_t dims[3] = {cols, rows, batch};
+  const cuuint64_t strides[2] = {ld * eb, batch_ld * eb};
+  const cuuint32_t box[3] = {kPanelCols, box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

@@ -21,11 +21,16 @@ kernel with its products alone (`fwd_products`):
     4 products.
 
 A CUDA tensor runs the kernel, a CPU tensor the plain version. `cta_q` is
-the kernel's CTA height in query rows (64, the tile of #1, or 128); it does
-not change the function. `bwd_products` is #2/#3's fused backward kernel
-with its five products alone, the backward's counterpart of
-`fwd_products`, and `int8_products` #9's int8 attention kernel with its
-two walks' s8 products alone.
+the kernel's CTA height in query rows (64 or 128, #1's); it does not change
+the function. `dots_only` runs `dots_wgmma`: #1's product pipeline (a TMA
+ring of 128-row K and V tiles, wgmma consumers of 64 q rows, S rounded in
+registers as the A operand of S·V) in persistent CTAs, one a
+multiprocessor walking the (b, h, q tile) work items (`persistent=False`
+launches one CTA an item instead, which measured slower: PERF.md §6);
+`dots_n` runs the dkv kernel's mma.sync CTA. `bwd_products` is #2/#3's
+fused backward kernel with its five products alone, the backward's
+counterpart of `fwd_products`, and `int8_products` #9's int8 attention
+kernel with its two walks' s8 products alone.
 
     python -m omnibiote_tpu_torch.probes.roofline
 
@@ -40,9 +45,15 @@ import torch
 from ..ops.flash_attention import _raise_on
 from ..utils.device import resolve_device
 
-# What the kernels are built for.
+# What the kernels are built for: head dim, the T multiple of every probe,
+# the dots kernel's kv tile (T need not be a multiple of it: the last tile
+# reads zeros past T), the CTA heights in q rows. KERNEL_KV_TILE is a copy of
+# kKv in ops/csrc/roofline_probes.cu for the CPU mirror of the walk
+# (tests/test_torch_probe_tiles.py); no launch reads it. chip_smoke.py phase
+# 11 holds it against the built library (`obt_roofline_tile`).
 KERNEL_HEAD_DIM = 128
-KERNEL_KV_TILE = 64
+KERNEL_T_MULTIPLE = 64
+KERNEL_KV_TILE = 128
 CTA_ROWS = (64, 128)
 
 # NVIDIA H100 SXM data sheet, dense bf16 tensor cores.
@@ -171,8 +182,8 @@ def check_kernel_inputs(q, named) -> None:
     if D != KERNEL_HEAD_DIM:
         raise ValueError(f"head_dim {D} not built; the probes take "
                          f"{KERNEL_HEAD_DIM}")
-    if T % KERNEL_KV_TILE:
-        raise ValueError(f"T={T} must be a multiple of {KERNEL_KV_TILE}")
+    if T % KERNEL_T_MULTIPLE:
+        raise ValueError(f"T={T} must be a multiple of {KERNEL_T_MULTIPLE}")
 
 
 def launch(entry: str, counter: str, q, operands, *ints) -> torch.Tensor:
@@ -183,26 +194,34 @@ def launch(entry: str, counter: str, q, operands, *ints) -> torch.Tensor:
     B, T, H, D = q.shape
     o = torch.empty_like(q)
     lib = _kernels.load_library("roofline_probes")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, entry)(
-            q.data_ptr(), *(t.data_ptr() for t in operands), o.data_ptr(),
-            B, T, H, D, *ints, stream)
+    args = (q.data_ptr(), *(t.data_ptr() for t in operands), o.data_ptr(),
+            B, T, H, D, *ints, torch.cuda.current_stream(q.device).cuda_stream)
+    # the device is switched only where it must be: a call's host time is
+    # close to the wgmma probes' device time (PERF.md §4), and a switch adds
+    # to it
+    if q.device.index == torch.cuda.current_device():
+        err = getattr(lib, entry)(*args)
+    else:
+        with torch.cuda.device(q.device):
+            err = getattr(lib, entry)(*args)
     _raise_on(err, entry, lib.obt_cuda_error_string_roofline)
     _kernels.LAUNCHES[counter] += 1
     return o
 
 
-def dots_kernel(q, k, v, *, kt: bool, cta_q: int, counter: str):
+def dots_kernel(q, k, v, *, kt: bool, cta_q: int, counter: str,
+                persistent: bool = True):
     """Launch the dots kernel on CUDA tensors (blocks and cta_q checked by
-    the caller): k (B, T, H, D), or (B, H*D, T) with kt. Adds one to
+    the caller): k (B, T, H, D), or (B, H*D, T) with kt; one persistent CTA
+    a multiprocessor, or one CTA a work item. Adds one to
     LAUNCHES[counter]."""
     B, T, H, D = q.shape
     k_shape = (B, H * D, T) if kt else q.shape
     check_kernel_inputs(q, (("k", k, k_shape), ("v", v, q.shape)))
     if T % cta_q:
         raise ValueError(f"T={T} must be a multiple of cta_q={cta_q}")
-    return launch("obt_roofline_dots", counter, q, (k, v), int(kt), cta_q)
+    return launch("obt_roofline_dots", counter, q, (k, v), int(kt), cta_q,
+                  int(persistent))
 
 
 def _dots_n_kernel(q, k, v, block_q: int, block_kv: int, n_dots: int, *,

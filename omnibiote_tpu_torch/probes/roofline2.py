@@ -6,15 +6,17 @@ Port of `tools/probes/roofline2.py`. Two probes, each a CUDA kernel
   * `dots` (`_dots_kernel`, roofline2.py:68): the function of
     `roofline.dots_only`, with k either (B, T, H, D) or, kt=True,
     pre-transposed (B, H*D, T). The kernel's K tile then arrives as
-    [head dim][kv] rows, so the plain and the transposing `ldmatrix` swap
-    roles for the score operand: does the transposed contraction cost
-    anything?
+    [head dim][kv] rows and the score product reads it MN-major, through
+    wgmma's transpose bit: does the transposed contraction cost anything?
   * `scores` (`_sc_kernel`, roofline2.py:138): o[b, i, c] =
     round(Σ_h (q_h k_hᵀ)[i, c]) over the *last* kv tile only (columns
     T - block_kv + c, c < H*D; each kv step of the TPU kernel overwrote the
     output block, so the last one stays), summed over heads in fp32; o is
     (B, T, H, D), read as (B, T, H*D). block_kv < H*D raises ValueError, as
-    the JAX probe cannot take it.
+    the JAX probe cannot take it. It is one GEMM a batch row, o[b] =
+    x[b]·x[b, j0 : j0 + H*D]ᵀ of depth H*D, and its kernel (`scores_wgmma`)
+    is a Hopper GEMM: cta_q × 256 output tiles, a TMA ring of 64-deep
+    steps, wgmma m64n256k16, persistent CTAs.
 
 A CUDA tensor runs the kernel, a CPU tensor the plain version; `cta_q` as
 in `roofline`.
@@ -32,6 +34,14 @@ from ..utils.device import resolve_device
 from .roofline import (CTA_ROWS, PROBE_SHAPE, _check_cta, check_blocks,
                        check_kernel_inputs, dots_kernel, dots_plain_heads,
                        launch, normal_bf16, report)
+
+# The score kernel's tile: cta_q rows x SCORES_N_TILE output columns, walked
+# SCORES_K_STEP deep. Copies of kScN and kScK in ops/csrc/roofline_probes.cu
+# for the CPU mirror of the walk (tests/test_torch_probe_tiles.py); no launch
+# reads them. chip_smoke.py phase 11 holds them against the built library
+# (`obt_roofline_tile`).
+SCORES_N_TILE = 256
+SCORES_K_STEP = 64
 
 
 def _k_heads(k, kt: bool, B: int, T: int, H: int, D: int):
@@ -66,9 +76,10 @@ def scores_plain(q, k, block_q: int, block_kv: int, kt: bool):
     return acc.to(q.dtype).reshape(B, T, H, D)
 
 
-def _scores_kernel(q, k, block_kv: int, kt: bool, *, cta_q: int):
+def scores_kernel(q, k, block_kv: int, kt: bool, *, cta_q: int):
     """Launch the score kernel on CUDA tensors (blocks and cta_q checked by
-    `scores`); counts LAUNCHES['roofline2_scores']."""
+    `scores`): one persistent CTA a multiprocessor walking the output
+    tiles; counts LAUNCHES['roofline2_scores']."""
     B, T, H, D = q.shape
     check_kernel_inputs(q, (("k", k, (B, H * D, T) if kt else q.shape),))
     if T % cta_q:
@@ -94,7 +105,7 @@ def scores(q, k, block_q: int, block_kv: int, kt: bool, *, cta_q: int = 64):
     _check_scores(T, H * D, block_q, block_kv)
     _check_cta(cta_q)
     if q.is_cuda:
-        return _scores_kernel(q, k, block_kv, kt, cta_q=cta_q)
+        return scores_kernel(q, k, block_kv, kt, cta_q=cta_q)
     return scores_plain(q, k, block_q, block_kv, kt)
 
 

@@ -132,6 +132,27 @@ def test_scores_matches_pallas_last_kv_tile(kt):
     assert not np.allclose(first.float().numpy(), want[:, :bkv], atol=1e-2)
 
 
+@pytest.mark.parametrize("T,kt", [(192, False), (320, True)], ids=["T192-kt0", "T320-kt1"])
+def test_dots_ragged_t_matches_pallas(T, kt):
+    """T a multiple of 64 but not of the kernel's 128-row kv tile: the plain
+    version on the JAX probe's 64-wide blocks."""
+    (x,) = _x(2, T, seed=T)
+    want = _jax("roofline2.py", "dots", x, 64, 64, kt)
+    xt = _bf16(x)
+    _hold(roofline2.dots(xt, roofline2.transposed_k(xt) if kt else xt, xt, 64, 64, kt), want)
+
+
+@pytest.mark.parametrize("kt", [False, True], ids=["kt0", "kt1"])
+def test_scores_odd_heads_matches_pallas(kt):
+    """H = 3: H*D = 384 output columns, not a multiple of the kernel's
+    256-column tile."""
+    (x,) = _x(1, 384, h=3, seed=9)
+    want = _jax("roofline2.py", "scores", x, 128, 384, kt)
+    xt = _bf16(x)
+    _hold(roofline2.scores(xt, roofline2.transposed_k(xt) if kt else xt, 128, 384, kt),
+          want)
+
+
 # ---------------------------------------------------------------------------
 # the plain versions in fp32 against float64 formulas
 # ---------------------------------------------------------------------------
