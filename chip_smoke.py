@@ -8,14 +8,15 @@ toolkit and g++. It
 
   1. builds the port's CUDA kernels (nvcc, one process per source, all at
      once) and its tokenizer (g++) from the checkout's sources, printing
-     each kernel's registers, spills and stack frame, and the dynamic
-     shared memory of the bf16 forward's CTA;
+     each kernel's registers, spills and stack frame (none may spill in
+     the backward's wgmma kernels), and the dynamic shared memory of the
+     bf16 forward's and backward kernels' CTAs;
   2. kernel phase: holds each kernel against its plain PyTorch version on
      the card, at the main paths' shapes, in bf16 and fp32, over packed,
      padded and dense segment layouts: the forward without dropout (the
      serving path) and with dropout 0.1 (and at head dim 64, packed, with
-     and without dropout), the backward at dropout 0 and
-     0.1 (and once at T=2048, and at head dim 64); refuses a bf16 fused
+     and without dropout), the fused backward and the split pair at
+     dropout 0 and 0.1 (and once at T=2048, and at head dim 64); refuses a bf16 fused
      backward at T=192 at the wrapper; times each kernel, its plain version
      and one PyTorch library call that computes the same function, and
      holds kernel against plain once more at the very shape it timed,
@@ -40,11 +41,12 @@ toolkit and g++. It
      segment-skip bounds, the fused multi-kv backward with bounds, and the
      split pair (dkv and dq kernels), each against its plain version;
      skipping on against off (forward, dkv and dq bit for bit, the fused
-     backward's dq within its atomic sums' tolerance); the dq kernel twice
-     (the same bits); fused against split; the tiles each kernel walked
-     against the count its bounds give; the lse-exposing variant with a
-     random lse cotangent; and the timings at bench_longctx.py's shapes
-     (mini 8 x 2048 and mini 4 x 4096, five EOS a row);
+     backward's dq within its atomic sums' tolerance); the split pair
+     twice (dk, dv and dq the same bits); fused against split; the tiles
+     each kernel walked against the count its bounds give; the
+     lse-exposing variant with a random lse cotangent; and the timings at
+     bench_longctx.py's shapes (mini 8 x 2048 and mini 4 x 4096, five EOS
+     a row; the split pair also without dropout);
   6. long-context training slice, omnibiote-small at full width with
      block_size = ctx_len = 2048: one micro-batch and one train step
      (A = 2) on the kernels with the fused backward, again with the split
@@ -92,9 +94,10 @@ toolkit and g++. It
      back-to-back calls, as the probe tables time them) beside its plain version, its
      bound and a PyTorch library call, #13 against both layouts of k, #10
      persistent against one CTA an item and against `fwd_products`; #2's
-     kernel with its products alone (`bwd_products`, dq, dk and dv) against
-     its plain version likewise; then both probe tables, whose launches are
-     the rows' counts, and #1's and #2's splits into products and the rest;
+     kernel and the split pair's with their products alone
+     (`bwd_products`, `dkv_products`, `dq_products`) against their plain
+     versions likewise; then both probe tables, whose launches are the
+     rows' counts, and #1's and #2's splits into products and the rest;
  12. prints the card's name and power limit, one JSON line of kernel
      numbers, and last the line {"ok": true, "device": {...}}.
 
@@ -206,6 +209,7 @@ def build():
     print(f"build: {time.time() - t0:.1f} s (nvcc sm_90a: "
           f"{', '.join(logs) or 'up to date'}; g++ tokenizer)")
     # one line a kernel instance: template arguments, registers, spills
+    spills = {}
     for name, log in logs.items():
         entry = spill = stack = None
         for line in log.splitlines():
@@ -231,11 +235,19 @@ def build():
                 if entry.startswith(("mh_", "int8_fwd", "quant_", "dots", "scores")):
                     print(f"  {name}: {entry}: {regs} registers, {spill} bytes of spill "
                           f"stores, {stack} bytes of stack frame")
+                    spills[f"{name}: {entry}"] = int(spill)
                 entry = None
-    # the bf16 forward's and fused backward's CTAs: 384 threads, setmaxnreg
+    # a spill makes ptxas serialise the wgmma products around it: the
+    # backward's wgmma kernels (fused, dkv and dq) must show none
+    spilled = {k: v for k, v in spills.items()
+               if k.split(": ")[1].startswith(("mh_bwd_fused_bf16", "mh_bwd_dq_wgmma")) and v}
+    check(not spilled, f"backward wgmma instances spill: {spilled}")
+    # the bf16 forward's and backward kernels' CTAs: 384 threads, setmaxnreg
     # 24 (producer) / 240 (consumers), dynamic shared memory as their launches
     # ask
-    for name, kernel in (("mh_flash_fwd", "mh_fwd_bf16"), ("mh_flash_bwd", "mh_bwd_fused_bf16")):
+    for name, kernel in (("mh_flash_fwd", "mh_fwd_bf16"), ("mh_flash_bwd", "mh_bwd_fused_bf16"),
+                         ("mh_flash_bwd_dkv", "mh_bwd_fused_bf16 without dq"),
+                         ("mh_flash_bwd_dq", "mh_bwd_dq_wgmma")):
         smem_bytes = getattr(_kernels.load_library(name), f"obt_{name}_smem_bytes")
         print(f"  {name}: {kernel} dynamic shared memory a CTA: " + ", ".join(
             f"D={d} {smem_bytes(d)} bytes" for d in (64, 128)))
@@ -448,8 +460,8 @@ def train_kernel_phase():
     from omnibiote_tpu_torch.models.rope import apply_rope_half
     from omnibiote_tpu_torch.ops.flash_attention import (
         KERNEL_KV_TILE, KERNEL_TILES, SegmentBounds, mh_flash_backward,
-        mh_flash_backward_kernel, mh_flash_backward_plain, mh_flash_forward,
-        mh_flash_forward_plain)
+        mh_flash_backward_kernel, mh_flash_backward_plain, mh_flash_bwd_dkv_kernel,
+        mh_flash_bwd_dq_kernel, mh_flash_forward, mh_flash_forward_plain)
 
     H, D = 8, 128
     scale = 1.0 / math.sqrt(D)
@@ -486,20 +498,27 @@ def train_kernel_phase():
             po, plse = mh_flash_forward_plain(q, k, v, seg, rope, scale=sc,
                                               dropout_rate=rate, seed=seed)
             di = (po.float() * do.float()).sum(-1)
-            got = mh_flash_backward_kernel(q, k, v, do, plse, di, seg, rope,
-                                           scale=sc, dropout_rate=rate, seed=seed)
+            bargs = (q, k, v, do, plse, di, seg, rope)
+            bkw = dict(scale=sc, dropout_rate=rate, seed=seed)
+            got = mh_flash_backward_kernel(*bargs, **bkw)
+            # the split pair: the same function in two kernels
+            dk_s, dv_s = mh_flash_bwd_dkv_kernel(*bargs, **bkw)
+            split = (mh_flash_bwd_dq_kernel(*bargs, **bkw), dk_s, dv_s)
             torch.cuda.synchronize()
-            want = mh_flash_backward_plain(q, k, v, do, plse, di, seg, rope,
-                                           scale=sc, dropout_rate=rate, seed=seed)
+            want = mh_flash_backward_plain(*bargs, **bkw)
             errs = [_rel_err(g, w) for g, w in zip(got, want)]
+            errs_s = [_rel_err(g, w) for g, w in zip(split, want)]
             print(f"bwd dropout {rate} vs plain B={B} T={T} D={hd} {dtype:8s} {layout:6s}: "
-                  f"max|d|/max|g| dq {errs[0]:.2e} dk {errs[1]:.2e} dv {errs[2]:.2e} "
+                  f"max|d|/max|g| fused dq {errs[0]:.2e} dk {errs[1]:.2e} dv {errs[2]:.2e}, "
+                  f"split dq {errs_s[0]:.2e} dk {errs_s[1]:.2e} dv {errs_s[2]:.2e} "
                   f"(tolerance {BWD_TOL[dtype]})")
-            check(all(torch.isfinite(g.float()).all() for g in got),
+            check(all(torch.isfinite(g.float()).all() for g in (*got, *split)),
                   f"non-finite backward output at {(B, T, dtype, layout, rate)}")
             check(max(errs) <= BWD_TOL[dtype],
                   f"backward kernel disagrees at {(B, T, hd, dtype, layout, rate)}")
-            del got, want
+            check(max(errs_s) <= BWD_TOL[dtype],
+                  f"split backward disagrees at {(B, T, hd, dtype, layout, rate)}")
+            del got, want, split, dk_s, dv_s
         del q, k, v, do
 
     # a bf16 call at a T off the kernel's 128-row multiple is refused at the
@@ -1104,6 +1123,9 @@ def longctx_kernel_phase():
         dkv_all = fa.mh_flash_bwd_dkv_kernel(*args, **kw)
         check(torch.equal(dkv[0], dkv_all[0]) and torch.equal(dkv[1], dkv_all[1]),
               f"dkv kernel with bounds differs from the full walk at {tag}")
+        dkv_again = fa.mh_flash_bwd_dkv_kernel(*args, tile_bounds=dkv_b, **kw)
+        check(torch.equal(dkv[0], dkv_again[0]) and torch.equal(dkv[1], dkv_again[1]),
+              f"dkv kernel: two launches give different bits at {tag}")
         dq = _walked(lambda c: fa.mh_flash_bwd_dq_kernel(
             *args, tile_bounds=dq_b, tile_count=c, **kw), n_dq, f"dq {tag}")
         check(torch.equal(dq, fa.mh_flash_bwd_dq_kernel(*args, **kw)),
@@ -1124,11 +1146,12 @@ def longctx_kernel_phase():
               f"atol {at}); max|d|/max|g| vs plain (dq, dk, dv): fused "
               f"{e_mk[0]:.2e} {e_mk[1]:.2e} {e_mk[2]:.2e}, split {e_sp[0]:.2e} "
               f"{e_sp[1]:.2e} {e_sp[2]:.2e}; fused vs split {max(e_fs):.2e} "
-              f"(tolerance {BWD_TOL[dtype]}); bounds on == off")
+              f"(tolerance {BWD_TOL[dtype]}); bounds on == off; dk, dv and dq the "
+              f"same bits at a second launch")
         check(max(e_mk) <= BWD_TOL[dtype], f"fused multi-kv backward disagrees at {tag}")
         check(max(e_sp) <= BWD_TOL[dtype], f"split backward disagrees at {tag}")
         check(max(e_fs) <= BWD_TOL[dtype], f"fused and split backward disagree at {tag}")
-        del q, k, v, do, o, lse, po, plse, want, mk, mk_all, dkv, dkv_all, dq
+        del q, k, v, do, o, lse, po, plse, want, mk, mk_all, dkv, dkv_all, dkv_again, dq
 
     # the lse-exposing variant with a non-zero lse cotangent, through
     # autograd: kernels (fused, then split) against the plain versions
@@ -1193,6 +1216,7 @@ def longctx_kernel_phase():
             bounds=sb, **kw), "bfloat16", shape)
         bq, bkv = fa.KERNEL_TILES["fused"][torch.bfloat16]
         kq, kkv = fa.KERNEL_TILES["dkv"][torch.bfloat16]
+        dq_q, dq_kv = fa.KERNEL_TILES["dq"][torch.bfloat16]
         want = fa.mh_flash_backward_plain(*args, block_q=bq, block_kv=bkv,
                                           segment_skip=True, bounds=sb, **kw)
         held = {"mk": _hold_bwd(got["mh_flash_bwd_mk"], want, "bfloat16", f"{shape} (fused)"),
@@ -1211,7 +1235,7 @@ def longctx_kernel_phase():
                   **{f"mh_flash_bwd_{n}": (_bwd_bound(B, T, H, D, pairs, kind),
                                            _bwd_bound(B, T, H, D, None, kind))
                      for n, kind in (("mk", "fused"), ("dkv", "dkv"), ("dq", "dq"))}}
-        kvb, qb, kb = sb.get(fq, fkv), sb.get(bkv, bq), sb.get(kkv, kq)
+        kvb, qb, kb, db = sb.get(fq, fkv), sb.get(bkv, bq), sb.get(kkv, kq), sb.get(dq_q, dq_kv)
         print(f"long shape B={B} T={T} H={H} D={D} bf16, {LONG_EOS} EOS a row, dropout "
               f"{TRAIN_DROPOUT}: visible share of (q, k) pairs {pairs / (B * T * T):.4f}, "
               f"walked share of the forward's {fq}x{fkv} tiles "
@@ -1219,7 +1243,9 @@ def longctx_kernel_phase():
               f"of the fused backward's {bkv}x{bq} tiles "
               f"{int((qb[1] - qb[0] + 1).sum()) / (B * (T // bkv) * (T // bq)):.4f}, "
               f"of the dkv kernel's {kkv}x{kq} tiles "
-              f"{int((kb[1] - kb[0] + 1).sum()) / (B * (T // kkv) * (T // kq)):.4f}")
+              f"{int((kb[1] - kb[0] + 1).sum()) / (B * (T // kkv) * (T // kq)):.4f}, "
+              f"of the dq kernel's {dq_q}x{dq_kv} tiles "
+              f"{int((db[1] - db[0] + 1).sum()) / (B * (T // dq_q) * (T // dq_kv)):.4f}")
         for n in kernels:
             (b_vis, by), (b_all, _) = bounds[n]
             print(f"  {n}: {ms[n][0]:.4f} ms with skipping, {ms[n][1]:.4f} ms without; "
@@ -1231,6 +1257,16 @@ def longctx_kernel_phase():
         if T != 2048:
             continue
         fwd_ms_2048 = ms["mh_flash_fwd"][0]
+        # the split pair without dropout (skipping on): what its two Philox
+        # draws, one in each kernel, cost
+        kw0 = dict(kw, dropout_rate=0.0)
+        nodrop = {"mh_flash_bwd_dkv": cuda_ms(lambda: fa.mh_flash_bwd_dkv(
+                      *args, **kw0, segment_skip=True, bounds=sb), 10),
+                  "mh_flash_bwd_dq": cuda_ms(lambda: fa.mh_flash_bwd_dq(
+                      *args, **kw0, segment_skip=True, bounds=sb), 10)}
+        print("  without dropout, skipping: " + ", ".join(
+            f"{n} {t:.4f} ms (dropout {TRAIN_DROPOUT}: {ms[n][0]:.4f}, the draw's share "
+            f"{1 - t / ms[n][0]:.3f})" for n, t in nodrop.items()))
         # plain versions (with the same skipping) and the library yardstick:
         # SDPA with dropout, dense (it takes no segment ids); its backward
         # as (forward + backward) - forward through autograd
@@ -1240,7 +1276,8 @@ def longctx_kernel_phase():
             "mh_flash_bwd_dkv": cuda_ms(lambda: fa.mh_flash_bwd_dkv_plain(
                 *args, block_q=kq, block_kv=kkv, segment_skip=True, bounds=sb, **kw), 2, warmup=1),
             "mh_flash_bwd_dq": cuda_ms(lambda: fa.mh_flash_bwd_dq_plain(
-                *args, block_q=64, block_kv=64, segment_skip=True, bounds=sb, **kw), 2, warmup=1),
+                *args, block_q=dq_q, block_kv=dq_kv, segment_skip=True, bounds=sb, **kw), 2,
+                warmup=1),
         }
         qr, kr = apply_rope_half(q, k, *rope)
         qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_() for x in (qr, kr, v))
@@ -2046,9 +2083,9 @@ def probe_phase():
                 for name, kern, plain in _probe_calls(q, k, v, kx, bq, bkv, cta):
                     hold(name, kern(), plain(), f"B={B} T={T} bq={bq} bkv={bkv} cta={cta}")
                     n += 1
-    # #1's and #2's kernels with their products alone (the DOTS instances)
-    # on distinct q, k, v, do: a wrong wgmma descriptor or swizzle gives
-    # plausible numbers
+    # #1's, #2's and the split pair's kernels with their products alone (the
+    # DOTS instances) on distinct q, k, v, do: a wrong wgmma descriptor or
+    # swizzle gives plausible numbers
     for B, T in ((1, 512), (2, 256), (2, 1024)):
         rng = np.random.default_rng(7 * T + B)
         q, k, v, do = (r1.normal_bf16(rng, (B, T, 2, 128), "cuda") * 0.1 for _ in range(4))
@@ -2057,7 +2094,12 @@ def probe_phase():
         for g, w, what in zip(r1.bwd_products(q, k, v, do), r1.bwd_products_plain(q, k, v, do),
                               ("dq", "dk", "dv")):
             hold("mh_flash_bwd_dots", g, w, f"B={B} T={T} ({what})")
-        n += 4
+        for g, w, what in zip(r1.dkv_products(q, k, v, do), r1.dkv_products_plain(q, k, v, do),
+                              ("dk", "dv")):
+            hold("mh_flash_bwd_dkv_dots", g, w, f"B={B} T={T} ({what})")
+        hold("mh_flash_bwd_dq_dots", r1.dq_products(q, k, v, do),
+             r1.dq_products_plain(q, k, v, do), f"B={B} T={T}")
+        n += 7
     # the tiles tests/test_torch_probe_tiles.py mirrors are the built ones
     plib = _kernels.load_library("roofline_probes")
     tiles = {"roofline.KERNEL_KV_TILE": (r1.KERNEL_KV_TILE, plib.obt_roofline_tile(0)),
@@ -2127,6 +2169,12 @@ def probe_phase():
     bprod_err = max(hold("mh_flash_bwd_dots", g, w, f"the probes' shape ({what})")
                     for g, w, what in zip(r1.bwd_products(q, q, q, q),
                                           r1.bwd_products_plain(q, q, q, q), ("dq", "dk", "dv")))
+    split_prod_err = max(
+        *(hold("mh_flash_bwd_dkv_dots", g, w, f"the probes' shape ({what})")
+          for g, w, what in zip(r1.dkv_products(q, q, q, q), r1.dkv_products_plain(q, q, q, q),
+                                ("dk", "dv"))),
+        hold("mh_flash_bwd_dq_dots", r1.dq_products(q, q, q, q),
+             r1.dq_products_plain(q, q, q, q), "the probes' shape (dq)"))
     torch.cuda.synchronize()
 
     qb = q.permute(0, 2, 1, 3).reshape(B * H, T, D)
@@ -2232,6 +2280,22 @@ def probe_phase():
           f"#11 {table['dots-only 4-dot bq=512 bkv=512 cta=128'] / table['dots-only 4-dot bq=512 bkv=512 cta=64']:.3f}, "
           f"#13 {table['scores-only kt=0 bq=512 bkv=1024 cta=128'] / table['scores-only kt=0 bq=512 bkv=1024 cta=64']:.3f}")
 
+    # the split pair's products alone beside the fused kernel's (graphs:
+    # device time; the tables' lines are events)
+    split_graph_ms = {"bwd_products": graph_ms(lambda: r1.bwd_products(q, q, q, q)),
+                      "dkv_products": graph_ms(lambda: r1.dkv_products(q, q, q, q)),
+                      "dq_products": graph_ms(lambda: r1.dq_products(q, q, q, q))}
+    dkv_ev = table["products  dkv #4's kernel (wgmma, 64x128 tiles)"]
+    dq_ev = table["products  dq  #5's kernel (wgmma, 128x64 tiles)"]
+    print(f"split pair's products alone at B={B} T={T} (graphs): dkv_products "
+          f"{split_graph_ms['dkv_products']:.4f} ms ({2 * fwd / (split_graph_ms['dkv_products'] * 1e-3) / 1e12:.1f} "
+          f"TFLOP/s), dq_products {split_graph_ms['dq_products']:.4f} ms "
+          f"({1.5 * fwd / (split_graph_ms['dq_products'] * 1e-3) / 1e12:.1f} TFLOP/s), together "
+          f"{split_graph_ms['dkv_products'] + split_graph_ms['dq_products']:.4f} against "
+          f"bwd_products {split_graph_ms['bwd_products']:.4f}; events {dkv_ev:.4f} / "
+          f"{dq_ev:.4f}; the mma.sync "
+          f"dkv mix #11 (4 products) {table['dots-only 4-dot bq=512 bkv=512 cta=64']:.4f} ms (events); "
+          f"products vs plain max|d| {split_prod_err:.3e}")
     bprod = table["products  bwd #2's kernel (wgmma, 64x128 tiles)"]
     print(f"#2 dense at B={B} T={T} (no dropout, no RoPE) {bwd_full[0.0]:.4f} ms = its "
           f"products alone (wgmma, TMA ring, dq reduce-add, its own CTA) {bprod:.4f} ms "

@@ -22,18 +22,20 @@ BUILD_DIR = os.path.join(_HERE, "build")
 # "mh_flash_bwd_mk" for the multi-kv case above it. The forward and the
 # split pair's sources also serve flash_attention(multi_head=False), without
 # RoPE or skip bounds, counted as "flash_fwd", "flash_bwd_dkv" and
-# "flash_bwd_dq"; the forward's and the fused backward's sources also hold
-# their products alone, counted as "mh_flash_fwd_dots" and
-# "mh_flash_bwd_dots" (probes/roofline.py::fwd_products, bwd_products), and
-# the int8 source its attention kernel's products alone as
-# "int8_flash_fwd_dots" (probes/roofline.py::int8_products). The
+# "flash_bwd_dq"; the forward's, the fused backward's and the split pair's
+# sources also hold their products alone, counted as "mh_flash_fwd_dots",
+# "mh_flash_bwd_dots", "mh_flash_bwd_dkv_dots" and "mh_flash_bwd_dq_dots"
+# (probes/roofline.py::fwd_products, bwd_products, dkv_products,
+# dq_products), and the int8 source its attention kernel's products alone
+# as "int8_flash_fwd_dots" (probes/roofline.py::int8_products). The
 # roofline probes' source serves four: "roofline_dots" and "roofline2_dots"
 # (one kernel, the probes of roofline.py and roofline2.py),
 # "roofline_dots_n" and "roofline2_scores".
 LAUNCHES: Dict[str, int] = {"mh_flash_fwd": 0, "mh_flash_fwd_dots": 0,
                             "mh_flash_bwd": 0, "mh_flash_bwd_dots": 0,
                             "mh_flash_bwd_mk": 0, "mh_flash_bwd_dkv": 0,
-                            "mh_flash_bwd_dq": 0, "int8_flash_fwd": 0,
+                            "mh_flash_bwd_dkv_dots": 0, "mh_flash_bwd_dq": 0,
+                            "mh_flash_bwd_dq_dots": 0, "int8_flash_fwd": 0,
                             "int8_flash_fwd_dots": 0, "flash_fwd": 0,
                             "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
                             "roofline_dots": 0,
@@ -98,6 +100,12 @@ _SIGNATURES = {
             _c.c_float, _c.c_float, _c.c_int,          # scale_log2, scale, dtype
             _c.c_int, _c.c_uint32, _c.c_float,         # drop, thresh, keep_scale
             _c.c_uint64, _c.c_void_p]),                # seed, stream
+        "obt_mh_flash_bwd_dkv_dots": (_c.c_int, [
+            _c.c_void_p, _c.c_void_p, _c.c_void_p,     # q, k, v
+            _c.c_void_p, _c.c_void_p, _c.c_void_p,     # do, dk, dv
+            _c.c_int, _c.c_int, _c.c_int, _c.c_int,    # B, T, H, D
+            _c.c_void_p]),                             # stream
+        "obt_mh_flash_bwd_dkv_smem_bytes": (_c.c_int, [_c.c_int]),
         "obt_cuda_error_string_bwd_dkv": (_c.c_char_p, [_c.c_int]),
     },
     "mh_flash_bwd_dq": {
@@ -112,6 +120,12 @@ _SIGNATURES = {
             _c.c_float, _c.c_float, _c.c_int,          # scale_log2, scale, dtype
             _c.c_int, _c.c_uint32, _c.c_float,         # drop, thresh, keep_scale
             _c.c_uint64, _c.c_void_p]),                # seed, stream
+        "obt_mh_flash_bwd_dq_dots": (_c.c_int, [
+            _c.c_void_p, _c.c_void_p, _c.c_void_p,     # q, k, v
+            _c.c_void_p, _c.c_void_p,                  # do, dq
+            _c.c_int, _c.c_int, _c.c_int, _c.c_int,    # B, T, H, D
+            _c.c_void_p]),                             # stream
+        "obt_mh_flash_bwd_dq_smem_bytes": (_c.c_int, [_c.c_int]),
         "obt_cuda_error_string_bwd_dq": (_c.c_char_p, [_c.c_int]),
     },
     "int8_flash_fwd": {

@@ -3,22 +3,26 @@
 //
 // Replaces the Pallas TPU kernel omnibiote_tpu/ops/flash_attention.py::
 // _mh_bwd_dkv_kernel (launched by _mh_bwd when the fused backward is
-// switched off or cannot run). Same function, same rounding points as the
-// fused kernel (mh_flash_bwd.cu): rotated q and k rounded to the input
-// dtype, s2 with the finite mask bias, p = exp2(s2 - lse2), dp = do.v^T in
-// fp32, p_drop and dp masked and scaled by the forward's keep-mask, ds from
-// the undropped p, p_drop and ds rounded to the input dtype as operands,
-// fp32 accumulators, the inverse rotation on the fp32 dk before its cast.
+// switched off or cannot run) and, through the same source, ::
+// _bwd_dkv_kernel (the per-head entry's, without RoPE or bounds). Same
+// function, same rounding points as the fused kernel (mh_flash_bwd.cu):
+// rotated q and k rounded to the input dtype, s2 with the finite mask bias,
+// p = exp2(s2 - lse2), dp = do.v^T in fp32, p_drop and dp masked and scaled
+// by the forward's keep-mask, ds from the undropped p, p_drop and ds
+// rounded to the input dtype as operands, fp32 accumulators, the inverse
+// rotation on the fp32 dk before its cast.
 //
-// Design. The TPU kernel's grid is (batch, kv block, q block) with q as the
-// sequential axis and dk/dv accumulators in VMEM scratch. Here one block owns
-// (batch, head, 64-row kv tile), keeps dk and dv in fp32 registers and loops
-// over 32-row q tiles streamed through a two-stage cp.async ring
-// (mh_flash_bwd_kernels.cuh::mh_bwd_bf16, mma.sync m16n8k16 fed by
-// ldmatrix). Four products a tile (S^T, dP^T, dV, dK). With q_lo / q_hi it walks only
-// the q tiles whose segment-id range meets its kv tile's (the TPU kernel's
-// use_bounds); a skipped tile would have added exact zeros, so dk and dv
-// are bit for bit those of the full walk.
+// Design. dk and dv are what the fused kernel computes for them, so the
+// bf16 kernel is the fused kernel itself without its dq
+// (mh_flash_bwd_kernels.cuh::mh_bwd_fused_bf16 with WITH_DQ = false): a CTA
+// owns (batch, head, 128-row kv tile) and walks 64-row q tiles that a
+// producer warpgroup streams through a TMA ring, two consumer warpgroups of
+// 64 kv rows hold dk and dv in fp32 registers, and the four products
+// (S^T, dP^T, dV += P_drop^T.dO, dK += dS^T.Q) are wgmma. Every kv row has
+// one owner, so dk and dv are the same bits from launch to launch. With
+// q_lo / q_hi it walks only the q tiles whose segment-id range meets its kv
+// tile's (the TPU kernel's use_bounds); a skipped tile would have added
+// exact zeros, so dk and dv are bit for bit those of the full walk.
 //
 // Bound. At B=8, T=2048, H=8, D=128 in bf16 the four products are
 // 8*B*T^2*H*D = 275 GFLOP over all (q, k) pairs (0.278 ms at 989 TFLOP/s),
@@ -40,30 +44,28 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
                    float scale_log2, float scale, bool bf16, DropParams dp,
                    cudaStream_t st) {
   if (cos_t != nullptr) {
+    // every kv tile reads all of q: rotated once; the bf16 kernel rotates
+    // its own k rows
     launch_rope_rows<D>(q, cos_t, sin_t, q_rot, B, T, H, bf16, st);
-    launch_rope_rows<D>(k, cos_t, sin_t, k_rot, B, T, H, bf16, st);
     q = q_rot;
-    k = k_rot;
+    if (!bf16) {
+      launch_rope_rows<D>(k, cos_t, sin_t, k_rot, B, T, H, false, st);
+      k = k_rot;
+    }
   }
-  if (bf16) {
-    const size_t smem = bwd_bf16_smem_bytes<D>();
-    const cudaError_t e = cudaFuncSetAttribute(
-        mh_bwd_bf16<D, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-    mh_bwd_bf16<D, DROP><<<dim3(T / kDkvKvTile, H, B), 128, smem, st>>>(
+  if (bf16)
+    return launch_bf16<D, DROP, false, false>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-        lse, di, seg, cos_t, sin_t, q_lo, q_hi, tile_count,
-        static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), T, H,
-        scale_log2, scale, dp);
-  } else {
-    mh_bwd_f32<D, DROP, false><<<dim3(T / kF32Kv, H, B), 128, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), lse, di,
-        seg, cos_t, sin_t, q_lo, q_hi, tile_count, nullptr,
-        static_cast<float*>(dk), static_cast<float*>(dv), T, H, scale_log2,
-        scale, dp);
-  }
+        static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), lse, di,
+        seg, cos_t, sin_t, q_lo, q_hi, tile_count, nullptr, nullptr,
+        static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), B, T, H, scale_log2,
+        scale, dp, st);
+  mh_bwd_f32<D, DROP, false><<<dim3(T / kF32Kv, H, B), 128, 0, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse, di,
+      seg, cos_t, sin_t, q_lo, q_hi, tile_count, nullptr,
+      static_cast<float*>(dk), static_cast<float*>(dv), T, H, scale_log2,
+      scale, dp);
   return cudaGetLastError();
 }
 
@@ -83,19 +85,31 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, const void* do
                                  scale_log2, scale, bf16, dp, st);
 }
 
+// T multiple of each dtype's kernel: the bf16 CTA's 128 kv rows; the fp32
+// kernel's 32-row kv tile, held to 64
+constexpr int kBf16TMultiple = kBkv, kF32TMultiple = 64;
+
+bool shape_ok(int B, int T, int H, int t_multiple) {
+  return B >= 1 && B <= 65535 && H >= 1 && H <= 65535 && T >= t_multiple &&
+         T % t_multiple == 0;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; q, k, v, dout, dk, dv (B, T, H, D) of
-// that type; lse2 and di (B, T, H) fp32; seg (B, T) int32 or null; with RoPE
-// (cos_t and sin_t non-null), q_rot and k_rot are scratch tensors of q's
-// shape and type. q_lo and q_hi, both null or both int32 (B, T / kv tile) in
-// units of the dtype's q tile (kv tile 64 and q tile 32 for bf16, 32 and 16
-// for fp32), bound the q tiles each kv tile walks; tile_count is null or one
-// int32 that the walked tiles are added to. drop != 0 applies the forward's
-// dropout (thresh, keep_scale, seed as in obt_mh_flash_fwd). Returns
-// cudaGetLastError() after the launches (cudaErrorInvalidValue for a shape
-// or type this file has no kernel for). Launches on `stream`, allocates
-// nothing, does not synchronise.
+// that type, T a multiple of 64 (fp32) or 128 (bf16); lse2 and di fp32,
+// (B, T, H) for fp32 and (B, H, T) for bf16 (its producer bulk-copies a q
+// tile's 64 values of one head); seg (B, T) int32 or null. With RoPE
+// (cos_t and sin_t non-null), q_rot is a scratch tensor of q's shape and
+// type, and so is k_rot for fp32 (bf16 rotates k in the kernel; k_rot may
+// be null). q_lo and q_hi, both null or both int32 (B, T / kv tile) in
+// units of the dtype's q tile (kv tile 128 and q tile 64 for bf16, 32 and
+// 16 for fp32), bound the q tiles each kv tile walks; tile_count is null or
+// one int32 that the walked tiles are added to. drop != 0 applies the
+// forward's dropout (thresh, keep_scale, seed as in obt_mh_flash_fwd).
+// Returns cudaGetLastError() after the launches (cudaErrorInvalidValue for
+// a shape or type this file has no kernel for). Launches on `stream`,
+// allocates nothing, does not synchronise.
 extern "C" int obt_mh_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                     const void* dout, const void* lse,
                                     const void* di, const void* seg,
@@ -107,9 +121,10 @@ extern "C" int obt_mh_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                     int dtype, int drop, uint32_t thresh,
                                     float keep_scale, uint64_t seed,
                                     void* stream) {
-  if ((dtype != 0 && dtype != 1) || T < kDkvKvTile || T % kDkvKvTile != 0 || B < 1 ||
-      B > 65535 || H < 1 || H > 65535 ||
-      (cos_t != nullptr && (sin_t == nullptr || q_rot == nullptr || k_rot == nullptr)) ||
+  if ((dtype != 0 && dtype != 1) ||
+      !shape_ok(B, T, H, dtype == 1 ? kBf16TMultiple : kF32TMultiple) ||
+      (cos_t != nullptr &&
+       (sin_t == nullptr || q_rot == nullptr || (dtype == 0 && k_rot == nullptr))) ||
       ((q_lo == nullptr) != (q_hi == nullptr)))
     return (int)cudaErrorInvalidValue;
   const DropParams dp{seed, thresh, keep_scale};
@@ -127,6 +142,31 @@ extern "C" int obt_mh_flash_bwd_dkv(const void* q, const void* k, const void* v,
     case 128: return (int)launch_d<128>(q, k, v, dout, l, dd, sg, c, s, q_rot, k_rot, lo, hi, tc, dk, dv, B, T, H, scale_log2, scale, dtype == 1, drop != 0, dp, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The bf16 kernel's products alone (its DOTS instance), bf16 (B, T, H, 128)
+// q, k, v, dout -> dk, dv, T a multiple of 128: with P = round(k.q^T) and
+// dS = round(v.do^T) per head (kv rows by q rows, fp32 products rounded to
+// bf16), dv = round(P.do) and dk = round(dS.q), each summed in fp32 over
+// 64-row q tiles. Launches on `stream`; returns cudaGetLastError().
+extern "C" int obt_mh_flash_bwd_dkv_dots(const void* q, const void* k, const void* v,
+                                         const void* dout, void* dk, void* dv, int B, int T,
+                                         int H, int D, void* stream) {
+  if (!shape_ok(B, T, H, kBf16TMultiple) || D != 128) return (int)cudaErrorInvalidValue;
+  return (int)launch_bf16<128, false, true, false>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), nullptr,
+      nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), B, T, H, 0.f, 0.f,
+      DropParams{0, 0, 1.f}, static_cast<cudaStream_t>(stream));
+}
+
+// Dynamic shared memory a CTA of the bf16 kernel takes at head dim D (-1
+// for a head dim it is not built for).
+extern "C" int obt_mh_flash_bwd_dkv_smem_bytes(int D) {
+  return D == 64    ? (int)bf16_smem_bytes<64, false>()
+         : D == 128 ? (int)bf16_smem_bytes<128, false>()
+                    : -1;
 }
 
 extern "C" const char* obt_cuda_error_string_bwd_dkv(int code) {

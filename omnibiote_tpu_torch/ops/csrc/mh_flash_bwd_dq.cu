@@ -3,7 +3,9 @@
 //
 // Replaces the Pallas TPU kernel omnibiote_tpu/ops/flash_attention.py::
 // _mh_bwd_dq_kernel (launched by _mh_bwd when the fused backward is switched
-// off or cannot run). Same function, same rounding points:
+// off or cannot run) and, through the same source, ::_bwd_dq_kernel (the
+// per-head entry's, without RoPE or bounds). Same function, same rounding
+// points:
 //   * q and k rotated (rotate-half RoPE) in fp32 and rounded to the input
 //     dtype before the products;
 //   * s2 = (q.k^T) * (scale * log2 e) + bias in fp32 with the finite mask
@@ -16,28 +18,31 @@
 // cotangent already subtracted).
 //
 // Design. The TPU kernel's grid is (batch, q block, kv block) with kv as
-// the sequential axis and a dq accumulator in VMEM scratch. Here one block
-// owns (batch, head, 64-row q tile) and loops over 64-wide kv tiles itself:
-// the forward kernel's loop shape (mh_flash_fwd.cu). A warp's 16 q rows and
-// their dO rows stay resident as A fragments; K and V tiles stream through
-// a two-stage cp.async ring; S = Q.K^T and dP = dO.V^T come out of mma.sync
-// m16n8k16 in the same accumulator layout, dS is formed in registers and
-// reused directly as the A operand of dQ += dS.K (K read by a transposing
-// ldmatrix). Three products a tile, one store per output element, no
-// atomics and no scratch: every dq tile has one owner, so dq is the same
-// bits from run to run, which the fused kernel's atomicAdd sums are not.
-// k is rotated once per call into a scratch tensor by the small kernel of
-// flash_common.cuh; q is rotated in registers where it is loaded. With
-// kv_lo / kv_hi the block walks only the kv tiles whose segment-id range
-// meets its q tile's (the TPU kernel's use_bounds); a skipped tile would
-// have added exact zeros, so dq is bit for bit that of the full walk.
+// the sequential axis and a dq accumulator in VMEM scratch. Here a CTA owns
+// (batch, head, 128-row q tile) and walks 64-row kv tiles itself: the
+// forward kernel's shape (mh_flash_fwd.cu), with a producer warpgroup that
+// keeps a TMA ring of K and V tiles full and two consumer warpgroups of 64
+// q rows each (see the kernel's own note). All three products are wgmma:
+// S = Q.K^T and dP = dO.V^T from shared memory, dQ += dS.K with dS rounded
+// in registers as the A operand and K read through the transpose bit, as
+// #1's P.V reads V. Every dq row has one owner: no atomics, no scratch, and
+// dq is the same bits from launch to launch, which the fused kernel's
+// reduce-adds are not. k is rotated once per call into a scratch tensor by
+// the small kernel of flash_common.cuh (every q tile reads all of it); q is
+// rotated where a consumer loads its rows. With kv_lo / kv_hi the CTA walks
+// only the kv tiles whose segment-id range meets its q tile's (the TPU
+// kernel's use_bounds); a skipped tile would have added exact zeros, so dq
+// is bit for bit that of the full walk.
 //
 // Bound. At B=8, T=2048, H=8, D=128 in bf16 the three products are
 // 6*B*T^2*H*D = 206 GFLOP over all (q, k) pairs (0.208 ms at 989 TFLOP/s),
 // less in proportion to the visible tiles on packed rows; q, k, v, do, dq,
 // lse2 and di are 169 MB (0.05 ms at 3.35 TB/s): bound by operations. The
 // fp32 kernel is the parity type and runs on the CUDA cores.
+#include <atomic>
+
 #include "flash_common.cuh"
+#include "hopper.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -51,211 +56,345 @@ struct DropParams {
 };
 
 // ---------------------------------------------------------------------------
-// bf16: 4 warps, 64 q rows (16 per warp) x 64-wide kv tiles, k already
-// rotated. Fragment layout of m16n8k16 as in mh_flash_fwd.cu.
+// bf16 (Hopper). A CTA owns 128 q rows of one (batch, head) and three
+// warpgroups: warpgroup 0 produces, 1 and 2 consume 64 q rows each.
+//   * The producer's first thread loads the q tile's dO rows once (TMA,
+//     128-byte-swizzled 64-column panels), then keeps a four-stage ring of
+//     64-row K and V tiles and their kv segment ids (a bulk copy) full, on
+//     full / empty mbarriers. The tensor maps are 3-D (batch, row, column):
+//     rows past T arrive as zeros, never as the next batch row's.
+//   * A consumer writes its q rows, rotated in fp32 and rounded, into
+//     swizzled panels once, then per kv tile: S = Q_w.K^T and dP = dO_w.V^T
+//     by wgmma m64n64k16 from shared memory (both operands K-major); p,
+//     the keep-mask on dp and ds on their registers; ds rounded to bf16 as
+//     the A fragments of dQ += dS.K (wgmma m64nDk16, K through the
+//     transpose bit). The next tile's S and dP are issued before the wait
+//     on this tile's dQ product, so the tensor cores hold both while the
+//     ring's stage is released. Without dropout the two consumers take
+//     turns on the tensor cores (#1's scheme). The accumulator layout is
+//     the mma.sync C layout: rows 16 w + g and + 8 of warp w, columns
+//     8 n + 2 t, + 1.
+//   * After the last tile a consumer rotates its fp32 dq back, casts it
+//     into its own q rows' panels (free by then) and hands them to the TMA
+//     unit as 64-row boxes of the dq map.
+// setmaxnreg moves registers from the producer (24) to the consumers (240):
+// a consumer thread holds dq (D / 2 fp32), S and dP (32 fp32 each) and dS's
+// fragments (16); a 128-wide kv tile would double S and dP to 192 live
+// accumulators at D = 128, past what keeps ptxas from spilling.
 // ---------------------------------------------------------------------------
-constexpr int kBf16Tile = 64;
+constexpr int kBq = 128, kBkv = 64, kStages = 4;
+constexpr int kThreads = 384, kConsumerWarps = 8;
+constexpr uint32_t kQPanel = kBq * 128, kKvPanel = kBkv * 128;  // panel bytes
+// named barriers (0 is __syncthreads): 1 + w, consumer w's q rows are
+// written; 3 + w, consumer w's dq rows are staged; 5 + w, consumer w's turn
+// on the tensor cores
+constexpr int kBarQ = 1, kBarOut = 3, kBarTurn = 5;
+
+template <int D>
+struct DqSmem {
+  alignas(1024) __nv_bfloat16 q[kBq * D];  // the q tile, then its dq
+  alignas(1024) __nv_bfloat16 dout[kBq * D];
+  alignas(1024) __nv_bfloat16 k[kStages][kBkv * D];
+  alignas(1024) __nv_bfloat16 v[kStages][kBkv * D];
+  alignas(16) int kseg[kStages][kBkv];
+  uint64_t full[kStages], empty[kStages], obar;
+};
 
 template <int D>
 constexpr size_t bf16_smem_bytes() {
-  // two stages of K and V tiles (rows padded by 8 elements) and kv segment ids
-  return 2 * 2 * kBf16Tile * (D + 8) * sizeof(__nv_bfloat16) + 2 * kBf16Tile * sizeof(int);
+  return sizeof(DqSmem<D>) + kSwizzleAtom;  // + room to align the base
 }
 
-template <int D, bool DROP>
-__global__ void __launch_bounds__(128) mh_bwd_dq_bf16(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ di,
-    const int* __restrict__ seg, const float* __restrict__ cos_t,
-    const float* __restrict__ sin_t, const int* __restrict__ kv_lo,
-    const int* __restrict__ kv_hi, int* __restrict__ tile_count,
-    __nv_bfloat16* __restrict__ dq, int T, int H, float scale_log2,
-    float scale, DropParams dp) {
-  constexpr int BQ = kBf16Tile, BKV = kBf16Tile, HALF = D / 2;
-  constexpr int RS = D + 8;    // K and V tile row stride (elements), padded
-  constexpr int CH = D / 8;    // 16-byte chunks in a row
-  constexpr int NK = D / 16;   // k-steps over the head dim
-  constexpr int NN = D / 8;    // n-tiles of dq
-  constexpr int NS = BKV / 8;  // n-tiles of a score tile
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);  // [2][BKV][RS]
-  __nv_bfloat16* vs = ks + 2 * BKV * RS;                        // [2][BKV][RS]
-  int* kseg = reinterpret_cast<int*>(vs + 2 * BKV * RS);        // [2][BKV]
+// DOTS: the products alone (the yardstick of the product pipeline): dS :=
+// round(S + dP), no RoPE, scale, mask, softmax or dropout; lse, di and seg
+// are not read.
+template <int D, bool DROP, bool DOTS>
+__global__ void __launch_bounds__(kThreads, 1) mh_bwd_dq_wgmma(
+    const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+    const __grid_constant__ CUtensorMap omap, const __grid_constant__ CUtensorMap dqmap,
+    const __nv_bfloat16* __restrict__ q, const float* __restrict__ lse,
+    const float* __restrict__ di, const int* __restrict__ seg,
+    const float* __restrict__ cos_t, const float* __restrict__ sin_t,
+    const int* __restrict__ kv_lo, const int* __restrict__ kv_hi,
+    int* __restrict__ tile_count, int T, int H, float scale_log2, float scale,
+    DropParams dp) {
+  constexpr int HALF = D / 2;
+  constexpr int NK = D / 16;     // k-steps of S and dP over the head dim
+  constexpr int NS = kBkv / 8;   // 8-column blocks of a score tile (kv columns)
+  constexpr int NP = kBkv / 16;  // k-steps of dQ over the kv tile
+  constexpr int NN = D / 8;      // 8-column blocks of dq
+  extern __shared__ unsigned char smem_raw[];
+  DqSmem<D>& sm = *reinterpret_cast<DqSmem<D>*>(
+      smem_raw + ((kSwizzleAtom - (shared_addr(smem_raw) & (kSwizzleAtom - 1))) &
+                  (kSwizzleAtom - 1)));
 
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const size_t rs = (size_t)H * D;  // elements between consecutive tokens
-  const size_t base = (size_t)b * T * rs + (size_t)h * D;
-  const int r0 = blockIdx.x * BQ + warp * 16 + g;  // rows r0 and r0 + 8
-
-  // copy kv tile j0 into ring stage `st`: 16 bytes a thread a step
-  auto load_tile = [&](int st, int j0) {
-    __nv_bfloat16* kd = ks + st * BKV * RS;
-    __nv_bfloat16* vd = vs + st * BKV * RS;
-    for (int it = tid; it < BKV * CH; it += 128) {
-      const int row = it / CH, c8 = (it % CH) * 8;
-      const size_t off = base + (size_t)(j0 + row) * rs + c8;
-      cp_async16(kd + row * RS + c8, k + off);
-      cp_async16(vd + row * RS + c8, v + off);
-    }
-    if (seg != nullptr && tid < BKV / 4)
-      cp_async16(kseg + st * BKV + tid * 4, seg + (size_t)b * T + j0 + tid * 4);
-  };
-
-  // the kv tiles this block walks: all, or its (batch, q tile)'s range
-  int jt0 = 0, jt1 = T / BKV - 1;
+  const int b = blockIdx.z, h = blockIdx.y, qt = blockIdx.x, tid = threadIdx.x;
+  // the kv tiles this CTA walks: all, or its (batch, q tile)'s range
+  int jt0 = 0, jt1 = T / kBkv - 1;
   if (kv_lo != nullptr) {
-    jt0 = kv_lo[b * (T / BQ) + blockIdx.x];
-    jt1 = kv_hi[b * (T / BQ) + blockIdx.x];
+    jt0 = kv_lo[b * (T / kBq) + qt];
+    jt1 = kv_hi[b * (T / kBq) + qt];
   }
-  if (tile_count != nullptr && tid == 0) atomicAdd(tile_count, jt1 - jt0 + 1);
-  load_tile(0, jt0 * BKV);
-  cp_async_commit();
-
-  // q fragments (rotated in fp32, rounded to bf16) and dO fragments,
-  // resident for the loop
-  uint32_t qa[NK][4], doa[NK][4];
+  const int n_tiles = jt1 - jt0 + 1;
+  if (tid == 0) {
+    if (tile_count != nullptr) atomicAdd(tile_count, n_tiles);
 #pragma unroll
-  for (int kk = 0; kk < NK; ++kk) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = r0 + ((r & 1) ? 8 : 0);
-      const int col = kk * 16 + 2 * t4 + ((r & 2) ? 8 : 0);
-      const __nv_bfloat16* qrow = q + base + (size_t)row * rs;
-      float2 x = load_bf16x2(qrow + col);
-      if (cos_t != nullptr) {
-        const bool lo = col < HALF;
-        const int tc = lo ? col : col - HALF;
-        const float2 y = load_bf16x2(qrow + (lo ? col + HALF : tc));
-        const float2 c = *reinterpret_cast<const float2*>(cos_t + (size_t)row * HALF + tc);
-        const float2 s = *reinterpret_cast<const float2*>(sin_t + (size_t)row * HALF + tc);
-        x = lo ? make_float2(rope_lo(x.x, y.x, c.x, s.x), rope_lo(x.y, y.y, c.y, s.y))
-               : make_float2(rope_hi(y.x, x.x, c.x, s.x), rope_hi(y.y, x.y, c.y, s.y));
-      }
-      qa[kk][r] = pack_bf16(x.x, x.y);
-      doa[kk][r] = *reinterpret_cast<const uint32_t*>(dout + base + (size_t)row * rs + col);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&sm.full[st], 1);
+      mbar_init(&sm.empty[st], kConsumerWarps);
     }
+    mbar_init(&sm.obar, 1);
+    mbar_init_fence();
   }
-  const int qs0 = seg ? seg[(size_t)b * T + r0] : 0;
-  const int qs1 = seg ? seg[(size_t)b * T + r0 + 8] : 0;
-  const size_t sr0 = ((size_t)b * T + r0) * H + h, sr1 = sr0 + (size_t)8 * H;
-  const float lse0 = lse[sr0], lse1 = lse[sr1];
-  const float di0 = di[sr0], di1 = di[sr1];
+  __syncthreads();
 
-  float acc[NN][4];
+  if (tid < 128) {
+    // ---- producer: one thread loads dO and keeps the ring full ----
+    setmaxnreg_dec<24>();
+    if (tid == 0) {
+      mbar_arrive_expect_tx(&sm.obar, kBq * D * sizeof(__nv_bfloat16));
 #pragma unroll
-  for (int n = 0; n < NN; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  for (int jt = jt0; jt <= jt1; ++jt) {
-    const int st = (jt - jt0) & 1;
-    // the other stage was last read in the previous iteration, which ended
-    // in a barrier: refill it with the next tile while this one is used
-    if (jt + 1 <= jt1) load_tile(st ^ 1, (jt + 1) * BKV);
-    cp_async_commit();
-    cp_async_wait_one();  // this tile's group has landed
-    __syncthreads();
-    const __nv_bfloat16* kt = ks + st * BKV * RS;
-    const __nv_bfloat16* vt = vs + st * BKV * RS;
-    const int* sg = kseg + st * BKV;
-
-    // S = q.k^T and dP = do.v^T for this warp's 16 rows x BKV columns; one
-    // ldmatrix.x4 gives the B fragments of two k-steps of one n-tile
-    float s[NS][4], dpv[NS][4];
+      for (int pn = 0; pn < D / kPanelCols; ++pn)
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      dpv[j][0] = dpv[j][1] = dpv[j][2] = dpv[j][3] = 0.f;
+        for (int half = 0; half < kBq / kBkv; ++half)
+          tma_load_3d(&sm.dout[pn * kBq * kPanelCols + half * kBkv * kPanelCols], &omap,
+                      h * D + pn * kPanelCols, qt * kBq + half * kBkv, b, &sm.obar);
+      const bool ids = !DOTS && seg != nullptr;
+      const uint32_t bytes =
+          2u * kBkv * D * sizeof(__nv_bfloat16) + (ids ? kBkv * sizeof(int) : 0u);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % kStages;
+        if (it >= kStages) mbar_wait(&sm.empty[st], ((it / kStages) - 1) & 1);
+        mbar_arrive_expect_tx(&sm.full[st], bytes);
+        const int j0 = (jt0 + it) * kBkv;
 #pragma unroll
-      for (int p = 0; p < NK / 2; ++p) {
-        uint32_t bk[4], bv[4];
-        const int off = (j * 8 + (lane & 7)) * RS + p * 32 + (lane >> 3) * 8;
-        ldmatrix_x4(bk, kt + off);
-        ldmatrix_x4(bv, vt + off);
-        mma_bf16(s[j], qa[2 * p], bk[0], bk[1]);
-        mma_bf16(s[j], qa[2 * p + 1], bk[2], bk[3]);
-        mma_bf16(dpv[j], doa[2 * p], bv[0], bv[1]);
-        mma_bf16(dpv[j], doa[2 * p + 1], bv[2], bv[3]);
-      }
-    }
-    // dS in place of S: element e of n-tile j is (row r0 + 8 * (e >> 1),
-    // column jt * BKV + j * 8 + 2 * t4 + (e & 1))
-    const int bh = b * H + h;
-    const bool odd = r0 & 1;
-#pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      const int ks0 = seg ? sg[j * 8 + 2 * t4] : 0;
-      const int ks1 = seg ? sg[j * 8 + 2 * t4 + 1] : 0;
-      const float p0 = exp2f(score(s[j][0], scale_log2, qs0, ks0) - lse0);
-      const float p1 = exp2f(score(s[j][1], scale_log2, qs0, ks1) - lse0);
-      const float p2 = exp2f(score(s[j][2], scale_log2, qs1, ks0) - lse1);
-      const float p3 = exp2f(score(s[j][3], scale_log2, qs1, ks1) - lse1);
-      float d0 = dpv[j][0], d1 = dpv[j][1], d2 = dpv[j][2], d3 = dpv[j][3];
-      if constexpr (DROP) {
-        // rows r0 and r0 + 8 share a parity, so both read words 2 * (r0 & 1)
-        // and 2 * (r0 & 1) + 1 of their calls (columns col and col + 1)
-        const int col = jt * BKV + j * 8 + 2 * t4;
-        const Philox4 u = dropout_bits(dp.seed, bh, r0, col);
-        const Philox4 w = dropout_bits(dp.seed, bh, r0 + 8, col);
-        d0 = (odd ? u.w[2] : u.w[0]) >= dp.thresh ? d0 * dp.keep_scale : 0.f;
-        d1 = (odd ? u.w[3] : u.w[1]) >= dp.thresh ? d1 * dp.keep_scale : 0.f;
-        d2 = (odd ? w.w[2] : w.w[0]) >= dp.thresh ? d2 * dp.keep_scale : 0.f;
-        d3 = (odd ? w.w[3] : w.w[1]) >= dp.thresh ? d3 * dp.keep_scale : 0.f;
-      }
-      s[j][0] = __fmul_rn(__fmul_rn(p0, __fsub_rn(d0, di0)), scale);
-      s[j][1] = __fmul_rn(__fmul_rn(p1, __fsub_rn(d1, di0)), scale);
-      s[j][2] = __fmul_rn(__fmul_rn(p2, __fsub_rn(d2, di1)), scale);
-      s[j][3] = __fmul_rn(__fmul_rn(p3, __fsub_rn(d3, di1)), scale);
-    }
-    // acc += dS (bf16, straight from the fragments) . K; one
-    // ldmatrix.x4.trans gives the B fragments of two n-tiles
-#pragma unroll
-    for (int kk = 0; kk < BKV / 16; ++kk) {
-      const uint32_t sa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int np = 0; np < NN / 2; ++np) {
-        uint32_t bf[4];
-        ldmatrix_x4_trans(bf, kt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * RS
-                                  + np * 16 + (lane >> 4) * 8);
-        mma_bf16(acc[2 * np], sa, bf[0], bf[1]);
-        mma_bf16(acc[2 * np + 1], sa, bf[2], bf[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with this stage
-  }
-
-  // dq rotated back by -angle in fp32 (columns d and d + D/2 sit in n-tiles
-  // n and n + NN/2 of the same thread), then cast
-  __nv_bfloat16* q0p = dq + base + (size_t)r0 * rs;
-  __nv_bfloat16* q1p = q0p + 8 * rs;
-  if (cos_t != nullptr) {
-#pragma unroll
-    for (int n = 0; n < NN / 2; ++n) {
-      const int col = n * 8 + 2 * t4;
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = r0 + 8 * r;
-        const float2 c = *reinterpret_cast<const float2*>(cos_t + (size_t)row * HALF + col);
-        const float2 sn = *reinterpret_cast<const float2*>(sin_t + (size_t)row * HALF + col);
-        const float x1a = acc[n][2 * r], x1b = acc[n][2 * r + 1];
-        const float x2a = acc[n + NN / 2][2 * r], x2b = acc[n + NN / 2][2 * r + 1];
-        __nv_bfloat16* dst = r ? q1p : q0p;
-        *reinterpret_cast<uint32_t*>(dst + col) =
-            pack_bf16(rope_inv_lo(x1a, x2a, c.x, sn.x), rope_inv_lo(x1b, x2b, c.y, sn.y));
-        *reinterpret_cast<uint32_t*>(dst + col + HALF) =
-            pack_bf16(rope_inv_hi(x1a, x2a, c.x, sn.x), rope_inv_hi(x1b, x2b, c.y, sn.y));
+        for (int pn = 0; pn < D / kPanelCols; ++pn) {
+          tma_load_3d(&sm.k[st][pn * kBkv * kPanelCols], &kmap, h * D + pn * kPanelCols, j0, b,
+                      &sm.full[st]);
+          tma_load_3d(&sm.v[st][pn * kBkv * kPanelCols], &vmap, h * D + pn * kPanelCols, j0, b,
+                      &sm.full[st]);
+        }
+        if (ids) bulk_load(sm.kseg[st], seg + (size_t)b * T + j0, kBkv * sizeof(int), &sm.full[st]);
       }
     }
   } else {
+    // ---- consumers: 64 q rows each ----
+    setmaxnreg_inc<240>();
+    const int wg = (tid >> 7) - 1, wt = tid & 127, warp = wt >> 5, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const size_t rs = (size_t)H * D;  // elements between consecutive tokens
+    const int qrow0 = qt * kBq + wg * 64;  // this warpgroup's first q row
+    const int r0 = qrow0 + warp * 16 + g;  // this thread's rows r0 and r0 + 8
+
+    // q rows rotated in fp32, rounded, into the swizzled q panels
+    rows_to_panels<D>(reinterpret_cast<unsigned char*>(sm.q), kBq, wg * 64,
+                      q + (size_t)b * T * rs + (size_t)h * D + (size_t)qrow0 * rs, rs, 64,
+                      DOTS ? nullptr : cos_t, sin_t, qrow0, wt, 128);
+    fence_async_shared();
+    named_bar_sync(kBarQ + wg, 128);
+
+    int qs0 = 0, qs1 = 0;
+    float lse0 = 0.f, lse1 = 0.f, di0 = 0.f, di1 = 0.f;
+    if constexpr (!DOTS) {
+      if (seg != nullptr) {
+        qs0 = seg[(size_t)b * T + r0];
+        qs1 = seg[(size_t)b * T + r0 + 8];
+      }
+      const size_t sr0 = ((size_t)b * T + r0) * H + h, sr1 = sr0 + (size_t)8 * H;
+      lse0 = lse[sr0];
+      lse1 = lse[sr1];
+      di0 = di[sr0];
+      di1 = di[sr1];
+    }
+    float acc[D / 2], s[kBkv / 2], dpv[kBkv / 2];
+    uint32_t f[NP][4];
 #pragma unroll
-    for (int n = 0; n < NN; ++n) {
-      const int col = n * 8 + 2 * t4;
-      *reinterpret_cast<uint32_t*>(q0p + col) = pack_bf16(acc[n][0], acc[n][1]);
-      *reinterpret_cast<uint32_t*>(q1p + col) = pack_bf16(acc[n][2], acc[n][3]);
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+    const uint32_t q_addr = shared_addr(sm.q) + wg * 64 * 128;
+    const uint32_t o_addr = shared_addr(sm.dout) + wg * 64 * 128;
+    // S = Q_w.K^T and dP = dO_w.V^T of ring stage st (both operands K-major)
+    auto gemm_sdp = [&](int st) {
+      const uint32_t k_addr = shared_addr(sm.k[st]), v_addr = shared_addr(sm.v[st]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk) {
+        const uint32_t ao = (kk >> 2) * kQPanel + (kk & 3) * 32;
+        const uint32_t bo = (kk >> 2) * kKvPanel + (kk & 3) * 32;
+        wgmma_ss_m64n64k16<0, 0>(s, smem_desc(q_addr + ao, 16, kSwizzleAtom),
+                                 smem_desc(k_addr + bo, 16, kSwizzleAtom), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk) {
+        const uint32_t ao = (kk >> 2) * kQPanel + (kk & 3) * 32;
+        const uint32_t bo = (kk >> 2) * kKvPanel + (kk & 3) * 32;
+        wgmma_ss_m64n64k16<0, 0>(dpv, smem_desc(o_addr + ao, 16, kSwizzleAtom),
+                                 smem_desc(v_addr + bo, 16, kSwizzleAtom), kk > 0);
+      }
+      wgmma_commit();
+    };
+    // acc += dS . K of ring stage st (K MN-major: 16 kv rows a k-step)
+    auto gemm_dq = [&](int st) {
+      const uint32_t k_addr = shared_addr(sm.k[st]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < NP; ++kk) {
+        const uint64_t db = smem_desc(k_addr + kk * 16 * 128, kKvPanel, kSwizzleAtom);
+        if constexpr (D == 128) {
+          wgmma_rs_m64n128k16_tb(acc, f[kk], db, 1);
+        } else {
+          wgmma_rs_m64n64k16_tb(acc, f[kk], db, 1);
+        }
+      }
+      wgmma_commit();
+    };
+    // dS of kv tile jt (ring stage st) from S and dP, rounded into the A
+    // fragments f. Element e of block n is (q row r0 + 8 (e >> 1), kv
+    // column jt * kBkv + 8 n + 2 t4 + (e & 1)).
+    auto ds_of = [&](int jt, int st) {
+      if constexpr (DOTS) {
+#pragma unroll
+        for (int i = 0; i < kBkv / 2; ++i) s[i] += dpv[i];
+      } else {
+        uint32_t keep = ~0u;  // bit 4 n + e: element e of block n is kept
+        if constexpr (DROP) {
+          // One Philox call covers rows 2i, 2i + 1 of a column pair. Lanes
+          // g and g ^ 1 hold rows r0 and r0 ^ 1 (and + 8): the even lane
+          // draws the pair block of its rows r0, r0 + 1, the odd lane that
+          // of r0 + 7, r0 + 8, and each hands the partner the words of the
+          // partner's row (as the forward kernel draws them).
+          const int bh = b * H + h;
+          const bool odd = g & 1;
+          const int row = odd ? r0 + 8 : r0;
+          keep = 0;
+#pragma unroll 4
+          for (int n = 0; n < NS; ++n) {
+            const Philox4 u = dropout_bits(dp.seed, bh, row, jt * kBkv + n * 8 + 2 * t4);
+            const uint32_t y0 = __shfl_xor_sync(0xffffffffu, odd ? u.w[0] : u.w[2], 4);
+            const uint32_t y1 = __shfl_xor_sync(0xffffffffu, odd ? u.w[1] : u.w[3], 4);
+            const uint32_t a0 = odd ? y0 : u.w[0], a1 = odd ? y1 : u.w[1];  // row r0
+            const uint32_t c0 = odd ? u.w[2] : y0, c1 = odd ? u.w[3] : y1;  // row r0 + 8
+            const uint32_t k4 = (uint32_t)(a0 >= dp.thresh) | (uint32_t)(a1 >= dp.thresh) << 1 |
+                                (uint32_t)(c0 >= dp.thresh) << 2 | (uint32_t)(c1 >= dp.thresh) << 3;
+            keep |= k4 << (4 * n);
+          }
+        }
+        const int* sg = sm.kseg[st];
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+          const int2 k2 = seg != nullptr ? *reinterpret_cast<const int2*>(&sg[n * 8 + 2 * t4])
+                                         : make_int2(0, 0);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int ks = (e & 1) ? k2.y : k2.x, qs = (e >> 1) ? qs1 : qs0;
+            const float lr = (e >> 1) ? lse1 : lse0, dr = (e >> 1) ? di1 : di0;
+            const float p = exp2f(score(s[4 * n + e], scale_log2, qs, ks) - lr);
+            float d = dpv[4 * n + e];
+            if constexpr (DROP) d = (keep >> (4 * n + e)) & 1 ? d * dp.keep_scale : 0.f;
+            s[4 * n + e] = __fmul_rn(__fmul_rn(p, __fsub_rn(d, dr)), scale);
+          }
+        }
+      }
+      // the A fragments of dS . K: k-step kk is score blocks 2 kk, 2 kk + 1
+#pragma unroll
+      for (int kk = 0; kk < NP; ++kk) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) f[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+      }
+    };
+    auto release = [&](int st) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&sm.empty[st]);
+    };
+
+    // Turns without dropout: warpgroup w waits on barrier kBarTurn + w (its
+    // 128 threads and the other's 128 arrivals) before it issues, and passes
+    // the turn after, so one's products overlap the other's elementwise
+    // pass. Each takes n_tiles + 1 turns; warpgroup 0 goes first and
+    // warpgroup 1 passes no turn after its last. With dropout the Philox
+    // draw makes the elementwise pass the longer one, and free-running
+    // consumers measured faster (PERF.md §6).
+    constexpr bool kTurns = !DROP;
+    auto turn_wait = [&]() {
+      if constexpr (kTurns) named_bar_sync(kBarTurn + wg, 256);
+    };
+    auto turn_pass = [&]() {
+      if constexpr (kTurns) named_bar_arrive(kBarTurn + (wg ^ 1), 256);
+    };
+    if (wg == 1) turn_pass();
+    mbar_wait(&sm.obar, 0);
+    mbar_wait(&sm.full[0], 0);
+    turn_wait();
+    gemm_sdp(0);
+    turn_pass();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dpv);
+    ds_of(jt0, 0);
+    for (int it = 1; it < n_tiles; ++it) {
+      const int st = it % kStages, prev = (it - 1) % kStages;
+      mbar_wait(&sm.full[st], (it / kStages) & 1);
+      turn_wait();
+      gemm_dq(prev);
+      gemm_sdp(st);
+      turn_pass();
+      wgmma_wait<1>();  // dS . K of the previous tile is done
+      fence_regs(acc);
+      fence_regs(f);
+      release(prev);
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dpv);
+      ds_of(jt0 + it, st);
+    }
+    turn_wait();
+    gemm_dq((n_tiles - 1) % kStages);
+    if (wg == 0) turn_pass();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(f);
+
+    // dq rotated back by -angle in fp32 (columns d and d + D/2 sit in
+    // blocks n and n + NN/2 of the same thread), cast, into this consumer's
+    // q rows of the panels
+    unsigned char* stg = reinterpret_cast<unsigned char*>(sm.q);
+    const int rl = wg * 64 + warp * 16 + g;  // tile row of r0
+    if (!DOTS && cos_t != nullptr) {
+#pragma unroll
+      for (int n = 0; n < NN / 2; ++n) {
+        const int col = n * 8 + 2 * t4;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = r0 + 8 * r;
+          const float2 c = *reinterpret_cast<const float2*>(cos_t + (size_t)row * HALF + col);
+          const float2 sn = *reinterpret_cast<const float2*>(sin_t + (size_t)row * HALF + col);
+          const float x1a = acc[4 * n + 2 * r], x1b = acc[4 * n + 2 * r + 1];
+          const float x2a = acc[4 * (n + NN / 2) + 2 * r], x2b = acc[4 * (n + NN / 2) + 2 * r + 1];
+          *reinterpret_cast<uint32_t*>(stg + swizzled_offset(kBq, rl + 8 * r, col)) =
+              pack_bf16(rope_inv_lo(x1a, x2a, c.x, sn.x), rope_inv_lo(x1b, x2b, c.y, sn.y));
+          *reinterpret_cast<uint32_t*>(stg + swizzled_offset(kBq, rl + 8 * r, col + HALF)) =
+              pack_bf16(rope_inv_hi(x1a, x2a, c.x, sn.x), rope_inv_hi(x1b, x2b, c.y, sn.y));
+        }
+      }
+    } else {
+#pragma unroll
+      for (int n = 0; n < NN; ++n) {
+        const int col = n * 8 + 2 * t4;
+        *reinterpret_cast<uint32_t*>(stg + swizzled_offset(kBq, rl, col)) =
+            pack_bf16(acc[4 * n], acc[4 * n + 1]);
+        *reinterpret_cast<uint32_t*>(stg + swizzled_offset(kBq, rl + 8, col)) =
+            pack_bf16(acc[4 * n + 2], acc[4 * n + 3]);
+      }
+    }
+    fence_async_shared();
+    named_bar_sync(kBarOut + wg, 128);
+    if (wt == 0) {
+#pragma unroll
+      for (int pn = 0; pn < D / kPanelCols; ++pn)
+        tma_store_3d(&dqmap, stg + pn * kQPanel + wg * 64 * 128, h * D + pn * kPanelCols,
+                     qrow0, b);
+      bulk_commit();
+      bulk_wait_read<0>();  // the panels stay until the TMA unit has read them
     }
   }
 }
@@ -377,6 +516,43 @@ __global__ void __launch_bounds__(128) mh_bwd_dq_f32(
   }
 }
 
+// k already rotated (or not rotated at all); q rotated by the kernel. q, k,
+// v, dout and dq as (B, T, H * D) row-major matrices, read and written as
+// 64-row boxes of one head's 64-column panels.
+template <int D, bool DROP, bool DOTS>
+cudaError_t launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                        const __nv_bfloat16* v, const __nv_bfloat16* dout, const float* lse,
+                        const float* di, const int* seg, const float* cos_t,
+                        const float* sin_t, const int* kv_lo, const int* kv_hi,
+                        int* tile_count, __nv_bfloat16* dq, int B, int T, int H,
+                        float scale_log2, float scale, DropParams dp, cudaStream_t st) {
+  CUtensorMap kmap, vmap, omap, dqmap;
+  const uint64_t cols = (uint64_t)H * D, slab = (uint64_t)T * cols;
+  cudaError_t e = encode_bf16_panels_3d(&kmap, k, B, T, cols, cols, slab, kBkv);
+  if (e == cudaSuccess) e = encode_bf16_panels_3d(&vmap, v, B, T, cols, cols, slab, kBkv);
+  if (e == cudaSuccess) e = encode_bf16_panels_3d(&omap, dout, B, T, cols, cols, slab, kBkv);
+  if (e == cudaSuccess) e = encode_bf16_panels_3d(&dqmap, dq, B, T, cols, cols, slab, kBkv);
+  if (e != cudaSuccess) return e;
+  // the shared-memory limit belongs to the instance on a device, not to the
+  // call: set it at the first launch on each device
+  static std::atomic<uint64_t> smem_set{0};
+  const size_t smem = bf16_smem_bytes<D>();
+  int dev = 0;
+  e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const uint64_t dev_bit = 1ull << (dev & 63);
+  if (!(smem_set.load(std::memory_order_acquire) & dev_bit)) {
+    e = cudaFuncSetAttribute(mh_bwd_dq_wgmma<D, DROP, DOTS>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    smem_set.fetch_or(dev_bit, std::memory_order_release);
+  }
+  mh_bwd_dq_wgmma<D, DROP, DOTS><<<dim3(T / kBq, H, B), kThreads, smem, st>>>(
+      kmap, vmap, omap, dqmap, q, lse, di, seg, cos_t, sin_t, kv_lo, kv_hi, tile_count, T, H,
+      scale_log2, scale, dp);
+  return cudaGetLastError();
+}
+
 template <int D, bool DROP>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
                    const float* lse, const float* di, const int* seg,
@@ -388,23 +564,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
     launch_rope_rows<D>(k, cos_t, sin_t, k_rot, B, T, H, bf16, st);
     k = k_rot;
   }
-  if (bf16) {
-    const size_t smem = bf16_smem_bytes<D>();
-    const cudaError_t e = cudaFuncSetAttribute(
-        mh_bwd_dq_bf16<D, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-    mh_bwd_dq_bf16<D, DROP><<<dim3(T / kBf16Tile, H, B), 128, smem, st>>>(
+  if (bf16)
+    return launch_bf16<D, DROP, false>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-        lse, di, seg, cos_t, sin_t, kv_lo, kv_hi, tile_count,
-        static_cast<__nv_bfloat16*>(dq), T, H, scale_log2, scale, dp);
-  } else {
-    mh_bwd_dq_f32<D, DROP><<<dim3(T / kF32Tile, H, B), 128, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), lse, di,
-        seg, cos_t, sin_t, kv_lo, kv_hi, tile_count, static_cast<float*>(dq), T,
-        H, scale_log2, scale, dp);
-  }
+        static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), lse, di,
+        seg, cos_t, sin_t, kv_lo, kv_hi, tile_count, static_cast<__nv_bfloat16*>(dq), B, T, H,
+        scale_log2, scale, dp, st);
+  mh_bwd_dq_f32<D, DROP><<<dim3(T / kF32Tile, H, B), 128, 0, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse, di,
+      seg, cos_t, sin_t, kv_lo, kv_hi, tile_count, static_cast<float*>(dq), T,
+      H, scale_log2, scale, dp);
   return cudaGetLastError();
 }
 
@@ -423,19 +593,29 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, const void* do
                                  scale, bf16, dp, st);
 }
 
+// T multiple of each dtype's kernel: the bf16 CTA's 128 q rows; the fp32
+// kernel's 32-row tile, held to 64
+constexpr int kBf16TMultiple = kBq, kF32TMultiple = 64;
+
+bool shape_ok(int B, int T, int H, int t_multiple) {
+  return B >= 1 && B <= 65535 && H >= 1 && H <= 65535 && T >= t_multiple &&
+         T % t_multiple == 0;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; q, k, v, dout, dq (B, T, H, D) of that
-// type; lse2 and di (B, T, H) fp32; seg (B, T) int32 or null; with RoPE
-// (cos_t and sin_t non-null), k_rot is a scratch tensor of k's shape and
-// type. kv_lo and kv_hi, both null or both int32 (B, T / q tile) with the q
-// and kv tiles of the dtype's kernel (64 for bf16, 32 for fp32), bound the
-// kv tiles each q tile walks; tile_count is null or one int32 that the
-// walked tiles are added to. drop != 0 applies the forward's dropout
-// (thresh, keep_scale, seed as in obt_mh_flash_fwd). Returns
-// cudaGetLastError() after the launches (cudaErrorInvalidValue for a shape
-// or type this file has no kernel for). Launches on `stream`, allocates
-// nothing, does not synchronise.
+// type, T a multiple of 64 (fp32) or 128 (bf16); lse2 and di (B, T, H)
+// fp32; seg (B, T) int32 or null; with RoPE (cos_t and sin_t non-null),
+// k_rot is a scratch tensor of k's shape and type. kv_lo and kv_hi, both
+// null or both int32 (B, T / q tile) in units of the dtype's kv tile (q
+// tile 128 and kv tile 64 for bf16, 32 and 32 for fp32), bound the kv tiles
+// each q tile walks; tile_count is null or one int32 that the walked tiles
+// are added to. drop != 0 applies the forward's dropout (thresh,
+// keep_scale, seed as in obt_mh_flash_fwd). Returns cudaGetLastError()
+// after the launches (cudaErrorInvalidValue for a shape or type this file
+// has no kernel for). Launches on `stream`, allocates nothing, does not
+// synchronise.
 extern "C" int obt_mh_flash_bwd_dq(const void* q, const void* k, const void* v,
                                    const void* dout, const void* lse,
                                    const void* di, const void* seg,
@@ -446,8 +626,8 @@ extern "C" int obt_mh_flash_bwd_dq(const void* q, const void* k, const void* v,
                                    float scale_log2, float scale, int dtype,
                                    int drop, uint32_t thresh, float keep_scale,
                                    uint64_t seed, void* stream) {
-  if ((dtype != 0 && dtype != 1) || T < kBf16Tile || T % kBf16Tile != 0 ||
-      B < 1 || B > 65535 || H < 1 || H > 65535 ||
+  if ((dtype != 0 && dtype != 1) ||
+      !shape_ok(B, T, H, dtype == 1 ? kBf16TMultiple : kF32TMultiple) ||
       (cos_t != nullptr && (sin_t == nullptr || k_rot == nullptr)) ||
       ((kv_lo == nullptr) != (kv_hi == nullptr)))
     return (int)cudaErrorInvalidValue;
@@ -466,6 +646,29 @@ extern "C" int obt_mh_flash_bwd_dq(const void* q, const void* k, const void* v,
     case 128: return (int)launch_d<128>(q, k, v, dout, l, dd, sg, c, s, k_rot, lo, hi, tc, dq, B, T, H, scale_log2, scale, dtype == 1, drop != 0, dp, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The bf16 kernel's products alone (its DOTS instance), bf16 (B, T, H, 128)
+// q, k, v, dout -> dq, T a multiple of 128: with dS = round(q.k^T +
+// do.v^T) per head (fp32 products and sum, rounded to bf16), dq =
+// round(dS.k), summed in fp32 over 64-row kv tiles. Launches on `stream`;
+// returns cudaGetLastError().
+extern "C" int obt_mh_flash_bwd_dq_dots(const void* q, const void* k, const void* v,
+                                        const void* dout, void* dq, int B, int T, int H,
+                                        int D, void* stream) {
+  if (!shape_ok(B, T, H, kBf16TMultiple) || D != 128) return (int)cudaErrorInvalidValue;
+  return (int)launch_bf16<128, false, true>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), nullptr,
+      nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+      static_cast<__nv_bfloat16*>(dq), B, T, H, 0.f, 0.f, DropParams{0, 0, 1.f},
+      static_cast<cudaStream_t>(stream));
+}
+
+// Dynamic shared memory a CTA of the bf16 kernel takes at head dim D (-1
+// for a head dim it is not built for).
+extern "C" int obt_mh_flash_bwd_dq_smem_bytes(int D) {
+  return D == 64 ? (int)bf16_smem_bytes<64>() : D == 128 ? (int)bf16_smem_bytes<128>() : -1;
 }
 
 extern "C" const char* obt_cuda_error_string_bwd_dq(int code) {

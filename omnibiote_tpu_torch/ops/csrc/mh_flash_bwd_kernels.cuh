@@ -1,8 +1,9 @@
 // Kernels of the multi-head flash attention backward shared by the fused
-// entry (mh_flash_bwd.cu: the fp32 kernel with dq and its dq epilogue) and
-// the dk/dv half of the split pair (mh_flash_bwd_dkv.cu: both dtypes); see
-// those files for what each replaces. The bf16 fused kernel is Hopper's own
-// (mh_flash_bwd.cu).
+// entry (mh_flash_bwd.cu: dq, dk and dv in one pass) and the dk/dv half of
+// the split pair (mh_flash_bwd_dkv.cu); see those files for what each
+// replaces. The bf16 kernel is Hopper's (TMA, wgmma, warp specialisation)
+// and serves both: with WITH_DQ it also forms dq, without it it is the dkv
+// kernel. The fp32 kernel is the parity type and runs on the CUDA cores.
 //
 // Segment skipping. With q_lo / q_hi non-null, int32 (B, T / kv tile) in
 // units of q tiles, a block walks only the q tiles q_lo..q_hi of its
@@ -11,11 +12,18 @@
 // and dv. tile_count, when non-null, receives the tiles walked, summed
 // over blocks (checks only).
 #pragma once
+#include <atomic>
+#include <type_traits>
+
 #include "flash_common.cuh"
+#include "hopper.cuh"
 #include "philox.cuh"
 
 namespace obt {
 namespace bwd {
+// internal linkage: every library that includes this header keeps its own
+// kernels and its own launch state (the shared-memory attribute's flag)
+namespace {
 
 struct DropParams {
   uint64_t seed;
@@ -28,245 +36,493 @@ __device__ __forceinline__ uint32_t pick(const Philox4& u, int w) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 dk/dv (the split pair's dkv kernel): 4 warps; a block owns 64 kv rows
-// (16 a warp) and walks 32-row q tiles. mma.sync m16n8k16 (g = lane / 4,
-// t4 = lane % 4: a thread holds accumulator rows g, g + 8 and columns
-// 2 t4, 2 t4 + 1 of each 16 x 8 n-tile); the accumulator rows are kv rows
-// j, its columns q rows i.
+// bf16 (Hopper). A CTA owns 128 kv rows of one (batch, head) and three
+// warpgroups: warpgroup 0 produces, 1 and 2 consume 64 kv rows each.
+//   * The producer's first thread keeps a ring of 64-row Q and dO tiles
+//     (TMA, 128-byte-swizzled 64-column panels; two stages, three without
+//     the dq tiles) and the tile's lse2, di and q segment ids (bulk copies)
+//     full, on full / empty mbarriers.
+//   * A consumer writes its K rows, rotated in fp32 and rounded, and its V
+//     rows into swizzled panels once, then per q tile: S^T = K_w.Q^T and
+//     dP^T = V_w.dO^T by wgmma m64n64k16 from shared memory (both operands
+//     K-major); p, dropout and ds on their registers; dV += P_drop^T.dO and
+//     dK += dS^T.Q by wgmma m64nDk16 with A from registers and B (dO, Q)
+//     through the transpose bit. The accumulator layout is the mma.sync C
+//     layout: rows 16 w + g and + 8 of warp w, columns 8 n + 2 t, + 1.
+//   * WITH_DQ: dS^T (128 kv x 64 q, bf16) goes to a double-buffered
+//     swizzled tile; after a named barrier of both consumers, consumer w
+//     forms columns 64 w..64 w + 63 of the tile's dQ = dS.K by wgmma
+//     m64n64k16 with both operands through the transpose bit (at D = 64,
+//     consumer 0 alone), and hands it to the TMA unit through its staging
+//     tile. Without WITH_DQ none of that exists: no dS^T tile, no staging,
+//     no barrier between the consumers, no dq scratch or epilogue.
+// setmaxnreg moves registers from the producer (24) to the consumers (240):
+// a consumer thread holds dk and dv (D fp32) and one block of 64 for S^T
+// and dP^T, whose first half takes the dQ slice once both are packed to
+// bf16 (wgmma accumulators take contiguous registers: with separate
+// arrays, ptxas spilled dk around every tile).
 // ---------------------------------------------------------------------------
-constexpr int kDkvKvTile = 64;
-constexpr int kDkvQTile = 32;
+constexpr int kBkv = 128, kBq = 64;
+// ring stages: two with the dq tiles, three in the smem they leave free
+template <bool WITH_DQ>
+constexpr int kStagesOf = WITH_DQ ? 2 : 3;
+constexpr int kThreads = 384, kConsumerWarps = 8;
+constexpr uint32_t kKPanel = kBkv * 128, kQPanel = kBq * 128;  // panel bytes
+constexpr int kDqSlice = kBq * 64;  // floats of one consumer's dQ slice
+// named barriers (0 is __syncthreads): 1 + w, consumer w's K and V rows are
+// in; 3, both consumers' dS^T rows are in; 4 + w, consumer w's dQ staging
+constexpr int kBarKV = 1, kBarDs = 3, kBarStage = 4;
 
+// what only the dq sums need: the dS^T tiles and a dQ staging tile a
+// consumer
 template <int D>
-constexpr size_t bwd_bf16_smem_bytes() {
-  // K and V tiles; two stages of Q and dO tiles; two stages of lse2, di and
-  // q segment ids. Rows padded by 8 elements against bank conflicts.
-  return (2 * kDkvKvTile * (D + 8) + 2 * 2 * kDkvQTile * (D + 8)) * sizeof(__nv_bfloat16) +
-         2 * 3 * kDkvQTile * sizeof(float);
+struct DqTiles {
+  alignas(1024) __nv_bfloat16 ds[2][kBkv * kBq];  // dS^T, one panel
+  alignas(16) float dq[D / 64][kDqSlice];
+};
+struct NoDqTiles {};
+
+template <int D, bool WITH_DQ>
+struct BwdSmem {
+  static constexpr int STAGES = kStagesOf<WITH_DQ>;
+  alignas(1024) __nv_bfloat16 k[kBkv * D];
+  alignas(1024) __nv_bfloat16 v[kBkv * D];
+  alignas(1024) __nv_bfloat16 q[STAGES][kBq * D];
+  alignas(1024) __nv_bfloat16 dout[STAGES][kBq * D];
+  alignas(16) float lse[STAGES][kBq];
+  alignas(16) float di[STAGES][kBq];
+  alignas(16) int qseg[STAGES][kBq];
+  uint64_t full[STAGES], empty[STAGES];
+  typename std::conditional<WITH_DQ, DqTiles<D>, NoDqTiles>::type x;
+};
+
+template <int D, bool WITH_DQ>
+constexpr size_t bf16_smem_bytes() {
+  return sizeof(BwdSmem<D, WITH_DQ>) + kSwizzleAtom;  // + room to align the base
 }
 
-template <int D, bool DROP>
-__global__ void __launch_bounds__(128) mh_bwd_bf16(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ di,
+// dq_acc of the bf16 kernel: per (batch, head, 64-row q tile) a chunk of
+// 64 * D floats in D / 8 slots of 128 float4; slot s of consumer thread t
+// holds dQ(r, c), (r, c + 1), (r + 8, c), (r + 8, c + 1) of the q tile with
+// r = 16 (t / 32) + (t % 32) / 4 and c = 8 s + 2 (t % 4): the accumulator
+// fragment of the consumer whose slice holds column c, slot by slot.
+template <int D>
+__device__ __forceinline__ size_t dq_chunk(int b, int h, int qt, int T, int H) {
+  return (((size_t)b * H + h) * (T / kBq) + qt) * (size_t)(kBq * D);
+}
+
+// DOTS: the products alone (the yardstick of the product pipeline): P^T :=
+// round(S^T) and dS^T := round(dP^T), no RoPE, scale, mask, softmax or
+// dropout; lse_t, di_t and seg are not read.
+template <int D, bool DROP, bool DOTS, bool WITH_DQ>
+__global__ void __launch_bounds__(kThreads, 1) mh_bwd_fused_bf16(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap omap,
+    const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
+    const float* __restrict__ lse_t, const float* __restrict__ di_t,
     const int* __restrict__ seg, const float* __restrict__ cos_t,
     const float* __restrict__ sin_t, const int* __restrict__ q_lo,
     const int* __restrict__ q_hi, int* __restrict__ tile_count,
-    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int T, int H,
-    float scale_log2, float scale, DropParams dp) {
-  constexpr int BKV = kDkvKvTile, BQ = kDkvQTile, HALF = D / 2;
-  constexpr int RS = D + 8;     // K, V, Q and dO tile row stride (elements)
-  constexpr int CH = D / 8;     // 16-byte chunks in a row
-  constexpr int NK = D / 16;    // k-steps over the head dim
-  constexpr int NN = D / 8;     // n-tiles of dk / dv
-  constexpr int NS = BQ / 8;    // n-tiles of a score tile (q columns)
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);  // [BKV][RS]
-  __nv_bfloat16* Vs = Ks + BKV * RS;                            // [BKV][RS]
-  __nv_bfloat16* Qs = Vs + BKV * RS;                            // [2][BQ][RS]
-  __nv_bfloat16* Os = Qs + 2 * BQ * RS;                         // [2][BQ][RS]
-  float* lse_s = reinterpret_cast<float*>(Os + 2 * BQ * RS);   // [2][BQ]
-  float* di_s = lse_s + 2 * BQ;                                 // [2][BQ]
-  int* qseg_s = reinterpret_cast<int*>(di_s + 2 * BQ);          // [2][BQ]
+    float* __restrict__ dq_acc, __nv_bfloat16* __restrict__ dk,
+    __nv_bfloat16* __restrict__ dv, int T, int H, float scale_log2, float scale,
+    DropParams dp) {
+  constexpr int HALF = D / 2;
+  constexpr int NK = D / 16;     // k-steps of S^T and dP^T over the head dim
+  constexpr int NS = kBq / 8;    // 8-column blocks of a score tile (q rows)
+  constexpr int NP = kBq / 16;   // k-steps of dV and dK over the q tile
+  constexpr int NN = D / 8;      // 8-column blocks of dk and dv
+  constexpr int NJ = kBkv / 16;  // k-steps of dQ over the kv tile
+  constexpr int NDQ = D / 64;    // consumers that form a dQ slice
+  constexpr int kStages = kStagesOf<WITH_DQ>;
+  extern __shared__ unsigned char smem_raw[];
+  BwdSmem<D, WITH_DQ>& sm = *reinterpret_cast<BwdSmem<D, WITH_DQ>*>(
+      smem_raw + ((kSwizzleAtom - (shared_addr(smem_raw) & (kSwizzleAtom - 1))) &
+                  (kSwizzleAtom - 1)));
 
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const size_t rs = (size_t)H * D;  // elements between consecutive tokens
-  const size_t base = (size_t)b * T * rs + (size_t)h * D;
-  const int kv0 = blockIdx.x * BKV;
-  const int kw = warp * 16;      // this warp's first kv row in the tile
-  const int j0 = kv0 + kw + g;   // the thread's kv rows j0 and j0 + 8
-  const int bh = b * H + h;
-
-  for (int it = tid; it < BKV * CH; it += 128) {
-    const int row = it / CH, c8 = (it % CH) * 8;
-    const size_t off = base + (size_t)(kv0 + row) * rs + c8;
-    cp_async16(Ks + row * RS + c8, k + off);
-    cp_async16(Vs + row * RS + c8, v + off);
-  }
-  // q tile i0 into ring stage st (lse2, di and segment ids by plain loads;
-  // the barrier at the top of the loop publishes them)
-  auto load_q = [&](int st, int i0) {
-    __nv_bfloat16* qd = Qs + st * BQ * RS;
-    __nv_bfloat16* od = Os + st * BQ * RS;
-    for (int it = tid; it < BQ * CH; it += 128) {
-      const int row = it / CH, c8 = (it % CH) * 8;
-      const size_t off = base + (size_t)(i0 + row) * rs + c8;
-      cp_async16(qd + row * RS + c8, q + off);
-      cp_async16(od + row * RS + c8, dout + off);
-    }
-    if (tid < BQ) {
-      const size_t r = ((size_t)b * T + i0 + tid) * H + h;
-      lse_s[st * BQ + tid] = lse[r];
-      di_s[st * BQ + tid] = di[r];
-      qseg_s[st * BQ + tid] = seg ? seg[(size_t)b * T + i0 + tid] : 0;
-    }
-  };
-  // the q tiles this block walks: all, or its (batch, kv tile)'s range
-  int qt0 = 0, qt1 = T / BQ - 1;
+  const int b = blockIdx.z, h = blockIdx.y, kvt = blockIdx.x, tid = threadIdx.x;
+  // the q tiles this CTA walks: all, or its (batch, kv tile)'s range
+  int qt0 = 0, qt1 = T / kBq - 1;
   if (q_lo != nullptr) {
-    qt0 = q_lo[b * (T / BKV) + blockIdx.x];
-    qt1 = q_hi[b * (T / BKV) + blockIdx.x];
+    qt0 = q_lo[b * (T / kBkv) + kvt];
+    qt1 = q_hi[b * (T / kBkv) + kvt];
   }
-  if (tile_count != nullptr && tid == 0) atomicAdd(tile_count, qt1 - qt0 + 1);
-  load_q(0, qt0 * BQ);
-  cp_async_commit();  // K, V and the first q tile
-
-  const int ks0 = seg ? seg[(size_t)b * T + j0] : 0;
-  const int ks1 = seg ? seg[(size_t)b * T + j0 + 8] : 0;
-  float dka[NN][4], dva[NN][4];
+  const int n_tiles = qt1 - qt0 + 1;
+  if (tid == 0) {
+    if (tile_count != nullptr) atomicAdd(tile_count, n_tiles);
 #pragma unroll
-  for (int n = 0; n < NN; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
-
-  for (int qt = qt0; qt <= qt1; ++qt) {
-    const int st = (qt - qt0) & 1;
-    // the other stage was last read in the previous iteration, which ended
-    // in a barrier: refill it with the next tile while this one is used
-    if (qt + 1 <= qt1) load_q(st ^ 1, (qt + 1) * BQ);
-    cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();
-    const __nv_bfloat16* Qt = Qs + st * BQ * RS;
-    const __nv_bfloat16* Ot = Os + st * BQ * RS;
-    const float* lt = lse_s + st * BQ;
-    const float* dt = di_s + st * BQ;
-    const int* sg = qseg_s + st * BQ;
-
-    // S^T = K.Q^T and dP^T = V.dO^T: 16 kv rows x BQ q columns a warp
-    float s[NS][4], dpt[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dpt[n][e] = 0.f;
-#pragma unroll
-    for (int p = 0; p < NK / 2; ++p) {
-      uint32_t ka0[4], ka1[4], va0[4], va1[4];
-      const int arow = (kw + (lane & 15)) * RS + p * 32 + (lane >> 4) * 8;
-      ldmatrix_x4(ka0, Ks + arow);
-      ldmatrix_x4(ka1, Ks + arow + 16);
-      ldmatrix_x4(va0, Vs + arow);
-      ldmatrix_x4(va1, Vs + arow + 16);
-#pragma unroll
-      for (int n = 0; n < NS; ++n) {
-        uint32_t bq[4], bo[4];
-        const int brow = (n * 8 + (lane & 7)) * RS + p * 32 + (lane >> 3) * 8;
-        ldmatrix_x4(bq, Qt + brow);
-        ldmatrix_x4(bo, Ot + brow);
-        mma_bf16(s[n], ka0, bq[0], bq[1]);
-        mma_bf16(s[n], ka1, bq[2], bq[3]);
-        mma_bf16(dpt[n], va0, bo[0], bo[1]);
-        mma_bf16(dpt[n], va1, bo[2], bo[3]);
-      }
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&sm.full[st], 1);
+      mbar_init(&sm.empty[st], kConsumerWarps);
     }
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-    // P^T from lse2, dropout, dS^T; s[] becomes dS^T and dpt[] P_drop^T.
-    // Element e of n-tile n is (kv row j0 + 8 * (e >> 1), q row
-    // i + (e & 1)) with i = qt * BQ + n * 8 + 2 * t4.
+  if (tid < 128) {
+    // ---- producer: one thread keeps the ring full ----
+    setmaxnreg_dec<24>();
+    if (tid == 0) {
+      const bool rows = !DOTS, ids = !DOTS && seg != nullptr;
+      const uint32_t bytes = 2u * kBq * D * sizeof(__nv_bfloat16) +
+                             (rows ? 2u * kBq * sizeof(float) : 0u) +
+                             (ids ? kBq * sizeof(int) : 0u);
+      const size_t bh_row = ((size_t)b * H + h) * T;  // (b, h) row of lse_t, di_t
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % kStages;
+        if (it >= kStages) mbar_wait(&sm.empty[st], ((it / kStages) - 1) & 1);
+        mbar_arrive_expect_tx(&sm.full[st], bytes);
+        const int i0 = (qt0 + it) * kBq;
 #pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      const int il = n * 8 + 2 * t4;
-      float p[4], d[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ic = il + (e & 1);
-        const float s2 = score(s[n][e], scale_log2, sg[ic], (e >> 1) ? ks1 : ks0);
-        p[e] = exp2f(s2 - lt[ic]);
-        d[e] = dpt[n][e];
-      }
-      float pd[4] = {p[0], p[1], p[2], p[3]};
-      if constexpr (DROP) {
-        // i is even: words (j & 1) and 2 + (j & 1) hold columns i and i + 1;
-        // rows j0 and j0 + 8 share a parity
-        const int i = qt * BQ + il;
-        const Philox4 u = dropout_bits(dp.seed, bh, i, j0);
-        const Philox4 w = dropout_bits(dp.seed, bh, i, j0 + 8);
-        const int wj = j0 & 1;
-        const uint32_t bits[4] = {pick(u, wj), pick(u, 2 + wj), pick(w, wj), pick(w, 2 + wj)};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const bool keep = bits[e] >= dp.thresh;
-          pd[e] = keep ? p[e] * dp.keep_scale : 0.f;
-          d[e] = keep ? d[e] * dp.keep_scale : 0.f;
+        for (int pn = 0; pn < D / kPanelCols; ++pn) {
+          tma_load_2d(&sm.q[st][pn * kBq * kPanelCols], &qmap, h * D + pn * kPanelCols,
+                      b * T + i0, &sm.full[st]);
+          tma_load_2d(&sm.dout[st][pn * kBq * kPanelCols], &omap, h * D + pn * kPanelCols,
+                      b * T + i0, &sm.full[st]);
         }
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = __fmul_rn(__fmul_rn(p[e], __fsub_rn(d[e], dt[il + (e & 1)])), scale);
-        dpt[n][e] = pd[e];
-      }
-    }
-
-    // dV += P_drop^T.dO and dK += dS^T.Q: A straight from the fragments, B
-    // from the dO / Q rows by a transposing ldmatrix
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(dpt[2 * kk][0], dpt[2 * kk][1]),
-                              pack_bf16(dpt[2 * kk][2], dpt[2 * kk][3]),
-                              pack_bf16(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]),
-                              pack_bf16(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3])};
-      const uint32_t sa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int np = 0; np < NN / 2; ++np) {
-        uint32_t bo[4], bq[4];
-        const int brow = (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * RS +
-                         np * 16 + (lane >> 4) * 8;
-        ldmatrix_x4_trans(bo, Ot + brow);
-        ldmatrix_x4_trans(bq, Qt + brow);
-        mma_bf16(dva[2 * np], pa, bo[0], bo[1]);
-        mma_bf16(dva[2 * np + 1], pa, bo[2], bo[3]);
-        mma_bf16(dka[2 * np], sa, bq[0], bq[1]);
-        mma_bf16(dka[2 * np + 1], sa, bq[2], bq[3]);
-      }
-    }
-
-    __syncthreads();  // every warp is done with this stage
-  }
-
-  // dv, and dk rotated back by -angle in fp32 (columns d and d + D/2 sit in
-  // n-tiles n and n + NN/2 of the same thread)
-  __nv_bfloat16* v0 = dv + base + (size_t)j0 * rs;
-  __nv_bfloat16* v1 = v0 + 8 * rs;
-  __nv_bfloat16* k0p = dk + base + (size_t)j0 * rs;
-  __nv_bfloat16* k1p = k0p + 8 * rs;
-#pragma unroll
-  for (int n = 0; n < NN; ++n) {
-    const int col = n * 8 + 2 * t4;
-    *reinterpret_cast<uint32_t*>(v0 + col) = pack_bf16(dva[n][0], dva[n][1]);
-    *reinterpret_cast<uint32_t*>(v1 + col) = pack_bf16(dva[n][2], dva[n][3]);
-  }
-  if (cos_t != nullptr) {
-#pragma unroll
-    for (int n = 0; n < NN / 2; ++n) {
-      const int col = n * 8 + 2 * t4;
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int j = j0 + 8 * r;
-        const float2 c = *reinterpret_cast<const float2*>(cos_t + (size_t)j * HALF + col);
-        const float2 sn = *reinterpret_cast<const float2*>(sin_t + (size_t)j * HALF + col);
-        const float x1a = dka[n][2 * r], x1b = dka[n][2 * r + 1];
-        const float x2a = dka[n + NN / 2][2 * r], x2b = dka[n + NN / 2][2 * r + 1];
-        __nv_bfloat16* dst = r ? k1p : k0p;
-        *reinterpret_cast<uint32_t*>(dst + col) =
-            pack_bf16(rope_inv_lo(x1a, x2a, c.x, sn.x), rope_inv_lo(x1b, x2b, c.y, sn.y));
-        *reinterpret_cast<uint32_t*>(dst + col + HALF) =
-            pack_bf16(rope_inv_hi(x1a, x2a, c.x, sn.x), rope_inv_hi(x1b, x2b, c.y, sn.y));
+        if (rows) {
+          bulk_load(sm.lse[st], lse_t + bh_row + i0, kBq * sizeof(float), &sm.full[st]);
+          bulk_load(sm.di[st], di_t + bh_row + i0, kBq * sizeof(float), &sm.full[st]);
+        }
+        if (ids) bulk_load(sm.qseg[st], seg + (size_t)b * T + i0, kBq * sizeof(int), &sm.full[st]);
       }
     }
   } else {
+    // ---- consumers: 64 kv rows each ----
+    setmaxnreg_inc<240>();
+    const int wg = (tid >> 7) - 1, wt = tid & 127, warp = wt >> 5, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const size_t rs = (size_t)H * D;  // elements between consecutive tokens
+    const size_t base = (size_t)b * T * rs + (size_t)h * D;
+    const int kv0 = kvt * kBkv + wg * 64;  // this warpgroup's first kv row
+    const int j0 = kv0 + warp * 16 + g;    // this thread's rows j0 and j0 + 8
+
+    // K rows rotated in fp32 and rounded, V rows as they are, into the
+    // swizzled panels
+    rows_to_panels<D>(reinterpret_cast<unsigned char*>(sm.k), kBkv, wg * 64,
+                      k + base + (size_t)kv0 * rs, rs, 64, DOTS ? nullptr : cos_t, sin_t,
+                      kv0, wt, 128);
+    rows_to_panels<D>(reinterpret_cast<unsigned char*>(sm.v), kBkv, wg * 64,
+                      v + base + (size_t)kv0 * rs, rs, 64, nullptr, nullptr, 0, wt, 128);
+    fence_async_shared();
+    named_bar_sync(kBarKV + wg, 128);
+
+    const int ks0 = (!DOTS && seg != nullptr) ? seg[(size_t)b * T + j0] : 0;
+    const int ks1 = (!DOTS && seg != nullptr) ? seg[(size_t)b * T + j0 + 8] : 0;
+    float dka[D / 2], dva[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+
+    const int bh = b * H + h;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % kStages, qt = qt0 + it, i0 = qt * kBq;
+      const uint32_t k_addr = shared_addr(sm.k), v_addr = shared_addr(sm.v);
+      const uint32_t kw_addr = k_addr + wg * 64 * 128, vw_addr = v_addr + wg * 64 * 128;
+      const uint32_t q_addr = shared_addr(sm.q[st]), o_addr = shared_addr(sm.dout[st]);
+      mbar_wait(&sm.full[st], (it / kStages) & 1);
+
+      // S^T = K_w.Q^T and dP^T = V_w.dO^T (64 kv x 64 q each), in one
+      // array with the dQ slice, which takes S^T's half once S^T is packed:
+      // so the three share one block of registers
+      float sd[64];
+      float(&s)[32] = *reinterpret_cast<float(*)[32]>(&sd[0]);
+      float(&dpt)[32] = *reinterpret_cast<float(*)[32]>(&sd[32]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk) {
+        const uint32_t ko = (kk >> 2) * kKPanel + (kk & 3) * 32;
+        const uint32_t qo = (kk >> 2) * kQPanel + (kk & 3) * 32;
+        wgmma_ss_m64n64k16<0, 0>(s, smem_desc(kw_addr + ko, 16, kSwizzleAtom),
+                                 smem_desc(q_addr + qo, 16, kSwizzleAtom), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk) {
+        const uint32_t ko = (kk >> 2) * kKPanel + (kk & 3) * 32;
+        const uint32_t qo = (kk >> 2) * kQPanel + (kk & 3) * 32;
+        wgmma_ss_m64n64k16<0, 0>(dpt, smem_desc(vw_addr + ko, 16, kSwizzleAtom),
+                                 smem_desc(o_addr + qo, 16, kSwizzleAtom), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dpt);
+
+      // s[] becomes P_drop^T and dpt[] dS^T. Element e of block n is (kv row
+      // j0 + 8 (e >> 1), q row i0 + c + (e & 1)) with c = 8 n + 2 t4.
+      if constexpr (!DOTS) {
+        uint32_t keep = ~0u;  // bit 4 n + e: element e of block n is kept
+        if constexpr (DROP) {
+          // One Philox call covers q rows (i, i + 1) of kv rows 2m, 2m + 1.
+          // Lanes g and g ^ 1 hold kv rows j0 and j0 ^ 1 (and + 8): the even
+          // lane draws the pair block of its rows j0, j0 + 1, the odd lane
+          // that of j0 + 7, j0 + 8, and each hands the partner the words of
+          // the partner's row (word 2 (i & 1) + (j & 1)).
+          const bool odd = g & 1;
+          const int jd = odd ? j0 + 8 : j0;
+          keep = 0;
+#pragma unroll 4
+          for (int n = 0; n < NS; ++n) {
+            const Philox4 u = dropout_bits(dp.seed, bh, i0 + n * 8 + 2 * t4, jd);
+            const uint32_t y0 = __shfl_xor_sync(0xffffffffu, odd ? u.w[0] : u.w[1], 4);
+            const uint32_t y1 = __shfl_xor_sync(0xffffffffu, odd ? u.w[2] : u.w[3], 4);
+            const uint32_t a0 = odd ? y0 : u.w[0], a1 = odd ? y1 : u.w[2];  // row j0
+            const uint32_t c0 = odd ? u.w[1] : y0, c1 = odd ? u.w[3] : y1;  // row j0 + 8
+            const uint32_t k4 = (uint32_t)(a0 >= dp.thresh) | (uint32_t)(a1 >= dp.thresh) << 1 |
+                                (uint32_t)(c0 >= dp.thresh) << 2 | (uint32_t)(c1 >= dp.thresh) << 3;
+            keep |= k4 << (4 * n);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+          const int c = n * 8 + 2 * t4;
+          const float2 l2 = *reinterpret_cast<const float2*>(&sm.lse[st][c]);
+          const float2 d2 = *reinterpret_cast<const float2*>(&sm.di[st][c]);
+          const int2 q2 = seg != nullptr ? *reinterpret_cast<const int2*>(&sm.qseg[st][c])
+                                         : make_int2(0, 0);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float lc = (e & 1) ? l2.y : l2.x, dc = (e & 1) ? d2.y : d2.x;
+            const int qs = (e & 1) ? q2.y : q2.x;
+            const float p = exp2f(score(s[4 * n + e], scale_log2, qs, (e >> 1) ? ks1 : ks0) - lc);
+            float pd = p, d = dpt[4 * n + e];
+            if constexpr (DROP) {
+              const bool kp = (keep >> (4 * n + e)) & 1;
+              pd = kp ? p * dp.keep_scale : 0.f;
+              d = kp ? d * dp.keep_scale : 0.f;
+            }
+            s[4 * n + e] = pd;
+            dpt[4 * n + e] = __fmul_rn(__fmul_rn(p, __fsub_rn(d, dc)), scale);
+          }
+        }
+      }
+      // the A fragments of dV and dK: k-step kk is score blocks 2 kk, 2 kk + 1
+      uint32_t pa[NP][4], sa[NP][4];
+#pragma unroll
+      for (int kk = 0; kk < NP; ++kk) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+          sa[kk][r] = pack_bf16(dpt[8 * kk + 2 * r], dpt[8 * kk + 2 * r + 1]);
+        }
+      }
+      if constexpr (WITH_DQ) {
+        // dS^T into this iteration's buffer: fragment r of k-step kk is kv
+        // row j (+ 8 for r odd), q columns 16 kk + 2 t4 (+ 8 for r >= 2)
+        unsigned char* dsb = reinterpret_cast<unsigned char*>(sm.x.ds[it & 1]);
+        const int jr = wg * 64 + warp * 16 + g;
+#pragma unroll
+        for (int kk = 0; kk < NP; ++kk) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            *reinterpret_cast<uint32_t*>(
+                dsb + swizzled_offset(kBkv, jr + 8 * (r & 1), 16 * kk + 8 * (r >> 1) + 2 * t4)) =
+                sa[kk][r];
+        }
+        fence_async_shared();
+      }
+
+      // dV += P_drop^T.dO and dK += dS^T.Q (dO and Q MN-major: 16 q rows a
+      // k-step)
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < NP; ++kk) {
+        const uint64_t db = smem_desc(o_addr + kk * 16 * 128, kQPanel, kSwizzleAtom);
+        if constexpr (D == 128) {
+          wgmma_rs_m64n128k16_tb(dva, pa[kk], db, 1);
+        } else {
+          wgmma_rs_m64n64k16_tb(dva, pa[kk], db, 1);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < NP; ++kk) {
+        const uint64_t db = smem_desc(q_addr + kk * 16 * 128, kQPanel, kSwizzleAtom);
+        if constexpr (D == 128) {
+          wgmma_rs_m64n128k16_tb(dka, sa[kk], db, 1);
+        } else {
+          wgmma_rs_m64n64k16_tb(dka, sa[kk], db, 1);
+        }
+      }
+      wgmma_commit();
+      // the other consumer's dS^T rows (and, the first time, its K rows)
+      if constexpr (WITH_DQ) named_bar_sync(kBarDs, 256);
+      wgmma_wait<0>();
+      fence_regs(dva);
+      fence_regs(dka);
+      fence_regs(pa);
+      fence_regs(sa);
+      // this stage's Q and dO are read
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&sm.empty[st]);
+
+      // dQ slice = dS.K_slice: A = dS^T through the transpose bit (q along
+      // the panel row), B = K's panel wg (head dim along the row); 16 kv
+      // rows a k-step
+      if constexpr (WITH_DQ) {
+        if (wg < NDQ) {
+          float(&dqa)[32] = s;
+          const uint32_t ds_addr = shared_addr(sm.x.ds[it & 1]);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < NJ; ++kk)
+            wgmma_ss_m64n64k16<1, 1>(
+                dqa, smem_desc(ds_addr + kk * 16 * 128, kKPanel, kSwizzleAtom),
+                smem_desc(k_addr + wg * kKPanel + kk * 16 * 128, kKPanel, kSwizzleAtom), kk > 0);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(dqa);
+          // the staging tile is free once the previous reduce has read it
+          if (wt == 0) bulk_wait_read<0>();
+          named_bar_sync(kBarStage + wg, 128);
+          float4* stg = reinterpret_cast<float4*>(sm.x.dq[wg]);
+#pragma unroll
+          for (int n = 0; n < 8; ++n)
+            stg[n * 128 + wt] =
+                make_float4(dqa[4 * n], dqa[4 * n + 1], dqa[4 * n + 2], dqa[4 * n + 3]);
+          fence_async_shared();
+          named_bar_sync(kBarStage + wg, 128);
+          if (wt == 0) {
+            // the chunk's offset formed here (hoisted, it would spill)
+            bulk_reduce_add_f32(dq_acc + dq_chunk<D>(opaque(b), h, qt, T, H) + wg * kDqSlice,
+                                sm.x.dq[wg], kDqSlice * sizeof(float));
+            bulk_commit();
+          }
+        }
+      }
+    }
+    if constexpr (WITH_DQ) {
+      if (wg < NDQ && wt == 0) bulk_wait<0>();
+    }
+
+    // dv, and dk rotated back by -angle in fp32 (columns d and d + D/2 sit in
+    // blocks n and n + NN/2 of the same thread); the row's offset is formed
+    // here (held across the loop, it would spill)
+    const size_t row0 = ((size_t)b * T + opaque(j0)) * rs + (size_t)h * D;
+    __nv_bfloat16* v0 = dv + row0;
+    __nv_bfloat16* k0p = dk + row0;
 #pragma unroll
     for (int n = 0; n < NN; ++n) {
       const int col = n * 8 + 2 * t4;
-      *reinterpret_cast<uint32_t*>(k0p + col) = pack_bf16(dka[n][0], dka[n][1]);
-      *reinterpret_cast<uint32_t*>(k1p + col) = pack_bf16(dka[n][2], dka[n][3]);
+      *reinterpret_cast<uint32_t*>(v0 + col) = pack_bf16(dva[4 * n], dva[4 * n + 1]);
+      *reinterpret_cast<uint32_t*>(v0 + 8 * rs + col) = pack_bf16(dva[4 * n + 2], dva[4 * n + 3]);
+    }
+    if (!DOTS && cos_t != nullptr) {
+#pragma unroll
+      for (int n = 0; n < NN / 2; ++n) {
+        const int col = n * 8 + 2 * t4;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int j = j0 + 8 * r;
+          const float2 c = *reinterpret_cast<const float2*>(cos_t + (size_t)j * HALF + col);
+          const float2 sn = *reinterpret_cast<const float2*>(sin_t + (size_t)j * HALF + col);
+          const float x1a = dka[4 * n + 2 * r], x1b = dka[4 * n + 2 * r + 1];
+          const float x2a = dka[4 * (n + NN / 2) + 2 * r], x2b = dka[4 * (n + NN / 2) + 2 * r + 1];
+          __nv_bfloat16* dst = k0p + 8 * r * rs;
+          *reinterpret_cast<uint32_t*>(dst + col) =
+              pack_bf16(rope_inv_lo(x1a, x2a, c.x, sn.x), rope_inv_lo(x1b, x2b, c.y, sn.y));
+          *reinterpret_cast<uint32_t*>(dst + col + HALF) =
+              pack_bf16(rope_inv_hi(x1a, x2a, c.x, sn.x), rope_inv_hi(x1b, x2b, c.y, sn.y));
+        }
+      }
+    } else {
+#pragma unroll
+      for (int n = 0; n < NN; ++n) {
+        const int col = n * 8 + 2 * t4;
+        *reinterpret_cast<uint32_t*>(k0p + col) = pack_bf16(dka[4 * n], dka[4 * n + 1]);
+        *reinterpret_cast<uint32_t*>(k0p + 8 * rs + col) =
+            pack_bf16(dka[4 * n + 2], dka[4 * n + 3]);
+      }
     }
   }
+}
+
+// dq = inverse-RoPE(dq_acc) in fp32, cast to bf16, from the bf16 kernel's
+// dq_acc layout (dq_chunk). One thread per (chunk, slot s < D / 16, thread
+// t): slots s and s + D / 16 hold columns c, c + 1 and c + D / 2, c + D / 2
+// + 1 of rows r and r + 8.
+template <int D>
+__global__ void dq_epilogue_bf16(const float4* __restrict__ acc,
+                                 const float* __restrict__ cos_t,
+                                 const float* __restrict__ sin_t,
+                                 __nv_bfloat16* __restrict__ out, int T, int H,
+                                 long long n_items) {
+  constexpr int HALF = D / 2, NSL = D / 16;
+  const long long it = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (it >= n_items) return;
+  const int t = (int)(it % 128), s = (int)((it / 128) % NSL);
+  const long long chunk = it / (128 * NSL);
+  const int qt = (int)(chunk % (T / kBq));
+  const long long bh = chunk / (T / kBq);
+  const int h = (int)(bh % H);
+  const long long b = bh / H;
+  const float4 x1 = acc[(chunk * (D / 8) + s) * 128 + t];
+  const float4 x2 = acc[(chunk * (D / 8) + s + NSL) * 128 + t];
+  const float lo[4] = {x1.x, x1.y, x1.z, x1.w}, hi[4] = {x2.x, x2.y, x2.z, x2.w};
+  const int i = qt * kBq + 16 * (t >> 5) + ((t & 31) >> 2), c = 8 * s + 2 * (t & 3);
+  float yl[4], yh[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    yl[e] = lo[e];
+    yh[e] = hi[e];
+    if (cos_t != nullptr) {
+      const size_t tab = (size_t)(i + 8 * (e >> 1)) * HALF + c + (e & 1);
+      yl[e] = rope_inv_lo(lo[e], hi[e], cos_t[tab], sin_t[tab]);
+      yh[e] = rope_inv_hi(lo[e], hi[e], cos_t[tab], sin_t[tab]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    __nv_bfloat16* row = out + (((size_t)b * T + i + 8 * r) * H + h) * D;
+    *reinterpret_cast<uint32_t*>(row + c) = pack_bf16(yl[2 * r], yl[2 * r + 1]);
+    *reinterpret_cast<uint32_t*>(row + c + HALF) = pack_bf16(yh[2 * r], yh[2 * r + 1]);
+  }
+}
+
+// The bf16 kernel on q already rotated (or not rotated at all); k rotated
+// by the kernel. WITH_DQ: dq_acc (fp32, q's size) is zeroed, summed into
+// and turned into dq by dq_epilogue_bf16; else dq_acc and dq are not read.
+template <int D, bool DROP, bool DOTS, bool WITH_DQ>
+cudaError_t launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                        const __nv_bfloat16* v, const __nv_bfloat16* dout,
+                        const float* lse_t, const float* di_t, const int* seg,
+                        const float* cos_t, const float* sin_t, const int* q_lo,
+                        const int* q_hi, int* tile_count, float* dq_acc,
+                        __nv_bfloat16* dq, __nv_bfloat16* dk, __nv_bfloat16* dv, int B,
+                        int T, int H, float scale_log2, float scale, DropParams dp,
+                        cudaStream_t st) {
+  // Q and dO as (B * T, H * D) row-major matrices, loaded as 64-row boxes
+  // of one head's 64-column panels
+  CUtensorMap qmap, omap;
+  const uint64_t rows = (uint64_t)B * T, cols = (uint64_t)H * D;
+  cudaError_t e = encode_bf16_panels(&qmap, q, rows, cols, cols, kBq);
+  if (e == cudaSuccess) e = encode_bf16_panels(&omap, dout, rows, cols, cols, kBq);
+  if (e != cudaSuccess) return e;
+  const long long n = (long long)B * T * H * D;
+  if constexpr (WITH_DQ) {
+    e = cudaMemsetAsync(dq_acc, 0, (size_t)n * sizeof(float), st);
+    if (e != cudaSuccess) return e;
+  }
+  // the shared-memory limit belongs to the instance on a device, not to the
+  // call: set it at the first launch on each device
+  static std::atomic<uint64_t> smem_set{0};
+  const size_t smem = bf16_smem_bytes<D, WITH_DQ>();
+  int dev = 0;
+  e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const uint64_t dev_bit = 1ull << (dev & 63);
+  if (!(smem_set.load(std::memory_order_acquire) & dev_bit)) {
+    e = cudaFuncSetAttribute(mh_bwd_fused_bf16<D, DROP, DOTS, WITH_DQ>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    smem_set.fetch_or(dev_bit, std::memory_order_release);
+  }
+  mh_bwd_fused_bf16<D, DROP, DOTS, WITH_DQ><<<dim3(T / kBkv, H, B), kThreads, smem, st>>>(
+      qmap, omap, k, v, lse_t, di_t, seg, cos_t, sin_t, q_lo, q_hi, tile_count, dq_acc, dk,
+      dv, T, H, scale_log2, scale, dp);
+  if constexpr (WITH_DQ) {
+    const long long n_items = n / 8;
+    dq_epilogue_bf16<D><<<(unsigned)((n_items + 255) / 256), 256, 0, st>>>(
+        reinterpret_cast<const float4*>(dq_acc), DOTS ? nullptr : cos_t, sin_t, dq, T, H,
+        n_items);
+  }
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -432,5 +688,6 @@ __global__ void dq_epilogue(const float* __restrict__ acc,
   store_out(out + row * D + d + HALF, hi);
 }
 
+}  // namespace
 }  // namespace bwd
 }  // namespace obt

@@ -72,26 +72,23 @@ KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 KERNEL_KV_TILE = {torch.bfloat16: 128, torch.float32: 32}
 # (q tile, kv tile) of each kernel per dtype: the forward and the dq kernel
 # own a q tile and walk kv tiles; the fused backward and the dkv kernel own
-# a kv tile and walk q tiles.
+# a kv tile and walk q tiles. The bf16 dkv kernel is the fused kernel
+# without its dq, on the same tiles.
 KERNEL_TILES = {
     "fwd": {torch.bfloat16: (128, 128), torch.float32: (32, 32)},
     "fused": {torch.bfloat16: (64, 128), torch.float32: (16, 32)},
-    "dkv": {torch.bfloat16: (32, 64), torch.float32: (16, 32)},
-    "dq": {torch.bfloat16: (64, 64), torch.float32: (32, 32)},
+    "dkv": {torch.bfloat16: (64, 128), torch.float32: (16, 32)},
+    "dq": {torch.bfloat16: (128, 64), torch.float32: (32, 32)},
 }
-# The multiple of T each kernel takes per dtype: the bf16 forward's and
-# fused backward's CTA owns 128 rows; the others take 64.
-KERNEL_T_MULTIPLE = {
-    "fwd": {torch.bfloat16: 128, torch.float32: 64},
-    "fused": {torch.bfloat16: 128, torch.float32: 64},
-    "dkv": {torch.bfloat16: 64, torch.float32: 64},
-    "dq": {torch.bfloat16: 64, torch.float32: 64},
-}
+# The multiple of T every kernel takes per dtype: each bf16 CTA owns 128
+# rows; the fp32 kernels take 64.
+KERNEL_T_MULTIPLE = {torch.bfloat16: 128, torch.float32: 64}
 
 # Backward routing, as the JAX package's switches of the same names: the
 # fused kernel (dq, dk, dv in one pass, 5 products a tile) where one kv
 # block spans the sequence / above that; False takes the split pair (dkv +
-# dq kernels, 7 products a tile, no atomics, dq deterministic).
+# dq kernels, 7 products a tile, no atomics: dq, dk and dv the same bits
+# from run to run).
 FUSED_SINGLE_KV_BWD = True
 FUSED_MULTIKV_BWD = True
 
@@ -460,14 +457,14 @@ def mh_flash_bwd_dq_plain(q, k, v, do, lse2, di, segment_ids=None, rope=None,
 
 def _check_qkv(names_tensors, q, kind: str):
     """q and the other (name, tensor) pairs as kernel `kind` takes them:
-    a dtype and head dim it is built for, T a multiple of its
+    a dtype and head dim it is built for, T a multiple of the dtype's
     KERNEL_T_MULTIPLE, then contiguous, aligned CUDA tensors of q's shape."""
     B, T, H, D = q.shape
     if q.dtype not in KERNEL_DTYPES:
         raise ValueError(f"dtype {q.dtype} not built; one of {KERNEL_DTYPES}")
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"head_dim {D} not built; one of {KERNEL_HEAD_DIMS}")
-    t_multiple = KERNEL_T_MULTIPLE[kind][q.dtype]
+    t_multiple = KERNEL_T_MULTIPLE[q.dtype]
     if T % t_multiple or T < t_multiple:
         raise ValueError(f"T={T} must be a positive multiple of {t_multiple} "
                          f"for the {kind} kernel in {q.dtype}")
@@ -632,9 +629,10 @@ def mh_flash_bwd_kernel(kind: str, q, k, v, do, lse2, di, segment_ids=None,
     cos_ptr, sin_ptr = _rope_ptrs(rope, q)
     lo_ptr, hi_ptr, tc_ptr = _bounds_ptrs(
         tile_bounds, q, KERNEL_TILES[kind][q.dtype][owner], tile_count)
-    # The bf16 fused kernel rotates k itself and bulk-copies a q tile's lse2
-    # and di of one head, so it takes those two as (B, H, T).
-    hopper = kind == "fused" and q.dtype == torch.bfloat16
+    # The bf16 fused kernel (also the bf16 dkv kernel) rotates k itself and
+    # bulk-copies a q tile's lse2 and di of one head, so it takes those two
+    # as (B, H, T).
+    hopper = kind in ("fused", "dkv") and q.dtype == torch.bfloat16
     if hopper:
         lse2, di = (t.transpose(1, 2).contiguous() for t in (lse2, di))
     # scratch: q (where the kernel re-reads it) and k rotated once per call,

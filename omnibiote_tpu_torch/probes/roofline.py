@@ -27,9 +27,11 @@ ring of 128-row K and V tiles, wgmma consumers of 64 q rows, S rounded in
 registers as the A operand of S·V) in persistent CTAs, one a
 multiprocessor walking the (b, h, q tile) work items (`persistent=False`
 launches one CTA an item instead, which measured slower: PERF.md §6);
-`dots_n` runs the dkv kernel's mma.sync CTA. `bwd_products` is #2/#3's
+`dots_n` runs the old dkv kernel's mma.sync CTA. `bwd_products` is #2/#3's
 fused backward kernel with its five products alone, the backward's
-counterpart of `fwd_products`, and `int8_products` #9's int8 attention
+counterpart of `fwd_products`; `dkv_products` and `dq_products` the split
+pair's kernels (#4/#7 and #5/#8) with theirs, `dkv_products` the
+counterpart of `dots_n`'s dkv mix; and `int8_products` #9's int8 attention
 kernel with its two walks' s8 products alone.
 
     python -m omnibiote_tpu_torch.probes.roofline
@@ -148,6 +150,22 @@ def bwd_products_plain(q, k, v, do):
     return tuple(g.to(q.dtype).permute(0, 2, 1, 3).contiguous() for g in grads)
 
 
+def dkv_products_plain(q, k, v, do):
+    """Plain version of `dkv_products`: (dk, dv) of `bwd_products_plain`."""
+    return bwd_products_plain(q, k, v, do)[1:]
+
+
+def dq_products_plain(q, k, v, do):
+    """Plain version of `dq_products`: per head, dS = round(q·kᵀ + do·vᵀ)
+    (fp32 products and sum, rounded to the inputs' dtype), then
+    dq = round(dS·k) from an fp32 product, (B, T, H, D)."""
+    qh, kh, vh, oh = (x.permute(0, 2, 1, 3).float() for x in (q, k, v, do))
+    ds = (torch.matmul(qh, kh.transpose(-1, -2))
+          + torch.matmul(oh, vh.transpose(-1, -2))).to(q.dtype).float()
+    return (torch.matmul(ds, kh).to(q.dtype).permute(0, 2, 1, 3)
+            .contiguous())
+
+
 def int8_products_plain(q8, k8, v8t):
     """Plain version of `int8_products`: per head, S = q8·k8ᵀ in int32,
     m its row max and p8 = the low byte of S as a two's-complement int8;
@@ -257,30 +275,61 @@ def dots_n(q, k, v, block_q: int, block_kv: int, n_dots: int, *,
     return dots_n_plain(q, k, v, block_q, block_kv, n_dots)
 
 
+def _kernel_products(library: str, entry: str, err_entry: str, counter: str,
+                     q, operands, n_out: int, f32_scratch: bool = False):
+    """Run the products-alone entry `entry` of kernel library `library` on
+    q and the (name, tensor) `operands`, bf16 CUDA tensors of q's shape,
+    into n_out new outputs of q's shape (after an fp32 scratch of q's size
+    with f32_scratch); adds one to LAUNCHES[counter]."""
+    from ..ops import _kernels
+
+    check_kernel_inputs(q, [(n, t, q.shape) for n, t in operands])
+    B, T, H, D = q.shape
+    scratch = ([torch.empty(q.shape, dtype=torch.float32, device=q.device)]
+               if f32_scratch else [])
+    outs = tuple(torch.empty_like(q) for _ in range(n_out))
+    lib = _kernels.load_library(library)
+    with torch.cuda.device(q.device):
+        err = getattr(lib, entry)(
+            q.data_ptr(), *(t.data_ptr() for _, t in operands),
+            *(t.data_ptr() for t in (*scratch, *outs)), B, T, H, D,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, entry, getattr(lib, err_entry))
+    _kernels.LAUNCHES[counter] += 1
+    return outs
+
+
 def fwd_products(q, k, v):
     """#1's own kernel with its products alone (the DOTS instance of
     ops/csrc/mh_flash_fwd.cu: TMA ring, wgmma, no scale, mask or softmax):
     `dots_only`'s function on 128-row kv tiles, o (B, T, H, D) from q, k, v
     (B, T, H, D). A CUDA tensor runs the kernel (counted as
     'mh_flash_fwd_dots'), a CPU tensor `dots_only_plain` on those tiles."""
-    from ..ops import _kernels
     from ..ops.flash_attention import KERNEL_KV_TILE
 
     tile = KERNEL_KV_TILE[torch.bfloat16]
     check_blocks(q.shape[1], tile, tile)
     if not q.is_cuda:
         return dots_only_plain(q, k, v, tile, tile)
-    check_kernel_inputs(q, (("k", k, q.shape), ("v", v, q.shape)))
-    B, T, H, D = q.shape
-    o = torch.empty_like(q)
-    lib = _kernels.load_library("mh_flash_fwd")
-    with torch.cuda.device(q.device):
-        err = lib.obt_mh_flash_fwd_dots(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, T, H, D,
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "mh_flash_fwd_dots", lib.obt_cuda_error_string)
-    _kernels.LAUNCHES["mh_flash_fwd_dots"] += 1
-    return o
+    return _kernel_products("mh_flash_fwd", "obt_mh_flash_fwd_dots",
+                            "obt_cuda_error_string", "mh_flash_fwd_dots", q,
+                            (("k", k), ("v", v)), 1)[0]
+
+
+def _backward_products(kind: str, plain, q, k, v, do):
+    """The backward kernel of `kind` ('fused', 'dkv', 'dq') with its
+    products alone: CPU tensors run `plain`, CUDA tensors the kernel's DOTS
+    instance (counted as '<library>_dots'), on its own tiles."""
+    from ..ops.flash_attention import KERNEL_TILES, _BWD_KERNELS
+
+    check_blocks(q.shape[1], *KERNEL_TILES[kind][torch.bfloat16])
+    if not q.is_cuda:
+        return plain(q, k, v, do)
+    library, err_entry, _, _, f32_scratch, n_out = _BWD_KERNELS[kind]
+    outs = _kernel_products(library, f"obt_{library}_dots", err_entry,
+                            f"{library}_dots", q, (("k", k), ("v", v), ("do", do)),
+                            n_out, f32_scratch)
+    return outs if n_out > 1 else outs[0]
 
 
 def bwd_products(q, k, v, do):
@@ -290,26 +339,27 @@ def bwd_products(q, k, v, do):
     (B, T, H, D) from q, k, v, do (B, T, H, D) as `bwd_products_plain`,
     T a multiple of 128. A CUDA tensor runs the kernel (counted as
     'mh_flash_bwd_dots'), a CPU tensor the plain version."""
-    from ..ops import _kernels
-    from ..ops.flash_attention import KERNEL_TILES
+    return _backward_products("fused", bwd_products_plain, q, k, v, do)
 
-    check_blocks(q.shape[1], *KERNEL_TILES["fused"][torch.bfloat16])
-    if not q.is_cuda:
-        return bwd_products_plain(q, k, v, do)
-    check_kernel_inputs(q, (("k", k, q.shape), ("v", v, q.shape),
-                            ("do", do, q.shape)))
-    B, T, H, D = q.shape
-    acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    grads = tuple(torch.empty_like(q) for _ in range(3))
-    lib = _kernels.load_library("mh_flash_bwd")
-    with torch.cuda.device(q.device):
-        err = lib.obt_mh_flash_bwd_dots(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            acc.data_ptr(), *(g.data_ptr() for g in grads), B, T, H, D,
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "mh_flash_bwd_dots", lib.obt_cuda_error_string_bwd)
-    _kernels.LAUNCHES["mh_flash_bwd_dots"] += 1
-    return grads
+
+def dkv_products(q, k, v, do):
+    """The split pair's dkv kernel with its products alone (the DOTS
+    instance of ops/csrc/mh_flash_bwd_dkv.cu: the fused kernel without its
+    dq, so its TMA ring and four wgmma products): (dk, dv) (B, T, H, D) as
+    `dkv_products_plain`, T a multiple of 128. A CUDA tensor runs the
+    kernel (counted as 'mh_flash_bwd_dkv_dots'), a CPU tensor the plain
+    version."""
+    return _backward_products("dkv", dkv_products_plain, q, k, v, do)
+
+
+def dq_products(q, k, v, do):
+    """The split pair's dq kernel with its products alone (the DOTS instance
+    of ops/csrc/mh_flash_bwd_dq.cu: TMA ring, the three wgmma products, the
+    TMA-store epilogue; no RoPE, scale, mask, softmax or dropout): dq
+    (B, T, H, D) as `dq_products_plain`, T a multiple of 128. A CUDA tensor
+    runs the kernel (counted as 'mh_flash_bwd_dq_dots'), a CPU tensor the
+    plain version."""
+    return _backward_products("dq", dq_products_plain, q, k, v, do)
 
 
 def int8_products(q8, k8, v8t):
@@ -450,6 +500,10 @@ def main() -> dict:
                    fwd_flops * nd / 2)
     report(table, "products  bwd #2's kernel (wgmma, 64x128 tiles)",
            lambda: bwd_products(q, q, q, q), bwd_flops)
+    report(table, "products  dkv #4's kernel (wgmma, 64x128 tiles)",
+           lambda: dkv_products(q, q, q, q), 2 * fwd_flops)
+    report(table, "products  dq  #5's kernel (wgmma, 128x64 tiles)",
+           lambda: dq_products(q, q, q, q), 1.5 * fwd_flops)
     return table
 
 

@@ -111,7 +111,7 @@ def test_forward_tiles_follow_the_kernel():
     assert KERNEL_TILES["fwd"][bf16] == (128, 128)
     assert KERNEL_TILES["fwd"][bf16][1] == KERNEL_KV_TILE[bf16]
     assert KERNEL_TILES["fwd"][torch.float32][1] == KERNEL_KV_TILE[torch.float32]
-    for dtype, multiple in KERNEL_T_MULTIPLE["fwd"].items():
+    for dtype, multiple in KERNEL_T_MULTIPLE.items():
         assert 128 % multiple == 0, dtype
         assert multiple % KERNEL_TILES["fwd"][dtype][0] == 0, dtype
 

@@ -380,7 +380,8 @@ def test_split_wrappers_route_cpu_tensors_to_the_plain_versions(monkeypatch):
     before = dict(_kernels.LAUNCHES)
     assert set(before) == {"mh_flash_fwd", "mh_flash_fwd_dots", "mh_flash_bwd",
                            "mh_flash_bwd_dots", "mh_flash_bwd_mk",
-                           "mh_flash_bwd_dkv", "mh_flash_bwd_dq", "int8_flash_fwd",
+                           "mh_flash_bwd_dkv", "mh_flash_bwd_dkv_dots",
+                           "mh_flash_bwd_dq", "mh_flash_bwd_dq_dots", "int8_flash_fwd",
                            "int8_flash_fwd_dots", "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
                            "roofline_dots", "roofline_dots_n", "roofline2_dots",
                            "roofline2_scores"}

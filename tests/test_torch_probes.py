@@ -237,6 +237,33 @@ def test_bwd_products_plain_fp32_matches_formula(B, T):
         _hold64(g, w)
 
 
+@pytest.mark.parametrize("kind", ["dkv", "dq"])
+@pytest.mark.parametrize("B,T", [(1, 256), (2, 128)])
+def test_split_products_plain_fp32_matches_formula(kind, B, T):
+    """The split pair's products alone: in fp32 against float64 einsums
+    per head, dk = (v doᵀ) q and dv = (k qᵀ) do for the dkv kernel, dq =
+    (q kᵀ + do vᵀ) k for the dq kernel; a CPU tensor launches nothing, and
+    a T off the kernel's tiles is refused."""
+    q, k, v, do = _x(B, T, seed=9, n=4)
+    q64, k64, v64, do64 = (a.astype(np.float64) for a in (q, k, v, do))
+    if kind == "dkv":
+        s = np.einsum("bjhd,bihd->bhji", k64, q64)
+        ds = np.einsum("bjhd,bihd->bhji", v64, do64)
+        want = (np.einsum("bhji,bihd->bjhd", ds, q64), np.einsum("bhji,bihd->bjhd", s, do64))
+        fn = roofline.dkv_products
+    else:
+        ds = np.einsum("bihd,bjhd->bhij", q64, k64) + np.einsum("bihd,bjhd->bhij", do64, v64)
+        want = (np.einsum("bhij,bjhd->bihd", ds, k64),)
+        fn = lambda *a: (roofline.dq_products(*a),)
+    before = dict(_kernels.LAUNCHES)
+    got = fn(*(torch.from_numpy(a) for a in (q, k, v, do)))
+    assert _kernels.LAUNCHES == before
+    for g, w in zip(got, want):
+        _hold64(g, w)
+    with pytest.raises(ValueError, match="must divide"):
+        fn(*(torch.from_numpy(a[:, :64]) for a in (q, k, v, do)))
+
+
 @pytest.mark.parametrize("B,H_,T", [(1, 2, 128), (2, 1, 384)])
 def test_int8_products_plain_matches_an_int64_product(B, H_, T):
     """#9's products alone: o = m + p8·v8 per head, with S = q8·k8ᵀ, m its
