@@ -83,14 +83,15 @@ toolkit and g++. It
      three kernels timed beside its plain version, its bound and (the
      forward) SDPA, and its launch counts;
  11. roofline probes (`omnibiote_tpu_torch.probes`): the four probe
-     kernels (#1's two products alone and k pre-transposed or not, on wgmma
-     and TMA; the dkv product mix on mma.sync; the score product summed over
-     heads as a wgmma GEMM) and #1's own kernel with its products alone
+     kernels (#1's two products alone and k pre-transposed or not, the dkv
+     product mix, all on wgmma and TMA; the score product summed over heads
+     as a wgmma GEMM) and #1's own kernel with its products alone
      (`fwd_products`) against their plain versions at H=2, T 256, 512 and
      1024, at ragged T (B=2, T 192 and 320, cta_q 64, the last 128-row kv
-     tile or 256-column score tile past its bounds) and at the probes' shape
-     B=8, T=1024, H=8, with 64- and 128-row CTAs, #10/#12 persistent and
-     one CTA a work item; each timed (CUDA graphs, and CUDA events over
+     tile or 256-column score tile past its bounds; the dkv mix at T=384
+     with kv tiles of 96 and 192 rows and 64-row q chunks) and at the
+     probes' shape B=8, T=1024, H=8, with 64- and 128-row CTAs, #10/#11/#12
+     persistent and one CTA a work item; each timed (CUDA graphs, and CUDA events over
      back-to-back calls, as the probe tables time them) beside its plain version, its
      bound and a PyTorch library call, #13 against both layouts of k, #10
      persistent against one CTA an item and against `fwd_products`; #2's
@@ -208,19 +209,24 @@ def build():
         spm.result()
     print(f"build: {time.time() - t0:.1f} s (nvcc sm_90a: "
           f"{', '.join(logs) or 'up to date'}; g++ tokenizer)")
-    # one line a kernel instance: template arguments, registers, spills
-    spills = {}
+    # one line a kernel instance: template arguments, registers, spills;
+    # and the instances ptxas serialised (its C7511 "wgmma.mma_async
+    # instructions are serialized" note)
+    spills, serialised = {}, set()
+    kernel_re = (r"_ZN[\w]*?\d+(mh_\w+?|rope_rows_\w+?|dq_epilogue|dots_wgmma|dots_n_wgmma|"
+                 r"scores_wgmma)ILi(\d+)E((?:Lb[01]E|Li\d+E)*)")
     for name, log in logs.items():
         entry = spill = stack = None
         for line in log.splitlines():
-            m = re.search(r"Compiling entry function '_ZN[\w]*?\d+(mh_\w+?|rope_rows_\w+?|"
-                          r"dq_epilogue|dots_wgmma|dots_n_bf16|scores_wgmma)ILi(\d+)E"
-                          r"((?:Lb[01]E)*)", line)
+            m = re.search(r"Compiling entry function '" + kernel_re, line)
             m8 = re.search(r"Compiling entry function '_ZN[\w]*?\d+(int8_fwd|quant_qk|"
                            r"quant_v)I(f|i|13__nv_bfloat16)((?:Lb[01]E)*)E", line)
-            if m:
-                flags = re.findall(r"Lb([01])E", m.group(3))
-                entry = f"{m.group(1)}<{', '.join([m.group(2), *flags])}>"
+            if "C7511" in line:
+                mc = re.search(kernel_re, line)
+                serialised.add(f"{name}: {mc.group(1) if mc else line.strip()[:160]}")
+            elif m:
+                args = re.findall(r"L[bi](\d+)E", m.group(3))
+                entry = f"{m.group(1)}<{', '.join([m.group(2), *args])}>"
             elif m8:
                 ty = {"f": "float", "i": "int"}.get(m8.group(2), "bf16")
                 flags = re.findall(r"Lb([01])E", m8.group(3))
@@ -238,10 +244,16 @@ def build():
                     spills[f"{name}: {entry}"] = int(spill)
                 entry = None
     # a spill makes ptxas serialise the wgmma products around it: the
-    # backward's wgmma kernels (fused, dkv and dq) must show none
-    spilled = {k: v for k, v in spills.items()
-               if k.split(": ")[1].startswith(("mh_bwd_fused_bf16", "mh_bwd_dq_wgmma")) and v}
-    check(not spilled, f"backward wgmma instances spill: {spilled}")
+    # backward's wgmma kernels (fused, dkv and dq) and the wgmma probes must
+    # show none, and the probes no serialised products either
+    wgmma_kernels = ("mh_bwd_fused_bf16", "mh_bwd_dq_wgmma", "dots_wgmma", "dots_n_wgmma",
+                     "scores_wgmma")
+    spilled = {k: v for k, v in spills.items() if k.split(": ")[1].startswith(wgmma_kernels) and v}
+    check(not spilled, f"wgmma instances spill: {spilled}")
+    print(f"  instances with wgmma products serialised by ptxas (C7511): "
+          f"{sorted(serialised) or 'none'}")
+    check(not any(k.split(": ")[1].startswith(wgmma_kernels[2:]) for k in serialised),
+          f"ptxas serialised a wgmma probe's products: {sorted(serialised)}")
     # the bf16 forward's and backward kernels' CTAs: 384 threads, setmaxnreg
     # 24 (producer) / 240 (consumers), dynamic shared memory as their launches
     # ask
@@ -2032,6 +2044,10 @@ def _probe_calls(q, k, v, kx, bq, bkv, cta):
             calls.append(("roofline_dots_n",
                           lambda nd=nd: r1.dots_n(q, k, v, bq, bkv, nd, cta_q=cta),
                           lambda nd=nd: r1.dots_n_plain(q, k, v, bq, bkv, nd)))
+            calls.append(("roofline_dots_n",   # one CTA a work item
+                          lambda nd=nd: r1._dots_n_kernel(q, k, v, bq, bkv, nd, cta_q=cta,
+                                                          persistent=False),
+                          lambda nd=nd: r1.dots_n_plain(q, k, v, bq, bkv, nd)))
     for kt in (False, True):
         kk = kx if kt else k
         calls.append(("roofline2_dots",
@@ -2104,7 +2120,9 @@ def probe_phase():
     plib = _kernels.load_library("roofline_probes")
     tiles = {"roofline.KERNEL_KV_TILE": (r1.KERNEL_KV_TILE, plib.obt_roofline_tile(0)),
              "roofline2.SCORES_N_TILE": (r2.SCORES_N_TILE, plib.obt_roofline_tile(1)),
-             "roofline2.SCORES_K_STEP": (r2.SCORES_K_STEP, plib.obt_roofline_tile(2))}
+             "roofline2.SCORES_K_STEP": (r2.SCORES_K_STEP, plib.obt_roofline_tile(2)),
+             "roofline.DOTS_N_CHUNK": (r1.DOTS_N_CHUNK, plib.obt_roofline_tile(3)),
+             "roofline.DOTS_N_CHUNK_NARROW": (r1.DOTS_N_CHUNK_NARROW, plib.obt_roofline_tile(4))}
     for name_, (py, built) in tiles.items():
         check(py == built, f"{name_} = {py}, the library's tile is {built}")
     print(f"probe tiles (Python copy, library): {tiles}")
@@ -2136,9 +2154,21 @@ def probe_phase():
                          r2.scores_plain(qs, kk, 64, bkv, kt),
                          f"B=2 T={T} H={H} block_kv={bkv} kt={int(kt)}")
                     n += 1
+    # the dkv mix at kv tiles of 96 and 192 rows (TMA rows at any offset) and
+    # block_q 64 or 192 (64-row q chunks), persistent and one CTA an item
+    rng = np.random.default_rng(384)
+    q, k, v = (r1.normal_bf16(rng, (2, 384, 2, 128), "cuda") * 0.1 for _ in range(3))
+    for bq, bkv, nd, cta in ((64, 96, 3, 64), (192, 192, 3, 64), (192, 192, 4, 64),
+                             (128, 192, 3, 64), (128, 192, 3, 128)):
+        want = r1.dots_n_plain(q, k, v, bq, bkv, nd)
+        for pe in (True, False):
+            hold("roofline_dots_n", r1._dots_n_kernel(q, k, v, bq, bkv, nd, cta_q=cta,
+                                                      persistent=pe), want,
+                 f"B=2 T=384 H=2 bq={bq} bkv={bkv} {nd} products cta={cta} persistent={pe}")
+            n += 1
     torch.cuda.synchronize()
-    print(f"probe kernels vs plain: {n} small cases (H=2, T 256, 512 and 1024; ragged T 192 "
-          f"and 320) within {PROBE_TOL} of max|o|")
+    print(f"probe kernels vs plain: {n} small cases (H=2, T 256, 512 and 1024; ragged T 192, "
+          f"320 and 384) within {PROBE_TOL} of max|o|")
 
     # the probes' shape and input (B=8, T=1024, H=8, unit normals, seed 0),
     # q passed as q, k and v as both tables do
@@ -2183,7 +2213,7 @@ def probe_phase():
     nbytes = 4 * B * T * HD * 2                 # q, k, v read, o written
     fwd = 4.0 * B * H * T * T * D
     j0 = T - 1024
-    kern = dict(roofline_dots="dots_wgmma", roofline_dots_n="dots_n_bf16",
+    kern = dict(roofline_dots="dots_wgmma", roofline_dots_n="dots_n_wgmma",
                 roofline2_dots="dots_wgmma", roofline2_scores="scores_wgmma")
     timed = {   # name: (what the row times, kernel, plain, library, flops, bytes)
         "roofline_dots": (
@@ -2192,8 +2222,8 @@ def probe_phase():
             lambda: r1.dots_only_plain(q, q, q, 512, 1024),
             lambda: torch.matmul(torch.matmul(qb, qb.transpose(1, 2)), qb), fwd, nbytes),
         "roofline_dots_n": (
-            "dots_n 4 products bq=bkv=512 cta=64",
-            lambda: r1.dots_n(q, q, q, 512, 512, 4, cta_q=64),
+            f"dots_n 4 products bq=bkv=512 cta={PROBE_ROW_CTA} persistent",
+            lambda: r1.dots_n(q, q, q, 512, 512, 4, cta_q=PROBE_ROW_CTA),
             lambda: r1.dots_n_plain(q, q, q, 512, 512, 4), None, 2 * fwd, nbytes),
         "roofline2_dots": (
             f"dots kt=1 cta={PROBE_ROW_CTA} persistent",
@@ -2225,6 +2255,11 @@ def probe_phase():
                     q, kk, q, kt=kt, cta_q=cta, counter="roofline2_dots", persistent=pe))
             variants[f"scores cta={cta} persistent kt={int(kt)}"] = graph_ms(
                 lambda: r2.scores_kernel(q, kk, 1024, kt, cta_q=cta))
+        for nd in (3, 4):
+            for pe in (True, False):
+                variants[f"dots_n {nd} products cta={cta} "
+                         f"{'persistent' if pe else 'a CTA an item'}"] = graph_ms(
+                    lambda: r1._dots_n_kernel(q, q, q, 512, 512, nd, cta_q=cta, persistent=pe))
     fwd_products_ms = graph_ms(lambda: r1.fwd_products(q, q, q))
     scores_lib_kt1_ms = graph_ms(lambda: torch.matmul(x, kx[:, :, j0:j0 + HD]))
     for name_, ms in variants.items():
@@ -2236,6 +2271,14 @@ def probe_phase():
           f"alone (fwd_products) {fwd_products_ms:.4f}; two torch.matmul "
           f"{library_ms['roofline_dots']:.4f}; #12/#10 (kt=1/kt=0, cta 128 persistent) "
           f"{variants['dots cta=128 persistent kt=1'] / variants['dots cta=128 persistent kt=0']:.3f}")
+    v11 = {k_[7:]: ms for k_, ms in variants.items() if k_.startswith("dots_n ")}
+    print(f"#11 at the probes' shape (graphs, bq=bkv=512): 4 products "
+          f"{v11['4 products cta=128 persistent']:.4f} / {v11['4 products cta=64 persistent']:.4f}"
+          f" ms (cta 128 / 64, persistent), one CTA an item "
+          f"{v11['4 products cta=128 a CTA an item']:.4f} / {v11['4 products cta=64 a CTA an item']:.4f};"
+          f" 3 products {v11['3 products cta=128 persistent']:.4f} / "
+          f"{v11['3 products cta=64 persistent']:.4f}; bound {_bound(2 * fwd, nbytes)[0]:.4f} / "
+          f"{_bound(1.5 * fwd, nbytes)[0]:.4f} (4 / 3 products)")
     print(f"#13 at the probes' shape (graphs): kt=0 {variants['scores cta=128 persistent kt=0']:.4f}"
           f" ms, kt=1 {variants['scores cta=128 persistent kt=1']:.4f} (cta 128 persistent); "
           f"torch.matmul kt=0 {library_ms['roofline2_scores']:.4f}, kt=1 {scores_lib_kt1_ms:.4f}")
@@ -2293,16 +2336,19 @@ def probe_phase():
           f"({1.5 * fwd / (split_graph_ms['dq_products'] * 1e-3) / 1e12:.1f} TFLOP/s), together "
           f"{split_graph_ms['dkv_products'] + split_graph_ms['dq_products']:.4f} against "
           f"bwd_products {split_graph_ms['bwd_products']:.4f}; events {dkv_ev:.4f} / "
-          f"{dq_ev:.4f}; the mma.sync "
-          f"dkv mix #11 (4 products) {table['dots-only 4-dot bq=512 bkv=512 cta=64']:.4f} ms (events); "
+          f"{dq_ev:.4f}; the dkv mix #11 (dots_n_wgmma, 4 products, graphs) cta 128 "
+          f"{v11['4 products cta=128 persistent']:.4f} / cta 64 "
+          f"{v11['4 products cta=64 persistent']:.4f} ms, 3 products cta 64 "
+          f"{v11['3 products cta=64 persistent']:.4f}; events at the table's line "
+          f"{table['dots-only 4-dot bq=512 bkv=512 cta=64']:.4f}; "
           f"products vs plain max|d| {split_prod_err:.3e}")
     bprod = table["products  bwd #2's kernel (wgmma, 64x128 tiles)"]
     print(f"#2 dense at B={B} T={T} (no dropout, no RoPE) {bwd_full[0.0]:.4f} ms = its "
           f"products alone (wgmma, TMA ring, dq reduce-add, its own CTA) {bprod:.4f} ms "
           f"({bprod / bwd_full[0.0]:.3f}, {2.5 * fwd / (bprod * 1e-3) / 1e12:.1f} TFLOP/s) "
           f"+ scores, softmax and ds {bwd_full[0.0] - bprod:.4f} ms; with RoPE and dropout "
-          f"{TRAIN_DROPOUT} {bwd_full[TRAIN_DROPOUT]:.4f} ms; the mma.sync dkv mix #11 "
-          f"(4 products) {table['dots-only 4-dot bq=512 bkv=512 cta=64']:.4f} ms; products "
+          f"{TRAIN_DROPOUT} {bwd_full[TRAIN_DROPOUT]:.4f} ms; the dkv mix #11 (4 products, "
+          f"cta 128, graphs) {v11['4 products cta=128 persistent']:.4f} ms; products "
           f"vs plain max|d| {bprod_err:.3e}")
 
     # the probe tables' lines the rows were read from before the wgmma

@@ -165,7 +165,7 @@ _SIGNATURES = {
             _c.c_void_p,                               # o
             _c.c_int, _c.c_int, _c.c_int, _c.c_int,    # B, T, H, D
             _c.c_int, _c.c_int, _c.c_int,              # block_q, block_kv, n_dots
-            _c.c_int, _c.c_void_p]),                   # cta_q, stream
+            _c.c_int, _c.c_int, _c.c_void_p]),         # cta_q, persistent, stream
         "obt_roofline_scores": (_c.c_int, [
             _c.c_void_p, _c.c_void_p, _c.c_void_p,     # q, k, o
             _c.c_int, _c.c_int, _c.c_int, _c.c_int,    # B, T, H, D

@@ -13,7 +13,8 @@
 //   dots_n: per q tile qt (block_q rows) and kv tile kt (block_kv rows),
 //           S = round(Q_qt K_kt^T + Q_qt V_kt^T) and o[qt*block_q + r] +=
 //           sum_i S[i, r] (Q_qt[i] (+ V_kt[i] with 4 products)), r < block_q
-//           a row local to the kv tile                                 (#11)
+//           a row local to the kv tile; the two score products summed in
+//           fp32 and rounded once, o summed in fp32 over the kv tiles (#11)
 //   scores: o[i, c] = round(sum_h (q_h k_h^T)[i, T - block_kv + c]), c < H*D:
 //           the last kv tile only, as the TPU kernel's last write      (#13)
 //
@@ -43,14 +44,25 @@
 //     TMA. With KT, k's tile arrives as [depth][column] rows and is read
 //     MN-major. Its CTAs are persistent, one a multiprocessor walking the
 //     tiles (one CTA a tile measured slower: PERF.md §6).
-//   * dots_n_bf16 (#11) is the dkv kernel's CTA (mh_flash_bwd_kernels.cuh,
-//     WITH_DQ = false) on the mma.sync pipeline, cp.async and ldmatrix: a
-//     block owns BR output rows r of a (b, h, q tile), keeps its
-//     accumulator in fp32 registers, holds the K and V rows r of one kv tile
-//     in shared memory and walks the q tile's rows i in 32-row chunks
-//     through a two-stage ring: S^T and the second score product as two
-//     accumulators, then S^T.Q (and S^T.V) with the transposing ldmatrix.
-//     The kv tiles follow one another, each reloading its K and V rows.
+//   * dots_n_wgmma (#11) is the dkv kernel's consumer scheme
+//     (mh_flash_bwd_kernels.cuh, WITH_DQ = false) on the kv-local rows. A
+//     work item is (b, h, q tile, BR kv-local rows r); BR / 64 consumer
+//     warpgroups own 64 rows r and a 64 x 128 fp32 accumulator each, which
+//     lives across the kv tiles. A producer thread keeps, by TMA, a K/V
+//     buffer (the kv tile's rows r of K and V, reloaded per kv tile; two
+//     buffers where shared memory allows) and a ring of the q tile's
+//     chunks of kNChunk rows (with 4 products also V's rows of the kv tile
+//     at the same offsets) full. Per chunk a consumer forms
+//     S^T = K_r.Q_i^T + V_r.Q_i^T in ONE fp32 accumulator (two runs of
+//     wgmma m64n128k16 on the same K-major B = Q_i: the TPU kernel adds the
+//     two products in fp32 before it rounds), rounds S^T in registers as
+//     the A operand of acc += S^T.Q_i (and S^T.V_i) by wgmma m64n128k16
+//     with B through the transpose bit, and issues chunk i + 1's scores
+//     behind chunk i's products. o leaves once, through shared memory, by
+//     TMA stores. A chunk is 128 q rows where block_q allows (64-row
+//     chunks, with their m64n64 score products, measured slower), else 64:
+//     a box past the q tile would read the next tile's rows, not zeros. The
+//     CTA is persistent, or launched one a work item (slower: PERF.md §6).
 // The tensor maps are 3-D (batch, row, column), so a kv tile that runs past
 // T (T is a multiple of 64, the kv tile 128 rows) reads zeros, which add
 // nothing to either product, and never the next batch row. BQ / BM / BR
@@ -59,8 +71,11 @@
 //
 // Bound. At the probes' shape (B=8, T=1024, H=8, bf16) dots does
 // 4*B*T^2*H*D = 34.4 GFLOP (34.7 us at 989 TFLOP/s) on 67 MB (20 us at
-// 3.35 TB/s); dots_n 1.5x or 2x that; scores 2*B*T*(H*D)^2 = 17.2 GFLOP
-// (17.4 us) on 50 MB (15 us): all bound by operations.
+// 3.35 TB/s); dots_n 2x that with 4 products (68.7 GFLOP, 69.5 us) and
+// 1.5x with 3 (52.1 us) on the same bytes; scores 2*B*T*(H*D)^2 = 17.2
+// GFLOP (17.4 us) on 50 MB (15 us): all bound by operations. What the
+// designs do about it: keep the tensor cores fed by wgmma from swizzled
+// TMA tiles, with loads and the previous step's products in flight.
 #include <atomic>
 
 #include "flash_common.cuh"
@@ -72,12 +87,8 @@ using namespace obt;
 using bf16 = __nv_bfloat16;
 
 constexpr int D = 128;        // head dim of the probes
-constexpr int RS = D + 8;     // row stride of a [row][D] tile (elements), padded
-constexpr int CH = D / 8;     // 16-byte chunks of a row
 constexpr int NK = D / 16;    // k-steps over the head dim
-constexpr int NN = D / 8;     // n-tiles over the head dim
 constexpr int T_MULTIPLE = 64;  // every probe takes T a multiple of 64
-constexpr int BI = 32;        // q rows a step of dots_n (the dkv kernel's q tile)
 
 // the dynamic shared memory of a kernel, aligned for the swizzled panels
 template <typename Smem>
@@ -109,6 +120,18 @@ __device__ __forceinline__ void acc_to_panels(unsigned char* tile, uint32_t pane
                                    4 * t) =
           pack_bf16(acc[4 * n + 2 * half], acc[4 * n + 2 * half + 1]);
     }
+}
+
+// The first KK k-steps of a consumer's fp32 accumulator (the wgmma layout
+// above) rounded to bf16 as the A fragments of a product over its columns:
+// k-step kk is column blocks 2 kk and 2 kk + 1
+template <int KK, int NA, int NS>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[NA][4], const float (&s)[NS]) {
+  static_assert(KK <= NA && 8 * KK <= NS, "k-steps past the accumulator");
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) a[kk][j] = pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
 }
 
 // ---------------------------------------------------------------------------
@@ -239,17 +262,8 @@ __global__ void __launch_bounds__(128 * (BQ / 64 + 1), 1) dots_wgmma(
                                  !(first && kk == 0));
         wgmma_commit();
       };
-      // S rounded to bf16: the A fragments of S . V (k-step kk is score
-      // blocks 2 kk and 2 kk + 1)
-      auto pack = [&]() {
-#pragma unroll
-        for (int kk = 0; kk < kKv / 16; ++kk) {
-          p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-          p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-          p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-          p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-        }
-      };
+      // S rounded to bf16: the A fragments of S . V
+      auto pack = [&]() { acc_to_a<kKv / 16>(p, s); };
 
       mbar_wait(&sm.qfull[qb], (it >> 1) & 1);
       int st = g % kDotsStages;
@@ -431,152 +445,240 @@ __global__ void __launch_bounds__(128 * (BM / 64 + 1), 1) scores_wgmma(
 }
 
 // ---------------------------------------------------------------------------
-// #11's mma.sync helpers
-// ---------------------------------------------------------------------------
-// ROWS rows of D elements, src[row * rs], into dst[row * RS]: 16 bytes a
-// thread a step
-template <int ROWS, int NT>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, size_t rs, int tid) {
-  for (int it = tid; it < ROWS * CH; it += NT) {
-    const int row = it / CH, c8 = (it % CH) * 8;
-    cp_async16(dst + row * RS + c8, src + row * rs + c8);
-  }
-}
-
-// A fragments of k-step kk from the fp32 accumulator of two n-tiles
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&lo)[4], const float (&hi)[4]) {
-  a[0] = pack_bf16(lo[0], lo[1]);
-  a[1] = pack_bf16(lo[2], lo[3]);
-  a[2] = pack_bf16(hi[0], hi[1]);
-  a[3] = pack_bf16(hi[2], hi[3]);
-}
-
-// acc (16 rows x D) += a (16 x 16) . x (16 rows of [row][RS], k-step kk)
-__device__ __forceinline__ void acc_rows(float (&acc)[NN][4], const uint32_t (&a)[4],
-                                         const bf16* x, int kk, int lane) {
-#pragma unroll
-  for (int np = 0; np < NN / 2; ++np) {
-    uint32_t bf[4];
-    ldmatrix_x4_trans(bf, x + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * RS + np * 16
-                              + (lane >> 4) * 8);
-    mma_bf16(acc[2 * np], a, bf[0], bf[1]);
-    mma_bf16(acc[2 * np + 1], a, bf[2], bf[3]);
-  }
-}
-
-// rows g and g + 8 of a warp's accumulator (fp32) to bf16 at dst (row
-// stride rs); fragment layout of m16n8k16 as in mh_flash_fwd.cu
-template <int N>
-__device__ __forceinline__ void store_rows(bf16* dst, size_t rs, const float (&acc)[N][4], int t4) {
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-    const int col = n * 8 + 2 * t4;
-    *reinterpret_cast<uint32_t*>(dst + col) = pack_bf16(acc[n][0], acc[n][1]);
-    *reinterpret_cast<uint32_t*>(dst + 8 * rs + col) = pack_bf16(acc[n][2], acc[n][3]);
-  }
-}
-
-// ---------------------------------------------------------------------------
 // #11: the dkv kernel's product mix (3 or 4 products a tile)
 // ---------------------------------------------------------------------------
+// A chunk is kNChunk q rows where block_q is a multiple of it, else
+// kNChunkNarrow (block_q is a multiple of the CTA height, 64 or 128). The
+// shared memory holds NKV K/V buffers of BR rows, a ring of NST chunk
+// stages sized for kNChunk rows and the consumers' o tiles, within kNSmem:
+// two K/V buffers where two ring stages still fit beside them, then as many
+// stages (up to 4) as fit.
+constexpr int kNChunk = 128, kNChunkNarrow = 64;
+constexpr size_t kNSmem = 224 * 1024;
+
 template <int BR, bool V4>
-constexpr size_t dots_n_smem_bytes() {
-  // K and V rows r of the kv tile; two stages of Q (and V) rows i
-  return (2 * BR + 2 * BI * (V4 ? 2 : 1)) * RS * sizeof(bf16);
+struct DotsNShape {
+  static constexpr size_t kv = 2 * BR * D * sizeof(bf16);  // K and V rows r
+  static constexpr size_t stage = (V4 ? 2 : 1) * kNChunk * D * sizeof(bf16);
+  static constexpr size_t o = BR * D * sizeof(bf16);
+  static constexpr int NKV = 2 * kv + o + 2 * stage <= kNSmem ? 2 : 1;
+  static constexpr int fit = (int)((kNSmem - NKV * kv - o) / stage);
+  static constexpr int NST = fit < 4 ? fit : 4;
+  static_assert(NST >= 2, "two ring stages must fit");
+};
+
+template <bool V4, int NST>
+struct DotsNViStages {  // V's chunk rows of the ring stages (4 products)
+  alignas(1024) bf16 v[NST][kNChunk * D];
+};
+template <int NST>
+struct DotsNViStages<false, NST> {};
+
+template <int BR, bool V4>
+struct DotsNSmem {
+  static constexpr int NKV = DotsNShape<BR, V4>::NKV, NST = DotsNShape<BR, V4>::NST;
+  alignas(1024) bf16 k[NKV][BR * D];
+  alignas(1024) bf16 v[NKV][BR * D];
+  alignas(1024) bf16 q[NST][kNChunk * D];
+  alignas(1024) bf16 o[BR * D];  // a consumer's 64 rows: two 64-column panels
+  uint64_t kvfull[NKV], kvempty[NKV], full[NST], empty[NST];
+  DotsNViStages<V4, NST> vi;  // last: empty with 3 products
+};
+
+// S^T (64 kv-local rows x CW chunk rows, fp32) = K_r.Q_i^T + V_r.Q_i^T in
+// one accumulator: the consumer's rows of the K/V buffer (64-column panels
+// `kv_panel` bytes apart) against the chunk's CW rows, both K-major
+template <int CW>
+__device__ __forceinline__ void dots_n_scores(float (&s)[CW / 2], uint32_t k_addr,
+                                              uint32_t v_addr, uint32_t kv_panel,
+                                              uint32_t q_addr) {
+  wgmma_fence();
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      const uint64_t da = smem_desc((m ? v_addr : k_addr) + (kk >> 2) * kv_panel + (kk & 3) * 32,
+                                    16, kSwizzleAtom);
+      const uint64_t db =
+          smem_desc(q_addr + (kk >> 2) * (CW * 128) + (kk & 3) * 32, 16, kSwizzleAtom);
+      if constexpr (CW == 128)
+        wgmma_ss_m64n128k16(s, da, db, m > 0 || kk > 0);
+      else
+        wgmma_ss_m64n64k16<0, 0>(s, da, db, m > 0 || kk > 0);
+    }
+  wgmma_commit();
 }
 
-template <int BR, bool V4>
-__global__ void __launch_bounds__(2 * BR) dots_n_bf16(const bf16* __restrict__ q,
-                                                      const bf16* __restrict__ k,
-                                                      const bf16* __restrict__ v,
-                                                      bf16* __restrict__ o, int T, int H,
-                                                      int block_q, int block_kv) {
-  constexpr int NT = 2 * BR;  // BR / 16 warps
-  constexpr int NSI = BI / 8;  // n-tiles of a score step (q columns i)
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Kr = reinterpret_cast<bf16*>(smem);  // [BR][RS]
-  bf16* Vr = Kr + BR * RS;                   // [BR][RS]
-  bf16* Qs = Vr + BR * RS;                   // [2][BI][RS]
-  bf16* Vi = Qs + 2 * BI * RS;               // [2][BI][RS], with V4
+// acc (64 x D, fp32) (+)= S^T.X_i for the chunk's CW rows of X (Q_i or
+// V_i): A = S^T's bf16 fragments, B = X_i through the transpose bit (16 rows
+// a k-step); `first` overwrites acc
+template <int CW>
+__device__ __forceinline__ void dots_n_acc(float (&acc)[D / 2], const uint32_t (&p)[CW / 16][4],
+                                           uint32_t x_addr, bool first) {
+#pragma unroll
+  for (int kk = 0; kk < CW / 16; ++kk)
+    wgmma_rs_m64n128k16_tb(acc, p[kk],
+                           smem_desc(x_addr + kk * 16 * 128, CW * 128, kSwizzleAtom),
+                           !(first && kk == 0));
+}
 
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const size_t rs = (size_t)H * D;
-  const size_t base = (size_t)b * T * rs + (size_t)h * D;
-  const int qt = blockIdx.x * BR / block_q;      // this block's q tile
-  const int rb = blockIdx.x * BR % block_q;      // and its first kv-local row
-  const int kw = warp * 16;                      // the warp's rows in the block
-  const int n_i = block_q / BI, n_kv = T / block_kv;
+// q, k and v (B, T, H*D) as 3-D maps: q and (4 products) V's chunk rows with
+// boxes of CW rows, K's and V's rows r with boxes of BR rows; o with boxes of
+// 64 rows. The chunk width CW is a template argument: chosen at run time in
+// one instance, it made ptxas serialise the wgmma products of the 3-product
+// kernels (its warning C7511).
+template <int BR, bool V4, int CW>
+__global__ void __launch_bounds__(128 * (BR / 64 + 1), 1) dots_n_wgmma(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vrmap, const __grid_constant__ CUtensorMap vimap,
+    const __grid_constant__ CUtensorMap omap, int B, int T, int H, int block_q, int block_kv) {
+  using Smem = DotsNSmem<BR, V4>;
+  constexpr int NC = BR / 64, NKV = Smem::NKV, NST = Smem::NST;
+  constexpr uint32_t kRPanel = BR * 128;  // bytes of a K or V panel
+  extern __shared__ unsigned char smem_raw[];
+  Smem& sm = aligned_smem<Smem>(smem_raw);
 
-  auto load_chunk = [&](int st, int kt, int ic) {
-    load_rows<BI, NT>(Qs + st * BI * RS, q + base + (size_t)(qt * block_q + ic * BI) * rs, rs, tid);
-    if constexpr (V4)
-      load_rows<BI, NT>(Vi + st * BI * RS, v + base + (size_t)(kt * block_kv + ic * BI) * rs, rs, tid);
+  const int tid = threadIdx.x;
+  const int n_rows = T / BR, n_items = B * H * n_rows;
+  const int n_kv = T / block_kv, n_c = block_q / CW, n_steps = n_kv * n_c;
+  // batch row, head, the q tile's first row and the first kv-local row of a
+  // work item: row blocks fastest, then heads
+  auto item_of = [&](int item, int& b, int& h, int& q0, int& rb) {
+    const int row = item % n_rows * BR;
+    h = item / n_rows % H;
+    b = item / (n_rows * H);
+    q0 = row / block_q * block_q;
+    rb = row - q0;
   };
+  if (tid == 0) {
+    for (int i = 0; i < NKV; ++i) {
+      mbar_init(&sm.kvfull[i], 1);
+      mbar_init(&sm.kvempty[i], 4 * NC);
+    }
+    for (int st = 0; st < NST; ++st) {
+      mbar_init(&sm.full[st], 1);
+      mbar_init(&sm.empty[st], 4 * NC);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-  float acc[NN][4];
-#pragma unroll
-  for (int n = 0; n < NN; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  for (int kt = 0; kt < n_kv; ++kt) {
-    // the previous kv tile's last step ended in a barrier: every buffer is free
-    const size_t jr = (size_t)kt * block_kv + rb;
-    load_rows<BR, NT>(Kr, k + base + jr * rs, rs, tid);
-    load_rows<BR, NT>(Vr, v + base + jr * rs, rs, tid);
-    load_chunk(0, kt, 0);
-    cp_async_commit();
-    for (int ic = 0; ic < n_i; ++ic) {
-      const int st = ic & 1;
-      if (ic + 1 < n_i) load_chunk(st ^ 1, kt, ic + 1);
-      cp_async_commit();
-      cp_async_wait_one();
-      __syncthreads();
-      const bf16* Qt = Qs + st * BI * RS;
-
-      // S^T = K_r.Q_i^T and the second score product V_r.Q_i^T: 16 rows r x
-      // BI columns i a warp, two fp32 accumulators added after, as the TPU
-      // kernel adds its two products
-      float s[NSI][4], s2[NSI][4];
-#pragma unroll
-      for (int n = 0; n < NSI; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = s2[n][e] = 0.f;
-#pragma unroll
-      for (int p = 0; p < NK / 2; ++p) {
-        uint32_t ka0[4], ka1[4], va0[4], va1[4];
-        const int arow = (kw + (lane & 15)) * RS + p * 32 + (lane >> 4) * 8;
-        ldmatrix_x4(ka0, Kr + arow);
-        ldmatrix_x4(ka1, Kr + arow + 16);
-        ldmatrix_x4(va0, Vr + arow);
-        ldmatrix_x4(va1, Vr + arow + 16);
-#pragma unroll
-        for (int n = 0; n < NSI; ++n) {
-          uint32_t bq[4];
-          ldmatrix_x4(bq, Qt + (n * 8 + (lane & 7)) * RS + p * 32 + (lane >> 3) * 8);
-          mma_bf16(s[n], ka0, bq[0], bq[1]);
-          mma_bf16(s[n], ka1, bq[2], bq[3]);
-          mma_bf16(s2[n], va0, bq[0], bq[1]);
-          mma_bf16(s2[n], va1, bq[2], bq[3]);
+  if (tid < 128) {
+    // ---- producer: one thread keeps the ring and the K/V buffers full ----
+    if constexpr (NC == 2) setmaxnreg_dec<24>();
+    if (tid == 0) {
+      constexpr uint32_t chunk_bytes = (V4 ? 2u : 1u) * CW * D * sizeof(bf16);
+      int gk = 0, gc = 0;  // K/V buffers and chunks loaded so far
+      for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+        int b, h, q0, rb;
+        item_of(item, b, h, q0, rb);
+        for (int kt = 0; kt < n_kv; ++kt) {
+          for (int c = 0; c < n_c; ++c, ++gc) {
+            const int st = gc % NST;
+            if (gc >= NST) mbar_wait(&sm.empty[st], ((gc / NST) - 1) & 1);
+            mbar_arrive_expect_tx(&sm.full[st], chunk_bytes);
+            for (int pn = 0; pn < D / kPanelCols; ++pn) {
+              tma_load_3d(&sm.q[st][pn * CW * kPanelCols], &qmap, h * D + pn * kPanelCols,
+                          q0 + c * CW, b, &sm.full[st]);
+              if constexpr (V4)
+                tma_load_3d(&sm.vi.v[st][pn * CW * kPanelCols], &vimap, h * D + pn * kPanelCols,
+                            kt * block_kv + c * CW, b, &sm.full[st]);
+            }
+            if (c == 0) {
+              // the kv tile's K and V rows r, after its first chunk: with one
+              // buffer, that chunk's stage frees before the buffer does
+              const int kb = gk % NKV;
+              if (gk >= NKV) mbar_wait(&sm.kvempty[kb], ((gk / NKV) - 1) & 1);
+              mbar_arrive_expect_tx(&sm.kvfull[kb], 2u * BR * D * sizeof(bf16));
+              for (int pn = 0; pn < D / kPanelCols; ++pn) {
+                tma_load_3d(&sm.k[kb][pn * BR * kPanelCols], &kmap, h * D + pn * kPanelCols,
+                            kt * block_kv + rb, b, &sm.kvfull[kb]);
+                tma_load_3d(&sm.v[kb][pn * BR * kPanelCols], &vrmap, h * D + pn * kPanelCols,
+                            kt * block_kv + rb, b, &sm.kvfull[kb]);
+              }
+              ++gk;
+            }
+          }
         }
       }
-#pragma unroll
-      for (int n = 0; n < NSI; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] += s2[n][e];
-
-      // acc += S^T (bf16, from the fragments) . Q_i (+ S^T . V_i)
-#pragma unroll
-      for (int kk = 0; kk < BI / 16; ++kk) {
-        uint32_t sa[4];
-        pack_a(sa, s[2 * kk], s[2 * kk + 1]);
-        acc_rows(acc, sa, Qt, kk, lane);
-        if constexpr (V4) acc_rows(acc, sa, Vi + st * BI * RS, kk, lane);
-      }
-      __syncthreads();  // every warp is done with this stage
     }
+  } else {
+    // ---- consumers: 64 kv-local rows each ----
+    if constexpr (NC == 2) setmaxnreg_inc<240>();
+    const int wg = (tid >> 7) - 1, wt = tid & 127, warp = wt >> 5, lane = tid & 31;
+    unsigned char* o_tile = reinterpret_cast<unsigned char*>(sm.o) + wg * 64 * D * sizeof(bf16);
+    float acc[D / 2], s[CW / 2];
+    uint32_t p[CW / 16][4];
+
+    int gk = 0, gc = 0;  // K/V buffers and chunks consumed so far
+    for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+      int b, h, q0, rb;
+      item_of(item, b, h, q0, rb);
+      // step u of the item is kv tile u / n_c, chunk u % n_c: its K/V
+      // buffer and ring stage
+      auto kv_of = [&](int u) { return (gk + u / n_c) % NKV; };
+      auto st_of = [&](int u) { return (gc + u) % NST; };
+      // step u's scores, once its K/V rows and chunk are in
+      auto scores = [&](int u) {
+        const int kb = kv_of(u), st = st_of(u);
+        if (u % n_c == 0) mbar_wait(&sm.kvfull[kb], ((gk + u / n_c) / NKV) & 1);
+        mbar_wait(&sm.full[st], ((gc + u) / NST) & 1);
+        const uint32_t k_addr = shared_addr(sm.k[kb]) + wg * 64 * 128;
+        const uint32_t v_addr = shared_addr(sm.v[kb]) + wg * 64 * 128;
+        dots_n_scores<CW>(s, k_addr, v_addr, kRPanel, shared_addr(sm.q[st]));
+      };
+      // once step u's scores are done: the K/V buffer goes back after the kv
+      // tile's last chunk; S^T rounded to bf16 A fragments
+      auto scores_done = [&](int u) {
+        wgmma_wait<0>();
+        fence_regs(s);
+        if (u % n_c == n_c - 1) warp_arrive(&sm.kvempty[kv_of(u)], lane);
+        acc_to_a<CW / 16>(p, s);
+      };
+      // acc (+)= S^T.Q_i (+ S^T.V_i) of step u; the item's first overwrites
+      auto products = [&](int u) {
+        const int st = st_of(u);
+        wgmma_fence();
+        dots_n_acc<CW>(acc, p, shared_addr(sm.q[st]), u == 0);
+        if constexpr (V4) dots_n_acc<CW>(acc, p, shared_addr(sm.vi.v[st]), false);
+        wgmma_commit();
+      };
+
+      scores(0);
+      scores_done(0);
+      for (int u = 1; u < n_steps; ++u) {
+        products(u - 1);
+        scores(u);
+        wgmma_wait<1>();  // step u - 1's products are done
+        fence_regs(acc);
+        fence_regs(p);
+        warp_arrive(&sm.empty[st_of(u - 1)], lane);
+        scores_done(u);
+      }
+      products(n_steps - 1);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(p);
+      warp_arrive(&sm.empty[st_of(n_steps - 1)], lane);
+      gk += n_kv;
+      gc += n_steps;
+
+      // o through the consumer's tile by TMA stores, once the previous
+      // item's stores have read it
+      if (wt == 0) bulk_wait_read<0>();
+      named_bar_sync(1 + wg, 128);
+      acc_to_panels<D>(o_tile, 64 * 128, acc, warp, lane >> 2, lane & 3);
+      fence_async_shared();
+      named_bar_sync(1 + wg, 128);
+      if (wt == 0) {
+        for (int pn = 0; pn < D / kPanelCols; ++pn)
+          tma_store_3d(&omap, o_tile + pn * 64 * 128, h * D + pn * kPanelCols, q0 + rb + wg * 64,
+                       b);
+        bulk_commit();
+      }
+    }
+    if (wt == 0) bulk_wait_read<0>();  // the stores have read shared memory
   }
-  store_rows(o + base + (size_t)(qt * block_q + rb + kw + g) * rs, rs, acc, t4);
 }
 
 // ---------------------------------------------------------------------------
@@ -649,9 +751,27 @@ cudaError_t dots(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, in
 
 template <int BR, bool V4>
 cudaError_t dots_n(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int T, int H,
-                   int block_q, int block_kv, cudaStream_t st) {
-  return launch<dots_n_bf16<BR, V4>>(dim3(T / BR, H, B), 2 * BR, dots_n_smem_bytes<BR, V4>(),
-                                    st, q, k, v, o, T, H, block_q, block_kv);
+                   int block_q, int block_kv, bool persistent, cudaStream_t st) {
+  constexpr size_t smem = sizeof(DotsNSmem<BR, V4>) + kSwizzleAtom;
+  static_assert(smem <= 232448, "past the 227 KB a CTA may use");
+  const int HD = H * D, chunk = block_q % kNChunk == 0 ? kNChunk : kNChunkNarrow;
+  CUtensorMap qmap, kmap, vrmap, vimap, omap;
+  cudaError_t e = map3d(&qmap, q, B, T, HD, chunk);
+  if (e == cudaSuccess) e = map3d(&kmap, k, B, T, HD, BR);
+  if (e == cudaSuccess) e = map3d(&vrmap, v, B, T, HD, BR);
+  if (e == cudaSuccess) e = map3d(&vimap, v, B, T, HD, chunk);
+  if (e == cudaSuccess) e = map3d(&omap, o, B, T, HD, 64);
+  int ctas = 0;
+  if (e == cudaSuccess) e = grid_size(B * H * (T / BR), persistent, &ctas);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(ctas);
+  constexpr int threads = 128 * (BR / 64 + 1);
+  return chunk == kNChunk
+             ? launch<dots_n_wgmma<BR, V4, kNChunk>>(grid, threads, smem, st, qmap, kmap, vrmap,
+                                                     vimap, omap, B, T, H, block_q, block_kv)
+             : launch<dots_n_wgmma<BR, V4, kNChunkNarrow>>(grid, threads, smem, st, qmap, kmap,
+                                                           vrmap, vimap, omap, B, T, H, block_q,
+                                                           block_kv);
 }
 
 template <int BM, bool KT>
@@ -683,8 +803,8 @@ bool shape_ok(int B, int T, int H, int D_, int cta_q) {
 // for a shape or argument it has no kernel for), launches on `stream`,
 // allocates nothing, does not synchronise.
 //
-// persistent != 0 launches one CTA a multiprocessor that walks the work
-// items, else one CTA an item.
+// persistent != 0 (dots, dots_n) launches one CTA a multiprocessor that
+// walks the work items, else one CTA an item.
 extern "C" int obt_roofline_dots(const void* q, const void* k, const void* v, void* o, int B,
                                  int T, int H, int D_, int kt, int cta_q, int persistent,
                                  void* stream) {
@@ -706,7 +826,7 @@ extern "C" int obt_roofline_dots(const void* q, const void* k, const void* v, vo
 // block_kv, and equal to it with n_dots = 4.
 extern "C" int obt_roofline_dots_n(const void* q, const void* k, const void* v, void* o, int B,
                                    int T, int H, int D_, int block_q, int block_kv, int n_dots,
-                                   int cta_q, void* stream) {
+                                   int cta_q, int persistent, void* stream) {
   if (!shape_ok(B, T, H, D_, cta_q) || (n_dots != 3 && n_dots != 4) || block_q < cta_q ||
       block_q % cta_q != 0 || block_kv < 1 || T % block_q != 0 || T % block_kv != 0 ||
       block_q > block_kv || (n_dots == 4 && block_q != block_kv))
@@ -716,12 +836,12 @@ extern "C" int obt_roofline_dots_n(const void* q, const void* k, const void* v, 
   const bf16* vb = static_cast<const bf16*>(v);
   bf16* ob = static_cast<bf16*>(o);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool v4 = n_dots == 4;
+  const bool v4 = n_dots == 4, pe = persistent != 0;
   if (cta_q == 64)
-    return (int)(v4 ? dots_n<64, true>(qb, kb, vb, ob, B, T, H, block_q, block_kv, st)
-                    : dots_n<64, false>(qb, kb, vb, ob, B, T, H, block_q, block_kv, st));
-  return (int)(v4 ? dots_n<128, true>(qb, kb, vb, ob, B, T, H, block_q, block_kv, st)
-                  : dots_n<128, false>(qb, kb, vb, ob, B, T, H, block_q, block_kv, st));
+    return (int)(v4 ? dots_n<64, true>(qb, kb, vb, ob, B, T, H, block_q, block_kv, pe, st)
+                    : dots_n<64, false>(qb, kb, vb, ob, B, T, H, block_q, block_kv, pe, st));
+  return (int)(v4 ? dots_n<128, true>(qb, kb, vb, ob, B, T, H, block_q, block_kv, pe, st)
+                  : dots_n<128, false>(qb, kb, vb, ob, B, T, H, block_q, block_kv, pe, st));
 }
 
 // block_kv divides T, is at least H*D and a multiple of 8: the output is
@@ -744,11 +864,14 @@ extern "C" int obt_roofline_scores(const void* q, const void* k, void* o, int B,
 }
 
 // The tiles the wrappers' Python walks mirror (probes/roofline.py
-// KERNEL_KV_TILE, roofline2.py SCORES_N_TILE and SCORES_K_STEP): 0 the dots
-// kernel's kv tile, 1 the score kernel's output columns, 2 its depth step;
-// -1 for any other.
+// KERNEL_KV_TILE, DOTS_N_CHUNK and DOTS_N_CHUNK_NARROW, roofline2.py
+// SCORES_N_TILE and SCORES_K_STEP): 0 the dots kernel's kv tile, 1 the score
+// kernel's output columns, 2 its depth step, 3 and 4 the dots_n kernel's
+// q chunk where block_q is a multiple of it and where it is not; -1 for any
+// other.
 extern "C" int obt_roofline_tile(int which) {
-  return which == 0 ? kKv : which == 1 ? kScN : which == 2 ? kScK : -1;
+  constexpr int tiles[] = {kKv, kScN, kScK, kNChunk, kNChunkNarrow};
+  return which >= 0 && which < 5 ? tiles[which] : -1;
 }
 
 extern "C" const char* obt_cuda_error_string_roofline(int code) {

@@ -27,7 +27,11 @@ ring of 128-row K and V tiles, wgmma consumers of 64 q rows, S rounded in
 registers as the A operand of S·V) in persistent CTAs, one a
 multiprocessor walking the (b, h, q tile) work items (`persistent=False`
 launches one CTA an item instead, which measured slower: PERF.md §6);
-`dots_n` runs the old dkv kernel's mma.sync CTA. `bwd_products` is #2/#3's
+`dots_n` runs `dots_n_wgmma`, the dkv kernel's consumer scheme on the
+kv-local rows (a TMA ring of q chunks and the kv tile's K/V rows; per chunk
+both score products into one fp32 accumulator by wgmma, rounded in
+registers as the A operand of S^T·Q (and S^T·V); o out by TMA stores),
+persistent too. `bwd_products` is #2/#3's
 fused backward kernel with its five products alone, the backward's
 counterpart of `fwd_products`; `dkv_products` and `dq_products` the split
 pair's kernels (#4/#7 and #5/#8) with theirs, `dkv_products` the
@@ -49,14 +53,19 @@ from ..utils.device import resolve_device
 
 # What the kernels are built for: head dim, the T multiple of every probe,
 # the dots kernel's kv tile (T need not be a multiple of it: the last tile
-# reads zeros past T), the CTA heights in q rows. KERNEL_KV_TILE is a copy of
-# kKv in ops/csrc/roofline_probes.cu for the CPU mirror of the walk
-# (tests/test_torch_probe_tiles.py); no launch reads it. chip_smoke.py phase
-# 11 holds it against the built library (`obt_roofline_tile`).
+# reads zeros past T), the CTA heights in q rows (the dots_n kernel's BR),
+# and the dots_n kernel's q chunk: DOTS_N_CHUNK rows where block_q is a
+# multiple of it, else DOTS_N_CHUNK_NARROW. KERNEL_KV_TILE and the chunks
+# are copies of kKv, kNChunk and kNChunkNarrow in
+# ops/csrc/roofline_probes.cu for the CPU mirrors of the walks
+# (tests/test_torch_probe_tiles.py); no launch reads them. chip_smoke.py
+# phase 11 holds them against the built library (`obt_roofline_tile`).
 KERNEL_HEAD_DIM = 128
 KERNEL_T_MULTIPLE = 64
 KERNEL_KV_TILE = 128
 CTA_ROWS = (64, 128)
+DOTS_N_CHUNK = 128
+DOTS_N_CHUNK_NARROW = 64
 
 # NVIDIA H100 SXM data sheet, dense bf16 tensor cores.
 PEAK_BF16_FLOPS = 989e12
@@ -242,16 +251,22 @@ def dots_kernel(q, k, v, *, kt: bool, cta_q: int, counter: str,
                   int(persistent))
 
 
+def dots_n_chunk(block_q: int) -> int:
+    """The q rows of a chunk the dots_n kernel walks for block_q."""
+    return DOTS_N_CHUNK if block_q % DOTS_N_CHUNK == 0 else DOTS_N_CHUNK_NARROW
+
+
 def _dots_n_kernel(q, k, v, block_q: int, block_kv: int, n_dots: int, *,
-                   cta_q: int):
+                   cta_q: int, persistent: bool = True):
     """Launch the dkv-shaped kernel on CUDA tensors (blocks and cta_q
-    checked by `dots_n`); counts LAUNCHES['roofline_dots_n']."""
+    checked by `dots_n`): one persistent CTA a multiprocessor, or one CTA a
+    work item; counts LAUNCHES['roofline_dots_n']."""
     check_kernel_inputs(q, (("k", k, q.shape), ("v", v, q.shape)))
     if block_q % cta_q:
         raise ValueError(f"block_q={block_q} must be a multiple of "
                          f"cta_q={cta_q}")
     return launch("obt_roofline_dots_n", "roofline_dots_n", q, (k, v),
-                  block_q, block_kv, n_dots, cta_q)
+                  block_q, block_kv, n_dots, cta_q, int(persistent))
 
 
 def dots_only(q, k, v, block_q: int, block_kv: int, *, cta_q: int = 64):

@@ -1,6 +1,6 @@
 """The wgmma probe kernels' walks, mirrored in Python on the CPU.
 
-#13 (`scores_wgmma`) and #10/#12 (`dots_wgmma`) in
+#13 (`scores_wgmma`), #10/#12 (`dots_wgmma`) and #11 (`dots_n_wgmma`) in
 omnibiote_tpu_torch/ops/csrc/roofline_probes.cu are CUDA kernels, which have
 no CPU mode. These tests mirror their arithmetic: the boxes each step of a
 CTA loads (at the coordinates the producer thread gives the TMA unit, with
@@ -8,7 +8,8 @@ zeros past the tensor map's bounds, as the unit fills them), the fp32
 products on those boxes with S rounded to the inputs' dtype where the
 kernel rounds it, the output clipped where the TMA store clips it, and the
 order in which a persistent CTA walks its work items. The mirrors are held
-against the plain versions (`roofline2.scores_plain`, `dots_plain`).
+against the plain versions (`roofline2.scores_plain`, `dots_plain`,
+`roofline.dots_n_plain`).
 `chip_smoke.py` phase 11 is what proves the kernels themselves, on the card,
 against the same plain versions."""
 import numpy as np
@@ -211,5 +212,103 @@ def test_persistent_scores_walk_covers_each_tile_once(B, T, HD, bm, ctas):
     walks = persistent_walk(B * n_m * n_n, ctas)
     seen = sorted(scores_tile_of(t, n_m, n_n) for w in walks for t in w)
     assert seen == [(b, mt, nt) for b in range(B) for mt in range(n_m) for nt in range(n_n)]
+    loads = [len(w) for w in walks]
+    assert max(loads) - min(loads) <= 1
+
+
+# ---------------------------------------------------------------------------
+# #11: dots_n_wgmma
+# ---------------------------------------------------------------------------
+
+def dots_n_item_of(item, n_rows, H, br, block_q):
+    """(batch row, head, first row of the q tile, first kv-local row) of a
+    work item of br kv-local rows: row blocks fastest, then heads."""
+    row = item % n_rows * br
+    q0 = row // block_q * block_q
+    return item // (n_rows * H), (item // n_rows) % H, q0, row - q0
+
+
+def dots_n_rows(item, T, H, br, block_q):
+    """The output rows (b, h, t) a work item writes: its br kv-local rows r
+    of its q tile, t = q0 + r."""
+    b, h, q0, rb = dots_n_item_of(item, T // br, H, br, block_q)
+    return [(b, h, q0 + rb + r) for r in range(br)]
+
+
+def dots_n_walk(q, k, v, block_q, block_kv, n_dots, br, chunk):
+    """dots_n_wgmma's function walked as its CTAs walk it: per work item and
+    kv tile, the K and V boxes of the item's rows r; per chunk of the q tile
+    the Q box (and with 4 products V's box at the same offsets in the kv
+    tile), both score products in one fp32 accumulator, S^T rounded once to
+    the inputs' dtype, S^T·Q_i (+ S^T·V_i) added to the item's fp32
+    accumulator; o written once, rounded."""
+    B, T, H, _ = q.shape
+    HD = H * D
+    x, kx, vx = (t.reshape(B, T, HD) for t in (q, k, v))
+    n_rows = T // br
+    o = torch.zeros(B, T, HD)
+    for item in range(B * H * n_rows):
+        b, h, q0, rb = dots_n_item_of(item, n_rows, H, br, block_q)
+        acc = torch.zeros(br, D)
+        for kt in range(T // block_kv):
+            r0 = kt * block_kv
+            kr = _box(kx[b], r0 + rb, br, h * D, D)
+            vr = _box(vx[b], r0 + rb, br, h * D, D)
+            for c in range(block_q // chunk):
+                qi = _box(x[b], q0 + c * chunk, chunk, h * D, D)
+                st = kr @ qi.T
+                st += vr @ qi.T
+                st = st.to(q.dtype).float()
+                acc += st @ qi
+                if n_dots == 4:
+                    acc += st @ _box(vx[b], r0 + c * chunk, chunk, h * D, D)
+        o[b, q0 + rb:q0 + rb + br, h * D:(h + 1) * D] = acc
+    return o.to(q.dtype).reshape(B, T, H, D)
+
+
+def test_dots_n_chunk_divides_block_q():
+    """128-row chunks where block_q allows, else 64: a chunk past the q tile
+    would load the next tile's rows, not zeros."""
+    assert roofline.DOTS_N_CHUNK == 128 and roofline.DOTS_N_CHUNK_NARROW == 64
+    for bq, want in ((64, 64), (128, 128), (192, 64), (256, 128), (512, 128), (320, 64)):
+        assert roofline.dots_n_chunk(bq) == want
+        assert bq % roofline.dots_n_chunk(bq) == 0
+
+
+@pytest.mark.parametrize("B,T,H,bq,bkv,n_dots,br", [
+    (1, 512, 2, 256, 256, 4, 128), (1, 512, 2, 256, 256, 4, 64),
+    (1, 512, 2, 128, 256, 3, 128), (1, 512, 1, 256, 512, 3, 64),
+    (2, 384, 1, 64, 96, 3, 64),     # a kv tile of 96 rows, 64-row chunks
+    (1, 384, 2, 192, 192, 4, 64),   # block_q 192: 64-row chunks
+    (1, 384, 2, 128, 192, 3, 128),  # a kv tile of 192 rows, one 128-row chunk
+    (2, 256, 2, 128, 128, 3, 64),
+], ids=["4dot-br128", "4dot-br64", "3dot-bq<bkv-br128", "3dot-bkv=T", "3dot-bkv96",
+        "4dot-bq192", "3dot-bkv192-br128", "3dot-B2"])
+def test_dots_n_walk_matches_plain(B, T, H, bq, bkv, n_dots, br):
+    q, k, v = _x(B, T, H, seed=T + bq + n_dots, n=3)
+    _close(dots_n_walk(q, k, v, bq, bkv, n_dots, br, roofline.dots_n_chunk(bq)),
+           roofline.dots_n_plain(q, k, v, bq, bkv, n_dots))
+
+
+def test_dots_n_walk_rounds_s_as_the_plain_version():
+    """bf16 inputs: S^T rounded to bf16 once in both, fp32 sums in another
+    order, so the two differ by at most the plain version's final rounding
+    (2^-8 relative)."""
+    q, k, v = _x(1, 256, 2, seed=9, n=3, dtype=torch.bfloat16)
+    _close(dots_n_walk(q, k, v, 128, 128, 4, 128, roofline.dots_n_chunk(128)),
+           roofline.dots_n_plain(q, k, v, 128, 128, 4), rtol=2.0 ** -8)
+
+
+@pytest.mark.parametrize("B,H,T,bq,br,ctas", [
+    (8, 8, 1024, 512, 128, 132), (8, 8, 1024, 512, 64, 132), (2, 3, 384, 192, 64, 7),
+    (2, 2, 384, 64, 64, None)],
+    ids=["probes-br128", "probes-br64", "ragged", "a-CTA-an-item"])
+def test_dots_n_walk_writes_each_row_once(B, H, T, bq, br, ctas):
+    """Persistent (ctas CTAs) or one CTA a work item (None): every output
+    row of every (b, h) once, and a CTA's items balanced within one."""
+    n_items = B * H * (T // br)
+    walks = persistent_walk(n_items, ctas or n_items)
+    rows = [r for w in walks for i in w for r in dots_n_rows(i, T, H, br, bq)]
+    assert sorted(rows) == [(b, h, t) for b in range(B) for h in range(H) for t in range(T)]
     loads = [len(w) for w in walks]
     assert max(loads) - min(loads) <= 1

@@ -2,7 +2,7 @@
 """Time the split backward pair, the per-head entry and the end-to-end rates
 of two checkouts of this repo on one card, in turns.
 
-    python3 tools/gpu_compare_checkouts.py --other DIR [--json OUT]
+    python3 tools/gpu_compare_checkouts.py --other DIR [--probes] [--json OUT]
 
 DIR is another checkout (for example the parent commit's `git archive`,
 unpacked into a git-ignored directory of this one). Each side runs in a
@@ -21,11 +21,17 @@ times, with `chip_smoke.py`'s own helpers and inputs:
   * train tokens/s of omnibiote-small at ctx 1024 (fused backward), ctx
     2048 (fused, and the split pair) and ctx 4096 (fused).
 
+With --probes a process times only the dkv product-mix probe #11
+(`probes.roofline.dots_n`, 3 and 4 products, 64- and 128-row CTAs) and #4's
+kernel with its products alone (`dkv_products`) at the probes' shape (B=8,
+T=1024, H=8, bq = bkv = 512, bf16 unit normals from seed 0), by CUDA graphs
+of 20 calls and by CUDA events over 20 back-to-back calls.
+
 It prints one JSON line a process and then, for every number, both sides'
 mean and this side's ratio to the other's. Needs one CUDA device; prints the
 card's name and power limit.
 
-    python3 tools/gpu_compare_checkouts.py --measure ROOT
+    python3 tools/gpu_compare_checkouts.py --measure ROOT [--probes]
 
 is one side's process (the package under ROOT; its JSON line last).
 """
@@ -39,7 +45,26 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def measure(root):
+def measure_probes(c):
+    """#11 and dkv_products at the probes' shape: {name: ms}."""
+    import numpy as np
+    from omnibiote_tpu_torch.ops import _kernels
+    from omnibiote_tpu_torch.probes import roofline as r1
+
+    _kernels.build_all(["roofline_probes", "mh_flash_bwd_dkv"])
+    B, T, H, D = (r1.PROBE_SHAPE[n] for n in "BTHD")
+    q = r1.normal_bf16(np.random.default_rng(0), (B, T, H, D), "cuda")
+    out = {}
+    for nd in (3, 4):
+        for cta in r1.CTA_ROWS:
+            fn = lambda: r1.dots_n(q, q, q, 512, 512, nd, cta_q=cta)
+            out[f"dots_n {nd} products cta={cta} graphs ms"] = c.graph_ms(fn)
+            out[f"dots_n {nd} products cta={cta} events ms"] = c.cuda_ms(fn, 20)
+    out["dkv_products graphs ms"] = c.graph_ms(lambda: r1.dkv_products(q, q, q, q))
+    return out
+
+
+def measure(root, probes=False):
     """One side's numbers: {name: value}."""
     root = os.path.abspath(root)
     sys.path.insert(0, HERE)
@@ -57,6 +82,8 @@ def measure(root):
     c.check(torch.cuda.is_available(), "no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if probes:
+        return measure_probes(c)
     _kernels.build_all(["mh_flash_fwd", "mh_flash_bwd", "mh_flash_bwd_dkv", "mh_flash_bwd_dq"])
     out = {}
     H, D = 8, 128
@@ -118,10 +145,13 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", help="the other checkout's root")
     ap.add_argument("--measure", help="measure the package under this root (one side)")
+    ap.add_argument("--probes", action="store_true",
+                    help="time only the dkv product-mix probe and dkv_products")
     ap.add_argument("--json", help="write both sides' runs here")
     a = ap.parse_args(argv)
     if a.measure:
-        print(json.dumps({"root": os.path.abspath(a.measure), **measure(a.measure)}))
+        print(json.dumps({"root": os.path.abspath(a.measure),
+                          **measure(a.measure, a.probes)}))
         return
     if not a.other:
         ap.error("--other DIR is needed")
@@ -132,7 +162,8 @@ def main(argv=None):
     runs = []
     for side in ("other", "this", "this", "other"):
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--measure",
-                               sides[side]], capture_output=True, text=True)
+                               sides[side], *(["--probes"] if a.probes else [])],
+                              capture_output=True, text=True)
         if proc.returncode != 0:
             raise SystemExit(f"{side} ({sides[side]}) failed:\n{proc.stdout[-4000:]}"
                              f"\n{proc.stderr[-4000:]}")
