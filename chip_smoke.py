@@ -99,7 +99,24 @@ toolkit and g++. It
      (`bwd_products`, `dkv_products`, `dq_products`) against their plain
      versions likewise; then both probe tables, whose launches are the
      rows' counts, and #1's and #2's splits into products and the rest;
- 12. prints the card's name and power limit, one JSON line of kernel
+ 12. eval slice (the fine-tuning harness, `omnibiote_tpu_torch.evals`):
+     #1 and #2 against their plain versions at B=4, T 128, 256, 512 and
+     1024 with PAD-tail rows as `pad_batch` lays them out, bf16 and fp32,
+     dropout 0 and 0.1; then omnibiote-small at full width (dropout 0.1,
+     random weights from a seed, written as a checkpoint, the serving
+     slice's vocabulary) through `run_gue` (one domain-MLM step, then the
+     classifier at B 4 x accum 8), `run_proteinglue` on SS3 frozen and with
+     `train_backbone=True`, `run_tape` on fluorescence, `run_pronab` and
+     `run_pdb_contact`, over synthetic fixtures whose token lengths span
+     those buckets: finite metrics, forward launches in every family,
+     backward launches exactly where the backbone trains, none of another
+     attention kernel; `finetune_classifier` on the kernels against the
+     plain attention (dropout 0, 2 steps: losses, the first micro-batch's
+     gradients, the val logits); each family's wall time and peak memory,
+     the fine-tune rate at the GUE shape, the idle share of one fine-tune
+     step, the frozen-embedding rate and the domain-MLM peak memory at
+     B=32, T=1024;
+ 13. prints the card's name and power limit, one JSON line of kernel
      numbers, and last the line {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script then exits non-zero without the
@@ -2379,6 +2396,471 @@ def probe_phase():
     return rows
 
 
+# ---------------------------------------------------------------------------
+# 12. eval slice
+# ---------------------------------------------------------------------------
+
+# The eval harness's batch lengths (evals/common.py::pad_batch buckets to
+# 128, the token tasks cut at 1024) and its fine-tuning micro-batch
+# (evals/engine.py: batch 4, accumulation 8).
+EVAL_BUCKETS = (128, 256, 512, 1024)
+EVAL_BATCH, EVAL_ACCUM = 4, 8
+# Counters no eval path may touch: every T <= 1024 takes the fused
+# single-kv backward, and the harness does not quantize.
+EVAL_UNUSED = ("mh_flash_bwd_mk", "mh_flash_bwd_dkv", "mh_flash_bwd_dq",
+               "int8_flash_fwd", "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+
+
+def _pad_tail_lists(rng, B, T):
+    """Token lists that pad_batch pads to T: one row of (T-128, T] tokens,
+    the others of 1..T, each followed by PAD (segment id -1)."""
+    lengths = [int(rng.integers(T - 127, T + 1))] + [
+        int(rng.integers(1, T + 1)) for _ in range(B - 1)]
+    return [rng.integers(20, 500, size=n).tolist() for n in lengths]
+
+
+def eval_kernel_phase():
+    """#1 and #2 against their plain versions at the eval path's shapes:
+    B=4, T in EVAL_BUCKETS, PAD-tail rows as pad_batch lays them out (with
+    the skip bounds the model shares), bf16 and fp32, dropout 0 and 0.1.
+    Returns the worst bf16 max |do| and max |d| of the backward."""
+    import numpy as np
+    import torch
+    from omnibiote_tpu_torch.evals.common import pad_batch
+    from omnibiote_tpu_torch.ops.flash_attention import (
+        KERNEL_KV_TILE, SegmentBounds, mh_flash_backward, mh_flash_backward_plain,
+        mh_flash_forward, mh_flash_forward_plain)
+
+    H, D, B = 8, 128, EVAL_BATCH
+    scale = 1.0 / math.sqrt(D)
+    rng = np.random.default_rng(13)
+    worst_f = worst_b = 0.0
+    for i, T in enumerate(EVAL_BUCKETS):
+        x, seg = pad_batch(_pad_tail_lists(rng, B, T), 128, 1024)
+        check(x.shape == (B, T), f"pad_batch gave {x.shape}, want {(B, T)}")
+        seg = torch.from_numpy(seg).cuda()
+        bounds = SegmentBounds(seg)
+        for dtype in ("bfloat16", "float32"):
+            tdt = getattr(torch, dtype)
+            q, k, v, _, rope = _attn_inputs(B, T, H, D, tdt, "dense", 300 + i)
+            gen = torch.Generator(device="cuda").manual_seed(400 + i)
+            do = torch.randn(B, T, H, D, generator=gen, device="cuda").to(tdt)
+            for rate in (0.0, TRAIN_DROPOUT):
+                kw = dict(scale=scale, dropout_rate=rate, seed=0xE7A1 + 97 * i)
+                what = f"the eval shape B={B} T={T} {dtype} dropout {rate}"
+                got = mh_flash_forward(q, k, v, seg, rope, **kw, segment_skip=True,
+                                       bounds=bounds)
+                want = mh_flash_forward_plain(q, k, v, seg, rope, **kw,
+                                              block_kv=KERNEL_KV_TILE[tdt])
+                err_f = _hold_fwd(got, want, dtype, what)
+                di = (want[0].float() * do.float()).sum(-1)
+                bargs = (q, k, v, do, want[1], di, seg, rope)
+                rel, err_b = _hold_bwd(
+                    mh_flash_backward(*bargs, **kw, segment_skip=True, bounds=bounds),
+                    mh_flash_backward_plain(*bargs, **kw), dtype, what)
+                print(f"eval shape B={B} T={T} {dtype:8s} PAD tail (rows of "
+                      f"{int((seg >= 0).sum(1).min())}..{int((seg >= 0).sum(1).max())} "
+                      f"tokens) dropout {rate}: fwd max|do| {err_f:.3e}, bwd max|d|/max|g| "
+                      f"{rel:.2e} (tolerances {TOL[dtype]['o']}, {BWD_TOL[dtype]})")
+                if dtype == "bfloat16":
+                    worst_f, worst_b = max(worst_f, err_f), max(worst_b, err_b)
+    return worst_f, worst_b
+
+
+def _write_model_checkpoint(model, path):
+    """A checkpoint directory the port's load_model_checkpoint reads:
+    params.npz in the JAX package's layout and meta.json's model_cfg."""
+    from omnibiote_tpu_torch.training.checkpoint import save_pytree_flat
+    from omnibiote_tpu_torch.utils.convert import flatten_tree, jax_params_from_state
+    os.makedirs(path)
+    state = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    save_pytree_flat(os.path.join(path, "params.npz"),
+                     flatten_tree(jax_params_from_state(state, model.cfg)))
+    with open(os.path.join(path, "meta.json"), "w") as f:
+        json.dump({"model_cfg": dict(vars(model.cfg))}, f)
+
+
+def _bucketed_strings(sp, rng, alphabet, counts, extra_tokens):
+    """counts[i] strings over `alphabet` whose token count (+ extra_tokens:
+    tags, EOS) lies in (b - 128, b] for b = EVAL_BUCKETS[i]."""
+    letters = list(alphabet)
+    probe = "".join(rng.choice(letters, size=20000))
+    chars_per_token = len(probe) / len(sp.encode(probe))
+    out = []
+    for b, n in zip(EVAL_BUCKETS, counts):
+        got = 0
+        while got < n:
+            want = int(rng.integers(b - 120, b - 8)) - extra_tokens
+            s = "".join(rng.choice(letters, size=max(1, int(want * chars_per_token))))
+            if b - 128 < len(sp.encode(s)) + extra_tokens <= b:
+                out.append(s)
+                got += 1
+    order = rng.permutation(len(out))
+    return [out[i] for i in order]
+
+
+PROTEIN = "ACDEFGHIKLMNPQRSTVWY"
+
+
+def _eval_fixtures(root, sp, rng):
+    """Synthetic datasets of every family in the layouts their loaders
+    read, token lengths across EVAL_BUCKETS. Returns their paths."""
+    mix = lambda n: [n // 2, n // 4, n // 8, n - n // 2 - n // 4 - n // 8]
+    paths = {}
+    # GUE: one 'tf' task, the class a 12-mer prefix
+    task = os.path.join(root, "GUE", "tf", "0")
+    os.makedirs(task)
+    for name, n in (("train.csv", 32), ("dev.csv", 8), ("test.csv", 8)):
+        seqs = _bucketed_strings(sp, rng, "ACGT", mix(n), 16)
+        with open(os.path.join(task, name), "w") as f:
+            f.write("sequence,label\n")
+            for i, s in enumerate(seqs):
+                f.write(("GGGGCCGGGGCC" if i % 2 else "ATATATATATAT") + s + f",{i % 2}\n")
+    paths["gue"] = os.path.join(root, "GUE")
+
+    def ss3(seq):
+        return [0 if c in "AVLI" else 1 if c in "WFY" else 2 for c in seq]
+
+    # ProteinGLUE SS3 (and the CB513 test set the SS3 head is tested on)
+    pg = os.path.join(root, "ProteinGLUE")
+    os.makedirs(pg)
+    for name, n in (("ss_training", 32), ("ss_validation", 8), ("ss_test", 8),
+                    ("ss_cb513_test", 8)):
+        with open(os.path.join(pg, name + ".csv"), "w") as f:
+            f.write("sequence,ss3\n")
+            for s in _bucketed_strings(sp, rng, PROTEIN, mix(n), 3):
+                f.write(f"{s},\"[{' '.join(map(str, ss3(s)))}]\"\n")
+    paths["proteinglue"] = pg
+
+    # TAPE fluorescence
+    tape = os.path.join(root, "TAPE")
+    os.makedirs(os.path.join(tape, "fluorescence"))
+    for split, n in (("train", 32), ("valid", 8), ("test", 8)):
+        seqs = _bucketed_strings(sp, rng, PROTEIN, mix(n), 3)
+        recs = [{"primary": s, "log_fluorescence": [3.0 + s.count("W") / len(s)]}
+                for s in seqs]
+        with open(os.path.join(tape, "fluorescence", f"fluorescence_{split}.json"), "w") as f:
+            json.dump(recs, f)
+    paths["tape"] = tape
+
+    # ProNAB: binding records with peptides across the buckets, and mutation
+    # pairs of short peptides with 300-nt nucleotides, the mutant a fresh
+    # string, so that wild and mutant predictions differ by more than a bf16
+    # rounding of a random model's head (a constant ddG has no correlation)
+    nuc = lambda n=40: "".join(rng.choice(list("ACGT"), size=n))
+    ds = {f"P{k}": {"Sequence": p, "binding data": [
+        [nuc(), "DNA", float(10 ** -rng.uniform(3, 9)), float(-rng.uniform(5, 15)), ""]]}
+        for k, p in enumerate(_bucketed_strings(sp, rng, PROTEIN, mix(12), 24))}
+    mutation_peptides = _bucketed_strings(sp, rng, PROTEIN, [4, 0, 0, 0], 24)
+    paths["pronab_json"] = os.path.join(root, "pronab.json")
+    with open(paths["pronab_json"], "w") as f:
+        json.dump(ds, f)
+    paths["mutation_jsonl"] = os.path.join(root, "mutation_data.jsonl")
+    with open(paths["mutation_jsonl"], "w") as f:
+        for p in mutation_peptides:
+            for _ in range(2):
+                f.write(json.dumps({
+                    "peptide_sequence": p,
+                    "wild_nucleotide_sequence": f"<DNA>{nuc(300)}<EOS>",
+                    "mutated_nucleotide_sequence": f"<DNA>{nuc(300)}<EOS>",
+                    "wild_G0": float(-rng.uniform(5, 15)),
+                    "mutant_G0": float(-rng.uniform(5, 15))}) + "\n")
+
+    # PDB contact: per-residue nearest-nucleotide distances
+    recs = []
+    for p in _bucketed_strings(sp, rng, PROTEIN, mix(8), 20):
+        for _ in range(2):
+            recs.append({"peptide_sequences": {"A": p},
+                         "nucleotide_sequences": {"B": nuc()},
+                         "closest_nucleotides": rng.uniform(2, 20, size=len(p)).tolist()})
+    paths["distances_json"] = os.path.join(root, "distances.json")
+    with open(paths["distances_json"], "w") as f:
+        json.dump(recs, f)
+    return paths
+
+
+def _finite_numbers(tree):
+    if isinstance(tree, dict):
+        return all(_finite_numbers(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return all(_finite_numbers(v) for v in tree)
+    return math.isfinite(float(tree))
+
+
+def _device_busy_ms(prof):
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if "cuda" in str(getattr(e, "device_type", "")).lower()) / 1e3
+
+
+def eval_slice_phase(workdir, tok_path):
+    """The fine-tuning eval harness at omnibiote-small full width: every
+    family through its run_* entry point from a checkpoint on disk; the
+    classifier's fine-tune on the kernels against the plain attention;
+    rates, wall times, peak memory and the idle share of a fine-tune step.
+    Returns the launches of the families' runs (summed)."""
+    import contextlib
+    import itertools
+    import numpy as np
+    import torch
+    from omnibiote_tpu_torch import init_params, preset
+    from omnibiote_tpu_torch.evals import (
+        common, engine, gue, pdb_contact, pronab, proteinglue, tape, token_finetune)
+    from omnibiote_tpu_torch.ops import _kernels
+    from omnibiote_tpu_torch.tokenizer import SentencePieceProcessor
+    from omnibiote_tpu_torch.training.checkpoint import load_model_checkpoint
+    from omnibiote_tpu_torch.training.train import slot_seed
+
+    root = os.path.join(workdir, "eval")
+    out_dir = os.path.join(root, "out")
+    os.makedirs(out_dir)
+    sp = SentencePieceProcessor(tok_path)
+    ban = sp.piece_to_id("▁")
+    paths = _eval_fixtures(root, sp, np.random.default_rng(12))
+
+    cfg = preset("omnibiote-small", vocab_size=65536, dropout=TRAIN_DROPOUT)
+    check((cfg.n_layer, cfg.n_embd, cfg.n_head, cfg.block_size, cfg.compute_dtype,
+           cfg.param_dtype) == (8, 1024, 8, 1024, "bfloat16", "float32"),
+          f"unexpected omnibiote-small config {cfg}")
+    ckpt = os.path.join(root, "ckpt")
+    model = init_params(torch.Generator(device="cuda").manual_seed(12), cfg, device="cuda")
+    _write_model_checkpoint(model, ckpt)
+    n_params = sum(p.numel() for p in model.parameters())
+    del model
+    torch.cuda.empty_cache()
+    print(f"eval slice: omnibiote-small {cfg.n_layer}L/{cfg.n_embd}d/{cfg.n_head}h vocab "
+          f"{cfg.vocab_size} dropout {cfg.dropout}, {n_params} parameters (a best-on-val "
+          f"snapshot copies {4 * n_params / 2**30:.2f} GiB), checkpoint {ckpt}")
+
+    @contextlib.contextmanager
+    def in_out_dir():
+        cwd = os.getcwd()
+        os.chdir(out_dir)
+        try:
+            yield
+        finally:
+            os.chdir(cwd)
+
+    gue_log = []
+    families = [
+        ("gue", True, lambda: gue.run_gue(
+            tok_path, ckpt, ban, gue_dir=paths["gue"], pretraining_epochs=1,
+            pretraining_num_accum_steps=EVAL_ACCUM, batch_size=EVAL_BATCH,
+            output_suffix="eval", seed=0, log=gue_log.append)),
+        ("proteinglue SS3 frozen", False, lambda: proteinglue.run_proteinglue(
+            tok_path, ckpt, banned_token=ban, eval_dir=paths["proteinglue"],
+            output_suffix="frozen", tasks=["SS3"], num_epochs=2, batch_size=8,
+            force_clean=True)),
+        ("proteinglue SS3 train_backbone", True, lambda: proteinglue.run_proteinglue(
+            tok_path, ckpt, banned_token=ban, eval_dir=paths["proteinglue"],
+            output_suffix="backbone", tasks=["SS3"], num_epochs=1, batch_size=16,
+            train_backbone=True)),
+        ("tape fluorescence", False, lambda: tape.run_tape(
+            tok_path, ckpt, banned_token=ban, tape_dir=paths["tape"],
+            output_suffix="eval", tasks=["fluorescence"], num_epochs=2, batch_size=8)),
+        ("pronab", True, lambda: pronab.run_pronab(
+            tok_path, ckpt, "eval", pronab_json=paths["pronab_json"],
+            mutation_jsonl=paths["mutation_jsonl"], banned_tokens=[ban],
+            num_epochs_pretrain=1, num_epochs_cv=2, num_accumulation_steps=16,
+            micro_batch=EVAL_BATCH, folds=2, save_pretrained=False)),
+        ("pdb contact", True, lambda: pdb_contact.run_pdb_contact(
+            ckpt, "eval", tok_path, distances_json=paths["distances_json"],
+            banned_tokens=[ban], num_epochs=4, num_accumulation_steps=8,
+            micro_batch=EVAL_BATCH, folds=2)),
+    ]
+    total = dict.fromkeys(_kernels.LAUNCHES, 0)
+    for name, trains, run in families:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        # main path: every count at 0 just before, read just after
+        _kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with in_out_dir():
+            result = run()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(_kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"eval {name}: {wall:.2f} s, peak allocated {peak / 2**30:.2f} GiB, "
+              f"launches mh_flash_fwd {launches['mh_flash_fwd']} mh_flash_bwd "
+              f"{launches['mh_flash_bwd']}; result {json.dumps(result)[:300]}")
+        check(_finite_numbers(result), f"eval {name}: non-finite metrics {result}")
+        check(launches["mh_flash_fwd"] > 0, f"eval {name} never launched mh_flash_fwd")
+        check((launches["mh_flash_bwd"] > 0) == trains,
+              f"eval {name}: {launches['mh_flash_bwd']} mh_flash_bwd launches "
+              f"({'a trained' if trains else 'a frozen'} backbone)")
+        check(all(launches[n] == 0 for n in EVAL_UNUSED),
+              f"eval {name} launched a kernel off its path: {launches}")
+        for n in total:
+            total[n] += launches[n]
+    with open(os.path.join(out_dir, "GUE_results_eval.csv")) as f:
+        check(f.readline().strip() == "Task,MCC,F1", "GUE results CSV header")
+    vals = [r["val_primary"] for r in gue_log if "val_primary" in r]
+    n_snap = sum(v > max(vals[:i], default=-math.inf) for i, v in enumerate(vals))
+    mlm = [r["loss"] for r in gue_log if r.get("phase") == "domain_mlm"]
+    print(f"eval gue: domain-MLM losses {mlm}; {len(vals)} validations, "
+          f"{n_snap} best-on-val snapshots (each a copy of every parameter, "
+          f"{4 * n_params / 2**30:.2f} GiB, into one buffer kept on the card)")
+    check(len(mlm) == 1 and math.isfinite(mlm[0]), f"domain-MLM losses {mlm}")
+
+    # the classifier's fine-tune on the kernels against the plain attention:
+    # dropout 0, the same weights, head, batches and seeds, 2 optimizer steps;
+    # every validation counts as an improvement, so both return the model
+    # after one update (validation precedes each step's update)
+    model, cfg = load_model_checkpoint(ckpt)
+    cfg0 = cfg.replace(dropout=0.0)
+    X, Y, Xv, Yv, _, _ = gue.load_task(os.path.join(paths["gue"], "tf", "0"))
+    tok = lambda xs: common.tokenize_sequences(sp, xs, "<DNA>", [ban])
+    data = {"train": (tok(X), np.asarray([int(y) for y in Y])),
+            "val": (tok(Xv), np.asarray([int(y) for y in Yv])),
+            "test": (tok(Xv), np.asarray([int(y) for y in Yv]))}
+
+    def classifier_run():
+        logs, counter = [], itertools.count()
+        _, _, aux = engine.finetune_classifier(
+            model, cfg0, data, num_classes=2, num_epochs=2, batch_size=EVAL_BATCH,
+            num_accumulation_steps=EVAL_ACCUM, lr=1e-3, embed_lr=1e-3, seed=0,
+            max_len=cfg.block_size, metric_fn=lambda yt, yp: (next(counter), 0.0),
+            log=logs.append)
+        best = aux["params"]
+        with torch.inference_mode():
+            logits = torch.cat([engine.classify_logits(
+                best["model"], best["head"], *common.to_device(
+                    model, *common.pad_batch(data["val"][0][i:i + EVAL_BATCH], 128,
+                                             cfg.block_size))).float()
+                for i in range(0, len(data["val"][0]), EVAL_BATCH)])
+        # the first micro-batch's gradients from the starting weights and head
+        idx = np.random.default_rng(0).choice(len(data["train"][0]), EVAL_BATCH,
+                                              replace=False)
+        x, seg = common.pad_batch([data["train"][0][i] for i in idx], 128, cfg.block_size)
+        head = common.init_linear_head(torch.Generator().manual_seed(0), cfg.n_embd, 2,
+                                       device="cuda")
+        loss = engine.classifier_loss(model, head, *common.to_device(
+            model, x, seg, data["train"][1][idx]), deterministic=True)
+        named = list(model.named_parameters()) + [("head.w", head["w"]), ("head.b", head["b"])]
+        grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
+        grads = {n: g for (n, _), g in zip(named, grads) if g is not None}
+        return [r["loss"] for r in logs if "loss" in r], logits, grads
+
+    _kernels.reset_launches()
+    losses_k, logits_k, grads_k = classifier_run()
+    check(_kernels.LAUNCHES["mh_flash_bwd"] > 0, "the kernel run launched no backward")
+    launched = dict(_kernels.LAUNCHES)
+    with _plain_attention():
+        losses_p, logits_p, grads_p = classifier_run()
+    check(_kernels.LAUNCHES == launched, "the plain run launched a kernel")
+    worst_cos = min(torch.nn.functional.cosine_similarity(
+        grads_k[n].double().flatten(), grads_p[n].double().flatten(), dim=0).item()
+        for n in grads_k)
+    row_cos = torch.nn.functional.cosine_similarity(
+        logits_k.double(), logits_p.double(), dim=1).min().item()
+    d_loss = max(abs(a - b) for a, b in zip(losses_k, losses_p))
+    print(f"eval classifier fine-tune, kernels vs plain attention (dropout 0, B "
+          f"{EVAL_BATCH} x accum {EVAL_ACCUM}, 2 steps): losses {losses_k} vs {losses_p} "
+          f"(max |d| {d_loss:.2e}, limit {TRAIN_LOSS_ATOL}); worst first-micro-batch "
+          f"gradient cosine {worst_cos:.6f} over {len(grads_k)} tensors (limit "
+          f"{TRAIN_GRAD_COS}); val logits min row cosine {row_cos:.7f} (limit {MIN_COSINE})")
+    check(len(losses_k) == len(losses_p) == 2, f"losses {losses_k} {losses_p}")
+    check(d_loss <= TRAIN_LOSS_ATOL, "classifier fine-tune losses: kernels vs plain")
+    check(worst_cos >= TRAIN_GRAD_COS, "classifier gradients: kernels vs plain")
+    check(row_cos >= MIN_COSINE, "classifier val logits: kernels vs plain")
+    del grads_k, grads_p
+
+    # fine-tune rate at the GUE shape (B 4 x accum 8, dropout 0.1), the
+    # idle share of one step, and the frozen-embedding rate
+    ft = common.finetune_copy(model, cfg)
+    head = common.init_linear_head(torch.Generator().manual_seed(1), cfg.n_embd, 2,
+                                   device="cuda")
+    opt, sched = common.make_finetune_optimizer(ft, head, lr=1e-4, embed_lr=1e-3,
+                                                total_steps=1000)
+    rng = np.random.default_rng(1)
+    steps, warm = 6, 2
+    batches = []
+    for _ in range((steps + warm + 1) * EVAL_ACCUM):
+        idx = rng.choice(len(data["train"][0]), EVAL_BATCH, replace=False)
+        x, seg = common.pad_batch([data["train"][0][i] for i in idx], 128, cfg.block_size)
+        batches.append(common.to_device(ft, x, seg, data["train"][1][idx]))
+
+    def step(n):
+        for j in range(EVAL_ACCUM):
+            x, seg, y = batches[n * EVAL_ACCUM + j]
+            loss = engine.classifier_loss(ft, head, x, seg, y, deterministic=False,
+                                          rng=slot_seed(0, n, j))
+            (loss / EVAL_ACCUM).backward()
+        common.step_optimizer(opt, sched)
+
+    for n in range(warm):
+        step(n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for n in range(warm, warm + steps):
+        step(n)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    timed = batches[warm * EVAL_ACCUM:(warm + steps) * EVAL_ACCUM]
+    n_seq = len(timed) * EVAL_BATCH
+    n_tok = sum(x.numel() for x, _, _ in timed)
+    n_real = sum(int((s >= 0).sum()) for _, s, _ in timed)
+    t_hist = {T: sum(x.shape[1] == T for x, _, _ in timed) for T in EVAL_BUCKETS}
+    # one step (the last batches) timed alone, then the same step profiled:
+    # the profiler's host cost stretches its own window, so the idle share is
+    # the device's busy time over the unprofiled step's
+    from torch.profiler import ProfilerActivity, profile
+    t1 = time.perf_counter()
+    step(warm + steps)
+    torch.cuda.synchronize()
+    alone_ms = 1e3 * (time.perf_counter() - t1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        step(warm + steps)
+        torch.cuda.synchronize()
+        window_ms = 1e3 * (time.perf_counter() - t1)
+    busy_ms = _device_busy_ms(prof)
+    check(busy_ms > 0, "the profiler recorded no device time in a fine-tune step")
+    last_t = [x.shape[1] for x, _, _ in batches[-EVAL_ACCUM:]]
+    print(f"eval fine-tune rate (omnibiote-small, B {EVAL_BATCH} x accum {EVAL_ACCUM}, "
+          f"dropout {TRAIN_DROPOUT}, GUE fixture): {n_seq / dt:.2f} sequences/s, "
+          f"{n_tok / dt:.1f} tokens/s ({n_real / dt:.1f} non-PAD tokens/s), "
+          f"{1e3 * dt / steps:.3f} ms a step over {steps} steps; micro-batch T "
+          f"{t_hist}; one step (T {last_t}) {alone_ms:.3f} ms alone, device busy "
+          f"{busy_ms:.3f} ms in it (profiled window {window_ms:.3f} ms): idle share "
+          f"{max(0.0, 1 - busy_ms / alone_ms):.3f}")
+    del ft, head, opt, sched, batches
+
+    X_pg = common.tokenize_sequences(sp, _bucketed_strings(
+        sp, np.random.default_rng(3), PROTEIN, [32, 16, 8, 8], 3), "<protein>", [ban])
+    token_finetune._batched_embeddings(model, cfg, X_pg[:8], 32, 128)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    emb = token_finetune._batched_embeddings(model, cfg, X_pg, 32, 128)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(all(np.isfinite(e).all() for e in emb), "non-finite frozen embeddings")
+    print(f"eval frozen-embedding rate (_batched_embeddings, batch 32, {len(X_pg)} "
+          f"protein sequences of {min(map(len, X_pg))}..{max(map(len, X_pg))} tokens): "
+          f"{len(X_pg) / dt:.2f} sequences/s, peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # the domain MLM's fp32 logits over the 65,536-token vocabulary at the
+    # harness's default batch: one micro-batch, forward and backward
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    toks = torch.randint(20, 65000, (32, cfg.block_size), device="cuda", dtype=torch.int32)
+    seg = torch.zeros_like(toks)
+    masked = torch.where(torch.rand(toks.shape, device="cuda") < 0.15, 2, toks)
+    loss = engine.mlm_nonpad_loss(model, toks, seg, masked)
+    loss.backward()
+    torch.cuda.synchronize()
+    check(math.isfinite(loss.item()), "non-finite domain-MLM loss")
+    print(f"eval domain-MLM micro-batch B=32 T={cfg.block_size} (fp32 logits over "
+          f"{cfg.vocab_size} tokens): peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del model, loss
+    torch.cuda.empty_cache()
+    return total
+
+
 def setup():
     """Refuse to run without a card or without the package, and fix the
     fp32 matmul precision the references assume."""
@@ -2409,30 +2891,40 @@ def main():
     head_rows, head_launches = per_head_phase()
     print(f"per-head main path launches: {head_launches}")
     probe_rows = probe_phase()
-    # the forward's error: the worst over its three main-path shapes
-    fwd_row["max_abs_err"] = max(fwd_row["max_abs_err"], serving_err, long_err)
+    eval_fwd_err, eval_bwd_err = eval_kernel_phase()
+    # each error: the worst over the main paths' shapes (bf16)
+    fwd_row["max_abs_err"] = max(fwd_row["max_abs_err"], serving_err, long_err,
+                                 eval_fwd_err)
+    bwd_row["max_abs_err"] = max(bwd_row["max_abs_err"], eval_bwd_err)
     with tempfile.TemporaryDirectory() as workdir:
         serving, served = slice_phase(workdir)
         print(f"serving main path launches: {serving}")
         int8_serving = int8_slice_phase(workdir, served)
         print(f"int8 serving main path launches: {int8_serving}")
+        tok_path = served["tok_path"]
         del served
         torch.cuda.empty_cache()
         train = train_slice_phase(workdir)
         print(f"ctx-1024 training main path launches: {train}")
         long_cli, long_split = longctx_slice_phase(workdir)
-    # each row's launches: the count its own main path left (serving and
-    # both training contexts for the forward)
+        torch.cuda.empty_cache()
+        evals = eval_slice_phase(workdir, tok_path)
+        print(f"eval slice main path launches: {evals}")
+    # each row's launches: the count its own main paths left (serving, both
+    # training contexts and the eval slice for the forward; the ctx-1024
+    # training and the eval slice for the fused backward)
     fwd_row["launches"] = (serving["mh_flash_fwd"] + train["mh_flash_fwd"]
-                           + long_cli["mh_flash_fwd"])
-    bwd_row["launches"] = train["mh_flash_bwd"]
+                           + long_cli["mh_flash_fwd"] + evals["mh_flash_fwd"])
+    bwd_row["launches"] = train["mh_flash_bwd"] + evals["mh_flash_bwd"]
     for row in long_rows:
         source = long_cli if row["name"] == "mh_flash_bwd_mk" else long_split
         row["launches"] = source[row["name"]]
     int8_row["launches"] = int8_serving["int8_flash_fwd"]
     rows = [fwd_row, bwd_row, *long_rows, int8_row, *head_rows, *probe_rows]
-    check(min(serving["mh_flash_fwd"], train["mh_flash_fwd"], long_cli["mh_flash_fwd"]) > 0,
-          "a main path never launched mh_flash_fwd")
+    check(min(serving["mh_flash_fwd"], train["mh_flash_fwd"], long_cli["mh_flash_fwd"],
+              evals["mh_flash_fwd"]) > 0, "a main path never launched mh_flash_fwd")
+    check(min(train["mh_flash_bwd"], evals["mh_flash_bwd"]) > 0,
+          "a main path never launched mh_flash_bwd")
     check(len(rows) == 13 and all(row["launches"] > 0 for row in rows),
           f"a kernel was never launched on its main path: "
           f"{[(row['name'], row['launches']) for row in rows]}")

@@ -242,3 +242,17 @@ def opt_state_from_jax(leaves: Sequence[object], cfg: OmniBioTAConfig):
         count=int(np.asarray(leaves[1])),
         mu=moments(leaves[2:2 + n]), nu=moments(leaves[2 + n:2 + 2 * n]),
         sched_count=int(np.asarray(leaves[-1])))
+
+
+def head_from_jax(head: Mapping, device=None) -> Dict[str, torch.Tensor]:
+    """An eval-harness linear head {"w": (in, out), "b": (out,)} of the JAX
+    package (arrays or tensors) -> the port's head: the same layout, fp32
+    tensors on `device` that require grad."""
+    return {k: as_tensor(np.asarray(head[k], np.float32)).to(device).requires_grad_()
+            for k in ("w", "b")}
+
+
+def jax_head_from_port(head: Mapping) -> Dict[str, np.ndarray]:
+    """The port's linear head -> {"w": (in, out), "b": (out,)} fp32 numpy
+    arrays, the JAX package's head (copies: no view of a live tensor)."""
+    return {k: head[k].detach().float().cpu().numpy().copy() for k in ("w", "b")}

@@ -275,6 +275,26 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert not bad, bad
 
 
+def test_port_imports_no_package_the_card_lacks():
+    """The card's Python has numpy, scipy, einops, pytest and hypothesis
+    beside torch and triton: no port module imports scikit-learn or pandas
+    (the eval harness carries its own metrics and CSV reading)."""
+    bad = []
+    for path in _port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{os.path.relpath(path, REPO)}: {n}" for n in names
+                    if n.split(".")[0] in ("sklearn", "pandas")]
+    assert not bad, bad
+
+
 def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(served):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
