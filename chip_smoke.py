@@ -116,7 +116,27 @@ toolkit and g++. It
      the fine-tune rate at the GUE shape, the idle share of one fine-tune
      step, the frozen-embedding rate and the domain-MLM peak memory at
      B=32, T=1024;
- 13. prints the card's name and power limit, one JSON line of kernel
+ 13. pretraining from raw records and the memory levers, omnibiote-small at
+     full width with dropout 0.1: a seeded synthetic GenBank release
+     (LOCUS / ORIGIN records of several molecule types) and UniRef100
+     FASTA through `preprocessing.genbank.main`, `uniprot.main`,
+     `tokenizer.train_cli.main` (a 4,096-piece BPE) and `tokenize_to_shards`
+     into genbank/ and uniref100/ train and val shards; the training CLI on
+     them with `--train_type mixed`, ctx 1024, B 32 (mini 16),
+     `--checkpoint_freq 1 --remat_policy dots`: 4 steps, a checkpoint and 1
+     resumed step, #1 launched 2 x 8 and #2 8 times a micro-batch; remat
+     exact: one micro-batch with checkpoint_freq 0, 1 'full' and 1 'dots'
+     at ctx 1024 (mini 16) and 2048 (mini 8, 5 EOS a row), bit for bit on
+     the split pair (#4/#5), loss bit for bit and gradients within the
+     training bar on the fused backward (#2/#3); the fused cross-entropy
+     against the plain head (training bars, and its memory); the executed
+     tile fractions (`kernel_skip_fractions`) against the tiles the
+     kernels' counters report at ctx 1024, 2048 and 4096; and step time,
+     tokens/s, peak allocated memory, mfu and mfu_executed of remat off /
+     'full' / 'dots' with the plain head and the fused CE at ctx 1024, remat
+     off / 'full' at ctx 4096 (mini 4 x 2), and ctx 4096 at mini 8 x 1 with
+     'full' remat;
+ 14. prints the card's name and power limit, one JSON line of kernel
      numbers, and last the line {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script then exits non-zero without the
@@ -2861,6 +2881,425 @@ def eval_slice_phase(workdir, tok_path):
     return total
 
 
+# ---------------------------------------------------------------------------
+# 13. pretraining from raw records and the memory levers
+# ---------------------------------------------------------------------------
+
+GENBANK_MOLECULES = (("", "DNA"), ("", "mRNA"), ("ss-", "RNA"), ("", "rRNA"),
+                     ("ds-", "DNA"), ("", "tRNA"), ("", "cRNA"))
+AMINO = "ACDEFGHIKLMNPQRSTVWY"
+
+
+# (batch, context, EOS a row) of the executed-tile check: bench.py's and
+# bench_longctx.py's rows.
+TILE_SHAPES = ((16, 1024, 3), (8, 2048, LONG_EOS), (4, 4096, LONG_EOS))
+# The lever runs: (context, mini-batch, accumulation, EOS a row,
+# checkpoint_freq, remat_policy, fused_ce).
+LEVER_RUNS = (
+    *[(1024, 16, 2, 3, cf, pol, fce) for fce in (False, True)
+      for cf, pol in ((0, "full"), (1, "full"), (1, "dots"))],
+    (4096, 4, 2, LONG_EOS, 0, "full", False),
+    (4096, 4, 2, LONG_EOS, 1, "full", False),
+    (4096, 8, 1, LONG_EOS, 1, "full", False),
+)
+
+
+def _write_raw_corpus(root, seed, n_files=2, n_records=150, n_proteins=1500):
+    """A GenBank release's flat files (`gbsyn*.seq.gz`: LOCUS / ORIGIN
+    records of several molecule types, sequences of 200-4000 nt) and a
+    UniRef100-style FASTA (`uniref100.fasta.gz`, 50-700 residues a record,
+    60 a line), from a numpy seed; returns the FASTA's path."""
+    import gzip
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def residues(alphabet, n):
+        return np.frombuffer(alphabet.encode(), np.uint8)[
+            rng.integers(0, len(alphabet), n)].tobytes().decode()
+
+    for f in range(n_files):
+        lines = []
+        for r in range(n_records):
+            strand, mol = GENBANK_MOLECULES[(f + r) % len(GENBANK_MOLECULES)]
+            seq = residues("acgu" if "RNA" in mol else "acgt", int(rng.integers(200, 4000)))
+            lines += [f"LOCUS       SYN{f}{r:05d}   {len(seq)} bp    {strand}{mol}     "
+                      "linear   SYN 01-JAN-2026", "DEFINITION  synthetic record.",
+                      "ORIGIN      "]
+            for i in range(0, len(seq), 60):
+                lines.append(f"{i + 1:>9} " + " ".join(
+                    seq[j:j + 10] for j in range(i, min(i + 60, len(seq)), 10)))
+            lines.append("//")
+        with gzip.open(os.path.join(root, f"gbsyn{f + 1}.seq.gz"), "wt") as fh:
+            fh.write("\n".join(lines) + "\n")
+    fasta = os.path.join(root, "uniref100.fasta.gz")
+    with gzip.open(fasta, "wt") as fh:
+        for r in range(n_proteins):
+            seq = residues(AMINO, int(rng.integers(50, 700)))
+            fh.write(f">UniRef100_S{r:06d} synthetic n=1 Tax=X\n"
+                     + "\n".join(seq[i:i + 60] for i in range(0, len(seq), 60)) + "\n")
+    return fasta
+
+
+def _corpus_to_shards(workdir):
+    """Raw records -> tagged text -> a BPE vocabulary -> token shards, by the
+    port's preprocessing modules and tokenizer CLI, on the host. Returns the
+    shards' base dir (genbank/ and uniref100/, each with train/ and val/)."""
+    import glob
+    import gzip
+    from omnibiote_tpu_torch.preprocessing import genbank, tokenize_corpus, uniprot
+    from omnibiote_tpu_torch.tokenizer import SentencePieceProcessor, train_cli
+
+    raw, text, data = (os.path.join(workdir, d) for d in ("raw", "text", "shards"))
+    os.makedirs(raw)
+    t0 = time.time()
+    fasta = _write_raw_corpus(raw, seed=13)
+    print(f"corpus: synthetic raw records written in {time.time() - t0:.2f} s "
+          f"({sum(os.path.getsize(p) for p in glob.glob(os.path.join(raw, '*')))} bytes "
+          f"gzipped)")
+
+    def records(paths):
+        n = chars = 0
+        for p in paths:
+            with gzip.open(p, "rt") as fh:
+                t = fh.read()
+            n += t.count("<EOS>")
+            chars += len(t)
+        return n, chars
+
+    t0 = time.time()
+    counts = genbank.main(raw, os.path.join(text, "genbank"), workers=1)
+    gb_txt = sorted(glob.glob(os.path.join(text, "genbank", "*.txt.gz")))
+    n, chars = records(gb_txt)
+    print(f"corpus: genbank.main {n} records ({counts}), {chars} characters, "
+          f"{len(gb_txt)} files, {time.time() - t0:.2f} s")
+    check(n == 2 * 150 and len(gb_txt) == 2, f"genbank.main wrote {n} records")
+    t0 = time.time()
+    n_shards = uniprot.main(fasta, os.path.join(text, "uniref100"), chunk_size=256 * 1024)
+    ur_txt = sorted(glob.glob(os.path.join(text, "uniref100", "*.txt.gz")))
+    n, chars = records(ur_txt)
+    print(f"corpus: uniprot.main {n} records, {chars} characters, {n_shards} shards, "
+          f"{time.time() - t0:.2f} s")
+    check(n == 1500 and n_shards == len(ur_txt) > 1, f"uniprot.main wrote {n} records")
+    tok = os.path.join(workdir, "corpus_bpe.model")
+    t0 = time.time()
+    train_cli.main([os.path.join(text, "*", "*.txt.gz"), tok, "--vocab_size", "4096"])
+    sp = SentencePieceProcessor(tok)
+    print(f"corpus: train_cli.main BPE vocabulary of {sp.vocab_size()} pieces in "
+          f"{time.time() - t0:.2f} s")
+    check(sp.vocab_size() == 4096, "train_cli.main vocabulary size")
+    for name, paths in (("genbank", gb_txt), ("uniref100", ur_txt)):
+        t0 = time.time()
+        stats = tokenize_corpus.tokenize_to_shards(
+            paths, os.path.join(data, name), sp, shard_tokens=100_000, val_fraction=0.05,
+            n_threads=8, seed=13, prefix=name)
+        print(f"corpus: tokenize_to_shards {name}: {stats['records']} records, "
+              f"{stats['train_tokens']} train / {stats['val_tokens']} val tokens in "
+              f"{stats['train_shards']} / {stats['val_shards']} shards, "
+              f"{time.time() - t0:.2f} s")
+        check(stats["train_tokens"] > 100_000 and stats["val_shards"] >= 1,
+              f"tokenize_to_shards {name}: {stats}")
+    return data
+
+
+def _grads_equal(a, b):
+    """Names of the gradients whose bits differ."""
+    import torch
+    return [n for n in a if not torch.equal(a[n], b[n])]
+
+
+def _worst_cos(a, b):
+    import torch
+    return min(torch.nn.functional.cosine_similarity(
+        a[n].double().flatten(), b[n].double().flatten(), dim=0).item() for n in a)
+
+
+def _remat_exact(model, cfg, tokens, segments, label, fused_name, split_name):
+    """One micro-batch's mlm_loss and gradients with checkpoint_freq 0, then
+    1 'full', then 1 'dots': on the split pair (#4/#5) loss and gradients bit
+    for bit; on the fused backward the loss bit for bit and the gradients
+    within TRAIN_GRAD_COS. Returns the launches of the split runs."""
+    import dataclasses
+    import torch
+    from omnibiote_tpu_torch.ops import _kernels
+    from omnibiote_tpu_torch.training.mlm import mlm_loss
+    from omnibiote_tpu_torch.training.train import _compute_copy
+
+    L = cfg.n_layer
+
+    def loss_and_grads(cf, policy):
+        model.cfg = dataclasses.replace(cfg, checkpoint_freq=cf, remat_policy=policy)
+        params_c = _compute_copy(dict(model.named_parameters()), model.cfg)
+        loss, _ = mlm_loss(model, tokens, segments, 4321, params=params_c)
+        grads = torch.autograd.grad(loss, list(params_c.values()))
+        return loss.detach(), dict(zip(params_c, grads))
+
+    runs = (("none", 0, "full"), ("full", 1, "full"), ("dots", 1, "dots"))
+    split_launches = {}
+    try:
+        for fused in (False, True):
+            name = fused_name if fused else split_name
+            with _attention_switch(FUSED_SINGLE_KV_BWD=fused, FUSED_MULTIKV_BWD=fused):
+                out = {}
+                for tag, cf, policy in runs:
+                    _kernels.reset_launches()
+                    out[tag] = loss_and_grads(cf, policy)
+                    torch.cuda.synchronize()
+                    if fused:
+                        want = _counts(mh_flash_fwd=L * (2 if cf else 1), **{name: L})
+                    else:
+                        want = _counts(mh_flash_fwd=L * (2 if cf else 1),
+                                       mh_flash_bwd_dkv=L, mh_flash_bwd_dq=L)
+                        split_launches[tag] = dict(_kernels.LAUNCHES)
+                    check(_kernels.LAUNCHES == want,
+                          f"remat {tag} ({label}, {name}) launched {_kernels.LAUNCHES}, "
+                          f"want {want}")
+                # the no-remat run again: what the card gives twice without remat
+                again = loss_and_grads(0, "full")
+            base_loss, base = out["none"]
+            rerun = _grads_equal(base, again[1])
+            print(f"no remat twice ({label}, {name}): loss bit for bit "
+                  f"{torch.equal(again[0], base_loss)}, gradients differing in any bit "
+                  f"{len(rerun)} of {len(base)} {rerun[:4]}")
+            for tag in ("full", "dots"):
+                loss, grads = out[tag]
+                differ = _grads_equal(base, grads)
+                cos = _worst_cos(base, grads)
+                print(f"remat {tag} vs none ({label}, {name}): loss {loss.item():.6f} vs "
+                      f"{base_loss.item():.6f} (bit for bit: {torch.equal(loss, base_loss)}); "
+                      f"gradients differing in any bit {len(differ)} of {len(grads)} "
+                      f"{differ[:4]}; worst cosine {cos:.9f}")
+                check(torch.equal(loss, base_loss), f"remat {tag} loss ({label}, {name})")
+                if fused:
+                    check(cos >= TRAIN_GRAD_COS, f"remat {tag} gradients ({label}, {name})")
+                else:
+                    check(not differ, f"remat {tag} gradients differ in {differ} ({label}, "
+                                      f"{name})")
+            del out, again
+    finally:
+        model.cfg = cfg
+    return split_launches
+
+
+def _lever_run(cfg, tc, n_eos, label, warmup=3, steps=5):
+    """Step time, tokens/s, peak allocated memory, mfu and mfu_executed of
+    Trainer.train_step_once over bench_batches rows (3 warm-up, 5 timed
+    steps)."""
+    import torch
+    from omnibiote_tpu_torch import num_params
+    from omnibiote_tpu_torch.training.metrics import (
+        flops_per_token, flops_per_token_executed, kernel_skip_fractions, mfu)
+    from omnibiote_tpu_torch.training.train import Trainer
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with Trainer(cfg, tc, batch_iter=bench_batches(tc.batch_size, tc.ctx_len, 3, n_eos),
+                 prefetch=2) as tr:
+        for _ in range(warmup):
+            tr.train_step_once()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(steps):
+            m = tr.train_step_once()
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        loss = float(m["loss"])
+        n_params = num_params(tr.model, non_embedding=True)
+    peak = torch.cuda.max_memory_allocated()
+    seg = next(bench_batches(tc.batch_size, tc.ctx_len, 3, n_eos))["segments"]
+    fr = kernel_skip_fractions(seg, torch.bfloat16)
+    fpt = flops_per_token(n_params, cfg.n_layer, cfg.n_embd, tc.ctx_len)
+    fpt_x = flops_per_token_executed(n_params, cfg.n_layer, cfg.n_embd, tc.ctx_len,
+                                     vocab_size=cfg.vocab_size, fractions=fr)
+    tps = steps * tc.batch_size * tc.ctx_len / dt
+    check(math.isfinite(loss), f"non-finite lever-run loss {loss} ({label})")
+    row = dict(label=label, step_ms=1e3 * dt / steps, tokens_per_s=tps,
+               peak_gib=peak / 2**30, mfu=mfu(tps, fpt), mfu_executed=mfu(tps, fpt_x))
+    print(f"lever {label}: B={tc.batch_size} (mini {tc.mini_batch_size}) T={tc.ctx_len} "
+          f"{n_eos} EOS a row, dropout {cfg.dropout} bf16: {row['step_ms']:.3f} ms a step, "
+          f"{tps:.1f} tokens/s, peak allocated {row['peak_gib']:.3f} GiB, mfu "
+          f"{row['mfu']:.4f}, mfu_executed {row['mfu_executed']:.4f} (executed tiles fwd "
+          f"{fr[0]:.4f} bwd {fr[1]:.4f}; {fpt_x / 1e9:.4f} of {fpt / 1e9:.4f} GFLOP a "
+          f"token), loss {loss:.4f}")
+    return row
+
+
+def pretrain_phase(workdir):
+    """Pretraining from raw records at omnibiote-small width with the memory
+    levers: corpus -> shards -> the CLI with remat; remat exact; the fused CE
+    against the plain head; executed tiles against the kernels' counters;
+    step time and peak memory of each lever. Returns the launches of its
+    main-path run (the CLI)."""
+    import dataclasses
+    import json as _json
+    import torch
+    from omnibiote_tpu_torch import preset
+    from omnibiote_tpu_torch.config import TrainConfig
+    from omnibiote_tpu_torch.models.omnibiota import init_params
+    from omnibiote_tpu_torch.models.rope import rope_tables
+    from omnibiote_tpu_torch.ops import _kernels
+    from omnibiote_tpu_torch.ops import flash_attention as fa
+    from omnibiote_tpu_torch.ops.fused_ce import pick_chunks
+    from omnibiote_tpu_torch.training import cli
+    from omnibiote_tpu_torch.training.metrics import attention_tile_fraction, kernel_skip_fractions
+    from omnibiote_tpu_torch.training.mlm import mlm_loss
+    from omnibiote_tpu_torch.training.train import _compute_copy
+
+    t_phase = time.time()
+    root = os.path.join(workdir, "pretrain")
+    os.makedirs(root)
+    data = _corpus_to_shards(root)
+
+    # -- the CLI on those shards with remat: this phase's main path ---------
+    mini, accum, ctx = 16, 2, 1024
+    L = 8
+    log = os.path.join(root, "metrics.jsonl")
+    steps = 4
+    argv = ["--base_dir", data, "--train_type", "mixed", "--n_layer", str(L),
+            "--n_embd", "1024", "--n_head", "8", "--ctx_len", str(ctx),
+            "--dropout", str(TRAIN_DROPOUT), "--mini_batch_size", str(mini),
+            "--batch_size", str(mini * accum), "--max_steps", str(steps),
+            "--checkpoint_freq", "1", "--remat_policy", "dots",
+            "--save_dir", os.path.join(root, "ckpt"), "--metrics_jsonl", log,
+            "--log_every", "1", "--test_freq", "50000"]
+    print("pretrain CLI: python -m omnibiote_tpu_torch.training.cli " + " ".join(argv))
+    # main path: every count at 0 just before, read just after
+    _kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    trainer = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    check(trainer.model_cfg.checkpoint_freq == 1 and trainer.model_cfg.remat_policy == "dots",
+          f"the CLI's model config {trainer.model_cfg}")
+    del trainer
+    torch.cuda.empty_cache()
+    resumed = cli.main(argv[:argv.index("--max_steps")] + ["--max_steps", "1"]
+                       + argv[argv.index("--max_steps") + 2:] + ["--resume_from", "-1"])
+    torch.cuda.synchronize()
+    main_launches = dict(_kernels.LAUNCHES)
+    with open(log) as f:
+        recs = [_json.loads(line) for line in f]
+    losses = [r["loss"] for r in recs if "loss" in r]
+    probes = [k for r in recs for k in r if k.startswith("test_loss/")]
+    want = _counts(mh_flash_fwd=(steps + 1) * 2 * L * accum + len(probes) * L,
+                   mh_flash_bwd=(steps + 1) * L * accum)
+    print(f"pretrain CLI (remat dots): {steps} steps in {wall:.2f} s, 1 step resumed from "
+          f"the checkpoint (step {resumed.step}); losses {[round(x, 4) for x in losses]}, "
+          f"{len(probes)} validation probes; launches {main_launches} (want {want}: "
+          f"mh_flash_fwd 2 x {L} and mh_flash_bwd {L} a micro-batch)")
+    check(resumed.step == steps + 1, f"resumed pretrain run ended at step {resumed.step}")
+    check(len(losses) == steps + 1 and all(math.isfinite(x) for x in losses),
+          f"pretrain CLI losses {losses}")
+    check(main_launches == want, f"pretrain CLI launches {main_launches}, want {want}")
+    del resumed
+    torch.cuda.empty_cache()
+
+    # -- remat is exact: ctx 1024 (#2 / #4 + #5) and ctx 2048 (#3 / #4 + #5) --
+    split = {}
+    for (m, T, n_eos, fused_name) in ((mini, ctx, 3, "mh_flash_bwd"),
+                                      (8, 2048, LONG_EOS, "mh_flash_bwd_mk")):
+        cfg = preset("omnibiote-small", vocab_size=65536, dropout=TRAIN_DROPOUT,
+                     block_size=T)
+        batch = next(bench_batches(m, T, 21, n_eos))
+        tokens = torch.from_numpy(batch["tokens"]).cuda()
+        segments = torch.from_numpy(batch["segments"]).cuda()
+        model = init_params(torch.Generator(device="cuda").manual_seed(21), cfg, device="cuda")
+        split[T] = _remat_exact(model, cfg, tokens, segments, f"mini {m}, T {T}",
+                                fused_name, "split pair")
+        del model
+        torch.cuda.empty_cache()
+
+    # -- the fused CE against the plain head at ctx 1024, mini 16 -----------
+    cfg = preset("omnibiote-small", vocab_size=65536, dropout=TRAIN_DROPOUT)
+    batch = next(bench_batches(mini, ctx, 22))
+    tokens = torch.from_numpy(batch["tokens"]).cuda()
+    segments = torch.from_numpy(batch["segments"]).cuda()
+    model = init_params(torch.Generator(device="cuda").manual_seed(22), cfg, device="cuda")
+    out = {}
+    for fused_ce in (False, True):
+        model.cfg = dataclasses.replace(cfg, fused_ce=fused_ce)
+        params_c = _compute_copy(dict(model.named_parameters()), model.cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss, _ = mlm_loss(model, tokens, segments, 99, params=params_c)
+        grads = torch.autograd.grad(loss, list(params_c.values()))
+        torch.cuda.synchronize()
+        extra = (torch.cuda.max_memory_allocated() - base) / 2**30
+        out[fused_ce] = loss.item(), dict(zip(params_c, grads)), extra
+        del params_c, grads, loss
+    model.cfg = cfg
+    (lp, gp, mp), (lf, gf, mf) = out[False], out[True]
+    cos = _worst_cos(gp, gf)
+    print(f"fused CE vs the plain head (mini {mini}, T {ctx}, vocab {cfg.vocab_size}, "
+          f"{pick_chunks(cfg.vocab_size)} chunks): loss {lf:.6f} vs {lp:.6f} (|d| {abs(lf - lp):.2e}, "
+          f"limit {TRAIN_LOSS_ATOL}); worst gradient cosine {cos:.6f} (limit "
+          f"{TRAIN_GRAD_COS}); a micro-batch's forward + backward peaks {mf:.3f} GiB above "
+          f"the weights and their copy with the fused CE, {mp:.3f} GiB with the plain head")
+    check(abs(lf - lp) <= TRAIN_LOSS_ATOL, "fused CE loss vs the plain head")
+    check(cos >= TRAIN_GRAD_COS, "fused CE gradients vs the plain head")
+    del model, out, gp, gf
+    torch.cuda.empty_cache()
+
+    # -- executed tiles: kernel_skip_fractions against the kernels' counters --
+    H, D = 8, 128
+    for (B, T, n_eos) in TILE_SHAPES:
+        seg_np = next(bench_batches(B, T, 23, n_eos))["segments"]
+        seg = torch.from_numpy(seg_np).cuda().contiguous()
+        gen = torch.Generator(device="cuda").manual_seed(23)
+        q, k, v, do = (torch.randn(B, T, H, D, generator=gen, device="cuda",
+                                   dtype=torch.bfloat16) for _ in range(4))
+        rope = rope_tables(D, T, 10000.0, device="cuda")
+        sb = fa.SegmentBounds(seg)
+        kw = dict(scale=0.125, dropout_rate=TRAIN_DROPOUT, seed=5)
+        walked = {}
+        for kind in ("fwd", "fused", "dkv", "dq"):
+            bq, bkv = fa.KERNEL_TILES[kind][torch.bfloat16]
+            owner, other = (bkv, bq) if kind in ("fused", "dkv") else (bq, bkv)
+            count = torch.zeros(1, dtype=torch.int32, device="cuda")
+            if kind == "fwd":
+                o, lse2 = fa.mh_flash_forward_kernel(q, k, v, seg, rope, kv_bounds=sb.get(
+                    owner, other), tile_count=count, **kw)
+            else:
+                di = (o.float() * do.float()).sum(-1)
+                fa.mh_flash_bwd_kernel(kind, q, k, v, do, lse2, di, seg, rope,
+                                       tile_bounds=sb.get(owner, other), tile_count=count,
+                                       **kw)
+            torch.cuda.synchronize()
+            walked[kind] = int(count.item()) / (H * B * (T // owner) * (T // other))
+            want_k = attention_tile_fraction(seg_np, owner, other)
+            check(walked[kind] == want_k,
+                  f"{kind} at T {T}: walked {walked[kind]} of its tiles, "
+                  f"attention_tile_fraction {want_k}")
+        e = kernel_skip_fractions(seg_np, torch.bfloat16)
+        e_split = kernel_skip_fractions(seg_np, torch.bfloat16, fused=False)
+        print(f"executed tiles B={B} T={T} ({n_eos} EOS a row): walked fwd {walked['fwd']:.6f} "
+              f"fused {walked['fused']:.6f} dkv {walked['dkv']:.6f} dq {walked['dq']:.6f}; "
+              f"kernel_skip_fractions {e[0]:.6f}, {e[1]:.6f} (split {e_split[1]:.6f})")
+        check(e == (walked["fwd"], walked["fused"]), f"kernel_skip_fractions at T {T}")
+        check(abs(e_split[1] - (3 * walked["dkv"] + walked["dq"]) / 4) < 1e-12,
+              f"kernel_skip_fractions split at T {T}")
+        del q, k, v, do, o, lse2
+    torch.cuda.empty_cache()
+
+    # -- what the levers cost ----------------------------------------------
+    _kernels.reset_launches()
+    rows = []
+    for T, m, a, n_eos, cf, pol, fce in LEVER_RUNS:
+        cfg = preset("omnibiote-small", vocab_size=65536, dropout=TRAIN_DROPOUT,
+                     block_size=T, checkpoint_freq=cf, remat_policy=pol, fused_ce=fce)
+        tc = TrainConfig(batch_size=m * a, mini_batch_size=m, ctx_len=T,
+                         token_budget=float(m * a * T * 10000), seed=0)
+        label = (f"ctx {T} mini {m} x {a}, remat {pol if cf else 'off'}, "
+                 f"{'fused CE' if fce else 'plain head'}")
+        rows.append(_lever_run(cfg, tc, n_eos, label))
+    print(f"lever runs launched {dict(_kernels.LAUNCHES)}")
+    print("levers: " + json.dumps(rows))
+    print(f"pretrain phase: {time.time() - t_phase:.1f} s")
+    return main_launches, split
+
+
 def setup():
     """Refuse to run without a card or without the package, and fix the
     fp32 matmul precision the references assume."""
@@ -2910,20 +3349,28 @@ def main():
         torch.cuda.empty_cache()
         evals = eval_slice_phase(workdir, tok_path)
         print(f"eval slice main path launches: {evals}")
+        torch.cuda.empty_cache()
+        pretrain, remat_split = pretrain_phase(workdir)
+        print(f"pretraining main path launches: {pretrain}; split-pair remat checks: "
+              f"{remat_split}")
     # each row's launches: the count its own main paths left (serving, both
-    # training contexts and the eval slice for the forward; the ctx-1024
-    # training and the eval slice for the fused backward)
+    # training contexts, the eval slice and pretraining from raw records for
+    # the forward; the ctx-1024 training, the eval slice and pretraining for
+    # the fused backward)
     fwd_row["launches"] = (serving["mh_flash_fwd"] + train["mh_flash_fwd"]
-                           + long_cli["mh_flash_fwd"] + evals["mh_flash_fwd"])
-    bwd_row["launches"] = train["mh_flash_bwd"] + evals["mh_flash_bwd"]
+                           + long_cli["mh_flash_fwd"] + evals["mh_flash_fwd"]
+                           + pretrain["mh_flash_fwd"])
+    bwd_row["launches"] = (train["mh_flash_bwd"] + evals["mh_flash_bwd"]
+                           + pretrain["mh_flash_bwd"])
     for row in long_rows:
         source = long_cli if row["name"] == "mh_flash_bwd_mk" else long_split
         row["launches"] = source[row["name"]]
     int8_row["launches"] = int8_serving["int8_flash_fwd"]
     rows = [fwd_row, bwd_row, *long_rows, int8_row, *head_rows, *probe_rows]
     check(min(serving["mh_flash_fwd"], train["mh_flash_fwd"], long_cli["mh_flash_fwd"],
-              evals["mh_flash_fwd"]) > 0, "a main path never launched mh_flash_fwd")
-    check(min(train["mh_flash_bwd"], evals["mh_flash_bwd"]) > 0,
+              evals["mh_flash_fwd"], pretrain["mh_flash_fwd"]) > 0,
+          "a main path never launched mh_flash_fwd")
+    check(min(train["mh_flash_bwd"], evals["mh_flash_bwd"], pretrain["mh_flash_bwd"]) > 0,
           "a main path never launched mh_flash_bwd")
     check(len(rows) == 13 and all(row["launches"] > 0 for row in rows),
           f"a kernel was never launched on its main path: "

@@ -1,10 +1,11 @@
 """Typed model configuration for the PyTorch/CUDA port.
 
 Field for field the model configuration of `omnibiote_tpu/config.py`, so a
-`meta.json` written by either package loads in the other. Fields that only
-steer the JAX package's compiler (`scan_layers`, `remat_policy`,
-`checkpoint_freq`, `fused_ce`) are carried for that compatibility; the
-training modes they select that the port has not ported yet raise.
+`meta.json` written by either package loads in the other. `scan_layers`
+only steers the JAX package's compiler and is carried for that
+compatibility; `checkpoint_freq`, `remat_policy` and `fused_ce` select the
+port's rematerialisation and fused cross-entropy as they select the JAX
+package's.
 `TrainConfig` is the JAX package's pretraining configuration field for
 field, including its TPU-mesh fields, so a checkpoint's meta.json carries
 over both ways.
@@ -59,10 +60,13 @@ class OmniBioTAConfig:
     dropout: float = 0.1
     bias: bool = False
     autoregressive: bool = False
-    # Training-time rematerialisation and layer-scan switches of the JAX
-    # package; carried so its meta.json loads, unused by the port.
+    # Activation rematerialisation: 0 = none; k > 0 remats every block, as
+    # the JAX package does under lax.scan (the reference checkpoints every
+    # k-th block). remat_policy 'full' recomputes the whole block; 'dots'
+    # keeps the projections' outputs and recomputes the rest.
     checkpoint_freq: int = 0
     remat_policy: str = "full"
+    # The JAX package's layer-scan switch; carried so its meta.json loads.
     scan_layers: bool = False
 
     # 'flash' = the hand-written CUDA attention kernel (plain PyTorch on a
@@ -73,7 +77,8 @@ class OmniBioTAConfig:
     compute_dtype: str = "bfloat16"
     rope_theta: float = 10000.0
 
-    # MLM-head option of the JAX package (training only).
+    # MLM head: the vocab-chunked fused cross-entropy (ops/fused_ce.py)
+    # instead of the plain log_softmax (training only).
     fused_ce: bool = False
 
     # True for weights whose q/k projection rows already carry the RoPE

@@ -282,7 +282,7 @@ def list_shards(base_dir: str, rel_dirs: Sequence[str]) -> List[List[str]]:
         if not files:
             raise FileNotFoundError(
                 f"no .npy token shards in {d!r} — run the preprocessing "
-                "tokenize step (omnibiote_tpu.preprocessing.tokenize_corpus)"
+                "tokenize step (omnibiote_tpu_torch.preprocessing.tokenize_corpus)"
                 " first")
         out.append(files)
     return out

@@ -24,20 +24,38 @@ each linear casts its weight to the activation dtype.
 Training forward (deterministic=False, dropout > 0): inverted dropout on the
 embeddings and on both residual branches of every block, and dropout on the
 attention probabilities, as the JAX package places them. Its randomness
-comes from one integer seed (`rng`, the counterpart of the JAX key): a
-generator on the model's device seeded from it draws the elementwise
-masks, and each layer's attention gets its own 64-bit seed, both derived
-on the host (`_forward_rngs`), so a forward never waits for the device.
+comes from one integer seed (`rng`, the counterpart of the JAX key), from
+which the host derives a seed for the embedding mask and, per layer, one
+for each of its three sites (`attn`, `resid1`, `resid2`), as the JAX
+package splits its key per (layer, site) (`_forward_rngs`). Each mask is a
+pure function of its seed: a residual mask comes from a generator seeded
+when it is drawn, the attention's from the kernels' Philox stream keyed by
+its seed. So a forward never waits for the device, and a block run twice
+with the same seeds draws the same masks.
+
+Rematerialisation (cfg.checkpoint_freq > 0, training with gradients):
+every block runs under `torch.utils.checkpoint` (non-reentrant), as the
+JAX package wraps every scanned block in `jax.checkpoint` for any
+checkpoint_freq > 0. remat_policy 'dots' saves the outputs of the four
+projections (`aten.mm` / `aten.addmm`, not the batched `aten.bmm`: the JAX
+package's dots_with_no_batch_dims_saveable) and recomputes the rest; any
+other policy recomputes the whole block. The masks' seeds make the
+recompute draw the same masks, so remat changes no gradient.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from ..config import OmniBioTAConfig
 from ..ops.attention import attention
@@ -102,13 +120,17 @@ def _gelu(x, cfg: OmniBioTAConfig):
     return _gelu_fast(x) if mode == "fast" else _gelu_erf(x)
 
 
-def _dropout(x, rate: float, gen: Optional[torch.Generator]):
+def _dropout(x, rate: float, seed: Optional[int]):
     """Inverted dropout from raw random bits: keep iff the 32 bits >=
     ⌊rate·2³²⌋ (the JAX package's `_dropout` rule, the same as the flash
-    kernel's), then x / (1 - rate) in x's dtype. The bits are drawn as
-    int32 and compared offset by 2³¹, which is the unsigned comparison."""
-    if gen is None or rate == 0.0:
+    kernel's), then x / (1 - rate) in x's dtype. The bits come from a
+    generator on x's device seeded with `seed` here, so the mask is a pure
+    function of the seed; they are drawn as int32 and compared offset by
+    2³¹, which is the unsigned comparison."""
+    if seed is None or rate == 0.0:
         return x
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(int(seed) & 0x7FFFFFFFFFFFFFFF)
     thresh = min(int(rate * (2.0 ** 32)), 2 ** 32 - 1)
     bits = torch.randint(-2 ** 31, 2 ** 31, x.shape, generator=gen,
                          device=x.device, dtype=torch.int32)
@@ -116,14 +138,23 @@ def _dropout(x, rate: float, gen: Optional[torch.Generator]):
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def _forward_rngs(rng: int, n_layer: int, device):
-    """(device generator for the elementwise masks, per-layer attention
-    seeds) from the forward's integer seed; host-side only."""
-    words = np.random.SeedSequence(int(rng)).generate_state(1 + n_layer,
-                                                            np.uint64)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(words[0]) & 0x7FFFFFFFFFFFFFFF)
-    return gen, [int(w) for w in words[1:]]
+# A layer's dropout seeds: (attn, resid1, resid2).
+LayerSeeds = Tuple[int, int, int]
+
+
+def _forward_rngs(rng: int, n_layer: int):
+    """(embedding seed, [per-layer (attn, resid1, resid2) seeds]) from the
+    forward's integer seed; host-side only."""
+    words = [int(w) for w in np.random.SeedSequence(int(rng)).generate_state(
+        1 + 3 * n_layer, np.uint64)]
+    return words[0], [tuple(words[1 + 3 * i:4 + 3 * i]) for i in range(n_layer)]
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """remat_policy 'dots': keep the unbatched products' outputs."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def _linear(x, w, b=None):
@@ -194,13 +225,13 @@ class Block(nn.Module):
         self.mlp = MLP(cfg, device=device, dtype=dtype)
 
     def forward(self, x, cfg: OmniBioTAConfig, qkv_perm, rope, segment_ids,
-                gen: Optional[torch.Generator] = None,
-                attn_seed: Optional[int] = None, seg_bounds=None):
-        """gen (the forward's device generator) and attn_seed are given
-        when training with dropout, None otherwise. seg_bounds: the
+                seeds: Optional[LayerSeeds] = None, seg_bounds=None):
+        """seeds (the layer's (attn, resid1, resid2) dropout seeds) are
+        given when training with dropout, None otherwise. seg_bounds: the
         SegmentBounds of segment_ids that all layers share."""
         B, T, D = x.shape
-        rate = cfg.dropout if gen is not None else 0.0
+        rate = cfg.dropout if seeds is not None else 0.0
+        attn_seed, resid1, resid2 = seeds if seeds is not None else (None,) * 3
         H, Dh = cfg.n_head, cfg.head_dim
         # attention: RoPE's pair de-interleave is folded into the q and k
         # output rows of c_attn (a shared head_dim permutation of q and k
@@ -216,17 +247,35 @@ class Block(nn.Module):
             v.reshape(B, T, H, Dh), scale=cfg.attn_scale,
             segment_ids=segment_ids, causal=cfg.autoregressive,
             dropout_rate=rate, dropout_seed=attn_seed, impl=cfg.attn_impl,
-            rope=rope, int8=cfg.attn_int8 and gen is None,
+            rope=rope, int8=cfg.attn_int8 and seeds is None,
             seg_bounds=seg_bounds)
         y = _linear(y.reshape(B, T, D), self.attn.c_proj.weight,
                     self.attn.c_proj.bias)
-        x = x + _dropout(y, rate, gen)
+        x = x + _dropout(y, rate, resid1)
         # MLP
         h = self.ln_2(x)
         h = _linear(h, self.mlp.c_fc.weight, self.mlp.c_fc.bias)
         h = _gelu(h, cfg)
         h = _linear(h, self.mlp.c_proj.weight, self.mlp.c_proj.bias)
-        return x + _dropout(h, rate, gen)
+        return x + _dropout(h, rate, resid2)
+
+
+def _rematted_block(blk: Block, x, cfg: OmniBioTAConfig, *args):
+    """blk(x, cfg, *args) under torch.utils.checkpoint. The block's
+    parameters go in as the checkpoint's inputs, taken as the forward sees
+    them: under `functional_call` (the train step's bf16 compute copy) the
+    recompute, which runs after that call has returned, must use those
+    tensors and not the module's own."""
+    names, tensors = zip(*blk.named_parameters())
+
+    def run(x, *params):
+        return functional_call(blk, dict(zip(names, params)), (x, cfg, *args))
+
+    context_fn = (functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+                  if cfg.remat_policy == "dots" else noop_context_fn)
+    # every mask is keyed by its seed: no global RNG state to stash
+    return checkpoint(run, x, *tensors, use_reentrant=False,
+                      context_fn=context_fn, preserve_rng_state=False)
 
 
 class OmniBioTA(nn.Module):
@@ -270,18 +319,23 @@ class OmniBioTA(nn.Module):
             # the attention's skip bounds: one holder per forward, filled
             # once per tile size and read by every layer, both directions
             seg_bounds = SegmentBounds(segment_ids)
-        x = self.transformer.wte.weight[idx.long()].to(cfg.cdtype())
-        gen, seeds = None, [None] * cfg.n_layer
+        # F.embedding, not indexing: its backward sums repeated ids in a
+        # fixed order (indexing's index_put_ accumulates in no fixed order)
+        x = F.embedding(idx.long(), self.transformer.wte.weight).to(cfg.cdtype())
+        seeds = [None] * cfg.n_layer
         if not deterministic:
             if rng is None:
                 raise ValueError("training forward requires rng")
             if cfg.dropout > 0.0:
-                gen, seeds = _forward_rngs(rng, cfg.n_layer, x.device)
-                x = _dropout(x, cfg.dropout, gen)
+                emb_seed, seeds = _forward_rngs(rng, cfg.n_layer)
+                x = _dropout(x, cfg.dropout, emb_seed)
         rope = (self.rope_cos, self.rope_sin)
-        for blk, seed in zip(self.transformer.h, seeds):
-            x = blk(x, cfg, self.qkv_perm, rope, segment_ids, gen, seed,
+        remat = (cfg.checkpoint_freq > 0 and not deterministic
+                 and torch.is_grad_enabled())
+        for blk, layer_seeds in zip(self.transformer.h, seeds):
+            args = (cfg, self.qkv_perm, rope, segment_ids, layer_seeds,
                     seg_bounds)
+            x = _rematted_block(blk, x, *args) if remat else blk(x, *args)
         emb = self.transformer.ln_f(x)
         if return_embeddings:
             return emb

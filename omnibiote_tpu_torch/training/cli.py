@@ -6,9 +6,11 @@ train_encoder.py:437-467 flags):
         --train_type mixed --n_layer 8 --n_embd 1024 --n_head 8 \\
         --ctx_len 1024 --dropout 0.1 --mini_batch_size 16 --batch_size 32
 
-Trains on one GPU (--device cpu for the CPU). Flags of modes the port has
-not ported yet (--FSDP, --sharding other than replicated, --mesh_shape,
---multihost, --checkpoint_freq > 0) raise NotImplementedError.
+Trains on one GPU (--device cpu for the CPU), with every single-device
+flag of the JAX CLI: --checkpoint_freq > 0 with --remat_policy full or dots
+rematerialises every block. Flags of the multi-device modes (--FSDP,
+--sharding other than replicated, --mesh_shape, --multihost) raise
+NotImplementedError.
 """
 from __future__ import annotations
 

@@ -8,7 +8,10 @@ train_encoder.py:273-311):
     micro-batch's masked count;
   * the LM head runs only on each row's first `capacity` masked positions
     (capacity = T·capacity_frac, at least 8); overflowing positions drop
-    out of the loss, as in JAX.
+    out of the loss, as in JAX;
+  * cfg.fused_ce takes the vocab-chunked fused cross-entropy
+    (ops/fused_ce.py: no (N, V) fp32 logits kept, recomputed in the
+    backward) in place of the plain log_softmax head.
 The compaction is an integer gather of the masked positions, in order, not
 the JAX package's fp32 one-hot contractions: the labels are exact by
 construction and the cost is linear in T.
@@ -23,6 +26,7 @@ from torch.func import functional_call
 
 from ..config import EOS_TOKEN, MASK_TOKEN, PAD_TOKEN
 from ..models.omnibiota import OmniBioTA, _linear
+from ..ops.fused_ce import fused_cross_entropy, pick_chunks
 
 
 def _default_capacity_frac(mask_prob: float) -> float:
@@ -79,10 +83,6 @@ def mlm_loss(model: OmniBioTA, tokens: torch.Tensor,
     its own (`torch.func.functional_call`), e.g. the train step's bf16
     compute copy."""
     cfg = model.cfg
-    if cfg.fused_ce:
-        raise NotImplementedError(
-            "fused_ce=True (the vocab-chunked fused cross-entropy) is not "
-            "ported yet (ROADMAP Queue 1, item 9)")
     if capacity_frac is None:
         capacity_frac = _default_capacity_frac(mask_prob)
     mask_seed, drop_seed = split_seed(rng)
@@ -108,12 +108,17 @@ def mlm_loss(model: OmniBioTA, tokens: torch.Tensor,
     g_emb = torch.gather(emb, 1, order[..., None].expand(-1, -1, D))
     labels = torch.gather(tokens.long(), 1, order)
 
-    # µP readout on the compacted positions only, plain log_softmax head
+    # µP readout on the compacted positions only: the fused chunked CE or
+    # the plain log_softmax head
     scale = torch.tensor(cfg.mup_output_mult / cfg.width_mult,
                          dtype=g_emb.dtype, device=g_emb.device)
-    logits = _linear(g_emb * scale, lm_head)
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+    if cfg.fused_ce:
+        nll = fused_cross_entropy(g_emb * scale, lm_head, labels,
+                                  pick_chunks(cfg.vocab_size))
+    else:
+        logits = _linear(g_emb * scale, lm_head)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
     nll = torch.where(valid, nll, 0.0)
     masked_count = valid.sum()
     loss = nll.sum() / masked_count.clamp_min(1)

@@ -16,10 +16,11 @@ train_encoder.py) for one device:
   * metrics (loss, token counts, grad norm) stay device tensors until the
     loop fetches them every log_every steps.
 
-Modes of the JAX Trainer that the port has not ported yet raise
+Every single-device mode of the JAX Trainer runs, rematerialisation
+(checkpoint_freq > 0, models/omnibiota.py) and the fused cross-entropy
+(fused_ce, ops/fused_ce.py) included. The multi-device modes raise
 NotImplementedError: sharding other than 'replicated' or a mesh_shape,
-data_hosts > 1 (ROADMAP Queue 1, item 9), fused_ce, checkpoint_freq > 0
-(rematerialisation) and attn_impl='ring'.
+data_hosts > 1 and attn_impl='ring' (ROADMAP Queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -68,13 +69,6 @@ def check_ported(model_cfg: OmniBioTAConfig, train_cfg: TrainConfig,
         raise NotImplementedError(
             "attn_impl='ring' (sequence parallelism) is not ported yet "
             "(ROADMAP Queue 1, item 9)")
-    if model_cfg.fused_ce:
-        raise NotImplementedError(
-            "fused_ce=True is not ported yet (ROADMAP Queue 1, item 9)")
-    if model_cfg.checkpoint_freq > 0:
-        raise NotImplementedError(
-            "checkpoint_freq > 0 (rematerialisation) is not ported yet "
-            "(ROADMAP Queue 1, item 5)")
 
 
 def make_train_step(model: OmniBioTA, model_cfg: OmniBioTAConfig,

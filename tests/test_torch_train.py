@@ -454,6 +454,11 @@ def test_cli_runs_end_to_end(tmp_path):
 # Guards
 # ---------------------------------------------------------------------------
 
+# The modes this package has since ported (fused_ce, checkpoint_freq > 0)
+# keep their cases here, now as checks that the mode runs.
+PORTED = ("fused_ce", "checkpoint_freq")
+
+
 @pytest.mark.parametrize("model_kw,train_kw,hosts", [
     ({}, dict(sharding="fsdp"), 1),
     ({}, dict(mesh_shape=(2,)), 1),
@@ -463,8 +468,17 @@ def test_cli_runs_end_to_end(tmp_path):
     (dict(attn_impl="ring"), {}, 1),
 ])
 def test_unported_modes_raise(model_kw, train_kw, hosts):
+    """Unported modes raise; the ported ones take a Trainer step with finite
+    metrics."""
     cfg = port.OmniBioTAConfig(**dict(TINY, **model_kw))
     tc = TrainConfig(batch_size=8, mini_batch_size=4, ctx_len=64, **train_kw)
+    if set(model_kw) & set(PORTED):
+        with port_train.Trainer(cfg, tc, batch_iter=synth_batches(8, 64, 64),
+                                device="cpu", data_hosts=hosts) as tr:
+            m = tr.train_step_once()
+        assert tr.step == 1
+        assert all(np.isfinite(float(m[k])) for k in ("loss", "grad_norm"))
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         port_train.Trainer(cfg, tc, device="cpu", data_hosts=hosts)
 
@@ -472,19 +486,38 @@ def test_unported_modes_raise(model_kw, train_kw, hosts):
 @pytest.mark.parametrize("flag", [["--multihost"], ["--FSDP"], ["--sharding", "tp"],
                                   ["--checkpoint_freq", "1"]])
 def test_cli_unported_flags_raise(tmp_path, flag):
+    """Unported flags raise; --checkpoint_freq 1 trains a step."""
     _shards(str(tmp_path))
+    argv = ["--base_dir", str(tmp_path), "--n_layer", "1", "--n_embd", "128",
+            "--n_head", "1", "--ctx_len", "128", "--device", "cpu", *flag]
+    if flag[0].lstrip("-") in PORTED:
+        log = tmp_path / "m.jsonl"
+        tr = port_cli.main(argv + ["--mini_batch_size", "2", "--batch_size", "2",
+                                   "--max_steps", "1", "--test_freq", "1e9",
+                                   "--save_dir", str(tmp_path / "ck"),
+                                   "--metrics_jsonl", str(log)])
+        assert tr.step == 1 and tr.model_cfg.checkpoint_freq == 1
+        import json
+        losses = [json.loads(l)["loss"] for l in log.read_text().splitlines()]
+        assert len(losses) == 1 and np.isfinite(losses[0])
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
-        port_cli.main(["--base_dir", str(tmp_path), "--n_layer", "1", "--n_embd",
-                       "128", "--n_head", "1", "--ctx_len", "128",
-                       "--device", "cpu", *flag])
+        port_cli.main(argv)
 
 
 def test_fused_ce_loss_raises():
-    model = port.OmniBioTA(port.OmniBioTAConfig(**dict(TINY, fused_ce=True)),
-                           device="cpu")
-    toks = torch.full((1, 64), 7)
-    with pytest.raises(NotImplementedError, match="fused_ce"):
-        port_mlm.mlm_loss(model, toks, None, 0)
+    """The fused head now runs: at fp32 its loss equals the plain head's."""
+    toks = torch.from_numpy(structured_rows(2, 64, 64, np.random.default_rng(5)))
+    losses = []
+    for fused in (True, False):
+        model = port.OmniBioTA(port.OmniBioTAConfig(**dict(TINY, fused_ce=fused)),
+                               device="cpu")
+        with torch.no_grad():
+            for p in model.parameters():
+                p.copy_(torch.linspace(-0.5, 0.5, p.numel()).reshape(p.shape))
+        losses.append(port_mlm.mlm_loss(model, toks, None, 0)[0])
+    assert torch.isfinite(losses[0])
+    torch.testing.assert_close(losses[0], losses[1], rtol=1e-6, atol=1e-6)
 
 
 def test_trainer_and_cli_need_a_gpu_unless_asked_for_the_cpu(tmp_path):
