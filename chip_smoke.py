@@ -101,7 +101,8 @@ toolkit and g++. It
      rows' counts, and #1's and #2's splits into products and the rest;
  12. eval slice (the fine-tuning harness, `omnibiote_tpu_torch.evals`):
      #1 and #2 against their plain versions at B=4, T 128, 256, 512 and
-     1024 with PAD-tail rows as `pad_batch` lays them out, bf16 and fp32,
+     1024 with PAD-tail rows as `pad_batch` lays them out, and at the
+     contact eval's B=1, T=1024 row with a PAD tail, bf16 and fp32,
      dropout 0 and 0.1; then omnibiote-small at full width (dropout 0.1,
      random weights from a seed, written as a checkpoint, the serving
      slice's vocabulary) through `run_gue` (one domain-MLM step, then the
@@ -136,7 +137,25 @@ toolkit and g++. It
      'full' / 'dots' with the plain head and the fused CE at ctx 1024, remat
      off / 'full' at ctx 4096 (mini 4 x 2), and ctx 4096 at mini 8 x 1 with
      'full' remat;
- 14. prints the card's name and power limit, one JSON line of kernel
+ 14. the TAPE contact eval and DeePNAP, omnibiote-small at full width
+     (dropout 0.1) from a checkpoint on disk: `run_contact_eval` with the
+     8-block CNN on ProteinNet fixtures whose proteins span the buckets,
+     one in each split at the top (961-1022 inner tokens, T = 1024, the
+     only bucket that reaches #1 and #2), W-W pairs the contacts: finite
+     metrics, both kernels launched, no other attention kernel; two
+     fine-tune steps on the top-bucket sample on the kernels against the
+     plain attention at dropout 0, in bf16 (losses, the encoder's and the
+     head's first-step gradients, the predicted map's rows before the
+     steps; the CNN's gradients and the map after them printed, since the
+     random-init CNN amplifies bf16-sized differences of its input) and in
+     fp32 (losses, every gradient, the map after the steps); ms a sample
+     of a grad step and of `predict`
+     at n = 1022, split into the CNN alone and the rest, and the grad
+     step's peak memory, with the TF32 setting; `run_deepnap` with its CV
+     (no attention kernel) and its pretraining steps/s at batch 256; a
+     checkpoint cut into 4 `params.shard*.npz` files in the JAX package's
+     pod layout, loaded bit for bit equal to its params.npz;
+ 15. prints the card's name and power limit, one JSON line of kernel
      numbers, and last the line {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script then exits non-zero without the
@@ -146,6 +165,7 @@ fails at once.
 import json
 import math
 import os
+import pickle
 import re
 import subprocess
 import sys
@@ -2439,25 +2459,46 @@ def _pad_tail_lists(rng, B, T):
     return [rng.integers(20, 500, size=n).tolist() for n in lengths]
 
 
+def _eval_kernel_cases(rng):
+    """(B, T, tokens, segment ids) of the eval path's attention calls: B=4
+    rows as pad_batch lays them out at each of EVAL_BUCKETS, and contact's
+    top bucket, one row of 963..1023 real tokens and a PAD tail to T=1024
+    (evals/contact.py::_pad_sample)."""
+    import numpy as np
+    from omnibiote_tpu_torch.config import PAD_TOKEN
+    from omnibiote_tpu_torch.evals.common import pad_batch
+    from omnibiote_tpu_torch.evals.contact import _pad_sample
+    from omnibiote_tpu_torch.ops.segments import padding_segment_ids_np
+
+    cases = []
+    for T in EVAL_BUCKETS:
+        x, seg = pad_batch(_pad_tail_lists(rng, EVAL_BATCH, T), 128, 1024)
+        cases.append((EVAL_BATCH, T, x, seg))
+    n = int(rng.integers(961, 1022))
+    x = _pad_sample(rng.integers(20, 500, size=n + 2).tolist(),
+                    *(np.zeros((n, n), np.float32) for _ in range(3)))[0]
+    cases.append((1, 1024, x, padding_segment_ids_np(x, PAD_TOKEN)))
+    return cases
+
+
 def eval_kernel_phase():
     """#1 and #2 against their plain versions at the eval path's shapes:
-    B=4, T in EVAL_BUCKETS, PAD-tail rows as pad_batch lays them out (with
-    the skip bounds the model shares), bf16 and fp32, dropout 0 and 0.1.
-    Returns the worst bf16 max |do| and max |d| of the backward."""
+    B=4, T in EVAL_BUCKETS, PAD-tail rows as pad_batch lays them out, and
+    contact's B=1, T=1024 row with a PAD tail (with the skip bounds the
+    model shares), bf16 and fp32, dropout 0 and 0.1. Returns the worst
+    bf16 max |do| and max |d| of the backward."""
     import numpy as np
     import torch
-    from omnibiote_tpu_torch.evals.common import pad_batch
     from omnibiote_tpu_torch.ops.flash_attention import (
         KERNEL_KV_TILE, SegmentBounds, mh_flash_backward, mh_flash_backward_plain,
         mh_flash_forward, mh_flash_forward_plain)
 
-    H, D, B = 8, 128, EVAL_BATCH
+    H, D = 8, 128
     scale = 1.0 / math.sqrt(D)
     rng = np.random.default_rng(13)
     worst_f = worst_b = 0.0
-    for i, T in enumerate(EVAL_BUCKETS):
-        x, seg = pad_batch(_pad_tail_lists(rng, B, T), 128, 1024)
-        check(x.shape == (B, T), f"pad_batch gave {x.shape}, want {(B, T)}")
+    for i, (B, T, x, seg) in enumerate(_eval_kernel_cases(rng)):
+        check(x.shape == (B, T), f"the eval path's tokens {x.shape}, want {(B, T)}")
         seg = torch.from_numpy(seg).cuda()
         bounds = SegmentBounds(seg)
         for dtype in ("bfloat16", "float32"):
@@ -2485,19 +2526,6 @@ def eval_kernel_phase():
                 if dtype == "bfloat16":
                     worst_f, worst_b = max(worst_f, err_f), max(worst_b, err_b)
     return worst_f, worst_b
-
-
-def _write_model_checkpoint(model, path):
-    """A checkpoint directory the port's load_model_checkpoint reads:
-    params.npz in the JAX package's layout and meta.json's model_cfg."""
-    from omnibiote_tpu_torch.training.checkpoint import save_pytree_flat
-    from omnibiote_tpu_torch.utils.convert import flatten_tree, jax_params_from_state
-    os.makedirs(path)
-    state = {n: p.detach().cpu() for n, p in model.named_parameters()}
-    save_pytree_flat(os.path.join(path, "params.npz"),
-                     flatten_tree(jax_params_from_state(state, model.cfg)))
-    with open(os.path.join(path, "meta.json"), "w") as f:
-        json.dump({"model_cfg": dict(vars(model.cfg))}, f)
 
 
 def _bucketed_strings(sp, rng, alphabet, counts, extra_tokens):
@@ -2627,7 +2655,8 @@ def eval_slice_phase(workdir, tok_path):
         common, engine, gue, pdb_contact, pronab, proteinglue, tape, token_finetune)
     from omnibiote_tpu_torch.ops import _kernels
     from omnibiote_tpu_torch.tokenizer import SentencePieceProcessor
-    from omnibiote_tpu_torch.training.checkpoint import load_model_checkpoint
+    from omnibiote_tpu_torch.training.checkpoint import (
+        load_model_checkpoint, save_model_checkpoint)
     from omnibiote_tpu_torch.training.train import slot_seed
 
     root = os.path.join(workdir, "eval")
@@ -2643,7 +2672,7 @@ def eval_slice_phase(workdir, tok_path):
           f"unexpected omnibiote-small config {cfg}")
     ckpt = os.path.join(root, "ckpt")
     model = init_params(torch.Generator(device="cuda").manual_seed(12), cfg, device="cuda")
-    _write_model_checkpoint(model, ckpt)
+    save_model_checkpoint(model, ckpt)
     n_params = sum(p.numel() for p in model.parameters())
     del model
     torch.cuda.empty_cache()
@@ -3300,6 +3329,383 @@ def pretrain_phase(workdir):
     return main_launches, split
 
 
+# ---------------------------------------------------------------------------
+# 14. the TAPE contact eval, DeePNAP and the pod-sharded checkpoint reader
+# ---------------------------------------------------------------------------
+
+# Inner-token counts of contact's fixture proteins (evals/contact.py buckets
+# them to multiples of 64, the top bucket 1022): a split's first protein
+# reaches the top bucket (T = 1024, the kernels), the others take the dense
+# path at T = 66 and 322.
+CONTACT_SPLITS = (("train", (1000, 300, 40)), ("valid", (990, 40)), ("test", (1010, 40)))
+# Conv biases that a batch norm follows: their true gradient is 0, so the
+# two runs' are rounding noise and no cosine of them means anything.
+_PRE_BN_BIAS = re.compile(r"^cnn\.blocks\.\d+\.conv[12]\.bias$")
+
+
+def _contact_fixtures(root, sp, rng):
+    """ProteinNet JSON files whose proteins have CONTACT_SPLITS' inner-token
+    counts (to a few tokens), W-W pairs the contacts (eval_tpu.py's
+    geometry), one residue of each invalid."""
+    import numpy as np
+    probe = "".join(rng.choice(list(PROTEIN), size=20000))
+    chars_per_token = len(probe) / len(sp.encode(probe))
+    pn = os.path.join(root, "proteinnet")
+    os.makedirs(pn)
+    for split, counts in CONTACT_SPLITS:
+        recs = []
+        for want in counts:
+            while True:
+                seq = "".join(rng.choice(list(PROTEIN), size=int(want * chars_per_token)))
+                inner = len(sp.encode("<protein>" + seq + "<EOS>")) - 2
+                lo, hi = (961, 1022) if want > 960 else (want - 20, want + 20)
+                if lo <= inner <= hi:
+                    break
+            tert = np.zeros((len(seq), 3))
+            for i, ch in enumerate(seq):
+                tert[i] = rng.uniform(-2, 2, size=3) if ch == "W" else (20.0 * (i + 2), 0, 0)
+            valid = [1] * len(seq)
+            valid[int(rng.integers(0, len(seq)))] = 0
+            recs.append({"primary": seq, "tertiary": tert.tolist(), "valid_mask": valid})
+        with open(os.path.join(pn, f"proteinnet_{split}.json"), "w") as f:
+            json.dump(recs, f)
+    return root
+
+
+def _contact_two_steps(ckpt, sample, compute_dtype, seed=0):
+    """Two optimizer steps of the contact fine-tune (dropout 0, the model in
+    `compute_dtype`, the run's learning rates, the four-group AdamW after
+    the global-norm clip) on one bucketed sample. Returns the losses, the
+    first step's gradients by name and the predicted map before the first
+    step and after the second."""
+    import torch
+    from omnibiote_tpu_torch.evals import common, contact
+    from omnibiote_tpu_torch.training.checkpoint import load_model_checkpoint
+
+    model, cfg = load_model_checkpoint(ckpt)
+    model.cfg = cfg.replace(dropout=0.0, compute_dtype=compute_dtype)
+    gen = torch.Generator().manual_seed(seed)
+    head = common.init_linear_head(gen, cfg.n_embd, contact.HEAD_DIM, device="cuda")
+    cnn = contact.init_contact_predictor(gen, device="cuda")
+    opt, sched = contact.make_contact_optimizer(
+        model, head, cnn, lr=1e-4, embed_lr=1e-4, head_lr=1e-3, contact_pred_lr=1e-3,
+        total_steps=2)
+    live = common.trainable(model, head)
+    live.update({f"cnn.{n}": p for n, p in cnn.named_parameters()})
+    tensors = common.to_device(model, *sample)
+    out = {"losses": [], "grads": None,
+           "map0": contact.predict_map(model, head, cnn, tensors[0], tensors[2])}
+    for _ in range(2):
+        loss = contact.contact_loss(model, head, cnn, *tensors, 1.0)
+        loss.backward()
+        out["losses"].append(loss.item())
+        if out["grads"] is None:
+            out["grads"] = {n: p.grad.detach().clone() for n, p in live.items()
+                            if p.grad is not None and not _PRE_BN_BIAS.match(n)}
+        contact.clip_grad_global_norm(live.values(), 1.0)
+        common.step_optimizer(opt, sched)
+    out["map2"] = contact.predict_map(model, head, cnn, tensors[0], tensors[2])
+    return out
+
+
+def _hold_contact_steps(ckpt, sample, n):
+    """The contact fine-tune's two steps on the kernels against the plain
+    attention, in bf16 (the main path's compute dtype) and fp32. The
+    8-block CNN at its random init amplifies a difference in its input: a
+    pair image that the two bf16 runs give within 2e-5 relative reaches the
+    map's probabilities as up to 1.7e-2 (first chip run of this phase), so
+    in bf16 the limits hold where the kernels act (the losses, the encoder's
+    and the head's gradients, the map before any update) and the CNN's
+    gradients and the map after two steps are printed; in fp32 the limits
+    hold for every gradient and for the map after two steps."""
+    from omnibiote_tpu_torch.ops import _kernels
+
+    rows = lambda m: m[:n, :n].float().cpu().numpy()
+    for dtype in ("bfloat16", "float32"):
+        _kernels.reset_launches()
+        k = _contact_two_steps(ckpt, sample, dtype)
+        launched = dict(_kernels.LAUNCHES)
+        check(launched["mh_flash_fwd"] > 0 and launched["mh_flash_bwd"] > 0,
+              f"the {dtype} kernel run missed the kernels: {launched}")
+        with _plain_attention():
+            p = _contact_two_steps(ckpt, sample, dtype)
+        check(_kernels.LAUNCHES == launched, "the plain run launched a kernel")
+        d_loss = max(abs(a - b) for a, b in zip(k["losses"], p["losses"]))
+        held = ([name for name in k["grads"] if not name.startswith("cnn.")]
+                if dtype == "bfloat16" else list(k["grads"]))
+        cos_held = _worst_cos({x: k["grads"][x] for x in held}, p["grads"])
+        cos_cnn = _worst_cos({x: k["grads"][x] for x in k["grads"] if x.startswith("cnn.")},
+                             p["grads"])
+        map0 = _min_row_cosine(rows(k["map0"]), rows(p["map0"]))
+        map2 = _min_row_cosine(rows(k["map2"]), rows(p["map2"]))
+        print(f"contact fine-tune, {n} valid of the 1022 x 1022 pair image (T = "
+              f"{sample[0].shape[1]}), {dtype}, kernels vs "
+              f"plain attention (dropout 0, 2 steps): losses {k['losses']} vs {p['losses']} "
+              f"(max |d| {d_loss:.2e}, limit {TRAIN_LOSS_ATOL}); worst first-step gradient "
+              f"cosine {cos_held:.6f} over {len(held)} tensors{' (encoder and head)' if dtype == 'bfloat16' else ''} "
+              f"(limit {TRAIN_GRAD_COS}; the 16 conv biases before a batch norm left out: their "
+              f"gradient is 0 but for rounding), the CNN's {cos_cnn:.6f}; predicted map min row "
+              f"cosine before the steps {map0:.7f}, after {map2:.7f} (limit {MIN_COSINE})")
+        check(d_loss <= TRAIN_LOSS_ATOL, f"contact losses: kernels vs plain, {dtype}")
+        check(cos_held >= TRAIN_GRAD_COS, f"contact gradients: kernels vs plain, {dtype}")
+        check(map0 >= MIN_COSINE, f"contact predicted map: kernels vs plain, {dtype}")
+        if dtype == "float32":
+            check(map2 >= MIN_COSINE, "contact map after two steps: kernels vs plain, fp32")
+        del k, p
+
+
+def _contact_times(ckpt, sample, reps=3):
+    """ms per sample of a grad step and of predict on one bucketed sample
+    (dropout 0, the full 8-block CNN), each split into the CNN alone (on the
+    pair image, detached) and the encoder with the head and the pair image
+    (the difference); and the grad step's peak allocated memory."""
+    import torch
+    from omnibiote_tpu_torch.evals import common, contact
+    from omnibiote_tpu_torch.training.checkpoint import load_model_checkpoint
+
+    model, cfg = load_model_checkpoint(ckpt)
+    model.cfg = cfg.replace(dropout=0.0)
+    gen = torch.Generator().manual_seed(1)
+    head = common.init_linear_head(gen, cfg.n_embd, contact.HEAD_DIM, device="cuda")
+    cnn = contact.init_contact_predictor(gen, device="cuda")
+    tok, cm, mk, ns = common.to_device(model, *sample)
+    params = [*model.parameters(), *head.values(), *cnn.parameters()]
+
+    def grad_step():
+        contact.contact_loss(model, head, cnn, tok, cm, mk, ns, 1.0).backward()
+        for p in params:
+            p.grad = None
+
+    feats = contact.pair_features(model, head, tok).detach().requires_grad_()
+
+    def cnn_step():
+        probs = cnn(feats, mk[None, None])[0, 0]
+        (probs * cm).sum().backward()
+        feats.grad = None
+        for p in cnn.parameters():
+            p.grad = None
+
+    def predict():
+        contact.predict_map(model, head, cnn, tok, mk)
+
+    def cnn_predict():
+        with torch.inference_mode():
+            cnn(feats, mk[None, None])
+
+    out = {}
+    for name, fn in (("grad_step", grad_step), ("cnn_grad_step", cnn_step),
+                     ("predict", predict), ("cnn_predict", cnn_predict)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = 1e3 * (time.perf_counter() - t0) / reps
+    del feats
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    grad_step()
+    torch.cuda.synchronize()
+    out["grad_step_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def _deepnap_fixtures(root, rng, n_proteins=60):
+    """ProNAB records (peptides of 50-1000 residues, 6-10 binding rows of
+    10-60 nucleotides) and mutation pairs over 6 of their peptides."""
+    nuc = lambda n: "".join(rng.choice(list("ACGT"), size=n))
+    ds = {}
+    for k in range(n_proteins):
+        pep = "".join(rng.choice(list(PROTEIN), size=int(rng.integers(50, 1000))))
+        ds[f"P{k}"] = {"Sequence": pep, "binding data": [
+            [nuc(int(rng.integers(10, 60))), "DNA", float(10 ** -rng.uniform(3, 9)),
+             float(-rng.uniform(5, 15)), ""] for _ in range(int(rng.integers(6, 11)))]}
+    pronab = os.path.join(root, "deepnap_pronab.json")
+    with open(pronab, "w") as f:
+        json.dump(ds, f)
+    mutations = os.path.join(root, "deepnap_mutations.jsonl")
+    with open(mutations, "w") as f:
+        for p in sorted(v["Sequence"] for v in ds.values())[:6]:
+            for _ in range(3):
+                f.write(json.dumps({
+                    "peptide_sequence": p,
+                    "wild_nucleotide_sequence": f"<DNA>{nuc(20)}<EOS>",
+                    "mutated_nucleotide_sequence": f"<DNA>{nuc(20)}<EOS>",
+                    "wild_G0": float(-rng.uniform(5, 15)),
+                    "mutant_G0": float(-rng.uniform(5, 15))}) + "\n")
+    return pronab, mutations
+
+
+def _split_into_shards(src, dst, n=4):
+    """A pod-sharded copy of a single-process checkpoint directory: every
+    leaf of params.npz cut along its first axis into n pieces (a leaf of
+    fewer rows stays whole), piece i in params.shard<i>.npz under the JAX
+    package's "<leaf>@<start>:<stop>,..." key; meta.json copied."""
+    import shutil
+    import numpy as np
+    os.makedirs(dst)
+    files = [{} for _ in range(n)]
+    with np.load(os.path.join(src, "params.npz")) as z:
+        for key in z.files:
+            leaf, suffix = (key[:-6], "::bf16") if key.endswith("::bf16") else (key, "")
+            arr = z[key]
+            rows = arr.shape[0] if arr.ndim else 0
+            cuts = np.linspace(0, rows, n + 1).astype(int) if rows >= n else [0, rows]
+            for i, (a, b) in enumerate(zip(cuts[:-1], cuts[1:])):
+                spans = ",".join([f"{a}:{b}"] + [f"0:{d}" for d in arr.shape[1:]]) if arr.ndim else ""
+                files[i][f"{leaf}@{spans}{suffix}"] = arr[a:b] if arr.ndim else arr
+    for i, content in enumerate(files):
+        np.savez(os.path.join(dst, f"params.shard{i}.npz"), **content)
+    shutil.copy(os.path.join(src, "meta.json"), dst)
+    return dst
+
+
+def contact_phase(workdir, tok_path):
+    """The TAPE contact eval at omnibiote-small full width from a checkpoint
+    on disk, its fine-tune on the kernels against the plain attention, its
+    per-sample times and memory at n = 1022; DeePNAP's run and its
+    pretraining rate at batch 256; a 4-shard checkpoint loaded bit for bit.
+    Returns the launches of the contact run (the main path)."""
+    import numpy as np
+    import torch
+    from omnibiote_tpu_torch import init_params, preset
+    from omnibiote_tpu_torch.evals import common, contact, deepnap
+    from omnibiote_tpu_torch.ops import _kernels
+    from omnibiote_tpu_torch.tokenizer import SentencePieceProcessor
+    from omnibiote_tpu_torch.training.checkpoint import (
+        load_model_checkpoint, save_model_checkpoint)
+    from omnibiote_tpu_torch.training.train import slot_seed
+
+    t_phase = time.time()
+    root = os.path.join(workdir, "contact")
+    out_dir = os.path.join(root, "out")
+    os.makedirs(out_dir)
+    sp = SentencePieceProcessor(tok_path)
+    ban = sp.piece_to_id("▁")
+    rng = np.random.default_rng(14)
+    data_dir = _contact_fixtures(root, sp, rng)
+    cfg = preset("omnibiote-small", vocab_size=65536, dropout=TRAIN_DROPOUT)
+    ckpt = os.path.join(root, "ckpt")
+    model = init_params(torch.Generator(device="cuda").manual_seed(14), cfg, device="cuda")
+    save_model_checkpoint(model, ckpt)
+    del model
+    torch.cuda.empty_cache()
+    print(f"contact: cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}, "
+          f"matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32}")
+
+    # main path: run_contact_eval, every count at 0 just before, read just after
+    torch.cuda.reset_peak_memory_stats()
+    cwd = os.getcwd()
+    os.chdir(out_dir)
+    _kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    try:
+        result = contact.run_contact_eval(
+            tok_path, ckpt, banned_token=ban, data_dir=data_dir, num_epochs=2,
+            num_accumulation_steps=2, num_tests=1, seed=0, cache=True)
+        torch.cuda.synchronize()
+    finally:
+        os.chdir(cwd)
+    wall = time.time() - t0
+    launches = dict(_kernels.LAUNCHES)
+    print(f"contact run_contact_eval (omnibiote-small, dropout {TRAIN_DROPOUT}, 8 blocks, "
+          f"3 steps of 2 draws): {wall:.2f} s, peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches mh_flash_fwd "
+          f"{launches['mh_flash_fwd']} mh_flash_bwd {launches['mh_flash_bwd']}; result "
+          f"{json.dumps(result)}")
+    check(_finite_numbers(result) and set(result) == {"test", "test_best"},
+          f"contact: results {result}")
+    check(launches["mh_flash_fwd"] > 0 and launches["mh_flash_bwd"] > 0,
+          f"contact never reached the kernels: {launches}")
+    check(all(launches[n] == 0 for n in EVAL_UNUSED),
+          f"contact launched a kernel off its path: {launches}")
+    cache = os.path.join(data_dir, "proteinnet", "processed_train_bpe_mixed.pkl")
+    check(os.path.exists(cache), "contact wrote no preprocessing cache")
+
+    # the fine-tune on the kernels against the plain attention, dropout 0:
+    # the top-bucket training sample (read back from the cache), 2 steps
+    with open(cache, "rb") as f:
+        toks, cms, masks, nsrs = pickle.load(f)
+    top = [i for i, t in enumerate(toks) if len(t) - 2 > 960]
+    check(len(top) == 1, f"contact's train split has {len(top)} top-bucket samples")
+    sample = contact._pad_sample(toks[top[0]], cms[top[0]], masks[top[0]], nsrs[top[0]])
+    n = len(toks[top[0]]) - 2
+    check(sample[0].shape == (1, 1024), f"top-bucket tokens {sample[0].shape}")
+    _hold_contact_steps(ckpt, sample, n)
+    torch.cuda.empty_cache()
+
+    times = _contact_times(ckpt, sample)
+    print(f"contact per sample, a 1022 x 1022 pair image with {n} valid (T = "
+          f"{sample[0].shape[1]}, dropout 0, 8 blocks, on "
+          f"{gpu_name_and_power()}): grad step {times['grad_step']:.2f} ms (CNN alone "
+          f"{times['cnn_grad_step']:.2f} ms, encoder + head + pair image "
+          f"{times['grad_step'] - times['cnn_grad_step']:.2f} ms by difference), predict "
+          f"{times['predict']:.2f} ms (CNN alone {times['cnn_predict']:.2f} ms, encoder + head "
+          f"+ pair image {times['predict'] - times['cnn_predict']:.2f} ms); grad step peak "
+          f"allocated {times['grad_step_peak_gib']:.2f} GiB; cudnn.allow_tf32 "
+          f"{torch.backends.cudnn.allow_tf32}")
+
+    # DeePNAP: run_deepnap with its CV, no attention kernel; its pretraining
+    # rate at batch 256
+    pronab, mutations = _deepnap_fixtures(root, rng)
+    _kernels.reset_launches()
+    os.chdir(out_dir)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    try:
+        dres = deepnap.run_deepnap(pronab, mutations, output_suffix="smoke", num_epochs=4,
+                                   batch_size=256, folds=2, num_epochs_cv=64, seed=0)
+        torch.cuda.synchronize()
+    finally:
+        os.chdir(cwd)
+    dwall = time.time() - t0
+    check(_finite_numbers(dres) and len(dres["folds"]) == 2, f"deepnap: results {dres}")
+    check(not any(_kernels.LAUNCHES.values()), f"deepnap launched {_kernels.LAUNCHES}")
+    net = deepnap.init_deepnap(torch.Generator().manual_seed(0), device="cuda")
+    opt, sched = common.adamw([list(net.parameters())], [common.linear_to_zero(1e-3, 1000)])
+    xp = torch.from_numpy(np.stack([deepnap.encode_peptide("".join(rng.choice(
+        list(PROTEIN), size=int(rng.integers(50, 1000)))))[None] for _ in range(256)])).cuda()
+    xn = torch.from_numpy(np.stack([deepnap.encode_nucleotide(
+        "".join(rng.choice(list("ACGT"), size=40)))[None] for _ in range(256)])).cuda()
+    y = torch.randn(256, device="cuda")
+
+    def pretrain_step(k):
+        out = deepnap.apply_deepnap(net, xp, xn, dropout_rate=deepnap.PRETRAIN_DROPOUT,
+                                    seed=slot_seed(1, k, 0))[:, 0]
+        torch.mean((out - y) ** 2).backward()
+        common.step_optimizer(opt, sched)
+
+    for k in range(3):
+        pretrain_step(k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = 50
+    for k in range(steps):
+        pretrain_step(3 + k)
+    torch.cuda.synchronize()
+    rate = steps / (time.perf_counter() - t0)
+    print(f"deepnap run_deepnap (batch 256, 4 pretraining epochs, 2 CV folds of 64 epochs): "
+          f"{dwall:.2f} s; zero-shot {json.dumps(dres['zero_shot'])}; pretraining "
+          f"{rate:.1f} steps/s at batch 256 ({256 * rate:.0f} samples/s)")
+
+    # a 4-shard checkpoint: the same weights, bit for bit
+    sharded = _split_into_shards(ckpt, os.path.join(root, "ckpt_sharded"))
+    check(not os.path.exists(os.path.join(sharded, "params.npz")), "the shards' dir")
+    a, cfg_a = load_model_checkpoint(ckpt)
+    b, cfg_b = load_model_checkpoint(sharded)
+    sa, sb = a.state_dict(), b.state_dict()
+    same = cfg_a == cfg_b and set(sa) == set(sb) and all(torch.equal(sa[k], sb[k]) for k in sa)
+    print(f"sharded checkpoint: 4 params.shard*.npz files, {len(sa)} tensors, "
+          f"{sum(v.numel() for v in sa.values())} values, loaded bit for bit equal: {same}")
+    check(same, "the 4-shard checkpoint loaded other weights")
+    del a, b, sa, sb
+    torch.cuda.empty_cache()
+    print(f"contact phase: {time.time() - t_phase:.1f} s")
+    return launches
+
+
 def setup():
     """Refuse to run without a card or without the package, and fix the
     fp32 matmul precision the references assume."""
@@ -3353,24 +3759,28 @@ def main():
         pretrain, remat_split = pretrain_phase(workdir)
         print(f"pretraining main path launches: {pretrain}; split-pair remat checks: "
               f"{remat_split}")
+        torch.cuda.empty_cache()
+        contact = contact_phase(workdir, tok_path)
+        print(f"contact main path launches: {contact}")
     # each row's launches: the count its own main paths left (serving, both
-    # training contexts, the eval slice and pretraining from raw records for
-    # the forward; the ctx-1024 training, the eval slice and pretraining for
-    # the fused backward)
+    # training contexts, the eval slice, pretraining from raw records and the
+    # contact eval for the forward; the ctx-1024 training, the eval slice,
+    # pretraining and the contact eval for the fused backward)
     fwd_row["launches"] = (serving["mh_flash_fwd"] + train["mh_flash_fwd"]
                            + long_cli["mh_flash_fwd"] + evals["mh_flash_fwd"]
-                           + pretrain["mh_flash_fwd"])
+                           + pretrain["mh_flash_fwd"] + contact["mh_flash_fwd"])
     bwd_row["launches"] = (train["mh_flash_bwd"] + evals["mh_flash_bwd"]
-                           + pretrain["mh_flash_bwd"])
+                           + pretrain["mh_flash_bwd"] + contact["mh_flash_bwd"])
     for row in long_rows:
         source = long_cli if row["name"] == "mh_flash_bwd_mk" else long_split
         row["launches"] = source[row["name"]]
     int8_row["launches"] = int8_serving["int8_flash_fwd"]
     rows = [fwd_row, bwd_row, *long_rows, int8_row, *head_rows, *probe_rows]
     check(min(serving["mh_flash_fwd"], train["mh_flash_fwd"], long_cli["mh_flash_fwd"],
-              evals["mh_flash_fwd"], pretrain["mh_flash_fwd"]) > 0,
+              evals["mh_flash_fwd"], pretrain["mh_flash_fwd"], contact["mh_flash_fwd"]) > 0,
           "a main path never launched mh_flash_fwd")
-    check(min(train["mh_flash_bwd"], evals["mh_flash_bwd"], pretrain["mh_flash_bwd"]) > 0,
+    check(min(train["mh_flash_bwd"], evals["mh_flash_bwd"], pretrain["mh_flash_bwd"],
+              contact["mh_flash_bwd"]) > 0,
           "a main path never launched mh_flash_bwd")
     check(len(rows) == 13 and all(row["launches"] > 0 for row in rows),
           f"a kernel was never launched on its main path: "

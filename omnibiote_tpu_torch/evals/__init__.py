@@ -8,12 +8,14 @@ with the JAX package's flags plus --device; CUDA unless device="cpu"):
   proteinglue.run_proteinglue  ProteinGLUE per-residue suite
   pronab.run_pronab            ProNAB binding affinity (crossval/train-all)
   pdb_contact.run_pdb_contact  PDB peptide-nucleotide contact
+  contact.run_contact_eval     TAPE ProteinNet contact maps (pairwise
+                               ResNet head, valid-masked BatchNorm)
+  deepnap.run_deepnap          the DeePNAP CNN baseline for ProNAB
 
 Shared pieces: common (batching, schedules, the three-group AdamW, the
 linear head), metrics (scikit-learn's metrics in numpy), alignment
 (char <-> token labels), engine (domain MLM, sequence classification),
 token_finetune (per-token and single-target tasks).
 
-Still to come: contact (TAPE ProteinNet contact maps) and deepnap (the
-DeePNAP CNN baseline).
+`python3 tools/gpu_eval.py` runs all seven families on the card.
 """

@@ -11,12 +11,17 @@ So the JAX Trainer and the port resume from each other's checkpoints. The
 training seed is written as the two 32-bit words of the port's integer seed
 with rng_impl "raw" (a JAX raw key); a JAX typed key read from meta.json is
 mixed into an integer seed. Saves rotate as the reference's do: after a
-successful save the previous non-final checkpoint is deleted. The
-pod-sharded format (per-process shard files) is not ported: reading one
-raises.
+successful save the previous non-final checkpoint is deleted.
+
+A checkpoint the JAX package saved on a pod holds `params.shard<pid>.npz`
+files instead of params.npz, each key "<leaf>@<start>:<stop>,..." naming
+the global slice it holds (scalars "<leaf>@"). `load_model_checkpoint`
+assembles them; writing that format and resuming a trainer from it are not
+ported.
 """
 from __future__ import annotations
 
+import glob
 import json
 import os
 import shutil
@@ -66,28 +71,103 @@ def save_pytree_flat(path: str, flat: Dict[str, object]) -> None:
     np.savez(path, **out)
 
 
-def _params_dir_check(path: str) -> str:
+def _parse_index_key(key: str):
+    """"<leaf>@<start>:<stop>,..." -> (leaf key, tuple of slices)."""
+    leaf_key, _, idx = key.rpartition("@")
+    if not idx:
+        return leaf_key, ()
+    slices = []
+    for part in idx.split(","):
+        start, stop = part.split(":")
+        slices.append(slice(int(start), int(stop)))
+    return leaf_key, tuple(slices)
+
+
+def _load_all_shards(dirpath: str, name: str):
+    """({leaf_key: {index: np.ndarray}}, the bf16 leaves' keys) of every
+    `<name>.shard*.npz` in `dirpath`; bf16 pieces keep their uint16 bits."""
+    by_leaf: Dict[str, Dict] = {}
+    bf16 = set()
+    for f in sorted(glob.glob(os.path.join(dirpath, f"{name}.shard*.npz"))):
+        with np.load(f, allow_pickle=False) as z:
+            for k in z.files:
+                is_bf16 = k.endswith(_BF16_SUFFIX)
+                leaf_key, index = _parse_index_key(
+                    k[:-len(_BF16_SUFFIX)] if is_bf16 else k)
+                if is_bf16:
+                    bf16.add(leaf_key)
+                by_leaf.setdefault(leaf_key, {})[index] = z[k]
+    return by_leaf, bf16
+
+
+def _assemble_leaf(shards: Dict, shape, dtype, leaf_key="") -> np.ndarray:
+    """Fill a global ndarray from {index: shard} pieces. The pieces of a
+    sharded leaf partition it exactly, so anything other than full coverage
+    means a shard file is missing or stale: raise rather than return
+    zero-filled regions."""
+    if not shape:
+        (arr,) = shards.values()
+        return np.asarray(arr, dtype=dtype).reshape(())
+    out = np.zeros(shape, dtype=dtype)
+    filled = 0
+    for index, arr in shards.items():
+        out[index if index else tuple(slice(0, d) for d in shape)] = arr
+        filled += int(arr.size)
+    total = int(np.prod(shape))
+    if filled != total:
+        raise ValueError(
+            f"shard coverage mismatch for {leaf_key!r}: {filled} of {total} "
+            f"elements present — a .shard*.npz file is missing or duplicated")
+    return out
+
+
+def load_params_flat(path: str) -> Dict[str, torch.Tensor]:
+    """Flat {key: CPU tensor} of a checkpoint's parameters: params.npz, or
+    else the pod-sharded params.shard*.npz pieces assembled, each leaf's
+    shape the largest stop of its pieces."""
     params_file = os.path.join(path, "params.npz")
-    if not os.path.exists(params_file):
-        raise NotImplementedError(
-            f"{path} has no params.npz: the pod-sharded checkpoint format is "
-            "not ported yet (ROADMAP Queue 1, item 5)")
-    return params_file
+    if os.path.exists(params_file):
+        return load_pytree_flat(params_file)
+    by_leaf, bf16 = _load_all_shards(path, "params")
+    if not by_leaf:
+        raise FileNotFoundError(f"{path} holds neither params.npz nor params.shard*.npz")
+    flat = {}
+    for leaf_key, shards in by_leaf.items():
+        stops = [max(s[d].stop for s in shards if s)
+                 for d in range(len(next(iter(shards))))]
+        dtype = next(iter(shards.values())).dtype
+        arr = torch.from_numpy(_assemble_leaf(shards, tuple(stops), dtype, leaf_key))
+        flat[leaf_key] = (arr.view(torch.int16).view(torch.bfloat16)
+                          if leaf_key in bf16 else arr)
+    return flat
 
 
 def load_model_checkpoint(path: str, *, device=None):
-    """(OmniBioTA, model cfg) from a checkpoint directory, on `device`
-    (None: the GPU)."""
+    """(OmniBioTA, model cfg) from a checkpoint directory, single-process or
+    pod-sharded, on `device` (None: the GPU)."""
     dev = resolve_device(device)
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
     fields = OmniBioTAConfig.__dataclass_fields__
     cfg = OmniBioTAConfig(**{k: v for k, v in meta["model_cfg"].items()
                              if k in fields})
-    state = state_from_jax_params(nest(load_pytree_flat(_params_dir_check(path))), cfg)
+    state = state_from_jax_params(nest(load_params_flat(path)), cfg)
     model = OmniBioTA(cfg, device=dev)
     model.load_state_dict(state, strict=True)
     return model, cfg
+
+
+def save_model_checkpoint(model: OmniBioTA, path: str) -> str:
+    """A checkpoint directory of the model's weights alone, which
+    `load_model_checkpoint` of either package reads: params.npz in the JAX
+    layout and meta.json's model_cfg."""
+    os.makedirs(path)
+    state = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    save_pytree_flat(os.path.join(path, "params.npz"),
+                     flatten_tree(jax_params_from_state(state, model.cfg)))
+    with open(os.path.join(path, "meta.json"), "w") as f:
+        json.dump({"model_cfg": dict(vars(model.cfg))}, f)
+    return path
 
 
 def _seed_words(seed: int):
@@ -189,6 +269,11 @@ def restore_into_trainer(trainer, path: str) -> None:
     position from `path` into `trainer` (a checkpoint of either package)."""
     from ..data.loader import ReaderState
 
+    params_file = os.path.join(path, "params.npz")
+    if not os.path.exists(params_file):
+        raise NotImplementedError(
+            f"{path} has no params.npz: resuming a trainer from the pod-sharded "
+            "checkpoint format is not ported yet (ROADMAP Queue 1, item 9)")
     # stop the staged stream first: its prefetch worker advances the live
     # reader states this restore is about to assign
     if trainer._staged is not None and hasattr(trainer._staged, "close"):
@@ -196,7 +281,7 @@ def restore_into_trainer(trainer, path: str) -> None:
     trainer._staged = None
 
     cfg = trainer.model_cfg
-    state = state_from_jax_params(nest(load_pytree_flat(_params_dir_check(path))), cfg)
+    state = state_from_jax_params(nest(load_pytree_flat(params_file)), cfg)
     for n, p in trainer.params.items():
         p.copy_(state[n])
     opt_flat = load_pytree_flat(os.path.join(path, "opt_state.npz"))

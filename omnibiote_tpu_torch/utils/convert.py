@@ -256,3 +256,47 @@ def jax_head_from_port(head: Mapping) -> Dict[str, np.ndarray]:
     """The port's linear head -> {"w": (in, out), "b": (out,)} fp32 numpy
     arrays, the JAX package's head (copies: no view of a live tensor)."""
     return {k: head[k].detach().float().cpu().numpy().copy() for k in ("w", "b")}
+
+
+# --------------------------------------------------------------------------
+# The eval harness's CNNs (evals/contact.py, evals/deepnap.py)
+# --------------------------------------------------------------------------
+
+def _conv_state(prefix: str, conv: Mapping) -> Dict[str, object]:
+    # conv weights are OIHW in both packages
+    return {f"{prefix}.weight": conv["w"], f"{prefix}.bias": conv["b"]}
+
+
+def _linear_state(prefix: str, lin: Mapping) -> Dict[str, object]:
+    # the JAX weight is (fan_in, fan_out), nn.Linear's its transpose
+    return {f"{prefix}.weight": lin["w"].T, f"{prefix}.bias": lin["b"]}
+
+
+def contact_predictor_state_from_jax(cnn: Mapping) -> Dict[str, object]:
+    """The JAX package's contact CNN tree (`init_contact_predictor`: conv_in
+    and conv_out {w, b}, blocks[i] {conv1, conv2 {w, b}, bn1, bn2 {scale,
+    bias}}) -> the state_dict of the port's `evals.contact.ContactPredictor`.
+    A gradient tree of the same structure goes across the same way."""
+    out = {**_conv_state("conv_in", cnn["conv_in"]),
+           **_conv_state("conv_out", cnn["conv_out"])}
+    for i, blk in enumerate(cnn["blocks"]):
+        for conv in ("conv1", "conv2"):
+            out.update(_conv_state(f"blocks.{i}.{conv}", blk[conv]))
+        for bn in ("bn1", "bn2"):
+            out[f"blocks.{i}.{bn}.scale"] = blk[bn]["scale"]
+            out[f"blocks.{i}.{bn}.bias"] = blk[bn]["bias"]
+    return out
+
+
+def deepnap_state_from_jax(params: Mapping) -> Dict[str, object]:
+    """The JAX package's DeePNAP tree (`init_deepnap`) -> the state_dict of
+    the port's `evals.deepnap.DeePNAP` (linear weights transposed)."""
+    out = {}
+    for name in ("protein_conv1", "protein_conv2", "dna_conv1", "dna_conv2"):
+        out.update(_conv_state(name, params[name]))
+    for name in ("int_p1_n1", "int_p1_n2", "int_p2_n1", "int_p2_n2"):
+        for j, lin in enumerate(params[name]):
+            out.update(_linear_state(f"{name}.{j}", lin))
+    for name in ("fc1", "fc2", "fc3", "fc4"):
+        out.update(_linear_state(name, params[name]))
+    return out

@@ -257,7 +257,13 @@ def test_load_pytree_flat_bf16(tmp_path):
 
 
 def test_sharded_checkpoint_raises(tmp_path):
+    """A directory with neither params.npz nor shard files raises on load;
+    resuming a trainer from the pod-sharded format is not ported and says
+    so (loading one is: tests/test_torch_checkpoint_shards.py)."""
+    from omnibiote_tpu_torch.training.checkpoint import restore_into_trainer
     with open(tmp_path / "meta.json", "w") as f:
         json.dump({"model_cfg": _cfg_kw("h2d64")}, f)
-    with pytest.raises(NotImplementedError, match="pod-sharded"):
+    with pytest.raises(FileNotFoundError, match="params.shard"):
         load_model_checkpoint(str(tmp_path), device="cpu")
+    with pytest.raises(NotImplementedError, match="pod-sharded"):
+        restore_into_trainer(None, str(tmp_path))
