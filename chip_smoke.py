@@ -155,7 +155,21 @@ toolkit and g++. It
      (no attention kernel) and its pretraining steps/s at batch 256; a
      checkpoint cut into 4 `params.shard*.npz` files in the JAX package's
      pod layout, loaded bit for bit equal to its params.npz;
- 15. prints the card's name and power limit, one JSON line of kernel
+ 15. multi-GPU modes at world size 1: a one-rank NCCL group (tcp
+     rendezvous on 127.0.0.1), omnibiote-small at full width, bench.py's
+     traffic (ctx 1024, B 32 as 16 x 2, 3 EOS a row, dropout 0.1): the
+     sharded Trainer in 'replicated' and 'fsdp' on meshes (1,) and (1, 1)
+     and in 'tp' and 'fsdp+tp' on (1, 1), 3 steps each against the plain
+     Trainer on the same batches (loss, grad_norm, every parameter's
+     update cosine: the fused backward's dq sums are not repeatable) and
+     its #1/#2 launches; the split pair once (#4/#5): 'fsdp' (1,) against
+     the plain Trainer bit for bit, then a pod-sharded checkpoint after
+     step 3 from which a fresh trainer takes step 4 bit for bit as the
+     unbroken run; `Encoder(mesh=)` against the single-device Encoder on
+     the serving slice's sequences; tokens/s, the Trainer's peak memory and
+     the collectives' device time (and its share) and host time for every
+     mode and the plain Trainer;
+ 16. prints the card's name and power limit, one JSON line of kernel
      numbers, and last the line {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script then exits non-zero without the
@@ -3706,6 +3720,229 @@ def contact_phase(workdir, tok_path):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 15. the multi-GPU modes at world size 1
+# ---------------------------------------------------------------------------
+
+PAR_RUNS = (("replicated", (1,)), ("fsdp", (1,)), ("replicated", (1, 1)),
+            ("fsdp", (1, 1)), ("tp", (1, 1)), ("fsdp+tp", (1, 1)))
+PAR_STEPS, PAR_TIMED = 3, 5
+
+
+def _collective_ms(prof):
+    """(device ms, host ms) of the profiled collectives: the c10d ops
+    ('nccl:all_reduce', ...), each with the device work launched inside it
+    (at one rank NCCL copies or does nothing)."""
+    dev = host = 0.0
+    for e in prof.key_averages():
+        if e.key.startswith("nccl:"):
+            dev += getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
+            host += e.cpu_time_total
+    return dev / 1e3, host / 1e3
+
+
+def _par_run(cfg, tc, mesh, batches, label, timed=True):
+    """PAR_STEPS steps of a Trainer (plain when mesh is None) on `batches`,
+    their #1-#5 launches; with `timed`, then tokens/s over PAR_TIMED more
+    steps, the peak memory the Trainer allocated over what was allocated
+    before it, and, over 2 profiled steps, the collectives' device and host
+    time a step and their share of the device time. Returns the metrics,
+    the final parameters and the numbers."""
+    import itertools
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from omnibiote_tpu_torch.ops import _kernels
+    from omnibiote_tpu_torch.training.train import Trainer
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = {"label": label}
+    with Trainer(cfg, tc, batch_iter=itertools.chain(batches, bench_batches(
+            tc.batch_size, tc.ctx_len, seed=77)), mesh=mesh) as tr:
+        _kernels.reset_launches()
+        ms = [tr.train_step_once() for _ in range(PAR_STEPS)]
+        out["loss"] = [float(m["loss"]) for m in ms]
+        out["grad_norm"] = [float(m["grad_norm"]) for m in ms]
+        torch.cuda.synchronize()
+        out["launches"] = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+        out["params"] = {n: p.detach().clone() for n, p in tr.params.items()}
+        if timed:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            for _ in range(PAR_TIMED):
+                m = tr.train_step_once()
+            torch.cuda.synchronize()
+            dt = time.time() - t0
+            check(math.isfinite(float(m["loss"])), f"{label}: non-finite loss")
+            out["tokens_per_s"] = PAR_TIMED * tc.batch_size * tc.ctx_len / dt
+            out["ms_a_step"] = 1e3 * dt / PAR_TIMED
+            out["peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(2):
+                    m = tr.train_step_once()
+                float(m["loss"])
+            busy = _device_busy_ms(prof)
+            dev, host = _collective_ms(prof)
+            out["coll_ms"], out["coll_host_ms"] = dev / 2, host / 2
+            out["coll_share"] = dev / busy if busy else float("nan")
+    torch.cuda.empty_cache()
+    return out
+
+
+def _update_cos(run, ref, init):
+    """Worst per-tensor cosine between two runs' parameter updates."""
+    import torch
+    return min(torch.nn.functional.cosine_similarity(
+        (run[n] - init[n]).double().flatten(), (ref[n] - init[n]).double().flatten(),
+        dim=0).item() for n in init)
+
+
+def parallel_phase(workdir, tok_path):
+    """The sharded Trainer and Encoder(mesh=) over a one-rank NCCL group;
+    returns the launches of its main path (every run of the sharded
+    Trainer and the mesh Encoder) and of its split-pair runs."""
+    import random
+    import socket
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from omnibiote_tpu_torch import init_params, preset
+    from omnibiote_tpu_torch.api import Encoder
+    from omnibiote_tpu_torch.config import TrainConfig
+    from omnibiote_tpu_torch.ops import _kernels
+    from omnibiote_tpu_torch.parallel.mesh import make_mesh
+    from omnibiote_tpu_torch.tokenizer import SentencePieceProcessor
+    from omnibiote_tpu_torch.training.checkpoint import load_model_checkpoint
+    from omnibiote_tpu_torch.training.train import Trainer
+
+    t_phase = time.time()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          f"process group {dist.get_backend()} of {dist.get_world_size()}")
+    mini, accum, ctx = 16, 2, 1024
+    cfg = preset("omnibiote-small", vocab_size=65536, dropout=TRAIN_DROPOUT)
+    L = cfg.n_layer
+    tc = TrainConfig(batch_size=mini * accum, mini_batch_size=mini, ctx_len=ctx,
+                     token_budget=float(mini * accum * ctx * 10000), seed=0)
+    gen = bench_batches(mini * accum, ctx, seed=11)
+    batches = [next(gen) for _ in range(PAR_STEPS + 1)]
+    # every Trainer draws the same initial weights from tc.seed
+    with Trainer(cfg, tc) as tr0:
+        init = {n: p.detach().clone() for n, p in tr0.params.items()}
+    want_fused = _counts(mh_flash_fwd=PAR_STEPS * L * accum, mh_flash_bwd=PAR_STEPS * L * accum)
+    want_fused = {k: v for k, v in want_fused.items() if v}
+
+    # -- every mode against the plain Trainer, fused backward --------------
+    plain = _par_run(cfg, tc, None, batches, "plain")
+    check(plain["launches"] == want_fused, f"plain launches {plain['launches']}")
+    main = dict.fromkeys(_kernels.LAUNCHES, 0)
+    rows = [plain]
+    for mode, shape in PAR_RUNS:
+        mesh = make_mesh(shape, ("data", "model")[:len(shape)])
+        run = _par_run(cfg, tc.replace(sharding=mode), mesh, batches, f"{mode} {shape}")
+        for k, v in run["launches"].items():
+            main[k] += v
+        dloss = max(abs(a - b) for a, b in zip(run["loss"], plain["loss"]))
+        dgn = max(abs(a - b) / b for a, b in zip(run["grad_norm"], plain["grad_norm"]))
+        cos = _update_cos(run["params"], plain["params"], init)
+        exact = all(torch.equal(run["params"][n], plain["params"][n]) for n in init)
+        print(f"parallel {mode} {shape}: losses {[round(x, 6) for x in run['loss']]} "
+              f"(plain {[round(x, 6) for x in plain['loss']]}, |d| {dloss:.2e}, limit "
+              f"{TRAIN_LOSS_ATOL}); grad_norm relative {dgn:.2e} (limit {TRAIN_GNORM_RTOL}); "
+              f"worst update cosine {cos:.6f} (limit {TRAIN_GRAD_COS}); parameters bit "
+              f"for bit: {exact}; launches {run['launches']}")
+        check(run["launches"] == want_fused, f"{mode} {shape} launches {run['launches']}")
+        check(dloss <= TRAIN_LOSS_ATOL and dgn <= TRAIN_GNORM_RTOL
+              and cos >= TRAIN_GRAD_COS, f"{mode} {shape} differs from the plain Trainer")
+        del run["params"]
+        rows.append(run)
+    del plain["params"]
+
+    # -- the split pair: bit for bit, and a pod-sharded resume -------------
+    split = dict.fromkeys(_kernels.LAUNCHES, 0)
+    want_split = {"mh_flash_fwd": PAR_STEPS * L * accum,
+                  "mh_flash_bwd_dkv": PAR_STEPS * L * accum,
+                  "mh_flash_bwd_dq": PAR_STEPS * L * accum}
+    with _attention_switch(FUSED_SINGLE_KV_BWD=False):
+        ref = _par_run(cfg, tc, None, batches, "plain, split pair", timed=False)
+        tcf = tc.replace(sharding="fsdp", save_dir=os.path.join(workdir, "par_ckpt"))
+        mesh = make_mesh((1,), ("data",))
+        _kernels.reset_launches()
+        with Trainer(cfg, tcf, batch_iter=iter(batches), mesh=mesh) as tr:
+            ms = [tr.train_step_once() for _ in range(PAR_STEPS)]
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+            exact = ([float(m["loss"]) for m in ms] == ref["loss"] and all(
+                torch.equal(tr.params[n], ref["params"][n]) for n in init))
+            path = tr.save_checkpoint()
+            step4 = tr.train_step_once()
+            after = {n: p.detach().clone() for n, p in tr.params.items()}
+        for k, v in launches.items():
+            split[k] += v
+        files = sorted(os.listdir(path))
+        reloaded, _ = load_model_checkpoint(path)
+        same_reload = all(torch.equal(p, ref["params"][n])
+                          for n, p in reloaded.named_parameters())
+        del reloaded
+        with Trainer(cfg, tcf.replace(seed=5), batch_iter=iter(batches[PAR_STEPS:]),
+                     mesh=mesh) as t2:
+            t2.restore_checkpoint(path)
+            r4 = t2.train_step_once()
+            resumed = (t2.step == PAR_STEPS + 1
+                       and float(r4["loss"]) == float(step4["loss"])
+                       and all(torch.equal(t2.params[n], after[n]) for n in after))
+    print(f"parallel split pair, fsdp (1,): {PAR_STEPS} steps bit for bit with the plain "
+          f"Trainer: {exact}; launches {launches} (want {want_split}); pod-sharded "
+          f"checkpoint {files}, reloaded bit for bit: {same_reload}; step "
+          f"{PAR_STEPS + 1} resumed from it bit for bit: {resumed} (loss "
+          f"{float(r4['loss']):.6f})")
+    check(launches == want_split, f"split-pair launches {launches}")
+    check(exact, "fsdp on the split pair differs from the plain Trainer")
+    check(files == ["meta.json", "opt_state.shard0.npz", "params.shard0.npz"],
+          f"pod-sharded checkpoint files {files}")
+    check(same_reload and resumed, "the pod-sharded resume is not exact")
+    del ref, after
+
+    # -- Encoder(mesh=) on the serving slice's sequences -------------------
+    rng = random.Random(0)
+    _sequences(rng, 400, 40, 400)
+    seqs = _sequences(rng, 64, 10, 6000)
+    sp = SentencePieceProcessor(tok_path)
+    model = init_params(torch.Generator(device="cuda").manual_seed(0),
+                        preset("omnibiote-small", vocab_size=65536, dropout=0.0),
+                        device="cuda")
+    single = Encoder(model, sp).encode_sequences(seqs, method="mean", batch_size=SERVING_BATCH)
+    _kernels.reset_launches()
+    dp = Encoder(model, sp, mesh=make_mesh((1,), ("data",))).encode_sequences(
+        seqs, method="mean", batch_size=SERVING_BATCH)
+    torch.cuda.synchronize()
+    for k, v in _kernels.LAUNCHES.items():
+        main[k] += v
+    enc_exact = bool(np.array_equal(single, dp))
+    print(f"parallel Encoder(mesh=(1,)): {len(seqs)} sequences, embeddings equal to the "
+          f"single-device Encoder's bit for bit: {enc_exact} (max |d| "
+          f"{float(np.abs(single - dp).max()):.2e}); launches {_kernels.LAUNCHES['mh_flash_fwd']}")
+    check(enc_exact and _kernels.LAUNCHES["mh_flash_fwd"] > 0,
+          "Encoder(mesh=) differs from the single-device Encoder")
+    del model
+
+    for r in rows:
+        print(f"parallel throughput {r['label']}: {r['tokens_per_s']:.1f} tokens/s "
+              f"({r['tokens_per_s'] / plain['tokens_per_s']:.4f} of plain), "
+              f"{r['ms_a_step']:.3f} ms a step, peak allocated by the Trainer "
+              f"{r['peak_gib']:.2f} GiB, collectives {r['coll_ms']:.3f} ms of device "
+              f"time a step ({100 * r['coll_share']:.2f} %) and {r['coll_host_ms']:.3f} ms "
+              f"on the host")
+    dist.destroy_process_group()
+    print(f"parallel phase: {time.time() - t_phase:.1f} s")
+    return main, split
+
+
 def setup():
     """Refuse to run without a card or without the package, and fix the
     fp32 matmul precision the references assume."""
@@ -3762,26 +3999,36 @@ def main():
         torch.cuda.empty_cache()
         contact = contact_phase(workdir, tok_path)
         print(f"contact main path launches: {contact}")
+        torch.cuda.empty_cache()
+        parallel, parallel_split = parallel_phase(workdir, tok_path)
+        print(f"multi-GPU modes main path launches: {parallel}; split pair: {parallel_split}")
     # each row's launches: the count its own main paths left (serving, both
-    # training contexts, the eval slice, pretraining from raw records and the
-    # contact eval for the forward; the ctx-1024 training, the eval slice,
-    # pretraining and the contact eval for the fused backward)
+    # training contexts, the eval slice, pretraining from raw records, the
+    # contact eval and the multi-GPU modes for the forward; the ctx-1024
+    # training, the eval slice, pretraining, the contact eval and the
+    # multi-GPU modes for the fused backward; the split pair's at ctx 2048
+    # and in the multi-GPU phase)
     fwd_row["launches"] = (serving["mh_flash_fwd"] + train["mh_flash_fwd"]
                            + long_cli["mh_flash_fwd"] + evals["mh_flash_fwd"]
-                           + pretrain["mh_flash_fwd"] + contact["mh_flash_fwd"])
+                           + pretrain["mh_flash_fwd"] + contact["mh_flash_fwd"]
+                           + parallel["mh_flash_fwd"])
     bwd_row["launches"] = (train["mh_flash_bwd"] + evals["mh_flash_bwd"]
-                           + pretrain["mh_flash_bwd"] + contact["mh_flash_bwd"])
+                           + pretrain["mh_flash_bwd"] + contact["mh_flash_bwd"]
+                           + parallel["mh_flash_bwd"])
     for row in long_rows:
         source = long_cli if row["name"] == "mh_flash_bwd_mk" else long_split
-        row["launches"] = source[row["name"]]
+        row["launches"] = source[row["name"]] + parallel_split.get(row["name"], 0)
     int8_row["launches"] = int8_serving["int8_flash_fwd"]
     rows = [fwd_row, bwd_row, *long_rows, int8_row, *head_rows, *probe_rows]
     check(min(serving["mh_flash_fwd"], train["mh_flash_fwd"], long_cli["mh_flash_fwd"],
-              evals["mh_flash_fwd"], pretrain["mh_flash_fwd"], contact["mh_flash_fwd"]) > 0,
+              evals["mh_flash_fwd"], pretrain["mh_flash_fwd"], contact["mh_flash_fwd"],
+              parallel["mh_flash_fwd"]) > 0,
           "a main path never launched mh_flash_fwd")
     check(min(train["mh_flash_bwd"], evals["mh_flash_bwd"], pretrain["mh_flash_bwd"],
-              contact["mh_flash_bwd"]) > 0,
+              contact["mh_flash_bwd"], parallel["mh_flash_bwd"]) > 0,
           "a main path never launched mh_flash_bwd")
+    check(min(parallel_split["mh_flash_bwd_dkv"], parallel_split["mh_flash_bwd_dq"]) > 0,
+          "the multi-GPU phase's split-pair run never launched #4 or #5")
     check(len(rows) == 13 and all(row["launches"] > 0 for row in rows),
           f"a kernel was never launched on its main path: "
           f"{[(row['name'], row['launches']) for row in rows]}")

@@ -11,6 +11,8 @@ Public surface (what the port has so far; see ROADMAP.md):
   * training — MLM loss, µP AdamW, the train step, Trainer, checkpoints
     and the pretraining CLI (`python -m omnibiote_tpu_torch.training.cli`)
   * data — the token-shard pipeline and the device prefetcher
+  * parallel — the device mesh over torch.distributed, the replicated /
+    fsdp / tp / fsdp+tp placements and tensor-parallel layers
 """
 from .config import (
     OmniBioTAConfig,

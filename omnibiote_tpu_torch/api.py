@@ -10,6 +10,12 @@ Reads the checkpoints the JAX package writes (params.npz + meta.json) and
 computes the same embeddings; attention runs through the hand-written CUDA
 kernel (ops/csrc/mh_flash_fwd.cu), or with quantize_attention=True through
 the int8 one (ops/csrc/int8_flash_fwd.cu).
+
+Data-parallel serving: `Encoder(..., mesh=make_mesh())` on every rank of a
+torchrun group (or `--data-parallel`): each data rank encodes its rows of
+every batch (a short final batch padded with copies of its first row up to
+the rank count) and the pooled rows are all-gathered back in order, so
+every rank returns the single-device embeddings.
 """
 from __future__ import annotations
 
@@ -42,15 +48,26 @@ class Encoder:
         (ops/int8_attention.py); it needs quantize=True. Off by default, as
         in the JAX package, and `from_checkpoint` and the CLI leave it off.
 
-        mesh (multi-device serving) is not ported yet and raises."""
+        mesh: a DeviceMesh (parallel.mesh.make_mesh) whose 'data' axis
+        splits each batch's rows; the model is replicated and runs on the
+        mesh's device."""
         if quantize_attention and not quantize:
             raise ValueError(
                 "quantize_attention=True requires quantize=True (int8 "
                 "attention goes with the quantized weight format)")
+        self.mesh = mesh
         if mesh is not None:
-            raise NotImplementedError(
-                "multi-device serving (mesh=) is not ported yet "
-                "(ROADMAP Queue 1, item 9)")
+            from torch.distributed.device_mesh import DeviceMesh
+
+            from .parallel.mesh import (DATA_AXIS, axis_group, axis_index,
+                                        axis_size, mesh_device)
+            if not isinstance(mesh, DeviceMesh):
+                raise TypeError("mesh must be a torch.distributed DeviceMesh "
+                                "(omnibiote_tpu_torch.parallel.mesh.make_mesh)")
+            self.n_data = axis_size(mesh, DATA_AXIS)
+            self.data_index = axis_index(mesh, DATA_AXIS)
+            self._data_group = axis_group(mesh, DATA_AXIS)
+            device = mesh_device(mesh)
         self.device = resolve_device(device)
         model = model.to(self.device).eval()
         if quantize:
@@ -116,6 +133,16 @@ class Encoder:
             x, seg = pad_batch(chunk, bucket, self.cfg.block_size)
             lengths = np.asarray([min(len(t), x.shape[1]) for t in chunk],
                                  np.int32)
+            n_rows = len(chunk)
+            if self.mesh is not None:
+                # this rank's rows; the final short chunk padded by repeating
+                # row 0 (trimmed below) so every rank gets as many
+                pad = -n_rows % self.n_data
+                x, seg, lengths = (np.concatenate([a, np.repeat(a[:1], pad, 0)])
+                                   for a in (x, seg, lengths))
+                per = len(x) // self.n_data
+                lo = self.data_index * per
+                x, seg, lengths = x[lo:lo + per], seg[lo:lo + per], lengths[lo:lo + per]
             x = torch.from_numpy(x).to(self.device)
             if mask_padding:
                 out = self._pool(x, torch.from_numpy(seg).to(self.device),
@@ -123,7 +150,13 @@ class Encoder:
                                  method)
             else:
                 out = encode(self.model, x, method)
-            outs.append(out.float().cpu().numpy())
+            out = out.float()
+            if self.mesh is not None:
+                parts = [torch.empty_like(out) for _ in range(self.n_data)]
+                torch.distributed.all_gather(parts, out.contiguous(),
+                                             group=self._data_group)
+                out = torch.cat(parts)[:n_rows]
+            outs.append(out.cpu().numpy())
         return (np.concatenate(outs) if outs
                 else np.zeros((0, self.cfg.n_embd), np.float32))
 
@@ -188,7 +221,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--quantize", action="store_true",
                     help="int8 serving weights (ops/quant.py)")
     ap.add_argument("--data-parallel", action="store_true",
-                    help="shard rows over all devices (not ported yet)")
+                    help="under torchrun: split each batch's rows over the "
+                         "ranks (a 'data' mesh axis); results identical to "
+                         "one device; rank 0 writes --out")
     ap.add_argument("--leaky-padding", action="store_true",
                     help="bit-faithful reference pooling: padding leaks "
                          "into mean/max statistics")
@@ -197,12 +232,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                          "without a GPU)")
     args = ap.parse_args(argv)
 
+    mesh = None
     if args.data_parallel:
-        raise NotImplementedError(
-            "--data-parallel is not ported yet (ROADMAP Queue 1, item 9)")
+        from .parallel.mesh import make_mesh
+        mesh = make_mesh(device=args.device)
     enc = Encoder.from_checkpoint(args.checkpoint, tokenizer=args.tokenizer,
                                   tokenizer_path=args.tokenizer_path,
-                                  quantize=args.quantize, device=args.device)
+                                  quantize=args.quantize, mesh=mesh,
+                                  device=args.device)
     prefix = {"protein": "<protein>", "dna": "<DNA>", "none": ""}[args.tag]
 
     ids: List[str] = []
@@ -225,6 +262,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     emb = (np.concatenate(chunks) if chunks
            else np.zeros((0, enc.cfg.n_embd), np.float32))
+    if mesh is not None and torch.distributed.get_rank() != 0:
+        return 0
     np.savez(args.out, ids=np.asarray(ids), embeddings=emb)
     print(f"wrote {emb.shape[0]} embeddings (dim {emb.shape[1]}) "
           f"to {args.out}")

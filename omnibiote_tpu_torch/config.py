@@ -144,10 +144,13 @@ class TrainConfig:
     """Pretraining configuration (the reference CLI's flags,
     train_encoder.py:438-466, plus the JAX package's additions).
 
-    The mesh fields (`dp_axis`, `mesh_shape`, `sharding`), `rng_impl` and
-    `async_checkpoint` are carried for meta.json compatibility; the port
-    trains on one device, so `sharding` other than 'replicated' and a
-    `mesh_shape` raise in the Trainer (ROADMAP Queue 1, item 9)."""
+    The mesh fields are the JAX package's (`omnibiote_tpu/config.py`):
+    `sharding` 'replicated' (DDP), 'fsdp', 'tp' or 'fsdp+tp' over a mesh
+    of `mesh_shape` ('data'[, 'model']; None: every rank on 'data'), run
+    by the Trainer over torch.distributed (parallel/); 'sp' and the
+    pipeline modes raise there (ROADMAP Queue 1, items 9b and 9c).
+    `dp_axis`, `rng_impl` and `async_checkpoint` are carried for meta.json
+    compatibility."""
 
     batch_size: int = 1024          # global batch
     mini_batch_size: int = 8        # micro-batch (gradient accumulation)

@@ -41,6 +41,12 @@ projections (`aten.mm` / `aten.addmm`, not the batched `aten.bmm`: the JAX
 package's dots_with_no_batch_dims_saveable) and recomputes the rest; any
 other policy recomputes the whole block. The masks' seeds make the
 recompute draw the same masks, so remat changes no gradient.
+
+On a mesh (parallel/): every dropout seed is mixed with the rank's
+data-axis index (`data_seed`), so data ranks draw different masks for their
+rows and the ranks of one model group the same residual masks; with tensor
+parallelism (`tp`) the module holds the rank's heads, its block of the MLP
+and of the vocabulary, and the collectives of parallel/tensor.py join them.
 """
 from __future__ import annotations
 
@@ -61,6 +67,8 @@ from ..config import OmniBioTAConfig
 from ..ops.attention import attention
 from ..ops.flash_attention import SegmentBounds
 from ..ops.quant import QuantizedWeight, quant_linear
+from ..parallel.tensor import (TensorParallel, block_rows, copy_to_model,
+                               gather_from_model, qkv_rows, reduce_from_model)
 from ..utils.device import resolve_device
 from .rope import qkv_col_perm, rope_tables
 
@@ -141,12 +149,24 @@ def _dropout(x, rate: float, seed: Optional[int]):
 # A layer's dropout seeds: (attn, resid1, resid2).
 LayerSeeds = Tuple[int, int, int]
 
+# Odd multiplier that mixes a data-axis index into a dropout seed (the
+# model axis has its own, ops/flash_attention.py TP_SEED_MIX).
+DATA_SEED_MIX = 0x85EBCA6B
 
-def _forward_rngs(rng: int, n_layer: int):
+
+def data_seed(seed: int, data_index: int) -> int:
+    """The seed of a dropout call on data rank `data_index`: every mask is
+    keyed by the row index a rank sees, so without the mix all data ranks
+    would draw the same masks for their own rows."""
+    return (int(seed) ^ (int(data_index) * DATA_SEED_MIX)) & 0xFFFFFFFFFFFFFFFF
+
+
+def _forward_rngs(rng: int, n_layer: int, data_index: int = 0):
     """(embedding seed, [per-layer (attn, resid1, resid2) seeds]) from the
-    forward's integer seed; host-side only."""
-    words = [int(w) for w in np.random.SeedSequence(int(rng)).generate_state(
-        1 + 3 * n_layer, np.uint64)]
+    forward's integer seed, each mixed with the data-axis index; host-side
+    only."""
+    words = [data_seed(w, data_index) for w in np.random.SeedSequence(
+        int(rng)).generate_state(1 + 3 * n_layer, np.uint64)]
     return words[0], [tuple(words[1 + 3 * i:4 + 3 * i]) for i in range(n_layer)]
 
 
@@ -178,10 +198,15 @@ def _param(*shape, device, dtype):
 
 
 class Linear(nn.Module):
-    def __init__(self, fan_in: int, fan_out: int, bias: bool, *, device, dtype):
+    """A (fan_out, fan_in) weight; the bias has bias_out entries (default
+    fan_out; a tensor-parallel rank keeps c_attn's and c_fc's whole)."""
+
+    def __init__(self, fan_in: int, fan_out: int, bias: bool, *, device, dtype,
+                 bias_out: Optional[int] = None):
         super().__init__()
         self.weight = _param(fan_out, fan_in, device=device, dtype=dtype)
-        self.bias = _param(fan_out, device=device, dtype=dtype) if bias else None
+        self.bias = (_param(bias_out or fan_out, device=device, dtype=dtype)
+                     if bias else None)
 
 
 class LayerNorm(nn.Module):
@@ -201,62 +226,84 @@ class Embedding(nn.Module):
 
 
 class SelfAttention(nn.Module):
-    def __init__(self, cfg: OmniBioTAConfig, *, device, dtype):
+    def __init__(self, cfg: OmniBioTAConfig, *, device, dtype, tp_size: int = 1):
         super().__init__()
-        D = cfg.n_embd
-        self.c_attn = Linear(D, 3 * D, cfg.bias, device=device, dtype=dtype)
-        self.c_proj = Linear(D, D, cfg.bias, device=device, dtype=dtype)
+        D, Dl = cfg.n_embd, cfg.n_embd // tp_size
+        self.c_attn = Linear(D, 3 * Dl, cfg.bias, device=device, dtype=dtype,
+                             bias_out=3 * D)
+        self.c_proj = Linear(Dl, D, cfg.bias, device=device, dtype=dtype)
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg: OmniBioTAConfig, *, device, dtype):
+    def __init__(self, cfg: OmniBioTAConfig, *, device, dtype, tp_size: int = 1):
         super().__init__()
         D = cfg.n_embd
-        self.c_fc = Linear(D, 4 * D, cfg.bias, device=device, dtype=dtype)
-        self.c_proj = Linear(4 * D, D, cfg.bias, device=device, dtype=dtype)
+        self.c_fc = Linear(D, 4 * D // tp_size, cfg.bias, device=device,
+                           dtype=dtype, bias_out=4 * D)
+        self.c_proj = Linear(4 * D // tp_size, D, cfg.bias, device=device, dtype=dtype)
+
+
+def _row_parallel(y, w, b, tp: Optional[TensorParallel]):
+    """y @ wᵀ (+ b): with tensor parallelism the partial products are
+    summed over the model axis before the bias is added once."""
+    if tp is None:
+        return _linear(y, w, b)
+    y = reduce_from_model(_linear(y, w), tp)
+    return y if b is None else y + b.to(y.dtype)
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: OmniBioTAConfig, *, device, dtype):
+    def __init__(self, cfg: OmniBioTAConfig, *, device, dtype, tp_size: int = 1):
         super().__init__()
         self.ln_1 = LayerNorm(cfg.n_embd, cfg.bias, device=device, dtype=dtype)
-        self.attn = SelfAttention(cfg, device=device, dtype=dtype)
+        self.attn = SelfAttention(cfg, device=device, dtype=dtype, tp_size=tp_size)
         self.ln_2 = LayerNorm(cfg.n_embd, cfg.bias, device=device, dtype=dtype)
-        self.mlp = MLP(cfg, device=device, dtype=dtype)
+        self.mlp = MLP(cfg, device=device, dtype=dtype, tp_size=tp_size)
 
     def forward(self, x, cfg: OmniBioTAConfig, qkv_perm, rope, segment_ids,
-                seeds: Optional[LayerSeeds] = None, seg_bounds=None):
+                seeds: Optional[LayerSeeds] = None, seg_bounds=None,
+                tp: Optional[TensorParallel] = None):
         """seeds (the layer's (attn, resid1, resid2) dropout seeds) are
         given when training with dropout, None otherwise. seg_bounds: the
-        SegmentBounds of segment_ids that all layers share."""
+        SegmentBounds of segment_ids that all layers share. tp: this
+        rank's place on the model axis (its heads and its block of the MLP;
+        parallel/tensor.py), None without tensor parallelism."""
         B, T, D = x.shape
         rate = cfg.dropout if seeds is not None else 0.0
         attn_seed, resid1, resid2 = seeds if seeds is not None else (None,) * 3
-        H, Dh = cfg.n_head, cfg.head_dim
+        M = 1 if tp is None else tp.size
+        H, Dh, Dl = cfg.n_head // M, cfg.head_dim, D // M
         # attention: RoPE's pair de-interleave is folded into the q and k
         # output rows of c_attn (a shared head_dim permutation of q and k
         # leaves attention invariant), so the kernel rotates halves
         h = self.ln_1(x)
         w, b = self.attn.c_attn.weight, self.attn.c_attn.bias
+        if tp is not None:
+            h = copy_to_model(h, tp)
+            b = None if b is None else b[qkv_rows(D, tp).to(b.device)]
         if not cfg.qkv_prepermuted:
             w = w[qkv_perm]
             b = None if b is None else b[qkv_perm]
-        q, k, v = _linear(h, w, b).split(D, dim=-1)
+        q, k, v = _linear(h, w, b).split(Dl, dim=-1)
         y = attention(
             q.reshape(B, T, H, Dh), k.reshape(B, T, H, Dh),
             v.reshape(B, T, H, Dh), scale=cfg.attn_scale,
             segment_ids=segment_ids, causal=cfg.autoregressive,
             dropout_rate=rate, dropout_seed=attn_seed, impl=cfg.attn_impl,
             rope=rope, int8=cfg.attn_int8 and seeds is None,
-            seg_bounds=seg_bounds)
-        y = _linear(y.reshape(B, T, D), self.attn.c_proj.weight,
-                    self.attn.c_proj.bias)
+            seg_bounds=seg_bounds, tp_mesh=tp)
+        y = _row_parallel(y.reshape(B, T, Dl), self.attn.c_proj.weight,
+                          self.attn.c_proj.bias, tp)
         x = x + _dropout(y, rate, resid1)
         # MLP
         h = self.ln_2(x)
-        h = _linear(h, self.mlp.c_fc.weight, self.mlp.c_fc.bias)
+        b = self.mlp.c_fc.bias
+        if tp is not None:
+            h = copy_to_model(h, tp)
+            b = None if b is None else b[block_rows(4 * D, tp)]
+        h = _linear(h, self.mlp.c_fc.weight, b)
         h = _gelu(h, cfg)
-        h = _linear(h, self.mlp.c_proj.weight, self.mlp.c_proj.bias)
+        h = _row_parallel(h, self.mlp.c_proj.weight, self.mlp.c_proj.bias, tp)
         return x + _dropout(h, rate, resid2)
 
 
@@ -280,26 +327,38 @@ def _rematted_block(blk: Block, x, cfg: OmniBioTAConfig, *args):
 
 class OmniBioTA(nn.Module):
     """The encoder with uninitialised parameters in cfg.param_dtype on
-    `device` (None: the GPU); see init_params for the µP initialisation."""
+    `device` (None: the GPU); see init_params for the µP initialisation.
 
-    def __init__(self, cfg: OmniBioTAConfig, *, device=None):
+    tp: this rank's place on a tensor-parallel model axis; the module then
+    holds the rank's heads, its block of the MLP and of the vocabulary
+    (parallel/tensor.py). data_index: this rank's data-axis index, mixed
+    into every dropout seed (`data_seed`)."""
+
+    def __init__(self, cfg: OmniBioTAConfig, *, device=None,
+                 tp: Optional[TensorParallel] = None, data_index: int = 0):
         super().__init__()
         dev = resolve_device(device)
         pdt = cfg.pdtype()
-        D, H, Dh = cfg.n_embd, cfg.n_head, cfg.head_dim
+        M = 1 if tp is None else tp.size
+        if cfg.n_head % M or cfg.vocab_size % M:
+            raise ValueError(f"n_head {cfg.n_head} and vocab_size {cfg.vocab_size} "
+                             f"must divide by the model axis ({M})")
+        D, H, Dh, Dl = cfg.n_embd, cfg.n_head // M, cfg.head_dim, cfg.n_embd // M
         self.cfg = cfg
+        self.tp = tp
+        self.data_index = data_index
         self.transformer = nn.ModuleDict(dict(
             wte=Embedding(cfg.vocab_size, D, device=dev, dtype=pdt),
-            h=nn.ModuleList([Block(cfg, device=dev, dtype=pdt)
+            h=nn.ModuleList([Block(cfg, device=dev, dtype=pdt, tp_size=M)
                              for _ in range(cfg.n_layer)]),
             ln_f=LayerNorm(D, cfg.bias, device=dev, dtype=pdt),
         ))
-        self.lm_head = Linear(D, cfg.vocab_size, False, device=dev, dtype=pdt)
+        self.lm_head = Linear(D, cfg.vocab_size // M, False, device=dev, dtype=pdt)
         cos, sin = rope_tables(Dh, cfg.block_size, cfg.rope_theta, device=dev)
         self.register_buffer("rope_cos", cos, persistent=False)
         self.register_buffer("rope_sin", sin, persistent=False)
         col = torch.as_tensor(qkv_col_perm(H, Dh), device=dev)
-        perm = torch.cat([col, D + col, torch.arange(2 * D, 3 * D, device=dev)])
+        perm = torch.cat([col, Dl + col, torch.arange(2 * Dl, 3 * Dl, device=dev)])
         self.register_buffer("qkv_perm", perm, persistent=False)
 
     def forward(self, idx, segment_ids=None, *, deterministic: bool = True,
@@ -327,21 +386,24 @@ class OmniBioTA(nn.Module):
             if rng is None:
                 raise ValueError("training forward requires rng")
             if cfg.dropout > 0.0:
-                emb_seed, seeds = _forward_rngs(rng, cfg.n_layer)
+                emb_seed, seeds = _forward_rngs(rng, cfg.n_layer, self.data_index)
                 x = _dropout(x, cfg.dropout, emb_seed)
         rope = (self.rope_cos, self.rope_sin)
         remat = (cfg.checkpoint_freq > 0 and not deterministic
                  and torch.is_grad_enabled())
         for blk, layer_seeds in zip(self.transformer.h, seeds):
             args = (cfg, self.qkv_perm, rope, segment_ids, layer_seeds,
-                    seg_bounds)
+                    seg_bounds, self.tp)
             x = _rematted_block(blk, x, *args) if remat else blk(x, *args)
         emb = self.transformer.ln_f(x)
         if return_embeddings:
             return emb
         scale = torch.tensor(cfg.mup_output_mult / cfg.width_mult,
                              dtype=emb.dtype, device=emb.device)
-        return _linear(emb * scale, self.lm_head.weight)
+        if self.tp is None:
+            return _linear(emb * scale, self.lm_head.weight)
+        logits = _linear(copy_to_model(emb * scale, self.tp), self.lm_head.weight)
+        return gather_from_model(logits, self.tp)
 
 
 # --------------------------------------------------------------------------

@@ -17,6 +17,12 @@ JAX package's `dropout_rng` key). The flash path hands it to the kernels'
 Philox stream; the dense path seeds a generator on the tensors' device
 with it and keeps each probability with chance 1 - rate, as the JAX dense
 path's bernoulli does.
+
+Tensor parallelism (`tp_mesh`: the rank's `parallel.tensor.TensorParallel`):
+q, k and v hold the rank's heads; the flash path runs `flash_attention_tp`
+on them, with no communication and the dropout seed mixed with the
+model-axis index, and the dense path mixes its seed the same way. As in the
+JAX dispatch, such a call never takes the int8 kernel.
 """
 from __future__ import annotations
 
@@ -24,7 +30,8 @@ from typing import Optional
 
 import torch
 
-from .flash_attention import KERNEL_DTYPES, KERNEL_HEAD_DIMS, flash_attention
+from .flash_attention import (KERNEL_DTYPES, KERNEL_HEAD_DIMS, flash_attention,
+                              flash_attention_tp, tp_seed)
 from .int8_attention import KERNEL_DTYPES as INT8_DTYPES
 from .int8_attention import KERNEL_HEAD_DIM as INT8_HEAD_DIM
 from .int8_attention import int8_flash_attention
@@ -99,16 +106,14 @@ def attention(q, k, v, *, scale: float, segment_ids=None,
     arrive pre-rotation and the dispatch owns RoPE (fused into the kernel,
     or applied here for the dense path). seg_bounds: a SegmentBounds of
     `segment_ids` that the caller shares between its layers, so the flash
-    path's skip bounds are computed once per batch and tile size."""
+    path's skip bounds are computed once per batch and tile size. tp_mesh:
+    the rank's TensorParallel place (q, k, v hold its heads), or None."""
     if impl == "ring" or ring_mesh is not None:
         raise NotImplementedError(
             "ring (sequence-parallel) attention is not ported yet "
-            "(ROADMAP Queue 1, item 9)")
-    if tp_mesh is not None:
-        raise NotImplementedError(
-            "tensor-parallel attention is not ported yet "
-            "(ROADMAP Queue 1, item 9)")
+            "(ROADMAP Queue 1, item 9b)")
     T, H, D = q.shape[1], q.shape[2], q.shape[3]
+    int8 = int8 and tp_mesh is None
     path = attention_path(q.device.type, q.dtype, T, H, D, int8, impl=impl,
                           causal=causal, dropout_rate=dropout_rate)
     if path == "int8":
@@ -131,16 +136,22 @@ def attention(q, k, v, *, scale: float, segment_ids=None,
         # the JAX dispatch. On a CUDA tensor the kernels walk their own
         # tiles and prune by them; the blocks here still pick the backward's
         # case and set the plain versions' tiles.
+        kw = dict(scale=scale, dropout_rate=dropout_rate,
+                  seed=0 if dropout_seed is None else dropout_seed,
+                  block_q=_fit_block(T, block_q), block_kv=_fit_block(T, block_kv),
+                  block_kv_fwd=T if 1024 < T <= 2048 else None,
+                  segment_skip=True, bounds=seg_bounds)
+        if tp_mesh is not None:
+            return flash_attention_tp(q.contiguous(), k.contiguous(), v.contiguous(),
+                                      segment_ids, rope, model_index=tp_mesh.index, **kw)
         return flash_attention(
             q.contiguous(), k.contiguous(), v.contiguous(), segment_ids,
-            rope, scale=scale, dropout_rate=dropout_rate,
-            seed=0 if dropout_seed is None else dropout_seed,
-            block_q=_fit_block(T, block_q), block_kv=_fit_block(T, block_kv),
-            block_kv_fwd=T if 1024 < T <= 2048 else None,
-            segment_skip=True, bounds=seg_bounds)
+            rope, **kw)
     if rope is not None:
         from ..models.rope import apply_rope_half
         q, k = apply_rope_half(q, k, rope[0], rope[1])
+    if tp_mesh is not None and dropout_seed is not None:
+        dropout_seed = tp_seed(dropout_seed, tp_mesh.index)
     return xla_attention(q, k, v, scale=scale, segment_ids=segment_ids,
                          causal=causal, dropout_rate=dropout_rate,
                          dropout_seed=dropout_seed)

@@ -896,3 +896,29 @@ def flash_attention_lse(q, k, v, segment_ids=None, rope=None, *, scale: float,
     return MhFlashAttentionLse.apply(q, k, v, segment_ids, cos, sin, scale,
                                      dropout_rate, seed, block_q, block_kv,
                                      skip, bounds)
+
+
+# Odd multiplier that mixes the model-axis index into the dropout seed: the
+# JAX package's flash_attention_tp folds `idx * 0x9E3779B9` in with an xor.
+TP_SEED_MIX = 0x9E3779B9
+
+
+def tp_seed(seed: int, model_index: int) -> int:
+    """The attention dropout seed of model-axis rank `model_index`. The
+    kernels key a mask by the local head index, so the head shards need
+    seeds of their own to draw independent masks."""
+    return (int(seed) ^ (int(model_index) * TP_SEED_MIX)) & 0xFFFFFFFFFFFFFFFF
+
+
+def flash_attention_tp(q, k, v, segment_ids=None, rope=None, *, scale: float,
+                       model_index: int, dropout_rate: float = 0.0,
+                       seed: int = 0, **kw) -> torch.Tensor:
+    """Head-parallel flash attention (the JAX package's
+    `flash_attention_tp`): q, k and v (B, T, H/M, D) hold the heads of
+    model-axis rank `model_index`, and the kernels run on them with no
+    communication (they take H as a run-time size). The dropout seed is
+    mixed with the index (`tp_seed`); the other arguments are
+    `flash_attention`'s."""
+    return flash_attention(q, k, v, segment_ids, rope, scale=scale,
+                           dropout_rate=dropout_rate,
+                           seed=tp_seed(seed, model_index), **kw)

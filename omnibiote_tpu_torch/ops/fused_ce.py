@@ -19,10 +19,18 @@ function computes them outside any Pallas kernel). As in JAX, logits and
 dW are fp32 products of operands in x's dtype: on a GPU a bf16 product
 writes fp32 (`torch.mm(..., out_dtype=torch.float32)`); the CPU has no
 such kernel and computes in the operands' dtype (fp32 in the tests).
+
+Vocab-parallel (tensor parallelism, parallel/tensor.py): with a `group`, W
+holds this rank's block of the vocabulary, from row `vocab_start`. Each
+rank's running max, sum-exp and label logit are combined over the group
+(max, then sums), so every rank holds the global lse and nll; the backward
+needs no collective, and dx is this block's share, summed over the group by
+the caller's `copy_to_model`.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -48,10 +56,12 @@ def _label_in_chunk(labels, c: int, Vc: int):
 
 class FusedCrossEntropy(torch.autograd.Function):
     """nll (N,) = -log softmax(x @ Wᵀ)[labels] for x (N, D), W (V, D) and
-    labels (N,) int64, over n_chunks blocks of W's rows."""
+    labels (N,) int64, over n_chunks blocks of W's rows; with a group, W is
+    the block of the vocabulary from row vocab_start."""
 
     @staticmethod
-    def forward(ctx, x, W, labels, n_chunks: int):
+    def forward(ctx, x, W, labels, n_chunks: int, group=None, vocab_start: int = 0):
+        labels = labels - vocab_start
         Vc = W.shape[0] // n_chunks
         N = x.shape[0]
         m = torch.full((N,), -float("inf"), dtype=torch.float32, device=x.device)
@@ -65,6 +75,13 @@ class FusedCrossEntropy(torch.autograd.Function):
             loc, in_chunk = _label_in_chunk(labels, c, Vc)
             ll = logits.gather(1, loc[:, None])[:, 0]
             lab = torch.where(in_chunk, ll, lab)
+        if group is not None:
+            m_all = m.clone()
+            dist.all_reduce(m_all, op=dist.ReduceOp.MAX, group=group)
+            s = s * torch.exp(m - m_all)
+            dist.all_reduce(s, group=group)
+            dist.all_reduce(lab, group=group)
+            m = m_all
         lse = m + torch.log(s)
         ctx.save_for_backward(x, W, labels, lse)
         ctx.n_chunks = n_chunks
@@ -87,18 +104,21 @@ class FusedCrossEntropy(torch.autograd.Function):
             dWs.append(_mm_f32(pg.t(), x))                 # (Vc, D)
             dx += _mm_f32(pg, Wc)
         dW = torch.cat(dWs).to(W.dtype)
-        return dx.to(x.dtype), dW, None, None
+        return dx.to(x.dtype), dW, None, None, None, None
 
 
-def fused_cross_entropy(x, W, labels, n_chunks: int):
+def fused_cross_entropy(x, W, labels, n_chunks: int, group=None,
+                        vocab_start: int = 0):
     """Per-row -log softmax(x @ Wᵀ)[labels]; x (..., D), W (V, D), labels
-    (...) integer. n_chunks must divide V."""
+    (...) integer. n_chunks must divide V. group: W is the vocabulary block
+    from row vocab_start of a vocab-parallel head split over `group`."""
     assert W.shape[0] % n_chunks == 0, (
         f"n_chunks={n_chunks} must divide V={W.shape[0]}: a remainder "
         "would silently drop the vocab tail from the lse (wrong loss)")
     lead = x.shape[:-1]
     nll = FusedCrossEntropy.apply(x.reshape(-1, x.shape[-1]), W,
-                                  labels.reshape(-1).long(), n_chunks)
+                                  labels.reshape(-1).long(), n_chunks, group,
+                                  vocab_start)
     return nll.reshape(lead)
 
 

@@ -13,11 +13,16 @@ with rng_impl "raw" (a JAX raw key); a JAX typed key read from meta.json is
 mixed into an integer seed. Saves rotate as the reference's do: after a
 successful save the previous non-final checkpoint is deleted.
 
-A checkpoint the JAX package saved on a pod holds `params.shard<pid>.npz`
-files instead of params.npz, each key "<leaf>@<start>:<stop>,..." naming
-the global slice it holds (scalars "<leaf>@"). `load_model_checkpoint`
-assembles them; writing that format and resuming a trainer from it are not
-ported.
+The pod-sharded format (the JAX package's `_save_checkpoint_multiproc`)
+holds `params.shard<p>.npz` and `opt_state.shard<p>.npz` files instead,
+each key "<leaf>@<start>:<stop>,..." naming the slice of the global JAX
+leaf it holds (scalars "<leaf>@"). A Trainer on a mesh writes it: every
+rank its replica-0 shards, in the JAX tree's layout (a tp rank's c_attn as
+three wqkv column ranges), rank 0 the meta, then a barrier and the rename;
+with data_hosts > 1 each rank also writes its readers' positions to
+`reader_states.proc<rank>.json`. `load_model_checkpoint` assembles it, and
+`restore_into_trainer` resumes any trainer from either format, re-placed
+under the trainer's own mesh, which may differ from the saving run's.
 """
 from __future__ import annotations
 
@@ -30,12 +35,13 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import OmniBioTAConfig
 from ..models.omnibiota import OmniBioTA
 from ..utils.convert import (flatten_tree, jax_opt_state_from_port,
-                             jax_params_from_state, nest, opt_state_from_jax,
-                             state_from_jax_params)
+                             jax_params_from_state, jax_tree_keys, nest,
+                             opt_state_from_jax, state_from_jax_params)
 from ..utils.device import resolve_device
 
 _BF16_SUFFIX = "::bf16"
@@ -121,16 +127,17 @@ def _assemble_leaf(shards: Dict, shape, dtype, leaf_key="") -> np.ndarray:
     return out
 
 
-def load_params_flat(path: str) -> Dict[str, torch.Tensor]:
-    """Flat {key: CPU tensor} of a checkpoint's parameters: params.npz, or
-    else the pod-sharded params.shard*.npz pieces assembled, each leaf's
-    shape the largest stop of its pieces."""
-    params_file = os.path.join(path, "params.npz")
+def load_params_flat(path: str, name: str = "params") -> Dict[str, torch.Tensor]:
+    """Flat {key: CPU tensor} of a checkpoint's parameters (name
+    "opt_state": its optimizer leaves): <name>.npz, or else the pod-sharded
+    <name>.shard*.npz pieces assembled, each leaf's shape the largest stop
+    of its pieces."""
+    params_file = os.path.join(path, f"{name}.npz")
     if os.path.exists(params_file):
         return load_pytree_flat(params_file)
-    by_leaf, bf16 = _load_all_shards(path, "params")
+    by_leaf, bf16 = _load_all_shards(path, name)
     if not by_leaf:
-        raise FileNotFoundError(f"{path} holds neither params.npz nor params.shard*.npz")
+        raise FileNotFoundError(f"{path} holds neither {name}.npz nor {name}.shard*.npz")
     flat = {}
     for leaf_key, shards in by_leaf.items():
         stops = [max(s[d].stop for s in shards if s)
@@ -186,7 +193,7 @@ def _build_meta(trainer) -> dict:
         "step": trainer.step,
         "trained_tokens": int(trainer.trained_tokens),
         "total_iters": trainer.total_iters,
-        "data_hosts": 1,
+        "data_hosts": trainer.data_hosts,
         "rng": _seed_words(trainer.rng),
         "rng_impl": "raw",
         "reader_states": [s.to_dict()
@@ -194,7 +201,7 @@ def _build_meta(trainer) -> dict:
         "model_cfg": dict(vars(trainer.model_cfg)),
         "train_cfg": {k: (list(v) if isinstance(v, tuple) else v)
                       for k, v in vars(trainer.train_cfg).items()},
-        "sharded": False,
+        "sharded": trainer.plan is not None,
     }
 
 
@@ -211,6 +218,8 @@ def save_checkpoint(trainer, final: bool = False,
     path = os.path.join(tc.save_dir, name)
     tmp = path + ".tmp"
     shutil.rmtree(tmp, ignore_errors=True)   # a crashed earlier save
+    if trainer.plan is not None:
+        return _save_checkpoint_sharded(trainer, path, tmp, final)
     os.makedirs(tmp)
 
     cfg = trainer.model_cfg
@@ -253,6 +262,60 @@ def save_checkpoint(trainer, final: bool = False,
     return path
 
 
+def _shard_pieces(trainer, tensors, key_of) -> Dict[str, torch.Tensor]:
+    """{"<leaf>@<slices>": piece} of the shards this rank writes, each in
+    the JAX leaf's layout (a stacked leaf's pieces one layer each)."""
+    out = {}
+    for n, t in tensors.items():
+        pl = trainer.plan.placements[n]
+        if pl.writes():
+            for idx, piece in pl.jax_pieces(t.detach().cpu()):
+                out[f"{key_of(pl.jax_key)}@"
+                    f"{','.join(f'{sl.start}:{sl.stop}' for sl in idx)}"] = piece
+    return out
+
+
+def _save_checkpoint_sharded(trainer, path: str, tmp: str, final: bool) -> str:
+    """The pod-sharded save: every rank writes the shards it is replica 0
+    of to `<name>.shard<rank>.npz`; rank 0 the scalars and meta.json; a
+    barrier, rank 0's rename, and a barrier again. Synchronous."""
+    rank = dist.get_rank()
+    dist.barrier()           # every rank past the clearing of tmp
+    os.makedirs(tmp, exist_ok=True)
+    cfg = trainer.model_cfg
+    keys = jax_tree_keys(cfg)
+    n = len(keys)
+    at = {k: i for i, k in enumerate(keys)}
+    st = trainer.opt_state
+    params = _shard_pieces(trainer, trainer.params, lambda k: k)
+    opt = {**_shard_pieces(trainer, st.mu, lambda k: str(2 + at[k])),
+           **_shard_pieces(trainer, st.nu, lambda k: str(2 + n + at[k]))}
+    if rank == 0:
+        opt["0@"] = np.asarray(float(st.grad_norm), np.float32)
+        opt["1@"] = np.asarray(st.count, np.int32)
+        opt[f"{2 + 2 * n}@"] = np.asarray(st.sched_count, np.int32)
+    save_pytree_flat(os.path.join(tmp, f"params.shard{rank}.npz"), params)
+    save_pytree_flat(os.path.join(tmp, f"opt_state.shard{rank}.npz"), opt)
+    if trainer.data_hosts > 1:
+        with open(os.path.join(tmp, f"reader_states.proc{rank}.json"), "w") as f:
+            json.dump([s.to_dict() for s in trainer.reader_states_for_checkpoint()], f)
+    if rank == 0:
+        with open(os.path.join(tmp, "meta.json"), "w") as f:
+            json.dump(_build_meta(trainer), f, indent=2, default=str)
+    prev_path = trainer._last_ckpt_path
+    dist.barrier()           # every shard file lands before the rename
+    if rank == 0:
+        if os.path.exists(path):
+            shutil.rmtree(path)
+        os.rename(tmp, path)
+        if prev_path and prev_path != path and os.path.exists(prev_path) \
+                and not final:
+            shutil.rmtree(prev_path)
+    dist.barrier()
+    trainer._last_ckpt_path = path
+    return path
+
+
 def _opt_state_to_cpu(opt_state):
     """A copy of an OptState with its tensors on the CPU."""
     from ..training.optim import OptState
@@ -268,24 +331,27 @@ def restore_into_trainer(trainer, path: str) -> None:
     """Load parameters, optimizer state, step, seed and data-stream
     position from `path` into `trainer` (a checkpoint of either package)."""
     from ..data.loader import ReaderState
+    from ..parallel.sharding import shard_opt_state_like, shard_params
 
-    params_file = os.path.join(path, "params.npz")
-    if not os.path.exists(params_file):
-        raise NotImplementedError(
-            f"{path} has no params.npz: resuming a trainer from the pod-sharded "
-            "checkpoint format is not ported yet (ROADMAP Queue 1, item 9)")
+    # both formats: every leaf assembled whole on the host, then placed
+    params_flat = load_params_flat(path)
+    opt_flat = load_params_flat(path, "opt_state")
+    cfg = trainer.model_cfg
     # stop the staged stream first: its prefetch worker advances the live
     # reader states this restore is about to assign
     if trainer._staged is not None and hasattr(trainer._staged, "close"):
         trainer._staged.close()
     trainer._staged = None
 
-    cfg = trainer.model_cfg
-    state = state_from_jax_params(nest(load_pytree_flat(params_file)), cfg)
+    state = state_from_jax_params(nest(params_flat), cfg)
+    loaded = opt_state_from_jax([opt_flat[str(i)] for i in range(len(opt_flat))], cfg)
+    if trainer.plan is not None:    # re-placed under this trainer's mesh
+        pls = trainer.plan.placements
+        state = shard_params(state, pls)
+        loaded.mu = shard_opt_state_like(loaded.mu, pls)
+        loaded.nu = shard_opt_state_like(loaded.nu, pls)
     for n, p in trainer.params.items():
         p.copy_(state[n])
-    opt_flat = load_pytree_flat(os.path.join(path, "opt_state.npz"))
-    loaded = opt_state_from_jax([opt_flat[str(i)] for i in range(len(opt_flat))], cfg)
     st = trainer.opt_state
     for src, dst in ((loaded.mu, st.mu), (loaded.nu, st.nu)):
         for n, t in dst.items():
@@ -295,14 +361,25 @@ def restore_into_trainer(trainer, path: str) -> None:
 
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
-    if int(meta.get("data_hosts", 1)) != 1:
-        raise NotImplementedError(
-            "checkpoint saved with data_hosts > 1: per-host streams are not "
-            "ported yet (ROADMAP Queue 1, item 9)")
+    saved_hosts = int(meta.get("data_hosts", 1))
+    if saved_hosts != trainer.data_hosts and (trainer.reader_states
+                                              or meta["reader_states"]):
+        raise ValueError(
+            f"checkpoint was saved with data_hosts={saved_hosts} but this "
+            f"trainer runs data_hosts={trainer.data_hosts}: per-host streams "
+            "are striped by host count, so the stream position cannot be "
+            "resumed row-exactly; restart the data stream (reader_states=[]) "
+            "or keep the host count")
     trainer.step = int(meta["step"])
     trainer.trained_tokens = int(meta["trained_tokens"])
     trainer.rng = _seed_from_meta(meta)
-    restored = [ReaderState.from_dict(d) for d in meta["reader_states"]]
+    states = meta["reader_states"]
+    if trainer.data_hosts > 1:
+        proc_file = os.path.join(path, f"reader_states.proc{dist.get_rank()}.json")
+        if os.path.exists(proc_file):
+            with open(proc_file) as f:
+                states = json.load(f)
+    restored = [ReaderState.from_dict(d) for d in states]
     if len(trainer.reader_states) == len(restored):
         # mutate the live objects: the pipeline's readers hold references
         # to them, so the stream resumes without being rebuilt

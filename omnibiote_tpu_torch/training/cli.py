@@ -6,16 +6,26 @@ train_encoder.py:437-467 flags):
         --train_type mixed --n_layer 8 --n_embd 1024 --n_head 8 \\
         --ctx_len 1024 --dropout 0.1 --mini_batch_size 16 --batch_size 32
 
-Trains on one GPU (--device cpu for the CPU), with every single-device
-flag of the JAX CLI: --checkpoint_freq > 0 with --remat_policy full or dots
-rematerialises every block. Flags of the multi-device modes (--FSDP,
---sharding other than replicated, --mesh_shape, --multihost) raise
-NotImplementedError.
+Trains on one GPU (--device cpu for the CPU), with every flag of the JAX
+CLI: --checkpoint_freq > 0 with --remat_policy full or dots rematerialises
+every block. Under torchrun, one process a GPU, the world is the mesh:
+
+    torchrun --nproc_per_node 8 -m omnibiote_tpu_torch.training.cli \
+        --sharding fsdp --multihost ...
+
+--sharding replicated (DDP, the default), fsdp (--FSDP), tp and fsdp+tp,
+--mesh_shape over ('data', 'model'); --multihost gives each rank a pipeline
+of its own (data_hosts = the world size, as jax.process_count() in the JAX
+CLI), else every rank builds the same global stream and takes its rows.
+Only rank 0 logs. --sharding sp and pp raise NotImplementedError (ROADMAP
+Queue 1, items 9b and 9c).
 """
 from __future__ import annotations
 
 import argparse
 import os
+
+import torch.distributed as dist
 
 from ..config import OmniBioTAConfig, TrainConfig
 from ..data.loader import build_pipeline
@@ -92,9 +102,14 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    if args.multihost:
-        raise NotImplementedError(
-            "--multihost is not ported yet (ROADMAP Queue 1, item 9)")
+    rank, world = 0, 1
+    if args.multihost or "WORLD_SIZE" in os.environ:
+        from ..parallel.mesh import init_distributed
+        init_distributed(args.device)
+        rank, world = dist.get_rank(), dist.get_world_size()
+        print(f"rank {rank} of {world}")
+    # one pipeline a rank (its stripe of the shard files), as one a host
+    data_hosts = world if args.multihost else 1
     sharding = args.sharding or ("fsdp" if args.FSDP else "replicated")
     attn_impl = "xla" if args.disable_flash else "flash"
     if sharding == "sp":
@@ -125,7 +140,8 @@ def main(argv=None):
     batch_iter, reader_states = build_pipeline(
         args.base_dir, train_dirs, proportions,
         batch_size=args.batch_size, ctx_len=args.ctx_len,
-        use_padding=args.use_padding, banned_tokens=banned, seed=args.seed)
+        use_padding=args.use_padding, banned_tokens=banned, seed=args.seed,
+        num_hosts=data_hosts, host_id=rank if data_hosts > 1 else 0)
     val_iters = {}
     for name, vdir in zip(val_names, val_dirs):
         vit, _ = build_pipeline(
@@ -134,12 +150,15 @@ def main(argv=None):
             banned_tokens=banned, seed=args.seed + 7919)
         val_iters[name] = vit
 
+    # the metrics are global (summed over the ranks in the step): rank 0
+    # alone logs them
     sink = MultiSink(
-        JsonlSink(args.metrics_jsonl, echo=args.metrics_jsonl is None),
-        WandbSink(args.wandb_project_name, enabled=args.wandb))
+        JsonlSink(args.metrics_jsonl if rank == 0 else None,
+                  echo=rank == 0 and args.metrics_jsonl is None),
+        WandbSink(args.wandb_project_name, enabled=args.wandb and rank == 0))
     trainer = Trainer(model_cfg, train_cfg, batch_iter=batch_iter,
                       reader_states=reader_states, metrics_sink=sink,
-                      prefetch=2, device=args.device)
+                      prefetch=2, data_hosts=data_hosts, device=args.device)
     try:
         if args.resume_from:
             if args.resume_from < 0:

@@ -15,6 +15,14 @@ train_encoder.py:273-311):
 The compaction is an integer gather of the masked positions, in order, not
 the JAX package's fp32 one-hot contractions: the labels are exact by
 construction and the cost is linear in T.
+
+On a data-parallel mesh a rank holds some rows of the global micro-batch:
+its masks are those rows of the global draw (`mask_rows`), and its loss is
+its masked-NLL sum over the global masked count (`count_group`), so the
+ranks' losses and gradients sum to the global micro-batch's, as GSPMD sums
+the JAX package's global arrays. Under tensor parallelism (`model.tp`) the
+head is vocab-parallel: the fused cross-entropy over the rank's block of
+the vocabulary, its lse combined over the model axis.
 """
 from __future__ import annotations
 
@@ -22,11 +30,13 @@ from typing import Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
 from ..config import EOS_TOKEN, MASK_TOKEN, PAD_TOKEN
 from ..models.omnibiota import OmniBioTA, _linear
 from ..ops.fused_ce import fused_cross_entropy, pick_chunks
+from ..parallel.tensor import copy_to_model
 
 
 def _default_capacity_frac(mask_prob: float) -> float:
@@ -36,10 +46,16 @@ def _default_capacity_frac(mask_prob: float) -> float:
 
 
 def make_mlm_mask(gen: torch.Generator, tokens: torch.Tensor,
-                  mask_prob: float = 0.15) -> torch.Tensor:
+                  mask_prob: float = 0.15,
+                  rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Bernoulli(p) mask excluding PAD and EOS (train_encoder.py:276-278),
-    drawn from `gen` on the tokens' device."""
-    bern = torch.rand(tokens.shape, generator=gen, device=tokens.device) < mask_prob
+    drawn from `gen` on the tokens' device. rows=(first, total): `tokens`
+    are rows first.. of a batch of `total` rows, and get those rows of the
+    whole batch's draw."""
+    shape = tokens.shape if rows is None else (rows[1], *tokens.shape[1:])
+    bern = torch.rand(shape, generator=gen, device=tokens.device) < mask_prob
+    if rows is not None:
+        bern = bern[rows[0]:rows[0] + tokens.shape[0]]
     return bern & (tokens != PAD_TOKEN) & (tokens != EOS_TOKEN)
 
 
@@ -72,7 +88,8 @@ def mlm_loss(model: OmniBioTA, tokens: torch.Tensor,
              mask_prob: float = 0.15, deterministic: bool = False,
              capacity_frac: Optional[float] = None,
              mask: Optional[torch.Tensor] = None,
-             params: Optional[Mapping[str, torch.Tensor]] = None
+             params: Optional[Mapping[str, torch.Tensor]] = None,
+             mask_rows: Optional[Tuple[int, int]] = None, count_group=None
              ) -> Tuple[torch.Tensor, dict]:
     """Masked-mean cross-entropy of one micro-batch: (loss, aux) with aux
     {'masked_count', 'num_tokens'} (0-d tensors on the tokens' device).
@@ -81,7 +98,10 @@ def mlm_loss(model: OmniBioTA, tokens: torch.Tensor,
     dropout's. mask: an explicit (B, T) bool mask instead of the drawn one
     (parity tests). params: parameters to run the model with instead of
     its own (`torch.func.functional_call`), e.g. the train step's bf16
-    compute copy."""
+    compute copy. mask_rows=(first, total): the tokens are those rows of
+    the global micro-batch, whose mask is drawn whole. count_group: the
+    data-axis group; the loss divides by the masked count summed over it
+    (aux's counts stay this rank's)."""
     cfg = model.cfg
     if capacity_frac is None:
         capacity_frac = _default_capacity_frac(mask_prob)
@@ -89,7 +109,7 @@ def mlm_loss(model: OmniBioTA, tokens: torch.Tensor,
     if mask is None:
         gen = torch.Generator(device=tokens.device)
         gen.manual_seed(mask_seed & 0x7FFFFFFFFFFFFFFF)
-        mask = make_mlm_mask(gen, tokens, mask_prob)
+        mask = make_mlm_mask(gen, tokens, mask_prob, rows=mask_rows)
     masked_ids = apply_mlm_mask(tokens, mask)
 
     kwargs = dict(deterministic=deterministic, rng=drop_seed,
@@ -112,7 +132,13 @@ def mlm_loss(model: OmniBioTA, tokens: torch.Tensor,
     # the plain log_softmax head
     scale = torch.tensor(cfg.mup_output_mult / cfg.width_mult,
                          dtype=g_emb.dtype, device=g_emb.device)
-    if cfg.fused_ce:
+    tp = model.tp
+    if tp is not None:
+        V = lm_head.shape[0]
+        nll = fused_cross_entropy(copy_to_model(g_emb * scale, tp), lm_head, labels,
+                                  pick_chunks(V) if cfg.fused_ce else 1,
+                                  group=tp.group, vocab_start=tp.index * V)
+    elif cfg.fused_ce:
         nll = fused_cross_entropy(g_emb * scale, lm_head, labels,
                                   pick_chunks(cfg.vocab_size))
     else:
@@ -121,7 +147,11 @@ def mlm_loss(model: OmniBioTA, tokens: torch.Tensor,
         nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
     nll = torch.where(valid, nll, 0.0)
     masked_count = valid.sum()
-    loss = nll.sum() / masked_count.clamp_min(1)
+    denom = masked_count
+    if count_group is not None:
+        denom = masked_count.clone()
+        dist.all_reduce(denom, group=count_group)
+    loss = nll.sum() / denom.clamp_min(1)
     aux = {"masked_count": masked_count,
            "num_tokens": (tokens != PAD_TOKEN).sum()}
     return loss, aux

@@ -16,14 +16,20 @@ The update runs in place on the fp32 master parameters with foreach ops
 (one kernel per op for all tensors at once). Step counters are host ints,
 so an update never waits for the device; the global grad norm stays a
 device tensor.
+
+Sharded (parallel/sharding.py): the tensors are this rank's shards, the
+µP multipliers are read from their global names, and the clip's global norm
+sums the shards' squares over every rank (the default group), each
+replicated tensor counted on one rank only (`norm_weights`).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import OmniBioTAConfig, TrainConfig, torch_dtype
 from ..mup import lr_mult_tree, wd_mult_tree
@@ -60,8 +66,10 @@ class MupAdamW:
     list of named parameters."""
 
     def __init__(self, names: List[str], model_cfg: OmniBioTAConfig,
-                 train_cfg: TrainConfig, total_iters: int):
+                 train_cfg: TrainConfig, total_iters: int,
+                 norm_weights: Optional[List[float]] = None):
         tc = train_cfg
+        self.norm_weights = norm_weights
         self.names = list(names)
         self.b1, self.b2, self.eps = tc.beta1, tc.beta2, tc.epsilon
         self.weight_decay, self.grad_clip = tc.weight_decay, tc.grad_clip
@@ -90,7 +98,17 @@ class MupAdamW:
         # clip by the global norm (per-tensor square sums in fp32 whatever
         # the grad dtype); a clipped grad keeps its dtype, as in JAX
         g32 = [x.float() for x in g]
-        gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g32)))
+        norms = torch.stack(torch._foreach_norm(g32))
+        if self.norm_weights is None:
+            gnorm = torch.linalg.vector_norm(norms)
+        else:
+            # this rank's share, squared, summed over the ranks (at one rank
+            # sqrt(x·x) == x in IEEE arithmetic: the unsharded norm's bits)
+            w = torch.tensor(self.norm_weights, device=norms.device)
+            share = torch.linalg.vector_norm(norms * w)
+            sq = share * share
+            dist.all_reduce(sq)
+            gnorm = torch.sqrt(sq)
         clip = self.grad_clip / torch.clamp_min(gnorm, self.grad_clip)
         g32 = torch._foreach_mul(g32, clip)
         if any(x.dtype != torch.float32 for x in g):
@@ -136,8 +154,10 @@ class MupAdamW:
 
 
 def make_optimizer(names: List[str], model_cfg: OmniBioTAConfig,
-                   train_cfg: TrainConfig, total_iters: int) -> MupAdamW:
-    return MupAdamW(names, model_cfg, train_cfg, total_iters)
+                   train_cfg: TrainConfig, total_iters: int,
+                   norm_weights: Optional[List[float]] = None) -> MupAdamW:
+    """MupAdamW; norm_weights: a sharded trainer's (parallel/sharding.py)."""
+    return MupAdamW(names, model_cfg, train_cfg, total_iters, norm_weights)
 
 
 def current_lr(opt_state: OptState, train_cfg: TrainConfig,

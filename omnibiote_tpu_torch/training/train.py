@@ -1,14 +1,15 @@
-"""MLM pretraining loop on one GPU: gradient accumulation, the batch ramp,
-µP AdamW, metrics, checkpoints.
+"""MLM pretraining loop on one GPU or a mesh of them: gradient
+accumulation, the batch ramp, µP AdamW, metrics, checkpoints.
 
 Port of `omnibiote_tpu/training/train.py` (re-design of the reference's
-train_encoder.py) for one device:
+train_encoder.py):
   * the train step runs A accumulation slots with per-slot activity
     weights (the batch ramp varies the number of active slots; shapes stay
     fixed), then one optimizer update;
   * the ≥2-D weights are cast to the compute dtype once per step and the
-    gradients are taken with respect to that copy (`_compute_copy`), as the
-    JAX step does; the fp32 masters stay with the optimizer;
+    gradients are taken with respect to that copy (`_compute_copy`; on a
+    mesh `MeshPlan.gather`), as the JAX step does; the fp32 masters stay
+    with the optimizer;
   * per-step randomness: slot i of step s draws its MLM mask and dropout
     from the integer seed `slot_seed(seed, s, i)` (the JAX package's
     fold_in(fold_in(rng, s), i)), so a resumed run redraws the same masks
@@ -18,9 +19,18 @@ train_encoder.py) for one device:
 
 Every single-device mode of the JAX Trainer runs, rematerialisation
 (checkpoint_freq > 0, models/omnibiota.py) and the fused cross-entropy
-(fused_ce, ops/fused_ce.py) included. The multi-device modes raise
-NotImplementedError: sharding other than 'replicated' or a mesh_shape,
-data_hosts > 1 and attn_impl='ring' (ROADMAP Queue 1, item 9).
+(fused_ce, ops/fused_ce.py) included.
+
+On a mesh (one process a GPU under torchrun, parallel/mesh.py) the sharding
+modes 'replicated' (DDP), 'fsdp', 'tp' and 'fsdp+tp' run
+(parallel/sharding.py): a data rank takes its rows of every global
+micro-batch (or, with data_hosts > 1, its own pipeline's rows), draws its
+rows of the global MLM masks and divides its loss by the global masked
+count; the gradients are reduced once a step after accumulation (fsdp:
+the compute copy is all-gathered and the gradients reduce-scattered once a
+step), and the metrics are summed over 'data'. Sequence parallelism
+('sp', attn_impl='ring') and the pipeline ('pp', 'fsdp+pp') raise
+NotImplementedError (ROADMAP Queue 1, items 9b and 9c).
 """
 from __future__ import annotations
 
@@ -30,6 +40,8 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch import nn
 
 from ..config import OmniBioTAConfig, TrainConfig, torch_dtype
 from ..models.omnibiota import OmniBioTA, init_params, num_params
@@ -55,24 +67,32 @@ def _compute_copy(params: Dict[str, torch.Tensor],
 
 def check_ported(model_cfg: OmniBioTAConfig, train_cfg: TrainConfig,
                  data_hosts: int = 1) -> None:
-    """Raise on the training modes the port does not have yet."""
-    if train_cfg.sharding != "replicated" or train_cfg.mesh_shape is not None:
+    """Raise on the training modes the port does not have yet: sequence
+    parallelism and the pipeline."""
+    if train_cfg.sharding == "sp" or model_cfg.attn_impl == "ring":
         raise NotImplementedError(
-            f"sharding={train_cfg.sharding!r} / mesh_shape="
-            f"{train_cfg.mesh_shape} is not ported yet; the port trains on "
-            "one GPU (ROADMAP Queue 1, item 9)")
-    if data_hosts != 1:
+            "sharding='sp' / attn_impl='ring' (sequence parallelism) is not "
+            "ported yet (ROADMAP Queue 1, item 9b)")
+    if train_cfg.sharding in ("pp", "fsdp+pp"):
         raise NotImplementedError(
-            "data_hosts > 1 (per-host data feeding) is not ported yet "
-            "(ROADMAP Queue 1, item 9)")
-    if model_cfg.attn_impl == "ring":
-        raise NotImplementedError(
-            "attn_impl='ring' (sequence parallelism) is not ported yet "
-            "(ROADMAP Queue 1, item 9)")
+            f"sharding={train_cfg.sharding!r} (the pipeline) is not ported yet "
+            "(ROADMAP Queue 1, item 9c)")
+
+
+def _meta_parameters(model: nn.Module) -> None:
+    """Replace a module's parameters by meta tensors of their shapes: the
+    sharded step runs it on the compute copy through functional_call, so
+    it holds no weights of its own."""
+    for mod in model.modules():
+        for k, p in mod._parameters.items():
+            if p is not None:
+                mod._parameters[k] = nn.Parameter(
+                    torch.empty(p.shape, dtype=p.dtype, device="meta"),
+                    requires_grad=False)
 
 
 def make_train_step(model: OmniBioTA, model_cfg: OmniBioTAConfig,
-                    train_cfg: TrainConfig, optimizer: MupAdamW):
+                    train_cfg: TrainConfig, optimizer: MupAdamW, plan=None):
     """The train step:
 
       (params, opt_state, tokens (A, B, T), segments (A, B, T),
@@ -83,15 +103,25 @@ def make_train_step(model: OmniBioTA, model_cfg: OmniBioTAConfig,
     in place. micro_weights holds 1.0 for active slots and 0.0 otherwise;
     an inactive slot contributes exactly nothing, so it is not computed.
     masks: explicit (A, B, T) MLM masks instead of the drawn ones (parity
-    tests)."""
+    tests).
+
+    plan: the parallel.sharding.MeshPlan of the rank (None: one device, no
+    mesh). On a mesh `params` and the moments are this rank's shards,
+    tokens and segments its rows (A, B / n_data, T) of the global
+    micro-batches (masks stay global), and the step gathers the compute
+    copy, reduces the gradients once after accumulation and sums the
+    metrics over 'data'."""
     deterministic = model_cfg.dropout == 0.0
     gdt = torch_dtype(train_cfg.grad_dtype)
+    count_group = None if plan is None else plan.data_group
 
     def micro_grad(params_c, tokens, segments, seed, mask):
         loss, aux = mlm_loss(model, tokens, segments, seed,
                              mask_prob=train_cfg.mask_prob,
                              deterministic=deterministic, mask=mask,
-                             params=params_c)
+                             params=params_c,
+                             mask_rows=None if plan is None else plan.rows(tokens.shape[0]),
+                             count_group=count_group)
         grads = torch.autograd.grad(loss, list(params_c.values()))
         return loss.detach(), aux, grads
 
@@ -100,7 +130,14 @@ def make_train_step(model: OmniBioTA, model_cfg: OmniBioTAConfig,
                    masks=None):
         A = tokens.shape[0]
         weights = [float(w) for w in micro_weights]
-        params_c = _compute_copy(params, model_cfg)
+        if plan is None:
+            params_c = _compute_copy(params, model_cfg)
+        else:
+            params_c = {n: p.requires_grad_() for n, p in
+                        plan.gather(params, model_cfg.cdtype()).items()}
+            if masks is not None:
+                lo, _ = plan.rows(tokens.shape[1])
+                masks = masks[:, lo:lo + tokens.shape[1]]
         names = list(params_c)
         dev = tokens.device
         loss_sum = torch.zeros((), device=dev)
@@ -119,7 +156,7 @@ def make_train_step(model: OmniBioTA, model_cfg: OmniBioTAConfig,
             tokens_seen = tokens_seen + (w > 0) * aux["num_tokens"]
         else:
             # accumulating: fp32 adds, rounded to grad_dtype per micro-step
-            grads = [torch.zeros(params[n].shape, dtype=gdt, device=dev)
+            grads = [torch.zeros(params_c[n].shape, dtype=gdt, device=dev)
                      for n in names]
             for i, w in enumerate(weights):
                 if w == 0.0:
@@ -136,9 +173,14 @@ def make_train_step(model: OmniBioTA, model_cfg: OmniBioTAConfig,
                 masked = masked + w * aux["masked_count"]
                 tokens_seen = tokens_seen + aux["num_tokens"]
         n_active = max(sum(weights), 1.0)
-        # dtype-preserving divide (bf16 grads stay bf16)
-        grads = {n: (g.float() / n_active).to(g.dtype) for n, g in zip(names, grads)}
+        grads = dict(zip(names, grads))
         del params_c
+        if plan is not None:
+            grads = plan.reduce(grads)
+            loss_sum, masked, tokens_seen = plan.sum_over_data(
+                loss_sum, masked, tokens_seen)
+        # dtype-preserving divide (bf16 grads stay bf16)
+        grads = {n: (g.float() / n_active).to(g.dtype) for n, g in grads.items()}
         optimizer.update(grads, opt_state, params)
         return {"loss": loss_sum / n_active, "masked_tokens": masked,
                 "num_tokens": tokens_seen, "grad_norm": opt_state.grad_norm}
@@ -149,12 +191,14 @@ def make_train_step(model: OmniBioTA, model_cfg: OmniBioTAConfig,
 def make_eval_step(model: OmniBioTA, model_cfg: OmniBioTAConfig,
                    train_cfg: TrainConfig):
     """Validation-loss probe (train_encoder.py:371-410): the same masked
-    CE, no dropout, no gradients."""
+    CE, no dropout, no gradients. params: the tensors to run the model with
+    (a sharded trainer's gathered masters), None for its own."""
 
     @torch.no_grad()
-    def eval_step(tokens, segments, rng: int):
+    def eval_step(tokens, segments, rng: int, params=None):
         loss, aux = mlm_loss(model, tokens, segments, rng,
-                             mask_prob=train_cfg.mask_prob, deterministic=True)
+                             mask_prob=train_cfg.mask_prob, deterministic=True,
+                             params=params)
         return loss, aux["masked_count"]
 
     return eval_step
@@ -176,26 +220,66 @@ def effective_batch_size(step: int, total_iters: int, train_cfg: TrainConfig,
     return (eff // mbs) * mbs
 
 
-class Trainer:
-    """End-to-end MLM pretraining driver on one device (None: the GPU).
+def _choose_mesh(train_cfg: TrainConfig, device):
+    """The JAX Trainer's mesh choice: mesh_shape over ('data', 'model'),
+    else every rank on 'model' for a tp mode, else every rank on 'data'."""
+    from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, init_distributed, make_mesh
 
-    Owns the model (fp32 master parameters), the optimizer state, the data
-    stream and its staging, checkpoints and metrics."""
+    init_distributed(device)
+    if train_cfg.mesh_shape is not None:
+        return make_mesh(tuple(train_cfg.mesh_shape),
+                         (DATA_AXIS, MODEL_AXIS)[:len(train_cfg.mesh_shape)], device)
+    if "tp" in train_cfg.sharding:
+        return make_mesh((1, dist.get_world_size()), (DATA_AXIS, MODEL_AXIS), device)
+    return make_mesh(None, device=device)
+
+
+class Trainer:
+    """End-to-end MLM pretraining driver on one device (None: the GPU) or a
+    mesh of ranks.
+
+    Owns the model (fp32 master parameters, or this rank's shards of them),
+    the optimizer state, the data stream and its staging, checkpoints and
+    metrics.
+
+    The Trainer runs sharded when given a mesh (parallel.mesh.make_mesh),
+    when train_cfg asks for a sharding other than 'replicated' or for a
+    mesh_shape, when data_hosts > 1, or inside a process group of more than
+    one rank; it then builds the JAX Trainer's mesh over the group
+    (starting a group of one if none exists). data_hosts > 1: batch_iter
+    yields only this data rank's rows (a pipeline built with num_hosts =
+    data_hosts, host_id = the data index); data_hosts must equal the
+    data-axis size."""
 
     def __init__(self, model_cfg: OmniBioTAConfig, train_cfg: TrainConfig,
                  batch_iter=None, reader_states=None, metrics_sink=None,
                  prefetch: int = 0, data_hosts: int = 1, device=None,
-                 init_seed: Optional[int] = None):
+                 init_seed: Optional[int] = None, mesh=None):
+        from ..parallel.mesh import mesh_device
+        from ..parallel.sharding import MeshPlan, norm_weights, shard_params
+
         check_ported(model_cfg, train_cfg, data_hosts)
         tc = train_cfg
-        self.device = resolve_device(device)
+        sharded = (mesh is not None or tc.sharding != "replicated"
+                   or tc.mesh_shape is not None or data_hosts > 1
+                   or (dist.is_initialized() and dist.get_world_size() > 1))
+        if sharded and mesh is None:
+            mesh = _choose_mesh(tc, device)
+        self.mesh = mesh
+        self.plan = MeshPlan(model_cfg, tc.sharding, mesh) if sharded else None
+        self.device = mesh_device(mesh) if sharded else resolve_device(device)
         self.model_cfg = model_cfg
         self.train_cfg = tc
         self.data_hosts = data_hosts
-        self.global_micro = tc.mini_batch_size
+        n_data = 1 if self.plan is None else self.plan.n_data
+        self.global_micro = tc.mini_batch_size * n_data
         if tc.batch_size % self.global_micro:
             raise ValueError(f"batch_size {tc.batch_size} must divide by "
-                             f"mini_batch_size {self.global_micro}")
+                             f"mini_batch_size * n_data = {self.global_micro}")
+        if data_hosts > 1 and data_hosts != n_data:
+            raise ValueError(
+                f"data_hosts={data_hosts} must equal the data-axis size "
+                f"({n_data}): each data rank feeds exactly its own rows")
         self.accum_slots = tc.batch_size // self.global_micro
         self.total_iters = int(tc.token_budget / (tc.batch_size * tc.ctx_len))
 
@@ -206,12 +290,24 @@ class Trainer:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(words[1]) & 0x7FFFFFFFFFFFFFFF)
         self.model = init_params(gen, model_cfg, device=self.device)
+        self.n_params_non_embedding = num_params(self.model, non_embedding=True)
         self.params = dict(self.model.named_parameters())
+        weights = None
+        if sharded:
+            # every rank draws the full model from the seed, keeps its shards
+            # and runs a model of its own local shapes on the compute copy
+            full = {n: p.detach() for n, p in self.params.items()}
+            self.params = shard_params(full, self.plan.placements)
+            del full
+            self.model = OmniBioTA(model_cfg, device=self.device, tp=self.plan.tp,
+                                   data_index=self.plan.data_index)
+            _meta_parameters(self.model)
+            weights = norm_weights(list(self.params), self.plan.placements)
         self.optimizer = make_optimizer(list(self.params), model_cfg, tc,
-                                        self.total_iters)
+                                        self.total_iters, weights)
         self.opt_state = self.optimizer.init(self.params)
         self._train_step = make_train_step(self.model, model_cfg, tc,
-                                           self.optimizer)
+                                           self.optimizer, self.plan)
         self._eval_step = make_eval_step(self.model, model_cfg, tc)
         self._eval_n = 0
 
@@ -253,20 +349,31 @@ class Trainer:
 
     def _stage(self, eff_bs: int):
         """One step's input on the host: ({'tokens', 'segments'} (A,
-        micro, T) int32, activity weights as a list of floats)."""
+        micro, T) int32, activity weights as a list of floats). On a mesh,
+        micro is this data rank's rows of the global micro-batch: cut from
+        the global rows, or, with data_hosts > 1, all that this rank's own
+        pipeline supplies."""
+        from ..parallel.mesh import shard_batch_pytree
+
         A, micro = self.accum_slots, self.global_micro
         active = eff_bs // micro
-        rows, seg_rows = self._next_rows(eff_bs)
+        hosts = self.data_hosts
+        micro_l = micro // hosts
+        rows, seg_rows = self._next_rows(eff_bs // hosts)
         T = rows.shape[1]
-        tokens = np.zeros((A, micro, T), np.int32)
-        segments = np.zeros((A, micro, T), np.int32)
-        tokens[:active] = rows.reshape(active, micro, T)
-        segments[:active] = seg_rows.reshape(active, micro, T)
+        tokens = np.zeros((A, micro_l, T), np.int32)
+        segments = np.zeros((A, micro_l, T), np.int32)
+        tokens[:active] = rows.reshape(active, micro_l, T)
+        segments[:active] = seg_rows.reshape(active, micro_l, T)
         if active < A:  # inactive slots: repeat slot 0, weight 0
             tokens[active:] = tokens[0]
             segments[active:] = segments[0]
         weights = [1.0] * active + [0.0] * (A - active)
-        return {"tokens": tokens, "segments": segments}, weights
+        batch = {"tokens": tokens, "segments": segments}
+        if hosts == 1 and self.plan is not None:
+            batch = {k: np.ascontiguousarray(v) for k, v in
+                     shard_batch_pytree(self.mesh, batch, batch_dim=1).items()}
+        return batch, weights
 
     def _staged_stream(self):
         """Staged step inputs, the step count kept in lockstep with
@@ -376,7 +483,7 @@ class Trainer:
 
         tc = self.train_cfg
         sched = linear_decay(scaled_lr(tc), self.total_iters)
-        fpt = flops_per_token(num_params(self.model, non_embedding=True),
+        fpt = flops_per_token(self.n_params_non_embedding,
                               self.model_cfg.n_layer, self.model_cfg.n_embd,
                               tc.ctx_len)
         last_save = last_test = self.trained_tokens
@@ -445,13 +552,15 @@ class Trainer:
 
     def eval_loss(self, tokens, segments) -> float:
         """Validation loss; its masks come from a stream of its own, so
-        probes never shift the training stream."""
+        probes never shift the training stream. On a mesh every rank
+        evaluates the whole batch with the gathered fp32 masters."""
         seed = int(np.random.SeedSequence([self.rng, 0x0E7A1, self._eval_n])
                    .generate_state(1, np.uint64)[0])
         self._eval_n += 1
+        params = None if self.plan is None else self.plan.gather(self.params)
         loss, _ = self._eval_step(torch.as_tensor(np.asarray(tokens)).to(self.device),
                                   torch.as_tensor(np.asarray(segments)).to(self.device),
-                                  seed)
+                                  seed, params)
         return float(loss)
 
     # -- checkpointing -----------------------------------------------------

@@ -157,6 +157,30 @@ def jax_params_from_state(state: Mapping, cfg: OmniBioTAConfig) -> Dict:
     return params
 
 
+def torch_leaf_map(cfg: OmniBioTAConfig) -> Dict[str, tuple]:
+    """{state_dict name: (JAX flat key, layer index or None, transposed,
+    the tensor's shape)}: where each tensor of the port's model sits in the
+    JAX tree (a layer of a stacked `blocks` leaf, transposed for a linear
+    weight)."""
+    D, V = cfg.n_embd, cfg.vocab_size
+    block_shapes = {"ln_1.weight": (D,), "ln_2.weight": (D,),
+                    "attn.c_attn.weight": (3 * D, D), "attn.c_proj.weight": (D, D),
+                    "mlp.c_fc.weight": (4 * D, D), "mlp.c_proj.weight": (D, 4 * D),
+                    "ln_1.bias": (D,), "ln_2.bias": (D,), "attn.c_attn.bias": (3 * D,),
+                    "attn.c_proj.bias": (D,), "mlp.c_fc.bias": (4 * D,),
+                    "mlp.c_proj.bias": (D,)}
+    out = {"transformer.wte.weight": ("wte", None, False, (V, D)),
+           "lm_head.weight": ("lm_head", None, True, (V, D)),
+           "transformer.ln_f.weight": ("ln_f/scale", None, False, (D,))}
+    if cfg.bias:
+        out["transformer.ln_f.bias"] = ("ln_f/bias", None, False, (D,))
+    for i in range(cfg.n_layer):
+        for (sub, leaf), name, is_weight in _block_leaves(cfg):
+            out[f"transformer.h.{i}.{name}"] = (f"blocks/{sub}/{leaf}", i, is_weight,
+                                               block_shapes[name])
+    return out
+
+
 def jax_tree_keys(cfg: OmniBioTAConfig) -> List[str]:
     """The flat keys of the JAX parameter tree, in `jax.tree.leaves`
     order."""

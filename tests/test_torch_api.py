@@ -7,6 +7,7 @@ kernel in interpret mode, and the port's plain version of its CUDA kernel)
 and one BPE vocabulary trained by `train_bpe`. Tolerance rtol 2e-4 /
 atol 2e-5, as in tests/test_model_parity.py.
 """
+import torch_threads  # noqa: F401  (first: one intra-op thread a process)
 import ast
 import os
 
@@ -129,6 +130,27 @@ def test_fasta_cli_matches_jax(served, tmp_path):
                                outs["jax"]["embeddings"], rtol=RTOL, atol=ATOL)
 
 
+def test_fasta_cli_data_parallel_matches_jax(served, tmp_path):
+    """--data-parallel runs: the port's CLI on a mesh of this one process
+    (rows split over its data axis, gathered back) against the JAX CLI on
+    one device (its --data-parallel runs the Pallas kernels in interpret
+    mode through a callback that XLA's partitioner refuses on the CPU;
+    tests/test_api.py holds its mesh result equal to one device's)."""
+    ckpt, tok = served
+    fasta = tmp_path / "in.fa"
+    fasta.write_text("".join(f">r{i}\n{s}\n" for i, s in enumerate(SEQS)))
+    outs = {}
+    for name, main, extra in (("jax", jax_main, []),
+                              ("port", port_api.main, ["--device", "cpu", "--data-parallel"])):
+        out = str(tmp_path / f"{name}.npz")
+        assert main(["--checkpoint", ckpt, "--fasta", str(fasta), "--out", out,
+                     "--tokenizer-path", tok, "--batch-size", "3", *extra]) == 0
+        outs[name] = np.load(out)
+    np.testing.assert_array_equal(outs["port"]["ids"], outs["jax"]["ids"])
+    np.testing.assert_allclose(outs["port"]["embeddings"],
+                               outs["jax"]["embeddings"], rtol=RTOL, atol=ATOL)
+
+
 def test_iter_fasta_matches_jax(tmp_path):
     import gzip
     from omnibiote_tpu.api import iter_fasta as jax_iter
@@ -140,12 +162,14 @@ def test_iter_fasta_matches_jax(tmp_path):
 
 
 def test_unported_options_raise(served):
+    """mesh= is ported (tests/test_torch_parallel.py runs it over 4 ranks):
+    what it takes is a DeviceMesh, and anything else raises."""
     ckpt, tok = served
     model, _ = load_model_checkpoint(ckpt, device="cpu")
     sp = SentencePieceProcessor(tok)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         port_api.Encoder(model, sp, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         port_api.Encoder(model, sp, quantize=True, mesh=object(), device="cpu")
 
 

@@ -3,6 +3,7 @@ flash forward against `_mh_fwd` (Pallas, interpret mode on the CPU), also
 on the CUDA kernel's own tiles, and the port's attention dispatch against
 `ops/attention.py`'s routing (on a CPU tensor exactly; on a CUDA tensor
 the same, refusing what the kernels are not built for)."""
+import torch_threads  # noqa: F401  (first: one intra-op thread a process)
 import numpy as np
 import pytest
 import torch
@@ -368,9 +369,27 @@ def test_fit_block_matches_jax(T, want):
 
 @pytest.mark.parametrize("kw", [dict(impl="ring"), dict(tp_mesh=object())])
 def test_unported_modes_raise(kw):
+    """Ring attention raises. A tensor-parallel call (tp_mesh: the rank's
+    place on the model axis) is ported: it runs flash_attention_tp on the
+    rank's heads, the dropout seed mixed with the model-axis index, which
+    at index 0 is the plain call's."""
+    from omnibiote_tpu_torch.ops.flash_attention import tp_seed
+    from omnibiote_tpu_torch.parallel.tensor import TensorParallel
+
     q = torch.zeros(1, 128, 1, 128)
-    with pytest.raises(NotImplementedError):
-        port_attention.attention(q, q, q, scale=0.1, **kw)
+    if "impl" in kw:
+        with pytest.raises(NotImplementedError, match="not ported"):
+            port_attention.attention(q, q, q, scale=0.1, **kw)
+        return
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(2, 128, 2, 128, generator=g) for _ in range(3))
+    common = dict(scale=0.1, dropout_rate=0.1, dropout_seed=77)
+    for index in (0, 1):
+        tp = TensorParallel(None, index, 2)
+        got = port_attention.attention(q, k, v, tp_mesh=tp, **common)
+        want = port_attention.attention(q, k, v, **dict(common, dropout_seed=tp_seed(77, index)))
+        assert torch.equal(got, want)
+    assert tp_seed(77, 0) == 77 and tp_seed(77, 1) == 77 ^ 0x9E3779B9
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,7 @@ The TPU's in-kernel random bits cannot be reproduced, so the parity runs
 at dropout 0; dropout is checked by the Philox known-answer vectors, the
 keep fraction, the mask's independence of the tiling, and the plain
 backward against autograd through the plain forward with the same seed."""
+import torch_threads  # noqa: F401  (first: one intra-op thread a process)
 import jax
 import jax.numpy as jnp
 import numpy as np

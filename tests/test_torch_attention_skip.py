@@ -9,6 +9,7 @@ that the JAX package takes its multi-kv kernels (Pallas, interpret mode on
 the CPU): the fused multi-kv backward and, with `FUSED_MULTIKV_BWD` off, the
 split dkv / dq pair, with and without skipping; `_flash_mh_lse` with a
 random lse cotangent; and the dispatch above the single-kv limit."""
+import torch_threads  # noqa: F401  (first: one intra-op thread a process)
 import jax
 import jax.numpy as jnp
 import numpy as np

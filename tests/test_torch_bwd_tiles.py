@@ -11,6 +11,7 @@ package's `_mh_bwd_fused` (one kv block spanning T) and `_mh_bwd_fusedmk`
 (128-wide blocks with skipping), the split pair its `_mh_bwd` with
 `FUSED_MULTIKV_BWD` off (`_mh_bwd_dkv_kernel`, `_mh_bwd_dq_kernel`), Pallas
 in interpret mode, through `jax.vjp`."""
+import torch_threads  # noqa: F401  (first: one intra-op thread a process)
 import jax
 import jax.numpy as jnp
 import numpy as np

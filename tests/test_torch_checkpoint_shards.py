@@ -8,6 +8,7 @@ first two axes, the pieces dealt round the files): both packages assemble
 the same arrays, bit for bit, and the port's model loads the same weights
 as from the single params.npz; a missing shard file raises in both.
 """
+import torch_threads  # noqa: F401  (first: one intra-op thread a process)
 import json
 import os
 

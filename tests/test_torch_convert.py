@@ -6,6 +6,7 @@ against a REAL pickled reference module (built by tests/reference_oracle)
 and against a bare state_dict (config inferred from shapes + the freqs_cis
 RoPE buffer), ending in load_model_checkpoint + fp32 forward parity.
 """
+import torch_threads  # noqa: F401  (first: one intra-op thread a process)
 import numpy as np
 import pytest
 

@@ -3,6 +3,7 @@ of `data/loader.py`) yields the same rows and segment ids from the same
 shards and seed, resumes mid-stream from the same reader states, and packs
 lines natively as the JAX package does; the port's prefetcher hands out
 what its iterator yields, in order, on the device it was asked for."""
+import torch_threads  # noqa: F401  (first: one intra-op thread a process)
 import os
 
 import numpy as np

@@ -12,6 +12,7 @@ dQ += dS.K; dq leaves as 64-row boxes of the dq map. The mirror is held
 against the plain version (`mh_flash_bwd_dq_plain` on the kernel's
 tiles). `chip_smoke.py` is what proves the kernel itself, on the card,
 against the same plain version."""
+import torch_threads  # noqa: F401  (first: one intra-op thread a process)
 import numpy as np
 import pytest
 import torch

@@ -9,6 +9,7 @@ fixtures of the other eval tests: a BPE vocabulary trained by `train_bpe`
 on synthetic DNA/protein sentences and a small checkpoint written by the
 JAX Trainer (fp32, dense attention), which both packages load.
 """
+import torch_threads  # noqa: F401  (first: one intra-op thread a process)
 import warnings
 
 import jax

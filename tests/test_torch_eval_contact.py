@@ -11,6 +11,7 @@ the four-group AdamW with its global-norm clip against the optax chain;
 and vocabulary and the JAX head and CNN injected (the returned metrics and
 every validation record to METRIC_ATOL), and the CLI's flags.
 """
+import torch_threads  # noqa: F401  (first: one intra-op thread a process)
 import json
 import os
 

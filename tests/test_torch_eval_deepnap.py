@@ -10,6 +10,7 @@ over and the pretraining's dropout patched out of both packages'
 metrics (to 1e-5: fp32 predictions in G0 units) and the jsonl lines. And
 the CLI's flags.
 """
+import torch_threads  # noqa: F401  (first: one intra-op thread a process)
 import json
 import os
 

@@ -12,6 +12,7 @@ optimizer steps at the parameter's group LR) and the predict logits
 (rtol 2e-4, atol 2e-5). Then one learnability check at the JAX GUE test's
 bar (MCC > 0.3).
 """
+import torch_threads  # noqa: F401  (first: one intra-op thread a process)
 import jax
 import numpy as np
 import pytest

@@ -10,6 +10,7 @@ CSV with header `Task,MCC,F1`, the TAPE and ProteinGLUE CSVs, the ProNAB
 and PDB jsonl lines, the ProNAB npz tree), the ProteinGLUE cleaning
 without pandas, and the CLIs' flags: the JAX ones plus --device.
 """
+import torch_threads  # noqa: F401  (first: one intra-op thread a process)
 import argparse
 import json
 import os

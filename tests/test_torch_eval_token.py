@@ -12,6 +12,7 @@ metric (1e-6), the final head and, when it trains, the backbone (max
 (rtol 2e-4, atol 2e-5). Then one learnability check at the JAX TAPE test's
 bar (per-residue accuracy > 0.36 on three classes).
 """
+import torch_threads  # noqa: F401  (first: one intra-op thread a process)
 import jax
 import numpy as np
 import pytest

@@ -3,6 +3,7 @@
 package's per-head-grid kernels (`_fwd_kernel`, `_bwd_dkv_kernel`,
 `_bwd_dq_kernel`, Pallas in interpret mode on the CPU), the split backward
 it always takes, and its dropout."""
+import torch_threads  # noqa: F401  (first: one intra-op thread a process)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -8,6 +8,7 @@ Layouts: random packed rows from a numpy seed, T 256-4096, 1-6 EOS a row,
 some rows with a PAD tail after their last EOS; segment ids as the loader
 makes them (`segment_ids_np`). The functions are numpy on both sides, so
 they must agree exactly."""
+import torch_threads  # noqa: F401  (first: one intra-op thread a process)
 import numpy as np
 import pytest
 import torch

@@ -7,6 +7,7 @@ numbers transposed. Value at rtol 1e-5, dx and dW at rtol 1e-5 with an
 atol of 1e-6 for entries near zero (fp32 sums in another order);
 tests/test_core_units.py holds the JAX function to the dense head the
 same way."""
+import torch_threads  # noqa: F401  (first: one intra-op thread a process)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -4,6 +4,7 @@ seeded ProNAB records), the vocabulary's corpus, the quality-floor check on
 made-up result rows, and that it refuses to run without a GPU unless asked
 for the CPU. No family runs here.
 """
+import torch_threads  # noqa: F401  (first: one intra-op thread a process)
 import csv
 import json
 import os

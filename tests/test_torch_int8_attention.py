@@ -2,6 +2,7 @@
 attention against `int8_flash_attention` (Pallas, interpret mode on the
 CPU), its prologue's integers, the dispatch's int8 branch, `attn_int8`
 through the whole model, and the final-max property of its P quantisation."""
+import torch_threads  # noqa: F401  (first: one intra-op thread a process)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -12,6 +12,7 @@ right k bytes. These tests emulate that packing in plain PyTorch and pin
 the permutation and the two exact conversions the kernel uses in place of
 int → float and rint on every (q, k) pair.
 """
+import torch_threads  # noqa: F401  (first: one intra-op thread a process)
 import numpy as np
 import pytest
 import torch

@@ -2,6 +2,7 @@
 without wandb when `wandb.init` fails (no network, no credentials), as
 `omnibiote_tpu/training/metrics.py` does, and mirrors each record with its
 token count as the step when it works. A fake `wandb` module stands in."""
+import torch_threads  # noqa: F401  (first: one intra-op thread a process)
 import sys
 import types
 import warnings

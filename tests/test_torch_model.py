@@ -11,6 +11,7 @@ path), and one head of 128, which the JAX dispatch sends to the Pallas
 kernel (interpret mode on the CPU) and the port to the kernel's plain
 version.
 """
+import torch_threads  # noqa: F401  (first: one intra-op thread a process)
 import json
 import os
 
@@ -257,13 +258,13 @@ def test_load_pytree_flat_bf16(tmp_path):
 
 
 def test_sharded_checkpoint_raises(tmp_path):
-    """A directory with neither params.npz nor shard files raises on load;
-    resuming a trainer from the pod-sharded format is not ported and says
-    so (loading one is: tests/test_torch_checkpoint_shards.py)."""
+    """A directory with neither params.npz nor shard files raises on load,
+    and on resume (resuming from the pod-sharded format is ported:
+    tests/test_torch_parallel_checkpoint.py)."""
     from omnibiote_tpu_torch.training.checkpoint import restore_into_trainer
     with open(tmp_path / "meta.json", "w") as f:
         json.dump({"model_cfg": _cfg_kw("h2d64")}, f)
     with pytest.raises(FileNotFoundError, match="params.shard"):
         load_model_checkpoint(str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="pod-sharded"):
+    with pytest.raises(FileNotFoundError, match="params.shard"):
         restore_into_trainer(None, str(tmp_path))

@@ -9,6 +9,7 @@ molecule type), a UniRef-style FASTA with multi-line records and no
 newline after the last one, and a fake FTP server for the mirror. Gzip
 members carry a timestamp, so `.gz` outputs are compared decompressed;
 `.npy` shards and `.model` files are compared as written."""
+import torch_threads  # noqa: F401  (first: one intra-op thread a process)
 import ftplib
 import glob
 import gzip

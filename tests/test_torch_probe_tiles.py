@@ -12,6 +12,7 @@ against the plain versions (`roofline2.scores_plain`, `dots_plain`,
 `roofline.dots_n_plain`).
 `chip_smoke.py` phase 11 is what proves the kernels themselves, on the card,
 against the same plain versions."""
+import torch_threads  # noqa: F401  (first: one intra-op thread a process)
 import numpy as np
 import pytest
 import torch

@@ -6,6 +6,7 @@ definitions only) and run in interpret mode on the CPU. The port's plain
 versions are held against them, and in fp32 against float64 numpy formulas
 of what each probe computes, including #11's kv-local rows and #13's
 last-tile rule."""
+import torch_threads  # noqa: F401  (first: one intra-op thread a process)
 import ast
 import functools
 import os

@@ -4,6 +4,7 @@ the quantized tree's converter, and the quantized model end to end.
 Inputs come from a numpy seed and go through both packages. Integers are
 compared bit for bit. Where floats are compared the tolerance is stated in
 the test."""
+import torch_threads  # noqa: F401  (first: one intra-op thread a process)
 import jax
 import jax.numpy as jnp
 import numpy as np

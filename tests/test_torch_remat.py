@@ -15,6 +15,7 @@ the CPU.
     the run without --checkpoint_freq.
 
 Sizes: 2 layers, d <= 64, T 128, a numpy seed for every input."""
+import torch_threads  # noqa: F401  (first: one intra-op thread a process)
 import json
 
 import jax

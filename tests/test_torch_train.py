@@ -8,6 +8,7 @@ through `state_from_jax_params`; inputs come from numpy seeds; MLM masks
 come from the JAX package's `make_mlm_mask` and reach the port through
 `mask=` (the two packages' random streams differ). Parity runs at fp32
 compute and dropout 0."""
+import torch_threads  # noqa: F401  (first: one intra-op thread a process)
 import copy
 import os
 
@@ -454,9 +455,11 @@ def test_cli_runs_end_to_end(tmp_path):
 # Guards
 # ---------------------------------------------------------------------------
 
-# The modes this package has since ported (fused_ce, checkpoint_freq > 0)
-# keep their cases here, now as checks that the mode runs.
-PORTED = ("fused_ce", "checkpoint_freq")
+# The modes this package has since ported (fused_ce, checkpoint_freq > 0,
+# the sharding modes and per-rank data) keep their cases here, now as checks
+# that the mode runs (in a process group of one rank) or refuses a mesh the
+# world cannot hold; sequence parallelism and the pipeline still raise.
+PORTED = ("fused_ce", "checkpoint_freq", "sharding", "multihost", "FSDP")
 
 
 @pytest.mark.parametrize("model_kw,train_kw,hosts", [
@@ -466,37 +469,53 @@ PORTED = ("fused_ce", "checkpoint_freq")
     (dict(fused_ce=True), {}, 1),
     (dict(checkpoint_freq=1), {}, 1),
     (dict(attn_impl="ring"), {}, 1),
+    ({}, dict(sharding="tp"), 1),
+    ({}, dict(sharding="fsdp+tp", mesh_shape=(1, 1)), 1),
+    ({}, dict(sharding="sp"), 1),
+    ({}, dict(sharding="pp"), 1),
+    ({}, dict(sharding="fsdp+pp"), 1),
 ])
 def test_unported_modes_raise(model_kw, train_kw, hosts):
-    """Unported modes raise; the ported ones take a Trainer step with finite
-    metrics."""
+    """Sequence parallelism and the pipeline raise; the ported modes take a
+    Trainer step with finite metrics, the sharded ones on a mesh of this
+    one process; a mesh_shape or a data_hosts the world cannot hold is a
+    ValueError."""
     cfg = port.OmniBioTAConfig(**dict(TINY, **model_kw))
     tc = TrainConfig(batch_size=8, mini_batch_size=4, ctx_len=64, **train_kw)
-    if set(model_kw) & set(PORTED):
-        with port_train.Trainer(cfg, tc, batch_iter=synth_batches(8, 64, 64),
-                                device="cpu", data_hosts=hosts) as tr:
-            m = tr.train_step_once()
-        assert tr.step == 1
-        assert all(np.isfinite(float(m[k])) for k in ("loss", "grad_norm"))
+    if model_kw.get("attn_impl") == "ring" or tc.sharding in ("sp", "pp", "fsdp+pp"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            port_train.Trainer(cfg, tc, device="cpu", data_hosts=hosts)
         return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port_train.Trainer(cfg, tc, device="cpu", data_hosts=hosts)
+    if tc.mesh_shape == (2,) or hosts > 1:
+        with pytest.raises(ValueError, match="mesh shape|data_hosts"):
+            port_train.Trainer(cfg, tc, device="cpu", data_hosts=hosts)
+        return
+    with port_train.Trainer(cfg, tc, batch_iter=synth_batches(8, 64, 64),
+                            device="cpu", data_hosts=hosts) as tr:
+        m = tr.train_step_once()
+    assert tr.step == 1
+    assert (tr.plan is None) == (tc.sharding == "replicated")
+    assert all(np.isfinite(float(m[k])) for k in ("loss", "grad_norm"))
 
 
 @pytest.mark.parametrize("flag", [["--multihost"], ["--FSDP"], ["--sharding", "tp"],
-                                  ["--checkpoint_freq", "1"]])
+                                  ["--checkpoint_freq", "1"], ["--sharding", "sp"],
+                                  ["--sharding", "pp"]])
 def test_cli_unported_flags_raise(tmp_path, flag):
-    """Unported flags raise; --checkpoint_freq 1 trains a step."""
+    """--sharding sp and pp raise; the ported flags train a step (the
+    multi-device ones on a mesh of this one process)."""
     _shards(str(tmp_path))
     argv = ["--base_dir", str(tmp_path), "--n_layer", "1", "--n_embd", "128",
             "--n_head", "1", "--ctx_len", "128", "--device", "cpu", *flag]
-    if flag[0].lstrip("-") in PORTED:
+    if flag[0].lstrip("-") in PORTED and flag[-1] not in ("sp", "pp"):
         log = tmp_path / "m.jsonl"
         tr = port_cli.main(argv + ["--mini_batch_size", "2", "--batch_size", "2",
                                    "--max_steps", "1", "--test_freq", "1e9",
                                    "--save_dir", str(tmp_path / "ck"),
                                    "--metrics_jsonl", str(log)])
-        assert tr.step == 1 and tr.model_cfg.checkpoint_freq == 1
+        assert tr.step == 1
+        assert tr.model_cfg.checkpoint_freq == (1 if "--checkpoint_freq" in flag else 0)
+        assert tr.data_hosts == 1
         import json
         losses = [json.loads(l)["loss"] for l in log.read_text().splitlines()]
         assert len(losses) == 1 and np.isfinite(losses[0])
