@@ -169,7 +169,25 @@ toolkit and g++. It
      the serving slice's sequences; tokens/s, the Trainer's peak memory and
      the collectives' device time (and its share) and host time for every
      mode and the plain Trainer;
- 16. prints the card's name and power limit, one JSON line of kernel
+ 16. sequence parallelism (ring attention): #1-#5 with separate q and kv
+     segment ids (a ring rotation's pair: the last block of 5-EOS rows cut
+     into 2 blocks of 2048 or 4 of 1024 against the one before it, B 4, H 8, D 128,
+     bf16 and fp32, dropout 0 and 0.1) against their plain versions, with
+     skipping on against off bit for bit on the rows the ring weighs, and a
+     distinct copy of one ids array against the array itself; the forward's
+     time at the training shape with one ids array and with a copy as the
+     kv ids; the flash ring body over N = 2 and 4 blocks of one sequence at
+     B 4, T 4096, omnibiote-small's 8 heads of 128, bf16, in one process
+     (NCCL refuses two ranks on one card), fused backward and split pair,
+     against plain attention on the whole sequence at dropout 0 and against
+     the plain ring body under dropout 0.1, with no skip bound computed
+     inside a rotation; forward + backward times of one flash call on the
+     whole sequence and of N = 1, 2 and 4, whole and in the kernels; the
+     training CLI with --sharding sp at ctx 4096, omnibiote-small, on
+     meshes (1,) and (1, 1) over a one-rank NCCL group (3 steps and a
+     validation probe); the sp Trainer against the plain Trainer at dropout
+     0 over 3 steps; the tokens/s and peak memory of both at dropout 0.1;
+ 17. prints the card's name and power limit, one JSON line of kernel
      numbers, and last the line {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script then exits non-zero without the
@@ -3943,6 +3961,384 @@ def parallel_phase(workdir, tok_path):
     return main, split
 
 
+# ---------------------------------------------------------------------------
+# 16. sequence parallelism
+# ---------------------------------------------------------------------------
+
+SP_H, SP_D = 8, 128
+# (T of a ring block, rows cut into n blocks, dtype, dropout): q = member
+# n - 1's block, kv = block n - 2 (the one its first rotation brings it)
+SP_KERNEL_CASES = [(2048, 2, dt, rate) for dt in ("bfloat16", "float32")
+                   for rate in (0.0, TRAIN_DROPOUT)]
+SP_KERNEL_CASES += [(1024, 4, "bfloat16", TRAIN_DROPOUT), (1024, 4, "float32", 0.0)]
+SP_CTX, SP_MINI, SP_ACCUM, SP_STEPS = 4096, 4, 2, 3
+_RING_KERNELS = ("mh_fwd", "mh_bwd", "dq_epilogue", "rope_rows")
+
+
+def _sp_pair(B, T, n, seed):
+    """(q ids, kv ids) (B, T) of the last member of a ring of n and the
+    block its first rotation brings it (block n - 2): rows of n·T positions
+    with bench_longctx.py's five EOS, cut into n blocks."""
+    seg = _long_segments("packed", B, n * T, seed)
+    return seg[:, (n - 1) * T:].contiguous(), seg[:, (n - 2) * T:(n - 1) * T].contiguous()
+
+
+def _sp_kernel_checks():
+    """#1-#5 with q ids != kv ids against their plain versions, skipping on
+    against off, and a copy of the ids against the one array. Returns the
+    worst bf16 max |do| of the forward and max |d| of the backwards."""
+    import torch
+    from omnibiote_tpu_torch.ops import flash_attention as fa
+
+    B, H, D = 4, SP_H, SP_D
+    scale = 1.0 / math.sqrt(D)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for i, (T, n, dtype, rate) in enumerate(SP_KERNEL_CASES):
+        tdt = getattr(torch, dtype)
+        tag = f"B={B} T={T} (block {n - 1} of {n} against {n - 2}) {dtype} dropout {rate}"
+        q, k, v, _, _ = _attn_inputs(B, T, H, D, tdt, "dense", seed=900 + i)
+        q_ids, kv_ids = _sp_pair(B, T, n, 900 + i)
+        sees = (q_ids[:, :, None] == kv_ids[:, None, :]).any(-1)      # (B, T)
+        gen = torch.Generator(device="cuda").manual_seed(950 + i)
+        # the ring's combine gives a q row that sees none of the block a
+        # weight of exactly 0: its o and lse then carry no cotangent
+        do = (torch.randn(B, T, H, D, generator=gen, device="cuda")
+              * sees[..., None, None]).to(tdt)
+        dlse = torch.randn(B, T, H, generator=gen, device="cuda") * sees[..., None]
+        kw = dict(scale=scale, dropout_rate=rate, seed=0x5EED + i, kv_segment_ids=kv_ids)
+        sb = fa.SegmentBounds(q_ids, kv_ids)
+        tq, tkv = fa.KERNEL_TILES["fwd"][tdt]
+        bq, bkv = fa.KERNEL_TILES["fused"][tdt]
+        o, lse = fa.mh_flash_forward(q, k, v, q_ids, None, segment_skip=True, bounds=sb, **kw)
+        o_all, lse_all = fa.mh_flash_forward(q, k, v, q_ids, None, **kw)
+        po, plse = fa.mh_flash_forward_plain(q, k, v, q_ids, None, block_q=tq, block_kv=tkv,
+                                             segment_skip=True, bounds=sb, **kw)
+        err_f = _hold_fwd((o, lse), (po, plse), dtype, tag)
+        fwd_same = torch.equal(o[sees], o_all[sees]) and torch.equal(lse[sees], lse_all[sees])
+        di = (po.float() * do.float()).sum(-1) - dlse
+        args = (q, k, v, do, plse, di, q_ids, None)
+        want = fa.mh_flash_backward_plain(*args, block_q=bq, block_kv=bkv, segment_skip=True,
+                                          bounds=sb, **kw)
+        fused = fa.mh_flash_backward(*args, segment_skip=True, bounds=sb, **kw)
+        fused_all = fa.mh_flash_backward(*args, **kw)
+        dkv = fa.mh_flash_bwd_dkv(*args, segment_skip=True, bounds=sb, **kw)
+        dkv_all = fa.mh_flash_bwd_dkv(*args, **kw)
+        dq = fa.mh_flash_bwd_dq(*args, segment_skip=True, bounds=sb, **kw)
+        dq_all = fa.mh_flash_bwd_dq(*args, **kw)
+        torch.cuda.synchronize()
+        e_fused = _hold_bwd(fused, want, dtype, f"fused {tag}")[0]
+        e_dkv = _hold_bwd(dkv, want[1:], dtype, f"dkv {tag}")[0]
+        e_dq = _hold_bwd((dq,), want[:1], dtype, f"dq {tag}")[0]
+        skip_same = (fwd_same and torch.equal(fused[1], fused_all[1])
+                     and torch.equal(fused[2], fused_all[2])
+                     and _rel_err(fused[0], fused_all[0]) <= BWD_TOL[dtype]
+                     and torch.equal(dkv[0], dkv_all[0]) and torch.equal(dkv[1], dkv_all[1])
+                     and torch.equal(dq, dq_all))
+        # a distinct copy of one array as the kv ids: the one-array call's bits
+        copy = dict(kw, kv_segment_ids=q_ids.clone(), segment_skip=True)
+        one = dict(kw, kv_segment_ids=None, segment_skip=True)
+        o1, lse1 = fa.mh_flash_forward(q, k, v, q_ids, None, **one)
+        args1 = (q, k, v, do, lse1, (o1.float() * do.float()).sum(-1), q_ids, None)
+        same_copy = all(torch.equal(a, b) for a, b in (
+            *zip(fa.mh_flash_forward(q, k, v, q_ids, None, **copy), (o1, lse1)),
+            *zip(fa.mh_flash_bwd_dkv(*args1, **copy), fa.mh_flash_bwd_dkv(*args1, **one)),
+            (fa.mh_flash_bwd_dq(*args1, **copy), fa.mh_flash_bwd_dq(*args1, **one))))
+        print(f"separate ids {tag}: q rows that see none of the block "
+              f"{1 - sees.float().mean().item():.4f}; fwd max|do| {err_f:.3e} (rtol, atol "
+              f"{TOL[dtype]['o']}); max|d|/max|g| against plain: fused {e_fused:.2e}, dkv "
+              f"{e_dkv:.2e}, dq {e_dq:.2e} (tolerance {BWD_TOL[dtype]}); skipping on == off "
+              f"bit for bit (the fused dq within tolerance): {skip_same}; a copy of the "
+              f"ids as kv ids == the one array bit for bit: {same_copy}")
+        check(skip_same, f"skipping on differs from off at {tag}")
+        check(same_copy, f"a copy of the ids differs from the one array at {tag}")
+        if dtype == "bfloat16":
+            worst["fwd"] = max(worst["fwd"], err_f)
+            worst["bwd"] = max(worst["bwd"], max(_abs_err(g, w) for g, w in zip(fused, want)),
+                               max(_abs_err(g, w) for g, w in zip((dq, *dkv), want)))
+        del q, k, v, do, o, lse, o_all, lse_all, po, plse, want, fused, fused_all, dkv
+        del dkv_all, dq, dq_all, o1, lse1, args, args1
+        torch.cuda.empty_cache()
+    # the kv pointer's cost: the training shape's forward with one ids array
+    # and with a distinct copy of it as the kv ids (same bits, two pointers)
+    B, T = TRAIN_SHAPE["B"], TRAIN_SHAPE["T"]
+    q, k, v, _, rope = _attn_inputs(B, T, H, D, torch.bfloat16, "dense", seed=990)
+    seg = torch.from_numpy(next(bench_batches(B, T, 990))["segments"]).cuda().contiguous()
+    sb, kv = fa.SegmentBounds(seg), seg.clone()
+    kw = dict(scale=scale, dropout_rate=TRAIN_DROPOUT, seed=3, segment_skip=True)
+    t_one = cuda_ms(lambda: fa.mh_flash_forward(q, k, v, seg, rope, bounds=sb, **kw), 20)
+    t_two = cuda_ms(lambda: fa.mh_flash_forward(q, k, v, seg, rope, bounds=sb,
+                                                kv_segment_ids=kv, **kw), 20)
+    t_one2 = cuda_ms(lambda: fa.mh_flash_forward(q, k, v, seg, rope, bounds=sb, **kw), 20)
+    print(f"mh_flash_fwd B={B} T={T} dropout {TRAIN_DROPOUT}, RoPE, skipping: one ids "
+          f"array {t_one:.4f} ms, then {t_one2:.4f} ms; a distinct copy as the kv ids "
+          f"{t_two:.4f} ms")
+    return worst
+
+
+def _emulated_ring(q, k, v, seg, n, *, scale, body="flash", dropout_rate=0.0, seed=0):
+    """A ring of n on one card, its members one after another: member i's
+    ring body on its block of q with the blocks of k and v, the ids and the
+    dropout seeds that each rotation would bring it (NCCL refuses two ranks
+    on one card, so the P2P rotation is what this leaves out). Returns o
+    on the whole sequence and the number of seg_block_bounds calls made
+    outside RingSegments.prefill."""
+    import torch
+    from omnibiote_tpu_torch.ops import flash_attention as fa
+    from omnibiote_tpu_torch.ops import ring_attention as ra
+
+    T = q.shape[1]
+    Tl = T // n
+    cut = lambda x, j: x[:, j * Tl:(j + 1) * Tl]
+    outs = []
+    for i in range(n):
+        blocks = lambda r, i=i: (cut(k, (i - r) % n), cut(v, (i - r) % n))
+        seeds = [ra.ring_seed(seed, i, r) for r in range(n)]
+        q_ids = cut(seg, i)
+        segs = ra.RingSegments(q_ids, [None] + [cut(seg, (i - r) % n) for r in range(1, n)])
+        bq, bkv = ra.ring_blocks(Tl)
+        if body == "flash":
+            segs.prefill(q.dtype, "cuda", bq, bkv)
+            outs.append(ra.ring_body_flash(cut(q, i), blocks, n, segs.q_ids, segs,
+                                           scale=scale, dropout_rate=dropout_rate,
+                                           seeds=seeds, block_q=bq, block_kv=bkv))
+        else:
+            outs.append(ra.ring_body_plain(cut(q, i), blocks, n, segs.q_ids, segs.kv_ids,
+                                           scale=scale, dropout_rate=dropout_rate,
+                                           seeds=seeds))
+    return torch.cat(outs, 1)
+
+
+def _fwd_bwd(fn, q, k, v, g):
+    import torch
+    qs = [x.detach().requires_grad_() for x in (q, k, v)]
+    o = fn(*qs)
+    return (o, *torch.autograd.grad(o, qs, g))
+
+
+def _kernel_ms(fn):
+    """(device time of the flash kernels (#1-#5, their RoPE and dq
+    epilogues), device time of every kernel) in one call of fn, in ms, by
+    the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if "cuda" in str(getattr(e, "device_type", "")).lower()]
+    return (sum(e.time_range.elapsed_us() for e in dev
+                if any(s in e.name for s in _RING_KERNELS)) / 1e3,
+            sum(e.time_range.elapsed_us() for e in dev) / 1e3)
+
+
+def _sp_ring_bodies():
+    """The flash ring body over N = 2 and 4 blocks of one sequence at
+    omnibiote-small's heads (B 4, T 4096, H 8, D 128, bf16), against plain
+    attention on the whole sequence and, under dropout, the plain body;
+    each body's forward + backward times. Returns the launches of the ring
+    path's runs (N = 4 on the fused backward, N = 2 on the split pair)."""
+    import torch
+    from omnibiote_tpu_torch.ops import _kernels
+    from omnibiote_tpu_torch.ops import flash_attention as fa
+    from omnibiote_tpu_torch.ops import ring_attention as ra
+    from omnibiote_tpu_torch.ops.attention import attention, xla_attention
+
+    B, T, H, D = 4, SP_CTX, SP_H, SP_D
+    scale = 1.0 / math.sqrt(D)
+    q, k, v, _, _ = _attn_inputs(B, T, H, D, torch.bfloat16, "dense", seed=1000)
+    seg = _long_segments("packed", B, T, 1000)
+    g = torch.randn(B, T, H, D, generator=torch.Generator(device="cuda").manual_seed(1001),
+                    device="cuda").bfloat16()
+    ref = _fwd_bwd(lambda q, k, v: xla_attention(q, k, v, scale=scale, segment_ids=seg),
+                   q.float(), k.float(), v.float(), g.float())
+    counts = {"outside": 0, "prefill": 0}
+    real_bounds, real_prefill = fa.seg_block_bounds, ra.RingSegments.prefill
+    in_prefill = [False]
+
+    def counting_bounds(*a, **kw):
+        counts["prefill" if in_prefill[0] else "outside"] += 1
+        return real_bounds(*a, **kw)
+
+    def prefill(self, *a, **kw):
+        in_prefill[0] = True
+        try:
+            return real_prefill(self, *a, **kw)
+        finally:
+            in_prefill[0] = False
+
+    ring_path = dict.fromkeys(_kernels.LAUNCHES, 0)
+    fa.seg_block_bounds, ra.RingSegments.prefill = counting_bounds, prefill
+    try:
+        for n in (4, 2):
+            for split in (False, True):
+                with _attention_switch(FUSED_SINGLE_KV_BWD=not split,
+                                       FUSED_MULTIKV_BWD=not split):
+                    # the ring path's run: counts at 0 just before, read after
+                    _kernels.reset_launches()
+                    counts["outside"] = counts["prefill"] = 0
+                    got = _fwd_bwd(lambda q, k, v: _emulated_ring(q, k, v, seg, n, scale=scale),
+                                   q, k, v, g)
+                    torch.cuda.synchronize()
+                    launches = {kk: vv for kk, vv in _kernels.LAUNCHES.items() if vv}
+                    if (n == 4) != split:
+                        for kk, vv in launches.items():
+                            ring_path[kk] += vv
+                errs = [_rel_err(a, b) for a, b in zip(got, ref)]
+                kind = "split pair" if split else "fused"
+                print(f"ring body N={n} (Tl={T // n}) over B={B} T={T} bf16, {kind} backward, "
+                      f"dropout 0: max|d|/max|ref| against plain attention on the whole "
+                      f"sequence (fp32): o {errs[0]:.2e}, dq {errs[1]:.2e}, dk {errs[2]:.2e}, "
+                      f"dv {errs[3]:.2e} (tolerance 1e-2); launches {launches}; skip-bound "
+                      f"computations (seg_block_bounds calls) in RingSegments.prefill "
+                      f"{counts['prefill']} ({n} members), inside the rotations "
+                      f"{counts['outside']}")
+                check(max(errs) <= 1e-2, f"the N={n} ring body ({kind}) differs from "
+                      f"plain attention on the whole sequence")
+                check(counts["outside"] == 0, f"the N={n} ring computed skip bounds in "
+                      f"its rotations")
+                del got
+            kw = dict(scale=scale, dropout_rate=TRAIN_DROPOUT, seed=4711)
+            got = _fwd_bwd(lambda q, k, v: _emulated_ring(q, k, v, seg, n, **kw), q, k, v, g)
+            want = _fwd_bwd(lambda q, k, v: _emulated_ring(q, k, v, seg, n, body="plain", **kw),
+                            q, k, v, g)
+            errs = [_rel_err(a, b) for a, b in zip(got, want)]
+            print(f"ring body N={n} dropout {TRAIN_DROPOUT}: kernels against the plain body "
+                  f"with the same Philox masks: max|d|/max|ref| o {errs[0]:.2e}, dq "
+                  f"{errs[1]:.2e}, dk {errs[2]:.2e}, dv {errs[3]:.2e} (tolerance 1e-2)")
+            check(max(errs) <= 1e-2, f"the N={n} flash ring body differs from the plain body "
+                  f"under dropout")
+            del got, want
+    finally:
+        fa.seg_block_bounds, ra.RingSegments.prefill = real_bounds, real_prefill
+    del ref
+    torch.cuda.empty_cache()
+
+    # forward + backward times: one flash call on the whole sequence (the
+    # dispatch's blocks), and the ring bodies of N = 1, 2 and 4
+    runs = [("one flash call on the whole sequence",
+             lambda q, k, v: attention(q, k, v, scale=scale, segment_ids=seg)),
+            ("N=1", lambda q, k, v: ra.ring_attention(q, k, v, seg, scale=scale))]
+    runs += [(f"N={n}", lambda q, k, v, n=n: _emulated_ring(q, k, v, seg, n, scale=scale))
+             for n in (2, 4)]
+    times = []
+    for label, fn in runs + [("N=4, split pair", runs[-1][1])]:
+        split = label.endswith("split pair")
+        with _attention_switch(FUSED_SINGLE_KV_BWD=not split, FUSED_MULTIKV_BWD=not split):
+            call = lambda: _fwd_bwd(fn, q, k, v, g)
+            kernels, busy = _kernel_ms(call)
+            times.append(f"{label} {cuda_ms(call, 5):.3f} ms ({kernels:.3f} in the flash "
+                         f"kernels, {busy:.3f} of device work in all)")
+    print(f"ring over blocks, forward + backward, B={B} T={T} bf16, {LONG_EOS} EOS a row, "
+          f"no dropout, by CUDA events over 5 calls (a member after another for N > 1; "
+          f"the profiler's kernel times of one call): " + "; ".join(times))
+    return ring_path
+
+
+def sp_phase(workdir):
+    """Sequence parallelism on the card: #1-#5 with separate q and kv ids,
+    the ring bodies at omnibiote-small's heads, the training CLI with
+    --sharding sp at ctx 4096 on meshes (1,) and (1, 1) over NCCL, the sp
+    Trainer against the plain one, and their tokens/s. Returns the ring
+    path's launches (the CLI runs and the ring-body runs) and the worst
+    bf16 errors of the kernel checks."""
+    import json as _json
+    import socket
+    import torch
+    import torch.distributed as dist
+    from omnibiote_tpu_torch import preset
+    from omnibiote_tpu_torch.config import TrainConfig
+    from omnibiote_tpu_torch.ops import _kernels
+    from omnibiote_tpu_torch.training import cli
+    from omnibiote_tpu_torch.training.train import Trainer
+
+    t_phase = time.time()
+    worst = _sp_kernel_checks()
+    ring_path = _sp_ring_bodies()
+    torch.cuda.empty_cache()
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    cfg = preset("omnibiote-small", vocab_size=65536, dropout=TRAIN_DROPOUT,
+                 block_size=SP_CTX, attn_impl="ring")
+    L = cfg.n_layer
+    data = os.path.join(workdir, "data_sp")
+    _write_shards(data, 600_000, seed=16)
+    for shape in ((1,), (1, 1)):
+        log = os.path.join(workdir, f"metrics_sp{len(shape)}.jsonl")
+        argv = ["--base_dir", data, "--train_type", "mixed", "--n_layer", str(L),
+                "--n_embd", "1024", "--n_head", "8", "--ctx_len", str(SP_CTX),
+                "--dropout", str(TRAIN_DROPOUT), "--mini_batch_size", str(SP_MINI),
+                "--batch_size", str(SP_MINI * SP_ACCUM), "--max_steps", str(SP_STEPS),
+                "--save_dir", os.path.join(workdir, f"ckpt_sp{len(shape)}"),
+                "--metrics_jsonl", log, "--log_every", "1", "--test_freq", "50000",
+                "--sharding", "sp", "--mesh_shape", *map(str, shape)]
+        print("train CLI: python -m omnibiote_tpu_torch.training.cli " + " ".join(argv))
+        # main path: every count at 0 just before, read just after
+        _kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        trainer = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+        for k, v in launches.items():
+            ring_path[k] += v
+        with open(log) as f:
+            recs = [_json.loads(line) for line in f]
+        losses = [r["loss"] for r in recs if "loss" in r]
+        probes = [k for r in recs for k in r if k.startswith("test_loss/")]
+        # a ring of one: the block is the whole row (multi-kv above 1024)
+        bwd = "mh_flash_bwd_mk" if SP_CTX > 1024 else "mh_flash_bwd"
+        want = {"mh_flash_fwd": SP_STEPS * L * SP_ACCUM + len(probes) * L,
+                bwd: SP_STEPS * L * SP_ACCUM}
+        mesh = trainer.mesh
+        print(f"train CLI sp {shape} at ctx {SP_CTX}: mesh {tuple(mesh.shape)} "
+              f"{mesh.mesh_dim_names}, ring of {trainer.plan.ring.size}, backend "
+              f"{dist.get_backend()}; {SP_STEPS} steps in {wall:.2f} s, losses "
+              f"{[round(x, 4) for x in losses]}, {len(probes)} validation probes; launches "
+              f"{launches} (want {want})")
+        check(trainer.plan.ring is not None and trainer.model_cfg.attn_impl == "ring",
+              "the sp CLI did not build a ring")
+        check(len(losses) == SP_STEPS and all(math.isfinite(x) for x in losses),
+              f"sp CLI losses {losses}")
+        check(len(probes) > 0, "the sp CLI ran no validation probe")
+        check(launches == want, f"sp CLI launches {launches}, want {want}")
+        trainer.close()
+        del trainer
+        torch.cuda.empty_cache()
+
+    # the sp Trainer (a ring of one) against the plain Trainer at dropout 0
+    cfg0 = cfg.replace(dropout=0.0)
+    tc = TrainConfig(batch_size=SP_MINI * SP_ACCUM, mini_batch_size=SP_MINI, ctx_len=SP_CTX,
+                     token_budget=float(SP_MINI * SP_ACCUM * SP_CTX * 10000), seed=0)
+    losses = {}
+    for label, c, t in (("sp", cfg0, tc.replace(sharding="sp")),
+                        ("plain", cfg0.replace(attn_impl="flash"), tc)):
+        with Trainer(c, t, batch_iter=bench_batches(tc.batch_size, SP_CTX, 21, LONG_EOS)) as tr:
+            losses[label] = [float(tr.train_step_once()["loss"]) for _ in range(SP_STEPS)]
+        torch.cuda.empty_cache()
+    dloss = max(abs(a - b) for a, b in zip(losses["sp"], losses["plain"]))
+    print(f"sp Trainer (ring of 1) against the plain Trainer, dropout 0, {SP_STEPS} steps: "
+          f"losses {[round(x, 6) for x in losses['sp']]} vs "
+          f"{[round(x, 6) for x in losses['plain']]}, max |dloss| {dloss:.3e} (limit "
+          f"{TRAIN_LOSS_ATOL})")
+    check(dloss <= TRAIN_LOSS_ATOL, "the sp Trainer differs from the plain Trainer")
+
+    tps_plain = _throughput(cfg.replace(attn_impl="flash"), tc, LONG_EOS, 5, f"ctx {SP_CTX}, "
+                            "plain Trainer")
+    tps_sp = _throughput(cfg, tc.replace(sharding="sp"), LONG_EOS, 5,
+                         f"ctx {SP_CTX}, sp Trainer (ring of 1)")
+    print(f"sp Trainer tokens/s {tps_sp:.1f} against plain {tps_plain:.1f}: "
+          f"{tps_sp / tps_plain:.4f}")
+    dist.destroy_process_group()
+    print(f"sequence-parallel phase: {time.time() - t_phase:.1f} s; ring path launches "
+          f"{ {k: v for k, v in ring_path.items() if v} }")
+    return ring_path, worst
+
+
 def setup():
     """Refuse to run without a card or without the package, and fix the
     fp32 matmul precision the references assume."""
@@ -4002,22 +4398,27 @@ def main():
         torch.cuda.empty_cache()
         parallel, parallel_split = parallel_phase(workdir, tok_path)
         print(f"multi-GPU modes main path launches: {parallel}; split pair: {parallel_split}")
+        torch.cuda.empty_cache()
+        ring, ring_err = sp_phase(workdir)
+    fwd_row["max_abs_err"] = max(fwd_row["max_abs_err"], ring_err["fwd"])
+    bwd_row["max_abs_err"] = max(bwd_row["max_abs_err"], ring_err["bwd"])
     # each row's launches: the count its own main paths left (serving, both
     # training contexts, the eval slice, pretraining from raw records, the
     # contact eval and the multi-GPU modes for the forward; the ctx-1024
     # training, the eval slice, pretraining, the contact eval and the
     # multi-GPU modes for the fused backward; the split pair's at ctx 2048
-    # and in the multi-GPU phase)
+    # and in the multi-GPU phase; and the ring path's for #1-#5)
     fwd_row["launches"] = (serving["mh_flash_fwd"] + train["mh_flash_fwd"]
                            + long_cli["mh_flash_fwd"] + evals["mh_flash_fwd"]
                            + pretrain["mh_flash_fwd"] + contact["mh_flash_fwd"]
-                           + parallel["mh_flash_fwd"])
+                           + parallel["mh_flash_fwd"] + ring["mh_flash_fwd"])
     bwd_row["launches"] = (train["mh_flash_bwd"] + evals["mh_flash_bwd"]
                            + pretrain["mh_flash_bwd"] + contact["mh_flash_bwd"]
-                           + parallel["mh_flash_bwd"])
+                           + parallel["mh_flash_bwd"] + ring["mh_flash_bwd"])
     for row in long_rows:
         source = long_cli if row["name"] == "mh_flash_bwd_mk" else long_split
-        row["launches"] = source[row["name"]] + parallel_split.get(row["name"], 0)
+        row["launches"] = (source[row["name"]] + parallel_split.get(row["name"], 0)
+                           + ring[row["name"]])
     int8_row["launches"] = int8_serving["int8_flash_fwd"]
     rows = [fwd_row, bwd_row, *long_rows, int8_row, *head_rows, *probe_rows]
     check(min(serving["mh_flash_fwd"], train["mh_flash_fwd"], long_cli["mh_flash_fwd"],
@@ -4029,6 +4430,9 @@ def main():
           "a main path never launched mh_flash_bwd")
     check(min(parallel_split["mh_flash_bwd_dkv"], parallel_split["mh_flash_bwd_dq"]) > 0,
           "the multi-GPU phase's split-pair run never launched #4 or #5")
+    check(min(ring[k] for k in ("mh_flash_fwd", "mh_flash_bwd", "mh_flash_bwd_mk",
+                                "mh_flash_bwd_dkv", "mh_flash_bwd_dq")) > 0,
+          f"the ring path never launched one of #1-#5: {ring}")
     check(len(rows) == 13 and all(row["launches"] > 0 for row in rows),
           f"a kernel was never launched on its main path: "
           f"{[(row['name'], row['launches']) for row in rows]}")

@@ -47,6 +47,14 @@ data-axis index (`data_seed`), so data ranks draw different masks for their
 rows and the ranks of one model group the same residual masks; with tensor
 parallelism (`tp`) the module holds the rank's heads, its block of the MLP
 and of the vocabulary, and the collectives of parallel/tensor.py join them.
+With sequence parallelism (`ring`, cfg.attn_impl='ring') the forward takes
+the rank's (B, Tl) block of positions [i·Tl, (i+1)·Tl) of every row: RoPE
+reads those rows of its tables, attention is ops/ring_attention.py with one
+RingSegments a forward (the ids gathered over the seq axis once, the N
+rotations' bounds shared by every layer and both directions), and the
+embedding and residual masks are that block of the whole sequence's draw,
+so a block is not keyed by its local positions. cfg.attn_impl='ring' with
+no ring is a ring of one.
 """
 from __future__ import annotations
 
@@ -66,6 +74,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..config import OmniBioTAConfig
 from ..ops.attention import attention
 from ..ops.flash_attention import SegmentBounds
+from ..ops.ring_attention import Ring, RingSegments
 from ..ops.quant import QuantizedWeight, quant_linear
 from ..parallel.tensor import (TensorParallel, block_rows, copy_to_model,
                                gather_from_model, qkv_rows, reduce_from_model)
@@ -128,20 +137,26 @@ def _gelu(x, cfg: OmniBioTAConfig):
     return _gelu_fast(x) if mode == "fast" else _gelu_erf(x)
 
 
-def _dropout(x, rate: float, seed: Optional[int]):
+def _dropout(x, rate: float, seed: Optional[int],
+             cols: Optional[Tuple[int, int]] = None):
     """Inverted dropout from raw random bits: keep iff the 32 bits >=
     ⌊rate·2³²⌋ (the JAX package's `_dropout` rule, the same as the flash
     kernel's), then x / (1 - rate) in x's dtype. The bits come from a
     generator on x's device seeded with `seed` here, so the mask is a pure
     function of the seed; they are drawn as int32 and compared offset by
-    2³¹, which is the unsigned comparison."""
+    2³¹, which is the unsigned comparison. cols=(first, total): x (B, Tl,
+    ...) holds positions first.. of a sequence of `total`, and takes those
+    positions of the whole sequence's draw."""
     if seed is None or rate == 0.0:
         return x
     gen = torch.Generator(device=x.device)
     gen.manual_seed(int(seed) & 0x7FFFFFFFFFFFFFFF)
     thresh = min(int(rate * (2.0 ** 32)), 2 ** 32 - 1)
-    bits = torch.randint(-2 ** 31, 2 ** 31, x.shape, generator=gen,
+    shape = x.shape if cols is None else (x.shape[0], cols[1], *x.shape[2:])
+    bits = torch.randint(-2 ** 31, 2 ** 31, shape, generator=gen,
                          device=x.device, dtype=torch.int32)
+    if cols is not None:
+        bits = bits[:, cols[0]:cols[0] + x.shape[1]]
     return torch.where(bits >= thresh - 2 ** 31, x / (1.0 - rate),
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
@@ -262,13 +277,16 @@ class Block(nn.Module):
 
     def forward(self, x, cfg: OmniBioTAConfig, qkv_perm, rope, segment_ids,
                 seeds: Optional[LayerSeeds] = None, seg_bounds=None,
-                tp: Optional[TensorParallel] = None):
+                tp: Optional[TensorParallel] = None, ring: Optional[Ring] = None):
         """seeds (the layer's (attn, resid1, resid2) dropout seeds) are
         given when training with dropout, None otherwise. seg_bounds: the
-        SegmentBounds of segment_ids that all layers share. tp: this
-        rank's place on the model axis (its heads and its block of the MLP;
-        parallel/tensor.py), None without tensor parallelism."""
+        SegmentBounds of segment_ids that all layers share (a RingSegments
+        under a ring). tp: this rank's place on the model axis (its heads
+        and its block of the MLP; parallel/tensor.py), None without tensor
+        parallelism. ring: this rank's place on the seq axis (x holds its
+        block of positions), None without sequence parallelism."""
         B, T, D = x.shape
+        cols = None if ring is None else (ring.index * T, ring.size * T)
         rate = cfg.dropout if seeds is not None else 0.0
         attn_seed, resid1, resid2 = seeds if seeds is not None else (None,) * 3
         M = 1 if tp is None else tp.size
@@ -291,10 +309,10 @@ class Block(nn.Module):
             segment_ids=segment_ids, causal=cfg.autoregressive,
             dropout_rate=rate, dropout_seed=attn_seed, impl=cfg.attn_impl,
             rope=rope, int8=cfg.attn_int8 and seeds is None,
-            seg_bounds=seg_bounds, tp_mesh=tp)
+            seg_bounds=seg_bounds, tp_mesh=tp, ring_mesh=ring)
         y = _row_parallel(y.reshape(B, T, Dl), self.attn.c_proj.weight,
                           self.attn.c_proj.bias, tp)
-        x = x + _dropout(y, rate, resid1)
+        x = x + _dropout(y, rate, resid1, cols)
         # MLP
         h = self.ln_2(x)
         b = self.mlp.c_fc.bias
@@ -304,7 +322,7 @@ class Block(nn.Module):
         h = _linear(h, self.mlp.c_fc.weight, b)
         h = _gelu(h, cfg)
         h = _row_parallel(h, self.mlp.c_proj.weight, self.mlp.c_proj.bias, tp)
-        return x + _dropout(h, rate, resid2)
+        return x + _dropout(h, rate, resid2, cols)
 
 
 def _rematted_block(blk: Block, x, cfg: OmniBioTAConfig, *args):
@@ -332,10 +350,13 @@ class OmniBioTA(nn.Module):
     tp: this rank's place on a tensor-parallel model axis; the module then
     holds the rank's heads, its block of the MLP and of the vocabulary
     (parallel/tensor.py). data_index: this rank's data-axis index, mixed
-    into every dropout seed (`data_seed`)."""
+    into every dropout seed (`data_seed`). ring: this rank's place on the
+    seq axis (ops/ring_attention.py); the forward then takes its block of
+    positions (cfg.attn_impl must be 'ring')."""
 
     def __init__(self, cfg: OmniBioTAConfig, *, device=None,
-                 tp: Optional[TensorParallel] = None, data_index: int = 0):
+                 tp: Optional[TensorParallel] = None, data_index: int = 0,
+                 ring: Optional[Ring] = None):
         super().__init__()
         dev = resolve_device(device)
         pdt = cfg.pdtype()
@@ -344,9 +365,12 @@ class OmniBioTA(nn.Module):
             raise ValueError(f"n_head {cfg.n_head} and vocab_size {cfg.vocab_size} "
                              f"must divide by the model axis ({M})")
         D, H, Dh, Dl = cfg.n_embd, cfg.n_head // M, cfg.head_dim, cfg.n_embd // M
+        if ring is not None and cfg.attn_impl != "ring":
+            raise ValueError("a ring (sequence parallelism) needs attn_impl='ring'")
         self.cfg = cfg
         self.tp = tp
         self.data_index = data_index
+        self.ring = ring
         self.transformer = nn.ModuleDict(dict(
             wte=Embedding(cfg.vocab_size, D, device=dev, dtype=pdt),
             h=nn.ModuleList([Block(cfg, device=dev, dtype=pdt, tp_size=M)
@@ -366,9 +390,15 @@ class OmniBioTA(nn.Module):
         """Logits (B, T, V) or, with return_embeddings, the final-LN hidden
         states (B, T, D). segment_ids (B, T) int32 or None (dense).
         deterministic=False is the training forward and needs the integer
-        seed `rng`; it draws dropout only when cfg.dropout > 0."""
+        seed `rng`; it draws dropout only when cfg.dropout > 0. Under a
+        ring, idx and segment_ids are this rank's block of positions of
+        sequences N times as long, and so are the outputs."""
         cfg = self.cfg
-        T = idx.shape[1]
+        ring = self.ring
+        if ring is None and cfg.attn_impl == "ring":
+            ring = Ring(None, 0, 1)
+        Tl = idx.shape[1]
+        T, at = (Tl, 0) if ring is None else (ring.size * Tl, ring.index * Tl)
         if T > cfg.block_size:
             raise ValueError(f"Cannot forward sequence of length {T}, block "
                              f"size is only {cfg.block_size}")
@@ -377,7 +407,9 @@ class OmniBioTA(nn.Module):
             segment_ids = segment_ids.to(torch.int32)
             # the attention's skip bounds: one holder per forward, filled
             # once per tile size and read by every layer, both directions
-            seg_bounds = SegmentBounds(segment_ids)
+            # (under a ring: the ids gathered once, a holder a rotation)
+            seg_bounds = (SegmentBounds(segment_ids) if ring is None
+                          else RingSegments.gather(segment_ids, ring))
         # F.embedding, not indexing: its backward sums repeated ids in a
         # fixed order (indexing's index_put_ accumulates in no fixed order)
         x = F.embedding(idx.long(), self.transformer.wte.weight).to(cfg.cdtype())
@@ -387,13 +419,16 @@ class OmniBioTA(nn.Module):
                 raise ValueError("training forward requires rng")
             if cfg.dropout > 0.0:
                 emb_seed, seeds = _forward_rngs(rng, cfg.n_layer, self.data_index)
-                x = _dropout(x, cfg.dropout, emb_seed)
+                x = _dropout(x, cfg.dropout, emb_seed,
+                             None if ring is None else (at, T))
         rope = (self.rope_cos, self.rope_sin)
+        if ring is not None:   # RoPE at the positions this rank holds
+            rope = (self.rope_cos[at:at + Tl], self.rope_sin[at:at + Tl])
         remat = (cfg.checkpoint_freq > 0 and not deterministic
                  and torch.is_grad_enabled())
         for blk, layer_seeds in zip(self.transformer.h, seeds):
             args = (cfg, self.qkv_perm, rope, segment_ids, layer_seeds,
-                    seg_bounds, self.tp)
+                    seg_bounds, self.tp, ring)
             x = _rematted_block(blk, x, *args) if remat else blk(x, *args)
         emb = self.transformer.ln_f(x)
         if return_embeddings:

@@ -50,7 +50,8 @@ _SIGNATURES = {
     "mh_flash_fwd": {
         "obt_mh_flash_fwd": (_c.c_int, [
             _c.c_void_p, _c.c_void_p, _c.c_void_p,     # q, k, v
-            _c.c_void_p, _c.c_void_p, _c.c_void_p,     # seg, cos, sin
+            _c.c_void_p, _c.c_void_p,                  # q_seg, kv_seg
+            _c.c_void_p, _c.c_void_p,                  # cos, sin
             _c.c_void_p,                               # k_rot
             _c.c_void_p, _c.c_void_p, _c.c_void_p,     # kv_lo, kv_hi, tile_count
             _c.c_void_p, _c.c_void_p,                  # o, lse2
@@ -70,7 +71,8 @@ _SIGNATURES = {
         "obt_mh_flash_bwd": (_c.c_int, [
             _c.c_void_p, _c.c_void_p, _c.c_void_p,     # q, k, v
             _c.c_void_p, _c.c_void_p, _c.c_void_p,     # do, lse2, di
-            _c.c_void_p, _c.c_void_p, _c.c_void_p,     # seg, cos, sin
+            _c.c_void_p, _c.c_void_p,                  # q_seg, kv_seg
+            _c.c_void_p, _c.c_void_p,                  # cos, sin
             _c.c_void_p, _c.c_void_p,                  # q_rot, k_rot
             _c.c_void_p, _c.c_void_p, _c.c_void_p,     # q_lo, q_hi, tile_count
             _c.c_void_p,                               # dq_acc
@@ -92,7 +94,8 @@ _SIGNATURES = {
         "obt_mh_flash_bwd_dkv": (_c.c_int, [
             _c.c_void_p, _c.c_void_p, _c.c_void_p,     # q, k, v
             _c.c_void_p, _c.c_void_p, _c.c_void_p,     # do, lse2, di
-            _c.c_void_p, _c.c_void_p, _c.c_void_p,     # seg, cos, sin
+            _c.c_void_p, _c.c_void_p,                  # q_seg, kv_seg
+            _c.c_void_p, _c.c_void_p,                  # cos, sin
             _c.c_void_p, _c.c_void_p,                  # q_rot, k_rot
             _c.c_void_p, _c.c_void_p, _c.c_void_p,     # q_lo, q_hi, tile_count
             _c.c_void_p, _c.c_void_p,                  # dk, dv
@@ -112,7 +115,8 @@ _SIGNATURES = {
         "obt_mh_flash_bwd_dq": (_c.c_int, [
             _c.c_void_p, _c.c_void_p, _c.c_void_p,     # q, k, v
             _c.c_void_p, _c.c_void_p, _c.c_void_p,     # do, lse2, di
-            _c.c_void_p, _c.c_void_p, _c.c_void_p,     # seg, cos, sin
+            _c.c_void_p, _c.c_void_p,                  # q_seg, kv_seg
+            _c.c_void_p, _c.c_void_p,                  # cos, sin
             _c.c_void_p,                               # k_rot
             _c.c_void_p, _c.c_void_p, _c.c_void_p,     # kv_lo, kv_hi, tile_count
             _c.c_void_p,                               # dq

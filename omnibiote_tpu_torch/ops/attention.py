@@ -23,6 +23,12 @@ q, k and v hold the rank's heads; the flash path runs `flash_attention_tp`
 on them, with no communication and the dropout seed mixed with the
 model-axis index, and the dense path mixes its seed the same way. As in the
 JAX dispatch, such a call never takes the int8 kernel.
+
+Sequence parallelism (impl='ring', `ring_mesh`: the rank's
+`ops.ring_attention.Ring`, None for a ring of one): q, k and v hold the
+rank's block of positions; RoPE is applied here from the tables the caller
+passes (the rows of those positions), then `ring_attention` runs with
+`seg_bounds` as its RingSegments. No causal mask, never int8.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from .flash_attention import (KERNEL_DTYPES, KERNEL_HEAD_DIMS, flash_attention,
 from .int8_attention import KERNEL_DTYPES as INT8_DTYPES
 from .int8_attention import KERNEL_HEAD_DIM as INT8_HEAD_DIM
 from .int8_attention import int8_flash_attention
+from .ring_attention import Ring, RingSegments, ring_attention
 from .segments import NEG_INF
 
 
@@ -107,11 +114,23 @@ def attention(q, k, v, *, scale: float, segment_ids=None,
     or applied here for the dense path). seg_bounds: a SegmentBounds of
     `segment_ids` that the caller shares between its layers, so the flash
     path's skip bounds are computed once per batch and tile size. tp_mesh:
-    the rank's TensorParallel place (q, k, v hold its heads), or None."""
+    the rank's TensorParallel place (q, k, v hold its heads), or None.
+    ring_mesh: the rank's Ring (q, k, v hold its block of positions, rope
+    the tables' rows of them; seg_bounds its RingSegments), or None."""
     if impl == "ring" or ring_mesh is not None:
-        raise NotImplementedError(
-            "ring (sequence-parallel) attention is not ported yet "
-            "(ROADMAP Queue 1, item 9b)")
+        if causal:
+            raise ValueError(
+                "ring attention has no causal support: it would be silently "
+                "bidirectional; use impl='xla' for autoregressive configs")
+        if rope is not None:
+            from ..models.rope import apply_rope_half
+            q, k = apply_rope_half(q, k, rope[0], rope[1])
+        ring = ring_mesh if ring_mesh is not None else Ring(None, 0, 1)
+        return ring_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(), segment_ids,
+            scale=scale, ring=ring, dropout_rate=dropout_rate,
+            seed=dropout_seed,
+            segments=seg_bounds if isinstance(seg_bounds, RingSegments) else None)
     T, H, D = q.shape[1], q.shape[2], q.shape[3]
     int8 = int8 and tp_mesh is None
     path = attention_path(q.device.type, q.dtype, T, H, D, int8, impl=impl,

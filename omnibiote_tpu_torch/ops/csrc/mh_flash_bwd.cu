@@ -68,7 +68,7 @@ using namespace obt::bwd;
 
 template <int D, bool DROP>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
-                   const float* lse, const float* di, const int* seg,
+                   const float* lse, const float* di, const int* q_seg, const int* kv_seg,
                    const float* cos_t, const float* sin_t, void* q_rot,
                    void* k_rot, const int* q_lo, const int* q_hi,
                    int* tile_count, float* dq_acc, void* dq, void* dk, void* dv,
@@ -82,7 +82,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
     return launch_bf16<D, DROP, false, true>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), lse, di,
-        seg, cos_t, sin_t, q_lo, q_hi, tile_count, dq_acc, static_cast<__nv_bfloat16*>(dq),
+        q_seg, kv_seg, cos_t, sin_t, q_lo, q_hi, tile_count, dq_acc, static_cast<__nv_bfloat16*>(dq),
         static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), B, T, H, scale_log2,
         scale, dp, st);
   if (cos_t != nullptr) {
@@ -96,7 +96,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
   mh_bwd_f32<D, DROP, true><<<dim3(T / kF32Kv, H, B), 128, 0, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout), lse, di,
-      seg, cos_t, sin_t, q_lo, q_hi, tile_count, dq_acc,
+      q_seg, kv_seg, cos_t, sin_t, q_lo, q_hi, tile_count, dq_acc,
       static_cast<float*>(dk), static_cast<float*>(dv), T, H, scale_log2,
       scale, dp);
   dq_epilogue<D, float><<<(unsigned)((n_pairs + 255) / 256), 256, 0, st>>>(
@@ -106,16 +106,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
 
 template <int D>
 cudaError_t launch_d(const void* q, const void* k, const void* v, const void* dout,
-                     const float* lse, const float* di, const int* seg,
+                     const float* lse, const float* di, const int* q_seg, const int* kv_seg,
                      const float* cos_t, const float* sin_t, void* q_rot,
                      void* k_rot, const int* q_lo, const int* q_hi,
                      int* tile_count, float* dq_acc, void* dq, void* dk, void* dv,
                      int B, int T, int H, float scale_log2, float scale,
                      bool bf16, bool drop, DropParams dp, cudaStream_t st) {
-  return drop ? launch<D, true>(q, k, v, dout, lse, di, seg, cos_t, sin_t, q_rot,
+  return drop ? launch<D, true>(q, k, v, dout, lse, di, q_seg, kv_seg, cos_t, sin_t, q_rot,
                                 k_rot, q_lo, q_hi, tile_count, dq_acc, dq, dk, dv,
                                 B, T, H, scale_log2, scale, bf16, dp, st)
-              : launch<D, false>(q, k, v, dout, lse, di, seg, cos_t, sin_t, q_rot,
+              : launch<D, false>(q, k, v, dout, lse, di, q_seg, kv_seg, cos_t, sin_t, q_rot,
                                  k_rot, q_lo, q_hi, tile_count, dq_acc, dq, dk, dv,
                                  B, T, H, scale_log2, scale, bf16, dp, st);
 }
@@ -134,7 +134,8 @@ bool shape_ok(int B, int T, int H, int t_multiple) {
 // dtype: 0 = float32, 1 = bfloat16; q, k, v, dout, dq, dk, dv (B, T, H, D)
 // of that type, T a multiple of 64 (fp32) or 128 (bf16); lse2 and di fp32,
 // (B, T, H) for fp32 and (B, H, T) for bf16 (its producer bulk-copies a q
-// tile's 64 values of one head); seg (B, T) int32 or null. With RoPE (cos_t
+// tile's 64 values of one head); q_seg and kv_seg (B, T) int32, both
+// null or both given (as in obt_mh_flash_fwd). With RoPE (cos_t
 // and sin_t non-null), q_rot is a scratch tensor of q's shape and type, and
 // so is k_rot for fp32 (bf16 rotates k in the kernel; k_rot may be null).
 // dq_acc is an fp32 scratch of q's size (zeroed here). q_lo and q_hi, both
@@ -148,7 +149,7 @@ bool shape_ok(int B, int T, int H, int t_multiple) {
 // synchronise.
 extern "C" int obt_mh_flash_bwd(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
-                                const void* di, const void* seg,
+                                const void* di, const void* q_seg, const void* kv_seg,
                                 const void* cos_t, const void* sin_t,
                                 void* q_rot, void* k_rot, const void* q_lo,
                                 const void* q_hi, void* tile_count,
@@ -161,7 +162,7 @@ extern "C" int obt_mh_flash_bwd(const void* q, const void* k, const void* v,
       !shape_ok(B, T, H, dtype == 1 ? kBf16TMultiple : kF32TMultiple) || dq_acc == nullptr ||
       (cos_t != nullptr &&
        (sin_t == nullptr || q_rot == nullptr || (dtype == 0 && k_rot == nullptr))) ||
-      ((q_lo == nullptr) != (q_hi == nullptr)))
+      ((q_lo == nullptr) != (q_hi == nullptr)) || ((q_seg == nullptr) != (kv_seg == nullptr)))
     return (int)cudaErrorInvalidValue;
   const int* lo = static_cast<const int*>(q_lo);
   const int* hi = static_cast<const int*>(q_hi);
@@ -169,14 +170,15 @@ extern "C" int obt_mh_flash_bwd(const void* q, const void* k, const void* v,
   const DropParams dp{seed, thresh, keep_scale};
   const float* l = static_cast<const float*>(lse);
   const float* dd = static_cast<const float*>(di);
-  const int* sg = static_cast<const int*>(seg);
+  const int* qsg = static_cast<const int*>(q_seg);
+  const int* kvsg = static_cast<const int*>(kv_seg);
   const float* c = static_cast<const float*>(cos_t);
   const float* s = static_cast<const float*>(sin_t);
   float* acc = static_cast<float*>(dq_acc);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return (int)launch_d<64>(q, k, v, dout, l, dd, sg, c, s, q_rot, k_rot, lo, hi, tc, acc, dq, dk, dv, B, T, H, scale_log2, scale, dtype == 1, drop != 0, dp, st);
-    case 128: return (int)launch_d<128>(q, k, v, dout, l, dd, sg, c, s, q_rot, k_rot, lo, hi, tc, acc, dq, dk, dv, B, T, H, scale_log2, scale, dtype == 1, drop != 0, dp, st);
+    case 64: return (int)launch_d<64>(q, k, v, dout, l, dd, qsg, kvsg, c, s, q_rot, k_rot, lo, hi, tc, acc, dq, dk, dv, B, T, H, scale_log2, scale, dtype == 1, drop != 0, dp, st);
+    case 128: return (int)launch_d<128>(q, k, v, dout, l, dd, qsg, kvsg, c, s, q_rot, k_rot, lo, hi, tc, acc, dq, dk, dv, B, T, H, scale_log2, scale, dtype == 1, drop != 0, dp, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -196,7 +198,7 @@ extern "C" int obt_mh_flash_bwd_dots(const void* q, const void* k, const void* v
   return (int)launch_bf16<128, false, true, true>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), nullptr,
-      nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+      nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
       static_cast<float*>(dq_acc), static_cast<__nv_bfloat16*>(dq),
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), B, T, H, 0.f, 0.f,
       DropParams{0, 0, 1.f}, static_cast<cudaStream_t>(stream));

@@ -37,7 +37,7 @@ using namespace obt::bwd;
 
 template <int D, bool DROP>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
-                   const float* lse, const float* di, const int* seg,
+                   const float* lse, const float* di, const int* q_seg, const int* kv_seg,
                    const float* cos_t, const float* sin_t, void* q_rot,
                    void* k_rot, const int* q_lo, const int* q_hi,
                    int* tile_count, void* dk, void* dv, int B, int T, int H,
@@ -57,13 +57,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
     return launch_bf16<D, DROP, false, false>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), lse, di,
-        seg, cos_t, sin_t, q_lo, q_hi, tile_count, nullptr, nullptr,
+        q_seg, kv_seg, cos_t, sin_t, q_lo, q_hi, tile_count, nullptr, nullptr,
         static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), B, T, H, scale_log2,
         scale, dp, st);
   mh_bwd_f32<D, DROP, false><<<dim3(T / kF32Kv, H, B), 128, 0, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout), lse, di,
-      seg, cos_t, sin_t, q_lo, q_hi, tile_count, nullptr,
+      q_seg, kv_seg, cos_t, sin_t, q_lo, q_hi, tile_count, nullptr,
       static_cast<float*>(dk), static_cast<float*>(dv), T, H, scale_log2,
       scale, dp);
   return cudaGetLastError();
@@ -71,16 +71,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
 
 template <int D>
 cudaError_t launch_d(const void* q, const void* k, const void* v, const void* dout,
-                     const float* lse, const float* di, const int* seg,
+                     const float* lse, const float* di, const int* q_seg, const int* kv_seg,
                      const float* cos_t, const float* sin_t, void* q_rot,
                      void* k_rot, const int* q_lo, const int* q_hi,
                      int* tile_count, void* dk, void* dv, int B, int T, int H,
                      float scale_log2, float scale, bool bf16, bool drop,
                      DropParams dp, cudaStream_t st) {
-  return drop ? launch<D, true>(q, k, v, dout, lse, di, seg, cos_t, sin_t, q_rot,
+  return drop ? launch<D, true>(q, k, v, dout, lse, di, q_seg, kv_seg, cos_t, sin_t, q_rot,
                                 k_rot, q_lo, q_hi, tile_count, dk, dv, B, T, H,
                                 scale_log2, scale, bf16, dp, st)
-              : launch<D, false>(q, k, v, dout, lse, di, seg, cos_t, sin_t, q_rot,
+              : launch<D, false>(q, k, v, dout, lse, di, q_seg, kv_seg, cos_t, sin_t, q_rot,
                                  k_rot, q_lo, q_hi, tile_count, dk, dv, B, T, H,
                                  scale_log2, scale, bf16, dp, st);
 }
@@ -99,7 +99,8 @@ bool shape_ok(int B, int T, int H, int t_multiple) {
 // dtype: 0 = float32, 1 = bfloat16; q, k, v, dout, dk, dv (B, T, H, D) of
 // that type, T a multiple of 64 (fp32) or 128 (bf16); lse2 and di fp32,
 // (B, T, H) for fp32 and (B, H, T) for bf16 (its producer bulk-copies a q
-// tile's 64 values of one head); seg (B, T) int32 or null. With RoPE
+// tile's 64 values of one head); q_seg and kv_seg (B, T) int32, both
+// null or both given (as in obt_mh_flash_fwd). With RoPE
 // (cos_t and sin_t non-null), q_rot is a scratch tensor of q's shape and
 // type, and so is k_rot for fp32 (bf16 rotates k in the kernel; k_rot may
 // be null). q_lo and q_hi, both null or both int32 (B, T / kv tile) in
@@ -112,7 +113,7 @@ bool shape_ok(int B, int T, int H, int t_multiple) {
 // allocates nothing, does not synchronise.
 extern "C" int obt_mh_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                     const void* dout, const void* lse,
-                                    const void* di, const void* seg,
+                                    const void* di, const void* q_seg, const void* kv_seg,
                                     const void* cos_t, const void* sin_t,
                                     void* q_rot, void* k_rot, const void* q_lo,
                                     const void* q_hi, void* tile_count,
@@ -125,12 +126,13 @@ extern "C" int obt_mh_flash_bwd_dkv(const void* q, const void* k, const void* v,
       !shape_ok(B, T, H, dtype == 1 ? kBf16TMultiple : kF32TMultiple) ||
       (cos_t != nullptr &&
        (sin_t == nullptr || q_rot == nullptr || (dtype == 0 && k_rot == nullptr))) ||
-      ((q_lo == nullptr) != (q_hi == nullptr)))
+      ((q_lo == nullptr) != (q_hi == nullptr)) || ((q_seg == nullptr) != (kv_seg == nullptr)))
     return (int)cudaErrorInvalidValue;
   const DropParams dp{seed, thresh, keep_scale};
   const float* l = static_cast<const float*>(lse);
   const float* dd = static_cast<const float*>(di);
-  const int* sg = static_cast<const int*>(seg);
+  const int* qsg = static_cast<const int*>(q_seg);
+  const int* kvsg = static_cast<const int*>(kv_seg);
   const float* c = static_cast<const float*>(cos_t);
   const float* s = static_cast<const float*>(sin_t);
   const int* lo = static_cast<const int*>(q_lo);
@@ -138,8 +140,8 @@ extern "C" int obt_mh_flash_bwd_dkv(const void* q, const void* k, const void* v,
   int* tc = static_cast<int*>(tile_count);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return (int)launch_d<64>(q, k, v, dout, l, dd, sg, c, s, q_rot, k_rot, lo, hi, tc, dk, dv, B, T, H, scale_log2, scale, dtype == 1, drop != 0, dp, st);
-    case 128: return (int)launch_d<128>(q, k, v, dout, l, dd, sg, c, s, q_rot, k_rot, lo, hi, tc, dk, dv, B, T, H, scale_log2, scale, dtype == 1, drop != 0, dp, st);
+    case 64: return (int)launch_d<64>(q, k, v, dout, l, dd, qsg, kvsg, c, s, q_rot, k_rot, lo, hi, tc, dk, dv, B, T, H, scale_log2, scale, dtype == 1, drop != 0, dp, st);
+    case 128: return (int)launch_d<128>(q, k, v, dout, l, dd, qsg, kvsg, c, s, q_rot, k_rot, lo, hi, tc, dk, dv, B, T, H, scale_log2, scale, dtype == 1, drop != 0, dp, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -156,7 +158,7 @@ extern "C" int obt_mh_flash_bwd_dkv_dots(const void* q, const void* k, const voi
   return (int)launch_bf16<128, false, true, false>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), nullptr,
-      nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+      nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), B, T, H, 0.f, 0.f,
       DropParams{0, 0, 1.f}, static_cast<cudaStream_t>(stream));
 }

@@ -113,7 +113,7 @@ __global__ void __launch_bounds__(kThreads, 1) mh_bwd_dq_wgmma(
     const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
     const __grid_constant__ CUtensorMap omap, const __grid_constant__ CUtensorMap dqmap,
     const __nv_bfloat16* __restrict__ q, const float* __restrict__ lse,
-    const float* __restrict__ di, const int* __restrict__ seg,
+    const float* __restrict__ di, const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
     const float* __restrict__ cos_t, const float* __restrict__ sin_t,
     const int* __restrict__ kv_lo, const int* __restrict__ kv_hi,
     int* __restrict__ tile_count, int T, int H, float scale_log2, float scale,
@@ -159,7 +159,7 @@ __global__ void __launch_bounds__(kThreads, 1) mh_bwd_dq_wgmma(
         for (int half = 0; half < kBq / kBkv; ++half)
           tma_load_3d(&sm.dout[pn * kBq * kPanelCols + half * kBkv * kPanelCols], &omap,
                       h * D + pn * kPanelCols, qt * kBq + half * kBkv, b, &sm.obar);
-      const bool ids = !DOTS && seg != nullptr;
+      const bool ids = !DOTS && kv_seg != nullptr;
       const uint32_t bytes =
           2u * kBkv * D * sizeof(__nv_bfloat16) + (ids ? kBkv * sizeof(int) : 0u);
       for (int it = 0; it < n_tiles; ++it) {
@@ -174,7 +174,7 @@ __global__ void __launch_bounds__(kThreads, 1) mh_bwd_dq_wgmma(
           tma_load_3d(&sm.v[st][pn * kBkv * kPanelCols], &vmap, h * D + pn * kPanelCols, j0, b,
                       &sm.full[st]);
         }
-        if (ids) bulk_load(sm.kseg[st], seg + (size_t)b * T + j0, kBkv * sizeof(int), &sm.full[st]);
+        if (ids) bulk_load(sm.kseg[st], kv_seg + (size_t)b * T + j0, kBkv * sizeof(int), &sm.full[st]);
       }
     }
   } else {
@@ -196,9 +196,9 @@ __global__ void __launch_bounds__(kThreads, 1) mh_bwd_dq_wgmma(
     int qs0 = 0, qs1 = 0;
     float lse0 = 0.f, lse1 = 0.f, di0 = 0.f, di1 = 0.f;
     if constexpr (!DOTS) {
-      if (seg != nullptr) {
-        qs0 = seg[(size_t)b * T + r0];
-        qs1 = seg[(size_t)b * T + r0 + 8];
+      if (q_seg != nullptr) {
+        qs0 = q_seg[(size_t)b * T + r0];
+        qs1 = q_seg[(size_t)b * T + r0 + 8];
       }
       const size_t sr0 = ((size_t)b * T + r0) * H + h, sr1 = sr0 + (size_t)8 * H;
       lse0 = lse[sr0];
@@ -282,7 +282,7 @@ __global__ void __launch_bounds__(kThreads, 1) mh_bwd_dq_wgmma(
         const int* sg = sm.kseg[st];
 #pragma unroll
         for (int n = 0; n < NS; ++n) {
-          const int2 k2 = seg != nullptr ? *reinterpret_cast<const int2*>(&sg[n * 8 + 2 * t4])
+          const int2 k2 = kv_seg != nullptr ? *reinterpret_cast<const int2*>(&sg[n * 8 + 2 * t4])
                                          : make_int2(0, 0);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
@@ -411,7 +411,7 @@ __global__ void __launch_bounds__(128) mh_bwd_dq_f32(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ di,
-    const int* __restrict__ seg, const float* __restrict__ cos_t,
+    const int* __restrict__ q_seg, const int* __restrict__ kv_seg, const float* __restrict__ cos_t,
     const float* __restrict__ sin_t, const int* __restrict__ kv_lo,
     const int* __restrict__ kv_hi, int* __restrict__ tile_count,
     float* __restrict__ dq, int T, int H, float scale_log2, float scale,
@@ -445,7 +445,7 @@ __global__ void __launch_bounds__(128) mh_bwd_dq_f32(
       dor[i] = drow[d];
     }
   }
-  const int qs = seg ? seg[(size_t)b * T + row] : 0;
+  const int qs = q_seg ? q_seg[(size_t)b * T + row] : 0;
   const float lse_r = lse[((size_t)b * T + row) * H + h];
   const float di_r = di[((size_t)b * T + row) * H + h];
 
@@ -467,7 +467,7 @@ __global__ void __launch_bounds__(128) mh_bwd_dq_f32(
       *reinterpret_cast<float4*>(ks + r * D + c4) = *reinterpret_cast<const float4*>(k + off);
       *reinterpret_cast<float4*>(vs + r * D + c4) = *reinterpret_cast<const float4*>(v + off);
     }
-    if (tid < BKV) kseg[tid] = seg ? seg[(size_t)b * T + j0 + tid] : 0;
+    if (tid < BKV) kseg[tid] = kv_seg ? kv_seg[(size_t)b * T + j0 + tid] : 0;
     __syncthreads();
 
     float ds[BKV];
@@ -522,7 +522,7 @@ __global__ void __launch_bounds__(128) mh_bwd_dq_f32(
 template <int D, bool DROP, bool DOTS>
 cudaError_t launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                         const __nv_bfloat16* v, const __nv_bfloat16* dout, const float* lse,
-                        const float* di, const int* seg, const float* cos_t,
+                        const float* di, const int* q_seg, const int* kv_seg, const float* cos_t,
                         const float* sin_t, const int* kv_lo, const int* kv_hi,
                         int* tile_count, __nv_bfloat16* dq, int B, int T, int H,
                         float scale_log2, float scale, DropParams dp, cudaStream_t st) {
@@ -548,14 +548,14 @@ cudaError_t launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
     smem_set.fetch_or(dev_bit, std::memory_order_release);
   }
   mh_bwd_dq_wgmma<D, DROP, DOTS><<<dim3(T / kBq, H, B), kThreads, smem, st>>>(
-      kmap, vmap, omap, dqmap, q, lse, di, seg, cos_t, sin_t, kv_lo, kv_hi, tile_count, T, H,
+      kmap, vmap, omap, dqmap, q, lse, di, q_seg, kv_seg, cos_t, sin_t, kv_lo, kv_hi, tile_count, T, H,
       scale_log2, scale, dp);
   return cudaGetLastError();
 }
 
 template <int D, bool DROP>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
-                   const float* lse, const float* di, const int* seg,
+                   const float* lse, const float* di, const int* q_seg, const int* kv_seg,
                    const float* cos_t, const float* sin_t, void* k_rot,
                    const int* kv_lo, const int* kv_hi, int* tile_count, void* dq,
                    int B, int T, int H, float scale_log2, float scale, bool bf16,
@@ -568,27 +568,27 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
     return launch_bf16<D, DROP, false>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), lse, di,
-        seg, cos_t, sin_t, kv_lo, kv_hi, tile_count, static_cast<__nv_bfloat16*>(dq), B, T, H,
+        q_seg, kv_seg, cos_t, sin_t, kv_lo, kv_hi, tile_count, static_cast<__nv_bfloat16*>(dq), B, T, H,
         scale_log2, scale, dp, st);
   mh_bwd_dq_f32<D, DROP><<<dim3(T / kF32Tile, H, B), 128, 0, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout), lse, di,
-      seg, cos_t, sin_t, kv_lo, kv_hi, tile_count, static_cast<float*>(dq), T,
+      q_seg, kv_seg, cos_t, sin_t, kv_lo, kv_hi, tile_count, static_cast<float*>(dq), T,
       H, scale_log2, scale, dp);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_d(const void* q, const void* k, const void* v, const void* dout,
-                     const float* lse, const float* di, const int* seg,
+                     const float* lse, const float* di, const int* q_seg, const int* kv_seg,
                      const float* cos_t, const float* sin_t, void* k_rot,
                      const int* kv_lo, const int* kv_hi, int* tile_count,
                      void* dq, int B, int T, int H, float scale_log2, float scale,
                      bool bf16, bool drop, DropParams dp, cudaStream_t st) {
-  return drop ? launch<D, true>(q, k, v, dout, lse, di, seg, cos_t, sin_t, k_rot,
+  return drop ? launch<D, true>(q, k, v, dout, lse, di, q_seg, kv_seg, cos_t, sin_t, k_rot,
                                 kv_lo, kv_hi, tile_count, dq, B, T, H, scale_log2,
                                 scale, bf16, dp, st)
-              : launch<D, false>(q, k, v, dout, lse, di, seg, cos_t, sin_t, k_rot,
+              : launch<D, false>(q, k, v, dout, lse, di, q_seg, kv_seg, cos_t, sin_t, k_rot,
                                  kv_lo, kv_hi, tile_count, dq, B, T, H, scale_log2,
                                  scale, bf16, dp, st);
 }
@@ -606,7 +606,8 @@ bool shape_ok(int B, int T, int H, int t_multiple) {
 
 // dtype: 0 = float32, 1 = bfloat16; q, k, v, dout, dq (B, T, H, D) of that
 // type, T a multiple of 64 (fp32) or 128 (bf16); lse2 and di (B, T, H)
-// fp32; seg (B, T) int32 or null; with RoPE (cos_t and sin_t non-null),
+// fp32; q_seg and kv_seg (B, T) int32, both null or both given (as in
+// obt_mh_flash_fwd); with RoPE (cos_t and sin_t non-null),
 // k_rot is a scratch tensor of k's shape and type. kv_lo and kv_hi, both
 // null or both int32 (B, T / q tile) in units of the dtype's kv tile (q
 // tile 128 and kv tile 64 for bf16, 32 and 32 for fp32), bound the kv tiles
@@ -618,7 +619,7 @@ bool shape_ok(int B, int T, int H, int t_multiple) {
 // synchronise.
 extern "C" int obt_mh_flash_bwd_dq(const void* q, const void* k, const void* v,
                                    const void* dout, const void* lse,
-                                   const void* di, const void* seg,
+                                   const void* di, const void* q_seg, const void* kv_seg,
                                    const void* cos_t, const void* sin_t,
                                    void* k_rot, const void* kv_lo,
                                    const void* kv_hi, void* tile_count,
@@ -629,12 +630,13 @@ extern "C" int obt_mh_flash_bwd_dq(const void* q, const void* k, const void* v,
   if ((dtype != 0 && dtype != 1) ||
       !shape_ok(B, T, H, dtype == 1 ? kBf16TMultiple : kF32TMultiple) ||
       (cos_t != nullptr && (sin_t == nullptr || k_rot == nullptr)) ||
-      ((kv_lo == nullptr) != (kv_hi == nullptr)))
+      ((kv_lo == nullptr) != (kv_hi == nullptr)) || ((q_seg == nullptr) != (kv_seg == nullptr)))
     return (int)cudaErrorInvalidValue;
   const DropParams dp{seed, thresh, keep_scale};
   const float* l = static_cast<const float*>(lse);
   const float* dd = static_cast<const float*>(di);
-  const int* sg = static_cast<const int*>(seg);
+  const int* qsg = static_cast<const int*>(q_seg);
+  const int* kvsg = static_cast<const int*>(kv_seg);
   const float* c = static_cast<const float*>(cos_t);
   const float* s = static_cast<const float*>(sin_t);
   const int* lo = static_cast<const int*>(kv_lo);
@@ -642,8 +644,8 @@ extern "C" int obt_mh_flash_bwd_dq(const void* q, const void* k, const void* v,
   int* tc = static_cast<int*>(tile_count);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return (int)launch_d<64>(q, k, v, dout, l, dd, sg, c, s, k_rot, lo, hi, tc, dq, B, T, H, scale_log2, scale, dtype == 1, drop != 0, dp, st);
-    case 128: return (int)launch_d<128>(q, k, v, dout, l, dd, sg, c, s, k_rot, lo, hi, tc, dq, B, T, H, scale_log2, scale, dtype == 1, drop != 0, dp, st);
+    case 64: return (int)launch_d<64>(q, k, v, dout, l, dd, qsg, kvsg, c, s, k_rot, lo, hi, tc, dq, B, T, H, scale_log2, scale, dtype == 1, drop != 0, dp, st);
+    case 128: return (int)launch_d<128>(q, k, v, dout, l, dd, qsg, kvsg, c, s, k_rot, lo, hi, tc, dq, B, T, H, scale_log2, scale, dtype == 1, drop != 0, dp, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -660,7 +662,7 @@ extern "C" int obt_mh_flash_bwd_dq_dots(const void* q, const void* k, const void
   return (int)launch_bf16<128, false, true>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), nullptr,
-      nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+      nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
       static_cast<__nv_bfloat16*>(dq), B, T, H, 0.f, 0.f, DropParams{0, 0, 1.f},
       static_cast<cudaStream_t>(stream));
 }

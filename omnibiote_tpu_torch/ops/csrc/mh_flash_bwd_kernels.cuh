@@ -113,13 +113,13 @@ __device__ __forceinline__ size_t dq_chunk(int b, int h, int qt, int T, int H) {
 
 // DOTS: the products alone (the yardstick of the product pipeline): P^T :=
 // round(S^T) and dS^T := round(dP^T), no RoPE, scale, mask, softmax or
-// dropout; lse_t, di_t and seg are not read.
+// dropout; lse_t, di_t and the ids are not read.
 template <int D, bool DROP, bool DOTS, bool WITH_DQ>
 __global__ void __launch_bounds__(kThreads, 1) mh_bwd_fused_bf16(
     const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap omap,
     const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
     const float* __restrict__ lse_t, const float* __restrict__ di_t,
-    const int* __restrict__ seg, const float* __restrict__ cos_t,
+    const int* __restrict__ q_seg, const int* __restrict__ kv_seg, const float* __restrict__ cos_t,
     const float* __restrict__ sin_t, const int* __restrict__ q_lo,
     const int* __restrict__ q_hi, int* __restrict__ tile_count,
     float* __restrict__ dq_acc, __nv_bfloat16* __restrict__ dk,
@@ -161,7 +161,7 @@ __global__ void __launch_bounds__(kThreads, 1) mh_bwd_fused_bf16(
     // ---- producer: one thread keeps the ring full ----
     setmaxnreg_dec<24>();
     if (tid == 0) {
-      const bool rows = !DOTS, ids = !DOTS && seg != nullptr;
+      const bool rows = !DOTS, ids = !DOTS && q_seg != nullptr;
       const uint32_t bytes = 2u * kBq * D * sizeof(__nv_bfloat16) +
                              (rows ? 2u * kBq * sizeof(float) : 0u) +
                              (ids ? kBq * sizeof(int) : 0u);
@@ -182,7 +182,7 @@ __global__ void __launch_bounds__(kThreads, 1) mh_bwd_fused_bf16(
           bulk_load(sm.lse[st], lse_t + bh_row + i0, kBq * sizeof(float), &sm.full[st]);
           bulk_load(sm.di[st], di_t + bh_row + i0, kBq * sizeof(float), &sm.full[st]);
         }
-        if (ids) bulk_load(sm.qseg[st], seg + (size_t)b * T + i0, kBq * sizeof(int), &sm.full[st]);
+        if (ids) bulk_load(sm.qseg[st], q_seg + (size_t)b * T + i0, kBq * sizeof(int), &sm.full[st]);
       }
     }
   } else {
@@ -205,8 +205,8 @@ __global__ void __launch_bounds__(kThreads, 1) mh_bwd_fused_bf16(
     fence_async_shared();
     named_bar_sync(kBarKV + wg, 128);
 
-    const int ks0 = (!DOTS && seg != nullptr) ? seg[(size_t)b * T + j0] : 0;
-    const int ks1 = (!DOTS && seg != nullptr) ? seg[(size_t)b * T + j0 + 8] : 0;
+    const int ks0 = (!DOTS && kv_seg != nullptr) ? kv_seg[(size_t)b * T + j0] : 0;
+    const int ks1 = (!DOTS && kv_seg != nullptr) ? kv_seg[(size_t)b * T + j0 + 8] : 0;
     float dka[D / 2], dva[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
@@ -275,7 +275,7 @@ __global__ void __launch_bounds__(kThreads, 1) mh_bwd_fused_bf16(
           const int c = n * 8 + 2 * t4;
           const float2 l2 = *reinterpret_cast<const float2*>(&sm.lse[st][c]);
           const float2 d2 = *reinterpret_cast<const float2*>(&sm.di[st][c]);
-          const int2 q2 = seg != nullptr ? *reinterpret_cast<const int2*>(&sm.qseg[st][c])
+          const int2 q2 = q_seg != nullptr ? *reinterpret_cast<const int2*>(&sm.qseg[st][c])
                                          : make_int2(0, 0);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
@@ -481,7 +481,7 @@ __global__ void dq_epilogue_bf16(const float4* __restrict__ acc,
 template <int D, bool DROP, bool DOTS, bool WITH_DQ>
 cudaError_t launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                         const __nv_bfloat16* v, const __nv_bfloat16* dout,
-                        const float* lse_t, const float* di_t, const int* seg,
+                        const float* lse_t, const float* di_t, const int* q_seg, const int* kv_seg,
                         const float* cos_t, const float* sin_t, const int* q_lo,
                         const int* q_hi, int* tile_count, float* dq_acc,
                         __nv_bfloat16* dq, __nv_bfloat16* dk, __nv_bfloat16* dv, int B,
@@ -514,7 +514,7 @@ cudaError_t launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
     smem_set.fetch_or(dev_bit, std::memory_order_release);
   }
   mh_bwd_fused_bf16<D, DROP, DOTS, WITH_DQ><<<dim3(T / kBkv, H, B), kThreads, smem, st>>>(
-      qmap, omap, k, v, lse_t, di_t, seg, cos_t, sin_t, q_lo, q_hi, tile_count, dq_acc, dk,
+      qmap, omap, k, v, lse_t, di_t, q_seg, kv_seg, cos_t, sin_t, q_lo, q_hi, tile_count, dq_acc, dk,
       dv, T, H, scale_log2, scale, dp);
   if constexpr (WITH_DQ) {
     const long long n_items = n / 8;
@@ -538,7 +538,7 @@ __global__ void __launch_bounds__(128) mh_bwd_f32(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ di,
-    const int* __restrict__ seg, const float* __restrict__ cos_t,
+    const int* __restrict__ q_seg, const int* __restrict__ kv_seg, const float* __restrict__ cos_t,
     const float* __restrict__ sin_t, const int* __restrict__ q_lo,
     const int* __restrict__ q_hi, int* __restrict__ tile_count,
     float* __restrict__ dq_acc, float* __restrict__ dk,
@@ -570,7 +570,7 @@ __global__ void __launch_bounds__(128) mh_bwd_f32(
     vr[i] = v[base + (size_t)j * rs + sub + 4 * i];
     dka[i] = dva[i] = 0.f;
   }
-  const int ks = seg ? seg[(size_t)b * T + j] : 0;
+  const int ks = kv_seg ? kv_seg[(size_t)b * T + j] : 0;
 
   int qt0 = 0, qt1 = T / BQ - 1;
   if (q_lo != nullptr) {
@@ -590,7 +590,7 @@ __global__ void __launch_bounds__(128) mh_bwd_f32(
       const size_t r = ((size_t)b * T + i0 + tid) * H + h;
       lse_s[tid] = lse[r];
       di_s[tid] = di[r];
-      qseg_s[tid] = seg ? seg[(size_t)b * T + i0 + tid] : 0;
+      qseg_s[tid] = q_seg ? q_seg[(size_t)b * T + i0 + tid] : 0;
     }
     __syncthreads();
 

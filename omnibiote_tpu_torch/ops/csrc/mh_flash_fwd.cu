@@ -16,8 +16,10 @@
 //     h, i, j) that the backward redraws. rate == 0 compiles the kernel
 //     without any of it (a template flag), so serving runs the same code
 //     as before dropout existed.
-// Layout (B, T, H*D) row-major for q, k, v, o; segment ids (B, T) int32 or
-// null (dense); cos/sin (T, D/2) fp32 or null (no RoPE).
+// Layout (B, T, H*D) row-major for q, k, v, o; the segment ids of the q rows
+// and of the kv rows (B, T) int32, both null (dense) or both given (one
+// pointer twice where q and kv share them; the ring passes its rotated kv
+// block's ids); the mask is q_seg[i] == kv_seg[j]; cos/sin (T, D/2) fp32 or null (no RoPE).
 //
 // Design. The TPU kernel blocks full (block_q, H*D) rows and walks kv as a
 // sequential grid axis; here one block owns one (batch, head, q tile) and
@@ -111,7 +113,7 @@ constexpr size_t bf16_smem_bytes() {
 template <int D, bool DROP, bool BOUNDS, bool DOTS>
 __global__ void __launch_bounds__(kThreads, 1) mh_fwd_bf16(
     const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
-    const __nv_bfloat16* __restrict__ q, const int* __restrict__ seg,
+    const __nv_bfloat16* __restrict__ q, const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
     const float* __restrict__ cos_t, const float* __restrict__ sin_t,
     const int* __restrict__ kv_lo, const int* __restrict__ kv_hi,
     int* __restrict__ tile_count, __nv_bfloat16* __restrict__ o,
@@ -149,7 +151,7 @@ __global__ void __launch_bounds__(kThreads, 1) mh_fwd_bf16(
     setmaxnreg_dec<24>();
     if (tid == 0) {
       const uint32_t bytes = 2u * kBkv * D * sizeof(__nv_bfloat16) +
-                             (seg != nullptr ? kBkv * sizeof(int) : 0u);
+                             (kv_seg != nullptr ? kBkv * sizeof(int) : 0u);
       for (int it = 0; it < n_tiles; ++it) {
         const int st = it % kStages;
         if (it >= kStages) mbar_wait(&sm.empty[st], ((it / kStages) - 1) & 1);
@@ -162,7 +164,7 @@ __global__ void __launch_bounds__(kThreads, 1) mh_fwd_bf16(
           tma_load_2d(&sm.v[st][pn * kBkv * kPanelCols], &vmap, h * D + pn * kPanelCols,
                       row, &sm.full[st]);
         }
-        if (seg != nullptr) bulk_load(sm.kseg[st], seg + row, kBkv * sizeof(int), &sm.full[st]);
+        if (kv_seg != nullptr) bulk_load(sm.kseg[st], kv_seg + row, kBkv * sizeof(int), &sm.full[st]);
       }
     }
   } else {
@@ -182,8 +184,8 @@ __global__ void __launch_bounds__(kThreads, 1) mh_fwd_bf16(
     fence_async_shared();
     named_bar_sync(kBarQ + wg, 128);
 
-    const int qs0 = seg ? seg[(size_t)b * T + r0] : 0;
-    const int qs1 = seg ? seg[(size_t)b * T + r0 + 8] : 0;
+    const int qs0 = q_seg ? q_seg[(size_t)b * T + r0] : 0;
+    const int qs1 = q_seg ? q_seg[(size_t)b * T + r0 + 8] : 0;
     float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
     float acc[D / 2], s[kBkv / 2];
     uint32_t p[NP][4];
@@ -226,8 +228,8 @@ __global__ void __launch_bounds__(kThreads, 1) mh_fwd_bf16(
         float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
         for (int n = 0; n < NS; ++n) {
-          const int ks0 = seg ? sg[n * 8 + 2 * t4] : 0;
-          const int ks1 = seg ? sg[n * 8 + 2 * t4 + 1] : 0;
+          const int ks0 = kv_seg ? sg[n * 8 + 2 * t4] : 0;
+          const int ks1 = kv_seg ? sg[n * 8 + 2 * t4 + 1] : 0;
           s[4 * n] = score(s[4 * n], scale_log2, qs0, ks0);
           s[4 * n + 1] = score(s[4 * n + 1], scale_log2, qs0, ks1);
           s[4 * n + 2] = score(s[4 * n + 2], scale_log2, qs1, ks0);
@@ -378,7 +380,7 @@ constexpr int kF32Tile = 32;
 template <int D, bool DROP>
 __global__ void __launch_bounds__(128) mh_fwd_f32(
     const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const int* __restrict__ seg,
+    const float* __restrict__ v, const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
     const float* __restrict__ cos_t, const float* __restrict__ sin_t,
     const int* __restrict__ kv_lo, const int* __restrict__ kv_hi,
     int* __restrict__ tile_count, float* __restrict__ o,
@@ -410,7 +412,7 @@ __global__ void __launch_bounds__(128) mh_fwd_f32(
       qr[i] = x;
     }
   }
-  const int qs = seg ? seg[(size_t)b * T + row] : 0;
+  const int qs = q_seg ? q_seg[(size_t)b * T + row] : 0;
 
   float m = -INFINITY, l = 0.f, acc[PER];
 #pragma unroll
@@ -430,7 +432,7 @@ __global__ void __launch_bounds__(128) mh_fwd_f32(
       *reinterpret_cast<float4*>(ks + r * D + c4) = *reinterpret_cast<const float4*>(k + off);
       *reinterpret_cast<float4*>(vs + r * D + c4) = *reinterpret_cast<const float4*>(v + off);
     }
-    if (tid < BKV) kseg[tid] = seg ? seg[(size_t)b * T + j0 + tid] : 0;
+    if (tid < BKV) kseg[tid] = kv_seg ? kv_seg[(size_t)b * T + j0 + tid] : 0;
     __syncthreads();
 
     float s[BKV];
@@ -482,7 +484,7 @@ __global__ void __launch_bounds__(128) mh_fwd_f32(
 
 template <int D, bool DROP, bool BOUNDS, bool DOTS>
 cudaError_t launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                        const __nv_bfloat16* v, const int* seg, const float* cos_t,
+                        const __nv_bfloat16* v, const int* q_seg, const int* kv_seg, const float* cos_t,
                         const float* sin_t, const int* kv_lo, const int* kv_hi,
                         int* tile_count, __nv_bfloat16* o, float* lse, int B, int T,
                         int H, float scale_log2, DropParams dp, cudaStream_t st) {
@@ -508,13 +510,13 @@ cudaError_t launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
     smem_set.fetch_or(dev_bit, std::memory_order_release);
   }
   mh_fwd_bf16<D, DROP, BOUNDS, DOTS><<<dim3(T / kBq, H, B), kThreads, smem, st>>>(
-      kmap, vmap, q, seg, cos_t, sin_t, kv_lo, kv_hi, tile_count, o, lse, T, H, scale_log2,
+      kmap, vmap, q, q_seg, kv_seg, cos_t, sin_t, kv_lo, kv_hi, tile_count, o, lse, T, H, scale_log2,
       dp);
   return cudaGetLastError();
 }
 
 template <int D, bool DROP>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* seg,
+cudaError_t launch(const void* q, const void* k, const void* v, const int* q_seg, const int* kv_seg,
                    const float* cos_t, const float* sin_t, void* k_rot,
                    const int* kv_lo, const int* kv_hi, int* tile_count, void* o,
                    float* lse, int B, int T, int H, float scale_log2, bool bf16,
@@ -529,29 +531,29 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* seg,
     const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(v);
     __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(o);
     return kv_lo != nullptr
-               ? launch_bf16<D, DROP, true, false>(qb, kb, vb, seg, cos_t, sin_t, kv_lo,
+               ? launch_bf16<D, DROP, true, false>(qb, kb, vb, q_seg, kv_seg, cos_t, sin_t, kv_lo,
                                                    kv_hi, tile_count, ob, lse, B, T, H,
                                                    scale_log2, dp, st)
-               : launch_bf16<D, DROP, false, false>(qb, kb, vb, seg, cos_t, sin_t, kv_lo,
+               : launch_bf16<D, DROP, false, false>(qb, kb, vb, q_seg, kv_seg, cos_t, sin_t, kv_lo,
                                                     kv_hi, tile_count, ob, lse, B, T, H,
                                                     scale_log2, dp, st);
   }
   mh_fwd_f32<D, DROP><<<dim3(T / kF32Tile, H, B), 128, 0, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), seg, cos_t, sin_t, kv_lo, kv_hi,
+      static_cast<const float*>(v), q_seg, kv_seg, cos_t, sin_t, kv_lo, kv_hi,
       tile_count, static_cast<float*>(o), lse, T, H, scale_log2, dp);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_d(const void* q, const void* k, const void* v, const int* seg,
+cudaError_t launch_d(const void* q, const void* k, const void* v, const int* q_seg, const int* kv_seg,
                      const float* cos_t, const float* sin_t, void* k_rot,
                      const int* kv_lo, const int* kv_hi, int* tile_count, void* o,
                      float* lse, int B, int T, int H, float scale_log2, bool bf16,
                      bool drop, DropParams dp, cudaStream_t st) {
-  return drop ? launch<D, true>(q, k, v, seg, cos_t, sin_t, k_rot, kv_lo, kv_hi,
+  return drop ? launch<D, true>(q, k, v, q_seg, kv_seg, cos_t, sin_t, k_rot, kv_lo, kv_hi,
                                 tile_count, o, lse, B, T, H, scale_log2, bf16, dp, st)
-              : launch<D, false>(q, k, v, seg, cos_t, sin_t, k_rot, kv_lo, kv_hi,
+              : launch<D, false>(q, k, v, q_seg, kv_seg, cos_t, sin_t, k_rot, kv_lo, kv_hi,
                                  tile_count, o, lse, B, T, H, scale_log2, bf16, dp, st);
 }
 
@@ -577,7 +579,7 @@ bool shape_ok(int B, int T, int H) {
 // or type this file has no kernel for). Launches on `stream`, allocates
 // nothing, does not synchronise.
 extern "C" int obt_mh_flash_fwd(const void* q, const void* k, const void* v,
-                                const void* seg, const void* cos_t,
+                                const void* q_seg, const void* kv_seg, const void* cos_t,
                                 const void* sin_t, void* k_rot,
                                 const void* kv_lo, const void* kv_hi,
                                 void* tile_count, void* o,
@@ -588,9 +590,10 @@ extern "C" int obt_mh_flash_fwd(const void* q, const void* k, const void* v,
   const int t_multiple = dtype == 1 ? kBf16TMultiple : kF32TMultiple;
   if ((dtype != 0 && dtype != 1) || !shape_ok(B, T, H) || T % t_multiple != 0 ||
       (cos_t != nullptr && (sin_t == nullptr || k_rot == nullptr)) ||
-      ((kv_lo == nullptr) != (kv_hi == nullptr)))
+      ((kv_lo == nullptr) != (kv_hi == nullptr)) || ((q_seg == nullptr) != (kv_seg == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const int* sg = static_cast<const int*>(seg);
+  const int* qsg = static_cast<const int*>(q_seg);
+  const int* kvsg = static_cast<const int*>(kv_seg);
   const int* lo = static_cast<const int*>(kv_lo);
   const int* hi = static_cast<const int*>(kv_hi);
   int* tc = static_cast<int*>(tile_count);
@@ -600,8 +603,8 @@ extern "C" int obt_mh_flash_fwd(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const DropParams dp{seed, thresh, keep_scale};
   switch (D) {
-    case 64: return (int)launch_d<64>(q, k, v, sg, c, s, k_rot, lo, hi, tc, o, l, B, T, H, scale_log2, dtype == 1, drop != 0, dp, st);
-    case 128: return (int)launch_d<128>(q, k, v, sg, c, s, k_rot, lo, hi, tc, o, l, B, T, H, scale_log2, dtype == 1, drop != 0, dp, st);
+    case 64: return (int)launch_d<64>(q, k, v, qsg, kvsg, c, s, k_rot, lo, hi, tc, o, l, B, T, H, scale_log2, dtype == 1, drop != 0, dp, st);
+    case 128: return (int)launch_d<128>(q, k, v, qsg, kvsg, c, s, k_rot, lo, hi, tc, o, l, B, T, H, scale_log2, dtype == 1, drop != 0, dp, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -617,7 +620,7 @@ extern "C" int obt_mh_flash_fwd_dots(const void* q, const void* k, const void* v
   return (int)launch_bf16<128, false, false, true>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), nullptr, nullptr, nullptr, nullptr, nullptr,
-      nullptr, static_cast<__nv_bfloat16*>(o), nullptr, B, T, H, 0.f, DropParams{0, 0, 1.f},
+      nullptr, nullptr, static_cast<__nv_bfloat16*>(o), nullptr, B, T, H, 0.f, DropParams{0, 0, 1.f},
       static_cast<cudaStream_t>(stream));
 }
 

@@ -51,7 +51,15 @@ Numerics (identical in the kernels and the plain versions):
     with one ids array for q and kv (every row sees itself) skipping
     changes no bit of o, lse2, dq, dk or dv in the plain versions, the
     forward kernel and the split pair; the fused kernel's dq differs only
-    as its atomic sums do from run to run.
+    as its atomic sums do from run to run;
+  * separate q and kv ids (`kv_segment_ids`, the ring's rotated kv block,
+    the JAX package's `_flash_mh_lse(q_seg, kv_seg)`): the mask is
+    q_seg[i] == kv_seg[j] and the bounds are those of the pair. A q row that
+    sees no key of the block averages V over the tiles it walks and gets
+    an lse near DEFAULT_MASK_VALUE·ln2, so its o and lse depend on
+    skipping; every other bit is as above when such rows carry no
+    cotangent, which is what the ring's lse combine gives them (a weight
+    e^{lse - max} that is exactly 0).
 """
 from __future__ import annotations
 
@@ -193,9 +201,11 @@ def _full_tables(rope, T: int, device):
     return cos2[None, :, None, :], sin2[None, :, None, :]
 
 
-def _mask_bias(segment_ids, s0: int, width: int):
-    """(B, 1, T, width) additive bias of key columns s0..s0+width-1."""
-    vis = segment_ids[:, :, None] == segment_ids[:, None, s0:s0 + width]
+def _mask_bias(segment_ids, s0: int, width: int, kv_segment_ids=None):
+    """(B, 1, T, width) additive bias of key columns s0..s0+width-1 (their
+    ids from kv_segment_ids, None: segment_ids)."""
+    kv = segment_ids if kv_segment_ids is None else kv_segment_ids
+    vis = segment_ids[:, :, None] == kv[:, None, s0:s0 + width]
     return torch.where(vis, 0.0, DEFAULT_MASK_VALUE)[:, None]
 
 
@@ -236,20 +246,34 @@ def seg_block_bounds(a_seg: torch.Tensor, b_seg: torch.Tensor, block_a: int,
 
 
 class SegmentBounds:
-    """The skip bounds of one (B, T) ids array that q and kv share, computed
-    at most once per (block_a, block_b). All layers of a forward and its
-    backward see the same ids, so the model makes one of these per
-    micro-batch and every attention call reads from it."""
+    """The skip bounds of the (B, T) q ids against the kv ids (None: q and
+    kv share one array), computed at most once per tile pair and owner.
+    All layers of a forward and its backward see the same ids, so the model
+    makes one of these per micro-batch (the ring one per rotation) and every
+    attention call reads from it."""
 
-    def __init__(self, segment_ids: torch.Tensor):
+    def __init__(self, segment_ids: torch.Tensor,
+                 kv_segment_ids: Optional[torch.Tensor] = None):
         self.segment_ids = segment_ids
-        self._memo: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+        self.kv_segment_ids = (segment_ids if kv_segment_ids is None
+                               else kv_segment_ids)
+        self._memo: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
 
-    def get(self, block_a: int, block_b: int):
-        key = (int(block_a), int(block_b))
+    def key(self, block_a: int, block_b: int, kv_major: bool = False) -> tuple:
+        """The memo key of a tile pair and owner (kv-major is q-major when
+        q and kv share their ids)."""
+        kv_major = bool(kv_major) and self.kv_segment_ids is not self.segment_ids
+        return (int(block_a), int(block_b)) + (("kv",) if kv_major else ())
+
+    def get(self, block_a: int, block_b: int, kv_major: bool = False):
+        """seg_block_bounds per q block of block_a rows over kv blocks of
+        block_b rows; kv_major: per kv block of block_a rows over q blocks
+        of block_b rows (the same thing when q and kv share their ids)."""
+        key = self.key(block_a, block_b, kv_major)
         if key not in self._memo:
-            self._memo[key] = seg_block_bounds(
-                self.segment_ids, self.segment_ids, *key)
+            a, b = self.segment_ids, self.kv_segment_ids
+            self._memo[key] = seg_block_bounds(*((b, a) if len(key) > 2 else (a, b)),
+                                               *key[:2])
         return self._memo[key]
 
 
@@ -259,7 +283,8 @@ def _in_range(lo, hi, nb: int):
     return (idx >= lo[..., None]) & (idx <= hi[..., None])
 
 
-def _visit_mask(segment_ids, bounds, T: int, block_q, block_kv, owner: str):
+def _visit_mask(segment_ids, bounds, T: int, block_q, block_kv, owner: str,
+                kv_segment_ids=None):
     """(B, T, T) bool (q row, kv column): the elements of the tiles a
     backward with these blocks visits, or None when it visits all. owner
     'q': kv range per q block (the fused multi-kv and dq kernels of the JAX
@@ -270,11 +295,11 @@ def _visit_mask(segment_ids, bounds, T: int, block_q, block_kv, owner: str):
     bq, bkv = min(int(block_q), T), min(int(block_kv), T)
     if bq == T and bkv == T:
         return None
-    sb = bounds if bounds is not None else SegmentBounds(segment_ids)
+    sb = bounds if bounds is not None else SegmentBounds(segment_ids, kv_segment_ids)
     if owner == "q":
         tiles = _in_range(*sb.get(bq, bkv), T // bkv)
     else:
-        tiles = _in_range(*sb.get(bkv, bq), T // bq).transpose(1, 2)
+        tiles = _in_range(*sb.get(bkv, bq, kv_major=True), T // bq).transpose(1, 2)
     return tiles.repeat_interleave(bq, 1).repeat_interleave(bkv, 2)
 
 
@@ -286,7 +311,8 @@ def mh_flash_forward_plain(q, k, v, segment_ids=None, rope=None, *,
                            scale: float, block_kv: Optional[int] = None,
                            dropout_rate: float = 0.0, seed: int = 0,
                            block_q: Optional[int] = None,
-                           segment_skip: bool = False, bounds=None):
+                           segment_skip: bool = False, bounds=None,
+                           kv_segment_ids=None):
     """Plain PyTorch version of the forward kernel: (o (B,T,H,D), lse2
     (B,T,H)).
 
@@ -298,7 +324,8 @@ def mh_flash_forward_plain(q, k, v, segment_ids=None, rope=None, *,
     block_kv. With segment_skip (and segment ids, and more than one kv
     block) a q block of block_q rows (None: T) takes only the kv blocks
     inside its bounds; `bounds` is a SegmentBounds of the ids to read them
-    from."""
+    from. kv_segment_ids: the kv rows' ids where they are not the q rows'
+    (the ring's rotated block)."""
     B, T, H, D = q.shape
     dtype = q.dtype
     if rope is not None:
@@ -314,7 +341,7 @@ def mh_flash_forward_plain(q, k, v, segment_ids=None, rope=None, *,
     skip = bool(segment_skip) and segment_ids is not None and bkv < T
     if skip:
         bq = T if block_q is None else int(block_q)
-        sb = bounds if bounds is not None else SegmentBounds(segment_ids)
+        sb = bounds if bounds is not None else SegmentBounds(segment_ids, kv_segment_ids)
         lo, hi = sb.get(bq, bkv)
         lo = lo.repeat_interleave(bq, 1)[:, None, :, None]   # (B, 1, T, 1)
         hi = hi.repeat_interleave(bq, 1)[:, None, :, None]
@@ -325,7 +352,7 @@ def mh_flash_forward_plain(q, k, v, segment_ids=None, rope=None, *,
     for s0 in range(0, T, bkv):
         s2 = torch.einsum("bthd,bshd->bhts", qf, kf[:, s0:s0 + bkv]) * c
         if segment_ids is not None:
-            s2 = s2 + _mask_bias(segment_ids, s0, bkv)
+            s2 = s2 + _mask_bias(segment_ids, s0, bkv, kv_segment_ids)
         m_next = torch.maximum(m, s2.amax(dim=-1, keepdim=True))
         alpha = torch.exp2(m - m_next)
         p = torch.exp2(s2 - m_next)
@@ -351,7 +378,7 @@ def mh_flash_forward_plain(q, k, v, segment_ids=None, rope=None, *,
 
 
 def _backward_terms(q, k, v, do, lse2, di, segment_ids, rope, scale,
-                    dropout_rate, seed, visit):
+                    dropout_rate, seed, visit, kv_segment_ids=None):
     """What the three plain backwards share: the rotated q and k (fp32
     views of the rounded values), do, p_drop and ds rounded to the input
     dtype (B, H, T, T fp32), and the RoPE tables. `visit` (B, T, T) bool
@@ -367,7 +394,7 @@ def _backward_terms(q, k, v, do, lse2, di, segment_ids, rope, scale,
     c = float(np.float32(scale * LOG2E))
     s2 = torch.einsum("bthd,bshd->bhts", qf, kf) * c
     if segment_ids is not None:
-        s2 = s2 + _mask_bias(segment_ids, 0, T)
+        s2 = s2 + _mask_bias(segment_ids, 0, T, kv_segment_ids)
     p = torch.exp2(s2 - lse2.permute(0, 2, 1)[..., None])
     if visit is not None:
         p = torch.where(visit[:, None], p, 0.0)
@@ -403,18 +430,20 @@ def mh_flash_backward_plain(q, k, v, do, lse2, di, segment_ids=None,
                             dropout_rate: float = 0.0, seed: int = 0,
                             block_q: Optional[int] = None,
                             block_kv: Optional[int] = None,
-                            segment_skip: bool = False, bounds=None):
+                            segment_skip: bool = False, bounds=None,
+                            kv_segment_ids=None):
     """Plain PyTorch version of the fused backward kernel (single-kv and
     multi-kv): (dq, dk, dv), each (B, T, H, D) in q's dtype. q, k pre-RoPE
     as the forward took them; do (B, T, H, D); lse2 (B, T, H) fp32 from the
     forward; di = rowsum(o·do) (B, T, H) fp32 (less any lse cotangent).
     With segment_skip and both blocks given, a kv block of block_kv rows
-    takes only the q blocks inside its bounds, as the CUDA kernel does."""
+    takes only the q blocks inside its bounds, as the CUDA kernel does.
+    kv_segment_ids: the kv rows' ids where they are not the q rows'."""
     visit = _visit_mask(segment_ids, bounds, q.shape[1], block_q, block_kv,
-                        "kv") if segment_skip else None
+                        "kv", kv_segment_ids) if segment_skip else None
     qf, kf, dof, p_drop, dsb, tables = _backward_terms(
         q, k, v, do, lse2, di, segment_ids, rope, scale, dropout_rate, seed,
-        visit)
+        visit, kv_segment_ids)
     dk, dv = _dkv_from_terms(qf, dof, p_drop, dsb, tables, q.dtype)
     return _dq_from_terms(kf, dsb, tables, q.dtype), dk, dv
 
@@ -423,15 +452,16 @@ def mh_flash_bwd_dkv_plain(q, k, v, do, lse2, di, segment_ids=None, rope=None,
                            *, scale: float, dropout_rate: float = 0.0,
                            seed: int = 0, block_q: Optional[int] = None,
                            block_kv: Optional[int] = None,
-                           segment_skip: bool = False, bounds=None):
+                           segment_skip: bool = False, bounds=None,
+                           kv_segment_ids=None):
     """Plain PyTorch version of the dkv kernel of the split pair: (dk, dv).
     Arguments as mh_flash_backward_plain; a kv block takes the q blocks
     inside its bounds."""
     visit = _visit_mask(segment_ids, bounds, q.shape[1], block_q, block_kv,
-                        "kv") if segment_skip else None
+                        "kv", kv_segment_ids) if segment_skip else None
     qf, _, dof, p_drop, dsb, tables = _backward_terms(
         q, k, v, do, lse2, di, segment_ids, rope, scale, dropout_rate, seed,
-        visit)
+        visit, kv_segment_ids)
     return _dkv_from_terms(qf, dof, p_drop, dsb, tables, q.dtype)
 
 
@@ -439,15 +469,16 @@ def mh_flash_bwd_dq_plain(q, k, v, do, lse2, di, segment_ids=None, rope=None,
                           *, scale: float, dropout_rate: float = 0.0,
                           seed: int = 0, block_q: Optional[int] = None,
                           block_kv: Optional[int] = None,
-                          segment_skip: bool = False, bounds=None):
+                          segment_skip: bool = False, bounds=None,
+                          kv_segment_ids=None):
     """Plain PyTorch version of the dq kernel of the split pair: dq.
     Arguments as mh_flash_backward_plain; a q block takes the kv blocks
     inside its bounds."""
     visit = _visit_mask(segment_ids, bounds, q.shape[1], block_q, block_kv,
-                        "q") if segment_skip else None
+                        "q", kv_segment_ids) if segment_skip else None
     _, kf, _, _, dsb, tables = _backward_terms(
         q, k, v, do, lse2, di, segment_ids, rope, scale, dropout_rate, seed,
-        visit)
+        visit, kv_segment_ids)
     return _dq_from_terms(kf, dsb, tables, q.dtype)
 
 
@@ -501,6 +532,17 @@ def _seg_ptr(segment_ids, q):
                          f"{tuple(segment_ids.shape)} {segment_ids.dtype} "
                          f"on {segment_ids.device}")
     return segment_ids.data_ptr()
+
+
+def _seg_ptrs(segment_ids, kv_segment_ids, q):
+    """(q ids, kv ids) pointers of the kernels' C entries: both None
+    (dense), or the one array's pointer twice where kv_segment_ids is None."""
+    q_ptr = _seg_ptr(segment_ids, q)
+    if kv_segment_ids is None:
+        return q_ptr, q_ptr
+    if q_ptr is None:
+        raise ValueError("kv_segment_ids needs segment_ids (the q rows' ids)")
+    return q_ptr, _seg_ptr(kv_segment_ids, q)
 
 
 def _rope_ptrs(rope, q):
@@ -557,10 +599,11 @@ def _raise_on(err: int, name: str, err_string) -> None:
 def mh_flash_forward_kernel(q, k, v, segment_ids=None, rope=None, *,
                             scale: float, dropout_rate: float = 0.0,
                             seed: int = 0, kv_bounds=None, tile_count=None,
-                            counter: Optional[str] = None):
+                            counter: Optional[str] = None, kv_segment_ids=None):
     """Launch the forward kernel on CUDA tensors; raises on anything it was
     not built for. kv_bounds: None or the (lo, hi) of
-    seg_block_bounds(ids, ids, *KERNEL_TILES['fwd'][dtype]). Adds one per
+    seg_block_bounds(q ids, kv ids, *KERNEL_TILES['fwd'][dtype]); the kv
+    ids are kv_segment_ids (None: segment_ids). Adds one per
     launch to LAUNCHES[counter], by default 'mh_flash_fwd'. Under autograd,
     call it through MhFlashAttention."""
     from . import _kernels
@@ -571,7 +614,7 @@ def mh_flash_forward_kernel(q, k, v, segment_ids=None, rope=None, *,
             "the kernel's output carries no gradient; differentiate through "
             "flash_attention (MhFlashAttention) instead")
     _check_qkv((("q", q), ("k", k), ("v", v)), q, "fwd")
-    seg_ptr = _seg_ptr(segment_ids, q)
+    q_seg, kv_seg = _seg_ptrs(segment_ids, kv_segment_ids, q)
     cos_ptr, sin_ptr = _rope_ptrs(rope, q)
     lo_ptr, hi_ptr, tc_ptr = _bounds_ptrs(
         kv_bounds, q, KERNEL_TILES["fwd"][q.dtype][0], tile_count)
@@ -585,7 +628,7 @@ def mh_flash_forward_kernel(q, k, v, segment_ids=None, rope=None, *,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.obt_mh_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_ptr, cos_ptr,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_seg, kv_seg, cos_ptr,
             sin_ptr, None if k_rot is None else k_rot.data_ptr(),
             lo_ptr, hi_ptr, tc_ptr, o.data_ptr(), lse2.data_ptr(), B, T, H, D,
             float(np.float32(scale * LOG2E)),
@@ -611,13 +654,14 @@ _BWD_KERNELS = {
 def mh_flash_bwd_kernel(kind: str, q, k, v, do, lse2, di, segment_ids=None,
                         rope=None, *, scale: float, dropout_rate: float = 0.0,
                         seed: int = 0, tile_bounds=None, tile_count=None,
-                        counter: Optional[str] = None):
+                        counter: Optional[str] = None, kv_segment_ids=None):
     """Launch one backward kernel on CUDA tensors; raises on anything it was
     not built for. kind 'fused': (dq, dk, dv) in one pass; 'dkv': the split
     pair's (dk, dv); 'dq': the split pair's dq. tile_bounds: None or the
-    (lo, hi) of seg_block_bounds(ids, ids, owner's tile, walked tile) with
-    KERNEL_TILES (the fused and dkv kernels own kv tiles, the dq kernel q
-    tiles). Adds one per launch to LAUNCHES[counter], by default the
+    (lo, hi) of seg_block_bounds(owner's ids, walked ids, owner's tile,
+    walked tile) with KERNEL_TILES (the fused and dkv kernels own kv tiles,
+    the dq kernel q tiles); the kv ids are kv_segment_ids (None:
+    segment_ids). Adds one per launch to LAUNCHES[counter], by default the
     library's name."""
     from . import _kernels
 
@@ -625,7 +669,7 @@ def mh_flash_bwd_kernel(kind: str, q, k, v, do, lse2, di, segment_ids=None,
     B, T, H, D = q.shape
     _check_qkv((("q", q), ("k", k), ("v", v), ("do", do)), q, kind)
     _check_rows((("lse2", lse2), ("di", di)), q)
-    seg_ptr = _seg_ptr(segment_ids, q)
+    q_seg, kv_seg = _seg_ptrs(segment_ids, kv_segment_ids, q)
     cos_ptr, sin_ptr = _rope_ptrs(rope, q)
     lo_ptr, hi_ptr, tc_ptr = _bounds_ptrs(
         tile_bounds, q, KERNEL_TILES[kind][q.dtype][owner], tile_count)
@@ -651,7 +695,7 @@ def mh_flash_bwd_kernel(kind: str, q, k, v, do, lse2, di, segment_ids=None,
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, f"obt_{name}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse2.data_ptr(), di.data_ptr(), seg_ptr, cos_ptr, sin_ptr,
+            lse2.data_ptr(), di.data_ptr(), q_seg, kv_seg, cos_ptr, sin_ptr,
             *map(ptr, rot), lo_ptr, hi_ptr, tc_ptr, *map(ptr, acc),
             *map(ptr, outs), B, T, H, D,
             float(np.float32(scale * LOG2E)), float(np.float32(scale)),
@@ -662,14 +706,17 @@ def mh_flash_bwd_kernel(kind: str, q, k, v, do, lse2, di, segment_ids=None,
     return outs if n_out > 1 else outs[0]
 
 
-def _kernel_bounds(kind: str, q, segment_ids, segment_skip: bool, bounds):
+def _kernel_bounds(kind: str, q, segment_ids, segment_skip: bool, bounds,
+                   kv_segment_ids=None):
     """The (lo, hi) the kernel of `kind` takes at q's dtype, or None (walk
     every tile): the owner's tile first, the walked tile second."""
     if not segment_skip or segment_ids is None:
         return None
     bq, bkv = KERNEL_TILES[kind][q.dtype]
-    sb = bounds if bounds is not None else SegmentBounds(segment_ids)
-    return sb.get(bkv, bq) if kind in ("fused", "dkv") else sb.get(bq, bkv)
+    sb = bounds if bounds is not None else SegmentBounds(segment_ids, kv_segment_ids)
+    if kind in ("fused", "dkv"):
+        return sb.get(bkv, bq, kv_major=True)
+    return sb.get(bq, bkv)
 
 
 def mh_flash_forward(q, k, v, segment_ids=None, rope=None, *, scale: float,
@@ -677,7 +724,7 @@ def mh_flash_forward(q, k, v, segment_ids=None, rope=None, *, scale: float,
                      dropout_rate: float = 0.0, seed: int = 0,
                      block_q: Optional[int] = None,
                      segment_skip: bool = False, bounds=None,
-                     counter: Optional[str] = None
+                     counter: Optional[str] = None, kv_segment_ids=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Multi-head flash attention forward: (o (B,T,H,D), lse2 (B,T,H)).
 
@@ -688,17 +735,20 @@ def mh_flash_forward(q, k, v, segment_ids=None, rope=None, *, scale: float,
     share them between calls). A CUDA tensor runs the CUDA kernel, which
     walks its own tiles (KERNEL_TILES) and counts the launch under
     `counter`; a CPU tensor runs the plain version with `block_q` and
-    `block_kv` (None: one block)."""
+    `block_kv` (None: one block). kv_segment_ids: the kv rows' ids where
+    they are not the q rows'."""
     if q.is_cuda:
         return mh_flash_forward_kernel(
             q, k, v, segment_ids, rope, scale=scale,
             dropout_rate=dropout_rate, seed=seed, counter=counter,
-            kv_bounds=_kernel_bounds("fwd", q, segment_ids, segment_skip, bounds))
+            kv_segment_ids=kv_segment_ids,
+            kv_bounds=_kernel_bounds("fwd", q, segment_ids, segment_skip, bounds,
+                                     kv_segment_ids))
     return mh_flash_forward_plain(q, k, v, segment_ids, rope, scale=scale,
                                   block_kv=block_kv,
                                   dropout_rate=dropout_rate, seed=seed,
                                   block_q=block_q, segment_skip=segment_skip,
-                                  bounds=bounds)
+                                  bounds=bounds, kv_segment_ids=kv_segment_ids)
 
 
 _BWD_PLAIN = {"fused": mh_flash_backward_plain, "dkv": mh_flash_bwd_dkv_plain,
@@ -709,7 +759,7 @@ def mh_flash_bwd(kind: str, q, k, v, do, lse2, di, segment_ids=None,
                  rope=None, *, scale: float, dropout_rate: float = 0.0,
                  seed: int = 0, block_q: Optional[int] = None,
                  block_kv: Optional[int] = None, segment_skip: bool = False,
-                 bounds=None, counter: Optional[str] = None):
+                 bounds=None, counter: Optional[str] = None, kv_segment_ids=None):
     """One backward of `kind` ('fused': (dq, dk, dv); 'dkv': (dk, dv); 'dq':
     dq). A CUDA tensor runs the CUDA kernel on its own tiles (and counts the
     launch under `counter`), a CPU tensor the plain version with block_q and
@@ -718,12 +768,14 @@ def mh_flash_bwd(kind: str, q, k, v, do, lse2, di, segment_ids=None,
         return mh_flash_bwd_kernel(
             kind, q, k, v, do, lse2, di, segment_ids, rope, scale=scale,
             dropout_rate=dropout_rate, seed=seed, counter=counter,
+            kv_segment_ids=kv_segment_ids,
             tile_bounds=_kernel_bounds(kind, q, segment_ids, segment_skip,
-                                       bounds))
+                                       bounds, kv_segment_ids))
     return _BWD_PLAIN[kind](
         q, k, v, do, lse2, di, segment_ids, rope, scale=scale,
         dropout_rate=dropout_rate, seed=seed, block_q=block_q,
-        block_kv=block_kv, segment_skip=segment_skip, bounds=bounds)
+        block_kv=block_kv, segment_skip=segment_skip, bounds=bounds,
+        kv_segment_ids=kv_segment_ids)
 
 
 # The kinds under their own names, for the kernels and the dispatchers.
@@ -741,8 +793,10 @@ mh_flash_bwd_dq = functools.partial(mh_flash_bwd, "dq")
 
 def _save_for_backward(ctx, q, k, v, o, lse2, segment_ids, rope_cos, rope_sin,
                        scale, dropout_rate, seed, block_q, block_kv,
-                       segment_skip, bounds, multi_head=True):
-    ctx.save_for_backward(q, k, v, o, lse2, segment_ids, rope_cos, rope_sin)
+                       segment_skip, bounds, multi_head=True,
+                       kv_segment_ids=None):
+    ctx.save_for_backward(q, k, v, o, lse2, segment_ids, rope_cos, rope_sin,
+                          kv_segment_ids)
     ctx.scale, ctx.dropout_rate, ctx.seed = scale, dropout_rate, seed
     ctx.block_q, ctx.block_kv = block_q, block_kv
     ctx.segment_skip, ctx.bounds = segment_skip, bounds
@@ -756,7 +810,7 @@ def _backward(ctx, do, dlse=None):
     the split pair when the switch for the case at hand is off, and always
     for the per-head entry (multi_head=False: the JAX package's `_bwd` makes
     two calls, never a fused one), which counts them under its own names."""
-    q, k, v, o, lse2, segment_ids, rope_cos, rope_sin = ctx.saved_tensors
+    q, k, v, o, lse2, segment_ids, rope_cos, rope_sin, kv_ids = ctx.saved_tensors
     rope = None if rope_cos is None else (rope_cos, rope_sin)
     T = q.shape[1]
     do = torch.zeros_like(o) if do is None else do.contiguous()
@@ -767,7 +821,8 @@ def _backward(ctx, do, dlse=None):
     args = (q, k, v, do, lse2, di, segment_ids, rope)
     kwargs = dict(scale=ctx.scale, dropout_rate=ctx.dropout_rate,
                   seed=ctx.seed, block_q=ctx.block_q, block_kv=ctx.block_kv,
-                  segment_skip=ctx.segment_skip, bounds=ctx.bounds)
+                  segment_skip=ctx.segment_skip, bounds=ctx.bounds,
+                  kv_segment_ids=kv_ids)
     if not ctx.multi_head:
         dk, dv = mh_flash_bwd_dkv(*args, **kwargs, counter="flash_bwd_dkv")
         return mh_flash_bwd_dq(*args, **kwargs, counter="flash_bwd_dq"), dk, dv
@@ -814,31 +869,34 @@ class MhFlashAttentionLse(torch.autograd.Function):
     """(o, lse) with the natural-log logsumexp (B, T, H) as a second,
     differentiable output (the JAX package's `_flash_mh_lse`): per-block
     (o_i, lse_i) pairs recombine as o = Σ o_i·e^{lse_i} / Σ e^{lse_i}, and
-    the combine's lse cotangent reaches the kernels through di."""
+    the combine's lse cotangent reaches the kernels through di. The kv rows
+    may carry ids of their own (kv_segment_ids, None: the q rows')."""
 
     @staticmethod
-    def forward(ctx, q, k, v, segment_ids, rope_cos, rope_sin, scale,
-                dropout_rate, seed, block_q, block_kv, segment_skip, bounds):
+    def forward(ctx, q, k, v, segment_ids, kv_segment_ids, rope_cos, rope_sin,
+                scale, dropout_rate, seed, block_q, block_kv, segment_skip,
+                bounds):
         rope = None if rope_cos is None else (rope_cos, rope_sin)
         o, lse2 = mh_flash_forward(q, k, v, segment_ids, rope, scale=scale,
                                    block_kv=block_kv,
                                    dropout_rate=dropout_rate, seed=seed,
                                    block_q=block_q, segment_skip=segment_skip,
-                                   bounds=bounds)
+                                   bounds=bounds, kv_segment_ids=kv_segment_ids)
         _save_for_backward(ctx, q, k, v, o, lse2, segment_ids, rope_cos,
                            rope_sin, scale, dropout_rate, seed, block_q,
-                           block_kv, segment_skip, bounds)
+                           block_kv, segment_skip, bounds,
+                           kv_segment_ids=kv_segment_ids)
         return o, lse2 * LN2
 
     @staticmethod
     def backward(ctx, do, dlse):
-        return (*_backward(ctx, do, dlse), *([None] * 10))
+        return (*_backward(ctx, do, dlse), *([None] * 11))
 
 
-def _skip_and_bounds(segment_ids, segment_skip, bounds):
+def _skip_and_bounds(segment_ids, segment_skip, bounds, kv_segment_ids=None):
     skip = bool(segment_skip) and segment_ids is not None
     if skip and bounds is None:
-        bounds = SegmentBounds(segment_ids)
+        bounds = SegmentBounds(segment_ids, kv_segment_ids)
     return skip, bounds if skip else None
 
 
@@ -887,15 +945,21 @@ def flash_attention_lse(q, k, v, segment_ids=None, rope=None, *, scale: float,
                         dropout_rate: float = 0.0, seed: int = 0,
                         block_kv: Optional[int] = None,
                         block_q: Optional[int] = None,
-                        segment_skip: bool = True, bounds=None):
+                        segment_skip: bool = True, bounds=None,
+                        kv_segment_ids=None):
     """(o (B, T, H, D), lse (B, T, H) fp32, natural log), both
-    differentiable; arguments as flash_attention. q and kv share one ids
-    array."""
-    skip, bounds = _skip_and_bounds(segment_ids, segment_skip, bounds)
+    differentiable; arguments as flash_attention. kv_segment_ids: the kv
+    rows' ids (B, T), None where they are the q rows' `segment_ids`; the
+    mask is q_seg[i] == kv_seg[j], and `bounds` a SegmentBounds of the
+    pair."""
+    if kv_segment_ids is not None and segment_ids is None:
+        raise ValueError("kv_segment_ids needs segment_ids (the q rows' ids)")
+    skip, bounds = _skip_and_bounds(segment_ids, segment_skip, bounds,
+                                    kv_segment_ids)
     cos, sin = (None, None) if rope is None else rope
-    return MhFlashAttentionLse.apply(q, k, v, segment_ids, cos, sin, scale,
-                                     dropout_rate, seed, block_q, block_kv,
-                                     skip, bounds)
+    return MhFlashAttentionLse.apply(q, k, v, segment_ids, kv_segment_ids, cos,
+                                     sin, scale, dropout_rate, seed, block_q,
+                                     block_kv, skip, bounds)
 
 
 # Odd multiplier that mixes the model-axis index into the dropout seed: the

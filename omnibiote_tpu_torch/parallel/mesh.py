@@ -3,15 +3,18 @@
 Port of `omnibiote_tpu/parallel/mesh.py`. One process drives one GPU, as
 `torchrun` starts them (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
 MASTER_PORT); the ranks form a `torch.distributed.device_mesh.DeviceMesh`
-with the JAX axis names 'data' and 'model', laid out as the JAX package
-reshapes its device list (rank = data_index * n_model + model_index).
+with the JAX axis names 'data' and 'model' (or 'data' and 'seq' for
+sequence parallelism), laid out as the JAX package reshapes its device list
+(rank = data_index * n_model + model_index).
 
 The global batch is split over 'data' by rows: data rank d holds rows
 [d·per, (d+1)·per) of every micro-batch, the layout of JAX's
-`shard_batch_pytree`. Where GSPMD inserts collectives, the port writes
-them out: gradients are reduced once per step after accumulation
-(training/train.py), scalar metrics are all-reduced, and the
-tensor-parallel layers carry their own (parallel/tensor.py).
+`shard_batch_pytree`; with a 'seq' axis, seq rank s also holds only
+positions [s·Tl, (s+1)·Tl) of them. Where GSPMD inserts collectives, the
+port writes them out: gradients are reduced once per step after
+accumulation (training/train.py), scalar metrics are all-reduced, the
+tensor-parallel layers carry their own (parallel/tensor.py), and so does
+the ring (ops/ring_attention.py).
 
 The backend follows the device: NCCL for CUDA, gloo for the CPU.
 """
@@ -28,6 +31,7 @@ from ..utils.device import resolve_device
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+SEQ_AXIS = "seq"     # the sequence axis of sp and dp x sp meshes
 
 
 def _free_port() -> int:
@@ -112,16 +116,21 @@ def _rows(v, lo: int, hi: int, batch_dim: int):
     return v[tuple(idx)]
 
 
-def shard_batch_pytree(mesh, batch: dict, batch_dim: int = 0) -> dict:
-    """This rank's rows of a global batch dict: data rank d takes rows
-    [d·per, (d+1)·per) of dimension `batch_dim` (per = rows / n_data)."""
-    n = axis_size(mesh, DATA_AXIS)
-    d = axis_index(mesh, DATA_AXIS)
-    out = {}
-    for k, v in batch.items():
-        rows = v.shape[batch_dim]
-        if rows % n:
-            raise ValueError(f"{k}: {rows} rows do not split over {n} data ranks")
-        per = rows // n
-        out[k] = _rows(v, d * per, (d + 1) * per, batch_dim)
+def shard_batch_pytree(mesh, batch: dict, batch_dim: int = 0,
+                       seq_dim: Optional[int] = None) -> dict:
+    """This rank's tile of a global batch dict: data rank d takes rows
+    [d·per, (d+1)·per) of dimension `batch_dim` (per = rows / n_data), and
+    with seq_dim, seq rank s positions [s·Tl, (s+1)·Tl) of that dimension
+    (Tl = its length / n_seq)."""
+    cuts = [(batch_dim, DATA_AXIS)] + ([] if seq_dim is None else [(seq_dim, SEQ_AXIS)])
+    out = dict(batch)
+    for dim, axis in cuts:
+        n, i = axis_size(mesh, axis), axis_index(mesh, axis)
+        for k, v in out.items():
+            size = v.shape[dim]
+            if size % n:
+                raise ValueError(f"{k}: {size} entries of dimension {dim} do not "
+                                 f"split over {n} {axis} ranks")
+            per = size // n
+            out[k] = _rows(v, i * per, (i + 1) * per, dim)
     return out

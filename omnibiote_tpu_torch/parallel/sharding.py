@@ -13,7 +13,12 @@ and the train step runs the collectives itself:
     step the ranks all-gather the compute-dtype copy, and reduce-scatter
     the gradients;
   * 'tp' / 'fsdp+tp' — Megatron splits over 'model' (parallel/tensor.py),
-    fsdp over 'data' on the largest dimension still free.
+    fsdp over 'data' on the largest dimension still free;
+  * 'sp' — sequence parallelism: every rank holds everything (as
+    'replicated') on a ('seq',) or ('data', 'seq') mesh; a rank's batch
+    tile is its rows and its block of positions, so the gradients are
+    all-reduced over both axes, and the seq axis's ranks share the ring
+    (ops/ring_attention.py).
 
 The rule is applied to the JAX leaf's shape — stacked blocks (L, ...),
 linear weights (in, out) — and mapped onto the port's per-layer (out, in)
@@ -34,9 +39,9 @@ import torch.distributed as dist
 
 from ..config import OmniBioTAConfig
 from ..utils.convert import torch_leaf_map
-from .mesh import DATA_AXIS, MODEL_AXIS
+from .mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS
 
-MODES = ("replicated", "fsdp", "tp", "fsdp+tp")
+MODES = ("replicated", "fsdp", "tp", "fsdp+tp", "sp")
 
 
 def _tp_spec(key: str, ndim: int) -> Tuple:
@@ -97,7 +102,8 @@ class Placement:
     fsdp splits a stacked leaf's layer axis, the whole tensor held by data
     rank `layer_owner` alone. `model_partial`: held whole, used in part by
     the tp forward (c_attn's and c_fc's biases), so its gradients are
-    summed over 'model'."""
+    summed over 'model'. seq_index: this rank's place on a seq axis, which
+    holds every tensor whole."""
     name: str
     jax_key: str
     layer: Optional[int]
@@ -111,6 +117,7 @@ class Placement:
     n_data: int
     data_index: int
     model_index: int
+    seq_index: int = 0
 
     @property
     def data_split(self) -> bool:
@@ -159,7 +166,7 @@ class Placement:
         model_ok = bool(self.model_ranges) or self.model_index == 0
         if self.layer_owner is not None and self.layer_owner != self.data_index:
             return False
-        return data_ok and model_ok
+        return data_ok and model_ok and self.seq_index == 0
 
     def jax_pieces(self, shard: torch.Tensor):
         """[(JAX-layout index, piece)] of this rank's shard within the JAX
@@ -190,7 +197,7 @@ class Placement:
 
 
 def plan_placements(cfg: OmniBioTAConfig, mode: str, n_data: int, n_model: int,
-                    data_index: int = 0, model_index: int = 0
+                    data_index: int = 0, model_index: int = 0, seq_index: int = 0
                     ) -> Dict[str, Placement]:
     """{torch name: Placement} of every parameter of the port's model."""
     specs = param_pspecs(jax_leaf_shapes(cfg), mode, n_data, n_model)
@@ -224,7 +231,8 @@ def plan_placements(cfg: OmniBioTAConfig, mode: str, n_data: int, n_model: int,
             data_dim=data_dim,
             layer_owner=(layer // (cfg.n_layer // n_data)
                          if lead == DATA_AXIS else None),
-            n_data=n_data, data_index=data_index, model_index=model_index)
+            n_data=n_data, data_index=data_index, model_index=model_index,
+            seq_index=seq_index)
     return out
 
 
@@ -338,12 +346,14 @@ def norm_weights(names: Sequence[str], placements: Mapping[str, Placement]) -> L
 
 
 class MeshPlan:
-    """A rank's view of its mesh under one sharding mode: its data and
-    model coordinates and groups, its tensor-parallel place (under 'tp' and
-    'fsdp+tp' on a mesh with a 'model' axis, of any size) and the
-    placement of every named parameter."""
+    """A rank's view of its mesh under one sharding mode: its data, model
+    and seq coordinates and groups, its tensor-parallel place (under 'tp'
+    and 'fsdp+tp' on a mesh with a 'model' axis, of any size), its ring
+    (under 'sp'), the group its batch tiles are cut over, and the placement
+    of every named parameter."""
 
     def __init__(self, cfg: OmniBioTAConfig, mode: str, mesh):
+        from ..ops.ring_attention import ring_of
         from .mesh import axis_group, axis_index, axis_size
         from .tensor import TensorParallel
 
@@ -351,6 +361,15 @@ class MeshPlan:
         self.n_data = axis_size(mesh, DATA_AXIS)
         self.data_index = axis_index(mesh, DATA_AXIS)
         self.data_group = axis_group(mesh, DATA_AXIS)
+        self.n_seq = axis_size(mesh, SEQ_AXIS)
+        self.seq_index = axis_index(mesh, SEQ_AXIS)
+        self.ring = None
+        if mode == "sp":
+            self.ring = ring_of(mesh, SEQ_AXIS, DATA_AXIS if self.n_data > 1 else None)
+        # the group over which ranks hold different tiles of the batch: the
+        # data axis, or every rank when the sequence is cut too (the mesh
+        # spans the process group)
+        self.batch_group = dist.group.WORLD if self.n_seq > 1 else self.data_group
         self.tp = None
         if "tp" in mode and MODEL_AXIS in (mesh.mesh_dim_names or ()):
             self.tp = TensorParallel(axis_group(mesh, MODEL_AXIS),
@@ -362,11 +381,16 @@ class MeshPlan:
                     f"by the model axis ({self.tp.size})")
         self.placements = plan_placements(
             cfg, mode, self.n_data, 1 if self.tp is None else self.tp.size,
-            self.data_index, 0 if self.tp is None else self.tp.index)
+            self.data_index, 0 if self.tp is None else self.tp.index,
+            self.seq_index)
 
     def rows(self, local_rows: int) -> Tuple[int, int]:
         """(first, total) of this rank's rows in the global micro-batch."""
         return self.data_index * local_rows, self.n_data * local_rows
+
+    def cols(self, local_len: int) -> Tuple[int, int]:
+        """(first, total) of this rank's positions in the whole sequence."""
+        return self.seq_index * local_len, self.n_seq * local_len
 
     def gather(self, shards: Mapping[str, torch.Tensor],
                dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
@@ -378,11 +402,14 @@ class MeshPlan:
         return all_gather_data(cast, self.placements, self.data_group, self.n_data)
 
     def reduce(self, grads: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        return reduce_grads(grads, self.placements, self.data_group, self.n_data,
+        """The gradients summed over the mesh (over 'data', and over 'seq'
+        where the sequence is cut: `batch_group`)."""
+        return reduce_grads(grads, self.placements, self.batch_group, self.n_data,
                             None if self.tp is None else self.tp.group)
 
-    def sum_over_data(self, *scalars: torch.Tensor) -> List[torch.Tensor]:
-        """Each 0-d tensor summed over 'data' (one all-reduce)."""
+    def sum_over_batch(self, *scalars: torch.Tensor) -> List[torch.Tensor]:
+        """Each 0-d tensor summed over every axis the batch is cut on (one
+        all-reduce over `batch_group`)."""
         flat = torch.stack([s.double() for s in scalars])
-        dist.all_reduce(flat, group=self.data_group)
+        dist.all_reduce(flat, group=self.batch_group)
         return [f.to(s.dtype) for f, s in zip(flat, scalars)]

@@ -14,11 +14,21 @@ every block. Under torchrun, one process a GPU, the world is the mesh:
         --sharding fsdp --multihost ...
 
 --sharding replicated (DDP, the default), fsdp (--FSDP), tp and fsdp+tp,
---mesh_shape over ('data', 'model'); --multihost gives each rank a pipeline
-of its own (data_hosts = the world size, as jax.process_count() in the JAX
-CLI), else every rank builds the same global stream and takes its rows.
-Only rank 0 logs. --sharding sp and pp raise NotImplementedError (ROADMAP
-Queue 1, items 9b and 9c).
+--mesh_shape over ('data', 'model'); --sharding sp (ring attention) with
+--mesh_shape N (the whole mesh the sequence axis) or D S (('data', 'seq'),
+dp x sp), e.g. at ctx 4096 over 4 GPUs:
+
+    torchrun --nproc_per_node 4 -m omnibiote_tpu_torch.training.cli \
+        --sharding sp --mesh_shape 4 --ctx_len 4096 ...
+
+and on one GPU a ring of one. --multihost gives each data group a pipeline
+of its own (data_hosts = the mesh's data-axis size, host_id = the rank's
+data index, as jax.process_count() / process_index() are in the JAX CLI,
+whose processes each hold a whole model group): the ranks of one data
+group build the same pipeline; without it every rank builds the same
+global stream and takes its rows. sp with more than one data host raises,
+as in the JAX Trainer. Only rank 0 logs. --sharding pp raises
+NotImplementedError (ROADMAP Queue 1, item 9c).
 """
 from __future__ import annotations
 
@@ -31,7 +41,7 @@ from ..config import OmniBioTAConfig, TrainConfig
 from ..data.loader import build_pipeline
 from .checkpoint import latest_checkpoint
 from .metrics import JsonlSink, MultiSink, WandbSink
-from .train import Trainer
+from .train import Trainer, choose_mesh
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -108,8 +118,6 @@ def main(argv=None):
         init_distributed(args.device)
         rank, world = dist.get_rank(), dist.get_world_size()
         print(f"rank {rank} of {world}")
-    # one pipeline a rank (its stripe of the shard files), as one a host
-    data_hosts = world if args.multihost else 1
     sharding = args.sharding or ("fsdp" if args.FSDP else "replicated")
     attn_impl = "xla" if args.disable_flash else "flash"
     if sharding == "sp":
@@ -135,13 +143,21 @@ def main(argv=None):
         mesh_shape=tuple(args.mesh_shape) if args.mesh_shape else None,
         moment_dtype=args.moment_dtype, grad_dtype=args.grad_dtype)
 
+    # one pipeline a data group (its stripe of the shard files), as one a
+    # host in the JAX CLI
+    mesh, data_hosts, host_id = None, 1, 0
+    if args.multihost:
+        from ..parallel.mesh import DATA_AXIS, axis_index, axis_size
+        mesh = choose_mesh(train_cfg, args.device)
+        data_hosts, host_id = axis_size(mesh, DATA_AXIS), axis_index(mesh, DATA_AXIS)
+
     train_dirs, val_dirs, val_names, proportions = train_cfg.mixture
     banned = [args.banned_token] if args.banned_token is not None else []
     batch_iter, reader_states = build_pipeline(
         args.base_dir, train_dirs, proportions,
         batch_size=args.batch_size, ctx_len=args.ctx_len,
         use_padding=args.use_padding, banned_tokens=banned, seed=args.seed,
-        num_hosts=data_hosts, host_id=rank if data_hosts > 1 else 0)
+        num_hosts=data_hosts, host_id=host_id)
     val_iters = {}
     for name, vdir in zip(val_names, val_dirs):
         vit, _ = build_pipeline(
@@ -158,7 +174,8 @@ def main(argv=None):
         WandbSink(args.wandb_project_name, enabled=args.wandb and rank == 0))
     trainer = Trainer(model_cfg, train_cfg, batch_iter=batch_iter,
                       reader_states=reader_states, metrics_sink=sink,
-                      prefetch=2, data_hosts=data_hosts, device=args.device)
+                      prefetch=2, data_hosts=data_hosts, device=args.device,
+                      mesh=mesh)
     try:
         if args.resume_from:
             if args.resume_from < 0:

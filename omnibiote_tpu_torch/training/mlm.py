@@ -16,11 +16,14 @@ The compaction is an integer gather of the masked positions, in order, not
 the JAX package's fp32 one-hot contractions: the labels are exact by
 construction and the cost is linear in T.
 
-On a data-parallel mesh a rank holds some rows of the global micro-batch:
-its masks are those rows of the global draw (`mask_rows`), and its loss is
+On a data-parallel mesh a rank holds some rows of the global micro-batch
+(and under sequence parallelism a block of their positions): its masks are
+that tile of the global draw (`mask_rows`, `mask_cols`), and its loss is
 its masked-NLL sum over the global masked count (`count_group`), so the
 ranks' losses and gradients sum to the global micro-batch's, as GSPMD sums
-the JAX package's global arrays. Under tensor parallelism (`model.tp`) the
+the JAX package's global arrays. The compaction runs on the rank's block,
+at the block's capacity: the JAX package's sequence-parallel compaction
+(`max(Tl·capacity_frac, 8)` a block). Under tensor parallelism (`model.tp`) the
 head is vocab-parallel: the fused cross-entropy over the rank's block of
 the vocabulary, its lse combined over the model axis.
 """
@@ -47,15 +50,20 @@ def _default_capacity_frac(mask_prob: float) -> float:
 
 def make_mlm_mask(gen: torch.Generator, tokens: torch.Tensor,
                   mask_prob: float = 0.15,
-                  rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+                  rows: Optional[Tuple[int, int]] = None,
+                  cols: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Bernoulli(p) mask excluding PAD and EOS (train_encoder.py:276-278),
     drawn from `gen` on the tokens' device. rows=(first, total): `tokens`
-    are rows first.. of a batch of `total` rows, and get those rows of the
-    whole batch's draw."""
-    shape = tokens.shape if rows is None else (rows[1], *tokens.shape[1:])
+    are rows first.. of a batch of `total` rows; cols=(first, total): they
+    are positions first.. of sequences of `total`; either way they get that
+    tile of the whole batch's draw."""
+    B, T = tokens.shape
+    shape = (B if rows is None else rows[1], T if cols is None else cols[1])
     bern = torch.rand(shape, generator=gen, device=tokens.device) < mask_prob
     if rows is not None:
-        bern = bern[rows[0]:rows[0] + tokens.shape[0]]
+        bern = bern[rows[0]:rows[0] + B]
+    if cols is not None:
+        bern = bern[:, cols[0]:cols[0] + T]
     return bern & (tokens != PAD_TOKEN) & (tokens != EOS_TOKEN)
 
 
@@ -89,7 +97,8 @@ def mlm_loss(model: OmniBioTA, tokens: torch.Tensor,
              capacity_frac: Optional[float] = None,
              mask: Optional[torch.Tensor] = None,
              params: Optional[Mapping[str, torch.Tensor]] = None,
-             mask_rows: Optional[Tuple[int, int]] = None, count_group=None
+             mask_rows: Optional[Tuple[int, int]] = None,
+             mask_cols: Optional[Tuple[int, int]] = None, count_group=None
              ) -> Tuple[torch.Tensor, dict]:
     """Masked-mean cross-entropy of one micro-batch: (loss, aux) with aux
     {'masked_count', 'num_tokens'} (0-d tensors on the tokens' device).
@@ -99,9 +108,10 @@ def mlm_loss(model: OmniBioTA, tokens: torch.Tensor,
     (parity tests). params: parameters to run the model with instead of
     its own (`torch.func.functional_call`), e.g. the train step's bf16
     compute copy. mask_rows=(first, total): the tokens are those rows of
-    the global micro-batch, whose mask is drawn whole. count_group: the
-    data-axis group; the loss divides by the masked count summed over it
-    (aux's counts stay this rank's)."""
+    the global micro-batch, whose mask is drawn whole; mask_cols likewise
+    for a block of positions. count_group: the group the batch is cut over;
+    the loss divides by the masked count summed over it (aux's counts stay
+    this rank's)."""
     cfg = model.cfg
     if capacity_frac is None:
         capacity_frac = _default_capacity_frac(mask_prob)
@@ -109,7 +119,7 @@ def mlm_loss(model: OmniBioTA, tokens: torch.Tensor,
     if mask is None:
         gen = torch.Generator(device=tokens.device)
         gen.manual_seed(mask_seed & 0x7FFFFFFFFFFFFFFF)
-        mask = make_mlm_mask(gen, tokens, mask_prob, rows=mask_rows)
+        mask = make_mlm_mask(gen, tokens, mask_prob, rows=mask_rows, cols=mask_cols)
     masked_ids = apply_mlm_mask(tokens, mask)
 
     kwargs = dict(deterministic=deterministic, rng=drop_seed,

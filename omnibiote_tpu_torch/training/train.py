@@ -22,15 +22,19 @@ Every single-device mode of the JAX Trainer runs, rematerialisation
 (fused_ce, ops/fused_ce.py) included.
 
 On a mesh (one process a GPU under torchrun, parallel/mesh.py) the sharding
-modes 'replicated' (DDP), 'fsdp', 'tp' and 'fsdp+tp' run
+modes 'replicated' (DDP), 'fsdp', 'tp', 'fsdp+tp' and 'sp' run
 (parallel/sharding.py): a data rank takes its rows of every global
 micro-batch (or, with data_hosts > 1, its own pipeline's rows), draws its
 rows of the global MLM masks and divides its loss by the global masked
 count; the gradients are reduced once a step after accumulation (fsdp:
 the compute copy is all-gathered and the gradients reduce-scattered once a
-step), and the metrics are summed over 'data'. Sequence parallelism
-('sp', attn_impl='ring') and the pipeline ('pp', 'fsdp+pp') raise
-NotImplementedError (ROADMAP Queue 1, items 9b and 9c).
+step), and the metrics are summed over 'data'. Sequence parallelism ('sp',
+attn_impl='ring', the JAX Trainer's mesh: the whole mesh the 'seq' axis,
+or a 2-D ('data', 'seq') mesh for dp x sp) goes through the same step: a
+rank's tile is its rows and its block of positions, its masks that tile of
+the global draw, and the gradients and metrics are summed over both axes
+(MeshPlan.batch_group). The pipeline ('pp', 'fsdp+pp') raises
+NotImplementedError (ROADMAP Queue 1, item 9c).
 """
 from __future__ import annotations
 
@@ -67,12 +71,15 @@ def _compute_copy(params: Dict[str, torch.Tensor],
 
 def check_ported(model_cfg: OmniBioTAConfig, train_cfg: TrainConfig,
                  data_hosts: int = 1) -> None:
-    """Raise on the training modes the port does not have yet: sequence
-    parallelism and the pipeline."""
-    if train_cfg.sharding == "sp" or model_cfg.attn_impl == "ring":
-        raise NotImplementedError(
-            "sharding='sp' / attn_impl='ring' (sequence parallelism) is not "
-            "ported yet (ROADMAP Queue 1, item 9b)")
+    """Raise on the training modes the port does not have yet (the
+    pipeline) and on the ones the JAX Trainer refuses: sharding='sp'
+    without attn_impl='ring', and sp with data_hosts > 1."""
+    if train_cfg.sharding == "sp" and model_cfg.attn_impl != "ring":
+        raise ValueError("sharding='sp' requires attn_impl='ring'")
+    if train_cfg.sharding == "sp" and data_hosts > 1:
+        raise ValueError("data_hosts>1 with sequence sharding is not "
+                         "supported (the seq axis would need per-host "
+                         "slicing too)")
     if train_cfg.sharding in ("pp", "fsdp+pp"):
         raise NotImplementedError(
             f"sharding={train_cfg.sharding!r} (the pipeline) is not ported yet "
@@ -110,10 +117,12 @@ def make_train_step(model: OmniBioTA, model_cfg: OmniBioTAConfig,
     tokens and segments its rows (A, B / n_data, T) of the global
     micro-batches (masks stay global), and the step gathers the compute
     copy, reduces the gradients once after accumulation and sums the
-    metrics over 'data'."""
+    metrics over 'data'. Under 'sp' tokens and segments are the rank's
+    block of positions (A, B / n_data, T / n_seq), and the sums run over
+    'data' and 'seq'."""
     deterministic = model_cfg.dropout == 0.0
     gdt = torch_dtype(train_cfg.grad_dtype)
-    count_group = None if plan is None else plan.data_group
+    count_group = None if plan is None else plan.batch_group
 
     def micro_grad(params_c, tokens, segments, seed, mask):
         loss, aux = mlm_loss(model, tokens, segments, seed,
@@ -121,6 +130,7 @@ def make_train_step(model: OmniBioTA, model_cfg: OmniBioTAConfig,
                              deterministic=deterministic, mask=mask,
                              params=params_c,
                              mask_rows=None if plan is None else plan.rows(tokens.shape[0]),
+                             mask_cols=None if plan is None else plan.cols(tokens.shape[1]),
                              count_group=count_group)
         grads = torch.autograd.grad(loss, list(params_c.values()))
         return loss.detach(), aux, grads
@@ -137,7 +147,8 @@ def make_train_step(model: OmniBioTA, model_cfg: OmniBioTAConfig,
                         plan.gather(params, model_cfg.cdtype()).items()}
             if masks is not None:
                 lo, _ = plan.rows(tokens.shape[1])
-                masks = masks[:, lo:lo + tokens.shape[1]]
+                c0, _ = plan.cols(tokens.shape[2])
+                masks = masks[:, lo:lo + tokens.shape[1], c0:c0 + tokens.shape[2]]
         names = list(params_c)
         dev = tokens.device
         loss_sum = torch.zeros((), device=dev)
@@ -177,7 +188,7 @@ def make_train_step(model: OmniBioTA, model_cfg: OmniBioTAConfig,
         del params_c
         if plan is not None:
             grads = plan.reduce(grads)
-            loss_sum, masked, tokens_seen = plan.sum_over_data(
+            loss_sum, masked, tokens_seen = plan.sum_over_batch(
                 loss_sum, masked, tokens_seen)
         # dtype-preserving divide (bf16 grads stay bf16)
         grads = {n: (g.float() / n_active).to(g.dtype) for n, g in grads.items()}
@@ -195,10 +206,12 @@ def make_eval_step(model: OmniBioTA, model_cfg: OmniBioTAConfig,
     (a sharded trainer's gathered masters), None for its own."""
 
     @torch.no_grad()
-    def eval_step(tokens, segments, rng: int, params=None):
+    def eval_step(tokens, segments, rng: int, params=None, cols=None, group=None):
+        """cols and group: under a ring, the positions the tokens hold and
+        the seq axis's group (the loss is this block's share)."""
         loss, aux = mlm_loss(model, tokens, segments, rng,
                              mask_prob=train_cfg.mask_prob, deterministic=True,
-                             params=params)
+                             params=params, mask_cols=cols, count_group=group)
         return loss, aux["masked_count"]
 
     return eval_step
@@ -220,12 +233,22 @@ def effective_batch_size(step: int, total_iters: int, train_cfg: TrainConfig,
     return (eff // mbs) * mbs
 
 
-def _choose_mesh(train_cfg: TrainConfig, device):
-    """The JAX Trainer's mesh choice: mesh_shape over ('data', 'model'),
-    else every rank on 'model' for a tp mode, else every rank on 'data'."""
-    from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, init_distributed, make_mesh
+def choose_mesh(train_cfg: TrainConfig, device=None):
+    """The JAX Trainer's mesh choice over the process group (started if
+    needed): for 'sp' the whole mesh on 'seq' (a 1-D mesh_shape or none),
+    or a 2-D mesh_shape over ('data', 'seq'); else mesh_shape over ('data',
+    'model'), else every rank on 'model' for a tp mode, else every rank on
+    'data'."""
+    from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, SEQ_AXIS, init_distributed,
+                                 make_mesh)
 
     init_distributed(device)
+    shape = train_cfg.mesh_shape
+    if train_cfg.sharding == "sp":
+        if shape is not None and len(shape) == 2:
+            return make_mesh(tuple(shape), (DATA_AXIS, SEQ_AXIS), device)
+        return make_mesh((dist.get_world_size() if shape is None else shape[0],),
+                         (SEQ_AXIS,), device)
     if train_cfg.mesh_shape is not None:
         return make_mesh(tuple(train_cfg.mesh_shape),
                          (DATA_AXIS, MODEL_AXIS)[:len(train_cfg.mesh_shape)], device)
@@ -249,7 +272,9 @@ class Trainer:
     (starting a group of one if none exists). data_hosts > 1: batch_iter
     yields only this data rank's rows (a pipeline built with num_hosts =
     data_hosts, host_id = the data index); data_hosts must equal the
-    data-axis size."""
+    data-axis size. Under 'sp' a micro-batch is mini_batch_size rows a
+    data rank (the whole mesh's with a 1-D mesh, as in the JAX Trainer),
+    each rank holding its block of their positions."""
 
     def __init__(self, model_cfg: OmniBioTAConfig, train_cfg: TrainConfig,
                  batch_iter=None, reader_states=None, metrics_sink=None,
@@ -264,7 +289,7 @@ class Trainer:
                    or tc.mesh_shape is not None or data_hosts > 1
                    or (dist.is_initialized() and dist.get_world_size() > 1))
         if sharded and mesh is None:
-            mesh = _choose_mesh(tc, device)
+            mesh = choose_mesh(tc, device)
         self.mesh = mesh
         self.plan = MeshPlan(model_cfg, tc.sharding, mesh) if sharded else None
         self.device = mesh_device(mesh) if sharded else resolve_device(device)
@@ -300,7 +325,8 @@ class Trainer:
             self.params = shard_params(full, self.plan.placements)
             del full
             self.model = OmniBioTA(model_cfg, device=self.device, tp=self.plan.tp,
-                                   data_index=self.plan.data_index)
+                                   data_index=self.plan.data_index,
+                                   ring=self.plan.ring)
             _meta_parameters(self.model)
             weights = norm_weights(list(self.params), self.plan.placements)
         self.optimizer = make_optimizer(list(self.params), model_cfg, tc,
@@ -352,7 +378,8 @@ class Trainer:
         micro, T) int32, activity weights as a list of floats). On a mesh,
         micro is this data rank's rows of the global micro-batch: cut from
         the global rows, or, with data_hosts > 1, all that this rank's own
-        pipeline supplies."""
+        pipeline supplies; with a seq axis, T is the rank's block of
+        positions."""
         from ..parallel.mesh import shard_batch_pytree
 
         A, micro = self.accum_slots, self.global_micro
@@ -371,8 +398,9 @@ class Trainer:
         weights = [1.0] * active + [0.0] * (A - active)
         batch = {"tokens": tokens, "segments": segments}
         if hosts == 1 and self.plan is not None:
-            batch = {k: np.ascontiguousarray(v) for k, v in
-                     shard_batch_pytree(self.mesh, batch, batch_dim=1).items()}
+            seq_dim = 2 if self.plan.n_seq > 1 else None
+            batch = {k: np.ascontiguousarray(v) for k, v in shard_batch_pytree(
+                self.mesh, batch, batch_dim=1, seq_dim=seq_dim).items()}
         return batch, weights
 
     def _staged_stream(self):
@@ -553,14 +581,23 @@ class Trainer:
     def eval_loss(self, tokens, segments) -> float:
         """Validation loss; its masks come from a stream of its own, so
         probes never shift the training stream. On a mesh every rank
-        evaluates the whole batch with the gathered fp32 masters."""
+        evaluates the whole batch with the gathered fp32 masters; under
+        'sp' through the ring, each rank its block of positions."""
         seed = int(np.random.SeedSequence([self.rng, 0x0E7A1, self._eval_n])
                    .generate_state(1, np.uint64)[0])
         self._eval_n += 1
         params = None if self.plan is None else self.plan.gather(self.params)
-        loss, _ = self._eval_step(torch.as_tensor(np.asarray(tokens)).to(self.device),
-                                  torch.as_tensor(np.asarray(segments)).to(self.device),
-                                  seed, params)
+        tokens, segments = (torch.as_tensor(np.asarray(x)).to(self.device)
+                            for x in (tokens, segments))
+        if self.plan is None or self.plan.n_seq == 1:
+            return float(self._eval_step(tokens, segments, seed, params)[0])
+        # every data rank takes all the rows, each seq rank its positions
+        first, total = self.plan.cols(tokens.shape[1] // self.plan.n_seq)
+        cut = slice(first, first + total // self.plan.n_seq)
+        group = self.plan.ring.group
+        loss, _ = self._eval_step(tokens[:, cut], segments[:, cut], seed, params,
+                                  cols=(first, total), group=group)
+        dist.all_reduce(loss, group=group)
         return float(loss)
 
     # -- checkpointing -----------------------------------------------------

@@ -369,17 +369,26 @@ def test_fit_block_matches_jax(T, want):
 
 @pytest.mark.parametrize("kw", [dict(impl="ring"), dict(tp_mesh=object())])
 def test_unported_modes_raise(kw):
-    """Ring attention raises. A tensor-parallel call (tp_mesh: the rank's
-    place on the model axis) is ported: it runs flash_attention_tp on the
-    rank's heads, the dropout seed mixed with the model-axis index, which
-    at index 0 is the plain call's."""
+    """Both modes are ported. Ring attention with no ring mesh is a ring of
+    one (RoPE applied before it, the flash body): the flash path's output
+    at fp32 rounding; a causal ring call raises, as in the JAX dispatch. A
+    tensor-parallel call (tp_mesh: the rank's place on the model axis)
+    runs flash_attention_tp on the rank's heads, the dropout seed mixed
+    with the model-axis index, which at index 0 is the plain call's."""
+    from omnibiote_tpu_torch.models.rope import rope_tables
     from omnibiote_tpu_torch.ops.flash_attention import tp_seed
     from omnibiote_tpu_torch.parallel.tensor import TensorParallel
 
-    q = torch.zeros(1, 128, 1, 128)
     if "impl" in kw:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            port_attention.attention(q, q, q, scale=0.1, **kw)
+        g = torch.Generator().manual_seed(1)
+        q, k, v = (torch.randn(2, 256, 2, 128, generator=g) for _ in range(3))
+        seg = torch.cumsum((torch.rand(2, 256, generator=g) < 0.02).int(), 1).int()
+        common = dict(scale=0.1, segment_ids=seg, rope=rope_tables(128, 256))
+        got = port_attention.attention(q, k, v, **common, **kw)
+        torch.testing.assert_close(got, port_attention.attention(q, k, v, **common),
+                                   rtol=1e-5, atol=1e-5)
+        with pytest.raises(ValueError, match="no causal support"):
+            port_attention.attention(q, k, v, causal=True, **common, **kw)
         return
     g = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn(2, 128, 2, 128, generator=g) for _ in range(3))

@@ -456,9 +456,11 @@ def test_cli_runs_end_to_end(tmp_path):
 # ---------------------------------------------------------------------------
 
 # The modes this package has since ported (fused_ce, checkpoint_freq > 0,
-# the sharding modes and per-rank data) keep their cases here, now as checks
-# that the mode runs (in a process group of one rank) or refuses a mesh the
-# world cannot hold; sequence parallelism and the pipeline still raise.
+# the sharding modes, per-rank data and sequence parallelism) keep their
+# cases here, now as checks that the mode runs (in a process group of one
+# rank) or refuses a mesh the world cannot hold, or a configuration the JAX
+# Trainer refuses (sharding='sp' without attn_impl='ring'); the pipeline
+# still raises.
 PORTED = ("fused_ce", "checkpoint_freq", "sharding", "multihost", "FSDP")
 
 
@@ -476,14 +478,19 @@ PORTED = ("fused_ce", "checkpoint_freq", "sharding", "multihost", "FSDP")
     ({}, dict(sharding="fsdp+pp"), 1),
 ])
 def test_unported_modes_raise(model_kw, train_kw, hosts):
-    """Sequence parallelism and the pipeline raise; the ported modes take a
-    Trainer step with finite metrics, the sharded ones on a mesh of this
-    one process; a mesh_shape or a data_hosts the world cannot hold is a
-    ValueError."""
+    """The pipeline raises; the ported modes take a Trainer step with
+    finite metrics, the sharded ones on a mesh of this one process (a ring
+    of one for attn_impl='ring'); a mesh_shape or a data_hosts the world
+    cannot hold is a ValueError, and so is sharding='sp' without
+    attn_impl='ring', as in the JAX Trainer."""
     cfg = port.OmniBioTAConfig(**dict(TINY, **model_kw))
     tc = TrainConfig(batch_size=8, mini_batch_size=4, ctx_len=64, **train_kw)
-    if model_kw.get("attn_impl") == "ring" or tc.sharding in ("sp", "pp", "fsdp+pp"):
+    if tc.sharding in ("pp", "fsdp+pp"):
         with pytest.raises(NotImplementedError, match="not ported"):
+            port_train.Trainer(cfg, tc, device="cpu", data_hosts=hosts)
+        return
+    if tc.sharding == "sp" and cfg.attn_impl != "ring":
+        with pytest.raises(ValueError, match="requires attn_impl='ring'"):
             port_train.Trainer(cfg, tc, device="cpu", data_hosts=hosts)
         return
     if tc.mesh_shape == (2,) or hosts > 1:
@@ -502,12 +509,13 @@ def test_unported_modes_raise(model_kw, train_kw, hosts):
                                   ["--checkpoint_freq", "1"], ["--sharding", "sp"],
                                   ["--sharding", "pp"]])
 def test_cli_unported_flags_raise(tmp_path, flag):
-    """--sharding sp and pp raise; the ported flags train a step (the
-    multi-device ones on a mesh of this one process)."""
+    """--sharding pp raises; the ported flags train a step (the
+    multi-device ones on a mesh of this one process, sp as a ring of
+    one)."""
     _shards(str(tmp_path))
     argv = ["--base_dir", str(tmp_path), "--n_layer", "1", "--n_embd", "128",
             "--n_head", "1", "--ctx_len", "128", "--device", "cpu", *flag]
-    if flag[0].lstrip("-") in PORTED and flag[-1] not in ("sp", "pp"):
+    if flag[0].lstrip("-") in PORTED and flag[-1] != "pp":
         log = tmp_path / "m.jsonl"
         tr = port_cli.main(argv + ["--mini_batch_size", "2", "--batch_size", "2",
                                    "--max_steps", "1", "--test_freq", "1e9",
@@ -516,6 +524,7 @@ def test_cli_unported_flags_raise(tmp_path, flag):
         assert tr.step == 1
         assert tr.model_cfg.checkpoint_freq == (1 if "--checkpoint_freq" in flag else 0)
         assert tr.data_hosts == 1
+        assert (tr.model_cfg.attn_impl == "ring") == (flag[-1] == "sp")
         import json
         losses = [json.loads(l)["loss"] for l in log.read_text().splitlines()]
         assert len(losses) == 1 and np.isfinite(losses[0])

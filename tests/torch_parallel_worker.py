@@ -125,6 +125,14 @@ def _np(x):
     return x
 
 
+def _mesh(case):
+    """The case's DeviceMesh: its shape over its axes (by default 'data',
+    then 'model')."""
+    from omnibiote_tpu_torch.parallel.mesh import make_mesh
+    shape = tuple(case["mesh"])
+    return make_mesh(shape, case.get("axes", ("data", "model")[:len(shape)]), device="cpu")
+
+
 def _trainer(case, mesh, **kw):
     import omnibiote_tpu_torch as port
     from omnibiote_tpu_torch.config import TrainConfig
@@ -181,14 +189,14 @@ def case_train(case):
     package's parameters where the case has them (else its own seeded
     init), with the case's global masks where its steps have them (else
     the rank's rows of its own global draw); metrics, final pieces, shard
-    shapes."""
-    from omnibiote_tpu_torch.parallel.mesh import make_mesh
-    mesh = make_mesh(case["mesh"], ("data", "model")[:len(case["mesh"])], device="cpu")
-    tr = _trainer(case, mesh, batch_iter=_global_batches(case["steps"]))
+    shapes, and a validation probe on the first micro-batch after them."""
+    tr = _trainer(case, _mesh(case), batch_iter=_global_batches(case["steps"]))
     if "params" in case:
         _load_jax_params(tr, case["params"])
     metrics = [_step(tr, s.get("masks"))[0] for s in case["steps"]]
+    probe = case["steps"][0]
     return {"metrics": metrics, **_pieces(tr),
+            "eval": tr.eval_loss(probe["tokens"][0], probe["segments"][0]),
             "shapes": {n: tuple(p.shape) for n, p in tr.params.items()},
             "mu_shapes": {n: tuple(p.shape) for n, p in tr.opt_state.mu.items()}}
 
@@ -252,10 +260,10 @@ def case_dropout(case):
     seen = {"resid": [], "attn": []}
     plain_dropout, plain_flash = omnibiota._dropout, fa.flash_attention
 
-    def dropout(x, rate, seed):
+    def dropout(x, rate, seed, cols=None):
         if seed is not None and rate > 0:
-            seen["resid"].append(_np(plain_dropout(torch.ones_like(x), rate, seed) != 0))
-        return plain_dropout(x, rate, seed)
+            seen["resid"].append(_np(plain_dropout(torch.ones_like(x), rate, seed, cols) != 0))
+        return plain_dropout(x, rate, seed, cols)
 
     def flash(q, k, v, *a, seed=0, dropout_rate=0.0, **kw):
         # the mask of the seed the kernels' stream gets
@@ -353,15 +361,107 @@ def case_checkpoint(case):
     return out
 
 
+def case_ring(case):
+    """ring_attention over the case's seq axis (P2P over gloo), the flash
+    body: this rank's block of o and of the gradients of q, k and v under
+    the case's cotangent."""
+    import torch
+    from omnibiote_tpu_torch.ops.ring_attention import ring_attention
+    mesh = _mesh(case)
+    i, n = mesh.get_local_rank("seq"), mesh.size(0)
+    Tl = case["q"].shape[1] // n
+    cut = lambda x: torch.as_tensor(x[:, i * Tl:(i + 1) * Tl]).contiguous()
+    q, k, v = (cut(case[x]).requires_grad_() for x in "qkv")
+    o = ring_attention(q, k, v, cut(case["seg"]), scale=case["scale"], mesh=mesh,
+                       use_flash=True)
+    grads = torch.autograd.grad(o, (q, k, v), cut(case["g"]))
+    return {"index": i, "o": _np(o), "grads": [_np(g) for g in grads]}
+
+
+def case_resume(case):
+    """A trainer on the case's mesh from its seed, drawing its own masks:
+    steps, a pod-sharded save, one more step (the unbroken run); then a
+    fresh trainer (another seed) restored from the save takes that step."""
+    from omnibiote_tpu_torch.training.checkpoint import restore_into_trainer
+    mesh, at = _mesh(case), case["save_at"]
+    tr = _trainer(case, mesh, batch_iter=_global_batches(case["steps"]))
+    for _ in range(at):
+        _step(tr)
+    path = tr.save_checkpoint()
+    m, _ = _step(tr)
+    t2 = _trainer(dict(case, tc=dict(case["tc"], seed=case["tc"]["seed"] + 1)), mesh,
+                  batch_iter=_global_batches(case["steps"][at:]))
+    restore_into_trainer(t2, path)
+    resumed_at = (t2.step, t2.rng == tr.rng)
+    m2, _ = _step(t2)
+    return {"unbroken": {"metrics": m, **_pieces(tr)},
+            "resumed": {"metrics": m2, **_pieces(t2)}, "resumed_at": resumed_at}
+
+
+def case_multihost(case):
+    """The training CLI with --multihost on the case's mesh (a pipeline a
+    data group), then the same run without it: a Trainer on the same mesh
+    fed the global rows those pipelines make (each slot the data groups'
+    rows in data order). Both runs' final pieces, and whether they are
+    equal bit for bit."""
+    import json
+
+    import numpy as np
+    import torch.distributed as dist
+    from omnibiote_tpu_torch.data.loader import build_pipeline
+    from omnibiote_tpu_torch.parallel.mesh import DATA_AXIS, axis_size
+    from omnibiote_tpu_torch.training import cli
+    from omnibiote_tpu_torch.training.train import Trainer, choose_mesh
+
+    out_dir = os.path.join(case["workdir"], f"multihost_{case['name']}")
+    argv = [*case["argv"], "--save_dir", out_dir, "--device", "cpu",
+            "--metrics_jsonl", os.path.join(out_dir, "m.jsonl"), "--log_every", "1"]
+    multi = cli.main(argv + ["--multihost"])
+    tc, cfg = multi.train_cfg, multi.model_cfg
+    mesh = choose_mesh(tc, "cpu")
+    n = axis_size(mesh, DATA_AXIS)
+    A, micro_l = multi.accum_slots, multi.global_micro // n
+    its = [build_pipeline(tc.base_dir, tc.mixture[0], tc.mixture[3],
+                          batch_size=tc.batch_size, ctx_len=tc.ctx_len, seed=tc.seed,
+                          num_hosts=n, host_id=d)[0] for d in range(n)]
+
+    def global_rows():
+        while True:
+            parts = [next(it) for it in its]
+            yield {k: np.concatenate([p[k][i * micro_l:(i + 1) * micro_l]
+                                      for i in range(A) for p in parts])
+                   for k in ("tokens", "segments")}
+
+    single = Trainer(cfg, tc, batch_iter=global_rows(), mesh=mesh, device="cpu")
+    losses = [float(single.train_step_once()["loss"]) for _ in range(multi.step)]
+    a, b = _pieces(multi), _pieces(single)
+    equal = all(a[part].keys() == b[part].keys() and all(
+        np.array_equal(a[part][k], b[part][k]) for k in a[part]) for part in a)
+    dist.barrier()
+    logged = []
+    if dist.get_rank() == 0:
+        with open(os.path.join(out_dir, "m.jsonl")) as f:
+            logged = [json.loads(l)["loss"] for l in f if '"loss"' in l]
+    return {"equal": equal, "losses": losses, "logged": logged,
+            "data_hosts": multi.data_hosts, "steps": multi.step,
+            "n_pieces": len(a["params"])}
+
+
 CASES = {"train": case_train, "forward": case_forward, "encoder": case_encoder,
-         "dropout": case_dropout, "checkpoint": case_checkpoint}
+         "dropout": case_dropout, "checkpoint": case_checkpoint, "ring": case_ring,
+         "resume": case_resume, "multihost": case_multihost}
 
 
 def main(case_file, out_dir):
+    import datetime
+
     import torch_threads  # noqa: F401  (one intra-op thread)
     import torch.distributed as dist
     from omnibiote_tpu_torch.parallel.mesh import init_distributed
 
+    # every wait of the group (the ring's P2P included: it runs on this
+    # group) fails after 120 s instead of hanging the run
+    dist.init_process_group("gloo", timeout=datetime.timedelta(seconds=120))
     init_distributed("cpu")
     with open(case_file, "rb") as f:
         cases = pickle.load(f)

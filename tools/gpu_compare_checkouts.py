@@ -11,10 +11,14 @@ builds that side's kernels, in the order other, this, this, other, so that
 a drift of the card over the call falls on both sides alike. A process
 times, with `chip_smoke.py`'s own helpers and inputs:
 
-  * the split pair #4 (`mh_flash_bwd_dkv`) and #5 (`mh_flash_bwd_dq`) at
+  * the forward #1 and the fused backward #2 at the training shape, B=16
+    T=1024, bench.py's rows (three EOS), RoPE, dropout 0.1, with segment
+    skipping (CUDA events over 20 launches);
+  * #1, the fused multi-kv backward #3 (`mh_flash_bwd_mk`) and the split
+    pair #4 (`mh_flash_bwd_dkv`) and #5 (`mh_flash_bwd_dq`) at
     bench_longctx.py's shapes, B=8 T=2048 and B=4 T=4096, five EOS a row,
     RoPE, dropout 0.1, with segment skipping and without (CUDA events over
-    10 launches);
+    10 launches; #1 and #3 with skipping only);
   * the per-head entry's #7 (`flash_bwd_dkv`) and #8 (`flash_bwd_dq`) at
     B=16 T=1024, bench.py's rows, dropout 0.1, no RoPE (20 launches);
   * `encode(mean)` seq/s at B=32 T=1024 (omnibiote-small, random weights);
@@ -98,6 +102,11 @@ def measure(root, probes=False):
         o, lse = fa.mh_flash_forward(q, k, v, seg, rope, segment_skip=True, bounds=sb, **kw)
         di = (o.float() * do.float()).sum(-1)
         args = (q, k, v, do, lse, di, seg, rope)
+        out[f"mh_flash_fwd B={B} T={T} skip ms"] = c.cuda_ms(
+            lambda: fa.mh_flash_forward(q, k, v, seg, rope, segment_skip=True, bounds=sb,
+                                        **kw), 10)
+        out[f"mh_flash_bwd_mk B={B} T={T} skip ms"] = c.cuda_ms(
+            lambda: fa.mh_flash_backward(*args, **kw, segment_skip=True, bounds=sb), 10)
         for name, f in (("mh_flash_bwd_dkv", fa.mh_flash_bwd_dkv),
                         ("mh_flash_bwd_dq", fa.mh_flash_bwd_dq)):
             out[f"{name} B={B} T={T} skip ms"] = c.cuda_ms(
@@ -105,6 +114,19 @@ def measure(root, probes=False):
             out[f"{name} B={B} T={T} all tiles ms"] = c.cuda_ms(lambda: f(*args, **kw), 10)
         del q, k, v, do, o, lse, di, args
     B, T = c.TRAIN_SHAPE["B"], c.TRAIN_SHAPE["T"]
+    q, k, v, _, rope = c._attn_inputs(B, T, H, D, torch.bfloat16, "dense", 976)
+    seg = torch.from_numpy(next(c.bench_batches(B, T, seed=976))["segments"]).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(979)
+    do = torch.randn(B, T, H, D, generator=gen, device="cuda").bfloat16()
+    sb = fa.SegmentBounds(seg)
+    kw = dict(scale=scale, dropout_rate=c.TRAIN_DROPOUT, seed=4243)
+    o, lse = fa.mh_flash_forward(q, k, v, seg, rope, segment_skip=True, bounds=sb, **kw)
+    args = (q, k, v, do, lse, (o.float() * do.float()).sum(-1), seg, rope)
+    out[f"mh_flash_fwd B={B} T={T} skip ms"] = c.cuda_ms(
+        lambda: fa.mh_flash_forward(q, k, v, seg, rope, segment_skip=True, bounds=sb, **kw), 20)
+    out[f"mh_flash_bwd B={B} T={T} skip ms"] = c.cuda_ms(
+        lambda: fa.mh_flash_backward(*args, **kw, segment_skip=True, bounds=sb), 20)
+    del q, k, v, do, o, lse, args
     q, k, v, _, _ = c._attn_inputs(B, T, H, D, torch.bfloat16, "dense", 977)
     seg = torch.from_numpy(next(c.bench_batches(B, T, seed=977))["segments"]).cuda()
     gen = torch.Generator(device="cuda").manual_seed(978)
