@@ -187,7 +187,21 @@ toolkit and g++. It
      meshes (1,) and (1, 1) over a one-rank NCCL group (3 steps and a
      validation probe); the sp Trainer against the plain Trainer at dropout
      0 over 3 steps; the tokens/s and peak memory of both at dropout 0.1;
- 17. prints the card's name and power limit, one JSON line of kernel
+ 17. pipeline parallelism (the GPipe schedule) over a one-rank NCCL group,
+     omnibiote-small at full width, bench.py's traffic: the training CLI
+     with --sharding pp on meshes (1,) and (1, 1) and --sharding fsdp+pp
+     on (1, 1), 3 steps each with a validation probe, the pod-sharded
+     checkpoint reloaded and one step resumed from it, #1 and #2 launched
+     exactly steps x L x A (+ L a probe) times; the pp Trainer (1,)
+     against the plain Trainer at dropout 0 on the split pair (losses, the
+     #1/#4/#5 launches) and one step at dropout 0.1 (loss, every
+     gradient's cosine, the gradient norm); the stage split: one
+     micro-batch through the stage functions of S = 2 and 4 stages in turn
+     against the whole model, forward bit for bit, gradients bit for bit on
+     the split pair and within the dq tolerance on the fused backward; the
+     tokens/s and peak memory of the pp Trainer against the plain one, with
+     and without --checkpoint_freq 1;
+ 18. prints the card's name and power limit, one JSON line of kernel
      numbers, and last the line {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script then exits non-zero without the
@@ -4339,6 +4353,289 @@ def sp_phase(workdir):
     return ring_path, worst
 
 
+# ---------------------------------------------------------------------------
+# 17. the pipeline at a stage axis of one
+# ---------------------------------------------------------------------------
+
+PP_RUNS = (("pp", (1,)), ("pp", (1, 1)), ("fsdp+pp", (1, 1)))
+PP_STEPS = 3
+
+
+def _pp_grads(model, cfg, tokens, segments, seeds, pipeline):
+    """One step's loss (Σ over the slots) and fp32 gradients, divided by the
+    slot count, of the compute copy of `model`: through the GPipe schedule
+    at a stage axis of one (the gradients summed in the copy's `.grad`),
+    or as the plain step takes them (each slot's `mlm_loss` gradients
+    added in fp32)."""
+    import torch
+    from omnibiote_tpu_torch.parallel.pipeline import Stage, pipeline_step
+    from omnibiote_tpu_torch.training.mlm import mlm_loss
+    from omnibiote_tpu_torch.training.train import _compute_copy
+
+    A = tokens.shape[0]
+    params_c = _compute_copy(dict(model.named_parameters()), cfg)
+    if pipeline:
+        loss, _, _ = pipeline_step(model, Stage(None, 0, 1), params_c, tokens, segments,
+                                   [1.0] * A, seeds)
+        grads = {n: p.grad.float() / A for n, p in params_c.items()}
+    else:
+        loss = torch.zeros((), device=tokens.device)
+        grads = {n: torch.zeros(p.shape, device=p.device) for n, p in params_c.items()}
+        for i in range(A):
+            li, _ = mlm_loss(model, tokens[i], segments[i], seeds[i], params=params_c)
+            for n, g in zip(params_c, torch.autograd.grad(li, list(params_c.values()))):
+                grads[n] += g.float()
+            loss = loss + li.detach()
+        grads = {n: g / A for n, g in grads.items()}
+    return float(loss) / A, grads
+
+
+def _stage_split(model, cfg, tok, seg, seed, n_stages):
+    """One micro-batch through the stage functions of S = n_stages stages in
+    turn, each handing its output to the next as a new leaf (what P2P hands
+    over), and back: (loss, ln_f of the final hidden states, gradients)."""
+    import torch
+    from omnibiote_tpu_torch.ops.flash_attention import SegmentBounds
+    from omnibiote_tpu_torch.parallel.pipeline import (embed, micro_draws, readout,
+                                                       run_layers)
+    from omnibiote_tpu_torch.models.omnibiota import _layer_norm
+    from omnibiote_tpu_torch.training.mlm import _default_capacity_frac, apply_mlm_mask
+    from omnibiote_tpu_torch.training.train import _compute_copy
+
+    L = cfg.n_layer
+    params_c = _compute_copy(dict(model.named_parameters()), cfg)
+    mask, emb_seed, layer_seeds = micro_draws(model, tok, seed, mask_prob=0.15,
+                                              deterministic=False)
+    x = embed(model, params_c, apply_mlm_mask(tok, mask), emb_seed)
+    seg = seg.to(torch.int32)
+    kept = []
+    for s in range(n_stages):
+        x_in = x if s == 0 else x.detach().requires_grad_()
+        layers = range(s * L // n_stages, (s + 1) * L // n_stages)
+        x = run_layers(model, params_c, layers, x_in, seg, SegmentBounds(seg), layer_seeds)
+        kept.append((x_in, x))
+    final = x.detach().requires_grad_()
+    nll_sum, count = readout(model, params_c, final, tok, mask, _default_capacity_frac(0.15))
+    loss = nll_sum / count.clamp_min(1)
+    loss.backward()
+    emb = _layer_norm(final.detach(), params_c["transformer.ln_f.weight"])
+    g = final.grad
+    for s in reversed(range(n_stages)):
+        x_in, h = kept[s]
+        torch.autograd.backward(h, g)
+        g = x_in.grad if s > 0 else None
+    return loss.detach(), emb, {n: p.grad for n, p in params_c.items()}
+
+
+def pp_phase(workdir):
+    """The pipeline on the card over a one-rank NCCL group: the training CLI
+    with --sharding pp / fsdp+pp on meshes (1,), (1, 1) at omnibiote-small
+    full width, the pp Trainer against the plain one, the stage split at S
+    = 2 and 4 against the whole model, and tokens/s and peak memory.
+    Returns the launches of the pp CLI runs and of the pp Trainer's run on
+    the split pair."""
+    import json as _json
+    import socket
+    import torch
+    import torch.distributed as dist
+    from torch.func import functional_call
+    from omnibiote_tpu_torch import preset
+    from omnibiote_tpu_torch.config import TrainConfig
+    from omnibiote_tpu_torch.models.omnibiota import init_params
+    from omnibiote_tpu_torch.ops import _kernels
+    from omnibiote_tpu_torch.training import cli
+    from omnibiote_tpu_torch.training.checkpoint import load_model_checkpoint
+    from omnibiote_tpu_torch.training.mlm import (apply_mlm_mask, make_mlm_mask, mlm_loss,
+                                                  split_seed)
+    from omnibiote_tpu_torch.training.train import Trainer, _compute_copy, slot_seed
+
+    t_phase = time.time()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    mini, accum, ctx = 16, 2, 1024
+    cfg = preset("omnibiote-small", vocab_size=65536, dropout=TRAIN_DROPOUT)
+    L = cfg.n_layer
+    tc = TrainConfig(batch_size=mini * accum, mini_batch_size=mini, ctx_len=ctx,
+                     token_budget=float(mini * accum * ctx * 10000), seed=0)
+
+    # -- (a) the training CLI: the pipeline's main path -------------------
+    data = os.path.join(workdir, "data_pp")
+    _write_shards(data, 600_000, seed=17)
+    main = dict.fromkeys(_kernels.LAUNCHES, 0)
+    for mode, shape in PP_RUNS:
+        tag = f"{mode.replace('+', '_')}{len(shape)}"
+        log = os.path.join(workdir, f"metrics_{tag}.jsonl")
+        save = os.path.join(workdir, f"ckpt_{tag}")
+        argv = ["--base_dir", data, "--train_type", "mixed", "--n_layer", str(L),
+                "--n_embd", "1024", "--n_head", "8", "--ctx_len", str(ctx),
+                "--dropout", str(TRAIN_DROPOUT), "--mini_batch_size", str(mini),
+                "--batch_size", str(mini * accum), "--save_dir", save,
+                "--metrics_jsonl", log, "--log_every", "1", "--test_freq", "50000",
+                "--sharding", mode, "--mesh_shape", *map(str, shape)]
+        print("train CLI: python -m omnibiote_tpu_torch.training.cli "
+              + " ".join(argv + ["--max_steps", str(PP_STEPS)]))
+        # main path: every count at 0 just before, read just after
+        _kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        trainer = cli.main(argv + ["--max_steps", str(PP_STEPS)])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        stage = trainer.plan.stage
+        check(stage is not None and stage.size == 1
+              and trainer.mesh.mesh_dim_names == (("stage",) if len(shape) == 1
+                                                  else ("data", "stage")),
+              f"the {mode} CLI built no stage axis: {trainer.mesh}")
+        files = sorted(os.listdir(os.path.join(save, "omnibiota")))
+        t0 = time.time()
+        reloaded, _ = load_model_checkpoint(os.path.join(save, "omnibiota"))
+        same = all(torch.equal(p, trainer.params[n]) for n, p in reloaded.named_parameters())
+        del trainer, reloaded
+        torch.cuda.empty_cache()
+        t_reload = time.time() - t0
+        t0 = time.time()
+        resumed = cli.main(argv + ["--max_steps", "1", "--resume_from", "-1"])
+        torch.cuda.synchronize()
+        t_resume = time.time() - t0
+        launches = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+        for k, v in launches.items():
+            main[k] += v
+        with open(log) as f:
+            recs = [_json.loads(line) for line in f]
+        losses = [r["loss"] for r in recs if "loss" in r]
+        probes = [k for r in recs for k in r if k.startswith("test_loss/")]
+        want = {"mh_flash_fwd": (PP_STEPS + 1) * L * accum + len(probes) * L,
+                "mh_flash_bwd": (PP_STEPS + 1) * L * accum}
+        print(f"train CLI {mode} {shape}: {PP_STEPS} steps in {wall:.2f} s, checkpoint "
+              f"{files} reloaded equal to the trainer's parameters: {same} "
+              f"({t_reload:.2f} s); 1 step resumed from it (step {resumed.step}, "
+              f"{t_resume:.2f} s); losses "
+              f"{[round(x, 4) for x in losses]}, {len(probes)} validation probes; "
+              f"launches {launches} (want {want})")
+        check(same, f"the {mode} {shape} checkpoint does not reload")
+        check(resumed.step == PP_STEPS + 1, f"resumed run ended at step {resumed.step}")
+        check(len(losses) == PP_STEPS + 1 and all(math.isfinite(x) for x in losses),
+              f"{mode} CLI losses {losses}")
+        check(len(probes) > 0, f"the {mode} CLI ran no validation probe")
+        check(launches == want, f"{mode} CLI launches {launches}, want {want}")
+        del resumed
+        torch.cuda.empty_cache()
+
+    print(f"pipeline phase (a): {time.time() - t_phase:.1f} s")
+    t_part = time.time()
+
+    # -- (b) the pp Trainer against the plain Trainer ---------------------
+    gen = bench_batches(mini * accum, ctx, seed=21)
+    batches = [next(gen) for _ in range(PP_STEPS)]
+    tc0 = tc.replace(mesh_shape=(1,))
+    losses, split = {}, {}
+    with _attention_switch(FUSED_SINGLE_KV_BWD=False):
+        for label, t in (("plain", tc), ("pp (1,)", tc0.replace(sharding="pp"))):
+            with Trainer(cfg.replace(dropout=0.0), t, batch_iter=iter(batches)) as tr:
+                _kernels.reset_launches()
+                losses[label] = [float(tr.train_step_once()["loss"])
+                                 for _ in range(PP_STEPS)]
+                torch.cuda.synchronize()
+                split[label] = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+            torch.cuda.empty_cache()
+    dloss = max(abs(a - b) for a, b in zip(losses["pp (1,)"], losses["plain"]))
+    want = {"mh_flash_fwd": PP_STEPS * L * accum, "mh_flash_bwd_dkv": PP_STEPS * L * accum,
+            "mh_flash_bwd_dq": PP_STEPS * L * accum}
+    print(f"pp Trainer (1,) against the plain Trainer, dropout 0, split pair, {PP_STEPS} "
+          f"steps: losses {[round(x, 6) for x in losses['pp (1,)']]} vs "
+          f"{[round(x, 6) for x in losses['plain']]}, max |dloss| {dloss:.3e} (limit "
+          f"{TRAIN_LOSS_ATOL}); pp launches {split['pp (1,)']} (want {want})")
+    check(dloss <= TRAIN_LOSS_ATOL, "the pp Trainer differs from the plain Trainer")
+    check(split["pp (1,)"] == want == split["plain"], f"pp split-pair launches {split}")
+
+    model = init_params(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    tokens = torch.from_numpy(batches[0]["tokens"]).cuda().view(accum, mini, ctx)
+    segments = torch.from_numpy(batches[0]["segments"]).cuda().view(accum, mini, ctx)
+    seeds = [slot_seed(7, 0, i) for i in range(accum)]
+    loss_pp, g_pp = _pp_grads(model, cfg, tokens, segments, seeds, pipeline=True)
+    loss_pl, g_pl = _pp_grads(model, cfg, tokens, segments, seeds, pipeline=False)
+    norm = lambda g: math.sqrt(sum(float(x.double().square().sum()) for x in g.values()))
+    gn_pp, gn_pl = norm(g_pp), norm(g_pl)
+    cos = _worst_cos(g_pp, g_pl)
+    print(f"pp step (1,) against the plain step, dropout {TRAIN_DROPOUT}, A = {accum}: loss "
+          f"{loss_pp:.6f} vs {loss_pl:.6f} (|d| {abs(loss_pp - loss_pl):.2e}, limit "
+          f"{TRAIN_LOSS_ATOL}); worst gradient cosine {cos:.6f} over {len(g_pp)} tensors "
+          f"(limit {TRAIN_GRAD_COS}); gradient norm {gn_pp:.6f} vs {gn_pl:.6f} (relative "
+          f"{abs(gn_pp - gn_pl) / gn_pl:.2e}, limit {TRAIN_GNORM_RTOL})")
+    check(abs(loss_pp - loss_pl) <= TRAIN_LOSS_ATOL and cos >= TRAIN_GRAD_COS
+          and abs(gn_pp - gn_pl) <= TRAIN_GNORM_RTOL * gn_pl,
+          "the pp step differs from the plain step under dropout")
+    del g_pp, g_pl
+
+    print(f"pipeline phase (b): {time.time() - t_part:.1f} s")
+    t_part = time.time()
+
+    # -- (c) the stage split at S = 2 and 4 against the whole model --------
+    tok, seg = tokens[0], segments[0]
+    for fused in (False, True):
+        kind = "fused" if fused else "split pair"
+        with _attention_switch(FUSED_SINGLE_KV_BWD=fused):
+            params_c = _compute_copy(dict(model.named_parameters()), cfg)
+            whole, _ = mlm_loss(model, tok, seg, 4321, params=params_c)
+            g_whole = dict(zip(params_c, torch.autograd.grad(whole, list(params_c.values()))))
+            mask_seed, drop_seed = split_seed(4321)
+            gmask = torch.Generator(device="cuda").manual_seed(mask_seed & 0x7FFFFFFFFFFFFFFF)
+            ids = apply_mlm_mask(tok, make_mlm_mask(gmask, tok, 0.15))
+            with torch.no_grad():
+                emb_whole = functional_call(model, params_c, (ids, seg), dict(
+                    deterministic=False, rng=drop_seed, return_embeddings=True))
+            del params_c
+            for n_stages in (2, 4):
+                loss, emb, grads = _stage_split(model, cfg, tok, seg, 4321, n_stages)
+                differ = _grads_equal(g_whole, grads)
+                worst = max(_rel_err(grads[n], g_whole[n]) for n in grads)
+                cos = _worst_cos(grads, g_whole)
+                print(f"stage split S = {n_stages} ({kind}, dropout {TRAIN_DROPOUT}, mini "
+                      f"{mini}, T {ctx}) against the whole model: loss bit for bit "
+                      f"{torch.equal(loss, whole.detach())}, final hidden states bit for "
+                      f"bit {torch.equal(emb, emb_whole)}; gradients differing in any bit "
+                      f"{len(differ)} of {len(grads)}, worst max|d|/max|g| {worst:.2e}, "
+                      f"worst cosine {cos:.9f}")
+                check(torch.equal(loss, whole.detach()) and torch.equal(emb, emb_whole),
+                      f"the stage split S = {n_stages} ({kind}) changes the forward")
+                if fused:
+                    check(worst <= BWD_TOL["bfloat16"] and cos >= TRAIN_GRAD_COS,
+                          f"the stage split S = {n_stages} (fused) gradients")
+                else:
+                    check(not differ, f"the stage split S = {n_stages} (split pair) "
+                                      f"gradients differ in {differ[:4]}")
+                del grads, emb
+            del g_whole, emb_whole
+    del model
+    torch.cuda.empty_cache()
+
+    print(f"pipeline phase (c): {time.time() - t_part:.1f} s")
+    t_part = time.time()
+
+    # -- (d) tokens/s and peak memory, pp (1,) against plain ---------------
+    rates = {}
+    for cf in (0, 1):
+        c = cfg.replace(checkpoint_freq=cf)
+        rates[f"plain, checkpoint_freq {cf}"] = _throughput(
+            c, tc, 3, 5, f"ctx {ctx}, plain Trainer, checkpoint_freq {cf}")
+        rates[f"pp (1,), checkpoint_freq {cf}"] = _throughput(
+            c, tc0.replace(sharding="pp"), 3, 5, f"ctx {ctx}, pp Trainer (1,), "
+            f"checkpoint_freq {cf}")
+        print(f"pp Trainer (1,) tokens/s at checkpoint_freq {cf}: "
+              f"{rates[f'pp (1,), checkpoint_freq {cf}']:.1f} against plain "
+              f"{rates[f'plain, checkpoint_freq {cf}']:.1f}: "
+              f"{rates[f'pp (1,), checkpoint_freq {cf}'] / rates[f'plain, checkpoint_freq {cf}']:.4f}")
+    print(f"pipeline phase (d): {time.time() - t_part:.1f} s")
+    dist.destroy_process_group()
+    print(f"pipeline phase: {time.time() - t_phase:.1f} s; pp main path launches "
+          f"{ {k: v for k, v in main.items() if v} }; pp Trainer split-pair launches "
+          f"{split['pp (1,)']}")
+    return main, split["pp (1,)"]
+
+
 def setup():
     """Refuse to run without a card or without the package, and fix the
     fp32 matmul precision the references assume."""
@@ -4400,34 +4697,41 @@ def main():
         print(f"multi-GPU modes main path launches: {parallel}; split pair: {parallel_split}")
         torch.cuda.empty_cache()
         ring, ring_err = sp_phase(workdir)
+        torch.cuda.empty_cache()
+        pp, pp_split = pp_phase(workdir)
     fwd_row["max_abs_err"] = max(fwd_row["max_abs_err"], ring_err["fwd"])
     bwd_row["max_abs_err"] = max(bwd_row["max_abs_err"], ring_err["bwd"])
     # each row's launches: the count its own main paths left (serving, both
     # training contexts, the eval slice, pretraining from raw records, the
-    # contact eval and the multi-GPU modes for the forward; the ctx-1024
-    # training, the eval slice, pretraining, the contact eval and the
-    # multi-GPU modes for the fused backward; the split pair's at ctx 2048
-    # and in the multi-GPU phase; and the ring path's for #1-#5)
+    # contact eval, the multi-GPU modes and the pipeline's CLI for the
+    # forward; the ctx-1024 training, the eval slice, pretraining, the
+    # contact eval, the multi-GPU modes and the pipeline's CLI for the fused
+    # backward; the split pair's at ctx 2048, in the multi-GPU phase and in
+    # the pp Trainer's run; and the ring path's for #1-#5)
     fwd_row["launches"] = (serving["mh_flash_fwd"] + train["mh_flash_fwd"]
                            + long_cli["mh_flash_fwd"] + evals["mh_flash_fwd"]
                            + pretrain["mh_flash_fwd"] + contact["mh_flash_fwd"]
-                           + parallel["mh_flash_fwd"] + ring["mh_flash_fwd"])
+                           + parallel["mh_flash_fwd"] + ring["mh_flash_fwd"]
+                           + pp["mh_flash_fwd"])
     bwd_row["launches"] = (train["mh_flash_bwd"] + evals["mh_flash_bwd"]
                            + pretrain["mh_flash_bwd"] + contact["mh_flash_bwd"]
-                           + parallel["mh_flash_bwd"] + ring["mh_flash_bwd"])
+                           + parallel["mh_flash_bwd"] + ring["mh_flash_bwd"]
+                           + pp["mh_flash_bwd"])
     for row in long_rows:
         source = long_cli if row["name"] == "mh_flash_bwd_mk" else long_split
         row["launches"] = (source[row["name"]] + parallel_split.get(row["name"], 0)
-                           + ring[row["name"]])
+                           + ring[row["name"]] + pp_split.get(row["name"], 0))
     int8_row["launches"] = int8_serving["int8_flash_fwd"]
     rows = [fwd_row, bwd_row, *long_rows, int8_row, *head_rows, *probe_rows]
     check(min(serving["mh_flash_fwd"], train["mh_flash_fwd"], long_cli["mh_flash_fwd"],
               evals["mh_flash_fwd"], pretrain["mh_flash_fwd"], contact["mh_flash_fwd"],
-              parallel["mh_flash_fwd"]) > 0,
+              parallel["mh_flash_fwd"], pp["mh_flash_fwd"]) > 0,
           "a main path never launched mh_flash_fwd")
     check(min(train["mh_flash_bwd"], evals["mh_flash_bwd"], pretrain["mh_flash_bwd"],
-              contact["mh_flash_bwd"], parallel["mh_flash_bwd"]) > 0,
+              contact["mh_flash_bwd"], parallel["mh_flash_bwd"], pp["mh_flash_bwd"]) > 0,
           "a main path never launched mh_flash_bwd")
+    check(min(pp_split.get("mh_flash_bwd_dkv", 0), pp_split.get("mh_flash_bwd_dq", 0)) > 0,
+          "the pp Trainer's split-pair run never launched #4 or #5")
     check(min(parallel_split["mh_flash_bwd_dkv"], parallel_split["mh_flash_bwd_dq"]) > 0,
           "the multi-GPU phase's split-pair run never launched #4 or #5")
     check(min(ring[k] for k in ("mh_flash_fwd", "mh_flash_bwd", "mh_flash_bwd_mk",

@@ -12,7 +12,8 @@ Public surface (what the port has so far; see ROADMAP.md):
     and the pretraining CLI (`python -m omnibiote_tpu_torch.training.cli`)
   * data — the token-shard pipeline and the device prefetcher
   * parallel — the device mesh over torch.distributed, the replicated /
-    fsdp / tp / fsdp+tp placements and tensor-parallel layers
+    fsdp / tp / fsdp+tp / sp / pp / fsdp+pp placements, tensor-parallel
+    layers and the GPipe pipeline schedule
 """
 from .config import (
     OmniBioTAConfig,

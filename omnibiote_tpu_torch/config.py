@@ -146,10 +146,10 @@ class TrainConfig:
 
     The mesh fields are the JAX package's (`omnibiote_tpu/config.py`):
     `sharding` 'replicated' (DDP), 'fsdp', 'tp' or 'fsdp+tp' over a mesh
-    of `mesh_shape` ('data'[, 'model']; None: every rank on 'data'), or
-    'sp' over ('seq',) or ('data', 'seq'), run by the Trainer over
-    torch.distributed (parallel/); the pipeline modes raise there (ROADMAP
-    Queue 1, item 9c).
+    of `mesh_shape` ('data'[, 'model']; None: every rank on 'data'), 'sp'
+    over ('seq',) or ('data', 'seq'), or the pipeline, 'pp' over
+    ('stage',) or ('data', 'stage') and 'fsdp+pp' over ('data', 'stage'),
+    run by the Trainer over torch.distributed (parallel/).
     `dp_axis`, `rng_impl` and `async_checkpoint` are carried for meta.json
     compatibility."""
 

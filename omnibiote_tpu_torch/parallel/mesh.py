@@ -4,8 +4,9 @@ Port of `omnibiote_tpu/parallel/mesh.py`. One process drives one GPU, as
 `torchrun` starts them (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
 MASTER_PORT); the ranks form a `torch.distributed.device_mesh.DeviceMesh`
 with the JAX axis names 'data' and 'model' (or 'data' and 'seq' for
-sequence parallelism), laid out as the JAX package reshapes its device list
-(rank = data_index * n_model + model_index).
+sequence parallelism, 'data' and 'stage' for the pipeline), laid out as
+the JAX package reshapes its device list (rank = data_index * n_model +
+model_index).
 
 The global batch is split over 'data' by rows: data rank d holds rows
 [d·per, (d+1)·per) of every micro-batch, the layout of JAX's
@@ -32,6 +33,7 @@ from ..utils.device import resolve_device
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 SEQ_AXIS = "seq"     # the sequence axis of sp and dp x sp meshes
+STAGE_AXIS = "stage"  # the pipeline's axis of pp, dp x pp and fsdp+pp meshes
 
 
 def _free_port() -> int:

@@ -19,6 +19,13 @@ and the train step runs the collectives itself:
     tile is its rows and its block of positions, so the gradients are
     all-reduced over both axes, and the seq axis's ranks share the ring
     (ops/ring_attention.py).
+  * 'pp' / 'fsdp+pp' — the pipeline (parallel/pipeline.py) on a
+    ('stage',) or ('data', 'stage') mesh: stage s holds the blocks of the
+    layers [s·L/S, (s+1)·L/S) and every stage the embedding, ln_f and the
+    head, whose gradients are summed over 'stage' before the clip norm;
+    fsdp+pp also splits every tensor over 'data' (the JAX package's
+    `pp_param_pspecs`, whose dimension rule takes the first of equal
+    largest dimensions).
 
 The rule is applied to the JAX leaf's shape — stacked blocks (L, ...),
 linear weights (in, out) — and mapped onto the port's per-layer (out, in)
@@ -39,9 +46,10 @@ import torch.distributed as dist
 
 from ..config import OmniBioTAConfig
 from ..utils.convert import torch_leaf_map
-from .mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS
+from .mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS, STAGE_AXIS
 
-MODES = ("replicated", "fsdp", "tp", "fsdp+tp", "sp")
+PP_MODES = ("pp", "fsdp+pp")
+MODES = ("replicated", "fsdp", "tp", "fsdp+tp", "sp") + PP_MODES
 
 
 def _tp_spec(key: str, ndim: int) -> Tuple:
@@ -61,12 +69,42 @@ def _tp_spec(key: str, ndim: int) -> Tuple:
     return tuple(spec) + (None,) * (ndim - len(spec))
 
 
+def _fsdp_dim(shape: Sequence[int], n_shards: int) -> Optional[int]:
+    """The pipeline's data-split dimension: the first of the largest
+    dimensions that divide by n_shards (None: none does)."""
+    best, best_size = None, 0
+    for i, s in enumerate(shape):
+        if s % n_shards == 0 and s > best_size:
+            best, best_size = i, s
+    return best
+
+
+def pp_param_pspecs(shapes: Mapping[str, Tuple[int, ...]],
+                    fsdp_shards: int = 1) -> Dict[str, Tuple]:
+    """The JAX package's `pp_param_pspecs`: a stacked block leaf's layer
+    dimension over 'stage', everything else replicated; with fsdp_shards >
+    1 (fsdp+pp) every leaf also split over 'data' on `_fsdp_dim` of its
+    dimensions after the layer one."""
+    out = {}
+    for key, shape in shapes.items():
+        lead = 1 if key.startswith("blocks/") else 0
+        dims = [STAGE_AXIS] * lead + [None] * (len(shape) - lead)
+        if fsdp_shards > 1:
+            d = _fsdp_dim(shape[lead:], fsdp_shards)
+            if d is not None:
+                dims[lead + d] = DATA_AXIS
+        out[key] = tuple(dims)
+    return out
+
+
 def param_pspecs(shapes: Mapping[str, Tuple[int, ...]], mode: str,
                  n_data: int, n_model: int) -> Dict[str, Tuple]:
     """{JAX leaf key: spec}, a spec being one mesh axis name or None per
     dimension, for the JAX leaf shapes given: the JAX package's rule."""
     if mode not in MODES:
         raise ValueError(f"sharding {mode!r} is not one of {MODES}")
+    if mode in PP_MODES:
+        return pp_param_pspecs(shapes, n_data if mode == "fsdp+pp" else 1)
     out = {}
     for key, shape in shapes.items():
         dims = [None] * len(shape)
@@ -103,7 +141,9 @@ class Placement:
     rank `layer_owner` alone. `model_partial`: held whole, used in part by
     the tp forward (c_attn's and c_fc's biases), so its gradients are
     summed over 'model'. seq_index: this rank's place on a seq axis, which
-    holds every tensor whole."""
+    holds every tensor whole. `staged`: a block's tensor on a stage axis,
+    held by its layer's stage alone (the others hold every stage's copy);
+    stage_index: this rank's place on that axis."""
     name: str
     jax_key: str
     layer: Optional[int]
@@ -118,6 +158,8 @@ class Placement:
     data_index: int
     model_index: int
     seq_index: int = 0
+    staged: bool = False
+    stage_index: int = 0
 
     @property
     def data_split(self) -> bool:
@@ -166,7 +208,8 @@ class Placement:
         model_ok = bool(self.model_ranges) or self.model_index == 0
         if self.layer_owner is not None and self.layer_owner != self.data_index:
             return False
-        return data_ok and model_ok and self.seq_index == 0
+        stage_ok = self.staged or self.stage_index == 0
+        return data_ok and model_ok and stage_ok and self.seq_index == 0
 
     def jax_pieces(self, shard: torch.Tensor):
         """[(JAX-layout index, piece)] of this rank's shard within the JAX
@@ -196,12 +239,24 @@ class Placement:
         return out
 
 
+def stage_layers(n_layer: int, n_stage: int, stage_index: int) -> range:
+    """The global indices of stage `stage_index`'s layers: the stage's
+    contiguous L/S of them, as the JAX pipeline splits its stacked blocks."""
+    if n_layer % n_stage:
+        raise ValueError(f"n_layer {n_layer} must divide by {n_stage} pipeline stages")
+    per = n_layer // n_stage
+    return range(stage_index * per, (stage_index + 1) * per)
+
+
 def plan_placements(cfg: OmniBioTAConfig, mode: str, n_data: int, n_model: int,
-                    data_index: int = 0, model_index: int = 0, seq_index: int = 0
-                    ) -> Dict[str, Placement]:
-    """{torch name: Placement} of every parameter of the port's model."""
+                    data_index: int = 0, model_index: int = 0, seq_index: int = 0,
+                    n_stage: int = 1, stage_index: int = 0) -> Dict[str, Placement]:
+    """{torch name: Placement} of every parameter of the port's model that
+    this rank holds: all of them, but under a pipeline mode only the blocks
+    of its stage's layers (and the tensors every stage holds)."""
     specs = param_pspecs(jax_leaf_shapes(cfg), mode, n_data, n_model)
     tp = mode in ("tp", "fsdp+tp") and n_model > 1
+    held = stage_layers(cfg.n_layer, n_stage, stage_index)
     D = cfg.n_embd
     out = {}
     for name, (key, layer, transposed, shape) in torch_leaf_map(cfg).items():
@@ -210,6 +265,8 @@ def plan_placements(cfg: OmniBioTAConfig, mode: str, n_data: int, n_model: int,
             lead, spec = spec[0], spec[1:]
         else:
             lead = None
+        if lead == STAGE_AXIS and layer not in held:
+            continue
         if transposed:
             spec = spec[::-1]
         model_dim = spec.index(MODEL_AXIS) if MODEL_AXIS in spec else None
@@ -232,14 +289,15 @@ def plan_placements(cfg: OmniBioTAConfig, mode: str, n_data: int, n_model: int,
             layer_owner=(layer // (cfg.n_layer // n_data)
                          if lead == DATA_AXIS else None),
             n_data=n_data, data_index=data_index, model_index=model_index,
-            seq_index=seq_index)
+            seq_index=seq_index, staged=lead == STAGE_AXIS, stage_index=stage_index)
     return out
 
 
 def shard_params(full: Mapping[str, torch.Tensor],
                  placements: Mapping[str, Placement]) -> Dict[str, torch.Tensor]:
-    """This rank's shards of a full {name: tensor} state."""
-    return {n: placements[n].take(t) for n, t in full.items()}
+    """This rank's shards of a full {name: tensor} state (of the tensors
+    it holds)."""
+    return {n: pl.take(full[n]) for n, pl in placements.items()}
 
 
 def shard_opt_state_like(moments: Mapping[str, torch.Tensor],
@@ -349,15 +407,25 @@ class MeshPlan:
     """A rank's view of its mesh under one sharding mode: its data, model
     and seq coordinates and groups, its tensor-parallel place (under 'tp'
     and 'fsdp+tp' on a mesh with a 'model' axis, of any size), its ring
-    (under 'sp'), the group its batch tiles are cut over, and the placement
-    of every named parameter."""
+    (under 'sp'), its pipeline stage (under 'pp' and 'fsdp+pp'), the group
+    its batch tiles are cut over, and the placement of every named
+    parameter it holds."""
 
     def __init__(self, cfg: OmniBioTAConfig, mode: str, mesh):
         from ..ops.ring_attention import ring_of
         from .mesh import axis_group, axis_index, axis_size
+        from .pipeline import Stage
         from .tensor import TensorParallel
 
         self.mesh, self.mode = mesh, mode
+        axes = mesh.mesh_dim_names or ()
+        self.stage = None
+        if mode in PP_MODES:
+            if STAGE_AXIS not in axes:
+                raise ValueError(f"sharding={mode!r} needs a mesh with a "
+                                 f"'{STAGE_AXIS}' axis, not {axes}")
+            self.stage = Stage(axis_group(mesh, STAGE_AXIS), axis_index(mesh, STAGE_AXIS),
+                               axis_size(mesh, STAGE_AXIS))
         self.n_data = axis_size(mesh, DATA_AXIS)
         self.data_index = axis_index(mesh, DATA_AXIS)
         self.data_group = axis_group(mesh, DATA_AXIS)
@@ -382,7 +450,8 @@ class MeshPlan:
         self.placements = plan_placements(
             cfg, mode, self.n_data, 1 if self.tp is None else self.tp.size,
             self.data_index, 0 if self.tp is None else self.tp.index,
-            self.seq_index)
+            self.seq_index, 1 if self.stage is None else self.stage.size,
+            0 if self.stage is None else self.stage.index)
 
     def rows(self, local_rows: int) -> Tuple[int, int]:
         """(first, total) of this rank's rows in the global micro-batch."""
@@ -403,7 +472,18 @@ class MeshPlan:
 
     def reduce(self, grads: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """The gradients summed over the mesh (over 'data', and over 'seq'
-        where the sequence is cut: `batch_group`)."""
+        where the sequence is cut: `batch_group`). On a stage axis the
+        tensors every stage holds are first summed over 'stage' (each stage
+        holds the part of their gradient its own work gave), so that every
+        stage updates them alike."""
+        if self.stage is not None and self.stage.size > 1:
+            grads = dict(grads)
+            shared = [n for n in grads if not self.placements[n].staged]
+            for names in _buckets(shared, grads):
+                grads.update(zip(names, _all_reduce_flat([grads[n] for n in names],
+                                                         self.stage.group)))
+        if self.stage is not None and self.data_group is None:
+            return grads    # a ('stage',) mesh: no data axis to sum over
         return reduce_grads(grads, self.placements, self.batch_group, self.n_data,
                             None if self.tp is None else self.tp.group)
 

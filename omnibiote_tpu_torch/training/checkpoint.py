@@ -18,7 +18,9 @@ holds `params.shard<p>.npz` and `opt_state.shard<p>.npz` files instead,
 each key "<leaf>@<start>:<stop>,..." naming the slice of the global JAX
 leaf it holds (scalars "<leaf>@"). A Trainer on a mesh writes it: every
 rank its replica-0 shards, in the JAX tree's layout (a tp rank's c_attn as
-three wqkv column ranges), rank 0 the meta, then a barrier and the rename;
+three wqkv column ranges; a pipeline stage its own layers' slices of the
+stacked leaves, stage 0 the tensors every stage holds), rank 0 the meta,
+then a barrier and the rename;
 with data_hosts > 1 each rank also writes its readers' positions to
 `reader_states.proc<rank>.json`. `load_model_checkpoint` assembles it, and
 `restore_into_trainer` resumes any trainer from either format, re-placed
@@ -110,11 +112,19 @@ def _assemble_leaf(shards: Dict, shape, dtype, leaf_key="") -> np.ndarray:
     """Fill a global ndarray from {index: shard} pieces. The pieces of a
     sharded leaf partition it exactly, so anything other than full coverage
     means a shard file is missing or stale: raise rather than return
-    zero-filled regions."""
+    zero-filled regions. The array takes the first piece's memory order (a
+    transposed one for the port's linear weights, written as their JAX
+    transposes), so each piece is one contiguous copy."""
     if not shape:
         (arr,) = shards.values()
         return np.asarray(arr, dtype=dtype).reshape(())
-    out = np.zeros(shape, dtype=dtype)
+    first = next(iter(shards.values()))
+    if len(shards) == 1 and tuple(first.shape) == tuple(shape):
+        return np.asarray(first, dtype=dtype)   # one piece, the whole leaf
+    # axes from the slowest-varying to the fastest; a piece's axis of one
+    # entry (a stacked leaf's layer) goes first, whatever its stride
+    order = sorted(range(len(shape)), key=lambda d: (first.shape[d] > 1, -first.strides[d]))
+    out = np.zeros([shape[d] for d in order], dtype=dtype).transpose(np.argsort(order))
     filled = 0
     for index, arr in shards.items():
         out[index if index else tuple(slice(0, d) for d in shape)] = arr

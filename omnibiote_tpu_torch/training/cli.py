@@ -21,14 +21,22 @@ dp x sp), e.g. at ctx 4096 over 4 GPUs:
     torchrun --nproc_per_node 4 -m omnibiote_tpu_torch.training.cli \
         --sharding sp --mesh_shape 4 --ctx_len 4096 ...
 
-and on one GPU a ring of one. --multihost gives each data group a pipeline
-of its own (data_hosts = the mesh's data-axis size, host_id = the rank's
-data index, as jax.process_count() / process_index() are in the JAX CLI,
-whose processes each hold a whole model group): the ranks of one data
-group build the same pipeline; without it every rank builds the same
-global stream and takes its rows. sp with more than one data host raises,
-as in the JAX Trainer. Only rank 0 logs. --sharding pp raises
-NotImplementedError (ROADMAP Queue 1, item 9c).
+and on one GPU a ring of one; --sharding pp (the GPipe schedule,
+parallel/pipeline.py) with --mesh_shape S (every rank a stage, S dividing
+--n_layer) or D S (('data', 'stage'), dp x pp), and --sharding fsdp+pp
+with --mesh_shape D S (a 1-D mesh raises, as in the JAX CLI), e.g. 8 layers
+as 4 stages of 2 over 2 data groups:
+
+    torchrun --nproc_per_node 8 -m omnibiote_tpu_torch.training.cli \
+        --sharding pp --mesh_shape 2 4 --multihost ...
+
+--multihost gives each data group a pipeline of its own (data_hosts = the
+mesh's data-axis size, host_id = the rank's data index, as
+jax.process_count() / process_index() are in the JAX CLI, whose processes
+each hold a whole model group): the ranks of one data group (its model,
+seq or stage ranks) build the same pipeline; without it every rank builds
+the same global stream and takes its rows. sp with more than one data host
+raises, as in the JAX Trainer. Only rank 0 logs.
 """
 from __future__ import annotations
 

@@ -132,6 +132,23 @@ def mlm_loss(model: OmniBioTA, tokens: torch.Tensor,
                               kwargs)
         lm_head = params["lm_head.weight"]
 
+    nll, masked_count = masked_nll(cfg, emb, tokens, mask, lm_head, capacity_frac,
+                                   model.tp)
+    denom = masked_count
+    if count_group is not None:
+        denom = masked_count.clone()
+        dist.all_reduce(denom, group=count_group)
+    loss = nll.sum() / denom.clamp_min(1)
+    aux = {"masked_count": masked_count,
+           "num_tokens": (tokens != PAD_TOKEN).sum()}
+    return loss, aux
+
+
+def masked_nll(cfg, emb: torch.Tensor, tokens: torch.Tensor, mask: torch.Tensor,
+               lm_head: torch.Tensor, capacity_frac: float, tp=None):
+    """The readout of final hidden states `emb` (B, T, D) at each row's
+    first `capacity` masked positions: (NLL (B, capacity), 0 at the slots
+    past a row's masked count; the count of the other slots)."""
     T, D = tokens.shape[1], emb.shape[-1]
     capacity = max(int(T * capacity_frac), 8)
     order, valid = masked_order(mask, capacity)
@@ -142,7 +159,6 @@ def mlm_loss(model: OmniBioTA, tokens: torch.Tensor,
     # the plain log_softmax head
     scale = torch.tensor(cfg.mup_output_mult / cfg.width_mult,
                          dtype=g_emb.dtype, device=g_emb.device)
-    tp = model.tp
     if tp is not None:
         V = lm_head.shape[0]
         nll = fused_cross_entropy(copy_to_model(g_emb * scale, tp), lm_head, labels,
@@ -155,13 +171,4 @@ def mlm_loss(model: OmniBioTA, tokens: torch.Tensor,
         logits = _linear(g_emb * scale, lm_head)
         logp = torch.log_softmax(logits.float(), dim=-1)
         nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
-    nll = torch.where(valid, nll, 0.0)
-    masked_count = valid.sum()
-    denom = masked_count
-    if count_group is not None:
-        denom = masked_count.clone()
-        dist.all_reduce(denom, group=count_group)
-    loss = nll.sum() / denom.clamp_min(1)
-    aux = {"masked_count": masked_count,
-           "num_tokens": (tokens != PAD_TOKEN).sum()}
-    return loss, aux
+    return torch.where(valid, nll, 0.0), valid.sum()

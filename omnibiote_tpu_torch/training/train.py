@@ -33,8 +33,12 @@ attn_impl='ring', the JAX Trainer's mesh: the whole mesh the 'seq' axis,
 or a 2-D ('data', 'seq') mesh for dp x sp) goes through the same step: a
 rank's tile is its rows and its block of positions, its masks that tile of
 the global draw, and the gradients and metrics are summed over both axes
-(MeshPlan.batch_group). The pipeline ('pp', 'fsdp+pp') raises
-NotImplementedError (ROADMAP Queue 1, item 9c).
+(MeshPlan.batch_group). The pipeline ('pp' on a ('stage',) mesh, dp x pp
+and 'fsdp+pp' on ('data', 'stage')) has a step of its own
+(`make_pp_train_step`): the compute copy of the stage's tensors gathered
+once a step, the A slots through the GPipe schedule
+(parallel/pipeline.py), the gradients of the tensors every stage holds
+summed over 'stage', then the reduction over 'data' and one update.
 """
 from __future__ import annotations
 
@@ -70,20 +74,31 @@ def _compute_copy(params: Dict[str, torch.Tensor],
 
 
 def check_ported(model_cfg: OmniBioTAConfig, train_cfg: TrainConfig,
-                 data_hosts: int = 1) -> None:
-    """Raise on the training modes the port does not have yet (the
-    pipeline) and on the ones the JAX Trainer refuses: sharding='sp'
-    without attn_impl='ring', and sp with data_hosts > 1."""
-    if train_cfg.sharding == "sp" and model_cfg.attn_impl != "ring":
+                 data_hosts: int = 1, mesh=None) -> None:
+    """Raise on the training configurations the JAX Trainer refuses:
+    sharding='sp' without attn_impl='ring', sp with data_hosts > 1,
+    fsdp+pp without a ('data', 'stage') mesh, and data_hosts > 1 on a
+    pure-pp mesh. mesh: the Trainer's, if given (else the one
+    train_cfg.mesh_shape gives)."""
+    from ..parallel.mesh import DATA_AXIS, axis_size
+
+    tc = train_cfg
+    if tc.sharding == "sp" and model_cfg.attn_impl != "ring":
         raise ValueError("sharding='sp' requires attn_impl='ring'")
-    if train_cfg.sharding == "sp" and data_hosts > 1:
+    if tc.sharding == "sp" and data_hosts > 1:
         raise ValueError("data_hosts>1 with sequence sharding is not "
                          "supported (the seq axis would need per-host "
                          "slicing too)")
-    if train_cfg.sharding in ("pp", "fsdp+pp"):
-        raise NotImplementedError(
-            f"sharding={train_cfg.sharding!r} (the pipeline) is not ported yet "
-            "(ROADMAP Queue 1, item 9c)")
+    if tc.sharding in ("pp", "fsdp+pp"):
+        shape = tc.mesh_shape
+        has_data = (DATA_AXIS in (mesh.mesh_dim_names or ()) if mesh is not None
+                    else shape is not None and len(shape) == 2)
+        if tc.sharding == "fsdp+pp" and not has_data:
+            raise ValueError("fsdp+pp needs a 2-D mesh_shape (data, stage)")
+        n_data = axis_size(mesh, DATA_AXIS) if mesh is not None else (shape[0] if has_data else 1)
+        if data_hosts > 1 and n_data == 1:
+            raise ValueError("data_hosts>1 needs the batch dim sharded over the data "
+                             "axis; a pure-pp mesh replicates the batch — use dp x pp")
 
 
 def _meta_parameters(model: nn.Module) -> None:
@@ -199,6 +214,56 @@ def make_train_step(model: OmniBioTA, model_cfg: OmniBioTAConfig,
     return train_step
 
 
+def make_pp_train_step(model: OmniBioTA, model_cfg: OmniBioTAConfig,
+                       train_cfg: TrainConfig, optimizer: MupAdamW, plan):
+    """The pipeline's train step, with make_train_step's signature: the A
+    slots go through the GPipe schedule in one pass (the schedule is the
+    accumulation: the per-slot gradients of the compute copy sum in its
+    `.grad`, as the JAX package's one autodiff sums them), then the
+    gradients in fp32 are summed over 'stage' (the tensors every stage
+    holds) and 'data', and one update follows. `params` are the stage's
+    fp32 masters (its shards under fsdp+pp), tokens and segments the data
+    rank's rows; the metrics are summed over the whole mesh."""
+    from ..parallel.pipeline import pipeline_step
+
+    deterministic = model_cfg.dropout == 0.0
+
+    def train_step(params, opt_state: OptState, tokens, segments,
+                   micro_weights: Sequence[float], rng: int, step: int,
+                   masks=None):
+        A, B = tokens.shape[:2]
+        weights = [float(w) for w in micro_weights]
+        params_c = {n: p.requires_grad_() for n, p in
+                    plan.gather(params, model_cfg.cdtype()).items()}
+        rows = plan.rows(B)
+        if masks is not None:
+            masks = masks[:, rows[0]:rows[0] + B]
+        loss_sum, masked, tokens_seen = pipeline_step(
+            model, plan.stage, params_c, tokens, segments, weights,
+            [slot_seed(rng, step, j) for j in range(A)], mask_prob=train_cfg.mask_prob,
+            deterministic=deterministic, masks=masks, mask_rows=rows,
+            data_group=plan.data_group if plan.n_data > 1 else None)
+        # a tensor this stage did not use (the head off the readout's
+        # stages, the embedding past stage 0) has no gradient here
+        grads = {n: (p.grad.float() if p.grad is not None
+                     else torch.zeros(p.shape, device=p.device))
+                 for n, p in params_c.items()}
+        del params_c
+        grads = plan.reduce(grads)
+        # the metrics over every rank of the mesh (it spans the process group)
+        flat = torch.stack([loss_sum.double(), masked.double(), tokens_seen.double()])
+        dist.all_reduce(flat)
+        loss_sum, masked, tokens_seen = (flat[0].float(), flat[1].float(),
+                                         flat[2].to(torch.int64))
+        n_active = max(sum(weights), 1.0)
+        grads = {n: g / n_active for n, g in grads.items()}
+        optimizer.update(grads, opt_state, params)
+        return {"loss": loss_sum / n_active, "masked_tokens": masked,
+                "num_tokens": tokens_seen, "grad_norm": opt_state.grad_norm}
+
+    return train_step
+
+
 def make_eval_step(model: OmniBioTA, model_cfg: OmniBioTAConfig,
                    train_cfg: TrainConfig):
     """Validation-loss probe (train_encoder.py:371-410): the same masked
@@ -236,19 +301,21 @@ def effective_batch_size(step: int, total_iters: int, train_cfg: TrainConfig,
 def choose_mesh(train_cfg: TrainConfig, device=None):
     """The JAX Trainer's mesh choice over the process group (started if
     needed): for 'sp' the whole mesh on 'seq' (a 1-D mesh_shape or none),
-    or a 2-D mesh_shape over ('data', 'seq'); else mesh_shape over ('data',
-    'model'), else every rank on 'model' for a tp mode, else every rank on
-    'data'."""
-    from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, SEQ_AXIS, init_distributed,
-                                 make_mesh)
+    or a 2-D mesh_shape over ('data', 'seq'); for the pipeline the whole
+    mesh on 'stage', or a 2-D mesh_shape over ('data', 'stage'); else
+    mesh_shape over ('data', 'model'), else every rank on
+    'model' for a tp mode, else every rank on 'data'."""
+    from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, SEQ_AXIS, STAGE_AXIS,
+                                 init_distributed, make_mesh)
 
     init_distributed(device)
     shape = train_cfg.mesh_shape
-    if train_cfg.sharding == "sp":
-        if shape is not None and len(shape) == 2:
-            return make_mesh(tuple(shape), (DATA_AXIS, SEQ_AXIS), device)
-        return make_mesh((dist.get_world_size() if shape is None else shape[0],),
-                         (SEQ_AXIS,), device)
+    for modes, axis in ((("sp",), SEQ_AXIS), (("pp", "fsdp+pp"), STAGE_AXIS)):
+        if train_cfg.sharding in modes:
+            if shape is not None and len(shape) == 2:
+                return make_mesh(tuple(shape), (DATA_AXIS, axis), device)
+            return make_mesh((dist.get_world_size() if shape is None else shape[0],),
+                             (axis,), device)
     if train_cfg.mesh_shape is not None:
         return make_mesh(tuple(train_cfg.mesh_shape),
                          (DATA_AXIS, MODEL_AXIS)[:len(train_cfg.mesh_shape)], device)
@@ -283,7 +350,7 @@ class Trainer:
         from ..parallel.mesh import mesh_device
         from ..parallel.sharding import MeshPlan, norm_weights, shard_params
 
-        check_ported(model_cfg, train_cfg, data_hosts)
+        check_ported(model_cfg, train_cfg, data_hosts, mesh)
         tc = train_cfg
         sharded = (mesh is not None or tc.sharding != "replicated"
                    or tc.mesh_shape is not None or data_hosts > 1
@@ -332,8 +399,9 @@ class Trainer:
         self.optimizer = make_optimizer(list(self.params), model_cfg, tc,
                                         self.total_iters, weights)
         self.opt_state = self.optimizer.init(self.params)
-        self._train_step = make_train_step(self.model, model_cfg, tc,
-                                           self.optimizer, self.plan)
+        step_fn = (make_pp_train_step if self.plan is not None
+                   and self.plan.stage is not None else make_train_step)
+        self._train_step = step_fn(self.model, model_cfg, tc, self.optimizer, self.plan)
         self._eval_step = make_eval_step(self.model, model_cfg, tc)
         self._eval_n = 0
 
@@ -582,13 +650,25 @@ class Trainer:
         """Validation loss; its masks come from a stream of its own, so
         probes never shift the training stream. On a mesh every rank
         evaluates the whole batch with the gathered fp32 masters; under
-        'sp' through the ring, each rank its block of positions."""
+        'sp' through the ring, each rank its block of positions; under the
+        pipeline through the schedule's forward, each stage its layers."""
         seed = int(np.random.SeedSequence([self.rng, 0x0E7A1, self._eval_n])
                    .generate_state(1, np.uint64)[0])
         self._eval_n += 1
         params = None if self.plan is None else self.plan.gather(self.params)
         tokens, segments = (torch.as_tensor(np.asarray(x)).to(self.device)
                             for x in (tokens, segments))
+        if self.plan is not None and self.plan.stage is not None:
+            from ..parallel.pipeline import pipeline_step
+            stage = self.plan.stage
+            with torch.no_grad():
+                loss, _, _ = pipeline_step(self.model, stage, params, tokens[None],
+                                           segments[None], [1.0], [seed],
+                                           mask_prob=self.train_cfg.mask_prob,
+                                           deterministic=True, backward=False)
+            if stage.size > 1:   # the last stage's readout to every stage
+                dist.all_reduce(loss, group=stage.group)
+            return float(loss)
         if self.plan is None or self.plan.n_seq == 1:
             return float(self._eval_step(tokens, segments, seed, params)[0])
         # every data rank takes all the rows, each seq rank its positions

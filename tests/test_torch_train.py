@@ -459,8 +459,8 @@ def test_cli_runs_end_to_end(tmp_path):
 # the sharding modes, per-rank data and sequence parallelism) keep their
 # cases here, now as checks that the mode runs (in a process group of one
 # rank) or refuses a mesh the world cannot hold, or a configuration the JAX
-# Trainer refuses (sharding='sp' without attn_impl='ring'); the pipeline
-# still raises.
+# Trainer refuses (sharding='sp' without attn_impl='ring', fsdp+pp without a
+# 2-D mesh, data_hosts > 1 on a pure-pp mesh). The pipeline trains too.
 PORTED = ("fused_ce", "checkpoint_freq", "sharding", "multihost", "FSDP")
 
 
@@ -476,17 +476,20 @@ PORTED = ("fused_ce", "checkpoint_freq", "sharding", "multihost", "FSDP")
     ({}, dict(sharding="sp"), 1),
     ({}, dict(sharding="pp"), 1),
     ({}, dict(sharding="fsdp+pp"), 1),
+    ({}, dict(sharding="fsdp+pp", mesh_shape=(1, 1)), 1),
+    ({}, dict(sharding="pp"), 2),
 ])
 def test_unported_modes_raise(model_kw, train_kw, hosts):
-    """The pipeline raises; the ported modes take a Trainer step with
-    finite metrics, the sharded ones on a mesh of this one process (a ring
-    of one for attn_impl='ring'); a mesh_shape or a data_hosts the world
-    cannot hold is a ValueError, and so is sharding='sp' without
-    attn_impl='ring', as in the JAX Trainer."""
+    """Every mode takes a Trainer step with finite metrics, the sharded
+    ones on a mesh of this one process (a ring of one for
+    attn_impl='ring', a stage axis of one for the pipeline); a mesh_shape
+    or a data_hosts the world cannot hold is a ValueError, and so are
+    sharding='sp' without attn_impl='ring', fsdp+pp without a 2-D mesh and
+    data_hosts > 1 on a pure-pp mesh, as in the JAX Trainer."""
     cfg = port.OmniBioTAConfig(**dict(TINY, **model_kw))
     tc = TrainConfig(batch_size=8, mini_batch_size=4, ctx_len=64, **train_kw)
-    if tc.sharding in ("pp", "fsdp+pp"):
-        with pytest.raises(NotImplementedError, match="not ported"):
+    if tc.sharding == "fsdp+pp" and tc.mesh_shape is None:
+        with pytest.raises(ValueError, match="fsdp\\+pp needs a 2-D mesh"):
             port_train.Trainer(cfg, tc, device="cpu", data_hosts=hosts)
         return
     if tc.sharding == "sp" and cfg.attn_impl != "ring":
@@ -502,20 +505,23 @@ def test_unported_modes_raise(model_kw, train_kw, hosts):
         m = tr.train_step_once()
     assert tr.step == 1
     assert (tr.plan is None) == (tc.sharding == "replicated")
+    assert (tr.plan is not None and tr.plan.stage is not None) == ("pp" in tc.sharding)
     assert all(np.isfinite(float(m[k])) for k in ("loss", "grad_norm"))
 
 
 @pytest.mark.parametrize("flag", [["--multihost"], ["--FSDP"], ["--sharding", "tp"],
                                   ["--checkpoint_freq", "1"], ["--sharding", "sp"],
-                                  ["--sharding", "pp"]])
+                                  ["--sharding", "pp"], ["--sharding", "fsdp+pp"],
+                                  ["--sharding", "fsdp+pp", "--mesh_shape", "1", "1"]])
 def test_cli_unported_flags_raise(tmp_path, flag):
-    """--sharding pp raises; the ported flags train a step (the
-    multi-device ones on a mesh of this one process, sp as a ring of
-    one)."""
+    """Every flag trains a step (the multi-device ones on a mesh of this
+    one process, sp as a ring of one, pp as a stage axis of one), but
+    --sharding fsdp+pp without a 2-D --mesh_shape raises, as in the JAX
+    CLI."""
     _shards(str(tmp_path))
     argv = ["--base_dir", str(tmp_path), "--n_layer", "1", "--n_embd", "128",
             "--n_head", "1", "--ctx_len", "128", "--device", "cpu", *flag]
-    if flag[0].lstrip("-") in PORTED and flag[-1] != "pp":
+    if flag[0].lstrip("-") in PORTED and flag[-1] != "fsdp+pp":
         log = tmp_path / "m.jsonl"
         tr = port_cli.main(argv + ["--mini_batch_size", "2", "--batch_size", "2",
                                    "--max_steps", "1", "--test_freq", "1e9",
@@ -529,7 +535,7 @@ def test_cli_unported_flags_raise(tmp_path, flag):
         losses = [json.loads(l)["loss"] for l in log.read_text().splitlines()]
         assert len(losses) == 1 and np.isfinite(losses[0])
         return
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="fsdp\\+pp needs a 2-D mesh"):
         port_cli.main(argv)
 
 

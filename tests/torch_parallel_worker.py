@@ -127,7 +127,7 @@ def _np(x):
 
 def _mesh(case):
     """The case's DeviceMesh: its shape over its axes (by default 'data',
-    then 'model')."""
+    then 'model'; 'stage' for the pipeline's)."""
     from omnibiote_tpu_torch.parallel.mesh import make_mesh
     shape = tuple(case["mesh"])
     return make_mesh(shape, case.get("axes", ("data", "model")[:len(shape)]), device="cpu")
@@ -395,7 +395,8 @@ def case_resume(case):
     resumed_at = (t2.step, t2.rng == tr.rng)
     m2, _ = _step(t2)
     return {"unbroken": {"metrics": m, **_pieces(tr)},
-            "resumed": {"metrics": m2, **_pieces(t2)}, "resumed_at": resumed_at}
+            "resumed": {"metrics": m2, **_pieces(t2)}, "resumed_at": resumed_at,
+            "path": path}
 
 
 def case_multihost(case):
@@ -447,9 +448,30 @@ def case_multihost(case):
             "n_pieces": len(a["params"])}
 
 
+def case_remat(case):
+    """One pass of the pipeline's schedule on the case's mesh (its stage
+    axis), from the trainer's seeded parameters and the case's tokens, with
+    checkpoint_freq 0 and 1: this rank's loss share and the gradients of
+    the compute copy, by name."""
+    import torch
+    from omnibiote_tpu_torch.parallel.pipeline import pipeline_step
+    mesh = _mesh(case)
+    tokens, segments = torch.as_tensor(case["tokens"]), torch.as_tensor(case["segments"])
+    out = {}
+    for freq in (0, 1):
+        tr = _trainer(dict(case, cfg=dict(case["cfg"], checkpoint_freq=freq)), mesh)
+        params = {n: p.detach().clone().requires_grad_() for n, p in tr.params.items()}
+        loss, masked, _ = pipeline_step(tr.model, tr.plan.stage, params, tokens, segments,
+                                        [1.0] * len(tokens), case["seeds"])
+        out[freq] = {"loss": float(loss), "masked": float(masked),
+                     "grads": {n: _np(p.grad) for n, p in params.items()
+                               if p.grad is not None}}
+    return out
+
+
 CASES = {"train": case_train, "forward": case_forward, "encoder": case_encoder,
          "dropout": case_dropout, "checkpoint": case_checkpoint, "ring": case_ring,
-         "resume": case_resume, "multihost": case_multihost}
+         "resume": case_resume, "multihost": case_multihost, "remat": case_remat}
 
 
 def main(case_file, out_dir):
