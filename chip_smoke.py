@@ -201,7 +201,19 @@ toolkit and g++. It
      the split pair and within the dq tolerance on the fused backward; the
      tokens/s and peak memory of the pp Trainer against the plain one, with
      and without --checkpoint_freq 1;
- 18. prints the card's name and power limit, one JSON line of kernel
+ 18. the pod planner (tools/gpu_pod_plan.py) against the card: for each
+     anchor the peak allocated memory above what was allocated before the
+     Trainer (the peaks that phase 13's lever runs and phase 17's pp Trainer
+     at checkpoint_freq 0 recorded, else 2 steps here) against the plan's
+     memory_bytes.total, measured / planned within 0.97-1.03: omnibiote-small
+     at ctx 1024, 16 x 2, remat off / 'full' / 'dots' and off with the fused
+     CE, at ctx 4096, 4 x 2, and the pp Trainer on (1,); and a held-out
+     model no other phase trains (16 layers, d 2048, 16 heads of 128, ctx
+     1024, 8 x 2, bf16 moments and gradients, 'full' remat; its #1 and #2
+     launches counted, then both kernels against their plain versions at
+     its shape with its segment ids and dropout 0.1); then the planner's
+     2 x 8 fsdp+tp plan of that model, an estimate;
+ 19. prints the card's name and power limit, one JSON line of kernel
      numbers, and last the line {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script then exits non-zero without the
@@ -1426,14 +1438,41 @@ def longctx_kernel_phase():
 # 6. long-context training slice
 # ---------------------------------------------------------------------------
 
+# Peak allocated memory of a training run above what was allocated before
+# it, by run (_peak_key): (bytes, the base, the run that measured it). Only
+# the runs of the pod planner's anchors record here (phase 13's lever runs,
+# phase 17's pp Trainer at checkpoint_freq 0), each once; phase 18 reads
+# these rather than running them again.
+MEASURED_PEAKS = {}
+
+
+def _peak_key(cfg, tc):
+    """What sets a Trainer run's peak memory: the model, its levers and the
+    step's shape, sharding and optimizer dtypes."""
+    return (cfg.n_layer, cfg.n_embd, cfg.n_head, cfg.vocab_size, cfg.dropout,
+            cfg.checkpoint_freq, cfg.checkpoint_freq and cfg.remat_policy, cfg.fused_ce,
+            cfg.attn_impl, tc.ctx_len, tc.mini_batch_size, tc.batch_size, tc.sharding,
+            tuple(tc.mesh_shape or ()), tc.moment_dtype, tc.grad_dtype)
+
+
+def _record_peak(cfg, tc, peak, base, source):
+    """Keep an anchor run's peak above its base; a second run of the same
+    key is refused, so no later run replaces an anchor's peak."""
+    key = _peak_key(cfg, tc)
+    check(key not in MEASURED_PEAKS, f"a second peak for {key}: {source} after "
+          f"{MEASURED_PEAKS.get(key, (0, 0, ''))[2]}")
+    MEASURED_PEAKS[key] = (peak, base, source)
+
+
 def _counts(**nonzero):
     from omnibiote_tpu_torch.ops import _kernels
     return {**dict.fromkeys(_kernels.LAUNCHES, 0), **nonzero}
 
 
-def _throughput(cfg, tc, n_eos, steps, label):
+def _throughput(cfg, tc, n_eos, steps, label, record=False):
     """Tokens/s of Trainer.train_step_once over `steps` steps after three
-    warm-up steps, with peak allocated memory and MFU."""
+    warm-up steps, with peak allocated memory and MFU. record: keep the
+    run's peak as a pod-planner anchor's (phase 18)."""
     import torch
     from omnibiote_tpu_torch import num_params
     from omnibiote_tpu_torch.training.metrics import flops_per_token, mfu
@@ -1441,6 +1480,7 @@ def _throughput(cfg, tc, n_eos, steps, label):
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     with Trainer(cfg, tc, batch_iter=bench_batches(tc.batch_size, tc.ctx_len, 3, n_eos),
                  prefetch=2) as tr:
         for _ in range(3):
@@ -1455,6 +1495,9 @@ def _throughput(cfg, tc, n_eos, steps, label):
         fpt = flops_per_token(num_params(tr.model, non_embedding=True), cfg.n_layer,
                               cfg.n_embd, tc.ctx_len)
     tps = steps * tc.batch_size * tc.ctx_len / dt
+    if record:
+        _record_peak(cfg, tc, torch.cuda.max_memory_allocated() - base, base,
+                     f"throughput run {label}")
     check(math.isfinite(loss), f"non-finite throughput-run loss {loss} ({label})")
     print(f"train throughput {label}: B={tc.batch_size} (mini {tc.mini_batch_size}) "
           f"T={tc.ctx_len} {n_eos} EOS a row, dropout {cfg.dropout} bf16: {tps:.1f} "
@@ -3168,6 +3211,7 @@ def _lever_run(cfg, tc, n_eos, label, warmup=3, steps=5):
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     with Trainer(cfg, tc, batch_iter=bench_batches(tc.batch_size, tc.ctx_len, 3, n_eos),
                  prefetch=2) as tr:
         for _ in range(warmup):
@@ -3181,6 +3225,7 @@ def _lever_run(cfg, tc, n_eos, label, warmup=3, steps=5):
         loss = float(m["loss"])
         n_params = num_params(tr.model, non_embedding=True)
     peak = torch.cuda.max_memory_allocated()
+    _record_peak(cfg, tc, peak - base, base, f"lever run {label}")
     seg = next(bench_batches(tc.batch_size, tc.ctx_len, 3, n_eos))["segments"]
     fr = kernel_skip_fractions(seg, torch.bfloat16)
     fpt = flops_per_token(n_params, cfg.n_layer, cfg.n_embd, tc.ctx_len)
@@ -4623,7 +4668,7 @@ def pp_phase(workdir):
             c, tc, 3, 5, f"ctx {ctx}, plain Trainer, checkpoint_freq {cf}")
         rates[f"pp (1,), checkpoint_freq {cf}"] = _throughput(
             c, tc0.replace(sharding="pp"), 3, 5, f"ctx {ctx}, pp Trainer (1,), "
-            f"checkpoint_freq {cf}")
+            f"checkpoint_freq {cf}", record=cf == 0)
         print(f"pp Trainer (1,) tokens/s at checkpoint_freq {cf}: "
               f"{rates[f'pp (1,), checkpoint_freq {cf}']:.1f} against plain "
               f"{rates[f'plain, checkpoint_freq {cf}']:.1f}: "
@@ -4634,6 +4679,196 @@ def pp_phase(workdir):
           f"{ {k: v for k, v in main.items() if v} }; pp Trainer split-pair launches "
           f"{split['pp (1,)']}")
     return main, split["pp (1,)"]
+
+# ---------------------------------------------------------------------------
+# 18. the pod planner against the card's measured peaks
+# ---------------------------------------------------------------------------
+
+# The planner's memory_bytes.total against the measured peak: measured /
+# planned within these bounds for every anchor. The card's readings lie in
+# 1.0000-1.0055 (PERF.md, PR 19); a block's fp32 LayerNorm tensor left out
+# of the plan moves omnibiote-small's ratio by about 5 %.
+POD_RATIO = (0.97, 1.03)
+POD_STEPS = 2
+# ROADMAP item 11's third row: 16 layers, d 2048, 16 heads of 128, ctx 1024,
+# 8 x 2, bf16 moments and gradients, 'full' remat. No earlier phase trains
+# it: the planner's held-out anchor.
+HELD_OUT = dict(n_layer=16, n_embd=2048, n_head=16)
+
+
+def _pod_anchors():
+    """(label, model config, train config, EOS a row) of every anchor."""
+    from omnibiote_tpu_torch import preset
+    from omnibiote_tpu_torch.config import OmniBioTAConfig, TrainConfig
+
+    def small(T=1024, **kw):
+        return preset("omnibiote-small", vocab_size=65536, dropout=TRAIN_DROPOUT,
+                      block_size=T, **kw)
+
+    def tc(m, a, T, **kw):
+        return TrainConfig(batch_size=m * a, mini_batch_size=m, ctx_len=T,
+                           token_budget=float(m * a * T * 10000), seed=0, **kw)
+
+    return (
+        ("omnibiote-small ctx 1024 16 x 2, remat off", small(), tc(16, 2, 1024), 3),
+        ("omnibiote-small ctx 1024 16 x 2, remat full", small(checkpoint_freq=1),
+         tc(16, 2, 1024), 3),
+        ("omnibiote-small ctx 1024 16 x 2, remat dots",
+         small(checkpoint_freq=1, remat_policy="dots"), tc(16, 2, 1024), 3),
+        ("omnibiote-small ctx 1024 16 x 2, remat off, fused CE", small(fused_ce=True),
+         tc(16, 2, 1024), 3),
+        ("omnibiote-small ctx 4096 4 x 2, remat off", small(4096), tc(4, 2, 4096), LONG_EOS),
+        ("omnibiote-small ctx 1024 16 x 2, pp (1,)", small(),
+         tc(16, 2, 1024, sharding="pp", mesh_shape=(1,)), 3),
+        ("held out: 16 layers d 2048, ctx 1024 8 x 2, bf16 moments and grads, remat full",
+         OmniBioTAConfig(**HELD_OUT, vocab_size=65536, block_size=1024, dropout=TRAIN_DROPOUT,
+                         checkpoint_freq=1),
+         tc(8, 2, 1024, moment_dtype="bfloat16", grad_dtype="bfloat16"), 3),
+    )
+
+
+def _peak_run(cfg, tc, n_eos, steps=POD_STEPS):
+    """Peak allocated memory of `steps` Trainer steps above what was
+    allocated before the Trainer, and the finite losses."""
+    import torch
+    from omnibiote_tpu_torch.training.train import Trainer
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with Trainer(cfg, tc, batch_iter=bench_batches(tc.batch_size, tc.ctx_len, 31, n_eos),
+                 prefetch=2) as tr:
+        losses = [float(tr.train_step_once()["loss"]) for _ in range(steps)]
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    torch.cuda.empty_cache()
+    check(all(math.isfinite(x) for x in losses), f"non-finite losses {losses}")
+    return peak, base, losses
+
+
+def _hold_held_out_attention(cfg, tc, n_eos):
+    """#1 and #2 as the held-out model's training step calls them (its
+    micro-batch's segment ids with segment skipping, dropout, 16 heads of
+    128) against their plain versions at TOL and BWD_TOL. Returns max |do|
+    and the backward's max |d|."""
+    import torch
+    from omnibiote_tpu_torch.ops import _kernels
+    from omnibiote_tpu_torch.ops.flash_attention import (
+        KERNEL_KV_TILE, SegmentBounds, mh_flash_backward, mh_flash_backward_plain,
+        mh_flash_forward, mh_flash_forward_plain)
+
+    B, T, H = tc.mini_batch_size, tc.ctx_len, cfg.n_head
+    D = cfg.n_embd // H
+    q, k, v, _, rope = _attn_inputs(B, T, H, D, torch.bfloat16, "dense", 57)
+    seg = torch.from_numpy(
+        next(bench_batches(tc.batch_size, T, 31, n_eos))["segments"][:B]).cuda()
+    bounds = SegmentBounds(seg)
+    gen = torch.Generator(device="cuda").manual_seed(58)
+    do = torch.randn(B, T, H, D, generator=gen, device="cuda").to(torch.bfloat16)
+    kw = dict(scale=1.0 / math.sqrt(D), dropout_rate=cfg.dropout, seed=0x5EED19)
+    before = dict(_kernels.LAUNCHES)
+    o, lse = mh_flash_forward(q, k, v, seg, rope, **kw, segment_skip=True, bounds=bounds)
+    di = (o.float() * do.float()).sum(-1)
+    got = mh_flash_backward(q, k, v, do, lse, di, seg, rope, **kw, segment_skip=True,
+                            bounds=bounds)
+    torch.cuda.synchronize()
+    ran = {n: c - before[n] for n, c in _kernels.LAUNCHES.items() if c != before[n]}
+    check(ran == {"mh_flash_fwd": 1, "mh_flash_bwd": 1},
+          f"the held-out shape's calls launched {ran}, want #1 and #2 once each")
+    shape = f"the held-out shape B={B} T={T} H={H} D={D} dropout {cfg.dropout}"
+    err_f = _hold_fwd((o, lse), mh_flash_forward_plain(
+        q, k, v, seg, rope, **kw, block_kv=KERNEL_KV_TILE[torch.bfloat16]), "bfloat16", shape)
+    rel_b, err_b = _hold_bwd(got, mh_flash_backward_plain(q, k, v, do, lse, di, seg, rope, **kw),
+                             "bfloat16", shape)
+    print(f"kernels vs plain at {shape}, bf16, the held-out run's segment ids: fwd max|do| "
+          f"{err_f:.3e} (rtol, atol {TOL['bfloat16']['o']}), bwd max|d|/max|g| {rel_b:.2e} "
+          f"(tolerance {BWD_TOL['bfloat16']}), max|d| {err_b:.3e}")
+    del q, k, v, do, o, lse, di, got
+    torch.cuda.empty_cache()
+    return {"fwd": err_f, "bwd": err_b}
+
+
+def pod_plan_phase():
+    """tools/gpu_pod_plan.py's memory_bytes.total against the peak the
+    card allocates, for each anchor: the peaks phases 13 and 17 recorded
+    for it (MEASURED_PEAKS), else POD_STEPS steps here; the held-out model
+    always here (its #1 and #2 launches counted), then #1 and #2 held
+    against their plain versions at its shape. Then the planner's 2 x 8
+    fsdp+tp plan of the held-out model (an estimate, not held). Returns the
+    held-out run's launches and the two kernels' errors at its shape."""
+    import torch
+    import torch.distributed as dist
+    from omnibiote_tpu_torch.ops import _kernels
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import gpu_pod_plan
+
+    t_phase = time.time()
+    capacity = torch.cuda.get_device_properties(0).total_memory
+    rows, held_out, held_err = [], {}, {}
+    own_group = False
+    for label, cfg, tc, n_eos in _pod_anchors():
+        key = _peak_key(cfg, tc)
+        is_held_out = cfg.n_embd == HELD_OUT["n_embd"]
+        if key in MEASURED_PEAKS and not is_held_out:
+            peak, base, source = MEASURED_PEAKS[key]
+        else:
+            if tc.sharding == "pp" and not dist.is_initialized():
+                import socket
+                with socket.socket() as sock:
+                    sock.bind(("127.0.0.1", 0))
+                    port = sock.getsockname()[1]
+                dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                                        rank=0, world_size=1)
+                own_group = True
+            if is_held_out:
+                _kernels.reset_launches()
+            peak, base, losses = _peak_run(cfg, tc, n_eos)
+            source = f"{POD_STEPS} steps here, losses {[round(x, 4) for x in losses]}"
+            if is_held_out:
+                held_out = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+                L, A = cfg.n_layer, tc.batch_size // tc.mini_batch_size
+                want = {"mh_flash_fwd": POD_STEPS * A * L * 2, "mh_flash_bwd": POD_STEPS * A * L}
+                print(f"held-out model: {POD_STEPS} steps, launches {held_out} (want {want}: "
+                      f"#1 twice a layer under remat, #2 once)")
+                check(held_out == want, f"held-out launches {held_out}, want {want}")
+                held_err = _hold_held_out_attention(cfg, tc, n_eos)
+        mesh = tc.mesh_shape
+        plan = gpu_pod_plan.plan(
+            cfg, chips=1, sharding=tc.sharding, mesh=mesh, mini=tc.mini_batch_size,
+            accum=tc.batch_size // tc.mini_batch_size, ctx=tc.ctx_len,
+            moment_dtype=tc.moment_dtype, grad_dtype=tc.grad_dtype,
+            remat=cfg.checkpoint_freq, remat_policy=cfg.remat_policy,
+            fused_ce=cfg.fused_ce, capacity=capacity)
+        mem = plan["memory_bytes"]
+        ratio = peak / mem["total"]
+        rows.append(dict(label=label, measured_gib=peak / 2**30,
+                         planned_gib=mem["total"] / 2**30, ratio=ratio,
+                         peak_at=mem["peak_at"], base_gib=base / 2**30, source=source))
+        print(f"pod plan anchor {label}: measured {peak / 2**30:.3f} GiB (above "
+              f"{base / 2**30:.3f} GiB allocated before; {source}), planned "
+              f"{mem['total'] / 2**30:.3f} GiB at {mem['peak_at']} (phases "
+              f"{ {k: round(v / 2**30, 3) for k, v in mem['phases'].items()} }), "
+              f"ratio {ratio:.4f} (bounds {POD_RATIO})")
+        check(POD_RATIO[0] <= ratio <= POD_RATIO[1],
+              f"the planner's memory for '{label}': measured/planned {ratio:.4f}")
+    if own_group:
+        dist.destroy_process_group()
+
+    cfg = _pod_anchors()[-1][1]
+    pod = gpu_pod_plan.plan(cfg, chips=16, sharding="fsdp+tp", mesh=(2, 8), mini=8, accum=2,
+                            ctx=1024, moment_dtype="bfloat16", grad_dtype="bfloat16",
+                            remat=1, capacity=capacity)
+    check(pod["projection"]["estimate"] and pod["projection"]["step_s"] > 0,
+          "the 2 x 8 plan's projection")
+    print("pod plan, held-out model on 2 nodes x 8 H100 (fsdp+tp, mesh (2, 8); an estimate, "
+          "not held): " + json.dumps({k: pod[k] for k in (
+              "parallel", "collectives_bytes", "links", "times_s", "projection")}
+              | {"memory_gib": pod["memory_bytes"]["total"] / 2**30,
+                 "peak_at": pod["memory_bytes"]["peak_at"]}))
+    print("pod plan anchors: " + json.dumps(rows))
+    print(f"pod plan phase: {time.time() - t_phase:.1f} s")
+    return held_out, held_err
 
 
 def setup():
@@ -4699,24 +4934,27 @@ def main():
         ring, ring_err = sp_phase(workdir)
         torch.cuda.empty_cache()
         pp, pp_split = pp_phase(workdir)
-    fwd_row["max_abs_err"] = max(fwd_row["max_abs_err"], ring_err["fwd"])
-    bwd_row["max_abs_err"] = max(bwd_row["max_abs_err"], ring_err["bwd"])
+        torch.cuda.empty_cache()
+        held_out, held_err = pod_plan_phase()
+    fwd_row["max_abs_err"] = max(fwd_row["max_abs_err"], ring_err["fwd"], held_err["fwd"])
+    bwd_row["max_abs_err"] = max(bwd_row["max_abs_err"], ring_err["bwd"], held_err["bwd"])
     # each row's launches: the count its own main paths left (serving, both
     # training contexts, the eval slice, pretraining from raw records, the
-    # contact eval, the multi-GPU modes and the pipeline's CLI for the
-    # forward; the ctx-1024 training, the eval slice, pretraining, the
-    # contact eval, the multi-GPU modes and the pipeline's CLI for the fused
-    # backward; the split pair's at ctx 2048, in the multi-GPU phase and in
-    # the pp Trainer's run; and the ring path's for #1-#5)
+    # contact eval, the multi-GPU modes, the pipeline's CLI and the pod
+    # planner's held-out model for the forward; the ctx-1024 training, the
+    # eval slice, pretraining, the contact eval, the multi-GPU modes, the
+    # pipeline's CLI and the held-out model for the fused backward; the
+    # split pair's at ctx 2048, in the multi-GPU phase and in the pp
+    # Trainer's run; and the ring path's for #1-#5)
     fwd_row["launches"] = (serving["mh_flash_fwd"] + train["mh_flash_fwd"]
                            + long_cli["mh_flash_fwd"] + evals["mh_flash_fwd"]
                            + pretrain["mh_flash_fwd"] + contact["mh_flash_fwd"]
                            + parallel["mh_flash_fwd"] + ring["mh_flash_fwd"]
-                           + pp["mh_flash_fwd"])
+                           + pp["mh_flash_fwd"] + held_out["mh_flash_fwd"])
     bwd_row["launches"] = (train["mh_flash_bwd"] + evals["mh_flash_bwd"]
                            + pretrain["mh_flash_bwd"] + contact["mh_flash_bwd"]
                            + parallel["mh_flash_bwd"] + ring["mh_flash_bwd"]
-                           + pp["mh_flash_bwd"])
+                           + pp["mh_flash_bwd"] + held_out["mh_flash_bwd"])
     for row in long_rows:
         source = long_cli if row["name"] == "mh_flash_bwd_mk" else long_split
         row["launches"] = (source[row["name"]] + parallel_split.get(row["name"], 0)
