@@ -213,8 +213,26 @@ toolkit and g++. It
      launches counted, then both kernels against their plain versions at
      its shape with its segment ids and dropout 0.1); then the planner's
      2 x 8 fsdp+tp plan of that model, an estimate;
- 19. prints the card's name and power limit, one JSON line of kernel
-     numbers, and last the line {"ok": true, "device": {...}}.
+ 19. head dim 256, and one head at any head dim up to 256: #1-#5 at D = 256
+     (4 heads) against their plain versions in bf16 and fp32, dropout 0
+     and 0.1, on dense, packed (3 and 5 EOS) and PAD-tail rows at T 1024
+     and 2048, with bounds against the full walk bit for bit, the tiles
+     walked against the bounds' count, the split pair twice and fused
+     against split; flash_attention_lse with separate q and kv ids through
+     autograd; one head at D = 96 and 32 with RoPE through the kernels of
+     the next built head dim on zero-padded inputs, against the plain
+     versions at the caller's D; each D = 256 kernel (#1-#9) timed at its
+     path's shape beside its plain version, its bound and SDPA (and the
+     SDPA backends that take the call alone); omnibiote-small with 4
+     heads of 256 through the Encoder (bf16 and int8 against the plain
+     attention, int8 against bf16; encode(mean) seq/s beside 8 heads of
+     128) and through training (ctx 1024: micro-batch and step against
+     plain, the CLI with --n_head 4, tokens/s beside 8 heads of 128; ctx
+     2048: a step on the fused backward and on the split pair), with exact
+     launch counts, and the per-head entry at D = 256;
+ 20. prints the card's name and power limit, one JSON line of kernel
+     numbers (a row of each phase-19 kernel at D = 256 beside the 13 rows),
+     and last the line {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script then exits non-zero without the
 last line. Without a CUDA device, or without the package beside it, it
@@ -335,7 +353,7 @@ def build():
         for line in log.splitlines():
             m = re.search(r"Compiling entry function '" + kernel_re, line)
             m8 = re.search(r"Compiling entry function '_ZN[\w]*?\d+(int8_fwd|quant_qk|"
-                           r"quant_v)I(f|i|13__nv_bfloat16)((?:Lb[01]E)*)E", line)
+                           r"quant_v)I(f|i|13__nv_bfloat16)((?:Lb[01]E)*)(?:Li(\d+)E)?E", line)
             if "C7511" in line:
                 mc = re.search(kernel_re, line)
                 serialised.add(f"{name}: {mc.group(1) if mc else line.strip()[:160]}")
@@ -345,7 +363,7 @@ def build():
             elif m8:
                 ty = {"f": "float", "i": "int"}.get(m8.group(2), "bf16")
                 flags = re.findall(r"Lb([01])E", m8.group(3))
-                entry = f"{m8.group(1)}<{', '.join([ty, *flags])}>"
+                entry = f"{m8.group(1)}<{', '.join([ty, *flags, *filter(None, [m8.group(4)])])}>"
             elif "spill stores" in line:
                 spill = re.search(r"(\d+) bytes spill stores", line).group(1)
                 stack = re.search(r"(\d+) bytes stack frame", line).group(1)
@@ -361,13 +379,13 @@ def build():
     # a spill makes ptxas serialise the wgmma products around it: the
     # backward's wgmma kernels (fused, dkv and dq) and the wgmma probes must
     # show none, and the probes no serialised products either
-    wgmma_kernels = ("mh_bwd_fused_bf16", "mh_bwd_dq_wgmma", "dots_wgmma", "dots_n_wgmma",
-                     "scores_wgmma")
+    wgmma_kernels = ("mh_bwd_fused_bf16", "mh_bwd_d256_bf16", "mh_bwd_dq_wgmma", "dots_wgmma",
+                     "dots_n_wgmma", "scores_wgmma")
     spilled = {k: v for k, v in spills.items() if k.split(": ")[1].startswith(wgmma_kernels) and v}
     check(not spilled, f"wgmma instances spill: {spilled}")
     print(f"  instances with wgmma products serialised by ptxas (C7511): "
           f"{sorted(serialised) or 'none'}")
-    check(not any(k.split(": ")[1].startswith(wgmma_kernels[2:]) for k in serialised),
+    check(not any(k.split(": ")[1].startswith(wgmma_kernels[3:]) for k in serialised),
           f"ptxas serialised a wgmma probe's products: {sorted(serialised)}")
     # the bf16 forward's and backward kernels' CTAs: 384 threads, setmaxnreg
     # 24 (producer) / 240 (consumers), dynamic shared memory as their launches
@@ -377,9 +395,10 @@ def build():
                          ("mh_flash_bwd_dq", "mh_bwd_dq_wgmma")):
         smem_bytes = getattr(_kernels.load_library(name), f"obt_{name}_smem_bytes")
         print(f"  {name}: {kernel} dynamic shared memory a CTA: " + ", ".join(
-            f"D={d} {smem_bytes(d)} bytes" for d in (64, 128)))
-    print(f"  int8_flash_fwd: int8_fwd dynamic shared memory a CTA: D=128 "
-          f"{_kernels.load_library('int8_flash_fwd').obt_int8_flash_fwd_smem_bytes()} bytes")
+            f"D={d} {smem_bytes(d)} bytes" for d in (64, 128, 256)))
+    int8_smem = _kernels.load_library('int8_flash_fwd').obt_int8_flash_fwd_smem_bytes
+    print(f"  int8_flash_fwd: int8_fwd dynamic shared memory a CTA: D=128 {int8_smem(128)} "
+          f"bytes, D=256 {int8_smem(256)} bytes")
 
 
 # ---------------------------------------------------------------------------
@@ -4156,7 +4175,7 @@ def _emulated_ring(q, k, v, seg, n, *, scale, body="flash", dropout_rate=0.0, se
         segs = ra.RingSegments(q_ids, [None] + [cut(seg, (i - r) % n) for r in range(1, n)])
         bq, bkv = ra.ring_blocks(Tl)
         if body == "flash":
-            segs.prefill(q.dtype, "cuda", bq, bkv)
+            segs.prefill(q.dtype, "cuda", bq, bkv, q.shape[3])
             outs.append(ra.ring_body_flash(cut(q, i), blocks, n, segs.q_ids, segs,
                                            scale=scale, dropout_rate=dropout_rate,
                                            seeds=seeds, block_q=bq, block_kv=bkv))
@@ -4871,6 +4890,696 @@ def pod_plan_phase():
     return held_out, held_err
 
 
+# ---------------------------------------------------------------------------
+# 19. head dim 256, and one head at any head dim up to 256
+# ---------------------------------------------------------------------------
+
+# omnibiote-small's width with 4 heads of 256 (`--n_head 4`): the same 168 M
+# parameters and attention FLOPs a token as its 8 heads of 128.
+WIDE_HEADS, WIDE_D = 4, 256
+# (layout, T, EOS a row): dense rows, bench.py's packed rows, PAD tails,
+# bench_longctx.py's packed rows
+WIDE_LAYOUTS = (("dense", 1024, 0), ("packed", 1024, 3), ("padded", 1024, 0),
+                ("packed", 2048, LONG_EOS))
+
+
+def _wide_ids(layout, B, T, n_eos, seed):
+    import torch
+    if layout == "packed":
+        return torch.from_numpy(next(bench_batches(B, T, seed, n_eos))["segments"]).cuda()
+    return _segments(layout, B, T, torch.Generator(device="cuda").manual_seed(seed))
+
+
+def _sdpa(qh, kh, vh, **kw):
+    """(ms of the default SDPA call, the backends that take it alone, each
+    with its time): which one the default runs at this shape."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    with torch.no_grad():
+        default = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, **kw), 10)
+        alone = {}
+        for backend in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
+                        SDPBackend.EFFICIENT_ATTENTION):
+            try:
+                with sdpa_kernel(backend):
+                    alone[backend.name] = cuda_ms(
+                        lambda: F.scaled_dot_product_attention(qh, kh, vh, **kw), 10)
+            except RuntimeError:
+                pass
+    return default, alone
+
+
+def _wide_kernel_checks():
+    """#1-#5 at D = 256, bf16 and fp32, dropout 0 and 0.1, over dense,
+    packed (3 and 5 EOS) and PAD-tail rows: each against its plain version,
+    with bounds against the full walk (the same bits; the fused dq within
+    its tolerance), the tiles walked against the bounds' count, the split
+    pair the same bits at a second launch, fused against split; then
+    flash_attention_lse with separate q and kv ids through autograd. Returns
+    the worst bf16 max |do| and max |d| of the forward and backwards."""
+    import torch
+    from omnibiote_tpu_torch.ops import flash_attention as fa
+
+    H, D = WIDE_HEADS, WIDE_D
+    scale = 1.0 / math.sqrt(D)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    i = 0
+    for dtype in ("bfloat16", "float32"):
+        for layout, T, n_eos in WIDE_LAYOUTS:
+            for rate in (0.0, TRAIN_DROPOUT):
+                B = 2 if T == 1024 else 1
+                i += 1
+                tdt = getattr(torch, dtype)
+                tag = f"D={D} B={B} T={T} {dtype} {layout}{n_eos or ''} dropout {rate}"
+                q, k, v, _, rope = _attn_inputs(B, T, H, D, tdt, "dense", seed=1900 + i)
+                seg = _wide_ids(layout, B, T, n_eos, 1900 + i)
+                gen = torch.Generator(device="cuda").manual_seed(1950 + i)
+                do = torch.randn(B, T, H, D, generator=gen, device="cuda").to(tdt)
+                kw = dict(scale=scale, dropout_rate=rate, seed=0x2560 + i)
+                (tq, tkv), (bq, bkv), (kq, kkv), (dq_q, dq_kv) = (
+                    fa.kernel_tiles(kind, tdt, D) for kind in ("fwd", "fused", "dkv", "dq"))
+                sb = None if seg is None else fa.SegmentBounds(seg)
+                walk = lambda a, b: (H * B * (T // a) * (T // b), None) if sb is None else (
+                    H * int((sb.get(a, b)[1] - sb.get(a, b)[0] + 1).sum()), sb.get(a, b))
+                (n_f, kv_b), (n_q, q_b), (n_kv, dkv_b), (n_dq, dq_b) = (
+                    walk(tq, tkv), walk(bkv, bq), walk(kkv, kq), walk(dq_q, dq_kv))
+
+                o, lse = _walked(lambda c: fa.mh_flash_forward_kernel(
+                    q, k, v, seg, rope, kv_bounds=kv_b, tile_count=c, **kw), n_f,
+                    f"forward {tag}")
+                o_all, lse_all = fa.mh_flash_forward_kernel(q, k, v, seg, rope, **kw)
+                check(torch.equal(o, o_all) and torch.equal(lse, lse_all),
+                      f"forward with bounds differs from the full walk at {tag}")
+                po, plse = fa.mh_flash_forward_plain(q, k, v, seg, rope, block_q=tq,
+                                                     block_kv=tkv, segment_skip=True,
+                                                     bounds=sb, **kw)
+                err_f = _hold_fwd((o, lse), (po, plse), dtype, tag)
+                di = (po.float() * do.float()).sum(-1)
+                args = (q, k, v, do, plse, di, seg, rope)
+                want = fa.mh_flash_backward_plain(*args, block_q=bq, block_kv=bkv,
+                                                  segment_skip=True, bounds=sb, **kw)
+                fused = _walked(lambda c: fa.mh_flash_backward_kernel(
+                    *args, tile_bounds=q_b, tile_count=c, **kw), n_q, f"fused {tag}")
+                fused_all = fa.mh_flash_backward_kernel(*args, **kw)
+                dkv = _walked(lambda c: fa.mh_flash_bwd_dkv_kernel(
+                    *args, tile_bounds=dkv_b, tile_count=c, **kw), n_kv, f"dkv {tag}")
+                dkv_all = fa.mh_flash_bwd_dkv_kernel(*args, **kw)
+                dkv_again = fa.mh_flash_bwd_dkv_kernel(*args, tile_bounds=dkv_b, **kw)
+                dq = _walked(lambda c: fa.mh_flash_bwd_dq_kernel(
+                    *args, tile_bounds=dq_b, tile_count=c, **kw), n_dq, f"dq {tag}")
+                dq_all = fa.mh_flash_bwd_dq_kernel(*args, **kw)
+                dq_again = fa.mh_flash_bwd_dq_kernel(*args, tile_bounds=dq_b, **kw)
+                torch.cuda.synchronize()
+                same = (torch.equal(fused[1], fused_all[1]) and torch.equal(fused[2], fused_all[2])
+                        and _rel_err(fused[0], fused_all[0]) <= BWD_TOL[dtype]
+                        and all(torch.equal(a, b) for a, b in (*zip(dkv, dkv_all),
+                                                               *zip(dkv, dkv_again)))
+                        and torch.equal(dq, dq_all) and torch.equal(dq, dq_again))
+                e_fused, w_fused = _hold_bwd(fused, want, dtype, f"fused {tag}")
+                e_split, w_split = _hold_bwd((dq, *dkv), want, dtype, f"split {tag}")
+                e_fs = max(_rel_err(g, w) for g, w in zip(fused, (dq, *dkv)))
+                print(f"wide kernels {tag}: tiles walked fwd {n_f}, fused {n_q}, dkv {n_kv}, "
+                      f"dq {n_dq} (as their bounds give); fwd max|do| {err_f:.3e}; "
+                      f"max|d|/max|g| vs plain: fused {e_fused:.2e}, split {e_split:.2e}, "
+                      f"fused vs split {e_fs:.2e} (tolerance {BWD_TOL[dtype]}); bounds on == "
+                      f"off and the split pair's second launch the same bits: {same}")
+                check(same, f"skipping on differs from off, or a second launch from the "
+                      f"first, at {tag}")
+                check(e_fs <= BWD_TOL[dtype], f"fused and split disagree at {tag}")
+                if dtype == "bfloat16":
+                    worst["fwd"] = max(worst["fwd"], err_f)
+                    worst["bwd"] = max(worst["bwd"], w_fused, w_split)
+                del q, k, v, do, o, lse, o_all, lse_all, po, plse, want, fused, fused_all
+                del dkv, dkv_all, dkv_again, dq, dq_all, dq_again, args
+                torch.cuda.empty_cache()
+
+    # flash_attention_lse with separate q and kv ids (a ring rotation's
+    # pair) and a random lse cotangent on the rows that see the block
+    for dtype in ("bfloat16", "float32"):
+        tdt = getattr(torch, dtype)
+        B, T, n = 2, 1024, 2
+        q0, k0, v0, _, _ = _attn_inputs(B, T, H, D, tdt, "dense", seed=1990)
+        q_ids, kv_ids = _sp_pair(B, T, n, 1990)
+        sees = (q_ids[:, :, None] == kv_ids[:, None, :]).any(-1)
+        gen = torch.Generator(device="cuda").manual_seed(1991)
+        do = (torch.randn(B, T, H, D, generator=gen, device="cuda") * sees[..., None, None]).to(tdt)
+        dlse = torch.randn(B, T, H, generator=gen, device="cuda") * sees[..., None]
+
+        def lse_grads():
+            q, k, v = (x.clone().requires_grad_() for x in (q0, k0, v0))
+            o, lse = fa.flash_attention_lse(q, k, v, q_ids, None, scale=scale,
+                                            dropout_rate=TRAIN_DROPOUT, seed=78,
+                                            block_q=512, block_kv=512, kv_segment_ids=kv_ids)
+            return (o, lse, *torch.autograd.grad((o, lse), (q, k, v), (do, dlse)))
+
+        with _plain_attention():
+            want = lse_grads()
+        for fused in (True, False):
+            with _attention_switch(FUSED_MULTIKV_BWD=fused):
+                got = lse_grads()
+            err_o = _abs_err(got[0][sees], want[0][sees])
+            errs = [_rel_err(g, w) for g, w in zip(got[2:], want[2:])]
+            print(f"flash_attention_lse D={D} {dtype}, separate q and kv ids, random dlse, "
+                  f"{'fused' if fused else 'split'} backward vs plain: max|do| {err_o:.3e}, "
+                  f"max|dlse| {(got[1] - want[1])[sees].abs().max().item():.2e}, max|d|/max|g| "
+                  f"{max(errs):.2e} (tolerance {BWD_TOL[dtype]})")
+            rt, at = TOL[dtype]["o"]
+            check(torch.allclose(got[0][sees].float(), want[0][sees].float(), rtol=rt, atol=at)
+                  and torch.allclose(got[1][sees], want[1][sees], rtol=1e-5, atol=1e-4)
+                  and max(errs) <= BWD_TOL[dtype],
+                  f"flash_attention_lse at D={D} {dtype}: kernels disagree with plain")
+        del q0, k0, v0, do, dlse, want, got
+    return worst
+
+
+def _wide_padded_checks():
+    """One head at D = 96 and 32 with RoPE: flash_attention forward and
+    backward through the kernels of the next built head dim on zero-padded
+    inputs, against the plain versions at the caller's D, bf16 and fp32,
+    dropout 0 and 0.1; each call launches #1 and #2 once."""
+    import torch
+    from omnibiote_tpu_torch.ops import _kernels
+    from omnibiote_tpu_torch.ops import flash_attention as fa
+
+    for D in (96, 32):
+        for dtype in ("bfloat16", "float32"):
+            for rate in (0.0, TRAIN_DROPOUT):
+                B, T = 4, 1024
+                tdt = getattr(torch, dtype)
+                q0, k0, v0, _, rope = _attn_inputs(B, T, 1, D, tdt, "dense", seed=2000 + D)
+                seg = _wide_ids("packed", B, T, 3, 2000 + D)
+                gen = torch.Generator(device="cuda").manual_seed(2001 + D)
+                do = torch.randn(B, T, 1, D, generator=gen, device="cuda").to(tdt)
+                kw = dict(scale=1.0 / math.sqrt(D), dropout_rate=rate, seed=0xD96 + D)
+
+                def fwd_bwd():
+                    q, k, v = (x.clone().requires_grad_() for x in (q0, k0, v0))
+                    o = fa.flash_attention(q, k, v, seg, rope, block_q=512, block_kv=1024, **kw)
+                    return (o.detach(), *torch.autograd.grad(o, (q, k, v), do))
+
+                def plain_fwd_bwd():
+                    # the plain versions at the caller's D, unpadded, on the
+                    # kernel's kv tile (its order of rounding)
+                    q, k, v = (x.clone().requires_grad_() for x in (q0, k0, v0))
+                    with _plain_attention():
+                        o = fa.MhFlashAttention.apply(
+                            q, k, v, seg, rope[0][:T], rope[1][:T], kw["scale"], rate,
+                            kw["seed"], 512, 1024, fa.kernel_kv_tile(tdt, fa.padded_head_dim(D)),
+                            False, None, True)
+                        return (o.detach(), *torch.autograd.grad(o, (q, k, v), do))
+
+                _kernels.reset_launches()
+                got = fwd_bwd()
+                torch.cuda.synchronize()
+                check(_kernels.LAUNCHES == _counts(mh_flash_fwd=1, mh_flash_bwd=1),
+                      f"one head at D={D}: launches {_kernels.LAUNCHES}")
+                want = plain_fwd_bwd()
+                check(_kernels.LAUNCHES == _counts(mh_flash_fwd=1, mh_flash_bwd=1),
+                      "the plain run launched a kernel")
+                rt, at = TOL[dtype]["o"]
+                tag = f"one head D={D} (padded to {fa.padded_head_dim(D)}) {dtype} dropout {rate}"
+                check(got[0].shape == q0.shape and torch.allclose(
+                    got[0].float(), want[0].float(), rtol=rt, atol=at),
+                    f"{tag}: forward disagrees with the plain version")
+                rel, _ = _hold_bwd(got[1:], want[1:], dtype, tag)
+                print(f"{tag}, RoPE, packed: max|do| {_abs_err(got[0], want[0]):.3e} (rtol {rt}, "
+                      f"atol {at}), backward max|d|/max|g| {rel:.2e} (tolerance "
+                      f"{BWD_TOL[dtype]}); launches {dict((n, c) for n, c in _kernels.LAUNCHES.items() if c)}")
+
+
+def _wide_timings():
+    """Each D = 256 kernel at its path's shape beside its plain version, its
+    bound and SDPA, the forward's at the serving shape, the backwards at the
+    training shapes. Returns (rows of the kernels line, launches left at 0,
+    errors at these shapes)."""
+    import torch
+    from omnibiote_tpu_torch.models.rope import apply_rope_half
+    from omnibiote_tpu_torch.ops import flash_attention as fa
+    from omnibiote_tpu_torch.ops import int8_attention as i8
+
+    H, D = WIDE_HEADS, WIDE_D
+    scale = 1.0 / math.sqrt(D)
+    rows, err = {}, {}
+    src = "omnibiote_tpu_torch/ops/csrc/"
+
+    def row(name, source, line, ms, plain_ms, bound, lib):
+        rows[name] = {"name": f"{name} D={D}", "route": "cuda", "source": src + source,
+                      "replaces": line, "launches": None, "max_abs_err": err[name],
+                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+                      "bound_by": bound[1], "library_ms": lib}
+
+    # #1 at the serving shape: B 32, T 1024, dense, no dropout
+    B, T = SERVING_BATCH, 1024
+    q, k, v, _, rope = _attn_inputs(B, T, H, D, torch.bfloat16, "dense", 2100)
+    ms = cuda_ms(lambda: fa.mh_flash_forward(q, k, v, None, rope, scale=scale), 20)
+    plain = cuda_ms(lambda: fa.mh_flash_forward_plain(q, k, v, None, rope, scale=scale), 3,
+                    warmup=1)
+    err["mh_flash_fwd"] = _hold_fwd(
+        fa.mh_flash_forward(q, k, v, None, rope, scale=scale),
+        fa.mh_flash_forward_plain(q, k, v, None, rope, scale=scale,
+                                  block_kv=fa.kernel_kv_tile(torch.bfloat16, D)),
+        "bfloat16", f"the serving shape B={B} T={T} D={D}")
+    qr, kr = apply_rope_half(q, k, *rope)
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (qr, kr, v))
+    lib, alone = _sdpa(qh, kh, vh, scale=scale)
+    bound = _attn_bound(B, T, H, D)
+    print(f"mh_flash_fwd B={B} T={T} H={H} D={D} bf16 dense: kernel {ms:.4f} ms "
+          f"({4.0 * B * T * T * H * D / (ms * 1e-3) / 1e12:.1f} TFLOP/s), plain {plain:.4f} ms, "
+          f"SDPA {lib:.4f} ms (alone: {', '.join(f'{n} {t:.4f}' for n, t in alone.items())}), "
+          f"bound {bound[0]:.4f} ms ({bound[1]}); max|do| {err['mh_flash_fwd']:.3e}")
+    row("mh_flash_fwd", "mh_flash_fwd.cu", "omnibiote_tpu/ops/flash_attention.py:545",
+        ms, plain, bound, lib)
+    # #9 at the same shape, on the same inputs
+    ms8 = cuda_ms(lambda: i8.int8_flash_attention(q, k, v, scale=scale, rope=rope), 20)
+    plain8 = cuda_ms(lambda: i8.int8_flash_attention_plain(q, k, v, scale=scale, rope=rope), 3,
+                     warmup=1)
+    o8 = i8.int8_flash_attention(q, k, v, scale=scale, rope=rope)
+    p8 = i8.int8_flash_attention_plain(q, k, v, scale=scale, rope=rope)
+    rt, at = INT8_TOL["bfloat16"]
+    check(torch.allclose(o8.float(), p8.float(), rtol=rt, atol=at),
+          f"int8 kernel disagrees with its plain version at B={B} T={T} D={D}")
+    cos8 = torch.nn.functional.cosine_similarity(
+        o8.float().reshape(-1, D).double(), p8.float().reshape(-1, D).double(), dim=1).min().item()
+    check(cos8 >= MIN_COSINE, f"int8 kernel vs plain at D={D}: min row cosine {cos8}")
+    err["int8_flash_fwd"] = _abs_err(o8, p8)
+    bound8 = _int8_bound(B, T, H, D, 2)
+    print(f"int8_flash_fwd B={B} T={T} H={H} D={D} bf16 dense: kernel {ms8:.4f} ms, plain "
+          f"{plain8:.4f} ms, SDPA bf16 {lib:.4f} ms, bound {bound8[0]:.4f} ms ({bound8[1]}); "
+          f"max|do| {err['int8_flash_fwd']:.3e}, min row cosine vs plain int8 {cos8:.7f} "
+          f"(threshold {MIN_COSINE})")
+    row("int8_flash_fwd", "int8_flash_fwd.cu", "omnibiote_tpu/ops/int8_attention.py:48",
+        ms8, plain8, bound8, lib)
+    del q, k, v, qr, kr, qh, kh, vh, o8, p8
+    torch.cuda.empty_cache()
+
+    # #1's training call, #2, #6-#8 at bench.py's micro-batch (B 16, T 1024,
+    # 3 EOS a row, dropout 0.1); #3-#5 at bench_longctx.py's (B 8, T 2048,
+    # 5 EOS a row); skipping on as the main paths run them
+    for (B, T, n_eos) in ((TRAIN_SHAPE["B"], 1024, 3), (LONG_SHAPES[0][0], 2048, LONG_EOS)):
+        q, k, v, _, rope = _attn_inputs(B, T, H, D, torch.bfloat16, "dense", 2200 + T)
+        seg = _wide_ids("packed", B, T, n_eos, 2200 + T)
+        gen = torch.Generator(device="cuda").manual_seed(2300 + T)
+        do = torch.randn(B, T, H, D, generator=gen, device="cuda").bfloat16()
+        sb = fa.SegmentBounds(seg)
+        kw = dict(scale=scale, dropout_rate=TRAIN_DROPOUT, seed=2561)
+        skip = dict(segment_skip=True, bounds=sb)
+        o, lse = fa.mh_flash_forward(q, k, v, seg, rope, **kw, **skip)
+        di = (o.float() * do.float()).sum(-1)
+        args = (q, k, v, do, lse, di, seg, rope)
+        pairs = _visible_pairs(seg, B, T)
+        (bq, bkv), (kq, kkv), (dq_q, dq_kv) = (fa.kernel_tiles(kind, torch.bfloat16, D)
+                                               for kind in ("fused", "dkv", "dq"))
+        want = fa.mh_flash_backward_plain(*args, block_q=bq, block_kv=bkv, **kw, **skip)
+        qr, kr = apply_rope_half(q, k, *rope)
+        qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_() for x in (qr, kr, v))
+        doh = do.transpose(1, 2).contiguous()
+        lib_f, alone = _sdpa(qh.detach(), kh.detach(), vh.detach(), dropout_p=TRAIN_DROPOUT,
+                             scale=scale)
+        import torch.nn.functional as F
+        lib_b = cuda_ms(lambda: torch.autograd.grad(F.scaled_dot_product_attention(
+            qh, kh, vh, dropout_p=TRAIN_DROPOUT, scale=scale), (qh, kh, vh), doh), 10) - lib_f
+        shape = f"B={B} T={T} H={H} D={D} bf16, {n_eos} EOS a row, dropout {TRAIN_DROPOUT}"
+        print(f"{shape}: visible share of (q, k) pairs {pairs / (B * T * T):.4f}; SDPA dense "
+              f"forward {lib_f:.4f} ms (alone: "
+              f"{', '.join(f'{n} {t:.4f}' for n, t in alone.items())}), backward {lib_b:.4f} ms")
+        if T == 1024:
+            ms_f = cuda_ms(lambda: fa.mh_flash_forward(q, k, v, seg, rope, **kw, **skip), 20)
+            print(f"  mh_flash_fwd with skipping {ms_f:.4f} ms, bound "
+                  f"{_attn_bound(B, T, H, D, pairs)[0]:.4f} ms over visible pairs")
+            got = fa.mh_flash_backward(*args, **kw, **skip)
+            rel, err["mh_flash_bwd"] = _hold_bwd(got, want, "bfloat16", shape)
+            ms = cuda_ms(lambda: fa.mh_flash_backward(*args, **kw, **skip), 20)
+            plain = cuda_ms(lambda: fa.mh_flash_backward_plain(*args, **kw), 3, warmup=1)
+            bound = _bwd_bound(B, T, H, D, pairs)
+            print(f"  mh_flash_bwd {ms:.4f} ms ({10.0 * pairs * H * D / (ms * 1e-3) / 1e12:.1f} "
+                  f"TFLOP/s over visible pairs), plain {plain:.4f} ms, bound {bound[0]:.4f} ms "
+                  f"({bound[1]}); max|d|/max|g| {rel:.2e}")
+            row("mh_flash_bwd", "mh_flash_bwd.cu", "omnibiote_tpu/ops/flash_attention.py:965",
+                ms, plain, bound, lib_b)
+            # the per-head entry at this shape: no RoPE, no skipping
+            kwh = dict(scale=scale, dropout_rate=TRAIN_DROPOUT, seed=2562)
+            oh, lseh = fa.mh_flash_forward(q, k, v, seg, None, **kwh)
+            argsh = (q, k, v, do, lseh, (oh.float() * do.float()).sum(-1), seg, None)
+            err["flash_fwd"] = _hold_fwd((oh, lseh), fa.mh_flash_forward_plain(
+                q, k, v, seg, None, block_kv=fa.kernel_kv_tile(torch.bfloat16, D), **kwh),
+                "bfloat16", f"per-head {shape}")
+            wanth = fa.mh_flash_backward_plain(*argsh, **kwh)
+            err["flash_bwd_dkv"] = _hold_bwd(fa.mh_flash_bwd_dkv(*argsh, **kwh), wanth[1:],
+                                             "bfloat16", f"per-head dkv {shape}")[1]
+            err["flash_bwd_dq"] = _hold_bwd((fa.mh_flash_bwd_dq(*argsh, **kwh),), wanth[:1],
+                                            "bfloat16", f"per-head dq {shape}")[1]
+            qn, kn = (x.transpose(1, 2).contiguous() for x in (q, k))
+            lib_h, _ = _sdpa(qn, kn, vh.detach(), dropout_p=TRAIN_DROPOUT, scale=scale)
+            nb = 4 * B * T * H * D * 2 + B * T * H * 4
+            for name, fn, pfn, bound, lib in (
+                    ("flash_fwd", lambda: fa.mh_flash_forward(q, k, v, seg, None, **kwh),
+                     lambda: fa.mh_flash_forward_plain(q, k, v, seg, None, **kwh),
+                     _bound(4.0 * pairs * H * D, nb), lib_h),
+                    ("flash_bwd_dkv", lambda: fa.mh_flash_bwd_dkv(*argsh, **kwh),
+                     lambda: fa.mh_flash_bwd_dkv_plain(*argsh, **kwh),
+                     _bwd_bound(B, T, H, D, pairs, "dkv"), None),
+                    ("flash_bwd_dq", lambda: fa.mh_flash_bwd_dq(*argsh, **kwh),
+                     lambda: fa.mh_flash_bwd_dq_plain(*argsh, **kwh),
+                     _bwd_bound(B, T, H, D, pairs, "dq"), None)):
+                ms, plain = cuda_ms(fn, 20), cuda_ms(pfn, 3, warmup=1)
+                print(f"  {name} (per-head, every tile) {ms:.4f} ms, plain {plain:.4f} ms, "
+                      f"bound {bound[0]:.4f} ms ({bound[1]}) over visible pairs"
+                      + (f", SDPA {lib:.4f} ms" if lib is not None else ""))
+                line = {"flash_fwd": ("mh_flash_fwd.cu", 110), "flash_bwd_dkv":
+                        ("mh_flash_bwd_dkv.cu", 240), "flash_bwd_dq": ("mh_flash_bwd_dq.cu", 301)}
+                row(name, line[name][0], f"omnibiote_tpu/ops/flash_attention.py:{line[name][1]}",
+                    ms, plain, bound, lib)
+            del oh, lseh, argsh, wanth, qn, kn
+        else:
+            got = fa.mh_flash_backward(*args, **kw, **skip)
+            err["mh_flash_bwd_mk"] = _hold_bwd(got, want, "bfloat16", f"fused {shape}")[1]
+            err["mh_flash_bwd_dkv"] = _hold_bwd(fa.mh_flash_bwd_dkv(*args, **kw, **skip),
+                                                want[1:], "bfloat16", f"dkv {shape}")[1]
+            err["mh_flash_bwd_dq"] = _hold_bwd((fa.mh_flash_bwd_dq(*args, **kw, **skip),),
+                                               want[:1], "bfloat16", f"dq {shape}")[1]
+            for name, fn, pfn, kind, source, line, lib in (
+                    ("mh_flash_bwd_mk", lambda: fa.mh_flash_backward(*args, **kw, **skip),
+                     lambda: fa.mh_flash_backward_plain(*args, **kw), "fused",
+                     "mh_flash_bwd.cu", 1128, lib_b),
+                    ("mh_flash_bwd_dkv", lambda: fa.mh_flash_bwd_dkv(*args, **kw, **skip),
+                     lambda: fa.mh_flash_bwd_dkv_plain(*args, **kw), "dkv",
+                     "mh_flash_bwd_dkv.cu", 773, None),
+                    ("mh_flash_bwd_dq", lambda: fa.mh_flash_bwd_dq(*args, **kw, **skip),
+                     lambda: fa.mh_flash_bwd_dq_plain(*args, **kw), "dq",
+                     "mh_flash_bwd_dq.cu", 866, None)):
+                ms, plain = cuda_ms(fn, 10), cuda_ms(pfn, 2, warmup=1)
+                bound = _bwd_bound(B, T, H, D, pairs, kind)
+                print(f"  {name} {ms:.4f} ms, plain {plain:.4f} ms, bound {bound[0]:.4f} ms "
+                      f"({bound[1]}) over visible pairs; max|d| {err[name]:.3e}")
+                row(name, source, f"omnibiote_tpu/ops/flash_attention.py:{line}", ms, plain,
+                    bound, lib)
+        del q, k, v, do, o, lse, args, want, got, qr, kr, qh, kh, vh, doh
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _wide_serving(workdir, tok_path, seqs):
+    """The Encoder at omnibiote-small width with 4 heads of 256, bf16 and
+    int8, on the serving slice's sequences; encode(mean) seq/s beside the
+    8-head model's. Returns the launches of its runs (#1 and #9)."""
+    import torch
+    from omnibiote_tpu_torch import init_params, preset
+    from omnibiote_tpu_torch.api import Encoder
+    from omnibiote_tpu_torch.ops import _kernels
+    from omnibiote_tpu_torch.ops import attention as port_attention
+    from omnibiote_tpu_torch.ops.int8_attention import int8_flash_attention_plain
+    from omnibiote_tpu_torch.tokenizer import SentencePieceProcessor
+
+    sp = SentencePieceProcessor(tok_path)
+    cfg = preset("omnibiote-small", vocab_size=65536, dropout=0.0, n_head=WIDE_HEADS)
+    check((cfg.n_layer, cfg.n_embd, cfg.n_head, cfg.n_embd // cfg.n_head) == (8, 1024, 4, 256),
+          f"unexpected wide config {cfg}")
+    L, bs = cfg.n_layer, SERVING_BATCH
+    n_batches = -(-len(seqs) // bs)
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    model = init_params(gen, cfg, device="cuda")
+    runs = SERVING_RUNS
+    launches = {}
+
+    def encode_all(enc, counter):
+        outs = {}
+        for method, masked in runs:
+            before = dict(_kernels.LAUNCHES)
+            out = enc.encode_sequences(seqs, method=method, batch_size=bs, mask_padding=masked)
+            check(out.shape == (len(seqs), cfg.n_embd)
+                  and bool(torch.isfinite(torch.from_numpy(out)).all()),
+                  f"wide {method}/{masked}: shape {out.shape} or non-finite")
+            if counter is not None:
+                check(_kernels.LAUNCHES[counter] - before[counter] == L * n_batches
+                      and sum(_kernels.LAUNCHES.values()) - sum(before.values()) == L * n_batches,
+                      f"wide {method}/{masked}: launches {_kernels.LAUNCHES} after {before}")
+            outs[(method, masked)] = out
+        return outs
+
+    enc = Encoder(model, sp, device="cuda")
+    _kernels.reset_launches()
+    outs = encode_all(enc, "mh_flash_fwd")
+    launches["mh_flash_fwd"] = _kernels.LAUNCHES["mh_flash_fwd"]
+    with _plain_attention():
+        plain = encode_all(enc, None)
+    worst = min(_min_row_cosine(outs[key], plain[key]) for key in runs)
+    print(f"wide serving: {cfg.n_layer}L/{cfg.n_embd}d/{cfg.n_head} heads of "
+          f"{cfg.n_embd // cfg.n_head}, {len(runs)} encode_sequences calls, "
+          f"{launches['mh_flash_fwd']} mh_flash_fwd launches; vs the plain attention min row "
+          f"cosine {worst:.7f} (threshold {MIN_COSINE})")
+    check(worst >= MIN_COSINE, "wide Encoder: kernel vs plain attention")
+    del plain
+
+    enc8 = Encoder(model, sp, quantize=True, quantize_attention=True, device="cuda")
+    _kernels.reset_launches()
+    outs8 = encode_all(enc8, "int8_flash_fwd")
+    launches["int8_flash_fwd"] = _kernels.LAUNCHES["int8_flash_fwd"]
+    kernel_fn = port_attention.int8_flash_attention
+    port_attention.int8_flash_attention = int8_flash_attention_plain
+    try:
+        plain8 = encode_all(enc8, None)
+    finally:
+        port_attention.int8_flash_attention = kernel_fn
+    worst_plain = min(_min_row_cosine(outs8[key], plain8[key]) for key in runs)
+    worst_bf16 = min(_min_row_cosine(outs8[key], outs[key]) for key in runs)
+    print(f"wide int8 serving: Encoder(quantize=True, quantize_attention=True), "
+          f"{launches['int8_flash_fwd']} int8_flash_fwd launches; vs plain int8 attention min "
+          f"row cosine {worst_plain:.7f} (threshold {MIN_COSINE}), vs the bf16 Encoder "
+          f"{worst_bf16:.6f} (threshold {MIN_COSINE_INT8})")
+    check(worst_plain >= MIN_COSINE, "wide int8 Encoder: kernel vs plain int8 attention")
+    check(worst_bf16 >= MIN_COSINE_INT8, "wide int8 Encoder vs the bf16 Encoder")
+
+    x = torch.randint(20, 65000, (bs, cfg.block_size), generator=gen, device="cuda")
+    rate4 = _encode_rate(model, x, f"{WIDE_HEADS} heads of {WIDE_D}, bf16")
+    rate4_8 = _encode_rate(enc8.model, x, f"{WIDE_HEADS} heads of {WIDE_D}, int8 weights + "
+                           f"int8 attention")
+    del enc, enc8, model, outs, outs8, plain8
+    torch.cuda.empty_cache()
+    cfg8 = preset("omnibiote-small", vocab_size=65536, dropout=0.0)
+    model8 = init_params(gen, cfg8, device="cuda")
+    rate8 = _encode_rate(model8, x, "8 heads of 128, bf16")
+    print(f"encode(mean) B={bs} T={cfg.block_size} in one run: {WIDE_HEADS} heads of {WIDE_D} "
+          f"{rate4:.1f} seq/s (int8 {rate4_8:.1f}), 8 heads of 128 {rate8:.1f} seq/s "
+          f"(ratio {rate4 / rate8:.4f})")
+    del model8
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _wide_training(workdir):
+    """Training at omnibiote-small width with 4 heads of 256: at ctx 1024
+    (16 x 2, 3 EOS, dropout 0.1) one micro-batch and one step on the kernels
+    against the plain attention, the CLI with --n_head 4 for 2 steps, and
+    tokens/s beside 8 heads of 128; at ctx 2048 (8 x 2, 5 EOS) one step with
+    the fused backward (#3) and one with the split pair (#4, #5) against
+    plain. Returns the launches of those runs."""
+    import copy
+    import torch
+    from omnibiote_tpu_torch import preset
+    from omnibiote_tpu_torch.config import TrainConfig
+    from omnibiote_tpu_torch.models.omnibiota import init_params
+    from omnibiote_tpu_torch.ops import _kernels
+    from omnibiote_tpu_torch.training import cli
+    from omnibiote_tpu_torch.training.mlm import mlm_loss
+    from omnibiote_tpu_torch.training.optim import make_optimizer
+    from omnibiote_tpu_torch.training.train import _compute_copy, make_train_step
+
+    launches = {}
+    for mini, accum, ctx, n_eos in ((16, 2, 1024, 3), (LONG_SHAPES[0][0], 2, 2048, LONG_EOS)):
+        cfg = preset("omnibiote-small", vocab_size=65536, dropout=TRAIN_DROPOUT,
+                     n_head=WIDE_HEADS, block_size=ctx)
+        L = cfg.n_layer
+        tc = TrainConfig(batch_size=mini * accum, mini_batch_size=mini, ctx_len=ctx,
+                         token_budget=float(mini * accum * ctx * 10000), seed=0)
+        batch = next(bench_batches(mini * accum, ctx, 19, n_eos))
+        tokens = torch.from_numpy(batch["tokens"]).cuda().view(accum, mini, ctx)
+        segments = torch.from_numpy(batch["segments"]).cuda().view(accum, mini, ctx)
+        gen = torch.Generator(device="cuda").manual_seed(19)
+        model = init_params(gen, cfg, device="cuda")
+        bwd = "mh_flash_bwd" if ctx <= 1024 else "mh_flash_bwd_mk"
+        tag = f"{WIDE_HEADS} heads of {WIDE_D}, mini {mini} x {accum}, T {ctx}"
+
+        if ctx == 1024:
+            def loss_and_grads():
+                params_c = _compute_copy(dict(model.named_parameters()), cfg)
+                loss, _ = mlm_loss(model, tokens[0], segments[0], 1234, params=params_c)
+                grads = torch.autograd.grad(loss, list(params_c.values()))
+                return loss.item(), dict(zip(params_c, grads))
+
+            _kernels.reset_launches()
+            loss_k, grads_k = loss_and_grads()
+            check(_kernels.LAUNCHES == _counts(mh_flash_fwd=L, mh_flash_bwd=L),
+                  f"wide micro-batch launched {_kernels.LAUNCHES}")
+            with _plain_attention():
+                loss_p, grads_p = loss_and_grads()
+            worst_cos = min(torch.nn.functional.cosine_similarity(
+                grads_k[n].double().flatten(), grads_p[n].double().flatten(), dim=0).item()
+                for n in grads_k)
+            print(f"wide micro-batch ({tag}): loss kernels {loss_k:.6f} plain {loss_p:.6f} "
+                  f"(|d| {abs(loss_k - loss_p):.2e}, limit {TRAIN_LOSS_ATOL}); worst gradient "
+                  f"cosine {worst_cos:.6f} (limit {TRAIN_GRAD_COS})")
+            check(abs(loss_k - loss_p) <= TRAIN_LOSS_ATOL, "wide micro-batch loss")
+            check(worst_cos >= TRAIN_GRAD_COS, "wide micro-batch gradients")
+            del grads_k, grads_p
+
+        def one_step(m):
+            params = dict(m.named_parameters())
+            opt = make_optimizer(list(params), cfg, tc, 10000)
+            state = opt.init(params)
+            step = make_train_step(m, cfg, tc, opt)
+            return step(params, state, tokens, segments, [1.0] * accum, 99, 0)
+
+        with _plain_attention():
+            met_p = one_step(copy.deepcopy(model))
+        gn_p = float(met_p["grad_norm"])
+        for fused in ((True,) if ctx == 1024 else (True, False)):
+            name = "fused backward" if fused else "split pair"
+            with _attention_switch(FUSED_MULTIKV_BWD=fused):
+                _kernels.reset_launches()
+                met_k = one_step(copy.deepcopy(model))
+                step_launches = dict(_kernels.LAUNCHES)
+            want = (_counts(mh_flash_fwd=L * accum, **{bwd: L * accum}) if fused else
+                    _counts(mh_flash_fwd=L * accum, mh_flash_bwd_dkv=L * accum,
+                            mh_flash_bwd_dq=L * accum))
+            check(step_launches == want, f"wide step ({tag}, {name}) launched {step_launches}")
+            for n, c in step_launches.items():
+                launches[n] = launches.get(n, 0) + c
+            gn_k = float(met_k["grad_norm"])
+            print(f"wide train step ({tag}, {name}): grad_norm kernels {gn_k:.6f} plain "
+                  f"{gn_p:.6f} (relative {abs(gn_k - gn_p) / gn_p:.2e}, limit "
+                  f"{TRAIN_GNORM_RTOL}); loss {float(met_k['loss']):.6f} vs "
+                  f"{float(met_p['loss']):.6f}; launches {want}")
+            check(abs(gn_k - gn_p) <= TRAIN_GNORM_RTOL * gn_p, f"wide step grad_norm ({name})")
+        del model, met_k, met_p
+        torch.cuda.empty_cache()
+
+        if ctx == 1024:
+            # the CLI with --n_head 4: the training main path at this width
+            data = os.path.join(workdir, "data_wide")
+            log = os.path.join(workdir, "metrics_wide.jsonl")
+            _write_shards(data, 300_000, seed=19)
+            steps = 2
+            argv = ["--base_dir", data, "--train_type", "mixed", "--n_layer", str(L),
+                    "--n_embd", "1024", "--n_head", str(WIDE_HEADS), "--ctx_len", str(ctx),
+                    "--dropout", str(TRAIN_DROPOUT), "--mini_batch_size", str(mini),
+                    "--batch_size", str(mini * accum), "--max_steps", str(steps),
+                    "--save_dir", os.path.join(workdir, "ckpt_wide"), "--log_every", "1",
+                    "--test_freq", "50000", "--metrics_jsonl", log]
+            print("wide train CLI: python -m omnibiote_tpu_torch.training.cli " + " ".join(argv))
+            _kernels.reset_launches()
+            trainer = cli.main(argv)
+            torch.cuda.synchronize()
+            cli_launches = dict(_kernels.LAUNCHES)
+            check(trainer.model.cfg.n_head == WIDE_HEADS, "the CLI's model has other heads")
+            with open(log) as f:
+                recs = [json.loads(line) for line in f]
+            losses = [r["loss"] for r in recs if "loss" in r]
+            probes = [k for r in recs for k in r if k.startswith("test_loss/")]
+            check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+                  f"wide CLI losses {losses}")
+            want = _counts(mh_flash_fwd=steps * L * accum + len(probes) * L,
+                           mh_flash_bwd=steps * L * accum)
+            print(f"wide train CLI: {steps} steps, losses {[round(x, 4) for x in losses]}, "
+                  f"{len(probes)} validation probes, launches {cli_launches} (want {want})")
+            check(cli_launches == want, f"wide CLI launches {cli_launches}")
+            for n, c in cli_launches.items():
+                launches[n] = launches.get(n, 0) + c
+            del trainer
+            torch.cuda.empty_cache()
+            tps4 = _throughput(cfg, tc, n_eos, 6, f"ctx {ctx}, {WIDE_HEADS} heads of {WIDE_D}")
+            cfg8 = preset("omnibiote-small", vocab_size=65536, dropout=TRAIN_DROPOUT)
+            tps8 = _throughput(cfg8, tc, n_eos, 6, f"ctx {ctx}, 8 heads of 128")
+            print(f"train tokens/s at ctx {ctx}, mini {mini} x {accum}, in one run: "
+                  f"{WIDE_HEADS} heads of {WIDE_D} {tps4:.1f}, 8 heads of 128 {tps8:.1f} "
+                  f"(ratio {tps4 / tps8:.4f})")
+        else:
+            tps4 = _throughput(cfg, tc, n_eos, 4, f"ctx {ctx}, {WIDE_HEADS} heads of {WIDE_D}")
+    return launches
+
+
+def head_dim_256_phase(workdir, tok_path, seqs):
+    """Phase 19: the kernels at D = 256 and one head at D = 96 and 32
+    against their plain versions, their times at the paths' shapes, and
+    omnibiote-small with 4 heads of 256 served and trained. Returns (the
+    rows of the kernels line, each row's launches from this phase's main
+    paths, the worst bf16 errors)."""
+    t0 = time.time()
+    worst = _wide_kernel_checks()
+    _wide_padded_checks()
+    rows = _wide_timings()
+    serving = _wide_serving(workdir, tok_path, seqs)
+    training = _wide_training(workdir)
+    per_head = _wide_per_head()
+    launches = {**training, **serving, **per_head}
+    launches["mh_flash_fwd"] = serving["mh_flash_fwd"] + training.get("mh_flash_fwd", 0)
+    order = ("mh_flash_fwd", "mh_flash_bwd", "mh_flash_bwd_mk", "mh_flash_bwd_dkv",
+             "mh_flash_bwd_dq", "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "int8_flash_fwd")
+    check(sorted(rows) == sorted(order), f"phase 19's rows {sorted(rows)}")
+    for name, row in rows.items():
+        row["launches"] = launches.get(name, 0)
+        check(row["launches"] > 0, f"phase 19's main paths never launched {name} at D=256")
+    print(f"phase 19 (head dim 256): {time.time() - t0:.1f} s; main-path launches "
+          f"{ {n: rows[n]['launches'] for n in order} }")
+    return [rows[n] for n in order], worst
+
+
+def _wide_per_head():
+    """flash_attention(multi_head=False) at D = 256: forward and backward
+    against the plain versions (bf16 and fp32, dropout 0.1, packed), then
+    its main path at bench.py's micro-batch. Returns the launches of that
+    path."""
+    import torch
+    from omnibiote_tpu_torch.ops import _kernels
+    from omnibiote_tpu_torch.ops import flash_attention as fa
+
+    H, D = WIDE_HEADS, WIDE_D
+    scale = 1.0 / math.sqrt(D)
+
+    def fwd_bwd(q, k, v, seg, do):
+        q, k, v = (x.clone().requires_grad_() for x in (q, k, v))
+        o = fa.flash_attention(q, k, v, seg, None, scale=scale, block_q=512, block_kv=512,
+                               multi_head=False, dropout_rate=TRAIN_DROPOUT, seed=0x6E)
+        return (o.detach(), *torch.autograd.grad(o, (q, k, v), do))
+
+    for i, dtype in enumerate(("bfloat16", "float32")):
+        B, T = 2, 1024
+        q, k, v, seg, _ = _attn_inputs(B, T, H, D, getattr(torch, dtype), "packed", 2400 + i)
+        do = torch.randn(B, T, H, D, device="cuda").to(q.dtype)
+        _kernels.reset_launches()
+        got = fwd_bwd(q, k, v, seg, do)
+        torch.cuda.synchronize()
+        check(_kernels.LAUNCHES == _counts(flash_fwd=1, flash_bwd_dkv=1, flash_bwd_dq=1),
+              f"per-head entry at D={D} launched {_kernels.LAUNCHES}")
+        with _plain_attention():
+            want = fwd_bwd(q, k, v, seg, do)
+            po, _ = fa.mh_flash_forward_plain(
+                q, k, v, seg, None, scale=scale, dropout_rate=TRAIN_DROPOUT, seed=0x6E,
+                block_kv=fa.kernel_kv_tile(q.dtype, D))
+        rt, at = TOL[dtype]["o"]
+        check(torch.allclose(got[0].float(), po.float(), rtol=rt, atol=at),
+              f"per-head forward at D={D} {dtype} disagrees with its plain version")
+        rel, _ = _hold_bwd(got[1:], want[1:], dtype, f"per-head D={D} {dtype}")
+        print(f"per-head entry D={D} B={B} T={T} {dtype} packed dropout {TRAIN_DROPOUT}: "
+              f"max|do| {_abs_err(got[0], po):.3e}, backward max|d|/max|g| {rel:.2e}")
+    B, T = TRAIN_SHAPE["B"], TRAIN_SHAPE["T"]
+    q, k, v, _, _ = _attn_inputs(B, T, H, D, torch.bfloat16, "dense", 2410)
+    seg = _wide_ids("packed", B, T, 3, 2410)
+    do = torch.randn(B, T, H, D, device="cuda").bfloat16()
+    n_calls = 4
+    _kernels.reset_launches()
+    for _ in range(n_calls):
+        fwd_bwd(q, k, v, seg, do)
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+    check(launches == _counts(flash_fwd=n_calls, flash_bwd_dkv=n_calls, flash_bwd_dq=n_calls),
+          f"per-head main path at D={D} launched {launches}")
+    print(f"per-head main path at D={D}: {n_calls} forward + backward calls at B={B} T={T}, "
+          f"launches {launches}")
+    return {n: c for n, c in launches.items() if c}
+
+
 def setup():
     """Refuse to run without a card or without the package, and fix the
     fp32 matmul precision the references assume."""
@@ -4911,7 +5620,7 @@ def main():
         print(f"serving main path launches: {serving}")
         int8_serving = int8_slice_phase(workdir, served)
         print(f"int8 serving main path launches: {int8_serving}")
-        tok_path = served["tok_path"]
+        tok_path, seqs = served["tok_path"], served["seqs"]
         del served
         torch.cuda.empty_cache()
         train = train_slice_phase(workdir)
@@ -4936,6 +5645,8 @@ def main():
         pp, pp_split = pp_phase(workdir)
         torch.cuda.empty_cache()
         held_out, held_err = pod_plan_phase()
+        torch.cuda.empty_cache()
+        wide_rows, wide_err = head_dim_256_phase(workdir, tok_path, seqs)
     fwd_row["max_abs_err"] = max(fwd_row["max_abs_err"], ring_err["fwd"], held_err["fwd"])
     bwd_row["max_abs_err"] = max(bwd_row["max_abs_err"], ring_err["bwd"], held_err["bwd"])
     # each row's launches: the count its own main paths left (serving, both
@@ -4960,7 +5671,7 @@ def main():
         row["launches"] = (source[row["name"]] + parallel_split.get(row["name"], 0)
                            + ring[row["name"]] + pp_split.get(row["name"], 0))
     int8_row["launches"] = int8_serving["int8_flash_fwd"]
-    rows = [fwd_row, bwd_row, *long_rows, int8_row, *head_rows, *probe_rows]
+    rows = [fwd_row, bwd_row, *long_rows, int8_row, *head_rows, *probe_rows, *wide_rows]
     check(min(serving["mh_flash_fwd"], train["mh_flash_fwd"], long_cli["mh_flash_fwd"],
               evals["mh_flash_fwd"], pretrain["mh_flash_fwd"], contact["mh_flash_fwd"],
               parallel["mh_flash_fwd"], pp["mh_flash_fwd"]) > 0,
@@ -4975,10 +5686,12 @@ def main():
     check(min(ring[k] for k in ("mh_flash_fwd", "mh_flash_bwd", "mh_flash_bwd_mk",
                                 "mh_flash_bwd_dkv", "mh_flash_bwd_dq")) > 0,
           f"the ring path never launched one of #1-#5: {ring}")
-    check(len(rows) == 13 and all(row["launches"] > 0 for row in rows),
+    check(len(rows) == 22 and all(row["launches"] > 0 for row in rows),
           f"a kernel was never launched on its main path: "
           f"{[(row['name'], row['launches']) for row in rows]}")
     print(f"mh_flash_fwd at the long shape (mini 8, T 2048, skipping): {fwd_ms_2048:.4f} ms")
+    print(f"head dim 256 kernel checks: worst bf16 max|do| {wide_err['fwd']:.3e}, max|d| "
+          f"{wide_err['bwd']:.3e}")
     print(gpu_name_and_power())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -154,7 +154,7 @@ _SIGNATURES = {
             _c.c_void_p,                               # o
             _c.c_int, _c.c_int, _c.c_int, _c.c_int,    # B, T, H, D
             _c.c_void_p]),                             # stream
-        "obt_int8_flash_fwd_smem_bytes": (_c.c_int, []),
+        "obt_int8_flash_fwd_smem_bytes": (_c.c_int, [_c.c_int]),
         "obt_cuda_error_string_int8": (_c.c_char_p, [_c.c_int]),
     },
     "roofline_probes": {

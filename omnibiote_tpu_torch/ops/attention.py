@@ -8,8 +8,11 @@ and backward, on a CUDA tensor; their plain versions on a CPU tensor); with
 int8=True, no dropout and head_dim % 128 == 0 it goes to
 `int8_flash_attention` (ops/int8_attention.py) instead; everything else
 (causal, ragged T, narrow heads) goes to `xla_attention`, the dense twin of
-the JAX package's reference path. On a CUDA tensor a call that this
-routing sends to a kernel not built for its head dim or dtype raises
+the JAX package's reference path. The kernels are built at head dims 64,
+128 and 256 (int8: 128 and 256); one head at another head dim up to 256
+runs the next built one's on zero-padded inputs
+(`flash_attention_padded`). On a CUDA tensor a call that this routing
+sends to a kernel not built for its head dim or dtype raises
 NotImplementedError: it does not run densely in the kernel's place.
 
 Dropout: `dropout_seed` is the call's 64-bit seed (the counterpart of the
@@ -39,7 +42,7 @@ import torch
 from .flash_attention import (KERNEL_DTYPES, KERNEL_HEAD_DIMS, flash_attention,
                               flash_attention_tp, tp_seed)
 from .int8_attention import KERNEL_DTYPES as INT8_DTYPES
-from .int8_attention import KERNEL_HEAD_DIM as INT8_HEAD_DIM
+from .int8_attention import KERNEL_HEAD_DIMS as INT8_HEAD_DIMS
 from .int8_attention import int8_flash_attention
 from .ring_attention import Ring, RingSegments, ring_attention
 from .segments import NEG_INF
@@ -86,20 +89,24 @@ def attention_path(device_type: str, dtype: torch.dtype, T: int, H: int,
                    causal: bool = False, dropout_rate: float = 0.0) -> str:
     """The path of one attention call: 'int8', 'flash' or 'xla', as the JAX
     dispatch routes it. On 'cuda' a call routed to a kernel that is not
-    built for (D, dtype) raises NotImplementedError; on the CPU the plain
-    versions take any D and dtype."""
+    built for (D, dtype) raises NotImplementedError (one head at any D up
+    to the widest built one runs padded); on the CPU the plain versions
+    take any D and dtype."""
     if impl != "flash" or causal or T % 128:
         return "xla"
     if int8 and dropout_rate == 0.0 and D % 128 == 0:
-        path, built = "int8", D == INT8_HEAD_DIM and dtype in INT8_DTYPES
+        path, built = "int8", D in INT8_HEAD_DIMS and dtype in INT8_DTYPES
     elif D % 128 == 0 or H == 1:
-        path, built = "flash", D in KERNEL_HEAD_DIMS and dtype in KERNEL_DTYPES
+        path = "flash"
+        built = dtype in KERNEL_DTYPES and (
+            D in KERNEL_HEAD_DIMS or (H == 1 and D <= KERNEL_HEAD_DIMS[-1]))
     else:
         return "xla"
     if device_type == "cuda" and not built:
         raise NotImplementedError(
             f"no {path} attention kernel is built for head_dim {D} and "
-            f"{dtype} (ROADMAP Queue 2: head dims the kernels still lack)")
+            f"{dtype} (ROADMAP Queue 2 item 6: head dims past 256, and one "
+            f"head past 256)")
     return path
 
 

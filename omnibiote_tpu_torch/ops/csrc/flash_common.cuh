@@ -16,6 +16,14 @@ namespace obt {
 // attends uniformly instead of turning into NaN.
 constexpr float kMaskValue = -0.7f * FLT_MAX;
 
+// The kv tile of the fp32 forward and dq kernels (their q tile is 32 rows):
+// 32 rows, 16 at D = 256, where two 32-row fp32 K and V tiles (64 KB) pass
+// the 48 KB of static shared memory.
+template <int D>
+__host__ __device__ constexpr int f32_kv_tile() {
+  return D == 256 ? 16 : 32;
+}
+
 // rotate-half, unfused (no FMA contraction) to round exactly as the plain
 // version's separate multiply and add: [x1 c - x2 s | x2 c + x1 s]
 __device__ __forceinline__ float rope_lo(float x1, float x2, float c, float s) {

@@ -18,7 +18,7 @@
 // 2^-126 rounds to p8 = 0 either way and adds nothing l can hold beside the
 // row's own p = 1.
 // Layout (B, T, H*D) row-major for q, k, v, o; segment ids (B, T) int32 or
-// null (dense); cos/sin (T, D/2) fp32 or null (no RoPE). D = 128.
+// null (dense); cos/sin (T, D/2) fp32 or null (no RoPE). D = 128 or 256.
 //
 // Design. The TPU kernel holds one kv block spanning T and rotates and
 // quantizes all of K and V in every grid step. Here that work is done once
@@ -46,7 +46,8 @@
 // fragments for the whole call, O += P8 . V8 with P8 packed from S's
 // accumulators. B comes from shared memory K-major: K8 tiles as they are,
 // V8 as V8^T tiles (8-bit wgmma has no transpose bit, which is why the
-// prologue writes V transposed).
+// prologue writes V transposed). At D = 256 the ring has two stages, and
+// Q8 comes from shared memory (see the attention kernel's note).
 //
 // Fragments (g = lane / 4, t = lane % 4, per warp of 16 rows). A thread's
 // score accumulators hold columns 8n + 2t and 8n + 2t + 1 of each 8-column
@@ -75,6 +76,7 @@
 // dependencies) and the two overlap only in part (PERF.md, row 9).
 #include <atomic>
 #include <climits>
+#include <type_traits>
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -83,8 +85,6 @@ namespace {
 
 using namespace obt;
 
-constexpr int kD = 128;      // head dim: one 128-byte swizzle row of int8
-constexpr int kHalf = kD / 2;
 constexpr float kMagic = 12582912.0f;  // 1.5 * 2^23
 
 __device__ __forceinline__ float inv127() { return (float)(1.0 / 127.0); }
@@ -130,19 +130,20 @@ __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) { return load_bf
 // ---------------------------------------------------------------------------
 // Prologue 1: rotate and quantize q and k. A block takes 32 consecutive
 // tokens of one batch row of q (blockIdx.y == 0) or k and walks the heads,
-// each token's cos/sin loaded once; eight threads a (token, head) row,
-// thread c holding columns 8c..8c+7 and their rotation partners 64+8c...
+// each token's cos/sin loaded once; D / 16 threads a (token, head) row,
+// thread c holding columns 8c..8c+7 and their rotation partners D/2+8c...
 // ---------------------------------------------------------------------------
 constexpr int kQkRows = 32;
 
-template <typename InT>
-__global__ void __launch_bounds__(kQkRows * 8) quant_qk(
+template <typename InT, int D>
+__global__ void __launch_bounds__(kQkRows * D / 16) quant_qk(
     const InT* __restrict__ q, const InT* __restrict__ k, const float* __restrict__ cos_t,
     const float* __restrict__ sin_t, int8_t* __restrict__ q8, float* __restrict__ sq,
     int8_t* __restrict__ k8, float* __restrict__ sk, int T, int H) {
+  constexpr int kD = D, kHalf = D / 2, TPR = D / 16;
   const bool is_k = blockIdx.y != 0;
   const int b = blockIdx.z;
-  const int c = threadIdx.x & 7, t = blockIdx.x * kQkRows + (threadIdx.x >> 3);
+  const int c = threadIdx.x & (TPR - 1), t = blockIdx.x * kQkRows + threadIdx.x / TPR;
   const InT* src = (is_k ? k : q) + ((size_t)b * T + t) * H * kD + 8 * c;
   int8_t* dst = (is_k ? k8 : q8) + ((size_t)b * H * T + t) * kD + 8 * c;
   float* sx = (is_k ? sk : sq) + (size_t)b * H * T + t;
@@ -167,7 +168,7 @@ __global__ void __launch_bounds__(kQkRows * 8) quant_qk(
 #pragma unroll
     for (int e = 0; e < 8; ++e) mx = fmaxf(mx, fmaxf(fabsf(lo[e]), fabsf(hi[e])));
 #pragma unroll
-    for (int off = 4; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    for (int off = TPR / 2; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
     float s = __fmul_rn(mx, inv127());
     if (s == 0.0f) s = 1.0f;
     uint32_t wl[2] = {0, 0}, wh[2] = {0, 0};
@@ -201,10 +202,11 @@ constexpr int kVChunk = 128;
 constexpr int kVSlabBytes = 32 * 1024;
 constexpr int kTileWords = kVChunk / 4 + 1;  // + 1: two-way bank conflicts at most
 
-template <typename InT>
+template <typename InT, int D>
 __global__ void __launch_bounds__(kVThreads) quant_v(
     const InT* __restrict__ v, float* __restrict__ sv, int8_t* __restrict__ v8t, int T,
     int H) {
+  constexpr int kD = D;
   constexpr int kSlabRows = kVSlabBytes / (kVChannels * sizeof(InT));
   __shared__ __align__(16) InT slab[kSlabRows * kVChannels];
   __shared__ float red[kVThreads / 32][kVChannels];
@@ -288,28 +290,52 @@ __global__ void __launch_bounds__(kVThreads) quant_v(
 // and + 8 of warp w, columns 8 n + 2 t, + 1. setmaxnreg moves registers from the
 // producer (24) to the consumers (240).
 //
+// D = 256. The O accumulator (64 x 256 int32, 128 a thread) and S (64) leave
+// no room for Q8's 32 A registers, so the producer loads the CTA's Q8 rows
+// once into shared memory and S = Q8 . K8^T takes both operands from there;
+// O += P8 . V8 is two m64n128 products on the halves of the accumulator. A
+// K8 tile (128 x 256) is two 128-byte panels, a V8^T tile 256 channel rows:
+// 64 KB a stage, so the ring has two stages beside Q8's 32 KB.
+//
 // DOTS: the products alone, the yardstick of the pipeline (same ring,
 // walks, turns and fragment packing): no scales, mask, exp2 or division;
 // walk 1 keeps the int32 row max m of S, walk 2 takes p8 = the low byte of
 // S (two's complement), and o (B, T, H, D) int32 = m + p8 . v8.
 // ---------------------------------------------------------------------------
-constexpr int kBq = 128, kBkv = 128, kStages = 4;
+constexpr int kBq = 128, kBkv = 128;
 constexpr int kThreads = 384, kConsumerWarps = 8;
-constexpr uint32_t kTileBytes = kBkv * kD;  // a K8 or V8^T tile, one byte an element
+constexpr uint32_t kPanel = kBkv * 128;  // a 128-byte panel of a 128-row tile
 // named barriers (0 is __syncthreads): 1 + w, consumer w's turn on the
 // tensor cores
 constexpr int kBarTurn = 1;
 
+template <int D>
+__host__ __device__ constexpr int stages() {
+  return D == 256 ? 2 : 4;
+}
+
+// Q8 of the CTA's rows at D = 256, as D / 128 panels, and its barrier
+template <int D>
+struct QTile {
+  alignas(1024) int8_t q[kBq * D];
+  uint64_t bar;
+};
+struct NoQTile {};
+
+template <int D>
 struct AttnSmem {
-  alignas(1024) int8_t k[kStages][kBkv * kD];
-  alignas(1024) int8_t v[kStages][kD * kBkv];  // V8^T: channel rows of kBkv k bytes
-  float sk[kStages][kBkv];
-  int kseg[kStages][kBkv];
-  uint64_t full[kStages], empty[kStages];
+  static constexpr int S = stages<D>();
+  alignas(1024) int8_t k[S][kBkv * D];  // K8: D / 128 panels of kBkv rows
+  alignas(1024) int8_t v[S][D * kBkv];  // V8^T: channel rows of kBkv k bytes
+  float sk[S][kBkv];
+  int kseg[S][kBkv];
+  uint64_t full[S], empty[S];
+  typename std::conditional<(D > 128), QTile<D>, NoQTile>::type x;
 };
 
+template <int D>
 constexpr size_t attn_smem_bytes() {
-  return sizeof(AttnSmem) + kSwizzleAtom;  // + room to align the base
+  return sizeof(AttnSmem<D>) + kSwizzleAtom;  // + room to align the base
 }
 
 // The log2-space score of one pair. float(si) is exact (|si| < 2^24) and one
@@ -347,14 +373,17 @@ __device__ __forceinline__ uint32_t join_pairs(uint32_t a, uint32_t b) {
   return __byte_perm(a, b, 0x5410);
 }
 
-template <typename OutT, bool SEG, bool DOTS>
+template <typename OutT, bool SEG, bool DOTS, int D>
 __global__ void __launch_bounds__(kThreads, 1) int8_fwd(
     const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
-    const int8_t* __restrict__ q8, const float* __restrict__ sq,
-    const float* __restrict__ sk, const float* __restrict__ sv,
+    const __grid_constant__ CUtensorMap qmap, const int8_t* __restrict__ q8,
+    const float* __restrict__ sq, const float* __restrict__ sk, const float* __restrict__ sv,
     const int* __restrict__ seg, OutT* __restrict__ o, int T, int H, float scale_log2) {
+  constexpr int kD = D, kStages = stages<D>(), NKQ = D / 32, NN = D / 8;
+  constexpr bool kQShared = D > 128;  // Q8 from shared memory (SS products)
+  constexpr uint32_t kTileBytes = kBkv * kD;  // a K8 or V8^T tile, one byte an element
   extern __shared__ unsigned char smem_raw[];
-  AttnSmem& sm = *reinterpret_cast<AttnSmem*>(
+  AttnSmem<D>& sm = *reinterpret_cast<AttnSmem<D>*>(
       smem_raw + ((kSwizzleAtom - (shared_addr(smem_raw) & (kSwizzleAtom - 1))) &
                   (kSwizzleAtom - 1)));
 
@@ -366,6 +395,7 @@ __global__ void __launch_bounds__(kThreads, 1) int8_fwd(
       mbar_init(&sm.full[st], 1);
       mbar_init(&sm.empty[st], kConsumerWarps);
     }
+    if constexpr (kQShared) mbar_init(&sm.x.bar, 1);
     mbar_init_fence();
   }
   __syncthreads();
@@ -374,6 +404,12 @@ __global__ void __launch_bounds__(kThreads, 1) int8_fwd(
     // ---- producer: one thread keeps the ring full, walk 1 then walk 2 ----
     setmaxnreg_dec<24>();
     if (tid == 0) {
+      if constexpr (kQShared) {
+        mbar_arrive_expect_tx(&sm.x.bar, kBq * kD);
+#pragma unroll
+        for (int pn = 0; pn < kD / 128; ++pn)
+          tma_load_2d(&sm.x.q[pn * kBq * 128], &qmap, pn * 128, bh * T + qt * kBq, &sm.x.bar);
+      }
       for (int it = 0; it < 2 * NT; ++it) {
         const int st = it % kStages;
         const bool second = it >= NT;
@@ -383,7 +419,9 @@ __global__ void __launch_bounds__(kThreads, 1) int8_fwd(
                                (DOTS ? 0u : kBkv * sizeof(float)) +
                                (SEG ? kBkv * sizeof(int) : 0u);
         mbar_arrive_expect_tx(&sm.full[st], bytes);
-        tma_load_2d(sm.k[st], &kmap, 0, bh * T + j0, &sm.full[st]);
+#pragma unroll
+        for (int pn = 0; pn < kD / 128; ++pn)
+          tma_load_2d(&sm.k[st][pn * kPanel], &kmap, pn * 128, bh * T + j0, &sm.full[st]);
         if (second) tma_load_2d(sm.v[st], &vmap, j0, bh * kD, &sm.full[st]);
         if (!DOTS) bulk_load(sm.sk[st], sk + (size_t)bh * T + j0, kBkv * sizeof(float), &sm.full[st]);
         if (SEG) bulk_load(sm.kseg[st], seg + (size_t)b * T + j0, kBkv * sizeof(int), &sm.full[st]);
@@ -397,12 +435,13 @@ __global__ void __launch_bounds__(kThreads, 1) int8_fwd(
     const int r0 = qt * kBq + wg * 64 + warp * 16 + g;  // this thread's rows r0 and r0 + 8
 
     // this thread's Q8 bytes as the A fragments of the four 32-deep k-steps
-    uint32_t qa[kD / 32][4];
-    {
+    // (D = 128; at D = 256 Q8 is read from shared memory)
+    uint32_t qa[kQShared ? 1 : NKQ][4];
+    if constexpr (!kQShared) {
       const int8_t* q0 = q8 + ((size_t)bh * T + r0) * kD + 4 * t4;
       const int8_t* q1 = q0 + 8 * kD;
 #pragma unroll
-      for (int kk = 0; kk < kD / 32; ++kk) {
+      for (int kk = 0; kk < NKQ; ++kk) {
         qa[kk][0] = *reinterpret_cast<const uint32_t*>(q0 + kk * 32);
         qa[kk][1] = *reinterpret_cast<const uint32_t*>(q1 + kk * 32);
         qa[kk][2] = *reinterpret_cast<const uint32_t*>(q0 + kk * 32 + 16);
@@ -419,28 +458,47 @@ __global__ void __launch_bounds__(kThreads, 1) int8_fwd(
       qs0 = seg[(size_t)b * T + r0];
       qs1 = seg[(size_t)b * T + r0 + 8];
     }
-    int s[64], acc[64];
+    int s[64], acc[kD / 2];
     uint32_t p[kBkv / 32][4];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = 0;
+    for (int i = 0; i < kD / 2; ++i) acc[i] = 0;
 
-    // S = Q8 . K8^T of ring stage st: four 32-byte k-steps inside K's rows
+    // S = Q8 . K8^T of ring stage st: 32-byte k-steps along K's rows, four
+    // a 128-byte panel
     auto gemm_s = [&](int st) {
       const uint32_t k_addr = shared_addr(sm.k[st]);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kD / 32; ++kk)
-        wgmma_rs_m64n128k32_s8(s, qa[kk], smem_desc(k_addr + kk * 32, 16, kSwizzleAtom),
-                               kk > 0);
+      for (int kk = 0; kk < NKQ; ++kk) {
+        const uint64_t db =
+            smem_desc(k_addr + (kk >> 2) * kPanel + (kk & 3) * 32, 16, kSwizzleAtom);
+        if constexpr (kQShared) {
+          const uint32_t q_addr = shared_addr(sm.x.q) + wg * 64 * 128;
+          wgmma_ss_m64n128k32_s8(
+              s, smem_desc(q_addr + (kk >> 2) * (kBq * 128) + (kk & 3) * 32, 16, kSwizzleAtom),
+              db, kk > 0);
+        } else {
+          wgmma_rs_m64n128k32_s8(s, qa[kk], db, kk > 0);
+        }
+      }
       wgmma_commit();
     };
-    // acc += P8 . V8 of ring stage st (V8^T K-major along kv)
+    // acc += P8 . V8 of ring stage st (V8^T K-major along kv; at D = 256 two
+    // products, the second on channel rows 128-255)
     auto gemm_pv = [&](int st) {
       const uint32_t v_addr = shared_addr(sm.v[st]);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kBkv / 32; ++kk)
-        wgmma_rs_m64n128k32_s8(acc, p[kk], smem_desc(v_addr + kk * 32, 16, kSwizzleAtom), 1);
+      for (int kk = 0; kk < kBkv / 32; ++kk) {
+        if constexpr (kD == 256) {
+          wgmma_rs_m64n128k32_s8(acc_half<0>(acc), p[kk],
+                                 smem_desc(v_addr + kk * 32, 16, kSwizzleAtom), 1);
+          wgmma_rs_m64n128k32_s8(acc_half<1>(acc), p[kk],
+                                 smem_desc(v_addr + 128 * 128 + kk * 32, 16, kSwizzleAtom), 1);
+        } else {
+          wgmma_rs_m64n128k32_s8(acc, p[kk], smem_desc(v_addr + kk * 32, 16, kSwizzleAtom), 1);
+        }
+      }
       wgmma_commit();
     };
     // Turns as in the bf16 forward: warpgroup w waits on barrier kBarTurn + w
@@ -455,6 +513,7 @@ __global__ void __launch_bounds__(kThreads, 1) int8_fwd(
       if (lane == 0) mbar_arrive(&sm.empty[it % kStages]);
     };
     if (wg == 1) turn_pass();
+    if constexpr (kQShared) mbar_wait(&sm.x.bar, 0);
 
     // ---- walk 1: the row maxima over all T keys ----
     float m0 = -INFINITY, m1 = -INFINITY;
@@ -562,7 +621,7 @@ __global__ void __launch_bounds__(kThreads, 1) int8_fwd(
     OutT* o1 = o0 + 8 * rs;
     if constexpr (DOTS) {
 #pragma unroll
-      for (int n = 0; n < 16; ++n) {
+      for (int n = 0; n < NN; ++n) {
         const int col = 8 * n + 2 * t4;
         *reinterpret_cast<int2*>(o0 + col) = make_int2(acc[4 * n] + im0, acc[4 * n + 1] + im0);
         *reinterpret_cast<int2*>(o1 + col) =
@@ -575,7 +634,7 @@ __global__ void __launch_bounds__(kThreads, 1) int8_fwd(
         l1 += __shfl_xor_sync(0xffffffffu, l1, off);
       }
 #pragma unroll
-      for (int n = 0; n < 16; ++n) {
+      for (int n = 0; n < NN; ++n) {
         const int col = 8 * n + 2 * t4;
         const float2 s2 = *reinterpret_cast<const float2*>(sv + (size_t)bh * kD + col);
         const float c0 = __fmul_rn(s2.x, inv127()), c1 = __fmul_rn(s2.y, inv127());
@@ -588,61 +647,89 @@ __global__ void __launch_bounds__(kThreads, 1) int8_fwd(
   }
 }
 
-template <typename InT>
+template <typename InT, int D>
 cudaError_t launch_prologue(const InT* q, const InT* k, const InT* v, const float* cos_t,
                             const float* sin_t, int8_t* q8, float* sq, int8_t* k8,
                             float* sk, int8_t* v8t, float* sv, int B, int T, int H,
                             cudaStream_t st) {
-  quant_qk<InT><<<dim3(T / kQkRows, 2, B), kQkRows * 8, 0, st>>>(q, k, cos_t, sin_t, q8, sq,
-                                                                   k8, sk, T, H);
-  quant_v<InT><<<dim3(kD / kVChannels, H, B), kVThreads, 0, st>>>(v, sv, v8t, T, H);
+  quant_qk<InT, D><<<dim3(T / kQkRows, 2, B), kQkRows * D / 16, 0, st>>>(
+      q, k, cos_t, sin_t, q8, sq, k8, sk, T, H);
+  quant_v<InT, D><<<dim3(D / kVChannels, H, B), kVThreads, 0, st>>>(v, sv, v8t, T, H);
   return cudaGetLastError();
 }
 
-template <typename OutT, bool SEG, bool DOTS>
+template <typename InT>
+cudaError_t launch_prologue_d(const InT* q, const InT* k, const InT* v, const float* cos_t,
+                              const float* sin_t, int8_t* q8, float* sq, int8_t* k8,
+                              float* sk, int8_t* v8t, float* sv, int B, int T, int H, int D,
+                              cudaStream_t st) {
+  return D == 256 ? launch_prologue<InT, 256>(q, k, v, cos_t, sin_t, q8, sq, k8, sk, v8t, sv,
+                                               B, T, H, st)
+                  : launch_prologue<InT, 128>(q, k, v, cos_t, sin_t, q8, sq, k8, sk, v8t, sv,
+                                               B, T, H, st);
+}
+
+template <typename OutT, bool SEG, bool DOTS, int D>
 cudaError_t launch_attn(const int8_t* q8, const float* sq, const int8_t* k8, const float* sk,
                         const int8_t* v8t, const float* sv, const int* seg, OutT* o, int B,
                         int T, int H, float scale_log2, cudaStream_t st) {
-  // k8 as a (B * H * T, D) and v8t as a (B * H * D, T) uint8 matrix, loaded
-  // as 128-row boxes of one 128-byte panel
-  CUtensorMap kmap, vmap;
-  cudaError_t e = encode_u8_panels(&kmap, k8, (uint64_t)B * H * T, kD, kD, kBkv);
-  if (e == cudaSuccess) e = encode_u8_panels(&vmap, v8t, (uint64_t)B * H * kD, T, T, kD);
+  // q8 and k8 as (B * H * T, D) and v8t as a (B * H * D, T) uint8 matrix,
+  // loaded as boxes of one 128-byte panel: 128 rows of q8 and k8, D rows of
+  // v8t (q8 by TMA at D = 256 only; below it the kernel reads no qmap)
+  CUtensorMap kmap, vmap, qmap;
+  cudaError_t e = encode_u8_panels(&kmap, k8, (uint64_t)B * H * T, D, D, kBkv);
+  if (e == cudaSuccess) e = encode_u8_panels(&vmap, v8t, (uint64_t)B * H * D, T, T, D);
+  if constexpr (D > 128) {
+    if (e == cudaSuccess) e = encode_u8_panels(&qmap, q8, (uint64_t)B * H * T, D, D, kBq);
+  } else {
+    qmap = kmap;
+  }
   if (e != cudaSuccess) return e;
   // the shared-memory limit belongs to the instance on a device, not to the
   // call: set it at the first launch on each device
   static std::atomic<uint64_t> smem_set{0};
-  const size_t smem = attn_smem_bytes();
+  const size_t smem = attn_smem_bytes<D>();
   int dev = 0;
   e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   const uint64_t dev_bit = 1ull << (dev & 63);
   if (!(smem_set.load(std::memory_order_acquire) & dev_bit)) {
-    e = cudaFuncSetAttribute(int8_fwd<OutT, SEG, DOTS>,
+    e = cudaFuncSetAttribute(int8_fwd<OutT, SEG, DOTS, D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
     smem_set.fetch_or(dev_bit, std::memory_order_release);
   }
-  int8_fwd<OutT, SEG, DOTS><<<dim3(T / kBq, H, B), kThreads, smem, st>>>(
-      kmap, vmap, q8, sq, sk, sv, seg, o, T, H, scale_log2);
+  int8_fwd<OutT, SEG, DOTS, D><<<dim3(T / kBq, H, B), kThreads, smem, st>>>(
+      kmap, vmap, qmap, q8, sq, sk, sv, seg, o, T, H, scale_log2);
   return cudaGetLastError();
 }
 
-template <typename OutT>
+template <typename OutT, int D>
 cudaError_t launch_attn_seg(const int8_t* q8, const float* sq, const int8_t* k8,
                             const float* sk, const int8_t* v8t, const float* sv,
                             const int* seg, OutT* o, int B, int T, int H, float scale_log2,
                             cudaStream_t st) {
   return seg != nullptr
-             ? launch_attn<OutT, true, false>(q8, sq, k8, sk, v8t, sv, seg, o, B, T, H,
-                                              scale_log2, st)
-             : launch_attn<OutT, false, false>(q8, sq, k8, sk, v8t, sv, seg, o, B, T, H,
-                                               scale_log2, st);
+             ? launch_attn<OutT, true, false, D>(q8, sq, k8, sk, v8t, sv, seg, o, B, T, H,
+                                                 scale_log2, st)
+             : launch_attn<OutT, false, false, D>(q8, sq, k8, sk, v8t, sv, seg, o, B, T, H,
+                                                  scale_log2, st);
+}
+
+template <typename OutT>
+cudaError_t launch_attn_d(const int8_t* q8, const float* sq, const int8_t* k8,
+                          const float* sk, const int8_t* v8t, const float* sv,
+                          const int* seg, OutT* o, int B, int T, int H, int D,
+                          float scale_log2, cudaStream_t st) {
+  return D == 256 ? launch_attn_seg<OutT, 256>(q8, sq, k8, sk, v8t, sv, seg, o, B, T, H,
+                                                scale_log2, st)
+                  : launch_attn_seg<OutT, 128>(q8, sq, k8, sk, v8t, sv, seg, o, B, T, H,
+                                                scale_log2, st);
 }
 
 cudaError_t attention(const void* q8, const void* sq, const void* k8, const void* sk,
                       const void* v8t, const void* sv, const void* seg, void* o, int B,
-                      int T, int H, float scale_log2, int dtype, cudaStream_t st) {
+                      int T, int H, int D, float scale_log2, int dtype, cudaStream_t st) {
   const int8_t* q8p = static_cast<const int8_t*>(q8);
   const int8_t* k8p = static_cast<const int8_t*>(k8);
   const int8_t* v8p = static_cast<const int8_t*>(v8t);
@@ -651,22 +738,22 @@ cudaError_t attention(const void* q8, const void* sq, const void* k8, const void
   const float* svp = static_cast<const float*>(sv);
   const int* sg = static_cast<const int*>(seg);
   if (dtype == 1)
-    return launch_attn_seg<__nv_bfloat16>(q8p, sqp, k8p, skp, v8p, svp, sg,
-                                          static_cast<__nv_bfloat16*>(o), B, T, H,
-                                          scale_log2, st);
-  return launch_attn_seg<float>(q8p, sqp, k8p, skp, v8p, svp, sg, static_cast<float*>(o), B,
-                                T, H, scale_log2, st);
+    return launch_attn_d<__nv_bfloat16>(q8p, sqp, k8p, skp, v8p, svp, sg,
+                                        static_cast<__nv_bfloat16*>(o), B, T, H, D,
+                                        scale_log2, st);
+  return launch_attn_d<float>(q8p, sqp, k8p, skp, v8p, svp, sg, static_cast<float*>(o), B, T,
+                              H, D, scale_log2, st);
 }
 
-// B and H bound the grids; T % 128 == 0
+// B and H bound the grids; D 128 or 256, T % 128 == 0
 bool shape_ok(int B, int T, int H, int D) {
-  return D == kD && T >= kBq && T % kBq == 0 && B >= 1 && B <= 65535 && H >= 1 &&
-         H <= 65535;
+  return (D == 128 || D == 256) && T >= kBq && T % kBq == 0 && B >= 1 && B <= 65535 &&
+         H >= 1 && H <= 65535;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; D must be 128 and T a multiple of 128.
+// dtype: 0 = float32, 1 = bfloat16; D 128 or 256 and T a multiple of 128.
 // q8, k8 (B, H, T, D) int8, sq, sk (B, H, T) fp32, v8t (B, H, D, T) int8 (the
 // kv axis in the products' k order, kv_of_k) and sv (B, H, D) fp32 are
 // scratch tensors that receive the prologue's results. o null runs the
@@ -693,15 +780,16 @@ extern "C" int obt_int8_flash_fwd(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t e =
       dtype == 1
-          ? launch_prologue<__nv_bfloat16>(
+          ? launch_prologue_d<__nv_bfloat16>(
                 static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
                 static_cast<const __nv_bfloat16*>(v), c, s, q8p, sqp, k8p, skp, v8p, svp, B,
-                T, H, st)
-          : launch_prologue<float>(static_cast<const float*>(q), static_cast<const float*>(k),
-                                   static_cast<const float*>(v), c, s, q8p, sqp, k8p, skp,
-                                   v8p, svp, B, T, H, st);
+                T, H, D, st)
+          : launch_prologue_d<float>(static_cast<const float*>(q),
+                                     static_cast<const float*>(k),
+                                     static_cast<const float*>(v), c, s, q8p, sqp, k8p, skp,
+                                     v8p, svp, B, T, H, D, st);
   if (e != cudaSuccess || o == nullptr) return (int)e;
-  return (int)attention(q8, sq, k8, sk, v8t, sv, seg, o, B, T, H, scale_log2, dtype, st);
+  return (int)attention(q8, sq, k8, sk, v8t, sv, seg, o, B, T, H, D, scale_log2, dtype, st);
 }
 
 // The attention kernel alone on a prologue's outputs (the same scratch
@@ -712,7 +800,7 @@ extern "C" int obt_int8_flash_attn(const void* q8, const void* sq, const void* k
                                    const void* seg, void* o, int B, int T, int H, int D,
                                    float scale_log2, int dtype, void* stream) {
   if ((dtype != 0 && dtype != 1) || !shape_ok(B, T, H, D)) return (int)cudaErrorInvalidValue;
-  return (int)attention(q8, sq, k8, sk, v8t, sv, seg, o, B, T, H, scale_log2, dtype,
+  return (int)attention(q8, sq, k8, sk, v8t, sv, seg, o, B, T, H, D, scale_log2, dtype,
                         static_cast<cudaStream_t>(stream));
 }
 
@@ -723,15 +811,18 @@ extern "C" int obt_int8_flash_attn(const void* q8, const void* sq, const void* k
 // cudaGetLastError().
 extern "C" int obt_int8_flash_fwd_dots(const void* q8, const void* k8, const void* v8t,
                                        void* o, int B, int T, int H, int D, void* stream) {
-  if (!shape_ok(B, T, H, D)) return (int)cudaErrorInvalidValue;
-  return (int)launch_attn<int, false, true>(
+  if (!shape_ok(B, T, H, D) || D != 128) return (int)cudaErrorInvalidValue;
+  return (int)launch_attn<int, false, true, 128>(
       static_cast<const int8_t*>(q8), nullptr, static_cast<const int8_t*>(k8), nullptr,
       static_cast<const int8_t*>(v8t), nullptr, nullptr, static_cast<int*>(o), B, T, H, 0.f,
       static_cast<cudaStream_t>(stream));
 }
 
-// Dynamic shared memory a CTA of the attention kernel takes.
-extern "C" int obt_int8_flash_fwd_smem_bytes() { return (int)attn_smem_bytes(); }
+// Dynamic shared memory a CTA of the attention kernel takes at head dim D
+// (-1 for a head dim it is not built for).
+extern "C" int obt_int8_flash_fwd_smem_bytes(int D) {
+  return D == 128 ? (int)attn_smem_bytes<128>() : D == 256 ? (int)attn_smem_bytes<256>() : -1;
+}
 
 extern "C" const char* obt_cuda_error_string_int8(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -52,6 +52,16 @@
 // fp32 kernel is the parity type and runs on the CUDA cores, with q and k
 // both rotated ahead.
 //
+// Head dim 256. dK and dV of a consumer's 64 kv rows would be 256 fp32 a
+// thread, past its 240 registers, and the 64 KB dQ staging tile does not
+// fit beside 64 KB Q and dO stages. So at D = 256 a CTA owns 64 kv rows
+// and its two consumers split the work by output
+// (mh_flash_bwd_kernels.cuh::mh_bwd_d256_bf16): consumer 0 forms S^T,
+// P_drop^T and dV, consumer 1 S^T (again), dP^T, dS^T and dK, each 128
+// fp32 a thread; each then forms 128 columns of the q tile's dQ and adds
+// them into the fp32 scratch (the same fragment layout) by 16-byte atomics
+// from its registers. The fp32 kernel gives a kv row 8 threads there.
+//
 // Segment skipping. The TPU kernel's grid is (q block, kv block) with the kv
 // range per q block; this kernel's CTA owns a kv tile, so it takes the same
 // tiles from the other side: the q-tile range per (batch, kv tile)
@@ -93,12 +103,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
   cudaError_t e = cudaMemsetAsync(dq_acc, 0, (size_t)n_rows * D * sizeof(float), st);
   if (e != cudaSuccess) return e;
   const long long n_pairs = n_rows * (D / 2);
-  mh_bwd_f32<D, DROP, true><<<dim3(T / kF32Kv, H, B), 128, 0, st>>>(
+  e = launch_f32<D, DROP, true>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout), lse, di,
       q_seg, kv_seg, cos_t, sin_t, q_lo, q_hi, tile_count, dq_acc,
-      static_cast<float*>(dk), static_cast<float*>(dv), T, H, scale_log2,
-      scale, dp);
+      static_cast<float*>(dk), static_cast<float*>(dv), B, T, H, scale_log2,
+      scale, dp, st);
+  if (e != cudaSuccess) return e;
   dq_epilogue<D, float><<<(unsigned)((n_pairs + 255) / 256), 256, 0, st>>>(
       dq_acc, cos_t, sin_t, static_cast<float*>(dq), T, H, n_pairs);
   return cudaGetLastError();
@@ -140,7 +151,8 @@ bool shape_ok(int B, int T, int H, int t_multiple) {
 // so is k_rot for fp32 (bf16 rotates k in the kernel; k_rot may be null).
 // dq_acc is an fp32 scratch of q's size (zeroed here). q_lo and q_hi, both
 // null or both int32 (B, T / kv tile) in units of the dtype's q tile (kv
-// tile 128 and q tile 64 for bf16, 32 and 16 for fp32), bound the q tiles
+// tile 128 (64 at D = 256) and q tile 64 for bf16, 32 and 16 for fp32),
+// bound the q tiles
 // each kv tile walks; tile_count is null or one int32 that the walked tiles
 // are added to. drop != 0 applies the forward's dropout (thresh,
 // keep_scale, seed as in obt_mh_flash_fwd). Returns cudaGetLastError()
@@ -179,6 +191,7 @@ extern "C" int obt_mh_flash_bwd(const void* q, const void* k, const void* v,
   switch (D) {
     case 64: return (int)launch_d<64>(q, k, v, dout, l, dd, qsg, kvsg, c, s, q_rot, k_rot, lo, hi, tc, acc, dq, dk, dv, B, T, H, scale_log2, scale, dtype == 1, drop != 0, dp, st);
     case 128: return (int)launch_d<128>(q, k, v, dout, l, dd, qsg, kvsg, c, s, q_rot, k_rot, lo, hi, tc, acc, dq, dk, dv, B, T, H, scale_log2, scale, dtype == 1, drop != 0, dp, st);
+    case 256: return (int)launch_d<256>(q, k, v, dout, l, dd, qsg, kvsg, c, s, q_rot, k_rot, lo, hi, tc, acc, dq, dk, dv, B, T, H, scale_log2, scale, dtype == 1, drop != 0, dp, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -209,6 +222,7 @@ extern "C" int obt_mh_flash_bwd_dots(const void* q, const void* k, const void* v
 extern "C" int obt_mh_flash_bwd_smem_bytes(int D) {
   return D == 64    ? (int)bf16_smem_bytes<64, true>()
          : D == 128 ? (int)bf16_smem_bytes<128, true>()
+         : D == 256 ? (int)bf16_smem_bytes_256()
                     : -1;
 }
 

@@ -17,7 +17,9 @@
 // (mh_flash_bwd_kernels.cuh::mh_bwd_fused_bf16 with WITH_DQ = false): a CTA
 // owns (batch, head, 128-row kv tile) and walks 64-row q tiles that a
 // producer warpgroup streams through a TMA ring, two consumer warpgroups of
-// 64 kv rows hold dk and dv in fp32 registers, and the four products
+// 64 kv rows hold dk and dv in fp32 registers (at D = 256: a 64-row kv
+// tile, one consumer holding dv and the other dk,
+// mh_bwd_d256_bf16 without its dq), and the four products
 // (S^T, dP^T, dV += P_drop^T.dO, dK += dS^T.Q) are wgmma. Every kv row has
 // one owner, so dk and dv are the same bits from launch to launch. With
 // q_lo / q_hi it walks only the q tiles whose segment-id range meets its kv
@@ -60,13 +62,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
         q_seg, kv_seg, cos_t, sin_t, q_lo, q_hi, tile_count, nullptr, nullptr,
         static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), B, T, H, scale_log2,
         scale, dp, st);
-  mh_bwd_f32<D, DROP, false><<<dim3(T / kF32Kv, H, B), 128, 0, st>>>(
+  return launch_f32<D, DROP, false>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout), lse, di,
       q_seg, kv_seg, cos_t, sin_t, q_lo, q_hi, tile_count, nullptr,
-      static_cast<float*>(dk), static_cast<float*>(dv), T, H, scale_log2,
-      scale, dp);
-  return cudaGetLastError();
+      static_cast<float*>(dk), static_cast<float*>(dv), B, T, H, scale_log2,
+      scale, dp, st);
 }
 
 template <int D>
@@ -104,8 +105,8 @@ bool shape_ok(int B, int T, int H, int t_multiple) {
 // (cos_t and sin_t non-null), q_rot is a scratch tensor of q's shape and
 // type, and so is k_rot for fp32 (bf16 rotates k in the kernel; k_rot may
 // be null). q_lo and q_hi, both null or both int32 (B, T / kv tile) in
-// units of the dtype's q tile (kv tile 128 and q tile 64 for bf16, 32 and
-// 16 for fp32), bound the q tiles each kv tile walks; tile_count is null or
+// units of the dtype's q tile (kv tile 128, 64 at D = 256, and q tile 64
+// for bf16; 32 and 16 for fp32), bound the q tiles each kv tile walks; tile_count is null or
 // one int32 that the walked tiles are added to. drop != 0 applies the
 // forward's dropout (thresh, keep_scale, seed as in obt_mh_flash_fwd).
 // Returns cudaGetLastError() after the launches (cudaErrorInvalidValue for
@@ -142,6 +143,7 @@ extern "C" int obt_mh_flash_bwd_dkv(const void* q, const void* k, const void* v,
   switch (D) {
     case 64: return (int)launch_d<64>(q, k, v, dout, l, dd, qsg, kvsg, c, s, q_rot, k_rot, lo, hi, tc, dk, dv, B, T, H, scale_log2, scale, dtype == 1, drop != 0, dp, st);
     case 128: return (int)launch_d<128>(q, k, v, dout, l, dd, qsg, kvsg, c, s, q_rot, k_rot, lo, hi, tc, dk, dv, B, T, H, scale_log2, scale, dtype == 1, drop != 0, dp, st);
+    case 256: return (int)launch_d<256>(q, k, v, dout, l, dd, qsg, kvsg, c, s, q_rot, k_rot, lo, hi, tc, dk, dv, B, T, H, scale_log2, scale, dtype == 1, drop != 0, dp, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -168,6 +170,7 @@ extern "C" int obt_mh_flash_bwd_dkv_dots(const void* q, const void* k, const voi
 extern "C" int obt_mh_flash_bwd_dkv_smem_bytes(int D) {
   return D == 64    ? (int)bf16_smem_bytes<64, false>()
          : D == 128 ? (int)bf16_smem_bytes<128, false>()
+         : D == 256 ? (int)bf16_smem_bytes_256()
                     : -1;
 }
 

@@ -39,6 +39,13 @@
 // less in proportion to the visible tiles on packed rows; q, k, v, do, dq,
 // lse2 and di are 169 MB (0.05 ms at 3.35 TB/s): bound by operations. The
 // fp32 kernel is the parity type and runs on the CUDA cores.
+//
+// Head dim 256. The q and dO tiles alone are 128 KB there, so the ring has
+// two stages of 32-row K and V tiles (64 KB), S and dP are m64n32k16
+// products (16 fp32 a thread each) beside dq's 128, and dQ += dS.K is two
+// m64n128k16 products on the halves of the accumulator. The q and dO
+// descriptors are formed inside the walk (hoisted, their 32 loop-invariant
+// descriptors spilled). The fp32 kernel walks 16-row kv tiles there.
 #include <atomic>
 
 #include "flash_common.cuh"
@@ -82,9 +89,20 @@ struct DropParams {
 // fragments (16); a 128-wide kv tile would double S and dP to 192 live
 // accumulators at D = 128, past what keeps ptxas from spilling.
 // ---------------------------------------------------------------------------
-constexpr int kBq = 128, kBkv = 64, kStages = 4;
+constexpr int kBq = 128;
 constexpr int kThreads = 384, kConsumerWarps = 8;
-constexpr uint32_t kQPanel = kBq * 128, kKvPanel = kBkv * 128;  // panel bytes
+constexpr uint32_t kQPanel = kBq * 128;  // panel bytes of the q tile
+// The kv tile and the ring's depth at head dim D: 64 rows in four stages;
+// at D = 256 the q and dO tiles alone are 128 KB, so 32 rows in two stages
+// (64 KB), and S and dP 16 fp32 a thread each beside dq's 128.
+template <int D>
+__host__ __device__ constexpr int kv_tile() {
+  return D == 256 ? 32 : 64;
+}
+template <int D>
+__host__ __device__ constexpr int stages() {
+  return D == 256 ? 2 : 4;
+}
 // named barriers (0 is __syncthreads): 1 + w, consumer w's q rows are
 // written; 3 + w, consumer w's dq rows are staged; 5 + w, consumer w's turn
 // on the tensor cores
@@ -94,10 +112,10 @@ template <int D>
 struct DqSmem {
   alignas(1024) __nv_bfloat16 q[kBq * D];  // the q tile, then its dq
   alignas(1024) __nv_bfloat16 dout[kBq * D];
-  alignas(1024) __nv_bfloat16 k[kStages][kBkv * D];
-  alignas(1024) __nv_bfloat16 v[kStages][kBkv * D];
-  alignas(16) int kseg[kStages][kBkv];
-  uint64_t full[kStages], empty[kStages], obar;
+  alignas(1024) __nv_bfloat16 k[stages<D>()][kv_tile<D>() * D];
+  alignas(1024) __nv_bfloat16 v[stages<D>()][kv_tile<D>() * D];
+  alignas(16) int kseg[stages<D>()][kv_tile<D>()];
+  uint64_t full[stages<D>()], empty[stages<D>()], obar;
 };
 
 template <int D>
@@ -118,6 +136,8 @@ __global__ void __launch_bounds__(kThreads, 1) mh_bwd_dq_wgmma(
     const int* __restrict__ kv_lo, const int* __restrict__ kv_hi,
     int* __restrict__ tile_count, int T, int H, float scale_log2, float scale,
     DropParams dp) {
+  constexpr int kBkv = kv_tile<D>(), kStages = stages<D>();
+  constexpr uint32_t kKvPanel = kBkv * 128;  // panel bytes of a K or V tile
   constexpr int HALF = D / 2;
   constexpr int NK = D / 16;     // k-steps of S and dP over the head dim
   constexpr int NS = kBkv / 8;   // 8-column blocks of a score tile (kv columns)
@@ -211,36 +231,56 @@ __global__ void __launch_bounds__(kThreads, 1) mh_bwd_dq_wgmma(
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
-    const uint32_t q_addr = shared_addr(sm.q) + wg * 64 * 128;
-    const uint32_t o_addr = shared_addr(sm.dout) + wg * 64 * 128;
+    const uint32_t q_addr_w = shared_addr(sm.q) + wg * 64 * 128;
+    const uint32_t o_addr_w = shared_addr(sm.dout) + wg * 64 * 128;
     // S = Q_w.K^T and dP = dO_w.V^T of ring stage st (both operands K-major)
     auto gemm_sdp = [&](int st) {
       const uint32_t k_addr = shared_addr(sm.k[st]), v_addr = shared_addr(sm.v[st]);
+      // at D = 256 the q and dO addresses are formed here: hoisted, their 32
+      // loop-invariant descriptors would be held across the walk and spill
+      const uint32_t q_addr = D == 256 ? opaque(q_addr_w) : q_addr_w;
+      const uint32_t o_addr = D == 256 ? opaque(o_addr_w) : o_addr_w;
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < NK; ++kk) {
         const uint32_t ao = (kk >> 2) * kQPanel + (kk & 3) * 32;
         const uint32_t bo = (kk >> 2) * kKvPanel + (kk & 3) * 32;
-        wgmma_ss_m64n64k16<0, 0>(s, smem_desc(q_addr + ao, 16, kSwizzleAtom),
-                                 smem_desc(k_addr + bo, 16, kSwizzleAtom), kk > 0);
+        if constexpr (kBkv == 64) {
+          wgmma_ss_m64n64k16<0, 0>(s, smem_desc(q_addr + ao, 16, kSwizzleAtom),
+                                   smem_desc(k_addr + bo, 16, kSwizzleAtom), kk > 0);
+        } else {
+          wgmma_ss_m64n32k16<0, 0>(s, smem_desc(q_addr + ao, 16, kSwizzleAtom),
+                                   smem_desc(k_addr + bo, 16, kSwizzleAtom), kk > 0);
+        }
       }
 #pragma unroll
       for (int kk = 0; kk < NK; ++kk) {
         const uint32_t ao = (kk >> 2) * kQPanel + (kk & 3) * 32;
         const uint32_t bo = (kk >> 2) * kKvPanel + (kk & 3) * 32;
-        wgmma_ss_m64n64k16<0, 0>(dpv, smem_desc(o_addr + ao, 16, kSwizzleAtom),
-                                 smem_desc(v_addr + bo, 16, kSwizzleAtom), kk > 0);
+        if constexpr (kBkv == 64) {
+          wgmma_ss_m64n64k16<0, 0>(dpv, smem_desc(o_addr + ao, 16, kSwizzleAtom),
+                                   smem_desc(v_addr + bo, 16, kSwizzleAtom), kk > 0);
+        } else {
+          wgmma_ss_m64n32k16<0, 0>(dpv, smem_desc(o_addr + ao, 16, kSwizzleAtom),
+                                   smem_desc(v_addr + bo, 16, kSwizzleAtom), kk > 0);
+        }
       }
       wgmma_commit();
     };
-    // acc += dS . K of ring stage st (K MN-major: 16 kv rows a k-step)
+    // acc += dS . K of ring stage st (K MN-major: 16 kv rows a k-step; at D
+    // = 256 two 128-column products, the second from K's panels 2 and 3)
     auto gemm_dq = [&](int st) {
       const uint32_t k_addr = shared_addr(sm.k[st]);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < NP; ++kk) {
         const uint64_t db = smem_desc(k_addr + kk * 16 * 128, kKvPanel, kSwizzleAtom);
-        if constexpr (D == 128) {
+        if constexpr (D == 256) {
+          wgmma_rs_m64n128k16_tb(acc_half<0>(acc), f[kk], db, 1);
+          wgmma_rs_m64n128k16_tb(
+              acc_half<1>(acc), f[kk],
+              smem_desc(k_addr + 2 * kKvPanel + kk * 16 * 128, kKvPanel, kSwizzleAtom), 1);
+        } else if constexpr (D == 128) {
           wgmma_rs_m64n128k16_tb(acc, f[kk], db, 1);
         } else {
           wgmma_rs_m64n64k16_tb(acc, f[kk], db, 1);
@@ -402,7 +442,8 @@ __global__ void __launch_bounds__(kThreads, 1) mh_bwd_dq_wgmma(
 // ---------------------------------------------------------------------------
 // fp32: 128 threads = 32 q rows x 4 threads; thread `sub` of a row owns the
 // head dims sub + 4*i (its q, do and dq in registers), so a dot product is 4
-// partial sums joined by two shuffles. 32-wide kv tiles, k already rotated.
+// partial sums joined by two shuffles. f32_kv_tile<D>()-row kv tiles, k
+// already rotated.
 // ---------------------------------------------------------------------------
 constexpr int kF32Tile = 32;
 
@@ -416,7 +457,7 @@ __global__ void __launch_bounds__(128) mh_bwd_dq_f32(
     const int* __restrict__ kv_hi, int* __restrict__ tile_count,
     float* __restrict__ dq, int T, int H, float scale_log2, float scale,
     DropParams dp) {
-  constexpr int BQ = kF32Tile, BKV = kF32Tile, HALF = D / 2, PER = D / 4;
+  constexpr int BQ = kF32Tile, BKV = f32_kv_tile<D>(), HALF = D / 2, PER = D / 4;
   __shared__ __align__(16) float ks[BKV * D];
   __shared__ __align__(16) float vs[BKV * D];
   __shared__ int kseg[BKV];
@@ -526,12 +567,14 @@ cudaError_t launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                         const float* sin_t, const int* kv_lo, const int* kv_hi,
                         int* tile_count, __nv_bfloat16* dq, int B, int T, int H,
                         float scale_log2, float scale, DropParams dp, cudaStream_t st) {
+  // K, V and dO in kv-tile boxes; dq in a consumer's 64-row boxes
   CUtensorMap kmap, vmap, omap, dqmap;
   const uint64_t cols = (uint64_t)H * D, slab = (uint64_t)T * cols;
+  constexpr int kBkv = kv_tile<D>();
   cudaError_t e = encode_bf16_panels_3d(&kmap, k, B, T, cols, cols, slab, kBkv);
   if (e == cudaSuccess) e = encode_bf16_panels_3d(&vmap, v, B, T, cols, cols, slab, kBkv);
   if (e == cudaSuccess) e = encode_bf16_panels_3d(&omap, dout, B, T, cols, cols, slab, kBkv);
-  if (e == cudaSuccess) e = encode_bf16_panels_3d(&dqmap, dq, B, T, cols, cols, slab, kBkv);
+  if (e == cudaSuccess) e = encode_bf16_panels_3d(&dqmap, dq, B, T, cols, cols, slab, 64);
   if (e != cudaSuccess) return e;
   // the shared-memory limit belongs to the instance on a device, not to the
   // call: set it at the first launch on each device
@@ -610,7 +653,8 @@ bool shape_ok(int B, int T, int H, int t_multiple) {
 // obt_mh_flash_fwd); with RoPE (cos_t and sin_t non-null),
 // k_rot is a scratch tensor of k's shape and type. kv_lo and kv_hi, both
 // null or both int32 (B, T / q tile) in units of the dtype's kv tile (q
-// tile 128 and kv tile 64 for bf16, 32 and 32 for fp32), bound the kv tiles
+// tile 128 and kv tile 64 (32 at D = 256) for bf16, 32 and 32 (16 at D =
+// 256) for fp32), bound the kv tiles
 // each q tile walks; tile_count is null or one int32 that the walked tiles
 // are added to. drop != 0 applies the forward's dropout (thresh,
 // keep_scale, seed as in obt_mh_flash_fwd). Returns cudaGetLastError()
@@ -646,6 +690,7 @@ extern "C" int obt_mh_flash_bwd_dq(const void* q, const void* k, const void* v,
   switch (D) {
     case 64: return (int)launch_d<64>(q, k, v, dout, l, dd, qsg, kvsg, c, s, k_rot, lo, hi, tc, dq, B, T, H, scale_log2, scale, dtype == 1, drop != 0, dp, st);
     case 128: return (int)launch_d<128>(q, k, v, dout, l, dd, qsg, kvsg, c, s, k_rot, lo, hi, tc, dq, B, T, H, scale_log2, scale, dtype == 1, drop != 0, dp, st);
+    case 256: return (int)launch_d<256>(q, k, v, dout, l, dd, qsg, kvsg, c, s, k_rot, lo, hi, tc, dq, B, T, H, scale_log2, scale, dtype == 1, drop != 0, dp, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -670,7 +715,10 @@ extern "C" int obt_mh_flash_bwd_dq_dots(const void* q, const void* k, const void
 // Dynamic shared memory a CTA of the bf16 kernel takes at head dim D (-1
 // for a head dim it is not built for).
 extern "C" int obt_mh_flash_bwd_dq_smem_bytes(int D) {
-  return D == 64 ? (int)bf16_smem_bytes<64>() : D == 128 ? (int)bf16_smem_bytes<128>() : -1;
+  return D == 64    ? (int)bf16_smem_bytes<64>()
+         : D == 128 ? (int)bf16_smem_bytes<128>()
+         : D == 256 ? (int)bf16_smem_bytes<256>()
+                    : -1;
 }
 
 extern "C" const char* obt_cuda_error_string_bwd_dq(int code) {

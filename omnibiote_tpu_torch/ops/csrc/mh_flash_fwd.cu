@@ -50,6 +50,16 @@
 // bit that of the full walk. The ring's first load is kv tile kv_lo and
 // its last kv_hi. tile_count, when non-null, receives the number of
 // tiles walked, summed over blocks (checks only).
+//
+// Head dim 256. Two stages of 128-row K and V tiles are 256 KB there, past
+// the 227 KB a CTA may take, and S over 128 kv columns (64 fp32 a thread)
+// beside the 64 x 256 O accumulator (128) would pass a consumer's 240
+// registers. So at D = 256 the bf16 kernel walks 64-row kv tiles
+// (kv_tile): 64 KB of q and two 64 KB stages, S in 32 registers as
+// m64n64k16 products, and O += P.V as two m64n128k16 products on the two
+// halves of the accumulator (V's panels 0-1 and 2-3). The same attention
+// FLOPs a token as 8 heads of 128 (4 T d), in wider, fewer heads. The fp32
+// kernel walks 16-row kv tiles there (48 KB of static shared memory).
 #include <atomic>
 
 #include "flash_common.cuh"
@@ -85,9 +95,18 @@ struct DropParams {
 //     one issues P_(j-1) . V and S_j while the other runs its softmax.
 // setmaxnreg moves registers from the producer (24) to the consumers (240).
 // ---------------------------------------------------------------------------
-constexpr int kBq = 128, kBkv = 128, kStages = 2;
+constexpr int kBq = 128, kStages = 2;
 constexpr int kThreads = 384, kConsumerWarps = 8;
-constexpr uint32_t kPanelBytes = 128 * 128;  // 128 rows of a 64-column panel
+constexpr uint32_t kQPanel = kBq * 128;  // bytes of a 64-column panel of the q tile
+// The kv tile at head dim D: 128 rows, or 64 at D = 256, where two stages
+// of 128-row K and V tiles (256 KB) pass the 227 KB a CTA may take, and a
+// 128-column S beside the 64 x 256 O accumulator (128 fp32 a thread) would
+// pass the consumers' 240 registers. At 64 rows: 64 KB of q and two 64 KB
+// stages, S in 32 registers.
+template <int D>
+__host__ __device__ constexpr int kv_tile() {
+  return D == 256 ? 64 : 128;
+}
 // named barriers (0 is __syncthreads): 1 + w, consumer w's q rows are
 // written; 3 + w, consumer w's turn on the tensor cores
 constexpr int kBarQ = 1, kBarTurn = 3;
@@ -95,9 +114,9 @@ constexpr int kBarQ = 1, kBarTurn = 3;
 template <int D>
 struct FwdSmem {
   alignas(1024) __nv_bfloat16 q[kBq * D];
-  alignas(1024) __nv_bfloat16 k[kStages][kBkv * D];
-  alignas(1024) __nv_bfloat16 v[kStages][kBkv * D];
-  int kseg[kStages][kBkv];
+  alignas(1024) __nv_bfloat16 k[kStages][kv_tile<D>() * D];
+  alignas(1024) __nv_bfloat16 v[kStages][kv_tile<D>() * D];
+  int kseg[kStages][kv_tile<D>()];
   uint64_t full[kStages], empty[kStages];
 };
 
@@ -118,6 +137,8 @@ __global__ void __launch_bounds__(kThreads, 1) mh_fwd_bf16(
     const int* __restrict__ kv_lo, const int* __restrict__ kv_hi,
     int* __restrict__ tile_count, __nv_bfloat16* __restrict__ o,
     float* __restrict__ lse, int T, int H, float scale_log2, DropParams dp) {
+  constexpr int kBkv = kv_tile<D>();
+  constexpr uint32_t kKvPanel = kBkv * 128;  // bytes of a 64-column panel of a K or V tile
   constexpr int NN = D / 8;      // 8-column blocks of the output
   constexpr int NS = kBkv / 8;   // 8-column blocks of a score tile
   constexpr int NK = D / 16;     // k-steps of q . k^T
@@ -199,20 +220,32 @@ __global__ void __launch_bounds__(kThreads, 1) mh_fwd_bf16(
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < NK; ++kk) {
-        const uint32_t off = (kk >> 2) * kPanelBytes + (kk & 3) * 32;
-        wgmma_ss_m64n128k16(s, smem_desc(q_addr + off, 16, kSwizzleAtom),
-                            smem_desc(k_addr + off, 16, kSwizzleAtom), kk > 0);
+        const uint64_t da =
+            smem_desc(q_addr + (kk >> 2) * kQPanel + (kk & 3) * 32, 16, kSwizzleAtom);
+        const uint64_t db =
+            smem_desc(k_addr + (kk >> 2) * kKvPanel + (kk & 3) * 32, 16, kSwizzleAtom);
+        if constexpr (kBkv == 128) {
+          wgmma_ss_m64n128k16(s, da, db, kk > 0);
+        } else {
+          wgmma_ss_m64n64k16<0, 0>(s, da, db, kk > 0);
+        }
       }
       wgmma_commit();
     };
-    // acc += P . V of ring stage st (V MN-major: 16 kv rows a k-step)
+    // acc += P . V of ring stage st (V MN-major: 16 kv rows a k-step; at D
+    // = 256 two 128-column products, the second from V's panels 2 and 3)
     auto gemm_pv = [&](int st) {
       const uint32_t v_addr = shared_addr(sm.v[st]);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < NP; ++kk) {
-        const uint64_t db = smem_desc(v_addr + kk * 16 * 128, kPanelBytes, kSwizzleAtom);
-        if constexpr (D == 128) {
+        const uint64_t db = smem_desc(v_addr + kk * 16 * 128, kKvPanel, kSwizzleAtom);
+        if constexpr (D == 256) {
+          wgmma_rs_m64n128k16_tb(acc_half<0>(acc), p[kk], db, 1);
+          wgmma_rs_m64n128k16_tb(
+              acc_half<1>(acc), p[kk],
+              smem_desc(v_addr + 2 * kKvPanel + kk * 16 * 128, kKvPanel, kSwizzleAtom), 1);
+        } else if constexpr (D == 128) {
           wgmma_rs_m64n128k16_tb(acc, p[kk], db, 1);
         } else {
           wgmma_rs_m64n64k16_tb(acc, p[kk], db, 1);
@@ -373,7 +406,7 @@ __global__ void __launch_bounds__(kThreads, 1) mh_fwd_bf16(
 // fp32: 128 threads = 32 query rows x 4 threads; thread `sub` of a row owns
 // the head dims sub + 4*i, so a row's dot product is 4 partial sums joined
 // by two shuffles, and its output columns stay in the thread's registers.
-// k already rotated.
+// k already rotated. The kv tile is f32_kv_tile<D>() rows.
 // ---------------------------------------------------------------------------
 constexpr int kF32Tile = 32;
 
@@ -385,7 +418,7 @@ __global__ void __launch_bounds__(128) mh_fwd_f32(
     const int* __restrict__ kv_lo, const int* __restrict__ kv_hi,
     int* __restrict__ tile_count, float* __restrict__ o,
     float* __restrict__ lse, int T, int H, float scale_log2, DropParams dp) {
-  constexpr int BQ = kF32Tile, BKV = kF32Tile, HALF = D / 2, PER = D / 4;
+  constexpr int BQ = kF32Tile, BKV = f32_kv_tile<D>(), HALF = D / 2, PER = D / 4;
   __shared__ __align__(16) float ks[BKV * D];
   __shared__ __align__(16) float vs[BKV * D];
   __shared__ int kseg[BKV];
@@ -488,12 +521,12 @@ cudaError_t launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                         const float* sin_t, const int* kv_lo, const int* kv_hi,
                         int* tile_count, __nv_bfloat16* o, float* lse, int B, int T,
                         int H, float scale_log2, DropParams dp, cudaStream_t st) {
-  // K and V as (B * T, H * D) row-major matrices, loaded as 128-row boxes
+  // K and V as (B * T, H * D) row-major matrices, loaded as kv-tile boxes
   // of one head's 64-column panels
   CUtensorMap kmap, vmap;
   const uint64_t rows = (uint64_t)B * T, cols = (uint64_t)H * D;
-  cudaError_t e = encode_bf16_panels(&kmap, k, rows, cols, cols, kBkv);
-  if (e == cudaSuccess) e = encode_bf16_panels(&vmap, v, rows, cols, cols, kBkv);
+  cudaError_t e = encode_bf16_panels(&kmap, k, rows, cols, cols, kv_tile<D>());
+  if (e == cudaSuccess) e = encode_bf16_panels(&vmap, v, rows, cols, cols, kv_tile<D>());
   if (e != cudaSuccess) return e;
   // the shared-memory limit belongs to the instance on a device, not to the
   // call: set it at the first launch on each device
@@ -571,7 +604,8 @@ bool shape_ok(int B, int T, int H) {
 // (bf16). With RoPE (cos_t and sin_t non-null), k_rot is a scratch tensor
 // of k's shape and type that receives the rotated k. kv_lo and kv_hi, both
 // null or both int32 (B, T / q tile) with the q and kv tiles of the dtype's
-// kernel (128 for bf16, 32 for fp32), bound the kv tiles each q tile walks;
+// kernel (bf16: q tile 128 and kv tile 128, 64 at D = 256; fp32: 32 and 32,
+// 16 at D = 256), bound the kv tiles each q tile walks;
 // tile_count is null or one int32 that the walked tiles are added to. drop
 // != 0 applies dropout with keep threshold `thresh` (bits >= thresh keep),
 // scale `keep_scale` and the 64-bit `seed` (philox.cuh). Returns
@@ -605,6 +639,7 @@ extern "C" int obt_mh_flash_fwd(const void* q, const void* k, const void* v,
   switch (D) {
     case 64: return (int)launch_d<64>(q, k, v, qsg, kvsg, c, s, k_rot, lo, hi, tc, o, l, B, T, H, scale_log2, dtype == 1, drop != 0, dp, st);
     case 128: return (int)launch_d<128>(q, k, v, qsg, kvsg, c, s, k_rot, lo, hi, tc, o, l, B, T, H, scale_log2, dtype == 1, drop != 0, dp, st);
+    case 256: return (int)launch_d<256>(q, k, v, qsg, kvsg, c, s, k_rot, lo, hi, tc, o, l, B, T, H, scale_log2, dtype == 1, drop != 0, dp, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -627,7 +662,10 @@ extern "C" int obt_mh_flash_fwd_dots(const void* q, const void* k, const void* v
 // Dynamic shared memory a CTA of the bf16 kernel takes at head dim D (-1
 // for a head dim it is not built for).
 extern "C" int obt_mh_flash_fwd_smem_bytes(int D) {
-  return D == 64 ? (int)bf16_smem_bytes<64>() : D == 128 ? (int)bf16_smem_bytes<128>() : -1;
+  return D == 64    ? (int)bf16_smem_bytes<64>()
+         : D == 128 ? (int)bf16_smem_bytes<128>()
+         : D == 256 ? (int)bf16_smem_bytes<256>()
+                    : -1;
 }
 
 extern "C" const char* obt_cuda_error_string(int code) {

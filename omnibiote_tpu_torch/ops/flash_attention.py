@@ -73,20 +73,35 @@ DEFAULT_MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 LOG2E = 1.4426950408889634
 
 # The kernels' head dims and dtypes (one template instance each).
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 128, 256)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-# The forward kernel's kv tile per dtype (its online softmax rounds P per
-# tile).
+# The forward kernel's kv tile per dtype at head dims 64 and 128 (its online
+# softmax rounds P per tile); `kernel_kv_tile` gives it at any built D.
 KERNEL_KV_TILE = {torch.bfloat16: 128, torch.float32: 32}
-# (q tile, kv tile) of each kernel per dtype: the forward and the dq kernel
-# own a q tile and walk kv tiles; the fused backward and the dkv kernel own
-# a kv tile and walk q tiles. The bf16 dkv kernel is the fused kernel
-# without its dq, on the same tiles.
+# (q tile, kv tile) of each kernel per dtype at head dims 64 and 128: the
+# forward and the dq kernel own a q tile and walk kv tiles; the fused
+# backward and the dkv kernel own a kv tile and walk q tiles. The bf16 dkv
+# kernel is the fused kernel without its dq, on the same tiles.
 KERNEL_TILES = {
     "fwd": {torch.bfloat16: (128, 128), torch.float32: (32, 32)},
     "fused": {torch.bfloat16: (64, 128), torch.float32: (16, 32)},
     "dkv": {torch.bfloat16: (64, 128), torch.float32: (16, 32)},
     "dq": {torch.bfloat16: (128, 64), torch.float32: (32, 32)},
+}
+# The tiles at the head dims where they differ (every reader goes through
+# `kernel_tiles`). At D = 256 a 128-row K and V ring, or dK and dV of 64 kv
+# rows in one warpgroup, pass the H100's shared memory or registers: the
+# bf16 forward walks 64-row kv tiles, the fused and dkv kernels own 64 kv
+# rows (one consumer forms dV, the other dK), the dq kernel walks 32-row kv
+# tiles; the fp32 forward and dq kernels walk 16-row kv tiles (48 KB of
+# static shared memory).
+KERNEL_TILES_BY_HEAD_DIM = {
+    256: {
+        "fwd": {torch.bfloat16: (128, 64), torch.float32: (32, 16)},
+        "fused": {torch.bfloat16: (64, 64), torch.float32: (16, 32)},
+        "dkv": {torch.bfloat16: (64, 64), torch.float32: (16, 32)},
+        "dq": {torch.bfloat16: (128, 32), torch.float32: (32, 16)},
+    },
 }
 # The multiple of T every kernel takes per dtype: each bf16 CTA owns 128
 # rows; the fp32 kernels take 64.
@@ -101,6 +116,18 @@ FUSED_SINGLE_KV_BWD = True
 FUSED_MULTIKV_BWD = True
 
 LN2 = 0.6931471805599453
+
+
+def kernel_tiles(kind: str, dtype: torch.dtype, head_dim: int) -> Tuple[int, int]:
+    """(q tile, kv tile) of kernel `kind` ('fwd', 'fused', 'dkv', 'dq') at
+    `dtype` and `head_dim`."""
+    return KERNEL_TILES_BY_HEAD_DIM.get(int(head_dim), KERNEL_TILES)[kind][dtype]
+
+
+def kernel_kv_tile(dtype: torch.dtype, head_dim: int) -> int:
+    """The forward kernel's kv tile at `dtype` and `head_dim`: the block_kv
+    of the plain version that rounds as the kernel does."""
+    return kernel_tiles("fwd", dtype, head_dim)[1]
 
 _M32 = 0xFFFFFFFF
 
@@ -320,7 +347,7 @@ def mh_flash_forward_plain(q, k, v, segment_ids=None, rope=None, *,
     single-kv branch: P normalised against the row's final max); an
     integer walks kv blocks of that width with the online softmax (the
     multi-kv branch, and the CUDA kernel's order of rounding when it is the
-    kernel's tile, KERNEL_KV_TILE). The dropout mask does not depend on
+    kernel's tile, `kernel_kv_tile`). The dropout mask does not depend on
     block_kv. With segment_skip (and segment ids, and more than one kv
     block) a q block of block_q rows (None: T) takes only the kv blocks
     inside its bounds; `bounds` is a SegmentBounds of the ids to read them
@@ -602,7 +629,7 @@ def mh_flash_forward_kernel(q, k, v, segment_ids=None, rope=None, *,
                             counter: Optional[str] = None, kv_segment_ids=None):
     """Launch the forward kernel on CUDA tensors; raises on anything it was
     not built for. kv_bounds: None or the (lo, hi) of
-    seg_block_bounds(q ids, kv ids, *KERNEL_TILES['fwd'][dtype]); the kv
+    seg_block_bounds(q ids, kv ids, *kernel_tiles('fwd', dtype, D)); the kv
     ids are kv_segment_ids (None: segment_ids). Adds one per
     launch to LAUNCHES[counter], by default 'mh_flash_fwd'. Under autograd,
     call it through MhFlashAttention."""
@@ -617,7 +644,7 @@ def mh_flash_forward_kernel(q, k, v, segment_ids=None, rope=None, *,
     q_seg, kv_seg = _seg_ptrs(segment_ids, kv_segment_ids, q)
     cos_ptr, sin_ptr = _rope_ptrs(rope, q)
     lo_ptr, hi_ptr, tc_ptr = _bounds_ptrs(
-        kv_bounds, q, KERNEL_TILES["fwd"][q.dtype][0], tile_count)
+        kv_bounds, q, kernel_tiles("fwd", q.dtype, D)[0], tile_count)
     # scratch for k rotated once per call (every q tile reads all of it)
     k_rot = torch.empty_like(k) if rope is not None else None
     drop, thresh, keep_scale, seed = _drop_args(dropout_rate, seed)
@@ -659,7 +686,7 @@ def mh_flash_bwd_kernel(kind: str, q, k, v, do, lse2, di, segment_ids=None,
     not built for. kind 'fused': (dq, dk, dv) in one pass; 'dkv': the split
     pair's (dk, dv); 'dq': the split pair's dq. tile_bounds: None or the
     (lo, hi) of seg_block_bounds(owner's ids, walked ids, owner's tile,
-    walked tile) with KERNEL_TILES (the fused and dkv kernels own kv tiles,
+    walked tile) with kernel_tiles (the fused and dkv kernels own kv tiles,
     the dq kernel q tiles); the kv ids are kv_segment_ids (None:
     segment_ids). Adds one per launch to LAUNCHES[counter], by default the
     library's name."""
@@ -672,7 +699,7 @@ def mh_flash_bwd_kernel(kind: str, q, k, v, do, lse2, di, segment_ids=None,
     q_seg, kv_seg = _seg_ptrs(segment_ids, kv_segment_ids, q)
     cos_ptr, sin_ptr = _rope_ptrs(rope, q)
     lo_ptr, hi_ptr, tc_ptr = _bounds_ptrs(
-        tile_bounds, q, KERNEL_TILES[kind][q.dtype][owner], tile_count)
+        tile_bounds, q, kernel_tiles(kind, q.dtype, D)[owner], tile_count)
     # The bf16 fused kernel (also the bf16 dkv kernel) rotates k itself and
     # bulk-copies a q tile's lse2 and di of one head, so it takes those two
     # as (B, H, T).
@@ -712,7 +739,7 @@ def _kernel_bounds(kind: str, q, segment_ids, segment_skip: bool, bounds,
     every tile): the owner's tile first, the walked tile second."""
     if not segment_skip or segment_ids is None:
         return None
-    bq, bkv = KERNEL_TILES[kind][q.dtype]
+    bq, bkv = kernel_tiles(kind, q.dtype, q.shape[3])
     sb = bounds if bounds is not None else SegmentBounds(segment_ids, kv_segment_ids)
     if kind in ("fused", "dkv"):
         return sb.get(bkv, bq, kv_major=True)
@@ -733,7 +760,7 @@ def mh_flash_forward(q, k, v, segment_ids=None, rope=None, *, scale: float,
     at `dropout_rate` from the 64-bit `seed`; segment_skip prunes the tiles
     outside the segment bounds (`bounds`: a SegmentBounds of the ids to
     share them between calls). A CUDA tensor runs the CUDA kernel, which
-    walks its own tiles (KERNEL_TILES) and counts the launch under
+    walks its own tiles (`kernel_tiles`) and counts the launch under
     `counter`; a CPU tensor runs the plain version with `block_q` and
     `block_kv` (None: one block). kv_segment_ids: the kv rows' ids where
     they are not the q rows'."""
@@ -900,6 +927,65 @@ def _skip_and_bounds(segment_ids, segment_skip, bounds, kv_segment_ids=None):
     return skip, bounds if skip else None
 
 
+# ---------------------------------------------------------------------------
+# One head at a head dim the kernels are not built for
+# ---------------------------------------------------------------------------
+
+def padded_head_dim(head_dim: int) -> int:
+    """The smallest built head dim >= head_dim, whose kernels take one head
+    of head_dim zero-padded; NotImplementedError above the widest."""
+    for d in KERNEL_HEAD_DIMS:
+        if head_dim <= d:
+            return d
+    raise NotImplementedError(
+        f"no flash kernel takes head_dim {head_dim}: the widest built is "
+        f"{KERNEL_HEAD_DIMS[-1]} (ROADMAP Queue 2 item 6: head dims past 256)")
+
+
+def pad_head_dim(x: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """(..., D) -> (..., head_dim) with each half zero-padded on its own,
+    [x1, 0, x2, 0]: rotate-half pairs lane i with i + D/2, and the padded
+    layout keeps each pair at i and i + head_dim/2. Zero lanes add nothing
+    to any score or output, so attention on the padded q, k and v is the
+    unpadded one's, in its first lanes of each half."""
+    D = x.shape[-1]
+    if D % 2 or head_dim < D or head_dim % 2:
+        raise ValueError(f"cannot pad head_dim {D} to {head_dim}")
+    pad = (0, (head_dim - D) // 2)
+    half = D // 2
+    return torch.cat([torch.nn.functional.pad(x[..., :half], pad),
+                      torch.nn.functional.pad(x[..., half:], pad)], dim=-1)
+
+
+def unpad_head_dim(x: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """The inverse of pad_head_dim: (..., padded D) -> (..., head_dim)."""
+    half, phalf = head_dim // 2, x.shape[-1] // 2
+    return torch.cat([x[..., :half], x[..., phalf:phalf + half]], dim=-1)
+
+
+def pad_rope(rope, head_dim: int):
+    """(cos, sin) half tables (T, D/2) -> (T, head_dim/2): cos 1 and sin 0
+    in the padded lanes, which then rotate zeros into zeros."""
+    cos, sin = rope
+    extra = head_dim // 2 - cos.shape[-1]
+    return (torch.nn.functional.pad(cos, (0, extra), value=1.0).contiguous(),
+            torch.nn.functional.pad(sin, (0, extra), value=0.0).contiguous())
+
+
+def flash_attention_padded(q, k, v, segment_ids=None, rope=None, *,
+                           head_dim: int, **kw) -> torch.Tensor:
+    """flash_attention on q, k and v zero-padded to `head_dim`
+    (pad_head_dim, pad_rope), its output and gradients sliced back. The
+    scale is the caller's, never one of the padded width. flash_attention
+    takes this route on a CUDA tensor of one head whose head dim has no
+    kernel instance (the JAX dispatch's H == 1 route at any D)."""
+    D = q.shape[-1]
+    qp, kp, vp = (pad_head_dim(x, head_dim).contiguous() for x in (q, k, v))
+    rp = None if rope is None else pad_rope((rope[0][:q.shape[1]], rope[1][:q.shape[1]]),
+                                            head_dim)
+    return unpad_head_dim(flash_attention(qp, kp, vp, segment_ids, rp, **kw), D)
+
+
 def flash_attention(q, k, v, segment_ids=None, rope=None, *, scale: float,
                     dropout_rate: float = 0.0, seed: int = 0,
                     block_kv: Optional[int] = None,
@@ -921,7 +1007,18 @@ def flash_attention(q, k, v, segment_ids=None, rope=None, *, scale: float,
     multi_head=False is the JAX package's per-head entry: it takes no rope
     (q and k arrive rotated), never skips, and its backward is always the
     split pair; its launches count as flash_fwd, flash_bwd_dkv and
-    flash_bwd_dq."""
+    flash_bwd_dq.
+
+    A CUDA tensor of one head at a head dim with no kernel instance runs
+    the kernels of the next built head dim on zero-padded inputs
+    (`flash_attention_padded`)."""
+    H, D = q.shape[2], q.shape[3]
+    if q.is_cuda and H == 1 and D not in KERNEL_HEAD_DIMS:
+        return flash_attention_padded(
+            q, k, v, segment_ids, rope, head_dim=padded_head_dim(D), scale=scale,
+            dropout_rate=dropout_rate, seed=seed, block_kv=block_kv,
+            block_q=block_q, block_kv_fwd=block_kv_fwd,
+            segment_skip=segment_skip, bounds=bounds, multi_head=multi_head)
     if not multi_head:
         assert rope is None, "rope fusion requires the multi_head kernel"
         segment_skip = False

@@ -52,7 +52,7 @@ from .flash_attention import (DEFAULT_MASK_VALUE, LOG2E, _full_tables,
                               _raise_on, _rope_ptrs, _rope_rot, _seg_ptr)
 
 # What the CUDA kernel is built for.
-KERNEL_HEAD_DIM = 128
+KERNEL_HEAD_DIMS = (128, 256)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 KERNEL_T_MULTIPLE = 128
 
@@ -168,9 +168,9 @@ def _check_inputs(q, k, v):
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     if q.dtype not in KERNEL_DTYPES:
         raise ValueError(f"dtype {q.dtype} not built; one of {KERNEL_DTYPES}")
-    if D != KERNEL_HEAD_DIM:
+    if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"head_dim {D} not built; the int8 kernel takes "
-                         f"{KERNEL_HEAD_DIM}")
+                         f"{KERNEL_HEAD_DIMS}")
     if T < KERNEL_T_MULTIPLE or T % KERNEL_T_MULTIPLE:
         raise ValueError(f"T={T} must be a positive multiple of "
                          f"{KERNEL_T_MULTIPLE}")
@@ -274,7 +274,7 @@ def int8_flash_attention(q, k, v, *, scale: float, segment_ids=None,
 
     q, k, v: (B, T, H, D), q and k pre-rotation when rope=(cos, sin) tables
     (>=T, D/2) are given (the kernel owns RoPE); segment_ids (B, T) int32 or
-    None (dense). Requires T % 128 == 0 and D == 128. A CUDA tensor runs the
+    None (dense). Requires T % 128 == 0 and D 128 or 256. A CUDA tensor runs the
     CUDA kernel, a CPU tensor the plain version."""
     if q.is_cuda:
         return int8_flash_attention_kernel(

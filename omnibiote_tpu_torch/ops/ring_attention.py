@@ -45,7 +45,7 @@ import torch
 import torch.distributed as dist
 
 from . import flash_attention as _fa
-from .flash_attention import (DEFAULT_MASK_VALUE, KERNEL_TILES, SegmentBounds,
+from .flash_attention import (DEFAULT_MASK_VALUE, KERNEL_DTYPES, SegmentBounds,
                               dropout_keep, dropout_keep_scale,
                               flash_attention_lse)
 
@@ -170,20 +170,20 @@ class RingSegments:
                                   for r in range(1, ring.size)])
 
     def prefill(self, dtype: torch.dtype, device_type: str, block_q: int,
-                block_kv: int) -> None:
+                block_kv: int, head_dim: int) -> None:
         """Fill every rotation's bounds for the flash body's calls, each
         tile pair for all rotations by one seg_block_bounds over the
-        rotations stacked on the batch axis: on CUDA the kernels' tiles (the
-        forward's and, kv-major, the fused or dkv kernel's; the dq kernel's
-        where the backward is the split pair), on the CPU the plain
+        rotations stacked on the batch axis: on CUDA the kernels' tiles at
+        `head_dim` (the forward's and, kv-major, the fused or dkv kernel's;
+        the dq kernel's where the backward is the split pair), on the CPU the plain
         versions' (block_q, block_kv). A pair already filled is skipped,
         so every layer may call this."""
         single_kv = block_kv >= self.q_ids.shape[1]
         fused = _fa.FUSED_SINGLE_KV_BWD if single_kv else _fa.FUSED_MULTIKV_BWD
         if device_type == "cuda":
-            if dtype not in KERNEL_TILES["fwd"]:
+            if dtype not in KERNEL_DTYPES:
                 return
-            (fq, fkv), (bq, bkv), (dq, dkv) = (KERNEL_TILES[k][dtype]
+            (fq, fkv), (bq, bkv), (dq, dkv) = (_fa.kernel_tiles(k, dtype, head_dim)
                                                for k in ("fwd", "fused", "dq"))
             pairs = [(fq, fkv, False), (bkv, bq, True)] + ([] if fused else [(dq, dkv, False)])
         else:
@@ -309,7 +309,7 @@ def ring_attention(q, k, v, segment_ids=None, *, scale: float, mesh=None,
     if use_flash:
         block_q, block_kv = ring_blocks(Tl)
         if segments is not None:
-            segments.prefill(q.dtype, q.device.type, block_q, block_kv)
+            segments.prefill(q.dtype, q.device.type, block_q, block_kv, D)
         return ring_body_flash(q, blocks, n, q_ids, segments, scale=scale,
                                dropout_rate=dropout_rate, seeds=seeds,
                                block_q=block_q, block_kv=block_kv)

@@ -388,7 +388,7 @@ def int8_products(q8, k8, v8t):
     o (B, T, H, 128) int32 = m + p8·v8. A CUDA tensor runs the kernel
     (counted as 'int8_flash_fwd_dots'), a CPU tensor the plain version."""
     from ..ops import _kernels
-    from ..ops.int8_attention import KERNEL_HEAD_DIM, KERNEL_T_MULTIPLE
+    from ..ops.int8_attention import KERNEL_T_MULTIPLE
 
     B, H, T, D = q8.shape
     if D != KERNEL_HEAD_DIM or T < KERNEL_T_MULTIPLE or T % KERNEL_T_MULTIPLE:

@@ -17,7 +17,7 @@ from typing import IO, Optional, Tuple
 
 import numpy as np
 
-from ..ops.flash_attention import KERNEL_TILES
+from ..ops.flash_attention import kernel_tiles
 
 # Dense bf16 tensor-core peak of one H100 SXM at its 700 W limit (NVIDIA
 # data sheet); the denominator of `mfu`.
@@ -84,21 +84,21 @@ def flash_skip_fractions(segments) -> Tuple[float, float]:
             attention_tile_fraction(seg, bq, bwd_bkv))
 
 
-def kernel_skip_fractions(segments, dtype, fused: bool = True
-                          ) -> Tuple[float, float]:
-    """(e_fwd, e_bwd) of the port's CUDA kernels at `dtype`, on their own
-    tiles (`ops/flash_attention.KERNEL_TILES`): the forward owns q tiles and
+def kernel_skip_fractions(segments, dtype, fused: bool = True,
+                          head_dim: int = 128) -> Tuple[float, float]:
+    """(e_fwd, e_bwd) of the port's CUDA kernels at `dtype` and `head_dim`,
+    on their own tiles (`ops/flash_attention.kernel_tiles`): the forward owns q tiles and
     walks kv tiles; the fused backward and the dkv kernel own kv tiles and
     walk q tiles; the dq kernel owns q tiles and walks kv tiles. With
     fused=False (the split pair) e_bwd weighs dkv's fraction by the three
     backward products it does (dV, dP, dK) and dq's by its one (dQ)."""
-    fq, fkv = KERNEL_TILES["fwd"][dtype]
+    fq, fkv = kernel_tiles("fwd", dtype, head_dim)
     e_fwd = attention_tile_fraction(segments, fq, fkv)
-    bq, bkv = KERNEL_TILES["fused" if fused else "dkv"][dtype]
+    bq, bkv = kernel_tiles("fused" if fused else "dkv", dtype, head_dim)
     e_kv = attention_tile_fraction(segments, bkv, bq)
     if fused:
         return e_fwd, e_kv
-    dq, dkv = KERNEL_TILES["dq"][dtype]
+    dq, dkv = kernel_tiles("dq", dtype, head_dim)
     return e_fwd, (3.0 * e_kv + attention_tile_fraction(segments, dq, dkv)) / 4.0
 
 

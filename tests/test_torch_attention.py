@@ -262,30 +262,36 @@ def _jax_path(monkeypatch, T, H, D, int8):
 
 
 # The path of a bf16 call on a CUDA tensor at T = 256, by (D, H, int8):
-# the JAX dispatch's own route where the port builds that kernel, "raise"
-# where JAX runs a kernel the port does not build (flash at D 96 and 256,
-# int8 at D 256), "xla" where JAX itself runs no kernel.
+# the JAX dispatch's own route wherever the port builds that kernel (flash
+# at D 64, 128 and 256, and one head at any D up to 256 on padded inputs;
+# int8 at D 128 and 256), "raise" where JAX runs a kernel the port does not
+# build (any kernel past D 256), "xla" where JAX itself runs no kernel.
 CUDA_PATHS = {
+    (32, 1, False): "flash", (32, 1, True): "flash",
+    (32, 8, False): "xla", (32, 8, True): "xla",
     (64, 1, False): "flash", (64, 1, True): "flash",
     (64, 8, False): "xla", (64, 8, True): "xla",
-    (96, 1, False): "raise", (96, 1, True): "raise",
+    (96, 1, False): "flash", (96, 1, True): "flash",
     (96, 8, False): "xla", (96, 8, True): "xla",
     (128, 1, False): "flash", (128, 1, True): "int8",
     (128, 8, False): "flash", (128, 8, True): "int8",
-    (256, 1, False): "raise", (256, 1, True): "raise",
-    (256, 8, False): "raise", (256, 8, True): "raise",
+    (256, 1, False): "flash", (256, 1, True): "int8",
+    (256, 8, False): "flash", (256, 8, True): "int8",
+    (384, 1, False): "raise", (384, 1, True): "raise",
+    (384, 8, False): "raise", (384, 8, True): "raise",
 }
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
 @pytest.mark.parametrize("H", [1, 8])
-@pytest.mark.parametrize("D", [64, 96, 128, 256])
+@pytest.mark.parametrize("D", [32, 64, 96, 128, 256, 384])
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
 def test_attention_path(monkeypatch, device, D, H, int8):
     """On the CPU the port routes exactly as the JAX dispatch; on a CUDA
     tensor it takes the same route where its kernel is built (flash:
-    KERNEL_HEAD_DIMS, int8: 128) and raises NotImplementedError where the
-    JAX dispatch would run a kernel the port does not build."""
+    KERNEL_HEAD_DIMS, and one head at any D up to the widest; int8: its
+    KERNEL_HEAD_DIMS) and raises NotImplementedError where the JAX
+    dispatch would run a kernel the port does not build (D past 256)."""
     T = 256
     jax_path = _jax_path(monkeypatch, T, H, D, int8)
     if device == "cpu":
@@ -325,9 +331,9 @@ def test_attention_path_refuses_kernels_for_other_dtypes(int8):
 
 
 def test_cpu_route_at_head_dim_256_matches_jax():
-    """D = 256 has no CUDA kernel, but on the CPU it takes the flash route
-    as in JAX (the plain version there, the Pallas kernel in interpret mode
-    here): fp32 o at rtol 2e-5 / atol 2e-5."""
+    """D = 256 takes the flash route on the CPU as in JAX (the plain version
+    there, the Pallas kernel in interpret mode here): fp32 o at rtol 2e-5 /
+    atol 2e-5."""
     B, T, H, D = 1, 256, 2, 256
     q, k, v, seg = _inputs(B, T, H, D, "packed", seed=9)
     scale = 1.0 / np.sqrt(D)

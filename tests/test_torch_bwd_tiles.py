@@ -1,7 +1,8 @@
 """The backward kernels' tiles and T multiples, and the plain backwards on
 the tiles of the bf16 kernels, on the CPU: the fused kernel and the split
-pair's dkv kernel (a 128-row kv tile walking 64-row q tiles) and its dq
-kernel (a 128-row q tile walking 64-row kv tiles).
+pair's dkv kernel (a 128-row kv tile walking 64-row q tiles; 64-row kv
+tiles at D = 256) and its dq kernel (a 128-row q tile walking 64-row kv
+tiles; 32-row at D = 256).
 
 The tile table and the T multiples are pinned literally; a kernel wrapper
 refuses a T off its kernel's multiple before it looks at the device; with
@@ -25,7 +26,7 @@ from omnibiote_tpu_torch.models.rope import rope_tables
 from omnibiote_tpu_torch.ops import _kernels
 from omnibiote_tpu_torch.ops import flash_attention as port_flash
 from omnibiote_tpu_torch.ops.flash_attention import (
-    KERNEL_T_MULTIPLE, KERNEL_TILES, SegmentBounds, mh_flash_backward_plain,
+    KERNEL_T_MULTIPLE, KERNEL_TILES, SegmentBounds, kernel_tiles, mh_flash_backward_plain,
     mh_flash_bwd_dkv_plain, mh_flash_bwd_dq_plain, mh_flash_forward_plain)
 
 BF16, F32 = torch.bfloat16, torch.float32
@@ -46,10 +47,18 @@ def _packed_ids(rng, T, layout):
     return seg
 
 
-def _inputs(T, layout, seed):
+def _inputs(T, layout, seed, head_dim=D):
     rng = np.random.default_rng(seed)
-    q, k, v, do = rng.standard_normal((4, B, T, H, D)).astype(np.float32)
+    q, k, v, do = rng.standard_normal((4, B, T, H, head_dim)).astype(np.float32)
     return q, k, v, do, _packed_ids(rng, T, layout)
+
+
+# (rate, layout, head dim) of the skip tests: every pair at D = 128 and at
+# D = 256, whose kernels own and walk other tiles
+SKIP_CASES = [pytest.param(rate, layout, head_dim,
+                           id=f"{rate}-{layout}" + ("" if head_dim == D else f"-d{head_dim}"))
+              for head_dim in (D, 256) for rate in (0.0, 0.1)
+              for layout in ("packed", "padded", "unsorted")]
 
 
 def test_kernel_tiles_and_t_multiples():
@@ -97,21 +106,20 @@ def test_kernel_wrappers_check_t_against_their_multiple(monkeypatch, kind, dtype
     assert _kernels.LAUNCHES == before
 
 
-@pytest.mark.parametrize("layout", ["packed", "padded", "unsorted"])
-@pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_plain_fused_skip_on_equals_off_on_the_kernel_tiles(layout, rate):
-    """bf16 on the fused kernel's tiles (the bounds it is given on the
-    card): tiles are pruned, and dq, dk, dv equal the full walk bit for
-    bit."""
+@pytest.mark.parametrize("rate,layout,head_dim", SKIP_CASES)
+def test_plain_fused_skip_on_equals_off_on_the_kernel_tiles(rate, layout, head_dim):
+    """bf16 on the fused kernel's tiles at the head dim (the bounds it is
+    given on the card): tiles are pruned, and dq, dk, dv equal the full
+    walk bit for bit."""
     T = 512
-    bq, bkv = FUSED_TILES
-    q, k, v, do, seg = _inputs(T, layout, seed=17)
+    bq, bkv = kernel_tiles("fused", BF16, head_dim)
+    q, k, v, do, seg = _inputs(T, layout, seed=17, head_dim=head_dim)
     q, k, v, do = (torch.from_numpy(x).bfloat16() for x in (q, k, v, do))
-    seg_t, rope = torch.from_numpy(seg), rope_tables(D, T)
+    seg_t, rope = torch.from_numpy(seg), rope_tables(head_dim, T)
     sb = SegmentBounds(seg_t)
     lo, hi = sb.get(bkv, bq)
     assert int((hi - lo + 1).sum()) < B * (T // bkv) * (T // bq)
-    kw = dict(scale=SCALE, dropout_rate=rate, seed=23)
+    kw = dict(scale=1.0 / np.sqrt(head_dim), dropout_rate=rate, seed=23)
     o, lse2 = mh_flash_forward_plain(q, k, v, seg_t, rope, **kw)
     di = (o.float() * do.float()).sum(-1)
     args = (q, k, v, do, lse2, di, seg_t, rope)
@@ -154,32 +162,33 @@ def test_plain_fused_on_the_kernel_tiles_matches_jax(case, T):
 
 def _split_plain(args, kw, sb=None):
     """The plain split pair (dq, dk, dv) on the bf16 dkv and dq kernels'
-    tiles, with skipping when `sb` (a SegmentBounds) is given."""
+    tiles at q's head dim, with skipping when `sb` (a SegmentBounds) is
+    given."""
     skip = dict(segment_skip=True, bounds=sb) if sb is not None else {}
-    dkq, dkkv = KERNEL_TILES["dkv"][BF16]
-    dqq, dqkv = KERNEL_TILES["dq"][BF16]
+    head_dim = args[0].shape[-1]
+    dkq, dkkv = kernel_tiles("dkv", BF16, head_dim)
+    dqq, dqkv = kernel_tiles("dq", BF16, head_dim)
     dk, dv = mh_flash_bwd_dkv_plain(*args, **kw, block_q=dkq, block_kv=dkkv, **skip)
     dq = mh_flash_bwd_dq_plain(*args, **kw, block_q=dqq, block_kv=dqkv, **skip)
     return dq, dk, dv
 
 
-@pytest.mark.parametrize("layout", ["packed", "padded", "unsorted"])
-@pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_plain_split_skip_on_equals_off_on_the_kernel_tiles(layout, rate):
-    """bf16 on the split pair's tiles (the bounds its kernels are given on
-    the card: per 128-row kv tile for dkv, per 128-row q tile for dq):
+@pytest.mark.parametrize("rate,layout,head_dim", SKIP_CASES)
+def test_plain_split_skip_on_equals_off_on_the_kernel_tiles(rate, layout, head_dim):
+    """bf16 on the split pair's tiles at the head dim (the bounds its
+    kernels are given on the card: per kv tile for dkv, per q tile for dq):
     tiles are pruned on both sides, and dq, dk, dv equal the full walk, and
     the fused plain backward, bit for bit."""
     T = 512
-    q, k, v, do, seg = _inputs(T, layout, seed=31)
+    q, k, v, do, seg = _inputs(T, layout, seed=31, head_dim=head_dim)
     q, k, v, do = (torch.from_numpy(x).bfloat16() for x in (q, k, v, do))
-    seg_t, rope = torch.from_numpy(seg), rope_tables(D, T)
+    seg_t, rope = torch.from_numpy(seg), rope_tables(head_dim, T)
     sb = SegmentBounds(seg_t)
     for kind in ("dkv", "dq"):
-        bq, bkv = KERNEL_TILES[kind][BF16]
+        bq, bkv = kernel_tiles(kind, BF16, head_dim)
         lo, hi = sb.get(bkv, bq) if kind == "dkv" else sb.get(bq, bkv)
         assert int((hi - lo + 1).sum()) < lo.numel() * (T // (bq if kind == "dkv" else bkv))
-    kw = dict(scale=SCALE, dropout_rate=rate, seed=37)
+    kw = dict(scale=1.0 / np.sqrt(head_dim), dropout_rate=rate, seed=37)
     o, lse2 = mh_flash_forward_plain(q, k, v, seg_t, rope, **kw)
     di = (o.float() * do.float()).sum(-1)
     args = (q, k, v, do, lse2, di, seg_t, rope)

@@ -2,8 +2,8 @@
 
 `mh_bwd_dq_wgmma` in omnibiote_tpu_torch/ops/csrc/mh_flash_bwd_dq.cu is a
 CUDA kernel, which has no CPU mode. These tests mirror what it does: a CTA
-owns a (batch, head, 128-row q tile) and takes the kv tiles of 64 rows that
-its segment bounds give (`SegmentBounds.get(128, 64)`); its two consumer
+owns a (batch, head, 128-row q tile) and takes the kv tiles of 64 rows (32
+at D = 256) that its segment bounds give (`SegmentBounds.get(128, 64)`); its two consumer
 warpgroups own 64 q rows each; each kv tile arrives as the boxes the
 producer thread asks the TMA unit for (3-D tensor maps: rows past T are
 zeros, never the next batch row's); S, dP, p, the keep-mask on dp and ds
@@ -20,7 +20,7 @@ import torch
 from omnibiote_tpu_torch.models.rope import rope_tables
 from omnibiote_tpu_torch.ops.flash_attention import (
     DEFAULT_MASK_VALUE, KERNEL_TILES, LOG2E, SegmentBounds, _full_tables, _rope_rot,
-    _rope_rot_inv, dropout_keep, dropout_keep_scale, mh_flash_bwd_dq_plain,
+    _rope_rot_inv, dropout_keep, dropout_keep_scale, kernel_tiles, mh_flash_bwd_dq_plain,
     mh_flash_forward_plain)
 
 BF16 = torch.bfloat16
@@ -31,10 +31,10 @@ H, D = 2, 128
 SCALE = 1.0 / np.sqrt(D)
 
 
-def kv_tiles(bounds, b, qt, T):
+def kv_tiles(bounds, b, qt, T, bkv=BKV):
     """The kv tiles CTA (b, qt) walks: its bounds' range, or all."""
     if bounds is None:
-        return range(T // BKV)
+        return range(T // bkv)
     lo, hi = bounds
     return range(int(lo[b, qt]), int(hi[b, qt]) + 1)
 
@@ -45,10 +45,10 @@ def consumer_rows(qt, w):
     return range(r0, r0 + CONSUMER_ROWS)
 
 
-def kv_boxes(b, h, jt):
+def kv_boxes(b, h, jt, d=D, bkv=BKV):
     """The (column, row, batch) corners of the boxes the producer loads for
     kv tile jt: one a 64-column panel of head h, for K and for V alike."""
-    return [(h * D + pn * PANEL, jt * BKV, b) for pn in range(D // PANEL)]
+    return [(h * d + pn * PANEL, jt * bkv, b) for pn in range(d // PANEL)]
 
 
 def dq_store_boxes(b, h, qt, w):
@@ -68,30 +68,34 @@ def box(x, corner, rows):
 
 
 def dq_walk(q, k, v, do, lse2, di, seg, rope, *, rate=0.0, seed=0, bounds=None):
-    """The dq kernel's function walked as its CTAs and consumers walk it."""
-    B, T, _, _ = q.shape
+    """The dq kernel's function walked as its CTAs and consumers walk it,
+    on its tiles at q's head dim."""
+    B, T, _, d = q.shape
     dtype = q.dtype
+    bq, bkv = kernel_tiles("dq", BF16, d)
+    scale = 1.0 / np.sqrt(d)
     if rope is not None:
         tables = _full_tables(rope, T, q.device)
-        q = _rope_rot(q, *tables, D // 2).to(dtype)
-        k = _rope_rot(k, *tables, D // 2).to(dtype)
-    kx, vx = k.reshape(B, T, H * D), v.reshape(B, T, H * D)
-    c = float(np.float32(SCALE * LOG2E))
+        q = _rope_rot(q, *tables, d // 2).to(dtype)
+        k = _rope_rot(k, *tables, d // 2).to(dtype)
+    kx, vx = k.reshape(B, T, H * d), v.reshape(B, T, H * d)
+    c = float(np.float32(scale * LOG2E))
     keep = (dropout_keep(seed, rate, B, H, T, 0, T) if rate > 0 else None)
     ks = dropout_keep_scale(rate) if rate > 0 else 1.0
-    acc = torch.zeros(B, T, H, D)
+    acc = torch.zeros(B, T, H, d)
     for b in range(B):
         for h in range(H):
-            for qt in range(T // BQ):
+            for qt in range(T // bq):
                 for w in (0, 1):
                     rows = consumer_rows(qt, w)
                     rs = slice(rows[0], rows[-1] + 1)
                     qw, ow = q[b, rs, h].float(), do[b, rs, h].float()
-                    for jt in kv_tiles(bounds, b, qt, T):
-                        kt = torch.cat([box(kx, bx, BKV) for bx in kv_boxes(b, h, jt)], 1).float()
-                        vt = torch.cat([box(vx, bx, BKV) for bx in kv_boxes(b, h, jt)], 1).float()
+                    for jt in kv_tiles(bounds, b, qt, T, bkv):
+                        boxes = kv_boxes(b, h, jt, d, bkv)
+                        kt = torch.cat([box(kx, bx, bkv) for bx in boxes], 1).float()
+                        vt = torch.cat([box(vx, bx, bkv) for bx in boxes], 1).float()
                         s2 = (qw @ kt.T) * c
-                        cols = slice(jt * BKV, (jt + 1) * BKV)
+                        cols = slice(jt * bkv, (jt + 1) * bkv)
                         if seg is not None:
                             vis = seg[b, rs, None] == seg[b, None, cols]
                             s2 = s2 + torch.where(vis, 0.0, DEFAULT_MASK_VALUE)
@@ -99,17 +103,17 @@ def dq_walk(q, k, v, do, lse2, di, seg, rope, *, rate=0.0, seed=0, bounds=None):
                         dp = ow @ vt.T
                         if keep is not None:
                             dp = torch.where(keep[b, h, rs, cols], dp * ks, 0.0)
-                        ds = (p * (dp - di[b, rs, h, None]) * SCALE).to(dtype).float()
+                        ds = (p * (dp - di[b, rs, h, None]) * scale).to(dtype).float()
                         acc[b, rs, h] += ds @ kt
     if rope is not None:
-        acc = _rope_rot_inv(acc, *tables, D // 2)
+        acc = _rope_rot_inv(acc, *tables, d // 2)
     return acc.to(dtype)
 
 
-def _inputs(B, T, layout, dtype, seed):
+def _inputs(B, T, layout, dtype, seed, d=D):
     rng = np.random.default_rng(seed)
     q, k, v, do = (torch.from_numpy(x).to(dtype)
-                   for x in rng.standard_normal((4, B, T, H, D)).astype(np.float32))
+                   for x in rng.standard_normal((4, B, T, H, d)).astype(np.float32))
     seg = None
     if layout != "dense":
         ids = np.zeros((B, T), np.int32)
@@ -155,23 +159,29 @@ def test_kv_ranges_come_from_the_bounds():
             assert seen <= set(kv_tiles((lo, hi), b, qt, T))
 
 
-@pytest.mark.parametrize("layout,rate", [("packed", 0.0), ("packed", 0.1), ("padded", 0.1),
-                                         ("dense", 0.1)])
-def test_walk_matches_plain_fp32(layout, rate):
+@pytest.mark.parametrize("layout,rate,d", [
+    pytest.param("packed", 0.0, D, id="packed-0.0"),
+    pytest.param("packed", 0.1, D, id="packed-0.1"),
+    pytest.param("padded", 0.1, D, id="padded-0.1"),
+    pytest.param("dense", 0.1, D, id="dense-0.1"),
+    pytest.param("packed", 0.1, 256, id="packed-0.1-d256")])
+def test_walk_matches_plain_fp32(layout, rate, d):
     """fp32 with RoPE: the walk, with skipping, against the plain dq on the
-    kernel's tiles at 1e-5 of max|dq| (fp32 sums in another order); the
-    walk with skipping equals the full walk bit for bit."""
+    kernel's tiles at the head dim (32-row kv tiles at D = 256) at 1e-5 of
+    max|dq| (fp32 sums in another order); the walk with skipping equals
+    the full walk bit for bit."""
     B, T = 2, 256
-    q, k, v, do, seg = _inputs(B, T, layout, torch.float32, seed=7)
-    rope = rope_tables(D, T)
-    kw = dict(scale=SCALE, dropout_rate=rate, seed=11)
+    bq, bkv = kernel_tiles("dq", BF16, d)
+    q, k, v, do, seg = _inputs(B, T, layout, torch.float32, seed=7, d=d)
+    rope = rope_tables(d, T)
+    kw = dict(scale=1.0 / np.sqrt(d), dropout_rate=rate, seed=11)
     o, lse2 = mh_flash_forward_plain(q, k, v, seg, rope, **kw)
     di = (o * do).sum(-1)
     sb = None if seg is None else SegmentBounds(seg)
-    bounds = None if sb is None else sb.get(BQ, BKV)
+    bounds = None if sb is None else sb.get(bq, bkv)
     got = dq_walk(q, k, v, do, lse2, di, seg, rope, rate=rate, seed=11, bounds=bounds)
-    want = mh_flash_bwd_dq_plain(q, k, v, do, lse2, di, seg, rope, **kw, block_q=BQ,
-                                 block_kv=BKV, segment_skip=True, bounds=sb)
+    want = mh_flash_bwd_dq_plain(q, k, v, do, lse2, di, seg, rope, **kw, block_q=bq,
+                                 block_kv=bkv, segment_skip=True, bounds=sb)
     assert (got - want).abs().max() <= 1e-5 * want.abs().max()
     if bounds is not None:
         assert torch.equal(got, dq_walk(q, k, v, do, lse2, di, seg, rope, rate=rate, seed=11))

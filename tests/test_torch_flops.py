@@ -2,7 +2,7 @@
 (`attention_tile_fraction`, `flash_skip_fractions`,
 `flops_per_token_executed`), and the port's own `kernel_skip_fractions`
 against a brute-force count over its `seg_block_bounds` at the kernels'
-tiles (`KERNEL_TILES`).
+tiles (`kernel_tiles`, at head dims 128 and 256).
 
 Layouts: random packed rows from a numpy seed, T 256-4096, 1-6 EOS a row,
 some rows with a PAD tail after their last EOS; segment ids as the loader
@@ -16,7 +16,7 @@ import torch
 from omnibiote_tpu.training import metrics as jax_metrics
 
 from omnibiote_tpu_torch.config import EOS_TOKEN, PAD_TOKEN
-from omnibiote_tpu_torch.ops.flash_attention import KERNEL_TILES, seg_block_bounds
+from omnibiote_tpu_torch.ops.flash_attention import kernel_tiles, seg_block_bounds
 from omnibiote_tpu_torch.ops.segments import segment_ids_np
 from omnibiote_tpu_torch.training import metrics as port_metrics
 
@@ -67,20 +67,29 @@ def _walked_fraction(seg, owner_tile, walked_tile):
     return int((hi - lo + 1).sum()) / total
 
 
-@pytest.mark.parametrize("B,T,seed", LAYOUTS)
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_kernel_skip_fractions_count_the_kernels_tiles(B, T, seed, dtype):
+# (dtype, B, T, seed, head dim): every layout at both dtypes at D = 128,
+# and at D = 256, whose kernels walk other tiles
+SKIP_CASES = [pytest.param(dtype, *layout, head_dim,
+                           id=f"dtype{i}-{'-'.join(map(str, layout))}"
+                           + ("" if head_dim == 128 else f"-d{head_dim}"))
+              for head_dim in (128, 256)
+              for i, dtype in enumerate((torch.bfloat16, torch.float32))
+              for layout in LAYOUTS]
+
+
+@pytest.mark.parametrize("dtype,B,T,seed,head_dim", SKIP_CASES)
+def test_kernel_skip_fractions_count_the_kernels_tiles(dtype, B, T, seed, head_dim):
     seg = _layout(B, T, seed)
-    fq, fkv = KERNEL_TILES["fwd"][dtype]
-    bq, bkv = KERNEL_TILES["fused"][dtype]
-    kq, kkv = KERNEL_TILES["dkv"][dtype]
-    dq, dkv = KERNEL_TILES["dq"][dtype]
+    fq, fkv = kernel_tiles("fwd", dtype, head_dim)
+    bq, bkv = kernel_tiles("fused", dtype, head_dim)
+    kq, kkv = kernel_tiles("dkv", dtype, head_dim)
+    dq, dkv = kernel_tiles("dq", dtype, head_dim)
     e_fwd = _walked_fraction(seg, fq, fkv)
     e_fused = _walked_fraction(seg, bkv, bq)
     e_dkv, e_dq = _walked_fraction(seg, kkv, kq), _walked_fraction(seg, dq, dkv)
-    got = port_metrics.kernel_skip_fractions(seg, dtype)
+    got = port_metrics.kernel_skip_fractions(seg, dtype, head_dim=head_dim)
     assert got == pytest.approx((e_fwd, e_fused), rel=1e-12)
-    split = port_metrics.kernel_skip_fractions(seg, dtype, fused=False)
+    split = port_metrics.kernel_skip_fractions(seg, dtype, fused=False, head_dim=head_dim)
     assert split == pytest.approx((e_fwd, (3 * e_dkv + e_dq) / 4), rel=1e-12)
     assert 0.0 < min(*got, *split) and max(*got, *split) <= 1.0
 
