@@ -9,8 +9,8 @@ toolkit and g++. It
   1. builds the port's CUDA kernels (nvcc, one process per source, all at
      once) and its tokenizer (g++) from the checkout's sources, printing
      each kernel's registers, spills and stack frame (none may spill in
-     the backward's wgmma kernels), and the dynamic shared memory of the
-     bf16 forward's and backward kernels' CTAs;
+     the backward's wgmma kernels or in a bf16 kernel past D = 256), and
+     the shared memory of the bf16 forward's and backward kernels' CTAs;
   2. kernel phase: holds each kernel against its plain PyTorch version on
      the card, at the main paths' shapes, in bf16 and fp32, over packed,
      padded and dense segment layouts: the forward without dropout (the
@@ -230,9 +230,23 @@ toolkit and g++. It
      plain, the CLI with --n_head 4, tokens/s beside 8 heads of 128; ctx
      2048: a step on the fused backward and on the split pair), with exact
      launch counts, and the per-head entry at D = 256;
- 20. prints the card's name and power limit, one JSON line of kernel
-     numbers (a row of each phase-19 kernel at D = 256 beside the 13 rows),
-     and last the line {"ok": true, "device": {...}}.
+ 20. head dims past 256, and one head at any head dim: #1-#5 at D = 384,
+     512 and 1024 (2 heads) against their plain versions in bf16 and fp32,
+     dropout 0 and 0.1, on dense, packed (3 and 5 EOS) and PAD-tail rows at
+     T 256 and 512, as phase 19 holds them (bounds on = off, the tiles
+     walked, the split pair twice, fused against split, flash_attention_lse
+     with separate q and kv ids); #9 against its plain version (its
+     prologue bit for bit) at those head dims; one head at D = 320 and 600
+     through the kernels of D = 384 and 640 on zero-padded inputs; then
+     omnibiote-small with 2 heads of 512 as phase 19 runs 4 heads of 256:
+     each D = 512 kernel timed at its path's shape, the Encoder (bf16,
+     int8), training at ctx 1024 and 2048 with exact launch counts, the
+     per-head entry, and seq/s and tokens/s beside phase 19's 8 heads of
+     128 from the same run;
+ 21. prints the card's name and power limit, one JSON line of kernel
+     numbers (a row of each phase-19 kernel at D = 256 and of each phase-20
+     kernel at D = 512 beside the 13 rows), and last the line
+     {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script then exits non-zero without the
 last line. Without a CUDA device, or without the package beside it, it
@@ -348,15 +362,23 @@ def build():
     spills, serialised = {}, set()
     kernel_re = (r"_ZN[\w]*?\d+(mh_\w+?|rope_rows_\w+?|dq_epilogue|dots_wgmma|dots_n_wgmma|"
                  r"scores_wgmma)ILi(\d+)E((?:Lb[01]E|Li\d+E)*)")
+    # the kernels past D = 256 (wide_attention.cuh, int8_fwd_wide): element
+    # type first, the head dim a run-time size
+    wide_re = (r"Compiling entry function '_ZN[\w]*?\d+((?:mh_fwd|mh_bwd|mh_bwd_dq|int8_fwd|"
+               r"quant_qk)_wide)I(f|13__nv_bfloat16)((?:Lb[01]E)*)")
     for name, log in logs.items():
         entry = spill = stack = None
         for line in log.splitlines():
-            m = re.search(r"Compiling entry function '" + kernel_re, line)
+            mw = re.search(wide_re, line)
+            m = None if mw else re.search(r"Compiling entry function '" + kernel_re, line)
             m8 = re.search(r"Compiling entry function '_ZN[\w]*?\d+(int8_fwd|quant_qk|"
                            r"quant_v)I(f|i|13__nv_bfloat16)((?:Lb[01]E)*)(?:Li(\d+)E)?E", line)
             if "C7511" in line:
                 mc = re.search(kernel_re, line)
                 serialised.add(f"{name}: {mc.group(1) if mc else line.strip()[:160]}")
+            elif mw:
+                ty = "float" if mw.group(2) == "f" else "bf16"
+                entry = f"{mw.group(1)}<{', '.join([ty, *re.findall(r'Lb([01])E', mw.group(3))])}>"
             elif m:
                 args = re.findall(r"L[bi](\d+)E", m.group(3))
                 entry = f"{m.group(1)}<{', '.join([m.group(2), *args])}>"
@@ -383,6 +405,9 @@ def build():
                      "dots_n_wgmma", "scores_wgmma")
     spilled = {k: v for k, v in spills.items() if k.split(": ")[1].startswith(wgmma_kernels) and v}
     check(not spilled, f"wgmma instances spill: {spilled}")
+    # and no bf16 instance of the kernels past D = 256
+    spilled = {k: v for k, v in spills.items() if "_wide<bf16" in k and v}
+    check(not spilled, f"bf16 instances past D = 256 spill: {spilled}")
     print(f"  instances with wgmma products serialised by ptxas (C7511): "
           f"{sorted(serialised) or 'none'}")
     check(not any(k.split(": ")[1].startswith(wgmma_kernels[3:]) for k in serialised),
@@ -395,10 +420,12 @@ def build():
                          ("mh_flash_bwd_dq", "mh_bwd_dq_wgmma")):
         smem_bytes = getattr(_kernels.load_library(name), f"obt_{name}_smem_bytes")
         print(f"  {name}: {kernel} dynamic shared memory a CTA: " + ", ".join(
-            f"D={d} {smem_bytes(d)} bytes" for d in (64, 128, 256)))
+            f"D={d} {smem_bytes(d)} bytes" for d in (64, 128, 256))
+            + f"; past 256 (the *_wide kernel, any D) {smem_bytes(512)} bytes")
     int8_smem = _kernels.load_library('int8_flash_fwd').obt_int8_flash_fwd_smem_bytes
     print(f"  int8_flash_fwd: int8_fwd dynamic shared memory a CTA: D=128 {int8_smem(128)} "
-          f"bytes, D=256 {int8_smem(256)} bytes")
+          f"bytes, D=256 {int8_smem(256)} bytes; int8_fwd_wide past 256 {int8_smem(512)} "
+          f"bytes (static)")
 
 
 # ---------------------------------------------------------------------------
@@ -4931,31 +4958,32 @@ def _sdpa(qh, kh, vh, **kw):
     return default, alone
 
 
-def _wide_kernel_checks():
-    """#1-#5 at D = 256, bf16 and fp32, dropout 0 and 0.1, over dense,
-    packed (3 and 5 EOS) and PAD-tail rows: each against its plain version,
-    with bounds against the full walk (the same bits; the fused dq within
-    its tolerance), the tiles walked against the bounds' count, the split
-    pair the same bits at a second launch, fused against split; then
-    flash_attention_lse with separate q and kv ids through autograd. Returns
-    the worst bf16 max |do| and max |d| of the forward and backwards."""
+def _wide_kernel_checks(H=WIDE_HEADS, D=WIDE_D, layouts=WIDE_LAYOUTS, seed=1900,
+                        lse_shape=(2, 1024)):
+    """#1-#5 at H heads of D, bf16 and fp32, dropout 0 and 0.1, over the
+    (layout, T, EOS a row) `layouts` (B 2 at T 1024, else 1): each against
+    its plain version, with bounds against the full walk (the same bits;
+    the fused dq within its tolerance), the tiles walked against the
+    bounds' count, the split pair the same bits at a second launch, fused
+    against split; then flash_attention_lse with separate q and kv ids
+    through autograd at lse_shape (B, T). Returns the worst bf16 max |do|
+    and max |d| of the forward and backwards."""
     import torch
     from omnibiote_tpu_torch.ops import flash_attention as fa
 
-    H, D = WIDE_HEADS, WIDE_D
     scale = 1.0 / math.sqrt(D)
     worst = {"fwd": 0.0, "bwd": 0.0}
     i = 0
     for dtype in ("bfloat16", "float32"):
-        for layout, T, n_eos in WIDE_LAYOUTS:
+        for layout, T, n_eos in layouts:
             for rate in (0.0, TRAIN_DROPOUT):
                 B = 2 if T == 1024 else 1
                 i += 1
                 tdt = getattr(torch, dtype)
                 tag = f"D={D} B={B} T={T} {dtype} {layout}{n_eos or ''} dropout {rate}"
-                q, k, v, _, rope = _attn_inputs(B, T, H, D, tdt, "dense", seed=1900 + i)
-                seg = _wide_ids(layout, B, T, n_eos, 1900 + i)
-                gen = torch.Generator(device="cuda").manual_seed(1950 + i)
+                q, k, v, _, rope = _attn_inputs(B, T, H, D, tdt, "dense", seed=seed + i)
+                seg = _wide_ids(layout, B, T, n_eos, seed + i)
+                gen = torch.Generator(device="cuda").manual_seed(seed + 50 + i)
                 do = torch.randn(B, T, H, D, generator=gen, device="cuda").to(tdt)
                 kw = dict(scale=scale, dropout_rate=rate, seed=0x2560 + i)
                 (tq, tkv), (bq, bkv), (kq, kkv), (dq_q, dq_kv) = (
@@ -5019,19 +5047,21 @@ def _wide_kernel_checks():
     # pair) and a random lse cotangent on the rows that see the block
     for dtype in ("bfloat16", "float32"):
         tdt = getattr(torch, dtype)
-        B, T, n = 2, 1024, 2
-        q0, k0, v0, _, _ = _attn_inputs(B, T, H, D, tdt, "dense", seed=1990)
-        q_ids, kv_ids = _sp_pair(B, T, n, 1990)
+        (B, T), n = lse_shape, 2
+        q0, k0, v0, _, _ = _attn_inputs(B, T, H, D, tdt, "dense", seed=seed + 90)
+        q_ids, kv_ids = _sp_pair(B, T, n, seed + 90)
         sees = (q_ids[:, :, None] == kv_ids[:, None, :]).any(-1)
-        gen = torch.Generator(device="cuda").manual_seed(1991)
+        gen = torch.Generator(device="cuda").manual_seed(seed + 91)
         do = (torch.randn(B, T, H, D, generator=gen, device="cuda") * sees[..., None, None]).to(tdt)
         dlse = torch.randn(B, T, H, generator=gen, device="cuda") * sees[..., None]
 
         def lse_grads():
             q, k, v = (x.clone().requires_grad_() for x in (q0, k0, v0))
+            # blocks of half the row: the multi-kv backward, as the ring's
             o, lse = fa.flash_attention_lse(q, k, v, q_ids, None, scale=scale,
                                             dropout_rate=TRAIN_DROPOUT, seed=78,
-                                            block_q=512, block_kv=512, kv_segment_ids=kv_ids)
+                                            block_q=T // 2, block_kv=T // 2,
+                                            kv_segment_ids=kv_ids)
             return (o, lse, *torch.autograd.grad((o, lse), (q, k, v), (do, dlse)))
 
         with _plain_attention():
@@ -5054,16 +5084,16 @@ def _wide_kernel_checks():
     return worst
 
 
-def _wide_padded_checks():
-    """One head at D = 96 and 32 with RoPE: flash_attention forward and
-    backward through the kernels of the next built head dim on zero-padded
-    inputs, against the plain versions at the caller's D, bf16 and fp32,
-    dropout 0 and 0.1; each call launches #1 and #2 once."""
+def _wide_padded_checks(dims=(96, 32)):
+    """One head at each D of `dims` with RoPE: flash_attention forward and
+    backward through the kernels of the next head dim they take on
+    zero-padded inputs, against the plain versions at the caller's D, bf16
+    and fp32, dropout 0 and 0.1; each call launches #1 and #2 once."""
     import torch
     from omnibiote_tpu_torch.ops import _kernels
     from omnibiote_tpu_torch.ops import flash_attention as fa
 
-    for D in (96, 32):
+    for D in dims:
         for dtype in ("bfloat16", "float32"):
             for rate in (0.0, TRAIN_DROPOUT):
                 B, T = 4, 1024
@@ -5109,22 +5139,23 @@ def _wide_padded_checks():
                       f"{BWD_TOL[dtype]}); launches {dict((n, c) for n, c in _kernels.LAUNCHES.items() if c)}")
 
 
-def _wide_timings():
-    """Each D = 256 kernel at its path's shape beside its plain version, its
-    bound and SDPA, the forward's at the serving shape, the backwards at the
-    training shapes. Returns (rows of the kernels line, launches left at 0,
-    errors at these shapes)."""
+def _wide_timings(H=WIDE_HEADS, D=WIDE_D):
+    """Each kernel at H heads of D at its path's shape beside its plain
+    version, its bound and SDPA, the forward's at the serving shape, the
+    backwards at the training shapes. Returns the rows of the kernels line
+    (launches left at None, the errors at these shapes)."""
     import torch
     from omnibiote_tpu_torch.models.rope import apply_rope_half
     from omnibiote_tpu_torch.ops import flash_attention as fa
     from omnibiote_tpu_torch.ops import int8_attention as i8
 
-    H, D = WIDE_HEADS, WIDE_D
     scale = 1.0 / math.sqrt(D)
     rows, err = {}, {}
     src = "omnibiote_tpu_torch/ops/csrc/"
 
     def row(name, source, line, ms, plain_ms, bound, lib):
+        if D > 256 and name != "int8_flash_fwd":
+            source = "wide_attention.cuh"  # #1-#8 past 256, built into each library
         rows[name] = {"name": f"{name} D={D}", "route": "cuda", "source": src + source,
                       "replaces": line, "launches": None, "max_abs_err": err[name],
                       "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
@@ -5280,10 +5311,11 @@ def _wide_timings():
     return rows
 
 
-def _wide_serving(workdir, tok_path, seqs):
-    """The Encoder at omnibiote-small width with 4 heads of 256, bf16 and
+def _wide_serving(workdir, tok_path, seqs, H=WIDE_HEADS, D=WIDE_D, rate8=None):
+    """The Encoder at omnibiote-small width with H heads of D, bf16 and
     int8, on the serving slice's sequences; encode(mean) seq/s beside the
-    8-head model's. Returns the launches of its runs (#1 and #9)."""
+    8-head model's (measured here unless `rate8` gives it from this run).
+    Returns (the launches of its runs (#1 and #9), the 8-head rate)."""
     import torch
     from omnibiote_tpu_torch import init_params, preset
     from omnibiote_tpu_torch.api import Encoder
@@ -5293,8 +5325,8 @@ def _wide_serving(workdir, tok_path, seqs):
     from omnibiote_tpu_torch.tokenizer import SentencePieceProcessor
 
     sp = SentencePieceProcessor(tok_path)
-    cfg = preset("omnibiote-small", vocab_size=65536, dropout=0.0, n_head=WIDE_HEADS)
-    check((cfg.n_layer, cfg.n_embd, cfg.n_head, cfg.n_embd // cfg.n_head) == (8, 1024, 4, 256),
+    cfg = preset("omnibiote-small", vocab_size=65536, dropout=0.0, n_head=H)
+    check((cfg.n_layer, cfg.n_embd, cfg.n_head, cfg.n_embd // cfg.n_head) == (8, 1024, H, D),
           f"unexpected wide config {cfg}")
     L, bs = cfg.n_layer, SERVING_BATCH
     n_batches = -(-len(seqs) // bs)
@@ -5352,29 +5384,32 @@ def _wide_serving(workdir, tok_path, seqs):
     check(worst_bf16 >= MIN_COSINE_INT8, "wide int8 Encoder vs the bf16 Encoder")
 
     x = torch.randint(20, 65000, (bs, cfg.block_size), generator=gen, device="cuda")
-    rate4 = _encode_rate(model, x, f"{WIDE_HEADS} heads of {WIDE_D}, bf16")
-    rate4_8 = _encode_rate(enc8.model, x, f"{WIDE_HEADS} heads of {WIDE_D}, int8 weights + "
+    rate4 = _encode_rate(model, x, f"{H} heads of {D}, bf16")
+    rate4_8 = _encode_rate(enc8.model, x, f"{H} heads of {D}, int8 weights + "
                            f"int8 attention")
     del enc, enc8, model, outs, outs8, plain8
     torch.cuda.empty_cache()
-    cfg8 = preset("omnibiote-small", vocab_size=65536, dropout=0.0)
-    model8 = init_params(gen, cfg8, device="cuda")
-    rate8 = _encode_rate(model8, x, "8 heads of 128, bf16")
-    print(f"encode(mean) B={bs} T={cfg.block_size} in one run: {WIDE_HEADS} heads of {WIDE_D} "
+    if rate8 is None:
+        cfg8 = preset("omnibiote-small", vocab_size=65536, dropout=0.0)
+        model8 = init_params(gen, cfg8, device="cuda")
+        rate8 = _encode_rate(model8, x, "8 heads of 128, bf16")
+        del model8
+        torch.cuda.empty_cache()
+    print(f"encode(mean) B={bs} T={cfg.block_size} in one run: {H} heads of {D} "
           f"{rate4:.1f} seq/s (int8 {rate4_8:.1f}), 8 heads of 128 {rate8:.1f} seq/s "
           f"(ratio {rate4 / rate8:.4f})")
-    del model8
-    torch.cuda.empty_cache()
-    return launches
+    return launches, rate8
 
 
-def _wide_training(workdir):
-    """Training at omnibiote-small width with 4 heads of 256: at ctx 1024
+def _wide_training(workdir, H=WIDE_HEADS, D=WIDE_D, tps8=None):
+    """Training at omnibiote-small width with H heads of D: at ctx 1024
     (16 x 2, 3 EOS, dropout 0.1) one micro-batch and one step on the kernels
-    against the plain attention, the CLI with --n_head 4 for 2 steps, and
-    tokens/s beside 8 heads of 128; at ctx 2048 (8 x 2, 5 EOS) one step with
-    the fused backward (#3) and one with the split pair (#4, #5) against
-    plain. Returns the launches of those runs."""
+    against the plain attention, the CLI with --n_head H for 2 steps, and
+    tokens/s over 6 steps beside 8 heads of 128 (measured here unless
+    `tps8` gives it from this run); at ctx 2048 (8 x 2, 5 EOS) one step
+    with the fused backward (#3) and one with the split pair (#4, #5)
+    against plain, and tokens/s over 4 steps. Returns (the launches of
+    those runs, the 8-head rate)."""
     import copy
     import torch
     from omnibiote_tpu_torch import preset
@@ -5389,7 +5424,7 @@ def _wide_training(workdir):
     launches = {}
     for mini, accum, ctx, n_eos in ((16, 2, 1024, 3), (LONG_SHAPES[0][0], 2, 2048, LONG_EOS)):
         cfg = preset("omnibiote-small", vocab_size=65536, dropout=TRAIN_DROPOUT,
-                     n_head=WIDE_HEADS, block_size=ctx)
+                     n_head=H, block_size=ctx)
         L = cfg.n_layer
         tc = TrainConfig(batch_size=mini * accum, mini_batch_size=mini, ctx_len=ctx,
                          token_budget=float(mini * accum * ctx * 10000), seed=0)
@@ -5399,7 +5434,7 @@ def _wide_training(workdir):
         gen = torch.Generator(device="cuda").manual_seed(19)
         model = init_params(gen, cfg, device="cuda")
         bwd = "mh_flash_bwd" if ctx <= 1024 else "mh_flash_bwd_mk"
-        tag = f"{WIDE_HEADS} heads of {WIDE_D}, mini {mini} x {accum}, T {ctx}"
+        tag = f"{H} heads of {D}, mini {mini} x {accum}, T {ctx}"
 
         if ctx == 1024:
             def loss_and_grads():
@@ -5456,23 +5491,23 @@ def _wide_training(workdir):
         torch.cuda.empty_cache()
 
         if ctx == 1024:
-            # the CLI with --n_head 4: the training main path at this width
-            data = os.path.join(workdir, "data_wide")
-            log = os.path.join(workdir, "metrics_wide.jsonl")
+            # the CLI with --n_head H: the training main path at this width
+            data = os.path.join(workdir, f"data_wide_{D}")
+            log = os.path.join(workdir, f"metrics_wide_{D}.jsonl")
             _write_shards(data, 300_000, seed=19)
             steps = 2
             argv = ["--base_dir", data, "--train_type", "mixed", "--n_layer", str(L),
-                    "--n_embd", "1024", "--n_head", str(WIDE_HEADS), "--ctx_len", str(ctx),
+                    "--n_embd", "1024", "--n_head", str(H), "--ctx_len", str(ctx),
                     "--dropout", str(TRAIN_DROPOUT), "--mini_batch_size", str(mini),
                     "--batch_size", str(mini * accum), "--max_steps", str(steps),
-                    "--save_dir", os.path.join(workdir, "ckpt_wide"), "--log_every", "1",
+                    "--save_dir", os.path.join(workdir, f"ckpt_wide_{D}"), "--log_every", "1",
                     "--test_freq", "50000", "--metrics_jsonl", log]
             print("wide train CLI: python -m omnibiote_tpu_torch.training.cli " + " ".join(argv))
             _kernels.reset_launches()
             trainer = cli.main(argv)
             torch.cuda.synchronize()
             cli_launches = dict(_kernels.LAUNCHES)
-            check(trainer.model.cfg.n_head == WIDE_HEADS, "the CLI's model has other heads")
+            check(trainer.model.cfg.n_head == H, "the CLI's model has other heads")
             with open(log) as f:
                 recs = [json.loads(line) for line in f]
             losses = [r["loss"] for r in recs if "loss" in r]
@@ -5488,53 +5523,117 @@ def _wide_training(workdir):
                 launches[n] = launches.get(n, 0) + c
             del trainer
             torch.cuda.empty_cache()
-            tps4 = _throughput(cfg, tc, n_eos, 6, f"ctx {ctx}, {WIDE_HEADS} heads of {WIDE_D}")
-            cfg8 = preset("omnibiote-small", vocab_size=65536, dropout=TRAIN_DROPOUT)
-            tps8 = _throughput(cfg8, tc, n_eos, 6, f"ctx {ctx}, 8 heads of 128")
+            tps4 = _throughput(cfg, tc, n_eos, 6, f"ctx {ctx}, {H} heads of {D}")
+            if tps8 is None:
+                cfg8 = preset("omnibiote-small", vocab_size=65536, dropout=TRAIN_DROPOUT)
+                tps8 = _throughput(cfg8, tc, n_eos, 6, f"ctx {ctx}, 8 heads of 128")
             print(f"train tokens/s at ctx {ctx}, mini {mini} x {accum}, in one run: "
-                  f"{WIDE_HEADS} heads of {WIDE_D} {tps4:.1f}, 8 heads of 128 {tps8:.1f} "
+                  f"{H} heads of {D} {tps4:.1f}, 8 heads of 128 {tps8:.1f} "
                   f"(ratio {tps4 / tps8:.4f})")
         else:
-            tps4 = _throughput(cfg, tc, n_eos, 4, f"ctx {ctx}, {WIDE_HEADS} heads of {WIDE_D}")
-    return launches
+            tps4 = _throughput(cfg, tc, n_eos, 4, f"ctx {ctx}, {H} heads of {D}")
+    return launches, tps8
+
+
+def _head_dim_phase(workdir, tok_path, seqs, H, D, phase, checks, baseline=None):
+    """Phase 19 or 20 after its small-shape `checks` (a callable returning
+    the worst bf16 errors): each kernel at H heads of D timed at its path's
+    shape, and omnibiote-small with H heads of D served, trained and run
+    through the per-head entry. baseline: the 8-head rates (`rate8`,
+    `tps8`) already measured in this run, or None. Returns (the rows of the
+    kernels line, each row's launches from this phase's main paths, the
+    worst bf16 errors, the 8-head rates)."""
+    t0 = time.time()
+    baseline = baseline or {}
+    worst = checks()
+    print(f"phase {phase}: the small-shape checks took {time.time() - t0:.1f} s")
+    rows = _wide_timings(H, D)
+    serving, rate8 = _wide_serving(workdir, tok_path, seqs, H, D, baseline.get("rate8"))
+    training, tps8 = _wide_training(workdir, H, D, baseline.get("tps8"))
+    per_head = _wide_per_head(H, D)
+    launches = {**training, **serving, **per_head}
+    launches["mh_flash_fwd"] = serving["mh_flash_fwd"] + training.get("mh_flash_fwd", 0)
+    order = ("mh_flash_fwd", "mh_flash_bwd", "mh_flash_bwd_mk", "mh_flash_bwd_dkv",
+             "mh_flash_bwd_dq", "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "int8_flash_fwd")
+    check(sorted(rows) == sorted(order), f"phase {phase}'s rows {sorted(rows)}")
+    for name, row in rows.items():
+        row["launches"] = launches.get(name, 0)
+        check(row["launches"] > 0, f"phase {phase}'s main paths never launched {name} at D={D}")
+    print(f"phase {phase} (head dim {D}): {time.time() - t0:.1f} s; main-path launches "
+          f"{ {n: rows[n]['launches'] for n in order} }")
+    return [rows[n] for n in order], worst, {"rate8": rate8, "tps8": tps8}
 
 
 def head_dim_256_phase(workdir, tok_path, seqs):
     """Phase 19: the kernels at D = 256 and one head at D = 96 and 32
     against their plain versions, their times at the paths' shapes, and
-    omnibiote-small with 4 heads of 256 served and trained. Returns (the
-    rows of the kernels line, each row's launches from this phase's main
-    paths, the worst bf16 errors)."""
-    t0 = time.time()
-    worst = _wide_kernel_checks()
-    _wide_padded_checks()
-    rows = _wide_timings()
-    serving = _wide_serving(workdir, tok_path, seqs)
-    training = _wide_training(workdir)
-    per_head = _wide_per_head()
-    launches = {**training, **serving, **per_head}
-    launches["mh_flash_fwd"] = serving["mh_flash_fwd"] + training.get("mh_flash_fwd", 0)
-    order = ("mh_flash_fwd", "mh_flash_bwd", "mh_flash_bwd_mk", "mh_flash_bwd_dkv",
-             "mh_flash_bwd_dq", "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "int8_flash_fwd")
-    check(sorted(rows) == sorted(order), f"phase 19's rows {sorted(rows)}")
-    for name, row in rows.items():
-        row["launches"] = launches.get(name, 0)
-        check(row["launches"] > 0, f"phase 19's main paths never launched {name} at D=256")
-    print(f"phase 19 (head dim 256): {time.time() - t0:.1f} s; main-path launches "
-          f"{ {n: rows[n]['launches'] for n in order} }")
-    return [rows[n] for n in order], worst
+    omnibiote-small with 4 heads of 256 served and trained. Returns
+    _head_dim_phase's."""
+    def checks():
+        worst = _wide_kernel_checks()
+        _wide_padded_checks()
+        return worst
+    return _head_dim_phase(workdir, tok_path, seqs, WIDE_HEADS, WIDE_D, 19, checks)
 
 
-def _wide_per_head():
-    """flash_attention(multi_head=False) at D = 256: forward and backward
-    against the plain versions (bf16 and fp32, dropout 0.1, packed), then
-    its main path at bench.py's micro-batch. Returns the launches of that
-    path."""
+# omnibiote-small's width with 2 heads of 512 (`--n_head 2`), the same 168 M
+# parameters and attention FLOPs a token as its 8 heads of 128; the kernels
+# past 256 are checked at three head dims on small shapes first, and one
+# head at two head dims that run padded.
+WIDER_HEADS, WIDER_D = 2, 512
+WIDER_CHECK_DIMS = (384, 512, 1024)
+WIDER_LAYOUTS = (("dense", 256, 0), ("packed", 256, 3), ("padded", 256, 0),
+                 ("packed", 512, LONG_EOS))
+WIDER_PADDED = (320, 600)
+
+
+def _wider_int8_checks():
+    """#9 at each head dim of WIDER_CHECK_DIMS (2 heads, B 1, T 256, RoPE),
+    bf16 and fp32, dense and packed rows: its prologue bit for bit and its
+    output against the plain version (_hold_int8)."""
+    import torch
+    errs = []
+    for i, D in enumerate(WIDER_CHECK_DIMS):
+        for dtype in ("bfloat16", "float32"):
+            for layout in ("dense", "packed"):
+                q, k, v, _, rope = _attn_inputs(1, 256, WIDER_HEADS, D, getattr(torch, dtype),
+                                                "dense", seed=2600 + i)
+                seg = _wide_ids(layout, 1, 256, 3, 2600 + i)
+                err, _ = _hold_int8(q, k, v, seg, rope, 1.0 / math.sqrt(D),
+                                    f"D={D} {dtype} {layout}")
+                errs.append(err)
+    print(f"int8 kernel past 256 at D {WIDER_CHECK_DIMS}, bf16 and fp32, dense and packed: "
+          f"prologue bit for bit, max|do| {max(errs):.3e}")
+
+
+def head_dim_wide_phase(workdir, tok_path, seqs, baseline):
+    """Phase 20: #1-#5 at D = 384, 512 and 1024 and #9 there against their
+    plain versions on small shapes, one head at D = 320 and 600 padded,
+    then omnibiote-small with 2 heads of 512 as phase 19 runs 4 heads of
+    256, beside phase 19's 8-head rates (`baseline`). Returns
+    _head_dim_phase's."""
+    def checks():
+        worst = {"fwd": 0.0, "bwd": 0.0}
+        for i, D in enumerate(WIDER_CHECK_DIMS):
+            w = _wide_kernel_checks(WIDER_HEADS, D, WIDER_LAYOUTS, seed=2500 + 100 * i,
+                                    lse_shape=(1, 512))
+            worst = {n: max(worst[n], w[n]) for n in worst}
+        _wider_int8_checks()
+        _wide_padded_checks(WIDER_PADDED)
+        return worst
+    return _head_dim_phase(workdir, tok_path, seqs, WIDER_HEADS, WIDER_D, 20, checks,
+                           baseline)
+
+
+def _wide_per_head(H=WIDE_HEADS, D=WIDE_D):
+    """flash_attention(multi_head=False) at H heads of D: forward and
+    backward against the plain versions (bf16 and fp32, dropout 0.1,
+    packed), then its main path at bench.py's micro-batch. Returns the
+    launches of that path."""
     import torch
     from omnibiote_tpu_torch.ops import _kernels
     from omnibiote_tpu_torch.ops import flash_attention as fa
 
-    H, D = WIDE_HEADS, WIDE_D
     scale = 1.0 / math.sqrt(D)
 
     def fwd_bwd(q, k, v, seg, do):
@@ -5646,7 +5745,9 @@ def main():
         torch.cuda.empty_cache()
         held_out, held_err = pod_plan_phase()
         torch.cuda.empty_cache()
-        wide_rows, wide_err = head_dim_256_phase(workdir, tok_path, seqs)
+        wide_rows, wide_err, rates8 = head_dim_256_phase(workdir, tok_path, seqs)
+        torch.cuda.empty_cache()
+        wider_rows, wider_err, _ = head_dim_wide_phase(workdir, tok_path, seqs, rates8)
     fwd_row["max_abs_err"] = max(fwd_row["max_abs_err"], ring_err["fwd"], held_err["fwd"])
     bwd_row["max_abs_err"] = max(bwd_row["max_abs_err"], ring_err["bwd"], held_err["bwd"])
     # each row's launches: the count its own main paths left (serving, both
@@ -5671,7 +5772,8 @@ def main():
         row["launches"] = (source[row["name"]] + parallel_split.get(row["name"], 0)
                            + ring[row["name"]] + pp_split.get(row["name"], 0))
     int8_row["launches"] = int8_serving["int8_flash_fwd"]
-    rows = [fwd_row, bwd_row, *long_rows, int8_row, *head_rows, *probe_rows, *wide_rows]
+    rows = [fwd_row, bwd_row, *long_rows, int8_row, *head_rows, *probe_rows, *wide_rows,
+            *wider_rows]
     check(min(serving["mh_flash_fwd"], train["mh_flash_fwd"], long_cli["mh_flash_fwd"],
               evals["mh_flash_fwd"], pretrain["mh_flash_fwd"], contact["mh_flash_fwd"],
               parallel["mh_flash_fwd"], pp["mh_flash_fwd"]) > 0,
@@ -5686,12 +5788,14 @@ def main():
     check(min(ring[k] for k in ("mh_flash_fwd", "mh_flash_bwd", "mh_flash_bwd_mk",
                                 "mh_flash_bwd_dkv", "mh_flash_bwd_dq")) > 0,
           f"the ring path never launched one of #1-#5: {ring}")
-    check(len(rows) == 22 and all(row["launches"] > 0 for row in rows),
+    check(len(rows) == 31 and all(row["launches"] > 0 for row in rows),
           f"a kernel was never launched on its main path: "
           f"{[(row['name'], row['launches']) for row in rows]}")
     print(f"mh_flash_fwd at the long shape (mini 8, T 2048, skipping): {fwd_ms_2048:.4f} ms")
     print(f"head dim 256 kernel checks: worst bf16 max|do| {wide_err['fwd']:.3e}, max|d| "
           f"{wide_err['bwd']:.3e}")
+    print(f"head dims past 256 kernel checks: worst bf16 max|do| {wider_err['fwd']:.3e}, "
+          f"max|d| {wider_err['bwd']:.3e}")
     print(gpu_name_and_power())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -52,7 +52,7 @@ _SIGNATURES = {
             _c.c_void_p, _c.c_void_p, _c.c_void_p,     # q, k, v
             _c.c_void_p, _c.c_void_p,                  # q_seg, kv_seg
             _c.c_void_p, _c.c_void_p,                  # cos, sin
-            _c.c_void_p,                               # k_rot
+            _c.c_void_p, _c.c_void_p,                  # q_rot, k_rot
             _c.c_void_p, _c.c_void_p, _c.c_void_p,     # kv_lo, kv_hi, tile_count
             _c.c_void_p, _c.c_void_p,                  # o, lse2
             _c.c_int, _c.c_int, _c.c_int, _c.c_int,    # B, T, H, D
@@ -117,7 +117,7 @@ _SIGNATURES = {
             _c.c_void_p, _c.c_void_p, _c.c_void_p,     # do, lse2, di
             _c.c_void_p, _c.c_void_p,                  # q_seg, kv_seg
             _c.c_void_p, _c.c_void_p,                  # cos, sin
-            _c.c_void_p,                               # k_rot
+            _c.c_void_p, _c.c_void_p,                  # q_rot, k_rot
             _c.c_void_p, _c.c_void_p, _c.c_void_p,     # kv_lo, kv_hi, tile_count
             _c.c_void_p,                               # dq
             _c.c_int, _c.c_int, _c.c_int, _c.c_int,    # B, T, H, D

@@ -8,11 +8,12 @@ and backward, on a CUDA tensor; their plain versions on a CPU tensor); with
 int8=True, no dropout and head_dim % 128 == 0 it goes to
 `int8_flash_attention` (ops/int8_attention.py) instead; everything else
 (causal, ragged T, narrow heads) goes to `xla_attention`, the dense twin of
-the JAX package's reference path. The kernels are built at head dims 64,
-128 and 256 (int8: 128 and 256); one head at another head dim up to 256
-runs the next built one's on zero-padded inputs
-(`flash_attention_padded`). On a CUDA tensor a call that this routing
-sends to a kernel not built for its head dim or dtype raises
+the JAX package's reference path. The kernels take head dims 64, 128, 256
+and every multiple of 128 past 256 (int8: every multiple of 128); one head
+at any other head dim runs the kernels of the next one they take on
+zero-padded inputs (`flash_attention_padded`), so every head dim the JAX
+dispatch sends to a kernel has one. On a CUDA tensor a call that this
+routing sends to a kernel not built for its dtype raises
 NotImplementedError: it does not run densely in the kernel's place.
 
 Dropout: `dropout_seed` is the call's 64-bit seed (the counterpart of the
@@ -22,10 +23,12 @@ with it and keeps each probability with chance 1 - rate, as the JAX dense
 path's bernoulli does.
 
 Tensor parallelism (`tp_mesh`: the rank's `parallel.tensor.TensorParallel`):
-q, k and v hold the rank's heads; the flash path runs `flash_attention_tp`
-on them, with no communication and the dropout seed mixed with the
-model-axis index, and the dense path mixes its seed the same way. As in the
-JAX dispatch, such a call never takes the int8 kernel.
+q, k and v hold the rank's heads; the call routes on the model's heads (the
+rank's times the model axis's size), as the JAX dispatch routes on
+`cfg.n_head`; the flash path runs `flash_attention_tp` on the rank's heads,
+with no communication and the dropout seed mixed with the model-axis index,
+and the dense path mixes its seed the same way. As in the JAX dispatch,
+such a call never takes the int8 kernel.
 
 Sequence parallelism (impl='ring', `ring_mesh`: the rank's
 `ops.ring_attention.Ring`, None for a ring of one): q, k and v hold the
@@ -39,10 +42,8 @@ from typing import Optional
 
 import torch
 
-from .flash_attention import (KERNEL_DTYPES, KERNEL_HEAD_DIMS, flash_attention,
-                              flash_attention_tp, tp_seed)
+from .flash_attention import KERNEL_DTYPES, flash_attention, flash_attention_tp, tp_seed
 from .int8_attention import KERNEL_DTYPES as INT8_DTYPES
-from .int8_attention import KERNEL_HEAD_DIMS as INT8_HEAD_DIMS
 from .int8_attention import int8_flash_attention
 from .ring_attention import Ring, RingSegments, ring_attention
 from .segments import NEG_INF
@@ -87,26 +88,24 @@ def _fit_block(T: int, want: int) -> int:
 def attention_path(device_type: str, dtype: torch.dtype, T: int, H: int,
                    D: int, int8: bool, *, impl: str = "flash",
                    causal: bool = False, dropout_rate: float = 0.0) -> str:
-    """The path of one attention call: 'int8', 'flash' or 'xla', as the JAX
-    dispatch routes it. On 'cuda' a call routed to a kernel that is not
-    built for (D, dtype) raises NotImplementedError (one head at any D up
-    to the widest built one runs padded); on the CPU the plain versions
-    take any D and dtype."""
+    """The path of one attention call of H heads (the model's, under tensor
+    parallelism): 'int8', 'flash' or 'xla', as the JAX dispatch routes it.
+    The kernels take every head dim routed to them (flash: D % 128 == 0
+    (`flash_attention.kernel_head_dim`) and one head at any D, padded;
+    int8: D % 128 == 0); on 'cuda' a call routed to a kernel that is not
+    built for its dtype raises NotImplementedError; on the CPU the plain
+    versions take any dtype."""
     if impl != "flash" or causal or T % 128:
         return "xla"
     if int8 and dropout_rate == 0.0 and D % 128 == 0:
-        path, built = "int8", D in INT8_HEAD_DIMS and dtype in INT8_DTYPES
+        path, dtypes = "int8", INT8_DTYPES
     elif D % 128 == 0 or H == 1:
-        path = "flash"
-        built = dtype in KERNEL_DTYPES and (
-            D in KERNEL_HEAD_DIMS or (H == 1 and D <= KERNEL_HEAD_DIMS[-1]))
+        path, dtypes = "flash", KERNEL_DTYPES
     else:
         return "xla"
-    if device_type == "cuda" and not built:
+    if device_type == "cuda" and dtype not in dtypes:
         raise NotImplementedError(
-            f"no {path} attention kernel is built for head_dim {D} and "
-            f"{dtype} (ROADMAP Queue 2 item 6: head dims past 256, and one "
-            f"head past 256)")
+            f"no {path} attention kernel is built for head_dim {D} and {dtype}")
     return path
 
 
@@ -140,7 +139,8 @@ def attention(q, k, v, *, scale: float, segment_ids=None,
             segments=seg_bounds if isinstance(seg_bounds, RingSegments) else None)
     T, H, D = q.shape[1], q.shape[2], q.shape[3]
     int8 = int8 and tp_mesh is None
-    path = attention_path(q.device.type, q.dtype, T, H, D, int8, impl=impl,
+    n_head = H * (1 if tp_mesh is None else tp_mesh.size)
+    path = attention_path(q.device.type, q.dtype, T, n_head, D, int8, impl=impl,
                           causal=causal, dropout_rate=dropout_rate)
     if path == "int8":
         # serving-only int8 kernel: RoPE and the quantization of q, k, v and

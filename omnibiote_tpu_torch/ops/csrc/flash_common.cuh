@@ -1,7 +1,8 @@
 // Pieces shared by the multi-head flash attention kernels (forward and
 // backward): the JAX package's rounding points for RoPE and the masked
-// log2-space scores, bf16 packing, the RoPE pre-rotation kernels, and rows
-// rotated into swizzled wgmma panels.
+// log2-space scores, bf16 packing, rows rotated into swizzled wgmma panels,
+// and the kernels around the attention kernels at any head dim: the RoPE
+// pre-rotation and the dq epilogue of fp32 sums.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -95,85 +96,103 @@ __device__ __forceinline__ void rows_to_panels(unsigned char* dst, int tile_rows
 
 // ---------------------------------------------------------------------------
 // x_rot = rotate-half(x) in fp32, rounded to the input dtype, for every
-// (b, t, h) row of a (B, T, H, D) tensor. One thread per 8 (bf16) or 4
-// (fp32) pairs (d, d + D/2) of one row.
+// (b, t, h) row of a (B, T, H, D) tensor, at any head dim D % 16 == 0. One
+// thread a 16-byte vector of each half (8 bf16 or 4 fp32 pairs (d, d + D/2)).
 // ---------------------------------------------------------------------------
-template <int D>
-__global__ void rope_rows_bf16(const __nv_bfloat16* __restrict__ x,
-                               const float* __restrict__ cos_t,
-                               const float* __restrict__ sin_t,
-                               __nv_bfloat16* __restrict__ out, int T, int H,
-                               long long n_items) {
-  constexpr int HALF = D / 2, PER_ROW = HALF / 8;
-  const long long it = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (it >= n_items) return;
-  const long long row = it / PER_ROW;
-  const int c8 = (int)(it % PER_ROW) * 8;
-  const int t = (int)((row / H) % T);
-  const __nv_bfloat16* src = x + row * D + c8;
-  const uint4 a = *reinterpret_cast<const uint4*>(src);
-  const uint4 bb = *reinterpret_cast<const uint4*>(src + HALF);
-  const float* cp = cos_t + (size_t)t * HALF + c8;
-  const float* sp = sin_t + (size_t)t * HALF + c8;
-  const __nv_bfloat162* x1 = reinterpret_cast<const __nv_bfloat162*>(&a);
-  const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&bb);
-  uint32_t lo[4], hi[4];
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float (&x)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
-    const float2 u = __bfloat1622float2(x1[e]), w = __bfloat1622float2(x2[e]);
-    const float2 c = *reinterpret_cast<const float2*>(cp + 2 * e);
-    const float2 s = *reinterpret_cast<const float2*>(sp + 2 * e);
-    lo[e] = pack_bf16(rope_lo(u.x, w.x, c.x, s.x), rope_lo(u.y, w.y, c.y, s.y));
-    hi[e] = pack_bf16(rope_hi(u.x, w.x, c.x, s.x), rope_hi(u.y, w.y, c.y, s.y));
+    const float2 f = __bfloat1622float2(h[e]);
+    x[2 * e] = f.x;
+    x[2 * e + 1] = f.y;
   }
-  __nv_bfloat16* dst = out + row * D + c8;
-  *reinterpret_cast<uint4*>(dst) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-  *reinterpret_cast<uint4*>(dst + HALF) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+}
+__device__ __forceinline__ void load_vec(const float* p, float (&x)[4]) {
+  const float4 u = *reinterpret_cast<const float4*>(p);
+  x[0] = u.x; x[1] = u.y; x[2] = u.z; x[3] = u.w;
+}
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float (&x)[8]) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]),
+                                            pack_bf16(x[4], x[5]), pack_bf16(x[6], x[7]));
+}
+__device__ __forceinline__ void store_vec(float* p, const float (&x)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
 }
 
-template <int D>
-__global__ void rope_rows_f32(const float* __restrict__ x,
-                              const float* __restrict__ cos_t,
-                              const float* __restrict__ sin_t,
-                              float* __restrict__ out, int T, int H,
-                              long long n_items) {
-  constexpr int HALF = D / 2, PER_ROW = HALF / 4;
+template <typename E>
+__global__ void rope_rows(const E* __restrict__ x, const float* __restrict__ cos_t,
+                          const float* __restrict__ sin_t, E* __restrict__ out, int T, int H,
+                          int D, long long n_items) {
+  constexpr int V = 16 / sizeof(E);
   const long long it = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (it >= n_items) return;
-  const long long row = it / PER_ROW;
-  const int c4 = (int)(it % PER_ROW) * 4;
+  const int half = D / 2, per_row = half / V;
+  const long long row = it / per_row;
+  const int c = (int)(it % per_row) * V;
   const int t = (int)((row / H) % T);
-  const float* src = x + row * D + c4;
-  const float4 a = *reinterpret_cast<const float4*>(src);
-  const float4 bb = *reinterpret_cast<const float4*>(src + HALF);
-  const float4 c = *reinterpret_cast<const float4*>(cos_t + (size_t)t * HALF + c4);
-  const float4 s = *reinterpret_cast<const float4*>(sin_t + (size_t)t * HALF + c4);
-  float* dst = out + row * D + c4;
-  *reinterpret_cast<float4*>(dst) =
-      make_float4(rope_lo(a.x, bb.x, c.x, s.x), rope_lo(a.y, bb.y, c.y, s.y),
-                  rope_lo(a.z, bb.z, c.z, s.z), rope_lo(a.w, bb.w, c.w, s.w));
-  *reinterpret_cast<float4*>(dst + HALF) =
-      make_float4(rope_hi(a.x, bb.x, c.x, s.x), rope_hi(a.y, bb.y, c.y, s.y),
-                  rope_hi(a.z, bb.z, c.z, s.z), rope_hi(a.w, bb.w, c.w, s.w));
+  float lo[V], hi[V];
+  load_vec(x + row * D + c, lo);
+  load_vec(x + row * D + half + c, hi);
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    const float cs = cos_t[(size_t)t * half + c + e], sn = sin_t[(size_t)t * half + c + e];
+    const float rl = rope_lo(lo[e], hi[e], cs, sn);
+    hi[e] = rope_hi(lo[e], hi[e], cs, sn);
+    lo[e] = rl;
+  }
+  store_vec(out + row * D + c, lo);
+  store_vec(out + row * D + half + c, hi);
 }
 
-// Rotate the rows of x (B, T, H, D) into out; bf16 or fp32.
-template <int D>
-void launch_rope_rows(const void* x, const float* cos_t, const float* sin_t,
-                      void* out, int B, int T, int H, bool bf16,
-                      cudaStream_t st) {
+// Rotate the rows of x (B, T, H, D) into out; bf16 or fp32. (A template, so
+// that only the sources that launch it build its kernels.)
+template <typename = void>
+void launch_rope_rows(const void* x, const float* cos_t, const float* sin_t, void* out, int B,
+                      int T, int H, int D, bool bf16, cudaStream_t st) {
   const long long n_pairs = (long long)B * T * H * (D / 2);
   if (bf16) {
     const long long n = n_pairs / 8;
-    rope_rows_bf16<D><<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), cos_t, sin_t,
-        static_cast<__nv_bfloat16*>(out), T, H, n);
+    rope_rows<__nv_bfloat16><<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), cos_t, sin_t, static_cast<__nv_bfloat16*>(out),
+        T, H, D, n);
   } else {
     const long long n = n_pairs / 4;
-    rope_rows_f32<D><<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
-        static_cast<const float*>(x), cos_t, sin_t, static_cast<float*>(out),
-        T, H, n);
+    rope_rows<float><<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
+        static_cast<const float*>(x), cos_t, sin_t, static_cast<float*>(out), T, H, D, n);
   }
+}
+
+// ---------------------------------------------------------------------------
+// dq = inverse-RoPE(dq_acc) in fp32 (when cos_t is non-null), cast to the
+// output type, from fp32 sums in the (B, T, H, D) layout. One thread per
+// pair (d, d + D/2) of one (b, t, h) row.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+template <typename OutT>
+__global__ void dq_epilogue(const float* __restrict__ acc, const float* __restrict__ cos_t,
+                            const float* __restrict__ sin_t, OutT* __restrict__ out, int T,
+                            int H, int D, long long n_items) {
+  const int half = D / 2;
+  const long long it = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (it >= n_items) return;
+  const long long row = it / half;
+  const int d = (int)(it % half);
+  const float x1 = acc[row * D + d], x2 = acc[row * D + d + half];
+  float lo = x1, hi = x2;
+  if (cos_t != nullptr) {
+    const int t = (int)((row / H) % T);
+    const float c = cos_t[(size_t)t * half + d], s = sin_t[(size_t)t * half + d];
+    lo = rope_inv_lo(x1, x2, c, s);
+    hi = rope_inv_hi(x1, x2, c, s);
+  }
+  store_out(out + row * D + d, lo);
+  store_out(out + row * D + d + half, hi);
 }
 
 }  // namespace obt

@@ -18,7 +18,8 @@
 // 2^-126 rounds to p8 = 0 either way and adds nothing l can hold beside the
 // row's own p = 1.
 // Layout (B, T, H*D) row-major for q, k, v, o; segment ids (B, T) int32 or
-// null (dense); cos/sin (T, D/2) fp32 or null (no RoPE). D = 128 or 256.
+// null (dense); cos/sin (T, D/2) fp32 or null (no RoPE). D = 128, 256, or
+// any multiple of 128 past 256 (int8_fwd_wide, below).
 //
 // Design. The TPU kernel holds one kv block spanning T and rotates and
 // quantizes all of K and V in every grid step. Here that work is done once
@@ -80,6 +81,7 @@
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
+#include "wide_attention.cuh"
 
 namespace {
 
@@ -184,6 +186,69 @@ __global__ void __launch_bounds__(kQkRows * D / 16) quant_qk(
   }
 }
 
+// The same at a head dim past 256 (D % 128 == 0), where D / 16 threads a
+// row pass a warp: a warp a (token, head) row, walking the heads of its
+// token; each lane takes 8 columns of each half at a time, one pass for the
+// row's max |x| and a second that rotates and quantizes again.
+constexpr int kQkWideThreads = 256;
+
+template <typename InT>
+__global__ void __launch_bounds__(kQkWideThreads) quant_qk_wide(
+    const InT* __restrict__ q, const InT* __restrict__ k, const float* __restrict__ cos_t,
+    const float* __restrict__ sin_t, int8_t* __restrict__ q8, float* __restrict__ sq,
+    int8_t* __restrict__ k8, float* __restrict__ sk, int T, int H, int D) {
+  const bool is_k = blockIdx.y != 0;
+  const int b = blockIdx.z, lane = threadIdx.x & 31;
+  const int t = blockIdx.x * (kQkWideThreads / 32) + (threadIdx.x >> 5);
+  const int half = D / 2;
+  const InT* src = (is_k ? k : q) + ((size_t)b * T + t) * H * D;
+  int8_t* dst = (is_k ? k8 : q8) + ((size_t)b * H * T + t) * D;
+  float* sx = (is_k ? sk : sq) + (size_t)b * H * T + t;
+  // columns c8..c8 + 7 of each half of head h, rotated
+  auto rows8 = [&](int h, int c8, float (&lo)[8], float (&hi)[8]) {
+    load8(src + (size_t)h * D + c8, lo);
+    load8(src + (size_t)h * D + half + c8, hi);
+    if (cos_t != nullptr) {
+      float cs[8], sn[8];
+      load8(cos_t + (size_t)t * half + c8, cs);
+      load8(sin_t + (size_t)t * half + c8, sn);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float rl = rope_lo(lo[e], hi[e], cs[e], sn[e]);
+        hi[e] = rope_hi(lo[e], hi[e], cs[e], sn[e]);
+        lo[e] = rl;
+      }
+    }
+  };
+  for (int h = 0; h < H; ++h) {
+    float mx = 0.0f;
+    for (int c8 = 8 * lane; c8 < half; c8 += 256) {
+      float lo[8], hi[8];
+      rows8(h, c8, lo, hi);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) mx = fmaxf(mx, fmaxf(fabsf(lo[e]), fabsf(hi[e])));
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    float s = __fmul_rn(mx, inv127());
+    if (s == 0.0f) s = 1.0f;
+    int8_t* d = dst + (size_t)h * T * D;
+    for (int c8 = 8 * lane; c8 < half; c8 += 256) {
+      float lo[8], hi[8];
+      rows8(h, c8, lo, hi);
+      uint32_t wl[2] = {0, 0}, wh[2] = {0, 0};
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        wl[e >> 2] |= quant_byte(lo[e], s) << (8 * (e & 3));
+        wh[e >> 2] |= quant_byte(hi[e], s) << (8 * (e & 3));
+      }
+      *reinterpret_cast<uint2*>(d + c8) = make_uint2(wl[0], wl[1]);
+      *reinterpret_cast<uint2*>(d + half + c8) = make_uint2(wh[0], wh[1]);
+    }
+    if (lane == 0) sx[(size_t)h * T] = s;
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Prologue 2: sv[b, h, d] = max_t |v[b, t, h, d]| * (1/127), 0 -> 1, then
 // v8t[b, h, d, 32 j + k] = rint(v[b, 32 j + kv_of_k(k), h, d] / sv). One
@@ -205,8 +270,8 @@ constexpr int kTileWords = kVChunk / 4 + 1;  // + 1: two-way bank conflicts at m
 template <typename InT, int D>
 __global__ void __launch_bounds__(kVThreads) quant_v(
     const InT* __restrict__ v, float* __restrict__ sv, int8_t* __restrict__ v8t, int T,
-    int H) {
-  constexpr int kD = D;
+    int H, int d_rt) {
+  const int kD = D > 0 ? D : d_rt;  // D = 0: the head dim at run time (D > 256)
   constexpr int kSlabRows = kVSlabBytes / (kVChannels * sizeof(InT));
   __shared__ __align__(16) InT slab[kSlabRows * kVChannels];
   __shared__ float red[kVThreads / 32][kVChannels];
@@ -647,6 +712,216 @@ __global__ void __launch_bounds__(kThreads, 1) int8_fwd(
   }
 }
 
+// ---------------------------------------------------------------------------
+// The attention kernel at a head dim past 256 (D % 128 == 0). The O
+// accumulator of 64 rows is D / 2 int32 a thread there, and a 128-row Q8
+// and K8 tile pair passes the shared memory, so the output's channels are
+// sliced: a CTA owns 64 q rows of one (batch, head) and 128 channels
+// [128 c, 128 c + 128) of V8 (D / 128 slices on the grid's first axis), with
+// 4 warps of 16 q rows, and walks 64-row kv tiles twice as the kernel above
+// does. S = Q8 . K8^T (16 x 64 int32 a warp) is summed over D / 128 panels
+// of 128 bytes of Q8 and K8 streamed through a two-stage cp.async ring, by
+// mma.sync m16n8k32 s8 x s8 -> s32 on ldmatrix fragments; every slice CTA
+// sums the same exact integers, so m, p, l and the P8 bytes are the same
+// bits in all of them. Walk 2 packs each thread's P8 bytes as the kernel
+// above does (the mma.sync A fragment is the wgmma one, so V8^T's kv axis
+// keeps the products' k order) and adds P8 . V8_slice, B from the slice's
+// 128 channel rows of the tile (shared memory, rows of 64 kv bytes).
+// ---------------------------------------------------------------------------
+constexpr int kW8Threads = 128, kW8Tile = 64, kW8Panel = 128;
+constexpr int kW8Ld = kW8Panel + 16;  // padded 128-byte panel rows
+constexpr int kW8VLd = kW8Tile + 16;  // padded 64-byte V8^T slice rows
+
+struct W8Smem {
+  int8_t qp[2][kW8Tile * kW8Ld];
+  int8_t kp[2][kW8Tile * kW8Ld];
+  int8_t vs[128 * kW8VLd];
+  float sk[kW8Tile];
+  int kseg[kW8Tile];
+};
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <typename OutT, bool SEG>
+__global__ void __launch_bounds__(kW8Threads) int8_fwd_wide(
+    const int8_t* __restrict__ q8, const float* __restrict__ sq, const int8_t* __restrict__ k8,
+    const float* __restrict__ sk, const int8_t* __restrict__ v8t, const float* __restrict__ sv,
+    const int* __restrict__ seg, OutT* __restrict__ o, int T, int H, int D, float scale_log2) {
+  __shared__ __align__(16) W8Smem sm;
+  const int n_slices = D / 128, n_panels = D / kW8Panel;
+  const int c = blockIdx.x % n_slices, qt = blockIdx.x / n_slices, h = blockIdx.y,
+            b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int l8 = lane & 7, mi = lane >> 3;
+  const int bh = b * H + h, NT = T / kW8Tile, n_steps = 2 * NT * n_panels;
+  const int r0 = qt * kW8Tile + warp * 16 + g;  // this thread's rows r0 and r0 + 8
+  const int8_t* qrows = q8 + ((size_t)bh * T + qt * kW8Tile) * D;
+  const int8_t* krows = k8 + (size_t)bh * T * D;
+  const float sqc0 = __fmul_rn(sq[(size_t)bh * T + r0], scale_log2);
+  const float sqc1 = __fmul_rn(sq[(size_t)bh * T + r0 + 8], scale_log2);
+  int qs0 = 0, qs1 = 0;
+  if constexpr (SEG) {
+    qs0 = seg[(size_t)b * T + r0];
+    qs1 = seg[(size_t)b * T + r0 + 8];
+  }
+
+  // panel p of kv tile it of walk w: step s = (w * NT + it) * n_panels + p
+  auto issue = [&](int s) {
+    if (s < n_steps) {
+      const int it = (s / n_panels) % NT, p = s % n_panels;
+      obt::wide::load_tile<int8_t, kW8Tile, kW8Panel>(sm.qp[s & 1], kW8Ld, qrows + p * kW8Panel, D,
+                                                 tid, kW8Threads);
+      obt::wide::load_tile<int8_t, kW8Tile, kW8Panel>(
+          sm.kp[s & 1], kW8Ld, krows + (size_t)it * kW8Tile * D + p * kW8Panel, D, tid,
+          kW8Threads);
+    }
+    obt::wide::cp_async_commit();
+  };
+
+  int s[8][4], acc[16][4];
+#pragma unroll
+  for (int n = 0; n < 16; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  issue(0);
+  for (int walk = 0; walk < 2; ++walk) {
+    for (int it = 0; it < NT; ++it) {
+      const int j0 = it * kW8Tile;
+      // the tile's key scales and ids and (walk 2) its V8^T slice
+      if (tid < kW8Tile / 4) obt::wide::cp_async16(sm.sk + 4 * tid, sk + (size_t)bh * T + j0 + 4 * tid);
+      if (SEG && tid >= 32 && tid < 32 + kW8Tile / 4)
+        obt::wide::cp_async16(sm.kseg + 4 * (tid - 32), seg + (size_t)b * T + j0 + 4 * (tid - 32));
+      if (walk == 1)
+        obt::wide::load_tile<int8_t, 128, kW8Tile>(sm.vs, kW8VLd,
+                                              v8t + ((size_t)bh * D + 128 * c) * T + j0, T,
+                                              tid, kW8Threads);
+      obt::wide::cp_async_commit();
+#pragma unroll
+      for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0;
+      for (int p = 0; p < n_panels; ++p) {
+        const int st = (walk * NT + it) * n_panels + p;
+        issue(st + 1);
+        obt::wide::cp_async_wait<1>();
+        __syncthreads();
+        const int8_t* qa = sm.qp[st & 1] + warp * 16 * kW8Ld;
+        const int8_t* kb = sm.kp[st & 1];
+#pragma unroll
+        for (int k0 = 0; k0 < kW8Panel; k0 += 32) {
+          uint32_t af[4];
+          obt::wide::ldsm_x4(af, qa + (lane & 15) * kW8Ld + k0 + (lane >> 4) * 16);
+#pragma unroll
+          for (int nb = 0; nb < 8; nb += 2) {
+            uint32_t bf[4];
+            obt::wide::ldsm_x4(bf, kb + (nb * 8 + (mi >> 1) * 8 + l8) * kW8Ld + k0 + (mi & 1) * 16);
+            mma_s8(s[nb], af, bf[0], bf[1]);
+            mma_s8(s[nb + 1], af, bf[2], bf[3]);
+          }
+        }
+        __syncthreads();
+      }
+      if (walk == 0) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const int col = 8 * n + 2 * t4;
+          const float2 k2 = *reinterpret_cast<const float2*>(&sm.sk[col]);
+          int2 ks = make_int2(0, 0);
+          if constexpr (SEG) ks = *reinterpret_cast<const int2*>(&sm.kseg[col]);
+          m0 = fmaxf(m0, fmaxf(score8<SEG>(s[n][0], sqc0, k2.x, qs0, ks.x),
+                               score8<SEG>(s[n][1], sqc0, k2.y, qs0, ks.y)));
+          m1 = fmaxf(m1, fmaxf(score8<SEG>(s[n][2], sqc1, k2.x, qs1, ks.x),
+                               score8<SEG>(s[n][3], sqc1, k2.y, qs1, ks.y)));
+        }
+        if (it == NT - 1) {
+#pragma unroll
+          for (int off = 1; off <= 2; off <<= 1) {  // the rows' final maxima, over the quad
+            m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+            m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+          }
+        }
+      } else {
+        uint32_t pa[2][4];
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          uint32_t lo[4], hi[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int n = 4 * kk + i, col = 8 * n + 2 * t4;
+            const float2 k2 = *reinterpret_cast<const float2*>(&sm.sk[col]);
+            int2 ks = make_int2(0, 0);
+            if constexpr (SEG) ks = *reinterpret_cast<const int2*>(&sm.kseg[col]);
+            const float p0 = ex2_ftz(__fadd_rn(score8<SEG>(s[n][0], sqc0, k2.x, qs0, ks.x), -m0));
+            const float p1 = ex2_ftz(__fadd_rn(score8<SEG>(s[n][1], sqc0, k2.y, qs0, ks.y), -m0));
+            const float p2 = ex2_ftz(__fadd_rn(score8<SEG>(s[n][2], sqc1, k2.x, qs1, ks.x), -m1));
+            const float p3 = ex2_ftz(__fadd_rn(score8<SEG>(s[n][3], sqc1, k2.y, qs1, ks.y), -m1));
+            l0 += p0 + p1;  // per-thread partial sums, reduced at the end
+            l1 += p2 + p3;
+            lo[i] = pair_bytes(rint_bits(__fmul_rn(p0, 127.0f)), rint_bits(__fmul_rn(p1, 127.0f)));
+            hi[i] = pair_bytes(rint_bits(__fmul_rn(p2, 127.0f)), rint_bits(__fmul_rn(p3, 127.0f)));
+          }
+          pa[kk][0] = join_pairs(lo[0], lo[1]);
+          pa[kk][1] = join_pairs(hi[0], hi[1]);
+          pa[kk][2] = join_pairs(lo[2], lo[3]);
+          pa[kk][3] = join_pairs(hi[2], hi[3]);
+        }
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+#pragma unroll
+          for (int nb = 0; nb < 16; nb += 2) {
+            uint32_t bf[4];
+            obt::wide::ldsm_x4(bf, sm.vs + (nb * 8 + (mi >> 1) * 8 + l8) * kW8VLd + kk * 32 +
+                                  (mi & 1) * 16);
+            mma_s8(acc[nb], pa[kk], bf[0], bf[1]);
+            mma_s8(acc[nb + 1], pa[kk], bf[2], bf[3]);
+          }
+        }
+      }
+      __syncthreads();  // sk, kseg and vs are refilled for the next tile
+    }
+  }
+  obt::wide::cp_async_wait<0>();
+
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const size_t rs = (size_t)H * D;  // elements between consecutive tokens
+  OutT* o0 = o + ((size_t)b * T + r0) * rs + (size_t)h * D + 128 * c;
+  OutT* o1 = o0 + 8 * rs;
+  const float* svc = sv + (size_t)bh * D + 128 * c;
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+    const int col = 8 * n + 2 * t4;
+    const float2 s2 = *reinterpret_cast<const float2*>(svc + col);
+    const float c0 = __fmul_rn(s2.x, inv127()), c1 = __fmul_rn(s2.y, inv127());
+    store2(o0 + col, __fdiv_rn(__fmul_rn((float)acc[n][0], c0), l0),
+           __fdiv_rn(__fmul_rn((float)acc[n][1], c1), l0));
+    store2(o1 + col, __fdiv_rn(__fmul_rn((float)acc[n][2], c0), l1),
+           __fdiv_rn(__fmul_rn((float)acc[n][3], c1), l1));
+  }
+}
+
+template <typename OutT>
+cudaError_t launch_attn_wide(const int8_t* q8, const float* sq, const int8_t* k8,
+                             const float* sk, const int8_t* v8t, const float* sv, const int* seg,
+                             OutT* o, int B, int T, int H, int D, float scale_log2,
+                             cudaStream_t st) {
+  const dim3 grid((T / kW8Tile) * (D / 128), H, B);
+  if (seg != nullptr)
+    int8_fwd_wide<OutT, true><<<grid, kW8Threads, 0, st>>>(q8, sq, k8, sk, v8t, sv, seg, o, T,
+                                                           H, D, scale_log2);
+  else
+    int8_fwd_wide<OutT, false><<<grid, kW8Threads, 0, st>>>(q8, sq, k8, sk, v8t, sv, seg, o, T,
+                                                            H, D, scale_log2);
+  return cudaGetLastError();
+}
+
 template <typename InT, int D>
 cudaError_t launch_prologue(const InT* q, const InT* k, const InT* v, const float* cos_t,
                             const float* sin_t, int8_t* q8, float* sq, int8_t* k8,
@@ -654,7 +929,7 @@ cudaError_t launch_prologue(const InT* q, const InT* k, const InT* v, const floa
                             cudaStream_t st) {
   quant_qk<InT, D><<<dim3(T / kQkRows, 2, B), kQkRows * D / 16, 0, st>>>(
       q, k, cos_t, sin_t, q8, sq, k8, sk, T, H);
-  quant_v<InT, D><<<dim3(D / kVChannels, H, B), kVThreads, 0, st>>>(v, sv, v8t, T, H);
+  quant_v<InT, D><<<dim3(D / kVChannels, H, B), kVThreads, 0, st>>>(v, sv, v8t, T, H, D);
   return cudaGetLastError();
 }
 
@@ -663,6 +938,12 @@ cudaError_t launch_prologue_d(const InT* q, const InT* k, const InT* v, const fl
                               const float* sin_t, int8_t* q8, float* sq, int8_t* k8,
                               float* sk, int8_t* v8t, float* sv, int B, int T, int H, int D,
                               cudaStream_t st) {
+  if (obt::wide::head_dim_ok(D)) {
+    quant_qk_wide<InT><<<dim3(T / (kQkWideThreads / 32), 2, B), kQkWideThreads, 0, st>>>(
+        q, k, cos_t, sin_t, q8, sq, k8, sk, T, H, D);
+    quant_v<InT, 0><<<dim3(D / kVChannels, H, B), kVThreads, 0, st>>>(v, sv, v8t, T, H, D);
+    return cudaGetLastError();
+  }
   return D == 256 ? launch_prologue<InT, 256>(q, k, v, cos_t, sin_t, q8, sq, k8, sk, v8t, sv,
                                                B, T, H, st)
                   : launch_prologue<InT, 128>(q, k, v, cos_t, sin_t, q8, sq, k8, sk, v8t, sv,
@@ -721,6 +1002,8 @@ cudaError_t launch_attn_d(const int8_t* q8, const float* sq, const int8_t* k8,
                           const float* sk, const int8_t* v8t, const float* sv,
                           const int* seg, OutT* o, int B, int T, int H, int D,
                           float scale_log2, cudaStream_t st) {
+  if (obt::wide::head_dim_ok(D))
+    return launch_attn_wide<OutT>(q8, sq, k8, sk, v8t, sv, seg, o, B, T, H, D, scale_log2, st);
   return D == 256 ? launch_attn_seg<OutT, 256>(q8, sq, k8, sk, v8t, sv, seg, o, B, T, H,
                                                 scale_log2, st)
                   : launch_attn_seg<OutT, 128>(q8, sq, k8, sk, v8t, sv, seg, o, B, T, H,
@@ -745,15 +1028,17 @@ cudaError_t attention(const void* q8, const void* sq, const void* k8, const void
                               H, D, scale_log2, st);
 }
 
-// B and H bound the grids; D 128 or 256, T % 128 == 0
+// B and H bound the grids; D 128, 256 or a multiple of 128 past 256,
+// T % 128 == 0
 bool shape_ok(int B, int T, int H, int D) {
-  return (D == 128 || D == 256) && T >= kBq && T % kBq == 0 && B >= 1 && B <= 65535 &&
+  return (D == 128 || D == 256 || obt::wide::head_dim_ok(D)) && T >= kBq && T % kBq == 0 && B >= 1 && B <= 65535 &&
          H >= 1 && H <= 65535;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; D 128 or 256 and T a multiple of 128.
+// dtype: 0 = float32, 1 = bfloat16; D 128, 256 or a multiple of 128 past
+// 256, and T a multiple of 128.
 // q8, k8 (B, H, T, D) int8, sq, sk (B, H, T) fp32, v8t (B, H, D, T) int8 (the
 // kv axis in the products' k order, kv_of_k) and sv (B, H, D) fp32 are
 // scratch tensors that receive the prologue's results. o null runs the
@@ -818,10 +1103,13 @@ extern "C" int obt_int8_flash_fwd_dots(const void* q8, const void* k8, const voi
       static_cast<cudaStream_t>(stream));
 }
 
-// Dynamic shared memory a CTA of the attention kernel takes at head dim D
-// (-1 for a head dim it is not built for).
+// Shared memory a CTA of the attention kernel takes at head dim D (dynamic;
+// static for int8_fwd_wide past 256; -1 for a head dim it is not built for).
 extern "C" int obt_int8_flash_fwd_smem_bytes(int D) {
-  return D == 128 ? (int)attn_smem_bytes<128>() : D == 256 ? (int)attn_smem_bytes<256>() : -1;
+  return D == 128                ? (int)attn_smem_bytes<128>()
+         : D == 256              ? (int)attn_smem_bytes<256>()
+         : obt::wide::head_dim_ok(D) ? (int)sizeof(W8Smem)
+                                 : -1;
 }
 
 extern "C" const char* obt_cuda_error_string_int8(int code) {

@@ -62,6 +62,11 @@
 // them into the fp32 scratch (the same fragment layout) by 16-byte atomics
 // from its registers. The fp32 kernel gives a kv row 8 threads there.
 //
+// Head dims past 256 (D % 128 == 0): wide_attention.cuh::mh_bwd_wide, a CTA
+// a (64-row kv tile, 128-lane slice of the outputs), S^T and dP^T summed
+// over streamed 64-column panels and recomputed by every slice, dq by
+// atomics into the fp32 scratch; see its note.
+//
 // Segment skipping. The TPU kernel's grid is (q block, kv block) with the kv
 // range per q block; this kernel's CTA owns a kv tile, so it takes the same
 // tiles from the other side: the q-tile range per (batch, kv tile)
@@ -70,6 +75,7 @@
 // zeroed before the kernel, so dq rows that some kv tile never visits still
 // hold a defined sum.
 #include "mh_flash_bwd_kernels.cuh"
+#include "wide_attention.cuh"
 
 namespace {
 
@@ -85,7 +91,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
                    int B, int T, int H, float scale_log2, float scale,
                    bool bf16, DropParams dp, cudaStream_t st) {
   if (cos_t != nullptr) {
-    launch_rope_rows<D>(q, cos_t, sin_t, q_rot, B, T, H, bf16, st);
+    launch_rope_rows(q, cos_t, sin_t, q_rot, B, T, H, D, bf16, st);
     q = q_rot;
   }
   if (bf16)
@@ -96,7 +102,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
         static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), B, T, H, scale_log2,
         scale, dp, st);
   if (cos_t != nullptr) {
-    launch_rope_rows<D>(k, cos_t, sin_t, k_rot, B, T, H, false, st);
+    launch_rope_rows(k, cos_t, sin_t, k_rot, B, T, H, D, false, st);
     k = k_rot;
   }
   const long long n_rows = (long long)B * T * H;
@@ -110,8 +116,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
       static_cast<float*>(dk), static_cast<float*>(dv), B, T, H, scale_log2,
       scale, dp, st);
   if (e != cudaSuccess) return e;
-  dq_epilogue<D, float><<<(unsigned)((n_pairs + 255) / 256), 256, 0, st>>>(
-      dq_acc, cos_t, sin_t, static_cast<float*>(dq), T, H, n_pairs);
+  dq_epilogue<float><<<(unsigned)((n_pairs + 255) / 256), 256, 0, st>>>(
+      dq_acc, cos_t, sin_t, static_cast<float*>(dq), T, H, D, n_pairs);
   return cudaGetLastError();
 }
 
@@ -143,16 +149,18 @@ bool shape_ok(int B, int T, int H, int t_multiple) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; q, k, v, dout, dq, dk, dv (B, T, H, D)
-// of that type, T a multiple of 64 (fp32) or 128 (bf16); lse2 and di fp32,
-// (B, T, H) for fp32 and (B, H, T) for bf16 (its producer bulk-copies a q
-// tile's 64 values of one head); q_seg and kv_seg (B, T) int32, both
+// of that type, D 64, 128, 256 or a multiple of 128 past 256, T a multiple
+// of 64 (fp32) or 128 (bf16); lse2 and di fp32, (B, T, H) for fp32 and past
+// 256, and (B, H, T) for bf16 up to 256 (its producer bulk-copies a q tile's
+// 64 values of one head); q_seg and kv_seg (B, T) int32, both
 // null or both given (as in obt_mh_flash_fwd). With RoPE (cos_t
 // and sin_t non-null), q_rot is a scratch tensor of q's shape and type, and
-// so is k_rot for fp32 (bf16 rotates k in the kernel; k_rot may be null).
+// so is k_rot for fp32 and past 256 (bf16 up to 256 rotates k in the
+// kernel; k_rot may be null there).
 // dq_acc is an fp32 scratch of q's size (zeroed here). q_lo and q_hi, both
 // null or both int32 (B, T / kv tile) in units of the dtype's q tile (kv
-// tile 128 (64 at D = 256) and q tile 64 for bf16, 32 and 16 for fp32),
-// bound the q tiles
+// tile 128 (64 at D = 256) and q tile 64 for bf16, 32 and 16 for fp32, 64
+// and 64 past 256), bound the q tiles
 // each kv tile walks; tile_count is null or one int32 that the walked tiles
 // are added to. drop != 0 applies the forward's dropout (thresh,
 // keep_scale, seed as in obt_mh_flash_fwd). Returns cudaGetLastError()
@@ -192,7 +200,12 @@ extern "C" int obt_mh_flash_bwd(const void* q, const void* k, const void* v,
     case 64: return (int)launch_d<64>(q, k, v, dout, l, dd, qsg, kvsg, c, s, q_rot, k_rot, lo, hi, tc, acc, dq, dk, dv, B, T, H, scale_log2, scale, dtype == 1, drop != 0, dp, st);
     case 128: return (int)launch_d<128>(q, k, v, dout, l, dd, qsg, kvsg, c, s, q_rot, k_rot, lo, hi, tc, acc, dq, dk, dv, B, T, H, scale_log2, scale, dtype == 1, drop != 0, dp, st);
     case 256: return (int)launch_d<256>(q, k, v, dout, l, dd, qsg, kvsg, c, s, q_rot, k_rot, lo, hi, tc, acc, dq, dk, dv, B, T, H, scale_log2, scale, dtype == 1, drop != 0, dp, st);
-    default: return (int)cudaErrorInvalidValue;
+    default:
+      if (!obt::wide::head_dim_ok(D)) return (int)cudaErrorInvalidValue;
+      return (int)obt::wide::backward<true>(q, k, v, dout, l, dd, qsg, kvsg, c, s, q_rot, k_rot, lo,
+                                       hi, tc, acc, dq, dk, dv, B, T, H, D, scale_log2, scale,
+                                       dtype == 1, drop != 0,
+                                       obt::wide::Drop{seed, thresh, keep_scale}, st);
   }
 }
 
@@ -223,6 +236,7 @@ extern "C" int obt_mh_flash_bwd_smem_bytes(int D) {
   return D == 64    ? (int)bf16_smem_bytes<64, true>()
          : D == 128 ? (int)bf16_smem_bytes<128, true>()
          : D == 256 ? (int)bf16_smem_bytes_256()
+         : obt::wide::head_dim_ok(D) ? obt::wide::bwd_smem_bytes()
                     : -1;
 }
 

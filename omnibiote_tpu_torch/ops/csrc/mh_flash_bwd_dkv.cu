@@ -31,6 +31,7 @@
 // less in proportion to the visible tiles on packed rows; q, k, v, do, dk,
 // dv, lse2 and di are 202 MB (0.06 ms at 3.35 TB/s): bound by operations.
 #include "mh_flash_bwd_kernels.cuh"
+#include "wide_attention.cuh"
 
 namespace {
 
@@ -48,10 +49,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
   if (cos_t != nullptr) {
     // every kv tile reads all of q: rotated once; the bf16 kernel rotates
     // its own k rows
-    launch_rope_rows<D>(q, cos_t, sin_t, q_rot, B, T, H, bf16, st);
+    launch_rope_rows(q, cos_t, sin_t, q_rot, B, T, H, D, bf16, st);
     q = q_rot;
     if (!bf16) {
-      launch_rope_rows<D>(k, cos_t, sin_t, k_rot, B, T, H, false, st);
+      launch_rope_rows(k, cos_t, sin_t, k_rot, B, T, H, D, false, st);
       k = k_rot;
     }
   }
@@ -98,15 +99,17 @@ bool shape_ok(int B, int T, int H, int t_multiple) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; q, k, v, dout, dk, dv (B, T, H, D) of
-// that type, T a multiple of 64 (fp32) or 128 (bf16); lse2 and di fp32,
-// (B, T, H) for fp32 and (B, H, T) for bf16 (its producer bulk-copies a q
+// that type, D 64, 128, 256 or a multiple of 128 past 256, T a multiple of
+// 64 (fp32) or 128 (bf16); lse2 and di fp32, (B, T, H) for fp32 and past
+// 256, and (B, H, T) for bf16 up to 256 (its producer bulk-copies a q
 // tile's 64 values of one head); q_seg and kv_seg (B, T) int32, both
 // null or both given (as in obt_mh_flash_fwd). With RoPE
 // (cos_t and sin_t non-null), q_rot is a scratch tensor of q's shape and
-// type, and so is k_rot for fp32 (bf16 rotates k in the kernel; k_rot may
-// be null). q_lo and q_hi, both null or both int32 (B, T / kv tile) in
-// units of the dtype's q tile (kv tile 128, 64 at D = 256, and q tile 64
-// for bf16; 32 and 16 for fp32), bound the q tiles each kv tile walks; tile_count is null or
+// type, and so is k_rot for fp32 and past 256 (bf16 up to 256 rotates k in
+// the kernel; k_rot may be null there). q_lo and q_hi, both null or both
+// int32 (B, T / kv tile) in units of the dtype's q tile (kv tile 128, 64 at
+// D = 256, and q tile 64 for bf16; 32 and 16 for fp32; 64 and 64 past 256),
+// bound the q tiles each kv tile walks; tile_count is null or
 // one int32 that the walked tiles are added to. drop != 0 applies the
 // forward's dropout (thresh, keep_scale, seed as in obt_mh_flash_fwd).
 // Returns cudaGetLastError() after the launches (cudaErrorInvalidValue for
@@ -144,7 +147,12 @@ extern "C" int obt_mh_flash_bwd_dkv(const void* q, const void* k, const void* v,
     case 64: return (int)launch_d<64>(q, k, v, dout, l, dd, qsg, kvsg, c, s, q_rot, k_rot, lo, hi, tc, dk, dv, B, T, H, scale_log2, scale, dtype == 1, drop != 0, dp, st);
     case 128: return (int)launch_d<128>(q, k, v, dout, l, dd, qsg, kvsg, c, s, q_rot, k_rot, lo, hi, tc, dk, dv, B, T, H, scale_log2, scale, dtype == 1, drop != 0, dp, st);
     case 256: return (int)launch_d<256>(q, k, v, dout, l, dd, qsg, kvsg, c, s, q_rot, k_rot, lo, hi, tc, dk, dv, B, T, H, scale_log2, scale, dtype == 1, drop != 0, dp, st);
-    default: return (int)cudaErrorInvalidValue;
+    default:
+      if (!obt::wide::head_dim_ok(D)) return (int)cudaErrorInvalidValue;
+      return (int)obt::wide::backward<false>(q, k, v, dout, l, dd, qsg, kvsg, c, s, q_rot, k_rot, lo,
+                                        hi, tc, nullptr, nullptr, dk, dv, B, T, H, D,
+                                        scale_log2, scale, dtype == 1, drop != 0,
+                                        obt::wide::Drop{seed, thresh, keep_scale}, st);
   }
 }
 
@@ -171,6 +179,7 @@ extern "C" int obt_mh_flash_bwd_dkv_smem_bytes(int D) {
   return D == 64    ? (int)bf16_smem_bytes<64, false>()
          : D == 128 ? (int)bf16_smem_bytes<128, false>()
          : D == 256 ? (int)bf16_smem_bytes_256()
+         : obt::wide::head_dim_ok(D) ? obt::wide::bwd_smem_bytes()
                     : -1;
 }
 

@@ -46,11 +46,16 @@
 // m64n128k16 products on the halves of the accumulator. The q and dO
 // descriptors are formed inside the walk (hoisted, their 32 loop-invariant
 // descriptors spilled). The fp32 kernel walks 16-row kv tiles there.
+//
+// Head dims past 256 (D % 128 == 0): wide_attention.cuh::mh_bwd_dq_wide, a
+// CTA a (64-row q tile, 128-lane slice of dq), S and dP summed over
+// streamed 64-column panels and recomputed by every slice; see its note.
 #include <atomic>
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
 #include "philox.cuh"
+#include "wide_attention.cuh"
 
 namespace {
 
@@ -604,7 +609,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
                    int B, int T, int H, float scale_log2, float scale, bool bf16,
                    DropParams dp, cudaStream_t st) {
   if (cos_t != nullptr) {
-    launch_rope_rows<D>(k, cos_t, sin_t, k_rot, B, T, H, bf16, st);
+    launch_rope_rows(k, cos_t, sin_t, k_rot, B, T, H, D, bf16, st);
     k = k_rot;
   }
   if (bf16)
@@ -650,11 +655,12 @@ bool shape_ok(int B, int T, int H, int t_multiple) {
 // dtype: 0 = float32, 1 = bfloat16; q, k, v, dout, dq (B, T, H, D) of that
 // type, T a multiple of 64 (fp32) or 128 (bf16); lse2 and di (B, T, H)
 // fp32; q_seg and kv_seg (B, T) int32, both null or both given (as in
-// obt_mh_flash_fwd); with RoPE (cos_t and sin_t non-null),
-// k_rot is a scratch tensor of k's shape and type. kv_lo and kv_hi, both
-// null or both int32 (B, T / q tile) in units of the dtype's kv tile (q
-// tile 128 and kv tile 64 (32 at D = 256) for bf16, 32 and 32 (16 at D =
-// 256) for fp32), bound the kv tiles
+// obt_mh_flash_fwd); D 64, 128, 256 or a multiple of 128 past 256; with
+// RoPE (cos_t and sin_t non-null), k_rot is a scratch tensor of k's shape
+// and type, and so is q_rot past 256 (else it may be null). kv_lo and
+// kv_hi, both null or both int32 (B, T / q tile) in units of the dtype's kv
+// tile (q tile 128 and kv tile 64 (32 at D = 256) for bf16, 32 and 32 (16
+// at D = 256) for fp32, 64 and 64 past 256), bound the kv tiles
 // each q tile walks; tile_count is null or one int32 that the walked tiles
 // are added to. drop != 0 applies the forward's dropout (thresh,
 // keep_scale, seed as in obt_mh_flash_fwd). Returns cudaGetLastError()
@@ -665,7 +671,7 @@ extern "C" int obt_mh_flash_bwd_dq(const void* q, const void* k, const void* v,
                                    const void* dout, const void* lse,
                                    const void* di, const void* q_seg, const void* kv_seg,
                                    const void* cos_t, const void* sin_t,
-                                   void* k_rot, const void* kv_lo,
+                                   void* q_rot, void* k_rot, const void* kv_lo,
                                    const void* kv_hi, void* tile_count,
                                    void* dq, int B, int T, int H, int D,
                                    float scale_log2, float scale, int dtype,
@@ -691,7 +697,11 @@ extern "C" int obt_mh_flash_bwd_dq(const void* q, const void* k, const void* v,
     case 64: return (int)launch_d<64>(q, k, v, dout, l, dd, qsg, kvsg, c, s, k_rot, lo, hi, tc, dq, B, T, H, scale_log2, scale, dtype == 1, drop != 0, dp, st);
     case 128: return (int)launch_d<128>(q, k, v, dout, l, dd, qsg, kvsg, c, s, k_rot, lo, hi, tc, dq, B, T, H, scale_log2, scale, dtype == 1, drop != 0, dp, st);
     case 256: return (int)launch_d<256>(q, k, v, dout, l, dd, qsg, kvsg, c, s, k_rot, lo, hi, tc, dq, B, T, H, scale_log2, scale, dtype == 1, drop != 0, dp, st);
-    default: return (int)cudaErrorInvalidValue;
+    default:
+      if (!obt::wide::head_dim_ok(D)) return (int)cudaErrorInvalidValue;
+      return (int)obt::wide::dq_only(q, k, v, dout, l, dd, qsg, kvsg, c, s, q_rot, k_rot, lo, hi, tc,
+                                dq, B, T, H, D, scale_log2, scale, dtype == 1, drop != 0,
+                                obt::wide::Drop{seed, thresh, keep_scale}, st);
   }
 }
 
@@ -718,6 +728,7 @@ extern "C" int obt_mh_flash_bwd_dq_smem_bytes(int D) {
   return D == 64    ? (int)bf16_smem_bytes<64>()
          : D == 128 ? (int)bf16_smem_bytes<128>()
          : D == 256 ? (int)bf16_smem_bytes<256>()
+         : obt::wide::head_dim_ok(D) ? obt::wide::dq_smem_bytes()
                     : -1;
 }
 

@@ -1069,37 +1069,6 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v, const flo
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// dq = inverse-RoPE(dq_acc) in fp32, cast to the output type. One thread
-// per pair (d, d + D/2) of one (b, t, h) row.
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
-template <int D, typename OutT>
-__global__ void dq_epilogue(const float* __restrict__ acc,
-                            const float* __restrict__ cos_t,
-                            const float* __restrict__ sin_t,
-                            OutT* __restrict__ out, int T, int H,
-                            long long n_items) {
-  constexpr int HALF = D / 2;
-  const long long it = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (it >= n_items) return;
-  const long long row = it / HALF;
-  const int d = (int)(it % HALF);
-  const float x1 = acc[row * D + d], x2 = acc[row * D + d + HALF];
-  float lo = x1, hi = x2;
-  if (cos_t != nullptr) {
-    const int t = (int)((row / H) % T);
-    const float c = cos_t[(size_t)t * HALF + d], s = sin_t[(size_t)t * HALF + d];
-    lo = rope_inv_lo(x1, x2, c, s);
-    hi = rope_inv_hi(x1, x2, c, s);
-  }
-  store_out(out + row * D + d, lo);
-  store_out(out + row * D + d + HALF, hi);
-}
 
 }  // namespace
 }  // namespace bwd

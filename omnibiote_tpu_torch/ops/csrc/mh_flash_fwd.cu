@@ -60,11 +60,16 @@
 // halves of the accumulator (V's panels 0-1 and 2-3). The same attention
 // FLOPs a token as 8 heads of 128 (4 T d), in wider, fewer heads. The fp32
 // kernel walks 16-row kv tiles there (48 KB of static shared memory).
+//
+// Head dims past 256 (D % 128 == 0): wide_attention.cuh::mh_fwd_wide, a CTA
+// a (64-row q tile, 128-lane slice of the output), S summed over streamed
+// 64-column panels of q and k and recomputed by every slice; see its note.
 #include <atomic>
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
 #include "philox.cuh"
+#include "wide_attention.cuh"
 
 namespace {
 
@@ -555,7 +560,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* q_seg
                    float* lse, int B, int T, int H, float scale_log2, bool bf16,
                    DropParams dp, cudaStream_t st) {
   if (cos_t != nullptr) {
-    launch_rope_rows<D>(k, cos_t, sin_t, k_rot, B, T, H, bf16, st);
+    launch_rope_rows(k, cos_t, sin_t, k_rot, B, T, H, D, bf16, st);
     k = k_rot;
   }
   if (bf16) {
@@ -601,11 +606,13 @@ bool shape_ok(int B, int T, int H) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; T a multiple of 64 (fp32) or 128
-// (bf16). With RoPE (cos_t and sin_t non-null), k_rot is a scratch tensor
-// of k's shape and type that receives the rotated k. kv_lo and kv_hi, both
-// null or both int32 (B, T / q tile) with the q and kv tiles of the dtype's
-// kernel (bf16: q tile 128 and kv tile 128, 64 at D = 256; fp32: 32 and 32,
-// 16 at D = 256), bound the kv tiles each q tile walks;
+// (bf16). D 64, 128, 256 or a multiple of 128 past 256. With RoPE (cos_t
+// and sin_t non-null), k_rot is a scratch tensor of k's shape and type that
+// receives the rotated k, and so is q_rot past 256 (else it may be null).
+// kv_lo and kv_hi, both null or both int32 (B, T / q tile) with the q and
+// kv tiles of the dtype's kernel (bf16: q tile 128 and kv tile 128, 64 at
+// D = 256; fp32: 32 and 32, 16 at D = 256; both 64 and 64 past 256), bound
+// the kv tiles each q tile walks;
 // tile_count is null or one int32 that the walked tiles are added to. drop
 // != 0 applies dropout with keep threshold `thresh` (bits >= thresh keep),
 // scale `keep_scale` and the 64-bit `seed` (philox.cuh). Returns
@@ -614,7 +621,7 @@ bool shape_ok(int B, int T, int H) {
 // nothing, does not synchronise.
 extern "C" int obt_mh_flash_fwd(const void* q, const void* k, const void* v,
                                 const void* q_seg, const void* kv_seg, const void* cos_t,
-                                const void* sin_t, void* k_rot,
+                                const void* sin_t, void* q_rot, void* k_rot,
                                 const void* kv_lo, const void* kv_hi,
                                 void* tile_count, void* o,
                                 void* lse, int B, int T, int H, int D,
@@ -640,7 +647,11 @@ extern "C" int obt_mh_flash_fwd(const void* q, const void* k, const void* v,
     case 64: return (int)launch_d<64>(q, k, v, qsg, kvsg, c, s, k_rot, lo, hi, tc, o, l, B, T, H, scale_log2, dtype == 1, drop != 0, dp, st);
     case 128: return (int)launch_d<128>(q, k, v, qsg, kvsg, c, s, k_rot, lo, hi, tc, o, l, B, T, H, scale_log2, dtype == 1, drop != 0, dp, st);
     case 256: return (int)launch_d<256>(q, k, v, qsg, kvsg, c, s, k_rot, lo, hi, tc, o, l, B, T, H, scale_log2, dtype == 1, drop != 0, dp, st);
-    default: return (int)cudaErrorInvalidValue;
+    default:
+      if (!obt::wide::head_dim_ok(D)) return (int)cudaErrorInvalidValue;
+      return (int)obt::wide::forward(q, k, v, qsg, kvsg, c, s, q_rot, k_rot, lo, hi, tc, o, l, B, T,
+                                H, D, scale_log2, dtype == 1, drop != 0,
+                                obt::wide::Drop{seed, thresh, keep_scale}, st);
   }
 }
 
@@ -662,10 +673,11 @@ extern "C" int obt_mh_flash_fwd_dots(const void* q, const void* k, const void* v
 // Dynamic shared memory a CTA of the bf16 kernel takes at head dim D (-1
 // for a head dim it is not built for).
 extern "C" int obt_mh_flash_fwd_smem_bytes(int D) {
-  return D == 64    ? (int)bf16_smem_bytes<64>()
-         : D == 128 ? (int)bf16_smem_bytes<128>()
-         : D == 256 ? (int)bf16_smem_bytes<256>()
-                    : -1;
+  return D == 64                 ? (int)bf16_smem_bytes<64>()
+         : D == 128              ? (int)bf16_smem_bytes<128>()
+         : D == 256              ? (int)bf16_smem_bytes<256>()
+         : obt::wide::head_dim_ok(D) ? obt::wide::fwd_smem_bytes()
+                                 : -1;
 }
 
 extern "C" const char* obt_cuda_error_string(int code) {

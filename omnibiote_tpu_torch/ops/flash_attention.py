@@ -11,7 +11,12 @@ kernels (`_mh_bwd_fused_kernel` where one kv block spans the sequence,
 Bidirectional attention over (B, T, H, D) q/k/v with rotate-half RoPE
 fused in, segment-id masking, dropout on P and a log2-space logsumexp
 residual. The kernels are `ops/csrc/mh_flash_fwd.cu`, `mh_flash_bwd.cu`
-(both fused cases), `mh_flash_bwd_dkv.cu` and `mh_flash_bwd_dq.cu`.
+(both fused cases), `mh_flash_bwd_dkv.cu` and `mh_flash_bwd_dq.cu`, each
+built at head dims 64, 128 and 256, and past 256 at every multiple of 128
+by the kernels of `ops/csrc/wide_attention.cuh`: a CTA owns one 128-lane
+slice of the output (lanes [64c, 64c + 64) and [D/2 + 64c, D/2 + 64c + 64),
+closed under rotate-half) and recomputes the products over the whole head
+dim from streamed panels.
 
 `flash_attention(multi_head=False)` is the JAX package's per-head entry
 (`_flash`: `_fwd_kernel`, `_bwd_dkv_kernel`, `_bwd_dq_kernel`, a (B, H,
@@ -72,8 +77,12 @@ import torch
 DEFAULT_MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 LOG2E = 1.4426950408889634
 
-# The kernels' head dims and dtypes (one template instance each).
+# The head dims with kernel instances of their own (one template instance
+# each); past 256 one set of instances takes every multiple of
+# WIDE_HEAD_DIM_MULTIPLE, the head dim a run-time size (ops/csrc/
+# wide_attention.cuh). `kernel_head_dim` is the test every caller uses.
 KERNEL_HEAD_DIMS = (64, 128, 256)
+WIDE_HEAD_DIM_MULTIPLE = 128
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 # The forward kernel's kv tile per dtype at head dims 64 and 128 (its online
 # softmax rounds P per tile); `kernel_kv_tile` gives it at any built D.
@@ -103,6 +112,11 @@ KERNEL_TILES_BY_HEAD_DIM = {
         "dq": {torch.bfloat16: (128, 32), torch.float32: (32, 16)},
     },
 }
+# The tiles past 256, where a CTA owns one 128-lane slice of the output
+# and streams the head dim of q, k, v and do in 64-column panels: 64 q rows
+# and 64 kv rows in every kernel and dtype.
+KERNEL_TILES_WIDE = {kind: {torch.bfloat16: (64, 64), torch.float32: (64, 64)}
+                     for kind in ("fwd", "fused", "dkv", "dq")}
 # The multiple of T every kernel takes per dtype: each bf16 CTA owns 128
 # rows; the fp32 kernels take 64.
 KERNEL_T_MULTIPLE = {torch.bfloat16: 128, torch.float32: 64}
@@ -118,10 +132,33 @@ FUSED_MULTIKV_BWD = True
 LN2 = 0.6931471805599453
 
 
+def kernel_head_dim(head_dim: int) -> bool:
+    """Whether the kernels take `head_dim` as it is: 64, 128, 256, or a
+    multiple of 128 past 256."""
+    D = int(head_dim)
+    return D in KERNEL_HEAD_DIMS or (
+        D > KERNEL_HEAD_DIMS[-1] and D % WIDE_HEAD_DIM_MULTIPLE == 0)
+
+
+def padded_head_dim(head_dim: int) -> int:
+    """The smallest head dim >= head_dim that the kernels take (64, 128,
+    256, then the multiples of 128), whose kernels take one head of
+    head_dim zero-padded."""
+    D = int(head_dim)
+    for d in KERNEL_HEAD_DIMS:
+        if D <= d:
+            return d
+    return -(-D // WIDE_HEAD_DIM_MULTIPLE) * WIDE_HEAD_DIM_MULTIPLE
+
+
 def kernel_tiles(kind: str, dtype: torch.dtype, head_dim: int) -> Tuple[int, int]:
     """(q tile, kv tile) of kernel `kind` ('fwd', 'fused', 'dkv', 'dq') at
-    `dtype` and `head_dim`."""
-    return KERNEL_TILES_BY_HEAD_DIM.get(int(head_dim), KERNEL_TILES)[kind][dtype]
+    `dtype` and `head_dim`; at a head dim the kernels do not take as it is
+    (one head, run zero-padded), the tiles of padded_head_dim."""
+    D = padded_head_dim(head_dim)
+    if D > KERNEL_HEAD_DIMS[-1]:
+        return KERNEL_TILES_WIDE[kind][dtype]
+    return KERNEL_TILES_BY_HEAD_DIM.get(D, KERNEL_TILES)[kind][dtype]
 
 
 def kernel_kv_tile(dtype: torch.dtype, head_dim: int) -> int:
@@ -520,8 +557,9 @@ def _check_qkv(names_tensors, q, kind: str):
     B, T, H, D = q.shape
     if q.dtype not in KERNEL_DTYPES:
         raise ValueError(f"dtype {q.dtype} not built; one of {KERNEL_DTYPES}")
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head_dim {D} not built; one of {KERNEL_HEAD_DIMS}")
+    if not kernel_head_dim(D):
+        raise ValueError(f"head_dim {D} not built; one of {KERNEL_HEAD_DIMS} or a "
+                         f"multiple of {WIDE_HEAD_DIM_MULTIPLE} past {KERNEL_HEAD_DIMS[-1]}")
     t_multiple = KERNEL_T_MULTIPLE[q.dtype]
     if T % t_multiple or T < t_multiple:
         raise ValueError(f"T={T} must be a positive multiple of {t_multiple} "
@@ -645,8 +683,10 @@ def mh_flash_forward_kernel(q, k, v, segment_ids=None, rope=None, *,
     cos_ptr, sin_ptr = _rope_ptrs(rope, q)
     lo_ptr, hi_ptr, tc_ptr = _bounds_ptrs(
         kv_bounds, q, kernel_tiles("fwd", q.dtype, D)[0], tile_count)
-    # scratch for k rotated once per call (every q tile reads all of it)
+    # scratch for k rotated once per call (every q tile reads all of it),
+    # and past 256 for q too (every slice reads all of it)
     k_rot = torch.empty_like(k) if rope is not None else None
+    q_rot = torch.empty_like(q) if rope is not None and D > KERNEL_HEAD_DIMS[-1] else None
     drop, thresh, keep_scale, seed = _drop_args(dropout_rate, seed)
 
     o = torch.empty_like(q)
@@ -656,7 +696,8 @@ def mh_flash_forward_kernel(q, k, v, segment_ids=None, rope=None, *,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.obt_mh_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_seg, kv_seg, cos_ptr,
-            sin_ptr, None if k_rot is None else k_rot.data_ptr(),
+            sin_ptr, None if q_rot is None else q_rot.data_ptr(),
+            None if k_rot is None else k_rot.data_ptr(),
             lo_ptr, hi_ptr, tc_ptr, o.data_ptr(), lse2.data_ptr(), B, T, H, D,
             float(np.float32(scale * LOG2E)),
             1 if q.dtype == torch.bfloat16 else 0, drop, thresh, keep_scale,
@@ -668,13 +709,12 @@ def mh_flash_forward_kernel(q, k, v, segment_ids=None, rope=None, *,
 
 # The three backward kernels, by kind (also their KERNEL_TILES row): the
 # library (its C entry is obt_<library>), its error-string entry, which of
-# (q tile, kv tile) a block owns, whether it takes a rotated-q scratch and
-# the fp32 dq scratch of the fused kernel's sums, and how many outputs it
-# writes.
+# (q tile, kv tile) a block owns, whether it takes the fp32 dq scratch of
+# the fused kernel's sums, and how many outputs it writes.
 _BWD_KERNELS = {
-    "fused": ("mh_flash_bwd", "obt_cuda_error_string_bwd", 1, True, True, 3),
-    "dkv": ("mh_flash_bwd_dkv", "obt_cuda_error_string_bwd_dkv", 1, True, False, 2),
-    "dq": ("mh_flash_bwd_dq", "obt_cuda_error_string_bwd_dq", 0, False, False, 1),
+    "fused": ("mh_flash_bwd", "obt_cuda_error_string_bwd", 1, True, 3),
+    "dkv": ("mh_flash_bwd_dkv", "obt_cuda_error_string_bwd_dkv", 1, False, 2),
+    "dq": ("mh_flash_bwd_dq", "obt_cuda_error_string_bwd_dq", 0, False, 1),
 }
 
 
@@ -692,7 +732,7 @@ def mh_flash_bwd_kernel(kind: str, q, k, v, do, lse2, di, segment_ids=None,
     library's name."""
     from . import _kernels
 
-    name, err_entry, owner, rot_q, dq_scratch, n_out = _BWD_KERNELS[kind]
+    name, err_entry, owner, dq_scratch, n_out = _BWD_KERNELS[kind]
     B, T, H, D = q.shape
     _check_qkv((("q", q), ("k", k), ("v", v), ("do", do)), q, kind)
     _check_rows((("lse2", lse2), ("di", di)), q)
@@ -700,17 +740,19 @@ def mh_flash_bwd_kernel(kind: str, q, k, v, do, lse2, di, segment_ids=None,
     cos_ptr, sin_ptr = _rope_ptrs(rope, q)
     lo_ptr, hi_ptr, tc_ptr = _bounds_ptrs(
         tile_bounds, q, kernel_tiles(kind, q.dtype, D)[owner], tile_count)
-    # The bf16 fused kernel (also the bf16 dkv kernel) rotates k itself and
-    # bulk-copies a q tile's lse2 and di of one head, so it takes those two
-    # as (B, H, T).
-    hopper = kind in ("fused", "dkv") and q.dtype == torch.bfloat16
+    # The bf16 fused kernel (also the bf16 dkv kernel) up to 256 rotates k
+    # itself and bulk-copies a q tile's lse2 and di of one head, so it takes
+    # those two as (B, H, T).
+    wide = D > KERNEL_HEAD_DIMS[-1]
+    hopper = kind in ("fused", "dkv") and q.dtype == torch.bfloat16 and not wide
     if hopper:
         lse2, di = (t.transpose(1, 2).contiguous() for t in (lse2, di))
-    # scratch: q (where the kernel re-reads it) and k rotated once per call,
-    # and the fused kernel's fp32 dq sums
+    # scratch: q (where the kernel re-reads it: the fused and dkv kernels,
+    # and every kernel past 256) and k rotated once per call, and the fused
+    # kernel's fp32 dq sums
     rotated = rope is not None
-    rot = [torch.empty_like(q) if rotated else None] if rot_q else []
-    rot.append(torch.empty_like(k) if rotated and not hopper else None)
+    rot = [torch.empty_like(q) if rotated and (owner or wide) else None,
+           torch.empty_like(k) if rotated and not hopper else None]
     acc = ([torch.empty(q.shape, dtype=torch.float32, device=q.device)]
            if dq_scratch else [])
     drop, thresh, keep_scale, seed = _drop_args(dropout_rate, seed)
@@ -931,17 +973,6 @@ def _skip_and_bounds(segment_ids, segment_skip, bounds, kv_segment_ids=None):
 # One head at a head dim the kernels are not built for
 # ---------------------------------------------------------------------------
 
-def padded_head_dim(head_dim: int) -> int:
-    """The smallest built head dim >= head_dim, whose kernels take one head
-    of head_dim zero-padded; NotImplementedError above the widest."""
-    for d in KERNEL_HEAD_DIMS:
-        if head_dim <= d:
-            return d
-    raise NotImplementedError(
-        f"no flash kernel takes head_dim {head_dim}: the widest built is "
-        f"{KERNEL_HEAD_DIMS[-1]} (ROADMAP Queue 2 item 6: head dims past 256)")
-
-
 def pad_head_dim(x: torch.Tensor, head_dim: int) -> torch.Tensor:
     """(..., D) -> (..., head_dim) with each half zero-padded on its own,
     [x1, 0, x2, 0]: rotate-half pairs lane i with i + D/2, and the padded
@@ -1013,7 +1044,7 @@ def flash_attention(q, k, v, segment_ids=None, rope=None, *, scale: float,
     the kernels of the next built head dim on zero-padded inputs
     (`flash_attention_padded`)."""
     H, D = q.shape[2], q.shape[3]
-    if q.is_cuda and H == 1 and D not in KERNEL_HEAD_DIMS:
+    if q.is_cuda and H == 1 and not kernel_head_dim(D):
         return flash_attention_padded(
             q, k, v, segment_ids, rope, head_dim=padded_head_dim(D), scale=scale,
             dropout_rate=dropout_rate, seed=seed, block_kv=block_kv,

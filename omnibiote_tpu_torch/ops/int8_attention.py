@@ -39,7 +39,12 @@ producer warpgroup and two consumers of 64 q rows in turns). A thread's
 score accumulators are not the byte order its P8 register operand wants,
 so v8t's kv axis is permuted inside every 32-block (`kernel_kv_order`)
 and each thread packs its own p8 bytes: `int8_kernel_layout` is the
-prologue's output in that order, `int8_natural_layout` undoes it.
+prologue's output in that order, `int8_natural_layout` undoes it. Past
+D = 256 (any multiple of 128) the prologue takes a warp a (token, head)
+row and the attention kernel (`int8_fwd_wide`) gives a CTA 128 channels
+of V8 and 64 q rows, summing S over the whole head dim again in every
+channel slice (mma.sync s8 products): the same integers in every slice, so
+the same P8 bytes, in the same layout.
 """
 from __future__ import annotations
 
@@ -51,10 +56,17 @@ import torch
 from .flash_attention import (DEFAULT_MASK_VALUE, LOG2E, _full_tables,
                               _raise_on, _rope_ptrs, _rope_rot, _seg_ptr)
 
-# What the CUDA kernel is built for.
+# What the CUDA kernel is built for: instances of their own at 128 and
+# 256, and past 256 one set that takes every multiple of 128
+# (`int8_fwd_wide`); `kernel_head_dim` is the test every caller uses.
 KERNEL_HEAD_DIMS = (128, 256)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 KERNEL_T_MULTIPLE = 128
+
+
+def kernel_head_dim(head_dim: int) -> bool:
+    """Whether the int8 kernel takes `head_dim`: every multiple of 128."""
+    return int(head_dim) >= 128 and int(head_dim) % 128 == 0
 
 _INV127 = 1.0 / 127.0
 
@@ -168,9 +180,9 @@ def _check_inputs(q, k, v):
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     if q.dtype not in KERNEL_DTYPES:
         raise ValueError(f"dtype {q.dtype} not built; one of {KERNEL_DTYPES}")
-    if D not in KERNEL_HEAD_DIMS:
+    if not kernel_head_dim(D):
         raise ValueError(f"head_dim {D} not built; the int8 kernel takes "
-                         f"{KERNEL_HEAD_DIMS}")
+                         f"multiples of 128")
     if T < KERNEL_T_MULTIPLE or T % KERNEL_T_MULTIPLE:
         raise ValueError(f"T={T} must be a positive multiple of "
                          f"{KERNEL_T_MULTIPLE}")
@@ -274,7 +286,7 @@ def int8_flash_attention(q, k, v, *, scale: float, segment_ids=None,
 
     q, k, v: (B, T, H, D), q and k pre-rotation when rope=(cos, sin) tables
     (>=T, D/2) are given (the kernel owns RoPE); segment_ids (B, T) int32 or
-    None (dense). Requires T % 128 == 0 and D 128 or 256. A CUDA tensor runs the
+    None (dense). Requires T % 128 == 0 and D % 128 == 0. A CUDA tensor runs the
     CUDA kernel, a CPU tensor the plain version."""
     if q.is_cuda:
         return int8_flash_attention_kernel(

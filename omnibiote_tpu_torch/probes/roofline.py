@@ -340,7 +340,7 @@ def _backward_products(kind: str, plain, q, k, v, do):
     check_blocks(q.shape[1], *KERNEL_TILES[kind][torch.bfloat16])
     if not q.is_cuda:
         return plain(q, k, v, do)
-    library, err_entry, _, _, f32_scratch, n_out = _BWD_KERNELS[kind]
+    library, err_entry, _, f32_scratch, n_out = _BWD_KERNELS[kind]
     outs = _kernel_products(library, f"obt_{library}_dots", err_entry,
                             f"{library}_dots", q, (("k", k), ("v", v), ("do", do)),
                             n_out, f32_scratch)

@@ -263,9 +263,10 @@ def _jax_path(monkeypatch, T, H, D, int8):
 
 # The path of a bf16 call on a CUDA tensor at T = 256, by (D, H, int8):
 # the JAX dispatch's own route wherever the port builds that kernel (flash
-# at D 64, 128 and 256, and one head at any D up to 256 on padded inputs;
-# int8 at D 128 and 256), "raise" where JAX runs a kernel the port does not
-# build (any kernel past D 256), "xla" where JAX itself runs no kernel.
+# at D 64, 128, 256 and every multiple of 128 past it, and one head at any
+# D on padded inputs; int8 at every multiple of 128), "raise" where JAX
+# runs a kernel the port does not build (none since head dims past 256
+# were built), "xla" where JAX itself runs no kernel.
 CUDA_PATHS = {
     (32, 1, False): "flash", (32, 1, True): "flash",
     (32, 8, False): "xla", (32, 8, True): "xla",
@@ -277,8 +278,8 @@ CUDA_PATHS = {
     (128, 8, False): "flash", (128, 8, True): "int8",
     (256, 1, False): "flash", (256, 1, True): "int8",
     (256, 8, False): "flash", (256, 8, True): "int8",
-    (384, 1, False): "raise", (384, 1, True): "raise",
-    (384, 8, False): "raise", (384, 8, True): "raise",
+    (384, 1, False): "flash", (384, 1, True): "int8",
+    (384, 8, False): "flash", (384, 8, True): "int8",
 }
 
 
@@ -289,9 +290,10 @@ CUDA_PATHS = {
 def test_attention_path(monkeypatch, device, D, H, int8):
     """On the CPU the port routes exactly as the JAX dispatch; on a CUDA
     tensor it takes the same route where its kernel is built (flash:
-    KERNEL_HEAD_DIMS, and one head at any D up to the widest; int8: its
-    KERNEL_HEAD_DIMS) and raises NotImplementedError where the JAX
-    dispatch would run a kernel the port does not build (D past 256)."""
+    kernel_head_dim, and one head at any D; int8: every D % 128 == 0) and
+    raises NotImplementedError where the JAX dispatch would run a kernel
+    the port does not build (no head dim since D past 256 was built; a
+    "raise" entry of CUDA_PATHS would check it)."""
     T = 256
     jax_path = _jax_path(monkeypatch, T, H, D, int8)
     if device == "cpu":
@@ -328,6 +330,47 @@ def test_attention_path_refuses_kernels_for_other_dtypes(int8):
     assert port_attention.attention_path("cuda", torch.float16, 256, 8, 64, int8) == "xla"
     assert port_attention.attention_path("cpu", torch.float16, 256, 8, 128,
                                          int8) == ("int8" if int8 else "flash")
+
+
+@pytest.mark.parametrize("index", [0, 1])
+@pytest.mark.parametrize("D", [32, 320])
+def test_tp_dispatch_routes_on_the_models_heads(monkeypatch, D, index):
+    """Under tensor parallelism with n_head equal to the model axis's size
+    (2 heads at M = 2, one a rank), the port routes on the model's 2 heads
+    as the JAX dispatch routes on cfg.n_head: the dense path at a head dim
+    that is no multiple of 128, where the rank's one head alone would take
+    the flash kernels (padded; at D = 320 the card raised there before).
+    The call's numbers are the dense path's with the rank's mixed seed."""
+    from omnibiote_tpu_torch.parallel.tensor import TensorParallel
+
+    T, M = 256, 2
+    assert _jax_path(monkeypatch, T, M, D, False) == "xla"
+    routed = []
+    real_path = port_attention.attention_path
+
+    def path(device_type, dtype, T, H, D, int8, **kw):
+        routed.append(H)
+        # the route a CUDA tensor of these heads would take (it must not raise)
+        cuda = real_path("cuda", torch.bfloat16, T, H, D, int8, **kw)
+        got = real_path(device_type, dtype, T, H, D, int8, **kw)
+        assert cuda == got
+        return got
+
+    monkeypatch.setattr(port_attention, "attention_path", path)
+    seen = []
+    tag = lambda name: (lambda q, *a, **k: (seen.append(name), q)[1])
+    for name, attr in (("int8", "int8_flash_attention"), ("flash", "flash_attention"),
+                       ("flash", "flash_attention_tp")):
+        monkeypatch.setattr(port_attention, attr, tag(name))
+    rng = np.random.default_rng(D + index)
+    q, k, v = (torch.from_numpy(x) for x in rng.standard_normal((3, 1, T, 1, D)).astype(np.float32))
+    tp = TensorParallel(None, index, M)
+    got = port_attention.attention(q, k, v, scale=0.1, tp_mesh=tp, dropout_rate=0.1,
+                                   dropout_seed=5)
+    assert seen == [] and routed == [M]
+    want = port_attention.xla_attention(q, k, v, scale=0.1, dropout_rate=0.1,
+                                        dropout_seed=port_attention.tp_seed(5, index))
+    assert torch.equal(got, want)
 
 
 def test_cpu_route_at_head_dim_256_matches_jax():

@@ -68,8 +68,7 @@ def test_tiles_and_routes_at_head_dim_256():
     assert fa.kernel_kv_tile(bf16, 256) == 64 and fa.kernel_kv_tile(bf16, 128) == 128
     assert [fa.padded_head_dim(d) for d in (8, 32, 64, 96, 128, 192, 256)] == [
         64, 64, 64, 128, 128, 256, 256]
-    with pytest.raises(NotImplementedError, match="head_dim 384"):
-        fa.padded_head_dim(384)
+    assert fa.padded_head_dim(384) == 384
 
 
 def test_forward_matches_jax_mh_fwd():
