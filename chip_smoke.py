@@ -9,8 +9,10 @@ toolkit and g++. It
   1. builds the port's CUDA kernels (nvcc, one process per source, all at
      once) and its tokenizer (g++) from the checkout's sources, printing
      each kernel's registers, spills and stack frame (none may spill in
-     the backward's wgmma kernels or in a bf16 kernel past D = 256), and
-     the shared memory of the bf16 forward's and backward kernels' CTAs;
+     the backward's wgmma kernels, in a bf16 kernel past D = 256 or in the
+     wgmma forwards there, and ptxas may serialise the products of neither
+     those forwards nor the probes), and the shared memory of the bf16
+     forward's and backward kernels' CTAs and of the int8 kernel's;
   2. kernel phase: holds each kernel against its plain PyTorch version on
      the card, at the main paths' shapes, in bf16 and fp32, over packed,
      padded and dense segment layouts: the forward without dropout (the
@@ -233,10 +235,12 @@ toolkit and g++. It
  20. head dims past 256, and one head at any head dim: #1-#5 at D = 384,
      512 and 1024 (2 heads) against their plain versions in bf16 and fp32,
      dropout 0 and 0.1, on dense, packed (3 and 5 EOS) and PAD-tail rows at
-     T 256 and 512, as phase 19 holds them (bounds on = off, the tiles
-     walked, the split pair twice, fused against split, flash_attention_lse
-     with separate q and kv ids); #9 against its plain version (its
-     prologue bit for bit) at those head dims; one head at D = 320 and 600
+     T 256 and 512, as phase 19 holds them (bounds on = off and a second
+     forward launch bit for bit, the tiles walked, the split pair twice,
+     fused against split, flash_attention_lse with separate q and kv
+     ids; the bf16 forward on its wgmma kernel at D = 384 and 512, on the
+     slice kernel at 1024); #9 against its plain version (its prologue
+     bit for bit) at those head dims; one head at D = 320 and 600
      through the kernels of D = 384 and 640 on zero-padded inputs; then
      omnibiote-small with 2 heads of 512 as phase 19 runs 4 heads of 256:
      each D = 512 kernel timed at its path's shape, the Encoder (bf16,
@@ -366,19 +370,27 @@ def build():
     # type first, the head dim a run-time size
     wide_re = (r"Compiling entry function '_ZN[\w]*?\d+((?:mh_fwd|mh_bwd|mh_bwd_dq|int8_fwd|"
                r"quant_qk)_wide)I(f|13__nv_bfloat16)((?:Lb[01]E)*)")
+    # the int8 wgmma kernel past 256: output type, segment flag, head dim
+    # (mh_fwd_wide_wgmma<D, DROP, BOUNDS> reads as the kernels above do)
+    wide8_re = (r"Compiling entry function '_ZN[\w]*?\d+(int8_fwd_wide_wgmma)I(f|13__nv_bfloat16)"
+                r"Lb([01])ELi(\d+)E")
     for name, log in logs.items():
         entry = spill = stack = None
         for line in log.splitlines():
             mw = re.search(wide_re, line)
-            m = None if mw else re.search(r"Compiling entry function '" + kernel_re, line)
+            m8w = re.search(wide8_re, line)
+            m = None if mw or m8w else re.search(r"Compiling entry function '" + kernel_re, line)
             m8 = re.search(r"Compiling entry function '_ZN[\w]*?\d+(int8_fwd|quant_qk|"
                            r"quant_v)I(f|i|13__nv_bfloat16)((?:Lb[01]E)*)(?:Li(\d+)E)?E", line)
             if "C7511" in line:
                 mc = re.search(kernel_re, line)
-                serialised.add(f"{name}: {mc.group(1) if mc else line.strip()[:160]}")
+                serialised.add(f"{name}: {mc.group(1) if mc else line.strip()}")
             elif mw:
                 ty = "float" if mw.group(2) == "f" else "bf16"
                 entry = f"{mw.group(1)}<{', '.join([ty, *re.findall(r'Lb([01])E', mw.group(3))])}>"
+            elif m8w:
+                ty = "float" if m8w.group(2) == "f" else "bf16"
+                entry = f"{m8w.group(1)}<{ty}, {m8w.group(3)}, {m8w.group(4)}>"
             elif m:
                 args = re.findall(r"L[bi](\d+)E", m.group(3))
                 entry = f"{m.group(1)}<{', '.join([m.group(2), *args])}>"
@@ -405,13 +417,16 @@ def build():
                      "dots_n_wgmma", "scores_wgmma")
     spilled = {k: v for k, v in spills.items() if k.split(": ")[1].startswith(wgmma_kernels) and v}
     check(not spilled, f"wgmma instances spill: {spilled}")
-    # and no bf16 instance of the kernels past D = 256
-    spilled = {k: v for k, v in spills.items() if "_wide<bf16" in k and v}
-    check(not spilled, f"bf16 instances past D = 256 spill: {spilled}")
+    # and no bf16 instance of the kernels past D = 256, nor any instance of
+    # the wgmma forwards there
+    spilled = {k: v for k, v in spills.items() if ("_wide<bf16" in k or "_wide_wgmma<" in k) and v}
+    check(not spilled, f"bf16 or wgmma instances past D = 256 spill: {spilled}")
     print(f"  instances with wgmma products serialised by ptxas (C7511): "
           f"{sorted(serialised) or 'none'}")
     check(not any(k.split(": ")[1].startswith(wgmma_kernels[3:]) for k in serialised),
           f"ptxas serialised a wgmma probe's products: {sorted(serialised)}")
+    check(not any("wide_wgmma" in k for k in serialised),
+          f"ptxas serialised the products of a wgmma forward past 256: {sorted(serialised)}")
     # the bf16 forward's and backward kernels' CTAs: 384 threads, setmaxnreg
     # 24 (producer) / 240 (consumers), dynamic shared memory as their launches
     # ask
@@ -419,12 +434,17 @@ def build():
                          ("mh_flash_bwd_dkv", "mh_bwd_fused_bf16 without dq"),
                          ("mh_flash_bwd_dq", "mh_bwd_dq_wgmma")):
         smem_bytes = getattr(_kernels.load_library(name), f"obt_{name}_smem_bytes")
+        if name == "mh_flash_fwd":
+            past = (f"; mh_fwd_wide_wgmma D=384 {smem_bytes(384)} bytes, D=512 {smem_bytes(512)} "
+                    f"bytes; past 512 (mh_fwd_wide, any D) {smem_bytes(1024)} bytes")
+        else:
+            past = f"; past 256 (the *_wide kernel, any D) {smem_bytes(512)} bytes"
         print(f"  {name}: {kernel} dynamic shared memory a CTA: " + ", ".join(
-            f"D={d} {smem_bytes(d)} bytes" for d in (64, 128, 256))
-            + f"; past 256 (the *_wide kernel, any D) {smem_bytes(512)} bytes")
+            f"D={d} {smem_bytes(d)} bytes" for d in (64, 128, 256)) + past)
     int8_smem = _kernels.load_library('int8_flash_fwd').obt_int8_flash_fwd_smem_bytes
     print(f"  int8_flash_fwd: int8_fwd dynamic shared memory a CTA: D=128 {int8_smem(128)} "
-          f"bytes, D=256 {int8_smem(256)} bytes; int8_fwd_wide past 256 {int8_smem(512)} "
+          f"bytes, D=256 {int8_smem(256)} bytes; int8_fwd_wide_wgmma D=384 {int8_smem(384)} "
+          f"bytes, D=512 {int8_smem(512)} bytes; int8_fwd_wide past 512 {int8_smem(1024)} "
           f"bytes (static)")
 
 
@@ -5000,6 +5020,11 @@ def _wide_kernel_checks(H=WIDE_HEADS, D=WIDE_D, layouts=WIDE_LAYOUTS, seed=1900,
                 o_all, lse_all = fa.mh_flash_forward_kernel(q, k, v, seg, rope, **kw)
                 check(torch.equal(o, o_all) and torch.equal(lse, lse_all),
                       f"forward with bounds differs from the full walk at {tag}")
+                # no atomics in the forward: a second launch gives the same bits
+                o_again, lse_again = fa.mh_flash_forward_kernel(q, k, v, seg, rope,
+                                                                kv_bounds=kv_b, **kw)
+                check(torch.equal(o, o_again) and torch.equal(lse, lse_again),
+                      f"a second forward launch differs from the first at {tag}")
                 po, plse = fa.mh_flash_forward_plain(q, k, v, seg, rope, block_q=tq,
                                                      block_kv=tkv, segment_skip=True,
                                                      bounds=sb, **kw)
@@ -5029,7 +5054,8 @@ def _wide_kernel_checks(H=WIDE_HEADS, D=WIDE_D, layouts=WIDE_LAYOUTS, seed=1900,
                 e_split, w_split = _hold_bwd((dq, *dkv), want, dtype, f"split {tag}")
                 e_fs = max(_rel_err(g, w) for g, w in zip(fused, (dq, *dkv)))
                 print(f"wide kernels {tag}: tiles walked fwd {n_f}, fused {n_q}, dkv {n_kv}, "
-                      f"dq {n_dq} (as their bounds give); fwd max|do| {err_f:.3e}; "
+                      f"dq {n_dq} (as their bounds give); fwd max|do| {err_f:.3e}, bounds on == "
+                      f"off and a second launch the same bits; "
                       f"max|d|/max|g| vs plain: fused {e_fused:.2e}, split {e_split:.2e}, "
                       f"fused vs split {e_fs:.2e} (tolerance {BWD_TOL[dtype]}); bounds on == "
                       f"off and the split pair's second launch the same bits: {same}")
@@ -5039,7 +5065,8 @@ def _wide_kernel_checks(H=WIDE_HEADS, D=WIDE_D, layouts=WIDE_LAYOUTS, seed=1900,
                 if dtype == "bfloat16":
                     worst["fwd"] = max(worst["fwd"], err_f)
                     worst["bwd"] = max(worst["bwd"], w_fused, w_split)
-                del q, k, v, do, o, lse, o_all, lse_all, po, plse, want, fused, fused_all
+                del q, k, v, do, o, lse, o_all, lse_all, o_again, lse_again, po, plse, want
+                del fused, fused_all
                 del dkv, dkv_all, dkv_again, dq, dq_all, dq_again, args
                 torch.cuda.empty_cache()
 
@@ -5154,8 +5181,11 @@ def _wide_timings(H=WIDE_HEADS, D=WIDE_D):
     src = "omnibiote_tpu_torch/ops/csrc/"
 
     def row(name, source, line, ms, plain_ms, bound, lib):
-        if D > 256 and name != "int8_flash_fwd":
-            source = "wide_attention.cuh"  # #1-#8 past 256, built into each library
+        # past 256: #1-#8 are the slice kernels of wide_attention.cuh, built
+        # into each library, but for the bf16 forward (#1, #6) up to 512
+        if D > 256 and name != "int8_flash_fwd" and not (
+                name in ("mh_flash_fwd", "flash_fwd") and D <= fa.WIDE_FWD_MAX_HEAD_DIM):
+            source = "wide_attention.cuh"
         rows[name] = {"name": f"{name} D={D}", "route": "cuda", "source": src + source,
                       "replaces": line, "launches": None, "max_abs_err": err[name],
                       "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],

@@ -436,6 +436,32 @@ __device__ __forceinline__ void wgmma_ss_m64n128k32_s8(int (&d)[64], uint64_t da
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D (64 x 64, s32) (+)= A (64 x 32, s8, shared, K-major) . B (32 x 64, s8,
+// shared, K-major), both 128-byte swizzled; scale_d == 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_m64n64k32_s8(int (&d)[32], uint64_t da, uint64_t db,
+                                                      int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// Registers OFF .. OFF + N - 1 of an accumulator fragment as a fragment of
+// their own: the 8-column blocks OFF / 4 on, so a product of N / 2 columns
+// on them adds into those columns of the wider accumulator.
+template <int OFF, int N, typename T, int M>
+__device__ __forceinline__ T (&acc_at(T (&d)[M]))[N] {
+  static_assert(OFF % 4 == 0 && OFF + N <= M, "whole 8-column blocks inside the accumulator");
+  return *reinterpret_cast<T(*)[N]>(&d[OFF]);
+}
+
 // The first or second half (columns 0-127 or 128-255) of a 64 x 256
 // accumulator fragment as a 64 x 128 one: block n of the half is block
 // 16 h + n of the whole, so two m64n128 products, B advanced by two 64-wide

@@ -19,7 +19,8 @@
 // row's own p = 1.
 // Layout (B, T, H*D) row-major for q, k, v, o; segment ids (B, T) int32 or
 // null (dense); cos/sin (T, D/2) fp32 or null (no RoPE). D = 128, 256, or
-// any multiple of 128 past 256 (int8_fwd_wide, below).
+// any multiple of 128 past 256 (int8_fwd_wide_wgmma up to 512,
+// int8_fwd_wide past it, below).
 //
 // Design. The TPU kernel holds one kv block spanning T and rotates and
 // quantizes all of K and V in every grid step. Here that work is done once
@@ -713,9 +714,11 @@ __global__ void __launch_bounds__(kThreads, 1) int8_fwd(
 }
 
 // ---------------------------------------------------------------------------
-// The attention kernel at a head dim past 256 (D % 128 == 0). The O
-// accumulator of 64 rows is D / 2 int32 a thread there, and a 128-row Q8
-// and K8 tile pair passes the shared memory, so the output's channels are
+// The attention kernel at a head dim past 512 (D % 128 == 0; up to 512,
+// int8_fwd_wide_wgmma below). A first-cut kernel, right before fast: no TMA,
+// no wgmma, no warp specialisation. The O accumulator of 64 rows is D / 2
+// int32 a thread there, and a 128-row Q8 and K8 tile pair passes the
+// shared memory, so the output's channels are
 // sliced: a CTA owns 64 q rows of one (batch, head) and 128 channels
 // [128 c, 128 c + 128) of V8 (D / 128 slices on the grid's first axis), with
 // 4 warps of 16 q rows, and walks 64-row kv tiles twice as the kernel above
@@ -907,6 +910,315 @@ __global__ void __launch_bounds__(kW8Threads) int8_fwd_wide(
   }
 }
 
+// ---------------------------------------------------------------------------
+// The attention kernel at head dims past 256 up to kWideMaxD (D % 128 ==
+// 0), by wgmma from a TMA ring. A CTA owns 64 q rows of one (batch, head)
+// and all D channels, and three warpgroups: warpgroup 0 produces, 1 and 2
+// consume. Each product is done once, split between the consumers:
+//   * S = Q8 . K8^T: consumer c takes the kv columns [64 c, 64 c + 64) of
+//     each 128-row kv tile over the whole head dim (wgmma m64n64k32 s8, Q8
+//     and K8 from shared memory), so its int32 scores need no exchange.
+//     Walk 1 keeps each row's maximum over the consumer's columns; the two
+//     consumers' maxima meet once, through shared memory, at its end.
+//   * Walk 2: each consumer takes p, l and p8 of its columns and stores its
+//     P8 A-fragment words (the register order quant_v's kv permutation
+//     assumes) into the tile's P8 panel in shared memory, 64 rows x 128
+//     k bytes, 128-byte swizzled as a TMA tile is; after a named barrier
+//     both add P8 . V8 over the whole tile into their own channels [c D/2,
+//     (c + 1) D/2) (wgmma m64n128k32 s8, and m64n64k32 for the last 64
+//     channels at D = 384). l's two halves meet at the end, l = l_0 + l_1
+//     in both (fp32 addition commutes).
+// The ring: two 64 KB slots (at D = 512) on full / empty mbarriers. Walk 1
+// streams K8 tiles through them; walk 2 alternates K8 and V8^T tiles, so
+// K8 of tile j + 1 loads while tile j's P8 . V8 runs (its slot is released
+// once p8 has read the tile's key scales and ids). Q8 (32 KB) is
+// loaded once; the P8 panel is double-buffered by tile parity (a consumer
+// may still be reading the previous one). Shared memory at D = 512: 32 KB +
+// 2 x 64 KB + 2 x 8 KB and the slots' key scales and ids (attn8_wide_smem_bytes).
+// ---------------------------------------------------------------------------
+constexpr int kWideMaxD = 512;
+constexpr int kW8Bq = 64;  // q rows a CTA; the kv tile is kBkv = 128 rows
+// named barriers (0 is __syncthreads): 1, both consumers' P8 halves of a
+// tile are written; 2, both consumers' row statistics are written
+constexpr int kBarP8 = 1, kBarRows = 2;
+
+template <int D>
+struct Attn8WideSmem {
+  alignas(1024) int8_t q[kW8Bq * D];       // Q8: D / 128 panels of 64 rows
+  alignas(1024) int8_t slot[2][kBkv * D];  // a K8 tile (D / 128 panels) or a V8^T tile (D rows)
+  alignas(1024) int8_t p[2][kW8Bq * kBkv]; // P8 panels, by tile parity
+  float sk[2][kBkv];
+  int kseg[2][kBkv];
+  float rows[2][kW8Bq];  // each consumer's row maxima, then its row sums
+  uint64_t qbar, full[2], empty[2];
+};
+
+template <int D>
+constexpr size_t attn8_wide_smem_bytes() {
+  return sizeof(Attn8WideSmem<D>) + kSwizzleAtom;  // + room to align the base
+}
+static_assert(attn8_wide_smem_bytes<kWideMaxD>() <= 232448, "a CTA takes at most 227 KB");
+
+// byte offset of (row r, k byte kb) in a 128-byte-swizzled 8-bit panel
+__device__ __forceinline__ uint32_t panel8_offset(int r, int kb) {
+  return (uint32_t)(r * 128 + ((((kb >> 4) ^ (r & 7))) << 4) + (kb & 15));
+}
+
+template <typename OutT, bool SEG, int D>
+__global__ void __launch_bounds__(kThreads, 1) int8_fwd_wide_wgmma(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, const float* __restrict__ sq,
+    const float* __restrict__ sk, const float* __restrict__ sv, const int* __restrict__ seg,
+    OutT* __restrict__ o, int T, int H, float scale_log2) {
+  constexpr int NH = D / 2, NKQ = D / 32;
+  constexpr uint32_t kQPanel = kW8Bq * 128;  // bytes of a 128-byte panel of Q8
+  static_assert(NH == 256 || NH == 192, "a half is two 128-channel products, or one and a 64");
+  extern __shared__ unsigned char smem_raw[];
+  Attn8WideSmem<D>& sm = *reinterpret_cast<Attn8WideSmem<D>*>(
+      smem_raw + ((kSwizzleAtom - (shared_addr(smem_raw) & (kSwizzleAtom - 1))) &
+                  (kSwizzleAtom - 1)));
+
+  const int b = blockIdx.z, h = blockIdx.y, qt = blockIdx.x, tid = threadIdx.x;
+  const int bh = b * H + h, NT = T / kBkv;
+  if (tid == 0) {
+    mbar_init(&sm.qbar, 1);
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], kConsumerWarps);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // ---- producer: Q8 once; then load li = 0 .. 3 NT - 1 into slot li % 2:
+    // K8 of tile li (walk 1), then K8 and V8^T of tile j at NT + 2 j and
+    // NT + 2 j + 1 (walk 2) ----
+    setmaxnreg_dec<24>();
+    if (tid == 0) {
+      mbar_arrive_expect_tx(&sm.qbar, kW8Bq * D);
+#pragma unroll
+      for (int pn = 0; pn < D / 128; ++pn)
+        tma_load_2d(&sm.q[pn * kQPanel], &qmap, pn * 128, bh * T + qt * kW8Bq, &sm.qbar);
+      for (int li = 0; li < 3 * NT; ++li) {
+        const int s = li & 1;
+        const bool is_v = li >= NT && ((li - NT) & 1);
+        const int j0 = (li < NT ? li : (li - NT) >> 1) * kBkv;
+        if (li >= 2) mbar_wait(&sm.empty[s], ((li >> 1) - 1) & 1);
+        if (is_v) {
+          mbar_arrive_expect_tx(&sm.full[s], D * kBkv);
+          tma_load_2d(&sm.slot[s][0], &vmap, j0, bh * D, &sm.full[s]);
+          tma_load_2d(&sm.slot[s][NH * kBkv], &vmap, j0, bh * D + NH, &sm.full[s]);
+        } else {
+          mbar_arrive_expect_tx(&sm.full[s], kBkv * D + kBkv * sizeof(float) +
+                                                 (SEG ? kBkv * sizeof(int) : 0u));
+#pragma unroll
+          for (int pn = 0; pn < D / 128; ++pn)
+            tma_load_2d(&sm.slot[s][pn * kPanel], &kmap, pn * 128, bh * T + j0, &sm.full[s]);
+          bulk_load(sm.sk[s], sk + (size_t)bh * T + j0, kBkv * sizeof(float), &sm.full[s]);
+          if (SEG) bulk_load(sm.kseg[s], seg + (size_t)b * T + j0, kBkv * sizeof(int), &sm.full[s]);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 kv columns of S, D / 2 channels of O each ----
+    setmaxnreg_inc<240>();
+    const int wg = (tid >> 7) - 1, wt = tid & 127, warp = wt >> 5, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int rl = warp * 16 + g;      // this thread's rows rl and rl + 8 of the CTA's 64
+    const int r0 = qt * kW8Bq + rl;
+    const float sqc0 = __fmul_rn(sq[(size_t)bh * T + r0], scale_log2);
+    const float sqc1 = __fmul_rn(sq[(size_t)bh * T + r0 + 8], scale_log2);
+    int qs0 = 0, qs1 = 0;
+    if constexpr (SEG) {
+      qs0 = seg[(size_t)b * T + r0];
+      qs1 = seg[(size_t)b * T + r0 + 8];
+    }
+    int s[32], acc[NH / 2];
+#pragma unroll
+    for (int i = 0; i < NH / 2; ++i) acc[i] = 0;
+
+    auto wait_full = [&](int li) { mbar_wait(&sm.full[li & 1], (li >> 1) & 1); };
+    auto release = [&](int li) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&sm.empty[li & 1]);
+    };
+    const uint32_t q_addr = shared_addr(sm.q);
+    // S = Q8 . K8^T on the consumer's 64 kv rows of the K8 tile in li's slot
+    auto gemm_s = [&](int li) {
+      const uint32_t k_addr = shared_addr(sm.slot[li & 1]) + wg * 64 * 128;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < NKQ; ++kk)
+        wgmma_ss_m64n64k32_s8(
+            s, smem_desc(q_addr + (kk >> 2) * kQPanel + (kk & 3) * 32, 16, kSwizzleAtom),
+            smem_desc(k_addr + (kk >> 2) * kPanel + (kk & 3) * 32, 16, kSwizzleAtom), kk > 0);
+      wgmma_commit();
+    };
+    // acc += P8 . V8 on the consumer's channel rows of the V8^T tile in li's
+    // slot, A the P8 panel of parity par
+    auto gemm_pv = [&](int li, int par) {
+      const uint32_t v_addr = shared_addr(sm.slot[li & 1]) + wg * NH * kBkv;
+      const uint32_t p_addr = shared_addr(sm.p[par]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBkv / 32; ++kk) {
+        const uint64_t da = smem_desc(p_addr + kk * 32, 16, kSwizzleAtom);
+        wgmma_ss_m64n128k32_s8(acc_at<0, 64>(acc), da,
+                               smem_desc(v_addr + kk * 32, 16, kSwizzleAtom), 1);
+        const uint64_t db = smem_desc(v_addr + 128 * kBkv + kk * 32, 16, kSwizzleAtom);
+        if constexpr (NH == 256) {
+          wgmma_ss_m64n128k32_s8(acc_at<64, 64>(acc), da, db, 1);
+        } else {
+          wgmma_ss_m64n64k32_s8(acc_at<64, 32>(acc), da, db, 1);
+        }
+      }
+      wgmma_commit();
+    };
+    // the log2-space score of element e (0-3) of the consumer's block n of
+    // the K8 tile in slot sl
+    auto score_at = [&](int sl, int n, int e) {
+      const int col = 64 * wg + 8 * n + 2 * t4 + (e & 1);
+      const int ks = SEG ? sm.kseg[sl][col] : 0;
+      return score8<SEG>(s[4 * n + e], e < 2 ? sqc0 : sqc1, sm.sk[sl][col], e < 2 ? qs0 : qs1,
+                         ks);
+    };
+
+    // ---- walk 1: the row maxima over all T keys ----
+    float m0 = -INFINITY, m1 = -INFINITY;
+    mbar_wait(&sm.qbar, 0);
+    for (int it = 0; it < NT; ++it) {
+      wait_full(it);
+      gemm_s(it);
+      wgmma_wait<0>();
+      fence_regs(s);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        m0 = fmaxf(m0, fmaxf(score_at(it & 1, n, 0), score_at(it & 1, n, 1)));
+        m1 = fmaxf(m1, fmaxf(score_at(it & 1, n, 2), score_at(it & 1, n, 3)));
+      }
+      release(it);
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {  // over the quad, then over both consumers
+      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+    }
+    if (t4 == 0) {
+      sm.rows[wg][rl] = m0;
+      sm.rows[wg][rl + 8] = m1;
+    }
+    named_bar_sync(kBarRows, 256);
+    m0 = fmaxf(sm.rows[0][rl], sm.rows[1][rl]);
+    m1 = fmaxf(sm.rows[0][rl + 8], sm.rows[1][rl + 8]);
+
+    // ---- walk 2: p, l, p8 and P8 . V8 ----
+    float l0 = 0.f, l1 = 0.f;
+    for (int j = 0; j < NT; ++j) {
+      const int lk = NT + 2 * j, par = j & 1;
+      wait_full(lk);
+      gemm_s(lk);
+      wgmma_wait<0>();  // S, and P8 . V8 of tile j - 1: V8^T of tile j - 1 is free
+      fence_regs(s);
+      fence_regs(acc);
+      if (j > 0) release(lk - 1);
+      // the consumer's k-steps 2 wg, 2 wg + 1 of P8 . V8: A-fragment words
+      // as int8_fwd packs them, stored at their (row, k) in the P8 panel
+      unsigned char* pp = reinterpret_cast<unsigned char*>(sm.p[par]);
+#pragma unroll
+      for (int kl = 0; kl < 2; ++kl) {
+        uint32_t lo[4], hi[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int n = 4 * kl + i;
+          const float p0 = ex2_ftz(__fadd_rn(score_at(lk & 1, n, 0), -m0));
+          const float p1 = ex2_ftz(__fadd_rn(score_at(lk & 1, n, 1), -m0));
+          const float p2 = ex2_ftz(__fadd_rn(score_at(lk & 1, n, 2), -m1));
+          const float p3 = ex2_ftz(__fadd_rn(score_at(lk & 1, n, 3), -m1));
+          l0 += p0 + p1;  // per-thread partial sums, reduced at the end
+          l1 += p2 + p3;
+          lo[i] = pair_bytes(rint_bits(__fmul_rn(p0, 127.0f)), rint_bits(__fmul_rn(p1, 127.0f)));
+          hi[i] = pair_bytes(rint_bits(__fmul_rn(p2, 127.0f)), rint_bits(__fmul_rn(p3, 127.0f)));
+        }
+        const int kb = 32 * (2 * wg + kl) + 4 * t4;
+        *reinterpret_cast<uint32_t*>(pp + panel8_offset(rl, kb)) = join_pairs(lo[0], lo[1]);
+        *reinterpret_cast<uint32_t*>(pp + panel8_offset(rl + 8, kb)) = join_pairs(hi[0], hi[1]);
+        *reinterpret_cast<uint32_t*>(pp + panel8_offset(rl, kb + 16)) = join_pairs(lo[2], lo[3]);
+        *reinterpret_cast<uint32_t*>(pp + panel8_offset(rl + 8, kb + 16)) =
+            join_pairs(hi[2], hi[3]);
+      }
+      release(lk);  // the K8 tile's key scales and ids are read
+      fence_async_shared();
+      named_bar_sync(kBarP8, 256);
+      wait_full(lk + 1);
+      gemm_pv(lk + 1, par);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    // both consumers read the maxima before their first P8 barrier, which
+    // the other passed before writing here
+    if (t4 == 0) {
+      sm.rows[wg][rl] = l0;
+      sm.rows[wg][rl + 8] = l1;
+    }
+    named_bar_sync(kBarRows, 256);
+    l0 = sm.rows[0][rl] + sm.rows[1][rl];
+    l1 = sm.rows[0][rl + 8] + sm.rows[1][rl + 8];
+
+    const size_t rs = (size_t)H * D;  // elements between consecutive tokens
+    OutT* o0 = o + ((size_t)b * T + r0) * rs + (size_t)h * D + wg * NH;
+    OutT* o1 = o0 + 8 * rs;
+    const float* svc = sv + (size_t)bh * D + wg * NH;
+#pragma unroll
+    for (int n = 0; n < NH / 8; ++n) {
+      const int col = 8 * n + 2 * t4;
+      const float2 s2 = *reinterpret_cast<const float2*>(svc + col);
+      const float c0 = __fmul_rn(s2.x, inv127()), c1 = __fmul_rn(s2.y, inv127());
+      store2(o0 + col, __fdiv_rn(__fmul_rn((float)acc[4 * n], c0), l0),
+             __fdiv_rn(__fmul_rn((float)acc[4 * n + 1], c1), l0));
+      store2(o1 + col, __fdiv_rn(__fmul_rn((float)acc[4 * n + 2], c0), l1),
+             __fdiv_rn(__fmul_rn((float)acc[4 * n + 3], c1), l1));
+    }
+  }
+}
+
+template <typename OutT, int D>
+cudaError_t launch_attn_wide_wgmma(const int8_t* q8, const float* sq, const int8_t* k8,
+                                   const float* sk, const int8_t* v8t, const float* sv,
+                                   const int* seg, OutT* o, int B, int T, int H,
+                                   float scale_log2, cudaStream_t st) {
+  // q8 and k8 as (B * H * T, D) and v8t as a (B * H * D, T) uint8 matrix,
+  // loaded as boxes of one 128-byte panel: 64 rows of q8, 128 of k8, D / 2
+  // channel rows of v8t (each consumer's half)
+  CUtensorMap qmap, kmap, vmap;
+  cudaError_t e = encode_u8_panels(&qmap, q8, (uint64_t)B * H * T, D, D, kW8Bq);
+  if (e == cudaSuccess) e = encode_u8_panels(&kmap, k8, (uint64_t)B * H * T, D, D, kBkv);
+  if (e == cudaSuccess) e = encode_u8_panels(&vmap, v8t, (uint64_t)B * H * D, T, T, D / 2);
+  if (e != cudaSuccess) return e;
+  const size_t smem = attn8_wide_smem_bytes<D>();
+  if (seg != nullptr) {
+    static std::atomic<uint64_t> smem_set{0};
+    e = obt::wide::allow_smem(int8_fwd_wide_wgmma<OutT, true, D>, smem, smem_set);
+    if (e != cudaSuccess) return e;
+    int8_fwd_wide_wgmma<OutT, true, D><<<dim3(T / kW8Bq, H, B), kThreads, smem, st>>>(
+        qmap, kmap, vmap, sq, sk, sv, seg, o, T, H, scale_log2);
+  } else {
+    static std::atomic<uint64_t> smem_set{0};
+    e = obt::wide::allow_smem(int8_fwd_wide_wgmma<OutT, false, D>, smem, smem_set);
+    if (e != cudaSuccess) return e;
+    int8_fwd_wide_wgmma<OutT, false, D><<<dim3(T / kW8Bq, H, B), kThreads, smem, st>>>(
+        qmap, kmap, vmap, sq, sk, sv, seg, o, T, H, scale_log2);
+  }
+  return cudaGetLastError();
+}
+
 template <typename OutT>
 cudaError_t launch_attn_wide(const int8_t* q8, const float* sq, const int8_t* k8,
                              const float* sk, const int8_t* v8t, const float* sv, const int* seg,
@@ -1002,6 +1314,14 @@ cudaError_t launch_attn_d(const int8_t* q8, const float* sq, const int8_t* k8,
                           const float* sk, const int8_t* v8t, const float* sv,
                           const int* seg, OutT* o, int B, int T, int H, int D,
                           float scale_log2, cudaStream_t st) {
+  // past 256 by head dim: the wgmma kernel up to kWideMaxD, the slice
+  // kernel above it
+  if (D == 384)
+    return launch_attn_wide_wgmma<OutT, 384>(q8, sq, k8, sk, v8t, sv, seg, o, B, T, H,
+                                             scale_log2, st);
+  if (D == 512)
+    return launch_attn_wide_wgmma<OutT, 512>(q8, sq, k8, sk, v8t, sv, seg, o, B, T, H,
+                                             scale_log2, st);
   if (obt::wide::head_dim_ok(D))
     return launch_attn_wide<OutT>(q8, sq, k8, sk, v8t, sv, seg, o, B, T, H, D, scale_log2, st);
   return D == 256 ? launch_attn_seg<OutT, 256>(q8, sq, k8, sk, v8t, sv, seg, o, B, T, H,
@@ -1104,10 +1424,12 @@ extern "C" int obt_int8_flash_fwd_dots(const void* q8, const void* k8, const voi
 }
 
 // Shared memory a CTA of the attention kernel takes at head dim D (dynamic;
-// static for int8_fwd_wide past 256; -1 for a head dim it is not built for).
+// static for int8_fwd_wide past 512; -1 for a head dim it is not built for).
 extern "C" int obt_int8_flash_fwd_smem_bytes(int D) {
   return D == 128                ? (int)attn_smem_bytes<128>()
          : D == 256              ? (int)attn_smem_bytes<256>()
+         : D == 384              ? (int)attn8_wide_smem_bytes<384>()
+         : D == 512              ? (int)attn8_wide_smem_bytes<512>()
          : obt::wide::head_dim_ok(D) ? (int)sizeof(W8Smem)
                                  : -1;
 }

@@ -61,9 +61,15 @@
 // FLOPs a token as 8 heads of 128 (4 T d), in wider, fewer heads. The fp32
 // kernel walks 16-row kv tiles there (48 KB of static shared memory).
 //
-// Head dims past 256 (D % 128 == 0): wide_attention.cuh::mh_fwd_wide, a CTA
-// a (64-row q tile, 128-lane slice of the output), S summed over streamed
-// 64-column panels of q and k and recomputed by every slice; see its note.
+// Head dims past 256 (D % 128 == 0). In bf16 up to D = 512,
+// mh_fwd_wide_wgmma (below): a CTA owns 64 q rows and all D lanes, two
+// consumer warpgroups each form the scores over half the head dim and own
+// half the output lanes, the partial scores swapped through shared memory,
+// so every product is done once (at D = 512 a 64 x 512 fp32 O is 128
+// registers a thread in each consumer). In fp32, and in bf16 past 512,
+// wide_attention.cuh::mh_fwd_wide: a CTA a (64-row q tile, 128-lane slice
+// of the output), S recomputed by every slice; see its note. The route is
+// by head dim and dtype in obt_mh_flash_fwd.
 #include <atomic>
 
 #include "flash_common.cuh"
@@ -408,6 +414,305 @@ __global__ void __launch_bounds__(kThreads, 1) mh_fwd_bf16(
 }
 
 // ---------------------------------------------------------------------------
+// bf16 at head dims past 256 up to kWideMaxD (D % 128 == 0). A CTA owns 64
+// query rows of one (batch, head) and all D output lanes, and three
+// warpgroups: warpgroup 0 produces, 1 and 2 consume; consumer c owns the
+// output lanes [c D/2, (c + 1) D/2), a 64 x D/2 fp32 accumulator (D/4 a
+// thread, 128 at D = 512).
+//   * The producer's first thread keeps a two-stage ring of 32-row K and V
+//     tiles and the tiles' kv segment ids full. The consumers write the
+//     CTA's q rows, rotated in fp32 and rounded (rows_to_panels), into
+//     swizzled panels once.
+//   * Per kv tile, consumer c forms the partial scores over its half of the
+//     head dim, S_c = q[:, half c] . k[:, half c]^T, by wgmma m64n32k16 from
+//     shared memory, hands them to the other consumer through shared memory
+//     in fragment order (thread t's element i at xs[c][i][t]), and adds the
+//     other's: S = S_0 + S_1, the same bits in both (fp32 addition
+//     commutes). Both run the masked scores, online softmax and dropout on
+//     the whole tile, so m, l, lse2, the keep bits and P are the same in
+//     both; then O_c += P . V[:, half c], P from registers as the A operand
+//     (wgmma m64n128k16, and m64n64k16 for the last 64 lanes at D = 384),
+//     V read through the transpose bit.
+// So every product of the function is done once, S by halves of its
+// reduction and P.V by halves of its output. Shared memory at D = 512: 64 KB
+// of q, two 64 KB stages, 16 KB of exchange (wide_smem_bytes, 210 KB of the
+// 227 KB a CTA may take). setmaxnreg as above (24 / 240).
+// Bound: at the serving shape (B 32, T 1024, 2 heads of 512) the same
+// 137 GFLOP as 8 heads of 128, 0.139 ms at the bf16 peak. A CTA's 64 q rows
+// (O takes half the register file) get 4.2 MFLOP from each 64 KB kv tile,
+// and the m64n32 score products read their q operand from shared memory
+// again for every tile. Two variants measured slower on the card (PERF.md
+// §6): CTA pairs sharing each K and V tile by TMA multicast, and a tile of
+// score look-ahead on split K and V rings.
+// ---------------------------------------------------------------------------
+constexpr int kWideMaxD = 512;
+constexpr int kWideBq = 64, kWideBkv = 32, kWideStages = 2;
+// named barriers (0 is __syncthreads): 1, both consumers' partial scores
+// of a tile are written; 2 + c, consumer c's partial has been read; 4, the
+// q rows are written
+constexpr int kBarXchg = 1, kBarRead = 2, kBarWideQ = 4;
+
+template <int D>
+struct WideFwdSmem {
+  alignas(1024) __nv_bfloat16 q[kWideBq * D];
+  alignas(1024) __nv_bfloat16 k[kWideStages][kWideBkv * D];
+  alignas(1024) __nv_bfloat16 v[kWideStages][kWideBkv * D];
+  float xs[2][kWideBkv / 2][128];
+  int kseg[kWideStages][kWideBkv];
+  uint64_t full[kWideStages], empty[kWideStages];
+};
+
+template <int D>
+constexpr size_t wide_smem_bytes() {
+  return sizeof(WideFwdSmem<D>) + kSwizzleAtom;  // + room to align the base
+}
+static_assert(wide_smem_bytes<kWideMaxD>() <= 232448, "a CTA takes at most 227 KB");
+
+template <int D, bool DROP, bool BOUNDS>
+__global__ void __launch_bounds__(kThreads, 1) mh_fwd_wide_wgmma(
+    const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+    const __nv_bfloat16* __restrict__ q, const int* __restrict__ q_seg,
+    const int* __restrict__ kv_seg, const float* __restrict__ cos_t,
+    const float* __restrict__ sin_t, const int* __restrict__ kv_lo, const int* __restrict__ kv_hi,
+    int* __restrict__ tile_count, __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int T,
+    int H, float scale_log2, DropParams dp) {
+  constexpr int NH = D / 2;                    // output lanes a consumer owns
+  constexpr int NPH = NH / kPanelCols;         // 64-column panels of a half
+  constexpr uint32_t kQTilePanel = kWideBq * 128;  // bytes of a 64-column panel of the q tile
+  constexpr uint32_t kKvPanel = kWideBkv * 128;
+  constexpr int NS = kWideBkv / 8, NKH = NH / 16, NP = kWideBkv / 16;
+  static_assert(NH == 256 || NH == 192, "a half is two 128-lane products, or one and a 64");
+  extern __shared__ unsigned char smem_raw[];
+  WideFwdSmem<D>& sm = *reinterpret_cast<WideFwdSmem<D>*>(
+      smem_raw + ((kSwizzleAtom - (shared_addr(smem_raw) & (kSwizzleAtom - 1))) &
+                  (kSwizzleAtom - 1)));
+
+  const int b = blockIdx.z, h = blockIdx.y, qt = blockIdx.x, tid = threadIdx.x;
+  int jt0 = 0, jt1 = T / kWideBkv - 1;
+  if constexpr (BOUNDS) {
+    jt0 = kv_lo[b * (T / kWideBq) + qt];
+    jt1 = kv_hi[b * (T / kWideBq) + qt];
+  }
+  const int n_tiles = jt1 - jt0 + 1;
+  if (tid == 0) {
+    if (tile_count != nullptr) atomicAdd(tile_count, n_tiles);
+#pragma unroll
+    for (int st = 0; st < kWideStages; ++st) {
+      mbar_init(&sm.full[st], 1);
+      mbar_init(&sm.empty[st], kConsumerWarps);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // ---- producer: one thread keeps the ring full ----
+    setmaxnreg_dec<24>();
+    if (tid == 0) {
+      const uint32_t bytes = 2u * kWideBkv * D * sizeof(__nv_bfloat16) +
+                             (kv_seg != nullptr ? kWideBkv * sizeof(int) : 0u);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % kWideStages;
+        if (it >= kWideStages) mbar_wait(&sm.empty[st], ((it / kWideStages) - 1) & 1);
+        mbar_arrive_expect_tx(&sm.full[st], bytes);
+        const int row = b * T + (jt0 + it) * kWideBkv;
+#pragma unroll
+        for (int pn = 0; pn < D / kPanelCols; ++pn) {
+          tma_load_2d(&sm.k[st][pn * kWideBkv * kPanelCols], &kmap, h * D + pn * kPanelCols,
+                      row, &sm.full[st]);
+          tma_load_2d(&sm.v[st][pn * kWideBkv * kPanelCols], &vmap, h * D + pn * kPanelCols,
+                      row, &sm.full[st]);
+        }
+        if (kv_seg != nullptr)
+          bulk_load(sm.kseg[st], kv_seg + row, kWideBkv * sizeof(int), &sm.full[st]);
+      }
+    }
+  } else {
+    // ---- consumers: half of the head dim each ----
+    setmaxnreg_inc<240>();
+    const int wg = (tid >> 7) - 1, wt = tid & 127, warp = wt >> 5, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const size_t rs = (size_t)H * D;  // elements between consecutive tokens
+    const size_t base = (size_t)b * T * rs + (size_t)h * D;
+    const int r0 = qt * kWideBq + warp * 16 + g;  // this thread's rows r0 and r0 + 8
+    const int qs0 = q_seg ? q_seg[(size_t)b * T + r0] : 0;
+    const int qs1 = q_seg ? q_seg[(size_t)b * T + r0 + 8] : 0;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+    float acc[NH / 2], s[kWideBkv / 2];
+    uint32_t p[NP][4];
+#pragma unroll
+    for (int i = 0; i < NH / 2; ++i) acc[i] = 0.f;
+
+    // the q rows, rotated and rounded, into the swizzled q panels
+    rows_to_panels<D>(reinterpret_cast<unsigned char*>(sm.q), kWideBq, 0,
+                      q + base + (size_t)qt * kWideBq * rs, rs, kWideBq, cos_t, sin_t,
+                      qt * kWideBq, tid - 128, 256);
+    fence_async_shared();
+    named_bar_sync(kBarWideQ, 256);
+
+    // the consumer's half: panels [wg NPH, (wg + 1) NPH) of q, K and V
+    const uint32_t q_addr = shared_addr(sm.q) + wg * NPH * kQTilePanel;
+    // S_c = q_half . k_half^T of ring stage st (both operands K-major)
+    auto gemm_s = [&](int st) {
+      const uint32_t k_addr = shared_addr(sm.k[st]) + wg * NPH * kKvPanel;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < NKH; ++kk) {
+        const uint64_t da =
+            smem_desc(q_addr + (kk >> 2) * kQTilePanel + (kk & 3) * 32, 16, kSwizzleAtom);
+        const uint64_t db =
+            smem_desc(k_addr + (kk >> 2) * kKvPanel + (kk & 3) * 32, 16, kSwizzleAtom);
+        wgmma_ss_m64n32k16<0, 0>(s, da, db, kk > 0);
+      }
+      wgmma_commit();
+    };
+    // acc += P . V_half of ring stage st (V MN-major: 16 kv rows a k-step;
+    // lanes 0-127 of the half, then 128-255 or 128-191)
+    auto gemm_pv = [&](int st) {
+      const uint32_t v_addr = shared_addr(sm.v[st]) + wg * NPH * kKvPanel;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < NP; ++kk) {
+        const uint32_t rows = kk * 16 * 128;
+        wgmma_rs_m64n128k16_tb(acc_at<0, 64>(acc), p[kk],
+                               smem_desc(v_addr + rows, kKvPanel, kSwizzleAtom), 1);
+        const uint64_t db = smem_desc(v_addr + 2 * kKvPanel + rows, kKvPanel, kSwizzleAtom);
+        if constexpr (NH == 256) {
+          wgmma_rs_m64n128k16_tb(acc_at<64, 64>(acc), p[kk], db, 1);
+        } else {
+          wgmma_rs_m64n64k16_tb(acc_at<64, 32>(acc), p[kk], db, 1);
+        }
+      }
+      wgmma_commit();
+    };
+    // S = S_c + S_other, after the other has read this consumer's previous
+    // partial (its arrival on kBarRead + c)
+    auto exchange = [&](int it) {
+      if (it > 0) named_bar_sync(kBarRead + wg, 256);
+#pragma unroll
+      for (int i = 0; i < kWideBkv / 2; ++i) sm.xs[wg][i][wt] = s[i];
+      named_bar_sync(kBarXchg, 256);
+#pragma unroll
+      for (int i = 0; i < kWideBkv / 2; ++i) s[i] += sm.xs[wg ^ 1][i][wt];
+      if (it + 1 < n_tiles) named_bar_arrive(kBarRead + (wg ^ 1), 256);
+    };
+    // the masked log2-space scores of kv tile jt (ring stage st), online
+    // softmax, dropout, acc rescaled, P rounded into p (as mh_fwd_bf16)
+    auto softmax = [&](int jt, int st) {
+      const int* sg = sm.kseg[st];
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        const int ks0 = kv_seg ? sg[n * 8 + 2 * t4] : 0;
+        const int ks1 = kv_seg ? sg[n * 8 + 2 * t4 + 1] : 0;
+        s[4 * n] = score(s[4 * n], scale_log2, qs0, ks0);
+        s[4 * n + 1] = score(s[4 * n + 1], scale_log2, qs0, ks1);
+        s[4 * n + 2] = score(s[4 * n + 2], scale_log2, qs1, ks0);
+        s[4 * n + 3] = score(s[4 * n + 3], scale_log2, qs1, ks1);
+        mx0 = fmaxf(mx0, fmaxf(s[4 * n], s[4 * n + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * n + 2], s[4 * n + 3]));
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float alpha0 = exp2f(m0 - mn0), alpha1 = exp2f(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        s[4 * n] = exp2f(s[4 * n] - mn0);
+        s[4 * n + 1] = exp2f(s[4 * n + 1] - mn0);
+        s[4 * n + 2] = exp2f(s[4 * n + 2] - mn1);
+        s[4 * n + 3] = exp2f(s[4 * n + 3] - mn1);
+        rs0 += s[4 * n] + s[4 * n + 1];
+        rs1 += s[4 * n + 2] + s[4 * n + 3];
+      }
+      l0 = alpha0 * l0 + rs0;  // per-thread partial sums, reduced at the end
+      l1 = alpha1 * l1 + rs1;
+      if constexpr (DROP) {
+        // the keep bits as mh_fwd_bf16 draws them
+        const int bh = b * H + h;
+        const bool odd = g & 1;
+        const int row = odd ? r0 + 8 : r0;
+        uint32_t keep = 0;
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+          const Philox4 u = dropout_bits(dp.seed, bh, row, jt * kWideBkv + n * 8 + 2 * t4);
+          const uint32_t y0 = __shfl_xor_sync(0xffffffffu, odd ? u.w[0] : u.w[2], 4);
+          const uint32_t y1 = __shfl_xor_sync(0xffffffffu, odd ? u.w[1] : u.w[3], 4);
+          const uint32_t a0 = odd ? y0 : u.w[0], a1 = odd ? y1 : u.w[1];  // row r0
+          const uint32_t c0 = odd ? u.w[2] : y0, c1 = odd ? u.w[3] : y1;  // row r0 + 8
+          keep |= ((uint32_t)(a0 >= dp.thresh) | (uint32_t)(a1 >= dp.thresh) << 1 |
+                   (uint32_t)(c0 >= dp.thresh) << 2 | (uint32_t)(c1 >= dp.thresh) << 3)
+                  << (4 * n);
+        }
+#pragma unroll
+        for (int i = 0; i < 4 * NS; ++i) s[i] = (keep >> i) & 1 ? s[i] * dp.keep_scale : 0.f;
+      }
+#pragma unroll
+      for (int n = 0; n < NH / 8; ++n) {
+        acc[4 * n] *= alpha0;
+        acc[4 * n + 1] *= alpha0;
+        acc[4 * n + 2] *= alpha1;
+        acc[4 * n + 3] *= alpha1;
+      }
+#pragma unroll
+      for (int kk = 0; kk < NP; ++kk) {
+        p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+        p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+      }
+    };
+    auto release = [&](int st) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&sm.empty[st]);
+    };
+
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % kWideStages;
+      mbar_wait(&sm.full[st], (it / kWideStages) & 1);
+      gemm_s(st);
+      if (it > 0) {
+        wgmma_wait<1>();  // P . V of the previous tile: its stage is free
+        fence_regs(acc);
+        fence_regs(p);
+        release((it - 1) % kWideStages);
+      }
+      wgmma_wait<0>();
+      fence_regs(s);
+      exchange(it);
+      softmax(jt0 + it, st);
+      gemm_pv(st);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
+    if (wg == 0 && t4 == 0) {
+      lse[((size_t)b * T + r0) * H + h] = m0 + log2f(l0);
+      lse[((size_t)b * T + r0 + 8) * H + h] = m1 + log2f(l1);
+    }
+    __nv_bfloat16* o0 = o + base + (size_t)r0 * rs + wg * NH;
+    __nv_bfloat16* o1 = o0 + 8 * rs;
+#pragma unroll
+    for (int n = 0; n < NH / 8; ++n) {
+      const int col = n * 8 + 2 * t4;
+      *reinterpret_cast<uint32_t*>(o0 + col) = pack_bf16(acc[4 * n] * inv0, acc[4 * n + 1] * inv0);
+      *reinterpret_cast<uint32_t*>(o1 + col) =
+          pack_bf16(acc[4 * n + 2] * inv1, acc[4 * n + 3] * inv1);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // fp32: 128 threads = 32 query rows x 4 threads; thread `sub` of a row owns
 // the head dims sub + 4*i, so a row's dot product is 4 partial sums joined
 // by two shuffles, and its output columns stay in the thread's registers.
@@ -553,6 +858,73 @@ cudaError_t launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
   return cudaGetLastError();
 }
 
+template <int D, bool DROP, bool BOUNDS>
+cudaError_t launch_wide_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                             const __nv_bfloat16* v, const int* q_seg, const int* kv_seg,
+                             const float* cos_t, const float* sin_t, const int* kv_lo,
+                             const int* kv_hi, int* tile_count, __nv_bfloat16* o, float* lse,
+                             int B, int T, int H, float scale_log2, DropParams dp,
+                             cudaStream_t st) {
+  // K and V as (B * T, H * D) row-major matrices, loaded as kv-tile boxes
+  // of one head's 64-column panels
+  CUtensorMap kmap, vmap;
+  const uint64_t rows = (uint64_t)B * T, cols = (uint64_t)H * D;
+  cudaError_t e = encode_bf16_panels(&kmap, k, rows, cols, cols, kWideBkv);
+  if (e == cudaSuccess) e = encode_bf16_panels(&vmap, v, rows, cols, cols, kWideBkv);
+  if (e != cudaSuccess) return e;
+  static std::atomic<uint64_t> smem_set{0};
+  const size_t smem = wide_smem_bytes<D>();
+  e = obt::wide::allow_smem(mh_fwd_wide_wgmma<D, DROP, BOUNDS>, smem, smem_set);
+  if (e != cudaSuccess) return e;
+  mh_fwd_wide_wgmma<D, DROP, BOUNDS><<<dim3(T / kWideBq, H, B), kThreads, smem, st>>>(
+      kmap, vmap, q, q_seg, kv_seg, cos_t, sin_t, kv_lo, kv_hi, tile_count, o, lse, T, H,
+      scale_log2, dp);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_wide_d(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                          const __nv_bfloat16* v, const int* q_seg, const int* kv_seg,
+                          const float* cos_t, const float* sin_t, const int* kv_lo,
+                          const int* kv_hi, int* tile_count, __nv_bfloat16* o, float* lse, int B,
+                          int T, int H, float scale_log2, bool drop, DropParams dp,
+                          cudaStream_t st) {
+  if (kv_lo != nullptr)
+    return drop ? launch_wide_bf16<D, true, true>(q, k, v, q_seg, kv_seg, cos_t, sin_t, kv_lo,
+                                                  kv_hi, tile_count, o, lse, B, T, H, scale_log2,
+                                                  dp, st)
+                : launch_wide_bf16<D, false, true>(q, k, v, q_seg, kv_seg, cos_t, sin_t, kv_lo,
+                                                   kv_hi, tile_count, o, lse, B, T, H,
+                                                   scale_log2, dp, st);
+  return drop ? launch_wide_bf16<D, true, false>(q, k, v, q_seg, kv_seg, cos_t, sin_t, kv_lo,
+                                                 kv_hi, tile_count, o, lse, B, T, H, scale_log2,
+                                                 dp, st)
+              : launch_wide_bf16<D, false, false>(q, k, v, q_seg, kv_seg, cos_t, sin_t, kv_lo,
+                                                  kv_hi, tile_count, o, lse, B, T, H, scale_log2,
+                                                  dp, st);
+}
+
+// The bf16 forward at 256 < D <= kWideMaxD: k rotated into k_rot (with
+// RoPE; q is rotated where the kernel loads it), then mh_fwd_wide_wgmma.
+cudaError_t launch_wide(const void* q, const void* k, const void* v, const int* q_seg,
+                        const int* kv_seg, const float* cos_t, const float* sin_t, void* k_rot,
+                        const int* kv_lo, const int* kv_hi, int* tile_count, void* o, float* lse,
+                        int B, int T, int H, int D, float scale_log2, bool drop, DropParams dp,
+                        cudaStream_t st) {
+  if (cos_t != nullptr) {
+    launch_rope_rows(k, cos_t, sin_t, k_rot, B, T, H, D, true, st);
+    k = k_rot;
+  }
+  const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(q);
+  const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(k);
+  const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(v);
+  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(o);
+  return D == 384 ? launch_wide_d<384>(qb, kb, vb, q_seg, kv_seg, cos_t, sin_t, kv_lo, kv_hi,
+                                       tile_count, ob, lse, B, T, H, scale_log2, drop, dp, st)
+                  : launch_wide_d<512>(qb, kb, vb, q_seg, kv_seg, cos_t, sin_t, kv_lo, kv_hi,
+                                       tile_count, ob, lse, B, T, H, scale_log2, drop, dp, st);
+}
+
 template <int D, bool DROP>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* q_seg, const int* kv_seg,
                    const float* cos_t, const float* sin_t, void* k_rot,
@@ -608,11 +980,13 @@ bool shape_ok(int B, int T, int H) {
 // dtype: 0 = float32, 1 = bfloat16; T a multiple of 64 (fp32) or 128
 // (bf16). D 64, 128, 256 or a multiple of 128 past 256. With RoPE (cos_t
 // and sin_t non-null), k_rot is a scratch tensor of k's shape and type that
-// receives the rotated k, and so is q_rot past 256 (else it may be null).
+// receives the rotated k, and so is q_rot past 256 but for the bf16
+// kernel up to 512 (else it may be null).
 // kv_lo and kv_hi, both null or both int32 (B, T / q tile) with the q and
 // kv tiles of the dtype's kernel (bf16: q tile 128 and kv tile 128, 64 at
-// D = 256; fp32: 32 and 32, 16 at D = 256; both 64 and 64 past 256), bound
-// the kv tiles each q tile walks;
+// D = 256, 64 and 32 past 256 up to 512; fp32: 32 and 32, 16 at D = 256;
+// both 64 and 64 past 256, and bf16 past 512), bound the kv tiles each q
+// tile walks;
 // tile_count is null or one int32 that the walked tiles are added to. drop
 // != 0 applies dropout with keep threshold `thresh` (bits >= thresh keep),
 // scale `keep_scale` and the 64-bit `seed` (philox.cuh). Returns
@@ -649,6 +1023,11 @@ extern "C" int obt_mh_flash_fwd(const void* q, const void* k, const void* v,
     case 256: return (int)launch_d<256>(q, k, v, qsg, kvsg, c, s, k_rot, lo, hi, tc, o, l, B, T, H, scale_log2, dtype == 1, drop != 0, dp, st);
     default:
       if (!obt::wide::head_dim_ok(D)) return (int)cudaErrorInvalidValue;
+      // bf16 up to kWideMaxD: the wgmma kernel; past it, and fp32: the
+      // slice kernel of wide_attention.cuh (routed by head dim and dtype)
+      if (dtype == 1 && D <= kWideMaxD)
+        return (int)launch_wide(q, k, v, qsg, kvsg, c, s, k_rot, lo, hi, tc, o, l, B, T, H, D,
+                                scale_log2, drop != 0, dp, st);
       return (int)obt::wide::forward(q, k, v, qsg, kvsg, c, s, q_rot, k_rot, lo, hi, tc, o, l, B, T,
                                 H, D, scale_log2, dtype == 1, drop != 0,
                                 obt::wide::Drop{seed, thresh, keep_scale}, st);
@@ -676,6 +1055,8 @@ extern "C" int obt_mh_flash_fwd_smem_bytes(int D) {
   return D == 64                 ? (int)bf16_smem_bytes<64>()
          : D == 128              ? (int)bf16_smem_bytes<128>()
          : D == 256              ? (int)bf16_smem_bytes<256>()
+         : D == 384              ? (int)wide_smem_bytes<384>()
+         : D == 512              ? (int)wide_smem_bytes<512>()
          : obt::wide::head_dim_ok(D) ? obt::wide::fwd_smem_bytes()
                                  : -1;
 }

@@ -4,7 +4,11 @@
 // computes what the kernel of its library computes at D <= 256 (see
 // mh_flash_fwd.cu, mh_flash_bwd.cu, mh_flash_bwd_dkv.cu and
 // mh_flash_bwd_dq.cu for the TPU kernels they replace and the rounding
-// points), and the libraries take these kernels at such a D.
+// points), and the libraries take these kernels at such a D, but for the
+// bf16 forward up to D = 512: mh_flash_fwd.cu::mh_fwd_wide_wgmma, which
+// does each product once (wgmma from a TMA ring, the scores' reduction split
+// between two consumer warpgroups). The forward here serves fp32 and bf16
+// past 512.
 //
 // Why a design of its own. The D <= 256 kernels hold whole-D tiles in shared
 // memory and a 64-row output accumulator of D fp32 a thread beside the
@@ -39,8 +43,10 @@
 // flash_common.cuh::dq_epilogue.
 //
 // Tiles: 64 q rows and 64 kv rows in every kernel and dtype
-// (ops/flash_attention.py::kernel_tiles at D > 256). A simple kernel that
-// is right comes first: no TMA, no wgmma, no warp specialisation.
+// (ops/flash_attention.py::kernel_tiles at D > 256: KERNEL_TILES_SLICED,
+// and KERNEL_TILES_WIDE but for the bf16 forward). These are first-cut
+// kernels, right before fast: no TMA, no wgmma, no warp specialisation;
+// the backward kernels are the next to be rebuilt (ROADMAP Queue 2).
 #pragma once
 #include <atomic>
 

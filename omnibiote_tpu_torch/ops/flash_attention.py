@@ -12,8 +12,12 @@ Bidirectional attention over (B, T, H, D) q/k/v with rotate-half RoPE
 fused in, segment-id masking, dropout on P and a log2-space logsumexp
 residual. The kernels are `ops/csrc/mh_flash_fwd.cu`, `mh_flash_bwd.cu`
 (both fused cases), `mh_flash_bwd_dkv.cu` and `mh_flash_bwd_dq.cu`, each
-built at head dims 64, 128 and 256, and past 256 at every multiple of 128
-by the kernels of `ops/csrc/wide_attention.cuh`: a CTA owns one 128-lane
+built at head dims 64, 128 and 256, and past 256 at every multiple of 128.
+There the bf16 forward up to WIDE_FWD_MAX_HEAD_DIM (`mh_fwd_wide_wgmma`)
+gives a CTA 64 q rows and all D lanes, two consumer warpgroups splitting
+the scores' reduction and the output's lanes in halves (each product done
+once); the backward kernels, the fp32 forward and the bf16 forward past
+that are those of `ops/csrc/wide_attention.cuh`: a CTA owns one 128-lane
 slice of the output (lanes [64c, 64c + 64) and [D/2 + 64c, D/2 + 64c + 64),
 closed under rotate-half) and recomputes the products over the whole head
 dim from streamed panels.
@@ -112,11 +116,19 @@ KERNEL_TILES_BY_HEAD_DIM = {
         "dq": {torch.bfloat16: (128, 32), torch.float32: (32, 16)},
     },
 }
-# The tiles past 256, where a CTA owns one 128-lane slice of the output
-# and streams the head dim of q, k, v and do in 64-column panels: 64 q rows
-# and 64 kv rows in every kernel and dtype.
-KERNEL_TILES_WIDE = {kind: {torch.bfloat16: (64, 64), torch.float32: (64, 64)}
-                     for kind in ("fwd", "fused", "dkv", "dq")}
+# The tiles past 256 up to WIDE_FWD_MAX_HEAD_DIM. The bf16 forward there
+# (mh_flash_fwd.cu::mh_fwd_wide_wgmma) gives a CTA 64 q rows and all D
+# lanes and walks 32-row kv tiles (a two-stage K and V ring beside the 64 x
+# D q tile fits the 227 KB a CTA may take); every other kernel gives a CTA
+# one 128-lane slice of the output and streams the head dim of q, k, v and
+# do in 64-column panels, on 64 q rows and 64 kv rows. Past
+# WIDE_FWD_MAX_HEAD_DIM the bf16 forward is that slice kernel too
+# (KERNEL_TILES_SLICED).
+KERNEL_TILES_SLICED = {kind: {torch.bfloat16: (64, 64), torch.float32: (64, 64)}
+                       for kind in ("fwd", "fused", "dkv", "dq")}
+KERNEL_TILES_WIDE = {kind: dict(dtypes) for kind, dtypes in KERNEL_TILES_SLICED.items()}
+KERNEL_TILES_WIDE["fwd"][torch.bfloat16] = (64, 32)
+WIDE_FWD_MAX_HEAD_DIM = 512
 # The multiple of T every kernel takes per dtype: each bf16 CTA owns 128
 # rows; the fp32 kernels take 64.
 KERNEL_T_MULTIPLE = {torch.bfloat16: 128, torch.float32: 64}
@@ -156,6 +168,8 @@ def kernel_tiles(kind: str, dtype: torch.dtype, head_dim: int) -> Tuple[int, int
     `dtype` and `head_dim`; at a head dim the kernels do not take as it is
     (one head, run zero-padded), the tiles of padded_head_dim."""
     D = padded_head_dim(head_dim)
+    if D > WIDE_FWD_MAX_HEAD_DIM:
+        return KERNEL_TILES_SLICED[kind][dtype]
     if D > KERNEL_HEAD_DIMS[-1]:
         return KERNEL_TILES_WIDE[kind][dtype]
     return KERNEL_TILES_BY_HEAD_DIM.get(D, KERNEL_TILES)[kind][dtype]
@@ -684,9 +698,12 @@ def mh_flash_forward_kernel(q, k, v, segment_ids=None, rope=None, *,
     lo_ptr, hi_ptr, tc_ptr = _bounds_ptrs(
         kv_bounds, q, kernel_tiles("fwd", q.dtype, D)[0], tile_count)
     # scratch for k rotated once per call (every q tile reads all of it),
-    # and past 256 for q too (every slice reads all of it)
+    # and for q where the slice kernel past 256 runs (every slice reads all
+    # of it; the other kernels rotate q where they load it)
     k_rot = torch.empty_like(k) if rope is not None else None
-    q_rot = torch.empty_like(q) if rope is not None and D > KERNEL_HEAD_DIMS[-1] else None
+    sliced = D > KERNEL_HEAD_DIMS[-1] and (q.dtype != torch.bfloat16
+                                           or D > WIDE_FWD_MAX_HEAD_DIM)
+    q_rot = torch.empty_like(q) if rope is not None and sliced else None
     drop, thresh, keep_scale, seed = _drop_args(dropout_rate, seed)
 
     o = torch.empty_like(q)

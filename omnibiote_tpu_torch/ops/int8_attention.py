@@ -41,10 +41,14 @@ so v8t's kv axis is permuted inside every 32-block (`kernel_kv_order`)
 and each thread packs its own p8 bytes: `int8_kernel_layout` is the
 prologue's output in that order, `int8_natural_layout` undoes it. Past
 D = 256 (any multiple of 128) the prologue takes a warp a (token, head)
-row and the attention kernel (`int8_fwd_wide`) gives a CTA 128 channels
-of V8 and 64 q rows, summing S over the whole head dim again in every
-channel slice (mma.sync s8 products): the same integers in every slice, so
-the same P8 bytes, in the same layout.
+row. Up to D = 512 the attention kernel (`int8_fwd_wide_wgmma`) gives a
+CTA 64 q rows and all D channels: its two consumers split S8 by kv columns
+(each over the whole head dim, so no product is done twice), store their
+P8 A-fragment words into one shared-memory panel in that same order, and
+split P8 . V8 by channels. Past 512 the attention kernel (`int8_fwd_wide`)
+gives a CTA 128 channels of V8 and 64 q rows, summing S over the whole
+head dim again in every channel slice (mma.sync s8 products): the same
+integers in every slice, so the same P8 bytes, in the same layout.
 """
 from __future__ import annotations
 
@@ -56,9 +60,10 @@ import torch
 from .flash_attention import (DEFAULT_MASK_VALUE, LOG2E, _full_tables,
                               _raise_on, _rope_ptrs, _rope_rot, _seg_ptr)
 
-# What the CUDA kernel is built for: instances of their own at 128 and
-# 256, and past 256 one set that takes every multiple of 128
-# (`int8_fwd_wide`); `kernel_head_dim` is the test every caller uses.
+# What the CUDA kernel is built for: instances of their own at 128, 256,
+# 384 and 512 (`int8_fwd_wide_wgmma` past 256), and past 512 one set that
+# takes every multiple of 128 (`int8_fwd_wide`); `kernel_head_dim` is the
+# test every caller uses.
 KERNEL_HEAD_DIMS = (128, 256)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 KERNEL_T_MULTIPLE = 128

@@ -53,8 +53,9 @@ def _inputs(seed, T, D, n_cuts=3):
 def test_forward_matches_jax_mh_fwd(D):
     """#1: o and lse2 with RoPE and packed ids against `_mh_fwd` with one
     kv block spanning T, fp32 at 2e-5 (fp32 sums in another order), the
-    plain version on that block and on the kernel's 64-row kv tile (its
-    online softmax over two tiles)."""
+    plain version on that block and on each dtype's kernel kv tile (its
+    online softmax over several tiles): the fp32 slice kernel's 64 rows and
+    the bf16 wgmma kernel's 32."""
     T = 128
     q, k, v, _, seg = _inputs(D, T, D)
     cos, sin = jax_rope_tables(D, T)
@@ -66,7 +67,8 @@ def test_forward_matches_jax_mh_fwd(D):
             scale=1.0 / np.sqrt(D), block_q=128, block_kv=T, dropout_rate=0.0,
             use_rope=True)
     t = [torch.from_numpy(x) for x in (q, k, v)]
-    for port_block in (T, fa.kernel_kv_tile(torch.float32, D)):
+    for port_block in sorted({T, fa.kernel_kv_tile(torch.float32, D),
+                              fa.kernel_kv_tile(torch.bfloat16, D)}):
         po, pl = fa.mh_flash_forward_plain(*t, torch.from_numpy(seg), rope_tables(D, T),
                                            scale=1.0 / np.sqrt(D), block_kv=port_block)
         np.testing.assert_allclose(po.numpy(), np.asarray(jo), rtol=2e-5, atol=2e-5)
@@ -214,17 +216,21 @@ WIDE_DIMS = ((320, False, 384), (384, True, 384), (512, True, 512), (600, False,
 
 @pytest.mark.parametrize("D,built,padded", WIDE_DIMS)
 def test_tiles_padding_and_routes_past_256(D, built, padded):
-    """kernel_tiles gives the wide kernels' 64 x 64 tiles at every D past
-    256 (the padded head dim's where one head runs padded), padded_head_dim
-    the next multiple of 128, and attention_path on a CUDA tensor the JAX
-    route, raising for no head dim in bf16 or fp32: flash (int8 where D %
-    128 == 0 and no dropout) for one head or D % 128 == 0, else dense."""
+    """kernel_tiles gives the wide kernels' tiles at every D past 256 (the
+    padded head dim's where one head runs padded): 64 x 64, but 64 q rows
+    and 32-row kv tiles for the bf16 forward up to 512 (the wgmma kernel);
+    padded_head_dim the next multiple of 128, and attention_path on a CUDA
+    tensor the JAX route, raising for no head dim in bf16 or fp32: flash
+    (int8 where D % 128 == 0 and no dropout) for one head or D % 128 == 0,
+    else dense."""
     assert fa.kernel_head_dim(D) == built and fa.padded_head_dim(D) == padded
     assert port_int8.kernel_head_dim(D) == built
     for dtype in (torch.bfloat16, torch.float32):
         for kind in ("fwd", "fused", "dkv", "dq"):
             bq, bkv = fa.kernel_tiles(kind, dtype, D)
-            assert (bq, bkv) == fa.KERNEL_TILES_WIDE[kind][dtype] == (64, 64)
+            wgmma = kind == "fwd" and dtype == torch.bfloat16 and padded <= 512
+            table = fa.KERNEL_TILES_WIDE if padded <= 512 else fa.KERNEL_TILES_SLICED
+            assert (bq, bkv) == table[kind][dtype] == ((64, 32) if wgmma else (64, 64))
             assert fa.KERNEL_T_MULTIPLE[dtype] % bq == 0
         for n_head in (1, 2, 8):
             for int8 in (False, True):
