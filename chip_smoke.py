@@ -413,8 +413,8 @@ def build():
     # a spill makes ptxas serialise the wgmma products around it: the
     # backward's wgmma kernels (fused, dkv and dq) and the wgmma probes must
     # show none, and the probes no serialised products either
-    wgmma_kernels = ("mh_bwd_fused_bf16", "mh_bwd_d256_bf16", "mh_bwd_dq_wgmma", "dots_wgmma",
-                     "dots_n_wgmma", "scores_wgmma")
+    wgmma_kernels = ("mh_bwd_fused_bf16", "mh_bwd_d256_bf16", "mh_bwd_dq_wgmma", "mh_bwd_pair",
+                     "dots_wgmma", "dots_n_wgmma", "scores_wgmma")
     spilled = {k: v for k, v in spills.items() if k.split(": ")[1].startswith(wgmma_kernels) and v}
     check(not spilled, f"wgmma instances spill: {spilled}")
     # and no bf16 instance of the kernels past D = 256, nor any instance of
@@ -424,7 +424,8 @@ def build():
     print(f"  instances with wgmma products serialised by ptxas (C7511): "
           f"{sorted(serialised) or 'none'}")
     check(not any(k.split(": ")[1].startswith(wgmma_kernels[3:]) for k in serialised),
-          f"ptxas serialised a wgmma probe's products: {sorted(serialised)}")
+          f"ptxas serialised the products of the cluster backward or a wgmma probe: "
+          f"{sorted(serialised)}")
     check(not any("wide_wgmma" in k for k in serialised),
           f"ptxas serialised the products of a wgmma forward past 256: {sorted(serialised)}")
     # the bf16 forward's and backward kernels' CTAs: 384 threads, setmaxnreg
@@ -437,6 +438,11 @@ def build():
         if name == "mh_flash_fwd":
             past = (f"; mh_fwd_wide_wgmma D=384 {smem_bytes(384)} bytes, D=512 {smem_bytes(512)} "
                     f"bytes; past 512 (mh_fwd_wide, any D) {smem_bytes(1024)} bytes")
+        elif name == "mh_flash_bwd":
+            past = (f"; mh_bwd_pair D=384 {smem_bytes(384)} bytes, D=512 {smem_bytes(512)} "
+                    f"bytes; past 512 (mh_bwd_wide, any D) {smem_bytes(1024)} bytes")
+            check(max(smem_bytes(384), smem_bytes(512)) <= 232448,
+                  "mh_bwd_pair takes more than 227 KB of shared memory a CTA")
         else:
             past = f"; past 256 (the *_wide kernel, any D) {smem_bytes(512)} bytes"
         print(f"  {name}: {kernel} dynamic shared memory a CTA: " + ", ".join(
@@ -5182,9 +5188,11 @@ def _wide_timings(H=WIDE_HEADS, D=WIDE_D):
 
     def row(name, source, line, ms, plain_ms, bound, lib):
         # past 256: #1-#8 are the slice kernels of wide_attention.cuh, built
-        # into each library, but for the bf16 forward (#1, #6) up to 512
+        # into each library, but for the bf16 forward (#1, #6) up to 512 and
+        # the bf16 fused backward (#2, #3) at 384 and 512
         if D > 256 and name != "int8_flash_fwd" and not (
-                name in ("mh_flash_fwd", "flash_fwd") and D <= fa.WIDE_FWD_MAX_HEAD_DIM):
+                name in ("mh_flash_fwd", "flash_fwd") and D <= fa.WIDE_FWD_MAX_HEAD_DIM) and not (
+                name in ("mh_flash_bwd", "mh_flash_bwd_mk") and D in fa.PAIR_BWD_HEAD_DIMS):
             source = "wide_attention.cuh"
         rows[name] = {"name": f"{name} D={D}", "route": "cuda", "source": src + source,
                       "replaces": line, "launches": None, "max_abs_err": err[name],
@@ -5636,6 +5644,71 @@ def _wider_int8_checks():
           f"prologue bit for bit, max|do| {max(errs):.3e}")
 
 
+def _pair_bwd_checks(dims=(384, 512), seed=2700):
+    """The bf16 fused backward's cluster kernel (mh_flash_bwd.cu::
+    mh_bwd_pair) at each head dim of `dims` (2 heads) over WIDE_LAYOUTS at
+    dropout 0 and 0.1: #2 at T = 1024 (B 2, counted as the single-kv
+    backward) and #3 at T = 2048 (B 1, 128-wide kv blocks: counted as the
+    multi-kv one), both with skipping as the dispatch runs them, against the
+    plain version at BWD_TOL; bounds on against the full walk (dk and dv the
+    same bits, dq within the atomics' tolerance); the tiles walked against
+    the bounds' count; the library's route (and fp32's, still the slice
+    kernel) and the launches. Returns the worst bf16 max |d|."""
+    import torch
+    from omnibiote_tpu_torch.ops import _kernels
+    from omnibiote_tpu_torch.ops import flash_attention as fa
+
+    route = _kernels.load_library("mh_flash_bwd").obt_mh_flash_bwd_route
+    H, worst, t0 = WIDER_HEADS, 0.0, time.time()
+    for D in dims:
+        routes = (route(D, 1).decode(), route(D, 0).decode())
+        check(D in fa.PAIR_BWD_HEAD_DIMS and routes == ("mh_bwd_pair", "mh_bwd_wide"),
+              f"fused backward at D={D} routes bf16, fp32 to {routes}")
+        scale = 1.0 / math.sqrt(D)
+        bq, bkv = fa.kernel_tiles("fused", torch.bfloat16, D)
+        for i, (layout, T, n_eos) in enumerate(WIDE_LAYOUTS):
+            for rate in (0.0, TRAIN_DROPOUT):
+                B = 2 if T == 1024 else 1
+                counter = "mh_flash_bwd" if T == 1024 else "mh_flash_bwd_mk"
+                tag = f"D={D} B={B} T={T} bf16 {layout}{n_eos or ''} dropout {rate} ({counter})"
+                s0 = seed + 10 * i + D + int(100 * rate)
+                q, k, v, _, rope = _attn_inputs(B, T, H, D, torch.bfloat16, "dense", seed=s0)
+                seg = _wide_ids(layout, B, T, n_eos, s0)
+                gen = torch.Generator(device="cuda").manual_seed(s0 + 1)
+                do = torch.randn(B, T, H, D, generator=gen, device="cuda").bfloat16()
+                kw = dict(scale=scale, dropout_rate=rate, seed=0x5A1 + s0)
+                sb = None if seg is None else fa.SegmentBounds(seg)
+                bounds = fa._kernel_bounds("fused", q, seg, True, sb)
+                n_want = (H * B * (T // bq) * (T // bkv) if bounds is None
+                          else H * int((bounds[1] - bounds[0] + 1).sum()))
+                o, lse = fa.mh_flash_forward(q, k, v, seg, rope, segment_skip=True, bounds=sb,
+                                             **kw)
+                di = (o.float() * do.float()).sum(-1)
+                args = (q, k, v, do, lse, di, seg, rope)
+                _kernels.reset_launches()
+                got = _walked(lambda c: fa.mh_flash_backward_kernel(
+                    *args, tile_bounds=bounds, tile_count=c, counter=counter, **kw), n_want, tag)
+                got_all = fa.mh_flash_backward_kernel(*args, counter=counter, **kw)
+                torch.cuda.synchronize()
+                check(_kernels.LAUNCHES == _counts(**{counter: 2}),
+                      f"{tag}: launches {_kernels.LAUNCHES}")
+                want = fa.mh_flash_backward_plain(*args, block_q=bq, block_kv=bkv,
+                                                  segment_skip=True, bounds=sb, **kw)
+                rel, err = _hold_bwd(got, want, "bfloat16", tag)
+                same = (torch.equal(got[1], got_all[1]) and torch.equal(got[2], got_all[2])
+                        and _rel_err(got[0], got_all[0]) <= BWD_TOL["bfloat16"])
+                check(same, f"{tag}: bounds on differ from the full walk")
+                worst = max(worst, err)
+                print(f"mh_bwd_pair {tag}: route {routes[0]}, tiles walked {n_want} (as the "
+                      f"bounds give), max|d|/max|g| vs plain {rel:.2e} (tolerance "
+                      f"{BWD_TOL['bfloat16']}), max|d| {err:.3e}; bounds on == off (dk, dv "
+                      f"the same bits, dq within tolerance)")
+                del q, k, v, do, o, lse, di, args, got, got_all, want
+                torch.cuda.empty_cache()
+    print(f"mh_bwd_pair checks: {time.time() - t0:.1f} s, worst max|d| {worst:.3e}")
+    return worst
+
+
 def head_dim_wide_phase(workdir, tok_path, seqs, baseline):
     """Phase 20: #1-#5 at D = 384, 512 and 1024 and #9 there against their
     plain versions on small shapes, one head at D = 320 and 600 padded,
@@ -5648,6 +5721,7 @@ def head_dim_wide_phase(workdir, tok_path, seqs, baseline):
             w = _wide_kernel_checks(WIDER_HEADS, D, WIDER_LAYOUTS, seed=2500 + 100 * i,
                                     lse_shape=(1, 512))
             worst = {n: max(worst[n], w[n]) for n in worst}
+        worst["bwd"] = max(worst["bwd"], _pair_bwd_checks())
         _wider_int8_checks()
         _wide_padded_checks(WIDER_PADDED)
         return worst

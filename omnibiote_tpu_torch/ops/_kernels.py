@@ -88,6 +88,7 @@ _SIGNATURES = {
             _c.c_int, _c.c_int, _c.c_int, _c.c_int,    # B, T, H, D
             _c.c_void_p]),                             # stream
         "obt_mh_flash_bwd_smem_bytes": (_c.c_int, [_c.c_int]),
+        "obt_mh_flash_bwd_route": (_c.c_char_p, [_c.c_int, _c.c_int]),
         "obt_cuda_error_string_bwd": (_c.c_char_p, [_c.c_int]),
     },
     "mh_flash_bwd_dkv": {

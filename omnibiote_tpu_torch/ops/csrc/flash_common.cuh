@@ -60,21 +60,24 @@ __device__ __forceinline__ float2 load_bf16x2(const __nv_bfloat16* p) {
 // rotated (rotate-half in fp32 from the cos/sin half tables at sequence
 // position t0 + r, rounded) when cos_t is non-null, else copied. Thread tid
 // of n_threads takes every n_threads-th (row, 8 columns of each half) item.
-template <int D>
+// WQ < D / 2 copies a part of the row closed under rotate-half: lanes
+// [c_lo, c_lo + WQ) to tile columns [0, WQ) and lanes D/2 + the same to
+// [WQ, 2 WQ).
+template <int D, int WQ = D / 2>
 __device__ __forceinline__ void rows_to_panels(unsigned char* dst, int tile_rows, int dst_r0,
                                                const __nv_bfloat16* src, size_t ld,
                                                int n_rows, const float* cos_t,
                                                const float* sin_t, int t0, int tid,
-                                               int n_threads) {
+                                               int n_threads, int c_lo = 0) {
   constexpr int HALF = D / 2;
-  for (int it = tid; it < n_rows * (HALF / 8); it += n_threads) {
-    const int r = it / (HALF / 8), c8 = (it % (HALF / 8)) * 8;
-    const __nv_bfloat16* p = src + (size_t)r * ld + c8;
+  for (int it = tid; it < n_rows * (WQ / 8); it += n_threads) {
+    const int r = it / (WQ / 8), c8 = (it % (WQ / 8)) * 8;
+    const __nv_bfloat16* p = src + (size_t)r * ld + c_lo + c8;
     uint4 lo = *reinterpret_cast<const uint4*>(p);
     uint4 hi = *reinterpret_cast<const uint4*>(p + HALF);
     if (cos_t != nullptr) {
-      const float* cp = cos_t + (size_t)(t0 + r) * HALF + c8;
-      const float* sp = sin_t + (size_t)(t0 + r) * HALF + c8;
+      const float* cp = cos_t + (size_t)(t0 + r) * HALF + c_lo + c8;
+      const float* sp = sin_t + (size_t)(t0 + r) * HALF + c_lo + c8;
       const __nv_bfloat162* x1 = reinterpret_cast<const __nv_bfloat162*>(&lo);
       const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&hi);
       uint32_t yl[4], yh[4];
@@ -90,7 +93,7 @@ __device__ __forceinline__ void rows_to_panels(unsigned char* dst, int tile_rows
       hi = make_uint4(yh[0], yh[1], yh[2], yh[3]);
     }
     *reinterpret_cast<uint4*>(dst + swizzled_offset(tile_rows, dst_r0 + r, c8)) = lo;
-    *reinterpret_cast<uint4*>(dst + swizzled_offset(tile_rows, dst_r0 + r, c8 + HALF)) = hi;
+    *reinterpret_cast<uint4*>(dst + swizzled_offset(tile_rows, dst_r0 + r, c8 + WQ)) = hi;
   }
 }
 

@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks of the port's kernels: mbarriers, TMA
-// tiled and bulk loads into shared memory, tiled stores and bulk fp32
-// reductions out of it, warpgroup matrix products (wgmma) with their
-// shared-memory descriptors (bf16 and s8), named barriers, register
+// Hopper (sm_90a) building blocks of the port's kernels: mbarriers, thread
+// block clusters (a peer CTA's shared memory and mbarriers, the cluster
+// barrier), TMA tiled and bulk loads into shared memory, tiled stores and
+// bulk fp32 reductions out of it, warpgroup matrix products (wgmma) with
+// their shared-memory descriptors (bf16 and s8), named barriers, register
 // rebalancing between warpgroups, and the host-side tensor map of a
 // row-major bf16 or uint8 matrix (or a batch of bf16 ones) in
 // 128-byte-swizzled panels.
@@ -69,6 +70,61 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done) : "r"(a), "r"(parity) : "memory");
   } while (!done);
+}
+
+// ---------------------------------------------------------------------------
+// Thread block clusters: a CTA's rank, its peers' shared memory (distributed
+// shared memory) and mbarriers
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// the shared::cluster address of the variable at shared address `saddr` of
+// this CTA in the cluster's CTA of rank `rank` (a CTA's window is
+// contiguous: the address plus an offset is the variable's plus the offset)
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t saddr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(saddr), "r"(rank));
+  return r;
+}
+
+// the generic address of the variable at generic address p (this CTA's
+// shared memory) in the cluster's CTA of rank `rank`: plain loads through it
+// read the peer's shared memory, scheduled by the compiler as any load
+template <typename T>
+__device__ __forceinline__ const T* cluster_ptr(const T* p, uint32_t rank) {
+  uint64_t r;
+  asm volatile("mapa.u64 %0, %1, %2;\n" : "=l"(r) : "l"(p), "r"(rank));
+  return reinterpret_cast<const T*>(r);
+}
+
+// one arrival on the mbarrier at shared::cluster address `bar` (a peer
+// CTA's), releasing this thread's earlier memory operations at cluster scope
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
+               ::"r"(bar) : "memory");
+}
+
+// mbar_wait with acquire at cluster scope: what the arriving threads of any
+// CTA of the cluster released before their arrivals is visible after it
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = shared_addr(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// every thread of every CTA of the cluster arrives, then waits for all
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------

@@ -16,11 +16,16 @@ built at head dims 64, 128 and 256, and past 256 at every multiple of 128.
 There the bf16 forward up to WIDE_FWD_MAX_HEAD_DIM (`mh_fwd_wide_wgmma`)
 gives a CTA 64 q rows and all D lanes, two consumer warpgroups splitting
 the scores' reduction and the output's lanes in halves (each product done
-once); the backward kernels, the fp32 forward and the bf16 forward past
-that are those of `ops/csrc/wide_attention.cuh`: a CTA owns one 128-lane
-slice of the output (lanes [64c, 64c + 64) and [D/2 + 64c, D/2 + 64c + 64),
-closed under rotate-half) and recomputes the products over the whole head
-dim from streamed panels.
+once); the bf16 fused backward at PAIR_BWD_HEAD_DIMS (`mh_bwd_pair`) gives
+a thread-block cluster of CTAs a 64-row kv tile, each CTA a part of the head
+dim closed under rotate-half (`pair_part_lanes`), the partial scores summed
+through distributed shared memory (S^T formed twice a CTA, every other
+product once); the other
+backward kernels, the fp32 ones and the bf16 ones past those head dims are
+those of `ops/csrc/wide_attention.cuh`: a CTA owns one 128-lane slice of the
+output (lanes [64c, 64c + 64) and [D/2 + 64c, D/2 + 64c + 64), closed under
+rotate-half) and recomputes the products over the whole head dim from
+streamed panels.
 
 `flash_attention(multi_head=False)` is the JAX package's per-head entry
 (`_flash`: `_fwd_kernel`, `_bwd_dkv_kernel`, `_bwd_dq_kernel`, a (B, H,
@@ -119,9 +124,11 @@ KERNEL_TILES_BY_HEAD_DIM = {
 # The tiles past 256 up to WIDE_FWD_MAX_HEAD_DIM. The bf16 forward there
 # (mh_flash_fwd.cu::mh_fwd_wide_wgmma) gives a CTA 64 q rows and all D
 # lanes and walks 32-row kv tiles (a two-stage K and V ring beside the 64 x
-# D q tile fits the 227 KB a CTA may take); every other kernel gives a CTA
-# one 128-lane slice of the output and streams the head dim of q, k, v and
-# do in 64-column panels, on 64 q rows and 64 kv rows. Past
+# D q tile fits the 227 KB a CTA may take); the bf16 fused backward at
+# PAIR_BWD_HEAD_DIMS gives a cluster of CTAs 64 kv rows and walks 64-row q
+# tiles; every other kernel gives a CTA one 128-lane slice of the output
+# and streams the head dim of q, k, v and do in 64-column panels, on 64 q
+# rows and 64 kv rows. Past
 # WIDE_FWD_MAX_HEAD_DIM the bf16 forward is that slice kernel too
 # (KERNEL_TILES_SLICED).
 KERNEL_TILES_SLICED = {kind: {torch.bfloat16: (64, 64), torch.float32: (64, 64)}
@@ -129,6 +136,10 @@ KERNEL_TILES_SLICED = {kind: {torch.bfloat16: (64, 64), torch.float32: (64, 64)}
 KERNEL_TILES_WIDE = {kind: dict(dtypes) for kind, dtypes in KERNEL_TILES_SLICED.items()}
 KERNEL_TILES_WIDE["fwd"][torch.bfloat16] = (64, 32)
 WIDE_FWD_MAX_HEAD_DIM = 512
+# The head dims at which the bf16 fused backward is the cluster kernel
+# (ops/csrc/mh_flash_bwd.cu::mh_bwd_pair) on the fused tiles of
+# KERNEL_TILES_WIDE; it takes lse2 and di as (B, H, T) and rotates k itself.
+PAIR_BWD_HEAD_DIMS = (384, 512)
 # The multiple of T every kernel takes per dtype: each bf16 CTA owns 128
 # rows; the fp32 kernels take 64.
 KERNEL_T_MULTIPLE = {torch.bfloat16: 128, torch.float32: 64}
@@ -173,6 +184,22 @@ def kernel_tiles(kind: str, dtype: torch.dtype, head_dim: int) -> Tuple[int, int
     if D > KERNEL_HEAD_DIMS[-1]:
         return KERNEL_TILES_WIDE[kind][dtype]
     return KERNEL_TILES_BY_HEAD_DIM.get(D, KERNEL_TILES)[kind][dtype]
+
+
+def pair_part_lanes(head_dim: int):
+    """The head-dim lanes of each CTA of the bf16 fused backward's cluster
+    at head_dim in PAIR_BWD_HEAD_DIMS (a mirror of mh_bwd_pair's map): D // W
+    parts of W lanes (W = 256 at D = 512, 128 at D = 384), part c holding
+    [WQ·c, WQ·c + WQ) and D/2 + the same, WQ = W / 2. A list of int64
+    tensors, part c's local lane l at entry l: lanes l and WQ + l of a part
+    are rotate-half partners."""
+    D = int(head_dim)
+    if D not in PAIR_BWD_HEAD_DIMS:
+        raise ValueError(f"head_dim {D} has no cluster kernel; one of {PAIR_BWD_HEAD_DIMS}")
+    W = 256 if D == 512 else 128
+    WQ = W // 2
+    lo = torch.arange(WQ)
+    return [torch.cat([WQ * c + lo, D // 2 + WQ * c + lo]) for c in range(D // W)]
 
 
 def kernel_kv_tile(dtype: torch.dtype, head_dim: int) -> int:
@@ -735,6 +762,18 @@ _BWD_KERNELS = {
 }
 
 
+def bwd_rows_by_head(kind: str, dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether backward kernel `kind` takes lse2 and di as (B, H, T) and
+    rotates k itself: the bf16 fused kernel (also the bf16 dkv kernel) up to
+    256 and the bf16 fused kernel at PAIR_BWD_HEAD_DIMS bulk-copy a q tile's
+    lse2 and di of one head. The others take (B, T, H) and k rotated ahead."""
+    if dtype != torch.bfloat16:
+        return False
+    if head_dim <= KERNEL_HEAD_DIMS[-1]:
+        return kind in ("fused", "dkv")
+    return kind == "fused" and head_dim in PAIR_BWD_HEAD_DIMS
+
+
 def mh_flash_bwd_kernel(kind: str, q, k, v, do, lse2, di, segment_ids=None,
                         rope=None, *, scale: float, dropout_rate: float = 0.0,
                         seed: int = 0, tile_bounds=None, tile_count=None,
@@ -757,11 +796,8 @@ def mh_flash_bwd_kernel(kind: str, q, k, v, do, lse2, di, segment_ids=None,
     cos_ptr, sin_ptr = _rope_ptrs(rope, q)
     lo_ptr, hi_ptr, tc_ptr = _bounds_ptrs(
         tile_bounds, q, kernel_tiles(kind, q.dtype, D)[owner], tile_count)
-    # The bf16 fused kernel (also the bf16 dkv kernel) up to 256 rotates k
-    # itself and bulk-copies a q tile's lse2 and di of one head, so it takes
-    # those two as (B, H, T).
     wide = D > KERNEL_HEAD_DIMS[-1]
-    hopper = kind in ("fused", "dkv") and q.dtype == torch.bfloat16 and not wide
+    hopper = bwd_rows_by_head(kind, q.dtype, D)
     if hopper:
         lse2, di = (t.transpose(1, 2).contiguous() for t in (lse2, di))
     # scratch: q (where the kernel re-reads it: the fused and dkv kernels,

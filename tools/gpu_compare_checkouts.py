@@ -25,6 +25,14 @@ times, with `chip_smoke.py`'s own helpers and inputs:
   * train tokens/s of omnibiote-small at ctx 1024 (fused backward), ctx
     2048 (fused, and the split pair) and ctx 4096 (fused).
 
+With --wide a process times only the backward kernels past head dim 256, at
+2 heads of 512 (omnibiote-small's width, `chip_smoke.py` phase 20's inputs):
+the fused #2 at B=16 T=1024 and #3 at B=8 T=2048 (and both at 2 heads of
+384), the split pair #4 and #5 at B=8 T=2048, all with RoPE, dropout 0.1 and
+segment skipping, the per-head #7 and #8 at B=16 T=1024 (no RoPE); and train
+tokens/s of omnibiote-small at ctx 1024 with 2 heads of 512 and with its 8
+heads of 128 (6 steps each).
+
 With --probes a process times only the dkv product-mix probe #11
 (`probes.roofline.dots_n`, 3 and 4 products, 64- and 128-row CTAs) and #4's
 kernel with its products alone (`dkv_products`) at the probes' shape (B=8,
@@ -35,7 +43,7 @@ It prints one JSON line a process and then, for every number, both sides'
 mean and this side's ratio to the other's. Needs one CUDA device; prints the
 card's name and power limit.
 
-    python3 tools/gpu_compare_checkouts.py --measure ROOT [--probes]
+    python3 tools/gpu_compare_checkouts.py --measure ROOT [--probes | --wide]
 
 is one side's process (the package under ROOT; its JSON line last).
 """
@@ -68,7 +76,59 @@ def measure_probes(c):
     return out
 
 
-def measure(root, probes=False):
+def measure_wide(c):
+    """The backward kernels and the ctx-1024 train rate past head dim 256
+    (see --wide): {name: value}."""
+    import torch
+    from omnibiote_tpu_torch import preset
+    from omnibiote_tpu_torch.config import TrainConfig
+    from omnibiote_tpu_torch.ops import _kernels
+    from omnibiote_tpu_torch.ops import flash_attention as fa
+
+    _kernels.build_all(["mh_flash_fwd", "mh_flash_bwd", "mh_flash_bwd_dkv", "mh_flash_bwd_dq"])
+    out, H = {}, c.WIDER_HEADS
+    for D in (512, 384):
+        scale = 1.0 / math.sqrt(D)
+        for B, T, n_eos in ((c.TRAIN_SHAPE["B"], 1024, 3), (c.LONG_SHAPES[0][0], 2048, c.LONG_EOS)):
+            q, k, v, _, rope = c._attn_inputs(B, T, H, D, torch.bfloat16, "dense", 2200 + T)
+            seg = c._wide_ids("packed", B, T, n_eos, 2200 + T)
+            gen = torch.Generator(device="cuda").manual_seed(2300 + T)
+            do = torch.randn(B, T, H, D, generator=gen, device="cuda").bfloat16()
+            sb = fa.SegmentBounds(seg)
+            kw = dict(scale=scale, dropout_rate=c.TRAIN_DROPOUT, seed=2561)
+            skip = dict(segment_skip=True, bounds=sb)
+            o, lse = fa.mh_flash_forward(q, k, v, seg, rope, **kw, **skip)
+            args = (q, k, v, do, lse, (o.float() * do.float()).sum(-1), seg, rope)
+            name, n = ("mh_flash_bwd", 20) if T == 1024 else ("mh_flash_bwd_mk", 10)
+            out[f"{name} D={D} B={B} T={T} skip ms"] = c.cuda_ms(
+                lambda: fa.mh_flash_backward(*args, **kw, **skip), n)
+            if D == 512 and T == 2048:
+                for name, f in (("mh_flash_bwd_dkv", fa.mh_flash_bwd_dkv),
+                                ("mh_flash_bwd_dq", fa.mh_flash_bwd_dq)):
+                    out[f"{name} D={D} B={B} T={T} skip ms"] = c.cuda_ms(
+                        lambda: f(*args, **kw, **skip), 10)
+            if D == 512 and T == 1024:
+                kwh = dict(scale=scale, dropout_rate=c.TRAIN_DROPOUT, seed=2562)
+                oh, lseh = fa.mh_flash_forward(q, k, v, seg, None, **kwh)
+                argsh = (q, k, v, do, lseh, (oh.float() * do.float()).sum(-1), seg, None)
+                for name, f in (("flash_bwd_dkv", fa.mh_flash_bwd_dkv),
+                                ("flash_bwd_dq", fa.mh_flash_bwd_dq)):
+                    out[f"{name} D={D} B={B} T={T} per-head ms"] = c.cuda_ms(
+                        lambda: f(*argsh, **kwh), 20)
+                del oh, lseh, argsh
+            del q, k, v, do, o, lse, args
+            torch.cuda.empty_cache()
+    tc = TrainConfig(batch_size=32, mini_batch_size=16, ctx_len=1024,
+                     token_budget=float(32 * 1024 * 10000), seed=0)
+    for n_head in (8, H):
+        cfg = preset("omnibiote-small", vocab_size=65536, dropout=c.TRAIN_DROPOUT,
+                     n_head=n_head, block_size=1024)
+        label = f"ctx 1024, {n_head} heads of {cfg.n_embd // n_head}"
+        out[f"train tokens/s {label}"] = c._throughput(cfg, tc, 3, 6, label)
+    return out
+
+
+def measure(root, probes=False, wide=False):
     """One side's numbers: {name: value}."""
     root = os.path.abspath(root)
     sys.path.insert(0, HERE)
@@ -88,6 +148,8 @@ def measure(root, probes=False):
     torch.backends.cudnn.allow_tf32 = False
     if probes:
         return measure_probes(c)
+    if wide:
+        return measure_wide(c)
     _kernels.build_all(["mh_flash_fwd", "mh_flash_bwd", "mh_flash_bwd_dkv", "mh_flash_bwd_dq"])
     out = {}
     H, D = 8, 128
@@ -169,11 +231,13 @@ def main(argv=None):
     ap.add_argument("--measure", help="measure the package under this root (one side)")
     ap.add_argument("--probes", action="store_true",
                     help="time only the dkv product-mix probe and dkv_products")
+    ap.add_argument("--wide", action="store_true",
+                    help="time only the backward kernels and the train rate past head dim 256")
     ap.add_argument("--json", help="write both sides' runs here")
     a = ap.parse_args(argv)
     if a.measure:
         print(json.dumps({"root": os.path.abspath(a.measure),
-                          **measure(a.measure, a.probes)}))
+                          **measure(a.measure, a.probes, a.wide)}))
         return
     if not a.other:
         ap.error("--other DIR is needed")
@@ -183,8 +247,9 @@ def main(argv=None):
                          check=True).stdout.strip(), flush=True)
     runs = []
     for side in ("other", "this", "this", "other"):
+        flags = [f for f, on in (("--probes", a.probes), ("--wide", a.wide)) if on]
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--measure",
-                               sides[side], *(["--probes"] if a.probes else [])],
+                               sides[side], *flags],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise SystemExit(f"{side} ({sides[side]}) failed:\n{proc.stdout[-4000:]}"
