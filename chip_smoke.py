@@ -239,7 +239,11 @@ toolkit and g++. It
      forward launch bit for bit, the tiles walked, the split pair twice,
      fused against split, flash_attention_lse with separate q and kv
      ids; the bf16 forward on its wgmma kernel at D = 384 and 512, on the
-     slice kernel at 1024); #9 against its plain version (its prologue
+     slice kernel at 1024); the bf16 backwards at D = 384 and 512 over the
+     main paths' layouts at T 1024 and 2048 (the fused cluster; the split
+     pair, with its routes, its per-head calls and its outputs the same
+     bits with bounds on and off and at a second launch); #9
+     against its plain version (its prologue
      bit for bit) at those head dims; one head at D = 320 and 600
      through the kernels of D = 384 and 640 on zero-padded inputs; then
      omnibiote-small with 2 heads of 512 as phase 19 runs 4 heads of 256:
@@ -414,7 +418,7 @@ def build():
     # backward's wgmma kernels (fused, dkv and dq) and the wgmma probes must
     # show none, and the probes no serialised products either
     wgmma_kernels = ("mh_bwd_fused_bf16", "mh_bwd_d256_bf16", "mh_bwd_dq_wgmma", "mh_bwd_pair",
-                     "dots_wgmma", "dots_n_wgmma", "scores_wgmma")
+                     "mh_bwd_dq_cta", "dots_wgmma", "dots_n_wgmma", "scores_wgmma")
     spilled = {k: v for k, v in spills.items() if k.split(": ")[1].startswith(wgmma_kernels) and v}
     check(not spilled, f"wgmma instances spill: {spilled}")
     # and no bf16 instance of the kernels past D = 256, nor any instance of
@@ -444,7 +448,11 @@ def build():
             check(max(smem_bytes(384), smem_bytes(512)) <= 232448,
                   "mh_bwd_pair takes more than 227 KB of shared memory a CTA")
         else:
-            past = f"; past 256 (the *_wide kernel, any D) {smem_bytes(512)} bytes"
+            pair = "mh_bwd_pair without dq" if name == "mh_flash_bwd_dkv" else "mh_bwd_dq_cta"
+            past = (f"; {pair} D=384 {smem_bytes(384)} bytes, D=512 {smem_bytes(512)} bytes; "
+                    f"past 512 (the *_wide kernel, any D) {smem_bytes(1024)} bytes")
+            check(max(smem_bytes(384), smem_bytes(512)) <= 232448,
+                  f"{pair} takes more than 227 KB of shared memory a CTA")
         print(f"  {name}: {kernel} dynamic shared memory a CTA: " + ", ".join(
             f"D={d} {smem_bytes(d)} bytes" for d in (64, 128, 256)) + past)
     int8_smem = _kernels.load_library('int8_flash_fwd').obt_int8_flash_fwd_smem_bytes
@@ -5189,10 +5197,13 @@ def _wide_timings(H=WIDE_HEADS, D=WIDE_D):
     def row(name, source, line, ms, plain_ms, bound, lib):
         # past 256: #1-#8 are the slice kernels of wide_attention.cuh, built
         # into each library, but for the bf16 forward (#1, #6) up to 512 and
-        # the bf16 fused backward (#2, #3) at 384 and 512
-        if D > 256 and name != "int8_flash_fwd" and not (
-                name in ("mh_flash_fwd", "flash_fwd") and D <= fa.WIDE_FWD_MAX_HEAD_DIM) and not (
-                name in ("mh_flash_bwd", "mh_flash_bwd_mk") and D in fa.PAIR_BWD_HEAD_DIMS):
+        # the bf16 backwards (#2-#5, #7, #8) at 384 and 512, the cluster
+        # kernels of mh_flash_bwd_pair.cuh
+        if D in fa.PAIR_BWD_HEAD_DIMS and name not in ("mh_flash_fwd", "flash_fwd",
+                                                       "int8_flash_fwd"):
+            source = "mh_flash_bwd_pair.cuh"
+        elif D > 256 and name != "int8_flash_fwd" and not (
+                name in ("mh_flash_fwd", "flash_fwd") and D <= fa.WIDE_FWD_MAX_HEAD_DIM):
             source = "wide_attention.cuh"
         rows[name] = {"name": f"{name} D={D}", "route": "cuda", "source": src + source,
                       "replaces": line, "launches": None, "max_abs_err": err[name],
@@ -5709,9 +5720,114 @@ def _pair_bwd_checks(dims=(384, 512), seed=2700):
     return worst
 
 
+def _split_pair_checks(dims=(384, 512), seed=2800):
+    """The bf16 split pair's kernels (mh_flash_bwd_pair.cuh::mh_bwd_pair
+    without its dQ, #4, a cluster; mh_bwd_dq_cta, #5) at each head dim of
+    `dims` (2 heads) over WIDE_LAYOUTS at dropout 0 and 0.1 (B 2 at T 1024,
+    1 at 2048), with skipping as the dispatch runs them, against the plain
+    backward at BWD_TOL; dq, dk and dv the same bits at a second launch and
+    with bounds on against the full walk (the split pair's contract); the
+    tiles walked against the bounds' count; then the per-head entry's #7 and
+    #8 (packed, dropout 0.1, no RoPE, counted under flash_bwd_*); the
+    libraries' routes (fp32, and bf16 at D = 640 and 1024, still the slice
+    kernels) and the launches. Returns the worst bf16 max |d|."""
+    import torch
+    from omnibiote_tpu_torch.ops import _kernels
+    from omnibiote_tpu_torch.ops import flash_attention as fa
+
+    dkv_route = _kernels.load_library("mh_flash_bwd_dkv").obt_mh_flash_bwd_dkv_route
+    dq_route = _kernels.load_library("mh_flash_bwd_dq").obt_mh_flash_bwd_dq_route
+    slices = ("mh_bwd_wide", "mh_bwd_dq_wide")
+    for D in (*dims, 640, 1024):
+        routes = {dt: (dkv_route(D, dt).decode(), dq_route(D, dt).decode()) for dt in (1, 0)}
+        want = {1: ("mh_bwd_pair", "mh_bwd_dq_cta") if D in fa.PAIR_BWD_HEAD_DIMS else slices,
+                0: slices}
+        check(routes == want, f"split pair at D={D} routes (bf16, fp32) to {routes}")
+        print(f"split pair routes at D={D}: bf16 {routes[1]}, fp32 {routes[0]}")
+    H, worst, t0 = WIDER_HEADS, 0.0, time.time()
+    for D in dims:
+        scale = 1.0 / math.sqrt(D)
+        for i, (layout, T, n_eos) in enumerate(WIDE_LAYOUTS):
+            for rate in (0.0, TRAIN_DROPOUT):
+                B = 2 if T == 1024 else 1
+                tag = f"D={D} B={B} T={T} bf16 {layout}{n_eos or ''} dropout {rate}"
+                s0 = seed + 10 * i + D + int(100 * rate)
+                q, k, v, _, rope = _attn_inputs(B, T, H, D, torch.bfloat16, "dense", seed=s0)
+                seg = _wide_ids(layout, B, T, n_eos, s0)
+                gen = torch.Generator(device="cuda").manual_seed(s0 + 1)
+                do = torch.randn(B, T, H, D, generator=gen, device="cuda").bfloat16()
+                kw = dict(scale=scale, dropout_rate=rate, seed=0x5B2 + s0)
+                sb = None if seg is None else fa.SegmentBounds(seg)
+                o, lse = fa.mh_flash_forward(q, k, v, seg, rope, segment_skip=True, bounds=sb,
+                                             **kw)
+                di = (o.float() * do.float()).sum(-1)
+                args = (q, k, v, do, lse, di, seg, rope)
+                _kernels.reset_launches()
+                runs, walked = {}, {}
+                for kind, fn in (("dkv", fa.mh_flash_bwd_dkv_kernel),
+                                 ("dq", fa.mh_flash_bwd_dq_kernel)):
+                    bounds = fa._kernel_bounds(kind, q, seg, True, sb)
+                    tq, tkv = fa.kernel_tiles(kind, torch.bfloat16, D)
+                    own, step = (tkv, tq) if kind == "dkv" else (tq, tkv)
+                    walked[kind] = (H * B * (T // own) * (T // step) if bounds is None
+                                    else H * int((bounds[1] - bounds[0] + 1).sum()))
+                    tup = lambda x: x if isinstance(x, tuple) else (x,)
+                    runs[kind] = [tup(_walked(lambda c: fn(*args, tile_bounds=bounds,
+                                                           tile_count=c, **kw),
+                                              walked[kind], f"{kind} {tag}")),
+                                  tup(fn(*args, **kw)), tup(fn(*args, tile_bounds=bounds, **kw))]
+                torch.cuda.synchronize()
+                check(_kernels.LAUNCHES == _counts(mh_flash_bwd_dkv=3, mh_flash_bwd_dq=3),
+                      f"{tag}: launches {_kernels.LAUNCHES}")
+                same = all(torch.equal(a, b) for got, full, again in runs.values()
+                           for a, b in (*zip(got, full), *zip(got, again)))
+                check(same, f"{tag}: the split pair with bounds differs from the full walk, "
+                      f"or a second launch from the first")
+                want = fa.mh_flash_backward_plain(*args, **kw)
+                rel, err = _hold_bwd((*runs["dq"][0], *runs["dkv"][0]), want, "bfloat16", tag)
+                worst = max(worst, err)
+                print(f"split pair {tag}: tiles walked dkv {walked['dkv']}, dq {walked['dq']} (as "
+                      f"the bounds give), max|d|/max|g| vs plain {rel:.2e} (tolerance "
+                      f"{BWD_TOL['bfloat16']}), max|d| {err:.3e}; dq, dk, dv bounds on == off "
+                      f"and at a second launch the same bits")
+                del q, k, v, do, o, lse, di, args, runs, want
+                torch.cuda.empty_cache()
+        # the per-head entry's calls (#7, #8): no RoPE, no bounds
+        B, T = 2, 1024
+        q, k, v, _, _ = _attn_inputs(B, T, H, D, torch.bfloat16, "dense", seed=seed + D)
+        seg = _wide_ids("packed", B, T, 3, seed + D)
+        do = torch.randn(B, T, H, D, generator=torch.Generator(device="cuda").manual_seed(
+            seed + D + 1), device="cuda").bfloat16()
+        kw = dict(scale=1.0 / math.sqrt(D), dropout_rate=TRAIN_DROPOUT, seed=0x5B3 + D)
+        o, lse = fa.mh_flash_forward(q, k, v, seg, None, **kw)
+        args = (q, k, v, do, lse, (o.float() * do.float()).sum(-1), seg, None)
+        _kernels.reset_launches()
+        dk, dv = fa.mh_flash_bwd_dkv(*args, **kw, counter="flash_bwd_dkv")
+        dq = fa.mh_flash_bwd_dq(*args, **kw, counter="flash_bwd_dq")
+        again = (fa.mh_flash_bwd_dq(*args, **kw, counter="flash_bwd_dq"),
+                 *fa.mh_flash_bwd_dkv(*args, **kw, counter="flash_bwd_dkv"))
+        torch.cuda.synchronize()
+        check(_kernels.LAUNCHES == _counts(flash_bwd_dkv=2, flash_bwd_dq=2),
+              f"per-head split pair at D={D}: launches {_kernels.LAUNCHES}")
+        check(all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)),
+              f"per-head split pair at D={D}: a second launch differs from the first")
+        rel, err = _hold_bwd((dq, dk, dv), fa.mh_flash_backward_plain(*args, **kw), "bfloat16",
+                             f"per-head D={D}")
+        worst = max(worst, err)
+        print(f"split pair per-head entry D={D} B={B} T={T} bf16 packed3 dropout "
+              f"{TRAIN_DROPOUT}: max|d|/max|g| vs plain {rel:.2e}, max|d| {err:.3e}; a second "
+              f"launch the same bits")
+        del q, k, v, do, o, lse, args, dq, dk, dv, again
+        torch.cuda.empty_cache()
+    print(f"split pair checks: {time.time() - t0:.1f} s, worst max|d| {worst:.3e}")
+    return worst
+
+
 def head_dim_wide_phase(workdir, tok_path, seqs, baseline):
     """Phase 20: #1-#5 at D = 384, 512 and 1024 and #9 there against their
-    plain versions on small shapes, one head at D = 320 and 600 padded,
+    plain versions on small shapes, the bf16 backwards (the fused cluster,
+    the split pair) at D = 384 and 512 on the layouts of the main paths,
+    one head at D = 320 and 600 padded,
     then omnibiote-small with 2 heads of 512 as phase 19 runs 4 heads of
     256, beside phase 19's 8-head rates (`baseline`). Returns
     _head_dim_phase's."""
@@ -5721,7 +5837,7 @@ def head_dim_wide_phase(workdir, tok_path, seqs, baseline):
             w = _wide_kernel_checks(WIDER_HEADS, D, WIDER_LAYOUTS, seed=2500 + 100 * i,
                                     lse_shape=(1, 512))
             worst = {n: max(worst[n], w[n]) for n in worst}
-        worst["bwd"] = max(worst["bwd"], _pair_bwd_checks())
+        worst["bwd"] = max(worst["bwd"], _pair_bwd_checks(), _split_pair_checks())
         _wider_int8_checks()
         _wide_padded_checks(WIDER_PADDED)
         return worst

@@ -110,6 +110,7 @@ _SIGNATURES = {
             _c.c_int, _c.c_int, _c.c_int, _c.c_int,    # B, T, H, D
             _c.c_void_p]),                             # stream
         "obt_mh_flash_bwd_dkv_smem_bytes": (_c.c_int, [_c.c_int]),
+        "obt_mh_flash_bwd_dkv_route": (_c.c_char_p, [_c.c_int, _c.c_int]),
         "obt_cuda_error_string_bwd_dkv": (_c.c_char_p, [_c.c_int]),
     },
     "mh_flash_bwd_dq": {
@@ -131,6 +132,7 @@ _SIGNATURES = {
             _c.c_int, _c.c_int, _c.c_int, _c.c_int,    # B, T, H, D
             _c.c_void_p]),                             # stream
         "obt_mh_flash_bwd_dq_smem_bytes": (_c.c_int, [_c.c_int]),
+        "obt_mh_flash_bwd_dq_route": (_c.c_char_p, [_c.c_int, _c.c_int]),
         "obt_cuda_error_string_bwd_dq": (_c.c_char_p, [_c.c_int]),
     },
     "int8_flash_fwd": {

@@ -363,6 +363,20 @@ __device__ __forceinline__ void wgmma_ss_m64n32k16(float (&d)[16], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
+// D (64 x 16, fp32) (+)= A (64 x 16, bf16, shared) . B (16 x 16, bf16,
+// shared); TA / TB set the transpose bit of A / B; scale_d == 0 overwrites D.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_m64n16k16(float (&d)[8], uint64_t da,
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
 // D (64 x 256, fp32) (+)= A (64 x 16, bf16, shared, K-major) . B (16 x 256,
 // bf16, shared; TB sets its transpose bit: MN-major); scale_d == 0
 // overwrites D.

@@ -26,12 +26,21 @@
 // tile's (the TPU kernel's use_bounds); a skipped tile would have added
 // exact zeros, so dk and dv are bit for bit those of the full walk.
 //
+// Head dims past 256 (D % 128 == 0). In bf16 at D = 384 and 512 the fused
+// kernel's cluster without its dq (mh_flash_bwd_pair.cuh::mh_bwd_pair with
+// WITH_DQ = false): a thread-block cluster of two CTAs (three at D = 384)
+// owns a 64-row kv tile, each CTA a part of the head dim closed under
+// rotate-half, the partial S^T and dP^T summed in rank order through
+// distributed shared memory; it takes lse2 and di as (B, H, T) and rotates
+// k itself. In fp32, and in bf16 past 512, wide_attention.cuh::mh_bwd_wide
+// without its dQ (a CTA a 64-row kv tile and a 128-lane slice of dk and
+// dv). The route is by head dim and dtype (fused_route).
+//
 // Bound. At B=8, T=2048, H=8, D=128 in bf16 the four products are
 // 8*B*T^2*H*D = 275 GFLOP over all (q, k) pairs (0.278 ms at 989 TFLOP/s),
 // less in proportion to the visible tiles on packed rows; q, k, v, do, dk,
 // dv, lse2 and di are 202 MB (0.06 ms at 3.35 TB/s): bound by operations.
-#include "mh_flash_bwd_kernels.cuh"
-#include "wide_attention.cuh"
+#include "mh_flash_bwd_pair.cuh"
 
 namespace {
 
@@ -100,13 +109,13 @@ bool shape_ok(int B, int T, int H, int t_multiple) {
 
 // dtype: 0 = float32, 1 = bfloat16; q, k, v, dout, dk, dv (B, T, H, D) of
 // that type, D 64, 128, 256 or a multiple of 128 past 256, T a multiple of
-// 64 (fp32) or 128 (bf16); lse2 and di fp32, (B, T, H) for fp32 and past
-// 256, and (B, H, T) for bf16 up to 256 (its producer bulk-copies a q
-// tile's 64 values of one head); q_seg and kv_seg (B, T) int32, both
+// 64 (fp32) or 128 (bf16); lse2 and di fp32, (B, H, T) for bf16 up to 256
+// and at 384 and 512 (the producer bulk-copies a q tile's 64 values of one
+// head), else (B, T, H); q_seg and kv_seg (B, T) int32, both
 // null or both given (as in obt_mh_flash_fwd). With RoPE
 // (cos_t and sin_t non-null), q_rot is a scratch tensor of q's shape and
-// type, and so is k_rot for fp32 and past 256 (bf16 up to 256 rotates k in
-// the kernel; k_rot may be null there). q_lo and q_hi, both null or both
+// type, and so is k_rot where lse2 is (B, T, H) (the other kernels rotate k
+// in the kernel; k_rot may be null there). q_lo and q_hi, both null or both
 // int32 (B, T / kv tile) in units of the dtype's q tile (kv tile 128, 64 at
 // D = 256, and q tile 64 for bf16; 32 and 16 for fp32; 64 and 64 past 256),
 // bound the q tiles each kv tile walks; tile_count is null or
@@ -149,6 +158,10 @@ extern "C" int obt_mh_flash_bwd_dkv(const void* q, const void* k, const void* v,
     case 256: return (int)launch_d<256>(q, k, v, dout, l, dd, qsg, kvsg, c, s, q_rot, k_rot, lo, hi, tc, dk, dv, B, T, H, scale_log2, scale, dtype == 1, drop != 0, dp, st);
     default:
       if (!obt::wide::head_dim_ok(D)) return (int)cudaErrorInvalidValue;
+      if (dtype == 1 && pair_head_dim(D))
+        return (int)pair_backward<false>(q, k, v, dout, l, dd, qsg, kvsg, c, s, q_rot, lo, hi,
+                                         tc, nullptr, nullptr, dk, dv, B, T, H, D, scale_log2,
+                                         scale, drop != 0, dp, st);
       return (int)obt::wide::backward<false>(q, k, v, dout, l, dd, qsg, kvsg, c, s, q_rot, k_rot, lo,
                                         hi, tc, nullptr, nullptr, dk, dv, B, T, H, D,
                                         scale_log2, scale, dtype == 1, drop != 0,
@@ -179,8 +192,18 @@ extern "C" int obt_mh_flash_bwd_dkv_smem_bytes(int D) {
   return D == 64    ? (int)bf16_smem_bytes<64, false>()
          : D == 128 ? (int)bf16_smem_bytes<128, false>()
          : D == 256 ? (int)bf16_smem_bytes_256()
+         : D == 384 ? (int)pair_smem_bytes<384, false>()
+         : D == 512 ? (int)pair_smem_bytes<512, false>()
          : obt::wide::head_dim_ok(D) ? obt::wide::bwd_smem_bytes()
                     : -1;
+}
+
+// The name of the kernel obt_mh_flash_bwd_dkv launches at head dim D and
+// dtype (0 = float32, 1 = bfloat16), each without its dq:
+// "mh_bwd_fused_bf16", "mh_bwd_d256_bf16", "mh_bwd_pair", "mh_bwd_f32",
+// "mh_bwd_wide", or "none".
+extern "C" const char* obt_mh_flash_bwd_dkv_route(int D, int dtype) {
+  return fused_route(D, dtype);
 }
 
 extern "C" const char* obt_cuda_error_string_bwd_dkv(int code) {

@@ -47,13 +47,21 @@
 // descriptors are formed inside the walk (hoisted, their 32 loop-invariant
 // descriptors spilled). The fp32 kernel walks 16-row kv tiles there.
 //
-// Head dims past 256 (D % 128 == 0): wide_attention.cuh::mh_bwd_dq_wide, a
-// CTA a (64-row q tile, 128-lane slice of dq), S and dP summed over
-// streamed 64-column panels and recomputed by every slice; see its note.
+// Head dims past 256 (D % 128 == 0). In bf16 at D = 384 and 512,
+// mh_flash_bwd_pair.cuh::mh_bwd_dq_cta: a CTA owns a 64-row q tile with all
+// D lanes and walks 32-row (16-row at 512) kv tiles from a TMA ring, its
+// consumers forming the partial S and dP over halves of the head dim,
+// adding each other's, and dQ on lanes of their own closed under
+// rotate-half; each product done once, no atomics; see its note. In fp32,
+// and in bf16 past 512,
+// wide_attention.cuh::mh_bwd_dq_wide: a CTA a (64-row q tile, 128-lane
+// slice of dq), S and dP summed over streamed 64-column panels and
+// recomputed by every slice. The route is by head dim and dtype (dq_route).
 #include <atomic>
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
+#include "mh_flash_bwd_pair.cuh"
 #include "philox.cuh"
 #include "wide_attention.cuh"
 
@@ -650,6 +658,16 @@ bool shape_ok(int B, int T, int H, int t_multiple) {
          T % t_multiple == 0;
 }
 
+// The kernel obt_mh_flash_bwd_dq launches at head dim D and dtype (0
+// float32, 1 bfloat16), by name.
+const char* dq_route(int D, int dtype) {
+  if (dtype == 1 && (D == 64 || D == 128 || D == 256)) return "mh_bwd_dq_wgmma";
+  if (dtype == 1 && obt::bwd::pair_head_dim(D)) return "mh_bwd_dq_cta";
+  if (dtype == 0 && (D == 64 || D == 128 || D == 256)) return "mh_bwd_dq_f32";
+  if ((dtype == 0 || dtype == 1) && obt::wide::head_dim_ok(D)) return "mh_bwd_dq_wide";
+  return "none";
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; q, k, v, dout, dq (B, T, H, D) of that
@@ -657,7 +675,8 @@ bool shape_ok(int B, int T, int H, int t_multiple) {
 // fp32; q_seg and kv_seg (B, T) int32, both null or both given (as in
 // obt_mh_flash_fwd); D 64, 128, 256 or a multiple of 128 past 256; with
 // RoPE (cos_t and sin_t non-null), k_rot is a scratch tensor of k's shape
-// and type, and so is q_rot past 256 (else it may be null). kv_lo and
+// and type, and so is q_rot past 256 but for bf16 at 384 and 512 (where
+// the kernel rotates q itself; else it may be null). kv_lo and
 // kv_hi, both null or both int32 (B, T / q tile) in units of the dtype's kv
 // tile (q tile 128 and kv tile 64 (32 at D = 256) for bf16, 32 and 32 (16
 // at D = 256) for fp32, 64 and 64 past 256), bound the kv tiles
@@ -699,6 +718,10 @@ extern "C" int obt_mh_flash_bwd_dq(const void* q, const void* k, const void* v,
     case 256: return (int)launch_d<256>(q, k, v, dout, l, dd, qsg, kvsg, c, s, k_rot, lo, hi, tc, dq, B, T, H, scale_log2, scale, dtype == 1, drop != 0, dp, st);
     default:
       if (!obt::wide::head_dim_ok(D)) return (int)cudaErrorInvalidValue;
+      if (dtype == 1 && obt::bwd::pair_head_dim(D))
+        return (int)obt::bwd::dq_cta_d(q, k, v, dout, l, dd, qsg, kvsg, c, s, k_rot, lo, hi, tc,
+                                       dq, B, T, H, D, scale_log2, scale, drop != 0,
+                                       obt::bwd::DropParams{seed, thresh, keep_scale}, st);
       return (int)obt::wide::dq_only(q, k, v, dout, l, dd, qsg, kvsg, c, s, q_rot, k_rot, lo, hi, tc,
                                 dq, B, T, H, D, scale_log2, scale, dtype == 1, drop != 0,
                                 obt::wide::Drop{seed, thresh, keep_scale}, st);
@@ -728,9 +751,16 @@ extern "C" int obt_mh_flash_bwd_dq_smem_bytes(int D) {
   return D == 64    ? (int)bf16_smem_bytes<64>()
          : D == 128 ? (int)bf16_smem_bytes<128>()
          : D == 256 ? (int)bf16_smem_bytes<256>()
+         : D == 384 ? (int)obt::bwd::dq_cta_smem_bytes<384>()
+         : D == 512 ? (int)obt::bwd::dq_cta_smem_bytes<512>()
          : obt::wide::head_dim_ok(D) ? obt::wide::dq_smem_bytes()
                     : -1;
 }
+
+// The name of the kernel obt_mh_flash_bwd_dq launches at head dim D and
+// dtype (0 = float32, 1 = bfloat16): "mh_bwd_dq_wgmma", "mh_bwd_dq_cta",
+// "mh_bwd_dq_f32", "mh_bwd_dq_wide", or "none".
+extern "C" const char* obt_mh_flash_bwd_dq_route(int D, int dtype) { return dq_route(D, dtype); }
 
 extern "C" const char* obt_cuda_error_string_bwd_dq(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

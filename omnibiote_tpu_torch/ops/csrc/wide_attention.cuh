@@ -4,15 +4,15 @@
 // computes what the kernel of its library computes at D <= 256 (see
 // mh_flash_fwd.cu, mh_flash_bwd.cu, mh_flash_bwd_dkv.cu and
 // mh_flash_bwd_dq.cu for the TPU kernels they replace and the rounding
-// points), and the libraries take these kernels at such a D, but for two
+// points), and the libraries take these kernels at such a D, but for the
 // Hopper kernels at D = 384 and 512 in bf16: the forward
 // (mh_flash_fwd.cu::mh_fwd_wide_wgmma, the scores' reduction split between
-// two consumer warpgroups) and the fused backward (mh_flash_bwd.cu::
-// mh_bwd_pair, a thread-block cluster a kv tile, each CTA a part of the head
-// dim, the partial scores summed through distributed shared memory), both
-// wgmma from a TMA ring. So the kernels here serve: the forward and the
-// fused backward in fp32 and in bf16 past 512; the split pair's dkv and dq
-// kernels at every D past 256.
+// two consumer warpgroups) and the backwards (mh_flash_bwd_pair.cuh: the
+// fused kernel and the split pair's dkv kernel mh_bwd_pair, a thread-block
+// cluster a kv tile, each CTA a part of the head dim, the partial scores
+// summed through distributed shared memory; the dq kernel mh_bwd_dq_cta, a
+// CTA a q tile with all D lanes), all wgmma from TMA rings. So the kernels here serve fp32
+// at every D past 256 and bf16 past 512.
 //
 // Why a design of its own. The D <= 256 kernels hold whole-D tiles in shared
 // memory and a 64-row output accumulator of D fp32 a thread beside the
@@ -49,9 +49,7 @@
 // Tiles: 64 q rows and 64 kv rows in every kernel and dtype
 // (ops/flash_attention.py::kernel_tiles at D > 256: KERNEL_TILES_SLICED,
 // and KERNEL_TILES_WIDE but for the bf16 forward). These are first-cut
-// kernels, right before fast: no TMA, no wgmma, no warp specialisation;
-// the split pair's (dkv, then dq) are the next to be rebuilt (ROADMAP
-// Queue 2).
+// kernels, right before fast: no TMA, no wgmma, no warp specialisation.
 #pragma once
 #include <atomic>
 

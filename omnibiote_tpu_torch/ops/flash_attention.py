@@ -16,13 +16,17 @@ built at head dims 64, 128 and 256, and past 256 at every multiple of 128.
 There the bf16 forward up to WIDE_FWD_MAX_HEAD_DIM (`mh_fwd_wide_wgmma`)
 gives a CTA 64 q rows and all D lanes, two consumer warpgroups splitting
 the scores' reduction and the output's lanes in halves (each product done
-once); the bf16 fused backward at PAIR_BWD_HEAD_DIMS (`mh_bwd_pair`) gives
-a thread-block cluster of CTAs a 64-row kv tile, each CTA a part of the head
-dim closed under rotate-half (`pair_part_lanes`), the partial scores summed
-through distributed shared memory (S^T formed twice a CTA, every other
-product once); the other
-backward kernels, the fp32 ones and the bf16 ones past those head dims are
-those of `ops/csrc/wide_attention.cuh`: a CTA owns one 128-lane slice of the
+once); at PAIR_BWD_HEAD_DIMS the bf16 backwards are those of
+`ops/csrc/mh_flash_bwd_pair.cuh`: the fused kernel and the split pair's dkv
+kernel (`mh_bwd_pair`, with and without dQ) give a thread-block cluster a
+64-row kv tile, each CTA a part of the head dim closed under rotate-half
+(`pair_part_lanes`), the partial scores summed through distributed shared
+memory (S^T formed twice a CTA, every other product once); the dq kernel
+(`mh_bwd_dq_cta`) gives one CTA a 64-row q tile with all D lanes, its two
+consumers splitting the scores' reduction and dQ's lanes (each product
+once); the fp32 backward
+kernels and the bf16 ones past those head dims are those of
+`ops/csrc/wide_attention.cuh`: a CTA owns one 128-lane slice of the
 output (lanes [64c, 64c + 64) and [D/2 + 64c, D/2 + 64c + 64), closed under
 rotate-half) and recomputes the products over the whole head dim from
 streamed panels.
@@ -124,9 +128,10 @@ KERNEL_TILES_BY_HEAD_DIM = {
 # The tiles past 256 up to WIDE_FWD_MAX_HEAD_DIM. The bf16 forward there
 # (mh_flash_fwd.cu::mh_fwd_wide_wgmma) gives a CTA 64 q rows and all D
 # lanes and walks 32-row kv tiles (a two-stage K and V ring beside the 64 x
-# D q tile fits the 227 KB a CTA may take); the bf16 fused backward at
-# PAIR_BWD_HEAD_DIMS gives a cluster of CTAs 64 kv rows and walks 64-row q
-# tiles; every other kernel gives a CTA one 128-lane slice of the output
+# D q tile fits the 227 KB a CTA may take); at PAIR_BWD_HEAD_DIMS the bf16
+# fused and dkv kernels give a cluster of CTAs 64 kv rows and walk 64-row q
+# tiles (the bf16 dq kernel's tiles there are KERNEL_TILES_BY_HEAD_DIM's);
+# every other kernel gives a CTA one 128-lane slice of the output
 # and streams the head dim of q, k, v and do in 64-column panels, on 64 q
 # rows and 64 kv rows. Past
 # WIDE_FWD_MAX_HEAD_DIM the bf16 forward is that slice kernel too
@@ -135,10 +140,18 @@ KERNEL_TILES_SLICED = {kind: {torch.bfloat16: (64, 64), torch.float32: (64, 64)}
                        for kind in ("fwd", "fused", "dkv", "dq")}
 KERNEL_TILES_WIDE = {kind: dict(dtypes) for kind, dtypes in KERNEL_TILES_SLICED.items()}
 KERNEL_TILES_WIDE["fwd"][torch.bfloat16] = (64, 32)
+# At D = 384 and 512 the bf16 dq kernel is one CTA a 64-row q tile with
+# all D lanes (mh_bwd_dq_cta), walking 32-row kv tiles at 384 and 16-row at
+# 512 (Q, dO and a two-stage K and V ring fill the 227 KB a CTA may take).
+KERNEL_TILES_BY_HEAD_DIM.update({
+    D: {**KERNEL_TILES_WIDE, "dq": {torch.bfloat16: (64, bkv), torch.float32: (64, 64)}}
+    for D, bkv in ((384, 32), (512, 16))})
 WIDE_FWD_MAX_HEAD_DIM = 512
-# The head dims at which the bf16 fused backward is the cluster kernel
-# (ops/csrc/mh_flash_bwd.cu::mh_bwd_pair) on the fused tiles of
-# KERNEL_TILES_WIDE; it takes lse2 and di as (B, H, T) and rotates k itself.
+# The head dims at which the bf16 backward kernels are those of
+# ops/csrc/mh_flash_bwd_pair.cuh: the fused and dkv kernels' cluster
+# (mh_bwd_pair) takes lse2 and di as (B, H, T) and rotates k itself; the dq
+# kernel (mh_bwd_dq_cta, one CTA a q tile) takes them as (B, T, H), k
+# rotated ahead, and rotates q itself.
 PAIR_BWD_HEAD_DIMS = (384, 512)
 # The multiple of T every kernel takes per dtype: each bf16 CTA owns 128
 # rows; the fp32 kernels take 64.
@@ -181,14 +194,17 @@ def kernel_tiles(kind: str, dtype: torch.dtype, head_dim: int) -> Tuple[int, int
     D = padded_head_dim(head_dim)
     if D > WIDE_FWD_MAX_HEAD_DIM:
         return KERNEL_TILES_SLICED[kind][dtype]
+    if D in KERNEL_TILES_BY_HEAD_DIM:
+        return KERNEL_TILES_BY_HEAD_DIM[D][kind][dtype]
     if D > KERNEL_HEAD_DIMS[-1]:
         return KERNEL_TILES_WIDE[kind][dtype]
-    return KERNEL_TILES_BY_HEAD_DIM.get(D, KERNEL_TILES)[kind][dtype]
+    return KERNEL_TILES[kind][dtype]
 
 
 def pair_part_lanes(head_dim: int):
-    """The head-dim lanes of each CTA of the bf16 fused backward's cluster
-    at head_dim in PAIR_BWD_HEAD_DIMS (a mirror of mh_bwd_pair's map): D // W
+    """The head-dim lanes of each CTA of the bf16 fused and dkv kernels'
+    cluster at head_dim in PAIR_BWD_HEAD_DIMS (a mirror of mh_bwd_pair's
+    map): D // W
     parts of W lanes (W = 256 at D = 512, 128 at D = 384), part c holding
     [WQ·c, WQ·c + WQ) and D/2 + the same, WQ = W / 2. A list of int64
     tensors, part c's local lane l at entry l: lanes l and WQ + l of a part
@@ -765,13 +781,10 @@ _BWD_KERNELS = {
 def bwd_rows_by_head(kind: str, dtype: torch.dtype, head_dim: int) -> bool:
     """Whether backward kernel `kind` takes lse2 and di as (B, H, T) and
     rotates k itself: the bf16 fused kernel (also the bf16 dkv kernel) up to
-    256 and the bf16 fused kernel at PAIR_BWD_HEAD_DIMS bulk-copy a q tile's
-    lse2 and di of one head. The others take (B, T, H) and k rotated ahead."""
-    if dtype != torch.bfloat16:
-        return False
-    if head_dim <= KERNEL_HEAD_DIMS[-1]:
-        return kind in ("fused", "dkv")
-    return kind == "fused" and head_dim in PAIR_BWD_HEAD_DIMS
+    256 and at PAIR_BWD_HEAD_DIMS bulk-copy a q tile's lse2 and di of one
+    head. The others take (B, T, H) and k rotated ahead."""
+    return (dtype == torch.bfloat16 and kind in ("fused", "dkv")
+            and (head_dim <= KERNEL_HEAD_DIMS[-1] or head_dim in PAIR_BWD_HEAD_DIMS))
 
 
 def mh_flash_bwd_kernel(kind: str, q, k, v, do, lse2, di, segment_ids=None,
@@ -796,15 +809,17 @@ def mh_flash_bwd_kernel(kind: str, q, k, v, do, lse2, di, segment_ids=None,
     cos_ptr, sin_ptr = _rope_ptrs(rope, q)
     lo_ptr, hi_ptr, tc_ptr = _bounds_ptrs(
         tile_bounds, q, kernel_tiles(kind, q.dtype, D)[owner], tile_count)
-    wide = D > KERNEL_HEAD_DIMS[-1]
+    # the slice kernels past 256 (every bf16 one but the clusters')
+    sliced = D > KERNEL_HEAD_DIMS[-1] and not (q.dtype == torch.bfloat16
+                                               and D in PAIR_BWD_HEAD_DIMS)
     hopper = bwd_rows_by_head(kind, q.dtype, D)
     if hopper:
         lse2, di = (t.transpose(1, 2).contiguous() for t in (lse2, di))
     # scratch: q (where the kernel re-reads it: the fused and dkv kernels,
-    # and every kernel past 256) and k rotated once per call, and the fused
+    # and the slice kernels) and k rotated once per call, and the fused
     # kernel's fp32 dq sums
     rotated = rope is not None
-    rot = [torch.empty_like(q) if rotated and (owner or wide) else None,
+    rot = [torch.empty_like(q) if rotated and (owner or sliced) else None,
            torch.empty_like(k) if rotated and not hopper else None]
     acc = ([torch.empty(q.shape, dtype=torch.float32, device=q.device)]
            if dq_scratch else [])

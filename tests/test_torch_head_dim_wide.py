@@ -218,7 +218,8 @@ WIDE_DIMS = ((320, False, 384), (384, True, 384), (512, True, 512), (600, False,
 def test_tiles_padding_and_routes_past_256(D, built, padded):
     """kernel_tiles gives the wide kernels' tiles at every D past 256 (the
     padded head dim's where one head runs padded): 64 x 64, but 64 q rows
-    and 32-row kv tiles for the bf16 forward up to 512 (the wgmma kernel);
+    and 32-row kv tiles for the bf16 forward up to 512 (the wgmma kernel)
+    and the bf16 dq kernel at 384 (one CTA a q tile), 16-row at 512;
     padded_head_dim the next multiple of 128, and attention_path on a CUDA
     tensor the JAX route, raising for no head dim in bf16 or fp32: flash
     (int8 where D % 128 == 0 and no dropout) for one head or D % 128 == 0,
@@ -228,9 +229,15 @@ def test_tiles_padding_and_routes_past_256(D, built, padded):
     for dtype in (torch.bfloat16, torch.float32):
         for kind in ("fwd", "fused", "dkv", "dq"):
             bq, bkv = fa.kernel_tiles(kind, dtype, D)
-            wgmma = kind == "fwd" and dtype == torch.bfloat16 and padded <= 512
-            table = fa.KERNEL_TILES_WIDE if padded <= 512 else fa.KERNEL_TILES_SLICED
-            assert (bq, bkv) == table[kind][dtype] == ((64, 32) if wgmma else (64, 64))
+            # the wgmma kernels' kv tiles in bf16 up to 512: 32 rows in the
+            # forward, 32 and 16 rows in the dq kernel (one CTA a q tile with
+            # all D lanes) at 384 and 512
+            want = (64, 64)
+            if dtype == torch.bfloat16 and padded <= 512 and kind in ("fwd", "dq"):
+                want = (64, 16) if kind == "dq" and padded == 512 else (64, 32)
+            table = (fa.KERNEL_TILES_BY_HEAD_DIM.get(padded, fa.KERNEL_TILES_WIDE)
+                     if padded <= 512 else fa.KERNEL_TILES_SLICED)
+            assert (bq, bkv) == table[kind][dtype] == want
             assert fa.KERNEL_T_MULTIPLE[dtype] % bq == 0
         for n_head in (1, 2, 8):
             for int8 in (False, True):

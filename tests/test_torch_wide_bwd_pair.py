@@ -146,15 +146,17 @@ def test_emulated_pair_matches_jax_vjp(D):
 
 
 def test_bf16_fused_backward_takes_the_cluster_kernel_layout():
-    """What the wrapper hands the kernels: at D = 384 and 512 only the bf16
-    fused kind (the cluster kernel, on the fused tiles (64, 64)) takes lse2
-    and di by head, (B, H, T), and rotates k itself, as the Hopper kernels up
-    to 256 do; fp32, the split pair and D = 640 keep the slice kernels' (B,
-    T, H) and k rotated ahead."""
+    """What the wrapper hands the kernels: at D = 384 and 512 the bf16 fused
+    kind (the cluster kernel, on the fused tiles (64, 64)) and the dkv kind
+    (the same cluster without its dQ) take lse2 and di by head, (B, H, T),
+    and rotate k themselves, as the Hopper kernels up to 256 do; the dq
+    kind (its own cluster), fp32 and D = 640 keep (B, T, H) and k rotated
+    ahead."""
     for D in fa.PAIR_BWD_HEAD_DIMS:
         assert fa.kernel_tiles("fused", torch.bfloat16, D) == (64, 64)
         assert fa.bwd_rows_by_head("fused", torch.bfloat16, D)
-        assert not any(fa.bwd_rows_by_head(kind, torch.bfloat16, D) for kind in ("dkv", "dq"))
+        assert fa.bwd_rows_by_head("dkv", torch.bfloat16, D)
+        assert not fa.bwd_rows_by_head("dq", torch.bfloat16, D)
         assert not fa.bwd_rows_by_head("fused", torch.float32, D)
     for D in (128, 256):
         assert fa.bwd_rows_by_head("fused", torch.bfloat16, D)

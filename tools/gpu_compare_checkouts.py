@@ -26,11 +26,13 @@ times, with `chip_smoke.py`'s own helpers and inputs:
     2048 (fused, and the split pair) and ctx 4096 (fused).
 
 With --wide a process times only the backward kernels past head dim 256, at
-2 heads of 512 (omnibiote-small's width, `chip_smoke.py` phase 20's inputs):
-the fused #2 at B=16 T=1024 and #3 at B=8 T=2048 (and both at 2 heads of
-384), the split pair #4 and #5 at B=8 T=2048, all with RoPE, dropout 0.1 and
-segment skipping, the per-head #7 and #8 at B=16 T=1024 (no RoPE); and train
+2 heads of 512 and of 384 (omnibiote-small's width, `chip_smoke.py` phase
+20's inputs): the fused #2 at B=16 T=1024 and #3 at B=8 T=2048, the split
+pair #4 and #5 at B=8 T=2048, all with RoPE, dropout 0.1 and segment
+skipping, the per-head #7 and #8 at B=16 T=1024 (no RoPE); and train
 tokens/s of omnibiote-small at ctx 1024 with 2 heads of 512 and with its 8
+heads of 128 (6 steps each), and at ctx 2048 (B=16, mini 8, 5 EOS a row)
+with 2 heads of 512 on the fused backward and on the split pair and with 8
 heads of 128 (6 steps each).
 
 With --probes a process times only the dkv product-mix probe #11
@@ -102,12 +104,12 @@ def measure_wide(c):
             name, n = ("mh_flash_bwd", 20) if T == 1024 else ("mh_flash_bwd_mk", 10)
             out[f"{name} D={D} B={B} T={T} skip ms"] = c.cuda_ms(
                 lambda: fa.mh_flash_backward(*args, **kw, **skip), n)
-            if D == 512 and T == 2048:
+            if T == 2048:
                 for name, f in (("mh_flash_bwd_dkv", fa.mh_flash_bwd_dkv),
                                 ("mh_flash_bwd_dq", fa.mh_flash_bwd_dq)):
                     out[f"{name} D={D} B={B} T={T} skip ms"] = c.cuda_ms(
                         lambda: f(*args, **kw, **skip), 10)
-            if D == 512 and T == 1024:
+            if T == 1024:
                 kwh = dict(scale=scale, dropout_rate=c.TRAIN_DROPOUT, seed=2562)
                 oh, lseh = fa.mh_flash_forward(q, k, v, seg, None, **kwh)
                 argsh = (q, k, v, do, lseh, (oh.float() * do.float()).sum(-1), seg, None)
@@ -125,6 +127,15 @@ def measure_wide(c):
                      n_head=n_head, block_size=1024)
         label = f"ctx 1024, {n_head} heads of {cfg.n_embd // n_head}"
         out[f"train tokens/s {label}"] = c._throughput(cfg, tc, 3, 6, label)
+    tc = TrainConfig(batch_size=16, mini_batch_size=8, ctx_len=2048,
+                     token_budget=float(16 * 2048 * 10000), seed=0)
+    for n_head, split in ((8, False), (H, False), (H, True)):
+        cfg = preset("omnibiote-small", vocab_size=65536, dropout=c.TRAIN_DROPOUT,
+                     n_head=n_head, block_size=2048)
+        label = (f"ctx 2048, {n_head} heads of {cfg.n_embd // n_head}, "
+                 f"{'split pair' if split else 'fused backward'}")
+        with c._attention_switch(FUSED_MULTIKV_BWD=not split):
+            out[f"train tokens/s {label}"] = c._throughput(cfg, tc, c.LONG_EOS, 6, label)
     return out
 
 
