@@ -251,10 +251,37 @@ toolkit and g++. It
      int8), training at ctx 1024 and 2048 with exact launch counts, the
      per-head entry, and seq/s and tokens/s beside phase 19's 8 heads of
      128 from the same run;
- 21. prints the card's name and power limit, one JSON line of kernel
+ 21. a reference OmniBioTE checkpoint: a .pt in the reference's layout
+     at omnibiote-small full width (seeded weights, the freqs_cis RoPE
+     buffers, {"model": {"module." + name: tensor}, "step": 7}) through
+     `python -m omnibiote_tpu_torch.utils.torch_convert` in a subprocess
+     (its size and the seconds to convert), the converted tensors bit for
+     bit against the seed's; `Encoder.from_checkpoint` on the converted
+     directory, on the card by default, over the serving slice's 64
+     sequences with every pooling (#1, 8 a batch), bit for bit against an
+     Encoder over the same state loaded in memory and against the plain
+     attention; the same with int8 weights and attention (#9) against the
+     bf16 embeddings and the plain int8 attention; the FASTA CLI on the
+     directory; encode(mean) seq/s at B=32, T=1024 beside phase 3's; the
+     bare, '_orig_mod.'-prefixed and pickled-module (a stand-in module class
+     whose head comes from a stub `mup`) forms through the CLI at a small
+     width;
+ 22. flash_attention and int8_flash_attention called directly at T 192,
+     320 and 1000 on CUDA tensors (rows zero-padded to the kernels' T
+     multiple, the pad rows on a segment id of their own): #1-#5 at B=2, 8
+     heads of 128 (bf16, fp32) and 2 heads of 512 (bf16), dense, packed and
+     PAD-tail rows, RoPE, dropout 0 and 0.1, the forward, the fused
+     backward with one kv block and with several, and the split pair, each
+     against its plain version at the unpadded T; one head at D = 96; the
+     per-head entry at T = 192; #9 at T = 192 and 320; each entry's time
+     at T = 192 beside T = 256 (taken after phase 10, before the first
+     other profiler session: after the multi-GPU phases the profiler of
+     the process recorded no kernel);
+ 23. prints the card's name and power limit, one JSON line of kernel
      numbers (a row of each phase-19 kernel at D = 256 and of each phase-20
-     kernel at D = 512 beside the 13 rows), and last the line
-     {"ok": true, "device": {...}}.
+     kernel at D = 512 beside the 13 rows; phase 21's and 22's launches
+     added to the rows of their kernels at their head dims), and last the
+     line {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script then exits non-zero without the
 last line. Without a CUDA device, or without the package beside it, it
@@ -961,9 +988,9 @@ def slice_phase(workdir):
     # encode throughput at ctx 1024, as bench.py times it
     x = torch.randint(20, 65000, (batch_size, cfg.block_size),
                       generator=gen, device="cuda")
-    _encode_rate(model, x, "bf16")
+    rate = _encode_rate(model, x, "bf16")
     return launches, dict(sp=sp, tok_path=tok_path, model=model, seqs=seqs,
-                          outs=outs, x=x)
+                          outs=outs, x=x, rate=rate)
 
 
 # ---------------------------------------------------------------------------
@@ -5899,6 +5926,668 @@ def _wide_per_head(H=WIDE_HEADS, D=WIDE_D):
     return {n: c for n, c in launches.items() if c}
 
 
+# ---------------------------------------------------------------------------
+# 21. a reference checkpoint (.pt) converted and served
+# ---------------------------------------------------------------------------
+
+def _standin():
+    """tests/reference_standin.py: the reference's RoPE buffer builder and
+    a stand-in for its model.py (its module class, imported from `mup`),
+    which the repository's tests build their .pt fixtures with too."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    try:
+        import reference_standin
+    finally:
+        sys.path.remove(os.path.join(ROOT, "tests"))
+    return reference_standin
+
+
+def _reference_layout(model):
+    """The model's state as the reference holds it: fp32 CPU tensors and a
+    freqs_cis buffer in every attention block."""
+    cfg = model.cfg
+    state = {k: v.detach().float().cpu() for k, v in model.state_dict().items()}
+    fc = _standin().precompute_freqs_cis(cfg.n_embd // cfg.n_head, cfg.block_size)
+    for i in range(cfg.n_layer):
+        state[f"transformer.h.{i}.attn.freqs_cis"] = fc
+    return state
+
+
+def _hold_converted(out_dir, state, cfg, tag):
+    """The converted directory holds `state`'s parameters bit for bit and
+    `cfg` as its model_cfg."""
+    import torch
+    from omnibiote_tpu_torch.training.checkpoint import load_params_flat
+    from omnibiote_tpu_torch.utils.convert import nest, state_from_jax_params
+
+    with open(os.path.join(out_dir, "meta.json")) as f:
+        meta = json.load(f)
+    check(meta["model_cfg"] == json.loads(json.dumps(dict(vars(cfg)), default=str))
+          and meta["converted_from"] == "reference torch checkpoint",
+          f"{tag}: meta.json {meta}")
+    got = state_from_jax_params(nest(load_params_flat(out_dir)), cfg)
+    names = [k for k in state if not k.endswith("freqs_cis")]
+    check(sorted(got) == sorted(names), f"{tag}: converted keys {sorted(got)[:4]}...")
+    bad = [k for k in names if not torch.equal(got[k].float(), state[k].float())]
+    check(not bad, f"{tag}: converted tensors differ from the seed's: {bad[:4]}")
+    return sum(state[k].numel() for k in names)
+
+
+def _small_forms(workdir):
+    """The bare, '_orig_mod.'-prefixed and pickled-module forms at a small
+    width (2 layers, d 256, 2 heads of 128, bias) through the converter's
+    CLI entry point: each directory holds its seed's tensors bit for bit."""
+    import torch
+    from omnibiote_tpu_torch import OmniBioTAConfig, init_params
+    from omnibiote_tpu_torch.utils import torch_convert
+
+    cfg = OmniBioTAConfig(n_layer=2, n_embd=256, n_head=2, vocab_size=512, block_size=256,
+                          bias=True, dropout=0.0)
+    model = init_params(torch.Generator(device="cuda").manual_seed(2150), cfg, device="cuda")
+    state = _reference_layout(model)
+    root = os.path.join(workdir, "ref_small")
+    os.makedirs(root)
+    forms = {"bare": state, "orig_mod": {"_orig_mod." + k: v for k, v in state.items()}}
+    for form, obj in forms.items():
+        torch.save(obj, os.path.join(root, f"{form}.pt"))
+    # the pickled module, its class in root/model.py, MuReadout from a stub
+    standin = _standin()
+    standin.save_pickled_module(state, root, os.path.join(root, "module.pt"),
+                                block_size=cfg.block_size, vocab_size=cfg.vocab_size,
+                                n_layer=cfg.n_layer, n_head=cfg.n_head, n_embd=cfg.n_embd,
+                                bias=cfg.bias, dropout=0.1)
+    for form in (*forms, "module"):
+        out = os.path.join(root, f"{form}_out")
+        argv = [os.path.join(root, f"{form}.pt"), out]
+        argv += ["--reference_path", root] if form == "module" else []
+        with standin.modules_restored("model", "mup"):
+            torch_convert.main(argv)
+        _hold_converted(out, state, cfg, f"the {form} form")
+    print("reference checkpoint, small width (2L/256d/2h, bias): bare, '_orig_mod.' and "
+          "pickled-module forms converted through the CLI, each bit for bit")
+
+
+def reference_checkpoint_phase(workdir, tok_path, seqs, rate16=None):
+    """A reference-layout .pt at omnibiote-small full width (seeded µP
+    weights, freqs_cis buffers, saved as {"model": {"module." + k: v},
+    "step": 7}) through the converter's CLI in a subprocess, then served
+    from its output directory: Encoder.from_checkpoint on the card over the
+    serving slice's 64 sequences with every pooling (#1), the same through
+    quantize_attention (#9), and the FASTA CLI. Returns the launches of its
+    main path (#1's and #9's). rate16: phase 3's encode(mean) seq/s of this
+    run, printed beside this one's, or None."""
+    import numpy as np
+    import torch
+    from omnibiote_tpu_torch import api, init_params, preset
+    from omnibiote_tpu_torch.models.omnibiota import OmniBioTA
+    from omnibiote_tpu_torch.ops import _kernels
+    from omnibiote_tpu_torch.ops import attention as port_attention
+    from omnibiote_tpu_torch.ops.int8_attention import int8_flash_attention_plain
+    from omnibiote_tpu_torch.tokenizer import SentencePieceProcessor
+
+    t_phase = time.time()
+    _small_forms(workdir)
+    cfg = preset("omnibiote-small", vocab_size=65536, dropout=0.0)
+    model = init_params(torch.Generator(device="cuda").manual_seed(2100), cfg, device="cuda")
+    state = _reference_layout(model)
+    del model
+    pt = os.path.join(workdir, "omnibiota_ref.pt")
+    torch.save({"model": {"module." + k: v for k, v in state.items()}, "step": 7}, pt)
+    pt_gb = os.path.getsize(pt) / 1e9
+    out_dir = os.path.join(workdir, "converted")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "omnibiote_tpu_torch.utils.torch_convert",
+                           pt, out_dir], cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=600)
+    convert_s = time.time() - t0
+    check(proc.returncode == 0, f"the converter CLI failed: {proc.stderr[-2000:]}")
+    summary = proc.stdout.strip().splitlines()[-1]
+    n_params = _hold_converted(out_dir, state, cfg, "the full-width .pt")
+    check(summary == f"converted {n_params:,} params ({cfg.n_layer}L/{cfg.n_embd}d/"
+                     f"{cfg.n_head}h, block_size {cfg.block_size}, bias={cfg.bias}) -> "
+                     f"{out_dir}", f"the converter's summary: {summary}")
+    os.remove(pt)
+    print(f"reference checkpoint: {pt_gb:.3f} GB .pt ({n_params:,} parameters, fp32) "
+          f"converted by `python -m omnibiote_tpu_torch.utils.torch_convert` in "
+          f"{convert_s:.2f} s; {summary}")
+
+    L, bs = cfg.n_layer, SERVING_BATCH
+    n_batches = -(-len(seqs) // bs)
+    # the same state loaded in memory, for the bit-for-bit comparison
+    mem = OmniBioTA(cfg, device="cuda")
+    mem.load_state_dict({k: v for k, v in state.items() if not k.endswith("freqs_cis")},
+                        strict=True)
+    del state
+    enc_mem = api.Encoder(mem, SentencePieceProcessor(tok_path), device="cuda")
+
+    def run(enc, counter, other):
+        outs = {}
+        for method, masked in SERVING_RUNS:
+            before = dict(_kernels.LAUNCHES)
+            out = enc.encode_sequences(seqs, method=method, batch_size=bs, mask_padding=masked)
+            check(out.shape == (len(seqs), cfg.n_embd) and out.dtype.name == "float32"
+                  and bool(np.isfinite(out).all()),
+                  f"converted {method}/{masked}: {out.shape} {out.dtype} or non-finite")
+            check(_kernels.LAUNCHES[counter] - before[counter] == L * n_batches
+                  and _kernels.LAUNCHES[other] == before[other],
+                  f"converted {method}/{masked}: launches {_kernels.LAUNCHES} after {before}")
+            outs[(method, masked)] = out
+        return outs
+
+    # -- the main path: from the CLI's directory on the default device ------
+    _kernels.reset_launches()
+    torch.cuda.synchronize()
+    enc = api.Encoder.from_checkpoint(out_dir, tokenizer_path=tok_path)
+    check(enc.device.type == "cuda" and next(enc.model.parameters()).is_cuda,
+          "Encoder.from_checkpoint did not take the card by default")
+    outs16 = run(enc, "mh_flash_fwd", "int8_flash_fwd")
+    enc8 = api.Encoder(enc.model, enc.sp, quantize=True, quantize_attention=True)
+    outs8 = run(enc8, "int8_flash_fwd", "mh_flash_fwd")
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+    want = _counts(mh_flash_fwd=L * n_batches * len(SERVING_RUNS),
+                   int8_flash_fwd=L * n_batches * len(SERVING_RUNS))
+    check(launches == want, f"the converted checkpoint's path launched {launches}, want {want}")
+
+    # -- what the path is held against (launches not counted) -----------------
+    mem_outs = {key: enc_mem.encode_sequences(seqs, method=key[0], batch_size=bs,
+                                              mask_padding=key[1]) for key in SERVING_RUNS}
+    same = all(np.array_equal(outs16[key], mem_outs[key]) for key in SERVING_RUNS)
+    check(same, "embeddings from the converted directory differ from the in-memory state's")
+    with _plain_attention():
+        plain = {key: enc.encode_sequences(seqs, method=key[0], batch_size=bs,
+                                           mask_padding=key[1]) for key in SERVING_RUNS}
+    kernel_fn = port_attention.int8_flash_attention
+    port_attention.int8_flash_attention = int8_flash_attention_plain
+    try:
+        plain8 = {key: enc8.encode_sequences(seqs, method=key[0], batch_size=bs,
+                                             mask_padding=key[1]) for key in SERVING_RUNS}
+    finally:
+        port_attention.int8_flash_attention = kernel_fn
+    cos_plain = min(_min_row_cosine(outs16[k], plain[k]) for k in SERVING_RUNS)
+    cos_8 = min(_min_row_cosine(outs8[k], outs16[k]) for k in SERVING_RUNS)
+    cos_8plain = min(_min_row_cosine(outs8[k], plain8[k]) for k in SERVING_RUNS)
+    check(cos_plain >= MIN_COSINE, f"converted: kernel vs plain attention {cos_plain}")
+    check(cos_8 >= MIN_COSINE_INT8, f"converted: int8 vs bf16 {cos_8}")
+    check(cos_8plain >= MIN_COSINE, f"converted: #9 vs the plain int8 attention {cos_8plain}")
+    print(f"converted checkpoint served: {len(SERVING_RUNS)} encode_sequences calls a path, "
+          f"launches {launches}; embeddings equal to the in-memory state's bit for bit; min "
+          f"row cosine kernel vs plain attention {cos_plain:.7f} (threshold {MIN_COSINE}), "
+          f"int8 vs bf16 {cos_8:.6f} ({MIN_COSINE_INT8}), #9 vs plain int8 {cos_8plain:.7f} "
+          f"({MIN_COSINE})")
+    del enc8, enc_mem, mem, plain, plain8
+
+    # -- the FASTA CLI on the converted directory -----------------------------
+    fasta = os.path.join(workdir, "ref_seqs.fa")
+    with open(fasta, "w") as f:
+        f.writelines(f">s{i}\n{s}\n" for i, s in enumerate(seqs))
+    out_npz = os.path.join(workdir, "ref_emb.npz")
+    before = dict(_kernels.LAUNCHES)
+    check(api.main(["--checkpoint", out_dir, "--fasta", fasta, "--out", out_npz,
+                    "--tokenizer-path", tok_path]) == 0, "the FASTA CLI failed")
+    with np.load(out_npz) as z:
+        ids, emb = list(z["ids"]), z["embeddings"]
+    check(ids == [f"s{i}" for i in range(len(seqs))] and emb.shape == (len(seqs), cfg.n_embd)
+          and _kernels.LAUNCHES["mh_flash_fwd"] - before["mh_flash_fwd"] == L * n_batches,
+          f"the FASTA CLI on the converted directory: {emb.shape}, {_kernels.LAUNCHES}")
+    cos_cli = _min_row_cosine(emb, outs16[("mean", True)])
+    check(cos_cli >= 0.9999, f"the FASTA CLI vs the Encoder: {cos_cli}")
+    print(f"FASTA CLI on the converted directory: {emb.shape[0]} embeddings, min row cosine "
+          f"vs Encoder.from_checkpoint {cos_cli:.7f}")
+
+    x = torch.randint(20, 65000, (bs, cfg.block_size),
+                      generator=torch.Generator(device="cuda").manual_seed(2101), device="cuda")
+    rate = _encode_rate(enc.model, x, "the converted checkpoint")
+    beside = ("" if rate16 is None else f", phase 3's random weights {rate16:.1f} seq/s "
+              f"({rate / rate16:.4f} x)")
+    print(f"encode(mean) B={bs} T={cfg.block_size}: converted checkpoint {rate:.1f} seq/s"
+          f"{beside}; {gpu_name_and_power()}")
+    del enc, x
+    import shutil
+    shutil.rmtree(out_dir)
+    torch.cuda.empty_cache()
+    print(f"phase 21: {time.time() - t_phase:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 22. the flash and int8 entries at a T that is not a multiple of 128
+# ---------------------------------------------------------------------------
+
+RAGGED_T = (192, 320, 1000)
+RAGGED_LAYOUTS = ("dense", "packed", "padded")
+RAGGED_RATES = (0.0, TRAIN_DROPOUT)
+# the backward cases of each call: (name, flash_attention's extra keywords
+# as a function of T, the attention switches, the backward kernels it
+# launches)
+RAGGED_BWD_CASES = (
+    ("fused", lambda T: {}, {}, ("mh_flash_bwd",)),
+    ("fused multi-kv", lambda T: dict(block_kv=_largest_divisor(T, 128)), {},
+     ("mh_flash_bwd_mk",)),
+    ("split pair", lambda T: {}, dict(FUSED_SINGLE_KV_BWD=False),
+     ("mh_flash_bwd_dkv", "mh_flash_bwd_dq")))
+# _ragged_other_checks' calls: one head of 96 (T, dtype); the per-head
+# entry at T = 192 (dtype, layout); #9 (T, dtype)
+RAGGED_ONE_HEAD = ((192, "bfloat16"), (320, "float32"))
+RAGGED_PER_HEAD = tuple((dtype, layout) for dtype in ("bfloat16", "float32")
+                        for layout in ("dense", "packed"))
+RAGGED_INT8 = tuple((T, dtype) for T in (192, 320) for dtype in ("bfloat16", "float32"))
+
+
+def _largest_divisor(T, at_most):
+    """The largest even divisor of T up to at_most (the dropout stream
+    draws 2x2 blocks of a tile)."""
+    return max(d for d in range(2, at_most + 1, 2) if T % d == 0)
+
+
+def _ragged_plain(q, k, v, do, seg, rope, kw):
+    """The plain versions at the unpadded T: (o, dq, dk, dv); the forward
+    on kv tiles of the largest divisor of T up to the kernel's."""
+    from omnibiote_tpu_torch.ops import flash_attention as fa
+
+    T, D = q.shape[1], q.shape[3]
+    block = _largest_divisor(T, fa.kernel_kv_tile(q.dtype, fa.padded_head_dim(D)))
+    o, lse2 = fa.mh_flash_forward_plain(q, k, v, seg, rope, block_kv=block, **kw)
+    di = (o.float() * do.float()).sum(-1)
+    return (o, *fa.mh_flash_backward_plain(q, k, v, do, lse2, di, seg, rope, **kw))
+
+
+def _ragged_entry(q, k, v, do, seg, rope, kw, **extra):
+    """flash_attention on CUDA tensors: o and the q, k, v gradients."""
+    import torch
+    from omnibiote_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = (x.clone().requires_grad_() for x in (q, k, v))
+    o = fa.flash_attention(q, k, v, seg, rope, **kw, **extra)
+    return (o.detach(), *torch.autograd.grad(o, (q, k, v), do))
+
+
+def _hold_ragged(got, want, dtype, what):
+    """o at TOL's o and the gradients at BWD_TOL (phase 2's tolerances);
+    returns (max |do|, max |d|)."""
+    import torch
+    rt, at = TOL[dtype]["o"]
+    check(got[0].shape == want[0].shape and got[0].dtype == want[0].dtype
+          and torch.allclose(got[0].float(), want[0].float(), rtol=rt, atol=at),
+          f"the forward disagrees with its plain version at {what}: max|do| "
+          f"{_abs_err(got[0], want[0]):.3e}")
+    return _abs_err(got[0], want[0]), _hold_bwd(got[1:], want[1:], dtype, what)[1]
+
+
+def _ragged_flash_checks(H, D, dtypes, layouts=RAGGED_LAYOUTS, seed=2200):
+    """#1-#5 through flash_attention at every RAGGED_T, B 2, H heads of D
+    with RoPE, dropout 0 and 0.1: the forward and each of RAGGED_BWD_CASES,
+    the fused backward with one kv block (#2) and with kv blocks below T
+    (#3), and the split pair (#4/#5), against the plain versions at the
+    unpadded T (the same seed draws the same mask there), and a second
+    forward launch bit for bit. Returns (the worst bf16 errors, the
+    launches its loops make: 4 forwards and one of each backward case a
+    call)."""
+    import torch
+    from omnibiote_tpu_torch.ops import flash_attention as fa
+
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for T in RAGGED_T:
+        for dtype in dtypes:
+            for j, layout in enumerate(layouts):
+                for rate in RAGGED_RATES:
+                    s = seed + 10 * T + j + int(100 * rate)
+                    q, k, v, seg, rope = _attn_inputs(2, T, H, D, getattr(torch, dtype),
+                                                      layout, s)
+                    do = torch.randn(q.shape, device="cuda",
+                                     generator=torch.Generator(device="cuda").manual_seed(s)
+                                     ).to(q.dtype)
+                    kw = dict(scale=1.0 / math.sqrt(D), dropout_rate=rate, seed=s)
+                    want = _ragged_plain(q, k, v, do, seg, rope, kw)
+                    tag = f"T={T} H={H} D={D} {dtype} {layout} dropout {rate}"
+                    for case, extra, switch, _ in RAGGED_BWD_CASES:
+                        with _attention_switch(**switch):
+                            got = _ragged_entry(q, k, v, do, seg, rope, kw, **extra(T))
+                        err = _hold_ragged(got, want, dtype, f"{tag}, {case}")
+                        if dtype == "bfloat16":
+                            worst = {"fwd": max(worst["fwd"], err[0]),
+                                     "bwd": max(worst["bwd"], err[1])}
+                    with torch.no_grad():
+                        again = fa.flash_attention(q, k, v, seg, rope, **kw)
+                    check(torch.equal(again, got[0]), f"{tag}: a second forward launch differs")
+    n = len(RAGGED_T) * len(dtypes) * len(layouts) * len(RAGGED_RATES)
+    want = {"mh_flash_fwd": (len(RAGGED_BWD_CASES) + 1) * n}
+    want.update((name, n) for *_, names in RAGGED_BWD_CASES for name in names)
+    return worst, want
+
+
+def _ragged_other_checks():
+    """One head at D = 96 (head dim and T padded together), the per-head
+    entry at T = 192, and #9 at T = 192 and 320, each against its plain
+    version at the unpadded T. Returns the launches its loops make: a
+    forward and a fused backward (#1, #2) of each one-head call, #6-#8 of
+    each per-head call, #9 of each int8 call."""
+    import torch
+    from omnibiote_tpu_torch.ops import flash_attention as fa
+    from omnibiote_tpu_torch.ops import int8_attention as i8
+
+    for i, (T, dtype) in enumerate(RAGGED_ONE_HEAD):
+        q, k, v, seg, rope = _attn_inputs(2, T, 1, 96, getattr(torch, dtype), "packed", 2300 + i)
+        do = torch.randn_like(q.float()).to(q.dtype)
+        kw = dict(scale=1.0 / math.sqrt(96), dropout_rate=TRAIN_DROPOUT, seed=2300 + i)
+        _hold_ragged(_ragged_entry(q, k, v, do, seg, rope, kw),
+                     _ragged_plain(q, k, v, do, seg, rope, kw), dtype,
+                     f"one head of 96 at T={T} {dtype}")
+    for dtype, layout in RAGGED_PER_HEAD:
+        i = ("bfloat16", "float32").index(dtype)
+        q, k, v, seg, _ = _attn_inputs(2, 192, 8, 128, getattr(torch, dtype), layout, 2310 + i)
+        do = torch.randn_like(q.float()).to(q.dtype)
+        kw = dict(scale=1.0 / math.sqrt(128), dropout_rate=TRAIN_DROPOUT, seed=2310 + i)
+        _hold_ragged(_ragged_entry(q, k, v, do, seg, None, kw, multi_head=False),
+                     _ragged_plain(q, k, v, do, seg, None, kw), dtype,
+                     f"the per-head entry at T=192 {dtype} {layout}")
+    worst8 = 1.0
+    for T, dtype in RAGGED_INT8:
+        for j, layout in enumerate(RAGGED_LAYOUTS):
+            q, k, v, seg, rope = _attn_inputs(2, T, 8, 128, getattr(torch, dtype), layout,
+                                              2320 + T + j)
+            kw = dict(scale=1.0 / math.sqrt(128), segment_ids=seg, rope=rope)
+            o = i8.int8_flash_attention(q, k, v, **kw)
+            po = i8.int8_flash_attention_plain(q, k, v, **kw)
+            rt, at = INT8_TOL[dtype]
+            check(o.shape == q.shape and o.dtype == q.dtype
+                  and torch.allclose(o.float(), po.float(), rtol=rt, atol=at),
+                  f"#9 at T={T} {dtype} {layout}: max|do| {_abs_err(o, po):.3e}")
+            cos = torch.nn.functional.cosine_similarity(
+                o.float().reshape(-1, 128).double(), po.float().reshape(-1, 128).double(),
+                dim=1).min().item()
+            check(cos >= MIN_COSINE, f"#9 at T={T} {dtype} {layout}: min row cosine {cos}")
+            worst8 = min(worst8, cos)
+    print(f"ragged T: one head of 96 (T 192, 320), the per-head entry at T=192 (bf16, fp32, "
+          f"dense, packed, dropout {TRAIN_DROPOUT}) within phase 2's tolerances; #9 at T 192 "
+          f"and 320 (bf16, fp32, {', '.join(RAGGED_LAYOUTS)}, RoPE) min row cosine vs plain "
+          f"{worst8:.7f}")
+    n_head, n_int8 = len(RAGGED_PER_HEAD), len(RAGGED_INT8) * len(RAGGED_LAYOUTS)
+    return {"mh_flash_fwd": len(RAGGED_ONE_HEAD), "mh_flash_bwd": len(RAGGED_ONE_HEAD),
+            "flash_fwd": n_head, "flash_bwd_dkv": n_head, "flash_bwd_dq": n_head,
+            "int8_flash_fwd": n_int8}
+
+
+# the port's own kernels (ops/csrc) by the names the profiler reports
+PORT_KERNEL_NAME = re.compile(
+    r"\b(mh_\w+|int8_fwd\w*|quant_qk\w*|quant_v\w*|dq_epilogue\w*|rope_rows\w*)")
+
+
+def _call_ms(fn, n=10):
+    """Of one call of fn: (its device time, every kernel's, from the
+    profiler; {the port's kernel: its device time}; ms by CUDA events over
+    back-to-back calls, the host's launches included)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    events_ms = cuda_ms(fn, n)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    busy, own = 0.0, {}
+    for e in prof.events():
+        if "cuda" not in str(getattr(e, "device_type", "")).lower():
+            continue
+        us = e.time_range.elapsed_us()
+        busy += us
+        m = PORT_KERNEL_NAME.search(e.name)
+        if m:
+            own[m.group(1)] = own.get(m.group(1), 0.0) + us / 1e3 / n
+    check(own, "the profiler saw none of the port's kernels")
+    return busy / 1e3 / n, own, events_ms
+
+
+def _host_ms(fn, n=20):
+    """The host's time to issue one call of fn, in ms: n calls queued back
+    to back after a sync, timed on the host's clock without waiting for the
+    card (whose share of these calls is smaller than the host's)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host = (time.perf_counter() - t0) / n * 1e3
+    torch.cuda.synchronize()
+    return host
+
+
+def _host_ops(fn, n=10, top=6):
+    """The `top` operators of one call of fn by their own time on the
+    host (the profiler's self CPU time), ms a call each."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:top]
+    return [(e.key, e.self_cpu_time_total / 1e3 / n, e.count / n) for e in ops]
+
+
+def _int8_rows_probe(T, seg, rope):
+    """#9's kernels at B 16, 8 heads of 128, bf16, on 256 rows of several
+    contents with the same padded ids and tables: 256 random rows; the same
+    with the last 256 - T rows zeroed in place, and set to 1 in place; T
+    random rows padded ahead by pad_rows; a contiguous copy of those; the
+    256 random rows again. {variant: {kernel: device ms}} by the
+    profiler."""
+    import torch
+    from omnibiote_tpu_torch.ops import flash_attention as fa
+    from omnibiote_tpu_torch.ops import int8_attention as i8
+
+    Tp = fa.padded_seq_len(T, i8.KERNEL_T_MULTIPLE)
+    segp, ropep = fa.pad_segment_ids(seg, 16, T, Tp), fa.pad_rope_rows(rope, T, Tp)
+    rand = _attn_inputs(16, Tp, 8, 128, torch.bfloat16, "dense", 2403)[:3]
+    zeroed, ones = tuple(x.clone() for x in rand), tuple(x.clone() for x in rand)
+    for x, y in zip(zeroed, ones):
+        x[:, T:], y[:, T:] = 0, 1
+    ahead = tuple(fa.pad_rows(x[:, :T].contiguous(), Tp)
+                  for x in _attn_inputs(16, T, 8, 128, torch.bfloat16, "dense", 2404)[:3])
+    variants = (("random", rand), ("random, rows past T zeroed", zeroed),
+                ("random, rows past T set to 1", ones), ("padded ahead", ahead), ("padded ahead, copied", tuple(x.clone() for x in ahead)),
+                ("random again", rand))
+    out = {}
+    with torch.no_grad():
+        for name, (q, k, v) in variants:
+            out[name] = _call_ms(lambda: i8.int8_flash_attention(
+                q, k, v, scale=1.0 / math.sqrt(128), segment_ids=segp, rope=ropep))[1]
+    return out
+
+
+def _ragged_timings():
+    """The entries at T = 192 (rows padded to 256) beside T = 256, B 16, 8
+    heads of 128, bf16, packed rows (~3 segment starts a row): #1 (RoPE,
+    no dropout), #2 and the split pair #4 + #5 (RoPE, dropout 0.1; a
+    backward is forward + backward less the forward), the per-head #6 and
+    #7 + #8 (no RoPE, dropout 0.1), and #9 (RoPE). Each: the device time a
+    call, each of the port's kernels' in it, and CUDA events over
+    back-to-back calls; and of the forwards, the host's time to issue a
+    call (`_host_ms`), at T = 192 split into the padding's pieces and the
+    call on padded rows, with the operators that take the host's time.
+    Then #9's kernels on rows of several contents (`_int8_rows_probe`)."""
+    import torch
+    from omnibiote_tpu_torch.ops import flash_attention as fa
+    from omnibiote_tpu_torch.ops import int8_attention as i8
+
+    out, host = {}, {}
+    for T in (256, 192):
+        q, k, v, _, rope = _attn_inputs(16, T, 8, 128, torch.bfloat16, "dense", 2400)
+        gen = torch.Generator(device="cuda").manual_seed(2401)
+        seg = torch.cumsum((torch.rand(16, T, generator=gen, device="cuda") < 3 / T).int(),
+                           1).int().contiguous()
+        do = torch.randn(q.shape, device="cuda", generator=gen).bfloat16()
+        qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+        scale = 1.0 / math.sqrt(128)
+        drop = dict(scale=scale, dropout_rate=TRAIN_DROPOUT, seed=2402)
+
+        def fwd(**kw):
+            with torch.no_grad():
+                return _call_ms(lambda: fa.flash_attention(q, k, v, seg, **kw))
+
+        def bwd(f, **kw):
+            fb = _call_ms(lambda: torch.autograd.grad(fa.flash_attention(qg, kg, vg, seg, **kw),
+                                                      (qg, kg, vg), do))
+            own = {n: t - f[1].get(n, 0.0) for n, t in fb[1].items()}
+            return fb[0] - f[0], {n: t for n, t in own.items() if t > 1e-4}, fb[2] - f[2]
+
+        out[("#1", T)] = fwd(rope=rope, scale=scale)
+        f_drop = fwd(rope=rope, **drop)
+        out[("#2", T)] = bwd(f_drop, rope=rope, **drop)
+        with _attention_switch(FUSED_SINGLE_KV_BWD=False):
+            out[("#4+#5", T)] = bwd(f_drop, rope=rope, **drop)
+        out[("#6", T)] = fwd(rope=None, multi_head=False, **drop)
+        out[("#7+#8", T)] = bwd(out[("#6", T)], rope=None, multi_head=False, **drop)
+        with torch.no_grad():
+            out[("#9", T)] = _call_ms(lambda: i8.int8_flash_attention(
+                q, k, v, scale=scale, segment_ids=seg, rope=rope))
+            entries = {
+                "#1": lambda: fa.flash_attention(q, k, v, seg, rope, scale=scale),
+                "#6": lambda: fa.flash_attention(q, k, v, seg, multi_head=False, **drop),
+                "#9": lambda: i8.int8_flash_attention(q, k, v, scale=scale, segment_ids=seg,
+                                                      rope=rope)}
+            for name, fn in entries.items():
+                host[(name, T)] = _host_ms(fn)
+            if T % 128:
+                Tp = fa.padded_seq_len(T, 128)
+                qp, kp, vp = (fa.pad_rows(x, Tp) for x in (q, k, v))
+                segp = fa.pad_segment_ids(seg, 16, T, Tp)
+                op = fa.flash_attention(qp, kp, vp, segp, multi_head=False, **drop)
+                host["#6 pieces"] = {
+                    "pad q, k, v": _host_ms(lambda: [fa.pad_rows(x, Tp) for x in (q, k, v)]),
+                    "pad ids": _host_ms(lambda: fa.pad_segment_ids(seg, 16, T, Tp)),
+                    "call on padded rows": _host_ms(lambda: fa.flash_attention(
+                        qp, kp, vp, segp, multi_head=False, **drop)),
+                    "slice": _host_ms(lambda: op[:, :T].contiguous())}
+                host["#6 ops"] = _host_ops(entries["#6"])
+                host["#1 ops"] = _host_ops(entries["#1"])
+                del op
+            if T % 128:
+                # the same calls on rows padded ahead: the kernels alone at
+                # the padded T, without the padding's own passes
+                Tp = fa.padded_seq_len(T, 128)
+                qp, kp, vp = (fa.pad_rows(x, Tp) for x in (q, k, v))
+                segp = fa.pad_segment_ids(seg, 16, T, Tp)
+                ropep = fa.pad_rope_rows(rope, T, Tp)
+                out[("#1 padded ahead", T)] = _call_ms(
+                    lambda: fa.flash_attention(qp, kp, vp, segp, ropep, scale=scale))
+                out[("#9 padded ahead", T)] = _call_ms(lambda: i8.int8_flash_attention(
+                    qp, kp, vp, scale=scale, segment_ids=segp, rope=ropep))
+                del qp, kp, vp
+        del q, k, v, qg, kg, vg, do
+    torch.cuda.empty_cache()
+    print(f"ragged T timings, B=16, 8 heads of 128, bf16, packed; ms a call at T=192 (rows "
+          f"padded to 256) / T=256: each of the port's kernels and the whole call on the "
+          f"device (profiler), and CUDA events over back-to-back calls (a backward: forward "
+          f"+ backward less the forward); {gpu_name_and_power()}")
+    for name in ("#1", "#2", "#4+#5", "#6", "#7+#8", "#9"):
+        a, b = out[(name, 192)], out[(name, 256)]
+        kernels = ", ".join(f"{k} {a[1].get(k, 0.0):.4f} / {b[1].get(k, 0.0):.4f}"
+                            for k in sorted(set(a[1]) | set(b[1])))
+        print(f"  {name}: {kernels}; device {a[0]:.4f} / {b[0]:.4f}; events "
+              f"{a[2]:.4f} / {b[2]:.4f}")
+    for name in ("#1", "#9"):
+        a = out[(name + " padded ahead", 192)]
+        kernels = ", ".join(f"{k} {t:.4f}" for k, t in sorted(a[1].items()))
+        print(f"  {name} on rows padded ahead (T=192 as 256, the padding's passes outside the "
+              f"call): {kernels}; device {a[0]:.4f}; events {a[2]:.4f}")
+    print("  host ms to issue a call (no wait for the card), T=192 / T=256: "
+          + ", ".join(f"{n} {host[(n, 192)]:.4f} / {host[(n, 256)]:.4f}"
+                      for n in ("#1", "#6", "#9")))
+    print("  #6 at T=192, host ms a piece: " + ", ".join(
+        f"{n} {t:.4f}" for n, t in host["#6 pieces"].items()))
+    for name in ("#6", "#1"):
+        print(f"  {name} at T=192, the host's operators by their own time (ms a call, calls a "
+              f"call): " + "; ".join(f"{k} {t:.4f} x{c:g}" for k, t, c in host[name + " ops"]))
+    _, _, _, seg, rope = _attn_inputs(16, 192, 8, 128, torch.bfloat16, "packed", 2405)
+    probe = _int8_rows_probe(192, seg, rope)
+    print("  #9's kernels on 256 rows, the same padded ids and tables (ms a call, profiler): "
+          + "; ".join(f"{name}: " + ", ".join(f"{k} {t:.4f}" for k, t in sorted(ks.items()))
+                      for name, ks in probe.items()))
+    return out
+
+
+def _ragged_no_sync_check():
+    """One padded call of each entry at T = 192 with packed ids (the id
+    renumbering runs), bf16, 8 heads of 128, under
+    torch.cuda.set_sync_debug_mode("error"): flash_attention with RoPE and
+    dropout, forward and backward, the per-head entry, forward and
+    backward, and int8_flash_attention. A host sync in the padding or in
+    the kernels' own path raises."""
+    import torch
+    from omnibiote_tpu_torch.ops import int8_attention as i8
+
+    q, k, v, seg, rope = _attn_inputs(2, 192, 8, 128, torch.bfloat16, "packed", 2450)
+    do = torch.randn_like(q.float()).bfloat16()
+    kw = dict(scale=1.0 / math.sqrt(128), dropout_rate=TRAIN_DROPOUT, seed=2451)
+    calls = {
+        "flash_attention": lambda: _ragged_entry(q, k, v, do, seg, rope, kw),
+        "flash_attention(multi_head=False)":
+            lambda: _ragged_entry(q, k, v, do, seg, None, kw, multi_head=False),
+        "int8_flash_attention": lambda: i8.int8_flash_attention(
+            q, k, v, scale=kw["scale"], segment_ids=seg, rope=rope)}
+    for name, fn in calls.items():
+        fn()        # first: any one-off set-up outside the check
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+        except RuntimeError as e:
+            check(False, f"a padded {name} call synchronised with the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    print(f"ragged T: one padded call of each of {', '.join(calls)} at T=192 (packed ids) ran "
+          f"under torch.cuda.set_sync_debug_mode('error'): no host sync")
+
+
+def ragged_t_phase():
+    """Phase 22: flash_attention and int8_flash_attention called directly
+    at T 192, 320 and 1000 on CUDA tensors, which pad the rows to the
+    kernels' T multiple: 8 heads of 128 (bf16, fp32) and 2 heads of 512
+    (bf16, the cluster backwards), one head of 96, the per-head entry, #9.
+    One padded call of each entry runs with host syncs made errors. (Its
+    timings, `_ragged_timings`, run early in main: after the multi-GPU
+    phases the profiler of this process recorded no kernels.)
+    Returns (the launches of the 128-wide calls (one head of 96 among
+    them), those of the 512-wide calls, the worst bf16 errors)."""
+    import torch
+    from omnibiote_tpu_torch.ops import _kernels
+
+    t0 = time.time()
+    _kernels.reset_launches()
+    worst, want512 = _ragged_flash_checks(WIDER_HEADS, WIDER_D, ("bfloat16",), seed=2500)
+    torch.cuda.synchronize()
+    launches512 = dict(_kernels.LAUNCHES)
+    _kernels.reset_launches()
+    w128, want128 = _ragged_flash_checks(8, 128, ("bfloat16", "float32"))
+    for name, n in _ragged_other_checks().items():
+        want128[name] = want128.get(name, 0) + n
+    torch.cuda.synchronize()
+    launches128 = dict(_kernels.LAUNCHES)
+    worst = {n: max(worst[n], w128[n]) for n in worst}
+    # each call launched exactly its kernels: every case took its own
+    # kernel (a multi-kv case the multi-kv kernel, a split-pair case the
+    # pair), and no wrapper counted twice
+    want128, want512 = _counts(**want128), _counts(**want512)
+    check(launches128 == want128 and launches512 == want512,
+          f"the ragged-T calls launched 128 {launches128}, want {want128}; 512 "
+          f"{launches512}, want {want512}")
+    _ragged_no_sync_check()
+    print(f"ragged T ({', '.join(map(str, RAGGED_T))}; {', '.join(RAGGED_LAYOUTS)}; dropout 0 and "
+          f"{TRAIN_DROPOUT}): every call within phase 2's tolerances of the plain version at "
+          f"the unpadded T; worst bf16 max|do| {worst['fwd']:.3e}, max|d| {worst['bwd']:.3e}; "
+          f"launches at 8 x 128 (and one head of 96) {launches128}, at 2 x 512 {launches512}")
+    print(f"phase 22: {time.time() - t0:.1f} s")
+    return launches128, launches512, worst
+
+
 def setup():
     """Refuse to run without a card or without the package, and fix the
     fp32 matmul precision the references assume."""
@@ -5928,6 +6617,7 @@ def main():
     int8_gemm_phase()
     head_rows, head_launches = per_head_phase()
     print(f"per-head main path launches: {head_launches}")
+    _ragged_timings()   # phase 22's timings, before any other profiler session
     probe_rows = probe_phase()
     eval_fwd_err, eval_bwd_err = eval_kernel_phase()
     # each error: the worst over the main paths' shapes (bf16)
@@ -5939,7 +6629,7 @@ def main():
         print(f"serving main path launches: {serving}")
         int8_serving = int8_slice_phase(workdir, served)
         print(f"int8 serving main path launches: {int8_serving}")
-        tok_path, seqs = served["tok_path"], served["seqs"]
+        tok_path, seqs, rate16 = served["tok_path"], served["seqs"], served["rate"]
         del served
         torch.cuda.empty_cache()
         train = train_slice_phase(workdir)
@@ -5968,8 +6658,15 @@ def main():
         wide_rows, wide_err, rates8 = head_dim_256_phase(workdir, tok_path, seqs)
         torch.cuda.empty_cache()
         wider_rows, wider_err, _ = head_dim_wide_phase(workdir, tok_path, seqs, rates8)
-    fwd_row["max_abs_err"] = max(fwd_row["max_abs_err"], ring_err["fwd"], held_err["fwd"])
-    bwd_row["max_abs_err"] = max(bwd_row["max_abs_err"], ring_err["bwd"], held_err["bwd"])
+        torch.cuda.empty_cache()
+        ref_ckpt = reference_checkpoint_phase(workdir, tok_path, seqs, rate16)
+        print(f"reference checkpoint main path launches: {ref_ckpt}")
+        torch.cuda.empty_cache()
+        ragged128, ragged512, ragged_err = ragged_t_phase()
+    fwd_row["max_abs_err"] = max(fwd_row["max_abs_err"], ring_err["fwd"], held_err["fwd"],
+                                 ragged_err["fwd"])
+    bwd_row["max_abs_err"] = max(bwd_row["max_abs_err"], ring_err["bwd"], held_err["bwd"],
+                                 ragged_err["bwd"])
     # each row's launches: the count its own main paths left (serving, both
     # training contexts, the eval slice, pretraining from raw records, the
     # contact eval, the multi-GPU modes, the pipeline's CLI and the pod
@@ -5994,6 +6691,13 @@ def main():
     int8_row["launches"] = int8_serving["int8_flash_fwd"]
     rows = [fwd_row, bwd_row, *long_rows, int8_row, *head_rows, *probe_rows, *wide_rows,
             *wider_rows]
+    # the converted reference checkpoint's path (#1, #9), and the ragged-T
+    # calls, each added to the row of its kernel at its head dim
+    fwd_row["launches"] += ref_ckpt["mh_flash_fwd"]
+    int8_row["launches"] += ref_ckpt["int8_flash_fwd"]
+    for row in rows:
+        name, _, dim = row["name"].partition(" D=")
+        row["launches"] += {"": ragged128, "512": ragged512}.get(dim, {}).get(name, 0)
     check(min(serving["mh_flash_fwd"], train["mh_flash_fwd"], long_cli["mh_flash_fwd"],
               evals["mh_flash_fwd"], pretrain["mh_flash_fwd"], contact["mh_flash_fwd"],
               parallel["mh_flash_fwd"], pp["mh_flash_fwd"]) > 0,
@@ -6016,6 +6720,8 @@ def main():
           f"{wide_err['bwd']:.3e}")
     print(f"head dims past 256 kernel checks: worst bf16 max|do| {wider_err['fwd']:.3e}, "
           f"max|d| {wider_err['bwd']:.3e}")
+    print(f"ragged-T calls: worst bf16 max|do| {ragged_err['fwd']:.3e}, max|d| "
+          f"{ragged_err['bwd']:.3e}")
     print(gpu_name_and_power())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -52,3 +52,16 @@ def wd_mult_tree(names: Iterable[str], cfg: OmniBioTAConfig,
     wm = cfg.width_mult
     return {n: 1.0 if force_lr or decoupled or not is_matrix_like(n) else wm
             for n in names}
+
+
+def coord_check_stats(model, batch) -> float:
+    """Helper for µP coordinate checks: mean |final embeddings| of the model
+    on the token ids `batch` (B, T). Under correct µP it stays O(1) as the
+    width grows."""
+    import torch
+
+    from .models.omnibiota import forward
+
+    with torch.no_grad():
+        emb = forward(model, batch, return_embeddings=True)
+    return float(emb.float().abs().mean())

@@ -41,6 +41,15 @@ bounds, so on a CUDA tensor the same sources serve it, counted under
 (a natural-log lse residual, a `where` mask in place of the additive one,
 the grid) are not visible outside and have no counterpart.
 
+The kernels take T in multiples of KERNEL_T_MULTIPLE[dtype]; the JAX
+entries take any T their blocks divide. On a CUDA tensor at another T,
+`flash_attention` (either entry) zero-pads the rows to the next multiple
+and gives the pad rows a segment id of their own
+(`flash_attention_padded_t`): the mask keeps every real row's softmax to
+the real keys, the skip bounds prune the all-pad tiles, and the dropout
+stream draws the unpadded call's mask. The wrappers themselves still
+refuse such a T.
+
 Numerics (identical in the kernels and the plain versions):
   * RoPE rotates q and k in fp32 from the cos/sin tables, and the result is
     rounded to the input dtype before the products;
@@ -1085,6 +1094,101 @@ def flash_attention_padded(q, k, v, segment_ids=None, rope=None, *,
     return unpad_head_dim(flash_attention(qp, kp, vp, segment_ids, rp, **kw), D)
 
 
+# ---------------------------------------------------------------------------
+# A sequence length that is not a multiple of the kernels' T multiple
+# ---------------------------------------------------------------------------
+
+def padded_seq_len(T: int, t_multiple: int) -> int:
+    """The smallest positive multiple of t_multiple >= T."""
+    return max(-(-int(T) // int(t_multiple)), 1) * int(t_multiple)
+
+
+def pad_rows(x: torch.Tensor, T_pad: int) -> torch.Tensor:
+    """(B, T, ...) -> (B, T_pad, ...) with zero rows appended."""
+    pad = torch.zeros((x.shape[0], T_pad - x.shape[1], *x.shape[2:]),
+                      dtype=x.dtype, device=x.device)
+    return torch.cat([x, pad], dim=1)
+
+
+def pad_segment_ids(segment_ids: Optional[torch.Tensor], B: int, T: int,
+                    T_pad: int, device=None) -> torch.Tensor:
+    """(B, T_pad) int32 ids of a call padded from T to T_pad rows, made on
+    the device with no host sync. The real rows' ids are renumbered into
+    [0, T): each becomes the position of its first occurrence in its row's
+    sorted ids, which keeps which ids are equal and their order (so the
+    skip bounds prune the same tiles); segment_ids=None gives them all 0.
+    The pad rows get T, which no real row has, whatever the caller's ids
+    were (negative, or the int32 extremes)."""
+    if segment_ids is None:
+        real = torch.zeros((B, T), dtype=torch.int32, device=device)
+    else:
+        ids = segment_ids.contiguous()
+        real = torch.searchsorted(ids.sort(dim=1).values, ids, out_int32=True)
+    pad = torch.full((B, T_pad - T), T, dtype=torch.int32, device=real.device)
+    return torch.cat([real, pad], dim=1).contiguous()
+
+
+def pad_rope_rows(rope, T: int, T_pad: int):
+    """(cos, sin) half tables (>=T, D/2) -> (T_pad, D/2): their first T
+    rows, then cos 1 and sin 0, which rotate the zero pad rows into
+    zeros."""
+    cos, sin = rope[0][:T], rope[1][:T]
+    extra = (0, 0, 0, T_pad - T)
+    return (torch.nn.functional.pad(cos, extra, value=1.0).contiguous(),
+            torch.nn.functional.pad(sin, extra, value=0.0).contiguous())
+
+
+def padded_block(block: Optional[int], T: int, T_pad: int) -> Optional[int]:
+    """The block of a call padded from T to T_pad rows for the caller's
+    `block` at T: None (one block spanning the sequence) for None or a
+    block >= T, so the single-kv case stays single; else the largest
+    divisor of T_pad not above it, so the multi-kv case stays multi and a
+    block that divides T_pad is kept. A block < T must divide T, as the
+    JAX entries assert."""
+    if block is None or int(block) >= T:
+        return None
+    b = int(block)
+    if b < 1 or T % b:
+        raise ValueError(f"block {b} does not divide T={T}")
+    while T_pad % b:
+        b -= 1
+    return b
+
+
+def flash_attention_padded_t(q, k, v, segment_ids=None, rope=None, *,
+                             dropout_rate: float = 0.0,
+                             block_q: Optional[int] = None,
+                             block_kv: Optional[int] = None,
+                             block_kv_fwd: Optional[int] = None,
+                             bounds=None, **kw) -> torch.Tensor:
+    """flash_attention at a T that is not a multiple of
+    KERNEL_T_MULTIPLE[q.dtype]: q, k and v zero-padded to the next
+    multiple, the pad rows given a segment id
+    no real row has (pad_segment_ids), the RoPE tables extended by cos 1
+    and sin 0, the blocks carried over (padded_block); the output, and
+    through autograd the gradients, sliced back to T. The mask keeps every
+    real row's softmax to the real keys, the skip bounds prune the all-pad
+    tiles, and the dropout stream keys each element by its (b, h, i, j)
+    alone, so a padded call draws the unpadded call's mask. A `bounds` of
+    the caller's ids is not used: the padded ids get their own.
+    flash_attention takes this route on a CUDA tensor whose T is not such
+    a multiple; on a CPU tensor it runs around the plain versions."""
+    del bounds
+    B, T = q.shape[:2]
+    if dropout_rate > 0.0 and T % 2:
+        # the dropout stream draws 2x2 blocks: the plain versions raise here
+        raise ValueError(f"T={T} must be even with dropout")
+    T_pad = padded_seq_len(T, KERNEL_T_MULTIPLE[q.dtype])
+    qp, kp, vp = (pad_rows(x, T_pad) for x in (q, k, v))
+    seg = pad_segment_ids(segment_ids, B, T, T_pad, q.device)
+    rp = None if rope is None else pad_rope_rows(rope, T, T_pad)
+    o = flash_attention(qp, kp, vp, seg, rp, dropout_rate=dropout_rate,
+                        block_q=padded_block(block_q, T, T_pad),
+                        block_kv=padded_block(block_kv, T, T_pad),
+                        block_kv_fwd=padded_block(block_kv_fwd, T, T_pad), **kw)
+    return o[:, :T].contiguous()
+
+
 def flash_attention(q, k, v, segment_ids=None, rope=None, *, scale: float,
                     dropout_rate: float = 0.0, seed: int = 0,
                     block_kv: Optional[int] = None,
@@ -1110,14 +1214,18 @@ def flash_attention(q, k, v, segment_ids=None, rope=None, *, scale: float,
 
     A CUDA tensor of one head at a head dim with no kernel instance runs
     the kernels of the next built head dim on zero-padded inputs
-    (`flash_attention_padded`)."""
-    H, D = q.shape[2], q.shape[3]
+    (`flash_attention_padded`), and a CUDA tensor whose T is not a multiple
+    of KERNEL_T_MULTIPLE[dtype] runs them on rows zero-padded to the next
+    one (`flash_attention_padded_t`)."""
+    T, H, D = q.shape[1], q.shape[2], q.shape[3]
+    kw = dict(scale=scale, dropout_rate=dropout_rate, seed=seed, block_kv=block_kv,
+              block_q=block_q, block_kv_fwd=block_kv_fwd,
+              segment_skip=segment_skip, bounds=bounds, multi_head=multi_head)
     if q.is_cuda and H == 1 and not kernel_head_dim(D):
-        return flash_attention_padded(
-            q, k, v, segment_ids, rope, head_dim=padded_head_dim(D), scale=scale,
-            dropout_rate=dropout_rate, seed=seed, block_kv=block_kv,
-            block_q=block_q, block_kv_fwd=block_kv_fwd,
-            segment_skip=segment_skip, bounds=bounds, multi_head=multi_head)
+        return flash_attention_padded(q, k, v, segment_ids, rope,
+                                      head_dim=padded_head_dim(D), **kw)
+    if q.is_cuda and q.dtype in KERNEL_T_MULTIPLE and T % KERNEL_T_MULTIPLE[q.dtype]:
+        return flash_attention_padded_t(q, k, v, segment_ids, rope, **kw)
     if not multi_head:
         assert rope is None, "rope fusion requires the multi_head kernel"
         segment_skip = False

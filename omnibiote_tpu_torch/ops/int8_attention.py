@@ -49,6 +49,10 @@ split P8 . V8 by channels. Past 512 the attention kernel (`int8_fwd_wide`)
 gives a CTA 128 channels of V8 and 64 q rows, summing S over the whole
 head dim again in every channel slice (mma.sync s8 products): the same
 integers in every slice, so the same P8 bytes, in the same layout.
+
+The kernels take T in multiples of KERNEL_T_MULTIPLE; on a CUDA tensor at
+another T `int8_flash_attention` zero-pads the rows to the next one, on a
+segment id of their own (`int8_flash_attention_padded_t`).
 """
 from __future__ import annotations
 
@@ -58,7 +62,9 @@ import numpy as np
 import torch
 
 from .flash_attention import (DEFAULT_MASK_VALUE, LOG2E, _full_tables,
-                              _raise_on, _rope_ptrs, _rope_rot, _seg_ptr)
+                              _raise_on, _rope_ptrs, _rope_rot, _seg_ptr,
+                              pad_rope_rows, pad_rows, pad_segment_ids,
+                              padded_block, padded_seq_len)
 
 # What the CUDA kernel is built for: instances of their own at 128, 256,
 # 384 and 512 (`int8_fwd_wide_wgmma` past 256), and past 512 one set that
@@ -285,14 +291,47 @@ def int8_flash_attention_kernel(q, k, v, *, scale: float, segment_ids=None,
     return o
 
 
+def int8_flash_attention_padded_t(q, k, v, *, scale: float, segment_ids=None,
+                                  block_q: int = 512, rope=None) -> torch.Tensor:
+    """int8_flash_attention at a T that is not a multiple of
+    KERNEL_T_MULTIPLE: q, k and v zero-padded to the next multiple, the
+    pad rows given a segment id no real row has
+    (`flash_attention.pad_segment_ids`), the RoPE tables extended by cos 1
+    and sin 0; the output sliced back to T. A zero row
+    quantizes to zeros with scale 1 and leaves every real row's q and k
+    scales alone; v's per-channel max over T does not move for zeros; the
+    mask gives the pad keys p = 0, so l, p8 and o of every real row are the
+    unpadded call's. int8_flash_attention takes this route on a CUDA tensor
+    whose T is not a multiple of KERNEL_T_MULTIPLE; on a CPU tensor it runs
+    around the plain version. block_q must divide T as there (it only
+    bounds the plain version's memory)."""
+    B, T = q.shape[:2]
+    bq = _check_block_q(T, block_q)
+    T_pad = padded_seq_len(T, KERNEL_T_MULTIPLE)
+    qp, kp, vp = (pad_rows(x, T_pad) for x in (q, k, v))
+    o = int8_flash_attention(
+        qp, kp, vp, scale=scale,
+        segment_ids=pad_segment_ids(segment_ids, B, T, T_pad, q.device),
+        block_q=padded_block(bq, T, T_pad) or T_pad,
+        rope=None if rope is None else pad_rope_rows(rope, T, T_pad))
+    return o[:, :T].contiguous()
+
+
 def int8_flash_attention(q, k, v, *, scale: float, segment_ids=None,
                          block_q: int = 512, rope=None) -> torch.Tensor:
     """Serving-only int8 attention: o (B, T, H, D) in q's dtype.
 
     q, k, v: (B, T, H, D), q and k pre-rotation when rope=(cos, sin) tables
     (>=T, D/2) are given (the kernel owns RoPE); segment_ids (B, T) int32 or
-    None (dense). Requires T % 128 == 0 and D % 128 == 0. A CUDA tensor runs the
-    CUDA kernel, a CPU tensor the plain version."""
+    None (dense). Requires D % 128 == 0, and block_q (cut to T) dividing T,
+    as the JAX entry does. A CUDA tensor runs the CUDA kernel, at a T that
+    is not a multiple of KERNEL_T_MULTIPLE on zero-padded rows
+    (`int8_flash_attention_padded_t`); a CPU tensor runs the plain
+    version."""
+    if q.is_cuda and q.shape[1] % KERNEL_T_MULTIPLE:
+        return int8_flash_attention_padded_t(
+            q, k, v, scale=scale, segment_ids=segment_ids, block_q=block_q,
+            rope=rope)
     if q.is_cuda:
         return int8_flash_attention_kernel(
             q, k, v, scale=scale, segment_ids=segment_ids, block_q=block_q,

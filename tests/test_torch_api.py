@@ -271,6 +271,8 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    # the reference stand-in that chip_smoke.py builds its .pt fixtures with
+    yield os.path.join(REPO, "tests", "reference_standin.py")
     tools = sorted(f for f in os.listdir(os.path.join(REPO, "tools"))
                    if f.startswith("gpu_") and f.endswith(".py"))
     assert len(tools) >= 2
@@ -282,6 +284,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     bad = []
     sources = list(_port_sources())
     assert len(sources) > 25
+    # the reference-checkpoint converter reads .pt files with torch alone
+    assert os.path.join(REPO, "omnibiote_tpu_torch", "utils", "torch_convert.py") in sources
     for path in sources:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
