@@ -9,9 +9,10 @@ toolkit and g++. It
   1. builds the port's CUDA kernels (nvcc, one process per source, all at
      once) and its tokenizer (g++) from the checkout's sources, printing
      each kernel's registers, spills and stack frame (none may spill in
-     the backward's wgmma kernels, in a bf16 kernel past D = 256 or in the
-     wgmma forwards there, and ptxas may serialise the products of neither
-     those forwards nor the probes), and the shared memory of the bf16
+     the backward's wgmma kernels, in a bf16 kernel past D = 256, in the
+     wgmma forwards there or in any fp32 instance of #1-#5 up to D = 256,
+     and ptxas may serialise the products of neither those forwards nor
+     the probes), and the shared memory of the bf16
      forward's and backward kernels' CTAs and of the int8 kernel's;
   2. kernel phase: holds each kernel against its plain PyTorch version on
      the card, at the main paths' shapes, in bf16 and fp32, over packed,
@@ -277,11 +278,29 @@ toolkit and g++. It
      at T = 192 beside T = 256 (taken after phase 10, before the first
      other profiler session: after the multi-GPU phases the profiler of
      the process recorded no kernel);
- 23. prints the card's name and power limit, one JSON line of kernel
-     numbers (a row of each phase-19 kernel at D = 256 and of each phase-20
-     kernel at D = 512 beside the 13 rows; phase 21's and 22's launches
-     added to the rows of their kernels at their head dims), and last the
-     line {"ok": true, "device": {...}}.
+ 23. the fp32 path at omnibiote-small full width and depth (compute_dtype
+     float32, fp32 parameters, seeded weights), from a checkpoint whose
+     meta.json says float32: `obt-torch-encode` on the serving slice's
+     sequences and `obt-torch-train` for 2 steps over synthetic shards
+     (bf16: the CLI has no dtype flag), each in a subprocess as its
+     console-script wrapper runs it (`sys.exit(main())`); the Encoder from
+     the checkpoint at B=32, T=1024 against the plain attention, and with
+     int8 weights and attention (#9's fp32 instance) against the plain int8
+     attention and the fp32 embeddings; one micro-batch at dropout 0 on the
+     fused backward and on the split pair against the plain attention
+     (loss, every gradient, grad_norm); the Trainer at ctx 1024 (16 x 2,
+     dropout 0.1, 3 EOS a row) fused and split, one step at ctx 2048 (8 x
+     2) through #3, with exact launch counts, tokens/s and peak memory;
+     encode(mean) seq/s beside phase 3's bf16 rate; then each fp32 kernel
+     (#1-#9) at its row's shape with skipping and over every tile beside
+     its plain version, its bound at the FP32 rate (67 TFLOP/s) or its
+     bytes and SDPA on the same fp32 inputs (its backends, TF32 off), the
+     split pair's dq a second time bit for bit, the per-head entry's path;
+ 24. prints the card's name and power limit, one JSON line of kernel
+     numbers (a row of each phase-19 kernel at D = 256, of each phase-20
+     kernel at D = 512 and of each phase-23 fp32 instance beside the 13
+     rows; phase 21's and 22's launches added to the rows of their kernels
+     at their head dims), and last the line {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script then exits non-zero without the
 last line. Without a CUDA device, or without the package beside it, it
@@ -301,8 +320,10 @@ from concurrent.futures import ThreadPoolExecutor
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet, dense, no sparsity): bf16 and int8
-# tensor cores, HBM3 bandwidth.
+# tensor cores, FP32 on the CUDA cores (FFMA; the fp32 kernels use no TF32),
+# HBM3 bandwidth.
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 
@@ -452,6 +473,15 @@ def build():
     # the wgmma forwards there
     spilled = {k: v for k, v in spills.items() if ("_wide<bf16" in k or "_wide_wgmma<" in k) and v}
     check(not spilled, f"bf16 or wgmma instances past D = 256 spill: {spilled}")
+    # nor any fp32 instance of #1-#5 up to D = 256: the forward, the fused
+    # backward (also the dkv kernel, without dq) and the dq kernel, at D = 64,
+    # 128 and 256 with and without dropout
+    f32 = {k: v for k, v in spills.items()
+           if k.split(": ")[1].startswith(("mh_fwd_f32<", "mh_bwd_f32<", "mh_bwd_dq_f32<"))}
+    check(len(f32) == 24, f"the build printed {len(f32)} fp32 instances, want 24: {sorted(f32)}")
+    check(not any(f32.values()), f"fp32 instances spill: {({k: v for k, v in f32.items() if v})}")
+    print(f"  fp32 instances (mh_fwd_f32, mh_bwd_f32 with and without dq, mh_bwd_dq_f32; "
+          f"D = 64, 128, 256, dropout 0 and 1): {len(f32)}, 0 bytes of spill stores")
     print(f"  instances with wgmma products serialised by ptxas (C7511): "
           f"{sorted(serialised) or 'none'}")
     check(not any(k.split(": ")[1].startswith(wgmma_kernels[3:]) for k in serialised),
@@ -532,14 +562,15 @@ def _bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def _attn_bound(B, T, H, D, pairs=None):
+def _attn_bound(B, T, H, D, pairs=None, itemsize=2, peak=PEAK_BF16_FLOPS):
     """(bound_ms, bound_by) of one bf16 forward call with RoPE: the larger
     of its operations (two products over `pairs` (q, k) pairs, default all
     B*T*T) over the bf16 peak and its bytes (q, k, v and the rope tables
-    read once, o and lse2 written once) over HBM bandwidth."""
+    read once, o and lse2 written once) over HBM bandwidth; an fp32 call
+    with itemsize 4 and the FP32 peak."""
     pairs = float(B) * T * T if pairs is None else pairs
-    nbytes = 4 * B * T * H * D * 2 + B * T * H * 4 + 2 * T * (D // 2) * 4
-    return _bound(4.0 * pairs * H * D, nbytes)
+    nbytes = 4 * B * T * H * D * itemsize + B * T * H * 4 + 2 * T * (D // 2) * 4
+    return _bound(4.0 * pairs * H * D, nbytes, peak)
 
 
 def kernel_phase():
@@ -639,18 +670,19 @@ TRAIN_SHAPE = dict(B=16, T=1024, H=8, D=128)
 TRAIN_DROPOUT = 0.1
 
 
-def _bwd_bound(B, T, H, D, pairs=None, kind="fused"):
+def _bwd_bound(B, T, H, D, pairs=None, kind="fused", itemsize=2, peak=PEAK_BF16_FLOPS):
     """(bound_ms, bound_by) of one bf16 backward call over `pairs` (q, k)
     pairs (default all B*T*T). fused: five products (10 flops a pair and
     head dim) and the bytes of q, k, v, do, dq, dk, dv (bf16), lse2 and di
     (fp32), each once; dkv: four products, no dq; dq: three products, no dk
     or dv. The fused kernel's fp32 dq scratch is its own design's traffic,
     not the function's, and is not counted. Operations over the bf16 peak
-    against bytes over HBM bandwidth."""
+    against bytes over HBM bandwidth; an fp32 call with itemsize 4 and the
+    FP32 peak."""
     pairs = float(B) * T * T if pairs is None else pairs
     n_prod, n_tensors = {"fused": (5, 7), "dkv": (4, 6), "dq": (3, 5)}[kind]
-    nbytes = n_tensors * B * T * H * D * 2 + 2 * B * T * H * 4
-    return _bound(2.0 * n_prod * pairs * H * D, nbytes)
+    nbytes = n_tensors * B * T * H * D * itemsize + 2 * B * T * H * 4
+    return _bound(2.0 * n_prod * pairs * H * D, nbytes, peak)
 
 
 def _rel_err(got, want):
@@ -1188,7 +1220,7 @@ def train_slice_phase(workdir):
     _kernels.reset_launches()
     torch.cuda.synchronize()
     t0 = time.time()
-    trainer = cli.main(argv)
+    trainer = cli.run(argv)
     torch.cuda.synchronize()
     wall = time.time() - t0
     reloaded, _ = load_model_checkpoint(os.path.join(workdir, "ckpt", "omnibiota"))
@@ -1197,7 +1229,7 @@ def train_slice_phase(workdir):
     del trainer, reloaded
     torch.cuda.empty_cache()
     # and one more step, resumed from that checkpoint
-    resumed = cli.main(argv[:argv.index("--max_steps")] + ["--max_steps", "1"]
+    resumed = cli.run(argv[:argv.index("--max_steps")] + ["--max_steps", "1"]
                        + argv[argv.index("--max_steps") + 2:] + ["--resume_from", "-1"])
     torch.cuda.synchronize()
     main_launches = dict(_kernels.LAUNCHES)
@@ -1725,7 +1757,7 @@ def longctx_slice_phase(workdir):
     _kernels.reset_launches()
     torch.cuda.synchronize()
     t0 = time.time()
-    trainer = cli.main(argv)
+    trainer = cli.run(argv)
     torch.cuda.synchronize()
     wall = time.time() - t0
     check(trainer.model.cfg.block_size == ctx and trainer.model.rope_cos.shape[0] == ctx,
@@ -1735,7 +1767,7 @@ def longctx_slice_phase(workdir):
         check(torch.equal(p, trainer.params[n]), f"checkpoint reload differs at {n}")
     del trainer, reloaded
     torch.cuda.empty_cache()
-    resumed = cli.main(argv[:argv.index("--max_steps")] + ["--max_steps", "1"]
+    resumed = cli.run(argv[:argv.index("--max_steps")] + ["--max_steps", "1"]
                        + argv[argv.index("--max_steps") + 2:] + ["--resume_from", "-1"])
     torch.cuda.synchronize()
     cli_launches = dict(_kernels.LAUNCHES)
@@ -3394,14 +3426,14 @@ def pretrain_phase(workdir):
     _kernels.reset_launches()
     torch.cuda.synchronize()
     t0 = time.time()
-    trainer = cli.main(argv)
+    trainer = cli.run(argv)
     torch.cuda.synchronize()
     wall = time.time() - t0
     check(trainer.model_cfg.checkpoint_freq == 1 and trainer.model_cfg.remat_policy == "dots",
           f"the CLI's model config {trainer.model_cfg}")
     del trainer
     torch.cuda.empty_cache()
-    resumed = cli.main(argv[:argv.index("--max_steps")] + ["--max_steps", "1"]
+    resumed = cli.run(argv[:argv.index("--max_steps")] + ["--max_steps", "1"]
                        + argv[argv.index("--max_steps") + 2:] + ["--resume_from", "-1"])
     torch.cuda.synchronize()
     main_launches = dict(_kernels.LAUNCHES)
@@ -4446,7 +4478,7 @@ def sp_phase(workdir):
         _kernels.reset_launches()
         torch.cuda.synchronize()
         t0 = time.time()
-        trainer = cli.main(argv)
+        trainer = cli.run(argv)
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = {k: v for k, v in _kernels.LAUNCHES.items() if v}
@@ -4633,7 +4665,7 @@ def pp_phase(workdir):
         _kernels.reset_launches()
         torch.cuda.synchronize()
         t0 = time.time()
-        trainer = cli.main(argv + ["--max_steps", str(PP_STEPS)])
+        trainer = cli.run(argv + ["--max_steps", str(PP_STEPS)])
         torch.cuda.synchronize()
         wall = time.time() - t0
         stage = trainer.plan.stage
@@ -4649,7 +4681,7 @@ def pp_phase(workdir):
         torch.cuda.empty_cache()
         t_reload = time.time() - t0
         t0 = time.time()
-        resumed = cli.main(argv + ["--max_steps", "1", "--resume_from", "-1"])
+        resumed = cli.run(argv + ["--max_steps", "1", "--resume_from", "-1"])
         torch.cuda.synchronize()
         t_resume = time.time() - t0
         launches = {k: v for k, v in _kernels.LAUNCHES.items() if v}
@@ -5580,7 +5612,7 @@ def _wide_training(workdir, H=WIDE_HEADS, D=WIDE_D, tps8=None):
                     "--test_freq", "50000", "--metrics_jsonl", log]
             print("wide train CLI: python -m omnibiote_tpu_torch.training.cli " + " ".join(argv))
             _kernels.reset_launches()
-            trainer = cli.main(argv)
+            trainer = cli.run(argv)
             torch.cuda.synchronize()
             cli_launches = dict(_kernels.LAUNCHES)
             check(trainer.model.cfg.n_head == H, "the CLI's model has other heads")
@@ -6588,6 +6620,455 @@ def ragged_t_phase():
     return launches128, launches512, worst
 
 
+# ---------------------------------------------------------------------------
+# 23. the fp32 path at omnibiote-small width
+# ---------------------------------------------------------------------------
+
+# fp32 compute against the plain attention (dropout 0, the same weights,
+# batch and seeds): only the order of fp32 sums differs, so the loss is held
+# to 1e-4, every gradient to a cosine of 0.9999, grad_norm to 1e-4 relative,
+# and each embedding row to a cosine of 0.99999.
+F32_LOSS_ATOL = 1e-4
+F32_GRAD_COS = 0.9999
+F32_GNORM_RTOL = 1e-4
+F32_MIN_COSINE = 0.99999
+# what a console-script wrapper runs (pyproject.toml [project.scripts])
+CONSOLE_WRAPPER = "import sys\nfrom {module} import main\nsys.exit(main())\n"
+
+
+def _console_script(module, argv):
+    """Start `module`'s console script in a subprocess, as the wrapper that
+    pip installs runs it, on this checkout's package."""
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    return subprocess.Popen([sys.executable, "-c", CONSOLE_WRAPPER.format(module=module), *argv],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            env=env, cwd=ROOT)
+
+
+def _wait_script(proc, name, timeout=600):
+    out = proc.communicate(timeout=timeout)[0]
+    check(proc.returncode == 0, f"{name} exited {proc.returncode}:\n{out[-4000:]}")
+    return out
+
+
+def _f32_timings():
+    """Each fp32 kernel instance (#1-#9) at its row's shape of the kernel
+    table: #1 and #2 at B=16, T=1024 (bench.py's rows, 3 EOS), #3-#5 at
+    B=8, T=2048 (5 EOS), both with RoPE and dropout 0.1, with skipping and
+    over every tile; #6-#8, the per-head entry, at B=16, T=1024 (no RoPE;
+    it walks every tile), after its own path's launches; #9 at B=32,
+    T=1024, dense. Each beside its plain version, its bound at the FP32
+    rate (or its fp32 bytes) and SDPA on the same fp32 inputs. Returns
+    (rows of the kernels line by kernel name, launches of the per-head
+    path)."""
+    import torch
+    import torch.nn.functional as F
+    from omnibiote_tpu_torch.models.rope import apply_rope_half
+    from omnibiote_tpu_torch.ops import _kernels
+    from omnibiote_tpu_torch.ops import flash_attention as fa
+    from omnibiote_tpu_torch.ops import int8_attention as i8
+
+    H, D, f32 = 8, 128, torch.float32
+    scale = 1.0 / math.sqrt(D)
+    bound_kw = dict(itemsize=4, peak=PEAK_F32_FLOPS)
+    rows = {}
+    print(f"fp32 kernel times: SDPA with torch.backends.cuda.matmul.allow_tf32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}, cudnn.allow_tf32 "
+          f"{torch.backends.cudnn.allow_tf32}")
+
+    def row(name, source, line, ms, ms_all, plain, bound, bound_all, lib, err):
+        print(f"  {name} fp32: {ms:.4f} ms" + ("" if ms_all is None else
+              f" with skipping, {ms_all:.4f} over every tile") + f"; plain {plain:.4f} ms; "
+              f"bound {bound[0]:.4f} ms ({bound[1]}) over visible pairs, {bound_all[0]:.4f} "
+              f"over all; " + ("no library call" if lib is None else f"SDPA {lib:.4f} ms")
+              + f"; max|d| {err:.3e}")
+        rows[name] = {"name": f"{name} fp32", "route": "cuda",
+                      "source": f"omnibiote_tpu_torch/ops/csrc/{source}", "replaces": line,
+                      "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                      "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib}
+
+    for B, T, n_eos in ((TRAIN_SHAPE["B"], 1024, 3), (LONG_SHAPES[0][0], 2048, LONG_EOS)):
+        q, k, v, _, rope = _attn_inputs(B, T, H, D, f32, "dense", 2600 + T)
+        seg = _wide_ids("packed", B, T, n_eos, 2600 + T)
+        gen = torch.Generator(device="cuda").manual_seed(2700 + T)
+        do = torch.randn(B, T, H, D, generator=gen, device="cuda")
+        sb = fa.SegmentBounds(seg)
+        kw = dict(scale=scale, dropout_rate=TRAIN_DROPOUT, seed=2564)
+        skip = dict(segment_skip=True, bounds=sb)
+        o, lse = fa.mh_flash_forward(q, k, v, seg, rope, **kw, **skip)
+        args = (q, k, v, do, lse, (o * do).sum(-1), seg, rope)
+        pairs = _visible_pairs(seg, B, T)
+        qr, kr = apply_rope_half(q, k, *rope)
+        qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_() for x in (qr, kr, v))
+        doh = do.transpose(1, 2).contiguous()
+        lib_f, alone = _sdpa(qh.detach(), kh.detach(), vh.detach(), dropout_p=TRAIN_DROPOUT,
+                             scale=scale)
+        lib_b = cuda_ms(lambda: torch.autograd.grad(F.scaled_dot_product_attention(
+            qh, kh, vh, dropout_p=TRAIN_DROPOUT, scale=scale), (qh, kh, vh), doh), 5) - lib_f
+        print(f" B={B} T={T} H={H} D={D} fp32, {n_eos} EOS a row (visible share of pairs "
+              f"{pairs / (B * T * T):.4f}), dropout {TRAIN_DROPOUT}: SDPA dense forward "
+              f"{lib_f:.4f} ms (backends alone: "
+              f"{', '.join(f'{n} {t:.4f}' for n, t in alone.items()) or 'none'}), backward "
+              f"{lib_b:.4f} ms")
+        del qr, kr, qh, kh, vh, doh
+        want = fa.mh_flash_backward_plain(*args, **kw)
+        if T == 1024:
+            err = _hold_fwd((o, lse), fa.mh_flash_forward_plain(
+                q, k, v, seg, rope, block_kv=fa.kernel_kv_tile(f32, D), **kw), "float32",
+                f"fp32 B={B} T={T}")
+            row("mh_flash_fwd", "mh_flash_fwd.cu", "omnibiote_tpu/ops/flash_attention.py:545",
+                cuda_ms(lambda: fa.mh_flash_forward(q, k, v, seg, rope, **kw, **skip), 10),
+                cuda_ms(lambda: fa.mh_flash_forward(q, k, v, seg, rope, **kw), 10),
+                cuda_ms(lambda: fa.mh_flash_forward_plain(q, k, v, seg, rope, **kw), 2,
+                        warmup=1),
+                _attn_bound(B, T, H, D, pairs, **bound_kw), _attn_bound(B, T, H, D, None,
+                                                                        **bound_kw),
+                lib_f, err)
+            kinds = (("mh_flash_bwd", "fused", fa.mh_flash_backward, fa.mh_flash_backward_plain,
+                      "mh_flash_bwd.cu", 965, lib_b, want),)
+        else:
+            kinds = (("mh_flash_bwd_mk", "fused", fa.mh_flash_backward,
+                      fa.mh_flash_backward_plain, "mh_flash_bwd.cu", 1128, lib_b, want),
+                     ("mh_flash_bwd_dkv", "dkv", fa.mh_flash_bwd_dkv, fa.mh_flash_bwd_dkv_plain,
+                      "mh_flash_bwd_dkv.cu", 773, None, want[1:]),
+                     ("mh_flash_bwd_dq", "dq", fa.mh_flash_bwd_dq, fa.mh_flash_bwd_dq_plain,
+                      "mh_flash_bwd_dq.cu", 866, None, want[:1]))
+            # the split pair's dq: the same bits from a second launch, and
+            # with skipping as over every tile
+            dq1 = fa.mh_flash_bwd_dq(*args, **kw, **skip)
+            check(torch.equal(dq1, fa.mh_flash_bwd_dq(*args, **kw, **skip))
+                  and torch.equal(dq1, fa.mh_flash_bwd_dq(*args, **kw)),
+                  "the fp32 dq kernel: a second launch, or every tile, gave other bits")
+            print(f"  mh_flash_bwd_dq fp32 at B={B} T={T}: a second launch and the walk over "
+                  f"every tile the same bits")
+            del dq1
+        for name, kind, fn, pfn, source, line, lib, w in kinds:
+            got = fn(*args, **kw, **skip)
+            err = _hold_bwd(got if kind != "dq" else (got,), w, "float32",
+                            f"fp32 {name} B={B} T={T}")[1]
+            row(name, source, f"omnibiote_tpu/ops/flash_attention.py:{line}",
+                cuda_ms(lambda: fn(*args, **kw, **skip), 10), cuda_ms(lambda: fn(*args, **kw), 10),
+                cuda_ms(lambda: pfn(*args, **kw), 2, warmup=1),
+                _bwd_bound(B, T, H, D, pairs, kind, **bound_kw),
+                _bwd_bound(B, T, H, D, None, kind, **bound_kw), lib, err)
+            del got
+        if T == 1024:
+            # the per-head entry (#6-#8): its path's launches, then each kernel
+            kwh = dict(scale=scale, dropout_rate=TRAIN_DROPOUT, seed=2565)
+
+            def fwd_bwd():
+                qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+                out = fa.flash_attention(qg, kg, vg, seg, None, scale=scale, block_q=512,
+                                         block_kv=512, multi_head=False,
+                                         dropout_rate=TRAIN_DROPOUT, seed=2565)
+                return torch.autograd.grad(out, (qg, kg, vg), do)
+
+            n_calls = 4
+            _kernels.reset_launches()
+            for _ in range(n_calls):
+                fwd_bwd()
+            torch.cuda.synchronize()
+            per_head = dict(_kernels.LAUNCHES)
+            want_counts = _counts(flash_fwd=n_calls, flash_bwd_dkv=n_calls,
+                                  flash_bwd_dq=n_calls)
+            check(per_head == want_counts,
+                  f"the fp32 per-head path launched {per_head}, want {want_counts}")
+            oh, lseh = fa.mh_flash_forward(q, k, v, seg, None, **kwh)
+            argsh = (q, k, v, do, lseh, (oh * do).sum(-1), seg, None)
+            wanth = fa.mh_flash_backward_plain(*argsh, **kwh)
+            qn, kn, vn = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            lib_h, _ = _sdpa(qn, kn, vn, dropout_p=TRAIN_DROPOUT, scale=scale)
+            nb = 4 * B * T * H * D * 4 + B * T * H * 4
+            errs = {"flash_fwd": _hold_fwd((oh, lseh), fa.mh_flash_forward_plain(
+                        q, k, v, seg, None, block_kv=fa.kernel_kv_tile(f32, D), **kwh),
+                        "float32", "fp32 per-head"),
+                    "flash_bwd_dkv": _hold_bwd(fa.mh_flash_bwd_dkv(*argsh, **kwh), wanth[1:],
+                                               "float32", "fp32 per-head dkv")[1],
+                    "flash_bwd_dq": _hold_bwd((fa.mh_flash_bwd_dq(*argsh, **kwh),), wanth[:1],
+                                              "float32", "fp32 per-head dq")[1]}
+            for name, fn, pfn, bound, bound_all, lib, source, line in (
+                    ("flash_fwd", lambda: fa.mh_flash_forward(q, k, v, seg, None, **kwh),
+                     lambda: fa.mh_flash_forward_plain(q, k, v, seg, None, **kwh),
+                     _bound(4.0 * pairs * H * D, nb, PEAK_F32_FLOPS),
+                     _bound(4.0 * B * T * T * H * D, nb, PEAK_F32_FLOPS), lib_h,
+                     "mh_flash_fwd.cu", 110),
+                    ("flash_bwd_dkv", lambda: fa.mh_flash_bwd_dkv(*argsh, **kwh),
+                     lambda: fa.mh_flash_bwd_dkv_plain(*argsh, **kwh),
+                     _bwd_bound(B, T, H, D, pairs, "dkv", **bound_kw),
+                     _bwd_bound(B, T, H, D, None, "dkv", **bound_kw), None,
+                     "mh_flash_bwd_dkv.cu", 240),
+                    ("flash_bwd_dq", lambda: fa.mh_flash_bwd_dq(*argsh, **kwh),
+                     lambda: fa.mh_flash_bwd_dq_plain(*argsh, **kwh),
+                     _bwd_bound(B, T, H, D, pairs, "dq", **bound_kw),
+                     _bwd_bound(B, T, H, D, None, "dq", **bound_kw), None,
+                     "mh_flash_bwd_dq.cu", 301)):
+                row(name, source, f"omnibiote_tpu/ops/flash_attention.py:{line}",
+                    cuda_ms(fn, 10), None, cuda_ms(pfn, 2, warmup=1), bound, bound_all, lib,
+                    errs[name])
+            del oh, lseh, argsh, wanth, qn, kn, vn
+        del q, k, v, do, o, lse, args, want
+        torch.cuda.empty_cache()
+
+    # #9 at the serving shape, dense, no dropout
+    B, T = SERVING_BATCH, 1024
+    q, k, v, _, rope = _attn_inputs(B, T, H, D, f32, "dense", 2800)
+    o8 = i8.int8_flash_attention(q, k, v, scale=scale, rope=rope)
+    p8 = i8.int8_flash_attention_plain(q, k, v, scale=scale, rope=rope)
+    rt, at = INT8_TOL["float32"]
+    check(torch.allclose(o8, p8, rtol=rt, atol=at),
+          f"the fp32 int8 kernel disagrees with its plain version at B={B} T={T}")
+    qr, kr = apply_rope_half(q, k, *rope)
+    lib9, _ = _sdpa(*(x.transpose(1, 2).contiguous() for x in (qr, kr, v)), scale=scale)
+    b9 = _int8_bound(B, T, H, D, 4)
+    row("int8_flash_fwd", "int8_flash_fwd.cu", "omnibiote_tpu/ops/int8_attention.py:48",
+        cuda_ms(lambda: i8.int8_flash_attention(q, k, v, scale=scale, rope=rope), 10), None,
+        cuda_ms(lambda: i8.int8_flash_attention_plain(q, k, v, scale=scale, rope=rope), 2,
+                warmup=1), b9, b9, None, _abs_err(o8, p8))
+    print(f"  (int8_flash_fwd fp32 has no library counterpart; for context SDPA fp32 dense "
+          f"{lib9:.4f} ms)")
+    del q, k, v, o8, p8, qr, kr
+    torch.cuda.empty_cache()
+    return rows, per_head
+
+
+def _f32_micro_batch(model, tokens, segments, label):
+    """(loss, {name: grad}, grad_norm) of one fp32 micro-batch of mlm_loss."""
+    import torch
+    from omnibiote_tpu_torch.training.mlm import mlm_loss
+    from omnibiote_tpu_torch.training.train import _compute_copy
+
+    params_c = _compute_copy(dict(model.named_parameters()), model.cfg)
+    check(all(p.dtype == torch.float32 for p in params_c.values()),
+          f"{label}: the compute copy is not fp32")
+    loss, _ = mlm_loss(model, tokens, segments, 4321, params=params_c)
+    grads = dict(zip(params_c, torch.autograd.grad(loss, list(params_c.values()))))
+    gnorm = math.sqrt(sum(float(g.double().square().sum()) for g in grads.values()))
+    return loss.item(), grads, gnorm
+
+
+def fp32_phase(workdir, tok_path, seqs, rate16):
+    """Phase 23: omnibiote-small at full width and depth in fp32 compute,
+    from a checkpoint whose meta.json says float32, through the port's
+    console scripts and its Python entries: serving (#1, #9), training on
+    the fused backward (#2, #3) and the split pair (#4, #5), and every fp32
+    kernel timed. Returns (the fp32 rows of the kernels line with their
+    launches, the launches of each path)."""
+    import numpy as np
+    import torch
+    from omnibiote_tpu_torch import encode, init_params, preset
+    from omnibiote_tpu_torch.api import Encoder
+    from omnibiote_tpu_torch.config import TrainConfig
+    from omnibiote_tpu_torch.ops import _kernels
+    from omnibiote_tpu_torch.ops import attention as port_attention
+    from omnibiote_tpu_torch.ops.int8_attention import int8_flash_attention_plain
+    from omnibiote_tpu_torch.training.checkpoint import save_model_checkpoint
+    from omnibiote_tpu_torch.training.train import Trainer
+
+    t_phase = time.time()
+    cfg = preset("omnibiote-small", vocab_size=65536, dropout=0.0, compute_dtype="float32")
+    check((cfg.n_layer, cfg.n_embd, cfg.n_head, cfg.block_size, cfg.param_dtype)
+          == (8, 1024, 8, 1024, "float32"), f"unexpected omnibiote-small config {cfg}")
+    L = cfg.n_layer
+    model = init_params(torch.Generator(device="cuda").manual_seed(23), cfg, device="cuda")
+    ckpt = save_model_checkpoint(model, os.path.join(workdir, "f32_ckpt"))
+    with open(os.path.join(ckpt, "meta.json")) as f:
+        meta_dtype = json.load(f)["model_cfg"]["compute_dtype"]
+    check(meta_dtype == "float32", f"the checkpoint's meta.json says {meta_dtype}")
+    del model
+    fasta = os.path.join(workdir, "f32_seqs.fa")
+    with open(fasta, "w") as f:
+        f.writelines(f">s{i}\n{s}\n" for i, s in enumerate(seqs))
+    emb_path = os.path.join(workdir, "f32_emb.npz")
+    data = os.path.join(workdir, "f32_data")
+    _write_shards(data, 200_000, seed=23)
+    # both console scripts, while this process checks the kernels
+    encode_argv = ["--checkpoint", ckpt, "--fasta", fasta, "--out", emb_path,
+                   "--tokenizer-path", tok_path]
+    train_argv = ["--base_dir", data, "--train_type", "mixed", "--n_layer", str(L),
+                  "--n_embd", "1024", "--n_head", "8", "--ctx_len", "1024",
+                  "--dropout", str(TRAIN_DROPOUT), "--mini_batch_size", "16",
+                  "--batch_size", "32", "--max_steps", "2",
+                  "--save_dir", os.path.join(workdir, "f32_cli_ckpt"),
+                  "--metrics_jsonl", os.path.join(workdir, "f32_cli.jsonl"),
+                  "--log_every", "1", "--test_freq", "50000"]
+    print("obt-torch-encode " + " ".join(encode_argv))
+    print("obt-torch-train " + " ".join(train_argv) + " (bf16: the CLI has no dtype flag)")
+    t_scripts = time.time()
+    procs = {"obt-torch-encode": _console_script("omnibiote_tpu_torch.api", encode_argv),
+             "obt-torch-train": _console_script("omnibiote_tpu_torch.training.cli", train_argv)}
+
+    # -- serving: Encoder.from_checkpoint, fp32 compute --------------------
+    enc = Encoder.from_checkpoint(ckpt, tokenizer_path=tok_path)
+    model = enc.model
+    check(enc.cfg.compute_dtype == "float32" and next(model.parameters()).is_cuda,
+          f"Encoder.from_checkpoint: compute {enc.cfg.compute_dtype} on "
+          f"{next(model.parameters()).device}")
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    x = torch.randint(20, 65000, (SERVING_BATCH, cfg.block_size), generator=gen, device="cuda")
+    n_runs = 2
+    _kernels.reset_launches()       # the serving path: counts at 0 just before
+    with torch.inference_mode():
+        for _ in range(n_runs):
+            e32 = encode(model, x, "mean")
+    torch.cuda.synchronize()
+    serving = dict(_kernels.LAUNCHES)
+    check(serving == _counts(mh_flash_fwd=L * n_runs),
+          f"fp32 encode launched {serving}, want {L * n_runs} of mh_flash_fwd")
+    check(e32.dtype == torch.float32 and e32.shape == (SERVING_BATCH, cfg.n_embd)
+          and bool(torch.isfinite(e32).all()), "fp32 embeddings: dtype, shape or non-finite")
+    with _plain_attention(), torch.inference_mode():
+        e_plain = encode(model, x, "mean")
+    cos_plain = _min_row_cosine(e32.cpu().numpy(), e_plain.cpu().numpy())
+    print(f"fp32 serving: Encoder.from_checkpoint (meta.json compute_dtype float32), encode(mean) "
+          f"at B={SERVING_BATCH} T={cfg.block_size} x {n_runs}: launches {serving}; min row "
+          f"cosine vs the plain attention {cos_plain:.8f} (threshold {F32_MIN_COSINE})")
+    check(cos_plain >= F32_MIN_COSINE, "fp32 encode: kernels vs plain attention")
+    # int8 weights and attention on the fp32 model: #9's fp32 instance
+    enc8 = Encoder(model, enc.sp, quantize=True, quantize_attention=True)
+    check(enc8.cfg.attn_int8 and enc8.cfg.compute_dtype == "float32", "the fp32 int8 Encoder")
+    _kernels.reset_launches()
+    with torch.inference_mode():
+        for _ in range(n_runs):
+            e8 = encode(enc8.model, x, "mean")
+    torch.cuda.synchronize()
+    int8_serving = dict(_kernels.LAUNCHES)
+    check(int8_serving == _counts(int8_flash_fwd=L * n_runs),
+          f"fp32 int8 encode launched {int8_serving}, want {L * n_runs} of int8_flash_fwd")
+    kernel_fn = port_attention.int8_flash_attention
+    port_attention.int8_flash_attention = int8_flash_attention_plain
+    try:
+        with torch.inference_mode():
+            e8_plain = encode(enc8.model, x, "mean")
+    finally:
+        port_attention.int8_flash_attention = kernel_fn
+    cos8_plain = _min_row_cosine(e8.cpu().numpy(), e8_plain.cpu().numpy())
+    cos8_f32 = _min_row_cosine(e8.cpu().numpy(), e32.cpu().numpy())
+    print(f"fp32 int8 serving (quantize=True, quantize_attention=True): launches {int8_serving}; "
+          f"min row cosine vs plain int8 attention {cos8_plain:.7f} (threshold {MIN_COSINE}), "
+          f"vs the fp32 embeddings {cos8_f32:.6f} (threshold {MIN_COSINE_INT8})")
+    check(cos8_plain >= MIN_COSINE, "fp32 int8 encode: kernel vs plain int8 attention")
+    check(cos8_f32 >= MIN_COSINE_INT8, "fp32 int8 encode vs the fp32 embeddings")
+    del e_plain, e8, e8_plain
+
+    # -- training at dropout 0: kernels (fused, split) vs plain ------------
+    mini, accum, ctx = 16, 2, 1024
+    batch = next(bench_batches(mini, ctx, seed=25))
+    tokens = torch.from_numpy(batch["tokens"]).cuda()
+    segments = torch.from_numpy(batch["segments"]).cuda()
+    with _plain_attention():
+        ref = _f32_micro_batch(model, tokens, segments, "plain")
+    for label, flags in (("fused", dict(FUSED_SINGLE_KV_BWD=True)),
+                         ("split pair", dict(FUSED_SINGLE_KV_BWD=False))):
+        _kernels.reset_launches()
+        with _attention_switch(**flags):
+            got = _f32_micro_batch(model, tokens, segments, label)
+        want = (_counts(mh_flash_fwd=L, mh_flash_bwd=L) if label == "fused" else
+                _counts(mh_flash_fwd=L, mh_flash_bwd_dkv=L, mh_flash_bwd_dq=L))
+        check(_kernels.LAUNCHES == want, f"fp32 micro-batch ({label}) launched "
+              f"{dict(_kernels.LAUNCHES)}, want {want}")
+        worst = min(torch.nn.functional.cosine_similarity(
+            got[1][n].double().flatten(), ref[1][n].double().flatten(), dim=0).item()
+            for n in ref[1])
+        d_loss, d_gn = abs(got[0] - ref[0]), abs(got[2] - ref[2]) / ref[2]
+        print(f"fp32 train micro-batch ({label}, mini {mini}, T {ctx}, dropout 0): loss "
+              f"{got[0]:.7f} vs plain {ref[0]:.7f} (|d| {d_loss:.2e}, limit {F32_LOSS_ATOL}); "
+              f"worst gradient cosine {worst:.7f} over {len(ref[1])} tensors (limit "
+              f"{F32_GRAD_COS}); grad_norm {got[2]:.6f} vs {ref[2]:.6f} (relative {d_gn:.2e}, "
+              f"limit {F32_GNORM_RTOL})")
+        check(d_loss <= F32_LOSS_ATOL and worst >= F32_GRAD_COS and d_gn <= F32_GNORM_RTOL,
+              f"fp32 training ({label}) against the plain attention")
+        del got
+    del ref, enc, enc8, model
+    torch.cuda.empty_cache()
+
+    # -- the console scripts' results -------------------------------------
+    for name, proc in procs.items():
+        _wait_script(proc, name)
+    print(f"console scripts: both exited 0 in {time.time() - t_scripts:.1f} s")
+    with np.load(emb_path) as z:
+        ids, emb = list(z["ids"]), z["embeddings"]
+    check(ids == [f"s{i}" for i in range(len(seqs))] and emb.shape == (len(seqs), cfg.n_embd),
+          "obt-torch-encode's ids or shape")
+    enc = Encoder.from_checkpoint(ckpt, tokenizer_path=tok_path)
+    same = enc.encode_sequences(seqs, method="mean")
+    cos_cli = _min_row_cosine(emb, same)
+    print(f"obt-torch-encode: {emb.shape[0]} fp32 embeddings, min row cosine vs "
+          f"Encoder.from_checkpoint in this process {cos_cli:.8f} (threshold {F32_MIN_COSINE})")
+    check(cos_cli >= F32_MIN_COSINE, "obt-torch-encode vs Encoder.from_checkpoint")
+    with open(os.path.join(workdir, "f32_cli.jsonl")) as f:
+        losses = [r["loss"] for r in map(json.loads, f) if "loss" in r]
+    check(len(losses) == 2 and all(math.isfinite(v) for v in losses),
+          f"obt-torch-train losses {losses}")
+    print(f"obt-torch-train: 2 steps, losses {[round(v, 4) for v in losses]}")
+
+    # -- serving rate --------------------------------------------------------
+    rate32 = _encode_rate(enc.model, x, "fp32", steps=4)
+    print(f"encode(mean) fp32 {rate32:.1f} seq/s against bf16 {rate16:.1f} seq/s in this run "
+          f"({rate32 / rate16:.4f} x)")
+    del enc, x
+    torch.cuda.empty_cache()
+
+    # -- training runs: fused, split pair, one step at ctx 2048 --------------
+    training = {}
+    for label, ctx_t, mini_t, flags, steps in (
+            ("ctx 1024, fused", 1024, 16, dict(FUSED_SINGLE_KV_BWD=True), 2),
+            ("ctx 1024, split pair", 1024, 16, dict(FUSED_SINGLE_KV_BWD=False), 2),
+            ("ctx 2048, fused", 2048, 8, dict(FUSED_MULTIKV_BWD=True), 1)):
+        cfg_r = preset("omnibiote-small", vocab_size=65536, dropout=TRAIN_DROPOUT,
+                       compute_dtype="float32", block_size=ctx_t)
+        tc = TrainConfig(batch_size=2 * mini_t, mini_batch_size=mini_t, ctx_len=ctx_t,
+                         token_budget=float(2 * mini_t * ctx_t * 10000), seed=0)
+        n_eos = 3 if ctx_t == 1024 else LONG_EOS
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with _attention_switch(**flags), Trainer(
+                cfg_r, tc, batch_iter=bench_batches(tc.batch_size, ctx_t, 26, n_eos),
+                prefetch=2) as tr:
+            check(tr.model_cfg.compute_dtype == "float32", "the fp32 Trainer")
+            tr.train_step_once()
+            torch.cuda.synchronize()
+            _kernels.reset_launches()     # the path: counts at 0 just before
+            t0 = time.time()
+            for _ in range(steps):
+                m = tr.train_step_once()
+            torch.cuda.synchronize()
+            dt = time.time() - t0
+            launches = dict(_kernels.LAUNCHES)
+            loss = float(m["loss"])
+        n = L * 2 * steps
+        want = (_counts(mh_flash_fwd=n, mh_flash_bwd_dkv=n, mh_flash_bwd_dq=n) if "split" in label
+                else _counts(mh_flash_fwd=n, **{"mh_flash_bwd" if ctx_t == 1024
+                                                else "mh_flash_bwd_mk": n}))
+        check(launches == want, f"fp32 training ({label}) launched {launches}, want {want}")
+        check(math.isfinite(loss), f"fp32 training ({label}): loss {loss}")
+        tps = steps * tc.batch_size * ctx_t / dt
+        print(f"fp32 train {label}: B={tc.batch_size} (mini {mini_t} x accum 2), dropout "
+              f"{TRAIN_DROPOUT}, {n_eos} EOS a row: {tps:.1f} tokens/s, {1e3 * dt / steps:.3f} ms "
+              f"a step over {steps} step(s) after one, peak allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, loss {loss:.4f}, launches "
+              f"{launches}")
+        training[label] = launches
+
+    rows, per_head = _f32_timings()
+    # each fp32 row's launches: its paths in this phase
+    fwd = (serving["mh_flash_fwd"]
+           + sum(launches["mh_flash_fwd"] for launches in training.values()))
+    for name, n in (("mh_flash_fwd", fwd),
+                    ("mh_flash_bwd", training["ctx 1024, fused"]["mh_flash_bwd"]),
+                    ("mh_flash_bwd_mk", training["ctx 2048, fused"]["mh_flash_bwd_mk"]),
+                    ("mh_flash_bwd_dkv", training["ctx 1024, split pair"]["mh_flash_bwd_dkv"]),
+                    ("mh_flash_bwd_dq", training["ctx 1024, split pair"]["mh_flash_bwd_dq"]),
+                    ("flash_fwd", per_head["flash_fwd"]),
+                    ("flash_bwd_dkv", per_head["flash_bwd_dkv"]),
+                    ("flash_bwd_dq", per_head["flash_bwd_dq"]),
+                    ("int8_flash_fwd", int8_serving["int8_flash_fwd"])):
+        rows[name]["launches"] = n
+    print(f"phase 23 (fp32 at omnibiote-small width): {time.time() - t_phase:.1f} s")
+    return [rows[name] for name in ("mh_flash_fwd", "mh_flash_bwd", "mh_flash_bwd_mk",
+                                    "mh_flash_bwd_dkv", "mh_flash_bwd_dq", "flash_fwd",
+                                    "flash_bwd_dkv", "flash_bwd_dq", "int8_flash_fwd")]
+
+
 def setup():
     """Refuse to run without a card or without the package, and fix the
     fp32 matmul precision the references assume."""
@@ -6663,6 +7144,8 @@ def main():
         print(f"reference checkpoint main path launches: {ref_ckpt}")
         torch.cuda.empty_cache()
         ragged128, ragged512, ragged_err = ragged_t_phase()
+        torch.cuda.empty_cache()
+        f32_rows = fp32_phase(workdir, tok_path, seqs, rate16)
     fwd_row["max_abs_err"] = max(fwd_row["max_abs_err"], ring_err["fwd"], held_err["fwd"],
                                  ragged_err["fwd"])
     bwd_row["max_abs_err"] = max(bwd_row["max_abs_err"], ring_err["bwd"], held_err["bwd"],
@@ -6698,6 +7181,8 @@ def main():
     for row in rows:
         name, _, dim = row["name"].partition(" D=")
         row["launches"] += {"": ragged128, "512": ragged512}.get(dim, {}).get(name, 0)
+    # the fp32 instances of #1-#9, each launched on phase 23's paths
+    rows += f32_rows
     check(min(serving["mh_flash_fwd"], train["mh_flash_fwd"], long_cli["mh_flash_fwd"],
               evals["mh_flash_fwd"], pretrain["mh_flash_fwd"], contact["mh_flash_fwd"],
               parallel["mh_flash_fwd"], pp["mh_flash_fwd"]) > 0,
@@ -6712,7 +7197,7 @@ def main():
     check(min(ring[k] for k in ("mh_flash_fwd", "mh_flash_bwd", "mh_flash_bwd_mk",
                                 "mh_flash_bwd_dkv", "mh_flash_bwd_dq")) > 0,
           f"the ring path never launched one of #1-#5: {ring}")
-    check(len(rows) == 31 and all(row["launches"] > 0 for row in rows),
+    check(len(rows) == 40 and all(row["launches"] > 0 for row in rows),
           f"a kernel was never launched on its main path: "
           f"{[(row['name'], row['launches']) for row in rows]}")
     print(f"mh_flash_fwd at the long shape (mini 8, T 2048, skipping): {fwd_ms_2048:.4f} ms")

@@ -17,9 +17,9 @@ namespace obt {
 // attends uniformly instead of turning into NaN.
 constexpr float kMaskValue = -0.7f * FLT_MAX;
 
-// The kv tile of the fp32 forward and dq kernels (their q tile is 32 rows):
-// 32 rows, 16 at D = 256, where two 32-row fp32 K and V tiles (64 KB) pass
-// the 48 KB of static shared memory.
+// The kv tile of the fp32 forward kernel (its q tile is 32 rows): 32 rows,
+// 16 at D = 256, where two 32-row fp32 K and V tiles (64 KB) pass the 48 KB
+// of static shared memory.
 template <int D>
 __host__ __device__ constexpr int f32_kv_tile() {
   return D == 256 ? 16 : 32;

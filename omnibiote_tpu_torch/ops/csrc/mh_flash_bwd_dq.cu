@@ -38,14 +38,19 @@
 // 6*B*T^2*H*D = 206 GFLOP over all (q, k) pairs (0.208 ms at 989 TFLOP/s),
 // less in proportion to the visible tiles on packed rows; q, k, v, do, dq,
 // lse2 and di are 169 MB (0.05 ms at 3.35 TB/s): bound by operations. The
-// fp32 kernel is the parity type and runs on the CUDA cores.
+// fp32 kernel is the parity type and runs on the CUDA cores: the same
+// products over all pairs are 3.08 ms at the FP32 FFMA rate (67 TFLOP/s),
+// 338 MB of fp32 tensors 0.10 ms, so it too is bound by operations; its
+// design (mh_bwd_dq_f32's note) reads each shared operand once for 4 to 16
+// FFMA of register tiles.
 //
 // Head dim 256. The q and dO tiles alone are 128 KB there, so the ring has
 // two stages of 32-row K and V tiles (64 KB), S and dP are m64n32k16
 // products (16 fp32 a thread each) beside dq's 128, and dQ += dS.K is two
 // m64n128k16 products on the halves of the accumulator. The q and dO
 // descriptors are formed inside the walk (hoisted, their 32 loop-invariant
-// descriptors spilled). The fp32 kernel walks 16-row kv tiles there.
+// descriptors spilled). The fp32 kernel walks 16-row kv tiles there (Q and
+// dO alone are 128 KB).
 //
 // Head dims past 256 (D % 128 == 0). In bf16 at D = 384 and 512,
 // mh_flash_bwd_pair.cuh::mh_bwd_dq_cta: a CTA owns a 64-row q tile with all
@@ -453,15 +458,67 @@ __global__ void __launch_bounds__(kThreads, 1) mh_bwd_dq_wgmma(
 }
 
 // ---------------------------------------------------------------------------
-// fp32: 128 threads = 32 q rows x 4 threads; thread `sub` of a row owns the
-// head dims sub + 4*i (its q, do and dq in registers), so a dot product is 4
-// partial sums joined by two shuffles. f32_kv_tile<D>()-row kv tiles, k
-// already rotated.
+// fp32, the parity type: FP32 FFMA on the CUDA cores (no TF32: its 10-bit
+// mantissa would miss the fp32 tolerances). A CTA of 256 threads owns a
+// (batch, head, 64-row q tile): Q (rotated) and dO stay resident in shared
+// memory; K and V tiles of kF32Dq<D>::BKV rows (64, 16 at D = 256) arrive
+// by cp.async into a two-stage ring, the next tile's copies in flight while
+// the CTA works on this one. Per kv tile, two register-tiled SIMT passes:
+//   * S and dP: thread (rg, cg) owns NRP pairs of q rows {2 rg, 2 rg + 1}
+//     and NCP pairs of kv columns {2 cg, 2 cg + 1} (4 x 4 elements at BKV =
+//     64, 2 x 2 at 16) of both products; each 16-byte shared read of a q,
+//     dO, k or v row feeds 4 FFMA to every element of that row or column
+//     the thread holds; a row pair by a column pair is one Philox call of
+//     the keep-mask (philox.cuh); p, ds as the plain version rounds them;
+//     ds goes to shared memory, transposed (dS^T, kv-major);
+//   * dQ += dS.K: thread (rg, cg) owns RQ = D / 32 consecutive q rows by 4
+//     lanes d and their rotate-half partners d + D/2 (D / 4 fp32 sums), so
+//     the inverse RoPE is formed in registers and dq is written once, with
+//     no atomics: two launches give the same bits.
+// Every sum runs in ascending d or kv order, one FFMA a term, as a plain
+// fp32 matrix product sums. Shared rows are padded by 4 floats, and K / V
+// rows are kept even rows first (smem row (j & 1) * BKV/2 + j/2), so a
+// warp's 8 column pairs read 8 consecutive padded rows: no bank conflicts
+// in either pass.
 // ---------------------------------------------------------------------------
-constexpr int kF32Tile = 32;
+constexpr int kF32Bq = 64, kF32Threads = 256;
+
+template <int D>
+struct kF32Dq {
+  static constexpr int BKV = D == 256 ? 16 : 64;      // kv tile rows
+  static constexpr int LD = D + 4;                    // padded row stride (floats)
+  static constexpr int DS_LD = kF32Bq + 4;            // dS^T row stride (floats)
+  static constexpr int NRP = BKV >= 32 ? 2 : 1;       // q-row pairs a thread (S, dP)
+  static constexpr int NCP = BKV / 16 / NRP;          // kv-column pairs a thread
+  static constexpr int ROW_STEP = kF32Bq / NRP;       // between a thread's row pairs
+  static constexpr int COL_STEP = BKV / NCP;          // between its column pairs
+  static constexpr int N_CG = BKV / (2 * NCP);        // column-pair groups
+  static constexpr int RQ = D / 32;                   // dQ rows a thread
+  static constexpr int N_CGQ = D / 8;                 // dQ 4-lane groups of the low half
+  static_assert((kF32Bq / 2 / NRP) * N_CG == kF32Threads, "S tiling");
+  static_assert((kF32Bq / RQ) * N_CGQ == kF32Threads, "dQ tiling");
+  static_assert(N_CG % 8 == 0 && N_CGQ % 8 == 0, "8 column lanes a warp");
+  // floats: Q, dO (64 rows each), K and V (two stages each), dS^T; then the
+  // kv tiles' segment ids (two stages, int)
+  static constexpr size_t FLOATS = (size_t)(2 * kF32Bq + 4 * BKV) * LD + BKV * DS_LD;
+  static constexpr size_t SMEM = FLOATS * 4 + 2 * BKV * 4;
+  // the shared row of kv row j of a tile: even rows first
+  __host__ __device__ static constexpr int kv_row(int j) { return (j & 1) * (BKV / 2) + (j >> 1); }
+};
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void fma4(float& acc, const float4& a, const float4& b) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  acc = fmaf(a.w, b.w, acc);
+}
 
 template <int D, bool DROP>
-__global__ void __launch_bounds__(128) mh_bwd_dq_f32(
+__global__ void __launch_bounds__(kF32Threads, 1) mh_bwd_dq_f32(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ di,
@@ -470,104 +527,253 @@ __global__ void __launch_bounds__(128) mh_bwd_dq_f32(
     const int* __restrict__ kv_hi, int* __restrict__ tile_count,
     float* __restrict__ dq, int T, int H, float scale_log2, float scale,
     DropParams dp) {
-  constexpr int BQ = kF32Tile, BKV = f32_kv_tile<D>(), HALF = D / 2, PER = D / 4;
-  __shared__ __align__(16) float ks[BKV * D];
-  __shared__ __align__(16) float vs[BKV * D];
-  __shared__ int kseg[BKV];
+  using G = kF32Dq<D>;
+  constexpr int BKV = G::BKV, LD = G::LD, HALF = D / 2, NR = 2 * G::NRP, NC = 2 * G::NCP;
+  extern __shared__ __align__(16) float f32_smem[];
+  float* qs = f32_smem;
+  float* os = qs + kF32Bq * LD;
+  float* ks = os + kF32Bq * LD;
+  float* vs = ks + 2 * BKV * LD;
+  float* ds_t = vs + 2 * BKV * LD;
+  int* ksegs = reinterpret_cast<int*>(f32_smem + G::FLOATS);
 
   const int b = blockIdx.z, h = blockIdx.y, tid = threadIdx.x;
-  const int sub = tid & 3, row = blockIdx.x * BQ + (tid >> 2);
+  const int warp = tid >> 5, lane = tid & 31;
+  const int q0 = blockIdx.x * kF32Bq;
   const size_t rs = (size_t)H * D;
   const size_t base = (size_t)b * T * rs + (size_t)h * D;
-
-  float qr[PER], dor[PER];
-  {
-    const float* qrow = q + base + (size_t)row * rs;
-    const float* drow = dout + base + (size_t)row * rs;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int d = sub + 4 * i;
-      float x = qrow[d];
-      if (cos_t != nullptr) {
-        const bool lo = d < HALF;
-        const int td = lo ? d : d - HALF;
-        const float y = qrow[lo ? d + HALF : td];
-        const float c = cos_t[(size_t)row * HALF + td], s = sin_t[(size_t)row * HALF + td];
-        x = lo ? rope_lo(x, y, c, s) : rope_hi(y, x, c, s);
-      }
-      qr[i] = x;
-      dor[i] = drow[d];
-    }
-  }
-  const int qs = q_seg ? q_seg[(size_t)b * T + row] : 0;
-  const float lse_r = lse[((size_t)b * T + row) * H + h];
-  const float di_r = di[((size_t)b * T + row) * H + h];
-
-  float acc[PER];
-#pragma unroll
-  for (int i = 0; i < PER; ++i) acc[i] = 0.f;
+  const bool seg = q_seg != nullptr;
 
   int jt0 = 0, jt1 = T / BKV - 1;
   if (kv_lo != nullptr) {
-    jt0 = kv_lo[b * (T / BQ) + blockIdx.x];
-    jt1 = kv_hi[b * (T / BQ) + blockIdx.x];
+    jt0 = kv_lo[b * (T / kF32Bq) + blockIdx.x];
+    jt1 = kv_hi[b * (T / kF32Bq) + blockIdx.x];
   }
   if (tile_count != nullptr && tid == 0) atomicAdd(tile_count, jt1 - jt0 + 1);
-  for (int j0 = jt0 * BKV; j0 <= jt1 * BKV; j0 += BKV) {
-    __syncthreads();
-    for (int it = tid; it < BKV * (D / 4); it += 128) {
-      const int r = it / (D / 4), c4 = (it % (D / 4)) * 4;
-      const size_t off = base + (size_t)(j0 + r) * rs + c4;
-      *reinterpret_cast<float4*>(ks + r * D + c4) = *reinterpret_cast<const float4*>(k + off);
-      *reinterpret_cast<float4*>(vs + r * D + c4) = *reinterpret_cast<const float4*>(v + off);
+
+  // K and V rows of kv tile jt (and its segment ids) into ring stage `stage`
+  auto load_kv = [&](int stage, int jt) {
+    const int j0 = jt * BKV;
+    float* kd = ks + stage * BKV * LD;
+    float* vd = vs + stage * BKV * LD;
+    for (int it = tid; it < BKV * (D / 4); it += kF32Threads) {
+      const int r = it / (D / 4), c = (it % (D / 4)) * 4;
+      const size_t off = base + (size_t)(j0 + r) * rs + c;
+      wide::cp_async16(kd + G::kv_row(r) * LD + c, k + off);
+      wide::cp_async16(vd + G::kv_row(r) * LD + c, v + off);
     }
-    if (tid < BKV) kseg[tid] = kv_seg ? kv_seg[(size_t)b * T + j0 + tid] : 0;
+    if (seg && tid < BKV / 4)
+      wide::cp_async16(ksegs + stage * BKV + 4 * tid, kv_seg + (size_t)b * T + j0 + 4 * tid);
+  };
+
+  if (jt0 <= jt1) load_kv(0, jt0);
+  for (int it = tid; it < kF32Bq * (D / 4); it += kF32Threads) {
+    const int r = it / (D / 4), c = (it % (D / 4)) * 4;
+    wide::cp_async16(os + r * LD + c, dout + base + (size_t)(q0 + r) * rs + c);
+  }
+  wide::cp_async_commit();
+  // q rows, rotated (rotate-half in fp32) where RoPE is on
+  for (int it = tid; it < kF32Bq * (HALF / 4); it += kF32Threads) {
+    const int r = it / (HALF / 4), c = (it % (HALF / 4)) * 4;
+    const float* src = q + base + (size_t)(q0 + r) * rs + c;
+    float4 lo = *reinterpret_cast<const float4*>(src);
+    float4 hi = *reinterpret_cast<const float4*>(src + HALF);
+    if (cos_t != nullptr) {
+      const float4 cs = *reinterpret_cast<const float4*>(cos_t + (size_t)(q0 + r) * HALF + c);
+      const float4 sn = *reinterpret_cast<const float4*>(sin_t + (size_t)(q0 + r) * HALF + c);
+      const float4 l = lo;
+      lo = make_float4(rope_lo(l.x, hi.x, cs.x, sn.x), rope_lo(l.y, hi.y, cs.y, sn.y),
+                       rope_lo(l.z, hi.z, cs.z, sn.z), rope_lo(l.w, hi.w, cs.w, sn.w));
+      hi = make_float4(rope_hi(l.x, hi.x, cs.x, sn.x), rope_hi(l.y, hi.y, cs.y, sn.y),
+                       rope_hi(l.z, hi.z, cs.z, sn.z), rope_hi(l.w, hi.w, cs.w, sn.w));
+    }
+    *reinterpret_cast<float4*>(qs + r * LD + c) = lo;
+    *reinterpret_cast<float4*>(qs + r * LD + HALF + c) = hi;
+  }
+
+  // S / dP ownership: 8 column-pair lanes by 4 row-pair lanes a warp
+  const int s_wc = warp % (G::N_CG / 8), s_wr = warp / (G::N_CG / 8);
+  const int cg = 8 * s_wc + (lane & 7), rg = 4 * s_wr + (lane >> 3);
+  int srow[NR];
+  float lse_r[NR], di_r[NR];
+  int qs_r[NR];
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    srow[r] = 2 * rg + (r & 1) + G::ROW_STEP * (r >> 1);
+    const size_t row = (size_t)b * T + q0 + srow[r];
+    lse_r[r] = lse[row * H + h];
+    di_r[r] = di[row * H + h];
+    qs_r[r] = seg ? q_seg[row] : 0;
+  }
+  int scol[NC], skrow[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    scol[c] = 2 * cg + (c & 1) + G::COL_STEP * (c >> 1);
+    skrow[c] = G::kv_row(scol[c]);
+  }
+  // dQ ownership: 8 lane groups by 4 row groups a warp
+  const int q_wc = warp % (G::N_CGQ / 8), q_wr = warp / (G::N_CGQ / 8);
+  const int cgq = 8 * q_wc + (lane & 7), rgq = 4 * q_wr + (lane >> 3);
+  float acc[G::RQ][8];
+#pragma unroll
+  for (int r = 0; r < G::RQ; ++r)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[r][e] = 0.f;
+
+  const uint32_t bh = (uint32_t)(b * H + h);
+  int stage = 0;
+  for (int jt = jt0; jt <= jt1; ++jt, stage ^= 1) {
+    if (jt < jt1) load_kv(stage ^ 1, jt + 1);
+    wide::cp_async_commit();
+    wide::cp_async_wait<1>();
+    __syncthreads();
+    const float* kt = ks + stage * BKV * LD;
+    const float* vt = vs + stage * BKV * LD;
+
+    // S = Q.K^T and dP = dO.V^T on this thread's NR x NC elements
+    float s[NR][NC], dpv[NR][NC];
+#pragma unroll
+    for (int r = 0; r < NR; ++r)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) s[r][c] = dpv[r][c] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      float4 qa[NR], ka[NC];
+#pragma unroll
+      for (int r = 0; r < NR; ++r) qa[r] = lds4(qs + srow[r] * LD + d);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) ka[c] = lds4(kt + skrow[c] * LD + d);
+#pragma unroll
+      for (int r = 0; r < NR; ++r)
+#pragma unroll
+        for (int c = 0; c < NC; ++c) fma4(s[r][c], qa[r], ka[c]);
+#pragma unroll
+      for (int r = 0; r < NR; ++r) qa[r] = lds4(os + srow[r] * LD + d);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) ka[c] = lds4(vt + skrow[c] * LD + d);
+#pragma unroll
+      for (int r = 0; r < NR; ++r)
+#pragma unroll
+        for (int c = 0; c < NC; ++c) fma4(dpv[r][c], qa[r], ka[c]);
+    }
+    // p = exp2(s2 - lse2), the keep-mask on dP, ds = p (dP - di) scale;
+    // dS^T[j][i] as pairs of q rows
+    const int j0 = jt * BKV;
+#pragma unroll
+    for (int rp = 0; rp < G::NRP; ++rp) {
+#pragma unroll
+      for (int cp = 0; cp < G::NCP; ++cp) {
+        Philox4 u;
+        if constexpr (DROP)
+          u = dropout_bits(dp.seed, bh, q0 + srow[2 * rp], j0 + scol[2 * cp]);
+#pragma unroll
+        for (int c = 2 * cp; c < 2 * cp + 2; ++c) {
+          const int kseg_c = seg ? ksegs[stage * BKV + scol[c]] : 0;
+          float ds2[2];
+#pragma unroll
+          for (int r = 2 * rp; r < 2 * rp + 2; ++r) {
+            const float p = exp2f(score(s[r][c], scale_log2, qs_r[r], kseg_c) - lse_r[r]);
+            float dpp = dpv[r][c];
+            if constexpr (DROP) {
+              const uint32_t bits = u.w[2 * (r & 1) + (c & 1)];
+              dpp = bits >= dp.thresh ? dpp * dp.keep_scale : 0.f;
+            }
+            ds2[r & 1] = __fmul_rn(__fmul_rn(p, __fsub_rn(dpp, di_r[r])), scale);
+          }
+          *reinterpret_cast<float2*>(ds_t + scol[c] * G::DS_LD + srow[2 * rp]) =
+              make_float2(ds2[0], ds2[1]);
+        }
+      }
+    }
     __syncthreads();
 
-    float ds[BKV];
-#pragma unroll
+    // dQ += dS.K on this thread's RQ rows x (4 lanes d, their d + D/2)
+#pragma unroll 8
     for (int j = 0; j < BKV; ++j) {
-      float sp = 0.f, dpp = 0.f;
+      float dsv[G::RQ];
+      const float* dsr = ds_t + j * G::DS_LD + G::RQ * rgq;
+      if constexpr (G::RQ == 2) {
+        const float2 x = *reinterpret_cast<const float2*>(dsr);
+        dsv[0] = x.x;
+        dsv[1] = x.y;
+      } else {
 #pragma unroll
-      for (int i = 0; i < PER; ++i) {
-        sp = fmaf(qr[i], ks[j * D + sub + 4 * i], sp);
-        dpp = fmaf(dor[i], vs[j * D + sub + 4 * i], dpp);
+        for (int r4 = 0; r4 < G::RQ; r4 += 4) {
+          const float4 x = lds4(dsr + r4);
+          dsv[r4] = x.x;
+          dsv[r4 + 1] = x.y;
+          dsv[r4 + 2] = x.z;
+          dsv[r4 + 3] = x.w;
+        }
       }
-      sp += __shfl_xor_sync(0xffffffffu, sp, 1);
-      sp += __shfl_xor_sync(0xffffffffu, sp, 2);
-      dpp += __shfl_xor_sync(0xffffffffu, dpp, 1);
-      dpp += __shfl_xor_sync(0xffffffffu, dpp, 2);
-      const float p = exp2f(score(sp, scale_log2, qs, kseg[j]) - lse_r);
-      if constexpr (DROP) {
-        const Philox4 u = dropout_bits(dp.seed, b * H + h, row, j0 + j);
-        const int w = dropout_word(row, j0 + j);
-        const uint32_t bits = w == 0 ? u.w[0] : w == 1 ? u.w[1] : w == 2 ? u.w[2] : u.w[3];
-        dpp = bits >= dp.thresh ? dpp * dp.keep_scale : 0.f;
+      const float* kr = kt + G::kv_row(j) * LD + 4 * cgq;
+      const float4 klo = lds4(kr), khi = lds4(kr + HALF);
+#pragma unroll
+      for (int r = 0; r < G::RQ; ++r) {
+        acc[r][0] = fmaf(dsv[r], klo.x, acc[r][0]);
+        acc[r][1] = fmaf(dsv[r], klo.y, acc[r][1]);
+        acc[r][2] = fmaf(dsv[r], klo.z, acc[r][2]);
+        acc[r][3] = fmaf(dsv[r], klo.w, acc[r][3]);
+        acc[r][4] = fmaf(dsv[r], khi.x, acc[r][4]);
+        acc[r][5] = fmaf(dsv[r], khi.y, acc[r][5]);
+        acc[r][6] = fmaf(dsv[r], khi.z, acc[r][6]);
+        acc[r][7] = fmaf(dsv[r], khi.w, acc[r][7]);
       }
-      ds[j] = __fmul_rn(__fmul_rn(p, __fsub_rn(dpp, di_r)), scale);
     }
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      float a = acc[i];
-#pragma unroll
-      for (int j = 0; j < BKV; ++j) a = fmaf(ds[j], ks[j * D + sub + 4 * i], a);
-      acc[i] = a;
-    }
+    __syncthreads();
   }
+  wide::cp_async_wait<0>();
 
-  float* dqr = dq + base + (size_t)row * rs;
-  if (cos_t != nullptr) {
+  // dq rotated back by -angle in fp32, one write of each element
 #pragma unroll
-    for (int i = 0; i < PER / 2; ++i) {
-      const int d = sub + 4 * i;  // < HALF; its partner d + HALF is i + PER/2
-      const float c = cos_t[(size_t)row * HALF + d], s = sin_t[(size_t)row * HALF + d];
-      dqr[d] = rope_inv_lo(acc[i], acc[i + PER / 2], c, s);
-      dqr[d + HALF] = rope_inv_hi(acc[i], acc[i + PER / 2], c, s);
+  for (int r = 0; r < G::RQ; ++r) {
+    const int t = q0 + G::RQ * rgq + r;
+    float* out = dq + base + (size_t)t * rs + 4 * cgq;
+    float lo[4], hi[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      lo[e] = acc[r][e];
+      hi[e] = acc[r][4 + e];
     }
-  } else {
+    if (cos_t != nullptr) {
+      const float4 cs = *reinterpret_cast<const float4*>(cos_t + (size_t)t * HALF + 4 * cgq);
+      const float4 sn = *reinterpret_cast<const float4*>(sin_t + (size_t)t * HALF + 4 * cgq);
+      const float c4[4] = {cs.x, cs.y, cs.z, cs.w}, s4[4] = {sn.x, sn.y, sn.z, sn.w};
 #pragma unroll
-    for (int i = 0; i < PER; ++i) dqr[sub + 4 * i] = acc[i];
+      for (int e = 0; e < 4; ++e) {
+        lo[e] = rope_inv_lo(acc[r][e], acc[r][4 + e], c4[e], s4[e]);
+        hi[e] = rope_inv_hi(acc[r][e], acc[r][4 + e], c4[e], s4[e]);
+      }
+    }
+    *reinterpret_cast<float4*>(out) = make_float4(lo[0], lo[1], lo[2], lo[3]);
+    *reinterpret_cast<float4*>(out + HALF) = make_float4(hi[0], hi[1], hi[2], hi[3]);
   }
+}
+
+template <int D, bool DROP>
+cudaError_t launch_f32(const float* q, const float* k, const float* v, const float* dout,
+                       const float* lse, const float* di, const int* q_seg, const int* kv_seg,
+                       const float* cos_t, const float* sin_t, const int* kv_lo,
+                       const int* kv_hi, int* tile_count, float* dq, int B, int T, int H,
+                       float scale_log2, float scale, DropParams dp, cudaStream_t st) {
+  // the shared-memory limit belongs to the instance on a device: set it at
+  // the first launch on each device
+  static std::atomic<uint64_t> smem_set{0};
+  constexpr size_t smem = kF32Dq<D>::SMEM;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const uint64_t dev_bit = 1ull << (dev & 63);
+  if (!(smem_set.load(std::memory_order_acquire) & dev_bit)) {
+    e = cudaFuncSetAttribute(mh_bwd_dq_f32<D, DROP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    smem_set.fetch_or(dev_bit, std::memory_order_release);
+  }
+  mh_bwd_dq_f32<D, DROP><<<dim3(T / kF32Bq, H, B), kF32Threads, smem, st>>>(
+      q, k, v, dout, lse, di, q_seg, kv_seg, cos_t, sin_t, kv_lo, kv_hi, tile_count, dq, T, H,
+      scale_log2, scale, dp);
+  return cudaGetLastError();
 }
 
 // k already rotated (or not rotated at all); q rotated by the kernel. q, k,
@@ -626,12 +832,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
         static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), lse, di,
         q_seg, kv_seg, cos_t, sin_t, kv_lo, kv_hi, tile_count, static_cast<__nv_bfloat16*>(dq), B, T, H,
         scale_log2, scale, dp, st);
-  mh_bwd_dq_f32<D, DROP><<<dim3(T / kF32Tile, H, B), 128, 0, st>>>(
+  return launch_f32<D, DROP>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout), lse, di,
-      q_seg, kv_seg, cos_t, sin_t, kv_lo, kv_hi, tile_count, static_cast<float*>(dq), T,
-      H, scale_log2, scale, dp);
-  return cudaGetLastError();
+      q_seg, kv_seg, cos_t, sin_t, kv_lo, kv_hi, tile_count, static_cast<float*>(dq), B, T,
+      H, scale_log2, scale, dp, st);
 }
 
 template <int D>
@@ -650,8 +855,8 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, const void* do
 }
 
 // T multiple of each dtype's kernel: the bf16 CTA's 128 q rows; the fp32
-// kernel's 32-row tile, held to 64
-constexpr int kBf16TMultiple = kBq, kF32TMultiple = 64;
+// CTA's 64
+constexpr int kBf16TMultiple = kBq, kF32TMultiple = kF32Bq;
 
 bool shape_ok(int B, int T, int H, int t_multiple) {
   return B >= 1 && B <= 65535 && H >= 1 && H <= 65535 && T >= t_multiple &&
@@ -678,7 +883,7 @@ const char* dq_route(int D, int dtype) {
 // and type, and so is q_rot past 256 but for bf16 at 384 and 512 (where
 // the kernel rotates q itself; else it may be null). kv_lo and
 // kv_hi, both null or both int32 (B, T / q tile) in units of the dtype's kv
-// tile (q tile 128 and kv tile 64 (32 at D = 256) for bf16, 32 and 32 (16
+// tile (q tile 128 and kv tile 64 (32 at D = 256) for bf16, 64 and 64 (16
 // at D = 256) for fp32, 64 and 64 past 256), bound the kv tiles
 // each q tile walks; tile_count is null or one int32 that the walked tiles
 // are added to. drop != 0 applies the forward's dropout (thresh,

@@ -112,26 +112,28 @@ KERNEL_KV_TILE = {torch.bfloat16: 128, torch.float32: 32}
 # (q tile, kv tile) of each kernel per dtype at head dims 64 and 128: the
 # forward and the dq kernel own a q tile and walk kv tiles; the fused
 # backward and the dkv kernel own a kv tile and walk q tiles. The bf16 dkv
-# kernel is the fused kernel without its dq, on the same tiles.
+# kernel is the fused kernel without its dq, on the same tiles; the fp32 dq
+# kernel keeps a 64-row q tile's Q and dO in shared memory.
 KERNEL_TILES = {
     "fwd": {torch.bfloat16: (128, 128), torch.float32: (32, 32)},
     "fused": {torch.bfloat16: (64, 128), torch.float32: (16, 32)},
     "dkv": {torch.bfloat16: (64, 128), torch.float32: (16, 32)},
-    "dq": {torch.bfloat16: (128, 64), torch.float32: (32, 32)},
+    "dq": {torch.bfloat16: (128, 64), torch.float32: (64, 64)},
 }
 # The tiles at the head dims where they differ (every reader goes through
 # `kernel_tiles`). At D = 256 a 128-row K and V ring, or dK and dV of 64 kv
 # rows in one warpgroup, pass the H100's shared memory or registers: the
 # bf16 forward walks 64-row kv tiles, the fused and dkv kernels own 64 kv
 # rows (one consumer forms dV, the other dK), the dq kernel walks 32-row kv
-# tiles; the fp32 forward and dq kernels walk 16-row kv tiles (48 KB of
-# static shared memory).
+# tiles; the fp32 forward kernel walks 16-row kv tiles (48 KB of static
+# shared memory), the fp32 dq kernel too (a two-stage K and V ring beside
+# the 128 KB of its q tile's Q and dO).
 KERNEL_TILES_BY_HEAD_DIM = {
     256: {
         "fwd": {torch.bfloat16: (128, 64), torch.float32: (32, 16)},
         "fused": {torch.bfloat16: (64, 64), torch.float32: (16, 32)},
         "dkv": {torch.bfloat16: (64, 64), torch.float32: (16, 32)},
-        "dq": {torch.bfloat16: (128, 32), torch.float32: (32, 16)},
+        "dq": {torch.bfloat16: (128, 32), torch.float32: (64, 16)},
     },
 }
 # The tiles past 256 up to WIDE_FWD_MAX_HEAD_DIM. The bf16 forward there

@@ -56,8 +56,8 @@ def main(argv=None):
               max_piece_len=a.max_piece_len)
     sp = SentencePieceProcessor(a.out_path)
     print(f"wrote {a.out_path}: vocab_size={sp.vocab_size()}")
-    return a.out_path
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    raise SystemExit(main())

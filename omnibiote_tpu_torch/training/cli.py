@@ -118,7 +118,15 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv=None):
+def main(argv=None) -> int:
+    """The `obt-torch-train` console script: trains, saves the final
+    checkpoint, and returns the exit code (0)."""
+    run(argv)
+    return 0
+
+
+def run(argv=None):
+    """Parse `argv` as the CLI does, train, and return the Trainer (closed)."""
     args = build_argparser().parse_args(argv)
     rank, world = 0, 1
     if args.multihost or "WORLD_SIZE" in os.environ:
@@ -208,4 +216,4 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    raise SystemExit(main())

@@ -57,7 +57,7 @@ def test_tiles_and_routes_at_head_dim_256():
         "fwd": {bf16: (128, 64), f32: (32, 16)},
         "fused": {bf16: (64, 64), f32: (16, 32)},
         "dkv": {bf16: (64, 64), f32: (16, 32)},
-        "dq": {bf16: (128, 32), f32: (32, 16)},
+        "dq": {bf16: (128, 32), f32: (64, 16)},
     }
     for kind in ("fwd", "fused", "dkv", "dq"):
         for dtype in (bf16, f32):

@@ -229,7 +229,7 @@ def test_cli_memory_levers_match_no_remat(tmp_path):
     for remat in (True, False):
         log = tmp_path / f"m{int(remat)}.jsonl"
         flags = ["--checkpoint_freq", "1", "--remat_policy", "dots"] if remat else []
-        trainer = port_cli.main([
+        trainer = port_cli.run([
             "--base_dir", str(tmp_path / "data"), "--train_type", "mixed",
             "--batch_size", "8", "--mini_batch_size", "8", "--n_layer", "2",
             "--n_head", "2", "--n_embd", "32", "--ctx_len", "64", "--dropout", "0.1",

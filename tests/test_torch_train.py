@@ -431,11 +431,11 @@ def _shards(root, vocab=512, n_seq=200, seed=0):
 
 
 def test_cli_runs_end_to_end(tmp_path):
-    """`cli.main` with --max_steps 2 on the CPU: logs finite losses and
+    """`cli.run` with --max_steps 2 on the CPU: logs finite losses and
     writes a final checkpoint that reloads equal to the trainer's params."""
     _shards(str(tmp_path / "data"))
     log = tmp_path / "m.jsonl"
-    tr = port_cli.main([
+    tr = port_cli.run([
         "--base_dir", str(tmp_path / "data"), "--n_layer", "1", "--n_embd", "128",
         "--n_head", "1", "--ctx_len", "128", "--mini_batch_size", "2",
         "--batch_size", "4", "--max_steps", "2", "--save_dir", str(tmp_path / "ck"),
@@ -523,7 +523,7 @@ def test_cli_unported_flags_raise(tmp_path, flag):
             "--n_head", "1", "--ctx_len", "128", "--device", "cpu", *flag]
     if flag[0].lstrip("-") in PORTED and flag[-1] != "fsdp+pp":
         log = tmp_path / "m.jsonl"
-        tr = port_cli.main(argv + ["--mini_batch_size", "2", "--batch_size", "2",
+        tr = port_cli.run(argv + ["--mini_batch_size", "2", "--batch_size", "2",
                                    "--max_steps", "1", "--test_freq", "1e9",
                                    "--save_dir", str(tmp_path / "ck"),
                                    "--metrics_jsonl", str(log)])

@@ -417,7 +417,7 @@ def case_multihost(case):
     out_dir = os.path.join(case["workdir"], f"multihost_{case['name']}")
     argv = [*case["argv"], "--save_dir", out_dir, "--device", "cpu",
             "--metrics_jsonl", os.path.join(out_dir, "m.jsonl"), "--log_every", "1"]
-    multi = cli.main(argv + ["--multihost"])
+    multi = cli.run(argv + ["--multihost"])
     tc, cfg = multi.train_cfg, multi.model_cfg
     mesh = choose_mesh(tc, "cpu")
     n = axis_size(mesh, DATA_AXIS)

@@ -35,6 +35,12 @@ heads of 128 (6 steps each), and at ctx 2048 (B=16, mini 8, 5 EOS a row)
 with 2 heads of 512 on the fused backward and on the split pair and with 8
 heads of 128 (6 steps each).
 
+With --fp32 a process times only the fp32 dq kernel (#5 and #8's fp32
+instance, `mh_bwd_dq_f32`) at omnibiote-small's width in heads of 64, 128
+and 256 (16, 8 and 4 heads): #5 at bench_longctx.py's B=8 T=2048 (five EOS
+a row, RoPE, dropout 0.1), with segment skipping and without, and #8 at
+B=16 T=1024 (bench.py's rows, no RoPE), CUDA events over 10 launches.
+
 With --probes a process times only the dkv product-mix probe #11
 (`probes.roofline.dots_n`, 3 and 4 products, 64- and 128-row CTAs) and #4's
 kernel with its products alone (`dkv_products`) at the probes' shape (B=8,
@@ -45,7 +51,7 @@ It prints one JSON line a process and then, for every number, both sides'
 mean and this side's ratio to the other's. Needs one CUDA device; prints the
 card's name and power limit.
 
-    python3 tools/gpu_compare_checkouts.py --measure ROOT [--probes | --wide]
+    python3 tools/gpu_compare_checkouts.py --measure ROOT [--probes | --wide | --fp32]
 
 is one side's process (the package under ROOT; its JSON line last).
 """
@@ -75,6 +81,42 @@ def measure_probes(c):
             out[f"dots_n {nd} products cta={cta} graphs ms"] = c.graph_ms(fn)
             out[f"dots_n {nd} products cta={cta} events ms"] = c.cuda_ms(fn, 20)
     out["dkv_products graphs ms"] = c.graph_ms(lambda: r1.dkv_products(q, q, q, q))
+    return out
+
+
+def measure_fp32(c):
+    """The fp32 dq kernel at head dims 64, 128 and 256 (see --fp32):
+    {name: ms}."""
+    import torch
+    from omnibiote_tpu_torch.ops import _kernels
+    from omnibiote_tpu_torch.ops import flash_attention as fa
+
+    _kernels.build_all(["mh_flash_bwd_dq"])
+    out = {}
+    for D in (64, 128, 256):
+        H, scale = 1024 // D, 1.0 / math.sqrt(D)
+        for B, T, n_eos, rope_on in ((c.LONG_SHAPES[0][0], 2048, c.LONG_EOS, True),
+                                     (c.TRAIN_SHAPE["B"], 1024, 3, False)):
+            q, k, v, _, rope = c._attn_inputs(B, T, H, D, torch.float32, "dense", 2400 + T)
+            rope = rope if rope_on else None
+            seg = c._wide_ids("packed", B, T, n_eos, 2400 + T)
+            gen = torch.Generator(device="cuda").manual_seed(2500 + T)
+            do = torch.randn(B, T, H, D, generator=gen, device="cuda")
+            kw = dict(scale=scale, dropout_rate=c.TRAIN_DROPOUT, seed=2563)
+            o, lse = fa.mh_flash_forward_plain(q, k, v, seg, rope, **kw)
+            args = (q, k, v, do, lse, (o * do).sum(-1), seg, rope)
+            del o
+            if rope_on:
+                sb = fa.SegmentBounds(seg)
+                out[f"mh_flash_bwd_dq fp32 D={D} B={B} T={T} skip ms"] = c.cuda_ms(
+                    lambda: fa.mh_flash_bwd_dq(*args, **kw, segment_skip=True, bounds=sb), 10)
+                out[f"mh_flash_bwd_dq fp32 D={D} B={B} T={T} all tiles ms"] = c.cuda_ms(
+                    lambda: fa.mh_flash_bwd_dq(*args, **kw), 10)
+            else:
+                out[f"flash_bwd_dq fp32 D={D} B={B} T={T} per-head ms"] = c.cuda_ms(
+                    lambda: fa.mh_flash_bwd_dq(*args, **kw), 10)
+            del q, k, v, do, lse, args
+            torch.cuda.empty_cache()
     return out
 
 
@@ -139,7 +181,7 @@ def measure_wide(c):
     return out
 
 
-def measure(root, probes=False, wide=False):
+def measure(root, probes=False, wide=False, fp32=False):
     """One side's numbers: {name: value}."""
     root = os.path.abspath(root)
     sys.path.insert(0, HERE)
@@ -161,6 +203,8 @@ def measure(root, probes=False, wide=False):
         return measure_probes(c)
     if wide:
         return measure_wide(c)
+    if fp32:
+        return measure_fp32(c)
     _kernels.build_all(["mh_flash_fwd", "mh_flash_bwd", "mh_flash_bwd_dkv", "mh_flash_bwd_dq"])
     out = {}
     H, D = 8, 128
@@ -244,11 +288,13 @@ def main(argv=None):
                     help="time only the dkv product-mix probe and dkv_products")
     ap.add_argument("--wide", action="store_true",
                     help="time only the backward kernels and the train rate past head dim 256")
+    ap.add_argument("--fp32", action="store_true",
+                    help="time only the fp32 dq kernel at head dims 64, 128 and 256")
     ap.add_argument("--json", help="write both sides' runs here")
     a = ap.parse_args(argv)
     if a.measure:
         print(json.dumps({"root": os.path.abspath(a.measure),
-                          **measure(a.measure, a.probes, a.wide)}))
+                          **measure(a.measure, a.probes, a.wide, a.fp32)}))
         return
     if not a.other:
         ap.error("--other DIR is needed")
@@ -258,7 +304,8 @@ def main(argv=None):
                          check=True).stdout.strip(), flush=True)
     runs = []
     for side in ("other", "this", "this", "other"):
-        flags = [f for f, on in (("--probes", a.probes), ("--wide", a.wide)) if on]
+        flags = [f for f, on in (("--probes", a.probes), ("--wide", a.wide),
+                                 ("--fp32", a.fp32)) if on]
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--measure",
                                sides[side], *flags],
                               capture_output=True, text=True)
