@@ -324,6 +324,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # HBM3 bandwidth.
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
+# dense TF32 on the tensor cores; the fp32 attention kernels run three such
+# products (3xTF32) for each of the function's
+PEAK_TF32_FLOPS = 495e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 
@@ -6651,14 +6654,130 @@ def _wait_script(proc, name, timeout=600):
     return out
 
 
+def _f32_rebuilt_checks():
+    """The 3xTF32 fp32 kernels (#1/#6 `mh_fwd_f32`; #2/#3 `mh_bwd_f32` and
+    #4/#7 its instance without dq) against their plain versions at TOL /
+    BWD_TOL, at D = 64, 128 and 256 (heads of D, B=2, T=256), dense, packed
+    and padded rows, dropout 0 and 0.1, RoPE or none: a second forward
+    launch the same bits, the forward and the dkv kernel with skipping the
+    same bits as over every tile, the fused kernel's dk and dv the dkv
+    kernel's bits and within its tolerance with skipping. Returns the worst
+    (max |do|, max |d| / max |g|)."""
+    import torch
+    from omnibiote_tpu_torch.ops import flash_attention as fa
+
+    f32, B, T, H = torch.float32, 2, 256, 2
+    worst_o = worst_g = 0.0
+    n = 0
+    for D in (64, 128, 256):
+        for layout in ("dense", "packed", "padded"):
+            for rate in (0.0, TRAIN_DROPOUT):
+                for rope_on in (True, False):
+                    seed = 3000 + 10 * D + 4 * len(layout) + 2 * int(rate > 0) + rope_on
+                    q, k, v, seg, rope = _attn_inputs(B, T, H, D, f32, layout, seed)
+                    rope = rope if rope_on else None
+                    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+                    do = torch.randn(B, T, H, D, generator=gen, device="cuda")
+                    kw = dict(scale=1.0 / math.sqrt(D), dropout_rate=rate, seed=seed + 7)
+                    what = f"fp32 D={D} {layout} dropout {rate} RoPE {rope_on}"
+                    o, lse = fa.mh_flash_forward(q, k, v, seg, rope, **kw)
+                    worst_o = max(worst_o, _hold_fwd((o, lse), fa.mh_flash_forward_plain(
+                        q, k, v, seg, rope, **kw, block_kv=fa.kernel_kv_tile(f32, D)),
+                        "float32", what))
+                    again = fa.mh_flash_forward(q, k, v, seg, rope, **kw)
+                    check(torch.equal(o, again[0]) and torch.equal(lse, again[1]),
+                          f"a second forward launch gave other bits at {what}")
+                    args = (q, k, v, do, lse, (o * do).sum(-1), seg, rope)
+                    want = fa.mh_flash_backward_plain(*args, **kw)
+                    fused = fa.mh_flash_backward(*args, **kw)
+                    dkv = fa.mh_flash_bwd_dkv(*args, **kw)
+                    worst_g = max(worst_g, _hold_bwd(fused, want, "float32", what)[0],
+                                  _hold_bwd(dkv, want[1:], "float32", what + " dkv")[0])
+                    check(torch.equal(fused[1], dkv[0]) and torch.equal(fused[2], dkv[1]),
+                          f"the fused kernel's dk, dv are not the dkv kernel's at {what}")
+                    if seg is not None:
+                        skip = dict(segment_skip=True, bounds=fa.SegmentBounds(seg))
+                        on = fa.mh_flash_forward(q, k, v, seg, rope, **kw, **skip)
+                        check(torch.equal(on[0], o) and torch.equal(on[1], lse),
+                              f"forward skipping on != off at {what}")
+                        on = fa.mh_flash_bwd_dkv(*args, **kw, **skip)
+                        check(torch.equal(on[0], dkv[0]) and torch.equal(on[1], dkv[1]),
+                              f"dkv skipping on != off at {what}")
+                        _hold_bwd(fa.mh_flash_backward(*args, **kw, **skip), want, "float32",
+                                  what + " skipping")
+                    n += 1
+    print(f"fp32 3xTF32 kernels (#1/#6, #2/#3, #4/#7) vs plain: {n} cases (D 64/128/256 x 3 "
+          f"layouts x dropout x RoPE), worst max|do| {worst_o:.3e}, worst max|d| / max|g| "
+          f"{worst_g:.3e}; second launch and skipping on = off the same bits")
+    _f32_nan_checks()
+    torch.cuda.empty_cache()
+    return worst_o, worst_g
+
+
+def _hold_nans(got, want, rtol, atol, what):
+    """NaN in got exactly where want has it (and somewhere), the rest
+    within (rtol, atol)."""
+    import torch
+    nan = torch.isnan(want)
+    check(torch.equal(torch.isnan(got), nan) and bool(nan.any()),
+          f"{what}: {int(torch.isnan(got).sum())} NaNs from the kernel, "
+          f"{int(nan.sum())} from the plain version, not in the same places")
+    check(torch.allclose(got[~nan], want[~nan], rtol=rtol, atol=atol),
+          f"{what}: the finite values disagree with the plain version")
+
+
+def _f32_nan_checks():
+    """The NaN that CUDA arithmetic makes (0x7fffffff) in one element of q
+    and one of v (dense, dropout 0, D = 64, 128 and 256, RoPE or none): the
+    3xTF32 kernels' o, lse2, dq, dk and dv hold NaN exactly where the plain
+    versions do, and agree with them elsewhere at TOL / BWD_TOL."""
+    import torch
+    from omnibiote_tpu_torch.ops import flash_attention as fa
+
+    f32, B, T, H = torch.float32, 2, 256, 2
+    (rt, at), (rl, al) = TOL["float32"]["o"], TOL["float32"]["lse"]
+    n = 0
+    for D in (64, 128, 256):
+        for rope_on in (True, False):
+            seed = 3500 + D + rope_on
+            q, k, v, _, rope = _attn_inputs(B, T, H, D, f32, "dense", seed)
+            rope = rope if rope_on else None
+            q, v = q.contiguous().clone(), v.contiguous().clone()
+            q.view(torch.int32)[0, 37, 0, 5] = 0x7FFFFFFF
+            v.view(torch.int32)[1, 90, 1, 3] = 0x7FFFFFFF
+            gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+            do = torch.randn(B, T, H, D, generator=gen, device="cuda")
+            kw = dict(scale=1.0 / math.sqrt(D), dropout_rate=0.0, seed=seed)
+            what = f"fp32 D={D} dense RoPE {rope_on}, a NaN in q and in v"
+            o, lse = fa.mh_flash_forward(q, k, v, None, rope, **kw)
+            po, plse = fa.mh_flash_forward_plain(q, k, v, None, rope, **kw,
+                                                 block_kv=fa.kernel_kv_tile(f32, D))
+            _hold_nans(o, po, rt, at, what + ": o")
+            _hold_nans(lse, plse, rl, al, what + ": lse")
+            args = (q, k, v, do, lse, (o * do).sum(-1), None, rope)
+            want = fa.mh_flash_backward_plain(*args, **kw)
+            got = (*fa.mh_flash_backward(*args, **kw), *fa.mh_flash_bwd_dkv(*args, **kw))
+            for name, g, w in zip(("dq", "dk", "dv", "dkv's dk", "dkv's dv"), got,
+                                  (*want, *want[1:])):
+                finite = w[~torch.isnan(w)]  # empty where every gradient is a NaN
+                scale_g = finite.abs().max().item() if finite.numel() else 0.0
+                _hold_nans(g, w, 0.0, BWD_TOL["float32"] * scale_g, f"{what}: {name}")
+            n += 1
+    print(f"fp32 3xTF32 kernels with a NaN (0x7fffffff) in q and in v: {n} cases (D 64/128/256 "
+          f"x RoPE), NaN in o, lse, dq, dk, dv where the plain versions have it")
+
+
 def _f32_timings():
     """Each fp32 kernel instance (#1-#9) at its row's shape of the kernel
     table: #1 and #2 at B=16, T=1024 (bench.py's rows, 3 EOS), #3-#5 at
     B=8, T=2048 (5 EOS), both with RoPE and dropout 0.1, with skipping and
     over every tile; #6-#8, the per-head entry, at B=16, T=1024 (no RoPE;
     it walks every tile), after its own path's launches; #9 at B=32,
-    T=1024, dense. Each beside its plain version, its bound at the FP32
-    rate (or its fp32 bytes) and SDPA on the same fp32 inputs. Returns
+    T=1024, dense. Each beside its plain version, its bound and SDPA on the
+    same fp32 inputs. The bound of a kernel that runs 3xTF32 (#1-#4, #6,
+    #7) is three TF32 products for each of the function's (or its fp32
+    bytes), with the FFMA bound at the FP32 rate beside it
+    (`bound_ffma_ms`); that of #5, #8 (FFMA) and #9 is the FP32 one. Returns
     (rows of the kernels line by kernel name, launches of the per-head
     path)."""
     import torch
@@ -6671,21 +6790,30 @@ def _f32_timings():
     H, D, f32 = 8, 128, torch.float32
     scale = 1.0 / math.sqrt(D)
     bound_kw = dict(itemsize=4, peak=PEAK_F32_FLOPS)
+    # the 3xTF32 kernels' own bound: three TF32 products for each of the
+    # function's
+    tf32_kw = dict(itemsize=4, peak=PEAK_TF32_FLOPS / 3)
     rows = {}
     print(f"fp32 kernel times: SDPA with torch.backends.cuda.matmul.allow_tf32 "
           f"{torch.backends.cuda.matmul.allow_tf32}, cudnn.allow_tf32 "
           f"{torch.backends.cudnn.allow_tf32}")
 
-    def row(name, source, line, ms, ms_all, plain, bound, bound_all, lib, err):
+    def row(name, source, line, ms, ms_all, plain, bound, bound_all, lib, err, ffma=None):
+        """ffma: the FFMA bounds (visible, all pairs) of a 3xTF32 kernel,
+        whose own bounds are bound and bound_all"""
         print(f"  {name} fp32: {ms:.4f} ms" + ("" if ms_all is None else
               f" with skipping, {ms_all:.4f} over every tile") + f"; plain {plain:.4f} ms; "
-              f"bound {bound[0]:.4f} ms ({bound[1]}) over visible pairs, {bound_all[0]:.4f} "
-              f"over all; " + ("no library call" if lib is None else f"SDPA {lib:.4f} ms")
+              + ("3xTF32 " if ffma else "") + f"bound {bound[0]:.4f} ms ({bound[1]}) over "
+              f"visible pairs, {bound_all[0]:.4f} over all; "
+              + (f"FFMA bound {ffma[0][0]:.4f} / {ffma[1][0]:.4f}; " if ffma else "")
+              + ("no library call" if lib is None else f"SDPA {lib:.4f} ms")
               + f"; max|d| {err:.3e}")
         rows[name] = {"name": f"{name} fp32", "route": "cuda",
                       "source": f"omnibiote_tpu_torch/ops/csrc/{source}", "replaces": line,
                       "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain,
                       "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib}
+        if ffma:
+            rows[name]["bound_ffma_ms"] = ffma[0][0]
 
     for B, T, n_eos in ((TRAIN_SHAPE["B"], 1024, 3), (LONG_SHAPES[0][0], 2048, LONG_EOS)):
         q, k, v, _, rope = _attn_inputs(B, T, H, D, f32, "dense", 2600 + T)
@@ -6721,9 +6849,10 @@ def _f32_timings():
                 cuda_ms(lambda: fa.mh_flash_forward(q, k, v, seg, rope, **kw), 10),
                 cuda_ms(lambda: fa.mh_flash_forward_plain(q, k, v, seg, rope, **kw), 2,
                         warmup=1),
-                _attn_bound(B, T, H, D, pairs, **bound_kw), _attn_bound(B, T, H, D, None,
-                                                                        **bound_kw),
-                lib_f, err)
+                _attn_bound(B, T, H, D, pairs, **tf32_kw), _attn_bound(B, T, H, D, None,
+                                                                       **tf32_kw),
+                lib_f, err, (_attn_bound(B, T, H, D, pairs, **bound_kw),
+                             _attn_bound(B, T, H, D, None, **bound_kw)))
             kinds = (("mh_flash_bwd", "fused", fa.mh_flash_backward, fa.mh_flash_backward_plain,
                       "mh_flash_bwd.cu", 965, lib_b, want),)
         else:
@@ -6746,11 +6875,15 @@ def _f32_timings():
             got = fn(*args, **kw, **skip)
             err = _hold_bwd(got if kind != "dq" else (got,), w, "float32",
                             f"fp32 {name} B={B} T={T}")[1]
+            ffma = (_bwd_bound(B, T, H, D, pairs, kind, **bound_kw),
+                    _bwd_bound(B, T, H, D, None, kind, **bound_kw))
+            tf32 = (_bwd_bound(B, T, H, D, pairs, kind, **tf32_kw),
+                    _bwd_bound(B, T, H, D, None, kind, **tf32_kw))
+            # the dq kernel (#5) runs FFMA: its bound is the FFMA one
             row(name, source, f"omnibiote_tpu/ops/flash_attention.py:{line}",
                 cuda_ms(lambda: fn(*args, **kw, **skip), 10), cuda_ms(lambda: fn(*args, **kw), 10),
                 cuda_ms(lambda: pfn(*args, **kw), 2, warmup=1),
-                _bwd_bound(B, T, H, D, pairs, kind, **bound_kw),
-                _bwd_bound(B, T, H, D, None, kind, **bound_kw), lib, err)
+                *(ffma if kind == "dq" else tf32), lib, err, None if kind == "dq" else ffma)
             del got
         if T == 1024:
             # the per-head entry (#6-#8): its path's launches, then each kernel
@@ -6786,25 +6919,29 @@ def _f32_timings():
                                                "float32", "fp32 per-head dkv")[1],
                     "flash_bwd_dq": _hold_bwd((fa.mh_flash_bwd_dq(*argsh, **kwh),), wanth[:1],
                                               "float32", "fp32 per-head dq")[1]}
-            for name, fn, pfn, bound, bound_all, lib, source, line in (
+            for name, fn, pfn, bound, bound_all, lib, source, line, ffma in (
                     ("flash_fwd", lambda: fa.mh_flash_forward(q, k, v, seg, None, **kwh),
                      lambda: fa.mh_flash_forward_plain(q, k, v, seg, None, **kwh),
-                     _bound(4.0 * pairs * H * D, nb, PEAK_F32_FLOPS),
-                     _bound(4.0 * B * T * T * H * D, nb, PEAK_F32_FLOPS), lib_h,
-                     "mh_flash_fwd.cu", 110),
+                     _bound(3 * 4.0 * pairs * H * D, nb, PEAK_TF32_FLOPS),
+                     _bound(3 * 4.0 * B * T * T * H * D, nb, PEAK_TF32_FLOPS), lib_h,
+                     "mh_flash_fwd.cu", 110, (_bound(4.0 * pairs * H * D, nb, PEAK_F32_FLOPS),
+                                              _bound(4.0 * B * T * T * H * D, nb,
+                                                     PEAK_F32_FLOPS))),
                     ("flash_bwd_dkv", lambda: fa.mh_flash_bwd_dkv(*argsh, **kwh),
                      lambda: fa.mh_flash_bwd_dkv_plain(*argsh, **kwh),
-                     _bwd_bound(B, T, H, D, pairs, "dkv", **bound_kw),
-                     _bwd_bound(B, T, H, D, None, "dkv", **bound_kw), None,
-                     "mh_flash_bwd_dkv.cu", 240),
+                     _bwd_bound(B, T, H, D, pairs, "dkv", **tf32_kw),
+                     _bwd_bound(B, T, H, D, None, "dkv", **tf32_kw), None,
+                     "mh_flash_bwd_dkv.cu", 240, (_bwd_bound(B, T, H, D, pairs, "dkv", **bound_kw),
+                                                  _bwd_bound(B, T, H, D, None, "dkv",
+                                                             **bound_kw))),
                     ("flash_bwd_dq", lambda: fa.mh_flash_bwd_dq(*argsh, **kwh),
                      lambda: fa.mh_flash_bwd_dq_plain(*argsh, **kwh),
                      _bwd_bound(B, T, H, D, pairs, "dq", **bound_kw),
                      _bwd_bound(B, T, H, D, None, "dq", **bound_kw), None,
-                     "mh_flash_bwd_dq.cu", 301)):
+                     "mh_flash_bwd_dq.cu", 301, None)):
                 row(name, source, f"omnibiote_tpu/ops/flash_attention.py:{line}",
                     cuda_ms(fn, 10), None, cuda_ms(pfn, 2, warmup=1), bound, bound_all, lib,
-                    errs[name])
+                    errs[name], ffma)
             del oh, lseh, argsh, wanth, qn, kn, vn
         del q, k, v, do, o, lse, args, want
         torch.cuda.empty_cache()
@@ -6865,6 +7002,7 @@ def fp32_phase(workdir, tok_path, seqs, rate16):
     from omnibiote_tpu_torch.training.train import Trainer
 
     t_phase = time.time()
+    _f32_rebuilt_checks()
     cfg = preset("omnibiote-small", vocab_size=65536, dropout=0.0, compute_dtype="float32")
     check((cfg.n_layer, cfg.n_embd, cfg.n_head, cfg.block_size, cfg.param_dtype)
           == (8, 1024, 8, 1024, "float32"), f"unexpected omnibiote-small config {cfg}")

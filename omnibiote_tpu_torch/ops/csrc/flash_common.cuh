@@ -17,14 +17,6 @@ namespace obt {
 // attends uniformly instead of turning into NaN.
 constexpr float kMaskValue = -0.7f * FLT_MAX;
 
-// The kv tile of the fp32 forward kernel (its q tile is 32 rows): 32 rows,
-// 16 at D = 256, where two 32-row fp32 K and V tiles (64 KB) pass the 48 KB
-// of static shared memory.
-template <int D>
-__host__ __device__ constexpr int f32_kv_tile() {
-  return D == 256 ? 16 : 32;
-}
-
 // rotate-half, unfused (no FMA contraction) to round exactly as the plain
 // version's separate multiply and add: [x1 c - x2 s | x2 c + x1 s]
 __device__ __forceinline__ float rope_lo(float x1, float x2, float c, float s) {
@@ -94,6 +86,35 @@ __device__ __forceinline__ void rows_to_panels(unsigned char* dst, int tile_rows
     }
     *reinterpret_cast<uint4*>(dst + swizzled_offset(tile_rows, dst_r0 + r, c8)) = lo;
     *reinterpret_cast<uint4*>(dst + swizzled_offset(tile_rows, dst_r0 + r, c8 + WQ)) = hi;
+  }
+}
+
+// fp32 rows src + r * ld (r < n_rows, D columns each) into shared rows dst
+// + r * dld, rotated (rotate-half from the cos/sin half tables at sequence
+// position t0 + r) when cos_t is non-null, else copied. Thread tid of
+// n_threads takes every n_threads-th (row, 4 columns of each half) item.
+template <int D>
+__device__ __forceinline__ void rows_rotated_f32(float* dst, int dld, const float* src,
+                                                 size_t ld, int n_rows, const float* cos_t,
+                                                 const float* sin_t, int t0, int tid,
+                                                 int n_threads) {
+  constexpr int HALF = D / 2;
+  for (int it = tid; it < n_rows * (HALF / 4); it += n_threads) {
+    const int r = it / (HALF / 4), c = (it % (HALF / 4)) * 4;
+    const float* p = src + (size_t)r * ld + c;
+    float4 lo = *reinterpret_cast<const float4*>(p);
+    float4 hi = *reinterpret_cast<const float4*>(p + HALF);
+    if (cos_t != nullptr) {
+      const float4 cs = *reinterpret_cast<const float4*>(cos_t + (size_t)(t0 + r) * HALF + c);
+      const float4 sn = *reinterpret_cast<const float4*>(sin_t + (size_t)(t0 + r) * HALF + c);
+      const float4 l = lo;
+      lo = make_float4(rope_lo(l.x, hi.x, cs.x, sn.x), rope_lo(l.y, hi.y, cs.y, sn.y),
+                       rope_lo(l.z, hi.z, cs.z, sn.z), rope_lo(l.w, hi.w, cs.w, sn.w));
+      hi = make_float4(rope_hi(l.x, hi.x, cs.x, sn.x), rope_hi(l.y, hi.y, cs.y, sn.y),
+                       rope_hi(l.z, hi.z, cs.z, sn.z), rope_hi(l.w, hi.w, cs.w, sn.w));
+    }
+    *reinterpret_cast<float4*>(dst + r * dld + c) = lo;
+    *reinterpret_cast<float4*>(dst + r * dld + HALF + c) = hi;
   }
 }
 
@@ -169,15 +190,15 @@ void launch_rope_rows(const void* x, const float* cos_t, const float* sin_t, voi
 
 // ---------------------------------------------------------------------------
 // dq = inverse-RoPE(dq_acc) in fp32 (when cos_t is non-null), cast to the
-// output type, from fp32 sums in the (B, T, H, D) layout. One thread per
-// pair (d, d + D/2) of one (b, t, h) row.
+// output type, from fp32 sums in the (B, T, H, D) layout, or (B, H, T, D)
+// with BHTD. One thread per pair (d, d + D/2) of one (b, t, h) row.
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
-template <typename OutT>
+template <typename OutT, bool BHTD = false>
 __global__ void dq_epilogue(const float* __restrict__ acc, const float* __restrict__ cos_t,
                             const float* __restrict__ sin_t, OutT* __restrict__ out, int T,
                             int H, int D, long long n_items) {
@@ -186,7 +207,10 @@ __global__ void dq_epilogue(const float* __restrict__ acc, const float* __restri
   if (it >= n_items) return;
   const long long row = it / half;
   const int d = (int)(it % half);
-  const float x1 = acc[row * D + d], x2 = acc[row * D + d + half];
+  // row = (b T + t) H + h; its sums at (b H + h) T + t with BHTD
+  const long long arow =
+      BHTD ? ((row / ((long long)T * H)) * H + row % H) * T + (row / H) % T : row;
+  const float x1 = acc[arow * D + d], x2 = acc[arow * D + d + half];
   float lo = x1, hi = x2;
   if (cos_t != nullptr) {
     const int t = (int)((row / H) % T);

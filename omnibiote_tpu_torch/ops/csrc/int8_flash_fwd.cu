@@ -785,7 +785,7 @@ __global__ void __launch_bounds__(kW8Threads) int8_fwd_wide(
           sm.kp[s & 1], kW8Ld, krows + (size_t)it * kW8Tile * D + p * kW8Panel, D, tid,
           kW8Threads);
     }
-    obt::wide::cp_async_commit();
+    obt::cp_async_commit();
   };
 
   int s[8][4], acc[16][4];
@@ -797,20 +797,20 @@ __global__ void __launch_bounds__(kW8Threads) int8_fwd_wide(
     for (int it = 0; it < NT; ++it) {
       const int j0 = it * kW8Tile;
       // the tile's key scales and ids and (walk 2) its V8^T slice
-      if (tid < kW8Tile / 4) obt::wide::cp_async16(sm.sk + 4 * tid, sk + (size_t)bh * T + j0 + 4 * tid);
+      if (tid < kW8Tile / 4) obt::cp_async16(sm.sk + 4 * tid, sk + (size_t)bh * T + j0 + 4 * tid);
       if (SEG && tid >= 32 && tid < 32 + kW8Tile / 4)
-        obt::wide::cp_async16(sm.kseg + 4 * (tid - 32), seg + (size_t)b * T + j0 + 4 * (tid - 32));
+        obt::cp_async16(sm.kseg + 4 * (tid - 32), seg + (size_t)b * T + j0 + 4 * (tid - 32));
       if (walk == 1)
         obt::wide::load_tile<int8_t, 128, kW8Tile>(sm.vs, kW8VLd,
                                               v8t + ((size_t)bh * D + 128 * c) * T + j0, T,
                                               tid, kW8Threads);
-      obt::wide::cp_async_commit();
+      obt::cp_async_commit();
 #pragma unroll
       for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0;
       for (int p = 0; p < n_panels; ++p) {
         const int st = (walk * NT + it) * n_panels + p;
         issue(st + 1);
-        obt::wide::cp_async_wait<1>();
+        obt::cp_async_wait<1>();
         __syncthreads();
         const int8_t* qa = sm.qp[st & 1] + warp * 16 * kW8Ld;
         const int8_t* kb = sm.kp[st & 1];
@@ -887,7 +887,7 @@ __global__ void __launch_bounds__(kW8Threads) int8_fwd_wide(
       __syncthreads();  // sk, kseg and vs are refilled for the next tile
     }
   }
-  obt::wide::cp_async_wait<0>();
+  obt::cp_async_wait<0>();
 
 #pragma unroll
   for (int off = 1; off <= 2; off <<= 1) {

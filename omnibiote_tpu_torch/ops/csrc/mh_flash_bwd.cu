@@ -49,8 +49,10 @@
 // reads all of it); k is rotated where a consumer loads its rows. The
 // kernel (mh_flash_bwd_kernels.cuh::mh_bwd_fused_bf16 with WITH_DQ) is also
 // the split pair's dkv kernel without its dq (mh_flash_bwd_dkv.cu). The
-// fp32 kernel is the parity type and runs on the CUDA cores, with q and k
-// both rotated ahead.
+// fp32 kernel is the parity type: the same kv-row design with all five
+// products on the tensor cores in 3xTF32 (mh_flash_bwd_kernels.cuh::
+// mh_bwd_f32, mma.sync from a cp.async ring, dQ by a bulk reduce-add a
+// q row), q and k both rotated ahead.
 //
 // Head dim 256. dK and dV of a consumer's 64 kv rows would be 256 fp32 a
 // thread, past its 240 registers, and the 64 KB dQ staging tile does not
@@ -121,7 +123,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
       static_cast<float*>(dk), static_cast<float*>(dv), B, T, H, scale_log2,
       scale, dp, st);
   if (e != cudaSuccess) return e;
-  dq_epilogue<float><<<(unsigned)((n_pairs + 255) / 256), 256, 0, st>>>(
+  dq_epilogue<float, true><<<(unsigned)((n_pairs + 255) / 256), 256, 0, st>>>(
       dq_acc, cos_t, sin_t, static_cast<float*>(dq), T, H, D, n_pairs);
   return cudaGetLastError();
 }
@@ -143,7 +145,7 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, const void* do
 }
 
 // T multiple of each dtype's kernel: the bf16 CTA's 128 kv rows; the fp32
-// kernel's 32-row kv tile, held to the dkv kernel's 64
+// kernel's 64-row kv tile
 constexpr int kBf16TMultiple = kBkv, kF32TMultiple = 64;
 
 bool shape_ok(int B, int T, int H, int t_multiple) {
@@ -162,10 +164,11 @@ bool shape_ok(int B, int T, int H, int t_multiple) {
 // and sin_t non-null), q_rot is a scratch tensor of q's shape and type, and
 // so is k_rot where lse2 is (B, T, H) (the other kernels rotate k in the
 // kernel; k_rot may be null there).
-// dq_acc is an fp32 scratch of q's size (zeroed here). q_lo and q_hi, both
+// dq_acc is an fp32 scratch of q's size (zeroed here; the fp32 kernel up
+// to 256 lays it out (B, H, T, D)). q_lo and q_hi, both
 // null or both int32 (B, T / kv tile) in units of the dtype's q tile (kv
-// tile 128 (64 at D = 256) and q tile 64 for bf16, 32 and 16 for fp32, 64
-// and 64 past 256), bound the q tiles
+// tile 128 (64 at D = 256) and q tile 64 for bf16, 64 and 32 for fp32 (64
+// and 16 at D = 256), 64 and 64 past 256), bound the q tiles
 // each kv tile walks; tile_count is null or one int32 that the walked tiles
 // are added to. drop != 0 applies the forward's dropout (thresh,
 // keep_scale, seed as in obt_mh_flash_fwd). Returns cudaGetLastError()

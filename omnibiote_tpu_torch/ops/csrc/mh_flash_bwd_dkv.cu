@@ -24,7 +24,10 @@
 // one owner, so dk and dv are the same bits from launch to launch. With
 // q_lo / q_hi it walks only the q tiles whose segment-id range meets its kv
 // tile's (the TPU kernel's use_bounds); a skipped tile would have added
-// exact zeros, so dk and dv are bit for bit those of the full walk.
+// exact zeros, so dk and dv are bit for bit those of the full walk. The
+// fp32 kernel is the fused fp32 kernel without its dq as well
+// (mh_bwd_f32<D, DROP, false>: 3xTF32 on the tensor cores, no dS^T tile,
+// no staging, no dq scratch).
 //
 // Head dims past 256 (D % 128 == 0). In bf16 at D = 384 and 512 the fused
 // kernel's cluster without its dq (mh_flash_bwd_pair.cuh::mh_bwd_pair with
@@ -97,7 +100,7 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, const void* do
 }
 
 // T multiple of each dtype's kernel: the bf16 CTA's 128 kv rows; the fp32
-// kernel's 32-row kv tile, held to 64
+// kernel's 64-row kv tile
 constexpr int kBf16TMultiple = kBkv, kF32TMultiple = 64;
 
 bool shape_ok(int B, int T, int H, int t_multiple) {
@@ -117,7 +120,8 @@ bool shape_ok(int B, int T, int H, int t_multiple) {
 // type, and so is k_rot where lse2 is (B, T, H) (the other kernels rotate k
 // in the kernel; k_rot may be null there). q_lo and q_hi, both null or both
 // int32 (B, T / kv tile) in units of the dtype's q tile (kv tile 128, 64 at
-// D = 256, and q tile 64 for bf16; 32 and 16 for fp32; 64 and 64 past 256),
+// D = 256, and q tile 64 for bf16; 64 and 32 for fp32, 64 and 16 at D = 256; 64
+// and 64 past 256),
 // bound the q tiles each kv tile walks; tile_count is null or
 // one int32 that the walked tiles are added to. drop != 0 applies the
 // forward's dropout (thresh, keep_scale, seed as in obt_mh_flash_fwd).

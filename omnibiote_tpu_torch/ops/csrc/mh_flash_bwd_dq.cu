@@ -559,37 +559,21 @@ __global__ void __launch_bounds__(kF32Threads, 1) mh_bwd_dq_f32(
     for (int it = tid; it < BKV * (D / 4); it += kF32Threads) {
       const int r = it / (D / 4), c = (it % (D / 4)) * 4;
       const size_t off = base + (size_t)(j0 + r) * rs + c;
-      wide::cp_async16(kd + G::kv_row(r) * LD + c, k + off);
-      wide::cp_async16(vd + G::kv_row(r) * LD + c, v + off);
+      cp_async16(kd + G::kv_row(r) * LD + c, k + off);
+      cp_async16(vd + G::kv_row(r) * LD + c, v + off);
     }
     if (seg && tid < BKV / 4)
-      wide::cp_async16(ksegs + stage * BKV + 4 * tid, kv_seg + (size_t)b * T + j0 + 4 * tid);
+      cp_async16(ksegs + stage * BKV + 4 * tid, kv_seg + (size_t)b * T + j0 + 4 * tid);
   };
 
   if (jt0 <= jt1) load_kv(0, jt0);
   for (int it = tid; it < kF32Bq * (D / 4); it += kF32Threads) {
     const int r = it / (D / 4), c = (it % (D / 4)) * 4;
-    wide::cp_async16(os + r * LD + c, dout + base + (size_t)(q0 + r) * rs + c);
+    cp_async16(os + r * LD + c, dout + base + (size_t)(q0 + r) * rs + c);
   }
-  wide::cp_async_commit();
-  // q rows, rotated (rotate-half in fp32) where RoPE is on
-  for (int it = tid; it < kF32Bq * (HALF / 4); it += kF32Threads) {
-    const int r = it / (HALF / 4), c = (it % (HALF / 4)) * 4;
-    const float* src = q + base + (size_t)(q0 + r) * rs + c;
-    float4 lo = *reinterpret_cast<const float4*>(src);
-    float4 hi = *reinterpret_cast<const float4*>(src + HALF);
-    if (cos_t != nullptr) {
-      const float4 cs = *reinterpret_cast<const float4*>(cos_t + (size_t)(q0 + r) * HALF + c);
-      const float4 sn = *reinterpret_cast<const float4*>(sin_t + (size_t)(q0 + r) * HALF + c);
-      const float4 l = lo;
-      lo = make_float4(rope_lo(l.x, hi.x, cs.x, sn.x), rope_lo(l.y, hi.y, cs.y, sn.y),
-                       rope_lo(l.z, hi.z, cs.z, sn.z), rope_lo(l.w, hi.w, cs.w, sn.w));
-      hi = make_float4(rope_hi(l.x, hi.x, cs.x, sn.x), rope_hi(l.y, hi.y, cs.y, sn.y),
-                       rope_hi(l.z, hi.z, cs.z, sn.z), rope_hi(l.w, hi.w, cs.w, sn.w));
-    }
-    *reinterpret_cast<float4*>(qs + r * LD + c) = lo;
-    *reinterpret_cast<float4*>(qs + r * LD + HALF + c) = hi;
-  }
+  cp_async_commit();
+  rows_rotated_f32<D>(qs, LD, q + base + (size_t)q0 * rs, rs, kF32Bq, cos_t, sin_t, q0, tid,
+                      kF32Threads);
 
   // S / dP ownership: 8 column-pair lanes by 4 row-pair lanes a warp
   const int s_wc = warp % (G::N_CG / 8), s_wr = warp / (G::N_CG / 8);
@@ -624,8 +608,8 @@ __global__ void __launch_bounds__(kF32Threads, 1) mh_bwd_dq_f32(
   int stage = 0;
   for (int jt = jt0; jt <= jt1; ++jt, stage ^= 1) {
     if (jt < jt1) load_kv(stage ^ 1, jt + 1);
-    wide::cp_async_commit();
-    wide::cp_async_wait<1>();
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
     const float* kt = ks + stage * BKV * LD;
     const float* vt = vs + stage * BKV * LD;
@@ -722,7 +706,7 @@ __global__ void __launch_bounds__(kF32Threads, 1) mh_bwd_dq_f32(
     }
     __syncthreads();
   }
-  wide::cp_async_wait<0>();
+  cp_async_wait<0>();
 
   // dq rotated back by -angle in fp32, one write of each element
 #pragma unroll

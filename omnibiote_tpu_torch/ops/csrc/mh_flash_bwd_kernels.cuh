@@ -5,7 +5,8 @@
 // and serves both: with WITH_DQ it also forms dq, without it it is the dkv
 // kernel; at D = 256 its place is taken by mh_bwd_d256_bf16 (a 64-row kv
 // tile, the consumers split by output, see its note). The fp32 kernel is
-// the parity type and runs on the CUDA cores.
+// the parity type and runs all five products on the tensor cores in 3xTF32
+// (mh_bwd_f32's note).
 //
 // Segment skipping. With q_lo / q_hi non-null, int32 (B, T / kv tile) in
 // units of q tiles, a block walks only the q tiles q_lo..q_hi of its
@@ -20,6 +21,7 @@
 #include "flash_common.cuh"
 #include "hopper.cuh"
 #include "philox.cuh"
+#include "tf32x3.cuh"
 
 namespace obt {
 namespace bwd {
@@ -887,31 +889,83 @@ cudaError_t launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
 }
 
 // ---------------------------------------------------------------------------
-// fp32: 32 kv rows x TPR threads (4, or 8 at D = 256); thread `sub` of a
-// row owns the head dims sub + TPR*i (its k, v, dk and dv in registers, 128
-// fp32 at D = 256 either way), so a dot product is TPR partial sums joined
-// by shuffles. 16-row q tiles. The K, Q and dO tiles live in dynamic shared
-// memory (66 KB at D = 256).
+// fp32, the parity type: all five products on the tensor cores in 3xTF32
+// (tf32x3.cuh: each operand split into two tf32 parts, three mma.sync
+// m16n8k8 products a step, fp32 accumulators), the bf16 kernel's kv-row design on
+// mma.sync. A CTA owns a (batch, head, 64-row kv tile): warp w the kv rows
+// 16 (w % 4) .. + 15, the rows of its A and C fragments, and past D = 64
+// (eight warps) head-dim part c = w / 4, the lanes [D/4 c, D/4 (c + 1))
+// and D/2 + the same (closed under rotate-half): dK and dV of a part are
+// D/2 fp32 a thread, and two warps a scheduler hide the products' latency
+// (four warps of all D lanes ran at 249-255 registers at D = 128). At D =
+// 64 a part's 4 k-steps do not pay for the exchange (the fused kernel took
+// 6.36 ms against 5.15 over every tile at B=16, T=1024), so four warps own
+// all lanes there, two CTAs an SM.
+//   * K and V rows (rotated ahead) stay in shared memory; BQ-row Q and dO
+//     tiles, with the rows' lse2, di and q ids, arrive by cp.async in a
+//     two-stage ring, the next tile's copies in flight while the CTA works
+//     on this one (every thread issues its share; no producer warp).
+//   * S^T = K.Q^T and dP^T = V.dO^T: A fragments from the resident K / V
+//     rows, split once a k-step and used on the tile's BQ / 8 column blocks;
+//     B fragments are Q's / dO's rows (both operands K-major); the small
+//     terms in accumulators of their own (tf32x3.cuh::mma3_apart). Past D
+//     = 64 each part forms them over its own lanes and the two partial sums
+//     are added through shared memory (fp32 addition commutes: both parts
+//     hold the same bits).
+//   * p, the keep bits and ds on the C fragments, as the bf16 kernel runs
+//     them; dV += P_drop^T.dO and dK += dS^T.Q on the part's lanes, the C
+//     fragments as A operands in tf32x3.cuh's permuted k order, dO's and
+//     Q's B fragments read down their columns.
+//   * WITH_DQ: dS^T goes to shared memory; after a barrier each warp forms
+//     a 16-row by (D / warps-a-row-tile)-lane block of the q tile's dQ =
+//     dS.K (B from K's columns), writes it to a staging tile, and one
+//     thread adds the whole tile into the fp32 scratch dq_acc, laid out
+//     (B, H, T, D) so that a q tile is one span, by one TMA bulk reduce-add
+//     (cp.reduce.async.bulk .add.f32): one reduce a q tile and CTA in place
+//     of an atomic an element; the sums' order changes from run to run.
+//     The staging tile is read by the TMA unit while the next q tile's
+//     scores run (past D = 64 it shares its memory with the partial-score
+//     exchange, so its read is awaited before the exchange).
+// Why mma.sync and not wgmma: wgmma takes tf32 operands K-major only;
+// dV, dK and dQ read dO, Q and K MN-major, so each would need a transposed
+// copy, and every operand a split copy (hi and lo) in shared memory.
+// mma.sync reads both kinds of fragment from one padded row-major copy,
+// split in registers as it is loaded. Rows are padded by 4 floats (D + 4 =
+// 4 mod 32, BQ + 4 = 4 mod 16): the row reads (rows g, columns t) and the
+// column reads (rows 2 t, columns g) of a warp fall in 32 distinct banks.
+// Bound: three tensor-core products for each of the function's: at 8 x
+// 128, B=16, T=1024 the fused backward's 171.8 GFLOP take at least 1.04 ms
+// at 495 TFLOP/s TF32 (2.56 ms at the FP32 FFMA rate).
 // ---------------------------------------------------------------------------
-constexpr int kF32Kv = 32;
-constexpr int kF32Q = 16;
 template <int D>
-__host__ __device__ constexpr int f32_tpr() {
-  return D == 256 ? 8 : 4;
-}
-
-template <int D>
-struct F32Smem {
-  alignas(16) float k[kF32Kv * D];
-  alignas(16) float q[kF32Q * D];
-  alignas(16) float dout[kF32Q * D];
-  float ds[kF32Q * kF32Kv];
-  float lse[kF32Q], di[kF32Q];
-  int qseg[kF32Q];
+struct F32Bwd {
+  static constexpr int NP = D == 64 ? 1 : 2;      // head-dim parts
+  static constexpr int DP = D / NP, HW = DP / 2;  // a part's lanes, and of each half
+  static constexpr int BKV = 64, BQ = D == 256 ? 16 : 32;
+  static constexpr int WARPS = 4 * NP, THREADS = 32 * WARPS;
+  static constexpr int LD = D + 4, DS_LD = BQ + 4;
+  static constexpr int NQ = BQ / 8;               // 8-column blocks of S^T
+  // floats: K and V; Q and dO (two stages each); lse2 and di (two stages
+  // each); dS^T; the partial scores' exchange (two parts) and the dQ
+  // staging tile, one region; then the q ids (two stages, int)
+  static constexpr size_t KV = (size_t)2 * BKV * LD;
+  static constexpr size_t RING = (size_t)4 * BQ * LD;
+  static constexpr size_t ROWS = 4 * BQ;
+  static constexpr size_t DST = (size_t)BKV * DS_LD;
+  static constexpr size_t XCH = NP > 1 ? (size_t)WARPS * 2 * NQ * 4 * 32 : 0;
+  static constexpr size_t STG = (size_t)BQ * D;
+  template <bool WITH_DQ>
+  __host__ __device__ static constexpr size_t floats() {
+    return KV + RING + ROWS + (WITH_DQ ? DST + (STG > XCH ? STG : XCH) : XCH);
+  }
+  template <bool WITH_DQ>
+  __host__ __device__ static constexpr size_t smem() {
+    return floats<WITH_DQ>() * 4 + 2 * BQ * 4;
+  }
 };
 
 template <int D, bool DROP, bool WITH_DQ>
-__global__ void __launch_bounds__(32 * f32_tpr<D>()) mh_bwd_f32(
+__global__ void __launch_bounds__(F32Bwd<D>::THREADS, 1) mh_bwd_f32(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ di,
@@ -921,127 +975,310 @@ __global__ void __launch_bounds__(32 * f32_tpr<D>()) mh_bwd_f32(
     float* __restrict__ dq_acc, float* __restrict__ dk,
     float* __restrict__ dv, int T, int H, float scale_log2, float scale,
     DropParams dp) {
-  constexpr int BKV = kF32Kv, BQ = kF32Q, HALF = D / 2, TPR = f32_tpr<D>();
-  constexpr int NT = 32 * TPR, PER = D / TPR;
-  extern __shared__ unsigned char smem_raw[];
-  F32Smem<D>& sm = *reinterpret_cast<F32Smem<D>*>(smem_raw);
-  float* Ks = sm.k;
-  float* Qs = sm.q;
-  float* Os = sm.dout;
-  float* dSs = sm.ds;
-  float* lse_s = sm.lse;
-  float* di_s = sm.di;
-  int* qseg_s = sm.qseg;
+  using G = F32Bwd<D>;
+  constexpr int BKV = G::BKV, BQ = G::BQ, LD = G::LD, DS_LD = G::DS_LD, NP = G::NP;
+  constexpr int HW = G::HW, NQ = G::NQ, NDP = G::DP / 8, HALF = D / 2;
+  extern __shared__ __align__(16) float f32_smem[];
+  float* ksm = f32_smem;
+  float* vsm = ksm + BKV * LD;
+  float* qsm = vsm + BKV * LD;
+  float* osm = qsm + 2 * BQ * LD;
+  float* lsm = osm + 2 * BQ * LD;
+  float* dism = lsm + 2 * BQ;
+  float* dst = dism + 2 * BQ;                      // dS^T (WITH_DQ)
+  float* xch = dst + (WITH_DQ ? G::DST : 0);       // exchange / dQ staging
+  int* qsegs = reinterpret_cast<int*>(f32_smem + G::template floats<WITH_DQ>());
 
   const int b = blockIdx.z, h = blockIdx.y, tid = threadIdx.x;
-  const int sub = tid & (TPR - 1), rl = tid / TPR, j = blockIdx.x * BKV + rl;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int part = warp >> 2;
+  const int j0 = blockIdx.x * BKV;
+  const int jr = (warp & 3) * 16 + g;  // this thread's kv rows jr and jr + 8 of the tile
   const int bh = b * H + h;
   const size_t rs = (size_t)H * D;
   const size_t base = (size_t)b * T * rs + (size_t)h * D;
-
-  for (int it = tid; it < BKV * (D / 4); it += NT) {
-    const int r = it / (D / 4), c4 = (it % (D / 4)) * 4;
-    *reinterpret_cast<float4*>(Ks + r * D + c4) = *reinterpret_cast<const float4*>(
-        k + base + (size_t)(blockIdx.x * BKV + r) * rs + c4);
-  }
-  float kr[PER], vr[PER], dka[PER], dva[PER];
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    kr[i] = k[base + (size_t)j * rs + sub + TPR * i];
-    vr[i] = v[base + (size_t)j * rs + sub + TPR * i];
-    dka[i] = dva[i] = 0.f;
-  }
-  const int ks = kv_seg ? kv_seg[(size_t)b * T + j] : 0;
+  const bool seg = q_seg != nullptr;
+  // the head-dim column of 8-lane block kb of this warp's part
+  auto pcol = [&](int kb) {
+    return kb * 8 < HW ? HW * part + kb * 8 : HALF + HW * part + kb * 8 - HW;
+  };
 
   int qt0 = 0, qt1 = T / BQ - 1;
   if (q_lo != nullptr) {
     qt0 = q_lo[b * (T / BKV) + blockIdx.x];
     qt1 = q_hi[b * (T / BKV) + blockIdx.x];
   }
-  if (tile_count != nullptr && tid == 0) atomicAdd(tile_count, qt1 - qt0 + 1);
-  for (int i0 = qt0 * BQ; i0 <= qt1 * BQ; i0 += BQ) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int it = tid; it < BQ * (D / 4); it += NT) {
-      const int r = it / (D / 4), c4 = (it % (D / 4)) * 4;
-      const size_t off = base + (size_t)(i0 + r) * rs + c4;
-      *reinterpret_cast<float4*>(Qs + r * D + c4) = *reinterpret_cast<const float4*>(q + off);
-      *reinterpret_cast<float4*>(Os + r * D + c4) = *reinterpret_cast<const float4*>(dout + off);
+  const int n_tiles = qt1 - qt0 + 1;
+  if (tile_count != nullptr && tid == 0) atomicAdd(tile_count, n_tiles);
+
+  // Q and dO rows of q tile qt, their lse2, di and q ids into ring stage
+  // `stage`
+  auto load_q = [&](int stage, int qt) {
+    const int i0 = qt * BQ;
+    float* qd = qsm + stage * BQ * LD;
+    float* od = osm + stage * BQ * LD;
+    for (int it = tid; it < BQ * (D / 4); it += G::THREADS) {
+      const int r = it / (D / 4), c = (it % (D / 4)) * 4;
+      const size_t off = base + (size_t)(i0 + r) * rs + c;
+      cp_async16(qd + r * LD + c, q + off);
+      cp_async16(od + r * LD + c, dout + off);
     }
     if (tid < BQ) {
       const size_t r = ((size_t)b * T + i0 + tid) * H + h;
-      lse_s[tid] = lse[r];
-      di_s[tid] = di[r];
-      qseg_s[tid] = q_seg ? q_seg[(size_t)b * T + i0 + tid] : 0;
+      cp_async4(lsm + stage * BQ + tid, lse + r);
+      cp_async4(dism + stage * BQ + tid, di + r);
+    } else if (seg && tid < BQ + BQ / 4) {
+      const int c = 4 * (tid - BQ);
+      cp_async16(qsegs + stage * BQ + c, q_seg + (size_t)b * T + i0 + c);
     }
-    __syncthreads();
+  };
+  // the CTA's K and V rows, with the first q tile
+  for (int it = tid; it < BKV * (D / 4); it += G::THREADS) {
+    const int r = it / (D / 4), c = (it % (D / 4)) * 4;
+    const size_t off = base + (size_t)(j0 + r) * rs + c;
+    cp_async16(ksm + r * LD + c, k + off);
+    cp_async16(vsm + r * LD + c, v + off);
+  }
+  load_q(0, qt0);
+  cp_async_commit();
+  const int ks0 = kv_seg ? kv_seg[(size_t)b * T + j0 + jr] : 0;
+  const int ks1 = kv_seg ? kv_seg[(size_t)b * T + j0 + jr + 8] : 0;
 
-    for (int qi = 0; qi < BQ; ++qi) {
-      float sp = 0.f, dpp = 0.f;
+  float dka[NDP][4], dva[NDP][4];
 #pragma unroll
-      for (int i = 0; i < PER; ++i) {
-        sp = fmaf(kr[i], Qs[qi * D + sub + TPR * i], sp);
-        dpp = fmaf(vr[i], Os[qi * D + sub + TPR * i], dpp);
-      }
+  for (int n = 0; n < NDP; ++n)
 #pragma unroll
-      for (int off = 1; off < TPR; off <<= 1) {
-        sp += __shfl_xor_sync(0xffffffffu, sp, off);
-        dpp += __shfl_xor_sync(0xffffffffu, dpp, off);
-      }
-      const float p = exp2f(score(sp, scale_log2, qseg_s[qi], ks) - lse_s[qi]);
-      float pd = p;
-      if constexpr (DROP) {
-        const int i = i0 + qi;
-        const bool keep = pick(dropout_bits(dp.seed, bh, i, j), dropout_word(i, j)) >= dp.thresh;
-        pd = keep ? p * dp.keep_scale : 0.f;
-        dpp = keep ? dpp * dp.keep_scale : 0.f;
-      }
-      const float ds = __fmul_rn(__fmul_rn(p, __fsub_rn(dpp, di_s[qi])), scale);
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it & 1, i0 = (qt0 + it) * BQ;
+    if (it + 1 < n_tiles) load_q(st ^ 1, qt0 + it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // q tile it (and, the first time, K and V) is in
+    const float* qtile = qsm + st * BQ * LD;
+    const float* otile = osm + st * BQ * LD;
+
+    // S^T and dP^T over this part's lanes: element e of block n is (kv row
+    // jr + 8 (e >> 1), q row i0 + 8 n + 2 t4 + (e & 1))
+    // (the small terms apart until the k-steps are done)
+    float s[NQ][4], dpt[NQ][4], ssm[NQ][4], dsm[NQ][4];
 #pragma unroll
-      for (int i = 0; i < PER; ++i) {
-        dva[i] = fmaf(pd, Os[qi * D + sub + TPR * i], dva[i]);
-        dka[i] = fmaf(ds, Qs[qi * D + sub + TPR * i], dka[i]);
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dpt[n][e] = ssm[n][e] = dsm[n][e] = 0.f;
+#pragma unroll
+    for (int kb = 0; kb < NDP; ++kb) {
+      const int c = pcol(kb) + t4;
+      const float* ka = ksm + jr * LD + c;
+      const float* va = vsm + jr * LD + c;
+      const x3::AFrag kf = x3::split_a(ka[0], ka[8 * LD], ka[4], ka[8 * LD + 4]);
+      const x3::AFrag vf = x3::split_a(va[0], va[8 * LD], va[4], va[8 * LD + 4]);
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+        const float* qb = qtile + (n * 8 + g) * LD + c;
+        const float* ob = otile + (n * 8 + g) * LD + c;
+        x3::mma3_apart(s[n], ssm[n], kf, qb[0], qb[4]);
+        x3::mma3_apart(dpt[n], dsm[n], vf, ob[0], ob[4]);
       }
-      if (WITH_DQ && sub == 0) dSs[qi * BKV + rl] = ds;
     }
-    __syncthreads();
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] += ssm[n][e];
+        dpt[n][e] += dsm[n][e];
+      }
+    if constexpr (NP > 1) {
+      // the other part's partial sums, through shared memory in fragment
+      // order (conflict-free); the dQ staging tile shares this memory, so
+      // its bulk read must be done first
+      if constexpr (WITH_DQ) {
+        if (tid == 0) bulk_wait_read<0>();
+        __syncthreads();
+      }
+      float* mine = xch + warp * (2 * NQ * 4 * 32) + lane;
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          mine[(n * 4 + e) * 32] = s[n][e];
+          mine[((NQ + n) * 4 + e) * 32] = dpt[n][e];
+        }
+      __syncthreads();
+      const float* other = xch + (warp ^ 4) * (2 * NQ * 4 * 32) + lane;
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] += other[(n * 4 + e) * 32];
+          dpt[n][e] += other[((NQ + n) * 4 + e) * 32];
+        }
+    }
 
-    // dQ share of this kv tile: thread takes q row tid / CPR, columns
-    // (tid % CPR) + CPR m
+    // s[] becomes P_drop^T and dpt[] dS^T
+    uint32_t keep = ~0u;  // bit 4 n + e: element e of block n is kept
+    if constexpr (DROP) {
+      // One Philox call covers q rows (i, i + 1) of kv rows 2m, 2m + 1:
+      // the even lane of g, g ^ 1 draws the pair block of its rows jr, jr +
+      // 1, the odd lane that of jr + 7, jr + 8, and each hands the partner
+      // the words of the partner's row (word 2 (i & 1) + (j & 1)).
+      const bool odd = g & 1;
+      const int jd = j0 + (odd ? jr + 8 : jr);
+      keep = 0;
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+        const Philox4 u = dropout_bits(dp.seed, bh, i0 + n * 8 + 2 * t4, jd);
+        const uint32_t y0 = __shfl_xor_sync(0xffffffffu, odd ? u.w[0] : u.w[1], 4);
+        const uint32_t y1 = __shfl_xor_sync(0xffffffffu, odd ? u.w[2] : u.w[3], 4);
+        const uint32_t a0 = odd ? y0 : u.w[0], a1 = odd ? y1 : u.w[2];  // row jr
+        const uint32_t c0 = odd ? u.w[1] : y0, c1 = odd ? u.w[3] : y1;  // row jr + 8
+        const uint32_t k4 = (uint32_t)(a0 >= dp.thresh) | (uint32_t)(a1 >= dp.thresh) << 1 |
+                            (uint32_t)(c0 >= dp.thresh) << 2 | (uint32_t)(c1 >= dp.thresh) << 3;
+        keep |= k4 << (4 * n);
+      }
+    }
+    const float* lt = lsm + st * BQ;
+    const float* dt = dism + st * BQ;
+    const int* qg = qsegs + st * BQ;
+#pragma unroll
+    for (int n = 0; n < NQ; ++n) {
+      const int c = n * 8 + 2 * t4;
+      const float2 l2 = *reinterpret_cast<const float2*>(lt + c);
+      const float2 d2 = *reinterpret_cast<const float2*>(dt + c);
+      const int2 q2 = seg ? *reinterpret_cast<const int2*>(qg + c) : make_int2(0, 0);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float lc = (e & 1) ? l2.y : l2.x, dc = (e & 1) ? d2.y : d2.x;
+        const int qs = (e & 1) ? q2.y : q2.x;
+        const float p = exp2f(score(s[n][e], scale_log2, qs, (e >> 1) ? ks1 : ks0) - lc);
+        float pd = p, d = dpt[n][e];
+        if constexpr (DROP) {
+          const bool kp = (keep >> (4 * n + e)) & 1;
+          pd = kp ? p * dp.keep_scale : 0.f;
+          d = kp ? d * dp.keep_scale : 0.f;
+        }
+        s[n][e] = pd;
+        dpt[n][e] = __fmul_rn(__fmul_rn(p, __fsub_rn(d, dc)), scale);
+      }
+    }
+
+    // dV += P_drop^T.dO and dK += dS^T.Q on the part's lanes: k-step kk is
+    // score block kk, its q rows in the permuted order (A fragment c0, c2,
+    // c1, c3; B rows 2 t4 and 2 t4 + 1)
+#pragma unroll
+    for (int kk = 0; kk < NQ; ++kk) {
+      const x3::AFrag pf = x3::split_a(s[kk][0], s[kk][2], s[kk][1], s[kk][3]);
+      const x3::AFrag sf = x3::split_a(dpt[kk][0], dpt[kk][2], dpt[kk][1], dpt[kk][3]);
+      const float* ob = otile + (kk * 8 + 2 * t4) * LD + g;
+      const float* qb = qtile + (kk * 8 + 2 * t4) * LD + g;
+#pragma unroll
+      for (int n = 0; n < NDP; ++n) {
+        const int c = pcol(n);
+        x3::mma3(dva[n], pf, ob[c], ob[LD + c]);
+        x3::mma3(dka[n], sf, qb[c], qb[LD + c]);
+      }
+    }
+
     if constexpr (WITH_DQ) {
-      constexpr int CPR = NT / BQ;
-      const int qi = tid / CPR, c0 = tid % CPR;
-      float* dst = dq_acc + base + (size_t)(i0 + qi) * rs;
-      for (int m = 0; m < D / CPR; ++m) {
-        const int d = c0 + CPR * m;
-        float a = 0.f;
+      // dS^T (kv rows by q rows), from part 0's warps
+      if (part == 0) {
 #pragma unroll
-        for (int r = 0; r < BKV; ++r) a = fmaf(dSs[qi * BKV + r], Ks[r * D + d], a);
-        atomicAdd(dst + d, a);
+        for (int n = 0; n < NQ; ++n) {
+          const int c = n * 8 + 2 * t4;
+          *reinterpret_cast<float2*>(dst + jr * DS_LD + c) = make_float2(dpt[n][0], dpt[n][1]);
+          *reinterpret_cast<float2*>(dst + (jr + 8) * DS_LD + c) =
+              make_float2(dpt[n][2], dpt[n][3]);
+        }
       }
+      if constexpr (NP == 1) {
+        if (tid == 0) bulk_wait_read<0>();  // the last tile's staging is read
+      }
+      __syncthreads();  // dS^T is in; every read of this ring stage is done
+
+      // dQ = dS.K: warp w a 16-row m-tile mt of the q tile by NC 8-lane
+      // blocks of range cr (A from dS^T's columns, B from K's; the small
+      // terms apart)
+      constexpr int MT = BQ / 16, NC = (D / 8) / (G::WARPS / MT);
+      const int mt = warp % MT, cr = warp / MT;
+      float dqa[NC][4], dqs[NC][4];
+#pragma unroll
+      for (int n = 0; n < NC; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dqa[n][e] = dqs[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < BKV / 8; ++kk) {
+        const float* a = dst + (kk * 8 + 2 * t4) * DS_LD + mt * 16 + g;
+        const x3::AFrag af = x3::split_a(a[0], a[8], a[DS_LD], a[DS_LD + 8]);
+        const float* kb = ksm + (kk * 8 + 2 * t4) * LD + cr * NC * 8 + g;
+#pragma unroll
+        for (int n = 0; n < NC; ++n)
+          x3::mma3_apart(dqa[n], dqs[n], af, kb[n * 8], kb[LD + n * 8]);
+      }
+      // the q tile's dQ, BQ x D in dq_acc's (B, H, T, D) order
+      float* stg = xch + (mt * 16 + g) * D + cr * NC * 8 + 2 * t4;
+#pragma unroll
+      for (int n = 0; n < NC; ++n) {
+        *reinterpret_cast<float2*>(stg + n * 8) =
+            make_float2(dqa[n][0] + dqs[n][0], dqa[n][1] + dqs[n][1]);
+        *reinterpret_cast<float2*>(stg + 8 * D + n * 8) =
+            make_float2(dqa[n][2] + dqs[n][2], dqa[n][3] + dqs[n][3]);
+      }
+      fence_async_shared();
+      __syncthreads();  // the staging tile is in
+      if (tid == 0) {
+        bulk_reduce_add_f32(dq_acc + ((size_t)bh * T + i0) * D, xch, BQ * D * sizeof(float));
+        bulk_commit();
+      }
+    } else {
+      __syncthreads();  // every read of this ring stage is done
     }
   }
+  if constexpr (WITH_DQ) {
+    if (tid == 0) bulk_wait<0>();
+  }
 
-  float* dkr = dk + base + (size_t)j * rs;
-  float* dvr = dv + base + (size_t)j * rs;
+  // dv, and dk rotated back by -angle in fp32: lanes c and c + D/2 are
+  // blocks n and n + NDP / 2 of the same thread
+  const size_t r0 = base + (size_t)(j0 + jr) * rs + 2 * t4;
 #pragma unroll
-  for (int i = 0; i < PER; ++i) dvr[sub + TPR * i] = dva[i];
+  for (int n = 0; n < NDP; ++n) {
+    float* p0 = dv + r0 + pcol(n);
+    *reinterpret_cast<float2*>(p0) = make_float2(dva[n][0], dva[n][1]);
+    *reinterpret_cast<float2*>(p0 + 8 * rs) = make_float2(dva[n][2], dva[n][3]);
+  }
   if (cos_t != nullptr) {
 #pragma unroll
-    for (int i = 0; i < PER / 2; ++i) {
-      const int d = sub + TPR * i;  // < HALF; its partner d + HALF is i + PER/2
-      const float c = cos_t[(size_t)j * HALF + d], s = sin_t[(size_t)j * HALF + d];
-      dkr[d] = rope_inv_lo(dka[i], dka[i + PER / 2], c, s);
-      dkr[d + HALF] = rope_inv_hi(dka[i], dka[i + PER / 2], c, s);
+    for (int n = 0; n < NDP / 2; ++n) {
+      const int c = pcol(n) + 2 * t4;  // < D/2; its partner c + D/2 is block n + NDP / 2
+      float lo[4], hi[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = j0 + jr + 8 * (e >> 1);
+        const float cs = cos_t[(size_t)j * HALF + c + (e & 1)];
+        const float sn = sin_t[(size_t)j * HALF + c + (e & 1)];
+        lo[e] = rope_inv_lo(dka[n][e], dka[n + NDP / 2][e], cs, sn);
+        hi[e] = rope_inv_hi(dka[n][e], dka[n + NDP / 2][e], cs, sn);
+      }
+      float* p0 = dk + r0 + pcol(n);
+      *reinterpret_cast<float2*>(p0) = make_float2(lo[0], lo[1]);
+      *reinterpret_cast<float2*>(p0 + 8 * rs) = make_float2(lo[2], lo[3]);
+      *reinterpret_cast<float2*>(p0 + HALF) = make_float2(hi[0], hi[1]);
+      *reinterpret_cast<float2*>(p0 + HALF + 8 * rs) = make_float2(hi[2], hi[3]);
     }
   } else {
 #pragma unroll
-    for (int i = 0; i < PER; ++i) dkr[sub + TPR * i] = dka[i];
+    for (int n = 0; n < NDP; ++n) {
+      float* p0 = dk + r0 + pcol(n);
+      *reinterpret_cast<float2*>(p0) = make_float2(dka[n][0], dka[n][1]);
+      *reinterpret_cast<float2*>(p0 + 8 * rs) = make_float2(dka[n][2], dka[n][3]);
+    }
   }
 }
 
-// The fp32 kernel's launch: a block per (32-row kv tile, head, batch row),
-// 32 * TPR threads, its tiles in dynamic shared memory (the attribute set
-// once a device where they pass the 48 KB default).
+// The fp32 kernel's launch: a block per (64-row kv tile, head, batch row),
+// 128 threads at D = 64, else 256, its tiles in dynamic shared memory (the
+// attribute set once a device).
 template <int D, bool DROP, bool WITH_DQ>
 cudaError_t launch_f32(const float* q, const float* k, const float* v, const float* dout,
                        const float* lse, const float* di, const int* q_seg, const int* kv_seg,
@@ -1049,21 +1286,20 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v, const flo
                        const int* q_hi, int* tile_count, float* dq_acc, float* dk, float* dv,
                        int B, int T, int H, float scale_log2, float scale, DropParams dp,
                        cudaStream_t st) {
-  constexpr size_t smem = sizeof(F32Smem<D>);
-  if constexpr (smem > 48 * 1024) {
-    static std::atomic<uint64_t> smem_set{0};
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
+  using G = F32Bwd<D>;
+  constexpr size_t smem = G::template smem<WITH_DQ>();
+  static std::atomic<uint64_t> smem_set{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const uint64_t dev_bit = 1ull << (dev & 63);
+  if (!(smem_set.load(std::memory_order_acquire) & dev_bit)) {
+    e = cudaFuncSetAttribute(mh_bwd_f32<D, DROP, WITH_DQ>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
-    const uint64_t dev_bit = 1ull << (dev & 63);
-    if (!(smem_set.load(std::memory_order_acquire) & dev_bit)) {
-      e = cudaFuncSetAttribute(mh_bwd_f32<D, DROP, WITH_DQ>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (e != cudaSuccess) return e;
-      smem_set.fetch_or(dev_bit, std::memory_order_release);
-    }
+    smem_set.fetch_or(dev_bit, std::memory_order_release);
   }
-  mh_bwd_f32<D, DROP, WITH_DQ><<<dim3(T / kF32Kv, H, B), 32 * f32_tpr<D>(), smem, st>>>(
+  mh_bwd_f32<D, DROP, WITH_DQ><<<dim3(T / G::BKV, H, B), G::THREADS, smem, st>>>(
       q, k, v, dout, lse, di, q_seg, kv_seg, cos_t, sin_t, q_lo, q_hi, tile_count, dq_acc, dk, dv,
       T, H, scale_log2, scale, dp);
   return cudaGetLastError();

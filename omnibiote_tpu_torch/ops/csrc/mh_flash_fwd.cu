@@ -39,7 +39,8 @@
 // cores, so one's softmax and dropout draw overlap the other's products
 // (see the kernel's own note below). S and P stay in registers: P's
 // accumulator fragments are the register A operand of P.V. The fp32 kernel
-// is the parity type and runs on the CUDA cores.
+// is the parity type and runs its products on the tensor cores in 3xTF32
+// (mh_fwd_f32's note).
 //
 // Segment skipping (the TPU kernel's use_bounds). With kv_lo / kv_hi
 // non-null, int32 (B, T / q tile) in units of kv tiles, a CTA walks only
@@ -59,7 +60,8 @@
 // m64n64k16 products, and O += P.V as two m64n128k16 products on the two
 // halves of the accumulator (V's panels 0-1 and 2-3). The same attention
 // FLOPs a token as 8 heads of 128 (4 T d), in wider, fewer heads. The fp32
-// kernel walks 16-row kv tiles there (48 KB of static shared memory).
+// kernel keeps its 64 x 32 tiles there (195 KB of shared memory, one CTA an
+// SM).
 //
 // Head dims past 256 (D % 128 == 0). In bf16 up to D = 512,
 // mh_fwd_wide_wgmma (below): a CTA owns 64 q rows and all D lanes, two
@@ -75,6 +77,7 @@
 #include "flash_common.cuh"
 #include "hopper.cuh"
 #include "philox.cuh"
+#include "tf32x3.cuh"
 #include "wide_attention.cuh"
 
 namespace {
@@ -713,12 +716,45 @@ __global__ void __launch_bounds__(kThreads, 1) mh_fwd_wide_wgmma(
 }
 
 // ---------------------------------------------------------------------------
-// fp32: 128 threads = 32 query rows x 4 threads; thread `sub` of a row owns
-// the head dims sub + 4*i, so a row's dot product is 4 partial sums joined
-// by two shuffles, and its output columns stay in the thread's registers.
-// k already rotated. The kv tile is f32_kv_tile<D>() rows.
+// fp32, the parity type: both products on the tensor cores in 3xTF32
+// (tf32x3.cuh: each operand split into two tf32 parts, three mma.sync
+// m16n8k8 products a step, fp32 accumulators). A CTA of 4 warps owns a
+// (batch, head, 64-row q tile); warp w the q rows 16 w .. 16 w + 15, the
+// rows of its A and C fragments.
+//   * Q (rotated in fp32 where RoPE is on) stays in shared memory. 32-row K
+//     and V tiles (and their kv ids) arrive by cp.async in a two-stage
+//     ring, the next tile's copies in flight while the CTA works on this
+//     one; every thread issues its share of a tile's copies (they take no
+//     registers past their addresses), so there is no producer warp.
+//   * S = Q.K^T per 8-lane k-step: the warp's Q A fragment is split once
+//     and used on the tile's four 8-column blocks; K's B fragments are its
+//     rows (both operands K-major). The small terms go to accumulators of
+//     their own (tf32x3.cuh::mma3_apart), so the 4 blocks' sums are 8
+//     dependency chains of at most 2 D / 8 products, not 4 of 3 D / 8.
+//   * The masked log2-space scores, online softmax and dropout run on the C
+//     fragments, as the bf16 kernel runs them on its wgmma accumulator
+//     (the same layout).
+//   * O += P.V: P's C fragments are the A operand in tf32x3.cuh's permuted
+//     k order; V's B fragments are read down its columns.
+// Why mma.sync and not wgmma: wgmma takes tf32 operands K-major only, and
+// P.V's V is MN-major, so V would need a transposed copy, and every
+// operand a split copy (hi and lo) in shared memory: 4 x the tiles' bytes.
+// mma.sync reads both kinds of fragment from one padded row-major copy,
+// and the split is done in registers on each fragment as it is loaded.
+// Shared rows are padded by 4 floats (D + 4 = 4 mod 32): the Q and K reads
+// (rows g, columns t) and V's column reads (rows 2 t, columns g) of a warp
+// fall in 32 distinct banks. Bound: 3xTF32 runs three tensor-core products
+// for each of the function's, so at 8 x 128, B=16, T=1024 the 68.7 GFLOP
+// of #1 take at least 0.42 ms at 495 TFLOP/s TF32 (1.03 ms at the FP32
+// FFMA rate).
 // ---------------------------------------------------------------------------
-constexpr int kF32Tile = 32;
+template <int D>
+struct F32Fwd {
+  static constexpr int BQ = 64, BKV = 32, THREADS = 128, LD = D + 4;
+  // floats: Q, then K and V (two stages each); then the kv tiles' ids
+  static constexpr size_t FLOATS = (size_t)(BQ + 4 * BKV) * LD;
+  static constexpr size_t SMEM = FLOATS * 4 + 2 * BKV * 4;
+};
 
 template <int D, bool DROP>
 __global__ void __launch_bounds__(128) mh_fwd_f32(
@@ -728,101 +764,194 @@ __global__ void __launch_bounds__(128) mh_fwd_f32(
     const int* __restrict__ kv_lo, const int* __restrict__ kv_hi,
     int* __restrict__ tile_count, float* __restrict__ o,
     float* __restrict__ lse, int T, int H, float scale_log2, DropParams dp) {
-  constexpr int BQ = kF32Tile, BKV = f32_kv_tile<D>(), HALF = D / 2, PER = D / 4;
-  __shared__ __align__(16) float ks[BKV * D];
-  __shared__ __align__(16) float vs[BKV * D];
-  __shared__ int kseg[BKV];
+  using G = F32Fwd<D>;
+  constexpr int BQ = G::BQ, BKV = G::BKV, LD = G::LD;
+  constexpr int NS = BKV / 8, NN = D / 8;
+  extern __shared__ __align__(16) float f32_smem[];
+  float* qs = f32_smem;
+  float* ks = qs + BQ * LD;
+  float* vs = ks + 2 * BKV * LD;
+  int* ksegs = reinterpret_cast<int*>(f32_smem + G::FLOATS);
 
   const int b = blockIdx.z, h = blockIdx.y, tid = threadIdx.x;
-  const int sub = tid & 3, row = blockIdx.x * BQ + (tid >> 2);
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int q0 = blockIdx.x * BQ;
   const size_t rs = (size_t)H * D;
   const size_t base = (size_t)b * T * rs + (size_t)h * D;
-
-  float qr[PER];
-  {
-    const float* qrow = q + base + (size_t)row * rs;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int d = sub + 4 * i;
-      float x = qrow[d];
-      if (cos_t != nullptr) {
-        const bool lo = d < HALF;
-        const int td = lo ? d : d - HALF;
-        const float y = qrow[lo ? d + HALF : td];
-        const float c = cos_t[(size_t)row * HALF + td], s = sin_t[(size_t)row * HALF + td];
-        x = lo ? rope_lo(x, y, c, s) : rope_hi(y, x, c, s);
-      }
-      qr[i] = x;
-    }
-  }
-  const int qs = q_seg ? q_seg[(size_t)b * T + row] : 0;
-
-  float m = -INFINITY, l = 0.f, acc[PER];
-#pragma unroll
-  for (int i = 0; i < PER; ++i) acc[i] = 0.f;
+  const bool seg = kv_seg != nullptr;
 
   int jt0 = 0, jt1 = T / BKV - 1;
   if (kv_lo != nullptr) {
     jt0 = kv_lo[b * (T / BQ) + blockIdx.x];
     jt1 = kv_hi[b * (T / BQ) + blockIdx.x];
   }
-  if (tile_count != nullptr && tid == 0) atomicAdd(tile_count, jt1 - jt0 + 1);
-  for (int j0 = jt0 * BKV; j0 <= jt1 * BKV; j0 += BKV) {
-    __syncthreads();
-    for (int it = tid; it < BKV * (D / 4); it += 128) {
-      const int r = it / (D / 4), c4 = (it % (D / 4)) * 4;
-      const size_t off = base + (size_t)(j0 + r) * rs + c4;
-      *reinterpret_cast<float4*>(ks + r * D + c4) = *reinterpret_cast<const float4*>(k + off);
-      *reinterpret_cast<float4*>(vs + r * D + c4) = *reinterpret_cast<const float4*>(v + off);
-    }
-    if (tid < BKV) kseg[tid] = kv_seg ? kv_seg[(size_t)b * T + j0 + tid] : 0;
-    __syncthreads();
+  const int n_tiles = jt1 - jt0 + 1;
+  if (tile_count != nullptr && tid == 0) atomicAdd(tile_count, n_tiles);
 
-    float s[BKV];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < BKV; ++j) {
-      float part = 0.f;
-#pragma unroll
-      for (int i = 0; i < PER; ++i) part = fmaf(qr[i], ks[j * D + sub + 4 * i], part);
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
-      s[j] = score(part, scale_log2, qs, kseg[j]);
-      mx = fmaxf(mx, s[j]);
+  // K and V rows of kv tile jt (and its kv ids) into ring stage `stage`
+  auto load_kv = [&](int stage, int jt) {
+    const int j0 = jt * BKV;
+    float* kd = ks + stage * BKV * LD;
+    float* vd = vs + stage * BKV * LD;
+    for (int it = tid; it < BKV * (D / 4); it += G::THREADS) {
+      const int r = it / (D / 4), c = (it % (D / 4)) * 4;
+      const size_t off = base + (size_t)(j0 + r) * rs + c;
+      cp_async16(kd + r * LD + c, k + off);
+      cp_async16(vd + r * LD + c, v + off);
     }
-    const float mn = fmaxf(m, mx), alpha = exp2f(m - mn);
-    m = mn;
-    float rsum = 0.f;
+    if (seg && tid < BKV / 4)
+      cp_async16(ksegs + stage * BKV + 4 * tid, kv_seg + (size_t)b * T + j0 + 4 * tid);
+  };
+  load_kv(0, jt0);
+  cp_async_commit();
+  rows_rotated_f32<D>(qs, LD, q + base + (size_t)q0 * rs, rs, BQ, cos_t, sin_t, q0, tid,
+                      G::THREADS);
+
+  const int r0 = warp * 16 + g;  // this thread's q rows r0 and r0 + 8 of the tile
+  const int qs0 = q_seg ? q_seg[(size_t)b * T + q0 + r0] : 0;
+  const int qs1 = q_seg ? q_seg[(size_t)b * T + q0 + r0 + 8] : 0;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  float acc[NN][4];
 #pragma unroll
-    for (int j = 0; j < BKV; ++j) {
-      s[j] = exp2f(s[j] - mn);
-      rsum += s[j];
-    }
-    l = alpha * l + rsum;
-    if constexpr (DROP) {
-      const int bh = b * H + h;
-      const bool odd = row & 1;
+  for (int n = 0; n < NN; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  const float* qa = qs + r0 * LD + t4;  // the A fragments' first element
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it & 1, jt = jt0 + it;
+    if (it + 1 < n_tiles) load_kv(st ^ 1, jt + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // tile it (and, the first time, Q) is in for every thread
+    const float* kt = ks + st * BKV * LD;
+    const float* vt = vs + st * BKV * LD;
+
+    // S = Q.K^T: element e of block n is (q row r0 + 8 (e >> 1), kv column
+    // 8 n + 2 t4 + (e & 1))
+    // (the small terms in sm, added once the k-steps are done)
+    float s[NS][4], sm[NS][4];
 #pragma unroll
-      for (int j = 0; j < BKV; j += 2) {
-        const Philox4 u = dropout_bits(dp.seed, bh, row, j0 + j);
-        s[j] = (odd ? u.w[2] : u.w[0]) >= dp.thresh ? s[j] * dp.keep_scale : 0.f;
-        s[j + 1] = (odd ? u.w[3] : u.w[1]) >= dp.thresh ? s[j + 1] * dp.keep_scale : 0.f;
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = sm[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NN; ++kk) {
+      const float* a = qa + kk * 8;
+      const x3::AFrag af = x3::split_a(a[0], a[8 * LD], a[4], a[8 * LD + 4]);
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        const float* bp = kt + (n * 8 + g) * LD + kk * 8 + t4;
+        x3::mma3_apart(s[n], sm[n], af, bp[0], bp[4]);
       }
     }
 #pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      float a = acc[i] * alpha;
+    for (int n = 0; n < NS; ++n)
 #pragma unroll
-      for (int j = 0; j < BKV; ++j) a = fmaf(s[j], vs[j * D + sub + 4 * i], a);
-      acc[i] = a;
+      for (int e = 0; e < 4; ++e) s[n][e] += sm[n][e];
+
+    // the masked log2-space scores, online softmax, dropout, acc rescaled
+    const int* sg = ksegs + st * BKV;
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      const int ks0 = seg ? sg[n * 8 + 2 * t4] : 0;
+      const int ks1 = seg ? sg[n * 8 + 2 * t4 + 1] : 0;
+      s[n][0] = score(s[n][0], scale_log2, qs0, ks0);
+      s[n][1] = score(s[n][1], scale_log2, qs0, ks1);
+      s[n][2] = score(s[n][2], scale_log2, qs1, ks0);
+      s[n][3] = score(s[n][3], scale_log2, qs1, ks1);
+      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
     }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float alpha0 = exp2f(m0 - mn0), alpha1 = exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      s[n][0] = exp2f(s[n][0] - mn0);
+      s[n][1] = exp2f(s[n][1] - mn0);
+      s[n][2] = exp2f(s[n][2] - mn1);
+      s[n][3] = exp2f(s[n][3] - mn1);
+      rs0 += s[n][0] + s[n][1];
+      rs1 += s[n][2] + s[n][3];
+    }
+    l0 = alpha0 * l0 + rs0;  // per-thread partial sums, reduced at the end
+    l1 = alpha1 * l1 + rs1;
+    if constexpr (DROP) {
+      // One Philox call covers rows 2i, 2i + 1 of a column pair: the even
+      // lane of g, g ^ 1 draws the pair block of its rows r0, r0 + 1, the
+      // odd lane that of r0 + 7, r0 + 8, and each hands the partner the
+      // words of the partner's row (as the bf16 kernel draws them).
+      const int bh = b * H + h;
+      const bool odd = g & 1;
+      const int row = q0 + (odd ? r0 + 8 : r0);
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        const Philox4 u = dropout_bits(dp.seed, bh, row, jt * BKV + n * 8 + 2 * t4);
+        const uint32_t y0 = __shfl_xor_sync(0xffffffffu, odd ? u.w[0] : u.w[2], 4);
+        const uint32_t y1 = __shfl_xor_sync(0xffffffffu, odd ? u.w[1] : u.w[3], 4);
+        const uint32_t w4[4] = {odd ? y0 : u.w[0], odd ? y1 : u.w[1],   // row r0
+                                odd ? u.w[2] : y0, odd ? u.w[3] : y1};  // row r0 + 8
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = w4[e] >= dp.thresh ? s[n][e] * dp.keep_scale : 0.f;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NN; ++n) {
+      acc[n][0] *= alpha0;
+      acc[n][1] *= alpha0;
+      acc[n][2] *= alpha1;
+      acc[n][3] *= alpha1;
+    }
+
+    // O += P.V: k-step kk is score block kk, its kv rows in the permuted
+    // order (A fragment c0, c2, c1, c3; B rows 2 t4 and 2 t4 + 1)
+#pragma unroll
+    for (int kk = 0; kk < NS; ++kk) {
+      const x3::AFrag pf = x3::split_a(s[kk][0], s[kk][2], s[kk][1], s[kk][3]);
+      const float* bp = vt + (kk * 8 + 2 * t4) * LD + g;
+#pragma unroll
+      for (int n = 0; n < NN; ++n) x3::mma3(acc[n], pf, bp[n * 8], bp[LD + n * 8]);
+    }
+    __syncthreads();  // every read of this stage is done before it is refilled
   }
 
-  const float inv = 1.0f / l;
-  float* orow = o + base + (size_t)row * rs;
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
+  if (t4 == 0) {
+    lse[((size_t)b * T + q0 + r0) * H + h] = m0 + log2f(l0);
+    lse[((size_t)b * T + q0 + r0 + 8) * H + h] = m1 + log2f(l1);
+  }
+  float* o0 = o + base + (size_t)(q0 + r0) * rs + 2 * t4;
+  float* o1 = o0 + 8 * rs;
 #pragma unroll
-  for (int i = 0; i < PER; ++i) orow[sub + 4 * i] = acc[i] * inv;
-  if (sub == 0) lse[((size_t)b * T + row) * H + h] = m + log2f(l);
+  for (int n = 0; n < NN; ++n) {
+    *reinterpret_cast<float2*>(o0 + n * 8) = make_float2(acc[n][0] * inv0, acc[n][1] * inv0);
+    *reinterpret_cast<float2*>(o1 + n * 8) = make_float2(acc[n][2] * inv1, acc[n][3] * inv1);
+  }
+}
+
+template <int D, bool DROP>
+cudaError_t launch_f32(const float* q, const float* k, const float* v, const int* q_seg,
+                       const int* kv_seg, const float* cos_t, const float* sin_t,
+                       const int* kv_lo, const int* kv_hi, int* tile_count, float* o, float* lse,
+                       int B, int T, int H, float scale_log2, DropParams dp, cudaStream_t st) {
+  static std::atomic<uint64_t> smem_set{0};
+  constexpr size_t smem = F32Fwd<D>::SMEM;
+  cudaError_t e = obt::wide::allow_smem(mh_fwd_f32<D, DROP>, smem, smem_set);
+  if (e != cudaSuccess) return e;
+  mh_fwd_f32<D, DROP><<<dim3(T / F32Fwd<D>::BQ, H, B), F32Fwd<D>::THREADS, smem, st>>>(
+      q, k, v, q_seg, kv_seg, cos_t, sin_t, kv_lo, kv_hi, tile_count, o, lse, T, H, scale_log2,
+      dp);
+  return cudaGetLastError();
 }
 
 template <int D, bool DROP, bool BOUNDS, bool DOTS>
@@ -948,11 +1077,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* q_seg
                                                     kv_hi, tile_count, ob, lse, B, T, H,
                                                     scale_log2, dp, st);
   }
-  mh_fwd_f32<D, DROP><<<dim3(T / kF32Tile, H, B), 128, 0, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), q_seg, kv_seg, cos_t, sin_t, kv_lo, kv_hi,
-      tile_count, static_cast<float*>(o), lse, T, H, scale_log2, dp);
-  return cudaGetLastError();
+  return launch_f32<D, DROP>(static_cast<const float*>(q), static_cast<const float*>(k),
+                             static_cast<const float*>(v), q_seg, kv_seg, cos_t, sin_t, kv_lo,
+                             kv_hi, tile_count, static_cast<float*>(o), lse, B, T, H,
+                             scale_log2, dp, st);
 }
 
 template <int D>
@@ -968,7 +1096,7 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, const int* q_s
 }
 
 // T multiple of each dtype's kernel: the bf16 CTA's 128 rows; the fp32
-// kernel's 32-row tile, held to the backward kernels' 64
+// kernel's 64-row q tile
 constexpr int kBf16TMultiple = kBq, kF32TMultiple = 64;
 
 bool shape_ok(int B, int T, int H) {
@@ -984,7 +1112,7 @@ bool shape_ok(int B, int T, int H) {
 // kernel up to 512 (else it may be null).
 // kv_lo and kv_hi, both null or both int32 (B, T / q tile) with the q and
 // kv tiles of the dtype's kernel (bf16: q tile 128 and kv tile 128, 64 at
-// D = 256, 64 and 32 past 256 up to 512; fp32: 32 and 32, 16 at D = 256;
+// D = 256, 64 and 32 past 256 up to 512; fp32: 64 and 32;
 // both 64 and 64 past 256, and bf16 past 512), bound the kv tiles each q
 // tile walks;
 // tile_count is null or one int32 that the walked tiles are added to. drop

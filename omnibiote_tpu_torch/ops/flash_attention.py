@@ -111,13 +111,16 @@ KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 KERNEL_KV_TILE = {torch.bfloat16: 128, torch.float32: 32}
 # (q tile, kv tile) of each kernel per dtype at head dims 64 and 128: the
 # forward and the dq kernel own a q tile and walk kv tiles; the fused
-# backward and the dkv kernel own a kv tile and walk q tiles. The bf16 dkv
-# kernel is the fused kernel without its dq, on the same tiles; the fp32 dq
-# kernel keeps a 64-row q tile's Q and dO in shared memory.
+# backward and the dkv kernel own a kv tile and walk q tiles. The dkv
+# kernel is the fused kernel without its dq, on the same tiles, in both
+# dtypes; the fp32 dq kernel keeps a 64-row q tile's Q and dO in shared
+# memory, the fp32 forward its 64-row Q, the fp32 fused kernel its 64 kv
+# rows' K and V (3xTF32 on the tensor cores, mma.sync's 16-row fragments
+# a warp).
 KERNEL_TILES = {
-    "fwd": {torch.bfloat16: (128, 128), torch.float32: (32, 32)},
-    "fused": {torch.bfloat16: (64, 128), torch.float32: (16, 32)},
-    "dkv": {torch.bfloat16: (64, 128), torch.float32: (16, 32)},
+    "fwd": {torch.bfloat16: (128, 128), torch.float32: (64, 32)},
+    "fused": {torch.bfloat16: (64, 128), torch.float32: (32, 64)},
+    "dkv": {torch.bfloat16: (64, 128), torch.float32: (32, 64)},
     "dq": {torch.bfloat16: (128, 64), torch.float32: (64, 64)},
 }
 # The tiles at the head dims where they differ (every reader goes through
@@ -125,14 +128,15 @@ KERNEL_TILES = {
 # rows in one warpgroup, pass the H100's shared memory or registers: the
 # bf16 forward walks 64-row kv tiles, the fused and dkv kernels own 64 kv
 # rows (one consumer forms dV, the other dK), the dq kernel walks 32-row kv
-# tiles; the fp32 forward kernel walks 16-row kv tiles (48 KB of static
-# shared memory), the fp32 dq kernel too (a two-stage K and V ring beside
-# the 128 KB of its q tile's Q and dO).
+# tiles; the fp32 fused and dkv kernels walk 16-row q tiles (eight warps,
+# two head-dim parts; K and V of 64 kv rows are 130 KB), the fp32 dq kernel
+# 16-row kv tiles (a two-stage K and V ring beside the 128 KB of its q
+# tile's Q and dO).
 KERNEL_TILES_BY_HEAD_DIM = {
     256: {
-        "fwd": {torch.bfloat16: (128, 64), torch.float32: (32, 16)},
-        "fused": {torch.bfloat16: (64, 64), torch.float32: (16, 32)},
-        "dkv": {torch.bfloat16: (64, 64), torch.float32: (16, 32)},
+        "fwd": {torch.bfloat16: (128, 64), torch.float32: (64, 32)},
+        "fused": {torch.bfloat16: (64, 64), torch.float32: (16, 64)},
+        "dkv": {torch.bfloat16: (64, 64), torch.float32: (16, 64)},
         "dq": {torch.bfloat16: (128, 32), torch.float32: (64, 16)},
     },
 }

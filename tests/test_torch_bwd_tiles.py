@@ -63,15 +63,17 @@ SKIP_CASES = [pytest.param(rate, layout, head_dim,
 
 def test_kernel_tiles_and_t_multiples():
     """(q tile, kv tile) of every kernel kind and the T multiple per dtype:
-    the bf16 dkv kernel is the fused kernel without dq, on its tiles; the
-    bf16 dq kernel owns 128 q rows and walks 64-row kv tiles, the fp32 one
-    64 q rows and 64-row kv tiles; each T
+    the dkv kernel is the fused kernel without dq, on its tiles; the bf16
+    dq kernel owns 128 q rows and walks 64-row kv tiles, the fp32 one 64 q
+    rows and 64-row kv tiles; the fp32 forward owns 64 q rows and walks
+    32-row kv tiles, the fp32 fused kernel 64 kv rows and 32-row q tiles
+    (3xTF32 on the tensor cores); each T
     multiple is a multiple of the kind's tiles, and each divides 128, the
     multiple every T the dispatch sends to flash has."""
     assert KERNEL_TILES == {
-        "fwd": {BF16: (128, 128), F32: (32, 32)},
-        "fused": {BF16: (64, 128), F32: (16, 32)},
-        "dkv": {BF16: (64, 128), F32: (16, 32)},
+        "fwd": {BF16: (128, 128), F32: (64, 32)},
+        "fused": {BF16: (64, 128), F32: (32, 64)},
+        "dkv": {BF16: (64, 128), F32: (32, 64)},
         "dq": {BF16: (128, 64), F32: (64, 64)},
     }
     assert KERNEL_T_MULTIPLE == {BF16: 128, F32: 64}

@@ -54,9 +54,9 @@ def test_tiles_and_routes_at_head_dim_256():
     assert 256 in fa.KERNEL_HEAD_DIMS and port_int8.KERNEL_HEAD_DIMS == (128, 256)
     bf16, f32 = torch.bfloat16, torch.float32
     assert fa.KERNEL_TILES_BY_HEAD_DIM[256] == {
-        "fwd": {bf16: (128, 64), f32: (32, 16)},
-        "fused": {bf16: (64, 64), f32: (16, 32)},
-        "dkv": {bf16: (64, 64), f32: (16, 32)},
+        "fwd": {bf16: (128, 64), f32: (64, 32)},
+        "fused": {bf16: (64, 64), f32: (16, 64)},
+        "dkv": {bf16: (64, 64), f32: (16, 64)},
         "dq": {bf16: (128, 32), f32: (64, 16)},
     }
     for kind in ("fwd", "fused", "dkv", "dq"):

@@ -35,11 +35,15 @@ heads of 128 (6 steps each), and at ctx 2048 (B=16, mini 8, 5 EOS a row)
 with 2 heads of 512 on the fused backward and on the split pair and with 8
 heads of 128 (6 steps each).
 
-With --fp32 a process times only the fp32 dq kernel (#5 and #8's fp32
-instance, `mh_bwd_dq_f32`) at omnibiote-small's width in heads of 64, 128
-and 256 (16, 8 and 4 heads): #5 at bench_longctx.py's B=8 T=2048 (five EOS
-a row, RoPE, dropout 0.1), with segment skipping and without, and #8 at
-B=16 T=1024 (bench.py's rows, no RoPE), CUDA events over 10 launches.
+With --fp32 a process times only the fp32 instances of the attention
+kernels at omnibiote-small's width in heads of 64, 128 and 256 (16, 8 and
+4 heads), CUDA events over 10 launches, with segment skipping and without:
+#1 (`mh_flash_fwd`) and #2 (`mh_flash_bwd`) at bench.py's B=16 T=1024
+(three EOS a row), #3 (`mh_flash_bwd_mk`), #4 (`mh_flash_bwd_dkv`) and #5
+(`mh_flash_bwd_dq`) at bench_longctx.py's B=8 T=2048 (five EOS a row), all
+with RoPE and dropout 0.1, beside SDPA's forward and backward on the same
+inputs (the efficient backend, the only one that takes fp32); and the
+per-head entry's #6, #7 and #8 at B=16 T=1024 (no RoPE, every tile).
 
 With --probes a process times only the dkv product-mix probe #11
 (`probes.roofline.dots_n`, 3 and 4 products, 64- and 128-row CTAs) and #4's
@@ -85,38 +89,74 @@ def measure_probes(c):
 
 
 def measure_fp32(c):
-    """The fp32 dq kernel at head dims 64, 128 and 256 (see --fp32):
-    {name: ms}."""
+    """The fp32 attention kernels at head dims 64, 128 and 256 (see
+    --fp32): {name: ms}."""
     import torch
+    import torch.nn.functional as F
+    from omnibiote_tpu_torch.models.rope import apply_rope_half
     from omnibiote_tpu_torch.ops import _kernels
     from omnibiote_tpu_torch.ops import flash_attention as fa
 
-    _kernels.build_all(["mh_flash_bwd_dq"])
+    _kernels.build_all(["mh_flash_fwd", "mh_flash_bwd", "mh_flash_bwd_dkv", "mh_flash_bwd_dq"])
     out = {}
     for D in (64, 128, 256):
         H, scale = 1024 // D, 1.0 / math.sqrt(D)
-        for B, T, n_eos, rope_on in ((c.LONG_SHAPES[0][0], 2048, c.LONG_EOS, True),
-                                     (c.TRAIN_SHAPE["B"], 1024, 3, False)):
+        for B, T, n_eos in ((c.TRAIN_SHAPE["B"], 1024, 3), (c.LONG_SHAPES[0][0], 2048, c.LONG_EOS)):
             q, k, v, _, rope = c._attn_inputs(B, T, H, D, torch.float32, "dense", 2400 + T)
-            rope = rope if rope_on else None
             seg = c._wide_ids("packed", B, T, n_eos, 2400 + T)
             gen = torch.Generator(device="cuda").manual_seed(2500 + T)
             do = torch.randn(B, T, H, D, generator=gen, device="cuda")
             kw = dict(scale=scale, dropout_rate=c.TRAIN_DROPOUT, seed=2563)
+            sb = fa.SegmentBounds(seg)
+            skip = dict(segment_skip=True, bounds=sb)
+            tag = f"fp32 D={D} B={B} T={T}"
+
+            def both(name, fn, n=10):
+                out[f"{name} {tag} skip ms"] = c.cuda_ms(lambda: fn(**skip), n)
+                out[f"{name} {tag} all tiles ms"] = c.cuda_ms(lambda: fn(), n)
+
             o, lse = fa.mh_flash_forward_plain(q, k, v, seg, rope, **kw)
             args = (q, k, v, do, lse, (o * do).sum(-1), seg, rope)
             del o
-            if rope_on:
-                sb = fa.SegmentBounds(seg)
-                out[f"mh_flash_bwd_dq fp32 D={D} B={B} T={T} skip ms"] = c.cuda_ms(
-                    lambda: fa.mh_flash_bwd_dq(*args, **kw, segment_skip=True, bounds=sb), 10)
-                out[f"mh_flash_bwd_dq fp32 D={D} B={B} T={T} all tiles ms"] = c.cuda_ms(
-                    lambda: fa.mh_flash_bwd_dq(*args, **kw), 10)
+            if T == 1024:
+                both("mh_flash_fwd", lambda **s: fa.mh_flash_forward(q, k, v, seg, rope, **kw, **s))
+                both("mh_flash_bwd", lambda **s: fa.mh_flash_backward(*args, **kw, **s))
             else:
-                out[f"flash_bwd_dq fp32 D={D} B={B} T={T} per-head ms"] = c.cuda_ms(
-                    lambda: fa.mh_flash_bwd_dq(*args, **kw), 10)
-            del q, k, v, do, lse, args
+                both("mh_flash_bwd_mk", lambda **s: fa.mh_flash_backward(*args, **kw, **s))
+                both("mh_flash_bwd_dkv", lambda **s: fa.mh_flash_bwd_dkv(*args, **kw, **s))
+                both("mh_flash_bwd_dq", lambda **s: fa.mh_flash_bwd_dq(*args, **kw, **s))
+            # one PyTorch call of the same function on the same inputs
+            qr, kr = apply_rope_half(q, k, *rope)
+            qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_() for x in (qr, kr, v))
+            doh = do.transpose(1, 2).contiguous()
+            sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, dropout_p=c.TRAIN_DROPOUT,
+                                                          scale=scale)
+            try:
+                with torch.no_grad():
+                    fwd = c.cuda_ms(sdpa, 10)
+                out[f"SDPA forward {tag} ms"] = fwd
+                out[f"SDPA backward {tag} ms"] = c.cuda_ms(
+                    lambda: torch.autograd.grad(sdpa(), (qh, kh, vh), doh), 5) - fwd
+            except RuntimeError as err:
+                print(f"SDPA at {tag}: {err}", file=sys.stderr)
+            del q, k, v, do, lse, args, qr, kr, qh, kh, vh, doh
             torch.cuda.empty_cache()
+        # the per-head entry (#6-#8): no RoPE, no bounds
+        B, T = c.TRAIN_SHAPE["B"], 1024
+        q, k, v, _, _ = c._attn_inputs(B, T, H, D, torch.float32, "dense", 2410)
+        seg = c._wide_ids("packed", B, T, 3, 2410)
+        do = torch.randn(B, T, H, D, generator=torch.Generator(device="cuda").manual_seed(2510),
+                         device="cuda")
+        kw = dict(scale=scale, dropout_rate=c.TRAIN_DROPOUT, seed=2564)
+        o, lse = fa.mh_flash_forward_plain(q, k, v, seg, None, **kw)
+        args = (q, k, v, do, lse, (o * do).sum(-1), seg, None)
+        tag = f"fp32 D={D} B={B} T={T} per-head ms"
+        out[f"flash_fwd {tag}"] = c.cuda_ms(lambda: fa.mh_flash_forward(q, k, v, seg, None, **kw),
+                                            10)
+        out[f"flash_bwd_dkv {tag}"] = c.cuda_ms(lambda: fa.mh_flash_bwd_dkv(*args, **kw), 10)
+        out[f"flash_bwd_dq {tag}"] = c.cuda_ms(lambda: fa.mh_flash_bwd_dq(*args, **kw), 10)
+        del q, k, v, do, o, lse, args
+        torch.cuda.empty_cache()
     return out
 
 
@@ -289,7 +329,7 @@ def main(argv=None):
     ap.add_argument("--wide", action="store_true",
                     help="time only the backward kernels and the train rate past head dim 256")
     ap.add_argument("--fp32", action="store_true",
-                    help="time only the fp32 dq kernel at head dims 64, 128 and 256")
+                    help="time only the fp32 attention kernels at head dims 64, 128 and 256")
     ap.add_argument("--json", help="write both sides' runs here")
     a = ap.parse_args(argv)
     if a.measure:

@@ -2,7 +2,7 @@
 """Where the time of an omnibiote-small encode batch goes on the GPU.
 
     python3 tools/gpu_profile_encode.py [--batch 32] [--ctx 1024] [--steps 4]
-                                        [--quantize [--quantize_attention]]
+                                        [--quantize [--quantize_attention]] [--fp32]
 
 Builds the PyTorch port's kernels, makes omnibiote-small at full width (8
 layers, d 1024, 8 heads of 128, vocab 65536, bf16 compute) with random
@@ -11,7 +11,9 @@ tokens: the batch time by CUDA events, then a torch.profiler window over
 `--steps` batches with the device time of every kernel, grouped as the
 attention kernels (bf16 and int8 apart), matrix products, elementwise and
 reductions, and the rest, each attention kernel's own time, and the
-device's idle share of the window.
+device's idle share of the window. `--fp32` computes in fp32 (a checkpoint
+whose `compute_dtype` is float32), so that the fp32 instance of the
+attention kernel runs.
 
 With --quantize the same is done once more on the model quantized for int8
 serving (`quantize_for_inference`; --quantize_attention also turns the int8
@@ -148,6 +150,7 @@ def main(argv=None):
                     help="also profile the model quantized for int8 serving")
     ap.add_argument("--quantize_attention", action="store_true",
                     help="with --quantize: int8 attention too")
+    ap.add_argument("--fp32", action="store_true", help="fp32 compute (the parity type)")
     args = ap.parse_args(argv)
     if args.quantize_attention and not args.quantize:
         ap.error("--quantize_attention needs --quantize")
@@ -166,12 +169,14 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     _kernels.build_all()
-    cfg = preset("omnibiote-small", vocab_size=65536, dropout=0.0)
+    cfg = preset("omnibiote-small", vocab_size=65536, dropout=0.0,
+                 compute_dtype="float32" if args.fp32 else "bfloat16")
     gen = torch.Generator(device="cuda").manual_seed(0)
     model = init_params(gen, cfg, device="cuda").eval()
     x = torch.randint(20, 65000, (args.batch, args.ctx), generator=gen,
                       device="cuda")
-    groups, batch_ms = profile_window(model, x, args.steps, args.top, "bf16")
+    base = "fp32" if args.fp32 else "bf16"
+    groups, batch_ms = profile_window(model, x, args.steps, args.top, base)
     if args.quantize:
         qmodel = quantize_for_inference(model)
         qmodel.cfg = qmodel.cfg.replace(attn_int8=args.quantize_attention)
@@ -179,7 +184,7 @@ def main(argv=None):
         qgroups, _ = profile_window(qmodel, x, args.steps, args.top, label)
         if groups and qgroups:
             print(f"[{label}] quantise and rescale passes of quant_linear (this run's "
-                  f"elementwise group less the bf16 run's): "
+                  f"elementwise group less the {base} run's): "
                   f"{qgroups.get(ELEMENTWISE, 0.0) - groups.get(ELEMENTWISE, 0.0):.3f} ms per batch")
         qu, pr, re_ = quant_passes_ms(args.batch * args.ctx, cfg)
         print(f"[{label}] quant_linear's passes alone (CUDA events, the four shapes of a "
@@ -190,8 +195,7 @@ def main(argv=None):
 
     print("the profiler recorded no device time; CUDA events instead:")
     H, D = cfg.n_head, cfg.head_dim
-    q = torch.randn(args.batch, args.ctx, H, D, generator=gen, device="cuda",
-                    dtype=torch.bfloat16)
+    q = torch.randn(args.batch, args.ctx, H, D, generator=gen, device="cuda").to(cfg.cdtype())
     rope = rope_tables(D, args.ctx, device="cuda")
     attn_ms = cuda_ms(lambda: mh_flash_forward(q, q, q, None, rope,
                                                scale=cfg.attn_scale), 8)

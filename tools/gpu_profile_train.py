@@ -2,7 +2,7 @@
 """Where the time of an omnibiote-small MLM train step goes on the GPU.
 
     python3 tools/gpu_profile_train.py [--mini 16] [--accum 2] [--ctx 1024] [--eos 3]
-                                       [--split] [--no_skip] [--steps 3]
+                                       [--split] [--no_skip] [--fp32] [--steps 3]
 
 Builds the PyTorch port's kernels, makes the port's `Trainer` for
 omnibiote-small at full width (8 layers, d 1024, 8 heads of 128, vocab
@@ -12,7 +12,9 @@ weights from a seed, and feeds it `bench.py`'s batches (random tokens with
 (`--mini 8 --ctx 2048 --eos 5` and `--mini 4 --ctx 4096 --eos 5` are
 `bench_longctx.py`'s shapes; `--split` takes the split dkv / dq backward
 pair instead of the fused kernel; `--no_skip` makes every attention call
-walk every tile, masked ones included). After
+walk every tile, masked ones included; `--fp32` computes in fp32, as a
+checkpoint whose `compute_dtype` is float32 does, so that the fp32
+instances of the attention kernels run). After
 three warm-up steps it times steps on the host clock around a
 synchronised window, then records a torch.profiler window over `--steps`
 steps: the device time of every kernel, grouped as elementwise and
@@ -62,6 +64,7 @@ def main(argv=None):
                     help="the split dkv / dq backward instead of the fused one")
     ap.add_argument("--no_skip", action="store_true",
                     help="walk every attention tile (no segment skipping)")
+    ap.add_argument("--fp32", action="store_true", help="fp32 compute (the parity type)")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--top", type=int, default=15)
     args = ap.parse_args(argv)
@@ -87,7 +90,7 @@ def main(argv=None):
     if args.no_skip:
         port_flash._skip_and_bounds = lambda *a: (False, None)
     cfg = preset("omnibiote-small", vocab_size=65536, dropout=0.1,
-                 block_size=args.ctx)
+                 block_size=args.ctx, compute_dtype="float32" if args.fp32 else "bfloat16")
     batch = args.mini * args.accum
     tc = TrainConfig(batch_size=batch, mini_batch_size=args.mini,
                      ctx_len=args.ctx, token_budget=float(batch * args.ctx * 10000),
@@ -105,7 +108,8 @@ def main(argv=None):
         print(f"train step B={batch} (mini {args.mini} x accum {args.accum}) "
               f"T={args.ctx}, {args.eos} EOS a row, "
               f"{'split' if args.split else 'fused'} backward, "
-              f"{'every tile' if args.no_skip else 'skipping'}: {step_ms:.3f} ms, "
+              f"{'every tile' if args.no_skip else 'skipping'}, {cfg.compute_dtype}: "
+              f"{step_ms:.3f} ms, "
               f"{batch * args.ctx / step_ms * 1e3:.1f} "
               f"tokens/s (host clock, synchronised), loss {float(m['loss']):.4f}")
 
