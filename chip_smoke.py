@@ -320,8 +320,8 @@ from concurrent.futures import ThreadPoolExecutor
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet, dense, no sparsity): bf16 and int8
-# tensor cores, FP32 on the CUDA cores (FFMA; the fp32 kernels use no TF32),
-# HBM3 bandwidth.
+# tensor cores, FP32 on the CUDA cores (FFMA: the yardstick `bound_ffma_ms`
+# of the 3xTF32 kernels), HBM3 bandwidth.
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 # dense TF32 on the tensor cores; the fp32 attention kernels run three such
@@ -485,6 +485,21 @@ def build():
     check(not any(f32.values()), f"fp32 instances spill: {({k: v for k, v in f32.items() if v})}")
     print(f"  fp32 instances (mh_fwd_f32, mh_bwd_f32 with and without dq, mh_bwd_dq_f32; "
           f"D = 64, 128, 256, dropout 0 and 1): {len(f32)}, 0 bytes of spill stores")
+    # the fp32 dq kernel's products are tf32 mma.sync (HMMA ... TF32 in its
+    # SASS) and none is left on FFMA
+    sass = subprocess.run([os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump"), "-sass",
+                           _kernels._so_path("mh_flash_bwd_dq")], capture_output=True, text=True,
+                          check=True).stdout
+    dq_sass = {}
+    for part in sass.split("Function : ")[1:]:
+        fn = part.split(None, 1)[0]
+        if "mh_bwd_dq_f32" in fn:
+            dq_sass[fn] = (len(re.findall(r"HMMA\.[\w.]*TF32", part)),
+                           len(re.findall(r"\bFFMA\b", part)))
+    check(len(dq_sass) == 6 and all(h > 0 and f == 0 for h, f in dq_sass.values()),
+          f"the fp32 dq instances' SASS (tf32 HMMA, FFMA): {sorted(dq_sass.values())}")
+    print(f"  mh_bwd_dq_f32 SASS, 6 instances: tf32 HMMA "
+          f"{sorted(h for h, _ in dq_sass.values())}, FFMA 0")
     print(f"  instances with wgmma products serialised by ptxas (C7511): "
           f"{sorted(serialised) or 'none'}")
     check(not any(k.split(": ")[1].startswith(wgmma_kernels[3:]) for k in serialised),
@@ -6656,13 +6671,14 @@ def _wait_script(proc, name, timeout=600):
 
 def _f32_rebuilt_checks():
     """The 3xTF32 fp32 kernels (#1/#6 `mh_fwd_f32`; #2/#3 `mh_bwd_f32` and
-    #4/#7 its instance without dq) against their plain versions at TOL /
-    BWD_TOL, at D = 64, 128 and 256 (heads of D, B=2, T=256), dense, packed
-    and padded rows, dropout 0 and 0.1, RoPE or none: a second forward
-    launch the same bits, the forward and the dkv kernel with skipping the
-    same bits as over every tile, the fused kernel's dk and dv the dkv
-    kernel's bits and within its tolerance with skipping. Returns the worst
-    (max |do|, max |d| / max |g|)."""
+    #4/#7 its instance without dq; #5/#8 `mh_bwd_dq_f32`) against their
+    plain versions at TOL / BWD_TOL, at D = 64, 128 and 256 (heads of D,
+    B=2, T=256), dense, packed and padded rows, dropout 0 and 0.1, RoPE or
+    none: a second forward and dq launch the same bits, the forward, the
+    dkv and the dq kernel with skipping the same bits as over every tile,
+    the fused kernel's dk and dv the dkv kernel's bits and within its
+    tolerance with skipping. Returns the worst (max |do|, max |d| /
+    max |g|)."""
     import torch
     from omnibiote_tpu_torch.ops import flash_attention as fa
 
@@ -6695,6 +6711,11 @@ def _f32_rebuilt_checks():
                                   _hold_bwd(dkv, want[1:], "float32", what + " dkv")[0])
                     check(torch.equal(fused[1], dkv[0]) and torch.equal(fused[2], dkv[1]),
                           f"the fused kernel's dk, dv are not the dkv kernel's at {what}")
+                    dq = fa.mh_flash_bwd_dq(*args, **kw)
+                    worst_g = max(worst_g, _hold_bwd((dq,), (fa.mh_flash_bwd_dq_plain(
+                        *args, **kw),), "float32", what + " dq")[0])
+                    check(torch.equal(dq, fa.mh_flash_bwd_dq(*args, **kw)),
+                          f"a second dq launch gave other bits at {what}")
                     if seg is not None:
                         skip = dict(segment_skip=True, bounds=fa.SegmentBounds(seg))
                         on = fa.mh_flash_forward(q, k, v, seg, rope, **kw, **skip)
@@ -6703,10 +6724,12 @@ def _f32_rebuilt_checks():
                         on = fa.mh_flash_bwd_dkv(*args, **kw, **skip)
                         check(torch.equal(on[0], dkv[0]) and torch.equal(on[1], dkv[1]),
                               f"dkv skipping on != off at {what}")
+                        check(torch.equal(fa.mh_flash_bwd_dq(*args, **kw, **skip), dq),
+                              f"dq skipping on != off at {what}")
                         _hold_bwd(fa.mh_flash_backward(*args, **kw, **skip), want, "float32",
                                   what + " skipping")
                     n += 1
-    print(f"fp32 3xTF32 kernels (#1/#6, #2/#3, #4/#7) vs plain: {n} cases (D 64/128/256 x 3 "
+    print(f"fp32 3xTF32 kernels (#1/#6, #2/#3, #4/#7, #5/#8) vs plain: {n} cases (D 64/128/256 x 3 "
           f"layouts x dropout x RoPE), worst max|do| {worst_o:.3e}, worst max|d| / max|g| "
           f"{worst_g:.3e}; second launch and skipping on = off the same bits")
     _f32_nan_checks()
@@ -6729,8 +6752,9 @@ def _hold_nans(got, want, rtol, atol, what):
 def _f32_nan_checks():
     """The NaN that CUDA arithmetic makes (0x7fffffff) in one element of q
     and one of v (dense, dropout 0, D = 64, 128 and 256, RoPE or none): the
-    3xTF32 kernels' o, lse2, dq, dk and dv hold NaN exactly where the plain
-    versions do, and agree with them elsewhere at TOL / BWD_TOL."""
+    3xTF32 kernels' o, lse2, dq, dk and dv (the fused kernel's, the dkv
+    kernel's and the dq kernel's) hold NaN exactly where the plain versions
+    do, and agree with them elsewhere at TOL / BWD_TOL."""
     import torch
     from omnibiote_tpu_torch.ops import flash_attention as fa
 
@@ -6756,9 +6780,10 @@ def _f32_nan_checks():
             _hold_nans(lse, plse, rl, al, what + ": lse")
             args = (q, k, v, do, lse, (o * do).sum(-1), None, rope)
             want = fa.mh_flash_backward_plain(*args, **kw)
-            got = (*fa.mh_flash_backward(*args, **kw), *fa.mh_flash_bwd_dkv(*args, **kw))
-            for name, g, w in zip(("dq", "dk", "dv", "dkv's dk", "dkv's dv"), got,
-                                  (*want, *want[1:])):
+            got = (*fa.mh_flash_backward(*args, **kw), *fa.mh_flash_bwd_dkv(*args, **kw),
+                   fa.mh_flash_bwd_dq(*args, **kw))
+            for name, g, w in zip(("dq", "dk", "dv", "dkv's dk", "dkv's dv", "dq kernel's dq"),
+                                  got, (*want, *want[1:], fa.mh_flash_bwd_dq_plain(*args, **kw))):
                 finite = w[~torch.isnan(w)]  # empty where every gradient is a NaN
                 scale_g = finite.abs().max().item() if finite.numel() else 0.0
                 _hold_nans(g, w, 0.0, BWD_TOL["float32"] * scale_g, f"{what}: {name}")
@@ -6774,12 +6799,12 @@ def _f32_timings():
     over every tile; #6-#8, the per-head entry, at B=16, T=1024 (no RoPE;
     it walks every tile), after its own path's launches; #9 at B=32,
     T=1024, dense. Each beside its plain version, its bound and SDPA on the
-    same fp32 inputs. The bound of a kernel that runs 3xTF32 (#1-#4, #6,
-    #7) is three TF32 products for each of the function's (or its fp32
-    bytes), with the FFMA bound at the FP32 rate beside it
-    (`bound_ffma_ms`); that of #5, #8 (FFMA) and #9 is the FP32 one. Returns
-    (rows of the kernels line by kernel name, launches of the per-head
-    path)."""
+    same fp32 inputs. The bound of a kernel that runs 3xTF32 (#1-#8) is
+    three TF32 products for each of the function's (or its fp32 bytes),
+    with the FFMA bound at the FP32 rate beside it (`bound_ffma_ms`); that
+    of #9 (an fp32 quantising prologue, then s8 products) is the FP32 one.
+    Returns (rows of the kernels line by kernel name, launches of the
+    per-head path)."""
     import torch
     import torch.nn.functional as F
     from omnibiote_tpu_torch.models.rope import apply_rope_half
@@ -6879,11 +6904,9 @@ def _f32_timings():
                     _bwd_bound(B, T, H, D, None, kind, **bound_kw))
             tf32 = (_bwd_bound(B, T, H, D, pairs, kind, **tf32_kw),
                     _bwd_bound(B, T, H, D, None, kind, **tf32_kw))
-            # the dq kernel (#5) runs FFMA: its bound is the FFMA one
             row(name, source, f"omnibiote_tpu/ops/flash_attention.py:{line}",
                 cuda_ms(lambda: fn(*args, **kw, **skip), 10), cuda_ms(lambda: fn(*args, **kw), 10),
-                cuda_ms(lambda: pfn(*args, **kw), 2, warmup=1),
-                *(ffma if kind == "dq" else tf32), lib, err, None if kind == "dq" else ffma)
+                cuda_ms(lambda: pfn(*args, **kw), 2, warmup=1), *tf32, lib, err, ffma)
             del got
         if T == 1024:
             # the per-head entry (#6-#8): its path's launches, then each kernel
@@ -6936,9 +6959,11 @@ def _f32_timings():
                                                              **bound_kw))),
                     ("flash_bwd_dq", lambda: fa.mh_flash_bwd_dq(*argsh, **kwh),
                      lambda: fa.mh_flash_bwd_dq_plain(*argsh, **kwh),
-                     _bwd_bound(B, T, H, D, pairs, "dq", **bound_kw),
-                     _bwd_bound(B, T, H, D, None, "dq", **bound_kw), None,
-                     "mh_flash_bwd_dq.cu", 301, None)):
+                     _bwd_bound(B, T, H, D, pairs, "dq", **tf32_kw),
+                     _bwd_bound(B, T, H, D, None, "dq", **tf32_kw), None,
+                     "mh_flash_bwd_dq.cu", 301, (_bwd_bound(B, T, H, D, pairs, "dq", **bound_kw),
+                                                 _bwd_bound(B, T, H, D, None, "dq",
+                                                            **bound_kw)))):
                 row(name, source, f"omnibiote_tpu/ops/flash_attention.py:{line}",
                     cuda_ms(fn, 10), None, cuda_ms(pfn, 2, warmup=1), bound, bound_all, lib,
                     errs[name], ffma)

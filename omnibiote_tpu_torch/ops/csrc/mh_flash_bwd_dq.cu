@@ -38,19 +38,18 @@
 // 6*B*T^2*H*D = 206 GFLOP over all (q, k) pairs (0.208 ms at 989 TFLOP/s),
 // less in proportion to the visible tiles on packed rows; q, k, v, do, dq,
 // lse2 and di are 169 MB (0.05 ms at 3.35 TB/s): bound by operations. The
-// fp32 kernel is the parity type and runs on the CUDA cores: the same
-// products over all pairs are 3.08 ms at the FP32 FFMA rate (67 TFLOP/s),
-// 338 MB of fp32 tensors 0.10 ms, so it too is bound by operations; its
-// design (mh_bwd_dq_f32's note) reads each shared operand once for 4 to 16
-// FFMA of register tiles.
+// fp32 kernel is the parity type and runs its products on the tensor cores
+// in 3xTF32, three TF32 products for each of the function's: 1.25 ms over
+// all pairs at 495 TFLOP/s (3.08 ms at the FP32 FFMA rate), 338 MB of fp32
+// tensors 0.10 ms, so it too is bound by operations (mh_bwd_dq_f32's note).
 //
 // Head dim 256. The q and dO tiles alone are 128 KB there, so the ring has
 // two stages of 32-row K and V tiles (64 KB), S and dP are m64n32k16
 // products (16 fp32 a thread each) beside dq's 128, and dQ += dS.K is two
 // m64n128k16 products on the halves of the accumulator. The q and dO
 // descriptors are formed inside the walk (hoisted, their 32 loop-invariant
-// descriptors spilled). The fp32 kernel walks 16-row kv tiles there (Q and
-// dO alone are 128 KB).
+// descriptors spilled). The fp32 kernel walks 16-row kv tiles there (its Q
+// and dO alone are 130 KB).
 //
 // Head dims past 256 (D % 128 == 0). In bf16 at D = 384 and 512,
 // mh_flash_bwd_pair.cuh::mh_bwd_dq_cta: a CTA owns a 64-row q tile with all
@@ -68,6 +67,7 @@
 #include "hopper.cuh"
 #include "mh_flash_bwd_pair.cuh"
 #include "philox.cuh"
+#include "tf32x3.cuh"
 #include "wide_attention.cuh"
 
 namespace {
@@ -458,67 +458,64 @@ __global__ void __launch_bounds__(kThreads, 1) mh_bwd_dq_wgmma(
 }
 
 // ---------------------------------------------------------------------------
-// fp32, the parity type: FP32 FFMA on the CUDA cores (no TF32: its 10-bit
-// mantissa would miss the fp32 tolerances). A CTA of 256 threads owns a
-// (batch, head, 64-row q tile): Q (rotated) and dO stay resident in shared
-// memory; K and V tiles of kF32Dq<D>::BKV rows (64, 16 at D = 256) arrive
-// by cp.async into a two-stage ring, the next tile's copies in flight while
-// the CTA works on this one. Per kv tile, two register-tiled SIMT passes:
-//   * S and dP: thread (rg, cg) owns NRP pairs of q rows {2 rg, 2 rg + 1}
-//     and NCP pairs of kv columns {2 cg, 2 cg + 1} (4 x 4 elements at BKV =
-//     64, 2 x 2 at 16) of both products; each 16-byte shared read of a q,
-//     dO, k or v row feeds 4 FFMA to every element of that row or column
-//     the thread holds; a row pair by a column pair is one Philox call of
-//     the keep-mask (philox.cuh); p, ds as the plain version rounds them;
-//     ds goes to shared memory, transposed (dS^T, kv-major);
-//   * dQ += dS.K: thread (rg, cg) owns RQ = D / 32 consecutive q rows by 4
-//     lanes d and their rotate-half partners d + D/2 (D / 4 fp32 sums), so
-//     the inverse RoPE is formed in registers and dq is written once, with
-//     no atomics: two launches give the same bits.
-// Every sum runs in ascending d or kv order, one FFMA a term, as a plain
-// fp32 matrix product sums. Shared rows are padded by 4 floats, and K / V
-// rows are kept even rows first (smem row (j & 1) * BKV/2 + j/2), so a
-// warp's 8 column pairs read 8 consecutive padded rows: no bank conflicts
-// in either pass.
+// fp32, the parity type: all three products on the tensor cores in 3xTF32
+// (tf32x3.cuh: each operand split into two tf32 parts, three mma.sync
+// m16n8k8 products a step, fp32 accumulators), mh_fwd_f32's shape. A CTA
+// owns a (batch, head, 64-row q tile); warp w the q rows 16 (w % 4) .. +
+// 15, the rows of its A and C fragments, and past D = 64 (eight warps)
+// the columns [BKV/2 (w / 4), BKV/2 (w / 4 + 1)) of each kv tile.
+//   * Q (rotated in fp32 where RoPE is on) and dO stay in shared memory.
+//     K (rotated ahead) and V tiles of F32Dq<D>::BKV rows, with their kv
+//     ids, arrive by cp.async in a two-stage ring, the next tile's copies
+//     in flight while the CTA works on this one; every thread issues its
+//     share (no producer warp).
+//   * S = Q.K^T and dP = dO.V^T per 8-lane k-step: the warp's Q and dO A
+//     fragments are split once and used on its 8-column blocks of the
+//     tile; K's and V's B fragments are their rows (both operands K-major);
+//     the small terms in accumulators of their own (tf32x3.cuh::mma3_apart).
+//   * p, the keep-mask on dp (one Philox call a row pair by a column pair,
+//     drawn on the C fragments as the forward draws it) and ds on the C
+//     fragments, rounded as the plain version rounds them.
+//   * dQ += dS.K over the warp's columns: dS's C fragments are the A
+//     operand in tf32x3.cuh's permuted k order; K's B fragments are read
+//     down its columns (rows 2 t and 2 t + 1). The D / 8 column blocks are
+//     D / 8 independent chains, so the three products go into one
+//     accumulator (mma3).
+//   * With eight warps the second column half's dQ sums go through the
+//     ring (free by then) in fragment order and are added to the first's:
+//     one order, so two launches give the same bits. dq is rotated back by
+//     -angle in registers (lanes d and d + D/2 are blocks n and n + D/16 of
+//     the same thread) and written once, with no atomics. A skipped kv tile
+//     would have added exact zeros, so skipping on gives the bits of every
+//     tile.
+// The tiles: 32-row kv tiles at D = 64 on four warps (two CTAs an SM, by
+// registers); 64-row tiles at D = 128 on eight warps, one CTA an SM (203
+// KB); 16-row tiles at D = 256 (the 130 KB of Q and dO leave room for no
+// more) on eight warps: at each D the fastest of 16-, 32- and 64-row tiles
+// on four or eight warps (PERF.md §6).
+// Why mma.sync and not wgmma: wgmma takes tf32 operands K-major only, and
+// dQ's K is MN-major (a transposed copy, and every operand split into hi
+// and lo copies, would take 4 x the tiles' shared memory). Shared rows are
+// padded by 4 floats (D + 4 = 4 mod 32): the Q, dO, K and V row reads (rows
+// g, columns t) and K's column reads (rows 2 t, columns g) of a warp fall in
+// 32 distinct banks. Bound: three tensor-core products for each of the
+// function's: at 8 x 128, B=8, T=2048 the 6 flops a (q, k) pair, head and
+// head dim over all pairs are 206 GFLOP, at least 1.25 ms at 495 TFLOP/s
+// TF32 (3.08 ms at the FP32 FFMA rate).
 // ---------------------------------------------------------------------------
-constexpr int kF32Bq = 64, kF32Threads = 256;
-
 template <int D>
-struct kF32Dq {
-  static constexpr int BKV = D == 256 ? 16 : 64;      // kv tile rows
-  static constexpr int LD = D + 4;                    // padded row stride (floats)
-  static constexpr int DS_LD = kF32Bq + 4;            // dS^T row stride (floats)
-  static constexpr int NRP = BKV >= 32 ? 2 : 1;       // q-row pairs a thread (S, dP)
-  static constexpr int NCP = BKV / 16 / NRP;          // kv-column pairs a thread
-  static constexpr int ROW_STEP = kF32Bq / NRP;       // between a thread's row pairs
-  static constexpr int COL_STEP = BKV / NCP;          // between its column pairs
-  static constexpr int N_CG = BKV / (2 * NCP);        // column-pair groups
-  static constexpr int RQ = D / 32;                   // dQ rows a thread
-  static constexpr int N_CGQ = D / 8;                 // dQ 4-lane groups of the low half
-  static_assert((kF32Bq / 2 / NRP) * N_CG == kF32Threads, "S tiling");
-  static_assert((kF32Bq / RQ) * N_CGQ == kF32Threads, "dQ tiling");
-  static_assert(N_CG % 8 == 0 && N_CGQ % 8 == 0, "8 column lanes a warp");
-  // floats: Q, dO (64 rows each), K and V (two stages each), dS^T; then the
-  // kv tiles' segment ids (two stages, int)
-  static constexpr size_t FLOATS = (size_t)(2 * kF32Bq + 4 * BKV) * LD + BKV * DS_LD;
+struct F32Dq {
+  // kv tile rows; warps on the columns of a tile (KVS x 4 warps)
+  static constexpr int BQ = 64, BKV = D == 256 ? 16 : D == 128 ? 64 : 32, KVS = D == 64 ? 1 : 2;
+  static constexpr int LD = D + 4, THREADS = 128 * KVS;
+  // floats: Q and dO, then K and V (two stages each); then the kv tiles' ids
+  static constexpr size_t FLOATS = (size_t)(2 * BQ + 4 * BKV) * LD;
   static constexpr size_t SMEM = FLOATS * 4 + 2 * BKV * 4;
-  // the shared row of kv row j of a tile: even rows first
-  __host__ __device__ static constexpr int kv_row(int j) { return (j & 1) * (BKV / 2) + (j >> 1); }
+  static_assert(KVS == 1 || 4 * BKV * LD >= BQ * D, "the ring holds the staged dQ");
 };
 
-__device__ __forceinline__ float4 lds4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void fma4(float& acc, const float4& a, const float4& b) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  acc = fmaf(a.w, b.w, acc);
-}
-
 template <int D, bool DROP>
-__global__ void __launch_bounds__(kF32Threads, 1) mh_bwd_dq_f32(
+__global__ void __launch_bounds__(F32Dq<D>::THREADS, 1) mh_bwd_dq_f32(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ di,
@@ -527,210 +524,196 @@ __global__ void __launch_bounds__(kF32Threads, 1) mh_bwd_dq_f32(
     const int* __restrict__ kv_hi, int* __restrict__ tile_count,
     float* __restrict__ dq, int T, int H, float scale_log2, float scale,
     DropParams dp) {
-  using G = kF32Dq<D>;
-  constexpr int BKV = G::BKV, LD = G::LD, HALF = D / 2, NR = 2 * G::NRP, NC = 2 * G::NCP;
+  using G = F32Dq<D>;
+  constexpr int BQ = G::BQ, BKV = G::BKV, LD = G::LD, HALF = D / 2;
+  constexpr int KVS = G::KVS, NS = BKV / 8 / KVS, NN = D / 8;
   extern __shared__ __align__(16) float f32_smem[];
   float* qs = f32_smem;
-  float* os = qs + kF32Bq * LD;
-  float* ks = os + kF32Bq * LD;
+  float* os = qs + BQ * LD;
+  float* ks = os + BQ * LD;
   float* vs = ks + 2 * BKV * LD;
-  float* ds_t = vs + 2 * BKV * LD;
   int* ksegs = reinterpret_cast<int*>(f32_smem + G::FLOATS);
 
   const int b = blockIdx.z, h = blockIdx.y, tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int q0 = blockIdx.x * kF32Bq;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int mt = warp & 3, kh = warp >> 2;  // m-tile, and share of each kv tile's columns
+  const int q0 = blockIdx.x * BQ;
   const size_t rs = (size_t)H * D;
   const size_t base = (size_t)b * T * rs + (size_t)h * D;
-  const bool seg = q_seg != nullptr;
+  const bool seg = kv_seg != nullptr;
 
   int jt0 = 0, jt1 = T / BKV - 1;
   if (kv_lo != nullptr) {
-    jt0 = kv_lo[b * (T / kF32Bq) + blockIdx.x];
-    jt1 = kv_hi[b * (T / kF32Bq) + blockIdx.x];
+    jt0 = kv_lo[b * (T / BQ) + blockIdx.x];
+    jt1 = kv_hi[b * (T / BQ) + blockIdx.x];
   }
-  if (tile_count != nullptr && tid == 0) atomicAdd(tile_count, jt1 - jt0 + 1);
+  const int n_tiles = jt1 - jt0 + 1;
+  if (tile_count != nullptr && tid == 0) atomicAdd(tile_count, n_tiles);
 
-  // K and V rows of kv tile jt (and its segment ids) into ring stage `stage`
+  // K and V rows of kv tile jt (and its kv ids) into ring stage `stage`
   auto load_kv = [&](int stage, int jt) {
     const int j0 = jt * BKV;
     float* kd = ks + stage * BKV * LD;
     float* vd = vs + stage * BKV * LD;
-    for (int it = tid; it < BKV * (D / 4); it += kF32Threads) {
+    for (int it = tid; it < BKV * (D / 4); it += G::THREADS) {
       const int r = it / (D / 4), c = (it % (D / 4)) * 4;
       const size_t off = base + (size_t)(j0 + r) * rs + c;
-      cp_async16(kd + G::kv_row(r) * LD + c, k + off);
-      cp_async16(vd + G::kv_row(r) * LD + c, v + off);
+      cp_async16(kd + r * LD + c, k + off);
+      cp_async16(vd + r * LD + c, v + off);
     }
     if (seg && tid < BKV / 4)
       cp_async16(ksegs + stage * BKV + 4 * tid, kv_seg + (size_t)b * T + j0 + 4 * tid);
   };
-
-  if (jt0 <= jt1) load_kv(0, jt0);
-  for (int it = tid; it < kF32Bq * (D / 4); it += kF32Threads) {
+  if (n_tiles > 0) load_kv(0, jt0);
+  for (int it = tid; it < BQ * (D / 4); it += G::THREADS) {
     const int r = it / (D / 4), c = (it % (D / 4)) * 4;
     cp_async16(os + r * LD + c, dout + base + (size_t)(q0 + r) * rs + c);
   }
   cp_async_commit();
-  rows_rotated_f32<D>(qs, LD, q + base + (size_t)q0 * rs, rs, kF32Bq, cos_t, sin_t, q0, tid,
-                      kF32Threads);
+  rows_rotated_f32<D>(qs, LD, q + base + (size_t)q0 * rs, rs, BQ, cos_t, sin_t, q0, tid,
+                      G::THREADS);
 
-  // S / dP ownership: 8 column-pair lanes by 4 row-pair lanes a warp
-  const int s_wc = warp % (G::N_CG / 8), s_wr = warp / (G::N_CG / 8);
-  const int cg = 8 * s_wc + (lane & 7), rg = 4 * s_wr + (lane >> 3);
-  int srow[NR];
-  float lse_r[NR], di_r[NR];
-  int qs_r[NR];
+  const int r0 = mt * 16 + g;  // this thread's q rows r0 and r0 + 8 of the tile
+  const size_t sr0 = ((size_t)b * T + q0 + r0) * H + h, sr1 = sr0 + (size_t)8 * H;
+  const float lse0 = lse[sr0], lse1 = lse[sr1], di0 = di[sr0], di1 = di[sr1];
+  const int qs0 = seg ? q_seg[(size_t)b * T + q0 + r0] : 0;
+  const int qs1 = seg ? q_seg[(size_t)b * T + q0 + r0 + 8] : 0;
+  float acc[NN][4];
 #pragma unroll
-  for (int r = 0; r < NR; ++r) {
-    srow[r] = 2 * rg + (r & 1) + G::ROW_STEP * (r >> 1);
-    const size_t row = (size_t)b * T + q0 + srow[r];
-    lse_r[r] = lse[row * H + h];
-    di_r[r] = di[row * H + h];
-    qs_r[r] = seg ? q_seg[row] : 0;
-  }
-  int scol[NC], skrow[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    scol[c] = 2 * cg + (c & 1) + G::COL_STEP * (c >> 1);
-    skrow[c] = G::kv_row(scol[c]);
-  }
-  // dQ ownership: 8 lane groups by 4 row groups a warp
-  const int q_wc = warp % (G::N_CGQ / 8), q_wr = warp / (G::N_CGQ / 8);
-  const int cgq = 8 * q_wc + (lane & 7), rgq = 4 * q_wr + (lane >> 3);
-  float acc[G::RQ][8];
-#pragma unroll
-  for (int r = 0; r < G::RQ; ++r)
-#pragma unroll
-    for (int e = 0; e < 8; ++e) acc[r][e] = 0.f;
+  for (int n = 0; n < NN; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  const float* qa = qs + r0 * LD + t4;  // the A fragments' first elements
+  const float* oa = os + r0 * LD + t4;
 
-  const uint32_t bh = (uint32_t)(b * H + h);
-  int stage = 0;
-  for (int jt = jt0; jt <= jt1; ++jt, stage ^= 1) {
-    if (jt < jt1) load_kv(stage ^ 1, jt + 1);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it & 1, jt = jt0 + it;
+    if (it + 1 < n_tiles) load_kv(st ^ 1, jt + 1);
     cp_async_commit();
     cp_async_wait<1>();
-    __syncthreads();
-    const float* kt = ks + stage * BKV * LD;
-    const float* vt = vs + stage * BKV * LD;
+    __syncthreads();  // tile it (and, the first time, Q and dO) is in for every thread
+    const int col0 = kh * NS * 8;  // this warp's first kv column of the tile
+    const float* kt = ks + (st * BKV + col0) * LD;
+    const float* vt = vs + (st * BKV + col0) * LD;
 
-    // S = Q.K^T and dP = dO.V^T on this thread's NR x NC elements
-    float s[NR][NC], dpv[NR][NC];
+    // S = Q.K^T and dP = dO.V^T: element e of block n is (q row r0 + 8 (e
+    // >> 1), kv column col0 + 8 n + 2 t4 + (e & 1)) (the small terms apart
+    // until the k-steps are done)
+    float s[NS][4], ssm[NS][4], dpv[NS][4], dsm[NS][4];
 #pragma unroll
-    for (int r = 0; r < NR; ++r)
+    for (int n = 0; n < NS; ++n)
 #pragma unroll
-      for (int c = 0; c < NC; ++c) s[r][c] = dpv[r][c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qa[NR], ka[NC];
+      for (int e = 0; e < 4; ++e) s[n][e] = ssm[n][e] = dpv[n][e] = dsm[n][e] = 0.f;
 #pragma unroll
-      for (int r = 0; r < NR; ++r) qa[r] = lds4(qs + srow[r] * LD + d);
+    for (int kk = 0; kk < NN; ++kk) {
+      const float* a = qa + kk * 8;
+      const x3::AFrag qf = x3::split_a(a[0], a[8 * LD], a[4], a[8 * LD + 4]);
 #pragma unroll
-      for (int c = 0; c < NC; ++c) ka[c] = lds4(kt + skrow[c] * LD + d);
+      for (int n = 0; n < NS; ++n) {
+        const float* bp = kt + (n * 8 + g) * LD + kk * 8 + t4;
+        x3::mma3_apart(s[n], ssm[n], qf, bp[0], bp[4]);
+      }
+      const float* o = oa + kk * 8;
+      const x3::AFrag of = x3::split_a(o[0], o[8 * LD], o[4], o[8 * LD + 4]);
 #pragma unroll
-      for (int r = 0; r < NR; ++r)
-#pragma unroll
-        for (int c = 0; c < NC; ++c) fma4(s[r][c], qa[r], ka[c]);
-#pragma unroll
-      for (int r = 0; r < NR; ++r) qa[r] = lds4(os + srow[r] * LD + d);
-#pragma unroll
-      for (int c = 0; c < NC; ++c) ka[c] = lds4(vt + skrow[c] * LD + d);
-#pragma unroll
-      for (int r = 0; r < NR; ++r)
-#pragma unroll
-        for (int c = 0; c < NC; ++c) fma4(dpv[r][c], qa[r], ka[c]);
-    }
-    // p = exp2(s2 - lse2), the keep-mask on dP, ds = p (dP - di) scale;
-    // dS^T[j][i] as pairs of q rows
-    const int j0 = jt * BKV;
-#pragma unroll
-    for (int rp = 0; rp < G::NRP; ++rp) {
-#pragma unroll
-      for (int cp = 0; cp < G::NCP; ++cp) {
-        Philox4 u;
-        if constexpr (DROP)
-          u = dropout_bits(dp.seed, bh, q0 + srow[2 * rp], j0 + scol[2 * cp]);
-#pragma unroll
-        for (int c = 2 * cp; c < 2 * cp + 2; ++c) {
-          const int kseg_c = seg ? ksegs[stage * BKV + scol[c]] : 0;
-          float ds2[2];
-#pragma unroll
-          for (int r = 2 * rp; r < 2 * rp + 2; ++r) {
-            const float p = exp2f(score(s[r][c], scale_log2, qs_r[r], kseg_c) - lse_r[r]);
-            float dpp = dpv[r][c];
-            if constexpr (DROP) {
-              const uint32_t bits = u.w[2 * (r & 1) + (c & 1)];
-              dpp = bits >= dp.thresh ? dpp * dp.keep_scale : 0.f;
-            }
-            ds2[r & 1] = __fmul_rn(__fmul_rn(p, __fsub_rn(dpp, di_r[r])), scale);
-          }
-          *reinterpret_cast<float2*>(ds_t + scol[c] * G::DS_LD + srow[2 * rp]) =
-              make_float2(ds2[0], ds2[1]);
-        }
+      for (int n = 0; n < NS; ++n) {
+        const float* bp = vt + (n * 8 + g) * LD + kk * 8 + t4;
+        x3::mma3_apart(dpv[n], dsm[n], of, bp[0], bp[4]);
       }
     }
-    __syncthreads();
 
-    // dQ += dS.K on this thread's RQ rows x (4 lanes d, their d + D/2)
-#pragma unroll 8
-    for (int j = 0; j < BKV; ++j) {
-      float dsv[G::RQ];
-      const float* dsr = ds_t + j * G::DS_LD + G::RQ * rgq;
-      if constexpr (G::RQ == 2) {
-        const float2 x = *reinterpret_cast<const float2*>(dsr);
-        dsv[0] = x.x;
-        dsv[1] = x.y;
-      } else {
+    // p = exp2(s2 - lse2), the keep-mask on dP, ds = p (dP - di) scale
+    uint32_t keep = ~0u;  // bit 4 n + e: element e of block n is kept
+    if constexpr (DROP) {
+      // One Philox call covers rows 2i, 2i + 1 of a column pair: the even
+      // lane of g, g ^ 1 draws the pair block of its rows r0, r0 + 1, the
+      // odd lane that of r0 + 7, r0 + 8, and each hands the partner the
+      // words of the partner's row (as the forward kernel draws them).
+      const bool odd = g & 1;
+      const int row = q0 + (odd ? r0 + 8 : r0);
+      keep = 0;
 #pragma unroll
-        for (int r4 = 0; r4 < G::RQ; r4 += 4) {
-          const float4 x = lds4(dsr + r4);
-          dsv[r4] = x.x;
-          dsv[r4 + 1] = x.y;
-          dsv[r4 + 2] = x.z;
-          dsv[r4 + 3] = x.w;
-        }
-      }
-      const float* kr = kt + G::kv_row(j) * LD + 4 * cgq;
-      const float4 klo = lds4(kr), khi = lds4(kr + HALF);
-#pragma unroll
-      for (int r = 0; r < G::RQ; ++r) {
-        acc[r][0] = fmaf(dsv[r], klo.x, acc[r][0]);
-        acc[r][1] = fmaf(dsv[r], klo.y, acc[r][1]);
-        acc[r][2] = fmaf(dsv[r], klo.z, acc[r][2]);
-        acc[r][3] = fmaf(dsv[r], klo.w, acc[r][3]);
-        acc[r][4] = fmaf(dsv[r], khi.x, acc[r][4]);
-        acc[r][5] = fmaf(dsv[r], khi.y, acc[r][5]);
-        acc[r][6] = fmaf(dsv[r], khi.z, acc[r][6]);
-        acc[r][7] = fmaf(dsv[r], khi.w, acc[r][7]);
+      for (int n = 0; n < NS; ++n) {
+        const Philox4 u = dropout_bits(dp.seed, b * H + h, row, jt * BKV + col0 + n * 8 + 2 * t4);
+        const uint32_t y0 = __shfl_xor_sync(0xffffffffu, odd ? u.w[0] : u.w[2], 4);
+        const uint32_t y1 = __shfl_xor_sync(0xffffffffu, odd ? u.w[1] : u.w[3], 4);
+        const uint32_t a0 = odd ? y0 : u.w[0], a1 = odd ? y1 : u.w[1];  // row r0
+        const uint32_t c0 = odd ? u.w[2] : y0, c1 = odd ? u.w[3] : y1;  // row r0 + 8
+        const uint32_t k4 = (uint32_t)(a0 >= dp.thresh) | (uint32_t)(a1 >= dp.thresh) << 1 |
+                            (uint32_t)(c0 >= dp.thresh) << 2 | (uint32_t)(c1 >= dp.thresh) << 3;
+        keep |= k4 << (4 * n);
       }
     }
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-
-  // dq rotated back by -angle in fp32, one write of each element
+    const int* sg = ksegs + st * BKV + col0;
 #pragma unroll
-  for (int r = 0; r < G::RQ; ++r) {
-    const int t = q0 + G::RQ * rgq + r;
-    float* out = dq + base + (size_t)t * rs + 4 * cgq;
-    float lo[4], hi[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      lo[e] = acc[r][e];
-      hi[e] = acc[r][4 + e];
-    }
-    if (cos_t != nullptr) {
-      const float4 cs = *reinterpret_cast<const float4*>(cos_t + (size_t)t * HALF + 4 * cgq);
-      const float4 sn = *reinterpret_cast<const float4*>(sin_t + (size_t)t * HALF + 4 * cgq);
-      const float c4[4] = {cs.x, cs.y, cs.z, cs.w}, s4[4] = {sn.x, sn.y, sn.z, sn.w};
+    for (int n = 0; n < NS; ++n) {
+      const int2 k2 = seg ? *reinterpret_cast<const int2*>(sg + n * 8 + 2 * t4) : make_int2(0, 0);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        lo[e] = rope_inv_lo(acc[r][e], acc[r][4 + e], c4[e], s4[e]);
-        hi[e] = rope_inv_hi(acc[r][e], acc[r][4 + e], c4[e], s4[e]);
+        const int kseg = (e & 1) ? k2.y : k2.x, qseg = (e >> 1) ? qs1 : qs0;
+        const float lr = (e >> 1) ? lse1 : lse0, dr = (e >> 1) ? di1 : di0;
+        const float p =
+            exp2f(score(s[n][e] + ssm[n][e], scale_log2, qseg, kseg) - lr);
+        float d = dpv[n][e] + dsm[n][e];
+        if constexpr (DROP) d = (keep >> (4 * n + e)) & 1 ? d * dp.keep_scale : 0.f;
+        s[n][e] = __fmul_rn(__fmul_rn(p, __fsub_rn(d, dr)), scale);
       }
     }
-    *reinterpret_cast<float4*>(out) = make_float4(lo[0], lo[1], lo[2], lo[3]);
-    *reinterpret_cast<float4*>(out + HALF) = make_float4(hi[0], hi[1], hi[2], hi[3]);
+
+    // dQ += dS.K: k-step kk is score block kk, its kv rows in the permuted
+    // order (A fragment c0, c2, c1, c3; B rows 2 t4 and 2 t4 + 1)
+#pragma unroll
+    for (int kk = 0; kk < NS; ++kk) {
+      const x3::AFrag sf = x3::split_a(s[kk][0], s[kk][2], s[kk][1], s[kk][3]);
+      const float* bp = kt + (kk * 8 + 2 * t4) * LD + g;
+#pragma unroll
+      for (int n = 0; n < NN; ++n) x3::mma3(acc[n], sf, bp[n * 8], bp[LD + n * 8]);
+    }
+    __syncthreads();  // every read of this stage is done before it is refilled
+  }
+  cp_async_wait<0>();
+  if constexpr (KVS == 2) {
+    // the second column half's sums, through the ring in fragment order
+    // (the walk's last barrier follows every read of the ring)
+    float* stg = ks + mt * NN * 4 * 32 + lane;
+    if (kh == 1) {
+#pragma unroll
+      for (int n = 0; n < NN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) stg[(n * 4 + e) * 32] = acc[n][e];
+    }
+    __syncthreads();
+    if (kh == 1) return;
+#pragma unroll
+    for (int n = 0; n < NN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += stg[(n * 4 + e) * 32];
+  }
+
+  // dq rotated back by -angle in fp32, one write of each element
+  float* out0 = dq + base + (size_t)(q0 + r0) * rs + 2 * t4;
+  if (cos_t != nullptr) {
+#pragma unroll
+    for (int n = 0; n < NN / 2; ++n) {
+      const int col = n * 8 + 2 * t4;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = q0 + r0 + 8 * r;
+        const float2 c = *reinterpret_cast<const float2*>(cos_t + (size_t)row * HALF + col);
+        const float2 sn = *reinterpret_cast<const float2*>(sin_t + (size_t)row * HALF + col);
+        const float x1a = acc[n][2 * r], x1b = acc[n][2 * r + 1];
+        const float x2a = acc[n + NN / 2][2 * r], x2b = acc[n + NN / 2][2 * r + 1];
+        float* o = out0 + (size_t)(8 * r) * rs + n * 8;
+        *reinterpret_cast<float2*>(o) =
+            make_float2(rope_inv_lo(x1a, x2a, c.x, sn.x), rope_inv_lo(x1b, x2b, c.y, sn.y));
+        *reinterpret_cast<float2*>(o + HALF) =
+            make_float2(rope_inv_hi(x1a, x2a, c.x, sn.x), rope_inv_hi(x1b, x2b, c.y, sn.y));
+      }
+    }
+  } else {
+#pragma unroll
+    for (int n = 0; n < NN; ++n) {
+      *reinterpret_cast<float2*>(out0 + n * 8) = make_float2(acc[n][0], acc[n][1]);
+      *reinterpret_cast<float2*>(out0 + 8 * rs + n * 8) = make_float2(acc[n][2], acc[n][3]);
+    }
   }
 }
 
@@ -743,18 +726,10 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v, const flo
   // the shared-memory limit belongs to the instance on a device: set it at
   // the first launch on each device
   static std::atomic<uint64_t> smem_set{0};
-  constexpr size_t smem = kF32Dq<D>::SMEM;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  using G = F32Dq<D>;
+  cudaError_t e = obt::wide::allow_smem(mh_bwd_dq_f32<D, DROP>, G::SMEM, smem_set);
   if (e != cudaSuccess) return e;
-  const uint64_t dev_bit = 1ull << (dev & 63);
-  if (!(smem_set.load(std::memory_order_acquire) & dev_bit)) {
-    e = cudaFuncSetAttribute(mh_bwd_dq_f32<D, DROP>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-    smem_set.fetch_or(dev_bit, std::memory_order_release);
-  }
-  mh_bwd_dq_f32<D, DROP><<<dim3(T / kF32Bq, H, B), kF32Threads, smem, st>>>(
+  mh_bwd_dq_f32<D, DROP><<<dim3(T / G::BQ, H, B), G::THREADS, G::SMEM, st>>>(
       q, k, v, dout, lse, di, q_seg, kv_seg, cos_t, sin_t, kv_lo, kv_hi, tile_count, dq, T, H,
       scale_log2, scale, dp);
   return cudaGetLastError();
@@ -840,7 +815,7 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, const void* do
 
 // T multiple of each dtype's kernel: the bf16 CTA's 128 q rows; the fp32
 // CTA's 64
-constexpr int kBf16TMultiple = kBq, kF32TMultiple = kF32Bq;
+constexpr int kBf16TMultiple = kBq, kF32TMultiple = F32Dq<64>::BQ;
 
 bool shape_ok(int B, int T, int H, int t_multiple) {
   return B >= 1 && B <= 65535 && H >= 1 && H <= 65535 && T >= t_multiple &&
@@ -867,8 +842,8 @@ const char* dq_route(int D, int dtype) {
 // and type, and so is q_rot past 256 but for bf16 at 384 and 512 (where
 // the kernel rotates q itself; else it may be null). kv_lo and
 // kv_hi, both null or both int32 (B, T / q tile) in units of the dtype's kv
-// tile (q tile 128 and kv tile 64 (32 at D = 256) for bf16, 64 and 64 (16
-// at D = 256) for fp32, 64 and 64 past 256), bound the kv tiles
+// tile (q tile 128 and kv tile 64 (32 at D = 256) for bf16, 64 and 64 (32
+// at D = 64, 16 at 256) for fp32, 64 and 64 past 256), bound the kv tiles
 // each q tile walks; tile_count is null or one int32 that the walked tiles
 // are added to. drop != 0 applies the forward's dropout (thresh,
 // keep_scale, seed as in obt_mh_flash_fwd). Returns cudaGetLastError()

@@ -1,6 +1,7 @@
 // fp32 products on the tensor cores with a 3xTF32 split, for the fp32
-// attention kernels (mh_flash_fwd.cu::mh_fwd_f32 and
-// mh_flash_bwd_kernels.cuh::mh_bwd_f32).
+// attention kernels (mh_flash_fwd.cu::mh_fwd_f32,
+// mh_flash_bwd_kernels.cuh::mh_bwd_f32 and
+// mh_flash_bwd_dq.cu::mh_bwd_dq_f32).
 //
 // An fp32 operand x becomes hi = tf32(x) and lo = tf32(x - hi), both
 // rounded to nearest, ties to even (cvt.rn.tf32.f32): x - hi is exact, and
@@ -19,10 +20,10 @@
 //   B (8 x 8):  b0 (k t, n g), b1 (k t + 4, n g)
 //   C (16 x 8): c0 (g, 2 t), c1 (g, 2 t + 1), c2 (g + 8, 2 t), c3 (g + 8, 2 t + 1)
 // A product whose A operand is a C fragment of an earlier one (P.V, dV, dK
-// from P^T and dS^T) takes its 8 k indices in the order 0, 2, 4, 6 for
-// k = 0..3 and 1, 3, 5, 7 for k = 4..7: then a0..a3 are c0, c2, c1, c3 with
-// no shuffle, and its B fragment reads rows 2 t and 2 t + 1. The sum over k
-// is the same sum in another order.
+// from P^T and dS^T, the dq kernel's dQ from dS) takes its 8 k indices in
+// the order 0, 2, 4, 6 for k = 0..3 and 1, 3, 5, 7 for k = 4..7: then
+// a0..a3 are c0, c2, c1, c3 with no shuffle, and its B fragment reads rows
+// 2 t and 2 t + 1. The sum over k is the same sum in another order.
 #pragma once
 #include <stdint.h>
 
@@ -82,9 +83,9 @@ __device__ __forceinline__ void mma3(float (&c)[4], const AFrag& a, float b0, fl
 
 // The same with the small terms in an accumulator of their own: two
 // dependency chains a block in place of one three times as long, for the
-// products whose warp tile has few column blocks (S, S^T, dP^T, dQ), where
-// the chain's latency, not the issue rate, would set the pace. The sum is
-// big + small once the k-steps are done.
+// products whose warp tile has few column blocks (S, S^T, dP, dP^T and
+// mh_bwd_f32's dQ), where the chain's latency, not the issue rate, would
+// set the pace. The sum is big + small once the k-steps are done.
 __device__ __forceinline__ void mma3_apart(float (&big)[4], float (&small)[4], const AFrag& a,
                                            float b0, float b1) {
   uint32_t bh0, bl0, bh1, bl1;

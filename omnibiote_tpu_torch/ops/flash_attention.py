@@ -109,14 +109,14 @@ KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 # The forward kernel's kv tile per dtype at head dims 64 and 128 (its online
 # softmax rounds P per tile); `kernel_kv_tile` gives it at any built D.
 KERNEL_KV_TILE = {torch.bfloat16: 128, torch.float32: 32}
-# (q tile, kv tile) of each kernel per dtype at head dims 64 and 128: the
-# forward and the dq kernel own a q tile and walk kv tiles; the fused
-# backward and the dkv kernel own a kv tile and walk q tiles. The dkv
-# kernel is the fused kernel without its dq, on the same tiles, in both
-# dtypes; the fp32 dq kernel keeps a 64-row q tile's Q and dO in shared
-# memory, the fp32 forward its 64-row Q, the fp32 fused kernel its 64 kv
-# rows' K and V (3xTF32 on the tensor cores, mma.sync's 16-row fragments
-# a warp).
+# (q tile, kv tile) of each kernel per dtype at head dims 64 and 128 (but
+# the fp32 dq kernel's at 64: KERNEL_TILES_BY_HEAD_DIM): the forward and
+# the dq kernel own a q tile and walk kv tiles; the fused backward and the
+# dkv kernel own a kv tile and walk q tiles. The dkv kernel is the fused
+# kernel without its dq, on the same tiles, in both dtypes; the fp32 dq
+# kernel keeps a 64-row q tile's Q and dO in shared memory, the fp32
+# forward its 64-row Q, the fp32 fused kernel its 64 kv rows' K and V
+# (3xTF32 on the tensor cores, mma.sync's 16-row fragments a warp).
 KERNEL_TILES = {
     "fwd": {torch.bfloat16: (128, 128), torch.float32: (64, 32)},
     "fused": {torch.bfloat16: (64, 128), torch.float32: (32, 64)},
@@ -131,7 +131,9 @@ KERNEL_TILES = {
 # tiles; the fp32 fused and dkv kernels walk 16-row q tiles (eight warps,
 # two head-dim parts; K and V of 64 kv rows are 130 KB), the fp32 dq kernel
 # 16-row kv tiles (a two-stage K and V ring beside the 128 KB of its q
-# tile's Q and dO).
+# tile's Q and dO). At D = 64 the fp32 dq kernel walks 32-row kv tiles on
+# four warps (two CTAs an SM), measured faster there than D = 128's 64-row
+# tiles on eight.
 KERNEL_TILES_BY_HEAD_DIM = {
     256: {
         "fwd": {torch.bfloat16: (128, 64), torch.float32: (64, 32)},
@@ -139,6 +141,7 @@ KERNEL_TILES_BY_HEAD_DIM = {
         "dkv": {torch.bfloat16: (64, 64), torch.float32: (16, 64)},
         "dq": {torch.bfloat16: (128, 32), torch.float32: (64, 16)},
     },
+    64: {**KERNEL_TILES, "dq": {torch.bfloat16: (128, 64), torch.float32: (64, 32)}},
 }
 # The tiles past 256 up to WIDE_FWD_MAX_HEAD_DIM. The bf16 forward there
 # (mh_flash_fwd.cu::mh_fwd_wide_wgmma) gives a CTA 64 q rows and all D
